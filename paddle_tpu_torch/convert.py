@@ -1,0 +1,32 @@
+"""Carry weights from the JAX package into the port.
+
+``state_from_numpy`` takes the JAX package's scope as numpy arrays (name ->
+array, e.g. ``{n: np.asarray(scope.find_var(n)) for n in scope.var_names()}``)
+and returns torch tensors under the same names. Parameter names are the same
+in both packages' models, so the result loads straight into a program built
+by the port's DSL.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .core.executor import Scope, resolve_device, tensor_from_numpy  # noqa: F401
+
+
+def state_from_numpy(arrays: Dict[str, np.ndarray], device=None,
+                     dtype_tags: Dict[str, str] = None) -> Dict[str, torch.Tensor]:
+    """name -> numpy array  =>  name -> tensor on ``device`` (None: the card).
+    ``dtype_tags`` names the uint16 arrays that hold bfloat16 bits. Integer
+    widths are kept: int32 stays int32, int64 stays int64."""
+    dev = resolve_device(device)
+    tags = dtype_tags or {}
+    return {n: tensor_from_numpy(a, tags.get(n)).to(dev) for n, a in arrays.items()}
+
+
+def load_state(scope: Scope, state: Dict[str, torch.Tensor]) -> None:
+    """Put ``state`` (name -> tensor) into a port Scope."""
+    for n, t in state.items():
+        scope.set_var(n, t)

@@ -1,0 +1,111 @@
+"""LayerHelper: shared plumbing for layers (the port's copy of
+``paddle_tpu/layer_helper.py``).
+
+Creates parameters (with default initializers + startup-program registration),
+temp output vars, and applies activations / bias.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+from . import initializer as init_mod
+from . import unique_name
+from .framework import Parameter, Variable, default_main_program, default_startup_program
+
+
+class ParamAttr:
+    def __init__(self, name=None, initializer=None, learning_rate=1.0,
+                 regularizer=None, trainable=True, gradient_clip=None,
+                 do_model_average=True):
+        self.name = name
+        self.initializer = initializer
+        self.learning_rate = learning_rate
+        self.regularizer = regularizer
+        self.trainable = trainable
+        self.gradient_clip = gradient_clip
+        self.do_model_average = do_model_average
+
+    @staticmethod
+    def _to_attr(arg):
+        if arg is None:
+            return ParamAttr()
+        if isinstance(arg, ParamAttr):
+            return arg
+        if isinstance(arg, str):
+            return ParamAttr(name=arg)
+        if arg is False:
+            return False
+        if isinstance(arg, init_mod.Initializer):
+            return ParamAttr(initializer=arg)
+        raise TypeError(f"cannot interpret param_attr: {arg!r}")
+
+
+class LayerHelper:
+    def __init__(self, layer_type: str, **kwargs):
+        self.kwargs = kwargs
+        self.layer_type = layer_type
+        name = kwargs.get("name")
+        self.name = name if name else unique_name.generate(layer_type)
+
+    @property
+    def main_program(self):
+        return default_main_program()
+
+    @property
+    def startup_program(self):
+        return default_startup_program()
+
+    def append_op(self, *args, **kwargs):
+        return self.main_program.current_block().append_op(*args, **kwargs)
+
+    def create_variable_for_type_inference(self, dtype="float32",
+                                           stop_gradient=False) -> Variable:
+        return self.main_program.current_block().create_var(
+            unique_name.generate(".".join([self.name, "tmp"])), (), dtype,
+            stop_gradient=stop_gradient)
+
+    def create_parameter(self, attr, shape, dtype="float32", is_bias=False,
+                         default_initializer=None) -> Optional[Parameter]:
+        attr = ParamAttr._to_attr(attr)
+        if attr is False:
+            return None
+        if default_initializer is None:
+            default_initializer = (init_mod.Constant(0.0) if is_bias
+                                   else init_mod.Xavier())
+        initializer = attr.initializer or default_initializer
+        name = attr.name or unique_name.generate(
+            ".".join([self.name, "b" if is_bias else "w"]))
+        block = self.main_program.current_block()
+        p = block.create_parameter(
+            name, shape, dtype, trainable=attr.trainable,
+            regularizer=attr.regularizer, gradient_clip=attr.gradient_clip,
+            do_model_average=attr.do_model_average, initializer=initializer)
+        p.optimize_attr = {"learning_rate": attr.learning_rate}
+        startup_block = self.startup_program.global_block()
+        if not any(name in op.output_arg_names() for op in startup_block.ops):
+            initializer(p, startup_block)
+        return p
+
+    def append_bias_op(self, x: Variable, dim_start=1, bias_attr=None) -> Variable:
+        size = x.shape[dim_start:]
+        bias_attr = self.kwargs.get("bias_attr", bias_attr)
+        if bias_attr is False:
+            return x
+        b = self.create_parameter(bias_attr, [int(s) for s in size] or [1],
+                                  x.dtype, is_bias=True)
+        out = self.create_variable_for_type_inference(x.dtype)
+        self.append_op("elementwise_add", inputs={"X": [x], "Y": [b]},
+                       outputs={"Out": [out]}, attrs={"axis": dim_start})
+        return self.main_program.current_block().var(out.name)
+
+    def append_activation(self, x: Variable, act=None) -> Variable:
+        act = self.kwargs.get("act", act)
+        if act is None:
+            return x
+        if isinstance(act, str):
+            act = {"type": act}
+        act = dict(act)
+        act_type = act.pop("type")
+        out = self.create_variable_for_type_inference(x.dtype)
+        self.append_op(act_type, inputs={"X": [x]}, outputs={"Out": [out]}, attrs=act)
+        return self.main_program.current_block().var(out.name)

@@ -1,0 +1,182 @@
+"""Core NN layers DSL (the port's copy of the functions of
+``paddle_tpu/layers/nn.py`` that the BERT encoder calls).
+
+Each function builds ops into the default main program and parameters into
+the default startup program, with the same op types, slots, attrs and names
+as the JAX package's DSL, so both build the same Program.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ..layer_helper import LayerHelper
+
+
+def _out(helper, dtype="float32", stop_gradient=False):
+    return helper.create_variable_for_type_inference(dtype, stop_gradient)
+
+
+def _var(helper, v):
+    return helper.main_program.current_block().var(v.name)
+
+
+def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
+       act=None, name=None):
+    """y = act(x @ W + b), x flattened to 2D at ``num_flatten_dims``."""
+    helper = LayerHelper("fc", param_attr=param_attr, bias_attr=bias_attr, act=act,
+                         name=name)
+    tail = tuple(input.shape[num_flatten_dims:])
+    if any(d < 0 for d in tail):
+        raise ValueError(
+            f"fc: input {input.name} has a dynamic dim in the flattened tail "
+            f"{tail} (num_flatten_dims={num_flatten_dims}); only dims before "
+            f"num_flatten_dims may be -1")
+    w = helper.create_parameter(param_attr, [int(np.prod(tail)), size], input.dtype)
+    out = _out(helper, input.dtype)
+    helper.append_op("mul", inputs={"X": [input], "Y": [w]}, outputs={"Out": [out]},
+                     attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1})
+    pre_act = helper.append_bias_op(_var(helper, out), dim_start=num_flatten_dims)
+    return helper.append_activation(pre_act)
+
+
+def embedding(input, size, is_sparse=False, is_distributed=False,
+              padding_idx=None, param_attr=None, dtype="float32"):
+    helper = LayerHelper("embedding", param_attr=param_attr)
+    w = helper.create_parameter(param_attr, list(size), dtype)
+    out = _out(helper, dtype)
+    helper.append_op("lookup_table_v2", inputs={"W": [w], "Ids": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"padding_idx": -1 if padding_idx is None else padding_idx,
+                            "is_sparse": is_sparse,
+                            "is_distributed": is_distributed})
+    return _var(helper, out)
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1, epsilon=1e-5,
+               param_attr=None, bias_attr=None, act=None, name=None):
+    from ..initializer import Constant
+    helper = LayerHelper("layer_norm", act=act, name=name)
+    nshape = [int(np.prod(input.shape[begin_norm_axis:]))]
+    inputs = {"X": [input]}
+    if scale:
+        inputs["Scale"] = [helper.create_parameter(param_attr, nshape, input.dtype,
+                                                   default_initializer=Constant(1.0))]
+    if shift:
+        inputs["Bias"] = [helper.create_parameter(bias_attr, nshape, input.dtype,
+                                                  is_bias=True)]
+    y = _out(helper, input.dtype)
+    mean = _out(helper, "float32", stop_gradient=True)
+    var = _out(helper, "float32", stop_gradient=True)
+    helper.append_op("layer_norm", inputs=inputs,
+                     outputs={"Y": [y], "Mean": [mean], "Variance": [var]},
+                     attrs={"epsilon": epsilon, "begin_norm_axis": begin_norm_axis})
+    return helper.append_activation(_var(helper, y))
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    helper = LayerHelper("dropout", name=name)
+    out = _out(helper, x.dtype)
+    mask = _out(helper, x.dtype, stop_gradient=True)
+    helper.append_op("dropout", inputs={"X": [x]},
+                     outputs={"Out": [out], "Mask": [mask]},
+                     attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+                            "seed": seed if seed is not None else 0,
+                            "dropout_implementation": dropout_implementation})
+    return _var(helper, out)
+
+
+def _elementwise(op_type):
+    def layer(x, y, axis=-1, act=None, name=None):
+        helper = LayerHelper(op_type, act=act, name=name)
+        out = _out(helper, x.dtype)
+        helper.append_op(op_type, inputs={"X": [x], "Y": [y]},
+                         outputs={"Out": [out]}, attrs={"axis": axis})
+        return helper.append_activation(_var(helper, out))
+    layer.__name__ = op_type
+    return layer
+
+
+elementwise_add = _elementwise("elementwise_add")
+
+
+def gelu(x, name=None, approximate=None):
+    helper = LayerHelper("gelu", name=name)
+    out = _out(helper, x.dtype)
+    attrs = {} if approximate is None else {"approximate": approximate}
+    helper.append_op("gelu", inputs={"X": [x]}, outputs={"Out": [out]}, attrs=attrs)
+    return _var(helper, out)
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
+    helper = LayerHelper("scale", act=act, name=name)
+    out = _out(helper, x.dtype)
+    helper.append_op("scale", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"scale": float(scale), "bias": float(bias),
+                            "bias_after_scale": bias_after_scale})
+    return helper.append_activation(_var(helper, out))
+
+
+def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
+    helper = LayerHelper("reshape2", act=act, name=name)
+    out = _out(helper, x.dtype)
+    helper.append_op("reshape2", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"shape": [int(s) for s in shape]})
+    return helper.append_activation(_var(helper, out))
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose2", name=name)
+    out = _out(helper, x.dtype)
+    helper.append_op("transpose2", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"axis": list(perm)})
+    return _var(helper, out)
+
+
+def unsqueeze(input, axes, name=None):
+    helper = LayerHelper("unsqueeze2", name=name)
+    out = _out(helper, input.dtype)
+    helper.append_op("unsqueeze2", inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs={"axes": list(axes)})
+    return _var(helper, out)
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", name=name)
+    axis = dim % len(input.shape)
+    if isinstance(num_or_sections, int):
+        n = num_or_sections
+        attrs = {"num": n, "sections": [], "axis": axis}
+    else:
+        n = len(num_or_sections)
+        attrs = {"num": 0, "sections": list(num_or_sections), "axis": axis}
+    outs = [_out(helper, input.dtype) for _ in range(n)]
+    helper.append_op("split", inputs={"X": [input]}, outputs={"Out": outs}, attrs=attrs)
+    blk = helper.main_program.current_block()
+    return [blk.var(o.name) for o in outs]
+
+
+def cast(x, dtype):
+    from .tensor import cast as _cast
+    return _cast(x, dtype)
+
+
+def fused_attention(q, k, v, bias=None, scale=None, dropout_prob=0.0,
+                    causal=False, is_test=False, impl="auto", name=None):
+    """Fused scaled-dot-product attention over head-split tensors.
+
+    q/k/v: [B, heads, S, D]; bias: optional [B, 1, 1, S] additive mask. On a
+    CUDA device it lowers to the port's flash-attention kernel
+    (ops/flash_attention.py); on the CPU to its plain version.
+    """
+    helper = LayerHelper("fused_attention", name=name)
+    out = _out(helper, q.dtype)
+    inputs = {"Q": [q], "K": [k], "V": [v]}
+    if bias is not None:
+        inputs["Bias"] = [bias]
+    helper.append_op("fused_attention", inputs=inputs, outputs={"Out": [out]},
+                     attrs={"scale": float(scale) if scale else 0.0,
+                            "dropout_prob": float(dropout_prob),
+                            "causal": bool(causal), "is_test": bool(is_test),
+                            "impl": impl})
+    return _var(helper, out)

@@ -1,0 +1,2 @@
+"""Models built with the port's DSL."""
+from . import bert  # noqa: F401

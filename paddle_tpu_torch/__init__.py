@@ -22,6 +22,8 @@ from .layers.io import data  # noqa: F401
 from . import io  # noqa: F401
 from . import inference  # noqa: F401
 from . import convert  # noqa: F401
+from . import optimizer  # noqa: F401
+from .core.backward import append_backward, gradients  # noqa: F401
 from . import models  # noqa: F401
 
 __version__ = "0.1.0"

@@ -4,7 +4,12 @@
 array, e.g. ``{n: np.asarray(scope.find_var(n)) for n in scope.var_names()}``)
 and returns torch tensors under the same names. Parameter names are the same
 in both packages' models, so the result loads straight into a program built
-by the port's DSL.
+by the port's DSL. A training state carries across the same way: the
+optimizer's accumulators (``{param}_moment1_0``, ``{param}_moment2_0``,
+``{param}_beta1_pow_acc_0``, ``{param}_beta2_pow_acc_0``) and
+``learning_rate_0`` are named by ``unique_name`` in both packages, so a
+program built under ``unique_name.guard()`` in either names its persistable
+state identically.
 """
 from __future__ import annotations
 

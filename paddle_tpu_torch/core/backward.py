@@ -1,0 +1,230 @@
+"""Program-level reverse-mode autodiff: the port's copy of
+``paddle_tpu/core/backward.py``.
+
+``append_backward(loss)`` walks the block's ops in reverse, appending grad ops made by
+each op's grad maker (the generic autograd-based one by default, see
+core/registry.py), handling:
+  * multiple gradient contributions to one var -> renamed contributions summed by a
+    ``sum`` op (Fluid's @RENAME@ convention);
+  * stop_gradient / no_grad_set pruning;
+  * parameter collection -> (param, grad) list for optimizers.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Set, Tuple
+
+from ..framework import (Block, Parameter, Variable, grad_var_name)
+from . import registry
+from .registry import EMPTY_VAR
+
+
+def _find_contributing_ops(block: Block, wanted: Set[str]) -> Set[int]:
+    """Indices of ops that (transitively) contribute to computing ``wanted`` vars."""
+    needed = set(wanted)
+    keep = set()
+    for i in range(len(block.ops) - 1, -1, -1):
+        op = block.ops[i]
+        if any(n in needed for n in op.output_arg_names()):
+            keep.add(i)
+            needed.update(op.input_arg_names())
+    return keep
+
+
+class _GradState:
+    """Tracks per-var gradient contributions and merges them on demand.
+
+    Naming must be collision-free ACROSS backward passes: a second
+    ``gradients()`` / ``append_backward`` call over a program that already
+    holds grad vars (double gradients, gradient-penalty losses) must not
+    overwrite the earlier pass's vars -- canonical names are only claimed
+    when still free, otherwise a fresh @RENAME@ name (checked against the
+    block, not just this pass's contribution count) is used.
+    """
+
+    def __init__(self, block: Block):
+        self.block = block
+        self.contribs: Dict[str, List[str]] = {}
+        self._settled: Dict[str, str] = {}
+        self._uniq = 0
+
+    def seed(self, name: str, grad_name: str):
+        self.contribs[name] = [grad_name]
+        self._settled[name] = grad_name
+
+    def _fresh(self, base: str) -> str:
+        while True:
+            cand = f"{base}@RENAME@{self._uniq}"
+            self._uniq += 1
+            if not self.block.has_var(cand):
+                return cand
+
+    def settle(self, name: str) -> Optional[str]:
+        """Merge contributions for ``name`` into one grad var (the canonical
+        ``name@GRAD`` when free); None if no gradient flows to it.
+
+        Idempotent ONLY while no new contribution arrived since the last
+        settle: a seeded target that also receives flow from another target
+        (gradients([y, z], ...) with z downstream of y) re-merges."""
+        c = self.contribs.get(name)
+        if not c:
+            return None
+        settled = self._settled.get(name)
+        if settled is not None and c == [settled]:
+            return settled
+        canonical = grad_var_name(name)
+        if len(c) == 1 and c[0] == canonical:
+            self._settled[name] = canonical
+            return canonical
+        if self.block.has_var(canonical) and canonical not in c:
+            canonical = self._fresh(canonical)
+        if len(c) == 1:
+            self.block.append_op("assign", inputs={"X": [c[0]]},
+                                 outputs={"Out": [canonical]})
+        else:
+            self.block.append_op("sum", inputs={"X": list(c)},
+                                 outputs={"Out": [canonical]})
+        self.contribs[name] = [canonical]
+        self._settled[name] = canonical
+        return canonical
+
+    def add(self, name: str) -> str:
+        """Register a new contribution for ``name``; returns the (possibly renamed)
+        grad var name to write (the Fluid @RENAME@ vars)."""
+        existing = self.contribs.setdefault(name, [])
+        gname = grad_var_name(name)
+        if existing or self.block.has_var(gname):
+            gname = self._fresh(gname)
+        existing.append(gname)
+        return gname
+
+
+def _backward_pass(block: Block, state: _GradState, relevant: Set[int],
+                   fwd_op_count: int, no_grad: Set[str]):
+    """Reverse walk appending grad ops; contributions accumulate in ``state``."""
+    for idx in range(fwd_op_count - 1, -1, -1):
+        if idx not in relevant:
+            continue
+        op = block.ops[idx]
+        d = registry.get(op.type)
+        if d.grad is None:
+            continue
+        grad_out_map: Dict[str, str] = {}
+        for n in op.output_arg_names():
+            g = state.settle(n)
+            if g is not None:
+                grad_out_map[n] = g
+        if not grad_out_map:
+            continue
+        if not any(n not in no_grad for n in op.input_arg_names()):
+            continue
+
+        for desc in registry.make_grad_op_descs(op, grad_out_map):
+            outputs = {}
+            for slot, names in desc["outputs"].items():
+                kept = []
+                for n in names:
+                    base = n[:-5] if n.endswith("@GRAD") else n
+                    if base in no_grad or n == EMPTY_VAR:
+                        kept.append(EMPTY_VAR)
+                        continue
+                    kept.append(state.add(base))
+                if any(k != EMPTY_VAR for k in kept):
+                    outputs[slot] = kept
+            if not outputs:
+                continue
+            block.append_op(desc["type"], inputs=desc["inputs"], outputs=outputs,
+                            attrs=desc["attrs"])
+
+
+def _collect_no_grad(block: Block, no_grad_set, keep: Sequence[str] = ()) -> Set[str]:
+    no_grad = set(no_grad_set or ())
+    keep = set(keep)
+    for v in block.vars.values():
+        if v.name in keep:
+            continue
+        if isinstance(v, Parameter):
+            if not v.trainable:
+                no_grad.add(v.name)
+        elif v.stop_gradient:
+            no_grad.add(v.name)
+    return no_grad
+
+
+def append_backward(loss: Variable, parameter_list: Optional[Sequence] = None,
+                    no_grad_set: Optional[Set[str]] = None,
+                    callbacks=None) -> List[Tuple[Variable, Variable]]:
+    """Append grad ops for ``loss`` to its program; returns [(param, grad_var)].
+
+    The loss gradient is seeded with ones. ``callbacks`` is accepted for
+    the Fluid signature and not called.
+    """
+    block = loss.block.program.global_block()
+    no_grad = _collect_no_grad(block, no_grad_set)
+    fwd_op_count = len(block.ops)
+    relevant = _find_contributing_ops(block, {loss.name})
+
+    loss_grad_name = grad_var_name(loss.name)
+    block.append_op(
+        "fill_constant", outputs={"Out": [loss_grad_name]},
+        attrs={"shape": list(loss.shape), "dtype": loss.dtype, "value": 1.0})
+    block.vars[loss_grad_name].stop_gradient = True
+
+    state = _GradState(block)
+    state.seed(loss.name, loss_grad_name)
+    _backward_pass(block, state, relevant, fwd_op_count, no_grad)
+
+    if parameter_list is not None:
+        params = [block.vars[p.name if isinstance(p, Variable) else p]
+                  for p in parameter_list]
+    else:
+        params = [v for v in block.vars.values()
+                  if isinstance(v, Parameter) and v.trainable]
+    result = []
+    for p in params:
+        g = state.settle(p.name)
+        if g is None:
+            continue
+        gv = block.vars[g]
+        gv.stop_gradient = True
+        result.append((p, gv))
+    return result
+
+
+def gradients(targets, inputs, target_gradients=None,
+              no_grad_set=None) -> List[Optional[Variable]]:
+    """d(sum targets)/d(inputs) as new vars in the program."""
+    targets = targets if isinstance(targets, (list, tuple)) else [targets]
+    inputs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
+    block = targets[0].block.program.global_block()
+    no_grad = _collect_no_grad(block, no_grad_set,
+                               keep=[iv.name for iv in inputs])
+
+    fwd_op_count = len(block.ops)
+    relevant = _find_contributing_ops(block, {t.name for t in targets})
+
+    state = _GradState(block)
+    tgs = target_gradients or [None] * len(targets)
+    for t, tg in zip(targets, tgs):
+        gname = grad_var_name(t.name)
+        if tg is None:
+            block.append_op("fill_constant", outputs={"Out": [gname]},
+                            attrs={"shape": list(t.shape), "dtype": t.dtype,
+                                   "value": 1.0})
+        else:
+            block.append_op("assign", inputs={"X": [tg]},
+                            outputs={"Out": [gname]})
+        block.vars[gname].stop_gradient = True
+        state.seed(t.name, gname)
+
+    _backward_pass(block, state, relevant, fwd_op_count, no_grad)
+
+    out = []
+    for iv in inputs:
+        g = state.settle(iv.name)
+        if g:
+            # returned grads are functions of the program inputs, as in the
+            # JAX package (the port does not differentiate them again yet)
+            block.vars[g].stop_gradient = False
+        out.append(block.vars[g] if g else None)
+    return out
+

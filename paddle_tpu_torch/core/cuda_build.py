@@ -2,9 +2,9 @@
 
 Each ``paddle_tpu_torch/csrc/<name>.cu`` has a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into its own shared library under
-``paddle_tpu_torch/csrc/build/`` (git-ignored). The library's file name
-carries a hash of the source, so an edited kernel is rebuilt and a built one
-is reused. Nothing is built at import: the first CUDA call of a wrapper
+``paddle_tpu_torch/csrc/build/`` (git-ignored); ``csrc/*.cuh`` are headers
+the sources share. The library's file name carries a hash of the source and
+the headers, so an edited kernel is rebuilt and a built one is reused. Nothing is built at import: the first CUDA call of a wrapper
 builds its kernel, and ``build()`` builds several at once, one ``nvcc`` per
 source, all started together.
 """
@@ -41,8 +41,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(ARCH_FLAGS).encode()).hexdigest()
+    """The library's path: its name carries a hash of the source, the shared
+    headers (``csrc/*.cuh``) and the target flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(ARCH_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 

@@ -2,8 +2,9 @@
 
 The port's counterpart of ``paddle_tpu/core/executor.py``. The JAX package
 traces a whole Program into one jitted XLA step; the port runs each op's
-lowering eagerly, in program order, on the executor's device. No jit,
-megastep, warm store or telemetry in this slice.
+lowering eagerly, in program order, on the executor's device. A training
+program's grad and optimizer ops are ops like any other. No jit, megastep,
+warm store or telemetry yet.
 
 The device is explicit: ``Executor()`` runs on ``cuda`` and raises when there
 is no card. Pass ``CPUPlace()`` (or ``"cpu"``) to run on the CPU.
@@ -165,7 +166,9 @@ def trace_block(block: Block, env: Dict[str, Any], device, seed: int = 0,
                         f"op {op.type!r}: input variable {n!r} has no value. "
                         f"Feed it, or run the startup program to initialize it.")
             ins[slot] = vals
-        salt_name = next(
+        # a grad op takes its forward op's salt, so the forward's recompute
+        # inside it draws the forward's dropout masks
+        salt_name = op.attr("__fwd_out0__") or next(
             (ns[0] for ns in op.outputs.values() if ns and ns[0] != EMPTY_VAR), op.type)
         ctx = LowerCtx(op.attrs, device, seed, counter, stable_salt(salt_name))
         try:

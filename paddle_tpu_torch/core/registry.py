@@ -1,4 +1,4 @@
-"""Op registry: type -> (lowering, shape inference).
+"""Op registry: type -> (lowering, shape inference, grad maker).
 
 The port's copy of ``paddle_tpu/core/registry.py``. A lowering is a plain
 function on torch tensors, ``lower(ctx, ins) -> outs``, where ins/outs map
@@ -11,16 +11,24 @@ twice with two coprime sentinels; an output dim is dynamic iff it differs
 between the runs. A lowering therefore makes every new tensor on
 ``ctx.device`` and never reads values (no ``.item()``, no numpy).
 
-The generic ``<op>_grad`` of the JAX package waits for the training slice.
+Grad ops are derived from the forward lowering, as in the JAX package: every
+differentiable op type T has a generic ``T_grad`` whose lowering reruns T's
+lowering on copies of its float inputs that require grad, and takes
+``torch.autograd.grad`` of the outputs against the cotangents. The forward
+op therefore runs twice in a training step (PyTorch runs eagerly; there is
+no jit to merge the recompute with the forward). An op declares itself
+non-differentiable with ``grad=None``; ``nondiff_inputs`` /
+``nondiff_outputs`` name the slots that carry no gradient. Second-order
+grads (a ``T_grad_grad``) are not ported.
 """
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
-from ..framework import Block, Operator, convert_dtype
+from ..framework import Block, Operator, convert_dtype, grad_var_name
 
 _DYN = 7919
 _DYN2 = 7927
@@ -52,11 +60,13 @@ class LowerCtx:
     """Per-op lowering context: attrs, the device new tensors go on (the CPU
     unless given), and RNG.
 
-    ``rng(offset)`` returns a ``torch.Generator`` on ``device`` seeded from
-    (program seed, run counter, this op's salt + offset): each run of a
-    program draws fresh numbers, and two runs with the same counter draw the
-    same ones. Under shape inference (``abstract``) it returns None, since a
-    meta tensor draws no numbers.
+    ``seed_int(offset)`` is a host integer mixed from (program seed, run
+    counter, this op's salt + offset): each run of a program draws fresh
+    numbers, and two runs with the same counter draw the same ones. A grad
+    op is given its forward op's salt, so a stochastic op recomputed inside
+    its grad op draws the same mask. ``rng(offset)`` is a ``torch.Generator``
+    on ``device`` seeded with it. Under shape inference (``abstract``) there
+    are no numbers to draw: ``rng`` returns None and ``seed_int`` 0.
     """
 
     def __init__(self, attrs: dict, device=None, seed: int = 0, counter: int = 0,
@@ -71,13 +81,18 @@ class LowerCtx:
     def attr(self, name, default=None):
         return self.attrs.get(name, default)
 
+    def seed_int(self, offset: int = 0) -> int:
+        if self.abstract:
+            return 0
+        s = _mix(_mix(_mix(0, self.seed), self.counter),
+                 (self._salt + offset) & 0x7FFFFFFF)
+        return s & 0x7FFFFFFFFFFFFFFF
+
     def rng(self, offset: int = 0) -> Optional[torch.Generator]:
         if self.abstract:
             return None
         g = torch.Generator(device=self.device)
-        s = _mix(_mix(_mix(0, self.seed), self.counter),
-                 (self._salt + offset) & 0x7FFFFFFF)
-        g.manual_seed(s & 0x7FFFFFFFFFFFFFFF)
+        g.manual_seed(self.seed_int(offset))
         return g
 
 
@@ -90,27 +105,33 @@ def stable_salt(name: str) -> int:
 
 
 class OpDef:
-    def __init__(self, type: str, lower: Callable):
+    def __init__(self, type: str, lower: Callable, infer_shape: Optional[Callable] = None,
+                 grad: Any = "auto", nondiff_inputs: Sequence[str] = (),
+                 nondiff_outputs: Sequence[str] = ()):
         self.type = type
         self.lower = lower
+        self.custom_infer_shape = infer_shape
+        self.grad = grad  # "auto" | None (non-differentiable) | callable custom maker
+        self.nondiff_inputs = frozenset(nondiff_inputs)
+        self.nondiff_outputs = frozenset(nondiff_outputs)
 
 
 _REGISTRY: Dict[str, OpDef] = {}
 
 
-def register(type: str):
+def register(type: str, *, grad="auto", nondiff_inputs=(), nondiff_outputs=()):
     """Decorator: register ``fn(ctx, ins) -> outs`` as the lowering for ``type``."""
 
     def deco(fn):
         if type in _REGISTRY:
             raise ValueError(f"op type {type!r} already registered")
-        _REGISTRY[type] = OpDef(type, fn)
+        _REGISTRY[type] = OpDef(type, fn, None, grad, nondiff_inputs, nondiff_outputs)
         return fn
 
     return deco
 
 
-def simple_op(type: str):
+def simple_op(type: str, *, grad="auto", nondiff_inputs=()):
     """Register an op with input slots consumed in sorted-slot order -> single 'Out'.
 
     The wrapped fn receives ``(ctx, *tensors)`` -- one tensor per input slot
@@ -123,7 +144,7 @@ def simple_op(type: str):
             args = [v for s in sorted(ins) for v in ins[s]]
             return {"Out": [fn(ctx, *args)]}
 
-        register(type)(lower)
+        register(type, grad=grad, nondiff_inputs=nondiff_inputs)(lower)
         return fn
 
     return deco
@@ -133,9 +154,139 @@ def get(type: str) -> OpDef:
     d = _REGISTRY.get(type)
     if d is not None:
         return d
+    if type.endswith("_grad") and type[:-5] in _REGISTRY:
+        return _grad_opdef(type[:-5])
     raise KeyError(
         f"op type {type!r} is not registered in paddle_tpu_torch "
-        f"({len(_REGISTRY)} ops registered); the port has this slice's ops only")
+        f"({len(_REGISTRY)} ops registered); the port does not have it yet")
+
+
+# --------------------------------------------------------------------------------------
+# Generic autograd-based grad op
+# --------------------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _grad_opdef(fwd_type: str) -> OpDef:
+    fwd = _REGISTRY[fwd_type]
+    if fwd.grad is None:
+        raise KeyError(f"op {fwd_type!r} is non-differentiable; no {fwd_type}_grad")
+
+    def lower(ctx, ins):
+        return _generic_grad_lower(fwd, ctx, ins)
+
+    # grad="auto" so that a gradient asked of a grad op reaches
+    # make_grad_op_descs, which refuses second order by name
+    return OpDef(fwd_type + "_grad", lower, infer_shape=_grad_infer_shape)
+
+
+def _is_float(x) -> bool:
+    return isinstance(x, torch.Tensor) and x.dtype.is_floating_point
+
+
+def _generic_grad_lower(fwd: OpDef, ctx, ins):
+    """Compute input grads of ``fwd`` by autograd through its lowering.
+
+    Grad-op input slots: forward input slots verbatim, forward output slots
+    verbatim (listed in attr __fwd_out_slots__), plus "<OutSlot>@GRAD"
+    cotangent slots. Output slots: "<InSlot>@GRAD". A missing cotangent
+    (None via @EMPTY@) counts as zeros; an input the outputs do not depend
+    on gets a zero grad.
+
+    The differentiated inputs are ``detach().requires_grad_()`` views of the
+    float inputs: they keep their storage and strides, so a kernel wrapper
+    inside the lowering can hand their ``data_ptr()`` to CUDA.
+    """
+    fwd_out_slots = set(ctx.attr("__fwd_out_slots__", []))
+
+    def _is_cot(s):
+        return s.endswith("@GRAD") and s[:-5] in fwd_out_slots
+
+    fwd_in_slots = sorted(s for s in ins if s not in fwd_out_slots and not _is_cot(s))
+    grad_by_slot = {s[:-5]: ins[s] for s in ins if _is_cot(s)}
+
+    full = {s: list(ins[s]) for s in fwd_in_slots}
+    diff_keys, primals = [], []
+    for s in fwd_in_slots:
+        if s in fwd.nondiff_inputs:
+            continue
+        for i, v in enumerate(ins[s]):
+            if _is_float(v):
+                p = v.detach().requires_grad_()
+                full[s][i] = p
+                diff_keys.append((s, i))
+                primals.append(p)
+
+    fwd_attrs = ctx.attr("__fwd_attrs__", None)
+    if fwd_attrs is None:
+        fwd_attrs = {k: v for k, v in ctx.attrs.items() if not k.startswith("__fwd_")}
+    fwd_ctx = LowerCtx(fwd_attrs, ctx.device, ctx.seed, ctx.counter, ctx._salt,
+                       ctx.abstract)
+
+    with torch.enable_grad():
+        outs = fwd.lower(fwd_ctx, full)
+    ys, cots = [], []
+    for s, vals in outs.items():
+        if s in fwd.nondiff_outputs:
+            continue
+        provided = grad_by_slot.get(s) or []
+        for i, o in enumerate(vals):
+            g = provided[i] if i < len(provided) else None
+            if g is None or not _is_float(o) or not o.requires_grad:
+                continue   # a zero cotangent adds nothing
+            ys.append(o)
+            cots.append(g.to(o.dtype))
+    grads = [None] * len(primals)
+    if ys and primals:
+        grads = torch.autograd.grad(ys, primals, cots, allow_unused=True)
+
+    result: Dict[str, List] = {}
+    for s in fwd_in_slots:
+        if s not in fwd.nondiff_inputs:
+            result[s + "@GRAD"] = [None] * len(ins[s])
+    for (s, i), g in zip(diff_keys, grads):
+        result[s + "@GRAD"][i] = g
+    for gs in list(result):
+        base = gs[:-5]
+        result[gs] = [v if v is not None else
+                      (torch.zeros_like(ins[base][i]) if ins[base][i] is not None else None)
+                      for i, v in enumerate(result[gs])]
+    return result
+
+
+def make_grad_op_descs(op: Operator, grad_out_map: Dict[str, str]) -> List[dict]:
+    """Generic GradOpDescMaker: one '<type>_grad' op desc for ``op``.
+
+    ``grad_out_map``: forward output var name -> grad var name (only for
+    outputs with gradient flow; others get @EMPTY@). Returns op-desc dicts
+    {type, inputs, outputs, attrs}; the caller (backward.py) appends them and
+    prunes unwanted grad outputs.
+    """
+    fwd = get(op.type)
+    if fwd.grad is None:
+        return []
+    if callable(fwd.grad):
+        return fwd.grad(op, grad_out_map)
+    if op.type.endswith("_grad"):
+        raise NotImplementedError(
+            f"gradients of {op.type!r}: second-order gradients are not ported")
+
+    inputs: Dict[str, List[str]] = {s: list(n) for s, n in op.inputs.items()}
+    for s, names in op.outputs.items():
+        inputs[s] = list(names)
+        gnames = [grad_out_map.get(n) for n in names]
+        if any(g is not None for g in gnames):
+            inputs[s + "@GRAD"] = [g if g is not None else EMPTY_VAR for g in gnames]
+    outputs = {}
+    for s, names in op.inputs.items():
+        if s in fwd.nondiff_inputs:
+            continue
+        outputs[s + "@GRAD"] = [grad_var_name(n) for n in names]
+    attrs = dict(op.attrs)
+    attrs["__fwd_attrs__"] = dict(op.attrs)
+    attrs["__fwd_out_slots__"] = sorted(op.outputs)
+    attrs["__fwd_out0__"] = next((ns[0] for ns in op.outputs.values() if ns), "")
+    return [{"type": op.type + "_grad", "inputs": inputs, "outputs": outputs,
+             "attrs": attrs}]
 
 
 # --------------------------------------------------------------------------------------
@@ -143,9 +294,34 @@ def get(type: str) -> OpDef:
 # --------------------------------------------------------------------------------------
 
 def infer_shape(op: Operator, block: Block):
-    """Infer and create the output variables of ``op`` by running its
-    lowering on meta tensors."""
+    """Infer and create the output variables of ``op``: the op's own
+    inference where it has one (grad ops), else its lowering run on meta
+    tensors."""
     d = get(op.type)
+    if d.custom_infer_shape is not None:
+        d.custom_infer_shape(op, block)
+        return
+    _meta_infer(d, op, block)
+
+
+def _grad_infer_shape(op: Operator, block: Block):
+    """Grad var shapes and dtypes mirror the forward input vars'."""
+    for slot, names in op.outputs.items():
+        if not slot.endswith("@GRAD"):
+            continue
+        src = op.inputs.get(slot[:-5], [])
+        for i, n in enumerate(names):
+            if n == EMPTY_VAR:
+                continue
+            sv = block.find_var_recursive(src[i]) if i < len(src) else None
+            if sv is not None:
+                v = block.create_var(n, sv.shape, sv.dtype)
+            else:
+                v = block.create_var(n, (), "float32")
+            v.stop_gradient = False
+
+
+def _meta_infer(d: OpDef, op: Operator, block: Block):
     meta = torch.device("meta")
 
     def build(sentinel):

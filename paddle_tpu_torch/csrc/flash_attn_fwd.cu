@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a): O = softmax(Q K^T * scale + bias [, causal]) V.
+// Flash-attention forward for Hopper (sm_90a):
+// O = dropout(softmax(Q K^T * scale + bias [, causal])) V, and optionally the row LSE.
 //
 // Replaces: paddle_tpu/ops/pallas_attention.py::_flash_fwd_impl / _fwd_kernel (with _probs),
 // the TPU Pallas kernel of the fused_attention op.
@@ -26,13 +27,27 @@
 // the input dtype, widened to f32 before it is added; o is a contiguous [B, H, S, D].
 // Masking uses -1e30 for causal, as the TPU kernel does, and -inf for key positions past S
 // (a ragged last tile).
+//
+// Training adds two optional parts, both off for serving (lse == nullptr, dropout == 0), so
+// the serving launches do exactly the work they did before:
+//  * lse [B, H, S] f32: m + log(l) of each row (row max and sum of the undropped
+//    probabilities), which the backward kernels (flash_attn_bwd.cu) use to recompute P;
+//  * attention dropout p with a 64-bit seed: the keep mask comes from Philox4x32-10 inside
+//    the kernel (philox.cuh), kept probabilities are scaled by 1/(1-p) before P V, and the
+//    row sum l is taken over the undropped probabilities, as the TPU kernel's `pd` is
+//    (pallas_attention.py:114-116, :133).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "philox.cuh"
+
 namespace {
+
+using flash_philox::dropout_bits4;
+using flash_philox::word;
 
 constexpr float kCausalMask = -1e30f;
 
@@ -42,12 +57,17 @@ struct Params {
   const void* v;
   const void* bias;  // nullptr when there is no bias
   void* o;
+  float* lse;        // nullptr: not written
   long long q_sb, q_sh, q_ss;  // element strides of batch, head, row
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
   int H, S;
   float scale;
   int causal;
+  float dropout;     // 0: no dropout
+  float keep_scale;  // 1 / (1 - dropout)
+  uint32_t threshold;  // uint32(dropout * 2^32): kept when bits >= threshold
+  unsigned long long seed;
 };
 
 // ---------------------------------------------------------------------------------------
@@ -196,7 +216,10 @@ __global__ void __launch_bounds__(kBf16Threads)
       }
     }
 
-    // P = exp(S - m), rounded to bf16 straight into the A fragments of P V
+    // P = exp(S - m), rounded to bf16 straight into the A fragments of P V. With dropout,
+    // the sum l takes the undropped P and P V the dropped, rescaled one. This thread's two
+    // key columns (2t, 2t+1 of each 8-column tile) share one group of four, so one Philox
+    // call per row and tile gives both.
     uint32_t pa[kBN / 16][4];
 #pragma unroll
     for (int j = 0; j < kBN / 8; ++j) {
@@ -206,8 +229,19 @@ __global__ void __launch_bounds__(kBf16Threads)
       const float p3 = __expf(s[j][3] - m_use[1]);
       l_run[0] += p0 + p1;
       l_run[1] += p2 + p3;
-      pa[j / 2][(j & 1) * 2] = pack_bf16(p0, p1);
-      pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+      float f0 = 1.f, f1 = 1.f, f2 = 1.f, f3 = 1.f;
+      if (p.dropout > 0.f) {
+        const uint32_t col4 = uint32_t(k0 + j * 8 + t * 2) >> 2;
+        const int w = (t & 1) * 2;
+        const uint4 r0 = dropout_bits4(p.seed, bh, row[0], col4);
+        const uint4 r1 = dropout_bits4(p.seed, bh, row[1], col4);
+        f0 = word(r0, w) >= p.threshold ? p.keep_scale : 0.f;
+        f1 = word(r0, w + 1) >= p.threshold ? p.keep_scale : 0.f;
+        f2 = word(r1, w) >= p.threshold ? p.keep_scale : 0.f;
+        f3 = word(r1, w + 1) >= p.threshold ? p.keep_scale : 0.f;
+      }
+      pa[j / 2][(j & 1) * 2] = pack_bf16(p0 * f0, p1 * f1);
+      pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(p2 * f2, p3 * f3);
     }
 
     // O += P V: B fragment element (key, d) = V[key][d], two keys per 32-bit register
@@ -230,6 +264,7 @@ __global__ void __launch_bounds__(kBf16Threads)
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
     if (row[r] >= S) continue;
+    if (p.lse && t == 0) p.lse[(long long)bh * S + row[r]] = m_run[r] + logf(l_run[r]);
     const float inv = 1.f / l_run[r];
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
@@ -319,16 +354,22 @@ __global__ void __launch_bounds__(kF32Rows) flash_fwd_f32_kernel(const Params p)
     l_run *= alpha;
 #pragma unroll
     for (int d = 0; d < D; ++d) acc[d] *= alpha;
+    uint4 bits = make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
     for (int j = 0; j < kF32Keys; ++j) {
-      const float pj = expf(s[j] - m_use);
+      float pj = expf(s[j] - m_use);
       l_run += pj;
+      if (p.dropout > 0.f) {
+        if ((j & 3) == 0) bits = dropout_bits4(p.seed, bh, row, uint32_t(k0 + j) >> 2);
+        pj = word(bits, j & 3) >= p.threshold ? pj * p.keep_scale : 0.f;
+      }
 #pragma unroll
       for (int d = 0; d < D; ++d) acc[d] = fmaf(pj, sV[j * D + d], acc[d]);
     }
   }
 
   if (!valid) return;
+  if (p.lse) p.lse[(long long)bh * S + row] = m_run + logf(l_run);
   const float inv = 1.f / l_run;
 #pragma unroll
   for (int d = 0; d < D; d += 4) {
@@ -352,17 +393,23 @@ cudaError_t launch(const Params& p, int B, int dtype, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16. lse may be null (not written). dropout in [0, 1);
+// threshold = uint32(dropout * 2^32). Returns a cudaError_t (0 = launched).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const void* bias,
-                              void* o, long long q_sb, long long q_sh, long long q_ss,
-                              long long k_sb, long long k_sh, long long k_ss, long long v_sb,
-                              long long v_sh, long long v_ss, int B, int H, int S, int D,
-                              float scale, int causal, int has_bias, int dtype,
-                              void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0 || B * H > 65535 || (dtype != 0 && dtype != 1))
+                              void* o, void* lse, long long q_sb, long long q_sh,
+                              long long q_ss, long long k_sb, long long k_sh, long long k_ss,
+                              long long v_sb, long long v_sh, long long v_ss, int B, int H,
+                              int S, int D, float scale, int causal, int has_bias, int dtype,
+                              float dropout, unsigned int threshold,
+                              unsigned long long seed, void* stream) {
+  if (B <= 0 || H <= 0 || S <= 0 || B * H > 65535 || (dtype != 0 && dtype != 1) ||
+      !(dropout >= 0.f && dropout < 1.f))
     return cudaErrorInvalidValue;
   Params p;
   p.q = q, p.k = k, p.v = v, p.bias = has_bias ? bias : nullptr, p.o = o;
+  p.lse = static_cast<float*>(lse);
+  p.dropout = dropout, p.keep_scale = 1.f / (1.f - dropout), p.threshold = threshold;
+  p.seed = seed;
   p.q_sb = q_sb, p.q_sh = q_sh, p.q_ss = q_ss;
   p.k_sb = k_sb, p.k_sh = k_sh, p.k_ss = k_ss;
   p.v_sb = v_sb, p.v_sh = v_sh, p.v_ss = v_ss;

@@ -8,7 +8,7 @@ What differs from the JAX package:
   * ``Block.append_op`` runs the port's own shape inference
     (``core/registry.py``: the lowering on ``torch.device("meta")`` tensors).
   * Variables carry no arithmetic sugar; layers build every op explicitly.
-  * No ``device_guard``: this slice runs no pipeline stages.
+  * No ``device_guard``: the port runs no pipeline stages yet.
 """
 from __future__ import annotations
 
@@ -77,6 +77,10 @@ def convert_dtype(dtype) -> str:
 
 def is_float_dtype(dtype) -> bool:
     return convert_dtype(dtype) in _FLOAT_DTYPES
+
+
+def grad_var_name(name: str) -> str:
+    return name + "@GRAD"
 
 
 # --------------------------------------------------------------------------------------

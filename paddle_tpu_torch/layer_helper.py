@@ -2,7 +2,8 @@
 ``paddle_tpu/layer_helper.py``).
 
 Creates parameters (with default initializers + startup-program registration),
-temp output vars, and applies activations / bias.
+global state vars (optimizer accumulators), temp output vars, and applies
+activations / bias.
 """
 from __future__ import annotations
 
@@ -85,6 +86,16 @@ class LayerHelper:
         if not any(name in op.output_arg_names() for op in startup_block.ops):
             initializer(p, startup_block)
         return p
+
+    def create_global_variable(self, shape, dtype="float32", persistable=True,
+                               name=None, initializer=None, stop_gradient=True):
+        block = self.main_program.global_block()
+        v = block.create_var(name or unique_name.generate(self.name + ".global"),
+                             shape, dtype, persistable=persistable,
+                             stop_gradient=stop_gradient)
+        if initializer is not None:
+            initializer(v, self.startup_program.global_block())
+        return v
 
     def append_bias_op(self, x: Variable, dim_start=1, bias_attr=None) -> Variable:
         size = x.shape[dim_start:]

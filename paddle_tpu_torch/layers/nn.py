@@ -1,5 +1,5 @@
 """Core NN layers DSL (the port's copy of the functions of
-``paddle_tpu/layers/nn.py`` that the BERT encoder calls).
+``paddle_tpu/layers/nn.py`` that BERT pretraining calls).
 
 Each function builds ops into the default main program and parameters into
 the default startup program, with the same op types, slots, attrs and names
@@ -180,3 +180,86 @@ def fused_attention(q, k, v, bias=None, scale=None, dropout_prob=0.0,
                             "causal": bool(causal), "is_test": bool(is_test),
                             "impl": impl})
     return _var(helper, out)
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper("matmul", name=name)
+    out = _out(helper, x.dtype)
+    helper.append_op("matmul", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]},
+                     attrs={"transpose_X": transpose_x, "transpose_Y": transpose_y,
+                            "alpha": float(alpha)})
+    return _var(helper, out)
+
+
+def softmax(input, use_cudnn=False, name=None, axis=-1):
+    helper = LayerHelper("softmax", name=name)
+    out = _out(helper, input.dtype)
+    helper.append_op("softmax", inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs={"axis": axis})
+    return _var(helper, out)
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False, ignore_index=-100,
+                               numeric_stable_mode=True, return_softmax=False,
+                               axis=-1):
+    helper = LayerHelper("softmax_with_cross_entropy")
+    softmax_out = _out(helper, logits.dtype)
+    loss = _out(helper, logits.dtype)
+    helper.append_op("softmax_with_cross_entropy",
+                     inputs={"Logits": [logits], "Label": [label]},
+                     outputs={"Softmax": [softmax_out], "Loss": [loss]},
+                     attrs={"soft_label": soft_label, "ignore_index": ignore_index,
+                            "axis": axis})
+    if return_softmax:
+        return _var(helper, loss), _var(helper, softmax_out)
+    return _var(helper, loss)
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    out = _out(helper, x.dtype)
+    helper.append_op("mean", inputs={"X": [x]}, outputs={"Out": [out]})
+    return _var(helper, out)
+
+
+def slice(input, axes, starts, ends):
+    helper = LayerHelper("slice")
+    out = _out(helper, input.dtype)
+    helper.append_op("slice", inputs={"Input": [input]}, outputs={"Out": [out]},
+                     attrs={"axes": list(axes), "starts": list(starts),
+                            "ends": list(ends)})
+    return _var(helper, out)
+
+
+def gather(input, index, overwrite=True, axis=0):
+    helper = LayerHelper("gather")
+    out = _out(helper, input.dtype)
+    helper.append_op("gather", inputs={"X": [input], "Index": [index]},
+                     outputs={"Out": [out]}, attrs={"axis": int(axis)})
+    return _var(helper, out)
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    values = _out(helper, input.dtype)
+    indices = _out(helper, "int64", stop_gradient=True)
+    helper.append_op("top_k", inputs={"X": [input]},
+                     outputs={"Out": [values], "Indices": [indices]},
+                     attrs={"k": k})
+    blk = helper.main_program.current_block()
+    return blk.var(values.name), blk.var(indices.name)
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    """topk + the accuracy op."""
+    helper = LayerHelper("accuracy")
+    _, indices = topk(input, k)
+    acc = _out(helper, "float32", stop_gradient=True)
+    correct = correct or _out(helper, "int32", stop_gradient=True)
+    total = total or _out(helper, "int32", stop_gradient=True)
+    helper.append_op("accuracy",
+                     inputs={"Indices": [indices], "Label": [label]},
+                     outputs={"Accuracy": [acc], "Correct": [correct],
+                              "Total": [total]})
+    return _var(helper, acc)

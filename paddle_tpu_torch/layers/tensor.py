@@ -1,9 +1,9 @@
-"""Tensor layers (the port's copy of ``paddle_tpu/layers/tensor.py``; this
-slice needs ``cast``)."""
+"""Tensor layers (the port's copy of ``cast`` and ``create_parameter`` from
+``paddle_tpu/layers/tensor.py``)."""
 from __future__ import annotations
 
 from ..framework import convert_dtype
-from ..layer_helper import LayerHelper
+from ..layer_helper import LayerHelper, ParamAttr
 
 
 def cast(x, dtype):
@@ -13,3 +13,12 @@ def cast(x, dtype):
     helper.append_op("cast", inputs={"X": [x]}, outputs={"Out": [out]},
                      attrs={"in_dtype": x.dtype, "out_dtype": dtype})
     return helper.main_program.current_block().var(out.name)
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    helper = LayerHelper("create_parameter")
+    attr = ParamAttr._to_attr(attr)
+    if name:
+        attr.name = name
+    return helper.create_parameter(attr, shape, dtype, is_bias, default_initializer)

@@ -1,4 +1,4 @@
-"""The port's op library: PyTorch lowerings of the op types this slice runs.
+"""The port's op library: PyTorch lowerings of the op types its slices run.
 
 Importing this package registers them.
 """
@@ -9,3 +9,5 @@ from . import activations      # noqa: F401
 from . import tensor_ops       # noqa: F401
 from . import nn_ops           # noqa: F401
 from . import flash_attention  # noqa: F401
+from . import metrics_ops      # noqa: F401
+from . import optimizer_ops    # noqa: F401

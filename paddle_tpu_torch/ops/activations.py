@@ -1,4 +1,5 @@
-"""Activation ops (the port's copy of ``gelu`` from ``paddle_tpu/ops/activations.py``)."""
+"""Activation ops (the port's copy of ``gelu`` and ``tanh`` from
+``paddle_tpu/ops/activations.py``)."""
 from __future__ import annotations
 
 import math
@@ -19,3 +20,8 @@ def gelu(ctx, x):
         return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x ** 3)))))
     sqrt_half = torch.tensor(math.sqrt(0.5), dtype=x.dtype, device=x.device)
     return 0.5 * x * torch.special.erfc(-x * sqrt_half)
+
+
+@simple_op("tanh")
+def tanh(ctx, x):
+    return torch.tanh(x)

@@ -1,4 +1,5 @@
-"""Creation / casting ops (the port's copy of part of ``paddle_tpu/ops/basic.py``).
+"""Creation, casting, copy and sum ops (the port's copy of part of
+``paddle_tpu/ops/basic.py``).
 
 New tensors go on ``ctx.device`` (the meta device under shape inference).
 Random ops draw from the op's ``torch.Generator``; the numbers differ from
@@ -15,14 +16,14 @@ def _shape(ctx):
     return tuple(int(s) for s in ctx.attr("shape", []))
 
 
-@register("fill_constant")
+@register("fill_constant", grad=None)
 def fill_constant(ctx, ins):
     return {"Out": [torch.full(_shape(ctx), ctx.attr("value", 0.0),
                                dtype=torch_dtype(ctx.attr("dtype", "float32")),
                                device=ctx.device)]}
 
 
-@register("gaussian_random")
+@register("gaussian_random", grad=None)
 def gaussian_random(ctx, ins):
     x = torch.randn(_shape(ctx), generator=ctx.rng(ctx.attr("seed", 0)),
                     dtype=torch.float32, device=ctx.device)
@@ -30,12 +31,17 @@ def gaussian_random(ctx, ins):
     return {"Out": [x.to(torch_dtype(ctx.attr("dtype", "float32")))]}
 
 
-@register("uniform_random")
+@register("uniform_random", grad=None)
 def uniform_random(ctx, ins):
     lo, hi = ctx.attr("min", -1.0), ctx.attr("max", 1.0)
     x = torch.rand(_shape(ctx), generator=ctx.rng(ctx.attr("seed", 0)),
                    dtype=torch.float32, device=ctx.device)
     return {"Out": [(x * (hi - lo) + lo).to(torch_dtype(ctx.attr("dtype", "float32")))]}
+
+
+@simple_op("assign")
+def assign(ctx, x):
+    return x
 
 
 @simple_op("cast")
@@ -49,3 +55,12 @@ def scale(ctx, x):
     if ctx.attr("bias_after_scale", True):
         return (x * s + b).to(x.dtype)
     return ((x + b) * s).to(x.dtype)
+
+
+@register("sum")
+def sum_op(ctx, ins):
+    xs = [x for x in ins["X"] if x is not None]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return {"Out": [out]}

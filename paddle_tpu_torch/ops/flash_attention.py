@@ -1,15 +1,24 @@
-"""The ``fused_attention`` op: a hand-written CUDA flash-attention kernel and
-its plain PyTorch version.
+"""The ``fused_attention`` op: hand-written CUDA flash-attention kernels
+(forward and backward) and their plain PyTorch versions.
 
-The port's counterpart of ``paddle_tpu/ops/pallas_attention.py``. The kernel
-(``csrc/flash_attn_fwd.cu``) replaces the Pallas forward kernel
-``_flash_fwd_impl`` / ``_fwd_kernel``; ``attention_plain`` transcribes
-``composed_attention``.
+The port's counterpart of ``paddle_tpu/ops/pallas_attention.py``. The
+kernels replace the Pallas kernels of the ``_flash`` custom VJP:
+``csrc/flash_attn_fwd.cu`` replaces ``_flash_fwd_impl`` / ``_fwd_kernel``
+and ``csrc/flash_attn_bwd.cu`` replaces ``_flash_bwd`` / ``_bwd_kernel``.
+``FlashAttention`` (a ``torch.autograd.Function``) ties them together the
+way ``_flash.defvjp`` does. ``attention_plain`` transcribes
+``composed_attention`` and ``attention_bwd_plain`` the backward kernel.
+
+Attention dropout draws its keep mask from Philox4x32-10 keyed by a host
+integer seed (``csrc/philox.cuh``); ``philox_keep_mask`` computes the same
+bits with integer tensor arithmetic, so the plain versions drop exactly the
+kernels' elements. (The TPU kernel's bits cannot be reproduced: dropout is
+held against the JAX package by its statistics.)
 
 Routing is by the device of the tensors: a CPU tensor takes the plain
-version; a CUDA tensor launches the kernel, or raises where the kernel's gate
+version; a CUDA tensor launches the kernels, or raises where a kernel's gate
 refuses the call. Nothing falls back. ``impl='composed'`` asks for the plain
-version explicitly; ``'auto'`` and ``'pallas'`` both mean the kernel.
+version explicitly; ``'auto'`` and ``'pallas'`` both mean the kernels.
 """
 from __future__ import annotations
 
@@ -22,23 +31,63 @@ import torch
 from ..core import cuda_build
 from ..core.registry import register
 
-#: head widths the kernel is compiled for (csrc/flash_attn_fwd.cu ``launch<D>``)
+#: head widths the kernels are compiled for (``launch<D>`` in csrc/flash_attn_*.cu)
 HEAD_DIMS = (32, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_BH = 65535  # grid.y
 
+# Philox4x32-10 constants (csrc/philox.cuh)
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_U32 = 0xFFFFFFFF
 
-def attention_plain(q, k, v, bias=None, scale=None, causal=False, dropout=0.0,
-                    generator=None):
-    """softmax(Q K^T * scale + bias [, causal]) [* dropout] V, written out.
 
-    A transcription of ``composed_attention``: scores in f32, bias widened
-    to f32, causal mask -1e30, softmax in f32, P rounded to V's dtype before
-    P V (accumulated in f32), output in Q's dtype. ``dropout`` > 0 draws the
-    keep mask from ``generator``.
-    """
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
+def _mulhilo(m: int, x: torch.Tensor):
+    """(hi, lo) 32-bit words of m * x for a 32-bit constant m and int64 x in
+    [0, 2^32). The 64-bit product overflows int64, so x is split into 16-bit
+    halves: every partial product stays below 2^49."""
+    a = m * (x & 0xFFFF)
+    b = m * (x >> 16)
+    t = ((b & 0xFFFF) << 16) + a
+    return (b >> 16) + (t >> 32), t & _U32
+
+
+def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
+    """Philox4x32-10 on int64 tensors holding 32-bit words, as csrc/philox.cuh."""
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _PHILOX_W[0]) & _U32, (k1 + _PHILOX_W[1]) & _U32
+    return c0, c1, c2, c3
+
+
+def dropout_threshold(p: float) -> int:
+    """Bits below this are dropped: uint32(p * 2^32), as the TPU kernel sets it."""
+    return int(p * float(2 ** 32))
+
+
+def philox_keep_mask(seed: int, B: int, H: int, S: int, p: float, device=None) -> torch.Tensor:
+    """The kernels' attention-dropout keep mask, [B, H, S, S] bool: element
+    (b, h, row, col) is word col % 4 of Philox4x32-10 with key = the 64-bit
+    seed and counter = (col // 4, row, b * H + h, 0), kept when >= the
+    threshold."""
+    n4 = (S + 3) // 4
+    shape = (B * H, S, n4)
+    ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)
+    c0 = ar(n4).view(1, 1, n4).expand(shape)
+    c1 = ar(S).view(1, S, 1).expand(shape)
+    c2 = ar(B * H).view(B * H, 1, 1).expand(shape)
+    c3 = torch.zeros(shape, dtype=torch.int64, device=device)
+    seed &= 0xFFFFFFFFFFFFFFFF
+    words = philox4x32_10(c0, c1, c2, c3, seed & _U32, seed >> 32)
+    bits = torch.stack(words, dim=-1).reshape(B, H, S, 4 * n4)[..., :S]
+    return bits >= dropout_threshold(p)
+
+
+def _scores(q, k, bias, scale, causal):
+    """Softmax probabilities (f32) of the scores, as ``composed_attention``
+    computes them."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:
         s = s + bias.float()
@@ -46,15 +95,58 @@ def attention_plain(q, k, v, bias=None, scale=None, causal=False, dropout=0.0,
         S_q, S_k = s.shape[-2], s.shape[-1]
         keep = torch.ones((S_q, S_k), dtype=torch.bool, device=s.device).tril()
         s = s.masked_fill(~keep, -1e30)
-    p = torch.softmax(s, dim=-1)
+    return torch.softmax(s, dim=-1)
+
+
+def _keep(q, dropout, seed):
+    B, H, S, _ = q.shape
+    return philox_keep_mask(seed, B, H, S, dropout, q.device)
+
+
+def attention_plain(q, k, v, bias=None, scale=None, causal=False, dropout=0.0, seed=0):
+    """dropout(softmax(Q K^T * scale + bias [, causal])) V, written out.
+
+    A transcription of ``composed_attention``: scores in f32, bias widened
+    to f32, causal mask -1e30, softmax in f32, P rounded to V's dtype before
+    P V (accumulated in f32), output in Q's dtype. ``dropout`` > 0 drops with
+    the kernels' Philox mask for ``seed``.
+    """
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    p = _scores(q, k, bias, scale, causal)
     if dropout:
-        keep = torch.rand(p.shape, generator=generator, device=p.device) >= dropout
-        p = torch.where(keep, p / (1.0 - dropout), torch.zeros((), device=p.device))
+        p = torch.where(_keep(q, dropout, seed), p / (1.0 - dropout),
+                        torch.zeros((), device=p.device))
     return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
 
 
+def attention_bwd_plain(q, k, v, bias, o, do, scale=None, causal=False, dropout=0.0,
+                        seed=0):
+    """dQ, dK, dV of ``attention_plain``, written out for whole rows as
+    ``_bwd_kernel`` computes them, in f32 on unrounded P: dV = Pd^T dO,
+    dP = (dO V^T) * M, dS = P * (dP - D), dQ = dS K * scale, dK = dS^T Q *
+    scale. D is rowsum(dO * O), as the kernel takes it (equal to the TPU
+    kernel's rowsum(dP * P) up to the rounding of O). Returns them in q's,
+    k's and v's dtypes; the bias gets no gradient."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    p = _scores(q, k, bias, scale, causal)
+    dof = do.float()
+    dp = torch.matmul(dof, v.float().transpose(-1, -2))
+    pd = p
+    if dropout:
+        factor = _keep(q, dropout, seed).float() / (1.0 - dropout)
+        pd = p * factor
+        dp = dp * factor
+    dv = torch.matmul(pd.transpose(-1, -2), dof)
+    ds = p * (dp - (dof * o.float()).sum(-1, keepdim=True))
+    dq = torch.matmul(ds, k.float()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def kernel_refusal(q, k, v, bias=None) -> Optional[str]:
-    """Why the kernel cannot take these tensors, or None when it can."""
+    """Why the kernels cannot take these tensors, or None when they can."""
     if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
         return f"q/k/v must share one [B,H,S,D] shape, got {q.shape}/{k.shape}/{v.shape}"
     B, H, S, D = q.shape
@@ -83,51 +175,149 @@ def kernel_refusal(q, k, v, bias=None) -> Optional[str]:
     return None
 
 
-def _lib():
-    lib = cuda_build.load("flash_attn_fwd")
-    fn = lib.flash_attn_fwd
+def bwd_refusal(q, k, v, bias, o, lse, do) -> Optional[str]:
+    """Why the backward kernel cannot take these tensors, or None when it can."""
+    why = kernel_refusal(q, k, v, bias)
+    if why is not None:
+        return why
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            return (f"{name} must match q's shape, dtype and device, got "
+                    f"{tuple(t.shape)}/{t.dtype}/{t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            return f"{name} must be contiguous and 16-byte aligned"
+    if (tuple(lse.shape) != tuple(q.shape[:3]) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        return (f"lse must be a contiguous float32 [B,H,S] on q's device, got "
+                f"{tuple(lse.shape)}/{lse.dtype}/{lse.device}")
+    return None
+
+
+def _check_dropout(dropout):
+    if not 0.0 <= dropout < 1.0:
+        raise ValueError(f"dropout must lie in [0, 1), got {dropout}")
+
+
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_SIGNATURES = {
+    # pointers, 9 strides, B H S D, scale, causal has_bias dtype, dropout, threshold, seed, stream
+    "flash_attn_fwd": [_P] * 6 + [_I64] * 9 + [_I32] * 4 + [ctypes.c_float] + [_I32] * 3
+    + [ctypes.c_float, ctypes.c_uint, ctypes.c_ulonglong, _P],
+    "flash_attn_bwd": [_P] * 11 + [_I64] * 9 + [_I32] * 4 + [ctypes.c_float] + [_I32] * 3
+    + [ctypes.c_float, ctypes.c_uint, ctypes.c_ulonglong, _P],
+}
+
+
+def _fn(name):
+    fn = getattr(cuda_build.load(name), name)
     if fn.argtypes is None:
-        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [ptr] * 5 + [i64] * 9 + [i32] * 4 + [ctypes.c_float] + [i32] * 3 + [ptr]
+        fn.argtypes = _SIGNATURES[name]
         fn.restype = ctypes.c_int
     return fn
 
 
-def flash_attn_fwd(q, k, v, bias=None, scale=None, causal=False):
+def _launch(name, pointers, q, k, v, bias, scale, causal, dropout, seed):
+    B, H, S, D = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _fn(name)(*pointers, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                       B, H, S, D, float(scale), int(bool(causal)), int(bias is not None),
+                       _DTYPE_CODES[q.dtype], float(dropout), dropout_threshold(dropout),
+                       seed & 0xFFFFFFFFFFFFFFFF, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+
+
+def flash_attn_fwd(q, k, v, bias=None, scale=None, causal=False, dropout=0.0, seed=0,
+                   return_lse=False):
     """Launch the CUDA flash-attention forward kernel; returns O [B,H,S,D]
-    (contiguous, in q's dtype). Raises ValueError for tensors the kernel does
-    not take (see ``kernel_refusal``) and RuntimeError if the launch fails.
-    Each launch adds one to ``flash_attn_fwd.launches``."""
+    (contiguous, in q's dtype), and with ``return_lse`` also the row LSE
+    [B,H,S] f32 that the backward needs. ``dropout`` > 0 drops attention
+    probabilities with the Philox mask of ``seed``. Raises ValueError for
+    tensors the kernel does not take (see ``kernel_refusal``) and
+    RuntimeError if the launch fails. Each launch adds one to
+    ``flash_attn_fwd.launches``."""
     why = kernel_refusal(q, k, v, bias)
     if why is not None:
         raise ValueError(f"flash_attn_fwd: {why}")
+    _check_dropout(dropout)
     B, H, S, D = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(D)
-    fn = _lib()
     o = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                bias.data_ptr() if bias is not None else None, o.data_ptr(),
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                B, H, S, D, float(scale), int(bool(causal)), int(bias is not None),
-                _DTYPE_CODES[q.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attn_fwd: kernel launch failed with CUDA error {rc}")
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if return_lse else None
+    _launch("flash_attn_fwd",
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             bias.data_ptr() if bias is not None else None, o.data_ptr(),
+             lse.data_ptr() if lse is not None else None),
+            q, k, v, bias, scale, causal, dropout, seed)
     flash_attn_fwd.launches += 1
-    return o
+    return (o, lse) if return_lse else o
 
 
 flash_attn_fwd.launches = 0
 
 
-@register("fused_attention")
+def flash_attn_bwd(q, k, v, bias, o, lse, do, scale=None, causal=False, dropout=0.0,
+                   seed=0):
+    """Launch the CUDA flash-attention backward (a D = rowsum(dO * O)
+    pre-pass, then the dK/dV and dQ kernels); returns dq, dk, dv, contiguous,
+    in the inputs' dtype. ``o`` and ``lse`` are the forward's, ``dropout``
+    and ``seed`` must be the forward's too. Raises ValueError for tensors
+    the kernels do not take (see ``bwd_refusal``). Each call adds one to
+    ``flash_attn_bwd.launches``."""
+    why = bwd_refusal(q, k, v, bias, o, lse, do)
+    if why is not None:
+        raise ValueError(f"flash_attn_bwd: {why}")
+    _check_dropout(dropout)
+    B, H, S, D = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    _launch("flash_attn_bwd",
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             bias.data_ptr() if bias is not None else None, o.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr()),
+            q, k, v, bias, scale, causal, dropout, seed)
+    flash_attn_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attn_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention on the CUDA kernels with a gradient: the forward launches
+    the forward kernel (with the LSE) and saves (q, k, v, bias, O, LSE,
+    seed); the backward launches the backward kernel. dq comes back in q's
+    dtype, dk and dv (accumulated in f32) in k's and v's; the bias gets
+    none."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale, causal, dropout, seed):
+        o, lse = flash_attn_fwd(q, k, v, bias, scale, causal, dropout, seed,
+                                return_lse=True)
+        ctx.save_for_backward(q, k, v, bias, o, lse)
+        ctx.args = (scale, causal, dropout, seed)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attn_bwd(q, k, v, bias, o, lse, do.contiguous(), *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+@register("fused_attention", nondiff_inputs=("Bias",))
 def fused_attention(ctx, ins):
-    """softmax(Q K^T * scale + Bias) V over Q/K/V [B, heads, S, D] and an
-    optional [B, 1, 1, S] additive Bias. Attrs: scale (0 = 1/sqrt(D)),
-    dropout_prob, causal, is_test, impl ('auto' | 'pallas' | 'composed';
-    'ring' and 'ulysses' are not ported)."""
+    """dropout(softmax(Q K^T * scale + Bias)) V over Q/K/V [B, heads, S, D]
+    and an optional [B, 1, 1, S] additive Bias (no gradient). Attrs: scale
+    (0 = 1/sqrt(D)), dropout_prob, causal, is_test, impl ('auto' | 'pallas'
+    | 'composed'; 'ring' and 'ulysses' are not ported). The dropout seed is
+    the op's ``seed_int()``, which its grad op shares, so the backward
+    regenerates the forward's mask."""
     q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
     bias = ins.get("Bias", [None])[0]
     scale = ctx.attr("scale") or (1.0 / math.sqrt(q.shape[-1]))
@@ -142,11 +332,13 @@ def fused_attention(ctx, ins):
             f"fused_attention impl={impl!r} (sequence parallelism) is not ported yet")
     if impl not in ("auto", "pallas", "composed"):
         raise ValueError(f"fused_attention: unknown impl {impl!r}")
+    seed = ctx.seed_int() if dropout else 0
     if q.device.type == "cpu" or impl == "composed":
         return {"Out": [attention_plain(q, k, v, bias, float(scale), causal, float(dropout),
-                                        ctx.rng() if dropout else None)]}
-    if dropout:
-        raise NotImplementedError(
-            "fused_attention with dropout > 0 on CUDA: the kernel has no dropout "
-            "until the training slice")
-    return {"Out": [flash_attn_fwd(q, k, v, bias, float(scale), causal)]}
+                                        seed)]}
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        # inside the generic fused_attention_grad: the kernels' autograd pair
+        out = FlashAttention.apply(q, k, v, bias, float(scale), causal, float(dropout), seed)
+    else:
+        out = flash_attn_fwd(q, k, v, bias, float(scale), causal, float(dropout), seed)
+    return {"Out": [out]}

@@ -1,6 +1,8 @@
-"""Matmul ops (the port's copy of ``mul`` from ``paddle_tpu/ops/math_ops.py``).
+"""Matmuls, softmax, cross-entropy and mean (the port's copy of ``matmul``,
+``mul``, ``softmax``, ``softmax_with_cross_entropy`` and ``mean`` from
+``paddle_tpu/ops/math_ops.py``).
 
-The product stays ``torch.matmul``, as the JAX package leaves it to XLA.
+The products stay ``torch.matmul``, as the JAX package leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -9,6 +11,22 @@ import math
 import torch
 
 from ..core.registry import register
+
+
+@register("matmul")
+def matmul(ctx, ins):
+    x, y = ins["X"][0], ins["Y"][0]
+    if ctx.attr("transpose_X", False) and x.ndim > 1:
+        x = x.transpose(-1, -2)
+    if ctx.attr("transpose_Y", False) and y.ndim > 1:
+        y = y.transpose(-1, -2)
+    dt = torch.promote_types(x.dtype, y.dtype)
+    out = torch.matmul(x.to(dt), y.to(dt))
+    alpha = ctx.attr("alpha", 1.0)
+    if alpha != 1.0:
+        # alpha rounded to the output dtype first, as the JAX package does
+        out = out * torch.tensor(alpha, dtype=out.dtype, device=out.device)
+    return {"Out": [out]}
 
 
 @register("mul")
@@ -23,3 +41,40 @@ def mul(ctx, ins):
     x2 = x.reshape(math.prod(xlead), -1).to(dt)
     y2 = y.reshape(math.prod(y.shape[:yn]), -1).to(dt)
     return {"Out": [torch.matmul(x2, y2).reshape(xlead + tuple(y.shape[yn:]))]}
+
+
+@register("softmax")
+def softmax(ctx, ins):
+    """Written out as ``jax.nn.softmax`` computes it, in x's dtype."""
+    x = ins["X"][0]
+    axis = ctx.attr("axis", -1)
+    e = torch.exp(x - x.amax(dim=axis, keepdim=True).detach())
+    return {"Out": [e / e.sum(dim=axis, keepdim=True)]}
+
+
+@register("softmax_with_cross_entropy", nondiff_inputs=("Label",),
+          nondiff_outputs=("Softmax",))
+def softmax_with_cross_entropy(ctx, ins):
+    """Stable softmax + cross-entropy. Hard labels: Label int [N...,1]; soft
+    labels: Label of Logits' shape. Outputs Softmax (no gradient flows
+    through it) and Loss [N...,1]."""
+    logits, label = ins["Logits"][0], ins["Label"][0]
+    axis = ctx.attr("axis", -1)
+    log_probs = logits - torch.logsumexp(logits, dim=axis, keepdim=True)
+    softmax_out = torch.exp(log_probs).detach()
+    if ctx.attr("soft_label", False):
+        loss = -(label.to(log_probs.dtype) * log_probs).sum(dim=axis, keepdim=True)
+    else:
+        lab = label
+        if lab.ndim == logits.ndim and lab.shape[axis] == 1:
+            lab = lab.squeeze(axis)
+        loss = -torch.take_along_dim(log_probs, lab.unsqueeze(-1).long(), dim=axis)
+        ignore = ctx.attr("ignore_index", -100)
+        if ignore >= 0:
+            loss = torch.where(lab.unsqueeze(-1) != ignore, loss, torch.zeros_like(loss))
+    return {"Softmax": [softmax_out], "Loss": [loss]}
+
+
+@register("mean")
+def mean(ctx, ins):
+    return {"Out": [ins["X"][0].mean().reshape((1,))]}

@@ -7,7 +7,7 @@ import torch
 from ..core.registry import register
 
 
-@register("layer_norm")
+@register("layer_norm", nondiff_outputs=("Mean", "Variance"))
 def layer_norm(ctx, ins):
     """Normalize over dims >= begin_norm_axis, computed in f32 and cast back."""
     x = ins["X"][0]
@@ -30,7 +30,7 @@ def layer_norm(ctx, ins):
             "Variance": [var.reshape(lead)]}
 
 
-@register("dropout")
+@register("dropout", nondiff_outputs=("Mask",))
 def dropout(ctx, ins):
     """dropout_implementation: 'downgrade_in_infer' (scale the output by
     (1-p) at inference) or 'upscale_in_train' (scale kept units by 1/(1-p)

@@ -1,0 +1,42 @@
+"""Optimizer update ops (the port's copy of ``adam`` from
+``paddle_tpu/ops/optimizer_ops.py``).
+
+An update op rewrites Param and its state: the outputs carry the input state
+vars' names, so the executor writes them back to the scope. It computes in
+the master dtype -- the dtype of its moment accumulators (f32) -- by casting
+Param, Grad and LearningRate up front, and casts only ParamOut back to the
+parameter's dtype. Each op is a handful of elementwise PyTorch launches per
+parameter; a multi-tensor update over all parameters is later work.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.registry import register
+
+
+def _up(mdt, *xs):
+    """Cast tensors up to the master dtype."""
+    return [x.to(mdt) if x is not None else None for x in xs]
+
+
+def _down(p_out, p):
+    return p_out.to(p.dtype)
+
+
+@register("adam", grad=None)
+def adam(ctx, ins):
+    p, g = ins["Param"][0], ins["Grad"][0]
+    m, v = ins["Moment1"][0], ins["Moment2"][0]
+    b1p, b2p = ins["Beta1Pow"][0], ins["Beta2Pow"][0]
+    pf, gf, lrf = _up(m.dtype, p, g, ins["LearningRate"][0])
+    b1 = ctx.attr("beta1", 0.9)
+    b2 = ctx.attr("beta2", 0.999)
+    eps = ctx.attr("epsilon", 1e-8)
+    m_out = b1 * m + (1 - b1) * gf
+    v_out = b2 * v + (1 - b2) * gf * gf
+    lr_t = lrf * torch.sqrt(1 - b2p) / (1 - b1p)
+    p_out = pf - lr_t * m_out / (torch.sqrt(v_out) + eps)
+    return {"ParamOut": [_down(p_out, p)], "Moment1Out": [m_out],
+            "Moment2Out": [v_out], "Beta1PowOut": [b1p * b1],
+            "Beta2PowOut": [b2p * b2]}

@@ -1,6 +1,6 @@
 """Tensor-manipulation ops (the port's copy of part of
-``paddle_tpu/ops/tensor_ops.py``): reshape2, transpose2, unsqueeze2, split
-and the lookup_table_v2 embedding.
+``paddle_tpu/ops/tensor_ops.py``): reshape2, transpose2, unsqueeze2, split,
+slice, gather, top_k and the lookup_table_v2 embedding.
 """
 from __future__ import annotations
 
@@ -54,7 +54,7 @@ def split(ctx, ins):
     return {"Out": list(torch.split(x, list(sections), dim=axis))}
 
 
-@register("lookup_table_v2")
+@register("lookup_table_v2", nondiff_inputs=("Ids",))
 def lookup_table_v2(ctx, ins):
     """Embedding lookup; padding_idx rows produce zeros. Ids stay int64 for
     ``F.embedding`` (the JAX package computes them as int32 with x64 off:
@@ -68,3 +68,32 @@ def lookup_table_v2(ctx, ins):
     if pad is not None and pad >= 0:
         out = out * (ids != pad).unsqueeze(-1).to(out.dtype)
     return {"Out": [out]}
+
+
+@register("slice")
+def slice_op(ctx, ins):
+    x = ins["Input"][0]
+    sl = [slice(None)] * x.ndim
+    for a, s, e in zip(ctx.attr("axes", []), ctx.attr("starts", []), ctx.attr("ends", [])):
+        dim = x.shape[a]
+        s = max(s + dim, 0) if s < 0 else min(s, dim)
+        e = max(e + dim, 0) if e < 0 else min(e, dim)
+        sl[a] = slice(s, e)
+    return {"Out": [x[tuple(sl)]]}
+
+
+@register("gather", nondiff_inputs=("Index",))
+def gather(ctx, ins):
+    """``jnp.take`` along ``axis``: the output dims are x's with ``axis``
+    replaced by Index's shape."""
+    x, idx = ins["X"][0], ins["Index"][0]
+    axis = ctx.attr("axis", 0) % x.ndim
+    out = x.index_select(axis, idx.reshape(-1).long())
+    return {"Out": [out.reshape(tuple(x.shape[:axis]) + tuple(idx.shape)
+                                + tuple(x.shape[axis + 1:]))]}
+
+
+@register("top_k", nondiff_outputs=("Indices",))
+def top_k(ctx, ins):
+    vals, idx = torch.topk(ins["X"][0], ctx.attr("k", 1), dim=-1)
+    return {"Out": [vals], "Indices": [idx]}

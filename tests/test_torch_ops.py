@@ -1,5 +1,5 @@
-"""Each op type of the BERT serving slice: the JAX package's lowering and the
-port's, on the same numpy inputs.
+"""Each op type of the BERT serving and pretraining slices: the JAX
+package's lowering and the port's, on the same numpy inputs.
 
 Tolerances: float32 ``atol 1e-6, rtol 1e-5`` (``mul`` and ``fused_attention``
 ``1e-5``: their sums run in another order); bfloat16 ``atol 1e-2, rtol
@@ -104,6 +104,42 @@ CASES = {
                                      "V": [_r(1, 2, 18, 8)[:, :, 2:]]},
                                     {"scale": 0.3, "is_test": True, "causal": True,
                                      "impl": "composed"}, "bfloat16", None),
+    "matmul": ("matmul", {"X": [_r(2, 3, 5, 8)], "Y": [_r(2, 3, 6, 8)]},
+               {"transpose_X": False, "transpose_Y": True, "alpha": 0.125}, "float32", SUM_TOL),
+    "matmul-bf16-alpha": ("matmul", {"X": [_r(2, 3, 5, 16)], "Y": [_r(2, 3, 16, 4)]},
+                          {"alpha": 0.17677669529663687}, "bfloat16", None),
+    "softmax": ("softmax", {"X": [_r(3, 4, 9, scale=3.0)]}, {"axis": -1}, "float32", None),
+    "softmax-bf16": ("softmax", {"X": [_r(3, 4, 9, scale=3.0)]}, {"axis": -1}, "bfloat16",
+                     None),
+    "softmax_with_cross_entropy": ("softmax_with_cross_entropy",
+                                   {"Logits": [_r(6, 11, scale=2.0)],
+                                    "Label": [_ids((6, 1), 11)]},
+                                   {"soft_label": False, "ignore_index": -100},
+                                   "float32", None),
+    "softmax_with_cross_entropy-ignore": ("softmax_with_cross_entropy",
+                                          {"Logits": [_r(6, 11, scale=2.0)],
+                                           "Label": [_ids((6, 1), 4, seed=2)]},
+                                          {"soft_label": False, "ignore_index": 1},
+                                          "float32", None),
+    "mean": ("mean", {"X": [_r(4, 7)]}, {}, "float32", None),
+    "slice": ("slice", {"Input": [_r(3, 5, 4)]}, {"axes": [1, 2], "starts": [0, -3],
+                                                  "ends": [1, 100]}, "float32", None),
+    "gather": ("gather", {"X": [_r(12, 8)], "Index": [_ids((7, 1), 12, seed=5)]},
+               {"axis": 0}, "float32", None),
+    "top_k": ("top_k", {"X": [_r(5, 9)]}, {"k": 3}, "float32", None),
+    "accuracy": ("accuracy", {"Indices": [_ids((8, 2), 3, seed=4)],
+                              "Label": [_ids((8, 1), 3, seed=6)]}, {}, "float32", None),
+    "assign": ("assign", {"X": [_r(3, 4)]}, {}, "float32", None),
+    "sum": ("sum", {"X": [_r(3, 4), _r(4, 3).T.copy(), _r(2, 6).reshape(3, 4)]}, {},
+            "float32", None),
+    "tanh": ("tanh", {"X": [_r(4, 6, scale=2.0)]}, {}, "float32", None),
+    "adam": ("adam", {"Param": [_r(4, 5)], "Grad": [_r(5, 4).reshape(4, 5)],
+                      "LearningRate": [np.array([0.01], "float32")],
+                      "Moment1": [_r(2, 10).reshape(4, 5) * 0.1],
+                      "Moment2": [np.abs(_r(10, 2).reshape(4, 5)) * 0.01],
+                      "Beta1Pow": [np.array([0.9 ** 3], "float32")],
+                      "Beta2Pow": [np.array([0.999 ** 3], "float32")]},
+             {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}, "float32", None),
 }
 
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Serve and train BERT-base through the PyTorch/CUDA port on one NVIDIA
-GPU, and hold its CUDA kernels against their plain PyTorch versions.
+"""Serve BERT-base (bf16 and int8), train BERT-base and ResNet-50 through the
+PyTorch/CUDA port on one NVIDIA GPU, and hold its CUDA kernels against their
+plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -34,7 +35,28 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    card's ``attn_impl="composed"`` program (plain matmul/softmax
    attention) and, at batch 2 with the same attention-dropout masks, the
    CPU port;
-6. the kernels line, then the result line.
+6. conv1x1_bn and int8_matmul against their plain versions (CUDA events,
+   as in phase 3): ``conv1x1_bn`` at the 12 distinct (M, K, N) shapes of
+   ResNet-50's 33 fused chains at batch 128 (read from the program), with
+   the prologue at one shape and at two ragged ones; ``int8_matmul`` at
+   the 8 shapes of int8 BERT-base serving (4 fc shapes x M 1024 and 4096),
+   a ragged shape and f32, held bit for bit (outputs, row scales, codes);
+7. int8 serving path: the same BERT-base weights quantized with
+   ``quantize_weights(int8_compute=True)``, saved, loaded into a
+   ``Predictor`` on the card and asked phase 4's requests; checks the
+   launches (``int8_matmul`` 48 per request, ``flash_attn_fwd`` 12), and the
+   first request against the same model with the plain int8 matmul on the
+   card (bit for bit), the CPU Predictor and the unquantized bf16 model
+   (the int8 accuracy cost);
+8. ResNet-50 training at bench.py's configuration (batch 128, 224 x 224,
+   bf16, NHWC, space-to-depth stem, 1000 classes, Momentum(0.1, 0.9), seed
+   0, one repeated batch), every batch norm marked ``fuse_stats`` and
+   ``fuse_conv_bn_stats`` run before ``minimize`` (33 chains); checks the
+   launches per step (``fused_conv1x1_bn_fwd`` 66: 33 forward ops and their
+   33 recomputes inside the generic grad), a finite loss that falls, and
+   step 1 against the unfused program on the card and, at batch 2, the CPU
+   port, in bf16 and on the f32 build of the same weights;
+9. the kernels line, then the result line.
 
 Exits non-zero, with no result line, when there is no CUDA card, when the
 port's sources are not beside this script, or when any phase fails.
@@ -101,6 +123,46 @@ TRAIN_STEPS = 5
 ATTN_DROPOUT = 0.1
 
 BERT_REQUESTS = [(8, 128)] * 4 + [(8, 512)] * 2
+
+PEAK_INT8_OPS = 1979e12
+# conv1x1_bn against its plain version on the same inputs. y: both accumulate
+# the exact products of the rounded operands in f32, in other orders; in bf16 an
+# output can then round one ulp apart (2^-7 of |y| at the bottom of a binade):
+# held to 2^-7 of max|y|; f32 to 1e-5 of max|y|. The column sums: against torch
+# sums of the kernel's own y, only the order of the f32 additions differs (M up
+# to 401408 terms: a random-walk error of sqrt(M) * 2^-24 ~ 4e-5 of sum|y|),
+# held to 1e-4 of sum|y| per column; against the plain version's sums they also
+# carry y's one-ulp moves, held to 2^-7 of sum|y|.
+CONV_Y_REL = {"bfloat16": 2 ** -7, "float32": 1e-5}
+CONV_STATS_OWN_REL, CONV_STATS_PLAIN_REL = 1e-4, 2 ** -7
+# int8 serving, first request. Against the same model with the plain int8 matmul on
+# the card: 0 -- the kernel is bit-exact to the plain version and every other op is
+# the same deterministic launch. Against the unquantized bf16 model, relative L2 of
+# the outputs: each quantized matmul rounds its activations and its weights to
+# 1/127 steps of their abs-max (well under 1% rms of each product for Gaussian
+# values); 48 of them in sequence, renormalised by the layer norms, stay at a few
+# percent. 0.1 bounds that; a codec off by a step everywhere or a wrong scale
+# gives O(1). Against the CPU Predictor the same relative L2 limit, not PR 1's bf16
+# limits: the card and the CPU round bf16 at other places (PR 1: mean gap 0.008),
+# and a bf16 ulp (2^-8 of a value) moves a code by one step (1/127 of the row's
+# abs-max) wherever the value lies near a code boundary, so the two int8 runs part
+# by about one quantization noise (measured, PR 3's first run: max 0.14, mean 0.021,
+# relative L2 2.6%, against 2.8% for int8 vs bf16).
+INT8_REL_L2 = 0.1
+# ResNet-50 training, step 1 from the same weights and batch. The loss gap is
+# relative to the loss (~7 at initialisation): bf16 rounds at other places in the
+# kernel and cuDNN (one ulp, 2^-8, of scattered elements); 1e-2 as PR 2. The update
+# gap is sum|u_a - u_b| / sum|u_b| over every parameter with u = lr * g, the f32
+# velocity after step 1 (the bf16 parameters would round most updates away). It is
+# held on the f32 build of the same model and weights only: at initialisation this
+# model's bf16 gradients are dominated by rounding (on the CPU port at batch 2 the
+# bf16 gradient has cosine 0.09 with the f32 one, fused or not), so two bf16
+# programs that round at other places give unrelated gradients; they are printed.
+# In f32 the sums differ in order only, amplified through the backward by the same
+# ill-conditioning: the CPU port's own fused and unfused programs differ by 1.2% at
+# batch 2. 0.1 bounds it.
+RESNET_LOSS_REL, RESNET_UPDATE_REL = 1e-2, 0.1
+RESNET_BATCH, RESNET_STEPS = 128, 5
 
 
 def emit(phase: str, **kw):
@@ -453,6 +515,351 @@ def phase_train_path(torch):
     return launches, step_ms
 
 
+def _conv_bound(M, K, N, elsize, prologue):
+    """Bytes: x, w and y once, the statistics (and the prologue's four [K]
+    vectors); operations: 2 M K N at the dtype's peak."""
+    bytes_moved = (M * K + K * N + M * N) * elsize + 2 * N * 4 + (4 * K * 4 if prologue else 0)
+    flops = 2 * M * K * N
+    peak = PEAK_FLOPS["bfloat16"] if elsize == 2 else PEAK_FLOPS["float32"]
+    t_mem, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / peak
+    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
+
+
+def resnet_fused_shapes(program, batch):
+    """(M, K, N) -> count of the program's conv2d_bn_fused ops at ``batch``."""
+    blk = program.global_block()
+    shapes = {}
+    for op in blk.ops:
+        if op.type == "conv2d_bn_fused":
+            x = blk.var(op.input("Input")[0])
+            w = blk.var(op.input("Filter")[0])
+            _, H, W, C = x.shape
+            key = (batch * H * W, C, w.shape[0])
+            shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
+def phase_conv_bn_kernels(torch, shapes):
+    """fused_conv1x1_bn_fwd against conv1x1_bn_plain at ResNet-50's fused
+    shapes (bf16, no prologue, as conv2d_bn_fused calls it), with the
+    prologue, and at ragged shapes (the unaligned load path, f32)."""
+    from paddle_tpu_torch.ops.conv_bn import conv1x1_bn_plain, fused_conv1x1_bn_fwd
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    cases = [(M, K, N, "bfloat16", False, False, n) for (M, K, N), n in sorted(shapes.items())]
+    cases += [(100352, 512, 128, "bfloat16", True, True, 0),
+              (1000, 36, 100, "bfloat16", True, True, 0),
+              (1000, 72, 100, "float32", True, True, 0)]
+    results = []
+    for M, K, N, dt, apply_in_bn, relu_in, count in cases:
+        dtype = getattr(torch, dt)
+        x2 = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+        # the op hands the kernel the transposed view of the [N, K] filter
+        w = (torch.randn((N, K), generator=gen, device="cuda") * K ** -0.5).to(dtype).t()
+        mu, g, b = (torch.randn((K,), generator=gen, device="cuda") for _ in range(3))
+        var = torch.rand((K,), generator=gen, device="cuda") + 0.5
+        args = (x2, w, mu, var, g, b, 1e-5, relu_in, apply_in_bn)
+        y, s, ss = fused_conv1x1_bn_fwd(*args)
+        torch.cuda.synchronize()
+        yp, sp, ssp = conv1x1_bn_plain(*args)
+        yk, ypf = y.float(), yp.float()
+        err = (yk - ypf).abs().max().item()
+        y_tol = CONV_Y_REL[dt] * ypf.abs().max().item()
+        mag, mag2 = yk.abs().sum(0), (yk * yk).sum(0)
+        own = max(((s - yk.sum(0)).abs() / mag).max().item(),
+                  ((ss - (yk * yk).sum(0)).abs() / mag2).max().item())
+        plain = max(((s - sp).abs() / mag).max().item(), ((ss - ssp).abs() / mag2).max().item())
+        finite = all(bool(torch.isfinite(t).all()) for t in (y, s, ss))
+        del yk, ypf, yp, sp, ssp, mag, mag2
+        ms = _device_ms(torch, lambda: fused_conv1x1_bn_fwd(*args))
+        plain_ms = _device_ms(torch, lambda: conv1x1_bn_plain(*args), runs=5)
+        wc = w.contiguous()
+        matmul_ms = _device_ms(torch, lambda: torch.matmul(x2, wc))
+        bound_ms, bound_by = _conv_bound(M, K, N, x2.element_size(), apply_in_bn)
+        ok = (finite and err <= y_tol and own <= CONV_STATS_OWN_REL
+              and plain <= CONV_STATS_PLAIN_REL)
+        r = dict(shape=[M, K, N], dtype=dt, apply_in_bn=apply_in_bn, relu_in=relu_in,
+                 launches_per_forward_pass=count, max_abs_err=err, atol=y_tol,
+                 stats_vs_own_y_rel=own, stats_vs_plain_rel=plain, ok=ok, ms=ms,
+                 plain_ms=plain_ms, matmul_ms=matmul_ms, library_ms=None,
+                 bound_ms=bound_ms, bound_by=bound_by)
+        emit("kernel_vs_plain", kernel="fused_conv1x1_bn_fwd", **r)
+        results.append(r)
+        del x2, w, wc, y, s, ss
+    torch.cuda.empty_cache()
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise SystemExit(f"fused_conv1x1_bn_fwd disagrees with conv1x1_bn_plain: {bad}")
+    path = [r for r in results if r["launches_per_forward_pass"]]
+    emit("conv1x1_bn_forward_pass", launches=sum(r["launches_per_forward_pass"] for r in path),
+         ms=sum(r["ms"] * r["launches_per_forward_pass"] for r in path),
+         bound_ms=sum(r["bound_ms"] * r["launches_per_forward_pass"] for r in path),
+         matmul_ms=sum(r["matmul_ms"] * r["launches_per_forward_pass"] for r in path))
+    return results
+
+
+def _int8_bound(M, K, N, elsize):
+    bytes_moved = M * K * elsize + K * N + N * 4 + M * N * elsize
+    t_mem, t_ops = bytes_moved / HBM_BYTES_PER_S, 2 * M * K * N / PEAK_INT8_OPS
+    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
+
+
+def phase_int8_kernels(torch):
+    """int8_matmul against int8_matmul_plain, bit for bit: the serving
+    path's shapes (qkv, out, ffn1, ffn2 at 8 x 128 and 8 x 512 tokens), a
+    ragged shape (the unaligned load paths) and f32 activations."""
+    from paddle_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 4)
+    fcs = [(768, 2304), (768, 768), (768, 3072), (3072, 768)]
+    cases = [(M, K, N, "bfloat16") for M in (1024, 4096) for K, N in fcs]
+    cases += [(1001, 301, 131, "bfloat16"), (1024, 768, 768, "float32")]
+    results = []
+    for M, K, N, dt in cases:
+        dtype = getattr(torch, dt)
+        x2 = (torch.randn((M, K), generator=gen, device="cuda") * 3).to(dtype)
+        w8 = torch.randint(-127, 128, (K, N), generator=gen, device="cuda").to(torch.int8)
+        ws = torch.rand((N,), generator=gen, device="cuda") * 1e-3
+        out, xs, xq = int8_matmul(x2, w8, ws, return_codes=True)
+        torch.cuda.synchronize()
+        ref, rxs, rxq = int8_matmul_plain(x2, w8, ws, return_codes=True)
+        err = (out.float() - ref.float()).abs().max().item()
+        exact = (torch.equal(out, ref) and torch.equal(xs, rxs) and torch.equal(xq, rxq))
+        finite = bool(torch.isfinite(out).all())
+        del ref, rxs, rxq, xs, xq
+        ms = _device_ms(torch, lambda: int8_matmul(x2, w8, ws))
+        plain_ms = _device_ms(torch, lambda: int8_matmul_plain(x2, w8, ws), runs=5)
+        wb = (w8.float() * ws).to(dtype)
+        matmul_ms = _device_ms(torch, lambda: torch.matmul(x2, wb))
+        bound_ms, bound_by = _int8_bound(M, K, N, x2.element_size())
+        r = dict(shape=[M, K, N], dtype=dt, max_abs_err=err, atol=0.0, bit_exact=exact,
+                 ok=exact and finite, ms=ms, plain_ms=plain_ms, matmul_ms=matmul_ms,
+                 library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+        emit("kernel_vs_plain", kernel="int8_matmul", **r)
+        results.append(r)
+        del x2, w8, ws, wb, out
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise SystemExit(f"int8_matmul is not bit-exact to int8_matmul_plain: {bad}")
+    for M in (1024, 4096):
+        rows = [r for r in results if r["shape"][0] == M and r["dtype"] == "bfloat16"]
+        emit("int8_matmul_per_request", tokens=M, launches=12 * len(rows),
+             ms=12 * sum(r["ms"] for r in rows), bound_ms=12 * sum(r["bound_ms"] for r in rows),
+             matmul_ms=12 * sum(r["matmul_ms"] for r in rows))
+    return results
+
+
+def _serve(torch, pred, requests):
+    outs, lat = [], []
+    for feed in requests:
+        t0 = time.perf_counter()
+        outs.append(pred.run(feed)[0])
+        lat.append(time.perf_counter() - t0)
+    return outs, lat
+
+
+def phase_int8_path(torch, workdir):
+    """The int8 serving path (phase 7)."""
+    from paddle_tpu_torch.contrib import quantize
+    from paddle_tpu_torch.inference import Predictor
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops import flash_attention, int8_matmul as i8
+    from paddle_tpu_torch.tools.serving_profile import bert_feed, save_bert_encoder
+
+    cfg = bert.BertConfig(dtype="bfloat16")
+    bf16_dir, int8_dir = os.path.join(workdir, "bert_bf16"), os.path.join(workdir, "bert_int8")
+    t0 = time.perf_counter()
+    save_bert_encoder(bf16_dir, cfg, SEED, int8_dir=int8_dir)   # startup on the card
+    build_s = time.perf_counter() - t0
+    pred = Predictor(int8_dir)
+    ops = [op.type for op in pred.program.global_block().ops]
+    n_qmul = ops.count("quantized_mul")
+    int8_vars = sorted(n for n, v in pred._state.items() if v.dtype == torch.int8)
+
+    rng = np.random.RandomState(SEED)
+    requests = [bert_feed(rng, B, S, cfg.vocab_size) for B, S in BERT_REQUESTS]
+    warm_rng = np.random.RandomState(SEED + 1)
+    ref_pred = Predictor(bf16_dir)
+    for p in (pred, ref_pred):
+        for B, S in sorted(set(BERT_REQUESTS)):
+            p.run(bert_feed(warm_rng, B, S, cfg.vocab_size))
+    torch.cuda.synchronize()
+
+    i8.int8_matmul.launches = 0
+    flash_attention.flash_attn_fwd.launches = 0
+    outs, lat = _serve(torch, pred, requests)
+    launches = {"int8_matmul": i8.int8_matmul.launches,
+                "flash_attn_fwd": flash_attention.flash_attn_fwd.launches}
+    expected = {"int8_matmul": n_qmul * len(requests),
+                "flash_attn_fwd": cfg.n_layers * len(requests)}
+    bf16_outs, bf16_lat = _serve(torch, ref_pred, requests)
+    for (B, S), o in zip(BERT_REQUESTS, outs):
+        if o.shape != (B, S, cfg.hidden) or not np.isfinite(o).all():
+            raise SystemExit(f"bad int8 output {o.shape} finite={np.isfinite(o).all()}")
+    if n_qmul != 4 * cfg.n_layers or launches != expected:
+        raise SystemExit(f"int8 serving: {n_qmul} quantized_mul ops, launches {launches}, "
+                         f"expected {expected}")
+
+    # references for the first request
+    kernel = quantize.int8_matmul
+    quantize.int8_matmul = i8.int8_matmul_plain     # the op's matmul, on the plain version
+    try:
+        plain_out = Predictor(int8_dir).run(requests[0])[0]
+    finally:
+        quantize.int8_matmul = kernel
+    t0 = time.perf_counter()
+    cpu_out = Predictor(int8_dir, device="cpu").run(requests[0])[0]
+    cpu_s = time.perf_counter() - t0
+    gaps = {}
+    for name, a, b in (("kernel_vs_card_plain", outs[0], plain_out),
+                       ("card_vs_cpu_plain", outs[0], cpu_out),
+                       ("int8_vs_bf16", outs[0], bf16_outs[0])):
+        d = np.abs(a - b)
+        gaps[name] = dict(max_abs=float(d.max()), mean_abs=float(d.mean()),
+                          rel_l2=float(np.linalg.norm(a - b) / np.linalg.norm(b)))
+    per_req = [dict(batch=B, seq=S, ms=s * 1e3, tokens_per_s=B * S / s, bf16_ms=t * 1e3)
+               for (B, S), s, t in zip(BERT_REQUESTS, lat, bf16_lat)]
+    emit("int8_path", model=f"bert encoder L{cfg.n_layers} H{cfg.hidden} int8 weights "
+                            f"(quantize_weights int8_compute=True), bf16 activations",
+         quantized_mul_ops=n_qmul, int8_vars=len(int8_vars), build_startup_save_s=build_s,
+         requests=per_req, launches=launches, expected_launches=expected,
+         first_request_gaps=gaps, rel_l2_limit=INT8_REL_L2, mean_abs_output=float(np.abs(bf16_outs[0]).mean()),
+         cpu_seconds=cpu_s)
+    g = gaps["kernel_vs_card_plain"]
+    if g["max_abs"] != 0.0:
+        raise SystemExit(f"int8 path: the kernel's output differs from the plain int8 "
+                         f"matmul's on the card: {g}")
+    for name in ("card_vs_cpu_plain", "int8_vs_bf16"):
+        if not gaps[name]["rel_l2"] <= INT8_REL_L2:
+            raise SystemExit(f"int8 path: {name} gap {gaps[name]} exceeds rel L2 {INT8_REL_L2}")
+    return launches
+
+
+def _resnet_feed(torch, rng, batch, device):
+    from paddle_tpu_torch.tools.train_profile import resnet_feed
+    raw = resnet_feed(rng, batch)
+    return {"img": torch.from_numpy(raw["img"]).to(device, torch.bfloat16),
+            "label": torch.from_numpy(raw["label"]).to(device)}
+
+
+def _resnet_step1(torch, pt, program, loss, init, feed, device):
+    """One step from ``init``: (loss, velocity name -> f32 tensor on the CPU).
+    Momentum's first velocity is the gradient, so lr * v is the f32 update."""
+    scope = pt.Scope()
+    for n, t in init.items():
+        scope.set_var(n, t.to(device, copy=True))
+    with pt.scope_guard(scope):
+        value = pt.Executor(pt.CPUPlace() if device == "cpu" else None).run(
+            program, feed=feed, fetch_list=[loss])[0]
+    vel = {n: scope.find_var(n).float().cpu() for n in init if n.endswith("_velocity_0")}
+    return float(value[0]), vel
+
+
+def _resnet_gaps(a, b):
+    (la, va), (lb, vb) = a, b
+    num = sum(float((va[n] - vb[n]).abs().sum()) for n in vb)
+    den = sum(float(vb[n].abs().sum()) for n in vb)
+    return dict(loss_a=la, loss_b=lb, loss_rel_gap=abs(la - lb) / abs(lb),
+                update_rel_l1_gap=num / den)
+
+
+def phase_resnet_train(torch, main_prog, startup, loss, params_grads, fused):
+    """The ResNet-50 training path (phase 8)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import conv_bn
+    from paddle_tpu_torch.tools.train_profile import build_resnet50
+    ops = [op.type for op in main_prog.global_block().ops]
+    per_step = ops.count("conv2d_bn_fused") + ops.count("conv2d_bn_fused_grad")
+    if fused != 33 or per_step != 66:
+        raise SystemExit(f"fuse pass: {fused} chains, {per_step} fused launches a step; "
+                         f"expected 33 and 66")
+    feed = _resnet_feed(torch, np.random.RandomState(SEED), RESNET_BATCH, "cuda")
+    scope = pt.Scope()
+    exe = pt.Executor()
+    with pt.scope_guard(scope):
+        t0 = time.perf_counter()
+        exe.run(startup)
+        torch.cuda.synchronize()
+        startup_s = time.perf_counter() - t0
+        state = [n for n, v in main_prog.global_block().vars.items() if v.persistable]
+        init = {n: scope.find_var(n).clone() for n in state}
+        n_params = sum(scope.find_var(p.name).numel() for p, _ in params_grads)
+        torch.cuda.reset_peak_memory_stats()
+        conv_bn.fused_conv1x1_bn_fwd.launches = 0
+        losses, step_s = [], []
+        for _ in range(RESNET_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(exe.run(main_prog, feed=feed, fetch_list=[loss])[0][0]))
+            step_s.append(time.perf_counter() - t0)
+        launches = {"fused_conv1x1_bn_fwd": conv_bn.fused_conv1x1_bn_fwd.launches}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del scope
+    torch.cuda.empty_cache()
+    expected = {"fused_conv1x1_bn_fwd": per_step * RESNET_STEPS}
+    warm = sorted(step_s[1:])
+    step_ms = warm[len(warm) // 2] * 1e3
+    emit("resnet_train_path",
+         model=f"resnet50 NHWC space-to-depth stem bf16 B{RESNET_BATCH} 224x224 1000 classes "
+               f"Momentum(0.1, 0.9), {fused} conv+bn chains fused",
+         params=n_params, startup_s=startup_s, losses=losses,
+         step_ms=[t * 1e3 for t in step_s], step_ms_median_warm=step_ms,
+         images_per_s=RESNET_BATCH / (step_ms / 1e3), peak_memory_gb=peak_gb,
+         launches=launches, expected_launches=expected,
+         launches_per_step={k: v / RESNET_STEPS for k, v in launches.items()})
+    if launches != expected:
+        raise SystemExit(f"ResNet training launches {launches}, expected {expected}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise SystemExit(f"ResNet training loss is not finite and falling: {losses}")
+
+    # step 1 from the same weights: the bf16 program (loss gaps held, update gaps
+    # printed) and its f32 build (both held), each against the unfused program on
+    # the card and, at batch 2, the CPU port (the same program: its batch is dynamic)
+    init32 = {n: t.float() if t.is_floating_point() else t for n, t in init.items()}
+    feed2 = _resnet_feed(torch, np.random.RandomState(SEED + 1), 2, "cpu")
+    gaps = {}
+    for dt in ("bfloat16", "float32"):
+        tdt = getattr(torch, dt)
+        if dt == "bfloat16":
+            prog, prog_loss, ini = main_prog, loss, init
+        else:
+            prog, _, prog_loss, _, _ = build_resnet50(dtype=dt)
+            ini = init32
+        plain_prog, _, plain_loss, _, n0 = build_resnet50(dtype=dt, fuse=False)
+        plain_state = {n for n, v in plain_prog.global_block().vars.items() if v.persistable}
+        if n0 != 0 or plain_state != set(ini):
+            raise SystemExit("the unfused ResNet-50 program names its state differently")
+        fd = {"img": feed["img"].to(tdt), "label": feed["label"]}
+        conv_bn.fused_conv1x1_bn_fwd.launches = 0
+        fused_run = _resnet_step1(torch, pt, prog, prog_loss, ini, fd, "cuda")
+        if conv_bn.fused_conv1x1_bn_fwd.launches != per_step:
+            raise SystemExit(f"the {dt} step-1 card run did not run the conv1x1_bn kernel")
+        unfused = _resnet_gaps(fused_run, _resnet_step1(torch, pt, plain_prog, plain_loss,
+                                                        ini, fd, "cuda"))
+        del plain_prog, fused_run
+        torch.cuda.empty_cache()
+        fd2 = {"img": feed2["img"].to(tdt), "label": feed2["label"]}
+        t0 = time.perf_counter()
+        cpu_run = _resnet_step1(torch, pt, prog, prog_loss, {n: t.cpu() for n, t in ini.items()},
+                                fd2, "cpu")
+        cpu_s = time.perf_counter() - t0
+        card_run = _resnet_step1(torch, pt, prog, prog_loss, ini,
+                                 {k: v.to("cuda") for k, v in fd2.items()}, "cuda")
+        gaps[dt] = {"vs_card_unfused": unfused,
+                    "vs_cpu_port_batch2": dict(_resnet_gaps(card_run, cpu_run), cpu_seconds=cpu_s)}
+        del prog, card_run, cpu_run
+        torch.cuda.empty_cache()
+    emit("resnet_step1_gaps", **gaps, loss_rel_limit=RESNET_LOSS_REL,
+         update_rel_l1_limit_f32=RESNET_UPDATE_REL)
+    for dt, by_ref in gaps.items():
+        for name, g in by_ref.items():
+            held = g["loss_rel_gap"] <= RESNET_LOSS_REL
+            if dt == "float32":
+                held = held and g["update_rel_l1_gap"] <= RESNET_UPDATE_REL
+            if not held:
+                raise SystemExit(f"ResNet step 1 ({dt}) {name}: gaps {g} exceed the limits")
+    return launches, step_ms
+
+
 def phase_main_path(torch, workdir):
     """The serving path (phase 4)."""
     from paddle_tpu_torch.inference import Predictor
@@ -542,19 +949,27 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 comparisons in full f32
     torch.backends.cudnn.allow_tf32 = False
 
+    from paddle_tpu_torch.tools.train_profile import build_resnet50
+
     t_start = time.perf_counter()
     smi = phase_device(torch)
     phase_build()
     kres = phase_kernels(torch)
     tres = phase_train_kernels(torch)
+    resnet = build_resnet50()                  # (main, startup, loss, params_grads, fused)
+    cres = phase_conv_bn_kernels(torch, resnet_fused_shapes(resnet[0], RESNET_BATCH))
+    ires = phase_int8_kernels(torch)
     scratch = os.path.join(REPO, "build")      # git-ignored
     os.makedirs(scratch, exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
     try:
         serve_launches = phase_main_path(torch, workdir)
+        int8_launches = phase_int8_path(torch, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     train_launches, step_ms = phase_train_path(torch)
+    torch.cuda.empty_cache()
+    resnet_launches, resnet_step_ms = phase_resnet_train(torch, *resnet)
 
     serve_case = next(r for r in kres if r["dtype"] == "bfloat16" and r["shape"][2] == 512
                       and r["bias"] and not r["causal"])
@@ -563,13 +978,20 @@ def main() -> int:
                   + [f["max_abs_err"] for f, _ in tres if f["dtype"] == "bfloat16"])
     bwd_err = max(b["max_abs_err"] for _, b in tres if b["dtype"] == "bfloat16")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    conv_case = next(r for r in cres if r["shape"] == [401408, 64, 256])
+    conv_path = [r for r in cres if r["launches_per_forward_pass"]]
+    int8_case = next(r for r in ires if r["shape"] == [4096, 768, 3072])
+    no_library = ("no single PyTorch call computes this function; matmul_ms is a bf16 "
+                  "torch.matmul of the same shape, for context")
     print(smi.splitlines()[0] if smi else "nvidia-smi printed nothing", flush=True)
     print(json.dumps({"kernels": [
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
          "replaces": "paddle_tpu/ops/pallas_attention.py:227",
-         "launches": serve_launches["flash_attn_fwd"] + train_launches["flash_attn_fwd"],
+         "launches": (serve_launches["flash_attn_fwd"] + int8_launches["flash_attn_fwd"]
+                      + train_launches["flash_attn_fwd"]),
          "launches_by_path": {"serving": serve_launches["flash_attn_fwd"],
+                              "int8_serving": int8_launches["flash_attn_fwd"],
                               "training": train_launches["flash_attn_fwd"]},
          "max_abs_err": fwd_err, **{k: train_fwd[k] for k in keys},
          "shape": "B128 H12 S128 D64 bf16, bias, dropout 0.1, LSE (the training path)",
@@ -578,10 +1000,34 @@ def main() -> int:
         {"name": "flash_attn_bwd", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
          "replaces": "paddle_tpu/ops/pallas_attention.py:260",
-         "launches": train_launches["flash_attn_bwd"], "max_abs_err": bwd_err,
+         "launches": train_launches["flash_attn_bwd"],
+         "launches_by_path": {"training": train_launches["flash_attn_bwd"]},
+         "max_abs_err": bwd_err,
          **{k: train_bwd[k] for k in keys},
-         "shape": "B128 H12 S128 D64 bf16, bias, dropout 0.1 (the training path)"}],
-        "train_step_ms": step_ms, "seconds": time.perf_counter() - t_start}), flush=True)
+         "shape": "B128 H12 S128 D64 bf16, bias, dropout 0.1 (the training path)"},
+        {"name": "fused_conv1x1_bn_fwd", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/conv1x1_bn.cu",
+         "replaces": "paddle_tpu/ops/pallas_conv_bn.py:124",
+         "launches": resnet_launches["fused_conv1x1_bn_fwd"],
+         "launches_by_path": {"resnet50_training": resnet_launches["fused_conv1x1_bn_fwd"]},
+         "max_abs_err": max(r["max_abs_err"] for r in cres if r["dtype"] == "bfloat16"),
+         **{k: conv_case[k] for k in keys}, "matmul_ms": conv_case["matmul_ms"],
+         "library_note": no_library,
+         "shape": "M 401408 K 64 N 256 bf16, no prologue (4 of the 33 chains)",
+         "forward_pass": {"launches": 33,
+                          **{k: sum(r[k] * r["launches_per_forward_pass"] for r in conv_path)
+                             for k in ("ms", "plain_ms", "bound_ms", "matmul_ms")}}},
+        {"name": "int8_matmul", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/int8_matmul.cu",
+         "replaces": "paddle_tpu/ops/pallas_int8.py:83",
+         "launches": int8_launches["int8_matmul"],
+         "launches_by_path": {"int8_serving": int8_launches["int8_matmul"]},
+         "max_abs_err": max(r["max_abs_err"] for r in ires),
+         **{k: int8_case[k] for k in keys}, "matmul_ms": int8_case["matmul_ms"],
+         "library_note": no_library,
+         "shape": "M 4096 K 768 N 3072 bf16 activations (ffn1 at 8 x 512 tokens)"}],
+        "train_step_ms": step_ms, "resnet_step_ms": resnet_step_ms,
+        "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

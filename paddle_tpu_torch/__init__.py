@@ -25,5 +25,6 @@ from . import convert  # noqa: F401
 from . import optimizer  # noqa: F401
 from .core.backward import append_backward, gradients  # noqa: F401
 from . import models  # noqa: F401
+from . import contrib  # noqa: F401  (registers quantized_mul, dequantize_weight)
 
 __version__ = "0.1.0"

@@ -9,7 +9,11 @@ optimizer's accumulators (``{param}_moment1_0``, ``{param}_moment2_0``,
 ``{param}_beta1_pow_acc_0``, ``{param}_beta2_pow_acc_0``) and
 ``learning_rate_0`` are named by ``unique_name`` in both packages, so a
 program built under ``unique_name.guard()`` in either names its persistable
-state identically.
+state identically. The same holds for ResNet (bf16 filters and batch-norm
+scales, f32 running statistics, ``{param}_velocity_0``) and for a model
+quantized by ``quantize_weights`` in either package (int8 codes under the
+weight's name, f32 scales under ``{weight}@scale``): arrays keep their
+dtypes.
 """
 from __future__ import annotations
 

@@ -119,13 +119,16 @@ class OpDef:
 _REGISTRY: Dict[str, OpDef] = {}
 
 
-def register(type: str, *, grad="auto", nondiff_inputs=(), nondiff_outputs=()):
-    """Decorator: register ``fn(ctx, ins) -> outs`` as the lowering for ``type``."""
+def register(type: str, *, grad="auto", nondiff_inputs=(), nondiff_outputs=(),
+             infer_shape=None):
+    """Decorator: register ``fn(ctx, ins) -> outs`` as the lowering for ``type``
+    (``infer_shape(op, block)`` replaces the meta-tensor inference)."""
 
     def deco(fn):
         if type in _REGISTRY:
             raise ValueError(f"op type {type!r} already registered")
-        _REGISTRY[type] = OpDef(type, fn, None, grad, nondiff_inputs, nondiff_outputs)
+        _REGISTRY[type] = OpDef(type, fn, infer_shape, grad, nondiff_inputs,
+                                nondiff_outputs)
         return fn
 
     return deco

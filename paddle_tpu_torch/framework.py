@@ -9,6 +9,9 @@ What differs from the JAX package:
     (``core/registry.py``: the lowering on ``torch.device("meta")`` tensors).
   * Variables carry no arithmetic sugar; layers build every op explicitly.
   * No ``device_guard``: the port runs no pipeline stages yet.
+
+``Block.insert_op`` is the JAX package's (``quantize_weights`` inserts its
+``dequantize_weight`` ops with it).
 """
 from __future__ import annotations
 
@@ -289,6 +292,13 @@ class Block:
         if infer_shape:
             from .core import registry
             registry.infer_shape(op, self)
+        return op
+
+    def insert_op(self, index: int, type: str, inputs=None, outputs=None, attrs=None,
+                  infer_shape: bool = True) -> Operator:
+        """Append the op (shape inference included), then move it to ``index``."""
+        op = self.append_op(type, inputs, outputs, attrs, infer_shape=infer_shape)
+        self.ops.insert(index, self.ops.pop())
         return op
 
     def to_dict(self) -> dict:

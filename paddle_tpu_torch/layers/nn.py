@@ -1,5 +1,5 @@
 """Core NN layers DSL (the port's copy of the functions of
-``paddle_tpu/layers/nn.py`` that BERT pretraining calls).
+``paddle_tpu/layers/nn.py`` that BERT pretraining and ResNet training call).
 
 Each function builds ops into the default main program and parameters into
 the default startup program, with the same op types, slots, attrs and names
@@ -52,6 +52,87 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
     return _var(helper, out)
 
 
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, use_cudnn=True, act=None,
+           name=None, data_format="NCHW"):
+    """2-D convolution; the Filter parameter is [O, I/groups, kh, kw] in both
+    layouts (``use_cudnn`` is accepted and ignored)."""
+    helper = LayerHelper("conv2d", param_attr=param_attr, bias_attr=bias_attr,
+                         act=act, name=name)
+    c_in = input.shape[1] if data_format == "NCHW" else input.shape[-1]
+    fh, fw = (filter_size if isinstance(filter_size, (list, tuple))
+              else (filter_size, filter_size))
+    groups = groups or 1
+    w = helper.create_parameter(param_attr, [num_filters, c_in // groups, fh, fw],
+                                input.dtype)
+    out = _out(helper, input.dtype)
+    pair = lambda v: list(v) if isinstance(v, (list, tuple)) else [v, v]
+    helper.append_op("conv2d", inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [out]},
+                     attrs={"strides": pair(stride), "paddings": pair(padding),
+                            "dilations": pair(dilation), "groups": groups,
+                            "data_format": data_format})
+    pre_act = _var(helper, out)
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [num_filters], input.dtype, is_bias=True)
+        out2 = _out(helper, input.dtype)
+        helper.append_op("elementwise_add", inputs={"X": [pre_act], "Y": [b]},
+                         outputs={"Out": [out2]},
+                         attrs={"axis": 1 if data_format == "NCHW" else -1})
+        pre_act = _var(helper, out2)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1, pool_padding=0,
+           global_pooling=False, use_cudnn=True, ceil_mode=False, name=None,
+           exclusive=True, adaptive=False, data_format="NCHW"):
+    helper = LayerHelper("pool2d", name=name)
+    out = _out(helper, input.dtype)
+    pair = lambda v: [v, v] if isinstance(v, int) else list(v)
+    helper.append_op("pool2d", inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs={"pooling_type": pool_type, "ksize": pair(pool_size),
+                            "strides": pair(pool_stride), "paddings": pair(pool_padding),
+                            "global_pooling": global_pooling, "exclusive": exclusive,
+                            "adaptive": adaptive, "data_format": data_format})
+    return _var(helper, out)
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None, do_model_average_for_mean_and_var=False,
+               use_global_stats=False, fuse_stats=False):
+    """Batch normalization. ``fuse_stats=True`` marks the op for
+    ``contrib.fuse_conv_bn_stats``, which folds a 1x1/s1 NHWC conv in front
+    of it into ``conv2d_bn_fused`` (the CUDA 1x1-conv + statistics kernel on
+    the card)."""
+    from ..initializer import Constant
+    helper = LayerHelper("batch_norm", act=act, name=name)
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    dtype = input.dtype if input.dtype != "float16" else "float32"
+    scale = helper.create_parameter(param_attr, [c], dtype,
+                                    default_initializer=Constant(1.0))
+    bias = helper.create_parameter(bias_attr, [c], dtype, is_bias=True)
+    mean = helper.create_global_variable([c], "float32", persistable=True,
+                                         name=moving_mean_name, initializer=Constant(0.0))
+    variance = helper.create_global_variable([c], "float32", persistable=True,
+                                             name=moving_variance_name,
+                                             initializer=Constant(1.0))
+    y = _out(helper, input.dtype)
+    saved_mean = _out(helper, "float32", stop_gradient=True)
+    saved_var = _out(helper, "float32", stop_gradient=True)
+    helper.append_op(
+        "batch_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias], "Mean": [mean],
+                "Variance": [variance]},
+        outputs={"Y": [y], "MeanOut": [mean], "VarianceOut": [variance],
+                 "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+               "data_layout": data_layout, "use_global_stats": use_global_stats,
+               "fuse_stats": fuse_stats})
+    return helper.append_activation(_var(helper, y))
+
+
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1, epsilon=1e-5,
                param_attr=None, bias_attr=None, act=None, name=None):
     from ..initializer import Constant
@@ -98,6 +179,13 @@ def _elementwise(op_type):
 
 
 elementwise_add = _elementwise("elementwise_add")
+
+
+def relu(x, name=None):
+    helper = LayerHelper("relu", name=name)
+    out = _out(helper, x.dtype)
+    helper.append_op("relu", inputs={"X": [x]}, outputs={"Out": [out]})
+    return _var(helper, out)
 
 
 def gelu(x, name=None, approximate=None):

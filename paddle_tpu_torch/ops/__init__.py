@@ -9,5 +9,6 @@ from . import activations      # noqa: F401
 from . import tensor_ops       # noqa: F401
 from . import nn_ops           # noqa: F401
 from . import flash_attention  # noqa: F401
+from . import conv_bn          # noqa: F401
 from . import metrics_ops      # noqa: F401
 from . import optimizer_ops    # noqa: F401

@@ -1,4 +1,4 @@
-"""Activation ops (the port's copy of ``gelu`` and ``tanh`` from
+"""Activation ops (the port's copy of ``relu``, ``gelu`` and ``tanh`` from
 ``paddle_tpu/ops/activations.py``)."""
 from __future__ import annotations
 
@@ -25,3 +25,10 @@ def gelu(ctx, x):
 @simple_op("tanh")
 def tanh(ctx, x):
     return torch.tanh(x)
+
+
+@simple_op("relu")
+def relu(ctx, x):
+    """max(x, 0) as ``torch.maximum``: at x == 0 it passes half the gradient,
+    as ``jnp.maximum`` does (``torch.relu`` passes none)."""
+    return torch.maximum(x, torch.zeros((), dtype=x.dtype, device=x.device))

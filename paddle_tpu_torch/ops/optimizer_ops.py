@@ -1,4 +1,4 @@
-"""Optimizer update ops (the port's copy of ``adam`` from
+"""Optimizer update ops (the port's copy of ``momentum`` and ``adam`` from
 ``paddle_tpu/ops/optimizer_ops.py``).
 
 An update op rewrites Param and its state: the outputs carry the input state
@@ -22,6 +22,20 @@ def _up(mdt, *xs):
 
 def _down(p_out, p):
     return p_out.to(p.dtype)
+
+
+@register("momentum", grad=None)
+def momentum(ctx, ins):
+    """v' = mu v + g; p' = p - lr v' (Nesterov: p - lr (g + mu v'))."""
+    p, g, v = ins["Param"][0], ins["Grad"][0], ins["Velocity"][0]
+    pf, gf, lrf = _up(v.dtype, p, g, ins["LearningRate"][0])
+    mu = ctx.attr("mu", 0.9)
+    v_out = mu * v + gf
+    if ctx.attr("use_nesterov", False):
+        p_out = pf - (gf + mu * v_out) * lrf
+    else:
+        p_out = pf - lrf * v_out
+    return {"ParamOut": [_down(p_out, p)], "VelocityOut": [v_out]}
 
 
 @register("adam", grad=None)

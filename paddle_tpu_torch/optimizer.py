@@ -1,5 +1,6 @@
-"""Optimizers: the port's copy of ``Optimizer``, ``AdamOptimizer`` and the
-``Adam`` alias from ``paddle_tpu/optimizer.py``.
+"""Optimizers: the port's copy of ``Optimizer``, ``MomentumOptimizer``,
+``AdamOptimizer`` and the ``Momentum`` / ``Adam`` aliases from
+``paddle_tpu/optimizer.py``.
 
 ``Optimizer.minimize(loss)`` = append_backward + (no) clipping + (no)
 regularization + one update op per parameter, all in the same Program, so
@@ -102,6 +103,23 @@ class Optimizer:
         return ops, params_grads
 
 
+class MomentumOptimizer(Optimizer):
+    def __init__(self, learning_rate, momentum, use_nesterov=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        vel = self._add_accumulator("velocity", p)
+        return block.append_op(
+            "momentum",
+            inputs={"Param": [p], "Grad": [g], "Velocity": [vel],
+                    "LearningRate": [self._lr(p)]},
+            outputs={"ParamOut": [p], "VelocityOut": [vel]},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov})
+
+
 class AdamOptimizer(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8,
                  lazy_mode=False, **kw):
@@ -125,4 +143,5 @@ class AdamOptimizer(Optimizer):
                    "epsilon": self._epsilon})
 
 
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer

@@ -1,6 +1,7 @@
 """Where a BERT-base serving request spends its time on the card.
 
-    python3 -m paddle_tpu_torch.tools.serving_profile
+    python3 -m paddle_tpu_torch.tools.serving_profile          # bf16
+    python3 -m paddle_tpu_torch.tools.serving_profile int8     # int8 weights
 
 Builds the BERT-base encoder (L12 H768 A12, bf16, random weights from a
 seed) with the port's DSL, saves it with ``save_inference_model`` into the
@@ -9,7 +10,9 @@ and for each request shape (batch 8 x S 128 and 8 x 512) traces warm
 requests (3 each) with ``torch.profiler``. Prints one JSON line per shape: wall time
 per request, device busy time (the sum of the device activities, one
 stream), the idle share, kernel launches per request and the top kernels by
-device time. Needs a CUDA card.
+device time. With ``int8`` the weights are quantized with
+``quantize_weights(int8_compute=True)`` before saving, so every fc runs the
+CUDA int8 matmul kernel. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -26,9 +29,11 @@ FEEDS = (("src_ids", "int64"), ("pos_ids", "int64"), ("sent_ids", "int64"),
          ("input_mask", "float32"))
 
 
-def save_bert_encoder(model_dir, cfg, seed=0, place=None):
+def save_bert_encoder(model_dir, cfg, seed=0, place=None, int8_dir=None):
     """Build the BERT encoder with the port's DSL, run its startup program
-    (on ``place``; None is the card) and save it for inference."""
+    (on ``place``; None is the card) and save it for inference. With
+    ``int8_dir``, also quantize the same weights (``quantize_weights(...,
+    int8_compute=True)``) and save that model there."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.models import bert
     main, startup = pt.Program(), pt.Program()
@@ -43,6 +48,11 @@ def save_bert_encoder(model_dir, cfg, seed=0, place=None):
         exe.run(startup)
         pt.io.save_inference_model(model_dir, [f.name for f in feeds], [enc], exe,
                                    main_program=main)
+        if int8_dir is not None:
+            from paddle_tpu_torch.contrib.quantize import quantize_weights
+            quantize_weights(main, scope, int8_compute=True)
+            pt.io.save_inference_model(int8_dir, [f.name for f in feeds], [enc], exe,
+                                       main_program=main)
 
 
 def bert_feed(rng, B, S, vocab):
@@ -86,9 +96,11 @@ def profile_shape(torch, pred, feed, n_requests):
 
 
 def main():
+    import sys
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("serving_profile: no CUDA device")
+    int8 = sys.argv[1:] == ["int8"]
     from paddle_tpu_torch.inference import Predictor
     from paddle_tpu_torch.models import bert
     cfg = bert.BertConfig(dtype="bfloat16")
@@ -96,12 +108,14 @@ def main():
     os.makedirs(scratch, exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="serving_profile_", dir=scratch)
     try:
-        save_bert_encoder(os.path.join(workdir, "bert"), cfg)
-        pred = Predictor(os.path.join(workdir, "bert"))
+        save_bert_encoder(os.path.join(workdir, "bert"), cfg,
+                          int8_dir=os.path.join(workdir, "int8") if int8 else None)
+        pred = Predictor(os.path.join(workdir, "int8" if int8 else "bert"))
         rng = np.random.RandomState(0)
         for B, S in ((8, 128), (8, 512)):
             r = profile_shape(torch, pred, bert_feed(rng, B, S, cfg.vocab_size), 3)
-            print(json.dumps({"profile": f"bert-base L{cfg.n_layers} bf16 B{B} S{S}",
+            kind = "int8 weights, bf16 activations" if int8 else "bf16"
+            print(json.dumps({"profile": f"bert-base L{cfg.n_layers} {kind} B{B} S{S}",
                               "gpu": torch.cuda.get_device_name(0), **r}), flush=True)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)

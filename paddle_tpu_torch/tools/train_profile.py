@@ -1,8 +1,9 @@
-"""Where a BERT-base pretraining step spends its time on the card.
+"""Where a training step spends its time on the card.
 
-    python3 -m paddle_tpu_torch.tools.train_profile
+    python3 -m paddle_tpu_torch.tools.train_profile            # BERT-base
+    python3 -m paddle_tpu_torch.tools.train_profile resnet50   # ResNet-50
 
-Builds the BERT-base pretraining program (L12 H768 A12, FFN 3072, vocab
+BERT-base: builds the pretraining program (L12 H768 A12, FFN 3072, vocab
 30522, bf16, dropout 0.1, tied MLM decode) at the configuration of
 ``bench.py::bench_bert_base`` -- batch 128, S 128, 20 masked positions per
 sequence, ``Adam(1e-4)``, seed 0 -- with the port's DSL, ``append_backward``
@@ -13,7 +14,15 @@ stream), the idle share, device activities per step, device time by kind
 (the attention kernels, matmuls, copies, everything else) and the top
 kernels by device time. Needs a CUDA card.
 
-``build_pretrain`` and ``pretrain_feed`` are what ``chip_smoke.py`` drives.
+ResNet-50: builds the training program at ``bench.py::bench_resnet50``'s
+configuration -- batch 128, 224 x 224, bf16, NHWC, the space-to-depth stem,
+1000 classes, ``Momentum(0.1, 0.9)``, seed 0 -- with every batch norm marked
+``fuse_stats`` and ``contrib.fuse_conv_bn_stats`` run before ``minimize``,
+so its 33 1x1/s1 conv + batch-norm chains run on the CUDA ``conv1x1_bn``
+kernel; then profiles it the same way.
+
+``build_pretrain``, ``pretrain_feed``, ``build_resnet50`` and
+``resnet_feed`` are what ``chip_smoke.py`` drives.
 """
 from __future__ import annotations
 
@@ -22,8 +31,11 @@ import time
 
 import numpy as np
 
-#: bench.py::bench_bert_base's pretraining configuration
+#: bench.py::bench_bert_base's pretraining configuration (BATCH and SEED are
+#: bench_resnet50's too)
 BATCH, SEQ, MASKS_PER_SEQ, LR, SEED = 128, 128, 20, 1e-4, 0
+#: bench.py::bench_resnet50's image size and classes
+IMAGE, CLASSES = 224, 1000
 FEEDS = (("src_ids", "int64", "seq"), ("pos_ids", "int64", "seq"),
          ("sent_ids", "int64", "seq"), ("input_mask", "float32", "seq"),
          ("mask_pos", "int64", "masks"), ("mask_label", "int64", "masks"),
@@ -62,8 +74,47 @@ def pretrain_feed(rng, cfg, batch, seq, n_masks):
             "nsp_label": rng.randint(0, 2, (batch, 1)).astype("int64")}
 
 
+def build_resnet50(dtype="bfloat16", fuse=True):
+    """ResNet-50 training at bench.py's configuration (NHWC, space-to-depth
+    stem, 224 x 224, 1000 classes, ``Momentum(0.1, 0.9)``, seed 0, dynamic
+    batch) in ``dtype``; ``fuse`` marks every batch norm ``fuse_stats`` and
+    runs the fuse pass before ``minimize``. Returns (main, startup, loss,
+    params_grads, chains fused)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.contrib import fuse_conv_bn_stats
+    from paddle_tpu_torch.models import resnet
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = SEED
+    startup.random_seed = SEED
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        img = pt.data("img", [IMAGE, IMAGE, 3], dtype)
+        label = pt.data("label", [1], "int64")
+        loss, _, _ = resnet.resnet50(img, label, num_classes=CLASSES, data_format="NHWC",
+                                     conv1_space_to_depth=True)
+        fused = 0
+        if fuse:
+            for op in main.global_block().ops:
+                if op.type == "batch_norm":
+                    op.attrs["fuse_stats"] = True
+            fused = fuse_conv_bn_stats(main)
+        _, params_grads = pt.optimizer.Momentum(0.1, 0.9).minimize(loss)
+    return main, startup, loss, params_grads, fused
+
+
+def resnet_feed(rng, batch):
+    """One batch as bench.py draws it: NCHW normal images made channels-last
+    (f32; the executor casts nothing, so cast to the program's dtype), and
+    random labels."""
+    img = rng.randn(batch, 3, IMAGE, IMAGE).astype(np.float32)
+    return {"img": np.ascontiguousarray(img.transpose(0, 2, 3, 1)),
+            "label": rng.randint(0, CLASSES, (batch, 1)).astype("int64")}
+
+
 # device activity name -> kind, by the first pattern it contains
-KINDS = (("attention kernels", ("flash_fwd", "bwd_dkdv", "bwd_dq", "delta_kernel")),
+KINDS = (("conv1x1_bn kernels", ("conv1x1_bn", "column_sums")),
+         ("attention kernels", ("flash_fwd", "bwd_dkdv", "bwd_dq", "delta_kernel")),
+         ("convolutions (cuDNN)", ("fprop", "dgrad", "wgrad", "cudnn", "convolve",
+                                   "implicit_gemm")),
          ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
          ("copy", ("copy", "Memcpy", "Memset")))
 
@@ -105,10 +156,31 @@ def profile_steps(torch, exe, main, feed, total, n_steps):
                     for us, c, k in device[:15]]}
 
 
+def main_resnet50(torch):
+    import paddle_tpu_torch as pt
+    main_prog, startup, loss, _, fused = build_resnet50()
+    raw = resnet_feed(np.random.RandomState(SEED), BATCH)
+    feed = {"img": torch.from_numpy(raw["img"]).to("cuda", torch.bfloat16),
+            "label": torch.from_numpy(raw["label"]).to("cuda")}
+    exe = pt.Executor()
+    with pt.scope_guard(pt.Scope()):
+        exe.run(startup)
+        for _ in range(2):
+            exe.run(main_prog, feed=feed, fetch_list=[loss])
+        torch.cuda.synchronize()
+        r = profile_steps(torch, exe, main_prog, feed, loss, 3)
+    print(json.dumps({"profile": f"resnet50 NHWC s2d bf16 B{BATCH} 224x224 Momentum, "
+                                 f"{fused} conv+bn chains fused",
+                      "gpu": torch.cuda.get_device_name(0), **r}), flush=True)
+
+
 def main():
+    import sys
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("train_profile: no CUDA device")
+    if sys.argv[1:] == ["resnet50"]:
+        return main_resnet50(torch)
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.models import bert
     cfg = bert.BertConfig(dtype="bfloat16")

@@ -12,11 +12,15 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
 2. build: compile every kernel of ``paddle_tpu_torch/csrc`` (one ``nvcc``
    per source, in parallel);
 3. kernel vs plain: each kernel on the card at the main paths' shapes,
-   against its plain version on the same inputs, with times (CUDA events,
-   median of 25 single launches queued behind a busy GPU), the PyTorch
-   library call that computes the same function, and the card's bound:
-   ``flash_attn_fwd`` as serving calls it, ``flash_attn_fwd`` with dropout
-   and the LSE as training calls it, and ``flash_attn_bwd``;
+   against its plain version on the same inputs and against a second
+   launch of itself (bit for bit), with times (CUDA events, median of 25
+   single launches queued behind a busy GPU), the PyTorch library call
+   that computes the same function (and the kernel's ratio to it), and the
+   card's bound: ``flash_attn_fwd`` as serving calls it, ``flash_attn_fwd``
+   with dropout and the LSE as training calls it, and ``flash_attn_bwd``
+   (its fused variant at S <= 128, its split one at S 256, 512 and the
+   ragged 200); then the device time of each kernel launch inside one
+   ``flash_attn_fwd`` and one ``flash_attn_bwd`` call (``torch.profiler``);
 4. serving path: build BERT-base (L12 H768 A12, bf16, random weights from a
    seed) with the port's DSL, run its startup program on the card, save it
    with ``save_inference_model``, load it into a ``Predictor`` and answer
@@ -268,7 +272,10 @@ def phase_kernels(torch):
         q, k, v, bias = _attn_inputs(torch, B, H, S, D, dtype, has_bias, gen)
         scale = 1.0 / D ** 0.5
         out = flash_attn_fwd(q, k, v, bias, scale, causal)
+        again = flash_attn_fwd(q, k, v, bias, scale, causal)
         torch.cuda.synchronize()
+        reproducible = torch.equal(out, again)
+        del again
         ref = attention_plain(q, k, v, bias, scale, causal)
         err = (out.float() - ref.float()).abs().max().item()
         finite = bool(torch.isfinite(out).all())
@@ -281,10 +288,11 @@ def phase_kernels(torch):
             library_ms = _device_ms(torch, lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=bias, scale=scale))
         bound_ms, bound_by = _bound(B, H, S, D, dt, has_bias, causal, q.element_size())
-        ok = finite and err <= ATOL[dt]
+        ok = finite and err <= ATOL[dt] and reproducible
         r = dict(shape=[B, H, S, D], dtype=dt, bias=has_bias, causal=causal,
-                 max_abs_err=err, atol=ATOL[dt], ok=ok, ms=ms, plain_ms=plain_ms,
-                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                 max_abs_err=err, atol=ATOL[dt], bit_reproducible=reproducible, ok=ok, ms=ms,
+                 plain_ms=plain_ms, library_ms=library_ms, ratio_to_library=ms / library_ms,
+                 bound_ms=bound_ms, bound_by=bound_by)
         emit("kernel_vs_plain", kernel="flash_attn_fwd", **r)
         results.append(r)
     bad = [r for r in results if not r["ok"]]
@@ -311,12 +319,16 @@ def phase_train_kernels(torch):
     their plain versions, at the training path's shape and the edge cases."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.flash_attention import (attention_bwd_plain, attention_plain,
-                                                      flash_attn_bwd, flash_attn_fwd)
+                                                      bwd_variant, flash_attn_bwd,
+                                                      flash_attn_fwd)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 2)
     p = ATTN_DROPOUT
-    # (B, H, S, D, dtype, bias, causal, dropout); the first is the training path's
+    # (B, H, S, D, dtype, bias, causal, dropout); the first is the training path's. The
+    # bf16 backward runs its fused variant at S <= 128 and its split one beyond (S 256,
+    # 512 and the ragged 200)
     cases = [(128, 12, 128, 64, "bfloat16", True, False, p),
+             (16, 12, 256, 64, "bfloat16", True, False, p),
              (8, 12, 512, 64, "bfloat16", True, False, p),
              (8, 12, 128, 64, "float32", True, False, p),
              (8, 12, 512, 64, "bfloat16", False, True, p),
@@ -331,7 +343,13 @@ def phase_train_kernels(torch):
         scale, seed = 1.0 / D ** 0.5, 0x9E3779B97F4A7C15 + i
         o, lse = flash_attn_fwd(q, k, v, bias, scale, causal, drop, seed, return_lse=True)
         dq, dk, dv = flash_attn_bwd(q, k, v, bias, o, lse, do, scale, causal, drop, seed)
+        # a second launch on the same inputs gives the same bits (no atomics anywhere)
+        o2, lse2 = flash_attn_fwd(q, k, v, bias, scale, causal, drop, seed, return_lse=True)
+        grads2 = flash_attn_bwd(q, k, v, bias, o, lse, do, scale, causal, drop, seed)
         torch.cuda.synchronize()
+        fwd_same = torch.equal(o, o2) and torch.equal(lse, lse2)
+        bwd_same = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), grads2))
+        del o2, lse2, grads2
         ref_o = attention_plain(q, k, v, bias, scale, causal, drop, seed)
         s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
         if bias is not None:
@@ -373,16 +391,19 @@ def phase_train_kernels(torch):
 
         fb, fby = _train_bound(B, H, S, D, dt, has_bias, causal, q.element_size(), False)
         bb, bby = _train_bound(B, H, S, D, dt, has_bias, causal, q.element_size(), True)
-        fwd_ok = finite and fwd_err <= fwd_tol and lse_err <= LSE_ATOL
-        bwd_ok = finite and all(r["max_abs_err"] <= BWD_REL[dt] * r["max_abs_ref"]
-                                for r in bwd.values())
+        fwd_ok = finite and fwd_err <= fwd_tol and lse_err <= LSE_ATOL and fwd_same
+        bwd_ok = finite and bwd_same and all(r["max_abs_err"] <= BWD_REL[dt] * r["max_abs_ref"]
+                                             for r in bwd.values())
         shape = dict(shape=[B, H, S, D], dtype=dt, bias=has_bias, causal=causal, dropout=drop)
         r_fwd = dict(shape, max_abs_err=fwd_err, atol=fwd_tol, lse_max_abs_err=lse_err,
-                     lse_atol=LSE_ATOL, ok=fwd_ok, ms=fwd_ms, plain_ms=fwd_plain_ms,
-                     library_ms=fwd_lib_ms, bound_ms=fb, bound_by=fby)
-        r_bwd = dict(shape, grads=bwd, rel_tol=BWD_REL[dt], ok=bwd_ok,
+                     lse_atol=LSE_ATOL, bit_reproducible=fwd_same, ok=fwd_ok, ms=fwd_ms,
+                     plain_ms=fwd_plain_ms, library_ms=fwd_lib_ms,
+                     ratio_to_library=fwd_ms / fwd_lib_ms, bound_ms=fb, bound_by=fby)
+        r_bwd = dict(shape, variant=bwd_variant(S, dtype), grads=bwd, rel_tol=BWD_REL[dt],
+                     bit_reproducible=bwd_same, ok=bwd_ok,
                      max_abs_err=max(r["max_abs_err"] for r in bwd.values()), ms=bwd_ms,
-                     plain_ms=bwd_plain_ms, library_ms=bwd_lib_ms, bound_ms=bb, bound_by=bby)
+                     plain_ms=bwd_plain_ms, library_ms=bwd_lib_ms,
+                     ratio_to_library=bwd_ms / bwd_lib_ms, bound_ms=bb, bound_by=bby)
         emit("kernel_vs_plain", kernel="flash_attn_fwd+dropout+lse", **r_fwd)
         emit("kernel_vs_plain", kernel="flash_attn_bwd", **r_bwd)
         results.append((r_fwd, r_bwd))
@@ -390,6 +411,60 @@ def phase_train_kernels(torch):
     bad = [r for pair in results for r in pair if not r["ok"]]
     if bad:
         raise SystemExit(f"training kernels disagree with their plain versions: {bad}")
+    return results
+
+
+def phase_launch_breakdown(torch, calls=20):
+    """The device time of each kernel launch inside one flash_attn_fwd and one
+    flash_attn_bwd call (torch.profiler's key_averages over ``calls`` calls),
+    at the main paths' shapes and at S 512, where the backward is split."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.ops.flash_attention import bwd_variant, flash_attn_bwd, flash_attn_fwd
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 5)
+    dt = torch.bfloat16
+    results = []
+    # (B, S, dropout, what): serving's forward; training's forward (with the LSE) and
+    # backward, with dropout and without (the difference is the Philox work); the split
+    # backward
+    p = ATTN_DROPOUT
+    for B, S, drop, what in ((8, 512, 0.0, "fwd"), (128, 128, p, "fwd+lse"),
+                             (128, 128, 0.0, "fwd+lse"), (128, 128, p, "bwd"),
+                             (128, 128, 0.0, "bwd"), (8, 512, p, "bwd")):
+        q, k, v, bias = _attn_inputs(torch, B, 12, S, 64, dt, True, gen)
+        scale, seed = 0.125, 0x5EED + S
+        if what != "bwd":
+            lse_wanted = what == "fwd+lse"
+            fn = lambda: flash_attn_fwd(q, k, v, bias, scale, False, drop, seed,
+                                        return_lse=lse_wanted)
+        else:
+            o, lse = flash_attn_fwd(q, k, v, bias, scale, False, drop, seed, return_lse=True)
+            do = torch.randn(o.shape, generator=gen, device="cuda").to(dt)
+            fn = lambda: flash_attn_bwd(q, k, v, bias, o, lse, do, scale, False, drop, seed)
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        launches = []
+        for e in prof.key_averages():
+            dev_us = getattr(e, "device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(e, "cuda_time_total", 0.0)
+            if e.count and dev_us:
+                launches.append(dict(kernel=e.key, launches_per_call=e.count / calls,
+                                     ms_per_launch=dev_us / e.count / 1e3))
+        launches.sort(key=lambda r: -r["ms_per_launch"])
+        r = dict(call=f"flash_attn_{what}", shape=[B, 12, S, 64], dtype="bfloat16", bias=True,
+                 dropout=drop, variant=bwd_variant(S, dt) if what == "bwd" else None,
+                 launches_per_call=sum(x["launches_per_call"] for x in launches),
+                 device_ms_per_call=sum(x["ms_per_launch"] * x["launches_per_call"]
+                                        for x in launches) or None,
+                 kernels=launches or "not measured: the profiler recorded no device time")
+        emit("launch_breakdown", **r)
+        results.append(r)
+        del q, k, v, bias, fn
     return results
 
 
@@ -956,6 +1031,7 @@ def main() -> int:
     phase_build()
     kres = phase_kernels(torch)
     tres = phase_train_kernels(torch)
+    phase_launch_breakdown(torch)
     resnet = build_resnet50()                  # (main, startup, loss, params_grads, fused)
     cres = phase_conv_bn_kernels(torch, resnet_fused_shapes(resnet[0], RESNET_BATCH))
     ires = phase_int8_kernels(torch)

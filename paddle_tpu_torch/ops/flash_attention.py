@@ -33,6 +33,11 @@ from ..core.registry import register
 
 #: head widths the kernels are compiled for (``launch<D>`` in csrc/flash_attn_*.cu)
 HEAD_DIMS = (32, 64)
+#: the longest S the fused bf16 backward takes: one block holds all keys
+#: (``kKeys`` in csrc/flash_attn_bwd.cu)
+BWD_FUSED_MAX_S = 128
+#: the backward's variants, as csrc/flash_attn_bwd.cu numbers them
+BWD_VARIANTS = {"f32": 0, "fused": 1, "split": 2}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_BH = 65535  # grid.y
 
@@ -68,20 +73,25 @@ def dropout_threshold(p: float) -> int:
 
 
 def philox_keep_mask(seed: int, B: int, H: int, S: int, p: float, device=None) -> torch.Tensor:
-    """The kernels' attention-dropout keep mask, [B, H, S, S] bool: element
-    (b, h, row, col) is word col % 4 of Philox4x32-10 with key = the 64-bit
-    seed and counter = (col // 4, row, b * H + h, 0), kept when >= the
-    threshold."""
-    n4 = (S + 3) // 4
-    shape = (B * H, S, n4)
+    """The kernels' attention-dropout keep mask, [B, H, S, S] bool, kept where
+    the bits are >= the threshold. The bits of element (b, h, row, key) are
+    word ``2 * ((row % 16) // 8) + key % 2`` of Philox4x32-10 with key = the
+    64-bit seed and counter = ``(key // 2, (row // 16) * 8 + row % 8,
+    b * H + h, 0)`` (csrc/philox.cuh): one call's four words are the four
+    elements (rows r and r + 8, keys 2c and 2c + 1) that one thread holds in
+    an m16n8 score fragment. A ragged S is a prefix of a wider one."""
+    n2, n16 = (S + 1) // 2, (S + 15) // 16        # key pairs, 16-row groups
+    shape = (B * H, n16 * 8, n2)
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)
-    c0 = ar(n4).view(1, 1, n4).expand(shape)
-    c1 = ar(S).view(1, S, 1).expand(shape)
+    c0 = ar(n2).view(1, 1, n2).expand(shape)
+    c1 = ar(n16 * 8).view(1, n16 * 8, 1).expand(shape)
     c2 = ar(B * H).view(B * H, 1, 1).expand(shape)
     c3 = torch.zeros(shape, dtype=torch.int64, device=device)
     seed &= 0xFFFFFFFFFFFFFFFF
     words = philox4x32_10(c0, c1, c2, c3, seed & _U32, seed >> 32)
-    bits = torch.stack(words, dim=-1).reshape(B, H, S, 4 * n4)[..., :S]
+    # [bh, row // 16, row % 8, key // 2, (row % 16) // 8, key % 2] -> [bh, row, key]
+    bits = torch.stack(words, dim=-1).view(B * H, n16, 8, n2, 2, 2)
+    bits = bits.permute(0, 1, 4, 2, 3, 5).reshape(B, H, n16 * 16, n2 * 2)[:, :, :S, :S]
     return bits >= dropout_threshold(p)
 
 
@@ -204,7 +214,7 @@ _SIGNATURES = {
     "flash_attn_fwd": [_P] * 6 + [_I64] * 9 + [_I32] * 4 + [ctypes.c_float] + [_I32] * 3
     + [ctypes.c_float, ctypes.c_uint, ctypes.c_ulonglong, _P],
     "flash_attn_bwd": [_P] * 11 + [_I64] * 9 + [_I32] * 4 + [ctypes.c_float] + [_I32] * 3
-    + [ctypes.c_float, ctypes.c_uint, ctypes.c_ulonglong, _P],
+    + [ctypes.c_float, ctypes.c_uint, ctypes.c_ulonglong, _I32, _P],  # ..., variant, stream
 }
 
 
@@ -216,14 +226,14 @@ def _fn(name):
     return fn
 
 
-def _launch(name, pointers, q, k, v, bias, scale, causal, dropout, seed):
+def _launch(name, pointers, q, k, v, bias, scale, causal, dropout, seed, *extra):
     B, H, S, D = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _fn(name)(*pointers, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                        B, H, S, D, float(scale), int(bool(causal)), int(bias is not None),
                        _DTYPE_CODES[q.dtype], float(dropout), dropout_threshold(dropout),
-                       seed & 0xFFFFFFFFFFFFFFFF, stream)
+                       seed & 0xFFFFFFFFFFFFFFFF, *extra, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
 
@@ -258,13 +268,24 @@ def flash_attn_fwd(q, k, v, bias=None, scale=None, causal=False, dropout=0.0, se
 flash_attn_fwd.launches = 0
 
 
+def bwd_variant(S: int, dtype: torch.dtype) -> str:
+    """The backward kernels a call runs: ``'fused'`` (bf16, S <=
+    ``BWD_FUSED_MAX_S``: one launch per call, one block per (batch, head)
+    computing dQ, dK, dV and D), ``'split'`` (bf16, longer S: a dQ kernel
+    that also writes D, then a dK/dV kernel) or ``'f32'`` (a D pre-pass and
+    the two FMA kernels)."""
+    if dtype == torch.float32:
+        return "f32"
+    return "fused" if S <= BWD_FUSED_MAX_S else "split"
+
+
 def flash_attn_bwd(q, k, v, bias, o, lse, do, scale=None, causal=False, dropout=0.0,
                    seed=0):
-    """Launch the CUDA flash-attention backward (a D = rowsum(dO * O)
-    pre-pass, then the dK/dV and dQ kernels); returns dq, dk, dv, contiguous,
-    in the inputs' dtype. ``o`` and ``lse`` are the forward's, ``dropout``
-    and ``seed`` must be the forward's too. Raises ValueError for tensors
-    the kernels do not take (see ``bwd_refusal``). Each call adds one to
+    """Launch the CUDA flash-attention backward (the kernels of
+    ``bwd_variant``); returns dq, dk, dv, contiguous, in the inputs' dtype.
+    ``o`` and ``lse`` are the forward's, ``dropout`` and ``seed`` must be the
+    forward's too. Raises ValueError for tensors the kernels do not take
+    (see ``bwd_refusal``). Each call adds one to
     ``flash_attn_bwd.launches``."""
     why = bwd_refusal(q, k, v, bias, o, lse, do)
     if why is not None:
@@ -273,14 +294,17 @@ def flash_attn_bwd(q, k, v, bias, o, lse, do, scale=None, causal=False, dropout=
     B, H, S, D = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(D)
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    variant = bwd_variant(S, q.dtype)
+    delta = (None if variant == "fused"
+             else torch.empty((B, H, S), dtype=torch.float32, device=q.device))
     dq, dk, dv = (torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
                   for _ in range(3))
     _launch("flash_attn_bwd",
             (q.data_ptr(), k.data_ptr(), v.data_ptr(),
              bias.data_ptr() if bias is not None else None, o.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr()),
-            q, k, v, bias, scale, causal, dropout, seed)
+             lse.data_ptr(), delta.data_ptr() if delta is not None else None,
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr()),
+            q, k, v, bias, scale, causal, dropout, seed, BWD_VARIANTS[variant])
     flash_attn_bwd.launches += 1
     return dq, dk, dv
 

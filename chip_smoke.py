@@ -42,9 +42,14 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
 6. conv1x1_bn and int8_matmul against their plain versions (CUDA events,
    as in phase 3): ``conv1x1_bn`` at the 12 distinct (M, K, N) shapes of
    ResNet-50's 33 fused chains at batch 128 (read from the program), with
-   the prologue at one shape and at two ragged ones; ``int8_matmul`` at
+   the prologue at one shape and at two ragged ones, and a ragged M under
+   16 column blocks at K 2048; ``int8_matmul`` at
    the 8 shapes of int8 BERT-base serving (4 fc shapes x M 1024 and 4096),
-   a ragged shape and f32, held bit for bit (outputs, row scales, codes);
+   ragged shapes (unaligned rows and N, M 1 and 8, a K off the 64-deep K
+   stage) and f32, held bit for bit (outputs, row scales, codes); every K2
+   and K3 case also against a second launch (bit for bit) and with its
+   ratio to the bf16 ``torch.matmul`` of its shape; then the device time
+   of each launch inside one call of each (``torch.profiler``);
 7. int8 serving path: the same BERT-base weights quantized with
    ``quantize_weights(int8_compute=True)``, saved, loaded into a
    ``Predictor`` on the card and asked phase 4's requests; checks the
@@ -414,11 +419,40 @@ def phase_train_kernels(torch):
     return results
 
 
+def _launch_times(torch, fn, calls):
+    """Each kernel launch inside one call of ``fn``: torch.profiler's
+    key_averages over ``calls`` calls, after one warm call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    launches = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "cuda_time_total", 0.0)
+        if e.count and dev_us:
+            launches.append(dict(kernel=e.key, launches_per_call=e.count / calls,
+                                 ms_per_launch=dev_us / e.count / 1e3))
+    launches.sort(key=lambda r: -r["ms_per_launch"])
+    return launches
+
+
+def _breakdown(call, shape, launches):
+    return dict(call=call, shape=shape,
+                launches_per_call=sum(x["launches_per_call"] for x in launches),
+                device_ms_per_call=sum(x["ms_per_launch"] * x["launches_per_call"]
+                                       for x in launches) or None,
+                kernels=launches or "not measured: the profiler recorded no device time")
+
+
 def phase_launch_breakdown(torch, calls=20):
     """The device time of each kernel launch inside one flash_attn_fwd and one
     flash_attn_bwd call (torch.profiler's key_averages over ``calls`` calls),
     at the main paths' shapes and at S 512, where the backward is split."""
-    from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.ops.flash_attention import bwd_variant, flash_attn_bwd, flash_attn_fwd
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 5)
@@ -441,27 +475,9 @@ def phase_launch_breakdown(torch, calls=20):
             o, lse = flash_attn_fwd(q, k, v, bias, scale, False, drop, seed, return_lse=True)
             do = torch.randn(o.shape, generator=gen, device="cuda").to(dt)
             fn = lambda: flash_attn_bwd(q, k, v, bias, o, lse, do, scale, False, drop, seed)
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        launches = []
-        for e in prof.key_averages():
-            dev_us = getattr(e, "device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(e, "cuda_time_total", 0.0)
-            if e.count and dev_us:
-                launches.append(dict(kernel=e.key, launches_per_call=e.count / calls,
-                                     ms_per_launch=dev_us / e.count / 1e3))
-        launches.sort(key=lambda r: -r["ms_per_launch"])
-        r = dict(call=f"flash_attn_{what}", shape=[B, 12, S, 64], dtype="bfloat16", bias=True,
-                 dropout=drop, variant=bwd_variant(S, dt) if what == "bwd" else None,
-                 launches_per_call=sum(x["launches_per_call"] for x in launches),
-                 device_ms_per_call=sum(x["ms_per_launch"] * x["launches_per_call"]
-                                        for x in launches) or None,
-                 kernels=launches or "not measured: the profiler recorded no device time")
+        launches = _launch_times(torch, fn, calls)
+        r = dict(_breakdown(f"flash_attn_{what}", [B, 12, S, 64], launches), dtype="bfloat16",
+                 bias=True, dropout=drop, variant=bwd_variant(S, dt) if what == "bwd" else None)
         emit("launch_breakdown", **r)
         results.append(r)
         del q, k, v, bias, fn
@@ -624,7 +640,9 @@ def phase_conv_bn_kernels(torch, shapes):
     cases = [(M, K, N, "bfloat16", False, False, n) for (M, K, N), n in sorted(shapes.items())]
     cases += [(100352, 512, 128, "bfloat16", True, True, 0),
               (1000, 36, 100, "bfloat16", True, True, 0),
-              (1000, 72, 100, "float32", True, True, 0)]
+              (1000, 72, 100, "float32", True, True, 0),
+              # a ragged last M tile under 16 column blocks at K 2048
+              (1000, 2048, 2048, "bfloat16", False, False, 0)]
     results = []
     for M, K, N, dt, apply_in_bn, relu_in, count in cases:
         dtype = getattr(torch, dt)
@@ -635,7 +653,10 @@ def phase_conv_bn_kernels(torch, shapes):
         var = torch.rand((K,), generator=gen, device="cuda") + 0.5
         args = (x2, w, mu, var, g, b, 1e-5, relu_in, apply_in_bn)
         y, s, ss = fused_conv1x1_bn_fwd(*args)
+        again = fused_conv1x1_bn_fwd(*args)      # the same bits: a fixed order, no atomics
         torch.cuda.synchronize()
+        reproducible = all(torch.equal(a, b) for a, b in zip((y, s, ss), again))
+        del again
         yp, sp, ssp = conv1x1_bn_plain(*args)
         yk, ypf = y.float(), yp.float()
         err = (yk - ypf).abs().max().item()
@@ -651,12 +672,13 @@ def phase_conv_bn_kernels(torch, shapes):
         wc = w.contiguous()
         matmul_ms = _device_ms(torch, lambda: torch.matmul(x2, wc))
         bound_ms, bound_by = _conv_bound(M, K, N, x2.element_size(), apply_in_bn)
-        ok = (finite and err <= y_tol and own <= CONV_STATS_OWN_REL
+        ok = (finite and reproducible and err <= y_tol and own <= CONV_STATS_OWN_REL
               and plain <= CONV_STATS_PLAIN_REL)
         r = dict(shape=[M, K, N], dtype=dt, apply_in_bn=apply_in_bn, relu_in=relu_in,
                  launches_per_forward_pass=count, max_abs_err=err, atol=y_tol,
-                 stats_vs_own_y_rel=own, stats_vs_plain_rel=plain, ok=ok, ms=ms,
-                 plain_ms=plain_ms, matmul_ms=matmul_ms, library_ms=None,
+                 stats_vs_own_y_rel=own, stats_vs_plain_rel=plain, bit_reproducible=reproducible,
+                 ok=ok, ms=ms, plain_ms=plain_ms, matmul_ms=matmul_ms,
+                 ratio_to_matmul=ms / matmul_ms, library_ms=None,
                  bound_ms=bound_ms, bound_by=bound_by)
         emit("kernel_vs_plain", kernel="fused_conv1x1_bn_fwd", **r)
         results.append(r)
@@ -666,10 +688,10 @@ def phase_conv_bn_kernels(torch, shapes):
     if bad:
         raise SystemExit(f"fused_conv1x1_bn_fwd disagrees with conv1x1_bn_plain: {bad}")
     path = [r for r in results if r["launches_per_forward_pass"]]
+    total = {k: sum(r[k] * r["launches_per_forward_pass"] for r in path)
+             for k in ("ms", "bound_ms", "matmul_ms")}
     emit("conv1x1_bn_forward_pass", launches=sum(r["launches_per_forward_pass"] for r in path),
-         ms=sum(r["ms"] * r["launches_per_forward_pass"] for r in path),
-         bound_ms=sum(r["bound_ms"] * r["launches_per_forward_pass"] for r in path),
-         matmul_ms=sum(r["matmul_ms"] * r["launches_per_forward_pass"] for r in path))
+         **total, ratio_to_matmul=total["ms"] / total["matmul_ms"])
     return results
 
 
@@ -688,7 +710,10 @@ def phase_int8_kernels(torch):
     gen.manual_seed(SEED + 4)
     fcs = [(768, 2304), (768, 768), (768, 3072), (3072, 768)]
     cases = [(M, K, N, "bfloat16") for M in (1024, 4096) for K, N in fcs]
-    cases += [(1001, 301, 131, "bfloat16"), (1024, 768, 768, "float32")]
+    # ragged: unaligned rows and N (the byte-copy paths); one and eight rows; a K that
+    # is not a multiple of the 64-deep K stage (codes padded to 208); f32 activations
+    cases += [(1001, 301, 131, "bfloat16"), (1, 768, 768, "bfloat16"), (8, 768, 768, "bfloat16"),
+              (300, 200, 256, "bfloat16"), (1024, 768, 768, "float32")]
     results = []
     for M, K, N, dt in cases:
         dtype = getattr(torch, dt)
@@ -696,7 +721,10 @@ def phase_int8_kernels(torch):
         w8 = torch.randint(-127, 128, (K, N), generator=gen, device="cuda").to(torch.int8)
         ws = torch.rand((N,), generator=gen, device="cuda") * 1e-3
         out, xs, xq = int8_matmul(x2, w8, ws, return_codes=True)
+        again = int8_matmul(x2, w8, ws)
         torch.cuda.synchronize()
+        reproducible = torch.equal(out, again)
+        del again
         ref, rxs, rxq = int8_matmul_plain(x2, w8, ws, return_codes=True)
         err = (out.float() - ref.float()).abs().max().item()
         exact = (torch.equal(out, ref) and torch.equal(xs, rxs) and torch.equal(xq, rxq))
@@ -708,7 +736,8 @@ def phase_int8_kernels(torch):
         matmul_ms = _device_ms(torch, lambda: torch.matmul(x2, wb))
         bound_ms, bound_by = _int8_bound(M, K, N, x2.element_size())
         r = dict(shape=[M, K, N], dtype=dt, max_abs_err=err, atol=0.0, bit_exact=exact,
-                 ok=exact and finite, ms=ms, plain_ms=plain_ms, matmul_ms=matmul_ms,
+                 bit_reproducible=reproducible, ok=exact and finite and reproducible, ms=ms,
+                 plain_ms=plain_ms, matmul_ms=matmul_ms, ratio_to_matmul=ms / matmul_ms,
                  library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
         emit("kernel_vs_plain", kernel="int8_matmul", **r)
         results.append(r)
@@ -718,9 +747,40 @@ def phase_int8_kernels(torch):
         raise SystemExit(f"int8_matmul is not bit-exact to int8_matmul_plain: {bad}")
     for M in (1024, 4096):
         rows = [r for r in results if r["shape"][0] == M and r["dtype"] == "bfloat16"]
-        emit("int8_matmul_per_request", tokens=M, launches=12 * len(rows),
-             ms=12 * sum(r["ms"] for r in rows), bound_ms=12 * sum(r["bound_ms"] for r in rows),
-             matmul_ms=12 * sum(r["matmul_ms"] for r in rows))
+        total = {k: 12 * sum(r[k] for r in rows) for k in ("ms", "bound_ms", "matmul_ms")}
+        emit("int8_matmul_per_request", tokens=M, launches=12 * len(rows), **total,
+             ratio_to_matmul=total["ms"] / total["matmul_ms"])
+    return results
+
+
+def phase_gemm_launch_breakdown(torch, calls=20):
+    """The device time of each kernel launch inside one fused_conv1x1_bn_fwd
+    call (the product and the column sums; ResNet-50's M 401408 at N 256 and
+    N 64) and one int8_matmul call (the quantize pass and the product; N 3072
+    at M 1024 and 4096), bf16, as the main paths call them."""
+    from paddle_tpu_torch.ops.conv_bn import fused_conv1x1_bn_fwd
+    from paddle_tpu_torch.ops.int8_matmul import int8_matmul
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 6)
+    results = []
+    for M, K, N in ((401408, 64, 256), (401408, 256, 64)):
+        x2 = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn((N, K), generator=gen, device="cuda") * K ** -0.5).to(torch.bfloat16).t()
+        z, one = torch.zeros(K, device="cuda"), torch.ones(K, device="cuda")
+        launches = _launch_times(torch, lambda: fused_conv1x1_bn_fwd(
+            x2, w, z, one, z, z, 1e-5, False, False), calls)
+        results.append(dict(_breakdown("fused_conv1x1_bn_fwd", [M, K, N], launches),
+                            dtype="bfloat16"))
+        del x2, w
+    for M, K, N in ((1024, 768, 3072), (4096, 768, 3072)):
+        x2 = (torch.randn((M, K), generator=gen, device="cuda") * 3).to(torch.bfloat16)
+        w8 = torch.randint(-127, 128, (K, N), generator=gen, device="cuda").to(torch.int8)
+        ws = torch.rand((N,), generator=gen, device="cuda") * 1e-3
+        launches = _launch_times(torch, lambda: int8_matmul(x2, w8, ws), calls)
+        results.append(dict(_breakdown("int8_matmul", [M, K, N], launches), dtype="bfloat16"))
+        del x2, w8, ws
+    for r in results:
+        emit("launch_breakdown", **r)
     return results
 
 
@@ -1035,6 +1095,7 @@ def main() -> int:
     resnet = build_resnet50()                  # (main, startup, loss, params_grads, fused)
     cres = phase_conv_bn_kernels(torch, resnet_fused_shapes(resnet[0], RESNET_BATCH))
     ires = phase_int8_kernels(torch)
+    phase_gemm_launch_breakdown(torch)
     scratch = os.path.join(REPO, "build")      # git-ignored
     os.makedirs(scratch, exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)

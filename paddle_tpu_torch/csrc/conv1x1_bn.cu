@@ -11,31 +11,38 @@
 // once and writes y [M, N] once, and does 2*M*K*N FLOPs. At ResNet-50's 1x1 shapes (K, N
 // between 64 and 2048) that is 2*K*N / (2*(K + N)) FLOPs per byte, at most ~400 for the
 // 2048 <-> 512 convs and ~50 for the 64 <-> 256 ones, so most launches are bound by bytes:
-// what matters is that y is written once and never read back for the statistics.
+// y (80% of the bytes at M 401408 K 64 N 256) is written once, in whole 16-byte stores, and
+// never read back for the statistics.
 //
-// What the design does about that: each block owns a 64 x 64 output tile and loops over K
-// in 32-wide tiles staged in shared memory, the next tiles' loads in flight in registers
-// while the current ones are multiplied. The prologue (off on the op's path) is applied
-// to each x tile on its way into shared memory, in f32 with IEEE operations in the TPU
-// kernel's order, then rounded to bf16. bf16 runs mma.sync m16n8k16 with f32 accumulation;
-// f32 runs full-precision f32 FMAs (no TF32). The epilogue rounds the accumulator to x's
-// dtype, stores y, and sums the rounded values and their squares per column over the
-// block's rows (warp shuffles, then the two row-warps in a fixed order). The TPU kernel
-// carries the statistics across a sequential M grid; blocks here run in any order, so each
-// block writes its column partials to an f32 scratch [2, M tiles, N] and a second kernel
-// sums them per column in a fixed order: the result is deterministic, with no atomics.
-// The filter is W^T = [N, K] row-major (the OIHW 1x1 filter as stored), which is already
-// the "col" B operand of the mma: no transpose. Not done yet: cp.async/TMA, wgmma, a
-// larger tile, vector stores of y.
+// Design (bf16, the op's path), on the GEMM core of gemm_tile.cuh: 128 x 128 tiles (128 x
+// 64 where N <= 64), 8 warps, 64-byte K stages in a 3-slot cp.async ring, ldmatrix
+// operands, mma.sync m16n8k16 with f32 accumulation. x [M, K] and the filter as stored,
+// W^T = [N, K], are both K-major: neither is transposed. The grid is persistent: a block
+// owns one column block and walks a fixed list of M tiles (gy, gy + G, gy + 2G, ..., with
+// G = gridDim.y chosen by the wrapper, about two blocks an SM); the ring runs straight
+// across its tiles, so one tile's epilogue overlaps the next one's loads. The epilogue
+// rounds the accumulator to bf16, adds the rounded values and their squares to column
+// sums that each thread carries in registers across all its tiles, stages the tile in
+// shared memory and stores it with 16-byte stores. At the end each block reduces its
+// column sums (warp shuffles, then its row-warps in a fixed order) to one partial row of
+// an f32 scratch [2, G, N], and a second kernel sums the G rows per column in a fixed
+// order: deterministic, no atomics, and the scratch is G rows, not M/64. The BN prologue
+// (off on the op's path) is a template instantiation of its own: it transforms each x
+// stage in shared memory, in f32 with IEEE operations in the TPU kernel's order, rounded
+// back to bf16, so the op's instantiation carries none of it.
+// The f32 path (not on a main path) is the first version's: 64 x 64 tiles of full-precision
+// FMAs with per-tile partials, then the same second kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gemm_tile.cuh"
+
 namespace {
 
-constexpr int kBM = 64;  // output rows per block
-constexpr int kBN = 64;  // output columns per block
+constexpr int kBM = 64;  // output rows per block (f32 path)
+constexpr int kBN = 64;  // output columns per block (f32 path)
 
 struct Params {
   const void* x;     // [M, K]
@@ -45,7 +52,7 @@ struct Params {
   const float* g;
   const float* b;
   void* y;           // [M, N]
-  float* part;       // [2, M tiles, N]: per-tile column sums, then sums of squares
+  float* part;       // [2, rows, N]: per-block column sums, then sums of squares
   int M, K, N;
   int apply_in_bn, relu_in, vec;  // vec: rows 16-byte aligned, K % 8 == 0
 };
@@ -59,177 +66,180 @@ __device__ __forceinline__ float prologue(float v, int k, const float* mu, const
 }
 
 // ---------------------------------------------------------------------------------------
-// bf16: tensor-core path, 4 warps as 2 x 2, each a 32 x 32 sub-tile
+// bf16: persistent tensor-core path on the gemm_tile core
 // ---------------------------------------------------------------------------------------
 
-constexpr int kBK = 32;
-constexpr int kStride = kBK + 8;  // padded smem row (80 bytes): fragment reads hit 32 banks
-constexpr int kBf16Threads = 128;
+using gemm_tile::kKBytes;
+using gemm_tile::kRowStride;
+using gemm_tile::kThreads;
+using TileWide = gemm_tile::Tile<128, 128, 2>;    // warps 64 x 32
+using TileNarrow = gemm_tile::Tile<128, 64, 4>;   // N <= 64: warps 32 x 32
+constexpr int kStages = 3;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+template <class T>
+struct Smem {
+  static constexpr int kRing = kStages * (T::kABytes + T::kBBytes);
+  static constexpr int kCStride = T::BN * 2 + 16;  // staged y row (bytes)
+  static constexpr int kC = T::BM * kCStride;
+  static constexpr int kBytes = kRing + kC + 2 * T::WARPS_M * T::BN * 4;
+};
+
+// The prologue on one staged x slot (rows m0.., bytes kb0..kb0 + 63), in place; rows past
+// M and k past K stay the zeros the loader wrote.
+template <class T>
+__device__ __forceinline__ void prologue_slot(uint8_t* sA, const Params& p, int m0, int kb0,
+                                              int tid) {
+  for (int i = tid; i < T::BM * 8; i += kThreads) {
+    const int r = i >> 3, c = (i & 7) * 8;
+    const int k = (kb0 + c) >> 1;
+    if (m0 + r >= p.M || k >= p.K) continue;
+    uint2* q = reinterpret_cast<uint2*>(sA + r * kRowStride + c);
+    uint2 raw = *q;
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    const float2 lo = __bfloat1622float2(h[0]), hi = __bfloat1622float2(h[1]);
+    float v[4] = {lo.x, lo.y, hi.x, hi.y};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v[j] = k + j < p.K ? prologue(v[j], k + j, p.mu, p.inv, p.g, p.b, p.apply_in_bn,
+                                    p.relu_in)
+                         : 0.f;
+    __nv_bfloat162 zl = __floats2bfloat162_rn(v[0], v[1]);
+    __nv_bfloat162 zh = __floats2bfloat162_rn(v[2], v[3]);
+    *q = make_uint2(*reinterpret_cast<uint32_t*>(&zl), *reinterpret_cast<uint32_t*>(&zh));
+  }
 }
 
-// The column partials of one block: per thread 4 n8 tiles x 2 columns, summed over its
-// rows, reduced over the 8 row groups of the warp, then over the two row-warps.
-__device__ __forceinline__ void store_partials(float (&cs)[4][2], float (&css)[4][2],
-                                               float (*red)[kBN], const Params& p, int wm,
-                                               int wn, int lane) {
-  for (int ni = 0; ni < 4; ++ni)
+template <class T, bool kPrologue>
+__global__ void __launch_bounds__(kThreads, 2) conv1x1_bn_bf16_kernel(const Params p) {
+  using S = Smem<T>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* sC = smem + S::kRing;
+  float* red = reinterpret_cast<float*>(sC + S::kC);  // [2][WARPS_M][BN]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp / T::WARPS_N, wn = warp % T::WARPS_N;
+  const int n0 = blockIdx.x * T::BN;
+  const int G = gridDim.y, gy = blockIdx.y;
+  const int tiles = (p.M + T::BM - 1) / T::BM;
+  const int kbytes = 2 * p.K, n_k = (kbytes + kKBytes - 1) / kKBytes;
+  const int iters = (tiles - gy + G - 1) / G * n_k;  // gy < tiles: the wrapper's G <= tiles
+  const long long ld = kbytes;
+  const uint8_t* x = static_cast<const uint8_t*>(p.x);
+  const uint8_t* w = static_cast<const uint8_t*>(p.w);
+  const bool vec = p.vec != 0;
+
+  auto load = [&](int it) {
+    uint8_t* sA = smem + (it % kStages) * (T::kABytes + T::kBBytes);
+    const int m0 = (gy + (it / n_k) * G) * T::BM, kb0 = (it % n_k) * kKBytes;
+    gemm_tile::load_kmajor<T::BM>(sA, x, ld, m0, p.M, kb0, kbytes, vec, tid);
+    gemm_tile::load_kmajor<T::BN>(sA + T::kABytes, w, ld, n0, p.N, kb0, kbytes, vec, tid);
+  };
+
+  float acc[T::MI][T::NI][4];
+  gemm_tile::zero_acc<T>(acc);
+  float cs[T::NI][2], css[T::NI][2];  // this thread's column sums over all its tiles
+#pragma unroll
+  for (int ni = 0; ni < T::NI; ++ni) cs[ni][0] = cs[ni][1] = css[ni][0] = css[ni][1] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < iters) load(s);
+    gemm_tile::cp_commit();
+  }
+  __nv_bfloat16* y = static_cast<__nv_bfloat16*>(p.y);
+  const bool vec_y = p.N % 8 == 0 && reinterpret_cast<uintptr_t>(p.y) % 16 == 0;
+  for (int it = 0; it < iters; ++it) {
+    gemm_tile::cp_wait<kStages - 2>();
+    __syncthreads();  // stage `it` landed for all; the slot refilled below is free
+    if (it + kStages - 1 < iters) load(it + kStages - 1);
+    gemm_tile::cp_commit();
+    uint8_t* sA = smem + (it % kStages) * (T::kABytes + T::kBBytes);
+    const int m0 = (gy + (it / n_k) * G) * T::BM;
+    if constexpr (kPrologue) {
+      prologue_slot<T>(sA, p, m0, (it % n_k) * kKBytes, tid);
+      __syncthreads();
+    }
+    gemm_tile::warp_mma<T, gemm_tile::MmaBf16>(acc, sA, sA + T::kABytes, wm, wn, lane);
+    if (it % n_k != n_k - 1) continue;
+
+    // the tile is done: round, add to the column sums, stage, store. An interior tile
+    // (every block tile but the ragged edge's) sums without per-element masks.
+    const bool interior = m0 + T::BM <= p.M && n0 + T::BN <= p.N;
+#pragma unroll
+    for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < T::NI; ++ni)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = gemm_tile::acc_row<T>(wm, lane, mi, h);
+          const int c = gemm_tile::acc_col<T>(wn, lane, ni, 0);
+          const __nv_bfloat162 v = __floats2bfloat162_rn(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(sC + r * S::kCStride + c * 2) = v;
+          const float2 f = __bfloat1622float2(v);
+          if (interior) {
+            cs[ni][0] += f.x, css[ni][0] = fmaf(f.x, f.x, css[ni][0]);
+            cs[ni][1] += f.y, css[ni][1] = fmaf(f.y, f.y, css[ni][1]);
+          } else if (m0 + r < p.M) {
+            if (n0 + c < p.N) cs[ni][0] += f.x, css[ni][0] = fmaf(f.x, f.x, css[ni][0]);
+            if (n0 + c + 1 < p.N) cs[ni][1] += f.y, css[ni][1] = fmaf(f.y, f.y, css[ni][1]);
+          }
+        }
+    gemm_tile::zero_acc<T>(acc);
+    __syncthreads();  // sC complete; the next tile's epilogue is past another barrier
+    gemm_tile::store_tile<T::BM, T::BN>(y, sC, S::kCStride, p.N, m0, p.M, n0, p.N, vec_y, tid);
+  }
+
+  // one partial row per block: the 8 row groups of each warp (shuffles), then the
+  // row-warps in order
+#pragma unroll
+  for (int ni = 0; ni < T::NI; ++ni)
+#pragma unroll
     for (int j = 0; j < 2; ++j)
+#pragma unroll
       for (int off = 4; off < 32; off <<= 1) {
         cs[ni][j] += __shfl_xor_sync(0xffffffffu, cs[ni][j], off);
         css[ni][j] += __shfl_xor_sync(0xffffffffu, css[ni][j], off);
       }
   if (lane < 4) {
-    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+    for (int ni = 0; ni < T::NI; ++ni)
+#pragma unroll
       for (int j = 0; j < 2; ++j) {
-        const int c = wn * 32 + ni * 8 + lane * 2 + j;
-        red[wm][c] = cs[ni][j];
-        red[2 + wm][c] = css[ni][j];
+        const int c = gemm_tile::acc_col<T>(wn, lane, ni, j);
+        red[wm * T::BN + c] = cs[ni][j];
+        red[(T::WARPS_M + wm) * T::BN + c] = css[ni][j];
       }
   }
   __syncthreads();
-  const int tid = threadIdx.x;
-  if (tid < kBN) {
-    const int col = blockIdx.x * kBN + tid;
-    if (col < p.N) {
-      const size_t tiles = gridDim.y;
-      p.part[blockIdx.y * (size_t)p.N + col] = red[0][tid] + red[1][tid];
-      p.part[(tiles + blockIdx.y) * (size_t)p.N + col] = red[2][tid] + red[3][tid];
-    }
+  if (tid < T::BN && n0 + tid < p.N) {
+    float a = 0.f, a2 = 0.f;
+#pragma unroll
+    for (int r = 0; r < T::WARPS_M; ++r)
+      a += red[r * T::BN + tid], a2 += red[(T::WARPS_M + r) * T::BN + tid];
+    p.part[(size_t)gy * p.N + n0 + tid] = a;
+    p.part[(size_t)(G + gy) * p.N + n0 + tid] = a2;
   }
 }
 
-__global__ void __launch_bounds__(kBf16Threads) conv1x1_bn_bf16_kernel(const Params p) {
-  __shared__ __align__(16) __nv_bfloat16 sA[kBM * kStride];
-  __shared__ __align__(16) __nv_bfloat16 sB[kBN * kStride];
-  __shared__ float red[4][kBN];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
-  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(p.w);
-
-  float acc[2][4][4];  // every loop over acc is unrolled, so acc stays in registers
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
-
-  // The next tiles are loaded into registers while the current ones are multiplied:
-  // item i is 4 consecutive k of one row of x or of the filter (8 bytes of bf16).
-  constexpr int kItems = kBM * kBK / 4 / kBf16Threads;  // 4 each for x and the filter
-  static_assert(kBM == kBN, "x and filter tiles share one item layout");
-  uint2 ra[kItems], rb[kItems];
-  auto load4 = [&](const __nv_bfloat16* src, int n) {
-    if (p.vec && n == 4) return *reinterpret_cast<const uint2*>(src);
-    uint32_t bits[4] = {0u, 0u, 0u, 0u};  // bf16 zero is all-zero bits
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (j < n) bits[j] = __bfloat16_as_ushort(src[j]);
-    return make_uint2(bits[0] | (bits[1] << 16), bits[2] | (bits[3] << 16));
-  };
-  auto load_tiles = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < kItems; ++i) {
-      const int it = tid + i * kBf16Threads;
-      const int r = it / (kBK / 4), gk = k0 + (it % (kBK / 4)) * 4;
-      const int m = m0 + r, n = n0 + r;
-      ra[i] = load4(x + (size_t)m * p.K + gk, m < p.M ? min(4, p.K - gk) : 0);
-      rb[i] = load4(w + (size_t)n * p.K + gk, n < p.N ? min(4, p.K - gk) : 0);
-    }
-  };
-
-  load_tiles(0);
-  for (int k0 = 0; k0 < p.K; k0 += kBK) {
-#pragma unroll
-    for (int i = 0; i < kItems; ++i) {
-      const int it = tid + i * kBf16Threads;
-      const int r = it / (kBK / 4), c = (it % (kBK / 4)) * 4;
-      const int gk = k0 + c;
-      uint2 z = ra[i];
-      if (p.apply_in_bn || p.relu_in) {  // the prologue, in f32, rounded back to bf16
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&ra[i]);
-        const float2 lo = __bfloat1622float2(h[0]), hi = __bfloat1622float2(h[1]);
-        float v[4] = {lo.x, lo.y, hi.x, hi.y};
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          v[j] = (m0 + r < p.M && gk + j < p.K)
-                     ? prologue(v[j], gk + j, p.mu, p.inv, p.g, p.b, p.apply_in_bn, p.relu_in)
-                     : 0.f;
-        __nv_bfloat162 zl = __floats2bfloat162_rn(v[0], v[1]);
-        __nv_bfloat162 zh = __floats2bfloat162_rn(v[2], v[3]);
-        z = make_uint2(*reinterpret_cast<uint32_t*>(&zl), *reinterpret_cast<uint32_t*>(&zh));
-      }
-      *reinterpret_cast<uint2*>(&sA[r * kStride + c]) = z;
-      *reinterpret_cast<uint2*>(&sB[r * kStride + c]) = rb[i];
-    }
-    __syncthreads();
-    if (k0 + kBK < p.K) load_tiles(k0 + kBK);
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const __nv_bfloat16* base = &sA[(wm * 32 + mi * 16 + g) * kStride + kk + t * 2];
-        a[mi][0] = *reinterpret_cast<const uint32_t*>(base);
-        a[mi][1] = *reinterpret_cast<const uint32_t*>(base + 8 * kStride);
-        a[mi][2] = *reinterpret_cast<const uint32_t*>(base + 8);
-        a[mi][3] = *reinterpret_cast<const uint32_t*>(base + 8 * kStride + 8);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const __nv_bfloat16* base = &sB[(wn * 32 + ni * 8 + g) * kStride + kk + t * 2];
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(base);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(base + 8);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][ni], a[mi], b0, b1);
-      }
-    }
-    __syncthreads();  // the tiles consumed before the next ones are stored
+template <class T, bool kPrologue>
+cudaError_t launch_bf16(const Params& p, int rows, cudaStream_t st) {
+  static bool ready = false;  // one attribute call per instantiation and process
+  auto kernel = conv1x1_bn_bf16_kernel<T, kPrologue>;
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<T>::kBytes);
+    if (err != cudaSuccess) return err;
+    ready = true;
   }
+  const dim3 grid((p.N + T::BN - 1) / T::BN, rows);
+  kernel<<<grid, kThreads, Smem<T>::kBytes, st>>>(p);
+  return cudaGetLastError();
+}
 
-  // epilogue: round, store, per-column sums of the rounded values over valid rows
-  __nv_bfloat16* y = static_cast<__nv_bfloat16*>(p.y);
-  float cs[4][2], css[4][2];
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni) cs[ni][0] = cs[ni][1] = css[ni][0] = css[ni][1] = 0.f;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * 32 + mi * 16 + g + h * 8;
-        const int col = n0 + wn * 32 + ni * 8 + t * 2;
-        const __nv_bfloat16 v0 = __float2bfloat16_rn(acc[mi][ni][2 * h]);
-        const __nv_bfloat16 v1 = __float2bfloat16_rn(acc[mi][ni][2 * h + 1]);
-        if (row < p.M) {
-          const float f0 = __bfloat162float(v0), f1 = __bfloat162float(v1);
-          if (col < p.N) {
-            y[(size_t)row * p.N + col] = v0;
-            cs[ni][0] += f0;
-            css[ni][0] += f0 * f0;
-          }
-          if (col + 1 < p.N) {
-            y[(size_t)row * p.N + col + 1] = v1;
-            cs[ni][1] += f1;
-            css[ni][1] += f1 * f1;
-          }
-        }
-      }
-  store_partials(cs, css, red, p, wm, wn, lane);
+template <bool kPrologue>
+cudaError_t launch_bf16_by_n(const Params& p, int rows, cudaStream_t st) {
+  return p.N <= 64 ? launch_bf16<TileNarrow, kPrologue>(p, rows, st)
+                   : launch_bf16<TileWide, kPrologue>(p, rows, st);
 }
 
 // ---------------------------------------------------------------------------------------
@@ -339,15 +349,18 @@ __global__ void __launch_bounds__(1024) column_sums_kernel(const float* part, fl
 }  // namespace
 
 // x [M, K], w [N, K] (both in dtype: 0 = float32, 1 = bfloat16), mu/inv/g/b [K] f32 (read
-// only when apply_in_bn), y [M, N] in dtype, part an f32 scratch of 2 * ceil(M/64) * N,
-// s/ss [N] f32. vec: x and w 16-byte aligned and K % 8 == 0. Returns a cudaError_t (0 =
-// launched).
+// only when apply_in_bn), y [M, N] in dtype, part an f32 scratch [2, rows, N], s/ss [N]
+// f32. rows: bf16, the persistent grid's row count G (1 <= G <= ceil(M/128)); f32,
+// ceil(M/64). vec: x and w 16-byte aligned and K % 8 == 0. Launches the product (with the
+// prologue instantiation when apply_in_bn or relu_in) and the column sums. Returns a
+// cudaError_t (0 = launched).
 extern "C" int conv1x1_bn(const void* x, const void* w, const void* mu, const void* inv,
                           const void* g, const void* b, void* y, void* part, void* s,
                           void* ss, int M, int K, int N, int dtype, int apply_in_bn,
-                          int relu_in, int vec, void* stream) {
-  const int tiles = (M + kBM - 1) / kBM;
-  if (M <= 0 || K <= 0 || N <= 0 || tiles > 65535 || (dtype != 0 && dtype != 1))
+                          int relu_in, int vec, int rows, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || rows <= 0 || rows > 65535 || (dtype != 0 && dtype != 1))
+    return cudaErrorInvalidValue;
+  if (dtype == 1 ? rows > (M + 127) / 128 : rows != (M + kBM - 1) / kBM)
     return cudaErrorInvalidValue;
   Params p;
   p.x = x, p.w = w, p.y = y, p.part = static_cast<float*>(part);
@@ -356,14 +369,17 @@ extern "C" int conv1x1_bn(const void* x, const void* w, const void* mu, const vo
   p.M = M, p.K = K, p.N = N, p.apply_in_bn = apply_in_bn, p.relu_in = relu_in;
   p.vec = vec;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + kBN - 1) / kBN, tiles);  // column tiles fastest: x tiles reused in L2
-  if (dtype == 1)
-    conv1x1_bn_bf16_kernel<<<grid, kBf16Threads, 0, st>>>(p);
-  else
+  cudaError_t err;
+  if (dtype == 1) {
+    err = (apply_in_bn || relu_in) ? launch_bf16_by_n<true>(p, rows, st)
+                                   : launch_bf16_by_n<false>(p, rows, st);
+  } else {
+    const dim3 grid((N + kBN - 1) / kBN, rows);  // column tiles fastest: x tiles reused in L2
     conv1x1_bn_f32_kernel<<<grid, kF32Threads, 0, st>>>(p);
-  cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return err;
   column_sums_kernel<<<(N + 31) / 32, dim3(32, 32), 0, st>>>(
-      p.part, static_cast<float*>(s), static_cast<float*>(ss), tiles, N);
+      p.part, static_cast<float*>(s), static_cast<float*>(ss), rows, N);
   return cudaGetLastError();
 }

@@ -10,293 +10,288 @@
 // Bound on an H100 SXM (3.35 TB/s, 1979 TOP/s dense int8): the function reads x [M, K]
 // (bf16 or f32), w8 [K, N] int8 and wscale, and writes out [M, N], and does 2*M*K*N integer
 // operations. At BERT-base's shapes (M = 1024 or 4096 tokens, K/N of 768, 2304 and 3072)
-// the bytes take longer than the operations: 2.4-10 us.
+// the bytes take longer than the operations: 2.4-10 us, the output most of them.
 //
-// What the design does: two launches. A row pass computes xs (one warp per row; max is
-// exact in any order, and the division by 127 is IEEE), as the TPU path computes xs outside
-// its kernel. The main kernel gives each block a 64 x 128 output tile; it streams x in
-// 64 x 64 tiles (the next tiles' loads in flight in registers while the current ones are
-// multiplied), quantizes each tile once into shared memory as int8 on its way in (IEEE
-// division __fdiv_rn and __float2int_rn, round half to even, never a reciprocal multiply,
-// which would move codes), stages the matching 64 x 128 int8 tile of w8, and runs
-// mma.sync m16n8k32 s8 x s8 -> s32. w8 is stored [K, N] row-major (the checkpoint format),
-// but the B fragment wants 4 consecutive k of one column in a register: each thread reads
-// a 4 x 4 byte block (4 rows of 4 columns), transposes it with byte permutes (prmt) and
-// stores it k-contiguous, so shared memory holds w8^T. The epilogue rescales in the TPU
-// kernel's association, (acc * xs) * ws, with IEEE multiplies. Ragged M, N and K are masked;
-// zero-filled K tails add exact zeros. Every step is exactly rounded and in the plain
-// version's order, so the kernel is bit-exact against it. Not done yet: cp.async/TMA,
-// wgmma, quantizing each x tile once for all column tiles (here every column block
-// re-quantizes its rows), vector stores of the output.
+// Design: two launches.
+//  1. quantize_rows: one warp per row reads the row twice (the second time from cache):
+//     the abs-max (exact in any order), xs with the IEEE division __fdiv_rn, then every
+//     code with __fdiv_rn and __float2int_rn (round half to even; never a reciprocal
+//     multiply, which would move codes), written to an int8 scratch [M, Kp] whose rows are
+//     padded with zeros to Kp = K rounded up to 16. Each element of x is quantised once per
+//     call, as the TPU kernel's j == 0 step quantises each row block once into VMEM; the
+//     scratch is also the codes the wrapper returns.
+//  2. int8_gemm: a pure s8 x s8 -> s32 product on the GEMM core of gemm_tile.cuh (tiles
+//     of 128 x 128 or 64 x 64 chosen by the wrapper so that the grid fills the card at
+//     M 1024 as at 4096; 8 warps; 64-byte K stages in a 4-slot cp.async ring;
+//     ldmatrix operands; mma.sync m16n8k32). The codes are K-major and 16-byte aligned by
+//     construction. w8 stays [K, N] (the checkpoint layout), N-major, but the B fragment
+//     wants 4 consecutive k of one column: each w8 tile lands as it is stored, in an XOR-
+//     swizzled slot, and the block transposes it once into a padded K-major tile (4 x 4
+//     byte blocks, byte permutes, conflict-free stores) before its products; so each w8
+//     tile is transposed once per row tile of 64 or 128 rows, not per 64-row block and
+//     column block. The epilogue rescales in the TPU kernel's association, (acc * xs) *
+//     ws, with IEEE multiplies and xs and ws for the block staged once, stages the output
+//     tile in shared memory and stores it with 16-byte stores.
+// Ragged M, N and K are masked; zero-filled K tails add exact zeros. Every step is exactly
+// rounded and in the plain version's order, so the kernel is bit-exact against it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gemm_tile.cuh"
+
 namespace {
 
-constexpr int kBM = 64, kBN = 128, kBK = 64;
-constexpr int kStride = kBK + 16;  // padded smem row (80 bytes): fragment reads hit 32 banks
-constexpr int kThreads = 256;      // 8 warps as 2 x 4, each a 32 x 32 sub-tile
+using gemm_tile::kKBytes;
+using gemm_tile::kRowStride;
+using gemm_tile::kThreads;
+constexpr int kStages = 4;
 
 struct Params {
-  const void* x;       // [M, K]
-  const int8_t* w;     // [K, N]
-  const float* ws;     // [N]
-  const float* xs;     // [M]
-  void* out;           // [M, N]
-  int8_t* xq;          // [M, K] codes, written by the first column block; may be null
-  int M, K, N;
-  int vec_x;           // x rows 16-byte aligned, K % 4 == 0
-  int vec_w;           // w 4-byte aligned, N % 4 == 0
+  const void* x;    // [M, K]
+  const int8_t* w;  // [K, N]
+  const float* ws;  // [N]
+  float* xs;        // [M]
+  int8_t* xq;       // [M, Kp] codes, zero past K
+  void* out;        // [M, N]
+  int M, K, N, Kp;
+  int vec_x;        // x rows 16-byte aligned
+  int vec_w;        // w8 16-byte aligned, N % 16 == 0
 };
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-// The raw bits of 4 consecutive elements of x (8 bytes of bf16, 16 of f32): loaded with
-// one vector load where aligned and whole, else element by element with zeros past n.
-template <typename T>
-struct Raw4;
-
-template <>
-struct Raw4<__nv_bfloat16> {
-  uint2 v;
-  __device__ __forceinline__ void load(const __nv_bfloat16* src, int n, int vec) {
-    if (vec && n == 4) {
-      v = *reinterpret_cast<const uint2*>(src);
-      return;
-    }
-    uint32_t b[4] = {0u, 0u, 0u, 0u};  // bf16 zero is all-zero bits
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (j < n) b[j] = __bfloat16_as_ushort(src[j]);
-    v = make_uint2(b[0] | (b[1] << 16), b[2] | (b[3] << 16));
-  }
-  __device__ __forceinline__ void to_float(float (&f)[4]) const {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-    const float2 lo = __bfloat1622float2(h[0]), hi = __bfloat1622float2(h[1]);
-    f[0] = lo.x, f[1] = lo.y, f[2] = hi.x, f[3] = hi.y;
-  }
-};
-
-template <>
-struct Raw4<float> {
-  float4 v;
-  __device__ __forceinline__ void load(const float* src, int n, int vec) {
-    if (vec && n == 4) {
-      v = *reinterpret_cast<const float4*>(src);
-      return;
-    }
-    v = make_float4(n > 0 ? src[0] : 0.f, n > 1 ? src[1] : 0.f, n > 2 ? src[2] : 0.f,
-                    n > 3 ? src[3] : 0.f);
-  }
-  __device__ __forceinline__ void to_float(float (&f)[4]) const {
-    f[0] = v.x, f[1] = v.y, f[2] = v.z, f[3] = v.w;
-  }
-};
-
-template <typename T>
-__global__ void __launch_bounds__(256) row_scale_kernel(const T* x, float* xs, int M, int K) {
-  const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (row >= M) return;
-  const T* r = x + (size_t)row * K;
-  float m = 0.f;
-  for (int k = lane; k < K; k += 32) m = fmaxf(m, fabsf(to_float(r[k])));
-  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-  if (lane == 0) xs[row] = fmaxf(__fdiv_rn(m, 127.f), 1e-12f);
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ int quantize(float v, float scale) {
   const int q = __float2int_rn(__fdiv_rn(v, scale));
   return q < -127 ? -127 : (q > 127 ? 127 : q);
 }
 
+// ---------------------------------------------------------------------------------------
+// 1. row scales and codes
+// ---------------------------------------------------------------------------------------
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads) int8_matmul_kernel(const Params p) {
-  __shared__ __align__(16) int8_t sA[kBM * kStride];  // codes, row-major, k contiguous
-  __shared__ __align__(16) int8_t sB[kBN * kStride];  // w8^T: column n, k contiguous
-  __shared__ float sXs[kBM];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const T* x = static_cast<const T*>(p.x);
-  const bool write_codes = p.xq != nullptr && blockIdx.x == 0;
-
-  for (int i = tid; i < kBM; i += kThreads) sXs[i] = m0 + i < p.M ? p.xs[m0 + i] : 1.f;
-
-  // every loop over acc is unrolled, so acc stays in registers
-  int acc[2][4][4];
+__global__ void __launch_bounds__(256) quantize_rows_kernel(const Params p) {
+  constexpr int kVec = 16 / sizeof(T);  // elements of one 16-byte load
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= p.M) return;
+  const T* r = static_cast<const T*>(p.x) + (size_t)row * p.K;
+  const bool vec = p.vec_x != 0;
+  float m = 0.f;
+  if (vec) {
+    for (int k = lane * kVec; k < p.K; k += 32 * kVec) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(r + k);
+      const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0;
-
-  // The next tiles are loaded into registers while the current ones are multiplied:
-  // item i of A is 4 consecutive k of one row, item i of B a 4 x 4 byte block.
-  constexpr int kAItems = kBM * kBK / 4 / kThreads;          // 4
-  constexpr int kBItems = (kBK / 4) * (kBN / 4) / kThreads;  // 2
-  Raw4<T> ra[kAItems];
-  uint32_t rb[kBItems][4];
-  auto load_tiles = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < kAItems; ++i) {
-      const int it = tid + i * kThreads;
-      const int gm = m0 + it / (kBK / 4), gk = k0 + (it % (kBK / 4)) * 4;
-      const int n = gm < p.M ? min(4, p.K - gk) : 0;
-      ra[i].load(x + (size_t)gm * p.K + gk, n, p.vec_x);
+      for (int j = 0; j < kVec; ++j) m = fmaxf(m, fabsf(to_float(e[j])));
     }
-#pragma unroll
-    for (int i = 0; i < kBItems; ++i) {
-      const int it = tid + i * kThreads;
-      const int gk0 = k0 + (it / (kBN / 4)) * 4, gn = n0 + (it % (kBN / 4)) * 4;
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int gk = gk0 + r;
-        uint32_t word = 0u;
-        if (gk < p.K) {
-          const int8_t* src = p.w + (size_t)gk * p.N + gn;
-          if (p.vec_w && gn + 3 < p.N) {
-            word = *reinterpret_cast<const uint32_t*>(src);
-          } else {
-            for (int j = 0; j < 4; ++j)
-              if (gn + j < p.N) word |= (uint32_t)(uint8_t)src[j] << (8 * j);
-          }
-        }
-        rb[i][r] = word;
-      }
-    }
-  };
-
-  load_tiles(0);
-  __syncthreads();  // sXs written
-  for (int k0 = 0; k0 < p.K; k0 += kBK) {
-    // A: quantize the staged 64 x 64 tile, 4 codes to one 32-bit word
-#pragma unroll
-    for (int i = 0; i < kAItems; ++i) {
-      const int it = tid + i * kThreads;
-      const int r = it / (kBK / 4), c = (it % (kBK / 4)) * 4;
-      const int gm = m0 + r, gk = k0 + c;
-      float v[4];
-      ra[i].to_float(v);
-      const float sc = sXs[r];
-      uint32_t word = 0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int q = quantize(v[j], sc);
-        word |= (uint32_t)(q & 0xff) << (8 * j);
-        if (write_codes && gm < p.M && gk + j < p.K)
-          p.xq[(size_t)gm * p.K + gk + j] = (int8_t)q;
-      }
-      *reinterpret_cast<uint32_t*>(&sA[r * kStride + c]) = word;
-    }
-    // B: each staged 4 x 4 byte block transposed into sB[n][k]
-#pragma unroll
-    for (int i = 0; i < kBItems; ++i) {
-      const int it = tid + i * kThreads;
-      const int kb = (it / (kBN / 4)) * 4, nb = (it % (kBN / 4)) * 4;
-      const uint32_t* r = rb[i];
-      // out[j] = byte j of r[0..3]: four consecutive k of column nb + j
-      const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);  // r0.b0 r1.b0 r0.b1 r1.b1
-      const uint32_t t1 = __byte_perm(r[2], r[3], 0x5140);
-      const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362);  // r0.b2 r1.b2 r0.b3 r1.b3
-      const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
-      *reinterpret_cast<uint32_t*>(&sB[(nb + 0) * kStride + kb]) = __byte_perm(t0, t1, 0x5410);
-      *reinterpret_cast<uint32_t*>(&sB[(nb + 1) * kStride + kb]) = __byte_perm(t0, t1, 0x7632);
-      *reinterpret_cast<uint32_t*>(&sB[(nb + 2) * kStride + kb]) = __byte_perm(t2, t3, 0x5410);
-      *reinterpret_cast<uint32_t*>(&sB[(nb + 3) * kStride + kb]) = __byte_perm(t2, t3, 0x7632);
-    }
-    __syncthreads();
-    if (k0 + kBK < p.K) load_tiles(k0 + kBK);
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 32) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int8_t* base = &sA[(wm * 32 + mi * 16 + g) * kStride + kk + t * 4];
-        a[mi][0] = *reinterpret_cast<const uint32_t*>(base);
-        a[mi][1] = *reinterpret_cast<const uint32_t*>(base + 8 * kStride);
-        a[mi][2] = *reinterpret_cast<const uint32_t*>(base + 16);
-        a[mi][3] = *reinterpret_cast<const uint32_t*>(base + 8 * kStride + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int8_t* base = &sB[(wn * 32 + ni * 8 + g) * kStride + kk + t * 4];
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(base);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(base + 16);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma_s8(acc[mi][ni], a[mi], b0, b1);
-      }
-    }
-    __syncthreads();  // the tiles consumed before the next ones are stored
+  } else {
+    for (int k = lane; k < p.K; k += 32) m = fmaxf(m, fabsf(to_float(r[k])));
   }
+  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  const float sc = fmaxf(__fdiv_rn(m, 127.f), 1e-12f);
+  if (lane == 0) p.xs[row] = sc;
 
-  T* out = static_cast<T*>(p.out);
+  int8_t* q = p.xq + (size_t)row * p.Kp;
+  if (vec) {
+    for (int k = lane * kVec; k < p.K; k += 32 * kVec) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(r + k);
+      const T* e = reinterpret_cast<const T*>(&raw);
+      uint32_t word[kVec / 4];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+      for (int j = 0; j < kVec / 4; ++j) word[j] = 0u;
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int lr = wm * 32 + mi * 16 + g + h * 8;
-        const int row = m0 + lr;
-        const float xs = sXs[lr];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int col = n0 + wn * 32 + ni * 8 + t * 2 + j;
-          if (row < p.M && col < p.N) {
-            const float v = __fmul_rn(
-                __fmul_rn(__int2float_rn(acc[mi][ni][2 * h + j]), xs), p.ws[col]);
-            store(out + (size_t)row * p.N + col, v);
-          }
-        }
-      }
+      for (int j = 0; j < kVec; ++j)
+        word[j / 4] |= (uint32_t)(quantize(to_float(e[j]), sc) & 0xff) << (8 * (j % 4));
+      if constexpr (kVec == 8)
+        *reinterpret_cast<uint2*>(q + k) = make_uint2(word[0], word[1]);
+      else
+        *reinterpret_cast<uint32_t*>(q + k) = word[0];
+    }
+  } else {
+    for (int k = lane; k < p.K; k += 32) q[k] = (int8_t)quantize(to_float(r[k]), sc);
+  }
+  for (int k = p.K + lane; k < p.Kp; k += 32) q[k] = 0;
 }
 
-template <typename T>
-cudaError_t launch(const Params& p, float* xs, cudaStream_t st) {
-  row_scale_kernel<T><<<(p.M + 7) / 8, 256, 0, st>>>(static_cast<const T*>(p.x), xs, p.M,
-                                                      p.K);
+// ---------------------------------------------------------------------------------------
+// 2. the s8 product and the rescale, on the gemm_tile core
+// ---------------------------------------------------------------------------------------
+
+template <class T, typename E>
+struct Smem {
+  static constexpr int kRaw = kKBytes * T::BN;  // one w8 tile as stored, [64 k][BN n]
+  static constexpr int kStage = T::kABytes + kRaw;
+  static constexpr int kRing = kStages * kStage;
+  static constexpr int kCStride = T::BN * (int)sizeof(E) + 16;  // staged output row
+  static constexpr int kC = T::BM * kCStride;
+  static constexpr int kMain = kRing > kC ? kRing : kC;  // the staging reuses the ring
+  static constexpr int kBytes = kMain + T::kBBytes + (T::BM + T::BN) * 4;
+};
+
+// Rows kb0 .. kb0 + 63 of w8 (row stride N bytes), bytes n0 .. n0 + BN - 1, into a
+// [64][BN] slot; 16-byte chunk c of row r lands at chunk c ^ ((r / 4) % (BN / 16)), so the
+// transpose's reads of four rows spread over the banks.
+template <int BN>
+__device__ __forceinline__ void load_w_raw(uint8_t* dst, const int8_t* w, int K, int N,
+                                           int kb0, int n0, bool vec, int tid) {
+  constexpr int kChunks = BN / 16;
+  const uint8_t* src = reinterpret_cast<const uint8_t*>(w);
+#pragma unroll
+  for (int i = tid; i < kKBytes * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    const int k = kb0 + r, n = n0 + c * 16;
+    const bool live = k < K && n < N;
+    gemm_tile::load_chunk(dst + r * BN + ((c ^ ((r >> 2) & (kChunks - 1))) * 16),
+                          live ? src + (size_t)k * N + n : src, live ? N - n : 0, vec);
+  }
+}
+
+// The landed [64 k][BN n] w8 slot into the K-major B tile [BN n][kRowStride]: a thread
+// reads a 4 x 4 byte block (4 k rows of 4 columns) and stores its 4 columns as 4 words
+// of 4 consecutive k. Lanes take 16 k blocks of 2 column blocks: the stores hit 32
+// distinct banks, the swizzled reads 16.
+template <int BN>
+__device__ __forceinline__ void transpose_w(uint8_t* sBt, const uint8_t* raw, int tid) {
+  constexpr int kChunks = BN / 16;
+#pragma unroll
+  for (int i = tid; i < 4 * BN; i += kThreads) {
+    const int kb = i & 15, nb = i >> 4;
+    const uint8_t* base = raw + (((nb >> 2) ^ (kb & (kChunks - 1))) * 16) + (nb & 3) * 4;
+    uint32_t r[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) r[j] = *reinterpret_cast<const uint32_t*>(base + (4 * kb + j) * BN);
+    // column nb * 4 + j is byte j of r[0..3]
+    const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);  // r0.b0 r1.b0 r0.b1 r1.b1
+    const uint32_t t1 = __byte_perm(r[2], r[3], 0x5140);
+    const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362);  // r0.b2 r1.b2 r0.b3 r1.b3
+    const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
+    uint8_t* dst = sBt + (4 * nb) * kRowStride + 4 * kb;
+    *reinterpret_cast<uint32_t*>(dst) = __byte_perm(t0, t1, 0x5410);
+    *reinterpret_cast<uint32_t*>(dst + kRowStride) = __byte_perm(t0, t1, 0x7632);
+    *reinterpret_cast<uint32_t*>(dst + 2 * kRowStride) = __byte_perm(t2, t3, 0x5410);
+    *reinterpret_cast<uint32_t*>(dst + 3 * kRowStride) = __byte_perm(t2, t3, 0x7632);
+  }
+}
+
+__device__ __forceinline__ void store_pair(uint8_t* dst, float v0, float v1, float*) {
+  *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store_pair(uint8_t* dst, float v0, float v1, __nv_bfloat16*) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+}
+
+template <class T, typename E, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) int8_gemm_kernel(const Params p) {
+  using S = Smem<T, E>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* sBt = smem + S::kMain;
+  float* sXs = reinterpret_cast<float*>(sBt + T::kBBytes);
+  float* sWs = sXs + T::BM;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp / T::WARPS_N, wn = warp % T::WARPS_N;
+  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
+  const int n_k = (p.Kp + kKBytes - 1) / kKBytes;
+
+  for (int i = tid; i < T::BM; i += kThreads) sXs[i] = m0 + i < p.M ? p.xs[m0 + i] : 1.f;
+  for (int i = tid; i < T::BN; i += kThreads) sWs[i] = n0 + i < p.N ? p.ws[n0 + i] : 0.f;
+
+  auto load = [&](int it) {
+    uint8_t* slot = smem + (it % kStages) * S::kStage;
+    gemm_tile::load_kmajor<T::BM>(slot, reinterpret_cast<const uint8_t*>(p.xq), p.Kp, m0,
+                                  p.M, it * kKBytes, p.Kp, true, tid);
+    load_w_raw<T::BN>(slot + T::kABytes, p.w, p.K, p.N, it * kKBytes, n0, p.vec_w != 0, tid);
+  };
+
+  int acc[T::MI][T::NI][4];
+  gemm_tile::zero_acc<T>(acc);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_k) load(s);
+    gemm_tile::cp_commit();
+  }
+  for (int it = 0; it < n_k; ++it) {
+    gemm_tile::cp_wait<kStages - 2>();
+    __syncthreads();  // stage `it` landed for all; every warp is done with sBt and the
+                      // slot refilled below
+    if (it + kStages - 1 < n_k) load(it + kStages - 1);
+    gemm_tile::cp_commit();
+    const uint8_t* slot = smem + (it % kStages) * S::kStage;
+    transpose_w<T::BN>(sBt, slot + T::kABytes, tid);
+    __syncthreads();
+    gemm_tile::warp_mma<T, gemm_tile::MmaS8>(acc, slot, sBt, wm, wn, lane);
+  }
+  gemm_tile::cp_wait<0>();
+  __syncthreads();  // the ring is free for the staged output
+
+  uint8_t* sC = smem;
+#pragma unroll
+  for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < T::NI; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = gemm_tile::acc_row<T>(wm, lane, mi, h);
+        const int c = gemm_tile::acc_col<T>(wn, lane, ni, 0);
+        const float xs = sXs[r];
+        const float v0 = __fmul_rn(__fmul_rn(__int2float_rn(acc[mi][ni][2 * h]), xs), sWs[c]);
+        const float v1 =
+            __fmul_rn(__fmul_rn(__int2float_rn(acc[mi][ni][2 * h + 1]), xs), sWs[c + 1]);
+        store_pair(sC + r * S::kCStride + c * sizeof(E), v0, v1, static_cast<E*>(nullptr));
+      }
+  __syncthreads();
+  E* out = static_cast<E*>(p.out);
+  const bool vec_out = (p.N * sizeof(E)) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  gemm_tile::store_tile<T::BM, T::BN>(out, sC, S::kCStride, p.N, m0, p.M, n0, p.N, vec_out, tid);
+}
+
+template <class T, typename E, int kMinBlocks>
+cudaError_t launch_gemm(const Params& p, cudaStream_t st) {
+  static bool ready = false;  // one attribute call per instantiation and process
+  auto kernel = int8_gemm_kernel<T, E, kMinBlocks>;
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<T, E>::kBytes);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  const dim3 grid((p.N + T::BN - 1) / T::BN, (p.M + T::BM - 1) / T::BM);
+  kernel<<<grid, kThreads, Smem<T, E>::kBytes, st>>>(p);
+  return cudaGetLastError();
+}
+
+// tile 0: 128 x 128 (warps 64 x 32); 1: 64 x 64 (32 x 16); two blocks an SM
+template <typename E>
+cudaError_t launch(const Params& p, int tile, cudaStream_t st) {
+  quantize_rows_kernel<E><<<(p.M + 7) / 8, 256, 0, st>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.N + kBN - 1) / kBN, (p.M + kBM - 1) / kBM);
-  int8_matmul_kernel<T><<<grid, kThreads, 0, st>>>(p);
-  return cudaGetLastError();
+  if (tile == 0) return launch_gemm<gemm_tile::Tile<128, 128, 2>, E, 2>(p, st);
+  return launch_gemm<gemm_tile::Tile<64, 64, 2>, E, 2>(p, st);
 }
 
 }  // namespace
 
 // x [M, K] in dtype (0 = float32, 1 = bfloat16), w8 [K, N] int8, wscale [N] f32, out [M, N]
-// in dtype, xs [M] f32 (written: the row scales), xq [M, K] int8 (written when not null: the
-// codes). vec_x: x 16-byte aligned and K % 4 == 0; vec_w: w8 4-byte aligned and N % 4 == 0.
+// in dtype, xs [M] f32 (written: the row scales), xq [M, Kp] int8 (written: the codes, zero
+// past K; Kp = K rounded up to 16). vec_x: x 16-byte aligned and K * sizeof(dtype) % 16 ==
+// 0; vec_w: w8 16-byte aligned and N % 16 == 0. tile: the product's tile (see launch).
 // Returns a cudaError_t (0 = launched).
 extern "C" int int8_matmul(const void* x, const void* w8, const void* wscale, void* out,
-                           void* xs, void* xq, int M, int K, int N, int dtype, int vec_x,
-                           int vec_w, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || (M + kBM - 1) / kBM > 65535 ||
-      (dtype != 0 && dtype != 1))
+                           void* xs, void* xq, int M, int K, int N, int Kp, int dtype,
+                           int vec_x, int vec_w, int tile, void* stream) {
+  const int bm = tile == 0 ? 128 : 64;
+  if (M <= 0 || K <= 0 || N <= 0 || Kp % 16 != 0 || Kp < K || Kp >= K + 16 || tile < 0 ||
+      tile > 1 || (M + bm - 1) / bm > 65535 || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   Params p;
   p.x = x, p.w = static_cast<const int8_t*>(w8), p.ws = static_cast<const float*>(wscale);
-  p.xs = static_cast<const float*>(xs), p.out = out, p.xq = static_cast<int8_t*>(xq);
-  p.M = M, p.K = K, p.N = N, p.vec_x = vec_x, p.vec_w = vec_w;
+  p.xs = static_cast<float*>(xs), p.xq = static_cast<int8_t*>(xq), p.out = out;
+  p.M = M, p.K = K, p.N = N, p.Kp = Kp, p.vec_x = vec_x, p.vec_w = vec_w;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch<__nv_bfloat16>(p, static_cast<float*>(xs), st);
-  return launch<float>(p, static_cast<float*>(xs), st);
+  if (dtype == 1) return launch<__nv_bfloat16>(p, tile, st);
+  return launch<float>(p, tile, st);
 }

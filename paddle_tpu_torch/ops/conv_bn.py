@@ -28,7 +28,7 @@ from ..core import cuda_build
 from ..core.registry import register
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_ROW_TILES = 65535  # grid.y of 64-row tiles
+_MAX_ROW_TILES = 65535  # grid.y of the f32 kernel's 64-row tiles
 
 
 def _prologue(x2, mu, var, gamma, beta, eps, relu_in, apply_in_bn):
@@ -71,9 +71,36 @@ def kernel_refusal(x2, w) -> Optional[str]:
         return "x2 must be contiguous"
     if M == 0 or K == 0 or w.shape[1] == 0:
         return f"empty shape M={M} K={K} N={w.shape[1]}"
-    if (M + 63) // 64 > _MAX_ROW_TILES:
-        return f"M={M} exceeds {64 * _MAX_ROW_TILES} rows"
+    if x2.dtype == torch.float32 and (M + 63) // 64 > _MAX_ROW_TILES:
+        return f"M={M} exceeds {64 * _MAX_ROW_TILES} rows in float32"
     return None
+
+
+# The bf16 kernel's tiles: 128 rows by 128 columns (64 where N <= 64). Its grid
+# is persistent: block (cb, gy) of a (col_blocks, rows) grid owns column block cb
+# and walks the M tiles gy, gy + rows, gy + 2 rows, ...; it writes row gy of the
+# column partials, and the second kernel sums the rows in a fixed order.
+BF16_TILE_M = 128
+
+
+def bf16_tile_n(N: int) -> int:
+    return 64 if N <= 64 else 128
+
+
+def partial_rows(M: int, N: int, dtype, sms: int) -> int:
+    """Rows of the f32 partial-sum scratch [2, rows, N], which is also the
+    grid's y extent. bf16: about two blocks an SM over the column blocks,
+    at most one per M tile. f32 (the first version's kernel): one per
+    64-row tile."""
+    if dtype == torch.float32:
+        return -(-M // 64)
+    tiles = -(-M // BF16_TILE_M)
+    col_blocks = -(-N // bf16_tile_n(N))
+    return max(1, min(tiles, -(-2 * sms // col_blocks)))
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 _P, _I32 = ctypes.c_void_p, ctypes.c_int
@@ -82,10 +109,19 @@ _P, _I32 = ctypes.c_void_p, ctypes.c_int
 def _fn():
     fn = cuda_build.load("conv1x1_bn").conv1x1_bn
     if fn.argtypes is None:
-        # x, w^T, mu, inv, g, b, y, part, s, ss, M K N dtype apply relu vec, stream
-        fn.argtypes = [_P] * 10 + [_I32] * 7 + [_P]
+        # x, w^T, mu, inv, g, b, y, part, s, ss, M K N dtype apply relu vec rows, stream
+        fn.argtypes = [_P] * 10 + [_I32] * 8 + [_P]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(device, pointers, *ints):
+    """One call of the C entry (the product and the column sums) on the
+    current stream of ``device``; raises if the launch fails."""
+    with torch.cuda.device(device):
+        rc = _fn()(*pointers, *ints, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_conv1x1_bn_fwd: kernel launch failed with CUDA error {rc}")
 
 
 def fused_conv1x1_bn_fwd(x2, w, mu, var, gamma, beta, eps=1e-5, relu_in=True,
@@ -100,6 +136,10 @@ def fused_conv1x1_bn_fwd(x2, w, mu, var, gamma, beta, eps=1e-5, relu_in=True,
     ``fused_conv1x1_bn_fwd.launches``."""
     if x2.device.type == "cpu":
         return conv1x1_bn_plain(x2, w, mu, var, gamma, beta, eps, relu_in, apply_in_bn)
+    return _on_card(x2, w, mu, var, gamma, beta, eps, relu_in, apply_in_bn)
+
+
+def _on_card(x2, w, mu, var, gamma, beta, eps, relu_in, apply_in_bn):
     why = kernel_refusal(x2, w)
     if why is not None:
         raise ValueError(f"fused_conv1x1_bn_fwd: {why}")
@@ -111,20 +151,20 @@ def fused_conv1x1_bn_fwd(x2, w, mu, var, gamma, beta, eps=1e-5, relu_in=True,
     if any(tuple(v.shape) != (K,) or v.device != dev for v in vec):
         raise ValueError(f"fused_conv1x1_bn_fwd: mu/var/gamma/beta must be [{K}] on {dev}")
     mu32, var32, g32, b32 = vec
-    inv = torch.rsqrt(var32 + eps)   # outside the kernel, as the TPU path computes it
+    # outside the kernel, as the TPU path computes it; the op's path (no prologue)
+    # reads none of the four vectors
+    inv = torch.rsqrt(var32 + eps) if apply_in_bn else var32
     y = torch.empty((M, N), dtype=x2.dtype, device=dev)
     s = torch.empty((N,), dtype=torch.float32, device=dev)
     ss = torch.empty((N,), dtype=torch.float32, device=dev)
-    part = torch.empty((2, (M + 63) // 64, N), dtype=torch.float32, device=dev)
+    rows = partial_rows(M, N, x2.dtype, _sm_count(dev))
+    part = torch.empty((2, rows, N), dtype=torch.float32, device=dev)
     aligned = K % 8 == 0 and x2.data_ptr() % 16 == 0 and wt.data_ptr() % 16 == 0
-    with torch.cuda.device(dev):
-        rc = _fn()(x2.data_ptr(), wt.data_ptr(), mu32.data_ptr(), inv.data_ptr(),
-                   g32.data_ptr(), b32.data_ptr(), y.data_ptr(), part.data_ptr(),
-                   s.data_ptr(), ss.data_ptr(), M, K, N, _DTYPE_CODES[x2.dtype],
-                   int(bool(apply_in_bn)), int(bool(relu_in)), int(aligned),
-                   torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_conv1x1_bn_fwd: kernel launch failed with CUDA error {rc}")
+    _launch(dev, (x2.data_ptr(), wt.data_ptr(), mu32.data_ptr(), inv.data_ptr(),
+                  g32.data_ptr(), b32.data_ptr(), y.data_ptr(), part.data_ptr(),
+                  s.data_ptr(), ss.data_ptr()),
+            M, K, N, _DTYPE_CODES[x2.dtype], int(bool(apply_in_bn)), int(bool(relu_in)),
+            int(aligned), rows)
     fused_conv1x1_bn_fwd.launches += 1
     return y, s, ss
 

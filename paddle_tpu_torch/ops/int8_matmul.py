@@ -23,7 +23,7 @@ import torch
 from ..core import cuda_build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_ROW_TILES = 65535  # grid.y of 64-row tiles
+_MAX_ROW_TILES = 65535  # grid.y of the smallest tiles' 64 rows
 
 
 def row_scales(x2: torch.Tensor) -> torch.Tensor:
@@ -79,48 +79,83 @@ def kernel_refusal(x2, w8, wscale) -> Optional[str]:
     return None
 
 
+# The product's tiles (rows, columns); ``int8_tile`` picks one by shape. The
+# kernel keeps two blocks of either on an SM.
+TILES = ((128, 128), (64, 64))
+
+
+def int8_tile(M: int, N: int, sms: int) -> int:
+    """Index into TILES: 128 x 128 where its grid is at least two waves of
+    two blocks an SM, else 64 x 64 (BERT-base's fc layers at 8 x 512 tokens
+    take the first but at N 768, and at 8 x 128 tokens the second)."""
+    bm, bn = TILES[0]
+    return 0 if -(-M // bm) * -(-N // bn) >= 4 * sms else 1
+
+
+def padded_k(K: int) -> int:
+    """The row stride of the codes scratch: K rounded up to 16 bytes."""
+    return -(-K // 16) * 16
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 _P, _I32 = ctypes.c_void_p, ctypes.c_int
 
 
 def _fn():
     fn = cuda_build.load("int8_matmul").int8_matmul
     if fn.argtypes is None:
-        # x, w8, wscale, out, xs, xq, M K N dtype vec_x vec_w, stream
-        fn.argtypes = [_P] * 6 + [_I32] * 6 + [_P]
+        # x, w8, wscale, out, xs, xq, M K N Kp dtype vec_x vec_w tile, stream
+        fn.argtypes = [_P] * 6 + [_I32] * 8 + [_P]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(device, pointers, *ints):
+    """One call of the C entry (the quantize pass and the product) on the
+    current stream of ``device``; raises if the launch fails."""
+    with torch.cuda.device(device):
+        rc = _fn()(*pointers, *ints, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"int8_matmul: kernel launch failed with CUDA error {rc}")
 
 
 def int8_matmul(x2, w8, wscale, return_codes=False):
     """x2 [M, K] f32/bf16, w8 [K, N] int8, wscale [N] -> [M, N] in x2's
     dtype. A CPU tensor takes ``int8_matmul_plain``; a CUDA tensor launches
-    the CUDA kernel (a row-scale pass and the matmul), raising ValueError
-    for tensors it does not take (see ``kernel_refusal``) and RuntimeError
-    if the launch fails. Each launch adds one to ``int8_matmul.launches``.
-    ``return_codes`` also returns the row scales [M] and the int8 codes
-    [M, K] the kernel computed."""
+    the CUDA kernels (a pass that writes the row scales and the codes once,
+    then the int8 product), raising ValueError for tensors they do not take
+    (see ``kernel_refusal``) and RuntimeError if the launch fails. Each call
+    on the card adds one to ``int8_matmul.launches``. ``return_codes`` also
+    returns the row scales [M] and the int8 codes [M, K] the kernel
+    computed (a view of its codes scratch, whose rows are padded to
+    ``padded_k(K)``)."""
     if x2.device.type == "cpu":
         return int8_matmul_plain(x2, w8, wscale, return_codes)
+    return _on_card(x2, w8, wscale, return_codes)
+
+
+def _on_card(x2, w8, wscale, return_codes):
     wscale = wscale.float().contiguous()
     why = kernel_refusal(x2, w8, wscale)
     if why is not None:
         raise ValueError(f"int8_matmul: {why}")
     M, K = x2.shape
     N = w8.shape[1]
-    out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
-    xs = torch.empty((M,), dtype=torch.float32, device=x2.device)
-    xq = torch.empty((M, K), dtype=torch.int8, device=x2.device) if return_codes else None
-    vec_x = int(K % 4 == 0 and x2.data_ptr() % 16 == 0)
-    vec_w = int(N % 4 == 0 and w8.data_ptr() % 4 == 0)
-    with torch.cuda.device(x2.device):
-        rc = _fn()(x2.data_ptr(), w8.data_ptr(), wscale.data_ptr(), out.data_ptr(),
-                   xs.data_ptr(), xq.data_ptr() if xq is not None else None, M, K, N,
-                   _DTYPE_CODES[x2.dtype], vec_x, vec_w,
-                   torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"int8_matmul: kernel launch failed with CUDA error {rc}")
+    Kp = padded_k(K)
+    dev = x2.device
+    out = torch.empty((M, N), dtype=x2.dtype, device=dev)
+    xs = torch.empty((M,), dtype=torch.float32, device=dev)
+    xq = torch.empty((M, Kp), dtype=torch.int8, device=dev)
+    vec_x = int((K * x2.element_size()) % 16 == 0 and x2.data_ptr() % 16 == 0)
+    vec_w = int(N % 16 == 0 and w8.data_ptr() % 16 == 0)
+    _launch(dev, (x2.data_ptr(), w8.data_ptr(), wscale.data_ptr(), out.data_ptr(),
+                  xs.data_ptr(), xq.data_ptr()),
+            M, K, N, Kp, _DTYPE_CODES[x2.dtype], vec_x, vec_w, int8_tile(M, N, _sm_count(dev)))
     int8_matmul.launches += 1
-    return (out, xs, xq) if return_codes else out
+    return (out, xs, xq[:, :K]) if return_codes else out
 
 
 int8_matmul.launches = 0

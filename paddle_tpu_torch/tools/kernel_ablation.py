@@ -1,7 +1,10 @@
-"""Where the flash-attention kernels' time goes: each kernel is built again
+"""Where the hand-written kernels' time goes: each kernel is built again
 with parts of its work cut out and timed in turns against the whole one.
 
-    python3 -m paddle_tpu_torch.tools.kernel_ablation
+    python3 -m paddle_tpu_torch.tools.kernel_ablation [kernel ...]
+
+(kernels: flash_attn_fwd, flash_attn_bwd, conv1x1_bn, int8_matmul; all
+when none is named)
 
 A variant is the committed source with an edit at a marked line (a comment
 the edit looks for; the tool raises if a source no longer has it), compiled
@@ -20,9 +23,23 @@ Variants of ``csrc/flash_attn_bwd.cu`` (the fused and the split backward):
 - ``s_dp_only``: plus S, dP and the P*M / dS tiles (the dK/dV kernel);
 - ``no_dq``: all but the fused variant's dQ product.
 
+Variants of ``csrc/conv1x1_bn.cu`` (the bf16 product and its column sums):
+
+- ``full``;
+- ``no_math``: the copies, the y stores and the column-sum pass only;
+- ``no_stats``: plus the mma (no statistics in the epilogue).
+
+Variants of ``csrc/int8_matmul.cu`` (the quantize pass and the product):
+
+- ``full``;
+- ``no_math``: the quantize pass, the copies and the stores only;
+- ``no_mma``: plus the on-chip transpose of each w8 tile;
+- ``no_rescale``: plus the mma (the epilogue stores float(acc)).
+
 A cut variant's outputs are wrong by design; ``full`` is held against the
-plain version. Prints one JSON line per (kernel, shape): the median ms of
-each variant (CUDA events, 25 launches each queued behind
+plain version (max |error| / max |plain|; for int8_matmul max |error|, 0
+when bit-exact). Prints one JSON line per (kernel, shape): the median ms
+of each variant (CUDA events, 25 launches each queued behind
 ``torch.cuda._sleep``, the variants in turns A B .. B A) with the card's
 name and power limit. Needs a CUDA card and ``nvcc``.
 """
@@ -36,6 +53,16 @@ import subprocess
 from ..core import cuda_build
 
 _BWD_NEXT_TILE = "__syncthreads(); if (qt + 2 < n_qt) stage_q(qt + 2, slot); cp_commit(); continue;"
+_K2_MMA = "    gemm_tile::warp_mma<T, gemm_tile::MmaBf16>(acc, sA, sA + T::kABytes, wm, wn, lane);"
+_K2_STATS = "          if (interior) {"
+_K2_NO_STATS = {_K2_STATS: "          if (false) {", "          } else if (m0 + r < p.M) {":
+                "          } else if (false) {"}
+_K3_T = "    transpose_w<T::BN>(sBt, slot + T::kABytes, tid);"
+_K3_MMA = "    gemm_tile::warp_mma<T, gemm_tile::MmaS8>(acc, slot, sBt, wm, wn, lane);"
+_K3_RESCALE = {"__fmul_rn(__fmul_rn(__int2float_rn(acc[mi][ni][2 * h]), xs), sWs[c])":
+               "__int2float_rn(acc[mi][ni][2 * h])",
+               "__fmul_rn(__fmul_rn(__int2float_rn(acc[mi][ni][2 * h + 1]), xs), sWs[c + 1])":
+               "__int2float_rn(acc[mi][ni][2 * h + 1])"}
 # kernel -> variant -> {marked line: replacement}
 ABLATIONS = {
     "flash_attn_fwd": {
@@ -65,6 +92,17 @@ ABLATIONS = {
                 "    continue;\n    const bool diagonal = p.causal && k0 + kDqKeys - 1")},
         "s_dp_only": {"    // phase 2: dV += (P*M)^T dO": f"    {_BWD_NEXT_TILE}\n    // phase 2: dV += (P*M)^T dO"},
         "no_dq": {"    if (kFused) {\n      // dQ = dS K": "    if (false) {\n      // dQ = dS K"},
+    },
+    "conv1x1_bn": {
+        "full": {},
+        "no_math": {_K2_MMA: "    // mma cut", **_K2_NO_STATS},
+        "no_stats": dict(_K2_NO_STATS),
+    },
+    "int8_matmul": {
+        "full": {},
+        "no_math": {_K3_T: "    // transpose cut", _K3_MMA: "    // mma cut", **_K3_RESCALE},
+        "no_mma": {_K3_MMA: "    // mma cut", **_K3_RESCALE},
+        "no_rescale": dict(_K3_RESCALE),
     },
 }
 
@@ -127,49 +165,93 @@ def _inputs(torch, gen, B, S, H=12, D=64):
     return q, k, v, bias, do
 
 
-def main():
-    import torch
+def _flash_cases(torch, gen):
+    """(kernel, label, call, full_error): serving's and training's forward, the
+    fused and the split backward. full_error() is the max |kernel - plain| /
+    max |plain| of the loaded library's outputs."""
     from ..ops import flash_attention as fa
-    if not torch.cuda.is_available():
-        raise SystemExit("kernel_ablation: needs a CUDA card")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
     cuda_build.load("flash_attn_fwd")        # the backward's inputs come from the full forward
-    libs = {name: build_variants(name) for name in ABLATIONS}
-    # (kernel, B, S, dropout): serving's and training's forward, the fused and split backward
     for name, B, S, drop in (("flash_attn_fwd", 8, 512, 0.0), ("flash_attn_fwd", 128, 128, 0.1),
                              ("flash_attn_bwd", 128, 128, 0.1), ("flash_attn_bwd", 8, 512, 0.1)):
         q, k, v, bias, do = _inputs(torch, gen, B, S)
         o, lse = fa.flash_attn_fwd(q, k, v, bias, 0.125, False, drop, 7, return_lse=True)
         if name == "flash_attn_fwd":
-            call = lambda: fa.flash_attn_fwd(q, k, v, bias, 0.125, False, drop, 7,
-                                             return_lse=drop > 0)
-            ref = fa.attention_plain(q, k, v, bias, 0.125, False, drop, 7)
-            got = lambda: [call()] if drop == 0 else [call()[0]]
-            refs = [ref]
+            call = (lambda q=q, k=k, v=v, bias=bias, drop=drop: fa.flash_attn_fwd(
+                q, k, v, bias, 0.125, False, drop, 7, return_lse=drop > 0))
+            refs = [fa.attention_plain(q, k, v, bias, 0.125, False, drop, 7)]
+            got = lambda call=call, drop=drop: [call()] if drop == 0 else [call()[0]]
         else:
-            call = lambda: fa.flash_attn_bwd(q, k, v, bias, o, lse, do, 0.125, False, drop, 7)
+            call = (lambda q=q, k=k, v=v, bias=bias, o=o, lse=lse, do=do, drop=drop:
+                    fa.flash_attn_bwd(q, k, v, bias, o, lse, do, 0.125, False, drop, 7))
             refs = fa.attention_bwd_plain(q, k, v, bias, o, do, 0.125, False, drop, 7)
-            got = lambda: list(call())
+            got = lambda call=call: list(call())
+        err = lambda got=got, refs=refs: max(
+            ((a.float() - r.float()).abs().max() / r.float().abs().max()).item()
+            for a, r in zip(got(), refs))
+        label = {"shape": [B, 12, S, 64], "dtype": "bfloat16", "bias": True, "dropout": drop,
+                 "variant": fa.bwd_variant(S, torch.bfloat16) if "bwd" in name else None}
+        yield name, label, call, err
+
+
+def _gemm_cases(torch, gen):
+    """conv1x1_bn at ResNet-50's widest-M and deepest-K shapes; int8_matmul at
+    the 8 x 512 and 8 x 128 requests' ffn1, out-projection and ffn2 shapes."""
+    from ..ops import conv_bn, int8_matmul as i8
+    for M, K, N in ((401408, 64, 256), (6272, 2048, 512)):
+        x2 = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn((N, K), generator=gen, device="cuda") * K ** -0.5).to(torch.bfloat16).t()
+        z, one = torch.zeros(K, device="cuda"), torch.ones(K, device="cuda")
+        args = (x2, w, z, one, z, z, 1e-5, False, False)
+        ref = conv_bn.conv1x1_bn_plain(*args)[0].float()
+        call = lambda args=args: conv_bn.fused_conv1x1_bn_fwd(*args)
+        err = lambda call=call, ref=ref: ((call()[0].float() - ref).abs().max()
+                                          / ref.abs().max()).item()
+        yield "conv1x1_bn", {"shape": [M, K, N], "dtype": "bfloat16"}, call, err
+    for M, K, N in ((4096, 768, 3072), (1024, 768, 768), (1024, 3072, 768)):
+        x2 = (torch.randn((M, K), generator=gen, device="cuda") * 3).to(torch.bfloat16)
+        w8 = torch.randint(-127, 128, (K, N), generator=gen, device="cuda").to(torch.int8)
+        ws = torch.rand((N,), generator=gen, device="cuda") * 1e-3
+        ref = i8.int8_matmul_plain(x2, w8, ws).float()
+        call = lambda x2=x2, w8=w8, ws=ws: i8.int8_matmul(x2, w8, ws)
+        err = lambda call=call, ref=ref: (call().float() - ref).abs().max().item()
+        yield "int8_matmul", {"shape": [M, K, N], "dtype": "bfloat16",
+                              "tile": i8.TILES[i8.int8_tile(M, N, i8._sm_count("cuda"))]}, call, err
+
+
+def main():
+    import sys
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ablation: needs a CUDA card")
+    names = sys.argv[1:] or list(ABLATIONS)
+    unknown = set(names) - set(ABLATIONS)
+    if unknown:
+        raise SystemExit(f"kernel_ablation: unknown kernels {sorted(unknown)}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    libs = {name: build_variants(name) for name in names}
+    cases = []
+    if {"flash_attn_fwd", "flash_attn_bwd"} & set(names):
+        cases += _flash_cases(torch, gen)
+    if {"conv1x1_bn", "int8_matmul"} & set(names):
+        cases += _gemm_cases(torch, gen)
+    for name, label, call, err in cases:
+        if name not in libs:
+            continue
         variants = list(libs[name])
         ms = {vname: [] for vname in variants}
-        rel_err = None
-        for vname in variants + variants[::-1]:
+        full_err = None
+        for vname in variants + variants[::-1]:       # in turns: A B .. B A
             cuda_build._loaded[name] = libs[name][vname]
-            if vname == "full" and rel_err is None:
-                rel_err = max(((a.float() - r.float()).abs().max() / r.float().abs().max()).item()
-                              for a, r in zip(got(), refs))
+            if vname == "full" and full_err is None:
+                full_err = err()
             ms[vname].append(_device_ms(torch, call))
-        print(json.dumps({"kernel": name, "shape": [B, 12, S, 64], "dtype": "bfloat16",
-                          "bias": True, "dropout": drop,
-                          "variant": fa.bwd_variant(S, torch.bfloat16) if "bwd" in name else None,
-                          "full_max_rel_err_vs_plain": rel_err,
+        print(json.dumps({"kernel": name, **label, "full_err_vs_plain": full_err,
                           "ms": {vname: statistics.median(t) for vname, t in ms.items()},
                           "device": smi}), flush=True)
-        del q, k, v, bias, do, o, lse, refs
-    for name in ABLATIONS:
+    for name in names:
         cuda_build._loaded.pop(name, None)
 
 

@@ -23,22 +23,36 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    ``flash_attn_fwd`` and one ``flash_attn_bwd`` call (``torch.profiler``);
 4. serving path: build BERT-base (L12 H768 A12, bf16, random weights from a
    seed) with the port's DSL, run its startup program on the card, save it
-   with ``save_inference_model``, load it into a ``Predictor`` and answer
+   with ``save_inference_model``, load it into a ``Predictor`` (its
+   executable cache: one CUDA graph per request signature) and answer
    4 requests of 8 x 128 tokens and 2 of 8 x 512 with ragged masks; checks
    that every kernel of the path launched (``flash_attn_fwd``: 12 per
-   request), that the outputs are finite, and that the first request
-   agrees with the plain attention on the card and with the CPU
-   Predictor (the plain path);
+   request, counted on each graph replay), that the outputs are finite,
+   bit-equal to the eager op-by-op run of the same Predictor
+   (``_use_graphs = False``), and that the first request agrees with the
+   plain attention on the card and with the CPU Predictor (the plain
+   path); then, for graph and eager in the same call, the wall time and
+   the profiler's idle share at each shape, the graphs captured with the
+   device memory each holds, and one replay's kernels against its counts;
 5. training path: BERT-base pretraining at bench.py's configuration (batch
    128, S 128, 2560 masked positions, bf16, dropout 0.1, Adam 1e-4, seed 0)
    built with ``append_backward`` and ``Adam.minimize``, startup on the
-   card, a few steps on one repeated batch; checks the launches per step
-   (``flash_attn_fwd`` 24: 12 forward ops and their 12 recomputes inside
-   ``fused_attention_grad``; ``flash_attn_bwd`` 12), a finite loss that
-   falls, and step 1 against two references from the same weights: the
+   card, a few steps on one repeated batch, on the executor's path (each
+   forward op once, its grad op differentiating the kept graph; the 158
+   ``adam`` ops as one ``multi_tensor_update`` launch) and on the eager
+   reference path (``_reuse_forward = _group_updates = False``: each
+   generic grad op recomputes its forward, one ``adam`` op at a time) in
+   the same call; checks the launches per step (``flash_attn_fwd`` 12,
+   ``flash_attn_bwd`` 12, ``multi_tensor_update`` 1; the reference 24, 12,
+   0), finite losses that fall, the two paths' step-1 losses bit for bit
+   and their gaps after the steps within the limits below (the reference
+   path, run twice, parts from itself by as much: the card's backward sums
+   some gradients with atomics), and step 1 against two references from
+   the same weights: the
    card's ``attn_impl="composed"`` program (plain matmul/softmax
    attention) and, at batch 2 with the same attention-dropout masks, the
-   CPU port;
+   CPU port; prints step ms, peak memory and the profiler's breakdown of
+   each path;
 6. conv1x1_bn and int8_matmul against their plain versions (CUDA events,
    as in phase 3): ``conv1x1_bn`` at the 12 distinct (M, K, N) shapes of
    ResNet-50's 33 fused chains at batch 128 (read from the program), with
@@ -53,19 +67,30 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
 7. int8 serving path: the same BERT-base weights quantized with
    ``quantize_weights(int8_compute=True)``, saved, loaded into a
    ``Predictor`` on the card and asked phase 4's requests; checks the
-   launches (``int8_matmul`` 48 per request, ``flash_attn_fwd`` 12), and the
-   first request against the same model with the plain int8 matmul on the
-   card (bit for bit), the CPU Predictor and the unquantized bf16 model
-   (the int8 accuracy cost);
+   launches (``int8_matmul`` 48 per request, ``flash_attn_fwd`` 12), the
+   outputs bit-equal to the eager run, and the first request against the
+   same model with the plain int8 matmul on the card (bit for bit), the
+   CPU Predictor and the unquantized bf16 model (the int8 accuracy cost);
+   graph and eager timed and profiled as in phase 4;
 8. ResNet-50 training at bench.py's configuration (batch 128, 224 x 224,
    bf16, NHWC, space-to-depth stem, 1000 classes, Momentum(0.1, 0.9), seed
    0, one repeated batch), every batch norm marked ``fuse_stats`` and
-   ``fuse_conv_bn_stats`` run before ``minimize`` (33 chains); checks the
-   launches per step (``fused_conv1x1_bn_fwd`` 66: 33 forward ops and their
-   33 recomputes inside the generic grad), a finite loss that falls, and
-   step 1 against the unfused program on the card and, at batch 2, the CPU
-   port, in bf16 and on the f32 build of the same weights;
-9. the kernels line, then the result line.
+   ``fuse_conv_bn_stats`` run before ``minimize`` (33 chains), on the
+   executor's path and on the eager reference path in the same call;
+   checks the launches per step (``fused_conv1x1_bn_fwd`` 33, the 33
+   forward ops, and ``multi_tensor_update`` 1; the reference 66: the 33
+   recomputes inside the generic grad too), finite losses that fall, the
+   two paths' losses within the limit below and their states' bit-equality
+   printed, and step 1 against the unfused program on the card
+   and, at batch 2, the CPU port, in bf16 and on the f32 build of the same
+   weights; prints step ms, peak memory and each path's breakdown;
+9. multi_tensor_update over BERT-base's 158 Adam parameters and
+   ResNet-50's 161 Momentum parameters (their shapes and dtypes read from
+   the programs), against the per-op lowerings on the card, bit for bit,
+   with its time, its bound, the per-op path's time (device and host) and
+   ``torch._fused_adam_`` / ``torch._fused_sgd_`` on f32 copies of the same
+   tensors as yardsticks;
+10. the kernels line, then the result line.
 
 Exits non-zero, with no result line, when there is no CUDA card, when the
 port's sources are not beside this script, or when any phase fails.
@@ -205,7 +230,7 @@ def phase_device(torch):
 
 def phase_build():
     from paddle_tpu_torch.core import cuda_build
-    names = sorted(f[:-3] for f in os.listdir(cuda_build.CSRC) if f.endswith(".cu"))
+    names = list(cuda_build.SOURCES)
     t0 = time.perf_counter()
     paths = cuda_build.build(names)
     seconds = time.perf_counter() - t0
@@ -516,10 +541,82 @@ def _gaps(a, b):
                 update_rel_l1_gap=num / den)
 
 
+def _update_gap(init, a, b):
+    """sum |(a - init) - (b - init)| / sum |b - init| over the float state."""
+    num = den = 0.0
+    for n, t0 in init.items():
+        if t0.is_floating_point():
+            ua, ub = a[n].float() - t0.float(), b[n].float() - t0.float()
+            num += float((ua - ub).abs().sum())
+            den += float(ub.abs().sum())
+    return num / den
+
+
+def _train_both_paths(torch, pt, main, feed, loss, init, steps, counters):
+    """``steps`` steps from ``init`` on the executor's path, then on the eager
+    reference path (``_reuse_forward = _group_updates = False``), then on the
+    reference path again, each in a scope of its own with the same dropout
+    counter; the first two then take 3 more steps under the profiler. Per
+    path: losses, step ms, peak device memory, the launches of each counter
+    in wrapper ``counters``, and the breakdown. Across paths: which state
+    differs after step 1 and the gaps after ``steps`` steps, executor against
+    reference beside reference against itself (the card's run-to-run
+    noise)."""
+    from paddle_tpu_torch.tools.train_profile import profile_steps
+    out, states = {}, {}
+    for path in ("executor", "reference", "reference_again"):
+        scope = pt.Scope()
+        for n, t in init.items():
+            scope.set_var(n, t.clone())
+        exe = pt.Executor()
+        if path != "executor":
+            exe._reuse_forward = exe._group_updates = False
+        main._rng_run_counter = 0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters:
+            fn.launches = 0
+        losses, step_s = [], []
+        with pt.scope_guard(scope):
+            for i in range(steps):
+                t0 = time.perf_counter()
+                losses.append(float(exe.run(main, feed=feed, fetch_list=[loss])[0][0]))
+                step_s.append(time.perf_counter() - t0)
+                if i == 0:
+                    states[path, 1] = {n: scope.find_var(n).clone() for n in init}
+            launches = {fn.__name__: fn.launches for fn in counters}
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            states[path, steps] = {n: scope.find_var(n).clone() for n in init}
+            prof = None if path == "reference_again" else \
+                profile_steps(torch, exe, main, feed, loss, 3)
+        del scope, exe
+        warm = sorted(step_s[1:])
+        out[path] = dict(losses=losses, step_ms=[t * 1e3 for t in step_s],
+                         step_ms_median_warm=warm[len(warm) // 2] * 1e3, peak_memory_gb=peak_gb,
+                         launches=launches,
+                         launches_per_step={k: v / steps for k, v in launches.items()})
+        if prof is not None:
+            out[path]["profile"] = dict(prof, top=prof["top"][:8])
+    across = {}
+    for a, b in (("executor", "reference"), ("reference_again", "reference")):
+        s1a, s1b = states[a, 1], states[b, 1]
+        differ = [n for n in init if not torch.equal(s1a[n], s1b[n])]
+        la, lb = out[a]["losses"], out[b]["losses"]
+        across[f"{a}_vs_{b}"] = dict(
+            step1_loss_equal=la[0] == lb[0], step1_state_differs=len(differ),
+            step1_state_differs_first=differ[:8],
+            loss_rel_gap=max(abs(x - y) / abs(y) for x, y in zip(la, lb)),
+            update_rel_l1_gap=_update_gap(init, states[a, steps], states[b, steps]))
+    del states
+    torch.cuda.empty_cache()
+    return out, across
+
+
 def phase_train_path(torch):
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.models import bert
-    from paddle_tpu_torch.ops import flash_attention
+    from paddle_tpu_torch.ops import flash_attention, multi_tensor
     from paddle_tpu_torch.tools.train_profile import (BATCH, LR, MASKS_PER_SEQ, SEQ,
                                                       build_pretrain, pretrain_feed)
     cfg = bert.BertConfig(dtype="bfloat16", dropout=ATTN_DROPOUT)
@@ -538,35 +635,38 @@ def phase_train_path(torch):
         state = [n for n, v in main.global_block().vars.items() if v.persistable]
         init = {n: scope.find_var(n).clone() for n in state}
         n_params = sum(scope.find_var(n).numel() for n in params)
-
-        torch.cuda.reset_peak_memory_stats()
-        flash_attention.flash_attn_fwd.launches = 0
-        flash_attention.flash_attn_bwd.launches = 0
-        losses, step_s = [], []
-        for _ in range(TRAIN_STEPS):
-            t0 = time.perf_counter()
-            losses.append(float(exe.run(main, feed=feed, fetch_list=[total])[0][0]))
-            step_s.append(time.perf_counter() - t0)
-        launches = {"flash_attn_fwd": flash_attention.flash_attn_fwd.launches,
-                    "flash_attn_bwd": flash_attention.flash_attn_bwd.launches}
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del scope
-    expected = {"flash_attn_fwd": 2 * cfg.n_layers * TRAIN_STEPS,
-                "flash_attn_bwd": cfg.n_layers * TRAIN_STEPS}
-    warm = sorted(step_s[1:])
-    step_ms = warm[len(warm) // 2] * 1e3
+    counters = (flash_attention.flash_attn_fwd, flash_attention.flash_attn_bwd,
+                multi_tensor.multi_tensor_update)
+    paths, across = _train_both_paths(torch, pt, main, feed, total, init, TRAIN_STEPS, counters)
+    expected = {"executor": {"flash_attn_fwd": cfg.n_layers * TRAIN_STEPS,
+                             "flash_attn_bwd": cfg.n_layers * TRAIN_STEPS,
+                             "multi_tensor_update": TRAIN_STEPS},
+                "reference": {"flash_attn_fwd": 2 * cfg.n_layers * TRAIN_STEPS,
+                              "flash_attn_bwd": cfg.n_layers * TRAIN_STEPS,
+                              "multi_tensor_update": 0}}
+    new = paths["executor"]
     model = (f"bert-base pretrain L{cfg.n_layers} H{cfg.hidden} A{cfg.n_heads} "
              f"FFN{cfg.ffn_hidden} vocab{cfg.vocab_size} {cfg.dtype} B{BATCH} S{SEQ} "
              f"masks {BATCH * MASKS_PER_SEQ} dropout {cfg.dropout} Adam({LR})")
     emit("train_path", model=model, params=n_params, build_s=build_s, startup_s=startup_s,
-         losses=losses, step_ms=[t * 1e3 for t in step_s], step_ms_median_warm=step_ms,
-         sequences_per_s=BATCH / (step_ms / 1e3), peak_memory_gb=peak_gb,
-         launches=launches, expected_launches=expected,
-         launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()})
-    if launches != expected:
-        raise SystemExit(f"training launches {launches}, expected {expected}")
+         adam_ops=sum(op.type == "adam" for op in main.global_block().ops),
+         paths=paths, expected_launches=expected, across_paths=across,
+         loss_rel_limit=TRAIN_LOSS_REL, update_rel_l1_limit=TRAIN_UPDATE_REL,
+         sequences_per_s=BATCH / (new["step_ms_median_warm"] / 1e3))
+    for path, want in expected.items():
+        if paths[path]["launches"] != want:
+            raise SystemExit(f"training launches on the {path} path {paths[path]['launches']}, "
+                             f"expected {want}")
+    losses = new["losses"]
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise SystemExit(f"training loss is not finite and falling: {losses}")
+    g = across["executor_vs_reference"]
+    if not (g["step1_loss_equal"] and g["loss_rel_gap"] <= TRAIN_LOSS_REL
+            and g["update_rel_l1_gap"] <= TRAIN_UPDATE_REL):
+        raise SystemExit(f"training: the executor's path and the eager reference path "
+                         f"part: {g}")
+    launches, step_ms = new["launches"], new["step_ms_median_warm"]
 
     # step 1 against the card's composed attention (dropout 0 on both: the
     # composed program's dropout ops draw other masks than the kernels)
@@ -594,7 +694,7 @@ def phase_train_path(torch):
     cpu_s = time.perf_counter() - t0
     flash_attention.flash_attn_fwd.launches = 0
     card_run = _step_once(torch, pt, prog, tot, params, init, feed2, "cuda")
-    if flash_attention.flash_attn_fwd.launches != 2 * cfg.n_layers:
+    if flash_attention.flash_attn_fwd.launches != cfg.n_layers:
         raise SystemExit("the batch-2 card step did not run the attention kernels")
     cpu = dict(_gaps(card_run, cpu_run), cpu_seconds=cpu_s)
     emit("train_step1_gaps", vs_card_composed=composed, vs_cpu_port_batch2=cpu,
@@ -603,7 +703,7 @@ def phase_train_path(torch):
         if not (g["loss_rel_gap"] <= TRAIN_LOSS_REL
                 and g["update_rel_l1_gap"] <= TRAIN_UPDATE_REL):
             raise SystemExit(f"training step 1 against the {name}: gaps {g} exceed the limits")
-    return launches, step_ms
+    return launches, step_ms, paths
 
 
 def _conv_bound(M, K, N, elsize, prologue):
@@ -793,6 +893,80 @@ def _serve(torch, pred, requests):
     return outs, lat
 
 
+def _max_ulp(torch, a, b) -> int:
+    """The largest distance of two float tensors of one dtype in units in the
+    last place (their bit patterns read as sign-magnitude integers)."""
+    it = torch.int32 if a.element_size() == 4 else torch.int16
+    top = 1 << (8 * a.element_size() - 1)
+    ia, ib = (t.contiguous().view(it).long() for t in (a, b))
+    ia, ib = (torch.where(t < 0, -(t + top), t) for t in (ia, ib))
+    return int((ia - ib).abs().max()) if ia.numel() else 0
+
+
+def _graphs_held(pred):
+    """The graphs a Predictor captured: signature, device memory its pool
+    holds, kernel launches a replay adds."""
+    return [dict(signature=[list(x) if isinstance(x, tuple) else x for x in sig],
+                 memory_gb=exe.memory_bytes / 1e9,
+                 launches_per_replay={fn.__name__: n for fn, n in exe.launches.items()})
+            for sig, exe in pred._compiled.items()]
+
+
+def phase_serving_modes(torch, label, model_dir, pred, requests, outs, lat, counter,
+                        kernel_name):
+    """Graph against eager serving on the same requests, in this call: the
+    eager run of the same model (``_use_graphs = False``) must give the same
+    bits; wall ms of each request, the profiler's idle share at each shape,
+    the graphs captured with their memory, and one replay's kernels (from
+    the profiler) against the launches its counters add."""
+    from paddle_tpu_torch.core import cuda_build
+    from paddle_tpu_torch.inference import Predictor
+    from paddle_tpu_torch.tools.serving_profile import profile_shape
+    from torch.profiler import ProfilerActivity, profile
+    eager = Predictor(model_dir)
+    eager._use_graphs = False
+    for feed in requests:                       # first use of each shape
+        eager.run(feed)
+    torch.cuda.synchronize()
+    eager_outs, eager_lat = _serve(torch, eager, requests)
+    same = [bool(np.array_equal(a, b)) for a, b in zip(outs, eager_outs)]
+    by_shape = {}
+    for (B, S), feed in zip(BERT_REQUESTS, requests):
+        if (B, S) in by_shape:
+            continue
+        by_shape[(B, S)] = {"graph": profile_shape(torch, pred, feed, 3),
+                            "eager": profile_shape(torch, eager, feed, 3)}
+        # the profiler slows the host; against the unprofiled wall time of
+        # the same shape above, the same device busy time gives the idle share
+        for mode, times in (("graph", lat), ("eager", eager_lat)):
+            r = by_shape[(B, S)][mode]
+            r.pop("top")
+            wall = statistics.median(t for (b, s_), t in zip(BERT_REQUESTS, times)
+                                     if (b, s_) == (B, S)) * 1e3
+            r["unprofiled_wall_ms"] = wall
+            r["unprofiled_idle_share"] = max(0.0, 1 - r["device_busy_ms"] / wall)
+    before = {fn: fn.launches for fn in cuda_build.COUNTED}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pred.run(requests[0])
+        torch.cuda.synchronize()
+    counted = {fn.__name__: fn.launches - n for fn, n in before.items() if fn.launches != n}
+    traced = sum(e.count for e in prof.key_averages() if kernel_name in e.key)
+    replay = dict(counters=counted, profiler_kernels={kernel_name: traced})
+    del eager
+    r = dict(requests=[dict(batch=B, seq=S, graph_ms=a * 1e3, eager_ms=b * 1e3)
+                       for (B, S), a, b in zip(BERT_REQUESTS, lat, eager_lat)],
+             bit_equal_to_eager=same,
+             profile={f"{B}x{S}": v for (B, S), v in by_shape.items()},
+             graphs=_graphs_held(pred), one_replay=replay)
+    emit(f"{label}_graph_vs_eager", **r)
+    if not all(same):
+        raise SystemExit(f"{label}: graph-replayed outputs differ from the eager run: {same}")
+    if traced != counted.get(counter):
+        raise SystemExit(f"{label}: one replay ran {traced} {kernel_name} kernels (profiler) "
+                         f"but its counters add {counted}")
+    return r
+
+
 def phase_int8_path(torch, workdir):
     """The int8 serving path (phase 7)."""
     from paddle_tpu_torch.contrib import quantize
@@ -834,6 +1008,8 @@ def phase_int8_path(torch, workdir):
     if n_qmul != 4 * cfg.n_layers or launches != expected:
         raise SystemExit(f"int8 serving: {n_qmul} quantized_mul ops, launches {launches}, "
                          f"expected {expected}")
+    modes = phase_serving_modes(torch, "int8_serving", int8_dir, pred, requests, outs, lat,
+                                "int8_matmul", "int8_gemm_kernel")
 
     # references for the first request
     kernel = quantize.int8_matmul
@@ -867,7 +1043,7 @@ def phase_int8_path(torch, workdir):
     for name in ("card_vs_cpu_plain", "int8_vs_bf16"):
         if not gaps[name]["rel_l2"] <= INT8_REL_L2:
             raise SystemExit(f"int8 path: {name} gap {gaps[name]} exceeds rel L2 {INT8_REL_L2}")
-    return launches
+    return launches, modes
 
 
 def _resnet_feed(torch, rng, batch, device):
@@ -901,50 +1077,53 @@ def _resnet_gaps(a, b):
 def phase_resnet_train(torch, main_prog, startup, loss, params_grads, fused):
     """The ResNet-50 training path (phase 8)."""
     import paddle_tpu_torch as pt
-    from paddle_tpu_torch.ops import conv_bn
-    from paddle_tpu_torch.tools.train_profile import build_resnet50
+    from paddle_tpu_torch.ops import conv_bn, multi_tensor
+    from paddle_tpu_torch.models.bert import BertConfig
+    from paddle_tpu_torch.tools.train_profile import (LR, MASKS_PER_SEQ, SEQ, build_pretrain,
+                                                      build_resnet50)
     ops = [op.type for op in main_prog.global_block().ops]
-    per_step = ops.count("conv2d_bn_fused") + ops.count("conv2d_bn_fused_grad")
-    if fused != 33 or per_step != 66:
-        raise SystemExit(f"fuse pass: {fused} chains, {per_step} fused launches a step; "
-                         f"expected 33 and 66")
+    per_step = ops.count("conv2d_bn_fused")
+    if fused != 33 or per_step != 33 or ops.count("conv2d_bn_fused_grad") != 33:
+        raise SystemExit(f"fuse pass: {fused} chains, {per_step} fused ops; expected 33")
     feed = _resnet_feed(torch, np.random.RandomState(SEED), RESNET_BATCH, "cuda")
     scope = pt.Scope()
-    exe = pt.Executor()
     with pt.scope_guard(scope):
         t0 = time.perf_counter()
-        exe.run(startup)
+        pt.Executor().run(startup)
         torch.cuda.synchronize()
         startup_s = time.perf_counter() - t0
         state = [n for n, v in main_prog.global_block().vars.items() if v.persistable]
         init = {n: scope.find_var(n).clone() for n in state}
         n_params = sum(scope.find_var(p.name).numel() for p, _ in params_grads)
-        torch.cuda.reset_peak_memory_stats()
-        conv_bn.fused_conv1x1_bn_fwd.launches = 0
-        losses, step_s = [], []
-        for _ in range(RESNET_STEPS):
-            t0 = time.perf_counter()
-            losses.append(float(exe.run(main_prog, feed=feed, fetch_list=[loss])[0][0]))
-            step_s.append(time.perf_counter() - t0)
-        launches = {"fused_conv1x1_bn_fwd": conv_bn.fused_conv1x1_bn_fwd.launches}
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del scope
-    torch.cuda.empty_cache()
-    expected = {"fused_conv1x1_bn_fwd": per_step * RESNET_STEPS}
-    warm = sorted(step_s[1:])
-    step_ms = warm[len(warm) // 2] * 1e3
+    counters = (conv_bn.fused_conv1x1_bn_fwd, multi_tensor.multi_tensor_update)
+    paths, across = _train_both_paths(torch, pt, main_prog, feed, loss, init, RESNET_STEPS,
+                                      counters)
+    expected = {"executor": {"fused_conv1x1_bn_fwd": per_step * RESNET_STEPS,
+                             "multi_tensor_update": RESNET_STEPS},
+                "reference": {"fused_conv1x1_bn_fwd": 2 * per_step * RESNET_STEPS,
+                              "multi_tensor_update": 0}}
+    new = paths["executor"]
     emit("resnet_train_path",
          model=f"resnet50 NHWC space-to-depth stem bf16 B{RESNET_BATCH} 224x224 1000 classes "
                f"Momentum(0.1, 0.9), {fused} conv+bn chains fused",
-         params=n_params, startup_s=startup_s, losses=losses,
-         step_ms=[t * 1e3 for t in step_s], step_ms_median_warm=step_ms,
-         images_per_s=RESNET_BATCH / (step_ms / 1e3), peak_memory_gb=peak_gb,
-         launches=launches, expected_launches=expected,
-         launches_per_step={k: v / RESNET_STEPS for k, v in launches.items()})
-    if launches != expected:
-        raise SystemExit(f"ResNet training launches {launches}, expected {expected}")
+         params=n_params, startup_s=startup_s,
+         momentum_ops=ops.count("momentum"), paths=paths, expected_launches=expected,
+         across_paths=across, loss_rel_limit=RESNET_LOSS_REL,
+         update_rel_l1_limit=RESNET_UPDATE_REL,
+         images_per_s=RESNET_BATCH / (new["step_ms_median_warm"] / 1e3))
+    for path, want in expected.items():
+        if paths[path]["launches"] != want:
+            raise SystemExit(f"ResNet training launches on the {path} path "
+                             f"{paths[path]['launches']}, expected {want}")
+    losses = new["losses"]
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise SystemExit(f"ResNet training loss is not finite and falling: {losses}")
+    g = across["executor_vs_reference"]
+    if not (g["step1_loss_equal"] and g["loss_rel_gap"] <= RESNET_LOSS_REL):
+        raise SystemExit(f"ResNet training: the executor's path and the eager reference "
+                         f"path part: {g}")
+    launches, step_ms = new["launches"], new["step_ms_median_warm"]
 
     # step 1 from the same weights: the bf16 program (loss gaps held, update gaps
     # printed) and its f32 build (both held), each against the unfused program on
@@ -992,7 +1171,133 @@ def phase_resnet_train(torch, main_prog, startup, loss, params_grads, fused):
                 held = held and g["update_rel_l1_gap"] <= RESNET_UPDATE_REL
             if not held:
                 raise SystemExit(f"ResNet step 1 ({dt}) {name}: gaps {g} exceed the limits")
-    return launches, step_ms
+    return launches, step_ms, paths
+
+
+def _update_inputs(torch, program, kind, gen):
+    """Random inputs on the card for every ``kind`` op of ``program``, at its
+    parameters' shapes and dtypes (grads in the parameter's dtype, state in
+    f32), with the program's attrs."""
+    from paddle_tpu_torch.core.registry import torch_dtype
+    blk = program.global_block()
+    ops = [op for op in blk.ops if op.type == kind]
+    lr = torch.full((1,), 1e-4 if kind == "adam" else 0.1, device="cuda")
+    ins_list = []
+    for op in ops:
+        pv = blk.var(op.input("Param")[0])
+        dt, shape = torch_dtype(pv.dtype), tuple(pv.shape)
+        rnd = lambda scale: torch.randn(shape, generator=gen, device="cuda") * scale
+        ins = {"Param": [rnd(0.05).to(dt)], "Grad": [rnd(1e-3).to(dt)], "LearningRate": [lr]}
+        if kind == "adam":
+            ins.update(Moment1=[rnd(1e-3)], Moment2=[rnd(1e-3).square()],
+                       Beta1Pow=[torch.full((1,), 0.9 ** 3, device="cuda")],
+                       Beta2Pow=[torch.full((1,), 0.999 ** 3, device="cuda")])
+        else:
+            ins["Velocity"] = [rnd(1e-3)]
+        ins_list.append(ins)
+    return dict(ops[0].attrs), ins_list
+
+
+def _wall_ms(torch, fn, runs=5):
+    """Median host time of one synchronised call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_multi_tensor(torch, programs):
+    """multi_tensor_update over each model's parameter list against the
+    per-op lowerings on the card (bit for bit), with times, the bound and
+    PyTorch's fused optimizers as yardsticks."""
+    from paddle_tpu_torch.ops.multi_tensor import multi_tensor_update, update_plain
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 7)
+    results = []
+    for model, program, kind in programs:
+        attrs, ins_list = _update_inputs(torch, program, kind, gen)
+        outs = multi_tensor_update(kind, attrs, ins_list)
+        again = multi_tensor_update(kind, attrs, ins_list)
+        ref = update_plain(kind, attrs, ins_list)
+        torch.cuda.synchronize()
+        exact, ulp, err, finite = True, 0, 0.0, True
+        for out, out2, r in zip(outs, again, ref):
+            for slot in r:
+                a, a2, b = out[slot][0], out2[slot][0], r[slot][0]
+                same = a.dtype == b.dtype and torch.equal(a, b) and torch.equal(a, a2)
+                exact &= same
+                finite &= bool(torch.isfinite(a).all())
+                if not same:
+                    ulp = max(ulp, _max_ulp(torch, a, b))
+                    err = max(err, (a.float() - b.float()).abs().max().item())
+        del outs, again, ref
+        # device times from the profiler: the host work of a call (the work table
+        # for ~200 tensors, ~2,000 launches for the per-op path) outlasts any
+        # queue of sleep a CUDA-event window could put before it
+        launches = _launch_times(torch, lambda: multi_tensor_update(kind, attrs, ins_list), 5)
+        ms = sum(x["ms_per_launch"] * x["launches_per_call"] for x in launches
+                 if "multi_tensor_kernel" in x["kernel"])
+        table_copy_ms = sum(x["ms_per_launch"] * x["launches_per_call"] for x in launches
+                            if "Memcpy" in x["kernel"])
+        plain = _breakdown("update_plain", None, _launch_times(
+            torch, lambda: update_plain(kind, attrs, ins_list), 3))
+        plain_ms, plain_launches = plain["device_ms_per_call"], plain["launches_per_call"]
+        wall_ms = _wall_ms(torch, lambda: multi_tensor_update(kind, attrs, ins_list))
+        plain_wall_ms = _wall_ms(torch, lambda: update_plain(kind, attrs, ins_list))
+        # bytes: read p, g and the state, write p and the state (the scalars are noise)
+        state = 2 if kind == "adam" else 1
+        nbytes = sum(ins["Param"][0].numel() * (2 * ins["Param"][0].element_size()
+                                                + ins["Grad"][0].element_size() + 8 * state)
+                     for ins in ins_list)
+        n = sum(ins["Param"][0].numel() for ins in ins_list)
+        # yardstick: PyTorch's fused optimizer on f32 copies (its kernel takes one dtype
+        # for a parameter and its state); Paddle's Adam adds eps to sqrt(v) after the
+        # bias correction folds into lr, so the bits differ from PyTorch's anyway
+        ps, gs, ms_, vs = ([ins[k][0].float().clone() for ins in ins_list]
+                           for k in ("Param", "Grad", "Moment1" if kind == "adam" else "Velocity",
+                                     "Moment2" if kind == "adam" else "Velocity"))
+        library, library_ms, library_error = None, None, None
+        try:
+            if kind == "adam":
+                library = "torch._fused_adam_ (f32 copies)"
+                steps = [torch.ones((), device="cuda") for _ in ps]
+                fn = lambda: torch._fused_adam_(ps, gs, ms_, vs, [], steps, lr=1e-4,
+                                                beta1=attrs["beta1"], beta2=attrs["beta2"],
+                                                weight_decay=0.0, eps=attrs["epsilon"],
+                                                amsgrad=False, maximize=False)
+            else:
+                library = "torch._fused_sgd_ (f32 copies)"
+                fn = lambda: torch._fused_sgd_(ps, gs, ms_, weight_decay=0.0,
+                                               momentum=attrs["mu"], lr=0.1, dampening=0.0,
+                                               nesterov=bool(attrs["use_nesterov"]),
+                                               maximize=False, is_first_step=False)
+            library_ms = _breakdown(library, None, _launch_times(torch, fn, 5))[
+                "device_ms_per_call"]
+        except (RuntimeError, TypeError) as e:      # a yardstick only: record why
+            library_error = f"{type(e).__name__}: {e}"[:200]
+        del ps, gs, ms_, vs
+        r = dict(model=model, kind=kind, attrs=attrs, tensors=len(ins_list), elements=n,
+                 param_dtypes=sorted({str(ins["Param"][0].dtype)[6:] for ins in ins_list}),
+                 bit_exact=exact, max_ulp=ulp, max_abs_err=err, ok=exact and finite and ms > 0,
+                 ms=ms, table_copy_ms=table_copy_ms, plain_ms=plain_ms,
+                 plain_launches_per_call=plain_launches, wall_ms=wall_ms,
+                 plain_wall_ms=plain_wall_ms,
+                 bytes=nbytes,
+                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                 library=library, library_ms=library_ms, library_error=library_error)
+        emit("kernel_vs_plain", kernel="multi_tensor_update", **r)
+        results.append(r)
+        del ins_list
+        torch.cuda.empty_cache()
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise SystemExit(f"multi_tensor_update is not bit-exact to the per-op lowerings: {bad}")
+    return results
 
 
 def phase_main_path(torch, workdir):
@@ -1034,6 +1339,8 @@ def phase_main_path(torch, workdir):
     if launches["flash_attn_fwd"] != expected:
         raise SystemExit(f"flash_attn_fwd launched {launches['flash_attn_fwd']} times on "
                          f"the main path, expected {expected}")
+    modes = phase_serving_modes(torch, "serving", model_dir, pred, requests, outs, lat,
+                                "flash_attn_fwd", "flash_fwd_bf16_kernel")
 
     # references for the first request: the plain attention on the card, and
     # the whole plain path on the CPU
@@ -1066,7 +1373,7 @@ def phase_main_path(torch, workdir):
         g = gaps[name]
         if not (g["max_abs"] <= E2E_MAX_ABS and g["mean_abs"] <= E2E_MEAN_ABS):
             raise SystemExit(f"main path output: {name} gap {g} exceeds the limits")
-    return launches
+    return launches, modes
 
 
 def main() -> int:
@@ -1084,7 +1391,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 comparisons in full f32
     torch.backends.cudnn.allow_tf32 = False
 
-    from paddle_tpu_torch.tools.train_profile import build_resnet50
+    from paddle_tpu_torch.models.bert import BertConfig
+    from paddle_tpu_torch.tools.train_profile import (LR, MASKS_PER_SEQ, SEQ, build_pretrain,
+                                                      build_resnet50)
 
     t_start = time.perf_counter()
     smi = phase_device(torch)
@@ -1096,17 +1405,23 @@ def main() -> int:
     cres = phase_conv_bn_kernels(torch, resnet_fused_shapes(resnet[0], RESNET_BATCH))
     ires = phase_int8_kernels(torch)
     phase_gemm_launch_breakdown(torch)
+    bert_prog = build_pretrain(BertConfig(dtype="bfloat16", dropout=ATTN_DROPOUT), 2, SEQ,
+                               MASKS_PER_SEQ, LR, SEED)[0]
+    mres = phase_multi_tensor(torch, [("bert-base", bert_prog, "adam"),
+                                      ("resnet50", resnet[0], "momentum")])
+    del bert_prog
     scratch = os.path.join(REPO, "build")      # git-ignored
     os.makedirs(scratch, exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
     try:
-        serve_launches = phase_main_path(torch, workdir)
-        int8_launches = phase_int8_path(torch, workdir)
+        serve_launches, _ = phase_main_path(torch, workdir)
+        int8_launches, _ = phase_int8_path(torch, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    train_launches, step_ms = phase_train_path(torch)
     torch.cuda.empty_cache()
-    resnet_launches, resnet_step_ms = phase_resnet_train(torch, *resnet)
+    train_launches, step_ms, train_paths = phase_train_path(torch)
+    torch.cuda.empty_cache()
+    resnet_launches, resnet_step_ms, resnet_paths = phase_resnet_train(torch, *resnet)
 
     serve_case = next(r for r in kres if r["dtype"] == "bfloat16" and r["shape"][2] == 512
                       and r["bias"] and not r["causal"])
@@ -1118,6 +1433,7 @@ def main() -> int:
     conv_case = next(r for r in cres if r["shape"] == [401408, 64, 256])
     conv_path = [r for r in cres if r["launches_per_forward_pass"]]
     int8_case = next(r for r in ires if r["shape"] == [4096, 768, 3072])
+    mt_bert, mt_res = mres
     no_library = ("no single PyTorch call computes this function; matmul_ms is a bf16 "
                   "torch.matmul of the same shape, for context")
     print(smi.splitlines()[0] if smi else "nvidia-smi printed nothing", flush=True)
@@ -1162,8 +1478,27 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in ires),
          **{k: int8_case[k] for k in keys}, "matmul_ms": int8_case["matmul_ms"],
          "library_note": no_library,
-         "shape": "M 4096 K 768 N 3072 bf16 activations (ffn1 at 8 x 512 tokens)"}],
+         "shape": "M 4096 K 768 N 3072 bf16 activations (ffn1 at 8 x 512 tokens)"},
+        {"name": "multi_tensor_update", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/multi_tensor_update.cu",
+         "replaces": "paddle_tpu/compiler.py:94",
+         "replaces_note": ("no Pallas kernel: fuse_all_optimizer_ops, under which XLA "
+                           "updates every parameter inside the one compiled step"),
+         "launches": (train_launches["multi_tensor_update"]
+                      + resnet_launches["multi_tensor_update"]),
+         "launches_by_path": {"training": train_launches["multi_tensor_update"],
+                              "resnet50_training": resnet_launches["multi_tensor_update"]},
+         "max_abs_err": max(r["max_abs_err"] for r in mres),
+         **{k: mt_bert[k] for k in keys}, "library": mt_bert["library"],
+         "shape": (f"BERT-base's {mt_bert['tensors']} Adam parameters, "
+                   f"{mt_bert['elements']} elements, bf16 and f32, f32 moments"),
+         "resnet50": {**{k: mt_res[k] for k in keys}, "library": mt_res["library"],
+                      "shape": (f"ResNet-50's {mt_res['tensors']} Momentum parameters, "
+                                f"{mt_res['elements']} elements, bf16, f32 velocity")}}],
         "train_step_ms": step_ms, "resnet_step_ms": resnet_step_ms,
+        "reference_path_step_ms": {
+            "training": train_paths["reference"]["step_ms_median_warm"],
+            "resnet50_training": resnet_paths["reference"]["step_ms_median_warm"]},
         "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -17,16 +17,31 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Callable, Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
+#: the kernels, one ``csrc/<name>.cu`` each
+SOURCES = ("conv1x1_bn", "flash_attn_bwd", "flash_attn_fwd", "int8_matmul",
+           "multi_tensor_update")
+#: the kernel wrappers (``counted``); a CUDA-graph replay adds what its
+#: capture launched to each one's ``launches``
+COUNTED: List[Callable] = []
+
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 #: nvcc's output (ptxas register/spill report) of the builds this process ran
 build_logs: Dict[str, str] = {}
+
+
+def counted(fn: Callable) -> Callable:
+    """Register kernel wrapper ``fn``: it adds one to ``fn.launches`` (from 0)
+    where it launches its kernel, and nowhere else."""
+    fn.launches = 0
+    COUNTED.append(fn)
+    return fn
 
 
 def _nvcc() -> str:

@@ -2,12 +2,22 @@
 
 The port's counterpart of ``paddle_tpu/core/executor.py``. The JAX package
 traces a whole Program into one jitted XLA step; the port runs each op's
-lowering eagerly, in program order, on the executor's device. A training
-program's grad and optimizer ops are ops like any other. No jit, megastep,
-warm store or telemetry yet.
+lowering eagerly, in program order, on the executor's device, with the
+counterparts of two things XLA does to that step:
+
+- a forward op whose generic grad op is in the same block runs once, under
+  autograd, and its grad op differentiates the kept graph (XLA's CSE of the
+  grad op's ``jax.vjp`` recompute; ``registry.lower_keeping_graph``);
+- each run of consecutive ``adam`` (or ``momentum``) ops with equal attrs is
+  one multi-tensor update (``fuse_all_optimizer_ops``;
+  ``ops/multi_tensor.py``).
+
+No jit, megastep, warm store or telemetry yet.
 
 The device is explicit: ``Executor()`` runs on ``cuda`` and raises when there
-is no card. Pass ``CPUPlace()`` (or ``"cpu"``) to run on the CPU.
+is no card. Pass ``CPUPlace()`` (or ``"cpu"``) to run on the CPU. On the
+card, float32 matmuls and convolutions run in full float32, not TF32
+(``resolve_device``).
 """
 from __future__ import annotations
 
@@ -19,6 +29,7 @@ import numpy as np
 import torch
 
 from ..framework import Block, Program, Variable, default_main_program
+from ..ops import multi_tensor
 from . import registry
 from .registry import EMPTY_VAR, LowerCtx, stable_salt
 
@@ -36,7 +47,12 @@ class CUDAPlace:
 
 def resolve_device(place=None) -> torch.device:
     """Place / device spec -> torch.device. ``None`` means the card (``cuda``);
-    with no card that raises instead of running on the CPU."""
+    with no card that raises instead of running on the CPU.
+
+    On the card it also pins float32 precision: cuBLAS and cuDNN compute
+    float32 products and convolutions in full float32 (TF32 off for both;
+    cuDNN's own default is TF32), as the JAX package computes them on the
+    CPU. The flags are PyTorch's process-wide ones."""
     if isinstance(place, CPUPlace):
         return torch.device("cpu")
     if isinstance(place, CUDAPlace):
@@ -49,6 +65,9 @@ def resolve_device(place=None) -> torch.device:
         raise RuntimeError(
             f"device {dev} requested (the default) but torch sees no CUDA "
             f"device; pass CPUPlace() or device='cpu' to run on the CPU")
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     return dev
 
 
@@ -141,55 +160,111 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def _op_inputs(op, env) -> Dict[str, List[Any]]:
+    ins: Dict[str, List[Any]] = {}
+    for slot, names in op.inputs.items():
+        vals = []
+        for n in names:
+            if n == EMPTY_VAR:
+                vals.append(None)
+            elif n in env:
+                vals.append(env[n])
+            else:
+                raise KeyError(
+                    f"op {op.type!r}: input variable {n!r} has no value. "
+                    f"Feed it, or run the startup program to initialize it.")
+        ins[slot] = vals
+    return ins
+
+
+def _store(op, outs, env):
+    for slot, names in op.outputs.items():
+        vals = outs.get(slot, [])
+        for i, n in enumerate(names):
+            if n == EMPTY_VAR or i >= len(vals) or vals[i] is None:
+                continue
+            env[n] = vals[i]
+
+
+def _lowering_failed(op, e):
+    stack = op.creation_stack_str()
+    where = f"\nop created at (most recent call last):\n{stack}" if stack else ""
+    return RuntimeError(f"lowering failed for op {op!r}: {e}{where}")
+
+
 def trace_block(block: Block, env: Dict[str, Any], device, seed: int = 0,
-                counter: int = 0):
+                counter: int = 0, *, reuse_forward: bool = True,
+                group_updates: bool = True):
     """Run the ops of ``block`` over ``env`` (name -> tensor), in order, with
     new tensors made on ``device``.
 
     The single place op lowerings are invoked with real tensors (shape
     inference calls them on meta tensors). ``seed``/``counter`` key each op's
     generator together with its salt, as the JAX package folds its step key.
+
+    ``reuse_forward``: a forward op whose generic grad op is in the block
+    keeps its autograd graph in a table for this run (``LowerCtx.graphs``,
+    emptied when the run ends, however it ends) and its grad op
+    differentiates it.
+    ``group_updates``: each maximal run of consecutive update ops of one
+    kind with equal attrs is one multi-tensor update. Either False gives
+    the eager reference path (the grad op recomputes its forward; one
+    update op at a time), which the tests and ``chip_smoke.py`` compare
+    against.
     """
     device = torch.device(device)
-    for op in block.ops:
-        d = registry.get(op.type)
-        ins: Dict[str, List[Any]] = {}
-        for slot, names in op.inputs.items():
-            vals = []
-            for n in names:
-                if n == EMPTY_VAR:
-                    vals.append(None)
-                elif n in env:
-                    vals.append(env[n])
+    ops = block.ops
+    keep = registry.forwards_with_grads(ops) if reuse_forward else frozenset()
+    graphs: Dict[str, Any] = {}
+    try:
+        i = 0
+        while i < len(ops):
+            op = ops[i]
+            if group_updates and op.type in multi_tensor.GROUPED:
+                end = multi_tensor.run_end(ops, i)
+                ins_list = [_op_inputs(o, env) for o in ops[i:end]]
+                try:
+                    outs = multi_tensor.update(op.type, op.attrs, ins_list)
+                except NotImplementedError:
+                    raise
+                except Exception as e:
+                    raise _lowering_failed(op, e) from e
+                for o, out in zip(ops[i:end], outs):
+                    _store(o, out, env)
+                i = end
+                continue
+            d = registry.get(op.type)
+            ins = _op_inputs(op, env)
+            # a grad op takes its forward op's salt, so the forward's recompute
+            # inside it draws the forward's dropout masks
+            out0 = registry.first_output(op)
+            salt_name = op.attr("__fwd_out0__") or next(
+                (ns[0] for ns in op.outputs.values() if ns and ns[0] != EMPTY_VAR), op.type)
+            ctx = LowerCtx(op.attrs, device, seed, counter, stable_salt(salt_name),
+                           graphs=graphs)
+            try:
+                if (op.type, out0) in keep:
+                    outs = registry.lower_keeping_graph(d, ctx, ins, out0)
                 else:
-                    raise KeyError(
-                        f"op {op.type!r}: input variable {n!r} has no value. "
-                        f"Feed it, or run the startup program to initialize it.")
-            ins[slot] = vals
-        # a grad op takes its forward op's salt, so the forward's recompute
-        # inside it draws the forward's dropout masks
-        salt_name = op.attr("__fwd_out0__") or next(
-            (ns[0] for ns in op.outputs.values() if ns and ns[0] != EMPTY_VAR), op.type)
-        ctx = LowerCtx(op.attrs, device, seed, counter, stable_salt(salt_name))
-        try:
-            outs = d.lower(ctx, ins)
-        except NotImplementedError:
-            raise
-        except Exception as e:
-            stack = op.creation_stack_str()
-            where = f"\nop created at (most recent call last):\n{stack}" if stack else ""
-            raise RuntimeError(f"lowering failed for op {op!r}: {e}{where}") from e
-        for slot, names in op.outputs.items():
-            vals = outs.get(slot, [])
-            for i, n in enumerate(names):
-                if n == EMPTY_VAR or i >= len(vals) or vals[i] is None:
-                    continue
-                env[n] = vals[i]
+                    outs = d.lower(ctx, ins)
+            except NotImplementedError:
+                raise
+            except Exception as e:
+                raise _lowering_failed(op, e) from e
+            _store(op, outs, env)
+            i += 1
+    finally:
+        graphs.clear()
     return env
 
 
 class Executor:
     """Runs Programs eagerly on one device (``place`` None = the card)."""
+
+    # False selects the eager reference path (each grad op recomputes its
+    # forward; one update op at a time) that tests and chip_smoke.py compare with
+    _reuse_forward = True
+    _group_updates = True
 
     def __init__(self, place=None):
         self.place = place
@@ -243,16 +318,20 @@ class Executor:
         program._rng_run_counter = counter + 1
         seed = program.random_seed if program.random_seed is not None else 0
         with torch.no_grad():
-            trace_block(program.global_block(), env, self.device, seed, counter)
+            trace_block(program.global_block(), env, self.device, seed, counter,
+                        reuse_forward=self._reuse_forward,
+                        group_updates=self._group_updates)
+        # detached, so that no kept forward graph outlives the run through the
+        # scope (a batch norm's MeanOut made under autograd) or a fetch
         for n in state_out:
             if n in env:
-                scope.set_var(n, env[n])
+                scope.set_var(n, env[n].detach())
         fetches = []
         for n in fetch_names:
             if n not in env:
                 raise KeyError(f"fetch variable {n!r} was not produced by the "
                                f"program and is not in the feed/scope")
-            fetches.append(env[n])
+            fetches.append(env[n].detach())
         if return_numpy:
             return [to_numpy(f) for f in fetches]
         return fetches

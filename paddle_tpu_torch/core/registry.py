@@ -12,11 +12,17 @@ between the runs. A lowering therefore makes every new tensor on
 ``ctx.device`` and never reads values (no ``.item()``, no numpy).
 
 Grad ops are derived from the forward lowering, as in the JAX package: every
-differentiable op type T has a generic ``T_grad`` whose lowering reruns T's
-lowering on copies of its float inputs that require grad, and takes
-``torch.autograd.grad`` of the outputs against the cotangents. The forward
-op therefore runs twice in a training step (PyTorch runs eagerly; there is
-no jit to merge the recompute with the forward). An op declares itself
+differentiable op type T has a generic ``T_grad`` whose lowering takes
+``torch.autograd.grad`` of T's outputs against the cotangents. In the JAX
+package the grad op recomputes T under ``jax.vjp`` and XLA's CSE merges the
+recompute with the forward. The port's counterpart: the executor runs a
+forward op whose generic grad op is in the same block under autograd
+(``lower_keeping_graph``) and keeps its graph in a per-run table keyed by
+the op's first output name; the grad op takes that graph when every forward
+input it reads is the very tensor the forward consumed (or, for a running
+state such as a batch norm's Mean, what the forward wrote back to it), and
+otherwise reruns T's lowering on ``detach().requires_grad_()`` copies of its float
+inputs, as the reference's semantics say. An op declares itself
 non-differentiable with ``grad=None``; ``nondiff_inputs`` /
 ``nondiff_outputs`` name the slots that carry no gradient. Second-order
 grads (a ``T_grad_grad``) are not ported.
@@ -67,16 +73,20 @@ class LowerCtx:
     its grad op draws the same mask. ``rng(offset)`` is a ``torch.Generator``
     on ``device`` seeded with it. Under shape inference (``abstract``) there
     are no numbers to draw: ``rng`` returns None and ``seed_int`` 0.
+    ``graphs`` is the run's table of kept forward graphs, which a generic
+    grad op reads.
     """
 
     def __init__(self, attrs: dict, device=None, seed: int = 0, counter: int = 0,
-                 salt: int = 0, abstract: bool = False):
+                 salt: int = 0, abstract: bool = False, graphs: Optional[dict] = None):
         self.attrs = attrs
         self.device = torch.device(device if device is not None else "cpu")
         self.seed = seed
         self.counter = counter
         self._salt = salt
         self.abstract = abstract
+        #: the run's kept forward graphs (``lower_keeping_graph``), or None
+        self.graphs = graphs
 
     def attr(self, name, default=None):
         return self.attrs.get(name, default)
@@ -107,20 +117,24 @@ def stable_salt(name: str) -> int:
 class OpDef:
     def __init__(self, type: str, lower: Callable, infer_shape: Optional[Callable] = None,
                  grad: Any = "auto", nondiff_inputs: Sequence[str] = (),
-                 nondiff_outputs: Sequence[str] = ()):
+                 nondiff_outputs: Sequence[str] = (), state_inputs: Sequence[str] = ()):
         self.type = type
         self.lower = lower
         self.custom_infer_shape = infer_shape
         self.grad = grad  # "auto" | None (non-differentiable) | callable custom maker
         self.nondiff_inputs = frozenset(nondiff_inputs)
         self.nondiff_outputs = frozenset(nondiff_outputs)
+        # running state the op reads and writes back under the same names (a
+        # batch norm's Mean / Variance): its differentiable outputs do not
+        # read it in train mode, and in test mode it is written back unchanged
+        self.state_inputs = frozenset(state_inputs)
 
 
 _REGISTRY: Dict[str, OpDef] = {}
 
 
 def register(type: str, *, grad="auto", nondiff_inputs=(), nondiff_outputs=(),
-             infer_shape=None):
+             infer_shape=None, state_inputs=()):
     """Decorator: register ``fn(ctx, ins) -> outs`` as the lowering for ``type``
     (``infer_shape(op, block)`` replaces the meta-tensor inference)."""
 
@@ -128,7 +142,7 @@ def register(type: str, *, grad="auto", nondiff_inputs=(), nondiff_outputs=(),
         if type in _REGISTRY:
             raise ValueError(f"op type {type!r} already registered")
         _REGISTRY[type] = OpDef(type, fn, infer_shape, grad, nondiff_inputs,
-                                nondiff_outputs)
+                                nondiff_outputs, state_inputs)
         return fn
 
     return deco
@@ -186,6 +200,87 @@ def _is_float(x) -> bool:
     return isinstance(x, torch.Tensor) and x.dtype.is_floating_point
 
 
+def generic_grad_forward(type: str) -> Optional[str]:
+    """The forward op type whose generic grad op ``type`` is, or None (not a
+    grad op, or a grad op type registered with its own lowering)."""
+    if type in _REGISTRY or not type.endswith("_grad"):
+        return None
+    fwd = _REGISTRY.get(type[:-5])
+    return fwd.type if fwd is not None and fwd.grad == "auto" else None
+
+
+def first_output(op: Operator) -> str:
+    """The name a grad op carries as ``__fwd_out0__``: its forward op's
+    first output, which also salts both ops' random draws."""
+    return next((ns[0] for ns in op.outputs.values() if ns), "")
+
+
+def forwards_with_grads(ops: Sequence[Operator]) -> frozenset:
+    """(forward type, first output) of each forward op whose generic grad op
+    is among ``ops``: the ops whose graphs a run keeps."""
+    return frozenset((f, op.attr("__fwd_out0__")) for op in ops
+                     if (f := generic_grad_forward(op.type)) is not None)
+
+
+def _differentiable(fwd: OpDef, ins, slots):
+    """``ins`` with each float input of a differentiable slot replaced by a
+    ``detach().requires_grad_()`` view (same storage and strides, so a
+    kernel wrapper can hand its ``data_ptr()`` to CUDA). Returns (inputs,
+    [(slot, index)], views)."""
+    full = {s: list(ins[s]) for s in slots}
+    diff_keys, primals = [], []
+    for s in slots:
+        if s in fwd.nondiff_inputs:
+            continue
+        for i, v in enumerate(ins[s]):
+            if _is_float(v):
+                p = v.detach().requires_grad_()
+                full[s][i] = p
+                diff_keys.append((s, i))
+                primals.append(p)
+    return full, diff_keys, primals
+
+
+class _ForwardGraph:
+    """A forward op's outputs with their autograd graph, kept for its grad op."""
+    __slots__ = ("type", "attrs", "ins", "diff_keys", "primals", "outs")
+
+    def __init__(self, type, attrs, ins, diff_keys, primals, outs):
+        self.type, self.attrs, self.ins = type, attrs, ins
+        self.diff_keys, self.primals, self.outs = diff_keys, primals, outs
+
+    def serves(self, fwd: OpDef, attrs: dict, ins, slots) -> bool:
+        """The identity guard: the same op type and attrs, over the very
+        tensors the forward consumed, so autograd over this graph is what a
+        recompute would give (XLA's CSE merges only equal inputs too). A
+        state input may instead hold what the forward op itself wrote back
+        to it: a recompute from that gives the same differentiable outputs."""
+        if self.type != fwd.type or self.attrs != attrs or sorted(self.ins) != list(slots):
+            return False
+        own = [o for vs in self.outs.values() for o in vs if o is not None]
+        for s in slots:
+            if len(self.ins[s]) != len(ins[s]):
+                return False
+            for a, b in zip(self.ins[s], ins[s]):
+                if a is not b and not (s in fwd.state_inputs and any(b is o for o in own)):
+                    return False
+        return True
+
+
+def lower_keeping_graph(d: OpDef, ctx: LowerCtx, ins, key: str):
+    """Run forward op ``d`` under autograd, on ``detach().requires_grad_()``
+    views of its float inputs, and keep its graph in ``ctx.graphs[key]``
+    for its generic grad op. The views cut the graph at the op's inputs, so
+    the graphs of different ops never chain."""
+    slots = sorted(ins)
+    full, diff_keys, primals = _differentiable(d, ins, slots)
+    with torch.enable_grad():
+        outs = d.lower(ctx, full)
+    ctx.graphs[key] = _ForwardGraph(d.type, ctx.attrs, {s: list(ins[s]) for s in slots},
+                                    diff_keys, primals, outs)
+    return outs
+
+
 def _generic_grad_lower(fwd: OpDef, ctx, ins):
     """Compute input grads of ``fwd`` by autograd through its lowering.
 
@@ -195,9 +290,11 @@ def _generic_grad_lower(fwd: OpDef, ctx, ins):
     (None via @EMPTY@) counts as zeros; an input the outputs do not depend
     on gets a zero grad.
 
-    The differentiated inputs are ``detach().requires_grad_()`` views of the
-    float inputs: they keep their storage and strides, so a kernel wrapper
-    inside the lowering can hand their ``data_ptr()`` to CUDA.
+    The graph comes from the run's table when the executor kept the
+    forward's (``lower_keeping_graph``) and it serves these inputs; the
+    entry is taken either way, so a second grad op of the same forward
+    recomputes. Otherwise the forward lowering reruns here, with the
+    forward's salt, so it draws the forward's random masks.
     """
     fwd_out_slots = set(ctx.attr("__fwd_out_slots__", []))
 
@@ -207,26 +304,20 @@ def _generic_grad_lower(fwd: OpDef, ctx, ins):
     fwd_in_slots = sorted(s for s in ins if s not in fwd_out_slots and not _is_cot(s))
     grad_by_slot = {s[:-5]: ins[s] for s in ins if _is_cot(s)}
 
-    full = {s: list(ins[s]) for s in fwd_in_slots}
-    diff_keys, primals = [], []
-    for s in fwd_in_slots:
-        if s in fwd.nondiff_inputs:
-            continue
-        for i, v in enumerate(ins[s]):
-            if _is_float(v):
-                p = v.detach().requires_grad_()
-                full[s][i] = p
-                diff_keys.append((s, i))
-                primals.append(p)
-
     fwd_attrs = ctx.attr("__fwd_attrs__", None)
     if fwd_attrs is None:
         fwd_attrs = {k: v for k, v in ctx.attrs.items() if not k.startswith("__fwd_")}
-    fwd_ctx = LowerCtx(fwd_attrs, ctx.device, ctx.seed, ctx.counter, ctx._salt,
-                       ctx.abstract)
-
-    with torch.enable_grad():
-        outs = fwd.lower(fwd_ctx, full)
+    kept = (ctx.graphs.pop(ctx.attr("__fwd_out0__"), None)
+            if ctx.graphs is not None else None)
+    if kept is not None and kept.serves(fwd, fwd_attrs, ins, fwd_in_slots):
+        diff_keys, primals, outs = kept.diff_keys, kept.primals, kept.outs
+    else:
+        full, diff_keys, primals = _differentiable(fwd, ins, fwd_in_slots)
+        fwd_ctx = LowerCtx(fwd_attrs, ctx.device, ctx.seed, ctx.counter, ctx._salt,
+                           ctx.abstract)
+        with torch.enable_grad():
+            outs = fwd.lower(fwd_ctx, full)
+    del kept
     ys, cots = [], []
     for s, vals in outs.items():
         if s in fwd.nondiff_outputs:
@@ -287,7 +378,7 @@ def make_grad_op_descs(op: Operator, grad_out_map: Dict[str, str]) -> List[dict]
     attrs = dict(op.attrs)
     attrs["__fwd_attrs__"] = dict(op.attrs)
     attrs["__fwd_out_slots__"] = sorted(op.outputs)
-    attrs["__fwd_out0__"] = next((ns[0] for ns in op.outputs.values() if ns), "")
+    attrs["__fwd_out0__"] = first_output(op)
     return [{"type": op.type + "_grad", "inputs": inputs, "outputs": outputs,
              "attrs": attrs}]
 

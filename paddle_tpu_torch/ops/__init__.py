@@ -12,3 +12,4 @@ from . import flash_attention  # noqa: F401
 from . import conv_bn          # noqa: F401
 from . import metrics_ops      # noqa: F401
 from . import optimizer_ops    # noqa: F401
+from . import multi_tensor     # noqa: F401

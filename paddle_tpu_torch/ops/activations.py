@@ -14,11 +14,13 @@ def gelu(ctx, x):
     """GELU written out as ``jax.nn.gelu`` computes it, one op at a time in
     x's dtype: in bf16 each step rounds, and ``F.gelu`` (one rounding) would
     differ from the JAX package in about half the elements by one bf16 ulp.
-    approximate=True is the tanh form (what BERT computes)."""
+    approximate=True is the tanh form (what BERT computes). The constants
+    are filled on the device (``torch.tensor`` would copy them from the
+    host, which a CUDA-graph capture refuses)."""
     if ctx.attr("approximate", False):
-        c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype, device=x.device)
+        c = torch.full((), math.sqrt(2 / math.pi), dtype=x.dtype, device=x.device)
         return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x ** 3)))))
-    sqrt_half = torch.tensor(math.sqrt(0.5), dtype=x.dtype, device=x.device)
+    sqrt_half = torch.full((), math.sqrt(0.5), dtype=x.dtype, device=x.device)
     return 0.5 * x * torch.special.erfc(-x * sqrt_half)
 
 

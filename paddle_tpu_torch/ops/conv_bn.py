@@ -124,6 +124,7 @@ def _launch(device, pointers, *ints):
         raise RuntimeError(f"fused_conv1x1_bn_fwd: kernel launch failed with CUDA error {rc}")
 
 
+@cuda_build.counted
 def fused_conv1x1_bn_fwd(x2, w, mu, var, gamma, beta, eps=1e-5, relu_in=True,
                          apply_in_bn=True):
     """x2 [M, K], w [K, N], mu/var/gamma/beta [K] -> (y [M, N] in x2's
@@ -167,9 +168,6 @@ def _on_card(x2, w, mu, var, gamma, beta, eps, relu_in, apply_in_bn):
             int(aligned), rows)
     fused_conv1x1_bn_fwd.launches += 1
     return y, s, ss
-
-
-fused_conv1x1_bn_fwd.launches = 0
 
 
 def conv1x1_bn_bwd_plain(x2, w, mu, var, gamma, beta, y, dy, ds, dss, eps, relu_in,
@@ -236,6 +234,7 @@ def _infer_shape(op, block):
 
 
 @register("conv2d_bn_fused", nondiff_inputs=("Mean", "Variance"), infer_shape=_infer_shape,
+          state_inputs=("Mean", "Variance"),
           nondiff_outputs=("MeanOut", "VarianceOut", "SavedMean", "SavedVariance"))
 def conv2d_bn_fused(ctx, ins):
     """1x1/s1 NHWC conv + batch_norm (+ relu when ``act="relu"``) in one op,
@@ -268,7 +267,8 @@ def conv2d_bn_fused(ctx, ins):
         ones = torch.ones((C,), dtype=torch.float32, device=x.device)
         args = (x2, w2, zeros, ones, zeros, zeros, float(eps), False, False)
         if torch.is_grad_enabled() and (x2.requires_grad or w2.requires_grad):
-            y2, s, ss = FusedConv1x1BN.apply(*args)   # inside conv2d_bn_fused_grad
+            # kept for conv2d_bn_fused_grad (or its recompute)
+            y2, s, ss = FusedConv1x1BN.apply(*args)
         else:
             y2, s, ss = fused_conv1x1_bn_fwd(*args)
         mean = s / M

@@ -238,6 +238,7 @@ def _launch(name, pointers, q, k, v, bias, scale, causal, dropout, seed, *extra)
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
 
 
+@cuda_build.counted
 def flash_attn_fwd(q, k, v, bias=None, scale=None, causal=False, dropout=0.0, seed=0,
                    return_lse=False):
     """Launch the CUDA flash-attention forward kernel; returns O [B,H,S,D]
@@ -265,9 +266,6 @@ def flash_attn_fwd(q, k, v, bias=None, scale=None, causal=False, dropout=0.0, se
     return (o, lse) if return_lse else o
 
 
-flash_attn_fwd.launches = 0
-
-
 def bwd_variant(S: int, dtype: torch.dtype) -> str:
     """The backward kernels a call runs: ``'fused'`` (bf16, S <=
     ``BWD_FUSED_MAX_S``: one launch per call, one block per (batch, head)
@@ -279,6 +277,7 @@ def bwd_variant(S: int, dtype: torch.dtype) -> str:
     return "fused" if S <= BWD_FUSED_MAX_S else "split"
 
 
+@cuda_build.counted
 def flash_attn_bwd(q, k, v, bias, o, lse, do, scale=None, causal=False, dropout=0.0,
                    seed=0):
     """Launch the CUDA flash-attention backward (the kernels of
@@ -307,9 +306,6 @@ def flash_attn_bwd(q, k, v, bias, o, lse, do, scale=None, causal=False, dropout=
             q, k, v, bias, scale, causal, dropout, seed, BWD_VARIANTS[variant])
     flash_attn_bwd.launches += 1
     return dq, dk, dv
-
-
-flash_attn_bwd.launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
@@ -361,7 +357,8 @@ def fused_attention(ctx, ins):
         return {"Out": [attention_plain(q, k, v, bias, float(scale), causal, float(dropout),
                                         seed)]}
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        # inside the generic fused_attention_grad: the kernels' autograd pair
+        # kept for fused_attention_grad (or its recompute): the kernels'
+        # autograd pair, whose forward launch also writes the LSE
         out = FlashAttention.apply(q, k, v, bias, float(scale), causal, float(dropout), seed)
     else:
         out = flash_attn_fwd(q, k, v, bias, float(scale), causal, float(dropout), seed)

@@ -122,6 +122,7 @@ def _launch(device, pointers, *ints):
         raise RuntimeError(f"int8_matmul: kernel launch failed with CUDA error {rc}")
 
 
+@cuda_build.counted
 def int8_matmul(x2, w8, wscale, return_codes=False):
     """x2 [M, K] f32/bf16, w8 [K, N] int8, wscale [N] -> [M, N] in x2's
     dtype. A CPU tensor takes ``int8_matmul_plain``; a CUDA tensor launches
@@ -156,6 +157,3 @@ def _on_card(x2, w8, wscale, return_codes):
             M, K, N, Kp, _DTYPE_CODES[x2.dtype], vec_x, vec_w, int8_tile(M, N, _sm_count(dev)))
     int8_matmul.launches += 1
     return (out, xs, xq[:, :K]) if return_codes else out
-
-
-int8_matmul.launches = 0

@@ -24,8 +24,9 @@ def matmul(ctx, ins):
     out = torch.matmul(x.to(dt), y.to(dt))
     alpha = ctx.attr("alpha", 1.0)
     if alpha != 1.0:
-        # alpha rounded to the output dtype first, as the JAX package does
-        out = out * torch.tensor(alpha, dtype=out.dtype, device=out.device)
+        # alpha rounded to the output dtype first, as the JAX package does;
+        # filled on the device, with no host copy
+        out = out * torch.full((), alpha, dtype=out.dtype, device=out.device)
     return {"Out": [out]}
 
 

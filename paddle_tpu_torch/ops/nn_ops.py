@@ -84,7 +84,8 @@ def pool2d(ctx, ins):
 
 
 @register("batch_norm", nondiff_inputs=("Mean", "Variance"),
-          nondiff_outputs=("MeanOut", "VarianceOut", "SavedMean", "SavedVariance"))
+          nondiff_outputs=("MeanOut", "VarianceOut", "SavedMean", "SavedVariance"),
+          state_inputs=("Mean", "Variance"))
 def batch_norm(ctx, ins):
     """Train mode: batch statistics over every axis but the channel's, in
     f32, with the JAX package's E[x^2] - E[x]^2 variance; gradients flow

@@ -6,7 +6,9 @@ vars' names, so the executor writes them back to the scope. It computes in
 the master dtype -- the dtype of its moment accumulators (f32) -- by casting
 Param, Grad and LearningRate up front, and casts only ParamOut back to the
 parameter's dtype. Each op is a handful of elementwise PyTorch launches per
-parameter; a multi-tensor update over all parameters is later work.
+parameter. ``trace_block`` runs a run of consecutive update ops as one
+multi-tensor update (``ops/multi_tensor.py``), whose plain version calls
+these lowerings and whose CUDA kernel repeats their arithmetic bit for bit.
 """
 from __future__ import annotations
 

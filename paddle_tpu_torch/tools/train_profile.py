@@ -112,6 +112,7 @@ def resnet_feed(rng, batch):
 
 # device activity name -> kind, by the first pattern it contains
 KINDS = (("conv1x1_bn kernels", ("conv1x1_bn", "column_sums")),
+         ("multi-tensor update", ("multi_tensor_kernel",)),
          ("attention kernels", ("flash_fwd", "bwd_dkdv", "bwd_dq", "delta_f32")),
          ("convolutions (cuDNN)", ("fprop", "dgrad", "wgrad", "cudnn", "convolve",
                                    "implicit_gemm")),

@@ -203,3 +203,79 @@ def test_convert_keeps_widths_and_reads_tagged_bf16():
     scope = pt.Scope()
     convert.load_state(scope, state)
     assert scope.find_var("ids64") is state["ids64"]
+
+
+# ------------------------------------------------------ the executable cache
+
+
+def test_executable_signature_equals_jax(jax_saved):
+    """The cache key is the JAX Predictor's ``_executable`` signature, for the
+    native serving dtype and for an override."""
+    other = "bfloat16" if jax_saved["dtype"] == "float32" else "float32"
+    jax_pred = JaxPredictor(jax_saved["dir"])
+    pred = Predictor(jax_saved["dir"], device="cpu")
+    req = _requests()[0]
+    for dtype in (None, other):
+        jax_pred.run(req, dtype=dtype)
+        pred.run(req, dtype=dtype)
+    assert list(pred._compiled) == list(jax_pred._compiled)
+    assert list(pred._compiled)[1][0] == other
+
+
+def test_executable_cache_hits_and_misses(jax_saved):
+    pred = Predictor(jax_saved["dir"], device="cpu")
+    first, ragged = _requests()
+    outs = [pred.run(first)[0], pred.run(ragged)[0], pred.run(first)[0]]
+    assert pred._cache_counts == {"hit": 2, "miss": 1}
+    np.testing.assert_array_equal(outs[0], outs[2])
+    short = {k: v[:, :64] for k, v in first.items()}          # a new shape
+    assert pred.run(short)[0].shape == (2, 64, 64)
+    pred.run(short)
+    assert pred._cache_counts == {"hit": 3, "miss": 2}
+    pred.run(first, dtype="bfloat16" if jax_saved["dtype"] == "float32" else "float32")
+    assert pred._cache_counts == {"hit": 3, "miss": 3} and len(pred._compiled) == 3
+    # the eager reference path bypasses the cache and gives the same bits
+    pred._use_graphs = False
+    np.testing.assert_array_equal(pred.run(first)[0], outs[0])
+    assert pred._cache_counts == {"hit": 3, "miss": 3}
+
+
+def test_threads_racing_a_new_signature_miss_once(jax_saved):
+    import threading
+    pred = Predictor(jax_saved["dir"], device="cpu")
+    req = _requests()[1]
+    barrier = threading.Barrier(4)
+    outs, errors = [None] * 4, []
+
+    def serve(i):
+        try:
+            barrier.wait()
+            outs[i] = pred.run(req)[0]
+        except Exception as e:   # surfaced by the assert below
+            errors.append(e)
+
+    threads = [threading.Thread(target=serve, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors
+    assert pred._cache_counts == {"hit": 3, "miss": 1} and len(pred._compiled) == 1
+    for o in outs[1:]:
+        np.testing.assert_array_equal(o, outs[0])
+    np.testing.assert_allclose(outs[0], jax_saved["jax_outs"][1], **TOL[jax_saved["dtype"]])
+
+
+def test_the_card_runs_float32_in_full_precision(monkeypatch):
+    """resolve_device, which Executor and Predictor call, turns TF32 off for
+    cuBLAS and cuDNN when it picks the card (cuDNN's default is TF32)."""
+    from paddle_tpu_torch.core.executor import resolve_device
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device(None) == torch.device("cuda", 0)
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    torch.backends.cudnn.allow_tf32 = True
+    assert resolve_device(pt.CPUPlace()) == torch.device("cpu")
+    assert torch.backends.cudnn.allow_tf32 is True      # the CPU leaves them alone

@@ -86,11 +86,33 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    weights; prints step ms, peak memory and each path's breakdown;
 9. multi_tensor_update over BERT-base's 158 Adam parameters and
    ResNet-50's 161 Momentum parameters (their shapes and dtypes read from
-   the programs), against the per-op lowerings on the card, bit for bit,
-   with its time, its bound, the per-op path's time (device and host) and
-   ``torch._fused_adam_`` / ``torch._fused_sgd_`` on f32 copies of the same
-   tensors as yardsticks;
-10. the kernels line, then the result line.
+   the programs), in place, against the per-op lowerings on the card, bit
+   for bit, with its time, its bound, the per-op path's time (device and
+   host), its own host time per call and ``torch._fused_adam_`` /
+   ``torch._fused_sgd_`` on f32 copies of the same tensors as yardsticks;
+10. (run after phase 3) the run counter on the card: K1-fwd, K1-bwd and
+   the dropout kernel given a ``DeviceSeed`` draw bit for bit what they
+   draw for the host
+   seed of the same counter (0, 1, 2^31, 2^32 + 5), and two counters two
+   masks; the dropout kernel against its plain version, bit for bit, at
+   BERT-base's hidden-dropout shape ([16384, 768] bf16, p 0.1, both
+   implementations), in f32, ragged, unaligned and at p 0 and 1, with its
+   time, bound and ``F.dropout``'s time; the gradients of
+   ``lookup_table_v2`` and ``gather`` at BERT-base's shapes, PyTorch's
+   (atomics) against the port's ``RowGather``, timed, each run twice;
+11. captured training (the phases printed last): BERT-base at phase 5's
+   configuration and ResNet-50 at phase 8's, the graph executor (one CUDA
+   graph per step, replayed) against the eager executor
+   (``_use_graphs = False``) from the same state: 5 steps, launches per
+   step, losses and every state tensor bit for bit (BERT's eager path run
+   twice shows it reproduces), a dropout op's Mask equal between paths at
+   steps 1 and 2 and different between them; ``run_fused`` with K = 4
+   against 4 ``run`` calls; then each path's step ms (median of the warm
+   steps), peak memory, graph pool, device busy ms, idle share profiled
+   and unprofiled and device activities; and the eager step's peak and the
+   graph's pool with every intermediate kept to the step's end against
+   freed after its last reader;
+12. the kernels line, then the result line.
 
 Exits non-zero, with no result line, when there is no CUDA card, when the
 port's sources are not beside this script, or when any phase fails.
@@ -569,6 +591,7 @@ def _train_both_paths(torch, pt, main, feed, loss, init, steps, counters):
         for n, t in init.items():
             scope.set_var(n, t.clone())
         exe = pt.Executor()
+        exe._use_graphs = False              # both eager (graphs: phase_captured_training)
         if path != "executor":
             exe._reuse_forward = exe._group_updates = False
         main._rng_run_counter = 0
@@ -1211,6 +1234,20 @@ def _wall_ms(torch, fn, runs=5):
     return statistics.median(times)
 
 
+def _host_ms(torch, fn, runs=5):
+    """Median host time of one call until it returns (the device work it
+    queued is waited for outside the timed region)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def phase_multi_tensor(torch, programs):
     """multi_tensor_update over each model's parameter list against the
     per-op lowerings on the card (bit for bit), with times, the bound and
@@ -1221,11 +1258,17 @@ def phase_multi_tensor(torch, programs):
     results = []
     for model, program, kind in programs:
         attrs, ins_list = _update_inputs(torch, program, kind, gen)
-        outs = multi_tensor_update(kind, attrs, ins_list)
-        again = multi_tensor_update(kind, attrs, ins_list)
-        ref = update_plain(kind, attrs, ins_list)
+        # the update is in place: the kernel twice and the per-op lowerings, each
+        # on its own copy of the inputs
+        copies = [[{s: [t.clone() for t in v] for s, v in ins.items()} for ins in ins_list]
+                  for _ in range(3)]
+        outs = multi_tensor_update(kind, attrs, copies[0])
+        again = multi_tensor_update(kind, attrs, copies[1])
+        ref = update_plain(kind, attrs, copies[2])
         torch.cuda.synchronize()
-        exact, ulp, err, finite = True, 0, 0.0, True
+        in_place = all(out["ParamOut"][0] is ins["Param"][0]
+                       for out, ins in zip(outs, copies[0]))
+        exact, ulp, err, finite = in_place, 0, 0.0, True
         for out, out2, r in zip(outs, again, ref):
             for slot in r:
                 a, a2, b = out[slot][0], out2[slot][0], r[slot][0]
@@ -1235,19 +1278,20 @@ def phase_multi_tensor(torch, programs):
                 if not same:
                     ulp = max(ulp, _max_ulp(torch, a, b))
                     err = max(err, (a.float() - b.float()).abs().max().item())
-        del outs, again, ref
+        del outs, again, ref, copies
         # device times from the profiler: the host work of a call (the work table
         # for ~200 tensors, ~2,000 launches for the per-op path) outlasts any
         # queue of sleep a CUDA-event window could put before it
         launches = _launch_times(torch, lambda: multi_tensor_update(kind, attrs, ins_list), 5)
         ms = sum(x["ms_per_launch"] * x["launches_per_call"] for x in launches
-                 if "multi_tensor_kernel" in x["kernel"])
+                 if "multi_tensor_kernel" in x["kernel"] or "beta_pow_kernel" in x["kernel"])
         table_copy_ms = sum(x["ms_per_launch"] * x["launches_per_call"] for x in launches
                             if "Memcpy" in x["kernel"])
         plain = _breakdown("update_plain", None, _launch_times(
             torch, lambda: update_plain(kind, attrs, ins_list), 3))
         plain_ms, plain_launches = plain["device_ms_per_call"], plain["launches_per_call"]
         wall_ms = _wall_ms(torch, lambda: multi_tensor_update(kind, attrs, ins_list))
+        host_ms = _host_ms(torch, lambda: multi_tensor_update(kind, attrs, ins_list))
         plain_wall_ms = _wall_ms(torch, lambda: update_plain(kind, attrs, ins_list))
         # bytes: read p, g and the state, write p and the state (the scalars are noise)
         state = 2 if kind == "adam" else 1
@@ -1283,9 +1327,10 @@ def phase_multi_tensor(torch, programs):
         del ps, gs, ms_, vs
         r = dict(model=model, kind=kind, attrs=attrs, tensors=len(ins_list), elements=n,
                  param_dtypes=sorted({str(ins["Param"][0].dtype)[6:] for ins in ins_list}),
-                 bit_exact=exact, max_ulp=ulp, max_abs_err=err, ok=exact and finite and ms > 0,
+                 in_place=in_place, bit_exact=exact, max_ulp=ulp, max_abs_err=err,
+                 ok=exact and finite and ms > 0,
                  ms=ms, table_copy_ms=table_copy_ms, plain_ms=plain_ms,
-                 plain_launches_per_call=plain_launches, wall_ms=wall_ms,
+                 plain_launches_per_call=plain_launches, wall_ms=wall_ms, host_ms=host_ms,
                  plain_wall_ms=plain_wall_ms,
                  bytes=nbytes,
                  bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
@@ -1298,6 +1343,401 @@ def phase_multi_tensor(torch, programs):
     if bad:
         raise SystemExit(f"multi_tensor_update is not bit-exact to the per-op lowerings: {bad}")
     return results
+
+
+# BERT-base's hidden dropout: [B * S, 768] at B128 S128, p 0.1
+DROPOUT_SHAPE, DROPOUT_P = (128 * 128, 768), 0.1
+CAPTURED_STEPS = 5           # steps held graph against eager
+TIMED_STEPS = 6              # steps timed on each path (after the held ones)
+FUSED_K = 4
+
+
+def phase_seed_counter(torch):
+    """The run counter on the card: K1-fwd, K1-bwd and the dropout kernel,
+    given a ``DeviceSeed`` over a counter tensor, draw exactly what they
+    draw for the host seed ``seed_int`` of that counter (bit for bit, at the
+    training shape), for counters 0, 1, 2^31 and 2^32 + 5; the plain
+    versions' key from the counter on the card equals it too; and two
+    counters give two outputs."""
+    from paddle_tpu_torch.core.registry import DeviceSeed, seed_int
+    from paddle_tpu_torch.ops import dropout as dmod
+    from paddle_tpu_torch.ops.flash_attention import (flash_attn_bwd, flash_attn_fwd,
+                                                      philox_key)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 11)
+    q, k, v, bias = _attn_inputs(torch, 128, 12, 128, 64, torch.bfloat16, True, gen)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    x = torch.randn(DROPOUT_SHAPE, generator=gen, device="cuda").to(torch.bfloat16)
+    prog_seed, salt, p = 0x5EED, 2 ** 31 - 3, ATTN_DROPOUT
+    counter = torch.zeros((1,), dtype=torch.int64, device="cuda")
+    rows, outs = [], {}
+    for c in (0, 1, 2 ** 31, 2 ** 32 + 5):
+        counter.fill_(c)
+        dev, host = DeviceSeed(counter, prog_seed, salt), seed_int(prog_seed, c, salt)
+        o1, l1 = flash_attn_fwd(q, k, v, bias, 0.125, False, p, dev, return_lse=True)
+        o2, l2 = flash_attn_fwd(q, k, v, bias, 0.125, False, p, host, return_lse=True)
+        g1 = flash_attn_bwd(q, k, v, bias, o1, l1, do, 0.125, False, p, dev)
+        g2 = flash_attn_bwd(q, k, v, bias, o2, l2, do, 0.125, False, p, host)
+        d1, d2 = dmod.dropout_fwd(x, DROPOUT_P, True, dev), dmod.dropout_fwd(x, DROPOUT_P, True, host)
+        k0, k1 = philox_key(dev)
+        rows.append(dict(counter=c, seed=host,
+                         flash_attn_fwd=torch.equal(o1, o2) and torch.equal(l1, l2),
+                         flash_attn_bwd=all(torch.equal(a, b) for a, b in zip(g1, g2)),
+                         dropout=torch.equal(d1[0], d2[0]) and torch.equal(d1[1], d2[1]),
+                         plain_key=(int(k1) << 32 | int(k0)) == host))
+        outs[c] = (o1, d1[1])
+    differ = not torch.equal(outs[0][0], outs[1][0]) and not torch.equal(outs[0][1], outs[1][1])
+    ok = differ and all(all(v for k_, v in r.items() if k_ not in ("counter", "seed"))
+                        for r in rows)
+    emit("seed_counter", shape="flash B128 H12 S128 D64 bf16 bias p 0.1; dropout "
+         f"{list(DROPOUT_SHAPE)} bf16 p {DROPOUT_P}", rows=rows,
+         counters_draw_different_masks=differ, ok=ok)
+    if not ok:
+        raise SystemExit(f"the kernels' seed from the run counter on the card differs from "
+                         f"seed_int's: {rows}, differ={differ}")
+
+
+def _hbm_from_card(torch):
+    """The card's own peak memory rate (bytes/s), from its memory clock and
+    bus width where PyTorch reports them (double data rate), else None."""
+    props = torch.cuda.get_device_properties(0)
+    clock_khz = getattr(props, "memory_clock_rate", None)
+    bus_bits = getattr(props, "memory_bus_width", None)
+    if not clock_khz or not bus_bits:
+        return None
+    return 2 * clock_khz * 1e3 * bus_bits / 8
+
+
+def phase_dropout_kernel(torch):
+    """The dropout kernel against its plain version on the card, bit for bit
+    (Out and Mask, and a second launch), at BERT-base's hidden-dropout shape
+    in both implementations, in f32, at a ragged size, on an unaligned view
+    (the one-element path) and at p 0 and 1; at the main shape its time, the
+    plain version's, ``F.dropout``'s (the library yardstick: another RNG,
+    the same work) and the bound (read X, write Out and Mask)."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import dropout as dmod
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 12)
+    # (shape, dtype, upscale, p, element offset)
+    cases = [(DROPOUT_SHAPE, "bfloat16", True, DROPOUT_P, 0),
+             (DROPOUT_SHAPE, "bfloat16", False, DROPOUT_P, 0),
+             ((4096, 768), "float32", True, DROPOUT_P, 0),
+             ((1001, 77), "bfloat16", True, 0.3, 0),
+             ((4096, 768), "bfloat16", True, DROPOUT_P, 1),
+             ((333,), "float32", True, 1.0, 0),
+             ((333,), "bfloat16", False, 0.0, 0)]
+    hbm_card = _hbm_from_card(torch)
+    results = []
+    for i, (shape, dt, upscale, p, off) in enumerate(cases):
+        dtype = getattr(torch, dt)
+        n = int(np.prod(shape))
+        x = torch.randn(n + off, generator=gen, device="cuda").to(dtype)[off:].view(shape)
+        seed = 0x9E3779B97F4A7C15 + i
+        out, mask = dmod.dropout_fwd(x, p, upscale, seed)
+        out2, mask2 = dmod.dropout_fwd(x, p, upscale, seed)
+        ref_out, ref_mask = dmod.dropout_plain(x, p, upscale, seed)
+        torch.cuda.synchronize()
+        exact = (torch.equal(out, ref_out) and torch.equal(mask, ref_mask)
+                 and torch.equal(out, out2) and torch.equal(mask, mask2))
+        err = (out.float() - ref_out.float()).abs().max().item()
+        keep = mask.float().mean().item()
+        r = dict(shape=list(shape), dtype=dt, upscale=upscale, p=p, element_offset=off,
+                 bit_exact=exact, max_abs_err=err, keep_fraction=keep, ok=exact)
+        if i < 2:
+            nbytes = 3 * n * x.element_size()
+            r.update(ms=_device_ms(torch, lambda: dmod.dropout_fwd(x, p, upscale, seed)),
+                     plain_ms=_device_ms(torch, lambda: dmod.dropout_plain(x, p, upscale, seed),
+                                         runs=5),
+                     library="torch.nn.functional.dropout (its own RNG)",
+                     library_ms=_device_ms(torch, lambda: F.dropout(x, p, training=True)),
+                     bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                     bound_ms_card_rate=(nbytes / hbm_card * 1e3) if hbm_card else None,
+                     card_hbm_bytes_per_s=hbm_card)
+        emit("kernel_vs_plain", kernel="dropout", **r)
+        results.append(r)
+        del x, out, mask, out2, mask2, ref_out, ref_mask
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise SystemExit(f"the dropout kernel disagrees with its plain version: {bad}")
+    return results
+
+
+def phase_row_grads(torch):
+    """The gradients of lookup_table_v2 and gather at BERT-base's shapes, on
+    the card: PyTorch's (``F.embedding`` / ``index_select`` backward, which
+    add with atomics) against the port's ``RowGather`` (sorted accumulation):
+    device time of the backward alone, and whether two runs give the same
+    bits."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.tensor_ops import RowGather
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 13)
+    rng = np.random.RandomState(SEED)
+    B, S, V, Hd = 128, 128, 30522, 768
+    cases = [("lookup_table_v2 word_emb", (V, Hd), torch.float32, rng.randint(0, V, B * S), "emb"),
+             ("lookup_table_v2 pos_emb", (512, Hd), torch.float32,
+              np.tile(np.arange(S), B), "emb"),
+             ("lookup_table_v2 sent_emb", (2, Hd), torch.float32, rng.randint(0, 2, B * S), "emb"),
+             ("gather mlm positions", (B * S, Hd), torch.bfloat16,
+              rng.randint(0, B * S, B * 20), "gather")]
+    results = []
+    for name, shape, dtype, ids, kind in cases:
+        w = torch.randn(shape, generator=gen, device="cuda").to(dtype).requires_grad_()
+        idx = torch.from_numpy(ids.astype(np.int64)).cuda()
+        before = (lambda: F.embedding(idx, w)) if kind == "emb" else \
+            (lambda: w.index_select(0, idx))
+        ys = {"before": before(), "after": RowGather.apply(w, idx)}
+        g = torch.randn(ys["after"].shape, generator=gen, device="cuda").to(dtype)
+        r = dict(op=name, weight=list(shape), dtype=str(dtype)[6:], indices=len(ids))
+        grads = {}
+        for which, y in ys.items():
+            fn = lambda: torch.autograd.grad(y, w, g, retain_graph=True)[0]
+            a, b = fn(), fn()
+            grads[which] = a
+            r[f"{which}_ms"] = _device_ms(torch, fn, runs=10)
+            r[f"{which}_reproducible"] = torch.equal(a, b)
+        r["max_abs_gap"] = (grads["before"].float() - grads["after"].float()).abs().max().item()
+        emit("row_grads", **r)
+        results.append(r)
+        del w, ys, grads
+    if not all(r["after_reproducible"] for r in results):
+        raise SystemExit(f"RowGather's gradient does not reproduce: {results}")
+    return results
+
+
+def _steps(pt, exe, main, feed, fetch, init, steps):
+    """``steps`` runs from ``init`` in a scope of their own, the counter from
+    0: (each step's fetches as tensors, the final state, the scope)."""
+    scope = pt.Scope()
+    for n, t in init.items():
+        scope.set_var(n, t.clone())
+    main._rng_run_counter = 0
+    with pt.scope_guard(scope):
+        outs = [exe.run(main, feed=feed, fetch_list=fetch, return_numpy=False)
+                for _ in range(steps)]
+    return outs, {n: scope.find_var(n) for n in init}, scope
+
+
+def _graph_pools(exe):
+    return [s.graph.memory_bytes / 1e9 for s in exe._cache.values() if s.graph is not None]
+
+
+def _timed_path(torch, pt, main, feed, loss, init, graphs_on, free_dead):
+    """Step ms of each of TIMED_STEPS steps (fetching the loss as numpy), the
+    peak of allocated memory over them and the graph pools, then 3 steps
+    under the profiler. The executor is closed at the end."""
+    from paddle_tpu_torch.tools.train_profile import profile_steps
+    exe = pt.Executor()
+    exe._use_graphs, exe._free_dead = graphs_on, free_dead
+    scope = pt.Scope()
+    for n, t in init.items():
+        scope.set_var(n, t.clone())
+    main._rng_run_counter = 0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    with pt.scope_guard(scope):
+        for _ in range(TIMED_STEPS):
+            t0 = time.perf_counter()
+            exe.run(main, feed=feed, fetch_list=[loss])
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        pools = _graph_pools(exe)
+        prof = profile_steps(torch, exe, main, feed, loss, 3)
+    exe.close()
+    del scope, exe
+    warm = times[2:] if graphs_on else times[1:]     # after the warm-up (and the capture)
+    ms = statistics.median(warm)
+    return dict(step_ms=times, step_ms_median_warm=ms, peak_gb=peak, graph_pool_gb=pools,
+                device_busy_ms=prof["device_busy_ms"],
+                idle_share_profiled=prof["device_idle_share"],
+                idle_share_unprofiled=max(0.0, 1 - prof["device_busy_ms"] / ms),
+                profiled_wall_ms=prof["wall_ms"],
+                device_activities_per_step=prof["device_activities_per_step"],
+                by_kind=prof["by_kind"])
+
+
+def _memory_before_after(torch, pt, main, feed, loss, init):
+    """Part 6: the eager step's peak and the graph's pool with every
+    intermediate kept to the step's end, and with each freed after its
+    last reader."""
+    out = {}
+    for free in (False, True):
+        row = {}
+        for graphs_on in (False, True):
+            exe = pt.Executor()
+            exe._use_graphs, exe._free_dead = graphs_on, free
+            scope = pt.Scope()
+            for n, t in init.items():
+                scope.set_var(n, t.clone())
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            with pt.scope_guard(scope):
+                for _ in range(2):          # graphs: the warm-up, then the capture
+                    exe.run(main, feed=feed, fetch_list=[loss])
+            if graphs_on:
+                row["graph_pool_gb"] = _graph_pools(exe)[0]
+            else:
+                row["eager_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            exe.close()
+            del scope, exe
+        out["freed_after_last_reader" if free else "kept_to_step_end"] = row
+    return out
+
+
+def _state_equal(torch, a, b):
+    return [n for n in b if not torch.equal(a[n], b[n])]
+
+
+def _captured_model(torch, pt, label, main, startup, feed, loss, expected, extra_fetch):
+    """Graph executor against the eager executor (``_use_graphs = False``) on
+    one model: CAPTURED_STEPS steps from the same state, losses and every
+    state tensor compared bit for bit, the eager path against itself (its
+    run-to-run noise); ``run_fused`` (K = FUSED_K) against K ``run`` calls;
+    then each path timed and profiled, and the memory before and after
+    freeing dead intermediates."""
+    from paddle_tpu_torch.core import cuda_build
+    scope = pt.Scope()
+    with pt.scope_guard(scope):
+        pt.Executor().run(startup)
+        init = {n: scope.find_var(n).clone() for n, v in main.global_block().vars.items()
+                if v.persistable and scope.find_var(n) is not None}
+    del scope
+    fetch = [loss] + extra_fetch
+    runs, launches = {}, {}
+    for path in ("graph", "eager", "eager_again"):
+        exe = pt.Executor()
+        exe._use_graphs = path == "graph"
+        for fn in cuda_build.COUNTED:
+            fn.launches = 0
+        outs, state, scope = _steps(pt, exe, main, feed, fetch, init, CAPTURED_STEPS)
+        torch.cuda.synchronize()
+        launches[path] = {fn.__name__: fn.launches for fn in cuda_build.COUNTED if fn.launches}
+        runs[path] = (outs, {n: t.clone() for n, t in state.items()})
+        if path == "graph":
+            pools = _graph_pools(exe)
+        exe.close()
+        del exe, scope, outs, state
+    (g_outs, g_state), (e_outs, e_state), (e2_outs, e2_state) = (
+        runs["graph"], runs["eager"], runs["eager_again"])
+    losses = {p: [float(o[0].float().reshape(-1)[0]) for o in runs[p][0]] for p in runs}
+    loss_equal = [torch.equal(a[0], b[0]) for a, b in zip(g_outs, e_outs)]
+    state_differs = _state_equal(torch, g_state, e_state)
+    eager_differs = _state_equal(torch, e2_state, e_state)
+    eager_loss_equal = [torch.equal(a[0], b[0]) for a, b in zip(e2_outs, e_outs)]
+    deterministic = not eager_differs and all(eager_loss_equal)
+    r = dict(model=label, steps=CAPTURED_STEPS, losses=losses, loss_bit_equal=loss_equal,
+             state_tensors=len(init), state_differs=len(state_differs),
+             state_differs_first=state_differs[:8], eager_vs_eager_state_differs=len(eager_differs),
+             eager_deterministic=deterministic, graph_pool_gb=pools, launches=launches,
+             expected_launches_per_step=expected, counter_after=main._rng_run_counter)
+    if not deterministic or state_differs:
+        r["update_rel_l1_gap"] = _update_gap(init, g_state, e_state)
+        r["eager_update_rel_l1_gap"] = _update_gap(init, e2_state, e_state)
+    if extra_fetch:                     # a dropout op's Mask at steps 1 and 2
+        m = [(o[1], e[1]) for o, e in zip(g_outs[:2], e_outs[:2])]
+        r["mask_step1_equal"] = torch.equal(*m[0])
+        r["mask_step2_equal"] = torch.equal(*m[1])
+        r["mask_differs_between_steps"] = not torch.equal(m[0][0], m[1][0])
+        r["mask_keep_fraction"] = m[0][0].float().mean().item()
+    del runs, g_outs, e_outs, e2_outs, g_state, e_state, e2_state
+
+    # run_fused (K = FUSED_K) against K run calls, both on graphs, from init
+    fused = {}
+    for how in ("run_fused", "run"):
+        exe = pt.Executor()
+        scope = pt.Scope()
+        for n, t in init.items():
+            scope.set_var(n, t.clone())
+        main._rng_run_counter = 0
+        with pt.scope_guard(scope):
+            if how == "run_fused":
+                l, = exe.run_fused(main, feeds=[feed] * FUSED_K, fetch_list=[loss])
+            else:
+                l = torch.stack([exe.run(main, feed=feed, fetch_list=[loss],
+                                         return_numpy=False)[0] for _ in range(FUSED_K)])
+        fused[how] = (l.clone(), {n: scope.find_var(n).clone() for n in init},
+                      main._rng_run_counter)
+        exe.close()
+        del exe, scope
+    (fl, fs, fc), (rl, rs, rc) = fused["run_fused"], fused["run"]
+    r["run_fused"] = dict(K=FUSED_K, shape=list(fl.shape), losses_bit_equal=torch.equal(fl, rl),
+                          state_differs=len(_state_equal(torch, fs, rs)),
+                          counter_after=[fc, rc])
+    del fused, fs, rs
+
+    r["paths"] = {("graph" if g else "eager"): _timed_path(torch, pt, main, feed, loss, init, g,
+                                                           True)
+                  for g in (True, False)}
+    r["memory_before_after_freeing"] = _memory_before_after(torch, pt, main, feed, loss, init)
+    r["graph_speedup"] = (r["paths"]["eager"]["step_ms_median_warm"]
+                          / r["paths"]["graph"]["step_ms_median_warm"])
+    emit("captured_training", **r)
+
+    # checks
+    per_step = {k: v * CAPTURED_STEPS for k, v in expected.items()}
+    for path in ("graph", "eager"):
+        got = {k: launches[path].get(k, 0) for k in per_step}
+        if got != per_step:
+            raise SystemExit(f"{label}: launches on the {path} path {got}, expected {per_step}")
+    if not all(np.isfinite(losses["graph"])):
+        raise SystemExit(f"{label}: losses not finite: {losses['graph']}")
+    if not loss_equal[0]:
+        raise SystemExit(f"{label}: step 1's loss differs between graph and eager")
+    if deterministic:
+        if not (all(loss_equal) and not state_differs):
+            raise SystemExit(f"{label}: the graph path parts from the eager path bit for bit "
+                             f"(losses {loss_equal}, {len(state_differs)} state tensors)")
+    elif r["update_rel_l1_gap"] > max(r["eager_update_rel_l1_gap"], 1e-30) * 2:
+        raise SystemExit(f"{label}: graph vs eager gap {r['update_rel_l1_gap']} exceeds the "
+                         f"eager path's own {r['eager_update_rel_l1_gap']}")
+    if extra_fetch and not (r["mask_step1_equal"] and r["mask_step2_equal"]
+                            and r["mask_differs_between_steps"]):
+        raise SystemExit(f"{label}: the dropout masks do not follow the counter: {r}")
+    rf = r["run_fused"]
+    if rf["counter_after"] != [FUSED_K, FUSED_K] or rf["shape"][0] != FUSED_K:
+        raise SystemExit(f"{label}: run_fused's contract broken: {rf}")
+    if deterministic and not (rf["losses_bit_equal"] and rf["state_differs"] == 0):
+        raise SystemExit(f"{label}: run_fused differs from {FUSED_K} run calls: {rf}")
+    return r
+
+
+def phase_captured_training(torch):
+    """Captured training steps: BERT-base at bench.py's configuration and
+    ResNet-50 at bench.py's, graph executor against eager executor."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.tools.train_profile import (BATCH, LR, MASKS_PER_SEQ, SEQ,
+                                                      build_pretrain, build_resnet50,
+                                                      pretrain_feed)
+    cfg = bert.BertConfig(dtype="bfloat16", dropout=ATTN_DROPOUT)
+    main, startup, total, _ = build_pretrain(cfg, BATCH, SEQ, MASKS_PER_SEQ, LR, SEED)
+    feed = pretrain_feed(np.random.RandomState(SEED), cfg, BATCH, SEQ, MASKS_PER_SEQ)
+    feed = {k: torch.from_numpy(v).cuda() for k, v in feed.items()}
+    drops = [op for op in main.global_block().ops
+             if op.type == "dropout" and not op.attr("is_test", False)]
+    expected = {"flash_attn_fwd": cfg.n_layers, "flash_attn_bwd": cfg.n_layers,
+                "multi_tensor_update": 1, "dropout_fwd": len(drops)}
+    bert_r = _captured_model(
+        torch, pt, f"bert-base pretrain bf16 B{BATCH} S{SEQ} dropout {cfg.dropout} Adam({LR})",
+        main, startup, feed, total, expected, [drops[0].output("Mask")[0]])
+    del main, startup, feed
+    torch.cuda.empty_cache()
+    main, startup, loss, _, fused = build_resnet50()
+    feed = _resnet_feed(torch, np.random.RandomState(SEED), RESNET_BATCH, "cuda")
+    res_r = _captured_model(
+        torch, pt, f"resnet50 NHWC s2d bf16 B{RESNET_BATCH} 224x224 Momentum(0.1, 0.9)",
+        main, startup, feed, loss, {"fused_conv1x1_bn_fwd": fused, "multi_tensor_update": 1},
+        [])
+    if not (res_r["eager_deterministic"] and res_r["state_differs"] == 0
+            and all(res_r["loss_bit_equal"]) and res_r["run_fused"]["losses_bit_equal"]):
+        raise SystemExit("ResNet-50: graph and eager paths are not bit for bit")
+    del main, startup, feed
+    torch.cuda.empty_cache()
+    return bert_r, res_r
 
 
 def phase_main_path(torch, workdir):
@@ -1400,6 +1840,9 @@ def main() -> int:
     phase_build()
     kres = phase_kernels(torch)
     tres = phase_train_kernels(torch)
+    phase_seed_counter(torch)
+    dres = phase_dropout_kernel(torch)
+    phase_row_grads(torch)
     phase_launch_breakdown(torch)
     resnet = build_resnet50()                  # (main, startup, loss, params_grads, fused)
     cres = phase_conv_bn_kernels(torch, resnet_fused_shapes(resnet[0], RESNET_BATCH))
@@ -1422,6 +1865,9 @@ def main() -> int:
     train_launches, step_ms, train_paths = phase_train_path(torch)
     torch.cuda.empty_cache()
     resnet_launches, resnet_step_ms, resnet_paths = phase_resnet_train(torch, *resnet)
+    del resnet
+    torch.cuda.empty_cache()
+    cap_bert, cap_resnet = phase_captured_training(torch)
 
     serve_case = next(r for r in kres if r["dtype"] == "bfloat16" and r["shape"][2] == 512
                       and r["bias"] and not r["causal"])
@@ -1434,6 +1880,8 @@ def main() -> int:
     conv_path = [r for r in cres if r["launches_per_forward_pass"]]
     int8_case = next(r for r in ires if r["shape"] == [4096, 768, 3072])
     mt_bert, mt_res = mres
+    drop_case = dres[0]                        # [16384, 768] bf16, upscale_in_train, p 0.1
+    drop_launches = cap_bert["launches"]["graph"]["dropout_fwd"]
     no_library = ("no single PyTorch call computes this function; matmul_ms is a bf16 "
                   "torch.matmul of the same shape, for context")
     print(smi.splitlines()[0] if smi else "nvidia-smi printed nothing", flush=True)
@@ -1479,8 +1927,18 @@ def main() -> int:
          **{k: int8_case[k] for k in keys}, "matmul_ms": int8_case["matmul_ms"],
          "library_note": no_library,
          "shape": "M 4096 K 768 N 3072 bf16 activations (ffn1 at 8 x 512 tokens)"},
+        {"name": "dropout", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/dropout.cu",
+         "replaces": "paddle_tpu/ops/nn_ops.py:333",
+         "replaces_note": ("no Pallas kernel: the draw of the JAX dropout lowering "
+                           "(jax.random.bernoulli inside the compiled step)"),
+         "launches": drop_launches,
+         "launches_by_path": {"captured_training": drop_launches},
+         "max_abs_err": max(r["max_abs_err"] for r in dres),
+         **{k: drop_case[k] for k in keys}, "library": drop_case["library"],
+         "shape": "[16384, 768] bf16, upscale_in_train, p 0.1 (BERT-base's hidden dropout)"},
         {"name": "multi_tensor_update", "route": "cuda",
-         "source": "paddle_tpu_torch/csrc/multi_tensor_update.cu",
+         "source": "paddle_tpu_torch/csrc/multi_tensor_update.cu", "in_place": True,
          "replaces": "paddle_tpu/compiler.py:94",
          "replaces_note": ("no Pallas kernel: fuse_all_optimizer_ops, under which XLA "
                            "updates every parameter inside the one compiled step"),
@@ -1495,6 +1953,9 @@ def main() -> int:
          "resnet50": {**{k: mt_res[k] for k in keys}, "library": mt_res["library"],
                       "shape": (f"ResNet-50's {mt_res['tensors']} Momentum parameters, "
                                 f"{mt_res['elements']} elements, bf16, f32 velocity")}}],
+        "captured_step_ms": {
+            name: {p: r["paths"][p]["step_ms_median_warm"] for p in ("graph", "eager")}
+            for name, r in (("bert_base", cap_bert), ("resnet50", cap_resnet))},
         "train_step_ms": step_ms, "resnet_step_ms": resnet_step_ms,
         "reference_path_step_ms": {
             "training": train_paths["reference"]["step_ms_median_warm"],

@@ -24,7 +24,7 @@ BUILD_DIR = CSRC / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 #: the kernels, one ``csrc/<name>.cu`` each
-SOURCES = ("conv1x1_bn", "flash_attn_bwd", "flash_attn_fwd", "int8_matmul",
+SOURCES = ("conv1x1_bn", "dropout", "flash_attn_bwd", "flash_attn_fwd", "int8_matmul",
            "multi_tensor_update")
 #: the kernel wrappers (``counted``); a CUDA-graph replay adds what its
 #: capture launched to each one's ``launches``

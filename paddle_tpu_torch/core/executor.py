@@ -1,35 +1,54 @@
-"""Scope, places, ``trace_block`` and an eager ``Executor``.
+"""Scope, places, ``trace_block`` and the ``Executor``.
 
 The port's counterpart of ``paddle_tpu/core/executor.py``. The JAX package
-traces a whole Program into one jitted XLA step; the port runs each op's
-lowering eagerly, in program order, on the executor's device, with the
-counterparts of two things XLA does to that step:
+traces a whole Program into one jitted XLA step per signature; the port runs
+each op's lowering eagerly, in program order, on the executor's device, with
+the counterparts of what XLA does to that step:
 
 - a forward op whose generic grad op is in the same block runs once, under
   autograd, and its grad op differentiates the kept graph (XLA's CSE of the
   grad op's ``jax.vjp`` recompute; ``registry.lower_keeping_graph``);
 - each run of consecutive ``adam`` (or ``momentum``) ops with equal attrs is
-  one multi-tensor update (``fuse_all_optimizer_ops``;
-  ``ops/multi_tensor.py``).
+  one multi-tensor update, in place (``fuse_all_optimizer_ops`` and the
+  donated state; ``ops/multi_tensor.py``);
+- each variable is dropped after its last reader (XLA's buffer liveness),
+  except the fetches, the feeds and the persistable state.
 
-No jit, megastep, warm store or telemetry yet.
+On the card, ``Executor.run`` keeps a cache of compiled steps as the JAX
+``Executor.run`` does, keyed by (program id, ``_version``, feed signature,
+fetch names, seed, scope), each one CUDA graph (``core/graphs.py``): the
+first run of a key runs eagerly on a side stream (the warm-up), the second
+captures the step and replays it, later runs replay it. The graph's state
+tensors are the scope's: the update writes them in place, a state whose
+output is a new tensor (a batch norm's MeanOut) is copied back at the end of
+the captured step, and a persistable that is only written comes back as a
+copy. Before each replay an identity guard copies in any state tensor the
+scope rebinds, the feeds are copied into the graph's buffers and the run
+counter is written into the graph's counter on the card, from which the
+dropout kernels derive their seeds. A program that holds a ``host_rng`` op
+(``gaussian_random``, ``uniform_random``: startup programs) is not captured;
+it runs eagerly on the card. A failed capture or replay raises.
+``run_fused`` runs K steps as K replays. ``close()`` drops the graphs.
 
 The device is explicit: ``Executor()`` runs on ``cuda`` and raises when there
-is no card. Pass ``CPUPlace()`` (or ``"cpu"``) to run on the CPU. On the
-card, float32 matmuls and convolutions run in full float32, not TF32
-(``resolve_device``).
+is no card. Pass ``CPUPlace()`` (or ``"cpu"``) to run on the CPU, where there
+are no graphs. On the card, float32 matmuls and convolutions run in full
+float32, not TF32 (``resolve_device``).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import threading
-from typing import Any, Dict, List, Optional, Sequence
+import weakref
+from typing import Any, Dict, FrozenSet, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..framework import Block, Program, Variable, default_main_program
 from ..ops import multi_tensor
+from . import graphs as cuda_graphs
 from . import registry
 from .registry import EMPTY_VAR, LowerCtx, stable_salt
 
@@ -152,12 +171,23 @@ def as_tensor(value, device: torch.device) -> torch.Tensor:
     return tensor_from_numpy(value).to(device)
 
 
+def owned_tensor(value, device: torch.device) -> torch.Tensor:
+    """A tensor on ``device`` that shares no memory with a numpy ``value``
+    (the state a program updates in place must not write a caller's array);
+    a tensor already on ``device`` is returned as it is."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device)
+    return tensor_from_numpy(value).to(device, copy=True)
+
+
 def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """Tensor -> host numpy. numpy has no bfloat16, so bf16 is widened to
-    float32: the values are exact, only the dtype differs."""
+    """Tensor -> host numpy, a copy (the tensor may be updated in place
+    later). numpy has no bfloat16, so bf16 is widened to float32: the values
+    are exact, only the dtype differs."""
     if t.dtype == torch.bfloat16:
-        t = t.float()
-    return t.detach().cpu().numpy()
+        return t.detach().float().cpu().numpy()
+    a = t.detach().cpu().numpy()
+    return a.copy() if t.device.type == "cpu" else a
 
 
 def _op_inputs(op, env) -> Dict[str, List[Any]]:
@@ -192,15 +222,46 @@ def _lowering_failed(op, e):
     return RuntimeError(f"lowering failed for op {op!r}: {e}{where}")
 
 
+#: per block, its last-use tables by (program version, names kept)
+_LAST_USES: "weakref.WeakKeyDictionary[Block, dict]" = weakref.WeakKeyDictionary()
+_LAST_USES_CAP = 16
+
+
+def dead_after(block: Block, keep: FrozenSet[str]) -> List[Tuple[str, ...]]:
+    """For each op of ``block``, the variables whose last reader or writer
+    it is, except those in ``keep``: what ``trace_block`` drops after it.
+    Computed once per (program version, ``keep``)."""
+    key = (block.program._version, keep)
+    tables = _LAST_USES.setdefault(block, {})
+    dead = tables.get(key)
+    if dead is None:
+        last: Dict[str, int] = {}
+        for i, op in enumerate(block.ops):
+            for n in op.input_arg_names() + op.output_arg_names():
+                last[n] = i
+        by_op: List[List[str]] = [[] for _ in block.ops]
+        for n, i in last.items():
+            if n not in keep and n != EMPTY_VAR:
+                by_op[i].append(n)
+        dead = [tuple(names) for names in by_op]
+        if len(tables) >= _LAST_USES_CAP:
+            tables.clear()
+        tables[key] = dead
+    return dead
+
+
 def trace_block(block: Block, env: Dict[str, Any], device, seed: int = 0,
                 counter: int = 0, *, reuse_forward: bool = True,
-                group_updates: bool = True):
+                group_updates: bool = True, counter_t: Optional[torch.Tensor] = None,
+                keep: Optional[FrozenSet[str]] = None):
     """Run the ops of ``block`` over ``env`` (name -> tensor), in order, with
     new tensors made on ``device``.
 
     The single place op lowerings are invoked with real tensors (shape
     inference calls them on meta tensors). ``seed``/``counter`` key each op's
-    generator together with its salt, as the JAX package folds its step key.
+    random draws together with its salt, as the JAX package folds its step
+    key; ``counter_t`` is the same counter on the card (a one-element int64
+    tensor), from which the kernels derive their seeds (``kernel_seed``).
 
     ``reuse_forward``: a forward op whose generic grad op is in the block
     keeps its autograd graph in a table for this run (``LowerCtx.graphs``,
@@ -211,10 +272,14 @@ def trace_block(block: Block, env: Dict[str, Any], device, seed: int = 0,
     the eager reference path (the grad op recomputes its forward; one
     update op at a time), which the tests and ``chip_smoke.py`` compare
     against.
+    ``keep``: when given, each variable not in it is dropped from ``env``
+    after its last reader (``dead_after``), so its memory goes back to the
+    allocator; the caller keeps its fetches, feeds and persistable state.
     """
     device = torch.device(device)
     ops = block.ops
-    keep = registry.forwards_with_grads(ops) if reuse_forward else frozenset()
+    kept = registry.forwards_with_grads(ops) if reuse_forward else frozenset()
+    dead = dead_after(block, keep) if keep is not None else None
     graphs: Dict[str, Any] = {}
     try:
         i = 0
@@ -231,44 +296,92 @@ def trace_block(block: Block, env: Dict[str, Any], device, seed: int = 0,
                     raise _lowering_failed(op, e) from e
                 for o, out in zip(ops[i:end], outs):
                     _store(o, out, env)
-                i = end
-                continue
-            d = registry.get(op.type)
-            ins = _op_inputs(op, env)
-            # a grad op takes its forward op's salt, so the forward's recompute
-            # inside it draws the forward's dropout masks
-            out0 = registry.first_output(op)
-            salt_name = op.attr("__fwd_out0__") or next(
-                (ns[0] for ns in op.outputs.values() if ns and ns[0] != EMPTY_VAR), op.type)
-            ctx = LowerCtx(op.attrs, device, seed, counter, stable_salt(salt_name),
-                           graphs=graphs)
-            try:
-                if (op.type, out0) in keep:
-                    outs = registry.lower_keeping_graph(d, ctx, ins, out0)
-                else:
-                    outs = d.lower(ctx, ins)
-            except NotImplementedError:
-                raise
-            except Exception as e:
-                raise _lowering_failed(op, e) from e
-            _store(op, outs, env)
-            i += 1
+            else:
+                end = i + 1
+                d = registry.get(op.type)
+                ins = _op_inputs(op, env)
+                # a grad op takes its forward op's salt, so the forward's recompute
+                # inside it draws the forward's dropout masks
+                out0 = registry.first_output(op)
+                salt_name = op.attr("__fwd_out0__") or next(
+                    (ns[0] for ns in op.outputs.values() if ns and ns[0] != EMPTY_VAR),
+                    op.type)
+                ctx = LowerCtx(op.attrs, device, seed, counter, stable_salt(salt_name),
+                               graphs=graphs, counter_t=counter_t)
+                try:
+                    if (op.type, out0) in kept:
+                        outs = registry.lower_keeping_graph(d, ctx, ins, out0)
+                    else:
+                        outs = d.lower(ctx, ins)
+                except NotImplementedError:
+                    raise
+                except Exception as e:
+                    raise _lowering_failed(op, e) from e
+                del ins
+                _store(op, outs, env)
+                del outs
+            if dead is not None:
+                for j in range(i, end):
+                    for n in dead[j]:
+                        env.pop(n, None)
+            i = end
     finally:
         graphs.clear()
     return env
 
 
+def capture_refusal(program: Program) -> Optional[str]:
+    """Why ``program`` is not captured as a CUDA graph (None: it is),
+    decided by op type before it runs: an op that draws from a host-seeded
+    generator would replay the captured run's numbers."""
+    for blk in program.blocks:
+        for op in blk.ops:
+            if registry.get(op.type).host_rng:
+                return f"op {op.type!r} draws from a host-seeded generator"
+    return None
+
+
+class _Step:
+    """An entry of the executor's cache: one (program, signature) on the
+    card. ``refusal`` says why it is not captured (None: it is); ``graph``
+    is its CUDA graph once captured, over ``state`` (the scope's tensors it
+    reads and updates), ``feeds`` (static buffers) and ``counter`` (the run
+    counter on the card); its outputs are the fetches and the persistables
+    it only writes."""
+
+    def __init__(self, refusal: Optional[str]):
+        self.refusal = refusal
+        self.warmed = False
+        self.graph: Optional[cuda_graphs.Graph] = None
+        self.state: Dict[str, torch.Tensor] = {}
+        self.feeds: Dict[str, torch.Tensor] = {}
+        self.counter: Optional[torch.Tensor] = None
+
+
 class Executor:
-    """Runs Programs eagerly on one device (``place`` None = the card)."""
+    """Runs Programs on one device (``place`` None = the card); on the card
+    each (program, signature) becomes a replayed CUDA graph. Not thread-safe:
+    one thread drives an executor."""
 
     # False selects the eager reference path (each grad op recomputes its
     # forward; one update op at a time) that tests and chip_smoke.py compare with
     _reuse_forward = True
     _group_updates = True
+    # False: no CUDA graphs; every run executes the lowerings eagerly on the card
+    _use_graphs = True
+    # False: keep every intermediate until the step ends (chip_smoke.py measures
+    # the peak memory and the graph pools both ways)
+    _free_dead = True
+    #: LRU bound on the cached steps (the JAX Executor's _CACHE_CAP)
+    _CACHE_CAP = 64
 
     def __init__(self, place=None):
         self.place = place
         self.device = resolve_device(place)
+        self._cache: "collections.OrderedDict[tuple, _Step]" = collections.OrderedDict()
+        # the run counter on the card for eager runs (graphs have their own)
+        self._counter = (torch.zeros((1,), dtype=torch.int64, device=self.device)
+                         if self.device.type == "cuda" else None)
 
     @staticmethod
     def _state_names(program: Program, feed: dict, fetch_names=()):
@@ -290,48 +403,221 @@ class Executor:
                 read.append(n)
         return read, written
 
-    def run(self, program: Optional[Program] = None, feed: Optional[dict] = None,
-            fetch_list: Optional[Sequence] = None, scope: Optional[Scope] = None,
-            return_numpy: bool = True):
-        """Run ``program`` once: persistable state comes from ``scope`` and
-        the state it writes goes back there. Fetches come back as numpy
-        (bf16 widened to float32, see ``to_numpy``) or, with
-        ``return_numpy=False``, as tensors on the device."""
-        program = program or default_main_program()
-        fetch_names = [v.name if isinstance(v, Variable) else str(v)
-                       for v in (fetch_list or [])]
-        scope = scope or global_scope()
-        feed = dict(feed or {})
-
-        state_in, state_out = self._state_names(program, feed, fetch_names)
+    def _state(self, program, feeds, fetch_names, scope):
+        """(state_in, state_out, name -> state tensor on the device). A state
+        value the scope does not hold as a tensor on the device is converted
+        to one it owns."""
+        state_in, state_out = self._state_names(program, feeds, fetch_names)
         missing = [n for n in state_in if scope.find_var(n) is None]
         if missing:
             raise RuntimeError(
                 f"persistable variables {missing[:8]} are uninitialized; run the "
                 f"startup program first (exe.run(default_startup_program())).")
-        env = {n: as_tensor(scope.find_var(n), self.device) for n in state_in}
-        env.update({k: as_tensor(v, self.device) for k, v in feed.items()})
+        return state_in, state_out, {n: owned_tensor(scope.find_var(n), self.device)
+                                     for n in state_in}
 
-        # run k of a program draws from (random_seed, k): results are
-        # deterministic per program regardless of what else ran
+    @staticmethod
+    def _advance(program: Program, k: int) -> int:
+        """The program's run counter before ``k`` runs, advanced by ``k``:
+        run c of a program draws from (random_seed, c), whatever else ran."""
         counter = getattr(program, "_rng_run_counter", 0)
-        program._rng_run_counter = counter + 1
-        seed = program.random_seed if program.random_seed is not None else 0
-        with torch.no_grad():
-            trace_block(program.global_block(), env, self.device, seed, counter,
-                        reuse_forward=self._reuse_forward,
-                        group_updates=self._group_updates)
-        # detached, so that no kept forward graph outlives the run through the
-        # scope (a batch norm's MeanOut made under autograd) or a fetch
-        for n in state_out:
-            if n in env:
-                scope.set_var(n, env[n].detach())
-        fetches = []
-        for n in fetch_names:
-            if n not in env:
-                raise KeyError(f"fetch variable {n!r} was not produced by the "
-                               f"program and is not in the feed/scope")
-            fetches.append(env[n].detach())
+        program._rng_run_counter = counter + k
+        return counter
+
+    @staticmethod
+    def _fetch_names(fetch_list) -> List[str]:
+        return [v.name if isinstance(v, Variable) else str(v) for v in (fetch_list or [])]
+
+    def run(self, program: Optional[Program] = None, feed: Optional[dict] = None,
+            fetch_list: Optional[Sequence] = None, scope: Optional[Scope] = None,
+            return_numpy: bool = True):
+        """Run ``program`` once: persistable state comes from ``scope`` and
+        the state it writes goes back there (updated in place where the
+        program names one variable for both, as ``ParamOut = Param``: a
+        tensor the caller holds changes). Fetches come back as numpy (bf16
+        widened to float32, see ``to_numpy``) or, with
+        ``return_numpy=False``, as tensors on the device."""
+        program = program or default_main_program()
+        fetch_names = self._fetch_names(fetch_list)
+        scope = scope or global_scope()
+        feeds = {k: as_tensor(v, self.device) for k, v in (feed or {}).items()}
+        counter = self._advance(program, 1)
+        fetches, replayed = self._run_step(program, feeds, fetch_names, scope, counter)
         if return_numpy:
             return [to_numpy(f) for f in fetches]
-        return fetches
+        return [f.clone() for f in fetches] if replayed else fetches
+
+    def run_fused(self, program: Optional[Program] = None, feeds=None,
+                  fetch_list: Optional[Sequence] = None, scope: Optional[Scope] = None,
+                  return_numpy: bool = False, stacked_feed: Optional[dict] = None):
+        """K training steps in one call, the JAX ``run_fused`` contract:
+        ``feeds`` is a list of K per-step feed dicts, or ``stacked_feed`` maps
+        each name to a (K, ...) array. The program's run counter advances by
+        K (step i draws from counter0 + i, exactly the unfused sequence) and
+        each fetch comes back stacked as (K, ...): tensors on the device by
+        default, numpy with ``return_numpy``. K = 1 delegates to ``run``.
+        On the card step i is a replay of the signature's graph (after its
+        warm-up and capture, as ``run``), with step i's feed copied in and
+        counter0 + i written first; on the CPU the steps run eagerly.
+
+        Raises ValueError for a program that cannot be captured (why, as the
+        JAX ``_fuse_ineligible``), TypeError for anything but a ``Program``
+        (``CompiledProgram`` is not ported)."""
+        program = program or default_main_program()
+        if not isinstance(program, Program):
+            raise TypeError(f"run_fused takes a Program, got {type(program).__name__} "
+                            f"(CompiledProgram is not ported)")
+        reason = capture_refusal(program)
+        if reason is not None:
+            raise ValueError(f"run_fused: program cannot run fused ({reason}); run it "
+                             f"unfused (Executor.run)")
+        fetch_names = self._fetch_names(fetch_list)
+        scope = scope or global_scope()
+        if stacked_feed is not None:
+            if not stacked_feed:
+                raise ValueError("run_fused needs a non-empty feed")
+            k = int(np.shape(next(iter(stacked_feed.values())))[0])
+            steps = [{n: v[i] for n, v in stacked_feed.items()} for i in range(k)]
+        else:
+            steps = list(feeds or [])
+            if not steps:
+                raise ValueError("run_fused needs a non-empty feeds list")
+            k = len(steps)
+        if k == 1:
+            vals = self.run(program, feed=steps[0], fetch_list=fetch_list, scope=scope,
+                            return_numpy=return_numpy)
+            return [v[None] for v in vals]
+        counter0 = self._advance(program, k)
+        stacked: List[torch.Tensor] = []
+        for i, step in enumerate(steps):
+            feeds_t = {n: as_tensor(v, self.device) for n, v in step.items()}
+            fetches, _ = self._run_step(program, feeds_t, fetch_names, scope, counter0 + i)
+            if i == 0:
+                stacked = [f.new_empty((k,) + tuple(f.shape)) for f in fetches]
+            for out, f in zip(stacked, fetches):
+                out[i].copy_(f)
+        if return_numpy:
+            return [to_numpy(t) for t in stacked]
+        return stacked
+
+    def close(self):
+        """Drop the cached steps: their CUDA graphs and the memory pools they
+        hold. The scope keeps its state."""
+        self._cache.clear()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- one step
+
+    def _run_step(self, program, feeds, fetch_names, scope, counter):
+        """One step: (fetches, whether they are a graph's outputs, which the
+        next replay overwrites)."""
+        if not self._captures():
+            return self._eager(program, feeds, fetch_names, scope, counter, self._counter), False
+        seed = program.random_seed if program.random_seed is not None else 0
+        key = (id(program), program._version,
+               tuple(sorted((k, tuple(t.shape), str(t.dtype)) for k, t in feeds.items())),
+               tuple(fetch_names), seed, id(scope))
+        step = self._cache.get(key)
+        if step is None:
+            step = self._cache[key] = _Step(capture_refusal(program))
+            while len(self._cache) > self._CACHE_CAP:
+                self._cache.popitem(last=False)
+        else:
+            self._cache.move_to_end(key)
+        if step.refusal is not None:
+            return self._eager(program, feeds, fetch_names, scope, counter, self._counter), False
+        if not step.warmed:
+            step.warmed = True
+            return cuda_graphs.warm_up(self.device, lambda: self._eager(
+                program, feeds, fetch_names, scope, counter, self._counter)), False
+        if step.graph is None:
+            self._capture(step, program, feeds, fetch_names, scope)
+        elif not self._guard(step, scope):
+            # the scope's state changed shape or dtype: a new executable
+            del self._cache[key]
+            return self._run_step(program, feeds, fetch_names, scope, counter)
+        for k, t in feeds.items():
+            step.feeds[k].copy_(t)
+        step.counter.fill_(counter)
+        step.graph.replay()
+        fetches, written = step.graph.outputs
+        for n, t in written.items():
+            scope.set_var(n, t.clone())
+        return fetches, True
+
+    def _captures(self) -> bool:
+        """Whether runs go through the cache of CUDA graphs: on the card,
+        unless ``_use_graphs`` is off."""
+        return self._use_graphs and self.device.type == "cuda"
+
+    def _trace(self, program, env, fetch_names, state_in, state_out, counter, counter_t):
+        """The program's ops over ``env``, freeing what no later op reads."""
+        seed = program.random_seed if program.random_seed is not None else 0
+        keep = frozenset(env) | frozenset(fetch_names) | frozenset(state_out) \
+            | frozenset(state_in)
+        with torch.no_grad():
+            trace_block(program.global_block(), env, self.device, seed, counter,
+                        reuse_forward=self._reuse_forward, group_updates=self._group_updates,
+                        counter_t=counter_t, keep=keep if self._free_dead else None)
+        missing = [n for n in fetch_names if n not in env]
+        if missing:
+            raise KeyError(f"fetch variable {missing[0]!r} was not produced by the "
+                           f"program and is not in the feed/scope")
+
+    def _eager(self, program, feeds, fetch_names, scope, counter, counter_t):
+        """The step run op by op; the state it writes goes to ``scope``."""
+        state_in, state_out, state = self._state(program, feeds, fetch_names, scope)
+        env = dict(state)
+        env.update(feeds)
+        if counter_t is not None:
+            counter_t.fill_(counter)
+        self._trace(program, env, fetch_names, state_in, state_out, counter, counter_t)
+        # detached, so that no kept forward graph outlives the run through the
+        # scope (a batch norm's MeanOut made under autograd) or a fetch; a
+        # state updated in place is the scope's own tensor already
+        for n in state_out:
+            if n in env and env[n] is not scope.find_var(n):
+                scope.set_var(n, env[n].detach())
+        return [env[n].detach() for n in fetch_names]
+
+    def _capture(self, step: _Step, program, feeds, fetch_names, scope):
+        """Capture the step as ``step.graph``, over the scope's state tensors
+        (rebound in the scope where they were not yet tensors on the card)."""
+        state_in, state_out, step.state = self._state(program, feeds, fetch_names, scope)
+        for n, t in step.state.items():
+            if scope.find_var(n) is not t:
+                scope.set_var(n, t)
+        step.feeds = {k: t.clone() for k, t in feeds.items()}
+        step.counter = torch.zeros((1,), dtype=torch.int64, device=self.device)
+        write_only = [n for n in state_out if n not in step.state]
+
+        def body():
+            env = dict(step.state)
+            env.update(step.feeds)
+            self._trace(program, env, fetch_names, state_in, state_out, 0, step.counter)
+            with torch.no_grad():
+                for n, t in step.state.items():   # the donated state
+                    if n in state_out and n in env and env[n] is not t:
+                        t.copy_(env[n])
+            return [env[n].detach() for n in fetch_names], \
+                {n: env[n].detach() for n in write_only if n in env}
+
+        step.graph = cuda_graphs.Graph(self.device, body)
+
+    def _guard(self, step: _Step, scope) -> bool:
+        """The identity guard before a replay: a state tensor the scope has
+        rebound (``set_var``, a load) is copied into the graph's and the
+        scope is rebound to it. False when one changed shape or dtype."""
+        for n, t in step.state.items():
+            cur = scope.find_var(n)
+            if cur is t:
+                continue
+            if cur is None:
+                raise RuntimeError(f"persistable variable {n!r} was erased from the scope")
+            src = owned_tensor(cur, self.device)
+            if src.shape != t.shape or src.dtype != t.dtype:
+                return False
+            t.copy_(src)
+            scope.set_var(n, t)
+        return True

@@ -62,6 +62,33 @@ def _mix(h: int, v: int) -> int:
     return h ^ (h >> 31)
 
 
+_U64 = 0xFFFFFFFFFFFFFFFF
+
+
+def seed_int(seed: int, counter: int, salt: int) -> int:
+    """The dropout seed of one op in one run: three splitmix64 rounds over
+    (program seed, run counter, salt), cut to 63 bits."""
+    s = _mix(_mix(_mix(0, seed), counter), salt & 0x7FFFFFFF)
+    return s & 0x7FFFFFFFFFFFFFFF
+
+
+class DeviceSeed:
+    """A dropout seed that a kernel derives on the card: ``seed_int``'s three
+    ``_mix`` rounds over (program seed, the run counter read from the
+    one-element int64 tensor ``counter``, ``salt``), computed in the kernel
+    (``run_seed`` in csrc/philox.cuh). A CUDA graph that captures the launch
+    reads whatever counter the executor wrote before the replay."""
+    __slots__ = ("counter", "seed", "salt")
+
+    def __init__(self, counter: torch.Tensor, seed: int, salt: int):
+        self.counter, self.seed, self.salt = counter, seed, salt
+
+    def args(self):
+        """(counter pointer, program seed, salt) as a kernel's C interface
+        takes them."""
+        return (self.counter.data_ptr(), self.seed & _U64, self.salt & 0x7FFFFFFF)
+
+
 class LowerCtx:
     """Per-op lowering context: attrs, the device new tensors go on (the CPU
     unless given), and RNG.
@@ -73,16 +100,24 @@ class LowerCtx:
     its grad op draws the same mask. ``rng(offset)`` is a ``torch.Generator``
     on ``device`` seeded with it. Under shape inference (``abstract``) there
     are no numbers to draw: ``rng`` returns None and ``seed_int`` 0.
+
+    ``counter_t`` is the run counter on the card, a one-element int64 tensor
+    that the executor owns and writes before each run (None off the card and
+    outside an executor). ``kernel_seed(offset)`` is what a kernel wrapper
+    takes: a ``DeviceSeed`` over it when there is one, else ``seed_int``. The
+    two give the same seed for the same counter.
     ``graphs`` is the run's table of kept forward graphs, which a generic
     grad op reads.
     """
 
     def __init__(self, attrs: dict, device=None, seed: int = 0, counter: int = 0,
-                 salt: int = 0, abstract: bool = False, graphs: Optional[dict] = None):
+                 salt: int = 0, abstract: bool = False, graphs: Optional[dict] = None,
+                 counter_t: Optional[torch.Tensor] = None):
         self.attrs = attrs
         self.device = torch.device(device if device is not None else "cpu")
         self.seed = seed
         self.counter = counter
+        self.counter_t = counter_t
         self._salt = salt
         self.abstract = abstract
         #: the run's kept forward graphs (``lower_keeping_graph``), or None
@@ -94,9 +129,12 @@ class LowerCtx:
     def seed_int(self, offset: int = 0) -> int:
         if self.abstract:
             return 0
-        s = _mix(_mix(_mix(0, self.seed), self.counter),
-                 (self._salt + offset) & 0x7FFFFFFF)
-        return s & 0x7FFFFFFFFFFFFFFF
+        return seed_int(self.seed, self.counter, self._salt + offset)
+
+    def kernel_seed(self, offset: int = 0):
+        if self.counter_t is None or self.abstract:
+            return self.seed_int(offset)
+        return DeviceSeed(self.counter_t, self.seed, self._salt + offset)
 
     def rng(self, offset: int = 0) -> Optional[torch.Generator]:
         if self.abstract:
@@ -117,7 +155,8 @@ def stable_salt(name: str) -> int:
 class OpDef:
     def __init__(self, type: str, lower: Callable, infer_shape: Optional[Callable] = None,
                  grad: Any = "auto", nondiff_inputs: Sequence[str] = (),
-                 nondiff_outputs: Sequence[str] = (), state_inputs: Sequence[str] = ()):
+                 nondiff_outputs: Sequence[str] = (), state_inputs: Sequence[str] = (),
+                 host_rng: bool = False):
         self.type = type
         self.lower = lower
         self.custom_infer_shape = infer_shape
@@ -128,13 +167,16 @@ class OpDef:
         # batch norm's Mean / Variance): its differentiable outputs do not
         # read it in train mode, and in test mode it is written back unchanged
         self.state_inputs = frozenset(state_inputs)
+        # draws from a host-seeded torch.Generator (the run counter baked in
+        # at launch): a program holding such an op is not captured as a graph
+        self.host_rng = host_rng
 
 
 _REGISTRY: Dict[str, OpDef] = {}
 
 
 def register(type: str, *, grad="auto", nondiff_inputs=(), nondiff_outputs=(),
-             infer_shape=None, state_inputs=()):
+             infer_shape=None, state_inputs=(), host_rng=False):
     """Decorator: register ``fn(ctx, ins) -> outs`` as the lowering for ``type``
     (``infer_shape(op, block)`` replaces the meta-tensor inference)."""
 
@@ -142,7 +184,7 @@ def register(type: str, *, grad="auto", nondiff_inputs=(), nondiff_outputs=(),
         if type in _REGISTRY:
             raise ValueError(f"op type {type!r} already registered")
         _REGISTRY[type] = OpDef(type, fn, infer_shape, grad, nondiff_inputs,
-                                nondiff_outputs, state_inputs)
+                                nondiff_outputs, state_inputs, host_rng)
         return fn
 
     return deco
@@ -314,7 +356,7 @@ def _generic_grad_lower(fwd: OpDef, ctx, ins):
     else:
         full, diff_keys, primals = _differentiable(fwd, ins, fwd_in_slots)
         fwd_ctx = LowerCtx(fwd_attrs, ctx.device, ctx.seed, ctx.counter, ctx._salt,
-                           ctx.abstract)
+                           ctx.abstract, counter_t=ctx.counter_t)
         with torch.enable_grad():
             outs = fwd.lower(fwd_ctx, full)
     del kept

@@ -84,7 +84,7 @@ struct Params {
   float dropout;     // 0: no dropout
   float keep_scale;  // 1 / (1 - dropout)
   uint32_t threshold;  // uint32(dropout * 2^32): kept when bits >= threshold
-  unsigned long long seed;
+  flash_philox::SeedSource rng;  // the dropout seed: by value or from the run counter
 };
 
 // ---------------------------------------------------------------------------------------
@@ -153,6 +153,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dkdv_bf16_kernel(const Params
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y;
+  const unsigned long long seed = p.dropout > 0.f ? flash_philox::run_seed(p.rng) : 0ull;
   const int b = bh / p.H, h = bh % p.H;
   const int S = p.S;
   const int k0 = blockIdx.x * kKeys;
@@ -256,7 +257,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dkdv_bf16_kernel(const Params
           const int kl = wc + c + j * 8 + t * 2;  // block-local key of elements 0 and 2
           float f[4] = {1.f, 1.f, 1.f, 1.f};
           if (p.dropout > 0.f) {
-            const uint4 bits = dropout_bits4(p.seed, bh, q0 + lr[0], k0 + kl);
+            const uint4 bits = dropout_bits4(seed, bh, q0 + lr[0], k0 + kl);
             f[0] = bits.x >= p.threshold ? p.keep_scale : 0.f;
             f[1] = bits.y >= p.threshold ? p.keep_scale : 0.f;
             f[2] = bits.z >= p.threshold ? p.keep_scale : 0.f;
@@ -376,6 +377,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dq_bf16_kernel(const Params p
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y;
+  const unsigned long long seed = p.dropout > 0.f ? flash_philox::run_seed(p.rng) : 0ull;
   const int b = bh / p.H, h = bh % p.H;
   const int S = p.S;
   const int q0 = blockIdx.x * kDqRows;
@@ -473,7 +475,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dq_bf16_kernel(const Params p
         const int kl = c + j * 8 + t * 2;
         float f[4] = {1.f, 1.f, 1.f, 1.f};
         if (p.dropout > 0.f) {
-          const uint4 bits = dropout_bits4(p.seed, bh, row[0], k0 + kl);
+          const uint4 bits = dropout_bits4(seed, bh, row[0], k0 + kl);
           f[0] = bits.x >= p.threshold ? p.keep_scale : 0.f;
           f[1] = bits.y >= p.threshold ? p.keep_scale : 0.f;
           f[2] = bits.z >= p.threshold ? p.keep_scale : 0.f;
@@ -564,6 +566,7 @@ __global__ void __launch_bounds__(kF32Rows) bwd_dkdv_f32_kernel(const Params p) 
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.y;
+  const unsigned long long seed = p.dropout > 0.f ? flash_philox::run_seed(p.rng) : 0ull;
   const int b = bh / p.H, h = bh % p.H;
   const int S = p.S;
   const int k0 = blockIdx.x * kF32Rows;
@@ -612,7 +615,7 @@ __global__ void __launch_bounds__(kF32Rows) bwd_dkdv_f32_kernel(const Params p) 
       if (!(p.causal && key > query)) prob = expf(s * p.scale + kbias - sLse[qi]);
       float f = 1.f;
       if (p.dropout > 0.f)
-        f = dropout_bits(p.seed, bh, query, key) >= p.threshold ? p.keep_scale : 0.f;
+        f = dropout_bits(seed, bh, query, key) >= p.threshold ? p.keep_scale : 0.f;
       const float pd = prob * f;
       const float ds = prob * (dpr * f - sDelta[qi]);
 #pragma unroll
@@ -642,6 +645,7 @@ __global__ void __launch_bounds__(kF32Rows) bwd_dq_f32_kernel(const Params p) {
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.y;
+  const unsigned long long seed = p.dropout > 0.f ? flash_philox::run_seed(p.rng) : 0ull;
   const int b = bh / p.H, h = bh % p.H;
   const int S = p.S;
   const int q0 = blockIdx.x * kF32Rows;
@@ -691,7 +695,7 @@ __global__ void __launch_bounds__(kF32Rows) bwd_dq_f32_kernel(const Params p) {
       if (!(p.causal && key > row)) prob = expf(s * p.scale + sBias[kj] - lse);
       float f = 1.f;
       if (p.dropout > 0.f)
-        f = dropout_bits(p.seed, bh, row, key) >= p.threshold ? p.keep_scale : 0.f;
+        f = dropout_bits(seed, bh, row, key) >= p.threshold ? p.keep_scale : 0.f;
       const float ds = prob * (dpr * f - delta);
 #pragma unroll
       for (int d = 0; d < D; ++d) dq[d] = fmaf(ds, kr[d], dq[d]);
@@ -747,7 +751,9 @@ cudaError_t launch(const Params& p, int B, int variant, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16; variant as above (0 with float32, 1 or 2 with bfloat16;
 // 1 needs S <= 128). delta is [B, H, S] f32 scratch (unused by variant 1). dropout in [0, 1);
-// threshold = uint32(dropout * 2^32). Returns a cudaError_t (0 = launched).
+// threshold = uint32(dropout * 2^32). The dropout seed is `seed` when counter is null, else
+// seed_of(program_seed, *counter, salt) (philox.cuh), as the forward's. Returns a cudaError_t
+// (0 = launched).
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const void* bias,
                               const void* o, const void* dout, const void* lse, void* delta,
                               void* dq, void* dk, void* dv, long long q_sb, long long q_sh,
@@ -755,7 +761,9 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const
                               long long v_sb, long long v_sh, long long v_ss, int B, int H,
                               int S, int D, float scale, int causal, int has_bias, int dtype,
                               float dropout, unsigned int threshold,
-                              unsigned long long seed, int variant, void* stream) {
+                              unsigned long long seed, const void* counter,
+                              unsigned long long program_seed, unsigned long long salt,
+                              int variant, void* stream) {
   const bool variant_ok = dtype == 0 ? variant == 0
                         : dtype == 1 ? (variant == 2 || (variant == 1 && S <= kKeys))
                                      : false;
@@ -772,7 +780,7 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const
   p.v_sb = v_sb, p.v_sh = v_sh, p.v_ss = v_ss;
   p.H = H, p.S = S, p.scale = scale, p.causal = causal;
   p.dropout = dropout, p.keep_scale = 1.f / (1.f - dropout), p.threshold = threshold;
-  p.seed = seed;
+  p.rng = {static_cast<const long long*>(counter), program_seed, salt, seed};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32: return launch<32>(p, B, variant, st);

@@ -39,7 +39,8 @@
 // Training adds two optional parts, both off for serving (lse == nullptr, dropout == 0):
 //  * lse [B, H, S] f32: m + log(l) of each row (row max and sum of the undropped
 //    probabilities), which the backward kernels (flash_attn_bwd.cu) use to recompute P;
-//  * attention dropout p with a 64-bit seed: the keep mask comes from Philox4x32-10 inside
+//  * attention dropout p with a 64-bit seed, given by value or derived in the kernel from the
+//    run counter on the card (philox.cuh, run_seed): the keep mask comes from Philox4x32-10 inside
 //    the kernel (philox.cuh), one call per m16n8 score fragment (its four elements are one
 //    call's four words), kept probabilities are scaled by 1/(1-p) before P V, and the row
 //    sum l is taken over the undropped probabilities, as the TPU kernel's `pd` is
@@ -77,7 +78,7 @@ struct Params {
   float dropout;     // 0: no dropout
   float keep_scale;  // 1 / (1 - dropout)
   uint32_t threshold;  // uint32(dropout * 2^32): kept when bits >= threshold
-  unsigned long long seed;
+  flash_philox::SeedSource rng;  // the dropout seed: by value or from the run counter
 };
 
 // ---------------------------------------------------------------------------------------
@@ -112,6 +113,7 @@ __global__ void __launch_bounds__(kBf16Threads, 3) flash_fwd_bf16_kernel(const P
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;  // mma fragment row group and column pair
   const int bh = blockIdx.y;
+  const unsigned long long seed = kDrop ? flash_philox::run_seed(p.rng) : 0ull;
   const int b = bh / p.H, h = bh % p.H;
   const int S = p.S;
   const int q0 = blockIdx.x * kBM;
@@ -263,7 +265,7 @@ __global__ void __launch_bounds__(kBf16Threads, 3) flash_fwd_bf16_kernel(const P
         l_run[mt][0] += p0 + p1;
         l_run[mt][1] += p2 + p3;
         if (kDrop) {
-          const uint4 bits = dropout_bits4(p.seed, bh, row[mt][0], k0 + j * 8 + t * 2);
+          const uint4 bits = dropout_bits4(seed, bh, row[mt][0], k0 + j * 8 + t * 2);
           p0 = bits.x >= p.threshold ? p0 * p.keep_scale : 0.f;
           p1 = bits.y >= p.threshold ? p1 * p.keep_scale : 0.f;
           p2 = bits.z >= p.threshold ? p2 * p.keep_scale : 0.f;
@@ -339,6 +341,7 @@ __global__ void __launch_bounds__(kF32Rows) flash_fwd_f32_kernel(const Params p)
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.y;
+  const unsigned long long seed = p.dropout > 0.f ? flash_philox::run_seed(p.rng) : 0ull;
   const int b = bh / p.H, h = bh % p.H;
   const int S = p.S;
   const int q_first = blockIdx.x * kF32Rows;
@@ -410,7 +413,7 @@ __global__ void __launch_bounds__(kF32Rows) flash_fwd_f32_kernel(const Params p)
       float pj = expf(s[j] - m_use);
       l_run += pj;
       if (p.dropout > 0.f) {
-        if ((j & 1) == 0) bits = dropout_bits4(p.seed, bh, row, k0 + j);  // keys j, j + 1
+        if ((j & 1) == 0) bits = dropout_bits4(seed, bh, row, k0 + j);  // keys j, j + 1
         pj = word(bits, word0 + (j & 1)) >= p.threshold ? pj * p.keep_scale : 0.f;
       }
 #pragma unroll
@@ -454,14 +457,17 @@ cudaError_t launch(const Params& p, int B, int dtype, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. lse may be null (not written). dropout in [0, 1);
-// threshold = uint32(dropout * 2^32). Returns a cudaError_t (0 = launched).
+// threshold = uint32(dropout * 2^32). The dropout seed is `seed` when counter is null, else
+// seed_of(program_seed, *counter, salt) (philox.cuh). Returns a cudaError_t (0 = launched).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const void* bias,
                               void* o, void* lse, long long q_sb, long long q_sh,
                               long long q_ss, long long k_sb, long long k_sh, long long k_ss,
                               long long v_sb, long long v_sh, long long v_ss, int B, int H,
                               int S, int D, float scale, int causal, int has_bias, int dtype,
                               float dropout, unsigned int threshold,
-                              unsigned long long seed, void* stream) {
+                              unsigned long long seed, const void* counter,
+                              unsigned long long program_seed, unsigned long long salt,
+                              void* stream) {
   if (B <= 0 || H <= 0 || S <= 0 || B * H > 65535 || (dtype != 0 && dtype != 1) ||
       !(dropout >= 0.f && dropout < 1.f))
     return cudaErrorInvalidValue;
@@ -469,7 +475,7 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const
   p.q = q, p.k = k, p.v = v, p.bias = has_bias ? bias : nullptr, p.o = o;
   p.lse = static_cast<float*>(lse);
   p.dropout = dropout, p.keep_scale = 1.f / (1.f - dropout), p.threshold = threshold;
-  p.seed = seed;
+  p.rng = {static_cast<const long long*>(counter), program_seed, salt, seed};
   p.q_sb = q_sb, p.q_sh = q_sh, p.q_ss = q_ss;
   p.k_sb = k_sb, p.k_sh = k_sh, p.k_ss = k_ss;
   p.v_sb = v_sb, p.v_sh = v_sh, p.v_ss = v_ss;

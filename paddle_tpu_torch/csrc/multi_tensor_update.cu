@@ -6,7 +6,9 @@
 //              p' = p - (lr_t m') / (sqrt(v') + eps)    b1p' = b1p b1, b2p' = b2p b2
 //   momentum:  v' = mu v + g    p' = p - lr v'   (nesterov: p' = p - (g + mu v') lr)
 // p and g are f32 or bf16 (each tensor its own), the accumulators f32; the arithmetic is
-// f32, p' is rounded back to p's dtype.
+// f32, p' is rounded back to p's dtype. The update is in place: p', m', v' and the beta powers
+// overwrite p, m, v and the powers (the programs name one variable for both, ParamOut =
+// Param), the counterpart of the JAX step's donated state.
 //
 // Replaces: no Pallas kernel. It is the port's counterpart of the JAX package's
 // fuse_all_optimizer_ops (paddle_tpu/compiler.py), under which XLA updates all parameters
@@ -23,12 +25,19 @@
 // about 22 B an element, ~2.4 GB, ~0.72 ms; ResNet-50 momentum (~25.6 M, bf16 p and g,
 // f32 velocity) about 14 B an element, ~0.36 GB, ~0.11 ms.
 //
-// Design: the wrapper writes a table into one device buffer: a 128-byte descriptor per
-// tensor (its pointers, size and flags) and a list of work items (tensor, chunk of 65536
+// Design: the wrapper writes a table into one device buffer, built once per parameter layout
+// and kept (under a CUDA graph capture, one for the graph: fill_table's launches carry the
+// table in their parameters, so every replay writes it again just before the update reads
+// it; a buffer of the graph's pool may have held an earlier node's data): a 128-byte
+// descriptor per tensor (one pointer for each tensor it reads, or reads
+// and writes, its size and flags) and a list of work items (tensor, chunk of 65536
 // elements). A grid of up to 16 blocks an SM strides over the items; a block's 256 threads
 // each take 8 consecutive elements at a time, with 16-byte loads and stores (bf16: one,
 // f32: two) where all of a tensor's pointers are 16-byte aligned, and one element at a time
-// otherwise and for the ragged end. The block of chunk 0 writes the beta powers.
+// otherwise and for the ragged end. Every element is read and written by one thread, through
+// one pointer, so the in-place update needs no ordering; the data pointers carry no
+// __restrict__ (only the table, which nothing writes, does). The beta powers, which every
+// chunk of a tensor reads, are advanced by a second launch after the first (beta_pow_kernel).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,21 +50,16 @@ constexpr int kVec = 8;
 constexpr long long kPBf16 = 1, kGBf16 = 2, kVector = 4;
 
 struct Desc {                // 16 int64 slots, as ops/multi_tensor.py writes them
-  const void* p;
+  void* p;                   // read and written
   const void* g;
-  const float* m;            // moment1 (adam) or velocity (momentum)
-  const float* v;            // moment2 (adam)
+  float* m;                  // moment1 (adam) or velocity (momentum): read and written
+  float* v;                  // moment2 (adam): read and written
   const float* lr;
-  const float* b1p;
-  const float* b2p;
-  void* p_out;
-  float* m_out;
-  float* v_out;
-  float* b1p_out;
-  float* b2p_out;
+  float* b1p;                // beta powers (adam): read, then advanced by beta_pow_kernel
+  float* b2p;
   long long n;
   long long flags;
-  long long unused[2];
+  long long unused[7];
 };
 static_assert(sizeof(Desc) == 128, "descriptor layout");
 
@@ -142,13 +146,10 @@ __global__ void __launch_bounds__(kThreads)
     // the descriptor's fields in registers: the loop below stores through
     // pointers the compiler cannot tell from the table's memory
     const Desc& d = descs[item.x];
-    const void* const p_in = d.p;
-    const void* const g_in = d.g;
-    const float* const m_in = d.m;
-    const float* const v_in = d.v;
-    void* const p_out = d.p_out;
-    float* const m_out = d.m_out;
-    float* const v_out = d.v_out;
+    void* const p_ptr = d.p;
+    const void* const g_ptr = d.g;
+    float* const m_ptr = d.m;
+    float* const v_ptr = d.v;
     const long long flags = d.flags;
     const long long start = static_cast<long long>(item.y) * chunk;
     const long long end = min(start + chunk, d.n);
@@ -158,10 +159,6 @@ __global__ void __launch_bounds__(kThreads)
       const float b1p = *d.b1p, b2p = *d.b2p;
       scale = __fdiv_rn(__fmul_rn(*d.lr, __fsqrt_rn(__fsub_rn(1.f, b2p))),
                         __fsub_rn(1.f, b1p));
-      if (item.y == 0 && threadIdx.x == 0) {
-        *d.b1p_out = __fmul_rn(b1p, s.b1);
-        *d.b2p_out = __fmul_rn(b2p, s.b2);
-      }
     } else {
       scale = *d.lr;
     }
@@ -171,32 +168,74 @@ __global__ void __launch_bounds__(kThreads)
       for (long long q = threadIdx.x; q < groups; q += kThreads) {
         const long long i = start + q * kVec;
         float p[kVec], g[kVec], m[kVec], v[kVec];
-        load8(p_in, i, p16, p);
-        load8(g_in, i, g16, g);
-        load8f(m_in, i, m);
-        if (kAdam) load8f(v_in, i, v);
+        load8(p_ptr, i, p16, p);
+        load8(g_ptr, i, g16, g);
+        load8f(m_ptr, i, m);
+        if (kAdam) load8f(v_ptr, i, v);
 #pragma unroll
         for (int k = 0; k < kVec; ++k) p[k] = update<kAdam>(p[k], g[k], m[k], v[k], scale, s);
-        store8(p_out, i, p16, p);
-        store8f(m_out, i, m);
-        if (kAdam) store8f(v_out, i, v);
+        store8(p_ptr, i, p16, p);
+        store8f(m_ptr, i, m);
+        if (kAdam) store8f(v_ptr, i, v);
       }
       tail = start + groups * kVec;
     }
     for (long long i = tail + threadIdx.x; i < end; i += kThreads) {
-      float m = m_in[i], v = kAdam ? v_in[i] : 0.f;
-      const float p = update<kAdam>(load1(p_in, i, p16), load1(g_in, i, g16), m, v, scale, s);
-      store1(p_out, i, p16, p);
-      m_out[i] = m;
-      if (kAdam) v_out[i] = v;
+      float m = m_ptr[i], v = kAdam ? v_ptr[i] : 0.f;
+      const float p = update<kAdam>(load1(p_ptr, i, p16), load1(g_ptr, i, g16), m, v, scale, s);
+      store1(p_ptr, i, p16, p);
+      m_ptr[i] = m;
+      if (kAdam) v_ptr[i] = v;
     }
   }
 }
 
+// Adam's beta powers, one tensor a thread: b1p' = b1p b1, b2p' = b2p b2. Launched after
+// multi_tensor_kernel, whose every block reads the old powers.
+__global__ void __launch_bounds__(kThreads)
+    beta_pow_kernel(const Desc* __restrict__ descs, int n_tensors, float b1, float b2) {
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  if (t < n_tensors) {
+    *descs[t].b1p = __fmul_rn(*descs[t].b1p, b1);
+    *descs[t].b2p = __fmul_rn(*descs[t].b2p, b2);
+  }
+}
+
+// Words of a table a fill launch carries in its parameters: 8 + 8 * kFillWords + 4 bytes,
+// inside the 4 KB a launch's parameters may take.
+constexpr int kFillWords = 500;
+struct FillWords {
+  long long w[kFillWords];
+};
+
+__global__ void __launch_bounds__(kThreads)
+    fill_table_kernel(long long* __restrict__ dst, const FillWords src, int n) {
+  for (int i = threadIdx.x; i < n; i += kThreads) dst[i] = src.w[i];
+}
+
 }  // namespace
 
+// Writes n_words int64 words from host memory into the device buffer dst, in stream order: one
+// launch per kFillWords words, each carrying its words in its parameters (so a captured graph
+// holds them). Returns the CUDA error of the launches (0 on success).
+extern "C" int fill_table(void* dst, const void* words, long long n_words, void* stream) {
+  if (n_words <= 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long* src = static_cast<const long long*>(words);
+  for (long long off = 0; off < n_words; off += kFillWords) {
+    FillWords chunk;
+    const int n = static_cast<int>(n_words - off < kFillWords ? n_words - off : kFillWords);
+    for (int i = 0; i < n; ++i) chunk.w[i] = src[off + i];
+    fill_table_kernel<<<1, kThreads, 0, st>>>(static_cast<long long*>(dst) + off, chunk, n);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 // table: n_tensors descriptors (128 bytes each), then n_chunks (tensor, chunk) int32 pairs.
-// kind: 0 adam, 1 momentum. Returns the CUDA error of the launch (0 on success).
+// kind: 0 adam (two launches: the update, then the beta powers), 1 momentum. Returns the CUDA
+// error of the launches (0 on success).
 extern "C" int multi_tensor_update(const void* table, int n_tensors, int n_chunks, int chunk,
                                    int kind, float b1, float omb1, float b2, float omb2,
                                    float eps, float mu, int nesterov, int grid, void* stream) {
@@ -207,9 +246,14 @@ extern "C" int multi_tensor_update(const void* table, int n_tensors, int n_chunk
   const int2* chunks = reinterpret_cast<const int2*>(descs + n_tensors);
   const Scalars s{b1, omb1, b2, omb2, eps, mu, nesterov};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kind == 0)
-    multi_tensor_kernel<true><<<grid, kThreads, 0, st>>>(descs, chunks, n_chunks, chunk, s);
-  else
+  if (kind == 1) {
     multi_tensor_kernel<false><<<grid, kThreads, 0, st>>>(descs, chunks, n_chunks, chunk, s);
+    return cudaGetLastError();
+  }
+  multi_tensor_kernel<true><<<grid, kThreads, 0, st>>>(descs, chunks, n_chunks, chunk, s);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  beta_pow_kernel<<<(n_tensors + kThreads - 1) / kThreads, kThreads, 0, st>>>(descs, n_tensors,
+                                                                             b1, b2);
   return cudaGetLastError();
 }

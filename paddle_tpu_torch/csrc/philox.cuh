@@ -19,6 +19,15 @@
 //
 // An element is kept when its bits are >= uint32(p * 2^32), as the TPU kernel decides.
 //
+// The seed. A kernel takes it either by value or as a SeedSource: a pointer to the run
+// counter on the card (a one-element int64 tensor the executor writes before each run), the
+// program seed and the op's salt. run_seed then computes in the kernel what the host's
+// core/registry.py::seed_int computes: three splitmix64 rounds over (program seed, counter,
+// salt & 0x7FFFFFFF), cut to 63 bits, all in unsigned 64-bit arithmetic that wraps as the
+// host masks to 64 bits. A CUDA graph that captured the launch thus draws the masks of the
+// counter written before each replay, and an eager launch with the same counter draws the
+// same ones.
+//
 // Cost: a call is 10 rounds of two 32x32 -> 64-bit multiplies, xors and key additions. At
 // 0.25 calls per element that is 6.3 M calls for one BERT-base attention (B 128, H 12, S 128),
 // 0.024 ms of the forward on an H100 (PERF.md): after the bytes, the largest part of the
@@ -29,6 +38,35 @@
 #include <stdint.h>
 
 namespace flash_philox {
+
+// One splitmix64 round folding v into h (core/registry.py::_mix).
+__host__ __device__ __forceinline__ unsigned long long mix64(unsigned long long h,
+                                                             unsigned long long v) {
+  h = (h ^ v) + 0x9E3779B97F4A7C15ull;
+  h = (h ^ (h >> 30)) * 0xBF58476D1CE4E5B9ull;
+  h = (h ^ (h >> 27)) * 0x94D049BB133111EBull;
+  return h ^ (h >> 31);
+}
+
+struct SeedSource {
+  const long long* counter;         // the run counter on the card; null: take `seed`
+  unsigned long long program_seed;  // Program.random_seed
+  unsigned long long salt;          // the op's salt (+ offset); masked to 31 bits below
+  unsigned long long seed;          // the seed by value, when counter is null
+};
+
+// The 64-bit Philox key of one op in one run (core/registry.py::seed_int).
+__host__ __device__ __forceinline__ unsigned long long seed_of(unsigned long long program_seed,
+                                                               unsigned long long counter,
+                                                               unsigned long long salt) {
+  return mix64(mix64(mix64(0ull, program_seed), counter), salt & 0x7FFFFFFFull) &
+         0x7FFFFFFFFFFFFFFFull;
+}
+
+__device__ __forceinline__ unsigned long long run_seed(const SeedSource& s) {
+  if (s.counter == nullptr) return s.seed;
+  return seed_of(s.program_seed, static_cast<unsigned long long>(*s.counter), s.salt);
+}
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1) {
 #pragma unroll

@@ -26,7 +26,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from .core import cuda_build
+from .core import graphs
 from .core.executor import (Scope, as_tensor, resolve_device, scope_guard, to_numpy,
                             trace_block)
 from .core.registry import torch_dtype
@@ -85,47 +85,26 @@ class _EagerRun:
 
 class _GraphRun:
     """The executable of a signature on the card: one CUDA graph of the
-    program over static feed buffers, in a memory pool of its own. Call it
-    under ``lock``: the feed and fetch buffers are shared.
-
-    The kernel wrappers' ``launches`` are host counters that a replay does
-    not move, so the capture's launches are taken back off them and added
-    again on every replay: they count what ran."""
+    program over static feed buffers, in a memory pool of its own
+    (``core/graphs.py``), after a warm-up run on a side stream. Call it under
+    ``lock``: the feed and fetch buffers are shared."""
 
     def __init__(self, pred: "Predictor", state, feeds: Dict[str, torch.Tensor], lock):
         self.lock = lock
         dev = pred.device
         self._feeds = {k: t.clone() for k, t in feeds.items()}
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            pred._trace(state, self._feeds)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()     # as the capture does first: what it adds is its pool
-        before = {fn: fn.launches for fn in cuda_build.COUNTED}
-        reserved = torch.cuda.memory_reserved(dev)
-        self.graph = torch.cuda.CUDAGraph()
-        # thread_local: another thread serving its own signature meanwhile does
-        # not break this capture (the capturing thread's own syncs still do)
-        with torch.cuda.graph(self.graph, pool=torch.cuda.graph_pool_handle(),
-                              capture_error_mode="thread_local"):
-            self._fetches = pred._trace(state, self._feeds)
+        graphs.warm_up(dev, lambda: pred._trace(state, self._feeds))
+        self._graph = graphs.Graph(dev, lambda: pred._trace(state, self._feeds))
         #: device memory the capture reserved for this signature's pool (bytes)
-        self.memory_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self.launches = {}
-        for fn, n in before.items():
-            if fn.launches != n:
-                self.launches[fn] = fn.launches - n
-                fn.launches = n
+        self.memory_bytes = self._graph.memory_bytes
+        #: each kernel wrapper's launches in one replay
+        self.launches = self._graph.launches
 
     def __call__(self, feeds: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
         for k, t in feeds.items():
             self._feeds[k].copy_(t)
-        self.graph.replay()
-        for fn, n in self.launches.items():
-            fn.launches += n
-        return self._fetches
+        self._graph.replay()
+        return self._graph.outputs
 
 
 class Predictor:
@@ -248,11 +227,13 @@ class Predictor:
         return exe
 
     def _trace(self, state, feeds) -> List[torch.Tensor]:
-        """The pruned program's ops over the pinned state and the feeds."""
+        """The pruned program's ops over the pinned state and the feeds, each
+        intermediate dropped after its last reader."""
         env = dict(state)
         env.update(feeds)
+        keep = frozenset(env) | frozenset(self.fetch_names)
         with torch.inference_mode():
-            trace_block(self.program.global_block(), env, self.device)
+            trace_block(self.program.global_block(), env, self.device, keep=keep)
         return [env[n] for n in self.fetch_names]
 
     predict = run

@@ -7,6 +7,7 @@ from . import elementwise      # noqa: F401
 from . import math_ops         # noqa: F401
 from . import activations      # noqa: F401
 from . import tensor_ops       # noqa: F401
+from . import dropout          # noqa: F401
 from . import nn_ops           # noqa: F401
 from . import flash_attention  # noqa: F401
 from . import conv_bn          # noqa: F401

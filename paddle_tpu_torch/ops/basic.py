@@ -2,8 +2,11 @@
 ``paddle_tpu/ops/basic.py``).
 
 New tensors go on ``ctx.device`` (the meta device under shape inference).
-Random ops draw from the op's ``torch.Generator``; the numbers differ from
-the JAX package's, so tests hold them by mean and std, not by bits.
+Random ops draw from the op's ``torch.Generator``, seeded on the host; the
+numbers differ from the JAX package's, so tests hold them by mean and std,
+not by bits. They run in startup programs, once: they are registered
+``host_rng``, and the executor does not capture a program that holds one as
+a CUDA graph (a replay would draw the numbers of the captured run again).
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ def fill_constant(ctx, ins):
                                device=ctx.device)]}
 
 
-@register("gaussian_random", grad=None)
+@register("gaussian_random", grad=None, host_rng=True)
 def gaussian_random(ctx, ins):
     x = torch.randn(_shape(ctx), generator=ctx.rng(ctx.attr("seed", 0)),
                     dtype=torch.float32, device=ctx.device)
@@ -31,7 +34,7 @@ def gaussian_random(ctx, ins):
     return {"Out": [x.to(torch_dtype(ctx.attr("dtype", "float32")))]}
 
 
-@register("uniform_random", grad=None)
+@register("uniform_random", grad=None, host_rng=True)
 def uniform_random(ctx, ins):
     lo, hi = ctx.attr("min", -1.0), ctx.attr("max", 1.0)
     x = torch.rand(_shape(ctx), generator=ctx.rng(ctx.attr("seed", 0)),

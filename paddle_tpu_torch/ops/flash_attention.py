@@ -9,10 +9,13 @@ and ``csrc/flash_attn_bwd.cu`` replaces ``_flash_bwd`` / ``_bwd_kernel``.
 way ``_flash.defvjp`` does. ``attention_plain`` transcribes
 ``composed_attention`` and ``attention_bwd_plain`` the backward kernel.
 
-Attention dropout draws its keep mask from Philox4x32-10 keyed by a host
-integer seed (``csrc/philox.cuh``); ``philox_keep_mask`` computes the same
-bits with integer tensor arithmetic, so the plain versions drop exactly the
-kernels' elements. (The TPU kernel's bits cannot be reproduced: dropout is
+Attention dropout draws its keep mask from Philox4x32-10 keyed by a 64-bit
+seed (``csrc/philox.cuh``); ``philox_keep_mask`` computes the same bits with
+integer tensor arithmetic, so the plain versions drop exactly the kernels'
+elements. Inside an executor on the card the kernels take the seed as a
+``registry.DeviceSeed`` and derive it from the run counter on the card, so a
+CUDA graph of a training step draws fresh masks at every replay; the plain
+versions take the same seed as the host integer ``LowerCtx.seed_int``. (The TPU kernel's bits cannot be reproduced: dropout is
 held against the JAX package by its statistics.)
 
 Routing is by the device of the tensors: a CPU tensor takes the plain
@@ -29,7 +32,7 @@ from typing import Optional
 import torch
 
 from ..core import cuda_build
-from ..core.registry import register
+from ..core.registry import DeviceSeed, register
 
 #: head widths the kernels are compiled for (``launch<D>`` in csrc/flash_attn_*.cu)
 HEAD_DIMS = (32, 64)
@@ -67,12 +70,51 @@ def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
     return c0, c1, c2, c3
 
 
+def _xorshift(hi, lo, k: int):
+    """(hi, lo) ^ ((hi, lo) >> k) on 32-bit words, 0 < k < 32."""
+    return hi ^ (hi >> k), lo ^ (((lo >> k) | (hi << (32 - k))) & _U32)
+
+
+def _mul64(hi, lo, c: int):
+    """(hi, lo) * c mod 2^64 on 32-bit words, c a 64-bit constant."""
+    ch, cl = c >> 32, c & _U32
+    h0, l0 = _mulhilo(cl, lo)
+    return (h0 + _mulhilo(cl, hi)[1] + _mulhilo(ch, lo)[1]) & _U32, l0
+
+
+def _mix_words(h, v):
+    """``registry._mix`` on 64-bit values held as (high, low) 32-bit words,
+    ints or int64 tensors: every intermediate stays below 2^63."""
+    hi, lo = h[0] ^ v[0], h[1] ^ v[1]
+    lo = lo + (0x9E3779B97F4A7C15 & _U32)
+    hi, lo = (hi + (0x9E3779B97F4A7C15 >> 32) + (lo >> 32)) & _U32, lo & _U32
+    hi, lo = _mul64(*_xorshift(hi, lo, 30), 0xBF58476D1CE4E5B9)
+    hi, lo = _mul64(*_xorshift(hi, lo, 27), 0x94D049BB133111EB)
+    return _xorshift(hi, lo, 31)
+
+
+def philox_key(seed):
+    """The Philox key words (k0, k1) of a dropout seed: an int's low and high
+    words; for a ``DeviceSeed``, ``seed_int``'s rounds over its counter,
+    computed on the counter's device with integer tensor ops (no host read,
+    so a CUDA graph can capture them), as ``run_seed`` does in the kernels."""
+    if not isinstance(seed, DeviceSeed):
+        seed &= 0xFFFFFFFFFFFFFFFF
+        return seed & _U32, seed >> 32
+    c = seed.counter.reshape(())
+    s = seed.seed & 0xFFFFFFFFFFFFFFFF
+    h = _mix_words((0, 0), (s >> 32, s & _U32))
+    h = _mix_words(h, ((c >> 32) & _U32, c & _U32))
+    hi, lo = _mix_words(h, (0, seed.salt & 0x7FFFFFFF))
+    return lo, hi & 0x7FFFFFFF
+
+
 def dropout_threshold(p: float) -> int:
     """Bits below this are dropped: uint32(p * 2^32), as the TPU kernel sets it."""
     return int(p * float(2 ** 32))
 
 
-def philox_keep_mask(seed: int, B: int, H: int, S: int, p: float, device=None) -> torch.Tensor:
+def philox_keep_mask(seed, B: int, H: int, S: int, p: float, device=None) -> torch.Tensor:
     """The kernels' attention-dropout keep mask, [B, H, S, S] bool, kept where
     the bits are >= the threshold. The bits of element (b, h, row, key) are
     word ``2 * ((row % 16) // 8) + key % 2`` of Philox4x32-10 with key = the
@@ -87,8 +129,7 @@ def philox_keep_mask(seed: int, B: int, H: int, S: int, p: float, device=None) -
     c1 = ar(n16 * 8).view(1, n16 * 8, 1).expand(shape)
     c2 = ar(B * H).view(B * H, 1, 1).expand(shape)
     c3 = torch.zeros(shape, dtype=torch.int64, device=device)
-    seed &= 0xFFFFFFFFFFFFFFFF
-    words = philox4x32_10(c0, c1, c2, c3, seed & _U32, seed >> 32)
+    words = philox4x32_10(c0, c1, c2, c3, *philox_key(seed))
     # [bh, row // 16, row % 8, key // 2, (row % 16) // 8, key % 2] -> [bh, row, key]
     bits = torch.stack(words, dim=-1).view(B * H, n16, 8, n2, 2, 2)
     bits = bits.permute(0, 1, 4, 2, 3, 5).reshape(B, H, n16 * 16, n2 * 2)[:, :, :S, :S]
@@ -208,14 +249,29 @@ def _check_dropout(dropout):
         raise ValueError(f"dropout must lie in [0, 1), got {dropout}")
 
 
-_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_P, _I64, _I32, _U64 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_ulonglong
+# the dropout seed: by value, then (counter pointer, program seed, salt)
+_SEED = [_U64, _P, _U64, _U64]
 _SIGNATURES = {
     # pointers, 9 strides, B H S D, scale, causal has_bias dtype, dropout, threshold, seed, stream
     "flash_attn_fwd": [_P] * 6 + [_I64] * 9 + [_I32] * 4 + [ctypes.c_float] + [_I32] * 3
-    + [ctypes.c_float, ctypes.c_uint, ctypes.c_ulonglong, _P],
+    + [ctypes.c_float, ctypes.c_uint] + _SEED + [_P],
     "flash_attn_bwd": [_P] * 11 + [_I64] * 9 + [_I32] * 4 + [ctypes.c_float] + [_I32] * 3
-    + [ctypes.c_float, ctypes.c_uint, ctypes.c_ulonglong, _I32, _P],  # ..., variant, stream
+    + [ctypes.c_float, ctypes.c_uint] + _SEED + [_I32, _P],  # ..., variant, stream
 }
+
+
+def seed_args(seed, device) -> tuple:
+    """A kernel's dropout-seed arguments: (seed, counter pointer, program
+    seed, salt). An int seed goes by value with a null counter; a
+    ``DeviceSeed`` passes its counter, which must lie on ``device``."""
+    if isinstance(seed, DeviceSeed):
+        c = seed.counter
+        if c.device != device or c.dtype != torch.int64 or c.numel() != 1:
+            raise ValueError(f"the run counter must be one int64 element on {device}, got "
+                             f"{c.dtype} {tuple(c.shape)} on {c.device}")
+        return (0,) + seed.args()
+    return (seed & 0xFFFFFFFFFFFFFFFF, None, 0, 0)
 
 
 def _fn(name):
@@ -233,7 +289,7 @@ def _launch(name, pointers, q, k, v, bias, scale, causal, dropout, seed, *extra)
         rc = _fn(name)(*pointers, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                        B, H, S, D, float(scale), int(bool(causal)), int(bias is not None),
                        _DTYPE_CODES[q.dtype], float(dropout), dropout_threshold(dropout),
-                       seed & 0xFFFFFFFFFFFFFFFF, *extra, stream)
+                       *seed_args(seed, q.device), *extra, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
 
@@ -244,7 +300,9 @@ def flash_attn_fwd(q, k, v, bias=None, scale=None, causal=False, dropout=0.0, se
     """Launch the CUDA flash-attention forward kernel; returns O [B,H,S,D]
     (contiguous, in q's dtype), and with ``return_lse`` also the row LSE
     [B,H,S] f32 that the backward needs. ``dropout`` > 0 drops attention
-    probabilities with the Philox mask of ``seed``. Raises ValueError for
+    probabilities with the Philox mask of ``seed`` (an int, or a
+    ``DeviceSeed`` that the kernel reads from the run counter on the card).
+    Raises ValueError for
     tensors the kernel does not take (see ``kernel_refusal``) and
     RuntimeError if the launch fails. Each launch adds one to
     ``flash_attn_fwd.launches``."""
@@ -337,7 +395,8 @@ def fused_attention(ctx, ins):
     (0 = 1/sqrt(D)), dropout_prob, causal, is_test, impl ('auto' | 'pallas'
     | 'composed'; 'ring' and 'ulysses' are not ported). The dropout seed is
     the op's ``seed_int()``, which its grad op shares, so the backward
-    regenerates the forward's mask."""
+    regenerates the forward's mask; on the card, inside an executor, the
+    kernels derive that seed from the run counter (``kernel_seed``)."""
     q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
     bias = ins.get("Bias", [None])[0]
     scale = ctx.attr("scale") or (1.0 / math.sqrt(q.shape[-1]))
@@ -352,7 +411,7 @@ def fused_attention(ctx, ins):
             f"fused_attention impl={impl!r} (sequence parallelism) is not ported yet")
     if impl not in ("auto", "pallas", "composed"):
         raise ValueError(f"fused_attention: unknown impl {impl!r}")
-    seed = ctx.seed_int() if dropout else 0
+    seed = ctx.kernel_seed() if dropout else 0    # an int off the card
     if q.device.type == "cpu" or impl == "composed":
         return {"Out": [attention_plain(q, k, v, bias, float(scale), causal, float(dropout),
                                         seed)]}

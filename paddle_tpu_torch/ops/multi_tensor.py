@@ -11,11 +11,23 @@ their per-parameter ``LearningRate`` and ``Beta{1,2}Pow`` tensors stay as
 they are.
 
 The plain version is a loop over the per-op lowerings of
-``ops/optimizer_ops.py``. The kernel computes the same f32 arithmetic in the
-same order, every step exactly rounded, so it matches them bit for bit. The
-update is out of place, as the JAX step's functional update is: the outputs
-are views of one flat buffer per (role, dtype), each view starting on a
-16-byte boundary.
+``ops/optimizer_ops.py``, whose results are copied into the inputs. The
+kernel computes the same f32 arithmetic in the same order, every step
+exactly rounded, so it matches them bit for bit. The update is in place:
+ParamOut, Moment1Out, Moment2Out, VelocityOut and Beta{1,2}PowOut are the
+input tensors themselves (the programs name one variable for both), the
+counterpart of the JAX step's donated state. A caller that holds a
+parameter tensor sees it change.
+
+The kernel reads its work table (pointers, sizes, chunks) from a device
+buffer that is built once per parameter layout -- the data pointers, sizes
+and dtypes of a run's tensors -- and kept (``table_for``). The table is
+written on the stream, by launches that carry its words in their
+parameters (``fill_table`` in the .cu source): no copy from the host, no
+synchronisation. Under a CUDA graph capture a table is the graph's own, in
+its pool, and the graph holds it: its fill launches are captured with the
+update, so each replay writes it again just before the update reads it (a
+block of the pool may have held an earlier node's data).
 
 Routing is by the device of the tensors: CPU tensors take the plain
 version; CUDA tensors launch the kernel, or raise where it refuses the call.
@@ -23,13 +35,15 @@ Nothing falls back.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
+import threading
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..core import cuda_build
+from ..core import cuda_build, graphs
 from ..core.registry import LowerCtx
 from . import optimizer_ops
 
@@ -43,8 +57,6 @@ CHUNK = 65536
 #: threads a block; each takes VEC consecutive elements at a time (16-byte
 #: loads of bf16, two of f32)
 THREADS, VEC = 256, 8
-#: flat output views start on multiples of ALIGN elements (16 bytes of bf16)
-ALIGN = 8
 #: the grid's blocks an SM (at most; about 4 of 256 threads are resident at
 #: once, the rest take chunks as those finish)
 BLOCKS_PER_SM = 16
@@ -83,11 +95,23 @@ def update(kind: str, attrs: dict, ins_list: List[Dict[str, list]]) -> List[Dict
     return multi_tensor_update(kind, attrs, ins_list)
 
 
+#: each op's output slot -> the input slot it overwrites
+IN_PLACE = {"ParamOut": "Param", "Moment1Out": "Moment1", "Moment2Out": "Moment2",
+            "VelocityOut": "Velocity", "Beta1PowOut": "Beta1Pow", "Beta2PowOut": "Beta2Pow"}
+
+
 def update_plain(kind, attrs, ins_list):
-    """The per-op lowerings, one op after the other."""
+    """The per-op lowerings, one op after the other, each op's results
+    copied into its inputs. Returns each op's outputs: its input tensors."""
     lower = optimizer_ops.adam if kind == "adam" else optimizer_ops.momentum
     device = ins_list[0]["Param"][0].device
-    return [lower(LowerCtx(attrs, device), ins) for ins in ins_list]
+    outs = []
+    for ins in ins_list:
+        out = lower(LowerCtx(attrs, device), ins)
+        for slot, vals in out.items():
+            ins[IN_PLACE[slot]][0].copy_(vals[0])
+        outs.append({slot: [ins[IN_PLACE[slot]][0]] for slot in out})
+    return outs
 
 
 def chunk_table(numels: Sequence[int], chunk: int = CHUNK) -> np.ndarray:
@@ -99,14 +123,6 @@ def chunk_table(numels: Sequence[int], chunk: int = CHUNK) -> np.ndarray:
     tensor = np.repeat(np.arange(len(counts), dtype=np.int64), counts)
     first = np.repeat(np.cumsum(counts) - counts, counts)
     return np.stack([tensor, np.arange(len(tensor)) - first], axis=1).astype(np.int32)
-
-
-def flat_offsets(numels: Sequence[int], align: int = ALIGN):
-    """Offsets of each tensor's view in a flat buffer, each a multiple of
-    ``align`` elements, and the buffer's length."""
-    sizes = -(-np.asarray(numels, dtype=np.int64) // align) * align
-    ends = np.cumsum(sizes)
-    return (ends - sizes).tolist(), int(ends[-1]) if len(ends) else 0
 
 
 def kernel_refusal(kind, ins_list) -> Optional[str]:
@@ -121,6 +137,8 @@ def kernel_refusal(kind, ins_list) -> Optional[str]:
         for name, t in [("Param", p), ("Grad", g)] + [(s, ins[s][0]) for s in acc + scalars]:
             if t is None or not t.is_cuda or t.device != dev:
                 return f"op {k}: {name} must lie on {dev}"
+        if not p.is_contiguous():
+            return f"op {k}: Param must be contiguous (it is updated in place)"
         if p.dtype not in _DTYPES or g.dtype not in _DTYPES:
             return f"op {k}: Param and Grad must be float32 or bfloat16, got {p.dtype}/{g.dtype}"
         if g.numel() != p.numel():
@@ -137,11 +155,12 @@ def kernel_refusal(kind, ins_list) -> Optional[str]:
     return None
 
 
-#: a descriptor's first 12 slots, in order; the roles read and written 8
-#: elements at a time decide whether the tensor takes the 16-byte path
-ROLES = ("p", "g", "m", "v", "lr", "b1p", "b2p", "p_out", "m_out", "v_out", "b1p_out",
-         "b2p_out")
-_WIDE_ROLES = (0, 1, 2, 3, 7, 8, 9)
+#: a descriptor's pointer slots, in order (each tensor read, or read and
+#: written, through one pointer); the roles accessed 8 elements at a time
+#: decide whether the tensor takes the 16-byte path
+ROLES = ("p", "g", "m", "v", "lr", "b1p", "b2p")
+_WIDE_ROLES = (0, 1, 2, 3)
+_N_SLOT, _FLAGS_SLOT = len(ROLES), len(ROLES) + 1
 
 
 def work_table(rows: Sequence[Sequence[Optional[torch.Tensor]]]) -> np.ndarray:
@@ -157,15 +176,80 @@ def work_table(rows: Sequence[Sequence[Optional[torch.Tensor]]]) -> np.ndarray:
     flags = np.array([(_P_BF16 if r[0].dtype == torch.bfloat16 else 0)
                       | (_G_BF16 if r[1].dtype == torch.bfloat16 else 0) for r in rows],
                      dtype=np.int64)
-    flags |= np.where((ptrs[:, _WIDE_ROLES] % 16 == 0).all(axis=1), _VECTOR, 0)
+    wide = ptrs[:, _WIDE_ROLES]
+    flags |= np.where((wide % 16 == 0).all(axis=1), _VECTOR, 0)
     chunks = chunk_table(numels)
     table = np.zeros(T * DESC_SLOTS + len(chunks), dtype=np.int64)
     desc = table[:T * DESC_SLOTS].reshape(T, DESC_SLOTS)
     desc[:, :len(ROLES)] = ptrs
-    desc[:, 12] = numels
-    desc[:, 13] = flags
+    desc[:, _N_SLOT] = numels
+    desc[:, _FLAGS_SLOT] = flags
     table[T * DESC_SLOTS:] = chunks.view(np.int64).reshape(-1)
     return table
+
+
+def layout(rows) -> tuple:
+    """What a run's table depends on: each tensor's data pointers, its size
+    and its Param and Grad dtypes."""
+    return tuple(x for r in rows for x in (
+        *(t.data_ptr() if t is not None else 0 for t in r), r[0].numel(), r[0].dtype, r[1].dtype))
+
+
+#: tables kept, by layout (the most recently used last)
+TABLE_CAP = 16
+_tables: "collections.OrderedDict[tuple, torch.Tensor]" = collections.OrderedDict()
+_tables_lock = threading.Lock()
+#: tables built so far, a plain count for tests and chip_smoke.py
+tables_built = 0
+
+
+def _capturing(device) -> bool:
+    return torch.device(device).type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+def _write_table(dev: torch.Tensor, words: np.ndarray):
+    """``words`` into ``dev`` in stream order (a plain copy on the CPU)."""
+    if dev.device.type != "cuda":
+        dev.copy_(torch.from_numpy(words))
+        return
+    fn = cuda_build.load("multi_tensor_update").fill_table
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(dev.device):
+        rc = fn(dev.data_ptr(), words.ctypes.data, len(words),
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"multi_tensor_update: writing the work table failed with CUDA "
+                           f"error {rc}")
+
+
+def table_for(rows, device) -> torch.Tensor:
+    """The device buffer holding ``work_table(rows)``: the kept one for this
+    layout, else a new one. Under a CUDA graph capture always a new one, the
+    graph's (``graphs.hold``), written by captured launches and not kept."""
+    global tables_built
+    capturing = _capturing(device)
+    key = (str(device),) + layout(rows)
+    dev = None
+    if not capturing:
+        with _tables_lock:
+            dev = _tables.get(key)
+            if dev is not None:
+                _tables.move_to_end(key)
+    if dev is None:
+        words = work_table(rows)
+        dev = torch.empty((len(words),), dtype=torch.int64, device=device)
+        _write_table(dev, words)
+        with _tables_lock:
+            tables_built += 1
+            if not capturing:
+                _tables[key] = dev
+                while len(_tables) > TABLE_CAP:
+                    _tables.popitem(last=False)
+    if capturing:
+        graphs.hold(dev)
+    return dev
 
 
 _P, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -180,56 +264,30 @@ def _fn():
     return fn
 
 
-def _flat_views(tensors, dtype_of, device):
-    """Out-of-place outputs shaped like ``tensors``: views of one flat
-    buffer per dtype, each starting on a multiple of ALIGN elements."""
-    views = [None] * len(tensors)
-    for dt in {dtype_of(t) for t in tensors}:
-        idx = [i for i, t in enumerate(tensors) if dtype_of(t) == dt]
-        sizes = [tensors[i].numel() for i in idx]
-        offs, total = flat_offsets(sizes)
-        parts = []   # each view, then the padding to the next ALIGN boundary
-        for n, o, end in zip(sizes, offs, offs[1:] + [total]):
-            parts += [n, end - o - n]
-        flat = torch.empty((total,), dtype=dt, device=device)
-        for i, v in zip(idx, flat.split(parts)[::2]):
-            views[i] = v.view(tensors[i].shape)
-    return views
-
-
 @cuda_build.counted
 def multi_tensor_update(kind: str, attrs: dict, ins_list):
     """Launch the multi-tensor kernel once for a run of ``kind`` ops on CUDA
-    tensors; returns each op's outputs. Param and Grad may be f32 or bf16
-    (each op its own), the accumulators, the learning rate and the beta
-    powers are f32. Raises ValueError for a run the kernel does not take
-    (see ``kernel_refusal``) and RuntimeError if the launch fails. Each
-    launch adds one to ``multi_tensor_update.launches``."""
+    tensors, in place; returns each op's outputs (its input tensors). Param
+    and Grad may be f32 or bf16 (each op its own), the accumulators, the
+    learning rate and the beta powers are f32. Raises ValueError for a run
+    the kernel does not take (see ``kernel_refusal``) and RuntimeError if the
+    launch fails. Each launch adds one to ``multi_tensor_update.launches``."""
     why = kernel_refusal(kind, ins_list)
     if why is not None:
         raise ValueError(f"multi_tensor_update: {why}")
     adam = kind == "adam"
     dev = ins_list[0]["Param"][0].device
     T = len(ins_list)
-    ps = [ins["Param"][0].contiguous() for ins in ins_list]
-    gs = [ins["Grad"][0].contiguous() for ins in ins_list]
-    ms = [ins["Moment1" if adam else "Velocity"][0] for ins in ins_list]
-    vs = [ins["Moment2"][0] for ins in ins_list] if adam else [None] * T
-    lrs = [ins["LearningRate"][0] for ins in ins_list]
-    p_out = _flat_views(ps, lambda t: t.dtype, dev)
-    m_out = _flat_views(ms, lambda t: torch.float32, dev)
-    if adam:
-        v_out = _flat_views(vs, lambda t: torch.float32, dev)
-        pows = [(ins["Beta1Pow"][0], ins["Beta2Pow"][0]) for ins in ins_list]
-        pow_out = torch.empty((2 * T,), dtype=torch.float32, device=dev).split(1)
-        pow_views = [(pow_out[i].view(b1p.shape), pow_out[T + i].view(b2p.shape))
-                     for i, (b1p, b2p) in enumerate(pows)]
-    else:
-        v_out, pows, pow_views = [None] * T, [(None, None)] * T, [(None, None)] * T
-    table = work_table([(ps[i], gs[i], ms[i], vs[i], lrs[i], *pows[i], p_out[i], m_out[i],
-                         v_out[i], *pow_views[i]) for i in range(T)])
-    n_chunks = len(table) - T * DESC_SLOTS
-    dev_table = torch.from_numpy(table).pin_memory().to(dev, non_blocking=True)
+    acc = ("Moment1", "Moment2") if adam else ("Velocity",)
+    pows = ("Beta1Pow", "Beta2Pow") if adam else ()
+    # a Grad that is not contiguous is read from a contiguous copy; the copies
+    # must live until the launch is queued
+    grads = [ins["Grad"][0].contiguous() for ins in ins_list]
+    rows = [(ins["Param"][0], grads[i], ins[acc[0]][0], ins["Moment2"][0] if adam else None,
+             ins["LearningRate"][0], *(ins[s][0] for s in pows), *(None,) * (2 - len(pows)))
+            for i, ins in enumerate(ins_list)]
+    table = table_for(rows, dev)
+    n_chunks = table.numel() - T * DESC_SLOTS
 
     b1, b2 = attrs.get("beta1", 0.9), attrs.get("beta2", 0.999)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -237,14 +295,12 @@ def multi_tensor_update(kind: str, attrs: dict, ins_list):
     # rounds the Python scalar (1 - b1) that the per-op lowering multiplies by
     scalars = (b1, 1 - b1, b2, 1 - b2, attrs.get("epsilon", 1e-8), attrs.get("mu", 0.9))
     with torch.cuda.device(dev):
-        rc = _fn()(dev_table.data_ptr(), T, n_chunks, CHUNK, _KIND[kind], *scalars,
+        rc = _fn()(table.data_ptr(), T, n_chunks, CHUNK, _KIND[kind], *scalars,
                    int(bool(attrs.get("use_nesterov", False))),
                    min(n_chunks, sms * BLOCKS_PER_SM), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"multi_tensor_update: kernel launch failed with CUDA error {rc}")
     multi_tensor_update.launches += 1
-    if adam:
-        return [{"ParamOut": [p_out[i]], "Moment1Out": [m_out[i]], "Moment2Out": [v_out[i]],
-                 "Beta1PowOut": [pow_views[i][0]], "Beta2PowOut": [pow_views[i][1]]}
-                for i in range(T)]
-    return [{"ParamOut": [p_out[i]], "VelocityOut": [m_out[i]]} for i in range(T)]
+    slots = ("ParamOut", "Moment1Out", "Moment2Out", "Beta1PowOut", "Beta2PowOut") if adam \
+        else ("ParamOut", "VelocityOut")
+    return [{slot: [ins[IN_PLACE[slot]][0]] for slot in slots} for ins in ins_list]

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.registry import register
+from . import dropout as dropout_op
 
 
 def _pair(v):
@@ -146,20 +147,18 @@ def layer_norm(ctx, ins):
 def dropout(ctx, ins):
     """dropout_implementation: 'downgrade_in_infer' (scale the output by
     (1-p) at inference) or 'upscale_in_train' (scale kept units by 1/(1-p)
-    in training). The train-mode mask comes from the op's generator."""
+    in training). The train-mode mask is Philox's for the op's dropout seed
+    (``ops/dropout.py``: the CUDA kernel on the card, its plain version on the
+    CPU); the attr ``seed`` offsets the op's salt."""
     x = ins["X"][0]
     p = ctx.attr("dropout_prob", 0.5)
-    impl = ctx.attr("dropout_implementation", "downgrade_in_infer")
+    upscale = ctx.attr("dropout_implementation", "downgrade_in_infer") == "upscale_in_train"
     if ctx.attr("is_test", False):
-        out = x if impl == "upscale_in_train" else x * (1.0 - p)
+        out = x if upscale else x * (1.0 - p)
         # the declared Mask output is produced as a broadcast view of one 1
         return {"Out": [out],
                 "Mask": [torch.ones((), dtype=x.dtype, device=ctx.device).expand(x.shape)]}
-    keep = torch.rand(x.shape, generator=ctx.rng(ctx.attr("seed", 0) or 0),
-                      device=ctx.device) >= p
-    mask = keep.to(x.dtype)
-    if impl == "upscale_in_train":
-        out = torch.zeros_like(x) if p >= 1.0 else x * mask / (1.0 - p)
-    else:
-        out = x * mask
+    if ctx.abstract:
+        return {"Out": [torch.empty_like(x)], "Mask": [torch.empty_like(x)]}
+    out, mask = dropout_op.dropout(x, p, upscale, ctx.kernel_seed(ctx.attr("seed", 0) or 0))
     return {"Out": [out], "Mask": [mask]}

@@ -1,6 +1,13 @@
 """Tensor-manipulation ops (the port's copy of part of
 ``paddle_tpu/ops/tensor_ops.py``): reshape2, transpose2, unsqueeze2, split,
 slice, gather, top_k and the lookup_table_v2 embedding.
+
+``gather`` and ``lookup_table_v2`` read rows by index. On the card their
+gradient sums the cotangents of repeated indices in a fixed order
+(``RowGather``), so a training step reproduces bit for bit, as the JAX
+package's does; PyTorch's own gradients of ``index_select`` and
+``F.embedding`` add them with atomics. On the CPU they keep PyTorch's
+gradients, which sum in index order.
 """
 from __future__ import annotations
 
@@ -54,6 +61,49 @@ def split(ctx, ins):
     return {"Out": list(torch.split(x, list(sections), dim=axis))}
 
 
+#: a table with at most 1/DENSE_RATIO as many rows as indices (each row
+#: read ~DENSE_RATIO times or more, as BERT's two sentence embeddings are
+#: by 16384 tokens) sums its gradient as one matmul: the sorted accumulation
+#: walks each row's repeats in sequence, 5.6 ms for that table on an H100
+#: (chip_smoke.py's row_grads phase)
+DENSE_RATIO = 64
+
+
+class RowGather(torch.autograd.Function):
+    """``x.index_select(0, idx)`` whose gradient sums the cotangents of each
+    row in an order that does not change from run to run
+    (``index_select``'s own gradient, ``index_add_``, adds them with
+    atomics on the card): ``index_put_(accumulate=True)``, PyTorch's
+    sort-based accumulation, or for a table of few rows read many times
+    the product of the one-hot matrix of ``idx`` with the cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape = x.shape
+        return x.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        rows = ctx.shape[0]
+        if rows * DENSE_RATIO <= idx.numel():
+            onehot = idx == torch.arange(rows, device=idx.device).unsqueeze(1)
+            gx = torch.matmul(onehot.to(g.dtype), g.reshape(idx.numel(), -1))
+            return gx.reshape(ctx.shape), None
+        gx = g.new_zeros(ctx.shape)
+        gx.index_put_((idx,), g, accumulate=True)
+        return gx, None
+
+
+def take_rows(x, idx):
+    """Rows ``idx`` (1-D int64) of ``x``: on the card through ``RowGather``
+    when a gradient is asked for, else ``index_select``."""
+    if x.is_cuda and torch.is_grad_enabled() and x.requires_grad:
+        return RowGather.apply(x, idx)
+    return x.index_select(0, idx)
+
+
 @register("lookup_table_v2", nondiff_inputs=("Ids",))
 def lookup_table_v2(ctx, ins):
     """Embedding lookup; padding_idx rows produce zeros. Ids stay int64 for
@@ -63,7 +113,10 @@ def lookup_table_v2(ctx, ins):
     if ids.ndim > 1 and ids.shape[-1] == 1:
         ids = ids.squeeze(-1)
     ids = ids.long()
-    out = F.embedding(ids, w)
+    if w.is_cuda:
+        out = take_rows(w, ids.reshape(-1)).reshape(tuple(ids.shape) + tuple(w.shape[1:]))
+    else:
+        out = F.embedding(ids, w)
     pad = ctx.attr("padding_idx", -1)
     if pad is not None and pad >= 0:
         out = out * (ids != pad).unsqueeze(-1).to(out.dtype)
@@ -88,7 +141,10 @@ def gather(ctx, ins):
     replaced by Index's shape."""
     x, idx = ins["X"][0], ins["Index"][0]
     axis = ctx.attr("axis", 0) % x.ndim
-    out = x.index_select(axis, idx.reshape(-1).long())
+    if x.is_cuda:
+        out = take_rows(x.movedim(axis, 0), idx.reshape(-1).long()).movedim(0, axis)
+    else:
+        out = x.index_select(axis, idx.reshape(-1).long())
     return {"Out": [out.reshape(tuple(x.shape[:axis]) + tuple(idx.shape)
                                 + tuple(x.shape[axis + 1:]))]}
 

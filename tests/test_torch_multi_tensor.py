@@ -1,14 +1,16 @@
 """The multi-tensor optimizer update (``ops/multi_tensor.py``, kernel
 ``csrc/multi_tensor_update.cu``), held on the CPU.
 
-A run of update ops is one call: its plain version (what a CPU tensor takes)
-equals the per-op lowerings bit for bit, and ``trace_block`` splits runs
-where the attrs change or an op reads what an earlier one wrote. The kernel
-runs only on the card (``chip_smoke.py`` holds it bit for bit against the
-per-op lowerings there); what it does with indices is mirrored here: the
-work table the wrapper writes, the grid's walk over the chunks and each
-block's walk over a chunk's elements, which must cover every element of
-every tensor exactly once and write each beta power once.
+A run of update ops is one call, in place: its plain version (what a CPU
+tensor takes) writes into the inputs exactly what the per-op lowerings
+return, and ``trace_block`` splits runs where the attrs change or an op
+reads what an earlier one wrote. The kernel runs only on the card
+(``chip_smoke.py`` holds it bit for bit against the per-op lowerings there);
+what it does with indices is mirrored here: the work table the wrapper
+writes (built once per parameter layout and kept), the grid's walk over the
+chunks and each block's walk over a chunk's elements, which must cover every
+element of every tensor exactly once, and the second pass that advances
+each beta power once.
 """
 import re
 from pathlib import Path
@@ -57,15 +59,17 @@ KINDS = [("adam", {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}),
 def test_a_run_equals_the_per_op_lowerings_bit_for_bit(kind, attrs):
     dtypes = [torch.float32, torch.bfloat16, torch.bfloat16, torch.float32, torch.bfloat16]
     ins_list = _run_inputs(kind, dtypes)
+    before = [{s: [t.clone() for t in v] for s, v in ins.items()} for ins in ins_list]
     outs = mt.update(kind, attrs, ins_list)             # one call for the run
     lower = optimizer_ops.adam if kind == "adam" else optimizer_ops.momentum
     assert len(outs) == len(ins_list)
-    for ins, out in zip(ins_list, outs):
-        ref = lower(LowerCtx(attrs), ins)
+    for ins, ins0, out in zip(ins_list, before, outs):
+        ref = lower(LowerCtx(attrs), ins0)
         assert sorted(out) == sorted(ref)
         for slot in ref:
             a, b = out[slot][0], ref[slot][0]
             assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), slot
+            assert a is ins[mt.IN_PLACE[slot]][0], slot       # in place
         assert out["ParamOut"][0].dtype == ins["Param"][0].dtype
 
 
@@ -132,8 +136,8 @@ def test_runs_split_where_attrs_change(specs, runs, monkeypatch):
     update = mt.update
     monkeypatch.setattr(mt, "update", lambda kind, attrs, ins_list: calls.append(
         (kind, len(ins_list))) or update(kind, attrs, ins_list))
-    env = {k: torch.from_numpy(v) for k, v in feed.items()}
-    ref = {k: torch.from_numpy(v) for k, v in feed.items()}
+    env = {k: torch.from_numpy(v).clone() for k, v in feed.items()}
+    ref = {k: torch.from_numpy(v).clone() for k, v in feed.items()}
     with torch.no_grad():
         trace_block(blk, env, "cpu")
         trace_block(blk, ref, "cpu", group_updates=False)
@@ -159,8 +163,9 @@ def test_the_mirror_reads_the_kernels_constants():
     threads, vec, flags, desc_bytes = _kernel_constants()
     assert (threads, vec) == (mt.THREADS, mt.VEC)
     assert flags == {"kPBf16": mt._P_BF16, "kGBf16": mt._G_BF16, "kVector": mt._VECTOR}
-    assert desc_bytes == 8 * mt.DESC_SLOTS and len(mt.ROLES) == 12
-    assert mt.CHUNK % mt.VEC == 0 and mt.ALIGN * 2 % 16 == 0
+    assert desc_bytes == 8 * mt.DESC_SLOTS and len(mt.ROLES) == 7
+    assert mt._FLAGS_SLOT < mt.DESC_SLOTS
+    assert mt.CHUNK % mt.VEC == 0
     assert "multi_tensor_update" in cuda_build.SOURCES
     assert mt.multi_tensor_update in cuda_build.COUNTED
     assert sorted(cuda_build.SOURCES) == sorted(p.stem for p in Path(cuda_build.CSRC).glob("*.cu"))
@@ -170,22 +175,21 @@ def kernel_walk(table, n_tensors, grid, vector):
     """Mirror of multi_tensor_kernel's loops: block b takes items b, b + grid,
     ...; in an item of chunk c, thread t takes the 8-element groups t, t +
     THREADS, ... of [c * CHUNK, end) when the tensor's flags allow 16-byte
-    accesses, then every THREADS-th element of what is left; thread 0 of
-    chunk 0 writes the beta powers. Returns (times each element is written,
-    per tensor; beta-power writes per tensor)."""
+    accesses, then every THREADS-th element of what is left; then
+    beta_pow_kernel's thread t advances tensor t's beta powers. Returns
+    (times each element is written, per tensor; beta-power writes per
+    tensor)."""
     desc = table[:n_tensors * mt.DESC_SLOTS].reshape(n_tensors, mt.DESC_SLOTS)
     items = table[n_tensors * mt.DESC_SLOTS:].view(np.int32).reshape(-1, 2)
-    written = [np.zeros(int(n), np.int64) for n in desc[:, 12]]
+    written = [np.zeros(int(n), np.int64) for n in desc[:, mt._N_SLOT]]
     pows = np.zeros(n_tensors, np.int64)
     grid = min(grid, len(items))
     for b in range(grid):
         for c in range(b, len(items), grid):
             t, chunk = items[c]
-            n, flags = desc[t, 12], desc[t, 13]
+            n, flags = desc[t, mt._N_SLOT], desc[t, mt._FLAGS_SLOT]
             start = int(chunk) * mt.CHUNK
             end = min(start + mt.CHUNK, int(n))
-            if chunk == 0:
-                pows[t] += 1
             tail = start
             if flags & mt._VECTOR:
                 assert vector
@@ -198,6 +202,10 @@ def kernel_walk(table, n_tensors, grid, vector):
                 tail = start + groups * mt.VEC
             for tid in range(mt.THREADS):
                 written[t][tail + tid:end:mt.THREADS] += 1
+    for b in range(-(-n_tensors // mt.THREADS)):
+        for tid in range(mt.THREADS):
+            if b * mt.THREADS + tid < n_tensors:
+                pows[b * mt.THREADS + tid] += 1
     return written, pows
 
 
@@ -210,16 +218,16 @@ def test_the_work_table_covers_every_element_once(vector, grid):
     for n in numels:
         p = torch.zeros(n + 1, dtype=torch.bfloat16)[offset:offset + n]
         g = torch.zeros(n, dtype=torch.bfloat16)
-        m, v, pm, pv = (torch.zeros(n) for _ in range(4))
-        pp = torch.zeros(n, dtype=torch.bfloat16)
-        lr, b1p, b2p, o1, o2 = (torch.zeros(1) for _ in range(5))
-        rows.append((p, g, m, v, lr, b1p, b2p, pp, pm, pv, o1, o2))
+        m, v = (torch.zeros(n) for _ in range(2))
+        lr, b1p, b2p = (torch.zeros(1) for _ in range(3))
+        rows.append((p, g, m, v, lr, b1p, b2p))
     table = mt.work_table(rows)
     desc = table[:len(rows) * mt.DESC_SLOTS].reshape(len(rows), mt.DESC_SLOTS)
     for r, d in zip(rows, desc):
-        assert list(d[:12]) == [t.data_ptr() for t in r]
-        assert d[12] == r[0].numel()
-        assert d[13] & (mt._P_BF16 | mt._G_BF16) == mt._P_BF16 | mt._G_BF16
+        assert list(d[:len(mt.ROLES)]) == [t.data_ptr() for t in r]
+        assert d[mt._N_SLOT] == r[0].numel()
+        assert d[mt._FLAGS_SLOT] & (mt._P_BF16 | mt._G_BF16) == mt._P_BF16 | mt._G_BF16
+        assert bool(d[mt._FLAGS_SLOT] & mt._VECTOR) == vector
     written, pows = kernel_walk(table, len(rows), grid, vector)
     for n, w in zip(numels, written):
         assert w.shape == (n,) and (w == 1).all(), n
@@ -229,9 +237,6 @@ def test_the_work_table_covers_every_element_once(vector, grid):
 def test_chunk_table_and_flat_offsets():
     items = mt.chunk_table([0, 5, mt.CHUNK, mt.CHUNK + 1])
     assert items.tolist() == [[0, 0], [1, 0], [2, 0], [3, 0], [3, 1]]
-    offs, total = mt.flat_offsets([1, 8, 9, 3])
-    assert offs == [0, 8, 16, 32] and total == 40
-    assert all(o % mt.ALIGN == 0 for o in offs)
 
 
 def test_the_wrapper_refuses_cpu_tensors():
@@ -243,14 +248,60 @@ def test_the_wrapper_refuses_cpu_tensors():
     assert mt.multi_tensor_update.launches == 0
 
 
-def test_outputs_are_aligned_views_of_one_buffer_per_dtype():
-    ts = [torch.zeros(s, dtype=dt) for s, dt in (((6, 5), torch.bfloat16), ((3,), torch.float32),
-                                                 ((7, 1), torch.bfloat16), ((9,), torch.float32))]
-    views = mt._flat_views(ts, lambda t: t.dtype, "cpu")
-    for t, v in zip(ts, views):
-        assert v.shape == t.shape and v.dtype == t.dtype and v.is_contiguous()
-        assert v.storage_offset() % mt.ALIGN == 0
-        assert (v.data_ptr() - views[0 if t.dtype == torch.bfloat16 else 1].data_ptr()) % 16 == 0
-    assert views[0].untyped_storage().data_ptr() == views[2].untyped_storage().data_ptr()
-    assert views[1].untyped_storage().data_ptr() == views[3].untyped_storage().data_ptr()
-    assert views[2].storage_offset() >= views[0].numel()
+def _rows(tensors):
+    return [(t, t, t, t, t[:1], t[:1], t[:1]) for t in tensors]
+
+
+def test_the_table_is_built_once_per_layout(monkeypatch):
+    """``table_for`` keeps one device table per layout: the same tensors give
+    the same buffer without a rebuild; another pointer, size or dtype gives a
+    new one, holding that layout's ``work_table``."""
+    monkeypatch.setattr(mt, "_tables", type(mt._tables)())
+    a = [torch.zeros(s) for s in (5, 70000, 9)]
+    built = mt.tables_built
+    t1 = mt.table_for(_rows(a), "cpu")
+    assert mt.tables_built == built + 1
+    assert torch.equal(t1, torch.from_numpy(mt.work_table(_rows(a))))
+    assert mt.table_for(_rows(a), "cpu") is t1 and mt.tables_built == built + 1
+    for changed in ([a[0], a[1], torch.zeros(9)],                       # a pointer
+                    [a[0], a[1], a[2][:8]],                             # a size
+                    [a[0], a[1], a[2].to(torch.bfloat16)]):             # a dtype
+        t2 = mt.table_for(_rows(changed), "cpu")
+        assert t2 is not t1
+        assert torch.equal(t2, torch.from_numpy(mt.work_table(_rows(changed))))
+    assert mt.tables_built == built + 4
+    assert mt.table_for(_rows(a), "cpu") is t1          # still kept
+
+
+def test_the_table_cache_is_bounded(monkeypatch):
+    monkeypatch.setattr(mt, "_tables", type(mt._tables)())
+    keep = [torch.zeros(3) for _ in range(mt.TABLE_CAP + 2)]
+    first = mt.table_for(_rows(keep[:1]), "cpu")
+    for t in keep[1:]:
+        mt.table_for(_rows([t]), "cpu")
+    assert len(mt._tables) == mt.TABLE_CAP
+    assert mt.table_for(_rows(keep[:1]), "cpu") is not first    # evicted, built again
+
+
+def test_under_a_capture_the_table_is_the_graphs(monkeypatch):
+    """Under a CUDA graph capture each call writes a table of its own (in
+    the graph's pool, by captured launches), which the graph holds
+    (``graphs.hold``) and the cache does not keep: a pool block may have held
+    an earlier node's data, so only the graph's own launches may fill it."""
+    from paddle_tpu_torch.core import graphs
+    monkeypatch.setattr(mt, "_tables", type(mt._tables)())
+    monkeypatch.setattr(mt, "_capturing", lambda device: True)
+    held = []
+    monkeypatch.setattr(graphs._tls, "held", held, raising=False)
+    rows = _rows([torch.zeros(11)])
+    t1, t2 = mt.table_for(rows, "cpu"), mt.table_for(rows, "cpu")
+    assert t1 is not t2 and held == [t1, t2] and len(mt._tables) == 0
+    assert torch.equal(t1, torch.from_numpy(mt.work_table(rows)))
+
+
+def test_a_fill_launch_fits_its_parameters():
+    """fill_table's launch carries kFillWords int64 words, a pointer and a
+    count in its parameters: within the 4 KB a launch may take."""
+    src = (Path(cuda_build.CSRC) / "multi_tensor_update.cu").read_text()
+    words = int(re.search(r"constexpr int kFillWords = (\d+);", src).group(1))
+    assert 8 + 8 * words + 4 <= 4096

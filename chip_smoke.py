@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Serve BERT-base (bf16 and int8), train BERT-base and ResNet-50 through the
+"""Serve BERT-base (bf16 and int8), train BERT-base, ResNet-50 and the
+Transformer NMT model and beam-search decode with it through the
 PyTorch/CUDA port on one NVIDIA GPU, and hold its CUDA kernels against their
 plain PyTorch versions.
 
@@ -112,6 +113,23 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    and unprofiled and device activities; and the eager step's peak and the
    graph's pool with every intermediate kept to the step's end against
    freed after its last reader;
+13. (run after phase 11) Transformer NMT: transformer-base as
+   ``bench_workloads.py`` builds it (vocabularies 32000, hidden 512, 6 + 6
+   layers, 8 heads, FFN 2048, dropout 0.1 (50 ``dropout`` ops), label
+   smoothing 0.1, Adam 1e-4, f32, B64, source and target length 64, seed
+   0, one repeated batch), trained as phase 11 trains its models (graph
+   against eager over 5 steps and under ``run_fused`` K = 4, bit for bit;
+   ``dropout_fwd`` 50 and ``multi_tensor_update`` 1 a step; losses finite
+   and falling; step ms, tokens/s, peak memory, graph pool, device busy
+   ms, idle share, device time by kind), with step 1 held against the CPU
+   port at batch 2 on the dropout-0 build of the same weights; then
+   ``beam_decode`` (beam 4, ``max_len`` 16, bos 0, eos 1, 8 sentences of
+   length 64 with ragged masks: one ``scan`` over a sub-block, captured as
+   one CUDA graph) on the trained weights carried by name: graph against
+   eager bit for bit, the card against the CPU port at batch 2 (ids equal,
+   or parted only on a near-tie of the CPU's candidates), beams
+   best-first, beam 4 against greedy; decode ms, generated tokens/s, idle
+   share, launches;
 12. the kernels line, then the result line.
 
 Exits non-zero, with no result line, when there is no CUDA card, when the
@@ -119,6 +137,7 @@ port's sources are not beside this script, or when any phase fails.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import shutil
@@ -221,8 +240,12 @@ RESNET_LOSS_REL, RESNET_UPDATE_REL = 1e-2, 0.1
 RESNET_BATCH, RESNET_STEPS = 128, 5
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line; ``t_s`` is the seconds since the script started."""
+    print(json.dumps({"phase": phase, **kw, "t_s": time.perf_counter() - _T0}), flush=True)
 
 
 def _run(cmd) -> str:
@@ -552,7 +575,7 @@ def _step_once(torch, pt, program, total, params, init, feed, device):
         loss = pt.Executor(pt.CPUPlace() if device == "cpu" else None).run(
             program, feed=feed, fetch_list=[total])[0]
     ups = {n: (scope.find_var(n).float() - init[n].to(device).float()).cpu() for n in params}
-    return float(loss[0]), ups
+    return float(np.asarray(loss).reshape(-1)[0]), ups
 
 
 def _gaps(a, b):
@@ -1347,6 +1370,8 @@ def phase_multi_tensor(torch, programs):
 
 # BERT-base's hidden dropout: [B * S, 768] at B128 S128, p 0.1
 DROPOUT_SHAPE, DROPOUT_P = (128 * 128, 768), 0.1
+# transformer-base's attention-probs dropout: [B, heads, S, S] at B64 S64, f32
+NMT_PROBS_DROPOUT_SHAPE = (64, 8, 64, 64)
 CAPTURED_STEPS = 5           # steps held graph against eager
 TIMED_STEPS = 6              # steps timed on each path (after the held ones)
 FUSED_K = 4
@@ -1419,17 +1444,18 @@ def phase_dropout_kernel(torch):
     from paddle_tpu_torch.ops import dropout as dmod
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 12)
-    # (shape, dtype, upscale, p, element offset)
-    cases = [(DROPOUT_SHAPE, "bfloat16", True, DROPOUT_P, 0),
-             (DROPOUT_SHAPE, "bfloat16", False, DROPOUT_P, 0),
-             ((4096, 768), "float32", True, DROPOUT_P, 0),
-             ((1001, 77), "bfloat16", True, 0.3, 0),
-             ((4096, 768), "bfloat16", True, DROPOUT_P, 1),
-             ((333,), "float32", True, 1.0, 0),
-             ((333,), "bfloat16", False, 0.0, 0)]
+    # (shape, dtype, upscale, p, element offset, timed)
+    cases = [(DROPOUT_SHAPE, "bfloat16", True, DROPOUT_P, 0, True),
+             (DROPOUT_SHAPE, "bfloat16", False, DROPOUT_P, 0, True),
+             (NMT_PROBS_DROPOUT_SHAPE, "float32", True, DROPOUT_P, 0, True),
+             ((4096, 768), "float32", True, DROPOUT_P, 0, False),
+             ((1001, 77), "bfloat16", True, 0.3, 0, False),
+             ((4096, 768), "bfloat16", True, DROPOUT_P, 1, False),
+             ((333,), "float32", True, 1.0, 0, False),
+             ((333,), "bfloat16", False, 0.0, 0, False)]
     hbm_card = _hbm_from_card(torch)
     results = []
-    for i, (shape, dt, upscale, p, off) in enumerate(cases):
+    for i, (shape, dt, upscale, p, off, timed) in enumerate(cases):
         dtype = getattr(torch, dt)
         n = int(np.prod(shape))
         x = torch.randn(n + off, generator=gen, device="cuda").to(dtype)[off:].view(shape)
@@ -1444,7 +1470,7 @@ def phase_dropout_kernel(torch):
         keep = mask.float().mean().item()
         r = dict(shape=list(shape), dtype=dt, upscale=upscale, p=p, element_offset=off,
                  bit_exact=exact, max_abs_err=err, keep_fraction=keep, ok=exact)
-        if i < 2:
+        if timed:
             nbytes = 3 * n * x.element_size()
             r.update(ms=_device_ms(torch, lambda: dmod.dropout_fwd(x, p, upscale, seed)),
                      plain_ms=_device_ms(torch, lambda: dmod.dropout_plain(x, p, upscale, seed),
@@ -1534,6 +1560,7 @@ def _timed_path(torch, pt, main, feed, loss, init, graphs_on, free_dead):
     for n, t in init.items():
         scope.set_var(n, t.clone())
     main._rng_run_counter = 0
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1572,6 +1599,7 @@ def _memory_before_after(torch, pt, main, feed, loss, init):
             scope = pt.Scope()
             for n, t in init.items():
                 scope.set_var(n, t.clone())
+            gc.collect()                    # what an earlier executor left in cycles
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -1592,20 +1620,27 @@ def _state_equal(torch, a, b):
     return [n for n in b if not torch.equal(a[n], b[n])]
 
 
-def _captured_model(torch, pt, label, main, startup, feed, loss, expected, extra_fetch):
-    """Graph executor against the eager executor (``_use_graphs = False``) on
-    one model: CAPTURED_STEPS steps from the same state, losses and every
-    state tensor compared bit for bit, the eager path against itself (its
-    run-to-run noise); ``run_fused`` (K = FUSED_K) against K ``run`` calls;
-    then each path timed and profiled, and the memory before and after
-    freeing dead intermediates."""
-    from paddle_tpu_torch.core import cuda_build
+def _startup_state(pt, main, startup):
+    """The persistable state of ``main`` after ``startup`` runs on the card."""
     scope = pt.Scope()
     with pt.scope_guard(scope):
         pt.Executor().run(startup)
-        init = {n: scope.find_var(n).clone() for n, v in main.global_block().vars.items()
+        return {n: scope.find_var(n).clone() for n, v in main.global_block().vars.items()
                 if v.persistable and scope.find_var(n) is not None}
-    del scope
+
+
+def _captured_model(torch, pt, label, main, startup, feed, loss, expected, extra_fetch,
+                    init=None, final=None):
+    """Graph executor against the eager executor (``_use_graphs = False``) on
+    one model: CAPTURED_STEPS steps from the same state (``init``, else the
+    startup program's), losses and every state tensor compared bit for bit,
+    the eager path against itself (its run-to-run noise); ``run_fused`` (K =
+    FUSED_K) against K ``run`` calls; then each path timed and profiled, and
+    the memory before and after freeing dead intermediates. ``final``, a
+    dict, receives the graph path's state after its CAPTURED_STEPS steps."""
+    from paddle_tpu_torch.core import cuda_build
+    if init is None:
+        init = _startup_state(pt, main, startup)
     fetch = [loss] + extra_fetch
     runs, launches = {}, {}
     for path in ("graph", "eager", "eager_again"):
@@ -1619,6 +1654,8 @@ def _captured_model(torch, pt, label, main, startup, feed, loss, expected, extra
         runs[path] = (outs, {n: t.clone() for n, t in state.items()})
         if path == "graph":
             pools = _graph_pools(exe)
+            if final is not None:
+                final.update(runs[path][1])
         exe.close()
         del exe, scope, outs, state
     (g_outs, g_state), (e_outs, e_state), (e2_outs, e2_state) = (
@@ -1738,6 +1775,280 @@ def phase_captured_training(torch):
     del main, startup, feed
     torch.cuda.empty_cache()
     return bert_r, res_r
+
+
+# Transformer NMT (phase 13). Step 1 on the card against the CPU port, batch 2,
+# dropout 0, f32 on both sides, from the same weights. The loss: both sum in f32
+# in other orders (cuBLAS against the CPU's GEMMs, 512- and 2048-deep products
+# over 12 layers, a 32000-wide log-sum-exp), about 1e-6 relative a sum; the loss
+# is a mean over 128 positions, so 1e-4 relative bounds it with room. The update:
+# Adam's first update is lr * g / (|g| + eps), so an element's update moves
+# only where its gradient is near the f32 rounding of its sums (a sign flips, or
+# |g| is near eps); 1e-2 of sum|u| allows 1% of the update's mass to move.
+NMT_LOSS_REL, NMT_UPDATE_REL = 1e-4, 1e-2
+NMT_CPU_BATCH = 2
+# decode: beam 4, max_len 16 (beam_decode's default), 8 sentences of length 64
+DECODE_BATCH, DECODE_BEAM, DECODE_MAX_LEN, DECODE_RUNS = 8, 4, 16, 6
+# decode, card against the CPU port at batch 2. A score is a sum of up to 16
+# log-probs of about -10, each from a 32000-wide log-softmax of logits that the
+# two devices round apart by about 1e-5 (f32 sums in other orders through 6
+# layers); 1e-3 absolute is 16 such steps with room (and ~60 f32 ulps at 166).
+# Where the ids part, the search took another candidate on a near-tie: the CPU's
+# smallest gap among its top K + 1 candidates at the first parting step must lie
+# under the same 1e-3, else the parting is a fault, not rounding.
+DECODE_SCORE_ATOL, DECODE_TIE_MARGIN = 1e-3, 1e-3
+# beam 4's best score against greedy's: the JAX suite's slack
+# (tests/test_beam_search.py::test_transformer_beam_beats_greedy_score)
+BEAM_VS_GREEDY_SLACK = 1e-4
+
+
+def _nmt_train(torch, pt):
+    """Transformer training (phase 13, first part): graph against eager as
+    phase 11, then step 1 against the CPU port at batch 2 on the dropout-0
+    build of the same weights. Returns (result, the graph path's final
+    state, launches)."""
+    from paddle_tpu_torch.tools.train_profile import (NMT_BATCH, NMT_LR, NMT_SEQ,
+                                                      build_transformer, nmt_feed,
+                                                      transformer_config)
+    cfg = transformer_config()
+    t0 = time.perf_counter()
+    main, startup, loss, params_grads = build_transformer(cfg, NMT_BATCH, NMT_SEQ, NMT_LR, SEED)
+    build_s = time.perf_counter() - t0
+    raw = nmt_feed(np.random.RandomState(SEED), cfg, NMT_BATCH, NMT_SEQ)
+    feed = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    drops = [op for op in main.global_block().ops
+             if op.type == "dropout" and not op.attr("is_test", False)]
+    init = _startup_state(pt, main, startup)
+    n_params = sum(int(np.prod(p.shape)) for p, _ in params_grads)
+    expected = {"dropout_fwd": len(drops), "multi_tensor_update": 1}
+    final = {}
+    label = (f"transformer-base f32 B{NMT_BATCH} S{NMT_SEQ}+{NMT_SEQ} vocab "
+             f"{cfg.src_vocab}/{cfg.trg_vocab} dropout {cfg.dropout} label smoothing 0.1 "
+             f"Adam({NMT_LR})")
+    t0 = time.perf_counter()
+    r = _captured_model(torch, pt, label, main, startup, feed, loss, expected,
+                        [drops[0].output("Mask")[0]], init=init, final=final)
+    captured_s = time.perf_counter() - t0
+    losses = r["losses"]["graph"]
+    if not (r["eager_deterministic"] and r["state_differs"] == 0 and all(r["loss_bit_equal"])
+            and r["run_fused"]["losses_bit_equal"] and r["run_fused"]["state_differs"] == 0):
+        raise SystemExit("Transformer: graph and eager paths are not bit for bit")
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"Transformer: the loss does not fall on one batch: {losses}")
+    del main, startup, feed
+
+    # step 1 against the CPU port: batch 2, the dropout-0 build, the same weights
+    main0, _, loss0, pg0 = build_transformer(transformer_config(dropout=0.0), NMT_CPU_BATCH,
+                                             NMT_SEQ, NMT_LR, SEED)
+    state0 = {n for n, v in main0.global_block().vars.items() if v.persistable}
+    if state0 != set(init):
+        raise SystemExit(f"Transformer: the dropout-0 build names other state: "
+                         f"{sorted(state0 ^ set(init))[:8]}")
+    feed2 = {k: v[:NMT_CPU_BATCH] for k, v in raw.items()}
+    params = [p.name for p, _ in pg0]
+    card = _step_once(torch, pt, main0, loss0, params, init, feed2, "cuda")
+    t0 = time.perf_counter()
+    cpu = _step_once(torch, pt, main0, loss0, params, init, feed2, "cpu")
+    cpu_s = time.perf_counter() - t0
+    gaps = dict(_gaps(card, cpu), loss_rel_limit=NMT_LOSS_REL,
+                update_rel_l1_limit=NMT_UPDATE_REL, cpu_seconds=cpu_s)
+    del main0, init
+    g = r["paths"]["graph"]
+    ms = g["step_ms_median_warm"]
+    summary = dict(model=label, params=n_params, build_s=build_s, captured_s=captured_s,
+                   dropout_ops=len(drops),
+                   step1_card_vs_cpu_batch2_dropout0=gaps,
+                   step_ms={p: r["paths"][p]["step_ms_median_warm"] for p in r["paths"]},
+                   tokens_per_s={p: 2 * NMT_BATCH * NMT_SEQ / r["paths"][p]["step_ms_median_warm"]
+                                 * 1e3 for p in r["paths"]},
+                   idle_share_unprofiled={p: r["paths"][p]["idle_share_unprofiled"]
+                                          for p in r["paths"]},
+                   graph_step_ms=ms)
+    emit("transformer_train", **summary)
+    if not (gaps["loss_rel_gap"] <= NMT_LOSS_REL and gaps["update_rel_l1_gap"] <= NMT_UPDATE_REL):
+        raise SystemExit(f"Transformer step 1: card vs CPU {gaps} exceeds the limits")
+    return dict(r, summary=summary), final, r["launches"]["graph"]
+
+
+def _decode_runs(torch, pt, main, weights, feed, fetch, graphs, runs):
+    """``runs`` decodes of one batch on a fresh executor (graphs or eager):
+    (the last run's fetches as numpy, each run's wall ms, the executor's
+    graph pools, the profile of 3 more)."""
+    from paddle_tpu_torch.tools.train_profile import profile_steps
+    exe = pt.Executor()
+    exe._use_graphs = graphs
+    scope = pt.Scope()
+    for n, t in weights.items():
+        scope.set_var(n, t)
+    times = []
+    with pt.scope_guard(scope):
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            outs = exe.run(main, feed=feed, fetch_list=fetch)
+            times.append((time.perf_counter() - t0) * 1e3)
+        pools = _graph_pools(exe)
+        prof = profile_steps(torch, exe, main, feed, fetch, 3)
+    exe.close()
+    return outs, times, pools, prof
+
+
+def _first_parting(card, cpu):
+    """The first decode step at which the card's and the CPU's per-step ids
+    or parents ([B, T, K]) differ, and the rows that differ there; None when
+    they agree."""
+    (ci, cp), (pi, pp) = card, cpu
+    for t in range(ci.shape[1]):
+        rows = [b for b in range(ci.shape[0])
+                if not (np.array_equal(ci[b, t], pi[b, t]) and np.array_equal(cp[b, t], pp[b, t]))]
+        if rows:
+            return t, rows
+    return None
+
+
+def _nmt_decode(torch, pt, final):
+    """Transformer beam-search decode (phase 13, second part) on the weights
+    the training part ends with, carried by name: graph against eager, the
+    card against the CPU port at batch 2, beams best-first, beam 4 against
+    greedy; decode ms, generated tokens/s, idle share, launches."""
+    from paddle_tpu_torch.core import cuda_build, registry
+    from paddle_tpu_torch.ops import beam_ops
+    from paddle_tpu_torch.tools.train_profile import (NMT_SEQ, build_beam_decode,
+                                                      decode_feed, transformer_config)
+    cfg = transformer_config(dropout=0.0)
+    t0 = time.perf_counter()
+    main, _, ids, scores, scan = build_beam_decode(cfg, NMT_SEQ, DECODE_BEAM, DECODE_MAX_LEN,
+                                                   SEED)
+    build_s = time.perf_counter() - t0
+    params = [n for n, v in main.global_block().vars.items() if v.persistable]
+    missing = [n for n in params if n not in final]
+    if missing:
+        raise SystemExit(f"decode: parameters {missing[:8]} are not in the trained state")
+    weights = {n: final[n] for n in params}
+    raw = decode_feed(np.random.RandomState(SEED + 13), cfg, DECODE_BATCH, NMT_SEQ)
+    feed = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    fetch = [ids, scores] + scan.output("Out")          # + per-step ids and parents
+
+    t_start = time.perf_counter()
+    res, launches = {}, {}
+    for path in ("graph", "eager"):
+        for fn in cuda_build.COUNTED:
+            fn.launches = 0
+        outs, times, pools, prof = _decode_runs(torch, pt, main, weights, feed, fetch,
+                                                path == "graph", DECODE_RUNS)
+        launches[path] = {fn.__name__: fn.launches for fn in cuda_build.COUNTED if fn.launches}
+        warm = times[2:] if path == "graph" else times[1:]
+        ms = statistics.median(warm)
+        res[path] = dict(outs=outs, decode_ms=times, decode_ms_median_warm=ms,
+                         generated_tokens_per_s=DECODE_BATCH * DECODE_MAX_LEN / ms * 1e3,
+                         graph_pool_gb=pools, device_busy_ms=prof["device_busy_ms"],
+                         idle_share_profiled=prof["device_idle_share"],
+                         idle_share_unprofiled=max(0.0, 1 - prof["device_busy_ms"] / ms),
+                         device_activities=prof["device_activities_per_step"],
+                         by_kind=prof["by_kind"])
+    g_ids, g_scores, g_steps, g_parents = res["graph"].pop("outs")
+    e_ids, e_scores, _, _ = res["eager"].pop("outs")
+    bit_equal = bool(np.array_equal(g_ids, e_ids) and np.array_equal(g_scores, e_scores))
+
+    # greedy (beam 1) on the same weights, on the card
+    gmain, _, gids, gscores, gscan = build_beam_decode(cfg, NMT_SEQ, 1, DECODE_MAX_LEN, SEED)
+    scope = pt.Scope()
+    for n, t in weights.items():
+        scope.set_var(n, t)
+    with pt.scope_guard(scope):
+        greedy_ids, greedy_scores, greedy_steps = pt.Executor().run(
+            gmain, feed=feed, fetch_list=[gids, gscores, gscan.output("Out")[0]])
+    del scope, gmain
+
+    # the CPU port at batch 2, recording each step's candidates
+    cand = []
+    d = registry.get("beam_search")
+    lower = d.lower
+
+    def recording(ctx, ins):
+        flat = beam_ops.candidates(ins["PreScores"][0], ins["Scores"][0], ins["Finished"][0],
+                                   ctx.attr("end_id", 1))
+        cand.append(torch.sort(flat, dim=-1, descending=True).values[:, :DECODE_BEAM + 1])
+        return lower(ctx, ins)
+
+    feed2 = {k: v[:NMT_CPU_BATCH] for k, v in raw.items()}
+    scope = pt.Scope()
+    for n, t in weights.items():
+        scope.set_var(n, t.cpu())
+    d.lower = recording
+    t0 = time.perf_counter()
+    try:
+        with pt.scope_guard(scope):
+            c_ids, c_scores, c_steps, c_parents = pt.Executor(pt.CPUPlace()).run(
+                main, feed=feed2, fetch_list=fetch)
+    finally:
+        d.lower = lower
+    cpu_s = time.perf_counter() - t0
+    del scope
+    k2 = slice(0, NMT_CPU_BATCH)
+    ids_equal = bool(np.array_equal(g_ids[k2], c_ids))
+    cpu_check = dict(batch=NMT_CPU_BATCH, ids_equal=ids_equal, cpu_seconds=cpu_s,
+                     score_atol=DECODE_SCORE_ATOL, tie_margin=DECODE_TIE_MARGIN)
+    same_rows = [b for b in range(NMT_CPU_BATCH) if np.array_equal(g_ids[b], c_ids[b])]
+    cpu_check["max_abs_score_gap_where_ids_equal"] = max(
+        [float(np.abs(g_scores[b] - c_scores[b]).max()) for b in same_rows] or [0.0])
+    parting = _first_parting((g_steps[k2], g_parents[k2]), (c_steps, c_parents))
+    if parting is not None:
+        t, rows = parting
+        top = cand[t][rows].numpy()
+        cpu_check.update(first_parting_step=t, parting_rows=rows,
+                         cpu_top_k_gap=float((top[:, :-1] - top[:, 1:]).min()),
+                         cpu_top_candidates=top.tolist())
+    sorted_best_first = bool((g_scores[:, :-1] >= g_scores[:, 1:]).all())
+    beam_vs_greedy = (g_scores[:, 0] - greedy_scores[:, 0]).tolist()
+    # beam search promises a best score at least greedy's only where greedy's
+    # sentence survives among the beams (a prefix of it can be pruned by K
+    # better prefixes that then fall further): held there, reported everywhere
+    greedy_in_beam = [bool((g_ids[b] == greedy_ids[b, 0]).all(-1).any())
+                      for b in range(DECODE_BATCH)]
+    # at step 0 only beam 0 is live: the beam's best first token is greedy's
+    first_token_is_greedys = bool(np.array_equal(g_steps[:, 0, 0], greedy_steps[:, 0, 0]))
+    beam_below_greedy = [b for b in range(DECODE_BATCH)
+                         if greedy_in_beam[b] and beam_vs_greedy[b] < -BEAM_VS_GREEDY_SLACK]
+    r = dict(model=(f"transformer-base beam_decode beam {DECODE_BEAM} max_len {DECODE_MAX_LEN} "
+                    f"B{DECODE_BATCH} S{NMT_SEQ} ragged masks, weights after the training "
+                    f"steps"), build_s=build_s, params=len(params),
+             lengths=raw["mask"].sum(1).astype(int).tolist(),
+             graph_vs_eager_bit_equal=bit_equal, launches=launches, paths=res,
+             graph_speedup=res["eager"]["decode_ms_median_warm"]
+             / res["graph"]["decode_ms_median_warm"],
+             card_vs_cpu=cpu_check, sorted_best_first=sorted_best_first,
+             beam4_minus_greedy_best=beam_vs_greedy, greedy_sentence_in_beams=greedy_in_beam,
+             first_token_is_greedys=first_token_is_greedys,
+             first_sentence=g_ids[0, 0].tolist(), best_scores=g_scores[:, 0].tolist(),
+             seconds=time.perf_counter() - t_start)
+    emit("transformer_decode", **r)
+    if g_ids.shape != (DECODE_BATCH, DECODE_BEAM, DECODE_MAX_LEN) or \
+            not np.isfinite(g_scores).all():
+        raise SystemExit(f"decode: bad output {g_ids.shape}, finite={np.isfinite(g_scores).all()}")
+    if not bit_equal:
+        raise SystemExit("decode: the graph path's ids or scores differ from the eager path's")
+    if not sorted_best_first or beam_below_greedy or not first_token_is_greedys:
+        raise SystemExit(f"decode: beams not best-first ({sorted_best_first}), beam "
+                         f"{DECODE_BEAM} below greedy with greedy's sentence among its beams "
+                         f"(rows {beam_below_greedy}: {beam_vs_greedy}), or its best first "
+                         f"token not greedy's ({first_token_is_greedys})")
+    if cpu_check["max_abs_score_gap_where_ids_equal"] > DECODE_SCORE_ATOL:
+        raise SystemExit(f"decode: scores part from the CPU port's: {cpu_check}")
+    if not ids_equal and (parting is None or cpu_check["cpu_top_k_gap"] > DECODE_TIE_MARGIN):
+        raise SystemExit(f"decode: ids part from the CPU port's without a near-tie: {cpu_check}")
+    return r
+
+
+def phase_transformer(torch):
+    """Transformer NMT (phase 13): training at transformer-base, then
+    beam-search decode on the trained weights."""
+    import paddle_tpu_torch as pt
+    train, final, launches = _nmt_train(torch, pt)
+    torch.cuda.empty_cache()
+    decode = _nmt_decode(torch, pt, final)
+    del final
+    torch.cuda.empty_cache()
+    return train, decode, launches
 
 
 def phase_main_path(torch, workdir):
@@ -1868,6 +2179,7 @@ def main() -> int:
     del resnet
     torch.cuda.empty_cache()
     cap_bert, cap_resnet = phase_captured_training(torch)
+    nmt_train, nmt_decode, nmt_launches = phase_transformer(torch)
 
     serve_case = next(r for r in kres if r["dtype"] == "bfloat16" and r["shape"][2] == 512
                       and r["bias"] and not r["causal"])
@@ -1881,7 +2193,9 @@ def main() -> int:
     int8_case = next(r for r in ires if r["shape"] == [4096, 768, 3072])
     mt_bert, mt_res = mres
     drop_case = dres[0]                        # [16384, 768] bf16, upscale_in_train, p 0.1
-    drop_launches = cap_bert["launches"]["graph"]["dropout_fwd"]
+    nmt_drop_case = dres[2]                    # [64, 8, 64, 64] f32, upscale_in_train, p 0.1
+    drop_launches = {"captured_training": cap_bert["launches"]["graph"]["dropout_fwd"],
+                     "transformer_training": nmt_launches["dropout_fwd"]}
     no_library = ("no single PyTorch call computes this function; matmul_ms is a bf16 "
                   "torch.matmul of the same shape, for context")
     print(smi.splitlines()[0] if smi else "nvidia-smi printed nothing", flush=True)
@@ -1932,20 +2246,26 @@ def main() -> int:
          "replaces": "paddle_tpu/ops/nn_ops.py:333",
          "replaces_note": ("no Pallas kernel: the draw of the JAX dropout lowering "
                            "(jax.random.bernoulli inside the compiled step)"),
-         "launches": drop_launches,
-         "launches_by_path": {"captured_training": drop_launches},
+         "launches": sum(drop_launches.values()),
+         "launches_by_path": drop_launches,
          "max_abs_err": max(r["max_abs_err"] for r in dres),
          **{k: drop_case[k] for k in keys}, "library": drop_case["library"],
-         "shape": "[16384, 768] bf16, upscale_in_train, p 0.1 (BERT-base's hidden dropout)"},
+         "shape": "[16384, 768] bf16, upscale_in_train, p 0.1 (BERT-base's hidden dropout)",
+         "transformer": {**{k: nmt_drop_case[k] for k in keys},
+                         "library": nmt_drop_case["library"],
+                         "shape": ("[64, 8, 64, 64] f32, upscale_in_train, p 0.1 "
+                                   "(transformer-base's attention-probs dropout)")}},
         {"name": "multi_tensor_update", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/multi_tensor_update.cu", "in_place": True,
          "replaces": "paddle_tpu/compiler.py:94",
          "replaces_note": ("no Pallas kernel: fuse_all_optimizer_ops, under which XLA "
                            "updates every parameter inside the one compiled step"),
          "launches": (train_launches["multi_tensor_update"]
-                      + resnet_launches["multi_tensor_update"]),
+                      + resnet_launches["multi_tensor_update"]
+                      + nmt_launches["multi_tensor_update"]),
          "launches_by_path": {"training": train_launches["multi_tensor_update"],
-                              "resnet50_training": resnet_launches["multi_tensor_update"]},
+                              "resnet50_training": resnet_launches["multi_tensor_update"],
+                              "transformer_training": nmt_launches["multi_tensor_update"]},
          "max_abs_err": max(r["max_abs_err"] for r in mres),
          **{k: mt_bert[k] for k in keys}, "library": mt_bert["library"],
          "shape": (f"BERT-base's {mt_bert['tensors']} Adam parameters, "
@@ -1955,7 +2275,10 @@ def main() -> int:
                                 f"{mt_res['elements']} elements, bf16, f32 velocity")}}],
         "captured_step_ms": {
             name: {p: r["paths"][p]["step_ms_median_warm"] for p in ("graph", "eager")}
-            for name, r in (("bert_base", cap_bert), ("resnet50", cap_resnet))},
+            for name, r in (("bert_base", cap_bert), ("resnet50", cap_resnet),
+                            ("transformer_base", nmt_train))},
+        "transformer_decode_ms": {p: nmt_decode["paths"][p]["decode_ms_median_warm"]
+                                  for p in ("graph", "eager")},
         "train_step_ms": step_ms, "resnet_step_ms": resnet_step_ms,
         "reference_path_step_ms": {
             "training": train_paths["reference"]["step_ms_median_warm"],

@@ -13,7 +13,14 @@ state identically. The same holds for ResNet (bf16 filters and batch-norm
 scales, f32 running statistics, ``{param}_velocity_0``) and for a model
 quantized by ``quantize_weights`` in either package (int8 codes under the
 weight's name, f32 scales under ``{weight}@scale``): arrays keep their
-dtypes.
+dtypes. The Transformer's training state is its parameters (the
+``ParamAttr``-named projections and embeddings, ``{name}_w`` and
+``src_emb`` / ``src_pos`` / ``trg_emb`` / ``trg_pos``, and the
+``unique_name``-named fc biases ``fc_N.b_0`` and layer norms
+``layer_norm_N.w_0`` / ``.b_0``), Adam's four accumulators for each and
+``learning_rate_0``; a decode program built under ``unique_name.guard()``
+names its parameters as the training program does, so trained weights load
+into it by name.
 """
 from __future__ import annotations
 

@@ -14,6 +14,12 @@ the counterparts of what XLA does to that step:
 - each variable is dropped after its last reader (XLA's buffer liveness),
   except the fetches, the feeds and the persistable state.
 
+A control-flow op (``scan``) runs its body, a sub-block of the program,
+through ``LowerCtx.block_runner`` (``SubBlockRunner``, the JAX executor's
+``block_runner``): the enclosing env with the body's inputs on top, the
+run's device, seed and counter. On the card the whole loop is part of the
+step's CUDA graph.
+
 On the card, ``Executor.run`` keeps a cache of compiled steps as the JAX
 ``Executor.run`` does, keyed by (program id, ``_version``, feed signature,
 fetch names, seed, scope), each one CUDA graph (``core/graphs.py``): the
@@ -27,7 +33,8 @@ scope rebinds, the feeds are copied into the graph's buffers and the run
 counter is written into the graph's counter on the card, from which the
 dropout kernels derive their seeds. A program that holds a ``host_rng`` op
 (``gaussian_random``, ``uniform_random``: startup programs) is not captured;
-it runs eagerly on the card. A failed capture or replay raises.
+it runs eagerly on the card, and its first run warns why
+(``capture_refusal``). A failed capture or replay raises.
 ``run_fused`` runs K steps as K replays. ``close()`` drops the graphs.
 
 The device is explicit: ``Executor()`` runs on ``cuda`` and raises when there
@@ -40,6 +47,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import threading
+import warnings
 import weakref
 from typing import Any, Dict, FrozenSet, List, Optional, Sequence, Tuple
 
@@ -253,7 +261,7 @@ def dead_after(block: Block, keep: FrozenSet[str]) -> List[Tuple[str, ...]]:
 def trace_block(block: Block, env: Dict[str, Any], device, seed: int = 0,
                 counter: int = 0, *, reuse_forward: bool = True,
                 group_updates: bool = True, counter_t: Optional[torch.Tensor] = None,
-                keep: Optional[FrozenSet[str]] = None):
+                keep: Optional[FrozenSet[str]] = None, block_runner=None):
     """Run the ops of ``block`` over ``env`` (name -> tensor), in order, with
     new tensors made on ``device``.
 
@@ -275,6 +283,9 @@ def trace_block(block: Block, env: Dict[str, Any], device, seed: int = 0,
     ``keep``: when given, each variable not in it is dropped from ``env``
     after its last reader (``dead_after``), so its memory goes back to the
     allocator; the caller keeps its fetches, feeds and persistable state.
+    ``block_runner``: what a control-flow op runs its sub-block with
+    (``SubBlockRunner``; ``LowerCtx.block_runner``). Without one, a
+    program holding such an op raises.
     """
     device = torch.device(device)
     ops = block.ops
@@ -307,7 +318,8 @@ def trace_block(block: Block, env: Dict[str, Any], device, seed: int = 0,
                     (ns[0] for ns in op.outputs.values() if ns and ns[0] != EMPTY_VAR),
                     op.type)
                 ctx = LowerCtx(op.attrs, device, seed, counter, stable_salt(salt_name),
-                               graphs=graphs, counter_t=counter_t)
+                               graphs=graphs, counter_t=counter_t,
+                               block_runner=block_runner)
                 try:
                     if (op.type, out0) in kept:
                         outs = registry.lower_keeping_graph(d, ctx, ins, out0)
@@ -328,6 +340,35 @@ def trace_block(block: Block, env: Dict[str, Any], device, seed: int = 0,
     finally:
         graphs.clear()
     return env
+
+
+class SubBlockRunner:
+    """The ``block_runner`` of a run of ``program`` over ``env``, as the JAX
+    executor's: block ``idx`` runs over the enclosing ``env`` with the
+    sub-env on top, on the run's device with its seed, counter and
+    ``counter_t``. An op's draws are keyed by its salt, so a body draws the
+    same numbers in every iteration (the JAX body's one key: ``lax.scan``
+    traces it once). A body runs with no kept graphs and no grouped updates:
+    it holds no grad or update ops (the control-flow op's own grad
+    differentiates through the whole loop); ``keep`` names what the caller
+    reads from the env it returns, and every other variable is dropped
+    after its last reader. The outer env is not written. (An object, not a
+    closure that passes itself on: such a closure is a reference cycle,
+    which would keep the run's env alive until the garbage collector runs.)"""
+    __slots__ = ("program", "env", "device", "seed", "counter", "counter_t")
+
+    def __init__(self, program: Program, env: Dict[str, Any], device, seed: int = 0,
+                 counter: int = 0, counter_t: Optional[torch.Tensor] = None):
+        self.program, self.env, self.device = program, env, device
+        self.seed, self.counter, self.counter_t = seed, counter, counter_t
+
+    def __call__(self, idx: int, sub_env: Dict[str, Any],
+                 keep: Optional[FrozenSet[str]] = None):
+        merged = dict(self.env)
+        merged.update(sub_env)
+        return trace_block(self.program.blocks[idx], merged, self.device, self.seed,
+                           self.counter, reuse_forward=False, group_updates=False,
+                           counter_t=self.counter_t, keep=keep, block_runner=self)
 
 
 def capture_refusal(program: Program) -> Optional[str]:
@@ -521,6 +562,9 @@ class Executor:
         step = self._cache.get(key)
         if step is None:
             step = self._cache[key] = _Step(capture_refusal(program))
+            if step.refusal is not None:
+                warnings.warn(f"Executor.run: the program is not captured as a CUDA graph "
+                              f"({step.refusal}); its runs are eager", stacklevel=3)
             while len(self._cache) > self._CACHE_CAP:
                 self._cache.popitem(last=False)
         else:
@@ -556,10 +600,12 @@ class Executor:
         seed = program.random_seed if program.random_seed is not None else 0
         keep = frozenset(env) | frozenset(fetch_names) | frozenset(state_out) \
             | frozenset(state_in)
+        runner = SubBlockRunner(program, env, self.device, seed, counter, counter_t)
         with torch.no_grad():
             trace_block(program.global_block(), env, self.device, seed, counter,
                         reuse_forward=self._reuse_forward, group_updates=self._group_updates,
-                        counter_t=counter_t, keep=keep if self._free_dead else None)
+                        counter_t=counter_t, keep=keep if self._free_dead else None,
+                        block_runner=runner)
         missing = [n for n in fetch_names if n not in env]
         if missing:
             raise KeyError(f"fetch variable {missing[0]!r} was not produced by the "

@@ -108,11 +108,16 @@ class LowerCtx:
     two give the same seed for the same counter.
     ``graphs`` is the run's table of kept forward graphs, which a generic
     grad op reads.
+    ``block_runner(idx, sub_env, keep=None)`` runs block ``idx`` of the
+    program over the enclosing env with ``sub_env`` on top and returns the
+    env it ends with (``keep`` as ``trace_block``'s); a control-flow op runs
+    its body through it. None outside an executor.
     """
 
     def __init__(self, attrs: dict, device=None, seed: int = 0, counter: int = 0,
                  salt: int = 0, abstract: bool = False, graphs: Optional[dict] = None,
-                 counter_t: Optional[torch.Tensor] = None):
+                 counter_t: Optional[torch.Tensor] = None,
+                 block_runner: Optional[Callable] = None):
         self.attrs = attrs
         self.device = torch.device(device if device is not None else "cpu")
         self.seed = seed
@@ -122,6 +127,7 @@ class LowerCtx:
         self.abstract = abstract
         #: the run's kept forward graphs (``lower_keeping_graph``), or None
         self.graphs = graphs
+        self.block_runner = block_runner
 
     def attr(self, name, default=None):
         return self.attrs.get(name, default)
@@ -356,7 +362,8 @@ def _generic_grad_lower(fwd: OpDef, ctx, ins):
     else:
         full, diff_keys, primals = _differentiable(fwd, ins, fwd_in_slots)
         fwd_ctx = LowerCtx(fwd_attrs, ctx.device, ctx.seed, ctx.counter, ctx._salt,
-                           ctx.abstract, counter_t=ctx.counter_t)
+                           ctx.abstract, counter_t=ctx.counter_t,
+                           block_runner=ctx.block_runner)
         with torch.enable_grad():
             outs = fwd.lower(fwd_ctx, full)
     del kept

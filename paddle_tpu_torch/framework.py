@@ -10,6 +10,10 @@ What differs from the JAX package:
   * Variables carry no arithmetic sugar; layers build every op explicitly.
   * No ``device_guard``: the port runs no pipeline stages yet.
 
+Sub-blocks (``Program._create_block`` / ``_rollback``) hold the bodies of
+control-flow ops (``layers.Scan``); the executor runs them through
+``LowerCtx.block_runner``.
+
 ``Block.insert_op`` is the JAX package's (``quantize_weights`` inserts its
 ``dequantize_weight`` ops with it).
 """
@@ -365,6 +369,20 @@ class Program:
 
     def current_block(self) -> Block:
         return self.blocks[self._current_block_idx]
+
+    def _create_block(self, parent_idx=None) -> Block:
+        """A new block whose parent is the current block (or ``parent_idx``);
+        layers build into it until ``_rollback``."""
+        parent = self._current_block_idx if parent_idx is None else parent_idx
+        b = Block(self, len(self.blocks), parent)
+        self.blocks.append(b)
+        self._current_block_idx = b.idx
+        self._bump()
+        return b
+
+    def _rollback(self):
+        """Make the current block's parent current again."""
+        self._current_block_idx = self.current_block().parent_idx
 
     def clone(self, for_test: bool = False) -> "Program":
         """Deep structural copy. With for_test=True, sets is_test on the ops that

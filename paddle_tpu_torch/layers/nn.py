@@ -1,5 +1,6 @@
 """Core NN layers DSL (the port's copy of the functions of
-``paddle_tpu/layers/nn.py`` that BERT pretraining and ResNet training call).
+``paddle_tpu/layers/nn.py`` that BERT pretraining, ResNet training and the
+Transformer's training and beam-search decode call).
 
 Each function builds ops into the default main program and parameters into
 the default startup program, with the same op types, slots, attrs and names
@@ -179,6 +180,71 @@ def _elementwise(op_type):
 
 
 elementwise_add = _elementwise("elementwise_add")
+elementwise_sub = _elementwise("elementwise_sub")
+elementwise_mul = _elementwise("elementwise_mul")
+elementwise_div = _elementwise("elementwise_div")
+
+
+def _reduce(op_type):
+    def layer(input, dim=None, keep_dim=False, name=None):
+        helper = LayerHelper(op_type, name=name)
+        out = _out(helper, input.dtype)
+        if dim is None:
+            attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
+        else:
+            attrs = {"dim": dim if isinstance(dim, (list, tuple)) else [dim],
+                     "keep_dim": keep_dim, "reduce_all": False}
+        helper.append_op(op_type, inputs={"X": [input]}, outputs={"Out": [out]},
+                         attrs=attrs)
+        return _var(helper, out)
+    layer.__name__ = op_type
+    return layer
+
+
+reduce_sum = _reduce("reduce_sum")
+
+
+def one_hot(input, depth, allow_out_of_range=False):
+    helper = LayerHelper("one_hot")
+    out = _out(helper, "float32")
+    helper.append_op("one_hot", inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs={"depth": depth})
+    return _var(helper, out)
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32", name=None):
+    helper = LayerHelper("label_smooth", name=name)
+    inputs = {"X": [label]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist]
+    out = _out(helper, dtype)
+    helper.append_op("label_smooth", inputs=inputs, outputs={"Out": [out]},
+                     attrs={"epsilon": float(epsilon)})
+    return _var(helper, out)
+
+
+def log_softmax(input, axis=-1, name=None):
+    helper = LayerHelper("log_softmax", name=name)
+    out = _out(helper, input.dtype)
+    helper.append_op("log_softmax", inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs={"axis": axis})
+    return _var(helper, out)
+
+
+def squeeze(input, axes, name=None):
+    helper = LayerHelper("squeeze2", name=name)
+    out = _out(helper, input.dtype)
+    helper.append_op("squeeze2", inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs={"axes": list(axes)})
+    return _var(helper, out)
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper("expand", name=name)
+    out = _out(helper, x.dtype)
+    helper.append_op("expand", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"expand_times": list(expand_times)})
+    return _var(helper, out)
 
 
 def relu(x, name=None):
@@ -351,3 +417,52 @@ def accuracy(input, label, k=1, correct=None, total=None):
                      outputs={"Accuracy": [acc], "Correct": [correct],
                               "Total": [total]})
     return _var(helper, acc)
+
+
+# -- beam search over dense [B, K] beams (ops/beam_ops.py) ------------------------------
+
+def beam_search(pre_ids, pre_scores, scores, finished, beam_size, end_id,
+                name=None):
+    """One beam step over [B, K] beams; ``scores`` are the step's log-probs
+    [B, K, V] (or [B*K, V]). Returns (selected_ids, selected_scores,
+    parent_idx, finished)."""
+    helper = LayerHelper("beam_search", name=name)
+    sel_ids = _out(helper, "int64", stop_gradient=True)
+    sel_scores = _out(helper, scores.dtype, stop_gradient=True)
+    parent = _out(helper, "int32", stop_gradient=True)
+    fin = _out(helper, "bool", stop_gradient=True)
+    helper.append_op("beam_search",
+                     inputs={"PreIds": [pre_ids], "PreScores": [pre_scores],
+                             "Scores": [scores], "Finished": [finished]},
+                     outputs={"SelectedIds": [sel_ids], "SelectedScores": [sel_scores],
+                              "ParentIdx": [parent], "FinishedOut": [fin]},
+                     attrs={"beam_size": int(beam_size), "end_id": int(end_id)})
+    blk = helper.main_program.current_block()
+    return (blk.var(sel_ids.name), blk.var(sel_scores.name),
+            blk.var(parent.name), blk.var(fin.name))
+
+
+def beam_append(ids_buf, parent, new_ids, step_idx, name=None):
+    """The [B, K, T] token buffer reordered by the parent pointers, with
+    ``new_ids`` written at column ``step_idx``."""
+    helper = LayerHelper("beam_append", name=name)
+    out = _out(helper, ids_buf.dtype, stop_gradient=True)
+    helper.append_op("beam_append",
+                     inputs={"IdsBuf": [ids_buf], "Parent": [parent],
+                             "NewIds": [new_ids], "StepIdx": [step_idx]},
+                     outputs={"Out": [out]})
+    return _var(helper, out)
+
+
+def beam_search_decode(ids, parents, scores, beam_size=None, end_id=1, name=None):
+    """The per-step selections [B, T, K] backtracked into sentences [B, K,
+    T], sorted best-first."""
+    helper = LayerHelper("beam_search_decode", name=name)
+    sent = _out(helper, "int64", stop_gradient=True)
+    sscores = _out(helper, scores.dtype, stop_gradient=True)
+    helper.append_op("beam_search_decode",
+                     inputs={"Ids": [ids], "Parents": [parents], "Scores": [scores]},
+                     outputs={"SentenceIds": [sent], "SentenceScores": [sscores]},
+                     attrs={"end_id": int(end_id)})
+    blk = helper.main_program.current_block()
+    return blk.var(sent.name), blk.var(sscores.name)

@@ -1,6 +1,8 @@
-"""Tensor layers (the port's copy of ``cast`` and ``create_parameter`` from
-``paddle_tpu/layers/tensor.py``)."""
+"""Tensor layers (the port's copy of ``cast``, ``create_parameter``,
+``fill_constant`` and ``assign`` from ``paddle_tpu/layers/tensor.py``)."""
 from __future__ import annotations
+
+import numpy as np
 
 from ..framework import convert_dtype
 from ..layer_helper import LayerHelper, ParamAttr
@@ -22,3 +24,31 @@ def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
     if name:
         attr.name = name
     return helper.create_parameter(attr, shape, dtype, is_bias, default_initializer)
+
+
+def fill_constant(shape, dtype, value, force_cpu=False, out=None, name=None):
+    helper = LayerHelper("fill_constant", name=name)
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    helper.append_op("fill_constant", outputs={"Out": [out]},
+                     attrs={"shape": [int(s) for s in shape],
+                            "dtype": convert_dtype(dtype), "value": float(value)})
+    return helper.main_program.current_block().var(out.name)
+
+
+def assign(input, output=None):
+    """A numpy array becomes an ``assign_value`` op holding its values; a
+    Variable is copied by an ``assign`` op."""
+    helper = LayerHelper("assign")
+    if isinstance(input, np.ndarray):
+        if output is None:
+            output = helper.create_variable_for_type_inference(str(input.dtype))
+        helper.append_op("assign_value", outputs={"Out": [output]},
+                         attrs={"shape": list(input.shape),
+                                "dtype": convert_dtype(str(input.dtype)),
+                                "values": input.reshape(-1).tolist()})
+    else:
+        if output is None:
+            output = helper.create_variable_for_type_inference(input.dtype)
+        helper.append_op("assign", inputs={"X": [input]}, outputs={"Out": [output]})
+    return helper.main_program.current_block().var(output.name)

@@ -14,3 +14,6 @@ from . import conv_bn          # noqa: F401
 from . import metrics_ops      # noqa: F401
 from . import optimizer_ops    # noqa: F401
 from . import multi_tensor     # noqa: F401
+from . import reduce_ops       # noqa: F401
+from . import beam_ops         # noqa: F401
+from . import control_flow     # noqa: F401

@@ -1,5 +1,5 @@
-"""Creation, casting, copy and sum ops (the port's copy of part of
-``paddle_tpu/ops/basic.py``).
+"""Creation, casting, copy, sum, one-hot and comparison ops (the port's
+copy of part of ``paddle_tpu/ops/basic.py``).
 
 New tensors go on ``ctx.device`` (the meta device under shape inference).
 Random ops draw from the op's ``torch.Generator``, seeded on the host; the
@@ -9,6 +9,9 @@ not by bits. They run in startup programs, once: they are registered
 a CUDA graph (a replay would draw the numbers of the captured run again).
 """
 from __future__ import annotations
+
+import collections
+import threading
 
 import torch
 
@@ -42,6 +45,44 @@ def uniform_random(ctx, ins):
     return {"Out": [(x * (hi - lo) + lo).to(torch_dtype(ctx.attr("dtype", "float32")))]}
 
 
+#: (id of an op's ``values`` list, dtype, device) -> (the list, its tensor):
+#: the constant is uploaded once, outside any CUDA-graph capture (the first,
+#: eager run of a step makes it), and reused while the op holds that list
+_CONSTANTS: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
+_CONSTANTS_CAP = 256
+_CONSTANTS_LOCK = threading.Lock()
+
+
+@register("assign_value", grad=None)
+def assign_value(ctx, ins):
+    """A constant from the op's attrs (``values``, flat; ``shape``;
+    ``dtype``), converted as the JAX lowering converts it: through float64
+    or int64. On the card the tensor is made once per op and device and
+    then reused, so a captured step copies nothing from the host."""
+    values = ctx.attr("values")
+    shape = _shape(ctx)
+    dtype = torch_dtype(ctx.attr("dtype", "float32"))
+    if ctx.abstract or ctx.device.type == "meta":
+        return {"Out": [torch.empty(shape, dtype=dtype, device=ctx.device)]}
+    key = (id(values), dtype, ctx.device)
+    with _CONSTANTS_LOCK:
+        hit = _CONSTANTS.get(key)
+        if hit is not None and hit[0] is values:
+            _CONSTANTS.move_to_end(key)
+            return {"Out": [hit[1]]}
+    if ctx.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("assign_value: its constant was not made before the CUDA "
+                           "graph capture (the step's eager run makes it)")
+    wide = torch.float64 if dtype.is_floating_point else torch.int64
+    t = torch.tensor(list(values), dtype=wide).reshape(shape).to(dtype).to(ctx.device)
+    if ctx.device.type == "cuda":
+        with _CONSTANTS_LOCK:
+            _CONSTANTS[key] = (values, t)
+            while len(_CONSTANTS) > _CONSTANTS_CAP:
+                _CONSTANTS.popitem(last=False)
+    return {"Out": [t]}
+
+
 @simple_op("assign")
 def assign(ctx, x):
     return x
@@ -67,3 +108,33 @@ def sum_op(ctx, ins):
     for x in xs[1:]:
         out = out + x
     return {"Out": [out]}
+
+
+@register("one_hot", grad=None, nondiff_inputs=("X",))
+def one_hot(ctx, ins):
+    """f32 one-hot rows of depth ``depth``; a trailing dim of 1 on X is
+    dropped, as the JAX lowering drops it. An id outside [0, depth) gives a
+    row of zeros, as ``jax.nn.one_hot``'s."""
+    x = ins["X"][0]
+    if x.ndim > 1 and x.shape[-1] == 1:
+        x = x.squeeze(-1)
+    depth = int(ctx.attr("depth"))
+    classes = torch.arange(depth, dtype=x.dtype, device=x.device)
+    return {"Out": [(x.unsqueeze(-1) == classes).to(torch.float32)]}
+
+
+def _cmp(name, fn):
+    @register(name, grad=None)
+    def lower(ctx, ins):
+        return {"Out": [fn(ins["X"][0], ins["Y"][0])]}
+
+    return lower
+
+
+# numpy broadcasting, as the JAX lowerings (not Fluid's ``axis`` rule)
+less_than = _cmp("less_than", lambda x, y: x < y)
+less_equal = _cmp("less_equal", lambda x, y: x <= y)
+greater_than = _cmp("greater_than", lambda x, y: x > y)
+greater_equal = _cmp("greater_equal", lambda x, y: x >= y)
+equal = _cmp("equal", lambda x, y: x == y)
+not_equal = _cmp("not_equal", lambda x, y: x != y)

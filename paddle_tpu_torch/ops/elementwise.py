@@ -4,6 +4,8 @@ port's copy of ``paddle_tpu/ops/elementwise.py``).
 Fluid broadcast rule: Y's shape must match a contiguous dim-run of X starting
 at ``axis`` (default: trailing alignment, axis = x.ndim - y.ndim); Y is
 reshaped to x.ndim with singleton dims outside the run, then broadcast.
+Integer operands compute in their own dtype (``beam_decode`` multiplies an
+int64 prefix by 0); the generic grad differentiates float inputs only.
 """
 from __future__ import annotations
 
@@ -23,7 +25,17 @@ def _broadcast_y(x, y, axis):
     return y.reshape([1] * axis + yshape + [1] * (x.ndim - axis - len(yshape)))
 
 
-@register("elementwise_add")
-def elementwise_add(ctx, ins):
-    x, y = ins["X"][0], ins["Y"][0]
-    return {"Out": [x + _broadcast_y(x, y, ctx.attr("axis", -1))]}
+def _binary(name, fn):
+    @register(name)
+    def lower(ctx, ins):
+        x, y = ins["X"][0], ins["Y"][0]
+        return {"Out": [fn(x, _broadcast_y(x, y, ctx.attr("axis", -1)))]}
+
+    return lower
+
+
+elementwise_add = _binary("elementwise_add", lambda x, y: x + y)
+elementwise_sub = _binary("elementwise_sub", lambda x, y: x - y)
+elementwise_mul = _binary("elementwise_mul", lambda x, y: x * y)
+# true division for integer operands too, as jnp's ``/``
+elementwise_div = _binary("elementwise_div", lambda x, y: x / y)

@@ -1,6 +1,6 @@
 """Matmuls, softmax, cross-entropy and mean (the port's copy of ``matmul``,
-``mul``, ``softmax``, ``softmax_with_cross_entropy`` and ``mean`` from
-``paddle_tpu/ops/math_ops.py``).
+``mul``, ``softmax``, ``log_softmax``, ``softmax_with_cross_entropy`` and
+``mean`` from ``paddle_tpu/ops/math_ops.py``).
 
 The products stay ``torch.matmul``, as the JAX package leaves them to XLA.
 """
@@ -51,6 +51,15 @@ def softmax(ctx, ins):
     axis = ctx.attr("axis", -1)
     e = torch.exp(x - x.amax(dim=axis, keepdim=True).detach())
     return {"Out": [e / e.sum(dim=axis, keepdim=True)]}
+
+
+@register("log_softmax")
+def log_softmax(ctx, ins):
+    """Written out as ``jax.nn.log_softmax`` computes it, in x's dtype."""
+    x = ins["X"][0]
+    axis = ctx.attr("axis", -1)
+    shifted = x - x.amax(dim=axis, keepdim=True).detach()
+    return {"Out": [shifted - torch.log(torch.exp(shifted).sum(dim=axis, keepdim=True))]}
 
 
 @register("softmax_with_cross_entropy", nondiff_inputs=("Label",),

@@ -26,7 +26,19 @@ def _down(p_out, p):
     return p_out.to(p.dtype)
 
 
-@register("momentum", grad=None)
+def _state_out_infer(op, block):
+    """Each ``<Slot>Out`` takes the shape and dtype of the input ``<Slot>``
+    (what the lowering gives), without running it on meta tensors: a
+    program has one update op per parameter."""
+    for slot, names in op.outputs.items():
+        src = op.inputs.get(slot[:-len("Out")], [])
+        for n, s in zip(names, src):
+            sv = block.find_var_recursive(s)
+            v = block.find_var_recursive(n) or block.create_var(n, sv.shape, sv.dtype)
+            v.shape, v.dtype = sv.shape, sv.dtype
+
+
+@register("momentum", grad=None, infer_shape=_state_out_infer)
 def momentum(ctx, ins):
     """v' = mu v + g; p' = p - lr v' (Nesterov: p - lr (g + mu v'))."""
     p, g, v = ins["Param"][0], ins["Grad"][0], ins["Velocity"][0]
@@ -40,7 +52,7 @@ def momentum(ctx, ins):
     return {"ParamOut": [_down(p_out, p)], "VelocityOut": [v_out]}
 
 
-@register("adam", grad=None)
+@register("adam", grad=None, infer_shape=_state_out_infer)
 def adam(ctx, ins):
     p, g = ins["Param"][0], ins["Grad"][0]
     m, v = ins["Moment1"][0], ins["Moment2"][0]

@@ -1,6 +1,7 @@
 """Tensor-manipulation ops (the port's copy of part of
-``paddle_tpu/ops/tensor_ops.py``): reshape2, transpose2, unsqueeze2, split,
-slice, gather, top_k and the lookup_table_v2 embedding.
+``paddle_tpu/ops/tensor_ops.py``): reshape2, squeeze2, expand, label_smooth,
+transpose2, unsqueeze2, split, slice, gather, top_k and the lookup_table_v2
+embedding.
 
 ``gather`` and ``lookup_table_v2`` read rows by index. On the card their
 gradient sums the cotangents of repeated indices in a fixed order
@@ -32,6 +33,42 @@ def _resolve_shape(shape, x):
 def reshape2(ctx, ins):
     x = ins["X"][0]
     return {"Out": [x.reshape(_resolve_shape(ctx.attr("shape", []), x))]}
+
+
+@register("squeeze2")
+def squeeze2(ctx, ins):
+    """Drop the listed axes of size 1 (all size-1 axes when none are
+    listed); an axis whose size is not 1 stays, as in the JAX lowering."""
+    x = ins["X"][0]
+    axes = ctx.attr("axes", [])
+    if not axes:
+        return {"Out": [x.squeeze()]}
+    axes = sorted({a % x.ndim for a in axes if x.shape[a % x.ndim] == 1}, reverse=True)
+    for a in axes:
+        x = x.squeeze(a)
+    return {"Out": [x]}
+
+
+@register("expand")
+def expand(ctx, ins):
+    """``jnp.tile`` with ``expand_times``: fewer times than dims repeat the
+    trailing dims."""
+    x = ins["X"][0]
+    times = [int(t) for t in ctx.attr("expand_times", [])]
+    times = [1] * (x.ndim - len(times)) + times
+    return {"Out": [x.repeat(*times)]}
+
+
+@register("label_smooth", nondiff_inputs=("PriorDist",))
+def label_smooth(ctx, ins):
+    """(1 - eps) * X + eps * PriorDist, or + eps / K over the K classes of
+    X's last dim when there is no prior."""
+    x = ins["X"][0]
+    eps = ctx.attr("epsilon", 0.0)
+    prior = ins.get("PriorDist", [None])
+    if prior and prior[0] is not None:
+        return {"Out": [(1 - eps) * x + eps * prior[0]]}
+    return {"Out": [(1 - eps) * x + eps / x.shape[-1]]}
 
 
 @register("transpose2")

@@ -1,7 +1,8 @@
 """Where a training step spends its time on the card.
 
-    python3 -m paddle_tpu_torch.tools.train_profile            # BERT-base
-    python3 -m paddle_tpu_torch.tools.train_profile resnet50   # ResNet-50
+    python3 -m paddle_tpu_torch.tools.train_profile              # BERT-base
+    python3 -m paddle_tpu_torch.tools.train_profile resnet50     # ResNet-50
+    python3 -m paddle_tpu_torch.tools.train_profile transformer  # Transformer NMT
 
 BERT-base: builds the pretraining program (L12 H768 A12, FFN 3072, vocab
 30522, bf16, dropout 0.1, tied MLM decode) at the configuration of
@@ -21,8 +22,17 @@ configuration -- batch 128, 224 x 224, bf16, NHWC, the space-to-depth stem,
 so its 33 1x1/s1 conv + batch-norm chains run on the CUDA ``conv1x1_bn``
 kernel; then profiles it the same way.
 
-``build_pretrain``, ``pretrain_feed``, ``build_resnet50`` and
-``resnet_feed`` are what ``chip_smoke.py`` drives.
+    python3 -m paddle_tpu_torch.tools.train_profile transformer
+
+Transformer NMT: transformer-base as ``bench_workloads.py::bench_transformer``
+builds it -- vocabularies 32000, hidden 512, 6 + 6 layers, 8 heads, FFN
+2048, dropout 0.1, label smoothing 0.1, ``Adam(1e-4)``, f32, batch 64,
+source and target length 64, seed 0 -- profiled the same way.
+
+``build_pretrain``, ``pretrain_feed``, ``build_resnet50``, ``resnet_feed``,
+``transformer_config``, ``build_transformer``, ``nmt_feed``,
+``build_beam_decode`` and ``decode_feed`` are what ``chip_smoke.py``
+drives.
 """
 from __future__ import annotations
 
@@ -110,9 +120,82 @@ def resnet_feed(rng, batch):
             "label": rng.randint(0, CLASSES, (batch, 1)).astype("int64")}
 
 
+#: bench_workloads.py::bench_transformer's configuration
+NMT_BATCH, NMT_SEQ, NMT_LR, NMT_LABEL_SMOOTH = 64, 64, 1e-4, 0.1
+NMT_FEEDS = (("src", "int64"), ("spos", "int64"), ("smask", "float32"), ("trg", "int64"),
+             ("tpos", "int64"), ("tmask", "float32"), ("lbl", "int64"))
+
+
+def transformer_config(dropout=0.1):
+    """transformer-base at bench_workloads.py's widths."""
+    from paddle_tpu_torch.models import transformer
+    return transformer.TransformerConfig(src_vocab=32000, trg_vocab=32000, hidden=512,
+                                         n_layers=6, n_heads=8, ffn_hidden=2048,
+                                         dropout=dropout)
+
+
+def build_transformer(cfg, batch=NMT_BATCH, seq=NMT_SEQ, lr=NMT_LR, seed=SEED):
+    """The training Program at static shapes (batch x seq source and target
+    tokens), label smoothing 0.1, ``Adam(lr)``. Returns (main, startup,
+    loss, params_grads)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import transformer
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = seed
+    startup.random_seed = seed
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        ins = [pt.data(n, [batch, seq], dt, append_batch_size=False) for n, dt in NMT_FEEDS]
+        loss, _ = transformer.transformer(*ins, cfg, label_smooth_eps=NMT_LABEL_SMOOTH)
+        _, params_grads = pt.optimizer.Adam(lr).minimize(loss)
+    return main, startup, loss, params_grads
+
+
+def nmt_feed(rng, cfg, batch=NMT_BATCH, seq=NMT_SEQ):
+    """One batch as bench_workloads.py draws it: random source, target and
+    label ids, positions, full masks."""
+    pos = np.tile(np.arange(seq, dtype="int64"), (batch, 1))
+    ones = np.ones((batch, seq), "float32")
+    ids = lambda vocab: rng.randint(0, vocab, (batch, seq)).astype("int64")
+    return {"src": ids(cfg.src_vocab), "spos": pos, "smask": ones,
+            "trg": ids(cfg.trg_vocab), "tpos": pos, "tmask": ones,
+            "lbl": ids(cfg.trg_vocab)}
+
+
+def build_beam_decode(cfg, seq, beam_size, max_len, seed=SEED):
+    """The beam-search decode Program (dynamic batch, source length
+    ``seq``, bos 0, eos 1). Returns (main, startup, sentence ids, sentence
+    scores, the scan op)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import transformer
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = seed
+    startup.random_seed = seed
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        src = pt.data("src", [seq], "int64")
+        pos = pt.data("pos", [seq], "int64")
+        mask = pt.data("mask", [seq], "float32")
+        ids, scores = transformer.beam_decode(src, pos, mask, cfg, beam_size=beam_size,
+                                              max_len=max_len, bos_id=0, eos_id=1)
+    scan = next(op for op in main.global_block().ops if op.type == "scan")
+    return main, startup, ids, scores, scan
+
+
+def decode_feed(rng, cfg, batch, seq):
+    """Source sentences of ragged lengths (the first full, the rest drawn
+    from [seq/4, seq]): ids in [2, vocab) (0 and 1 are bos and eos), 0 past
+    the end, a 1/0 mask."""
+    lengths = rng.randint(seq // 4, seq + 1, batch)
+    lengths[0] = seq
+    mask = (np.arange(seq)[None, :] < lengths[:, None]).astype("float32")
+    src = rng.randint(2, cfg.src_vocab, (batch, seq)).astype("int64") * mask.astype("int64")
+    return {"src": src, "pos": np.tile(np.arange(seq, dtype="int64"), (batch, 1)),
+            "mask": mask}
+
+
 # device activity name -> kind, by the first pattern it contains
 KINDS = (("conv1x1_bn kernels", ("conv1x1_bn", "column_sums")),
          ("multi-tensor update", ("multi_tensor_kernel",)),
+         ("dropout kernel", ("dropout_kernel",)),
          ("attention kernels", ("flash_fwd", "bwd_dkdv", "bwd_dq", "delta_f32")),
          ("convolutions (cuDNN)", ("fprop", "dgrad", "wgrad", "cudnn", "convolve",
                                    "implicit_gemm")),
@@ -126,12 +209,15 @@ def _kind(name):
 
 
 def profile_steps(torch, exe, main, feed, total, n_steps):
-    """Trace ``n_steps`` training steps; device time by activity name."""
+    """Trace ``n_steps`` runs of ``main`` fetching ``total`` (a variable or a
+    list of them, as the runs before fetched, so that the executor's cached
+    graph is the one replayed); device time by activity name."""
     from torch.profiler import ProfilerActivity, profile
+    fetch = list(total) if isinstance(total, (list, tuple)) else [total]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
-            exe.run(main, feed=feed, fetch_list=[total])   # numpy: the step is done
+            exe.run(main, feed=feed, fetch_list=fetch)     # numpy: the step is done
         wall = (time.perf_counter() - t0) / n_steps
     device = []
     for e in prof.key_averages():
@@ -175,6 +261,23 @@ def main_resnet50(torch):
                       "gpu": torch.cuda.get_device_name(0), **r}), flush=True)
 
 
+def main_transformer(torch):
+    import paddle_tpu_torch as pt
+    cfg = transformer_config()
+    main_prog, startup, loss, _ = build_transformer(cfg)
+    feed = nmt_feed(np.random.RandomState(SEED), cfg)
+    exe = pt.Executor()
+    with pt.scope_guard(pt.Scope()):
+        exe.run(startup)
+        for _ in range(2):
+            exe.run(main_prog, feed=feed, fetch_list=[loss])
+        torch.cuda.synchronize()
+        r = profile_steps(torch, exe, main_prog, feed, loss, 3)
+    print(json.dumps({"profile": f"transformer-base f32 B{NMT_BATCH} S{NMT_SEQ}+{NMT_SEQ} "
+                                 f"dropout {cfg.dropout} Adam({NMT_LR})",
+                      "gpu": torch.cuda.get_device_name(0), **r}), flush=True)
+
+
 def main():
     import sys
     import torch
@@ -182,6 +285,8 @@ def main():
         raise SystemExit("train_profile: no CUDA device")
     if sys.argv[1:] == ["resnet50"]:
         return main_resnet50(torch)
+    if sys.argv[1:] == ["transformer"]:
+        return main_transformer(torch)
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.models import bert
     cfg = bert.BertConfig(dtype="bfloat16")

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Serve BERT-base (bf16 and int8), train BERT-base, ResNet-50 and the
-Transformer NMT model and beam-search decode with it through the
-PyTorch/CUDA port on one NVIDIA GPU, and hold its CUDA kernels against their
-plain PyTorch versions.
+Transformer NMT model and beam-search decode with it, train and serve
+DeepFM and train the MNIST MLP through the PyTorch/CUDA port on one NVIDIA
+GPU, and hold its CUDA kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -85,9 +85,11 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    printed, and step 1 against the unfused program on the card
    and, at batch 2, the CPU port, in bf16 and on the f32 build of the same
    weights; prints step ms, peak memory and each path's breakdown;
-9. multi_tensor_update over BERT-base's 158 Adam parameters and
-   ResNet-50's 161 Momentum parameters (their shapes and dtypes read from
-   the programs), in place, against the per-op lowerings on the card, bit
+9. multi_tensor_update over BERT-base's 158 Adam parameters,
+   ResNet-50's 161 Momentum parameters, DeepFM's 10 Adam parameters (17.5 M
+   elements, the 1,000,000 x 16 table among them), the MNIST MLP's 6 SGD
+   parameters and transformer-base's 258 Adam parameters (their shapes and
+   dtypes read from the programs), in place, against the per-op lowerings on the card, bit
    for bit, with its time, its bound, the per-op path's time (device and
    host), its own host time per call and ``torch._fused_adam_`` /
    ``torch._fused_sgd_`` on f32 copies of the same tensors as yardsticks;
@@ -99,8 +101,9 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    BERT-base's hidden-dropout shape ([16384, 768] bf16, p 0.1, both
    implementations), in f32, ragged, unaligned and at p 0 and 1, with its
    time, bound and ``F.dropout``'s time; the gradients of
-   ``lookup_table_v2`` and ``gather`` at BERT-base's shapes, PyTorch's
-   (atomics) against the port's ``RowGather``, timed, each run twice;
+   ``lookup_table_v2`` and ``gather`` at BERT-base's shapes and of DeepFM's
+   two 1,000,000-row tables at 106,496 ids, PyTorch's (atomics) against the
+   port's ``RowGather``, timed, each run twice;
 11. captured training (the phases printed last): BERT-base at phase 5's
    configuration and ResNet-50 at phase 8's, the graph executor (one CUDA
    graph per step, replayed) against the eager executor
@@ -130,6 +133,27 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    or parted only on a near-tie of the CPU's candidates), beams
    best-first, beam 4 against greedy; decode ms, generated tokens/s, idle
    share, launches;
+14. (run after phase 13) DeepFM CTR as ``bench_workloads.py`` builds it
+   (B 4096, 26 fields over a vocabulary of 1,000,000, embedding 16, 13
+   dense features, tower 400-400-400, the ``auc`` metric with 4095
+   thresholds, ``Adam(1e-3)``, f32, seed 0, one repeated batch), trained as
+   phase 11 trains its models and also against the eager reference path:
+   losses, AUC fetches and every state tensor (tables, tower, Adam's
+   accumulators, the AUC histograms) bit for bit over 5 steps,
+   ``run_fused`` K = 4, ``multi_tensor_update`` 1 a step, the histograms
+   holding 4096 examples for each step taken, the fetched AUC against
+   numpy's from the fetched probabilities, step 1 against the CPU port;
+   step ms, examples/s, idle share and device time by kind (the row
+   gradients, the update and the matmuls apart); then the trained model
+   saved with ``save_inference_model`` (ids and dense in, prob out) and
+   served by the Predictor at B 4096 and B 64 through its CUDA graphs
+   (bit-equal to eager, against the CPU Predictor, latency per shape).
+   Then the MNIST MLP (784-128-64-10, B 256, ``SGD(0.01)``, random images
+   from seed 0): the same checks, its 6 ``sgd`` ops one
+   ``multi_tensor_update`` launch a step, the loss falling over 20 steps,
+   step 1 against the CPU port; and the same MLP with
+   ``GradientClipByGlobalNorm(1.0)`` and ``L2Decay(1e-4)``, graph against
+   eager bit for bit and step 1 against the CPU port;
 12. the kernels line, then the result line.
 
 Exits non-zero, with no result line, when there is no CUDA card, when the
@@ -1125,8 +1149,10 @@ def phase_resnet_train(torch, main_prog, startup, loss, params_grads, fused):
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.ops import conv_bn, multi_tensor
     from paddle_tpu_torch.models.bert import BertConfig
-    from paddle_tpu_torch.tools.train_profile import (LR, MASKS_PER_SEQ, SEQ, build_pretrain,
-                                                      build_resnet50)
+    from paddle_tpu_torch.tools.train_profile import (LR, MASKS_PER_SEQ, NMT_SEQ, SEQ,
+                                                      build_deepfm, build_mnist, build_pretrain,
+                                                      build_resnet50, build_transformer,
+                                                      transformer_config)
     ops = [op.type for op in main_prog.global_block().ops]
     per_step = ops.count("conv2d_bn_fused")
     if fused != 33 or per_step != 33 or ops.count("conv2d_bn_fused_grad") != 33:
@@ -1227,7 +1253,7 @@ def _update_inputs(torch, program, kind, gen):
     from paddle_tpu_torch.core.registry import torch_dtype
     blk = program.global_block()
     ops = [op for op in blk.ops if op.type == kind]
-    lr = torch.full((1,), 1e-4 if kind == "adam" else 0.1, device="cuda")
+    lr = torch.full((1,), {"adam": 1e-4, "momentum": 0.1, "sgd": 0.01}[kind], device="cuda")
     ins_list = []
     for op in ops:
         pv = blk.var(op.input("Param")[0])
@@ -1238,7 +1264,7 @@ def _update_inputs(torch, program, kind, gen):
             ins.update(Moment1=[rnd(1e-3)], Moment2=[rnd(1e-3).square()],
                        Beta1Pow=[torch.full((1,), 0.9 ** 3, device="cuda")],
                        Beta2Pow=[torch.full((1,), 0.999 ** 3, device="cuda")])
-        else:
+        elif kind == "momentum":
             ins["Velocity"] = [rnd(1e-3)]
         ins_list.append(ins)
     return dict(ops[0].attrs), ins_list
@@ -1317,7 +1343,7 @@ def phase_multi_tensor(torch, programs):
         host_ms = _host_ms(torch, lambda: multi_tensor_update(kind, attrs, ins_list))
         plain_wall_ms = _wall_ms(torch, lambda: update_plain(kind, attrs, ins_list))
         # bytes: read p, g and the state, write p and the state (the scalars are noise)
-        state = 2 if kind == "adam" else 1
+        state = {"adam": 2, "momentum": 1, "sgd": 0}[kind]
         nbytes = sum(ins["Param"][0].numel() * (2 * ins["Param"][0].element_size()
                                                 + ins["Grad"][0].element_size() + 8 * state)
                      for ins in ins_list)
@@ -1325,9 +1351,11 @@ def phase_multi_tensor(torch, programs):
         # yardstick: PyTorch's fused optimizer on f32 copies (its kernel takes one dtype
         # for a parameter and its state); Paddle's Adam adds eps to sqrt(v) after the
         # bias correction folds into lr, so the bits differ from PyTorch's anyway
-        ps, gs, ms_, vs = ([ins[k][0].float().clone() for ins in ins_list]
-                           for k in ("Param", "Grad", "Moment1" if kind == "adam" else "Velocity",
-                                     "Moment2" if kind == "adam" else "Velocity"))
+        copies = lambda k: [ins[k][0].float().clone() for ins in ins_list] \
+            if k in ins_list[0] else []
+        ps, gs = copies("Param"), copies("Grad")
+        ms_ = copies("Moment1" if kind == "adam" else "Velocity")
+        vs = copies("Moment2")
         library, library_ms, library_error = None, None, None
         try:
             if kind == "adam":
@@ -1337,11 +1365,16 @@ def phase_multi_tensor(torch, programs):
                                                 beta1=attrs["beta1"], beta2=attrs["beta2"],
                                                 weight_decay=0.0, eps=attrs["epsilon"],
                                                 amsgrad=False, maximize=False)
-            else:
+            elif kind == "momentum":
                 library = "torch._fused_sgd_ (f32 copies)"
                 fn = lambda: torch._fused_sgd_(ps, gs, ms_, weight_decay=0.0,
                                                momentum=attrs["mu"], lr=0.1, dampening=0.0,
                                                nesterov=bool(attrs["use_nesterov"]),
+                                               maximize=False, is_first_step=False)
+            else:
+                library = "torch._fused_sgd_ without momentum (f32 copies)"
+                fn = lambda: torch._fused_sgd_(ps, gs, [], weight_decay=0.0, momentum=0.0,
+                                               lr=0.01, dampening=0.0, nesterov=False,
                                                maximize=False, is_first_step=False)
             library_ms = _breakdown(library, None, _launch_times(torch, fn, 5))[
                 "device_ms_per_call"]
@@ -1490,11 +1523,12 @@ def phase_dropout_kernel(torch):
 
 
 def phase_row_grads(torch):
-    """The gradients of lookup_table_v2 and gather at BERT-base's shapes, on
-    the card: PyTorch's (``F.embedding`` / ``index_select`` backward, which
-    add with atomics) against the port's ``RowGather`` (sorted accumulation):
-    device time of the backward alone, and whether two runs give the same
-    bits."""
+    """The gradients of lookup_table_v2 and gather at BERT-base's shapes and
+    at DeepFM's (the 1,000,000-row tables ``fm_v`` and ``fm_w1``, 106,496
+    ids a step), on the card: PyTorch's (``F.embedding`` / ``index_select``
+    backward, which add with atomics) against the port's ``RowGather``
+    (sorted accumulation): device time of the backward alone, and whether
+    two runs give the same bits."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.tensor_ops import RowGather
     gen = torch.Generator(device="cuda")
@@ -1507,6 +1541,10 @@ def phase_row_grads(torch):
              ("lookup_table_v2 sent_emb", (2, Hd), torch.float32, rng.randint(0, 2, B * S), "emb"),
              ("gather mlm positions", (B * S, Hd), torch.bfloat16,
               rng.randint(0, B * S, B * 20), "gather")]
+    # DeepFM (phase 14): bench_workloads.py's ids, B 4096 x 26 fields over 1M rows
+    ctr_ids = np.random.RandomState(SEED).randint(0, 1_000_000, 4096 * 26)
+    cases += [("lookup_table_v2 fm_v (deepfm)", (1_000_000, 16), torch.float32, ctr_ids, "emb"),
+              ("lookup_table_v2 fm_w1 (deepfm)", (1_000_000, 1), torch.float32, ctr_ids, "emb")]
     results = []
     for name, shape, dtype, ids, kind in cases:
         w = torch.randn(shape, generator=gen, device="cuda").to(dtype).requires_grad_()
@@ -1630,22 +1668,29 @@ def _startup_state(pt, main, startup):
 
 
 def _captured_model(torch, pt, label, main, startup, feed, loss, expected, extra_fetch,
-                    init=None, final=None):
+                    init=None, final=None, masks=True, reference=False):
     """Graph executor against the eager executor (``_use_graphs = False``) on
     one model: CAPTURED_STEPS steps from the same state (``init``, else the
     startup program's), losses and every state tensor compared bit for bit,
     the eager path against itself (its run-to-run noise); ``run_fused`` (K =
     FUSED_K) against K ``run`` calls; then each path timed and profiled, and
-    the memory before and after freeing dead intermediates. ``final``, a
-    dict, receives the graph path's state after its CAPTURED_STEPS steps."""
+    the memory before and after freeing dead intermediates. ``final``, a dict, receives the graph path's state after
+    its CAPTURED_STEPS steps. ``extra_fetch`` is a dropout op's Mask
+    (``masks``), checked to follow the run counter, or other fetches (a
+    metric), held bit for bit between the paths. ``reference`` adds the
+    eager reference path (``_reuse_forward = _group_updates = False``),
+    held bit for bit against the eager path."""
     from paddle_tpu_torch.core import cuda_build
     if init is None:
         init = _startup_state(pt, main, startup)
     fetch = [loss] + extra_fetch
     runs, launches = {}, {}
-    for path in ("graph", "eager", "eager_again"):
+    paths = ("graph", "eager", "eager_again") + (("reference",) if reference else ())
+    for path in paths:
         exe = pt.Executor()
         exe._use_graphs = path == "graph"
+        if path == "reference":
+            exe._reuse_forward = exe._group_updates = False
         for fn in cuda_build.COUNTED:
             fn.launches = 0
         outs, state, scope = _steps(pt, exe, main, feed, fetch, init, CAPTURED_STEPS)
@@ -1674,7 +1719,18 @@ def _captured_model(torch, pt, label, main, startup, feed, loss, expected, extra
     if not deterministic or state_differs:
         r["update_rel_l1_gap"] = _update_gap(init, g_state, e_state)
         r["eager_update_rel_l1_gap"] = _update_gap(init, e2_state, e_state)
-    if extra_fetch:                     # a dropout op's Mask at steps 1 and 2
+    if reference:
+        r_outs, r_state = runs["reference"]
+        r["reference_loss_bit_equal"] = [torch.equal(a[0], b[0]) for a, b in zip(r_outs, e_outs)]
+        r["reference_state_differs"] = len(_state_equal(torch, r_state, e_state))
+        r["reference_extra_fetch_bit_equal"] = all(
+            torch.equal(x, y) for a, b in zip(r_outs, e_outs) for x, y in zip(a[1:], b[1:]))
+        del r_outs, r_state
+    if extra_fetch and not masks:       # a metric: every step's value, bit for bit
+        r["extra_fetch"] = [[float(x.double().reshape(-1)[0]) for x in o[1:]] for o in g_outs]
+        r["extra_fetch_bit_equal"] = all(
+            torch.equal(x, y) for a, b in zip(g_outs, e_outs) for x, y in zip(a[1:], b[1:]))
+    if extra_fetch and masks:           # a dropout op's Mask at steps 1 and 2
         m = [(o[1], e[1]) for o, e in zip(g_outs[:2], e_outs[:2])]
         r["mask_step1_equal"] = torch.equal(*m[0])
         r["mask_step2_equal"] = torch.equal(*m[1])
@@ -1731,9 +1787,16 @@ def _captured_model(torch, pt, label, main, startup, feed, loss, expected, extra
     elif r["update_rel_l1_gap"] > max(r["eager_update_rel_l1_gap"], 1e-30) * 2:
         raise SystemExit(f"{label}: graph vs eager gap {r['update_rel_l1_gap']} exceeds the "
                          f"eager path's own {r['eager_update_rel_l1_gap']}")
-    if extra_fetch and not (r["mask_step1_equal"] and r["mask_step2_equal"]
-                            and r["mask_differs_between_steps"]):
+    if extra_fetch and masks and not (r["mask_step1_equal"] and r["mask_step2_equal"]
+                                      and r["mask_differs_between_steps"]):
         raise SystemExit(f"{label}: the dropout masks do not follow the counter: {r}")
+    if extra_fetch and not masks and not r["extra_fetch_bit_equal"]:
+        raise SystemExit(f"{label}: the fetched {extra_fetch} differ between graph and eager")
+    if reference and not (all(r["reference_loss_bit_equal"]) and r["reference_state_differs"] == 0
+                          and r["reference_extra_fetch_bit_equal"]):
+        raise SystemExit(f"{label}: the eager reference path parts from the eager path: "
+                         f"losses {r['reference_loss_bit_equal']}, "
+                         f"{r['reference_state_differs']} state tensors")
     rf = r["run_fused"]
     if rf["counter_after"] != [FUSED_K, FUSED_K] or rf["shape"][0] != FUSED_K:
         raise SystemExit(f"{label}: run_fused's contract broken: {rf}")
@@ -2051,6 +2114,243 @@ def phase_transformer(torch):
     return train, decode, launches
 
 
+# DeepFM and the MNIST MLP (phase 14). Step 1 on the card against the CPU port,
+# f32 on both sides, from the same weights and batch: both sum in f32 in other
+# orders (cuBLAS against the CPU's GEMMs over 429- to 784-deep products, the
+# sums over fields and the batch mean), about 1e-6 relative a sum, so 1e-4
+# relative bounds the loss with room. The update: Adam's first update is lr *
+# g / (|g| + eps), SGD's lr * g; an element's update moves by the rounding of
+# its gradient's sums (about 1e-6 relative), or by up to lr where Adam's
+# gradient sign flips near 0; 1e-2 of sum|u| allows 1% of the update's mass.
+CTR_LOSS_REL, CTR_UPDATE_REL = 1e-4, 1e-2
+# the fetched AUC against the AUC that numpy computes, in float64, from the
+# fetched probabilities' buckets: the card sums 4096 f32 trapezoids of f32
+# rates (about 4096 * 2^-24 of the AUC at most); 1e-5 absolute bounds it.
+# Against the exact rank statistic of the probabilities the histogram differs
+# only in the pairs that share a bucket, each counted a half: that half of the
+# share of such pairs is its resolution.
+AUC_ATOL = 1e-5
+# served DeepFM, card against the CPU Predictor: prob = sigmoid(logit) <= 1,
+# the logit's f32 sums in other orders (about 1e-6 of its terms' size)
+SERVE_PROB_ATOL = 1e-5
+CTR_SERVE_BATCHES, CTR_SERVE_RUNS = (4096, 64), 10
+# the MNIST MLP: steps of one batch over which the loss must fall
+MNIST_FALL_STEPS = 20
+
+
+def _auc_from_buckets(prob, label, nt=4095):
+    """(the histogram AUC in float64 from the buckets of ``prob``, the exact
+    rank statistic of ``prob``, the histogram's resolution: half the share
+    of (positive, negative) pairs that fall in one bucket)."""
+    p = prob.reshape(-1).astype(np.float32)
+    pos = label.reshape(-1) > 0
+    b = np.clip((p * np.float32(nt)).astype(np.int32), 0, nt)
+    hp = np.bincount(b[pos], minlength=nt + 1).astype(np.float64)
+    hn = np.bincount(b[~pos], minlength=nt + 1).astype(np.float64)
+    tp, fp = np.cumsum(hp[::-1]), np.cumsum(hn[::-1])
+    tpr, fpr = tp / max(tp[-1], 1), fp / max(fp[-1], 1)
+    tpr0, fpr0 = np.concatenate([[0.0], tpr[:-1]]), np.concatenate([[0.0], fpr[:-1]])
+    hist_auc = float(np.sum((fpr - fpr0) * (tpr + tpr0) / 2))
+    n_pos, n_neg = int(pos.sum()), int((~pos).sum())
+    _, inv, counts = np.unique(p, return_inverse=True, return_counts=True)
+    ranks = (np.cumsum(counts) - (counts - 1) / 2)[inv]     # 1-based, ties averaged
+    rank_auc = float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg))
+    resolution = float(0.5 * (hp * hn).sum() / (n_pos * n_neg))
+    return hist_auc, rank_auc, resolution
+
+
+def _step1_vs_cpu(torch, pt, main, loss, params_grads, init, raw):
+    """Step 1 from ``init`` on the card and on the CPU port, the same batch:
+    the loss and update gaps, held to CTR_LOSS_REL and CTR_UPDATE_REL."""
+    params = [p.name for p, _ in params_grads]
+    feed_card = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    card = _step_once(torch, pt, main, loss, params, init, feed_card, "cuda")
+    t0 = time.perf_counter()
+    cpu = _step_once(torch, pt, main, loss, params, init, raw, "cpu")
+    return dict(_gaps(card, cpu), loss_rel_limit=CTR_LOSS_REL,
+                update_rel_l1_limit=CTR_UPDATE_REL, cpu_seconds=time.perf_counter() - t0)
+
+
+def _deepfm_serve(torch, pt, workdir, main, prob, weights):
+    """The trained DeepFM saved with ``save_inference_model`` (ids and dense
+    fed, prob fetched), served by the Predictor on the card at B 4096 and
+    B 64 through its CUDA graphs: bit-equal to its eager run, within
+    SERVE_PROB_ATOL of the CPU Predictor; latency per request shape."""
+    from paddle_tpu_torch.inference import Predictor
+    from paddle_tpu_torch.tools.train_profile import deepfm_feed
+    model_dir = os.path.join(workdir, "deepfm")
+    scope = pt.Scope()
+    for n, t in weights.items():
+        scope.set_var(n, t)
+    with pt.scope_guard(scope):
+        pt.io.save_inference_model(model_dir, ["ids", "dense"], [prob], None, main_program=main)
+    del scope
+    pred, eager = Predictor(model_dir), Predictor(model_dir)
+    eager._use_graphs = False
+    cpu = Predictor(model_dir, device="cpu")
+    pruned = sorted({op.type for op in pred.program.global_block().ops})
+    rng = np.random.RandomState(SEED + 5)
+    shapes = []
+    for batch in CTR_SERVE_BATCHES:
+        raw = deepfm_feed(rng, batch)
+        req = {"ids": raw["ids"], "dense": raw["dense"]}
+        lat = {}
+        outs = {}
+        for name, p in (("graph", pred), ("eager", eager)):
+            p.run(req)                       # first use: the capture (graph), the allocator
+            times = []
+            for _ in range(CTR_SERVE_RUNS):
+                t0 = time.perf_counter()
+                outs[name] = p.run(req)[0]
+                times.append((time.perf_counter() - t0) * 1e3)
+            lat[name] = statistics.median(times)
+        c = cpu.run(req)[0]
+        g = outs["graph"]
+        shapes.append(dict(batch=batch, ms=lat, examples_per_s={k: batch / v * 1e3
+                                                                for k, v in lat.items()},
+                           graph_vs_eager_bit_equal=bool(np.array_equal(g, outs["eager"])),
+                           card_vs_cpu_max_abs=float(np.abs(g - c).max()),
+                           finite=bool(np.isfinite(g).all()), shape=list(g.shape),
+                           prob_range=[float(g.min()), float(g.max())]))
+    graphs = len(pred._compiled)
+    pool_gb = [e.memory_bytes / 1e9 for e in pred._compiled.values()]
+    del pred, eager, cpu
+    r = dict(ops=pruned, requests=shapes, graphs=graphs, graph_pool_gb=pool_gb,
+             prob_atol=SERVE_PROB_ATOL)
+    emit("deepfm_serving", **r)
+    for sh in shapes:
+        if not (sh["finite"] and sh["shape"] == [sh["batch"], 1] and sh["graph_vs_eager_bit_equal"]
+                and sh["card_vs_cpu_max_abs"] <= SERVE_PROB_ATOL):
+            raise SystemExit(f"deepfm serving: {sh}")
+    if {"auc", "sigmoid_cross_entropy_with_logits", "adam"} & set(pruned):
+        raise SystemExit(f"deepfm serving: the saved program was not pruned: {pruned}")
+    return r
+
+
+def _deepfm(torch, pt, workdir):
+    """DeepFM at bench_workloads.py's configuration (phase 14, first part)."""
+    from paddle_tpu_torch.tools.train_profile import (CTR_BATCH, CTR_EMBED, CTR_FIELDS,
+                                                      CTR_LR, CTR_VOCAB, build_deepfm,
+                                                      deepfm_feed)
+    t0 = time.perf_counter()
+    main, startup, loss, auc, prob, pg = build_deepfm()
+    build_s = time.perf_counter() - t0
+    raw = deepfm_feed(np.random.RandomState(SEED))
+    feed = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    init = _startup_state(pt, main, startup)
+    hist = sorted(n for n in init if n.startswith("auc"))
+    n_params = sum(int(np.prod(p.shape)) for p, _ in pg)
+    label = (f"deepfm f32 B{CTR_BATCH} fields {CTR_FIELDS} vocab {CTR_VOCAB} embed {CTR_EMBED} "
+             f"tower 400-400-400 auc(4095) Adam({CTR_LR})")
+    final = {}
+    t0 = time.perf_counter()
+    r = _captured_model(torch, pt, label, main, startup, feed, loss, {"multi_tensor_update": 1},
+                        [auc], init=init, final=final, masks=False, reference=True)
+    captured_s = time.perf_counter() - t0
+    if not (r["eager_deterministic"] and r["state_differs"] == 0 and all(r["loss_bit_equal"])
+            and r["run_fused"]["losses_bit_equal"] and r["run_fused"]["state_differs"] == 0):
+        raise SystemExit("DeepFM: graph and eager paths are not bit for bit")
+    # the histograms hold every batch the graph path's state took (a capture
+    # records and runs nothing: warm-up, capture + replay, 3 replays = 5 runs)
+    counted = sum(float(final[n].double().sum()) for n in hist)
+
+    # the fetched AUC of one step from the startup state against numpy's
+    scope = pt.Scope()
+    for n, t in init.items():
+        scope.set_var(n, t.clone())
+    with pt.scope_guard(scope):
+        auc_v, prob_v = pt.Executor().run(main, feed=feed, fetch_list=[auc, prob])
+    del scope
+    hist_auc, rank_auc, resolution = _auc_from_buckets(prob_v, raw["label"])
+    auc_check = dict(fetched=float(auc_v[0]), numpy_from_buckets=hist_auc, rank_statistic=rank_auc,
+                     resolution=resolution, atol=AUC_ATOL)
+    gaps = _step1_vs_cpu(torch, pt, main, loss, pg, init, raw)
+    g = r["paths"]["graph"]
+    summary = dict(model=label, params=n_params, state_tensors=len(init), build_s=build_s,
+                   captured_s=captured_s, histograms=hist,
+                   histogram_count=counted, histogram_count_expected=CAPTURED_STEPS * CTR_BATCH,
+                   auc_check=auc_check, step1_card_vs_cpu=gaps,
+                   step_ms={p: r["paths"][p]["step_ms_median_warm"] for p in r["paths"]},
+                   examples_per_s={p: CTR_BATCH / r["paths"][p]["step_ms_median_warm"] * 1e3
+                                   for p in r["paths"]},
+                   idle_share_unprofiled={p: r["paths"][p]["idle_share_unprofiled"]
+                                          for p in r["paths"]},
+                   device_ms_by_kind=g["by_kind"], graph_step_ms=g["step_ms_median_warm"])
+    emit("deepfm_train", **summary)
+    if counted != CAPTURED_STEPS * CTR_BATCH:
+        raise SystemExit(f"DeepFM: the histograms hold {counted} examples, expected "
+                         f"{CAPTURED_STEPS * CTR_BATCH}")
+    if not (abs(auc_check["fetched"] - hist_auc) <= AUC_ATOL
+            and abs(auc_check["fetched"] - rank_auc) <= resolution + AUC_ATOL):
+        raise SystemExit(f"DeepFM: the fetched AUC is off: {auc_check}")
+    if not (gaps["loss_rel_gap"] <= CTR_LOSS_REL and gaps["update_rel_l1_gap"] <= CTR_UPDATE_REL):
+        raise SystemExit(f"DeepFM step 1: card vs CPU {gaps} exceeds the limits")
+    serve = _deepfm_serve(torch, pt, workdir, main, prob, final)
+    del final, init
+    return dict(r, summary=summary, serving=serve)
+
+
+def _mnist(torch, pt):
+    """The MNIST MLP with SGD (phase 14, second part), then the same MLP with
+    global-norm clipping and L2 decay."""
+    from paddle_tpu_torch.tools.train_profile import (MNIST_BATCH, MNIST_LR, build_mnist,
+                                                      mnist_feed)
+    main, startup, loss, acc, pg = build_mnist()
+    raw = mnist_feed(np.random.RandomState(SEED))
+    feed = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    init = _startup_state(pt, main, startup)
+    label = f"mnist mlp 784-128-64-10 f32 B{MNIST_BATCH} SGD({MNIST_LR})"
+    r = _captured_model(torch, pt, label, main, startup, feed, loss, {"multi_tensor_update": 1},
+                        [acc], init=init, masks=False, reference=True)
+    if not (r["eager_deterministic"] and r["state_differs"] == 0 and all(r["loss_bit_equal"])
+            and r["run_fused"]["losses_bit_equal"] and r["run_fused"]["state_differs"] == 0):
+        raise SystemExit("MNIST MLP: graph and eager paths are not bit for bit")
+    exe = pt.Executor()
+    outs, _, _ = _steps(pt, exe, main, feed, [loss], init, MNIST_FALL_STEPS)
+    exe.close()
+    fall = [float(o[0].reshape(-1)[0]) for o in outs]
+    gaps = _step1_vs_cpu(torch, pt, main, loss, pg, init, raw)
+
+    # the same MLP with GradientClipByGlobalNorm(1.0) and SGD(0.01, L2Decay(1e-4))
+    cmain, cstartup, closs, cacc, cpg = build_mnist(clip_norm=1.0, l2=1e-4)
+    cinit = _startup_state(pt, cmain, cstartup)
+    types = [op.type for op in cmain.global_block().ops]
+    clabel = label + " GradientClipByGlobalNorm(1.0) L2Decay(1e-4)"
+    cr = _captured_model(torch, pt, clabel, cmain, cstartup, feed, closs,
+                         {"multi_tensor_update": 1}, [cacc], init=cinit, masks=False)
+    clip_gaps = _step1_vs_cpu(torch, pt, cmain, closs, cpg, cinit, raw)
+    clipped = dict(model=clabel, squared_l2_norm_ops=types.count("squared_l2_norm"),
+                   sgd_ops=types.count("sgd"), losses=cr["losses"]["graph"],
+                   step_ms={p: cr["paths"][p]["step_ms_median_warm"] for p in cr["paths"]},
+                   step1_card_vs_cpu=clip_gaps)
+    summary = dict(model=label, sgd_ops=sum(op.type == "sgd" for op in main.global_block().ops),
+                   loss_over_steps=fall, step1_card_vs_cpu=gaps,
+                   step_ms={p: r["paths"][p]["step_ms_median_warm"] for p in r["paths"]},
+                   examples_per_s={p: MNIST_BATCH / r["paths"][p]["step_ms_median_warm"] * 1e3
+                                   for p in r["paths"]},
+                   clipped=clipped)
+    emit("mnist_train", **summary)
+    if not fall[-1] < fall[0]:
+        raise SystemExit(f"MNIST MLP: the loss does not fall over {MNIST_FALL_STEPS} steps: {fall}")
+    for name, gp in (("MNIST MLP", gaps), ("clipped MNIST MLP", clip_gaps)):
+        if not (gp["loss_rel_gap"] <= CTR_LOSS_REL and gp["update_rel_l1_gap"] <= CTR_UPDATE_REL):
+            raise SystemExit(f"{name} step 1: card vs CPU {gp} exceeds the limits")
+    if not (cr["eager_deterministic"] and cr["state_differs"] == 0 and all(cr["loss_bit_equal"])
+            and cr["run_fused"]["losses_bit_equal"]):
+        raise SystemExit("clipped MNIST MLP: graph and eager paths are not bit for bit")
+    return dict(r, summary=summary)
+
+
+def phase_ctr_mnist(torch, workdir):
+    """DeepFM CTR and the MNIST MLP (phase 14)."""
+    import paddle_tpu_torch as pt
+    deepfm = _deepfm(torch, pt, workdir)
+    torch.cuda.empty_cache()
+    mnist = _mnist(torch, pt)
+    torch.cuda.empty_cache()
+    return deepfm, mnist
+
+
 def phase_main_path(torch, workdir):
     """The serving path (phase 4)."""
     from paddle_tpu_torch.inference import Predictor
@@ -2143,8 +2443,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from paddle_tpu_torch.models.bert import BertConfig
-    from paddle_tpu_torch.tools.train_profile import (LR, MASKS_PER_SEQ, SEQ, build_pretrain,
-                                                      build_resnet50)
+    from paddle_tpu_torch.tools.train_profile import (LR, MASKS_PER_SEQ, NMT_SEQ, SEQ,
+                                                      build_deepfm, build_mnist, build_pretrain,
+                                                      build_resnet50, build_transformer,
+                                                      transformer_config)
 
     t_start = time.perf_counter()
     smi = phase_device(torch)
@@ -2162,7 +2464,12 @@ def main() -> int:
     bert_prog = build_pretrain(BertConfig(dtype="bfloat16", dropout=ATTN_DROPOUT), 2, SEQ,
                                MASKS_PER_SEQ, LR, SEED)[0]
     mres = phase_multi_tensor(torch, [("bert-base", bert_prog, "adam"),
-                                      ("resnet50", resnet[0], "momentum")])
+                                      ("resnet50", resnet[0], "momentum"),
+                                      ("deepfm", build_deepfm(batch=2)[0], "adam"),
+                                      ("mnist mlp", build_mnist(batch=2)[0], "sgd"),
+                                      ("transformer-base",
+                                       build_transformer(transformer_config(), 2, NMT_SEQ)[0],
+                                       "adam")])
     del bert_prog
     scratch = os.path.join(REPO, "build")      # git-ignored
     os.makedirs(scratch, exist_ok=True)
@@ -2180,6 +2487,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     cap_bert, cap_resnet = phase_captured_training(torch)
     nmt_train, nmt_decode, nmt_launches = phase_transformer(torch)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
+    try:
+        ctr, mnist = phase_ctr_mnist(torch, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    ctr_launches = ctr["launches"]["graph"]["multi_tensor_update"]
+    mnist_launches = mnist["launches"]["graph"]["multi_tensor_update"]
 
     serve_case = next(r for r in kres if r["dtype"] == "bfloat16" and r["shape"][2] == 512
                       and r["bias"] and not r["causal"])
@@ -2191,7 +2505,7 @@ def main() -> int:
     conv_case = next(r for r in cres if r["shape"] == [401408, 64, 256])
     conv_path = [r for r in cres if r["launches_per_forward_pass"]]
     int8_case = next(r for r in ires if r["shape"] == [4096, 768, 3072])
-    mt_bert, mt_res = mres
+    mt_bert, mt_res, mt_ctr, mt_mnist, mt_nmt = mres
     drop_case = dres[0]                        # [16384, 768] bf16, upscale_in_train, p 0.1
     nmt_drop_case = dres[2]                    # [64, 8, 64, 64] f32, upscale_in_train, p 0.1
     drop_launches = {"captured_training": cap_bert["launches"]["graph"]["dropout_fwd"],
@@ -2262,21 +2576,34 @@ def main() -> int:
                            "updates every parameter inside the one compiled step"),
          "launches": (train_launches["multi_tensor_update"]
                       + resnet_launches["multi_tensor_update"]
-                      + nmt_launches["multi_tensor_update"]),
+                      + nmt_launches["multi_tensor_update"] + ctr_launches + mnist_launches),
          "launches_by_path": {"training": train_launches["multi_tensor_update"],
                               "resnet50_training": resnet_launches["multi_tensor_update"],
-                              "transformer_training": nmt_launches["multi_tensor_update"]},
+                              "transformer_training": nmt_launches["multi_tensor_update"],
+                              "deepfm_training": ctr_launches,
+                              "mnist_training": mnist_launches},
          "max_abs_err": max(r["max_abs_err"] for r in mres),
          **{k: mt_bert[k] for k in keys}, "library": mt_bert["library"],
          "shape": (f"BERT-base's {mt_bert['tensors']} Adam parameters, "
                    f"{mt_bert['elements']} elements, bf16 and f32, f32 moments"),
          "resnet50": {**{k: mt_res[k] for k in keys}, "library": mt_res["library"],
                       "shape": (f"ResNet-50's {mt_res['tensors']} Momentum parameters, "
-                                f"{mt_res['elements']} elements, bf16, f32 velocity")}}],
+                                f"{mt_res['elements']} elements, bf16, f32 velocity")},
+         "deepfm": {**{k: mt_ctr[k] for k in keys}, "library": mt_ctr["library"],
+                    "shape": (f"DeepFM's {mt_ctr['tensors']} Adam parameters, "
+                              f"{mt_ctr['elements']} elements, f32")},
+         "mnist": {**{k: mt_mnist[k] for k in keys}, "library": mt_mnist["library"],
+                   "shape": (f"the MNIST MLP's {mt_mnist['tensors']} SGD parameters, "
+                             f"{mt_mnist['elements']} elements, f32")},
+         "transformer": {**{k: mt_nmt[k] for k in keys}, "library": mt_nmt["library"],
+                         "shape": (f"transformer-base's {mt_nmt['tensors']} Adam parameters, "
+                                   f"{mt_nmt['elements']} elements, f32")}}],
         "captured_step_ms": {
             name: {p: r["paths"][p]["step_ms_median_warm"] for p in ("graph", "eager")}
             for name, r in (("bert_base", cap_bert), ("resnet50", cap_resnet),
-                            ("transformer_base", nmt_train))},
+                            ("transformer_base", nmt_train), ("deepfm", ctr),
+                            ("mnist_mlp", mnist))},
+        "deepfm_serving_ms": {str(q["batch"]): q["ms"] for q in ctr["serving"]["requests"]},
         "transformer_decode_ms": {p: nmt_decode["paths"][p]["decode_ms_median_warm"]
                                   for p in ("graph", "eager")},
         "train_step_ms": step_ms, "resnet_step_ms": resnet_step_ms,

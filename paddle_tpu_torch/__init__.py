@@ -23,6 +23,8 @@ from . import io  # noqa: F401
 from . import inference  # noqa: F401
 from . import convert  # noqa: F401
 from . import optimizer  # noqa: F401
+from . import regularizer  # noqa: F401
+from . import clip  # noqa: F401
 from .core.backward import append_backward, gradients  # noqa: F401
 from . import models  # noqa: F401
 from . import contrib  # noqa: F401  (registers quantized_mul, dequantize_weight)

@@ -20,7 +20,14 @@ dtypes. The Transformer's training state is its parameters (the
 ``layer_norm_N.w_0`` / ``.b_0``), Adam's four accumulators for each and
 ``learning_rate_0``; a decode program built under ``unique_name.guard()``
 names its parameters as the training program does, so trained weights load
-into it by name.
+into it by name. DeepFM's training state is its two tables ``fm_w1``
+[vocab, 1] and ``fm_v`` [vocab, embed], the tower ``deep_w{i}`` /
+``deep_out_w`` with the ``unique_name``-named biases ``fc_N.b_0``, Adam's
+four accumulators for each and ``learning_rate_N``, and the ``auc`` op's
+two f32 histograms, persistable globals named by ``unique_name``
+(``auc_0.global_0`` for StatPos, ``auc_0.global_1`` for StatNeg); the MNIST
+MLP's is its fc weights and biases (``fc_N.w_0`` / ``fc_N.b_0``, ``SGD``
+keeps no accumulators) and ``learning_rate_N``.
 """
 from __future__ import annotations
 

@@ -1,10 +1,11 @@
 // Multi-tensor optimizer update for Hopper (sm_90a): one launch updates every parameter
-// of a run of adam (or momentum) ops, each parameter with its own learning rate and beta
-// powers, read by pointer.
+// of a run of adam (or momentum, or sgd) ops, each parameter with its own learning rate and
+// beta powers, read by pointer.
 //   adam:      m' = b1 m + (1-b1) g               v' = b2 v + ((1-b2) g) g
 //              lr_t = lr sqrt(1 - b2p) / (1 - b1p)
 //              p' = p - (lr_t m') / (sqrt(v') + eps)    b1p' = b1p b1, b2p' = b2p b2
 //   momentum:  v' = mu v + g    p' = p - lr v'   (nesterov: p' = p - (g + mu v') lr)
+//   sgd:       p' = p - lr g
 // p and g are f32 or bf16 (each tensor its own), the accumulators f32; the arithmetic is
 // f32, p' is rounded back to p's dtype. The update is in place: p', m', v' and the beta powers
 // overwrite p, m, v and the powers (the programs name one variable for both, ParamOut =
@@ -23,7 +24,7 @@
 // Bound on an H100 SXM (3.35 TB/s): a memory pass. Adam reads p, g, m, v and writes p', m',
 // v': BERT-base (~110 M parameters, bf16 weights with f32 moments, f32 embeddings) moves
 // about 22 B an element, ~2.4 GB, ~0.72 ms; ResNet-50 momentum (~25.6 M, bf16 p and g,
-// f32 velocity) about 14 B an element, ~0.36 GB, ~0.11 ms.
+// f32 velocity) about 14 B an element, ~0.36 GB, ~0.11 ms; sgd in f32 12 B an element.
 //
 // Design: the wrapper writes a table into one device buffer, built once per parameter layout
 // and kept (under a CUDA graph capture, one for the graph: fill_table's launches carry the
@@ -52,7 +53,7 @@ constexpr long long kPBf16 = 1, kGBf16 = 2, kVector = 4;
 struct Desc {                // 16 int64 slots, as ops/multi_tensor.py writes them
   void* p;                   // read and written
   const void* g;
-  float* m;                  // moment1 (adam) or velocity (momentum): read and written
+  float* m;                  // moment1 (adam) or velocity (momentum): read and written; sgd: null
   float* v;                  // moment2 (adam): read and written
   const float* lr;
   float* b1p;                // beta powers (adam): read, then advanced by beta_pow_kernel
@@ -122,11 +123,15 @@ __device__ __forceinline__ void store8(void* base, long long i, bool bf16,
   *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(base) + i) = raw;
 }
 
-// One element, in the per-op lowering's order. ``scale`` is lr_t (adam) or lr (momentum).
-template <bool kAdam>
+constexpr int kAdam = 0, kMomentum = 1, kSgd = 2;
+
+// One element, in the per-op lowering's order. ``scale`` is lr_t (adam) or lr (momentum,
+// sgd).
+template <int kKind>
 __device__ __forceinline__ float update(float p, float g, float& m, float& v, float scale,
                                         const Scalars& s) {
-  if (kAdam) {
+  if (kKind == kSgd) return __fsub_rn(p, __fmul_rn(scale, g));
+  if (kKind == kAdam) {
     m = __fadd_rn(__fmul_rn(s.b1, m), __fmul_rn(s.omb1, g));
     v = __fadd_rn(__fmul_rn(s.b2, v), __fmul_rn(__fmul_rn(s.omb2, g), g));
     const float den = __fadd_rn(__fsqrt_rn(v), s.eps);
@@ -137,7 +142,7 @@ __device__ __forceinline__ float update(float p, float g, float& m, float& v, fl
   return __fsub_rn(p, __fmul_rn(scale, m));
 }
 
-template <bool kAdam>
+template <int kKind>
 __global__ void __launch_bounds__(kThreads)
     multi_tensor_kernel(const Desc* __restrict__ descs, const int2* __restrict__ chunks,
                         int n_chunks, int chunk, Scalars s) {
@@ -155,7 +160,7 @@ __global__ void __launch_bounds__(kThreads)
     const long long end = min(start + chunk, d.n);
     const bool p16 = flags & kPBf16, g16 = flags & kGBf16;
     float scale;
-    if (kAdam) {
+    if (kKind == kAdam) {
       const float b1p = *d.b1p, b2p = *d.b2p;
       scale = __fdiv_rn(__fmul_rn(*d.lr, __fsqrt_rn(__fsub_rn(1.f, b2p))),
                         __fsub_rn(1.f, b1p));
@@ -170,22 +175,22 @@ __global__ void __launch_bounds__(kThreads)
         float p[kVec], g[kVec], m[kVec], v[kVec];
         load8(p_ptr, i, p16, p);
         load8(g_ptr, i, g16, g);
-        load8f(m_ptr, i, m);
-        if (kAdam) load8f(v_ptr, i, v);
+        if (kKind != kSgd) load8f(m_ptr, i, m);
+        if (kKind == kAdam) load8f(v_ptr, i, v);
 #pragma unroll
-        for (int k = 0; k < kVec; ++k) p[k] = update<kAdam>(p[k], g[k], m[k], v[k], scale, s);
+        for (int k = 0; k < kVec; ++k) p[k] = update<kKind>(p[k], g[k], m[k], v[k], scale, s);
         store8(p_ptr, i, p16, p);
-        store8f(m_ptr, i, m);
-        if (kAdam) store8f(v_ptr, i, v);
+        if (kKind != kSgd) store8f(m_ptr, i, m);
+        if (kKind == kAdam) store8f(v_ptr, i, v);
       }
       tail = start + groups * kVec;
     }
     for (long long i = tail + threadIdx.x; i < end; i += kThreads) {
-      float m = m_ptr[i], v = kAdam ? v_ptr[i] : 0.f;
-      const float p = update<kAdam>(load1(p_ptr, i, p16), load1(g_ptr, i, g16), m, v, scale, s);
+      float m = kKind != kSgd ? m_ptr[i] : 0.f, v = kKind == kAdam ? v_ptr[i] : 0.f;
+      const float p = update<kKind>(load1(p_ptr, i, p16), load1(g_ptr, i, g16), m, v, scale, s);
       store1(p_ptr, i, p16, p);
-      m_ptr[i] = m;
-      if (kAdam) v_ptr[i] = v;
+      if (kKind != kSgd) m_ptr[i] = m;
+      if (kKind == kAdam) v_ptr[i] = v;
     }
   }
 }
@@ -234,23 +239,27 @@ extern "C" int fill_table(void* dst, const void* words, long long n_words, void*
 }
 
 // table: n_tensors descriptors (128 bytes each), then n_chunks (tensor, chunk) int32 pairs.
-// kind: 0 adam (two launches: the update, then the beta powers), 1 momentum. Returns the CUDA
-// error of the launches (0 on success).
+// kind: 0 adam (two launches: the update, then the beta powers), 1 momentum, 2 sgd. Returns the
+// CUDA error of the launches (0 on success).
 extern "C" int multi_tensor_update(const void* table, int n_tensors, int n_chunks, int chunk,
                                    int kind, float b1, float omb1, float b2, float omb2,
                                    float eps, float mu, int nesterov, int grid, void* stream) {
   if (n_tensors <= 0 || n_chunks <= 0 || chunk <= 0 || chunk % kVec || grid <= 0 ||
-      (kind != 0 && kind != 1))
+      kind < kAdam || kind > kSgd)
     return cudaErrorInvalidValue;
   const Desc* descs = static_cast<const Desc*>(table);
   const int2* chunks = reinterpret_cast<const int2*>(descs + n_tensors);
   const Scalars s{b1, omb1, b2, omb2, eps, mu, nesterov};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kind == 1) {
-    multi_tensor_kernel<false><<<grid, kThreads, 0, st>>>(descs, chunks, n_chunks, chunk, s);
+  if (kind == kMomentum) {
+    multi_tensor_kernel<kMomentum><<<grid, kThreads, 0, st>>>(descs, chunks, n_chunks, chunk, s);
     return cudaGetLastError();
   }
-  multi_tensor_kernel<true><<<grid, kThreads, 0, st>>>(descs, chunks, n_chunks, chunk, s);
+  if (kind == kSgd) {
+    multi_tensor_kernel<kSgd><<<grid, kThreads, 0, st>>>(descs, chunks, n_chunks, chunk, s);
+    return cudaGetLastError();
+  }
+  multi_tensor_kernel<kAdam><<<grid, kThreads, 0, st>>>(descs, chunks, n_chunks, chunk, s);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   beta_pow_kernel<<<(n_tensors + kThreads - 1) / kThreads, kThreads, 0, st>>>(descs, n_tensors,

@@ -288,6 +288,9 @@ class Block:
             b = b.parent
         return None
 
+    def all_parameters(self) -> List[Parameter]:
+        return [v for v in self.vars.values() if isinstance(v, Parameter)]
+
     def append_op(self, type: str, inputs=None, outputs=None, attrs=None,
                   infer_shape: bool = True) -> Operator:
         op = Operator(self, type, _normalize_io(inputs), _normalize_io(outputs), attrs)
@@ -441,6 +444,9 @@ class Program:
         block.vars = {n: v for n, v in block.vars.items() if n in referenced}
         pruned._bump()
         return pruned
+
+    def all_parameters(self) -> List[Parameter]:
+        return self.global_block().all_parameters()
 
     def list_vars(self):
         for b in self.blocks:

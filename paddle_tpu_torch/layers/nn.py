@@ -1,6 +1,7 @@
 """Core NN layers DSL (the port's copy of the functions of
-``paddle_tpu/layers/nn.py`` that BERT pretraining, ResNet training and the
-Transformer's training and beam-search decode call).
+``paddle_tpu/layers/nn.py`` that BERT pretraining, ResNet training, the
+Transformer's training and beam-search decode, DeepFM, the MNIST MLP and
+the clip classes call).
 
 Each function builds ops into the default main program and parameters into
 the default startup program, with the same op types, slots, attrs and names
@@ -183,6 +184,7 @@ elementwise_add = _elementwise("elementwise_add")
 elementwise_sub = _elementwise("elementwise_sub")
 elementwise_mul = _elementwise("elementwise_mul")
 elementwise_div = _elementwise("elementwise_div")
+elementwise_max = _elementwise("elementwise_max")
 
 
 def _reduce(op_type):
@@ -247,6 +249,22 @@ def expand(x, expand_times, name=None):
     return _var(helper, out)
 
 
+def _unary(op_type):
+    def layer(x, name=None, **kw):
+        helper = LayerHelper(op_type, name=name)
+        out = _out(helper, x.dtype)
+        helper.append_op(op_type, inputs={"X": [x]}, outputs={"Out": [out]},
+                         attrs={k: v for k, v in kw.items() if v is not None})
+        return _var(helper, out)
+    layer.__name__ = op_type
+    return layer
+
+
+sigmoid = _unary("sigmoid")
+square = _unary("square")
+sqrt = _unary("sqrt")
+
+
 def relu(x, name=None):
     helper = LayerHelper("relu", name=name)
     out = _out(helper, x.dtype)
@@ -269,6 +287,22 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
                      attrs={"scale": float(scale), "bias": float(bias),
                             "bias_after_scale": bias_after_scale})
     return helper.append_activation(_var(helper, out))
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", name=name)
+    out = _out(helper, x.dtype)
+    helper.append_op("clip", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"min": float(min), "max": float(max)})
+    return _var(helper, out)
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", name=name)
+    out = _out(helper, x.dtype)
+    helper.append_op("clip_by_norm", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"max_norm": float(max_norm)})
+    return _var(helper, out)
 
 
 def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
@@ -370,6 +404,25 @@ def softmax_with_cross_entropy(logits, label, soft_label=False, ignore_index=-10
     return _var(helper, loss)
 
 
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper("cross_entropy")
+    out = _out(helper, input.dtype)
+    helper.append_op("cross_entropy", inputs={"X": [input], "Label": [label]},
+                     outputs={"Y": [out]},
+                     attrs={"soft_label": soft_label, "ignore_index": ignore_index})
+    return _var(helper, out)
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None,
+                                      normalize=False):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = _out(helper, x.dtype)
+    helper.append_op("sigmoid_cross_entropy_with_logits",
+                     inputs={"X": [x], "Label": [label]}, outputs={"Out": [out]},
+                     attrs={"ignore_index": ignore_index, "normalize": normalize})
+    return _var(helper, out)
+
+
 def mean(x, name=None):
     helper = LayerHelper("mean", name=name)
     out = _out(helper, x.dtype)
@@ -417,6 +470,27 @@ def accuracy(input, label, k=1, correct=None, total=None):
                      outputs={"Accuracy": [acc], "Correct": [correct],
                               "Total": [total]})
     return _var(helper, acc)
+
+
+def auc(input, label, curve="ROC", num_thresholds=4095, topk=1, slide_steps=1):
+    """The streaming AUC of ``input`` ([N, 2] probabilities of the negative
+    and the positive class) against ``label``, over two persistable
+    histograms of ``num_thresholds + 1`` buckets. Returns (auc, None,
+    [stat_pos, stat_neg])."""
+    from ..initializer import Constant
+    helper = LayerHelper("auc")
+    stat_pos = helper.create_global_variable([num_thresholds + 1], "float32",
+                                             initializer=Constant(0.0))
+    stat_neg = helper.create_global_variable([num_thresholds + 1], "float32",
+                                             initializer=Constant(0.0))
+    auc_out = _out(helper, "float64", stop_gradient=True)
+    helper.append_op("auc",
+                     inputs={"Predict": [input], "Label": [label],
+                             "StatPos": [stat_pos], "StatNeg": [stat_neg]},
+                     outputs={"AUC": [auc_out], "StatPosOut": [stat_pos],
+                              "StatNegOut": [stat_neg]},
+                     attrs={"num_thresholds": num_thresholds})
+    return _var(helper, auc_out), None, [stat_pos, stat_neg]
 
 
 # -- beam search over dense [B, K] beams (ops/beam_ops.py) ------------------------------

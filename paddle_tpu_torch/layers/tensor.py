@@ -1,5 +1,6 @@
-"""Tensor layers (the port's copy of ``cast``, ``create_parameter``,
-``fill_constant`` and ``assign`` from ``paddle_tpu/layers/tensor.py``)."""
+"""Tensor layers (the port's copy of ``cast``, ``concat``, ``sums``,
+``create_parameter``, ``fill_constant`` and ``assign`` from
+``paddle_tpu/layers/tensor.py``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -14,6 +15,22 @@ def cast(x, dtype):
     out = helper.create_variable_for_type_inference(dtype)
     helper.append_op("cast", inputs={"X": [x]}, outputs={"Out": [out]},
                      attrs={"in_dtype": x.dtype, "out_dtype": dtype})
+    return helper.main_program.current_block().var(out.name)
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op("concat", inputs={"X": list(input)}, outputs={"Out": [out]},
+                     attrs={"axis": axis})
+    return helper.main_program.current_block().var(out.name)
+
+
+def sums(input, out=None):
+    helper = LayerHelper("sums")
+    if out is None:
+        out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op("sum", inputs={"X": list(input)}, outputs={"Out": [out]})
     return helper.main_program.current_block().var(out.name)
 
 

@@ -1,5 +1,7 @@
-"""Activation ops (the port's copy of ``relu``, ``gelu`` and ``tanh`` from
-``paddle_tpu/ops/activations.py``)."""
+"""Activation ops (the port's copy of ``relu``, ``gelu``, ``tanh``,
+``sigmoid``, ``square``, ``sqrt`` and ``sign`` from
+``paddle_tpu/ops/activations.py``). Their gradients come from the generic
+grad; ``sign`` has none."""
 from __future__ import annotations
 
 import math
@@ -34,3 +36,23 @@ def relu(ctx, x):
     """max(x, 0) as ``torch.maximum``: at x == 0 it passes half the gradient,
     as ``jnp.maximum`` does (``torch.relu`` passes none)."""
     return torch.maximum(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+@simple_op("sigmoid")
+def sigmoid(ctx, x):
+    return torch.sigmoid(x)
+
+
+@simple_op("square")
+def square(ctx, x):
+    return x * x
+
+
+@simple_op("sqrt")
+def sqrt(ctx, x):
+    return torch.sqrt(x)
+
+
+@simple_op("sign", grad=None)
+def sign(ctx, x):
+    return torch.sign(x)

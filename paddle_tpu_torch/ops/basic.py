@@ -1,5 +1,5 @@
-"""Creation, casting, copy, sum, one-hot and comparison ops (the port's
-copy of part of ``paddle_tpu/ops/basic.py``).
+"""Creation, casting, copy, sum, clip, one-hot and comparison ops (the
+port's copy of part of ``paddle_tpu/ops/basic.py``).
 
 New tensors go on ``ctx.device`` (the meta device under shape inference).
 Random ops draw from the op's ``torch.Generator``, seeded on the host; the
@@ -108,6 +108,31 @@ def sum_op(ctx, ins):
     for x in xs[1:]:
         out = out + x
     return {"Out": [out]}
+
+
+def _full(x, value):
+    """A 0-d constant of x's dtype filled on x's device (no host copy)."""
+    return torch.full((), value, dtype=x.dtype, device=x.device)
+
+
+@simple_op("clip")
+def clip(ctx, x):
+    """min(max(x, min), max), as ``jnp.clip`` computes it: at a bound the
+    gradient is split as ``jnp.maximum`` / ``jnp.minimum`` split it."""
+    return torch.minimum(torch.maximum(x, _full(x, ctx.attr("min"))), _full(x, ctx.attr("max")))
+
+
+@simple_op("clip_by_norm")
+def clip_by_norm(ctx, x):
+    """x scaled to L2 norm ``max_norm`` where its norm exceeds it."""
+    max_norm = ctx.attr("max_norm")
+    norm = torch.sqrt(torch.sum(x * x))
+    return torch.where(norm > max_norm, x * (max_norm / norm), x)
+
+
+@simple_op("squared_l2_norm")
+def squared_l2_norm(ctx, x):
+    return torch.sum(x * x).reshape((1,))
 
 
 @register("one_hot", grad=None, nondiff_inputs=("X",))

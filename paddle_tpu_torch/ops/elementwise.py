@@ -1,5 +1,6 @@
 """Broadcastable binary elementwise ops with Fluid ``axis`` semantics (the
-port's copy of ``paddle_tpu/ops/elementwise.py``).
+port's copy of ``add``, ``sub``, ``mul``, ``div`` and ``max`` from
+``paddle_tpu/ops/elementwise.py``).
 
 Fluid broadcast rule: Y's shape must match a contiguous dim-run of X starting
 at ``axis`` (default: trailing alignment, axis = x.ndim - y.ndim); Y is
@@ -8,6 +9,8 @@ Integer operands compute in their own dtype (``beam_decode`` multiplies an
 int64 prefix by 0); the generic grad differentiates float inputs only.
 """
 from __future__ import annotations
+
+import torch
 
 from ..core.registry import register
 
@@ -39,3 +42,4 @@ elementwise_sub = _binary("elementwise_sub", lambda x, y: x - y)
 elementwise_mul = _binary("elementwise_mul", lambda x, y: x * y)
 # true division for integer operands too, as jnp's ``/``
 elementwise_div = _binary("elementwise_div", lambda x, y: x / y)
+elementwise_max = _binary("elementwise_max", torch.maximum)

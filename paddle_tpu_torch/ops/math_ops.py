@@ -1,6 +1,7 @@
 """Matmuls, softmax, cross-entropy and mean (the port's copy of ``matmul``,
-``mul``, ``softmax``, ``log_softmax``, ``softmax_with_cross_entropy`` and
-``mean`` from ``paddle_tpu/ops/math_ops.py``).
+``mul``, ``softmax``, ``log_softmax``, ``softmax_with_cross_entropy``,
+``cross_entropy``, ``sigmoid_cross_entropy_with_logits`` and ``mean`` from
+``paddle_tpu/ops/math_ops.py``).
 
 The products stay ``torch.matmul``, as the JAX package leaves them to XLA.
 """
@@ -83,6 +84,45 @@ def softmax_with_cross_entropy(ctx, ins):
         if ignore >= 0:
             loss = torch.where(lab.unsqueeze(-1) != ignore, loss, torch.zeros_like(loss))
     return {"Softmax": [softmax_out], "Loss": [loss]}
+
+
+@register("cross_entropy", nondiff_inputs=("Label",))
+def cross_entropy(ctx, ins):
+    """Cross-entropy of probabilities X: hard labels (int [N...,1]) or soft
+    labels of X's shape; Y [N...,1]."""
+    x, label = ins["X"][0], ins["Label"][0]
+    if ctx.attr("soft_label", False):
+        loss = -(label.to(x.dtype) * torch.log(x)).sum(dim=-1, keepdim=True)
+    else:
+        lab = label
+        if lab.ndim == x.ndim and lab.shape[-1] == 1:
+            lab = lab.squeeze(-1)
+        loss = -torch.log(torch.take_along_dim(x, lab.unsqueeze(-1).long(), dim=-1))
+        ignore = ctx.attr("ignore_index", -100)
+        if ignore >= 0:
+            loss = torch.where(lab.unsqueeze(-1) != ignore, loss, torch.zeros_like(loss))
+    return {"Y": [loss]}
+
+
+@register("sigmoid_cross_entropy_with_logits")
+def sigmoid_cross_entropy_with_logits(ctx, ins):
+    """The JAX package's stable form, max(x, 0) - x z + log1p(exp(-|x|)),
+    written out so that the generic grad differentiates the same expression
+    (Label is differentiable there too). ``ignore_index`` zeroes the
+    positions whose label equals it; ``normalize`` divides by the count of
+    the others."""
+    x, label = ins["X"][0], ins["Label"][0]
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    # |x| whose gradient at 0 is 1, as ``jnp.abs``'s (``torch.abs``'s is 0)
+    abs_x = torch.where(x >= 0, x, -x)
+    loss = (torch.maximum(x, zero) - x * label.to(x.dtype)
+            + torch.log1p(torch.exp(-abs_x)))
+    ignore = ctx.attr("ignore_index", -100)
+    if ignore >= 0:
+        loss = torch.where(label != ignore, loss, torch.zeros_like(loss))
+    if ctx.attr("normalize", False):
+        loss = loss / torch.clamp_min(torch.sum((label != ignore).to(x.dtype)), 1.0)
+    return {"Out": [loss]}
 
 
 @register("mean")

@@ -1,6 +1,6 @@
 """Multi-tensor optimizer updates: one hand-written CUDA kernel
-(``csrc/multi_tensor_update.cu``) for a run of ``adam`` or ``momentum`` ops,
-and its plain PyTorch version.
+(``csrc/multi_tensor_update.cu``) for a run of ``adam``, ``momentum`` or
+``sgd`` ops, and its plain PyTorch version.
 
 The port's counterpart of the JAX package's ``fuse_all_optimizer_ops``
 (``paddle_tpu/compiler.py``), which updates every parameter inside the one
@@ -50,7 +50,8 @@ from . import optimizer_ops
 #: the update op types a run is made of, and the attrs (with the per-op
 #: lowering's defaults) that must be equal along a run
 GROUPED = {"adam": (("beta1", 0.9), ("beta2", 0.999), ("epsilon", 1e-8)),
-           "momentum": (("mu", 0.9), ("use_nesterov", False))}
+           "momentum": (("mu", 0.9), ("use_nesterov", False)),
+           "sgd": ()}
 
 #: the kernel's work item: a chunk of CHUNK elements of one tensor
 CHUNK = 65536
@@ -63,7 +64,14 @@ BLOCKS_PER_SM = 16
 #: one descriptor per tensor: 16 int64 slots (see the .cu source)
 DESC_SLOTS = 16
 _P_BF16, _G_BF16, _VECTOR = 1, 2, 4
-_KIND = {"adam": 0, "momentum": 1}
+_KIND = {"adam": 0, "momentum": 1, "sgd": 2}
+#: each kind's f32 accumulators (the tensors of Param's size it updates
+#: besides Param), its one-element f32 inputs, and its output slots
+_ACCUMULATORS = {"adam": ("Moment1", "Moment2"), "momentum": ("Velocity",), "sgd": ()}
+_SCALARS = {"adam": ("LearningRate", "Beta1Pow", "Beta2Pow"), "momentum": ("LearningRate",),
+            "sgd": ("LearningRate",)}
+_OUT_SLOTS = {"adam": ("ParamOut", "Moment1Out", "Moment2Out", "Beta1PowOut", "Beta2PowOut"),
+              "momentum": ("ParamOut", "VelocityOut"), "sgd": ("ParamOut",)}
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -103,7 +111,7 @@ IN_PLACE = {"ParamOut": "Param", "Moment1Out": "Moment1", "Moment2Out": "Moment2
 def update_plain(kind, attrs, ins_list):
     """The per-op lowerings, one op after the other, each op's results
     copied into its inputs. Returns each op's outputs: its input tensors."""
-    lower = optimizer_ops.adam if kind == "adam" else optimizer_ops.momentum
+    lower = getattr(optimizer_ops, kind)
     device = ins_list[0]["Param"][0].device
     outs = []
     for ins in ins_list:
@@ -130,8 +138,7 @@ def kernel_refusal(kind, ins_list) -> Optional[str]:
     if kind not in _KIND:
         return f"unknown update kind {kind!r}"
     dev = ins_list[0]["Param"][0].device
-    acc = ("Moment1", "Moment2") if kind == "adam" else ("Velocity",)
-    scalars = ("LearningRate", "Beta1Pow", "Beta2Pow") if kind == "adam" else ("LearningRate",)
+    acc, scalars = _ACCUMULATORS[kind], _SCALARS[kind]
     for k, ins in enumerate(ins_list):
         p, g = ins["Param"][0], ins["Grad"][0]
         for name, t in [("Param", p), ("Grad", g)] + [(s, ins[s][0]) for s in acc + scalars]:
@@ -186,6 +193,18 @@ def work_table(rows: Sequence[Sequence[Optional[torch.Tensor]]]) -> np.ndarray:
     desc[:, _FLAGS_SLOT] = flags
     table[T * DESC_SLOTS:] = chunks.view(np.int64).reshape(-1)
     return table
+
+
+def kernel_rows(kind: str, ins_list) -> List[tuple]:
+    """Each op's tensors in ``ROLES`` order, None where ``kind`` has no such
+    tensor (``sgd``: no accumulators and no beta powers). A Grad that is not
+    contiguous is replaced by a contiguous copy, which the rows hold until
+    the launch is queued."""
+    acc, pows = _ACCUMULATORS[kind], _SCALARS[kind][1:]
+    return [(ins["Param"][0], ins["Grad"][0].contiguous(),
+             *(ins[s][0] for s in acc), *(None,) * (2 - len(acc)),
+             ins["LearningRate"][0], *(ins[s][0] for s in pows), *(None,) * (2 - len(pows)))
+            for ins in ins_list]
 
 
 def layout(rows) -> tuple:
@@ -269,23 +288,16 @@ def multi_tensor_update(kind: str, attrs: dict, ins_list):
     """Launch the multi-tensor kernel once for a run of ``kind`` ops on CUDA
     tensors, in place; returns each op's outputs (its input tensors). Param
     and Grad may be f32 or bf16 (each op its own), the accumulators, the
-    learning rate and the beta powers are f32. Raises ValueError for a run
-    the kernel does not take (see ``kernel_refusal``) and RuntimeError if the
-    launch fails. Each launch adds one to ``multi_tensor_update.launches``."""
+    learning rate and the beta powers are f32 (``sgd`` has no accumulators).
+    Raises ValueError for a run the kernel does not take (see
+    ``kernel_refusal``) and RuntimeError if the launch fails. Each launch
+    adds one to ``multi_tensor_update.launches``."""
     why = kernel_refusal(kind, ins_list)
     if why is not None:
         raise ValueError(f"multi_tensor_update: {why}")
-    adam = kind == "adam"
     dev = ins_list[0]["Param"][0].device
     T = len(ins_list)
-    acc = ("Moment1", "Moment2") if adam else ("Velocity",)
-    pows = ("Beta1Pow", "Beta2Pow") if adam else ()
-    # a Grad that is not contiguous is read from a contiguous copy; the copies
-    # must live until the launch is queued
-    grads = [ins["Grad"][0].contiguous() for ins in ins_list]
-    rows = [(ins["Param"][0], grads[i], ins[acc[0]][0], ins["Moment2"][0] if adam else None,
-             ins["LearningRate"][0], *(ins[s][0] for s in pows), *(None,) * (2 - len(pows)))
-            for i, ins in enumerate(ins_list)]
+    rows = kernel_rows(kind, ins_list)
     table = table_for(rows, dev)
     n_chunks = table.numel() - T * DESC_SLOTS
 
@@ -301,6 +313,4 @@ def multi_tensor_update(kind: str, attrs: dict, ins_list):
     if rc != 0:
         raise RuntimeError(f"multi_tensor_update: kernel launch failed with CUDA error {rc}")
     multi_tensor_update.launches += 1
-    slots = ("ParamOut", "Moment1Out", "Moment2Out", "Beta1PowOut", "Beta2PowOut") if adam \
-        else ("ParamOut", "VelocityOut")
-    return [{slot: [ins[IN_PLACE[slot]][0]] for slot in slots} for ins in ins_list]
+    return [{slot: [ins[IN_PLACE[slot]][0]] for slot in _OUT_SLOTS[kind]} for ins in ins_list]

@@ -1,9 +1,10 @@
-"""Optimizer update ops (the port's copy of ``momentum`` and ``adam`` from
-``paddle_tpu/ops/optimizer_ops.py``).
+"""Optimizer update ops (the port's copy of ``sgd``, ``momentum`` and
+``adam`` from ``paddle_tpu/ops/optimizer_ops.py``).
 
 An update op rewrites Param and its state: the outputs carry the input state
 vars' names, so the executor writes them back to the scope. It computes in
-the master dtype -- the dtype of its moment accumulators (f32) -- by casting
+the master dtype -- the dtype of its moment accumulators (f32; f32 for the
+stateless ``sgd``) -- by casting
 Param, Grad and LearningRate up front, and casts only ParamOut back to the
 parameter's dtype. Each op is a handful of elementwise PyTorch launches per
 parameter. ``trace_block`` runs a run of consecutive update ops as one
@@ -36,6 +37,14 @@ def _state_out_infer(op, block):
             sv = block.find_var_recursive(s)
             v = block.find_var_recursive(n) or block.create_var(n, sv.shape, sv.dtype)
             v.shape, v.dtype = sv.shape, sv.dtype
+
+
+@register("sgd", grad=None, infer_shape=_state_out_infer)
+def sgd(ctx, ins):
+    """p' = p - lr g, in f32."""
+    p = ins["Param"][0]
+    pf, gf, lrf = _up(torch.float32, p, ins["Grad"][0], ins["LearningRate"][0])
+    return {"ParamOut": [_down(pf - lrf * gf, p)]}
 
 
 @register("momentum", grad=None, infer_shape=_state_out_infer)

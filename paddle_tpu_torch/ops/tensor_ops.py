@@ -1,7 +1,7 @@
 """Tensor-manipulation ops (the port's copy of part of
 ``paddle_tpu/ops/tensor_ops.py``): reshape2, squeeze2, expand, label_smooth,
-transpose2, unsqueeze2, split, slice, gather, top_k and the lookup_table_v2
-embedding.
+transpose2, unsqueeze2, concat, split, slice, gather, top_k and the
+lookup_table_v2 embedding.
 
 ``gather`` and ``lookup_table_v2`` read rows by index. On the card their
 gradient sums the cotangents of repeated indices in a fixed order
@@ -82,6 +82,12 @@ def unsqueeze2(ctx, ins):
     for a in sorted(ctx.attr("axes", [])):
         x = x.unsqueeze(a)
     return {"Out": [x]}
+
+
+@register("concat")
+def concat(ctx, ins):
+    xs = [x for x in ins["X"] if x is not None]
+    return {"Out": [torch.cat(xs, dim=ctx.attr("axis", 0))]}
 
 
 @register("split")

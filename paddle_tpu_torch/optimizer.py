@@ -1,10 +1,10 @@
-"""Optimizers: the port's copy of ``Optimizer``, ``MomentumOptimizer``,
-``AdamOptimizer`` and the ``Momentum`` / ``Adam`` aliases from
-``paddle_tpu/optimizer.py``.
+"""Optimizers: the port's copy of ``Optimizer``, ``SGDOptimizer``,
+``MomentumOptimizer``, ``AdamOptimizer`` and the ``SGD`` / ``Momentum`` /
+``Adam`` aliases from ``paddle_tpu/optimizer.py``.
 
-``Optimizer.minimize(loss)`` = append_backward + (no) clipping + (no)
-regularization + one update op per parameter, all in the same Program, so
-one ``Executor.run`` is one training step. Accumulator names come from
+``Optimizer.minimize(loss)`` = append_backward + clipping (``clip.py``) +
+regularization (``regularizer.py``) + one update op per parameter, all in
+the same Program, so one ``Executor.run`` is one training step. Accumulator names come from
 ``unique_name`` exactly as in the JAX package (``{param}_moment1_0``, ...),
 so a program built under ``unique_name.guard()`` names its state as the JAX
 package's does and a training state carries across by name.
@@ -14,7 +14,7 @@ from __future__ import annotations
 from typing import List, Tuple
 
 from . import unique_name
-from .clip import append_gradient_clip_ops
+from .clip import append_gradient_clip_ops, apply_clip_to_all
 from .core.backward import append_backward
 from .framework import Parameter, Variable, default_main_program
 from .initializer import Constant
@@ -89,18 +89,28 @@ class Optimizer:
                  no_grad_set=None, grad_clip=None
                  ) -> Tuple[List, List[Tuple[Parameter, Variable]]]:
         """Append the backward pass and the update ops to the loss's program
-        (the update's startup ops to ``startup_program`` or the default)."""
-        if grad_clip is not None:
-            raise NotImplementedError(
-                "minimize(grad_clip=...) is not ported yet (ROADMAP queue 1, "
-                "item 1: clip and regularizer classes)")
+        (the update's startup ops to ``startup_program`` or the default).
+        ``grad_clip`` clips every gradient before the per-param clip attrs
+        of ``set_gradient_clip`` apply (the two compose)."""
         from .framework import default_startup_program, program_guard
         with program_guard(loss.block.program,
                            startup_program or default_startup_program()):
             params_grads = self.backward(loss, startup_program, parameter_list,
                                          no_grad_set)
+            if grad_clip is not None:
+                params_grads = apply_clip_to_all(grad_clip, params_grads)
             ops = self.apply_gradients(params_grads)
         return ops, params_grads
+
+
+class SGDOptimizer(Optimizer):
+    """p' = p - lr g."""
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        return block.append_op(
+            "sgd", inputs={"Param": [p], "Grad": [g], "LearningRate": [self._lr(p)]},
+            outputs={"ParamOut": [p]})
 
 
 class MomentumOptimizer(Optimizer):
@@ -143,5 +153,6 @@ class AdamOptimizer(Optimizer):
                    "epsilon": self._epsilon})
 
 
+SGD = SGDOptimizer
 Momentum = MomentumOptimizer
 Adam = AdamOptimizer

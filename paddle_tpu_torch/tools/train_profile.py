@@ -3,6 +3,8 @@
     python3 -m paddle_tpu_torch.tools.train_profile              # BERT-base
     python3 -m paddle_tpu_torch.tools.train_profile resnet50     # ResNet-50
     python3 -m paddle_tpu_torch.tools.train_profile transformer  # Transformer NMT
+    python3 -m paddle_tpu_torch.tools.train_profile deepfm       # DeepFM CTR
+    python3 -m paddle_tpu_torch.tools.train_profile mnist        # MNIST MLP
 
 BERT-base: builds the pretraining program (L12 H768 A12, FFN 3072, vocab
 30522, bf16, dropout 0.1, tied MLM decode) at the configuration of
@@ -29,10 +31,20 @@ builds it -- vocabularies 32000, hidden 512, 6 + 6 layers, 8 heads, FFN
 2048, dropout 0.1, label smoothing 0.1, ``Adam(1e-4)``, f32, batch 64,
 source and target length 64, seed 0 -- profiled the same way.
 
+DeepFM CTR: ``models/deepfm.py`` as ``bench_workloads.py::bench_deepfm``
+builds it -- batch 4096, 26 sparse fields over a vocabulary of 1,000,000,
+embedding 16, 13 dense features, deep tower 400-400-400, the ``auc``
+metric with 4095 thresholds, ``Adam(1e-3)``, f32, seed 0 -- profiled the
+same way (the row gradients of the two tables are ``index_put_``'s sort and
+accumulation kinds).
+
+MNIST MLP: ``models/mnist.py::mlp`` (784 -> 128 -> 64 -> 10) at batch 256
+with ``SGD(0.01)``, random images and labels from seed 0.
+
 ``build_pretrain``, ``pretrain_feed``, ``build_resnet50``, ``resnet_feed``,
 ``transformer_config``, ``build_transformer``, ``nmt_feed``,
-``build_beam_decode`` and ``decode_feed`` are what ``chip_smoke.py``
-drives.
+``build_beam_decode``, ``decode_feed``, ``build_deepfm``, ``deepfm_feed``,
+``build_mnist`` and ``mnist_feed`` are what ``chip_smoke.py`` drives.
 """
 from __future__ import annotations
 
@@ -192,8 +204,75 @@ def decode_feed(rng, cfg, batch, seq):
             "mask": mask}
 
 
+#: bench_workloads.py::bench_deepfm's configuration
+CTR_BATCH, CTR_FIELDS, CTR_VOCAB, CTR_EMBED, CTR_DENSE, CTR_LR = 4096, 26, 1_000_000, 16, 13, 1e-3
+
+
+def build_deepfm(batch=CTR_BATCH, fields=CTR_FIELDS, vocab=CTR_VOCAB, embed=CTR_EMBED,
+                 lr=CTR_LR, seed=SEED):
+    """The DeepFM training Program at static shapes (tower 400-400-400, the
+    ``auc`` metric) with ``Adam(lr)``. Returns (main, startup, loss, auc,
+    prob, params_grads)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import deepfm
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = seed
+    startup.random_seed = seed
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        ids = pt.data("ids", [batch, fields], "int64", append_batch_size=False)
+        dense = pt.data("dense", [batch, CTR_DENSE], "float32", append_batch_size=False)
+        label = pt.data("label", [batch, 1], "int64", append_batch_size=False)
+        loss, auc, prob = deepfm.deepfm(ids, dense, label, num_fields=fields,
+                                        vocab_size=vocab, embed_dim=embed)
+        _, params_grads = pt.optimizer.Adam(lr).minimize(loss)
+    return main, startup, loss, auc, prob, params_grads
+
+
+def deepfm_feed(rng, batch=CTR_BATCH, fields=CTR_FIELDS, vocab=CTR_VOCAB):
+    """One batch as bench_workloads.py draws it: random ids, dense features
+    in [0, 1) and labels in {0, 1} (ids and labels int64; the JAX package
+    feeds them as int32)."""
+    return {"ids": rng.randint(0, vocab, (batch, fields)).astype("int64"),
+            "dense": rng.rand(batch, CTR_DENSE).astype(np.float32),
+            "label": rng.randint(0, 2, (batch, 1)).astype("int64")}
+
+
+#: the MNIST MLP: examples/mnist_mlp.py's batch, tests/test_book_chapters.py's SGD
+MNIST_BATCH, MNIST_LR, MNIST_PIXELS, MNIST_CLASSES = 256, 0.01, 784, 10
+
+
+def build_mnist(batch=MNIST_BATCH, lr=MNIST_LR, seed=SEED, clip_norm=None, l2=None):
+    """The MNIST MLP training Program at a static batch with ``SGD(lr)``;
+    ``clip_norm`` sets ``GradientClipByGlobalNorm(clip_norm)`` on every
+    parameter and ``l2`` the optimizer's ``L2Decay(l2)``. Returns (main,
+    startup, loss, acc, params_grads)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import mnist
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = seed
+    startup.random_seed = seed
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        img = pt.data("img", [batch, MNIST_PIXELS], "float32", append_batch_size=False)
+        label = pt.data("label", [batch, 1], "int64", append_batch_size=False)
+        loss, acc, _ = mnist.mlp(img, label)
+        if clip_norm is not None:
+            pt.clip.set_gradient_clip(pt.clip.GradientClipByGlobalNorm(clip_norm))
+        reg = pt.regularizer.L2Decay(l2) if l2 is not None else None
+        _, params_grads = pt.optimizer.SGD(lr, regularization=reg).minimize(loss)
+    return main, startup, loss, acc, params_grads
+
+
+def mnist_feed(rng, batch=MNIST_BATCH):
+    """Random images in [0, 1) and labels (no dataset file is read)."""
+    return {"img": rng.rand(batch, MNIST_PIXELS).astype(np.float32),
+            "label": rng.randint(0, MNIST_CLASSES, (batch, 1)).astype("int64")}
+
+
 # device activity name -> kind, by the first pattern it contains
-KINDS = (("conv1x1_bn kernels", ("conv1x1_bn", "column_sums")),
+KINDS = (("row gradients (index_put_ accumulate)", ("indexing_backward",)),
+         ("sorts (cub radix sort)", ("RadixSort", "radix_sort")),
+         ("row gathers (index_select)", ("indexSelect",)),
+         ("conv1x1_bn kernels", ("conv1x1_bn", "column_sums")),
          ("multi-tensor update", ("multi_tensor_kernel",)),
          ("dropout kernel", ("dropout_kernel",)),
          ("attention kernels", ("flash_fwd", "bwd_dkdv", "bwd_dq", "delta_f32")),
@@ -278,6 +357,38 @@ def main_transformer(torch):
                       "gpu": torch.cuda.get_device_name(0), **r}), flush=True)
 
 
+def main_deepfm(torch):
+    import paddle_tpu_torch as pt
+    main_prog, startup, loss, _, _, _ = build_deepfm()
+    feed = deepfm_feed(np.random.RandomState(SEED))
+    exe = pt.Executor()
+    with pt.scope_guard(pt.Scope()):
+        exe.run(startup)
+        for _ in range(2):
+            exe.run(main_prog, feed=feed, fetch_list=[loss])
+        torch.cuda.synchronize()
+        r = profile_steps(torch, exe, main_prog, feed, loss, 3)
+    print(json.dumps({"profile": f"deepfm f32 B{CTR_BATCH} fields {CTR_FIELDS} vocab "
+                                 f"{CTR_VOCAB} embed {CTR_EMBED} tower 400-400-400 auc "
+                                 f"Adam({CTR_LR})",
+                      "gpu": torch.cuda.get_device_name(0), **r}), flush=True)
+
+
+def main_mnist(torch):
+    import paddle_tpu_torch as pt
+    main_prog, startup, loss, _, _ = build_mnist()
+    feed = mnist_feed(np.random.RandomState(SEED))
+    exe = pt.Executor()
+    with pt.scope_guard(pt.Scope()):
+        exe.run(startup)
+        for _ in range(2):
+            exe.run(main_prog, feed=feed, fetch_list=[loss])
+        torch.cuda.synchronize()
+        r = profile_steps(torch, exe, main_prog, feed, loss, 3)
+    print(json.dumps({"profile": f"mnist mlp 784-128-64-10 f32 B{MNIST_BATCH} SGD({MNIST_LR})",
+                      "gpu": torch.cuda.get_device_name(0), **r}), flush=True)
+
+
 def main():
     import sys
     import torch
@@ -287,6 +398,10 @@ def main():
         return main_resnet50(torch)
     if sys.argv[1:] == ["transformer"]:
         return main_transformer(torch)
+    if sys.argv[1:] == ["deepfm"]:
+        return main_deepfm(torch)
+    if sys.argv[1:] == ["mnist"]:
+        return main_mnist(torch)
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.models import bert
     cfg = bert.BertConfig(dtype="bfloat16")

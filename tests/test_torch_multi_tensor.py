@@ -43,7 +43,7 @@ def _run_inputs(kind, dtypes, seed=0):
             ins.update({"Moment1": [f(0.1)], "Moment2": [f(0.01).abs()],
                         "Beta1Pow": [torch.tensor([0.9 ** (i + 1)])],
                         "Beta2Pow": [torch.tensor([0.999 ** (i + 1)])]})
-        else:
+        elif kind == "momentum":
             ins["Velocity"] = [f(0.1)]
         ins_list.append(ins)
     return ins_list
@@ -52,7 +52,8 @@ def _run_inputs(kind, dtypes, seed=0):
 KINDS = [("adam", {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}),
          ("adam", {"beta1": 0.8, "beta2": 0.99, "epsilon": 1e-6}),
          ("momentum", {"mu": 0.9, "use_nesterov": False}),
-         ("momentum", {"mu": 0.95, "use_nesterov": True})]
+         ("momentum", {"mu": 0.95, "use_nesterov": True}),
+         ("sgd", {})]
 
 
 @pytest.mark.parametrize("kind,attrs", KINDS)
@@ -61,7 +62,7 @@ def test_a_run_equals_the_per_op_lowerings_bit_for_bit(kind, attrs):
     ins_list = _run_inputs(kind, dtypes)
     before = [{s: [t.clone() for t in v] for s, v in ins.items()} for ins in ins_list]
     outs = mt.update(kind, attrs, ins_list)             # one call for the run
-    lower = optimizer_ops.adam if kind == "adam" else optimizer_ops.momentum
+    lower = getattr(optimizer_ops, kind)
     assert len(outs) == len(ins_list)
     for ins, ins0, out in zip(ins_list, before, outs):
         ref = lower(LowerCtx(attrs), ins0)
@@ -101,10 +102,13 @@ def _update_program(specs):
             outs = {"ParamOut": [names["Param"]], "Moment1Out": [names["Moment1"]],
                     "Moment2Out": [names["Moment2"]], "Beta1PowOut": [names["Beta1Pow"]],
                     "Beta2PowOut": [names["Beta2Pow"]]}
-        else:
+        elif kind == "momentum":
             ins = {"Param": [names["Param"]], "Grad": [grad], "Velocity": [names["Velocity"]],
                    "LearningRate": [f"lr{i % 2}"]}
             outs = {"ParamOut": [names["Param"]], "VelocityOut": [names["Velocity"]]}
+        else:
+            ins = {"Param": [names["Param"]], "Grad": [grad], "LearningRate": [f"lr{i % 2}"]}
+            outs = {"ParamOut": [names["Param"]]}
         blk.append_op(kind, inputs=ins, outputs=outs, attrs=dict(attrs))
     return blk, feed
 
@@ -122,7 +126,8 @@ MOM, NESTEROV = KINDS[2][1], KINDS[3][1]
       ("adam", ADAM, None)], [1, 2, 1]),
     # the third op reads the parameter the first one writes: a new run
     ([("momentum", MOM, None)] * 2 + [("momentum", MOM, "param0")], [2, 1]),
-], ids=["one", "adam-attrs", "nesterov", "kinds", "reads-a-write"])
+    ([("sgd", {}, None)] * 3 + [("momentum", MOM, None), ("sgd", {}, None)], [3, 1, 1]),
+], ids=["one", "adam-attrs", "nesterov", "kinds", "reads-a-write", "sgd"])
 def test_runs_split_where_attrs_change(specs, runs, monkeypatch):
     blk, feed = _update_program(specs)
     ops = blk.ops
@@ -169,6 +174,11 @@ def test_the_mirror_reads_the_kernels_constants():
     assert "multi_tensor_update" in cuda_build.SOURCES
     assert mt.multi_tensor_update in cuda_build.COUNTED
     assert sorted(cuda_build.SOURCES) == sorted(p.stem for p in Path(cuda_build.CSRC).glob("*.cu"))
+    # the kinds the kernel dispatches on are the wrapper's
+    src = (Path(cuda_build.CSRC) / "multi_tensor_update.cu").read_text()
+    kinds = re.search(r"constexpr int (kAdam = \d+, kMomentum = \d+, kSgd = \d+);", src).group(1)
+    assert {k[1:].lower(): int(v) for k, v in re.findall(r"(k\w+) = (\d+)", kinds)} == mt._KIND
+    assert set(mt._KIND) == set(mt.GROUPED) == set(mt._ACCUMULATORS) == set(mt._OUT_SLOTS)
 
 
 def kernel_walk(table, n_tensors, grid, vector):
@@ -305,3 +315,27 @@ def test_a_fill_launch_fits_its_parameters():
     src = (Path(cuda_build.CSRC) / "multi_tensor_update.cu").read_text()
     words = int(re.search(r"constexpr int kFillWords = (\d+);", src).group(1))
     assert 8 + 8 * words + 4 <= 4096
+
+
+@pytest.mark.parametrize("kind,attrs", KINDS[::2])
+def test_each_kinds_rows_name_its_tensors(kind, attrs):
+    """The descriptor's pointer slots (``ROLES``) of each kind: what its ops
+    read and write, 0 where the kind has none (``sgd``: neither accumulators
+    nor beta powers); the wrapper refuses CPU tensors of every kind."""
+    ins_list = _run_inputs(kind, [torch.float32, torch.bfloat16])
+    rows = mt.kernel_rows(kind, ins_list)
+    slots = {"adam": ("Moment1", "Moment2", "LearningRate", "Beta1Pow", "Beta2Pow"),
+             "momentum": ("Velocity", None, "LearningRate", None, None),
+             "sgd": (None, None, "LearningRate", None, None)}[kind]
+    for row, ins in zip(rows, ins_list):
+        assert len(row) == len(mt.ROLES)
+        assert row[0] is ins["Param"][0] and torch.equal(row[1], ins["Grad"][0])
+        for t, slot in zip(row[2:], slots):
+            assert (t is None) if slot is None else (t is ins[slot][0]), slot
+    table = mt.work_table(rows)
+    desc = table[:len(rows) * mt.DESC_SLOTS].reshape(len(rows), mt.DESC_SLOTS)
+    assert [(d[2:len(mt.ROLES)] == 0).tolist() for d in desc] == \
+        [[s is None for s in slots]] * len(rows)
+    assert "must lie on" in mt.kernel_refusal(kind, ins_list)
+    with pytest.raises(ValueError, match="must lie on"):
+        mt.multi_tensor_update(kind, attrs, ins_list)

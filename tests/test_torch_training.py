@@ -188,14 +188,23 @@ def test_adam_matches_jax(param_dtype):
 
 
 def test_clip_and_regularizer_refuse():
+    """A clip attr that is not a clip class, or a regularization that is not
+    a regularizer, is refused, as in the JAX package (it has no method to
+    append its ops); a regularizer appends its ops (tests/test_torch_clip.py
+    holds the clip classes and the regularizers against the JAX package)."""
     from paddle_tpu_torch.clip import append_gradient_clip_ops
     from paddle_tpu_torch.regularizer import append_regularization_ops
     main, _, _, pg = _build(pt, tbert)
     p, g = pg[0]
     p.gradient_clip = object()
-    with pytest.raises(NotImplementedError, match="clip"):
+    with pytest.raises(AttributeError, match="_create_operators"):
         append_gradient_clip_ops([(p, g)])
     p.gradient_clip = None
-    with pytest.raises(NotImplementedError, match="regulariz"):
+    with pytest.raises(AttributeError, match="append_regularization_op"):
         append_regularization_ops([(p, g)], regularization=object())
     assert append_regularization_ops([(p, g)]) == [(p, g)]
+    with pt.program_guard(main):
+        (p2, g2), = append_regularization_ops([(p, g)],
+                                              regularization=pt.regularizer.L2Decay(0.1))
+    assert p2 is p and g2.name == g.name + "@REG"
+    assert [op.type for op in main.global_block().ops[-2:]] == ["scale", "sum"]

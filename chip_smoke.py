@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Serve BERT-base (bf16 and int8), train BERT-base, ResNet-50 and the
 Transformer NMT model and beam-search decode with it, train and serve
-DeepFM and train the MNIST MLP through the PyTorch/CUDA port on one NVIDIA
-GPU, and hold its CUDA kernels against their plain PyTorch versions.
+DeepFM (also from MultiSlot files through ``train_from_dataset``) and
+train the MNIST MLP through the PyTorch/CUDA port on one NVIDIA GPU, and
+hold its CUDA kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -154,6 +155,23 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    step 1 against the CPU port; and the same MLP with
    ``GradientClipByGlobalNorm(1.0)`` and ``L2Decay(1e-4)``, graph against
    eager bit for bit and step 1 against the CPU port;
+15. (run after phase 14) DeepFM trained from MultiSlot files, at
+   ``bench_workloads.py:137-263``'s end-to-end configuration: 200,000 rows
+   in 8 part files written from seed 0 (~55 MB of text, removed after),
+   ``QueueDataset`` (B 4096, ``set_thread(4)``, ``drop_last``: 48 batches)
+   over phase 14's DeepFM. Epochs, each from the startup state with the
+   step's signature warmed and captured first: parse only (every part file
+   through the native parser, which the build phase compiled with ``g++``;
+   the C++ calls timed apart), the steps over the parsed batches (compute
+   only), ``Executor.run`` over ``_iter_batches()`` (serial),
+   ``train_from_dataset`` (prefetch; then profiled for the device's busy
+   time and the idle share) and ``train_from_dataset(fuse_steps=4)``: each
+   epoch's seconds, examples/s and ``multi_tensor_update`` launches (48),
+   every state tensor bit for bit to the serial loop's; then
+   ``infer_from_dataset`` over the files (no state changes, its last
+   ``prob`` equal to ``run(use_prune=True)``'s) and ``save_persistables``
+   / ``load_persistables`` into a fresh scope (one more step equal to the
+   live scope's, bit for bit);
 12. the kernels line, then the result line.
 
 Exits non-zero, with no result line, when there is no CUDA card, when the
@@ -298,15 +316,24 @@ def phase_device(torch):
 
 
 def phase_build():
+    """Every kernel (one ``nvcc`` each) and the native slot parser (``g++``),
+    all started together."""
+    import threading
+    from paddle_tpu_torch import native
     from paddle_tpu_torch.core import cuda_build
     names = list(cuda_build.SOURCES)
     t0 = time.perf_counter()
+    parser = threading.Thread(target=native.available)
+    parser.start()
     paths = cuda_build.build(names)
+    parser.join()
     seconds = time.perf_counter() - t0
     ptxas = {n: [ln.strip() for ln in cuda_build.build_logs.get(n, "").splitlines()
                  if "registers" in ln or "spill" in ln] for n in names}
     emit("build", kernels=names, seconds=seconds,
-         libraries=[os.path.relpath(p, REPO) for p in paths.values()], ptxas=ptxas)
+         libraries=[os.path.relpath(p, REPO) for p in paths.values()], ptxas=ptxas,
+         native_parser=os.path.relpath(native.library_path(), REPO),
+         native_parser_error=native.build_error)
     return names
 
 
@@ -2351,6 +2378,252 @@ def phase_ctr_mnist(torch, workdir):
     return deepfm, mnist
 
 
+# DeepFM trained from MultiSlot files (phase 15): bench_workloads.py's end-to-end
+# leg, no cut: 200,000 rows in 8 part files, B 4096, drop_last: 48 batches an epoch
+E2E_ROWS, E2E_PARTS, E2E_THREADS, E2E_FUSE = 200_000, 8, 4, 4
+
+
+def _write_ctr_parts(d, fields, vocab, n_rows=E2E_ROWS, n_parts=E2E_PARTS):
+    """The part files as ``bench_workloads.py::_deepfm_e2e_body`` writes them,
+    from ``RandomState(SEED)``: 26 ids < 2^24, 13 dense features and a label
+    a line, slots ``;``-separated."""
+    rng = np.random.RandomState(SEED)
+    paths = []
+    for p in range(n_parts):
+        path = os.path.join(d, f"part-{p}.txt")
+        paths.append(path)
+        with open(path, "w") as f:
+            for _ in range(n_rows // n_parts):
+                ids = rng.randint(0, min(vocab, 1 << 24), fields)
+                dense = rng.rand(13)
+                lbl = rng.randint(0, 2)
+                f.write(" ".join(map(str, ids)) + ";" + " ".join(f"{x:.4f}" for x in dense)
+                        + ";" + str(lbl) + "\n")
+    return paths
+
+
+def _device_busy_ms(prof) -> float:
+    """Device time a profile recorded (activities that carry no CPU time)."""
+    total = 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0 and e.cpu_time_total == 0:
+            total += us
+    if total == 0:
+        raise SystemExit("torch.profiler recorded no device activity: device busy time "
+                         "not measured")
+    return total / 1e3
+
+
+def phase_deepfm_files(torch, workdir):
+    """DeepFM trained from MultiSlot files (phase 15)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch.core import cuda_build
+    from paddle_tpu_torch.core.executor import as_tensor
+    from paddle_tpu_torch.ops import multi_tensor
+    from paddle_tpu_torch.tools.train_profile import (CTR_BATCH, CTR_EMBED, CTR_FIELDS,
+                                                      CTR_LR, CTR_VOCAB, build_deepfm)
+    from torch.profiler import ProfilerActivity, profile
+    if not native.available():
+        raise SystemExit(f"the native slot parser did not build or load: {native.build_error}")
+    t0 = time.perf_counter()
+    paths = _write_ctr_parts(workdir, CTR_FIELDS, CTR_VOCAB)
+    write_s = time.perf_counter() - t0
+    text_mb = sum(os.path.getsize(p) for p in paths) / 1e6
+    main, startup, loss, auc, prob, _ = build_deepfm()
+    use_vars = [main.global_block().var(n) for n in ("ids", "dense", "label")]
+    fetch = [loss, auc]
+
+    def make_ds():
+        ds = pt.DatasetFactory().create_dataset("QueueDataset")
+        ds.set_batch_size(CTR_BATCH)
+        ds.set_thread(E2E_THREADS)
+        ds.set_use_var(use_vars)
+        ds.set_filelist(paths)
+        ds.drop_last = True
+        return ds
+
+    # parse-only epoch: the input pipeline's host cost
+    before = native.parses
+    t0 = time.perf_counter()
+    batches = list(make_ds()._iter_batches())
+    parse_s = time.perf_counter() - t0
+    native_parses = native.parses - before
+    t0 = time.perf_counter()                    # of which the C++ parser's calls
+    for path in paths:
+        native.parse_slot_file(path, len(use_vars), n_threads=E2E_THREADS)
+    native_parse_s = time.perf_counter() - t0
+    n_batches = len(batches)
+    n_ex = sum(len(b["label"]) for b in batches)
+    dev = torch.device("cuda")
+    feed_copy = []
+    for b in batches[:10]:                      # the run's copy of one batch to the card
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _ = {k: as_tensor(v, dev) for k, v in b.items()}
+        torch.cuda.synchronize()
+        feed_copy.append((time.perf_counter() - t0) * 1e3)
+
+    init = _startup_state(pt, main, startup)
+    names = sorted(init)
+    exe = pt.Executor()
+
+    def fresh_scope():
+        """A scope at ``init`` whose step is warmed and captured: two runs
+        (the warm-up, the capture), then the state put back in place (the
+        graph keeps the scope's tensors) and the counter back to 0."""
+        scope = pt.Scope()
+        for n, t in init.items():
+            scope.set_var(n, t.clone())
+        with pt.scope_guard(scope):
+            for _ in range(2):
+                exe.run(main, feed=batches[0], fetch_list=fetch, return_numpy=False)
+        for n, t in init.items():
+            scope.find_var(n).copy_(t)
+        main._rng_run_counter = 0
+        torch.cuda.synchronize()
+        return scope
+
+    def counted(fn):
+        for f in cuda_build.COUNTED:
+            f.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, multi_tensor.multi_tensor_update.launches
+
+    epochs, states = {}, {}
+
+    def serial():
+        for b in make_ds()._iter_batches():
+            last = exe.run(main, feed=b, fetch_list=fetch, return_numpy=False)
+        return [t.cpu().numpy() for t in last]
+
+    def compute_only():
+        for b in batches:
+            last = exe.run(main, feed=b, fetch_list=fetch, return_numpy=False)
+        return [t.cpu().numpy() for t in last]
+
+    legs = (("compute_only", compute_only), ("serial", serial),
+            ("prefetch", lambda: exe.train_from_dataset(main, make_ds(), fetch_list=fetch)),
+            ("fused", lambda: exe.train_from_dataset(main, make_ds(), fetch_list=fetch,
+                                                     fuse_steps=E2E_FUSE)))
+    for name, fn in legs:
+        scope = fresh_scope()
+        with pt.scope_guard(scope):
+            last, seconds, launches = counted(fn)
+        epochs[name] = dict(seconds=seconds, examples_per_s=n_ex / seconds,
+                            multi_tensor_update_launches=launches,
+                            last_loss=float(last[0].reshape(-1)[0]),
+                            last_auc=float(last[1].reshape(-1)[0]),
+                            counter_after=main._rng_run_counter)
+        states[name] = {n: scope.find_var(n).clone() for n in names}
+        if name == "prefetch":
+            live = scope
+        del scope
+    differs = {name: len(_state_equal(torch, states[name], states["serial"]))
+               for name in ("compute_only", "prefetch", "fused")}
+
+    # the prefetch epoch under the profiler: device busy time
+    scope = fresh_scope()
+    with pt.scope_guard(scope), profile(activities=[ProfilerActivity.CPU,
+                                                    ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        exe.train_from_dataset(main, make_ds(), fetch_list=fetch)
+        torch.cuda.synchronize()
+        profiled_s = time.perf_counter() - t0
+    del scope
+    busy_ms = _device_busy_ms(prof)
+    del prof
+
+    # infer_from_dataset on the trained state: nothing changes, and its last
+    # batch's prob is run(use_prune=True)'s
+    with pt.scope_guard(live):
+        before_infer = {n: live.find_var(n).clone() for n in names}
+        t0 = time.perf_counter()
+        infer_prob, = exe.infer_from_dataset(main, make_ds(), fetch_list=[prob])
+        infer_s = time.perf_counter() - t0
+        infer_changed = _state_equal(torch, {n: live.find_var(n) for n in names},
+                                     before_infer)
+        pruned_prob, = exe.run(main, feed=batches[-1], fetch_list=[prob], use_prune=True)
+        ckpt = os.path.join(workdir, "persistables")
+        t0 = time.perf_counter()
+        saved_bytes = pt.io.save_persistables(exe, ckpt, main)
+        save_s = time.perf_counter() - t0
+    del before_infer
+
+    # one step from the live scope and the same step after load_persistables
+    # into a fresh scope
+    steps = {}
+    loaded = pt.Scope()
+    with pt.scope_guard(loaded):
+        t0 = time.perf_counter()
+        pt.io.load_persistables(exe, ckpt, main)
+        load_s = time.perf_counter() - t0
+    counter = main._rng_run_counter
+    for name, scope in (("live", live), ("loaded", loaded)):
+        main._rng_run_counter = counter
+        with pt.scope_guard(scope):
+            out = exe.run(main, feed=batches[1], fetch_list=fetch, return_numpy=False)
+        # a loaded variable the step only reads stays in the scope as a CPU tensor
+        steps[name] = ([t.clone() for t in out],
+                       {n: scope.find_var(n).to(dev).clone() for n in names})
+    resume_fetch_equal = all(torch.equal(a, b) for a, b in zip(steps["live"][0],
+                                                                 steps["loaded"][0]))
+    resume_differs = len(_state_equal(torch, steps["loaded"][1], steps["live"][1]))
+    exe.close()
+    del live, loaded, steps, states, init
+
+    pf = epochs["prefetch"]
+    r = dict(model=(f"deepfm f32 B{CTR_BATCH} fields {CTR_FIELDS} vocab {CTR_VOCAB} embed "
+                    f"{CTR_EMBED} tower 400-400-400 auc(4095) Adam({CTR_LR})"),
+             files=len(paths), rows=E2E_ROWS, text_mb=text_mb, write_s=write_s,
+             threads=E2E_THREADS, batches=n_batches, examples=n_ex,
+             native_parses=native_parses, native_library=str(native.library_path().name),
+             parse_only_s=parse_s, parse_examples_per_s=n_ex / parse_s,
+             native_parse_s=native_parse_s,
+             feed_copy_ms_median=statistics.median(feed_copy), epochs=epochs,
+             state_differs_from_serial=differs, prefetch_profiled_s=profiled_s,
+             prefetch_device_busy_ms=busy_ms,
+             idle_share_unprofiled=max(0.0, 1 - busy_ms / (pf["seconds"] * 1e3)),
+             idle_share_profiled=max(0.0, 1 - busy_ms / (profiled_s * 1e3)),
+             device_busy_ms_per_step=busy_ms / n_batches,
+             bound_by=("parse" if parse_s >= epochs["compute_only"]["seconds"] else "steps"),
+             infer=dict(seconds=infer_s, examples_per_s=n_ex / infer_s,
+                        state_changed=len(infer_changed),
+                        prob_equals_pruned_run=bool(np.array_equal(infer_prob, pruned_prob)),
+                        prob_shape=list(infer_prob.shape),
+                        prob_finite=bool(np.isfinite(infer_prob).all())),
+             persistables=dict(bytes=saved_bytes, save_s=save_s, load_s=load_s,
+                               step_fetch_equal=resume_fetch_equal,
+                               step_state_differs=resume_differs))
+    emit("deepfm_from_files", **r)
+    if native_parses != len(paths):
+        raise SystemExit(f"deepfm from files: {native_parses} of {len(paths)} part files "
+                         f"parsed natively")
+    if n_batches != E2E_ROWS // CTR_BATCH:
+        raise SystemExit(f"deepfm from files: {n_batches} batches, expected "
+                         f"{E2E_ROWS // CTR_BATCH}")
+    for name, e in epochs.items():
+        if e["multi_tensor_update_launches"] != n_batches or e["counter_after"] != n_batches:
+            raise SystemExit(f"deepfm from files, {name} epoch: {e}")
+        if not np.isfinite(e["last_loss"]):
+            raise SystemExit(f"deepfm from files, {name} epoch: loss not finite")
+    if any(differs.values()):
+        raise SystemExit(f"deepfm from files: epochs part from the serial loop: {differs}")
+    inf = r["infer"]
+    if not (inf["state_changed"] == 0 and inf["prob_equals_pruned_run"] and inf["prob_finite"]
+            and inf["prob_shape"] == [CTR_BATCH, 1]):
+        raise SystemExit(f"deepfm from files, infer_from_dataset: {inf}")
+    if not (resume_fetch_equal and resume_differs == 0):
+        raise SystemExit(f"deepfm from files: the step after load_persistables differs "
+                         f"from the live one: {r['persistables']}")
+    return r
+
+
 def phase_main_path(torch, workdir):
     """The serving path (phase 4)."""
     from paddle_tpu_torch.inference import Predictor
@@ -2492,6 +2765,12 @@ def main() -> int:
         ctr, mnist = phase_ctr_mnist(torch, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
+    try:
+        e2e = phase_deepfm_files(torch, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    e2e_launches = e2e["epochs"]["prefetch"]["multi_tensor_update_launches"]
     ctr_launches = ctr["launches"]["graph"]["multi_tensor_update"]
     mnist_launches = mnist["launches"]["graph"]["multi_tensor_update"]
 
@@ -2576,12 +2855,14 @@ def main() -> int:
                            "updates every parameter inside the one compiled step"),
          "launches": (train_launches["multi_tensor_update"]
                       + resnet_launches["multi_tensor_update"]
-                      + nmt_launches["multi_tensor_update"] + ctr_launches + mnist_launches),
+                      + nmt_launches["multi_tensor_update"] + ctr_launches + mnist_launches
+                      + e2e_launches),
          "launches_by_path": {"training": train_launches["multi_tensor_update"],
                               "resnet50_training": resnet_launches["multi_tensor_update"],
                               "transformer_training": nmt_launches["multi_tensor_update"],
                               "deepfm_training": ctr_launches,
-                              "mnist_training": mnist_launches},
+                              "mnist_training": mnist_launches,
+                              "deepfm_from_files": e2e_launches},
          "max_abs_err": max(r["max_abs_err"] for r in mres),
          **{k: mt_bert[k] for k in keys}, "library": mt_bert["library"],
          "shape": (f"BERT-base's {mt_bert['tensors']} Adam parameters, "
@@ -2604,6 +2885,8 @@ def main() -> int:
                             ("transformer_base", nmt_train), ("deepfm", ctr),
                             ("mnist_mlp", mnist))},
         "deepfm_serving_ms": {str(q["batch"]): q["ms"] for q in ctr["serving"]["requests"]},
+        "deepfm_from_files_s": {k: e2e["epochs"][k]["seconds"] for k in e2e["epochs"]},
+        "deepfm_parse_only_s": e2e["parse_only_s"],
         "transformer_decode_ms": {p: nmt_decode["paths"][p]["decode_ms_median_warm"]
                                   for p in ("graph", "eager")},
         "train_step_ms": step_ms, "resnet_step_ms": resnet_step_ms,

@@ -1,7 +1,8 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu.
 
 The same Fluid-style surface as ``paddle_tpu`` -- a Program IR built by a
-layers DSL, an Executor, save/load of inference models and a Predictor --
+layers DSL, an Executor (``train_from_dataset`` over MultiSlot files), the reader
+pipeline, save/load of variables and inference models and a Predictor --
 running eagerly on PyTorch tensors, with the TPU's Pallas kernels replaced by
 CUDA kernels written for Hopper (``csrc/``). The device is explicit: the card
 (``cuda``) unless the caller asks for the CPU.
@@ -28,5 +29,9 @@ from . import clip  # noqa: F401
 from .core.backward import append_backward, gradients  # noqa: F401
 from . import models  # noqa: F401
 from . import contrib  # noqa: F401  (registers quantized_mul, dequantize_weight)
+from .dataset_factory import DatasetFactory, InMemoryDataset, QueueDataset  # noqa: F401
+from . import reader  # noqa: F401
+from .reader import DataFeeder, DataLoader, PyReader  # noqa: F401
+from . import incubate  # noqa: F401
 
 __version__ = "0.1.0"

@@ -14,6 +14,14 @@ the counterparts of what XLA does to that step:
 - each variable is dropped after its last reader (XLA's buffer liveness),
   except the fetches, the feeds and the persistable state.
 
+``run(use_prune=True)`` runs only the ops its fetches need (the JAX
+``run``'s prune cache). ``train_from_dataset`` / ``infer_from_dataset`` run
+an epoch of a dataset (``dataset_factory.py``): a worker thread parses,
+slices and stacks the batches ahead of the steps through a bounded queue
+(``_prefetch_batches``: host work only, every copy to the card and every
+run on the calling thread), and the steps are ``run`` or, with
+``fuse_steps=K``, ``run_fused``.
+
 A control-flow op (``scan``) runs its body, a sub-block of the program,
 through ``LowerCtx.block_runner`` (``SubBlockRunner``, the JAX executor's
 ``block_runner``): the enclosing env with the body's inputs on top, the
@@ -46,6 +54,8 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import itertools
+import queue
 import threading
 import warnings
 import weakref
@@ -196,6 +206,12 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
         return t.detach().float().cpu().numpy()
     a = t.detach().cpu().numpy()
     return a.copy() if t.device.type == "cpu" else a
+
+
+def materialize_fetches(fetches) -> List[np.ndarray]:
+    """Fetches -> numpy: the one place the dataset loops wait for the card
+    (a debug print boundary, the epoch's return)."""
+    return [to_numpy(f) for f in fetches]
 
 
 def _op_inputs(op, env) -> Dict[str, List[Any]]:
@@ -382,6 +398,11 @@ def capture_refusal(program: Program) -> Optional[str]:
     return None
 
 
+def _debug_line(loop: str, batch: int, names, values) -> None:
+    msg = ", ".join(f"{n}={np.asarray(v).reshape(-1)[0]:.6g}" for n, v in zip(names, values))
+    print(f"[{loop}] batch {batch}: {msg}")
+
+
 class _Step:
     """An entry of the executor's cache: one (program, signature) on the
     card. ``refusal`` says why it is not captured (None: it is); ``graph``
@@ -420,6 +441,8 @@ class Executor:
         self.place = place
         self.device = resolve_device(place)
         self._cache: "collections.OrderedDict[tuple, _Step]" = collections.OrderedDict()
+        # (program id, _version, fetches) -> (program, its pruned copy)
+        self._prune_cache: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
         # the run counter on the card for eager runs (graphs have their own)
         self._counter = (torch.zeros((1,), dtype=torch.int64, device=self.device)
                          if self.device.type == "cuda" else None)
@@ -471,22 +494,41 @@ class Executor:
 
     def run(self, program: Optional[Program] = None, feed: Optional[dict] = None,
             fetch_list: Optional[Sequence] = None, scope: Optional[Scope] = None,
-            return_numpy: bool = True):
+            return_numpy: bool = True, use_prune: bool = False):
         """Run ``program`` once: persistable state comes from ``scope`` and
         the state it writes goes back there (updated in place where the
         program names one variable for both, as ``ParamOut = Param``: a
         tensor the caller holds changes). Fetches come back as numpy (bf16
         widened to float32, see ``to_numpy``) or, with
-        ``return_numpy=False``, as tensors on the device."""
+        ``return_numpy=False``, as tensors on the device. ``use_prune`` runs
+        only the ops the fetches need (``Program._prune``; an eval-style
+        fetch runs no update op), from a cache of pruned copies."""
         program = program or default_main_program()
         fetch_names = self._fetch_names(fetch_list)
         scope = scope or global_scope()
+        if use_prune and fetch_names:
+            program = self._pruned(program, list(feed or {}), fetch_names)
         feeds = {k: as_tensor(v, self.device) for k, v in (feed or {}).items()}
         counter = self._advance(program, 1)
         fetches, replayed = self._run_step(program, feeds, fetch_names, scope, counter)
         if return_numpy:
             return [to_numpy(f) for f in fetches]
         return [f.clone() for f in fetches] if replayed else fetches
+
+    def _pruned(self, program: Program, feed_names, fetch_names) -> Program:
+        """``program`` pruned to ``fetch_names``, cached by (id, version,
+        fetches). The entry keeps the source program: a collected program's
+        id can be reused by a new one, which must not get its pruned copy."""
+        key = (id(program), program._version, tuple(fetch_names))
+        entry = self._prune_cache.get(key)
+        if entry is None or entry[0] is not program:
+            entry = (program, program._prune(feed_names, fetch_names))
+            self._prune_cache[key] = entry
+            while len(self._prune_cache) > self._CACHE_CAP:
+                self._prune_cache.popitem(last=False)
+        else:
+            self._prune_cache.move_to_end(key)
+        return entry[1]
 
     def run_fused(self, program: Optional[Program] = None, feeds=None,
                   fetch_list: Optional[Sequence] = None, scope: Optional[Scope] = None,
@@ -545,8 +587,195 @@ class Executor:
         """Drop the cached steps: their CUDA graphs and the memory pools they
         hold. The scope keeps its state."""
         self._cache.clear()
+        self._prune_cache.clear()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------ datasets
+
+    @staticmethod
+    def _prefetch_batches(batches, depth: int, fuse: int = 1, abort=None):
+        """Yield the items of ``batches`` in order, produced ahead by one
+        worker thread through a queue of ``depth``: the dataset's parse,
+        slice and stack overlap the steps. The worker does host work only;
+        the consumer (the calling thread) copies to the card and runs.
+
+        ``fuse`` > 1 also stacks every ``fuse`` consecutive batches in the
+        worker into ``("mega", {name: (K, ...) array}, K)``; a group whose
+        shapes differ, and the trailing partial group, go out as ``("one",
+        feed)`` singles. A worker's error is raised in the consumer. When
+        the consumer stops early (a step raised), the worker's bounded puts
+        give up, and ``abort`` (else the iterator's own ``abort``) and the
+        iterator's ``close`` run, so no thread stays parked on a full queue."""
+        q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
+        done = object()
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def stacked(group):
+            shapes = [{n: np.shape(v) for n, v in g.items()} for g in group]
+            if len(group) > 1 and all(sh == shapes[0] for sh in shapes[1:]):
+                return [("mega", {n: np.stack([np.asarray(g[n]) for g in group])
+                                  for n in group[0]}, len(group))]
+            return [("one", g) for g in group]
+
+        def worker():
+            try:
+                if fuse <= 1:
+                    for item in batches:
+                        if not put(item):
+                            return
+                else:
+                    group = []
+                    for item in batches:
+                        group.append(item)
+                        if len(group) == fuse:
+                            for it in stacked(group):
+                                if not put(it):
+                                    return
+                            group = []
+                    for g in group:           # the trailing partial group: singles
+                        if not put(("one", g)):
+                            return
+                put(done)
+            except BaseException as e:  # noqa: BLE001 -- raised again in the consumer
+                put(e)
+            finally:
+                close = getattr(batches, "close", None)
+                if close is not None:
+                    close()
+
+        t = threading.Thread(target=worker, daemon=True, name="dataset-prefetch")
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            cb = abort if abort is not None else getattr(batches, "abort", None)
+            if cb is not None:
+                cb()
+
+    @staticmethod
+    def _prefetch_depth(thread, dataset) -> int:
+        """The prefetch queue's depth: ``thread``, else the dataset's
+        ``thread_num``, at least 2 (double buffering)."""
+        return max(2, int(thread) or int(getattr(dataset, "thread_num", 0) or 0))
+
+    def train_from_dataset(self, program=None, dataset=None, scope=None, thread=0,
+                           debug=False, fetch_list=None, fetch_info=None, print_period=100,
+                           fuse_steps: int = 1, return_numpy: bool = True,
+                           skip_batches: int = 0):
+        """One epoch over ``dataset`` (``DatasetFactory().create_dataset(...)``),
+        its batches produced by the prefetch thread (``_prefetch_batches``,
+        queue depth ``thread``, else the dataset's ``thread_num``, at least 2)
+        and each run as a step of ``program``.
+
+        ``fuse_steps=K`` > 1 runs each K batches as one ``run_fused`` call
+        (stacked in the worker); the trailing partial group runs unfused. A
+        program that cannot be captured (``capture_refusal``) warns and runs
+        unfused. ``fuse_steps=0`` (the JAX package's autotuner) is not
+        ported. Fetches stay on the device: they are read to the host only
+        at the ``debug`` print boundaries (every ``print_period`` batches,
+        one read per chunk that crosses one) and at the return. Returns the
+        last step's fetches (numpy, or tensors with ``return_numpy=False``),
+        None when the epoch had no batch. ``skip_batches=N`` passes over the
+        first N batches without running them: with the state saved after N
+        steps (``io.save_persistables``), the rest of an epoch resumes on
+        the exact next batch."""
+        if dataset is None:
+            raise ValueError("train_from_dataset needs a dataset (use "
+                             "DatasetFactory().create_dataset(...))")
+        fetch_list = fetch_list or []
+        fetch_info = fetch_info or self._fetch_names(fetch_list)
+        k = int(fuse_steps)
+        if k < 0:
+            raise ValueError("fuse_steps must be >= 0 (0 = autotune)")
+        if k == 0:
+            raise NotImplementedError(
+                "fuse_steps=0 consults the JAX package's autotuner (tuning/), which is "
+                "not ported yet (ROADMAP queue 7); pass fuse_steps=K")
+        prog = program or default_main_program()
+        if k > 1:
+            reason = capture_refusal(prog)
+            if reason is not None:
+                warnings.warn(f"train_from_dataset(fuse_steps={k}): program cannot run "
+                              f"fused ({reason}); running unfused", stacklevel=2)
+                k = 1
+        depth = self._prefetch_depth(thread, dataset)
+        batches = dataset._iter_batches()
+        abort_cb = getattr(batches, "abort", None)   # before islice hides it
+        if skip_batches:
+            batches = itertools.islice(batches, int(skip_batches), None)
+        period = max(print_period, 1)
+        last, last_fused, i = None, False, 0
+        loop = self._prefetch_batches(batches, depth, fuse=k, abort=abort_cb)
+        with contextlib.closing(loop):     # a step that raises ends the worker now
+            for item in loop:
+                kind, feed = (item[0], item[1]) if k > 1 else ("one", item)
+                if kind == "mega":
+                    vals = self.run_fused(prog, stacked_feed=feed, fetch_list=fetch_list,
+                                          scope=scope)
+                    kk = item[2]
+                else:
+                    vals = self.run(prog, feed=feed, fetch_list=fetch_list, scope=scope,
+                                    return_numpy=False)
+                    kk = 1
+                hits = [j for j in range(i, i + kk) if j % period == 0] \
+                    if debug and fetch_list else []
+                if hits:     # one read to the host per chunk that crosses a boundary
+                    vals_np = materialize_fetches(vals)
+                    for j in hits:
+                        _debug_line("train_from_dataset", j, fetch_info,
+                                    [v[j - i] for v in vals_np] if kind == "mega"
+                                    else vals_np)
+                last, last_fused, i = vals, kind == "mega", i + kk
+        if last is None:
+            return None
+        if last_fused:
+            last = [v[-1] for v in last]      # the last step's fetches
+        return materialize_fetches(last) if return_numpy else list(last)
+
+    def infer_from_dataset(self, program=None, dataset=None, scope=None, thread=0,
+                           debug=False, fetch_list=None, fetch_info=None, print_period=100,
+                           return_numpy: bool = True):
+        """One epoch over ``dataset`` with ``program`` pruned to
+        ``fetch_list`` (``run(use_prune=True)``), so no update op runs: the
+        fetch list is required. Returns the last batch's fetches; nothing is
+        kept of the others (``debug`` prints every ``print_period``)."""
+        if dataset is None:
+            raise ValueError("infer_from_dataset needs a dataset")
+        if not fetch_list:
+            raise ValueError(
+                "infer_from_dataset needs a non-empty fetch_list: inference prunes the "
+                "program to the fetches; without them the full program (including any "
+                "optimizer ops) would run")
+        fetch_info = fetch_info or self._fetch_names(fetch_list)
+        depth = self._prefetch_depth(thread, dataset)
+        last = None
+        loop = self._prefetch_batches(dataset._iter_batches(), depth)
+        with contextlib.closing(loop):
+            for i, feed in enumerate(loop):
+                last = self.run(program, feed=feed, fetch_list=fetch_list, scope=scope,
+                                use_prune=True, return_numpy=False)
+                if debug and i % max(print_period, 1) == 0:
+                    _debug_line("infer_from_dataset", i, fetch_info, materialize_fetches(last))
+        if last is None:
+            return None
+        return materialize_fetches(last) if return_numpy else list(last)
 
     # ---------------------------------------------------------------- one step
 

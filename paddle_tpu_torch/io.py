@@ -1,5 +1,7 @@
-"""Inference-model export and load (the port's copy of
-``save_inference_model`` / ``load_inference_model`` of ``paddle_tpu/io.py``).
+"""Saving and loading variables and inference models (the port's copy of
+``save_vars`` / ``save_params`` / ``save_persistables``, their ``load_*``
+counterparts and ``save_inference_model`` / ``load_inference_model`` of
+``paddle_tpu/io.py``).
 
 The on-disk format is the JAX package's, so a directory saved by either
 package loads in the other:
@@ -12,9 +14,12 @@ package loads in the other:
 * one ``.npy`` chunk per variable. bfloat16 is stored as its uint16 bits
   with a ``"bfloat16"`` dtype tag.
 
-The port reads and writes bf16 by reinterpreting bits in torch (no numpy
-bfloat16). Sharded (multi-chunk) variables and training checkpoints wait for
-a later slice.
+``save_persistables`` writes what resuming a training needs (parameters,
+optimizer moments and counters, metric state); ``filename`` names the
+manifest. The port reads and writes bf16 by reinterpreting bits in torch (no
+numpy bfloat16). It writes single-process saves, one chunk per variable;
+sharded (multi-chunk) variables and multi-process saves raise when loaded,
+and ``Checkpointer`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import io as _pyio
 import json
 import os
 import zlib
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -83,6 +89,97 @@ def _load_var(dirname, meta) -> torch.Tensor:
         raise CheckpointCorruption(f"chunk {path} holds shape {list(arr.shape)}, "
                                    f"manifest says {shape}")
     return tensor_from_numpy(arr, meta["dtype"])
+
+
+def _names_of(main_program, vars, predicate):
+    if vars is None:
+        vars = [v for v in main_program.list_vars() if predicate is None or predicate(v)]
+    return [(v if isinstance(v, Variable) else None,
+             v.name if isinstance(v, Variable) else str(v)) for v in vars]
+
+
+def save_vars(executor, dirname, main_program=None, vars: Optional[List] = None,
+              predicate=None, filename=None) -> int:
+    """Save ``vars`` (or the variables of ``main_program`` that satisfy
+    ``predicate``) from the global scope into ``dirname``: one ``.npy`` per
+    variable and the manifest (``filename``, default ``__manifest__.json``).
+    Returns the bytes of the chunks written."""
+    main_program = main_program or default_main_program()
+    scope = global_scope()
+    os.makedirs(dirname, exist_ok=True)
+    entries, nbytes = [], 0
+    for _, name in _names_of(main_program, vars, predicate):
+        value = scope.find_var(name)
+        if value is None:
+            raise RuntimeError(f"variable {name!r} has no value in scope; "
+                               f"run the startup program before saving")
+        entry = _save_var(dirname, name, value)
+        entries.append(entry)
+        nbytes += entry["chunks"][0]["bytes"]
+    with open(os.path.join(dirname, filename or MANIFEST), "w") as f:
+        json.dump({"vars": entries, "nranks": 1, "format_version": FORMAT_VERSION}, f)
+    return nbytes
+
+
+def _is_param(v):
+    return isinstance(v, Parameter)
+
+
+def _is_persistable(v):
+    # a comm error-feedback residual (the JAX package's comm/compress.py) is
+    # per-device advisory state, never saved
+    return v.persistable and not v.is_data and not v.name.endswith("@comm_residual")
+
+
+def save_params(executor, dirname, main_program=None, filename=None) -> int:
+    """The parameters only (no optimizer state)."""
+    return save_vars(executor, dirname, main_program, predicate=_is_param, filename=filename)
+
+
+def save_persistables(executor, dirname, main_program=None, filename=None) -> int:
+    """Everything resuming a training needs: parameters, optimizer moments
+    and counters, metric state."""
+    return save_vars(executor, dirname, main_program, predicate=_is_persistable,
+                     filename=filename)
+
+
+def load_vars(executor, dirname, main_program=None, vars=None, predicate=None,
+              filename=None):
+    """Load ``vars`` (or the variables of ``main_program`` that satisfy
+    ``predicate``) from ``dirname`` into the global scope, as CPU tensors
+    (the executor moves them to its device at the next run). A variable the
+    save lacks, or one whose shape differs from the program's, raises."""
+    main_program = main_program or default_main_program()
+    path = os.path.join(dirname, filename or MANIFEST)
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no checkpoint manifest at {path}")
+    with open(path) as f:
+        head = json.load(f)
+    if head.get("nranks", 1) != 1:
+        raise NotImplementedError(
+            f"{dirname} was saved by {head['nranks']} processes; the port reads "
+            f"single-process saves only")
+    metas = {m["name"]: m for m in head["vars"]}
+    scope = global_scope()
+    for var, name in _names_of(main_program, vars, predicate):
+        if name not in metas:
+            raise RuntimeError(f"checkpoint at {dirname} has no variable {name!r}")
+        value = _load_var(dirname, metas[name])
+        if var is not None and var.shape:
+            declared = tuple(var.shape)
+            if len(value.shape) != len(declared) or any(
+                    d != -1 and d != s for d, s in zip(declared, value.shape)):
+                raise RuntimeError(f"shape mismatch loading {name!r}: checkpoint "
+                                   f"{tuple(value.shape)} vs program {declared}")
+        scope.set_var(name, value)
+
+
+def load_params(executor, dirname, main_program=None, filename=None):
+    load_vars(executor, dirname, main_program, predicate=_is_param, filename=filename)
+
+
+def load_persistables(executor, dirname, main_program=None, filename=None):
+    load_vars(executor, dirname, main_program, predicate=_is_persistable, filename=filename)
 
 
 def save_inference_model(dirname, feeded_var_names, target_vars, executor,

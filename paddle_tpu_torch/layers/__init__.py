@@ -1,5 +1,6 @@
 """fluid.layers-style DSL surface: the layers the port's models build with."""
-from .io import data  # noqa: F401
+from .io import (create_py_reader_by_data, data, double_buffer, load,  # noqa: F401
+                 py_reader, read_file)
 from .nn import (accuracy, auc, batch_norm, beam_append, beam_search,  # noqa: F401
                  beam_search_decode, cast, clip, clip_by_norm, conv2d, cross_entropy,
                  dropout, elementwise_add, elementwise_div, elementwise_max,

@@ -54,6 +54,8 @@ def test_port_import_leaves_jax_unloaded():
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n"
+            "native = sys.modules['paddle_tpu_torch.native']\n"
+            "assert not native._LIB_TRIED, 'importing the port built the slot parser'\n"
             "print(len(sys.modules))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        env=dict(os.environ, PYTHONPATH=ROOT),

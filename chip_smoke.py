@@ -2,8 +2,9 @@
 """Serve BERT-base (bf16 and int8), train BERT-base, ResNet-50 and the
 Transformer NMT model and beam-search decode with it, train and serve
 DeepFM (also from MultiSlot files through ``train_from_dataset``) and
-train the MNIST MLP through the PyTorch/CUDA port on one NVIDIA GPU, and
-hold its CUDA kernels against their plain PyTorch versions.
+train the MNIST MLP, train the book chapters (``examples/``) and serve
+VGG-16 through the PyTorch/CUDA port on one NVIDIA GPU, and hold its CUDA
+kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -89,8 +90,9 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
 9. multi_tensor_update over BERT-base's 158 Adam parameters,
    ResNet-50's 161 Momentum parameters, DeepFM's 10 Adam parameters (17.5 M
    elements, the 1,000,000 x 16 table among them), the MNIST MLP's 6 SGD
-   parameters and transformer-base's 258 Adam parameters (their shapes and
-   dtypes read from the programs), in place, against the per-op lowerings on the card, bit
+   parameters, transformer-base's 258 Adam parameters and each book
+   chapter's list of phase 16 (their shapes and dtypes read from the
+   programs), in place, against the per-op lowerings on the card, bit
    for bit, with its time, its bound, the per-op path's time (device and
    host), its own host time per call and ``torch._fused_adam_`` /
    ``torch._fused_sgd_`` on f32 copies of the same tensors as yardsticks;
@@ -100,8 +102,11 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    seed of the same counter (0, 1, 2^31, 2^32 + 5), and two counters two
    masks; the dropout kernel against its plain version, bit for bit, at
    BERT-base's hidden-dropout shape ([16384, 768] bf16, p 0.1, both
-   implementations), in f32, ragged, unaligned and at p 0 and 1, with its
-   time, bound and ``F.dropout``'s time; the gradients of
+   implementations), at transformer-base's attention-probs shape and at
+   VGG-16's fc dropout in the image chapter ([128, 4096] f32, p 0.5,
+   ``downgrade_in_infer``), in f32, ragged, unaligned and at p 0 and 1,
+   with its time, bound and ``F.dropout``'s time at the three path shapes;
+   the gradients of
    ``lookup_table_v2`` and ``gather`` at BERT-base's shapes and of DeepFM's
    two 1,000,000-row tables at 106,496 ids, PyTorch's (atomics) against the
    port's ``RowGather``, timed, each run twice;
@@ -172,6 +177,27 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    ``prob`` equal to ``run(use_prune=True)``'s) and ``save_persistables``
    / ``load_persistables`` into a fresh scope (one more step equal to the
    live scope's, bit for bit);
+16. (run after phase 15) the book chapters, each at its example's
+   configuration and schedule (``paddle_tpu_torch/tools/book.py``), on the
+   port's loaders pointed at a fresh, empty ``PADDLE_TPU_DATA_HOME`` (their
+   surrogates): mnist_mlp, fit_a_line, word2vec, understand_sentiment (a
+   96-step ``dynamic_lstm`` trained through ``scan``), label_semantic_roles
+   (two bidirectional LSTM layers and the CRF), recommender_system,
+   machine_translation and image_classification (VGG-16 with batch norm at
+   B 128, ``Adam(1e-3)``). For each: the first 4 steps graph against eager,
+   bit for bit (losses, the fetched metric, every state tensor), with
+   ``multi_tensor_update`` 1 a step (and ``dropout_fwd`` 2 for VGG); step 1
+   against the CPU port from the same weights; the example's schedule on
+   the graph executor (losses finite and falling, the step ms, peak memory
+   and graph pool); the example's final metric held to the example's own
+   bar; the eager step ms and three profiled steps (busy ms, idle share,
+   activities). Then ``crf_decoding``'s ties on the card, and VGG-16 served at
+   bench_inference.py's 3 x 224 x 224, f32 and bf16 from one set of
+   weights, mb 1 and 32, through the Predictor, each fed the same images
+   as a tensor on the card: graph and eager latency (median of 10), the
+   graph pools, graph against eager bit for bit, f32 mb 1 against the CPU
+   Predictor, bf16 against f32, and at mb 32 the latency with
+   ``cudnn.deterministic`` off;
 12. the kernels line, then the result line.
 
 Exits non-zero, with no result line, when there is no CUDA card, when the
@@ -543,10 +569,11 @@ def phase_train_kernels(torch):
 def _launch_times(torch, fn, calls):
     """Each kernel launch inside one call of ``fn``: torch.profiler's
     key_averages over ``calls`` calls, after one warm call."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+    from paddle_tpu_torch.tools.train_profile import traced
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with traced([ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -1019,7 +1046,8 @@ def phase_serving_modes(torch, label, model_dir, pred, requests, outs, lat, coun
     from paddle_tpu_torch.core import cuda_build
     from paddle_tpu_torch.inference import Predictor
     from paddle_tpu_torch.tools.serving_profile import profile_shape
-    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.tools.train_profile import traced
+    from torch.profiler import ProfilerActivity
     eager = Predictor(model_dir)
     eager._use_graphs = False
     for feed in requests:                       # first use of each shape
@@ -1043,12 +1071,12 @@ def phase_serving_modes(torch, label, model_dir, pred, requests, outs, lat, coun
             r["unprofiled_wall_ms"] = wall
             r["unprofiled_idle_share"] = max(0.0, 1 - r["device_busy_ms"] / wall)
     before = {fn: fn.launches for fn in cuda_build.COUNTED}
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with traced([ProfilerActivity.CUDA]) as prof:
         pred.run(requests[0])
         torch.cuda.synchronize()
     counted = {fn.__name__: fn.launches - n for fn, n in before.items() if fn.launches != n}
-    traced = sum(e.count for e in prof.key_averages() if kernel_name in e.key)
-    replay = dict(counters=counted, profiler_kernels={kernel_name: traced})
+    n_traced = sum(e.count for e in prof.key_averages() if kernel_name in e.key)
+    replay = dict(counters=counted, profiler_kernels={kernel_name: n_traced})
     del eager
     r = dict(requests=[dict(batch=B, seq=S, graph_ms=a * 1e3, eager_ms=b * 1e3)
                        for (B, S), a, b in zip(BERT_REQUESTS, lat, eager_lat)],
@@ -1058,8 +1086,8 @@ def phase_serving_modes(torch, label, model_dir, pred, requests, outs, lat, coun
     emit(f"{label}_graph_vs_eager", **r)
     if not all(same):
         raise SystemExit(f"{label}: graph-replayed outputs differ from the eager run: {same}")
-    if traced != counted.get(counter):
-        raise SystemExit(f"{label}: one replay ran {traced} {kernel_name} kernels (profiler) "
+    if n_traced != counted.get(counter):
+        raise SystemExit(f"{label}: one replay ran {n_traced} {kernel_name} kernels (profiler) "
                          f"but its counters add {counted}")
     return r
 
@@ -1432,6 +1460,9 @@ def phase_multi_tensor(torch, programs):
 DROPOUT_SHAPE, DROPOUT_P = (128 * 128, 768), 0.1
 # transformer-base's attention-probs dropout: [B, heads, S, S] at B64 S64, f32
 NMT_PROBS_DROPOUT_SHAPE = (64, 8, 64, 64)
+# VGG-16's two fc dropouts in the image chapter: [B, 4096] at B128, f32, p 0.5,
+# layers.dropout's default downgrade_in_infer (no upscale)
+VGG_DROPOUT_SHAPE, VGG_DROPOUT_P = (128, 4096), 0.5
 CAPTURED_STEPS = 5           # steps held graph against eager
 TIMED_STEPS = 6              # steps timed on each path (after the held ones)
 FUSED_K = 4
@@ -1496,10 +1527,11 @@ def _hbm_from_card(torch):
 def phase_dropout_kernel(torch):
     """The dropout kernel against its plain version on the card, bit for bit
     (Out and Mask, and a second launch), at BERT-base's hidden-dropout shape
-    in both implementations, in f32, at a ragged size, on an unaligned view
-    (the one-element path) and at p 0 and 1; at the main shape its time, the
-    plain version's, ``F.dropout``'s (the library yardstick: another RNG,
-    the same work) and the bound (read X, write Out and Mask)."""
+    in both implementations, at transformer-base's and VGG-16's, in f32, at
+    a ragged size, on an unaligned view (the one-element path) and at p 0
+    and 1; at the paths' shapes its time, the plain version's,
+    ``F.dropout``'s (the library yardstick: another RNG, the same work) and
+    the bound (read X, write Out and Mask)."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import dropout as dmod
     gen = torch.Generator(device="cuda")
@@ -1508,6 +1540,7 @@ def phase_dropout_kernel(torch):
     cases = [(DROPOUT_SHAPE, "bfloat16", True, DROPOUT_P, 0, True),
              (DROPOUT_SHAPE, "bfloat16", False, DROPOUT_P, 0, True),
              (NMT_PROBS_DROPOUT_SHAPE, "float32", True, DROPOUT_P, 0, True),
+             (VGG_DROPOUT_SHAPE, "float32", False, VGG_DROPOUT_P, 0, True),
              ((4096, 768), "float32", True, DROPOUT_P, 0, False),
              ((1001, 77), "bfloat16", True, 0.3, 0, False),
              ((4096, 768), "bfloat16", True, DROPOUT_P, 1, False),
@@ -2425,8 +2458,8 @@ def phase_deepfm_files(torch, workdir):
     from paddle_tpu_torch.core.executor import as_tensor
     from paddle_tpu_torch.ops import multi_tensor
     from paddle_tpu_torch.tools.train_profile import (CTR_BATCH, CTR_EMBED, CTR_FIELDS,
-                                                      CTR_LR, CTR_VOCAB, build_deepfm)
-    from torch.profiler import ProfilerActivity, profile
+                                                      CTR_LR, CTR_VOCAB, build_deepfm, traced)
+    from torch.profiler import ProfilerActivity
     if not native.available():
         raise SystemExit(f"the native slot parser did not build or load: {native.build_error}")
     t0 = time.perf_counter()
@@ -2529,8 +2562,7 @@ def phase_deepfm_files(torch, workdir):
 
     # the prefetch epoch under the profiler: device busy time
     scope = fresh_scope()
-    with pt.scope_guard(scope), profile(activities=[ProfilerActivity.CPU,
-                                                    ProfilerActivity.CUDA]) as prof:
+    with pt.scope_guard(scope), traced([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         exe.train_from_dataset(main, make_ds(), fetch_list=fetch)
         torch.cuda.synchronize()
@@ -2624,6 +2656,422 @@ def phase_deepfm_files(torch, workdir):
     return r
 
 
+# The book chapters and VGG-16 (phase 16). Each chapter trains at its example's
+# configuration and schedule (tools/book.py). The first BOOK_HELD_STEPS steps,
+# graph against eager, are held bit for bit (losses, the fetched metric, every
+# state tensor). Step 1 on the card against the CPU port from the same weights
+# and batch: the loss gap relative to the loss, both summing in f32 in other
+# orders (cuBLAS / cuDNN against the CPU's kernels, through up to 96 LSTM steps
+# or 13 convolutions), about 1e-6 relative, so 1e-4 bounds it with room; the
+# update as sum|u_card - u_cpu| / sum|u_cpu|: Adam's first update is
+# lr * g / (|g| + eps), so an element moves only where its gradient is near its
+# rounding error (a conv bias before a batch norm has a gradient of exactly 0
+# in exact arithmetic, and flips by 2 lr), 1e-2 of the mass (NMT's limit).
+BOOK_HELD_STEPS = 4
+# steps traced for the device's busy time and activities (their mean): a trace
+# of one short replay has come back empty from torch.profiler once
+BOOK_PROFILED_STEPS = 3
+BOOK_LOSS_REL, BOOK_UPDATE_REL = 1e-4, 1e-2
+# VGG-16 step 1 on the CPU port at batch 8 (a CPU step at B 128 takes minutes)
+BOOK_IMG_CPU_BATCH = 8
+# VGG-16 served at bench_inference.py's shape: 3 x 224 x 224, mb 1 and 32
+VGG_HW, VGG_BATCHES, VGG_RUNS = 224, (1, 32), 10
+# the card's f32 logits against the CPU port's at mb 1: f32 sums of up to
+# 4608 products (3 x 3 x 512) in other orders through 16 layers, about 1e-6 of
+# the largest logit; 1e-3 of max|logit| bounds it with room
+VGG_CPU_REL = 1e-3
+# the bf16 build's logits against the f32 build's, same weights (bf16 values)
+# and images, relative L2: each of the 16 layers (13 conv, 3 fc) rounds to bf16
+# twice where f32 does not, its product and its bias add (unit roundoff 2^-9,
+# relative; cuDNN and cuBLAS sum the products in f32 in both builds; ReLU and
+# max pool are exact); a relative error that each layer carries on adds at most
+# 32 * 2^-9 = 2^-4. A wrong bf16 convolution or fc gives O(1).
+VGG_BF16_REL = 2 ** -4
+# each example's own assert on its final metric (examples/*.py): chapter ->
+# (metric, the bar, whether the metric must lie below it)
+BOOK_BARS = {"fit_a_line": ("final_mse", 30.0, True),
+             "understand_sentiment": ("test_accuracy", 0.8, False),
+             "label_semantic_roles": ("viterbi_token_accuracy", 0.9, False),
+             "recommender_system": ("test_mse_over_baseline", 0.7, True)}
+
+
+def _book_chapters(pt, ds):
+    """(chapter, training feeds, fetch of a training step, evaluate(exe,
+    losses) -> metrics, batch of the CPU step) for each chapter, at the example's
+    configuration, read from the port's loaders ``ds``."""
+    from paddle_tpu_torch.models import transformer, vgg
+    from paddle_tpu_torch.tools import book
+    out = []
+
+    ch = book.build_mnist_mlp(pt)
+    feeds, test = book.mnist_feeds(ds)
+
+    def mnist_eval(exe, losses, ch=ch, test=test):
+        a, = exe.run(ch.test, feed=test, fetch_list=[ch.metric])
+        return {"test_accuracy": float(np.asarray(a).reshape(-1)[0])}
+    out.append((ch, feeds, [ch.loss], mnist_eval, None))
+
+    ch = book.build_fit_a_line(pt)
+    feeds = book.fit_a_line_feeds(ds)
+    per_epoch = len(feeds) // book.FIT_EPOCHS
+    out.append((ch, feeds, [ch.loss], lambda exe, losses, n=per_epoch: {
+        "final_mse": float(np.mean(losses[-n:]))}, None))
+
+    ch = book.build_word2vec(pt)
+    out.append((ch, book.word2vec_feeds(), [ch.loss], lambda exe, losses: {
+        "first_loss": losses[0], "last_loss": losses[-1]}, None))
+
+    vocab, feeds, test = book.sentiment_feeds(ds)
+    ch = book.build_understand_sentiment(pt, vocab)
+
+    def sentiment_eval(exe, losses, ch=ch, test=test):
+        accs = [float(np.asarray(exe.run(ch.main, feed=f, fetch_list=[ch.loss, ch.metric],
+                                         use_prune=True)[1]).reshape(-1)[0]) for f in test]
+        return {"test_accuracy": float(np.mean(accs)), "vocab": vocab}
+    out.append((ch, feeds, ch.fetch, sentiment_eval, None))
+
+    sizes, feeds = book.srl_feeds(ds)
+    ch = book.build_label_semantic_roles(pt, *sizes)
+
+    def srl_eval(exe, losses, ch=ch, first=feeds[0]):
+        path, = exe.run(ch.main, feed=first, fetch_list=[ch.metric], use_prune=True)
+        return {"viterbi_token_accuracy": book.viterbi_accuracy(path, first)}
+    out.append((ch, feeds, [ch.loss], srl_eval, None))
+
+    sizes, feeds, test = book.recommender_feeds(ds)
+    ch = book.build_recommender_system(pt, *sizes)
+
+    def rec_eval(exe, losses, ch=ch, test=test):
+        mse = [float(np.asarray(exe.run(ch.main, feed=f, fetch_list=[ch.loss],
+                                        use_prune=True)[0]).reshape(-1)[0]) for f in test]
+        var = float(np.var(np.concatenate([f["rating"] for f in test])))
+        return {"test_mse": float(np.mean(mse)), "predict_mean_baseline": var,
+                "test_mse_over_baseline": float(np.mean(mse)) / var}
+    out.append((ch, feeds, [ch.loss], rec_eval, None))
+
+    ch = book.build_machine_translation(pt, transformer)
+    out.append((ch, book.machine_translation_feeds(ds), [ch.loss], lambda exe, losses: {
+        "first_loss": losses[0], "final_loss": losses[-1]}, None))
+
+    ch = book.build_image_classification(pt, vgg)
+    out.append((ch, book.image_classification_feeds(ds), ch.fetch, lambda exe, losses: {
+        "final_loss": losses[-1]}, BOOK_IMG_CPU_BATCH))
+    return out
+
+
+def _on_card(torch, feed):
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in feed.items()}
+
+
+def _book_chapter(torch, pt, ch, feeds, fetch, evaluate, cpu_batch):
+    """One chapter on the card: the held steps graph against eager, step 1
+    against the CPU port, the example's schedule on the graph executor (step
+    ms, losses, peak memory, graph pool), the final metric, the eager step ms
+    and three profiled steps."""
+    from paddle_tpu_torch.core import cuda_build
+    from paddle_tpu_torch.tools.train_profile import profile_steps
+    main = ch.main
+    init = _startup_state(pt, main, ch.startup)
+    drops = sum(op.type == "dropout" and not op.attr("is_test", False)
+                for op in main.global_block().ops)
+    expected = {"multi_tensor_update": 1, **({"dropout_fwd": drops} if drops else {})}
+    held, launches, eager_ms = {}, {}, []
+    for path in ("graph", "eager"):
+        exe = pt.Executor()
+        exe._use_graphs = path == "graph"
+        for fn in cuda_build.COUNTED:
+            fn.launches = 0
+        scope = pt.Scope()
+        for n, t in init.items():
+            scope.set_var(n, t.clone())
+        main._rng_run_counter = 0
+        outs = []
+        with pt.scope_guard(scope):
+            for f in feeds[:BOOK_HELD_STEPS]:
+                t0 = time.perf_counter()
+                outs.append(exe.run(main, feed=f, fetch_list=ch.fetch, return_numpy=False))
+                torch.cuda.synchronize()
+                if path == "eager":
+                    eager_ms.append((time.perf_counter() - t0) * 1e3)
+        launches[path] = {fn.__name__: fn.launches for fn in cuda_build.COUNTED if fn.launches}
+        held[path] = (outs, {n: scope.find_var(n).clone() for n in init})
+        exe.close()
+        del exe, scope
+    (g_outs, g_state), (e_outs, e_state) = held["graph"], held["eager"]
+    fetch_equal = all(torch.equal(a, b) for x, y in zip(g_outs, e_outs) for a, b in zip(x, y))
+    state_differs = _state_equal(torch, g_state, e_state)
+    del held, g_outs, e_outs, g_state, e_state
+
+    params = [n for n, v in main.global_block().vars.items()
+              if isinstance(v, pt.Parameter) and v.trainable]
+    raw = feeds[0] if cpu_batch is None else {k: v[:cpu_batch] for k, v in feeds[0].items()}
+    card = _step_once(torch, pt, main, ch.loss, params, init, _on_card(torch, raw), "cuda")
+    t0 = time.perf_counter()
+    cpu = _step_once(torch, pt, main, ch.loss, params, init, raw, "cpu")
+    step1 = dict(_gaps(card, cpu), batch=int(next(iter(raw.values())).shape[0]),
+                 cpu_seconds=time.perf_counter() - t0)
+    del card, cpu
+
+    # the example's schedule on the graph executor, from the same state
+    exe = pt.Executor()
+    scope = pt.Scope()
+    for n, t in init.items():
+        scope.set_var(n, t.clone())
+    main._rng_run_counter = 0
+    for fn in cuda_build.COUNTED:
+        fn.launches = 0
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    t_all = time.perf_counter()
+    with pt.scope_guard(scope):
+        for f in feeds:
+            t0 = time.perf_counter()
+            out = exe.run(main, feed=f, fetch_list=fetch)
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(np.asarray(out[0]).reshape(-1)[0]))
+        train_s = time.perf_counter() - t_all
+        train_launches = {fn.__name__: fn.launches for fn in cuda_build.COUNTED if fn.launches}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        pools = _graph_pools(exe)
+        metrics = evaluate(exe, losses)
+        prof = profile_steps(torch, exe, main, feeds[-1], fetch, BOOK_PROFILED_STEPS)
+    exe.close()
+    del exe, scope
+    n = max(1, len(losses) // 10)
+    r = dict(chapter=ch.name, steps=len(feeds), batch=int(next(iter(feeds[0].values())).shape[0]),
+             parameters=int(sum(t.numel() for n_, t in init.items() if n_ in params)),
+             held_steps=BOOK_HELD_STEPS, held_fetch_bit_equal=fetch_equal,
+             held_state_differs=len(state_differs), held_state_differs_first=state_differs[:8],
+             launches_held=launches, expected_launches_per_step=expected,
+             step1_card_vs_cpu=dict(step1, loss_rel_limit=BOOK_LOSS_REL,
+                                    update_rel_l1_limit=BOOK_UPDATE_REL),
+             loss_first=losses[:3], loss_last=losses[-3:],
+             loss_mean_first_tenth=float(np.mean(losses[:n])),
+             loss_mean_last_tenth=float(np.mean(losses[-n:])),
+             metrics=metrics, train_seconds=train_s, train_launches=train_launches,
+             step_ms={"graph": statistics.median(times[2:]),
+                      "eager": statistics.median(eager_ms[1:])},
+             peak_gb=peak, graph_pool_gb=pools,
+             profiled_step=dict(wall_ms=prof["wall_ms"], device_busy_ms=prof["device_busy_ms"],
+                                idle_share=prof["device_idle_share"],
+                                device_activities=prof["device_activities_per_step"],
+                                by_kind=prof["by_kind"]))
+    emit("book_chapter", **r)
+
+    per_held = {k: v * BOOK_HELD_STEPS for k, v in expected.items()}
+    for path in ("graph", "eager"):
+        got = {k: launches[path].get(k, 0) for k in per_held}
+        if got != per_held:
+            raise SystemExit(f"{ch.name}: launches on the {path} path {got}, expected {per_held}")
+    want = {k: v * len(feeds) for k, v in expected.items()}
+    if {k: train_launches.get(k, 0) for k in want} != want:
+        raise SystemExit(f"{ch.name}: launches over the schedule {train_launches}, expected {want}")
+    if not (fetch_equal and not state_differs):
+        raise SystemExit(f"{ch.name}: graph and eager part over the first {BOOK_HELD_STEPS} "
+                         f"steps (fetches equal {fetch_equal}, state differs {state_differs[:8]})")
+    if not (step1["loss_rel_gap"] <= BOOK_LOSS_REL and step1["update_rel_l1_gap"] <= BOOK_UPDATE_REL):
+        raise SystemExit(f"{ch.name} step 1: card vs CPU {step1} exceeds the limits")
+    if not (np.all(np.isfinite(losses)) and r["loss_mean_last_tenth"] < r["loss_mean_first_tenth"]):
+        raise SystemExit(f"{ch.name}: the loss is not finite or does not fall: "
+                         f"{r['loss_mean_first_tenth']} -> {r['loss_mean_last_tenth']}")
+    bar = BOOK_BARS.get(ch.name)
+    if bar is not None:
+        value = metrics[bar[0]]
+        if not (value < bar[1] if bar[2] else value > bar[1]):
+            raise SystemExit(f"{ch.name}: {bar[0]} {value} misses the example's bar {bar[1]}")
+    return r
+
+
+def _viterbi_ties_on_card(torch):
+    """crf_decoding over a zero transition matrix and zero emissions (every
+    path ties) on the card and on the CPU: tag 0 everywhere on both, as
+    ``jnp.argmax``'s first maximum gives."""
+    from paddle_tpu_torch.core import registry
+    lens = torch.tensor([1, 20, 7, 13], dtype=torch.int64)
+    ins = {"Emission": [torch.zeros(4, 20, 6)], "Transition": [torch.zeros(8, 6)],
+           "Length": [lens]}
+    lower = registry.get("crf_decoding").lower
+    cpu = lower(registry.LowerCtx({}), ins)["ViterbiPath"][0]
+    card = lower(registry.LowerCtx({}, device="cuda"),
+                 {k: [t.cuda() for t in v] for k, v in ins.items()})["ViterbiPath"][0].cpu()
+    return bool(torch.equal(card, cpu) and not card.any())
+
+
+def _vgg_models(torch, pt, workdir):
+    """VGG-16 (1000 classes, ``is_test``) at 3 x VGG_HW x VGG_HW in f32 and in
+    bf16 (``fluid.data("img", ..., dtype)`` as bench_inference.py builds it),
+    saved with one set of weights: the f32 startup's draw rounded to bf16, so
+    that the two builds differ only in the arithmetic. dtype -> model dir."""
+    from paddle_tpu_torch.models import vgg
+    progs = {}
+    for dtype in ("float32", "bfloat16"):
+        main, startup = pt.Program(), pt.Program()
+        main.random_seed = startup.random_seed = SEED
+        with pt.unique_name.guard(), pt.program_guard(main, startup):
+            img = pt.data("img", [3, VGG_HW, VGG_HW], dtype)
+            progs[dtype] = (main, startup, vgg.vgg16(img, None, is_test=True))
+    shared = {n: t.to(torch.bfloat16)
+              for n, t in _startup_state(pt, *progs["float32"][:2]).items()}
+    dirs = {}
+    for dtype, (main, startup, logits) in progs.items():
+        exe, scope = pt.Executor(), pt.Scope()
+        with pt.scope_guard(scope):
+            exe.run(startup)
+            names = {n for n, v in main.global_block().vars.items() if v.persistable}
+            if names != set(shared):
+                raise SystemExit(f"vgg16 {dtype}: parameters {sorted(names ^ set(shared))} "
+                                 f"are not in both builds")
+            for n, t in shared.items():
+                scope.set_var(n, t.to(scope.find_var(n).dtype))
+            dirs[dtype] = os.path.join(workdir, f"vgg16_{dtype}")
+            pt.io.save_inference_model(dirs[dtype], ["img"], [logits], exe, main_program=main)
+        exe.close()
+    return dirs
+
+
+def _serve_ms(pred, req):
+    """Median latency of VGG_RUNS calls after the first (the capture on the
+    graph path, cuDNN's plans), and the last output."""
+    pred.run(req)
+    times = []
+    for _ in range(VGG_RUNS):
+        t0 = time.perf_counter()
+        out = pred.run(req)[0]
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def _vgg_serve(torch, pt, workdir):
+    """VGG-16 served by the Predictor at mb 1 and 32, f32 and bf16, each fed
+    the same images as a tensor already on the card (so that no host copy
+    sits in either timed window): graph and eager latency (median of
+    VGG_RUNS), the graph pools, graph against eager bit for bit, f32 mb 1
+    against the CPU Predictor, bf16 against f32 from the same weights and
+    images; and at mb 32 the latency with ``cudnn.deterministic`` off, the
+    flag that ``resolve_device`` sets for the training steps' sake."""
+    from paddle_tpu_torch.inference import Predictor
+    dirs = _vgg_models(torch, pt, workdir)
+    rng = np.random.RandomState(SEED + 16)
+    # rounded to bf16 once: both builds read the same values
+    images = {b: torch.from_numpy(rng.rand(b, 3, VGG_HW, VGG_HW).astype("float32"))
+              .to("cuda", torch.bfloat16) for b in VGG_BATCHES}
+    rows, graph_out = [], {}
+    for dtype, model_dir in dirs.items():
+        pred, eager = Predictor(model_dir), Predictor(model_dir)
+        eager._use_graphs = False
+        n_params = sum(int(np.prod(v.shape)) for v in pred._state.values())
+        for batch in VGG_BATCHES:
+            req = {"img": images[batch].to(getattr(torch, dtype))}
+            lat, outs = {}, {}
+            for name, p in (("graph", pred), ("eager", eager)):
+                lat[name], outs[name] = _serve_ms(p, req)
+            g = outs["graph"]
+            row = dict(dtype=dtype, batch=batch, params=n_params, feed="card tensor", ms=lat,
+                       images_per_s={k: batch / v * 1e3 for k, v in lat.items()},
+                       graph_vs_eager_bit_equal=bool(np.array_equal(g, outs["eager"])),
+                       finite=bool(np.isfinite(g).all()), shape=list(g.shape))
+            graph_out[dtype, batch] = g
+            if dtype == "float32" and batch == 1:
+                t0 = time.perf_counter()
+                c = Predictor(model_dir, device="cpu").run({"img": req["img"].cpu().numpy()})[0]
+                row.update(card_vs_cpu_max_abs=float(np.abs(g - c).max()),
+                           cpu_max_abs_logit=float(np.abs(c).max()),
+                           cpu_seconds=time.perf_counter() - t0)
+            elif dtype == "bfloat16":
+                f = graph_out["float32", batch]
+                row.update(bf16_vs_f32_rel_l2=float(np.linalg.norm(g - f) / np.linalg.norm(f)),
+                           bf16_vs_f32_max_abs=float(np.abs(g - f).max()),
+                           f32_max_abs_logit=float(np.abs(f).max()),
+                           bf16_vs_f32_rel_l2_limit=VGG_BF16_REL)
+            rows.append(row)
+        pools = [e.memory_bytes / 1e9 for e in pred._compiled.values()]
+        for row in rows:
+            if row["dtype"] == dtype:
+                row["graph_pools_gb"] = pools
+        del pred, eager
+        torch.cuda.empty_cache()
+        # the same requests at the largest batch with cuDNN free to pick any
+        # algorithm (the constructors set the flag; it is cleared after them,
+        # before the capture)
+        batch = max(VGG_BATCHES)
+        req = {"img": images[batch].to(getattr(torch, dtype))}
+        pred, eager = Predictor(model_dir), Predictor(model_dir)
+        eager._use_graphs = False
+        torch.backends.cudnn.deterministic = False
+        try:
+            off = {name: _serve_ms(p, req) for name, p in (("graph", pred), ("eager", eager))}
+        finally:
+            torch.backends.cudnn.deterministic = True
+        row = next(r for r in rows if r["dtype"] == dtype and r["batch"] == batch)
+        row["ms_cudnn_nondeterministic"] = {k: v[0] for k, v in off.items()}
+        row["cudnn_nondeterministic_bit_equal"] = bool(
+            np.array_equal(off["graph"][1], graph_out[dtype, batch]))
+        del pred, eager, off
+        shutil.rmtree(model_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    for row in rows:
+        emit("vgg16_serving", **row)
+    for row in rows:
+        if not (row["finite"] and row["shape"] == [row["batch"], 1000]
+                and row["graph_vs_eager_bit_equal"]):
+            raise SystemExit(f"vgg16 serving: {row}")
+        if "card_vs_cpu_max_abs" in row and not (
+                row["card_vs_cpu_max_abs"] <= VGG_CPU_REL * row["cpu_max_abs_logit"]):
+            raise SystemExit(f"vgg16 serving: card vs CPU {row}")
+        if "bf16_vs_f32_rel_l2" in row and not row["bf16_vs_f32_rel_l2"] <= VGG_BF16_REL:
+            raise SystemExit(f"vgg16 serving: bf16 vs f32 {row}")
+    return rows
+
+
+def _update_kind(program):
+    """The one optimizer op type of ``program`` that ``multi_tensor_update``
+    groups."""
+    kinds = {op.type for op in program.global_block().ops} & {"adam", "momentum", "sgd"}
+    if len(kinds) != 1:
+        raise SystemExit(f"expected one optimizer op type, found {sorted(kinds)}")
+    return kinds.pop()
+
+
+def book_setup(pt, workdir):
+    """``_book_chapters`` read from the port's loaders pointed at a fresh,
+    empty directory under ``workdir``, so that they serve their surrogates."""
+    data_home = tempfile.mkdtemp(prefix="data_home_", dir=workdir)
+    before = os.environ.get("PADDLE_TPU_DATA_HOME")
+    os.environ["PADDLE_TPU_DATA_HOME"] = data_home
+    try:
+        from paddle_tpu_torch import dataset as ds
+        ds.movielens._CACHE = None
+        ds.conll05._real_cache.clear()
+        return _book_chapters(pt, ds)
+    finally:
+        if before is None:
+            os.environ.pop("PADDLE_TPU_DATA_HOME", None)
+        else:
+            os.environ["PADDLE_TPU_DATA_HOME"] = before
+
+
+def book_update_lists(chapters):
+    """(chapter, main program, update kind) of each chapter, for phase 9."""
+    return [(ch.name, ch.main, _update_kind(ch.main)) for ch, *_ in chapters]
+
+
+def phase_book(torch, chapters, workdir):
+    """The book chapters (``book_setup``) and VGG-16 (phase 16)."""
+    import paddle_tpu_torch as pt
+    results = []
+    for ch, feeds, fetch, evaluate, cpu_batch in chapters:
+        results.append(_book_chapter(torch, pt, ch, feeds, fetch, evaluate, cpu_batch))
+        torch.cuda.empty_cache()
+    ties = _viterbi_ties_on_card(torch)
+    emit("viterbi_ties", card_equals_cpu_tag0=ties)
+    if not ties:
+        raise SystemExit("crf_decoding: the card breaks Viterbi ties otherwise than the CPU")
+    serving = _vgg_serve(torch, pt, workdir)
+    return results, serving
+
+
 def phase_main_path(torch, workdir):
     """The serving path (phase 4)."""
     from paddle_tpu_torch.inference import Predictor
@@ -2715,6 +3163,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 comparisons in full f32
     torch.backends.cudnn.allow_tf32 = False
 
+    import paddle_tpu_torch as pt
     from paddle_tpu_torch.models.bert import BertConfig
     from paddle_tpu_torch.tools.train_profile import (LR, MASKS_PER_SEQ, NMT_SEQ, SEQ,
                                                       build_deepfm, build_mnist, build_pretrain,
@@ -2736,16 +3185,23 @@ def main() -> int:
     phase_gemm_launch_breakdown(torch)
     bert_prog = build_pretrain(BertConfig(dtype="bfloat16", dropout=ATTN_DROPOUT), 2, SEQ,
                                MASKS_PER_SEQ, LR, SEED)[0]
+    scratch = os.path.join(REPO, "build")      # git-ignored
+    os.makedirs(scratch, exist_ok=True)
+    # phase 16's chapters, read now so that phase 9 holds their update lists
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
+    try:
+        chapters = book_setup(pt, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     mres = phase_multi_tensor(torch, [("bert-base", bert_prog, "adam"),
                                       ("resnet50", resnet[0], "momentum"),
                                       ("deepfm", build_deepfm(batch=2)[0], "adam"),
                                       ("mnist mlp", build_mnist(batch=2)[0], "sgd"),
                                       ("transformer-base",
                                        build_transformer(transformer_config(), 2, NMT_SEQ)[0],
-                                       "adam")])
+                                       "adam")] + book_update_lists(chapters))
+    mres, book_mres = mres[:5], mres[5:]
     del bert_prog
-    scratch = os.path.join(REPO, "build")      # git-ignored
-    os.makedirs(scratch, exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
     try:
         serve_launches, _ = phase_main_path(torch, workdir)
@@ -2770,6 +3226,12 @@ def main() -> int:
         e2e = phase_deepfm_files(torch, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
+    try:
+        book_chapters, vgg_serving = phase_book(torch, chapters, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    book_launches = {c["chapter"]: c["train_launches"] for c in book_chapters}
     e2e_launches = e2e["epochs"]["prefetch"]["multi_tensor_update_launches"]
     ctr_launches = ctr["launches"]["graph"]["multi_tensor_update"]
     mnist_launches = mnist["launches"]["graph"]["multi_tensor_update"]
@@ -2787,8 +3249,11 @@ def main() -> int:
     mt_bert, mt_res, mt_ctr, mt_mnist, mt_nmt = mres
     drop_case = dres[0]                        # [16384, 768] bf16, upscale_in_train, p 0.1
     nmt_drop_case = dres[2]                    # [64, 8, 64, 64] f32, upscale_in_train, p 0.1
+    vgg_drop_case = dres[3]                    # [128, 4096] f32, downgrade_in_infer, p 0.5
     drop_launches = {"captured_training": cap_bert["launches"]["graph"]["dropout_fwd"],
-                     "transformer_training": nmt_launches["dropout_fwd"]}
+                     "transformer_training": nmt_launches["dropout_fwd"],
+                     "image_classification_training":
+                         book_launches["image_classification"]["dropout_fwd"]}
     no_library = ("no single PyTorch call computes this function; matmul_ms is a bf16 "
                   "torch.matmul of the same shape, for context")
     print(smi.splitlines()[0] if smi else "nvidia-smi printed nothing", flush=True)
@@ -2847,7 +3312,10 @@ def main() -> int:
          "transformer": {**{k: nmt_drop_case[k] for k in keys},
                          "library": nmt_drop_case["library"],
                          "shape": ("[64, 8, 64, 64] f32, upscale_in_train, p 0.1 "
-                                   "(transformer-base's attention-probs dropout)")}},
+                                   "(transformer-base's attention-probs dropout)")},
+         "vgg16": {**{k: vgg_drop_case[k] for k in keys}, "library": vgg_drop_case["library"],
+                   "shape": ("[128, 4096] f32, downgrade_in_infer, p 0.5 (VGG-16's fc "
+                             "dropouts in the image chapter)")}},
         {"name": "multi_tensor_update", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/multi_tensor_update.cu", "in_place": True,
          "replaces": "paddle_tpu/compiler.py:94",
@@ -2856,14 +3324,17 @@ def main() -> int:
          "launches": (train_launches["multi_tensor_update"]
                       + resnet_launches["multi_tensor_update"]
                       + nmt_launches["multi_tensor_update"] + ctr_launches + mnist_launches
-                      + e2e_launches),
+                      + e2e_launches
+                      + sum(v["multi_tensor_update"] for v in book_launches.values())),
          "launches_by_path": {"training": train_launches["multi_tensor_update"],
                               "resnet50_training": resnet_launches["multi_tensor_update"],
                               "transformer_training": nmt_launches["multi_tensor_update"],
                               "deepfm_training": ctr_launches,
                               "mnist_training": mnist_launches,
-                              "deepfm_from_files": e2e_launches},
-         "max_abs_err": max(r["max_abs_err"] for r in mres),
+                              "deepfm_from_files": e2e_launches,
+                              **{f"book_{k}": v["multi_tensor_update"]
+                                 for k, v in book_launches.items()}},
+         "max_abs_err": max(r["max_abs_err"] for r in mres + book_mres),
          **{k: mt_bert[k] for k in keys}, "library": mt_bert["library"],
          "shape": (f"BERT-base's {mt_bert['tensors']} Adam parameters, "
                    f"{mt_bert['elements']} elements, bf16 and f32, f32 moments"),
@@ -2878,13 +3349,21 @@ def main() -> int:
                              f"{mt_mnist['elements']} elements, f32")},
          "transformer": {**{k: mt_nmt[k] for k in keys}, "library": mt_nmt["library"],
                          "shape": (f"transformer-base's {mt_nmt['tensors']} Adam parameters, "
-                                   f"{mt_nmt['elements']} elements, f32")}}],
+                                   f"{mt_nmt['elements']} elements, f32")},
+         "book": {r["model"]: {**{k: r[k] for k in keys}, "library": r["library"],
+                               "shape": (f"{r['tensors']} {r['kind']} parameters, "
+                                         f"{r['elements']} elements, "
+                                         f"{'/'.join(r['param_dtypes'])}")}
+                  for r in book_mres}}],
         "captured_step_ms": {
             name: {p: r["paths"][p]["step_ms_median_warm"] for p in ("graph", "eager")}
             for name, r in (("bert_base", cap_bert), ("resnet50", cap_resnet),
                             ("transformer_base", nmt_train), ("deepfm", ctr),
                             ("mnist_mlp", mnist))},
         "deepfm_serving_ms": {str(q["batch"]): q["ms"] for q in ctr["serving"]["requests"]},
+        "book_step_ms": {c["chapter"]: c["step_ms"] for c in book_chapters},
+        "book_metrics": {c["chapter"]: c["metrics"] for c in book_chapters},
+        "vgg16_serving_ms": {f"{r['dtype']} mb{r['batch']}": r["ms"] for r in vgg_serving},
         "deepfm_from_files_s": {k: e2e["epochs"][k]["seconds"] for k in e2e["epochs"]},
         "deepfm_parse_only_s": e2e["parse_only_s"],
         "transformer_decode_ms": {p: nmt_decode["paths"][p]["decode_ms_median_warm"]

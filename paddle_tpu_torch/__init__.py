@@ -33,5 +33,6 @@ from .dataset_factory import DatasetFactory, InMemoryDataset, QueueDataset  # no
 from . import reader  # noqa: F401
 from .reader import DataFeeder, DataLoader, PyReader  # noqa: F401
 from . import incubate  # noqa: F401
+from . import dataset  # noqa: F401
 
 __version__ = "0.1.0"

@@ -27,7 +27,17 @@ four accumulators for each and ``learning_rate_N``, and the ``auc`` op's
 two f32 histograms, persistable globals named by ``unique_name``
 (``auc_0.global_0`` for StatPos, ``auc_0.global_1`` for StatNeg); the MNIST
 MLP's is its fc weights and biases (``fc_N.w_0`` / ``fc_N.b_0``, ``SGD``
-keeps no accumulators) and ``learning_rate_N``.
+keeps no accumulators) and ``learning_rate_N``. The book chapters'
+(``tools/book.py``) carry the same way, with no code of their own: an
+LSTM's or GRU's gate weights are the ``unique_name``-named ``fc_N.w_0`` /
+``fc_N.b_0`` that its ``Scan`` body creates (global parameters, read by the
+``scan`` op as ``Static`` inputs), the CRF's transitions are ``crfw`` (its
+``ParamAttr`` name, which ``crf_decoding`` reads too), the recommender's
+title convolution is ``sequence_conv_N.w_0`` ([filter_size * D, F]) and
+``sequence_conv_N.b_0``, and VGG-16's state is ``conv2d_N.w_0`` /
+``conv2d_N.b_0``, ``batch_norm_N.w_0`` / ``.b_0`` (scale, shift) and
+``batch_norm_N.global_0`` / ``.global_1`` (the running mean and variance),
+with the fc layers and Adam's accumulators as above.
 """
 from __future__ import annotations
 

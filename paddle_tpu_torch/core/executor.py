@@ -89,7 +89,11 @@ def resolve_device(place=None) -> torch.device:
     On the card it also pins float32 precision: cuBLAS and cuDNN compute
     float32 products and convolutions in full float32 (TF32 off for both;
     cuDNN's own default is TF32), as the JAX package computes them on the
-    CPU. The flags are PyTorch's process-wide ones."""
+    CPU. And cuDNN picks deterministic algorithms: some of its convolution
+    gradients add partial sums with atomics, in no fixed order, and a
+    training step would not reproduce bit for bit as the JAX package's
+    does (VGG-16's f32 step, run twice from one state, parted from
+    itself). The flags are PyTorch's process-wide ones."""
     if isinstance(place, CPUPlace):
         return torch.device("cpu")
     if isinstance(place, CUDAPlace):
@@ -105,6 +109,7 @@ def resolve_device(place=None) -> torch.device:
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
     return dev
 
 
@@ -707,7 +712,7 @@ class Executor:
         if k == 0:
             raise NotImplementedError(
                 "fuse_steps=0 consults the JAX package's autotuner (tuning/), which is "
-                "not ported yet (ROADMAP queue 7); pass fuse_steps=K")
+                "not ported yet (ROADMAP queue 1, item 5); pass fuse_steps=K")
         prog = program or default_main_program()
         if k > 1:
             reason = capture_refusal(prog)

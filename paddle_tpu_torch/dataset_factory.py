@@ -506,5 +506,5 @@ class DatasetFactory:
         if datafeed_class == "StreamingDataset":
             raise NotImplementedError(
                 "StreamingDataset (paddle_tpu/data/streaming.py) is not ported yet: "
-                "ROADMAP queue 7, with resilience/")
+                "ROADMAP queue 1, item 4, with resilience/")
         raise ValueError(f"unknown dataset class {datafeed_class!r}")

@@ -1,7 +1,7 @@
 """Core NN layers DSL (the port's copy of the functions of
 ``paddle_tpu/layers/nn.py`` that BERT pretraining, ResNet training, the
-Transformer's training and beam-search decode, DeepFM, the MNIST MLP and
-the clip classes call).
+Transformer's training and beam-search decode, DeepFM, the MNIST MLP, the
+clip classes, VGG-16 and the book chapters call).
 
 Each function builds ops into the default main program and parameters into
 the default startup program, with the same op types, slots, attrs and names
@@ -261,6 +261,7 @@ def _unary(op_type):
 
 
 sigmoid = _unary("sigmoid")
+tanh = _unary("tanh")
 square = _unary("square")
 sqrt = _unary("sqrt")
 
@@ -420,6 +421,24 @@ def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None,
     helper.append_op("sigmoid_cross_entropy_with_logits",
                      inputs={"X": [x], "Label": [label]}, outputs={"Out": [out]},
                      attrs={"ignore_index": ignore_index, "normalize": normalize})
+    return _var(helper, out)
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost")
+    out = _out(helper, input.dtype)
+    helper.append_op("square_error_cost",
+                     inputs={"X": [input], "Y": [label]}, outputs={"Out": [out]})
+    return _var(helper, out)
+
+
+def cos_sim(X, Y):
+    helper = LayerHelper("cos_sim")
+    out = _out(helper, X.dtype)
+    xn = _out(helper, X.dtype, stop_gradient=True)
+    yn = _out(helper, X.dtype, stop_gradient=True)
+    helper.append_op("cos_sim", inputs={"X": [X], "Y": [Y]},
+                     outputs={"Out": [out], "XNorm": [xn], "YNorm": [yn]})
     return _var(helper, out)
 
 

@@ -1,5 +1,6 @@
 """Tensor layers (the port's copy of ``cast``, ``concat``, ``sums``,
-``create_parameter``, ``fill_constant`` and ``assign`` from
+``create_parameter``, ``fill_constant``, ``fill_constant_batch_size_like``
+and ``assign`` from
 ``paddle_tpu/layers/tensor.py``)."""
 from __future__ import annotations
 
@@ -26,12 +27,18 @@ def concat(input, axis=0, name=None):
     return helper.main_program.current_block().var(out.name)
 
 
-def sums(input, out=None):
-    helper = LayerHelper("sums")
+def _append_sum(layer, xs, out=None):
+    """One ``sum`` op over the list ``xs``; ``layer`` names the output
+    variable (``sums`` and ``extras.sum`` differ only in that name)."""
+    helper = LayerHelper(layer)
     if out is None:
-        out = helper.create_variable_for_type_inference(input[0].dtype)
-    helper.append_op("sum", inputs={"X": list(input)}, outputs={"Out": [out]})
+        out = helper.create_variable_for_type_inference(xs[0].dtype)
+    helper.append_op("sum", inputs={"X": list(xs)}, outputs={"Out": [out]})
     return helper.main_program.current_block().var(out.name)
+
+
+def sums(input, out=None):
+    return _append_sum("sums", input, out)
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -50,6 +57,19 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None, name=None):
     helper.append_op("fill_constant", outputs={"Out": [out]},
                      attrs={"shape": [int(s) for s in shape],
                             "dtype": convert_dtype(dtype), "value": float(value)})
+    return helper.main_program.current_block().var(out.name)
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value, input_dim_idx=0,
+                                  output_dim_idx=0):
+    helper = LayerHelper("fill_constant_batch_size_like")
+    out = helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    helper.append_op("fill_constant_batch_size_like",
+                     inputs={"Input": [input]}, outputs={"Out": [out]},
+                     attrs={"shape": [int(s) for s in shape],
+                            "dtype": convert_dtype(dtype), "value": float(value),
+                            "input_dim_idx": input_dim_idx,
+                            "output_dim_idx": output_dim_idx})
     return helper.main_program.current_block().var(out.name)
 
 

@@ -17,3 +17,5 @@ from . import multi_tensor     # noqa: F401
 from . import reduce_ops       # noqa: F401
 from . import beam_ops         # noqa: F401
 from . import control_flow     # noqa: F401
+from . import sequence_ops     # noqa: F401
+from . import ctc_crf_ops      # noqa: F401

@@ -1,5 +1,6 @@
-"""Creation, casting, copy, sum, clip, one-hot and comparison ops (the
-port's copy of part of ``paddle_tpu/ops/basic.py``).
+"""Creation (``fill_constant``, ``fill_constant_batch_size_like``, the
+random fills, ``assign_value``), casting, copy, sum, clip, one-hot and
+comparison ops (the port's copy of part of ``paddle_tpu/ops/basic.py``).
 
 New tensors go on ``ctx.device`` (the meta device under shape inference).
 Random ops draw from the op's ``torch.Generator``, seeded on the host; the
@@ -25,6 +26,18 @@ def _shape(ctx):
 @register("fill_constant", grad=None)
 def fill_constant(ctx, ins):
     return {"Out": [torch.full(_shape(ctx), ctx.attr("value", 0.0),
+                               dtype=torch_dtype(ctx.attr("dtype", "float32")),
+                               device=ctx.device)]}
+
+
+@register("fill_constant_batch_size_like", grad=None, nondiff_inputs=("Input",))
+def fill_constant_batch_size_like(ctx, ins):
+    """A constant of ``shape`` whose dim ``output_dim_idx`` is Input's dim
+    ``input_dim_idx`` (the batch): filled on the device, nothing read."""
+    x = ins["Input"][0]
+    shape = [int(s) for s in ctx.attr("shape", [])]
+    shape[ctx.attr("output_dim_idx", 0)] = x.shape[ctx.attr("input_dim_idx", 0)]
+    return {"Out": [torch.full(tuple(shape), ctx.attr("value", 0.0),
                                dtype=torch_dtype(ctx.attr("dtype", "float32")),
                                device=ctx.device)]}
 

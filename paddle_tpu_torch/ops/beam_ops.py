@@ -8,7 +8,8 @@ its column by a mask against the step tensor, never by ``int(t)``.
 
 Ties. ``jax.lax.top_k`` gives the lower index first among equal values and
 ``jnp.argsort`` is stable; ``torch.topk`` promises no order for ties on the
-card. So ``beam_search`` takes its top K from a stable descending sort, and
+card. So ``beam_search`` takes its top K from a stable descending sort
+(``tensor_ops.top_k_lower_first``, as the ``top_k`` op does), and
 ``beam_search_decode`` sorts with ``stable=True``. Ties are common: at step
 0 every beam but the first starts at -1e9, and in float32 -1e9 + logp
 rounds to -1e9 exactly.
@@ -23,6 +24,7 @@ import torch
 
 from ..core.registry import EMPTY_VAR, register
 from ..framework import convert_dtype
+from .tensor_ops import top_k_lower_first
 
 _NEG = -1e9
 
@@ -63,13 +65,6 @@ def candidates(pre_scores, scores, finished, end_id):
     end = torch.arange(V, device=cand.device) == end_id
     cand = torch.where(end, frozen[:, :, None], cand)
     return cand.reshape(B, K * V)
-
-
-def top_k_lower_first(x, k):
-    """(values, indices) of the ``k`` largest entries of each row of ``x``,
-    the lower index first among equal values, as ``jax.lax.top_k``."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
 
 
 @register("beam_search", grad=None, infer_shape=_beam_search_infer,

@@ -1,7 +1,7 @@
 """Matmuls, softmax, cross-entropy and mean (the port's copy of ``matmul``,
 ``mul``, ``softmax``, ``log_softmax``, ``softmax_with_cross_entropy``,
-``cross_entropy``, ``sigmoid_cross_entropy_with_logits`` and ``mean`` from
-``paddle_tpu/ops/math_ops.py``).
+``cross_entropy``, ``sigmoid_cross_entropy_with_logits``, ``mean``,
+``square_error_cost`` and ``cos_sim`` from ``paddle_tpu/ops/math_ops.py``).
 
 The products stay ``torch.matmul``, as the JAX package leaves them to XLA.
 """
@@ -128,3 +128,20 @@ def sigmoid_cross_entropy_with_logits(ctx, ins):
 @register("mean")
 def mean(ctx, ins):
     return {"Out": [ins["X"][0].mean().reshape((1,))]}
+
+
+@register("square_error_cost")
+def square_error_cost(ctx, ins):
+    d = ins["X"][0] - ins["Y"][0]
+    return {"Out": [d * d]}
+
+
+@register("cos_sim")
+def cos_sim(ctx, ins):
+    """Cosine of X and Y along the last axis, [..., 1], with the norms
+    XNorm and YNorm; no epsilon, as the JAX lowering has none."""
+    x, y = ins["X"][0], ins["Y"][0]
+    xn = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+    yn = torch.sqrt(torch.sum(y * y, dim=-1, keepdim=True))
+    out = torch.sum(x * y, dim=-1, keepdim=True) / (xn * yn)
+    return {"Out": [out], "XNorm": [xn], "YNorm": [yn]}

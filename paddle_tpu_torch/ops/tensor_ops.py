@@ -3,6 +3,9 @@
 transpose2, unsqueeze2, concat, split, slice, gather, top_k and the
 lookup_table_v2 embedding.
 
+``top_k`` puts the lower index first among equal values, as
+``jax.lax.top_k`` does (``top_k_lower_first``, which the beam ops share).
+
 ``gather`` and ``lookup_table_v2`` read rows by index. On the card their
 gradient sums the cotangents of repeated indices in a fixed order
 (``RowGather``), so a training step reproduces bit for bit, as the JAX
@@ -192,7 +195,17 @@ def gather(ctx, ins):
                                 + tuple(x.shape[axis + 1:]))]}
 
 
+def top_k_lower_first(x, k):
+    """(values, indices) of the ``k`` largest entries of each row of ``x``,
+    the lower index first among equal values, as ``jax.lax.top_k``
+    (``torch.topk`` promises no order among ties): the first ``k`` of a
+    stable descending sort. Its gradient lands on the entries the indices
+    name."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 @register("top_k", nondiff_outputs=("Indices",))
 def top_k(ctx, ins):
-    vals, idx = torch.topk(ins["X"][0], ctx.attr("k", 1), dim=-1)
+    vals, idx = top_k_lower_first(ins["X"][0], ctx.attr("k", 1))
     return {"Out": [vals], "Indices": [idx]}

@@ -68,10 +68,11 @@ def bert_feed(rng, B, S, vocab):
 
 
 def profile_shape(torch, pred, feed, n_requests):
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+    from .train_profile import traced
     pred.run(feed)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with traced([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_requests):
             pred.run(feed)

@@ -48,10 +48,17 @@ with ``SGD(0.01)``, random images and labels from seed 0.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 
 import numpy as np
+
+#: idle seconds inside a profiler window before its work starts and after it
+#: ends: a window whose device work starts as it opens can come back missing
+#: its first records, or all of them (``python3 -m
+#: paddle_tpu_torch.tools.trace_probe`` counts both ways)
+TRACE_MARGIN_S = 0.05
 
 #: bench.py::bench_bert_base's pretraining configuration (BATCH and SEED are
 #: bench_resnet50's too)
@@ -287,13 +294,25 @@ def _kind(name):
                 "other (elementwise, reductions)")
 
 
+@contextlib.contextmanager
+def traced(activities, margin=TRACE_MARGIN_S):
+    """``torch.profiler.profile(activities=...)`` with ``margin`` idle
+    seconds inside the window on either side of the body; the body waits
+    for its device work before it ends."""
+    from torch.profiler import profile
+    with profile(activities=activities) as prof:
+        time.sleep(margin)
+        yield prof
+        time.sleep(margin)
+
+
 def profile_steps(torch, exe, main, feed, total, n_steps):
     """Trace ``n_steps`` runs of ``main`` fetching ``total`` (a variable or a
     list of them, as the runs before fetched, so that the executor's cached
     graph is the one replayed); device time by activity name."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     fetch = list(total) if isinstance(total, (list, tuple)) else [total]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with traced([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
             exe.run(main, feed=feed, fetch_list=fetch)     # numpy: the step is done

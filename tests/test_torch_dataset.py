@@ -259,7 +259,7 @@ def test_a_malformed_line_raises_with_its_position(tmp_path):
 
 
 def test_the_factory_names_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
         pt.DatasetFactory().create_dataset("StreamingDataset")
     with pytest.raises(ValueError, match="unknown dataset class"):
         pt.DatasetFactory().create_dataset("Nope")

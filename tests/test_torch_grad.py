@@ -54,6 +54,11 @@ CASES = {
     "gather": ("gather", {"X": [_r(12, 8)], "Index": [_ids((7, 1), 12, seed=5)]},
                {"axis": 0}, ("Out",), TOL),
     "top_k": ("top_k", {"X": [_r(5, 9)]}, {"k": 2}, ("Out",), TOL),
+    # ties: Out's gradient lands on the entries Indices names, the lower first
+    "top_k-ties": ("top_k", {"X": [np.array([[1, 3, 3, 2, 3]], "float32")]}, {"k": 2},
+                   ("Out",), TOL),
+    "top_k-ties-64x50": ("top_k", {"X": [_ids((64, 50), 3, seed=7).astype("float32")]},
+                         {"k": 5}, ("Out",), TOL),
     "assign": ("assign", {"X": [_r(3, 4)]}, {}, ("Out",), TOL),
     "sum": ("sum", {"X": [_r(3, 4), _r(3, 4, seed=9), _r(3, 4, seed=10)]}, {}, ("Out",), TOL),
     "tanh": ("tanh", {"X": [_r(4, 6, scale=2.0)]}, {}, ("Out",), TOL),

@@ -272,6 +272,7 @@ def test_the_card_runs_float32_in_full_precision(monkeypatch):
     from paddle_tpu_torch.core.executor import resolve_device
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)   # restored after
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert resolve_device(None) == torch.device("cuda", 0)
     assert torch.backends.cuda.matmul.allow_tf32 is False
@@ -279,3 +280,17 @@ def test_the_card_runs_float32_in_full_precision(monkeypatch):
     torch.backends.cudnn.allow_tf32 = True
     assert resolve_device(pt.CPUPlace()) == torch.device("cpu")
     assert torch.backends.cudnn.allow_tf32 is True      # the CPU leaves them alone
+
+
+def test_the_card_picks_deterministic_convolutions(monkeypatch):
+    """resolve_device also has cuDNN pick deterministic algorithms when it
+    picks the card (some convolution gradients add with atomics
+    otherwise, and a step would not reproduce); the CPU leaves the flag
+    alone."""
+    from paddle_tpu_torch.core.executor import resolve_device
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device(pt.CPUPlace()) == torch.device("cpu")
+    assert torch.backends.cudnn.deterministic is False
+    assert resolve_device(None) == torch.device("cuda", 0)
+    assert torch.backends.cudnn.deterministic is True

@@ -127,6 +127,11 @@ CASES = {
     "gather": ("gather", {"X": [_r(12, 8)], "Index": [_ids((7, 1), 12, seed=5)]},
                {"axis": 0}, "float32", None),
     "top_k": ("top_k", {"X": [_r(5, 9)]}, {"k": 3}, "float32", None),
+    # ties: the lower index first, as jax.lax.top_k ([[1, 3, 3, 2, 3]], k 2 -> [1, 2])
+    "top_k-ties": ("top_k", {"X": [np.array([[1, 3, 3, 2, 3]], "float32")]}, {"k": 2},
+                   "float32", None),
+    "top_k-ties-64x50": ("top_k", {"X": [_ids((64, 50), 3, seed=7).astype("float32")]},
+                         {"k": 5}, "float32", None),
     "accuracy": ("accuracy", {"Indices": [_ids((8, 2), 3, seed=4)],
                               "Label": [_ids((8, 1), 3, seed=6)]}, {}, "float32", None),
     "assign": ("assign", {"X": [_r(3, 4)]}, {}, "float32", None),
@@ -221,3 +226,35 @@ def test_random_ops_draw_from_the_run_counter():
     g = treg.get("gaussian_random").lower
     a, b, c = (g(ctx(n), {})["Out"][0] for n in (0, 1, 0))
     assert torch.equal(a, c) and not torch.equal(a, b)
+
+
+def test_top_k_ties_take_the_lower_index_first():
+    x = torch.tensor([[1.0, 3.0, 3.0, 2.0, 3.0]])
+    outs = treg.get("top_k").lower(treg.LowerCtx({"k": 2}), {"X": [x]})
+    assert outs["Indices"][0].tolist() == [[1, 2]]
+    assert outs["Out"][0].tolist() == [[3.0, 3.0]]
+
+
+def test_accuracy_over_tied_scores_equals_jax():
+    """``layers.accuracy`` over scores that tie (one-hot rows of a
+    saturated softmax, many zeros, repeated maxima): top-1 and top-2 over
+    the port's program equal the JAX package's."""
+    import paddle_tpu as fluid
+
+    rng = np.random.RandomState(3)
+    scores = rng.randint(0, 3, (64, 10)).astype("float32")
+    label = rng.randint(0, 10, (64, 1)).astype("int64")
+    got = {}
+    for name, pkg, place in (("jax", fluid, None), ("port", paddle_tpu_torch,
+                                                    paddle_tpu_torch.CPUPlace())):
+        main, startup = pkg.Program(), pkg.Program()
+        with pkg.unique_name.guard(), pkg.program_guard(main, startup):
+            x = pkg.data("x", [10], "float32")
+            y = pkg.data("y", [1], "int64")
+            accs = [pkg.layers.accuracy(x, y, k=k) for k in (1, 2)]
+        exe = pkg.Executor() if place is None else pkg.Executor(place)
+        with pkg.scope_guard(pkg.Scope()):
+            exe.run(startup)
+            got[name] = [float(np.asarray(a).reshape(-1)[0]) for a in
+                         exe.run(main, feed={"x": scores, "y": label}, fetch_list=accs)]
+    assert got["port"] == got["jax"], got

@@ -3,8 +3,10 @@
 Transformer NMT model and beam-search decode with it, train and serve
 DeepFM (also from MultiSlot files through ``train_from_dataset``) and
 train the MNIST MLP, train the book chapters (``examples/``) and serve
-VGG-16 through the PyTorch/CUDA port on one NVIDIA GPU, and hold its CUDA
-kernels against their plain PyTorch versions.
+VGG-16, train BERT-base and transformer-base under their published
+learning-rate schedules and run every dense op case through the
+PyTorch/CUDA port on one NVIDIA GPU, and hold its CUDA kernels against
+their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -198,6 +200,29 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    graph pools, graph against eager bit for bit, f32 mb 1 against the CPU
    Predictor, bf16 against f32, and at mb 32 the latency with
    ``cudnn.deterministic`` off;
+17. (run after phase 16) training under a learning-rate schedule:
+   BERT-base at phase 11's configuration under BERT's published schedule
+   (``linear_lr_warmup(polynomial_decay(1e-4, 1e6, 0), 10000, 0, 1e-4)``,
+   the step counter preset to 9994, so that its 4 steps cross the end of
+   the warmup; nested, the schedule advances the counter by 2 a step, as
+   in the JAX package), and transformer-base at phase 13's under
+   ``noam_decay(512, 4000)`` (the counter at 3997: its steps cross the
+   peak). For each, 4 steps on the eager executor, on the graph executor
+   and in one ``run_fused`` call, from one state: the learning rate, the
+   counter and the loss of every step and every state tensor bit for bit
+   across the three, the learning rate against its float64 closed form
+   (``train_profile.bert_schedule_lr`` / ``noam_schedule_lr``), the
+   launches of each path (K1-fwd, K1-bwd, ``dropout``,
+   ``multi_tensor_update``), the multi-tensor work tables each path built,
+   step 1 against the CPU port at batch 2 (phase 5's and phase 13's
+   limits), and the step ms, device busy ms and activities beside the
+   constant-LR step of phases 11 and 13. Then every case of
+   ``paddle_tpu_torch/tools/op_cases.py`` (the dense op families: each
+   activation, elementwise, reduction, basic, tensor and math op type) on
+   the card against the CPU port, forward and gradient, with the case's
+   tolerance; each case whose gradient or update adds rows by index run
+   twice on the card, bit for bit; the random ops held by their
+   statistics;
 12. the kernels line, then the result line.
 
 Exits non-zero, with no result line, when there is no CUDA card, when the
@@ -2859,6 +2884,10 @@ def _book_chapter(torch, pt, ch, feeds, fetch, evaluate, cpu_batch):
                                 device_activities=prof["device_activities_per_step"],
                                 by_kind=prof["by_kind"]))
     emit("book_chapter", **r)
+    # the window's device records by name: what a trace late in a full run drops
+    # is read against a run of this phase alone (ROADMAP fault 3.2)
+    emit("book_trace_records", chapter=ch.name, steps=BOOK_PROFILED_STEPS,
+         records=prof["device_records"])
 
     per_held = {k: v * BOOK_HELD_STEPS for k, v in expected.items()}
     for path in ("graph", "eager"):
@@ -3072,6 +3101,295 @@ def phase_book(torch, chapters, workdir):
     return results, serving
 
 
+# Phase 17: training under a learning-rate schedule, and the dense op cases on the card.
+#: steps of each path (eager, graph, run_fused), each from the same preset counter
+SCHED_STEPS = FUSED_K
+#: the step counter before the first step. BERT's nested schedule advances it by 2
+#: a run and its warmup (10,000 steps) reads counter + 2, so the four steps read
+#: 9996, 9998 (warmup), 10000, 10002 (decay); noam reads counter + 1: 3998 to 4001,
+#: across its peak at 4000
+BERT_COUNTER0, NOAM_COUNTER0 = 9994, 3997
+# The fetched learning rate against its float64 closed form (train_profile's
+# bert_schedule_lr, noam_schedule_lr). The card computes it in f32 through at
+# most five roundings (the counter's cast is exact; a divide or a product by a
+# rounded constant, 1 - x, a power, a scale), each within 2^-24 of the value,
+# and powf within 2 ulps: 1e-6 relative (about 16 f32 ulps) bounds it.
+SCHED_LR_REL = 1e-6
+LR_COUNTER = "@LR_DECAY_COUNTER@"
+
+
+def _lr_var(main):
+    """The learning-rate variable the update ops read."""
+    return next(op for op in main.global_block().ops
+                if op.type == "adam").input("LearningRate")[0]
+
+
+def _scheduled_model(torch, pt, label, main, startup, feed, loss, expected, counter0,
+                     per_run, closed_form, constant):
+    """One model under a schedule: SCHED_STEPS steps on the eager executor,
+    on the graph executor (warm-up, capture, replays) and in one
+    ``run_fused`` call, each from the startup state with the counter at
+    ``counter0``: the learning rate, the counter and the loss of every step
+    and every state tensor, bit for bit across the three; the learning rate
+    against ``closed_form(counter before the step)``; the counter advancing
+    ``per_run`` a run; the launches of each path; the multi-tensor work
+    tables each path built. Then the graph and eager step timed and
+    profiled beside ``constant`` (the constant-LR program's timed paths,
+    measured earlier in this call)."""
+    from paddle_tpu_torch.core import cuda_build
+    from paddle_tpu_torch.ops import multi_tensor
+    init = _startup_state(pt, main, startup)
+    init[LR_COUNTER] = torch.full((1,), counter0, dtype=torch.int64, device="cuda")
+    fetch = [loss, _lr_var(main), LR_COUNTER]
+    runs, launches, tables = {}, {}, {}
+    for path in ("eager", "graph", "fused"):
+        exe = pt.Executor()
+        exe._use_graphs = path != "eager"
+        for fn in cuda_build.COUNTED:
+            fn.launches = 0
+        built = multi_tensor.tables_built
+        scope = pt.Scope()
+        for n, t in init.items():
+            scope.set_var(n, t.clone())
+        main._rng_run_counter = 0
+        with pt.scope_guard(scope):
+            if path == "fused":
+                stacked = exe.run_fused(main, feeds=[feed] * SCHED_STEPS, fetch_list=fetch)
+                outs = [[f[i].clone() for f in stacked] for i in range(SCHED_STEPS)]
+            else:
+                outs = [[f.clone() for f in exe.run(main, feed=feed, fetch_list=fetch,
+                                                    return_numpy=False)]
+                        for _ in range(SCHED_STEPS)]
+        torch.cuda.synchronize()
+        launches[path] = {fn.__name__: fn.launches for fn in cuda_build.COUNTED if fn.launches}
+        tables[path] = multi_tensor.tables_built - built
+        runs[path] = (outs, {n: scope.find_var(n).clone() for n in init})
+        exe.close()
+        del exe, scope
+    (e_outs, e_state) = runs["eager"]
+    lrs = {p: [float(o[1].reshape(-1)[0]) for o in runs[p][0]] for p in runs}
+    counters = {p: [int(o[2].reshape(-1)[0]) for o in runs[p][0]] for p in runs}
+    losses = {p: [float(o[0].float().reshape(-1)[0]) for o in runs[p][0]] for p in runs}
+    want_counters = [counter0 + per_run * (i + 1) for i in range(SCHED_STEPS)]
+    closed = [closed_form(counter0 + per_run * i) for i in range(SCHED_STEPS)]
+    lr_rel = max(abs(a - b) / abs(b) for a, b in zip(lrs["graph"], closed))
+    across = {p: dict(lr_bit_equal=all(torch.equal(a[1], b[1]) for a, b in zip(runs[p][0], e_outs)),
+                      loss_bit_equal=all(torch.equal(a[0], b[0])
+                                         for a, b in zip(runs[p][0], e_outs)),
+                      state_differs=len(_state_equal(torch, runs[p][1], e_state)))
+              for p in ("graph", "fused")}
+    final_counter = {p: int(runs[p][1][LR_COUNTER].reshape(-1)[0]) for p in runs}
+    del runs, e_outs, e_state
+    paths = {("graph" if g else "eager"): _timed_path(torch, pt, main, feed, loss, init, g, True)
+             for g in (True, False)}
+    r = dict(model=label, steps=SCHED_STEPS, counter0=counter0, counter_per_run=per_run,
+             lr=lrs, lr_closed_form=closed, lr_rel_gap=lr_rel, lr_rel_limit=SCHED_LR_REL,
+             counters=counters, expected_counters=want_counters, final_counter=final_counter,
+             losses=losses, across_paths=across, launches=launches,
+             expected_launches_per_step=expected, work_tables_built=tables,
+             step_ms={p: paths[p]["step_ms_median_warm"] for p in paths},
+             constant_lr_step_ms={p: constant[p]["step_ms_median_warm"] for p in constant},
+             device_busy_ms={p: paths[p]["device_busy_ms"] for p in paths},
+             constant_lr_device_busy_ms={p: constant[p]["device_busy_ms"] for p in constant},
+             device_activities_per_step={p: paths[p]["device_activities_per_step"]
+                                         for p in paths},
+             constant_lr_device_activities_per_step={
+                 p: constant[p]["device_activities_per_step"] for p in constant},
+             idle_share_unprofiled={p: paths[p]["idle_share_unprofiled"] for p in paths},
+             paths=paths)
+    emit("scheduled_training", **{k: v for k, v in r.items() if k != "paths"})
+    per_step = {k: v * SCHED_STEPS for k, v in expected.items()}
+    for path, got in launches.items():
+        if {k: got.get(k, 0) for k in per_step} != per_step:
+            raise SystemExit(f"{label}: launches on the {path} path {got}, expected {per_step}")
+    if not all(np.isfinite(losses["graph"])):
+        raise SystemExit(f"{label}: losses not finite: {losses['graph']}")
+    for p, a in across.items():
+        if not (a["lr_bit_equal"] and a["loss_bit_equal"] and a["state_differs"] == 0):
+            raise SystemExit(f"{label}: the {p} path parts from the eager one: {a}")
+    if any(c != want_counters for c in counters.values()) or \
+            any(c != want_counters[-1] for c in final_counter.values()):
+        raise SystemExit(f"{label}: counters {counters} / {final_counter}, expected "
+                         f"{want_counters}")
+    if not lr_rel <= SCHED_LR_REL:
+        raise SystemExit(f"{label}: learning rates {lrs['graph']} part from the closed form "
+                         f"{closed} by {lr_rel} relative (limit {SCHED_LR_REL})")
+    return r
+
+
+def _scheduled_step1_vs_cpu(torch, pt, prog, tot, params, init, feed, loss_rel, update_rel,
+                            counter0):
+    """Step 1 of a scheduled program at batch 2 on the card against the CPU
+    port, from the same weights and counter."""
+    init = dict(init, **{LR_COUNTER: torch.full((1,), counter0, dtype=torch.int64)})
+    t0 = time.perf_counter()
+    cpu = _step_once(torch, pt, prog, tot, params, {n: t.cpu() for n, t in init.items()},
+                     feed, "cpu")
+    cpu_s = time.perf_counter() - t0
+    card = _step_once(torch, pt, prog, tot, params, init, feed, "cuda")
+    gaps = dict(_gaps(card, cpu), loss_rel_limit=loss_rel, update_rel_l1_limit=update_rel,
+                cpu_seconds=cpu_s)
+    if not (gaps["loss_rel_gap"] <= loss_rel and gaps["update_rel_l1_gap"] <= update_rel):
+        raise SystemExit(f"scheduled step 1: card vs CPU {gaps} exceeds the limits")
+    return gaps
+
+
+def _op_cases_on_card(torch):
+    """Every case of ``tools/op_cases.py`` on the card against the CPU port,
+    forward and (where the op is differentiable) the generic grad, with the
+    case's tolerances; each case whose gradient or update adds rows by
+    index twice on the card, bit for bit; the random ops by their
+    statistics."""
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.tools import op_cases
+
+    def compare(card, cpu, tol, what):
+        worst = 0.0
+        for slot, vals in cpu.items():
+            for i, b in enumerate(vals):
+                if b is None:
+                    continue
+                a = op_cases.numpy_outs({"x": [card[slot][i]]})["x"][0]
+                b = op_cases.numpy_outs({"x": [b]})["x"][0]
+                if a.shape != b.shape or a.dtype != b.dtype:
+                    raise SystemExit(f"op case {what} {slot}: card {a.shape} {a.dtype}, "
+                                     f"CPU {b.shape} {b.dtype}")
+                a64, b64 = a.astype(np.float64), b.astype(np.float64)
+                if not np.allclose(a64, b64, equal_nan=True, **tol):
+                    raise SystemExit(f"op case {what} {slot}: the card parts from the CPU port "
+                                     f"by {np.nanmax(np.abs(a64 - b64))} (tolerance {tol})")
+                if a.size:
+                    worst = max(worst, float(np.nanmax(np.abs(a64 - b64))))
+        return worst
+
+    def bit_equal(a, b):
+        return all(x is None or torch.equal(x, y) for s in a for x, y in zip(a[s], b[s]))
+
+    fwd_err, grad_err, repeats, n_grads = 0.0, 0.0, [], 0
+    for name, c in sorted(op_cases.CASES.items()):
+        cpu = op_cases.forward(name, "cpu")
+        card = op_cases.forward(name, "cuda")
+        fwd_err = max(fwd_err, compare(card, cpu, c.tol, name))
+        if c.scatters and not bit_equal(card, op_cases.forward(name, "cuda")):
+            raise SystemExit(f"op case {name}: two forwards on the card differ")
+        if not c.grad:
+            continue
+        g_cpu = op_cases.grad(name, "cpu", cpu)
+        g_card = op_cases.grad(name, "cuda", cpu)
+        grad_err = max(grad_err, compare(g_card, g_cpu, c.grad_tol, name + " grad"))
+        n_grads += 1
+        if c.scatters:
+            if not bit_equal(g_card, op_cases.grad(name, "cuda", cpu)):
+                raise SystemExit(f"op case {name}: two gradients on the card differ")
+            repeats.append(name)
+    randoms = {}
+    for op, (attrs, dtype) in sorted(op_cases.RANDOM_CASES.items()):
+        out = registry.get(op).lower(registry.LowerCtx(dict(attrs), "cuda", seed=SEED,
+                                                       counter=1), {})["Out"][0]
+        why = op_cases.random_stats(op, out.cpu().numpy())
+        if why is not None or str(out.dtype) != f"torch.{dtype}":
+            raise SystemExit(f"{op} on the card: {why or out.dtype}")
+        randoms[op] = dict(mean=float(out.double().mean()), std=float(out.double().std()))
+    ops = sorted({c.op for c in op_cases.CASES.values()} | set(op_cases.RANDOM_CASES))
+    r = dict(cases=len(op_cases.CASES), op_types=len(ops), grads=n_grads,
+             forward_max_abs_err=fwd_err, grad_max_abs_err=grad_err,
+             repeated_bit_for_bit=repeats, random=randoms)
+    emit("op_cases_on_card", **r)
+    return r
+
+
+def _constant_paths(torch, pt, build):
+    """The graph and eager step of the constant-LR program ``build()``
+    returns (main, startup, loss, feed), timed and profiled as
+    ``_timed_path`` times them."""
+    main, startup, loss, feed = build()
+    init = _startup_state(pt, main, startup)
+    paths = {("graph" if g else "eager"): _timed_path(torch, pt, main, feed, loss, init, g, True)
+             for g in (True, False)}
+    del main, startup, init
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_scheduled_training(torch, constant_bert=None, constant_nmt=None):
+    """Phase 17: BERT-base pretraining under BERT's schedule and
+    transformer-base under ``noam_decay(512, 4000)``, each beside its
+    constant-LR step of this call (``constant_*``: the timed paths of phases
+    11 and 13; timed here when not given, for a run of this phase alone);
+    then every dense op case on the card."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.tools.train_profile import (
+        BATCH, LR, MASKS_PER_SEQ, NMT_BATCH, NMT_LR, NMT_SEQ, SEQ, bert_schedule,
+        bert_schedule_lr, build_pretrain, build_transformer, nmt_feed, noam_schedule,
+        noam_schedule_lr, pretrain_feed, transformer_config)
+    # (a) BERT-base, bench.py's configuration, BERT's warmup and linear decay
+    cfg = bert.BertConfig(dtype="bfloat16", dropout=ATTN_DROPOUT)
+    main, startup, total, pg = build_pretrain(cfg, BATCH, SEQ, MASKS_PER_SEQ, LR, SEED,
+                                              schedule=bert_schedule)
+    feed = pretrain_feed(np.random.RandomState(SEED), cfg, BATCH, SEQ, MASKS_PER_SEQ)
+    feed = {k: torch.from_numpy(v).cuda() for k, v in feed.items()}
+    if constant_bert is None:
+        constant_bert = _constant_paths(torch, pt, lambda: build_pretrain(
+            cfg, BATCH, SEQ, MASKS_PER_SEQ, LR, SEED)[:3] + (feed,))
+    drops = sum(op.type == "dropout" and not op.attr("is_test", False)
+                for op in main.global_block().ops)
+    expected = {"flash_attn_fwd": cfg.n_layers, "flash_attn_bwd": cfg.n_layers,
+                "multi_tensor_update": 1, "dropout_fwd": drops}
+    bert_r = _scheduled_model(
+        torch, pt, f"bert-base pretrain bf16 B{BATCH} S{SEQ} dropout {cfg.dropout} Adam under "
+        f"linear_lr_warmup(polynomial_decay(1e-4, 1e6, 0), 10000, 0, 1e-4)",
+        main, startup, feed, total, expected, BERT_COUNTER0, 2, bert_schedule_lr,
+        constant_bert)
+    init = _startup_state(pt, main, startup)
+    del main, startup, feed
+    torch.cuda.empty_cache()
+    prog, _, tot, pg2 = build_pretrain(cfg, 2, SEQ, MASKS_PER_SEQ, LR, SEED,
+                                       schedule=bert_schedule)
+    _hidden_dropout_off(prog)
+    feed2 = pretrain_feed(np.random.RandomState(SEED + 1), cfg, 2, SEQ, MASKS_PER_SEQ)
+    bert_r["step1_card_vs_cpu_batch2"] = _scheduled_step1_vs_cpu(
+        torch, pt, prog, tot, [p.name for p, _ in pg2], init, feed2, TRAIN_LOSS_REL,
+        TRAIN_UPDATE_REL, BERT_COUNTER0)
+    emit("scheduled_step1", model="bert-base", **bert_r["step1_card_vs_cpu_batch2"])
+    del prog, init
+    torch.cuda.empty_cache()
+
+    # (b) transformer-base, bench_workloads.py's configuration, noam(512, 4000)
+    ncfg = transformer_config()
+    main, startup, loss, _ = build_transformer(ncfg, NMT_BATCH, NMT_SEQ, NMT_LR, SEED,
+                                               schedule=noam_schedule)
+    raw = nmt_feed(np.random.RandomState(SEED), ncfg, NMT_BATCH, NMT_SEQ)
+    feed = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    if constant_nmt is None:
+        constant_nmt = _constant_paths(torch, pt, lambda: build_transformer(
+            ncfg, NMT_BATCH, NMT_SEQ, NMT_LR, SEED)[:3] + (feed,))
+    drops = sum(op.type == "dropout" and not op.attr("is_test", False)
+                for op in main.global_block().ops)
+    nmt_r = _scheduled_model(
+        torch, pt, f"transformer-base f32 B{NMT_BATCH} S{NMT_SEQ}+{NMT_SEQ} dropout "
+        f"{ncfg.dropout} Adam under noam_decay(512, 4000)", main, startup, feed, loss,
+        {"dropout_fwd": drops, "multi_tensor_update": 1}, NOAM_COUNTER0, 1, noam_schedule_lr,
+        constant_nmt)
+    init = _startup_state(pt, main, startup)
+    del main, startup, feed
+    torch.cuda.empty_cache()
+    prog, _, tot, pg0 = build_transformer(transformer_config(dropout=0.0), NMT_CPU_BATCH,
+                                          NMT_SEQ, NMT_LR, SEED, schedule=noam_schedule)
+    feed2 = {k: v[:NMT_CPU_BATCH] for k, v in raw.items()}
+    nmt_r["step1_card_vs_cpu_batch2_dropout0"] = _scheduled_step1_vs_cpu(
+        torch, pt, prog, tot, [p.name for p, _ in pg0], init, feed2, NMT_LOSS_REL,
+        NMT_UPDATE_REL, NOAM_COUNTER0)
+    emit("scheduled_step1", model="transformer-base",
+         **nmt_r["step1_card_vs_cpu_batch2_dropout0"])
+    del prog, init
+    torch.cuda.empty_cache()
+
+    # (c) the dense op families, case by case
+    cases = _op_cases_on_card(torch)
+    return bert_r, nmt_r, cases
+
+
 def phase_main_path(torch, workdir):
     """The serving path (phase 4)."""
     from paddle_tpu_torch.inference import Predictor
@@ -3231,6 +3549,11 @@ def main() -> int:
         book_chapters, vgg_serving = phase_book(torch, chapters, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    sched_bert, sched_nmt, op_card = phase_scheduled_training(torch, cap_bert["paths"],
+                                                              nmt_train["paths"])
+    sched_l = {"scheduled_bert_training": sched_bert["launches"]["graph"],
+               "scheduled_transformer_training": sched_nmt["launches"]["graph"]}
     book_launches = {c["chapter"]: c["train_launches"] for c in book_chapters}
     e2e_launches = e2e["epochs"]["prefetch"]["multi_tensor_update_launches"]
     ctr_launches = ctr["launches"]["graph"]["multi_tensor_update"]
@@ -3253,7 +3576,8 @@ def main() -> int:
     drop_launches = {"captured_training": cap_bert["launches"]["graph"]["dropout_fwd"],
                      "transformer_training": nmt_launches["dropout_fwd"],
                      "image_classification_training":
-                         book_launches["image_classification"]["dropout_fwd"]}
+                         book_launches["image_classification"]["dropout_fwd"],
+                     **{k: v["dropout_fwd"] for k, v in sched_l.items()}}
     no_library = ("no single PyTorch call computes this function; matmul_ms is a bf16 "
                   "torch.matmul of the same shape, for context")
     print(smi.splitlines()[0] if smi else "nvidia-smi printed nothing", flush=True)
@@ -3262,10 +3586,13 @@ def main() -> int:
          "source": "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
          "replaces": "paddle_tpu/ops/pallas_attention.py:227",
          "launches": (serve_launches["flash_attn_fwd"] + int8_launches["flash_attn_fwd"]
-                      + train_launches["flash_attn_fwd"]),
+                      + train_launches["flash_attn_fwd"]
+                      + sched_l["scheduled_bert_training"]["flash_attn_fwd"]),
          "launches_by_path": {"serving": serve_launches["flash_attn_fwd"],
                               "int8_serving": int8_launches["flash_attn_fwd"],
-                              "training": train_launches["flash_attn_fwd"]},
+                              "training": train_launches["flash_attn_fwd"],
+                              "scheduled_bert_training":
+                                  sched_l["scheduled_bert_training"]["flash_attn_fwd"]},
          "max_abs_err": fwd_err, **{k: train_fwd[k] for k in keys},
          "shape": "B128 H12 S128 D64 bf16, bias, dropout 0.1, LSE (the training path)",
          "serving": {**{k: serve_case[k] for k in keys},
@@ -3273,8 +3600,11 @@ def main() -> int:
         {"name": "flash_attn_bwd", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
          "replaces": "paddle_tpu/ops/pallas_attention.py:260",
-         "launches": train_launches["flash_attn_bwd"],
-         "launches_by_path": {"training": train_launches["flash_attn_bwd"]},
+         "launches": (train_launches["flash_attn_bwd"]
+                      + sched_l["scheduled_bert_training"]["flash_attn_bwd"]),
+         "launches_by_path": {"training": train_launches["flash_attn_bwd"],
+                              "scheduled_bert_training":
+                                  sched_l["scheduled_bert_training"]["flash_attn_bwd"]},
          "max_abs_err": bwd_err,
          **{k: train_bwd[k] for k in keys},
          "shape": "B128 H12 S128 D64 bf16, bias, dropout 0.1 (the training path)"},
@@ -3325,7 +3655,8 @@ def main() -> int:
                       + resnet_launches["multi_tensor_update"]
                       + nmt_launches["multi_tensor_update"] + ctr_launches + mnist_launches
                       + e2e_launches
-                      + sum(v["multi_tensor_update"] for v in book_launches.values())),
+                      + sum(v["multi_tensor_update"] for v in book_launches.values())
+                      + sum(v["multi_tensor_update"] for v in sched_l.values())),
          "launches_by_path": {"training": train_launches["multi_tensor_update"],
                               "resnet50_training": resnet_launches["multi_tensor_update"],
                               "transformer_training": nmt_launches["multi_tensor_update"],
@@ -3333,7 +3664,8 @@ def main() -> int:
                               "mnist_training": mnist_launches,
                               "deepfm_from_files": e2e_launches,
                               **{f"book_{k}": v["multi_tensor_update"]
-                                 for k, v in book_launches.items()}},
+                                 for k, v in book_launches.items()},
+                              **{k: v["multi_tensor_update"] for k, v in sched_l.items()}},
          "max_abs_err": max(r["max_abs_err"] for r in mres + book_mres),
          **{k: mt_bert[k] for k in keys}, "library": mt_bert["library"],
          "shape": (f"BERT-base's {mt_bert['tensors']} Adam parameters, "
@@ -3360,6 +3692,12 @@ def main() -> int:
             for name, r in (("bert_base", cap_bert), ("resnet50", cap_resnet),
                             ("transformer_base", nmt_train), ("deepfm", ctr),
                             ("mnist_mlp", mnist))},
+        "scheduled_step_ms": {
+            name: {"scheduled": r["step_ms"], "constant_lr": r["constant_lr_step_ms"],
+                   "lr": r["lr"]["graph"], "counters": r["counters"]["graph"]}
+            for name, r in (("bert_base", sched_bert), ("transformer_base", sched_nmt))},
+        "op_cases_on_card": {k: op_card[k] for k in ("cases", "op_types", "grads",
+                                                     "forward_max_abs_err", "grad_max_abs_err")},
         "deepfm_serving_ms": {str(q["batch"]): q["ms"] for q in ctr["serving"]["requests"]},
         "book_step_ms": {c["chapter"]: c["step_ms"] for c in book_chapters},
         "book_metrics": {c["chapter"]: c["metrics"] for c in book_chapters},

@@ -37,7 +37,13 @@ title convolution is ``sequence_conv_N.w_0`` ([filter_size * D, F]) and
 ``sequence_conv_N.b_0``, and VGG-16's state is ``conv2d_N.w_0`` /
 ``conv2d_N.b_0``, ``batch_norm_N.w_0`` / ``.b_0`` (scale, shift) and
 ``batch_norm_N.global_0`` / ``.global_1`` (the running mean and variance),
-with the fc layers and Adam's accumulators as above.
+with the fc layers and Adam's accumulators as above. A program trained
+under a learning-rate schedule also holds the step counter
+``@LR_DECAY_COUNTER@`` (``layers/learning_rate_scheduler.py``), int32 in
+the JAX package (x64 off) and int64 in the port: it carries by name, and
+the port's ``increment`` and ``cast`` run on either width
+(``io.load_persistables`` widens a saved int32 counter to the program's
+int64).
 """
 from __future__ import annotations
 

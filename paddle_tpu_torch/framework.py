@@ -7,8 +7,14 @@ Operator / Block / Program classes and the same JSON form (``to_dict`` /
 What differs from the JAX package:
   * ``Block.append_op`` runs the port's own shape inference
     (``core/registry.py``: the lowering on ``torch.device("meta")`` tensors).
-  * Variables carry no arithmetic sugar; layers build every op explicitly.
   * No ``device_guard``: the port runs no pipeline stages yet.
+
+Variables carry the JAX package's arithmetic sugar (``layers/math_sugar.py``):
+``+ - * / **``, unary ``-``, the comparisons and ``[]`` build ops in the
+current block, as the learning-rate schedules use them. ``==`` and ``!=``
+against a Variable or a number build ``equal`` / ``not_equal`` ops too, so
+``var in some_list`` or ``list.index(var)`` is no identity test: code
+compares Variables by ``is`` or by name. ``__hash__`` stays the identity.
 
 Sub-blocks (``Program._create_block`` / ``_rollback``) hold the bodies of
 control-flow ops (``layers.Scan``); the executor runs them through
@@ -139,6 +145,69 @@ class Variable:
             f for f, on in (("P", self.persistable), ("D", self.is_data),
                             ("S", self.stop_gradient)) if on)
         return f"Var({self.name}: {self.dtype}{list(self.shape)}{' ' + flags if flags else ''})"
+
+    # -- DSL sugar: arithmetic builds ops in the current program -----------------------
+    def _binary(self, other, op_type, reverse=False):
+        from .layers import math_sugar
+        return math_sugar.binary(self, other, op_type, reverse)
+
+    def __add__(self, other):
+        return self._binary(other, "elementwise_add")
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binary(other, "elementwise_sub")
+
+    def __rsub__(self, other):
+        return self._binary(other, "elementwise_sub", reverse=True)
+
+    def __mul__(self, other):
+        return self._binary(other, "elementwise_mul")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._binary(other, "elementwise_div")
+
+    def __rtruediv__(self, other):
+        return self._binary(other, "elementwise_div", reverse=True)
+
+    def __pow__(self, other):
+        return self._binary(other, "elementwise_pow")
+
+    def __neg__(self):
+        from .layers import math_sugar
+        return math_sugar.scale(self, -1.0)
+
+    def __lt__(self, other):
+        return self._binary(other, "less_than")
+
+    def __le__(self, other):
+        return self._binary(other, "less_equal")
+
+    def __gt__(self, other):
+        return self._binary(other, "greater_than")
+
+    def __ge__(self, other):
+        return self._binary(other, "greater_equal")
+
+    def __eq__(self, other):  # builds an op: compare Variables by ``is`` or name
+        if isinstance(other, (Variable, int, float)):
+            return self._binary(other, "equal")
+        return NotImplemented
+
+    def __ne__(self, other):
+        if isinstance(other, (Variable, int, float)):
+            return self._binary(other, "not_equal")
+        return NotImplemented
+
+    def __hash__(self):
+        return id(self)
+
+    def __getitem__(self, item):
+        from .layers import math_sugar
+        return math_sugar.getitem(self, item)
 
 
 class Parameter(Variable):

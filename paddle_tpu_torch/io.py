@@ -148,7 +148,10 @@ def load_vars(executor, dirname, main_program=None, vars=None, predicate=None,
     """Load ``vars`` (or the variables of ``main_program`` that satisfy
     ``predicate``) from ``dirname`` into the global scope, as CPU tensors
     (the executor moves them to its device at the next run). A variable the
-    save lacks, or one whose shape differs from the program's, raises."""
+    save lacks, or one whose shape differs from the program's, raises. An
+    int32 variable that the program declares int64 is widened to it: the
+    JAX package runs with x64 off and saves its int64 state (the schedules'
+    ``@LR_DECAY_COUNTER@``) as int32."""
     main_program = main_program or default_main_program()
     path = os.path.join(dirname, filename or MANIFEST)
     if not os.path.exists(path):
@@ -171,6 +174,8 @@ def load_vars(executor, dirname, main_program=None, vars=None, predicate=None,
                     d != -1 and d != s for d, s in zip(declared, value.shape)):
                 raise RuntimeError(f"shape mismatch loading {name!r}: checkpoint "
                                    f"{tuple(value.shape)} vs program {declared}")
+        if var is not None and var.dtype == "int64" and value.dtype == torch.int32:
+            value = value.long()
         scope.set_var(name, value)
 
 

@@ -1,5 +1,6 @@
-"""Control-flow DSL (the port's copy of ``Scan``, ``_outer_reads`` and the
-comparison layers of ``paddle_tpu/layers/control_flow.py``).
+"""Control-flow DSL (the port's copy of ``Scan``, ``_outer_reads``,
+``increment`` and the comparison layers of
+``paddle_tpu/layers/control_flow.py``).
 
 A ``Scan`` body is built into a sub-block (``Program._create_block``) and
 lowers to the ``scan`` op (``ops/control_flow.py``). Every outer variable
@@ -47,6 +48,19 @@ def _cmp_layer(op_type):
         return helper.main_program.current_block().var(cond.name)
     layer.__name__ = op_type
     return layer
+
+
+
+def increment(x, value=1.0, in_place=True):
+    """x + value, written back to x itself unless ``in_place`` is False."""
+    helper = LayerHelper("increment")
+    if in_place:
+        out = x
+    else:
+        out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("increment", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"step": float(value)})
+    return helper.main_program.current_block().var(out.name)
 
 
 def less_than(x, y, force_cpu=None, cond=None):

@@ -1,9 +1,10 @@
-"""The chapter layers of the extended surface (the port's copy of
-``dynamic_lstm``, ``dynamic_gru``, ``_seq_reverse``, ``_mask_padded``,
-``linear_chain_crf``, ``crf_decoding`` and ``sum`` from
-``paddle_tpu/layers/extras.py``; reference: python/paddle/fluid/layers/nn.py
-linear_chain_crf:1589, crf_decoding:1650, dynamic_lstm:466,
-dynamic_gru:868).
+"""The extended surface (the port's copy of ``dynamic_lstm``, ``dynamic_gru``,
+``_seq_reverse``, ``_mask_padded``, ``linear_chain_crf``, ``crf_decoding``,
+``sum``, the logical layers, ``shard_index``, ``mse_loss``, ``rank``,
+``autoincreased_step_counter``, ``strided_slice``, ``scatter_nd_add``,
+``scatter_nd`` and ``expand_as`` from ``paddle_tpu/layers/extras.py``;
+reference: python/paddle/fluid/layers/nn.py linear_chain_crf:1589,
+crf_decoding:1650, dynamic_lstm:466, dynamic_gru:868).
 
 Sequences are padded [B, T, ...] tensors plus a ``length`` [B]. A reverse
 layer reverses each row's first ``length`` steps, runs the forward
@@ -110,3 +111,105 @@ def _mask_padded(x, length):
 def sum(x):
     """Reference nn.py:sum -- elementwise sum of a tensor list."""
     return _append_sum("sum", x if isinstance(x, (list, tuple)) else [x])
+
+
+# -- logical / tensor utility wrappers --------------------------------------------------
+
+def _logical(op_type):
+    def layer(x, y=None, out=None, name=None):
+        helper = LayerHelper(op_type, name=name)
+        o = out or _out(helper, "bool", stop_gradient=True)
+        inputs = {"X": [x]} if y is None else {"X": [x], "Y": [y]}
+        helper.append_op(op_type, inputs=inputs, outputs={"Out": [o]})
+        return _var(helper, o)
+    layer.__name__ = op_type
+    return layer
+
+
+logical_and = _logical("logical_and")
+logical_or = _logical("logical_or")
+logical_xor = _logical("logical_xor")
+logical_not = _logical("logical_not")
+
+
+def shard_index(input, index_num, nshards, shard_id, ignore_value=-1):
+    helper = LayerHelper("shard_index")
+    out = _out(helper, input.dtype, stop_gradient=True)
+    helper.append_op("shard_index", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"index_num": index_num, "nshards": nshards,
+                            "shard_id": shard_id, "ignore_value": ignore_value})
+    return _var(helper, out)
+
+
+def mse_loss(input, label):
+    from . import nn as _nn
+    return _nn.reduce_mean(_nn.square_error_cost(input, label))
+
+
+def rank(input):
+    from .tensor import fill_constant
+    return fill_constant([1], "int32", len(input.shape))
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """Reference nn.py:autoincreased_step_counter: a persistable int counter
+    incremented by `step` on every run."""
+    from ..framework import default_startup_program
+    from ..initializer import Constant
+    main = default_main_program()
+    block = main.global_block()
+    name = counter_name or "@STEP_COUNTER@"
+    if name in block.vars:
+        counter = block.vars[name]
+    else:
+        counter = block.create_var(name, (1,), "int64")
+        counter.persistable = True
+        counter.stop_gradient = True
+        sb = default_startup_program().global_block()
+        sv = sb.create_var(name, (1,), "int64")
+        sv.persistable = True
+        sb.append_op("fill_constant", outputs={"Out": [name]},
+                     attrs={"shape": [1], "dtype": "int64",
+                            "value": float(begin - step)},
+                     infer_shape=False)
+    block.append_op("increment", inputs={"X": [counter]},
+                    outputs={"Out": [counter]}, attrs={"step": float(step)},
+                    infer_shape=False)
+    return counter
+
+
+def strided_slice(input, axes, starts, ends, strides):
+    helper = LayerHelper("strided_slice")
+    out = _out(helper, input.dtype)
+    helper.append_op("strided_slice", inputs={"Input": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"axes": list(axes), "starts": list(starts),
+                            "ends": list(ends), "strides": list(strides)})
+    return _var(helper, out)
+
+
+def scatter_nd_add(ref, index, updates, name=None):
+    helper = LayerHelper("scatter_nd_add", name=name)
+    out = _out(helper, ref.dtype)
+    helper.append_op("scatter_nd_add",
+                     inputs={"X": [ref], "Index": [index],
+                             "Updates": [updates]},
+                     outputs={"Out": [out]})
+    return _var(helper, out)
+
+
+def scatter_nd(index, updates, shape, name=None):
+    """Reference nn.py:scatter_nd = scatter_nd_add into zeros."""
+    from .tensor import fill_constant
+    zeros = fill_constant(list(shape), updates.dtype, 0.0)
+    return scatter_nd_add(zeros, index, updates, name=name)
+
+
+def expand_as(x, target_tensor, name=None):
+    helper = LayerHelper("expand_as", name=name)
+    out = _out(helper, x.dtype)
+    helper.append_op("expand_as",
+                     inputs={"X": [x], "target_tensor": [target_tensor]},
+                     outputs={"Out": [out]})
+    return _var(helper, out)

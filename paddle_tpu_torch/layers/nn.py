@@ -1,7 +1,8 @@
-"""Core NN layers DSL (the port's copy of the functions of
-``paddle_tpu/layers/nn.py`` that BERT pretraining, ResNet training, the
-Transformer's training and beam-search decode, DeepFM, the MNIST MLP, the
-clip classes, VGG-16 and the book chapters call).
+"""Core NN layers DSL (the port's copy of ``paddle_tpu/layers/nn.py``: every
+function but the vision layers ``adaptive_pool2d``, ``conv2d_transpose``,
+``deformable_conv``, ``group_norm``, ``image_resize``, ``instance_norm``,
+``prelu``, ``resize_bilinear``, ``resize_nearest`` and ``chunk_eval``,
+``sequence_mask``, ``similarity_focus``, which are not ported yet).
 
 Each function builds ops into the default main program and parameters into
 the default startup program, with the same op types, slots, attrs and names
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..framework import convert_dtype
 from ..layer_helper import LayerHelper
 
 
@@ -185,6 +187,10 @@ elementwise_sub = _elementwise("elementwise_sub")
 elementwise_mul = _elementwise("elementwise_mul")
 elementwise_div = _elementwise("elementwise_div")
 elementwise_max = _elementwise("elementwise_max")
+elementwise_min = _elementwise("elementwise_min")
+elementwise_pow = _elementwise("elementwise_pow")
+elementwise_mod = _elementwise("elementwise_mod")
+elementwise_floordiv = _elementwise("elementwise_floordiv")
 
 
 def _reduce(op_type):
@@ -204,6 +210,12 @@ def _reduce(op_type):
 
 
 reduce_sum = _reduce("reduce_sum")
+reduce_mean = _reduce("reduce_mean")
+reduce_max = _reduce("reduce_max")
+reduce_min = _reduce("reduce_min")
+reduce_prod = _reduce("reduce_prod")
+reduce_all = _reduce("reduce_all")
+reduce_any = _reduce("reduce_any")
 
 
 def one_hot(input, depth, allow_out_of_range=False):
@@ -264,6 +276,37 @@ sigmoid = _unary("sigmoid")
 tanh = _unary("tanh")
 square = _unary("square")
 sqrt = _unary("sqrt")
+logsigmoid = _unary("logsigmoid")
+tanh_shrink = _unary("tanh_shrink")
+exp = _unary("exp")
+log = _unary("log")
+rsqrt = _unary("rsqrt")
+abs = _unary("abs")
+reciprocal = _unary("reciprocal")
+softplus = _unary("softplus")
+softsign = _unary("softsign")
+ceil = _unary("ceil")
+floor = _unary("floor")
+round = _unary("round")
+sign = _unary("sign")
+erf = _unary("erf")
+cos = _unary("cos")
+sin = _unary("sin")
+acos = _unary("acos")
+asin = _unary("asin")
+atan = _unary("atan")
+cosh = _unary("cosh")
+sinh = _unary("sinh")
+mish = _unary("mish")
+hard_swish = _unary("hard_swish")
+hard_sigmoid = _unary("hard_sigmoid")
+relu6 = _unary("relu6")
+soft_relu = _unary("soft_relu")
+stanh = _unary("stanh")
+hard_shrink = _unary("hard_shrink")
+softshrink = _unary("softshrink")
+thresholded_relu = _unary("thresholded_relu")
+brelu = _unary("brelu")
 
 
 def relu(x, name=None):
@@ -559,3 +602,199 @@ def beam_search_decode(ids, parents, scores, beam_size=None, end_id=1, name=None
                      attrs={"end_id": int(end_id)})
     blk = helper.main_program.current_block()
     return blk.var(sent.name), blk.var(sscores.name)
+
+
+# -- the dense op families' layers ---------------------------------------------------
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper("mul", name=name)
+    out = _out(helper, x.dtype)
+    helper.append_op("mul", inputs={"X": [x], "Y": [y]}, outputs={"Out": [out]},
+                     attrs={"x_num_col_dims": x_num_col_dims,
+                            "y_num_col_dims": y_num_col_dims})
+    return _var(helper, out)
+
+
+def leaky_relu(x, alpha=0.02, name=None):
+    helper = LayerHelper("leaky_relu", name=name)
+    out = _out(helper, x.dtype)
+    helper.append_op("leaky_relu", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"alpha": alpha})
+    return _var(helper, out)
+
+
+def elu(x, alpha=1.0, name=None):
+    helper = LayerHelper("elu", name=name)
+    out = _out(helper, x.dtype)
+    helper.append_op("elu", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"alpha": alpha})
+    return _var(helper, out)
+
+
+def swish(x, beta=1.0, name=None):
+    helper = LayerHelper("swish", name=name)
+    out = _out(helper, x.dtype)
+    helper.append_op("swish", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"beta": beta})
+    return _var(helper, out)
+
+
+def pow(x, factor=1.0, name=None):
+    helper = LayerHelper("pow", name=name)
+    out = _out(helper, x.dtype)
+    helper.append_op("pow", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"factor": factor})
+    return _var(helper, out)
+
+
+def cross_entropy2(input, label, ignore_index=-100):
+    """Reference nn.py:1917 -- hard-label CE variant whose kernel saves the
+    matched probability (MatchX) for its grad."""
+    helper = LayerHelper("cross_entropy2")
+    out = _out(helper, input.dtype)
+    match_x = _out(helper, input.dtype, stop_gradient=True)
+    helper.append_op("cross_entropy2",
+                     inputs={"X": [input], "Label": [label]},
+                     outputs={"Y": [out], "MatchX": [match_x]},
+                     attrs={"ignore_index": ignore_index})
+    return _var(helper, out)
+
+
+def huber_loss(input, label, delta):
+    helper = LayerHelper("huber_loss")
+    out = _out(helper, input.dtype)
+    residual = _out(helper, input.dtype, stop_gradient=True)
+    helper.append_op("huber_loss", inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [out], "Residual": [residual]},
+                     attrs={"delta": delta})
+    return _var(helper, out)
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper("smooth_l1_loss")
+    inputs = {"X": [x], "Y": [y]}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = [inside_weight]
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = [outside_weight]
+    out = _out(helper, x.dtype)
+    diff = _out(helper, x.dtype, stop_gradient=True)
+    helper.append_op("smooth_l1_loss", inputs=inputs,
+                     outputs={"Out": [out], "Diff": [diff]},
+                     attrs={"sigma": sigma if sigma is not None else 1.0})
+    return _var(helper, out)
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    helper = LayerHelper("log_loss", name=name)
+    out = _out(helper, input.dtype)
+    helper.append_op("log_loss", inputs={"Predicted": [input], "Labels": [label]},
+                     outputs={"Loss": [out]}, attrs={"epsilon": epsilon})
+    return _var(helper, out)
+
+
+def flatten(x, axis=1, name=None):
+    helper = LayerHelper("flatten2", name=name)
+    out = _out(helper, x.dtype)
+    helper.append_op("flatten2", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"axis": axis})
+    return _var(helper, out)
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack")
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    out = _out(helper, xs[0].dtype)
+    helper.append_op("stack", inputs={"X": list(xs)}, outputs={"Y": [out]},
+                     attrs={"axis": axis})
+    return _var(helper, out)
+
+
+def unstack(x, axis=0, num=None):
+    helper = LayerHelper("unstack")
+    n = num if num is not None else x.shape[axis]
+    outs = [_out(helper, x.dtype) for _ in range(n)]
+    helper.append_op("unstack", inputs={"X": [x]}, outputs={"Y": outs},
+                     attrs={"axis": axis})
+    blk = helper.main_program.current_block()
+    return [blk.var(o.name) for o in outs]
+
+
+def gather_nd(input, index, name=None):
+    helper = LayerHelper("gather_nd", name=name)
+    out = _out(helper, input.dtype)
+    helper.append_op("gather_nd", inputs={"X": [input], "Index": [index]},
+                     outputs={"Out": [out]})
+    return _var(helper, out)
+
+
+def scatter(input, index, updates, name=None, overwrite=True):
+    helper = LayerHelper("scatter", name=name)
+    out = _out(helper, input.dtype)
+    helper.append_op("scatter",
+                     inputs={"X": [input], "Ids": [index], "Updates": [updates]},
+                     outputs={"Out": [out]}, attrs={"overwrite": overwrite})
+    return _var(helper, out)
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper("pad", name=name)
+    out = _out(helper, x.dtype)
+    helper.append_op("pad", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"paddings": list(paddings), "pad_value": pad_value})
+    return _var(helper, out)
+
+
+def pad2d(input, paddings=(0, 0, 0, 0), mode="constant", pad_value=0.0,
+          data_format="NCHW", name=None):
+    helper = LayerHelper("pad2d", name=name)
+    out = _out(helper, input.dtype)
+    helper.append_op("pad2d", inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs={"paddings": list(paddings), "mode": mode,
+                            "pad_value": pad_value, "data_format": data_format})
+    return _var(helper, out)
+
+
+def shape(input):
+    helper = LayerHelper("shape")
+    out = _out(helper, "int32", stop_gradient=True)
+    helper.append_op("shape", inputs={"Input": [input]}, outputs={"Out": [out]})
+    return _var(helper, out)
+
+
+def where(condition, x=None, y=None):
+    helper = LayerHelper("where")
+    out = _out(helper, x.dtype)
+    helper.append_op("where", inputs={"Condition": [condition], "X": [x],
+                                      "Y": [y]}, outputs={"Out": [out]})
+    return _var(helper, out)
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper("l2_normalize", name=name)
+    out = _out(helper, x.dtype)
+    norm = _out(helper, x.dtype, stop_gradient=True)
+    helper.append_op("l2_normalize", inputs={"X": [x]},
+                     outputs={"Out": [out], "Norm": [norm]},
+                     attrs={"axis": axis, "epsilon": epsilon})
+    return _var(helper, out)
+
+
+def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, seed=0):
+    helper = LayerHelper("uniform_random")
+    out = _out(helper, dtype, stop_gradient=True)
+    helper.append_op("uniform_random", outputs={"Out": [out]},
+                     attrs={"shape": [int(s) for s in shape],
+                            "dtype": convert_dtype(dtype), "min": min,
+                            "max": max, "seed": seed})
+    return _var(helper, out)
+
+
+def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32"):
+    helper = LayerHelper("gaussian_random")
+    out = _out(helper, dtype, stop_gradient=True)
+    helper.append_op("gaussian_random", outputs={"Out": [out]},
+                     attrs={"shape": [int(s) for s in shape],
+                            "dtype": convert_dtype(dtype), "mean": mean,
+                            "std": std, "seed": seed})
+    return _var(helper, out)

@@ -1,6 +1,6 @@
 """Broadcastable binary elementwise ops with Fluid ``axis`` semantics (the
-port's copy of ``add``, ``sub``, ``mul``, ``div`` and ``max`` from
-``paddle_tpu/ops/elementwise.py``).
+port's copy of ``paddle_tpu/ops/elementwise.py``: add, sub, mul, div, min,
+max, pow, mod and floordiv).
 
 Fluid broadcast rule: Y's shape must match a contiguous dim-run of X starting
 at ``axis`` (default: trailing alignment, axis = x.ndim - y.ndim); Y is
@@ -43,3 +43,18 @@ elementwise_mul = _binary("elementwise_mul", lambda x, y: x * y)
 # true division for integer operands too, as jnp's ``/``
 elementwise_div = _binary("elementwise_div", lambda x, y: x / y)
 elementwise_max = _binary("elementwise_max", torch.maximum)
+# at a tie both take half the gradient, as jnp.minimum / jnp.maximum
+elementwise_min = _binary("elementwise_min", torch.minimum)
+elementwise_pow = _binary("elementwise_pow", torch.pow)
+# ``jnp.mod`` takes the divisor's sign: ``torch.remainder``, not ``fmod``
+elementwise_mod = _binary("elementwise_mod", torch.remainder)
+
+
+def _floor_divide(x, y):
+    """``jnp.floor_divide``: the floor of x / y (Python's rule, as
+    ``torch.floor_divide``). Piecewise constant, so its gradient is zero, as
+    JAX's; PyTorch has none, so the output is cut from autograd."""
+    return torch.floor_divide(x.detach(), y.detach())
+
+
+elementwise_floordiv = _binary("elementwise_floordiv", _floor_divide)

@@ -1,9 +1,9 @@
-"""Matmuls, softmax, cross-entropy and mean (the port's copy of ``matmul``,
-``mul``, ``softmax``, ``log_softmax``, ``softmax_with_cross_entropy``,
-``cross_entropy``, ``sigmoid_cross_entropy_with_logits``, ``mean``,
-``square_error_cost`` and ``cos_sim`` from ``paddle_tpu/ops/math_ops.py``).
+"""Matmuls, softmax, the losses, the norms and mean (the port's copy of
+``paddle_tpu/ops/math_ops.py``, all 18 types).
 
 The products stay ``torch.matmul``, as the JAX package leaves them to XLA.
+``|x|`` is ``activations.jnp_abs`` wherever the JAX lowering takes
+``jnp.abs``, whose gradient at 0 is 1 (``torch.abs``'s is 0).
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ import math
 import torch
 
 from ..core.registry import register
+from .activations import jnp_abs
 
 
 @register("matmul")
@@ -113,10 +114,8 @@ def sigmoid_cross_entropy_with_logits(ctx, ins):
     the others."""
     x, label = ins["X"][0], ins["Label"][0]
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    # |x| whose gradient at 0 is 1, as ``jnp.abs``'s (``torch.abs``'s is 0)
-    abs_x = torch.where(x >= 0, x, -x)
     loss = (torch.maximum(x, zero) - x * label.to(x.dtype)
-            + torch.log1p(torch.exp(-abs_x)))
+            + torch.log1p(torch.exp(-jnp_abs(x))))
     ignore = ctx.attr("ignore_index", -100)
     if ignore >= 0:
         loss = torch.where(label != ignore, loss, torch.zeros_like(loss))
@@ -145,3 +144,86 @@ def cos_sim(ctx, ins):
     yn = torch.sqrt(torch.sum(y * y, dim=-1, keepdim=True))
     out = torch.sum(x * y, dim=-1, keepdim=True) / (xn * yn)
     return {"Out": [out], "XNorm": [xn], "YNorm": [yn]}
+
+
+@register("bmm")
+def bmm(ctx, ins):
+    return {"Out": [torch.matmul(ins["X"][0], ins["Y"][0])]}
+
+
+@register("dot")
+def dot(ctx, ins):
+    """The rows' inner products, [..., 1]."""
+    return {"Out": [torch.sum(ins["X"][0] * ins["Y"][0], dim=-1, keepdim=True)]}
+
+
+@register("cross_entropy2", nondiff_inputs=("Label",))
+def cross_entropy2(ctx, ins):
+    """Hard-label cross-entropy of probabilities X, with the matched
+    probability MatchX (no gradient). A row whose label is ``ignore_index``
+    or out of [0, classes) gives 0 and no gradient."""
+    x, label = ins["X"][0], ins["Label"][0]
+    lab = label.squeeze(-1) if label.ndim == x.ndim and label.shape[-1] == 1 else label
+    li = lab.unsqueeze(-1)
+    keep = (li != ctx.attr("ignore_index", -100)) & (li >= 0) & (li < x.shape[-1])
+    safe = torch.where(keep, li, torch.zeros_like(li)).long()
+    picked = torch.take_along_dim(x, safe, dim=-1)
+    loss = torch.where(keep, -torch.log(picked), torch.zeros_like(picked))
+    return {"Y": [loss], "MatchX": [picked.detach()]}
+
+
+@register("huber_loss", nondiff_outputs=("Residual",))
+def huber_loss(ctx, ins):
+    """r = Y - X; 0.5 r^2 where |r| <= delta, else delta (|r| - delta / 2)."""
+    x, y = ins["X"][0], ins["Y"][0]
+    d = ctx.attr("delta", 1.0)
+    r = y - x
+    a = jnp_abs(r)
+    loss = torch.where(a <= d, 0.5 * r * r, d * (a - 0.5 * d))
+    return {"Out": [loss], "Residual": [r.detach()]}
+
+
+@register("smooth_l1_loss", nondiff_outputs=("Diff",))
+def smooth_l1_loss(ctx, ins):
+    """d = (X - Y) * InsideWeight; 0.5 d^2 sigma^2 where |d| < 1 / sigma^2,
+    else |d| - 0.5 / sigma^2; times OutsideWeight, summed per row: [N, 1]."""
+    x, y = ins["X"][0], ins["Y"][0]
+    s2 = ctx.attr("sigma", 1.0) ** 2
+    d = x - y
+    inside = ins.get("InsideWeight", [None])
+    if inside and inside[0] is not None:
+        d = d * inside[0]
+    a = jnp_abs(d)
+    loss = torch.where(a < 1.0 / s2, 0.5 * d * d * s2, a - 0.5 / s2)
+    outside = ins.get("OutsideWeight", [None])
+    if outside and outside[0] is not None:
+        loss = loss * outside[0]
+    return {"Out": [loss.reshape(loss.shape[0], -1).sum(dim=1, keepdim=True)],
+            "Diff": [d.detach()]}
+
+
+@register("l2_normalize")
+def l2_normalize(ctx, ins):
+    """x / sqrt(sum(x^2 along axis) + epsilon), with that Norm."""
+    x = ins["X"][0]
+    norm = torch.sqrt(torch.sum(x * x, dim=ctx.attr("axis", -1), keepdim=True)
+                      + ctx.attr("epsilon", 1e-12))
+    return {"Out": [x / norm], "Norm": [norm]}
+
+
+@register("p_norm")
+def p_norm(ctx, ins):
+    """(sum |x|^p along axis)^(1/p)."""
+    x = ins["X"][0]
+    p = ctx.attr("porder", 2.0)
+    s = torch.sum(torch.pow(jnp_abs(x), p), dim=ctx.attr("axis", -1),
+                  keepdim=ctx.attr("keepdim", False))
+    return {"Out": [torch.pow(s, 1.0 / p)]}
+
+
+@register("log_loss")
+def log_loss(ctx, ins):
+    """-label log(p + eps) - (1 - label) log(1 - p + eps)."""
+    p, label = ins["Predicted"][0], ins["Labels"][0]
+    eps = ctx.attr("epsilon", 1e-4)
+    return {"Loss": [-label * torch.log(p + eps) - (1 - label) * torch.log(1 - p + eps)]}

@@ -41,6 +41,11 @@ accumulation kinds).
 MNIST MLP: ``models/mnist.py::mlp`` (784 -> 128 -> 64 -> 10) at batch 256
 with ``SGD(0.01)``, random images and labels from seed 0.
 
+``build_pretrain`` and ``build_transformer`` take a ``schedule``: BERT's
+warmup and linear decay (``bert_schedule``) and the Transformer's noam
+decay (``noam_schedule``), each with its float64 closed form
+(``bert_schedule_lr``, ``noam_schedule_lr``).
+
 ``build_pretrain``, ``pretrain_feed``, ``build_resnet50``, ``resnet_feed``,
 ``transformer_config``, ``build_transformer``, ``nmt_feed``,
 ``build_beam_decode``, ``decode_feed``, ``build_deepfm``, ``deepfm_feed``,
@@ -63,6 +68,9 @@ TRACE_MARGIN_S = 0.05
 #: bench.py::bench_bert_base's pretraining configuration (BATCH and SEED are
 #: bench_resnet50's too)
 BATCH, SEQ, MASKS_PER_SEQ, LR, SEED = 128, 128, 20, 1e-4, 0
+#: BERT's published schedule (``bert_schedule``) and the Transformer's (``noam_schedule``)
+BERT_PEAK_LR, BERT_WARMUP, BERT_DECAY_STEPS = 1e-4, 10_000, 1_000_000
+NOAM_D_MODEL, NOAM_WARMUP = 512, 4000
 #: bench.py::bench_resnet50's image size and classes
 IMAGE, CLASSES = 224, 1000
 FEEDS = (("src_ids", "int64", "seq"), ("pos_ids", "int64", "seq"),
@@ -71,10 +79,45 @@ FEEDS = (("src_ids", "int64", "seq"), ("pos_ids", "int64", "seq"),
          ("nsp_label", "int64", "batch"))
 
 
-def build_pretrain(cfg, batch, seq, n_masks, lr=LR, seed=SEED):
+def bert_schedule(layers):
+    """BERT's learning rate (Devlin et al. 2018, appendix A.2; google-research
+    bert ``optimization.py::create_optimizer``): 1e-4, 10,000 warmup steps
+    from 0, then linear decay to 0 at 1,000,000 steps."""
+    return layers.linear_lr_warmup(
+        layers.polynomial_decay(BERT_PEAK_LR, decay_steps=BERT_DECAY_STEPS,
+                                end_learning_rate=0.0, power=1.0),
+        warmup_steps=BERT_WARMUP, start_lr=0.0, end_lr=BERT_PEAK_LR)
+
+
+def bert_schedule_lr(counter: int) -> float:
+    """``bert_schedule``'s learning rate in a run that starts with the step
+    counter at ``counter``, in float64: the schedule nests two schedules,
+    each of which advances the counter once a run (the JAX package's
+    behaviour), so the decay reads counter + 1 and the warmup counter + 2."""
+    decay = BERT_PEAK_LR * (1 - min(counter + 1, BERT_DECAY_STEPS) / BERT_DECAY_STEPS)
+    warm = (counter + 2) * (BERT_PEAK_LR / BERT_WARMUP)
+    return warm if counter + 2 < BERT_WARMUP else decay
+
+
+def noam_schedule(layers):
+    """The Transformer's learning rate (Vaswani et al. 2017, section 5.3):
+    d_model^-0.5 min(step^-0.5, step warmup^-1.5), d_model 512, 4000 warmup
+    steps."""
+    return layers.noam_decay(NOAM_D_MODEL, NOAM_WARMUP)
+
+
+def noam_schedule_lr(counter: int) -> float:
+    """``noam_schedule``'s learning rate in a run that starts with the step
+    counter at ``counter`` (it reads counter + 1), in float64."""
+    step = counter + 1
+    return NOAM_D_MODEL ** -0.5 * min(step ** -0.5, step * NOAM_WARMUP ** -1.5)
+
+
+def build_pretrain(cfg, batch, seq, n_masks, lr=LR, seed=SEED, schedule=None):
     """The pretraining Program at static shapes (batch x seq tokens, n_masks
-    masked positions per sequence) with ``Adam(lr)``. Returns (main,
-    startup, total_loss, params_grads)."""
+    masked positions per sequence) with ``Adam(lr)``, or with ``Adam`` at
+    the learning rate that ``schedule(layers)`` builds (``bert_schedule``).
+    Returns (main, startup, total_loss, params_grads)."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.models import bert
     M = batch * n_masks
@@ -86,7 +129,8 @@ def build_pretrain(cfg, batch, seq, n_masks, lr=LR, seed=SEED):
         ins = [pt.data(n, shapes[kind], dt, append_batch_size=False)
                for n, dt, kind in FEEDS]
         total, _, _ = bert.pretrain(*ins, cfg)
-        _, params_grads = pt.optimizer.Adam(lr).minimize(total)
+        rate = schedule(pt.layers) if schedule is not None else lr
+        _, params_grads = pt.optimizer.Adam(rate).minimize(total)
     return main, startup, total, params_grads
 
 
@@ -153,10 +197,11 @@ def transformer_config(dropout=0.1):
                                          dropout=dropout)
 
 
-def build_transformer(cfg, batch=NMT_BATCH, seq=NMT_SEQ, lr=NMT_LR, seed=SEED):
+def build_transformer(cfg, batch=NMT_BATCH, seq=NMT_SEQ, lr=NMT_LR, seed=SEED, schedule=None):
     """The training Program at static shapes (batch x seq source and target
-    tokens), label smoothing 0.1, ``Adam(lr)``. Returns (main, startup,
-    loss, params_grads)."""
+    tokens), label smoothing 0.1, ``Adam(lr)`` or ``Adam`` at the learning
+    rate ``schedule(layers)`` builds (``noam_schedule``). Returns (main,
+    startup, loss, params_grads)."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.models import transformer
     main, startup = pt.Program(), pt.Program()
@@ -165,7 +210,8 @@ def build_transformer(cfg, batch=NMT_BATCH, seq=NMT_SEQ, lr=NMT_LR, seed=SEED):
     with pt.unique_name.guard(), pt.program_guard(main, startup):
         ins = [pt.data(n, [batch, seq], dt, append_batch_size=False) for n, dt in NMT_FEEDS]
         loss, _ = transformer.transformer(*ins, cfg, label_smooth_eps=NMT_LABEL_SMOOTH)
-        _, params_grads = pt.optimizer.Adam(lr).minimize(loss)
+        rate = schedule(pt.layers) if schedule is not None else lr
+        _, params_grads = pt.optimizer.Adam(rate).minimize(loss)
     return main, startup, loss, params_grads
 
 
@@ -295,12 +341,12 @@ def _kind(name):
 
 
 @contextlib.contextmanager
-def traced(activities, margin=TRACE_MARGIN_S):
-    """``torch.profiler.profile(activities=...)`` with ``margin`` idle
-    seconds inside the window on either side of the body; the body waits
-    for its device work before it ends."""
+def traced(activities, margin=TRACE_MARGIN_S, schedule=None):
+    """``torch.profiler.profile(activities=..., schedule=...)`` with
+    ``margin`` idle seconds inside the window on either side of the body;
+    the body waits for its device work before it ends."""
     from torch.profiler import profile
-    with profile(activities=activities) as prof:
+    with profile(activities=activities, schedule=schedule) as prof:
         time.sleep(margin)
         yield prof
         time.sleep(margin)
@@ -309,20 +355,32 @@ def traced(activities, margin=TRACE_MARGIN_S):
 def profile_steps(torch, exe, main, feed, total, n_steps):
     """Trace ``n_steps`` runs of ``main`` fetching ``total`` (a variable or a
     list of them, as the runs before fetched, so that the executor's cached
-    graph is the one replayed); device time by activity name."""
-    from torch.profiler import ProfilerActivity
+    graph is the one replayed), after one more run that the profiler traces
+    and drops; device time by activity name, and the window's count of
+    device records by name (``device_records``)."""
+    from torch.profiler import ProfilerActivity, schedule
     fetch = list(total) if isinstance(total, (list, tuple)) else [total]
-    with traced([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # one step traced and dropped first (the profiler's warm-up): late in a long
+    # process a trace loses its first 15-20 device records (ROADMAP fault 3.2)
+    with traced([ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                schedule=schedule(wait=0, warmup=1, active=n_steps, repeat=1)) as prof:
+        exe.run(main, feed=feed, fetch_list=fetch)
+        prof.step()
         t0 = time.perf_counter()
-        for _ in range(n_steps):
+        for i in range(n_steps):
             exe.run(main, feed=feed, fetch_list=fetch)     # numpy: the step is done
+            if i + 1 < n_steps:
+                prof.step()
         wall = (time.perf_counter() - t0) / n_steps
+        prof.step()            # ends the traced steps (outside the timed wall)
     device = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        if us > 0 and e.cpu_time_total == 0:   # device activities carry no CPU time
+        # device activities carry no CPU time; the step marks that the schedule
+        # adds ("ProfilerStep*") span the steps on the device's clock, no work
+        if us > 0 and e.cpu_time_total == 0 and not e.key.startswith("ProfilerStep"):
             device.append((us / n_steps, e.count / n_steps, e.key))
     if not device:
         raise SystemExit("torch.profiler recorded no device activity: device busy "
@@ -333,9 +391,13 @@ def profile_steps(torch, exe, main, feed, total, n_steps):
     for us, c, k in device:
         ms, n = by_kind.get(_kind(k), (0.0, 0.0))
         by_kind[_kind(k)] = (ms + us / 1e3, n + c)
+    records = {}
+    for _, c, k in device:
+        records[k[:120]] = records.get(k[:120], 0) + round(c * n_steps)
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1 - busy_ms / (wall * 1e3)),
             "device_activities_per_step": sum(c for _, c, _ in device),
+            "device_records": records,
             "by_kind": {k: {"ms": ms, "per_step": n} for k, (ms, n) in by_kind.items()},
             "top": [{"name": k[:90], "ms": us / 1e3, "per_step": c}
                     for us, c, k in device[:15]]}

@@ -4,7 +4,9 @@ Transformer NMT model and beam-search decode with it, train and serve
 DeepFM (also from MultiSlot files through ``train_from_dataset``) and
 train the MNIST MLP, train the book chapters (``examples/``) and serve
 VGG-16, train BERT-base and transformer-base under their published
-learning-rate schedules and run every dense op case through the
+learning-rate schedules and run every dense op case, train BERT-base
+under LAMB (with and without recompute), ResNet-50 under LARS and the MNIST
+MLP under every update class and averaging wrapper through the
 PyTorch/CUDA port on one NVIDIA GPU, and hold its CUDA kernels against
 their plain PyTorch versions.
 
@@ -90,7 +92,8 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    and, at batch 2, the CPU port, in bf16 and on the f32 build of the same
    weights; prints step ms, peak memory and each path's breakdown;
 9. multi_tensor_update over BERT-base's 158 Adam parameters,
-   ResNet-50's 161 Momentum parameters, DeepFM's 10 Adam parameters (17.5 M
+   ResNet-50's 161 Momentum parameters, BERT-base's 158 LAMB parameters and
+   ResNet-50's 161 LARS parameters (phase 18's kinds), DeepFM's 10 Adam parameters (17.5 M
    elements, the 1,000,000 x 16 table among them), the MNIST MLP's 6 SGD
    parameters, transformer-base's 258 Adam parameters and each book
    chapter's list of phase 16 (their shapes and dtypes read from the
@@ -220,10 +223,40 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    ``paddle_tpu_torch/tools/op_cases.py`` (the dense op families: each
    activation, elementwise, reduction, basic, tensor and math op type) on
    the card against the CPU port, forward and gradient, with the case's
-   tolerance; each case whose gradient or update adds rows by index run
-   twice on the card, bit for bit; the random ops held by their
-   statistics;
-12. the kernels line, then the result line.
+   tolerance (the 13 optimizer update ops' cases among them: f32, a ragged
+   shape and a bf16 parameter beside f32 state); each case whose gradient
+   or update adds rows by index run twice on the card, bit for bit; the
+   random ops and ``dpsgd``'s noise held by their statistics;
+18. (run after phase 17) the optimizer surface. A: BERT-base at phase 11's
+   configuration under ``Lamb`` at its defaults (weight decay 0.01, beta1
+   0.9, beta2 0.999, epsilon 1e-6), LayerNorm scales and biases excluded
+   from weight decay, under BERT's schedule from the counter phase 17
+   presets; B: A under ``RecomputeOptimizer`` with a checkpoint at each of
+   the 12 encoder layers' outputs (12 ``remat_segment`` ops); C: ResNet-50
+   at phase 8's configuration under ``LarsMomentum(0.1, 0.9)`` at its
+   defaults. Each as phase 17 runs its models: 4 steps eager, graph and
+   ``run_fused`` from one state, losses and every state tensor bit for bit,
+   the launches of each path (K1-fwd 12 a step on A and 24 on B, K1-bwd 12,
+   ``dropout`` 25 and 50, K2 33 on C, ``multi_tensor_update`` 1: its
+   ``lamb`` kind's 3 kernels, its ``lars_momentum`` kind's 2), the work
+   tables built, step 1 against the CPU port at batch 2 (phase 5's limits;
+   phase 8's f32-update rule for C), step ms, busy ms, activities and
+   graph pool beside phase 11's constant-LR Adam and Momentum steps; B
+   against A after the 4 steps (limits below) and B's graph pool below
+   A's. D: the MNIST MLP under ``AdamW``, ``Adagrad``, ``Adamax``,
+   ``Adadelta``, ``RMSProp`` (centered), ``Ftrl``, ``DecayedAdagrad``,
+   ``Lamb`` and ``LarsMomentum``, and under ``ExponentialMovingAverage``,
+   ``ModelAverage`` and ``LookaheadOptimizer`` over ``Adam``: graph against
+   eager bit for bit, the loss finite and falling, the wrappers'
+   ``apply()`` / ``restore()`` against numpy's arithmetic over the scope.
+   Phase 9 holds ``multi_tensor_update``'s ``lamb`` kind over BERT-base's
+   158 parameters (52 of them excluded from weight decay, one run) and its
+   ``lars_momentum`` kind over ResNet-50's 161: the moments bit for bit to
+   the per-op lowerings, each tensor's norms within 1e-6 relative of
+   ``torch.sum``'s, ParamOut within 2 f32 ulps (1 bf16 ulp) and bit for bit
+   to the same arithmetic fed the kernel's norms, two runs bit for bit;
+12. the kernels line (``multi_tensor_update`` with its five kinds, each
+   with its launches), then the result line.
 
 Exits non-zero, with no result line, when there is no CUDA card, when the
 port's sources are not beside this script, or when any phase fails.
@@ -614,6 +647,34 @@ def _launch_times(torch, fn, calls):
     return launches
 
 
+def _graph_launches(torch, fn, names):
+    """The kernel launches of one call of ``fn`` by each of ``names``: the
+    kernel nodes of a CUDA graph that captures the call, read from its DOT
+    dump (``CUDAGraph.debug_dump``; a capture records and runs nothing).
+    Exact, where a profiler trace may lose its first records (ROADMAP 3.2)."""
+    import re
+    graph = torch.cuda.CUDAGraph(keep_graph=True)     # keeps the cudaGraph_t to dump
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        fn()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)      # git-ignored
+    fd, path = tempfile.mkstemp(suffix=".dot", dir=os.path.join(REPO, "build"))
+    os.close(fd)
+    try:
+        graph.debug_dump(path)
+        with open(path) as f:
+            text = f.read()
+    finally:
+        os.remove(path)
+    del graph
+    # one chunk per node definition ('"graph_1_node_0"[... label="..."]'); an
+    # edge line ('"a" -> "b"') opens none
+    nodes = re.split(r'^\s*"?[^"\s\[]*node[^"\s\[]*"?\s*\[', text, flags=re.M)[1:]
+    if not nodes:
+        raise SystemExit(f"a captured graph's DOT dump names no node: {text[:400]!r}")
+    return {n: sum(n in node for node in nodes) for n in names}
+
+
 def _breakdown(call, shape, launches):
     return dict(call=call, shape=shape,
                 launches_per_call=sum(x["launches_per_call"] for x in launches),
@@ -659,8 +720,9 @@ def phase_launch_breakdown(torch, calls=20):
 
 def _hidden_dropout_off(program):
     """Turn the `dropout` ops (hidden dropout) and their grad ops to inference
-    mode; fused_attention keeps its in-kernel dropout."""
-    for op in program.global_block().ops:
+    mode, in every block (a recompute segment's too); fused_attention keeps
+    its in-kernel dropout."""
+    for op in (op for blk in program.blocks for op in blk.ops):
         if op.type in ("dropout", "dropout_grad"):
             op.attrs["is_test"] = True
             if "__fwd_attrs__" in op.attrs:
@@ -1329,25 +1391,160 @@ def phase_resnet_train(torch, main_prog, startup, loss, params_grads, fused):
 def _update_inputs(torch, program, kind, gen):
     """Random inputs on the card for every ``kind`` op of ``program``, at its
     parameters' shapes and dtypes (grads in the parameter's dtype, state in
-    f32), with the program's attrs."""
+    f32), with the program's attrs: (the first op's attrs, the inputs, each
+    op's attrs)."""
     from paddle_tpu_torch.core.registry import torch_dtype
     blk = program.global_block()
     ops = [op for op in blk.ops if op.type == kind]
-    lr = torch.full((1,), {"adam": 1e-4, "momentum": 0.1, "sgd": 0.01}[kind], device="cuda")
+    lr = torch.full((1,), {"adam": 1e-4, "momentum": 0.1, "sgd": 0.01, "lamb": 1e-4,
+                           "lars_momentum": 0.1}[kind], device="cuda")
     ins_list = []
     for op in ops:
         pv = blk.var(op.input("Param")[0])
         dt, shape = torch_dtype(pv.dtype), tuple(pv.shape)
         rnd = lambda scale: torch.randn(shape, generator=gen, device="cuda") * scale
         ins = {"Param": [rnd(0.05).to(dt)], "Grad": [rnd(1e-3).to(dt)], "LearningRate": [lr]}
-        if kind == "adam":
+        if kind in ("adam", "lamb"):
             ins.update(Moment1=[rnd(1e-3)], Moment2=[rnd(1e-3).square()],
                        Beta1Pow=[torch.full((1,), 0.9 ** 3, device="cuda")],
                        Beta2Pow=[torch.full((1,), 0.999 ** 3, device="cuda")])
-        elif kind == "momentum":
+        elif kind in ("momentum", "lars_momentum"):
             ins["Velocity"] = [rnd(1e-3)]
         ins_list.append(ins)
-    return dict(ops[0].attrs), ins_list
+    return ins_list, [dict(op.attrs) for op in ops]
+
+
+def _plain_norms(torch, kind, op_attrs, ins_list):
+    """Each tensor's two norms as the per-op lowering takes them (``torch.sum``
+    of f32 squares on the card): |p| and |r| (lamb) or |g| (lars_momentum),
+    [T, 2] f32."""
+    out = []
+    for a, ins in zip(op_attrs, ins_list):
+        p, g = ins["Param"][0].float(), ins["Grad"][0].float()
+        if kind == "lamb":
+            b1, b2, eps = a.get("beta1", 0.9), a.get("beta2", 0.999), a.get("epsilon", 1e-6)
+            m = b1 * ins["Moment1"][0] + (1 - b1) * g
+            v = b2 * ins["Moment2"][0] + (1 - b2) * g * g
+            q = (m / (1 - ins["Beta1Pow"][0])) / (torch.sqrt(v / (1 - ins["Beta2Pow"][0])) + eps) \
+                + a.get("weight_decay", 0.01) * p
+        else:
+            q = g
+        out.append(torch.stack([torch.sqrt(torch.sum(p * p)), torch.sqrt(torch.sum(q * q))]))
+    return torch.stack(out)
+
+
+def _given_norms(torch, kind, op_attrs, ins_list, ref, norms):
+    """What the kernel's second pass writes, computed with PyTorch's f32
+    elementwise ops from the kernel's own norms (``norms``, [T, 2]) and the
+    lowering's bit-exact moments (``ref``, lamb): ParamOut (and lars_momentum's
+    VelocityOut) of each op."""
+    outs = []
+    for t, (a, ins, r) in enumerate(zip(op_attrs, ins_list, ref)):
+        p = ins["Param"][0]
+        pf, lr = p.float(), ins["LearningRate"][0]
+        pn, qn = norms[t, 0:1], norms[t, 1:2]
+        if kind == "lamb":
+            m, v = r["Moment1Out"][0], r["Moment2Out"][0]
+            rr = (m / (1 - ins["Beta1Pow"][0])) / (torch.sqrt(v / (1 - ins["Beta2Pow"][0]))
+                                                   + a.get("epsilon", 1e-6)) \
+                + a.get("weight_decay", 0.01) * pf
+            trust = torch.where((pn > 0) & (qn > 0), pn / qn, torch.ones_like(pn))
+            outs.append({"ParamOut": (pf - (lr * trust) * rr).to(p.dtype)})
+        else:
+            coeff, decay = a.get("lars_coeff", 0.001), a.get("lars_weight_decay", 0.0005)
+            local = torch.where(pn > 0, lr * coeff * pn / (qn + decay * pn + 1e-12), lr)
+            vel = a.get("mu", 0.9) * ins["Velocity"][0] + local * (ins["Grad"][0].float()
+                                                                   + decay * pf)
+            outs.append({"ParamOut": (pf - vel).to(p.dtype), "VelocityOut": vel})
+    return outs
+
+
+def _lars_velocity_excess(torch, op_attrs, ins_list, outs, ref, norms):
+    """How far each lars_momentum VelocityOut lies beyond its bound (<= 0:
+    within): v' = mu v + L u (u = g + decay p, L the local learning rate) is
+    held to 4 f32 roundings of |mu v| + |L u| plus 2 NORM_REL of |L u|, the
+    error that L's norms (each within NORM_REL) and the sum's roundings allow.
+    Where the two terms cancel, that is many ulps of v' itself."""
+    worst = -1.0
+    for t, (a, ins, o, r) in enumerate(zip(op_attrs, ins_list, outs, ref)):
+        pf, lr = ins["Param"][0].float(), ins["LearningRate"][0]
+        pn, gn = norms[t, 0:1], norms[t, 1:2]
+        coeff, decay = a.get("lars_coeff", 0.001), a.get("lars_weight_decay", 0.0005)
+        local = torch.where(pn > 0, lr * coeff * pn / (gn + decay * pn + 1e-12), lr)
+        term = (local * (ins["Grad"][0].float() + decay * pf)).abs()
+        base = (a.get("mu", 0.9) * ins["Velocity"][0]).abs()
+        bound = 4 * 2.0 ** -24 * (base + term) + 2 * NORM_REL * term
+        diff = (o["VelocityOut"][0] - r["VelocityOut"][0]).abs()
+        worst = max(worst, float((diff - bound).max()))
+    return worst
+
+
+#: the normed kinds' limits against the per-op lowerings: the moments bit for
+#: bit (no reduction reaches them); each tensor's norms within 1e-6 relative
+#: of torch.sum's (two f32 sums of squares in other orders, each about 1e-7
+#: relative); ParamOut within 2 f32 ulps, 1 for a bf16 parameter (the update is
+#: ~1e-4 of the parameter, so a norm's 1e-6 moves its f32 value by well under
+#: an ulp, and a bf16 value by at most one rounding); lars_momentum's
+#: VelocityOut, a sum of two terms that can cancel, within its error bound
+#: (``_lars_velocity_excess``); bit for bit to the same arithmetic fed the
+#: kernel's own norms; two runs bit for bit
+NORM_REL, NORMED_F32_ULP, NORMED_BF16_ULP = 1e-6, 2, 1
+_NORMED_EXACT = {"lamb": ("Moment1Out", "Moment2Out", "Beta1PowOut", "Beta2PowOut"),
+                 "lars_momentum": ()}
+
+
+def _normed_checks(torch, kind, op_attrs, ins_list):
+    """A lamb / lars_momentum run through the kernel twice (with its norms
+    read back) and through the per-op lowerings, each on its own copy of the
+    inputs, held to the limits above."""
+    from paddle_tpu_torch.ops.multi_tensor import multi_tensor_update, update_plain
+    copies = [[{s: [t.clone() for t in v] for s, v in ins.items()} for ins in ins_list]
+              for _ in range(3)]
+    T = len(ins_list)
+    norms = [torch.empty((T, 2), dtype=torch.float32, device="cuda") for _ in range(2)]
+    outs = multi_tensor_update(kind, op_attrs, copies[0], norms=norms[0])
+    again = multi_tensor_update(kind, op_attrs, copies[1], norms=norms[1])
+    ref = update_plain(kind, op_attrs, copies[2])
+    plain = _plain_norms(torch, kind, op_attrs, ins_list)
+    given = _given_norms(torch, kind, op_attrs, ins_list, ref, norms[0])
+    torch.cuda.synchronize()
+    in_place = all(out["ParamOut"][0] is ins["Param"][0] for out, ins in zip(outs, copies[0]))
+    self_equal = torch.equal(norms[0], norms[1]) and all(
+        torch.equal(o[s][0], o2[s][0]) for o, o2 in zip(outs, again) for s in o)
+    norm_rel = float(((norms[0] - plain).abs() / plain.abs().clamp_min(1e-30)).max())
+    exact = all(torch.equal(o[s][0], r[s][0]) for o, r in zip(outs, ref)
+                for s in _NORMED_EXACT[kind])
+    given_equal = all(torch.equal(o[s][0], gv[s]) for o, gv in zip(outs, given) for s in gv)
+    ulp = {"float32": 0, "bfloat16": 0}
+    err, finite = 0.0, True
+    for o, r in zip(outs, ref):
+        a, b = o["ParamOut"][0], r["ParamOut"][0]
+        key = str(a.dtype)[6:]
+        ulp[key] = max(ulp[key], _max_ulp(torch, a, b))
+        for s in o:
+            err = max(err, (o[s][0].float() - r[s][0].float()).abs().max().item())
+            finite &= bool(torch.isfinite(o[s][0]).all())
+    velocity = None
+    if kind == "lars_momentum":
+        velocity = dict(
+            max_ulp=max(_max_ulp(torch, o["VelocityOut"][0], r["VelocityOut"][0])
+                        for o, r in zip(outs, ref)),
+            max_excess_over_bound=_lars_velocity_excess(torch, op_attrs, ins_list, outs, ref,
+                                                        norms[0]))
+    ok = (in_place and self_equal and exact and given_equal and finite
+          and norm_rel <= NORM_REL and ulp["float32"] <= NORMED_F32_ULP
+          and ulp["bfloat16"] <= NORMED_BF16_ULP
+          and (velocity is None or velocity["max_excess_over_bound"] <= 0))
+    del copies, outs, again, ref, given
+    return dict(in_place=in_place, two_runs_bit_equal=self_equal,
+                state_bit_exact=exact, exact_slots=list(_NORMED_EXACT[kind]),
+                bit_equal_given_kernel_norms=given_equal,
+                norm_max_rel_err=norm_rel, norm_rel_limit=NORM_REL, max_ulp=ulp,
+                velocity=velocity,
+                ulp_limits={"float32": NORMED_F32_ULP, "bfloat16": NORMED_BF16_ULP},
+                max_abs_err=err, ok=ok,
+                weight_decays=sorted({a.get("weight_decay", 0.01) for a in op_attrs})
+                if kind == "lamb" else None)
 
 
 def _wall_ms(torch, fn, runs=5):
@@ -1377,56 +1574,93 @@ def _host_ms(torch, fn, runs=5):
     return statistics.median(times)
 
 
+#: the multi_tensor_update.cu kernels a call launches (by name in a trace)
+KERNEL_NAMES = ("multi_tensor_kernel", "beta_pow_kernel", "norm_pass_kernel",
+                "apply_pass_kernel")
+
+
 def phase_multi_tensor(torch, programs):
     """multi_tensor_update over each model's parameter list against the
     per-op lowerings on the card (bit for bit), with times, the bound and
     PyTorch's fused optimizers as yardsticks."""
-    from paddle_tpu_torch.ops.multi_tensor import multi_tensor_update, update_plain
+    from paddle_tpu_torch.ops.multi_tensor import (LAUNCHES_PER_CALL, NORMED,
+                                                   multi_tensor_update, update_plain)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 7)
     results = []
     for model, program, kind in programs:
-        attrs, ins_list = _update_inputs(torch, program, kind, gen)
-        # the update is in place: the kernel twice and the per-op lowerings, each
-        # on its own copy of the inputs
-        copies = [[{s: [t.clone() for t in v] for s, v in ins.items()} for ins in ins_list]
-                  for _ in range(3)]
-        outs = multi_tensor_update(kind, attrs, copies[0])
-        again = multi_tensor_update(kind, attrs, copies[1])
-        ref = update_plain(kind, attrs, copies[2])
-        torch.cuda.synchronize()
-        in_place = all(out["ParamOut"][0] is ins["Param"][0]
-                       for out, ins in zip(outs, copies[0]))
-        exact, ulp, err, finite = in_place, 0, 0.0, True
-        for out, out2, r in zip(outs, again, ref):
-            for slot in r:
-                a, a2, b = out[slot][0], out2[slot][0], r[slot][0]
-                same = a.dtype == b.dtype and torch.equal(a, b) and torch.equal(a, a2)
-                exact &= same
-                finite &= bool(torch.isfinite(a).all())
-                if not same:
-                    ulp = max(ulp, _max_ulp(torch, a, b))
-                    err = max(err, (a.float() - b.float()).abs().max().item())
-        del outs, again, ref, copies
+        ins_list, op_attrs = _update_inputs(torch, program, kind, gen)
+        attrs = op_attrs[0]
+        normed = None
+        if kind in NORMED:
+            normed = _normed_checks(torch, kind, op_attrs, ins_list)
+            in_place, exact, ulp, err = (normed["in_place"], normed["ok"], normed["max_ulp"],
+                                         normed["max_abs_err"])
+            finite = True
+        else:
+            # the update is in place: the kernel twice and the per-op lowerings,
+            # each on its own copy of the inputs
+            copies = [[{s: [t.clone() for t in v] for s, v in ins.items()} for ins in ins_list]
+                      for _ in range(3)]
+            outs = multi_tensor_update(kind, op_attrs, copies[0])
+            again = multi_tensor_update(kind, op_attrs, copies[1])
+            ref = update_plain(kind, op_attrs, copies[2])
+            torch.cuda.synchronize()
+            in_place = all(out["ParamOut"][0] is ins["Param"][0]
+                           for out, ins in zip(outs, copies[0]))
+            exact, ulp, err, finite = in_place, 0, 0.0, True
+            for out, out2, r in zip(outs, again, ref):
+                for slot in r:
+                    a, a2, b = out[slot][0], out2[slot][0], r[slot][0]
+                    same = a.dtype == b.dtype and torch.equal(a, b) and torch.equal(a, a2)
+                    exact &= same
+                    finite &= bool(torch.isfinite(a).all())
+                    if not same:
+                        ulp = max(ulp, _max_ulp(torch, a, b))
+                        err = max(err, (a.float() - b.float()).abs().max().item())
+            del outs, again, ref, copies
+        call = lambda: multi_tensor_update(kind, op_attrs, ins_list)
+        plain_call = lambda: update_plain(kind, op_attrs, ins_list)
         # device times from the profiler: the host work of a call (the work table
         # for ~200 tensors, ~2,000 launches for the per-op path) outlasts any
         # queue of sleep a CUDA-event window could put before it
-        launches = _launch_times(torch, lambda: multi_tensor_update(kind, attrs, ins_list), 5)
-        ms = sum(x["ms_per_launch"] * x["launches_per_call"] for x in launches
-                 if "multi_tensor_kernel" in x["kernel"] or "beta_pow_kernel" in x["kernel"])
+        launches = _launch_times(torch, call, 5)
+        # the kernel launches of one call, counted in the graph that captures it
+        # and held to what the wrapper states (LAUNCHES_PER_CALL); the kernels
+        # line multiplies this count by each path's calls
+        counted = _graph_launches(torch, call, KERNEL_NAMES)
+        launches_per_call = sum(counted.values())
+        # a kernel's ms a call: its mean over the launches the trace kept, times
+        # its launches a call (late in the run a trace can lose its first record)
+        traced_ = {n: [x for x in launches if n in x["kernel"]] for n in KERNEL_NAMES}
+        trace_launches_per_call = sum(x["launches_per_call"] for v in traced_.values()
+                                      for x in v)
+        ms = sum(counted[n] * sum(x["ms_per_launch"] * x["launches_per_call"] for x in v)
+                 / sum(x["launches_per_call"] for x in v)
+                 for n, v in traced_.items() if v and counted[n])
+        ms_complete = all(traced_[n] for n in KERNEL_NAMES if counted[n])
         table_copy_ms = sum(x["ms_per_launch"] * x["launches_per_call"] for x in launches
                             if "Memcpy" in x["kernel"])
-        plain = _breakdown("update_plain", None, _launch_times(
-            torch, lambda: update_plain(kind, attrs, ins_list), 3))
+        plain = _breakdown("update_plain", None, _launch_times(torch, plain_call, 3))
         plain_ms, plain_launches = plain["device_ms_per_call"], plain["launches_per_call"]
-        wall_ms = _wall_ms(torch, lambda: multi_tensor_update(kind, attrs, ins_list))
-        host_ms = _host_ms(torch, lambda: multi_tensor_update(kind, attrs, ins_list))
-        plain_wall_ms = _wall_ms(torch, lambda: update_plain(kind, attrs, ins_list))
-        # bytes: read p, g and the state, write p and the state (the scalars are noise)
-        state = {"adam": 2, "momentum": 1, "sgd": 0}[kind]
+        wall_ms = _wall_ms(torch, call)
+        host_ms = _host_ms(torch, call)
+        plain_wall_ms = _wall_ms(torch, plain_call)
+        # bytes the function must move: read p, g and the state, write p and the
+        # state (the scalars are noise)
+        state = {"adam": 2, "momentum": 1, "sgd": 0, "lamb": 2, "lars_momentum": 1}[kind]
         nbytes = sum(ins["Param"][0].numel() * (2 * ins["Param"][0].element_size()
                                                 + ins["Grad"][0].element_size() + 8 * state)
                      for ins in ins_list)
+        # what the two-pass design moves: lamb reads p, g, m, v and writes m, v, then
+        # reads p, m, v and writes p; lars_momentum reads p and g, then p, g, v and
+        # writes v and p
+        pe = lambda ins: ins["Param"][0].element_size()
+        ge = lambda ins: ins["Grad"][0].element_size()
+        design = {"lamb": lambda ins: 3 * pe(ins) + ge(ins) + 24,
+                  "lars_momentum": lambda ins: 3 * pe(ins) + 2 * ge(ins) + 8}
+        design_bytes = sum(ins["Param"][0].numel() * design[kind](ins)
+                           for ins in ins_list) if kind in design else None
         n = sum(ins["Param"][0].numel() for ins in ins_list)
         # yardstick: PyTorch's fused optimizer on f32 copies (its kernel takes one dtype
         # for a parameter and its state); Paddle's Adam adds eps to sqrt(v) after the
@@ -1434,22 +1668,22 @@ def phase_multi_tensor(torch, programs):
         copies = lambda k: [ins[k][0].float().clone() for ins in ins_list] \
             if k in ins_list[0] else []
         ps, gs = copies("Param"), copies("Grad")
-        ms_ = copies("Moment1" if kind == "adam" else "Velocity")
+        ms_ = copies("Moment1" if kind in ("adam", "lamb") else "Velocity")
         vs = copies("Moment2")
         library, library_ms, library_error = None, None, None
         try:
-            if kind == "adam":
+            if kind in ("adam", "lamb"):
                 library = "torch._fused_adam_ (f32 copies)"
                 steps = [torch.ones((), device="cuda") for _ in ps]
                 fn = lambda: torch._fused_adam_(ps, gs, ms_, vs, [], steps, lr=1e-4,
                                                 beta1=attrs["beta1"], beta2=attrs["beta2"],
                                                 weight_decay=0.0, eps=attrs["epsilon"],
                                                 amsgrad=False, maximize=False)
-            elif kind == "momentum":
+            elif kind in ("momentum", "lars_momentum"):
                 library = "torch._fused_sgd_ (f32 copies)"
                 fn = lambda: torch._fused_sgd_(ps, gs, ms_, weight_decay=0.0,
                                                momentum=attrs["mu"], lr=0.1, dampening=0.0,
-                                               nesterov=bool(attrs["use_nesterov"]),
+                                               nesterov=bool(attrs.get("use_nesterov", False)),
                                                maximize=False, is_first_step=False)
             else:
                 library = "torch._fused_sgd_ without momentum (f32 copies)"
@@ -1461,23 +1695,36 @@ def phase_multi_tensor(torch, programs):
         except (RuntimeError, TypeError) as e:      # a yardstick only: record why
             library_error = f"{type(e).__name__}: {e}"[:200]
         del ps, gs, ms_, vs
+        yardstick_ms = None
+        if kind in NORMED:
+            # no PyTorch call computes LAMB or LARS: the fused Adam / SGD is a yardstick
+            yardstick, yardstick_ms = library, library_ms
+            library, library_ms = ("none (no single PyTorch call computes it); yardstick "
+                                   + yardstick), None
         r = dict(model=model, kind=kind, attrs=attrs, tensors=len(ins_list), elements=n,
                  param_dtypes=sorted({str(ins["Param"][0].dtype)[6:] for ins in ins_list}),
                  in_place=in_place, bit_exact=exact, max_ulp=ulp, max_abs_err=err,
-                 ok=exact and finite and ms > 0,
+                 launches_per_call=launches_per_call,
+                 launches_per_call_stated=LAUNCHES_PER_CALL[kind],
+                 trace_launches_per_call=trace_launches_per_call,
+                 ok=exact and finite and ms > 0 and ms_complete
+                 and launches_per_call == LAUNCHES_PER_CALL[kind],
                  ms=ms, table_copy_ms=table_copy_ms, plain_ms=plain_ms,
                  plain_launches_per_call=plain_launches, wall_ms=wall_ms, host_ms=host_ms,
                  plain_wall_ms=plain_wall_ms,
                  bytes=nbytes,
                  bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-                 library=library, library_ms=library_ms, library_error=library_error)
+                 library=library, library_ms=library_ms, library_error=library_error,
+                 yardstick_ms=yardstick_ms, normed=normed, design_bytes=design_bytes,
+                 design_bytes_ms=design_bytes / HBM_BYTES_PER_S * 1e3 if design_bytes else None)
         emit("kernel_vs_plain", kernel="multi_tensor_update", **r)
         results.append(r)
         del ins_list
         torch.cuda.empty_cache()
     bad = [r for r in results if not r["ok"]]
     if bad:
-        raise SystemExit(f"multi_tensor_update is not bit-exact to the per-op lowerings: {bad}")
+        raise SystemExit(f"multi_tensor_update parts from the per-op lowerings beyond its "
+                         f"limits: {bad}")
     return results
 
 
@@ -3057,7 +3304,8 @@ def _vgg_serve(torch, pt, workdir):
 def _update_kind(program):
     """The one optimizer op type of ``program`` that ``multi_tensor_update``
     groups."""
-    kinds = {op.type for op in program.global_block().ops} & {"adam", "momentum", "sgd"}
+    from paddle_tpu_torch.ops.multi_tensor import GROUPED
+    kinds = {op.type for op in program.global_block().ops} & set(GROUPED)
     if len(kinds) != 1:
         raise SystemExit(f"expected one optimizer op type, found {sorted(kinds)}")
     return kinds.pop()
@@ -3121,26 +3369,33 @@ LR_COUNTER = "@LR_DECAY_COUNTER@"
 def _lr_var(main):
     """The learning-rate variable the update ops read."""
     return next(op for op in main.global_block().ops
-                if op.type == "adam").input("LearningRate")[0]
+                if op.type in ("adam", "lamb", "momentum", "lars_momentum", "sgd")
+                ).input("LearningRate")[0]
 
 
 def _scheduled_model(torch, pt, label, main, startup, feed, loss, expected, counter0,
-                     per_run, closed_form, constant):
+                     per_run, closed_form, constant, init=None, final=None,
+                     event="scheduled_training"):
     """One model under a schedule: SCHED_STEPS steps on the eager executor,
     on the graph executor (warm-up, capture, replays) and in one
-    ``run_fused`` call, each from the startup state with the counter at
-    ``counter0``: the learning rate, the counter and the loss of every step
-    and every state tensor, bit for bit across the three; the learning rate
-    against ``closed_form(counter before the step)``; the counter advancing
-    ``per_run`` a run; the launches of each path; the multi-tensor work
-    tables each path built. Then the graph and eager step timed and
-    profiled beside ``constant`` (the constant-LR program's timed paths,
-    measured earlier in this call)."""
+    ``run_fused`` call, each from the startup state (or ``init``) with the
+    counter at ``counter0``: the learning rate, the counter and the loss of
+    every step and every state tensor, bit for bit across the three; the
+    learning rate against ``closed_form(counter before the step)``; the
+    counter advancing ``per_run`` a run; the launches of each path; the
+    multi-tensor work tables each path built. Then the graph and eager step
+    timed and profiled beside ``constant`` (the constant-LR program's timed
+    paths, measured earlier in this call). ``counter0`` None: a constant
+    learning rate (no counter; the learning rate is still fetched and held
+    across the paths). ``final``, a dict, receives the eager path's state
+    after its steps."""
     from paddle_tpu_torch.core import cuda_build
     from paddle_tpu_torch.ops import multi_tensor
-    init = _startup_state(pt, main, startup)
-    init[LR_COUNTER] = torch.full((1,), counter0, dtype=torch.int64, device="cuda")
-    fetch = [loss, _lr_var(main), LR_COUNTER]
+    init = dict(init) if init is not None else _startup_state(pt, main, startup)
+    fetch = [loss, _lr_var(main)]
+    if counter0 is not None:
+        init[LR_COUNTER] = torch.full((1,), counter0, dtype=torch.int64, device="cuda")
+        fetch.append(LR_COUNTER)
     runs, launches, tables = {}, {}, {}
     for path in ("eager", "graph", "fused"):
         exe = pt.Executor()
@@ -3167,18 +3422,23 @@ def _scheduled_model(torch, pt, label, main, startup, feed, loss, expected, coun
         exe.close()
         del exe, scope
     (e_outs, e_state) = runs["eager"]
+    if final is not None:
+        final.update(e_state)
     lrs = {p: [float(o[1].reshape(-1)[0]) for o in runs[p][0]] for p in runs}
-    counters = {p: [int(o[2].reshape(-1)[0]) for o in runs[p][0]] for p in runs}
     losses = {p: [float(o[0].float().reshape(-1)[0]) for o in runs[p][0]] for p in runs}
-    want_counters = [counter0 + per_run * (i + 1) for i in range(SCHED_STEPS)]
-    closed = [closed_form(counter0 + per_run * i) for i in range(SCHED_STEPS)]
-    lr_rel = max(abs(a - b) / abs(b) for a, b in zip(lrs["graph"], closed))
+    if counter0 is not None:
+        counters = {p: [int(o[2].reshape(-1)[0]) for o in runs[p][0]] for p in runs}
+        want_counters = [counter0 + per_run * (i + 1) for i in range(SCHED_STEPS)]
+        closed = [closed_form(counter0 + per_run * i) for i in range(SCHED_STEPS)]
+        lr_rel = max(abs(a - b) / abs(b) for a, b in zip(lrs["graph"], closed))
+        final_counter = {p: int(runs[p][1][LR_COUNTER].reshape(-1)[0]) for p in runs}
+    else:
+        counters = want_counters = closed = lr_rel = final_counter = None
     across = {p: dict(lr_bit_equal=all(torch.equal(a[1], b[1]) for a, b in zip(runs[p][0], e_outs)),
                       loss_bit_equal=all(torch.equal(a[0], b[0])
                                          for a, b in zip(runs[p][0], e_outs)),
                       state_differs=len(_state_equal(torch, runs[p][1], e_state)))
               for p in ("graph", "fused")}
-    final_counter = {p: int(runs[p][1][LR_COUNTER].reshape(-1)[0]) for p in runs}
     del runs, e_outs, e_state
     paths = {("graph" if g else "eager"): _timed_path(torch, pt, main, feed, loss, init, g, True)
              for g in (True, False)}
@@ -3196,8 +3456,9 @@ def _scheduled_model(torch, pt, label, main, startup, feed, loss, expected, coun
              constant_lr_device_activities_per_step={
                  p: constant[p]["device_activities_per_step"] for p in constant},
              idle_share_unprofiled={p: paths[p]["idle_share_unprofiled"] for p in paths},
-             paths=paths)
-    emit("scheduled_training", **{k: v for k, v in r.items() if k != "paths"})
+             graph_pool_gb=paths["graph"]["graph_pool_gb"],
+             eager_peak_gb=paths["eager"]["peak_gb"], paths=paths)
+    emit(event, **{k: v for k, v in r.items() if k != "paths"})
     per_step = {k: v * SCHED_STEPS for k, v in expected.items()}
     for path, got in launches.items():
         if {k: got.get(k, 0) for k in per_step} != per_step:
@@ -3207,6 +3468,8 @@ def _scheduled_model(torch, pt, label, main, startup, feed, loss, expected, coun
     for p, a in across.items():
         if not (a["lr_bit_equal"] and a["loss_bit_equal"] and a["state_differs"] == 0):
             raise SystemExit(f"{label}: the {p} path parts from the eager one: {a}")
+    if counter0 is None:
+        return r
     if any(c != want_counters for c in counters.values()) or \
             any(c != want_counters[-1] for c in final_counter.values()):
         raise SystemExit(f"{label}: counters {counters} / {final_counter}, expected "
@@ -3237,9 +3500,9 @@ def _scheduled_step1_vs_cpu(torch, pt, prog, tot, params, init, feed, loss_rel, 
 def _op_cases_on_card(torch):
     """Every case of ``tools/op_cases.py`` on the card against the CPU port,
     forward and (where the op is differentiable) the generic grad, with the
-    case's tolerances; each case whose gradient or update adds rows by
-    index twice on the card, bit for bit; the random ops by their
-    statistics."""
+    case's tolerances (the 13 update ops' cases among them); each case whose
+    gradient or update adds rows by index twice on the card, bit for bit;
+    the random ops and ``dpsgd``'s noise by their statistics."""
     from paddle_tpu_torch.core import registry
     from paddle_tpu_torch.tools import op_cases
 
@@ -3290,7 +3553,16 @@ def _op_cases_on_card(torch):
         if why is not None or str(out.dtype) != f"torch.{dtype}":
             raise SystemExit(f"{op} on the card: {why or out.dtype}")
         randoms[op] = dict(mean=float(out.double().mean()), std=float(out.double().std()))
-    ops = sorted({c.op for c in op_cases.CASES.values()} | set(op_cases.RANDOM_CASES))
+    for op, (ins, attrs) in sorted(op_cases.NOISE_CASES.items()):    # dpsgd
+        out = registry.get(op).lower(
+            registry.LowerCtx(dict(attrs), "cuda", seed=SEED, counter=1),
+            {k: [torch.from_numpy(a).cuda() for a in v] for k, v in ins.items()})["ParamOut"][0]
+        why = op_cases.noise_stats(op, out.cpu().numpy())
+        if why is not None:
+            raise SystemExit(f"{op} on the card: {why}")
+        randoms[op] = dict(noise_stats="held")
+    ops = sorted({c.op for c in op_cases.CASES.values()} | set(op_cases.RANDOM_CASES)
+                 | set(op_cases.NOISE_CASES))
     r = dict(cases=len(op_cases.CASES), op_types=len(ops), grads=n_grads,
              forward_max_abs_err=fwd_err, grad_max_abs_err=grad_err,
              repeated_bit_for_bit=repeats, random=randoms)
@@ -3390,6 +3662,303 @@ def phase_scheduled_training(torch, constant_bert=None, constant_nmt=None):
     return bert_r, nmt_r, cases
 
 
+# Phase 18: the optimizer surface. A: BERT-base pretraining under LAMB and BERT's
+# schedule; B: A under RecomputeOptimizer (a checkpoint at each encoder layer's
+# output); C: ResNet-50 under LarsMomentum; D: the MNIST MLP under each update
+# class and each averaging wrapper.
+# B against A, eager path against eager path after SCHED_STEPS steps from one
+# state: the same ops, except that B's backward takes autograd over a whole
+# segment, which adds a residual's gradients in another order than the per-op
+# graphs' ``sum`` ops; in bf16 that moves a gradient by an ulp, and LAMB's early
+# update m / sqrt(v) turns such a gradient's sign, so phase 5's limits of two
+# bf16 paths hold it (loss 1e-2 relative, update 0.1 of sum |update|).
+RECOMPUTE_LOSS_REL, RECOMPUTE_UPDATE_REL = TRAIN_LOSS_REL, TRAIN_UPDATE_REL
+#: path D: steps on each executor, and each class (learning rates at which the
+#: MLP's loss falls over the steps on its repeated batch; Adadelta takes none).
+#: Ftrl has l2 > 0: with l2 0 the reference's arithmetic divides 0 by 0 where a
+#: gradient element and its squared accumulator are both 0 (a dead ReLU unit's
+#: weights; ROADMAP fault 3.9), and the port keeps the reference's arithmetic
+MNIST_OPT_STEPS = 6
+MNIST_OPTIMIZERS = (
+    ("AdamW", lambda pt: pt.optimizer.AdamW(1e-3)),
+    ("Adagrad", lambda pt: pt.optimizer.Adagrad(1e-3)),
+    ("Adamax", lambda pt: pt.optimizer.Adamax(1e-3)),
+    ("Adadelta", lambda pt: pt.optimizer.Adadelta(1.0)),
+    ("RMSProp centered", lambda pt: pt.optimizer.RMSProp(1e-4, centered=True)),
+    ("Ftrl", lambda pt: pt.optimizer.Ftrl(1e-3, l2=1e-4)),
+    ("DecayedAdagrad", lambda pt: pt.optimizer.DecayedAdagrad(1e-3)),
+    ("Lamb", lambda pt: pt.optimizer.Lamb(1e-2)),
+    ("LarsMomentum", lambda pt: pt.optimizer.LarsMomentum(0.1, 0.9)),
+)
+MNIST_WRAPPERS = ("ExponentialMovingAverage", "ModelAverage", "LookaheadOptimizer")
+
+
+def _segment_dropouts(program):
+    """(dropout ops in the global block, dropout ops in sub-blocks), training
+    mode only."""
+    count = lambda ops: sum(op.type == "dropout" and not op.attr("is_test", False) for op in ops)
+    return (count(program.global_block().ops),
+            sum(count(blk.ops) for blk in program.blocks[1:]))
+
+
+def _lamb_bert(torch, pt, cfg, feed, constant, recompute, init):
+    """Path A (``recompute`` False) or B: BERT-base under LAMB and BERT's
+    schedule through ``_scheduled_model``, then step 1 against the CPU port
+    at batch 2. Returns (result, the eager path's final state)."""
+    from paddle_tpu_torch.tools.train_profile import (BATCH, LR, MASKS_PER_SEQ, SEQ,
+                                                      bert_schedule, bert_schedule_lr,
+                                                      build_pretrain, lamb, pretrain_feed)
+    main, startup, total, pg = build_pretrain(cfg, BATCH, SEQ, MASKS_PER_SEQ, LR, SEED,
+                                              schedule=bert_schedule, optimizer=lamb,
+                                              checkpoints=recompute)
+    ops = [op.type for op in main.global_block().ops]
+    segments = ops.count("remat_segment")
+    if ops.count("lamb") != len(pg) or segments != (cfg.n_layers if recompute else 0):
+        raise SystemExit(f"LAMB BERT program: {ops.count('lamb')} lamb ops for {len(pg)} "
+                         f"parameters, {segments} remat segments")
+    glob, sub = _segment_dropouts(main)
+    per_layer = 2 if recompute else 1
+    expected = {"flash_attn_fwd": cfg.n_layers * per_layer, "flash_attn_bwd": cfg.n_layers,
+                "multi_tensor_update": 1, "dropout_fwd": glob + 2 * sub}
+    if init is None:
+        init = _startup_state(pt, main, startup)
+    elif set(_startup_state(pt, main, startup)) != set(init):
+        raise SystemExit("the recompute program names its state otherwise than path A's")
+    final = {}
+    label = (f"bert-base pretrain bf16 B{BATCH} S{SEQ} dropout {cfg.dropout} "
+             f"{'RecomputeOptimizer(' if recompute else ''}Lamb at its defaults, LayerNorm "
+             f"excluded from weight decay{')' if recompute else ''}, under BERT's schedule")
+    r = _scheduled_model(torch, pt, label, main, startup, feed, total, expected, BERT_COUNTER0,
+                         2, bert_schedule_lr, constant, init=init, final=final,
+                         event="optimizer_training")
+    wds = [op.attr("weight_decay") for op in main.global_block().ops if op.type == "lamb"]
+    r.update(path="B" if recompute else "A", lamb_ops=len(wds),
+             excluded_from_weight_decay=wds.count(0.0), remat_segments=segments)
+    del main, startup
+    torch.cuda.empty_cache()
+    prog, _, tot, pg2 = build_pretrain(cfg, 2, SEQ, MASKS_PER_SEQ, LR, SEED,
+                                       schedule=bert_schedule, optimizer=lamb,
+                                       checkpoints=recompute)
+    _hidden_dropout_off(prog)
+    feed2 = pretrain_feed(np.random.RandomState(SEED + 1), cfg, 2, SEQ, MASKS_PER_SEQ)
+    r["step1_card_vs_cpu_batch2"] = _scheduled_step1_vs_cpu(
+        torch, pt, prog, tot, [p.name for p, _ in pg2], init, feed2, TRAIN_LOSS_REL,
+        TRAIN_UPDATE_REL, BERT_COUNTER0)
+    emit("optimizer_step1", path=r["path"], **r["step1_card_vs_cpu_batch2"])
+    del prog
+    torch.cuda.empty_cache()
+    return r, final, init
+
+
+def _lars_resnet(torch, pt, constant):
+    """Path C: ResNet-50 under LarsMomentum through ``_scheduled_model`` (a
+    constant learning rate), then step 1 against the CPU port at batch 2:
+    the bf16 program's loss, and the f32 build's loss and first velocity
+    (phase 8's f32-update rule, ROADMAP fault 3.6)."""
+    from paddle_tpu_torch.tools.train_profile import build_resnet50, lars
+    main, startup, loss, pg, fused = build_resnet50(optimizer=lars)
+    if [op.type for op in main.global_block().ops].count("lars_momentum") != len(pg):
+        raise SystemExit("LARS ResNet-50 program: one lars_momentum op per parameter expected")
+    feed = _resnet_feed(torch, np.random.RandomState(SEED), RESNET_BATCH, "cuda")
+    init = _startup_state(pt, main, startup)
+    r = _scheduled_model(
+        torch, pt, f"resnet50 NHWC s2d bf16 B{RESNET_BATCH} 224x224 LarsMomentum(0.1, 0.9) "
+        f"at its defaults, {fused} conv+bn chains fused", main, startup, feed, loss,
+        {"fused_conv1x1_bn_fwd": fused, "multi_tensor_update": 1}, None, None, None, constant,
+        init=init, event="optimizer_training")
+    r.update(path="C", lars_ops=len(pg))
+    if not all(np.isfinite(r["losses"]["eager"])) or \
+            not r["losses"]["eager"][-1] < r["losses"]["eager"][0]:
+        raise SystemExit(f"LARS ResNet-50: losses {r['losses']['eager']} not finite and falling")
+    del main, startup, feed
+    torch.cuda.empty_cache()
+    feed2 = _resnet_feed(torch, np.random.RandomState(SEED + 1), 2, "cpu")
+    gaps = {}
+    for dt in ("bfloat16", "float32"):
+        if dt == "bfloat16":
+            prog, _, prog_loss, _, _ = build_resnet50(optimizer=lars)
+            ini = init
+        else:
+            prog, _, prog_loss, _, _ = build_resnet50(dtype=dt, optimizer=lars)
+            ini = {n: t.float() if t.is_floating_point() else t for n, t in init.items()}
+        fd2 = {"img": feed2["img"].to(getattr(torch, dt)), "label": feed2["label"]}
+        t0 = time.perf_counter()
+        cpu_run = _resnet_step1(torch, pt, prog, prog_loss, {n: t.cpu() for n, t in ini.items()},
+                                fd2, "cpu")
+        cpu_s = time.perf_counter() - t0
+        card_run = _resnet_step1(torch, pt, prog, prog_loss, ini,
+                                 {k: v.to("cuda") for k, v in fd2.items()}, "cuda")
+        gaps[dt] = dict(_resnet_gaps(card_run, cpu_run), cpu_seconds=cpu_s)
+        del prog, card_run, cpu_run
+        torch.cuda.empty_cache()
+    r["step1_card_vs_cpu_batch2"] = gaps
+    emit("optimizer_step1", path="C", **gaps, loss_rel_limit=RESNET_LOSS_REL,
+         update_rel_l1_limit_f32=RESNET_UPDATE_REL)
+    for dt, g in gaps.items():
+        held = g["loss_rel_gap"] <= RESNET_LOSS_REL
+        if dt == "float32":
+            held = held and g["update_rel_l1_gap"] <= RESNET_UPDATE_REL
+        if not held:
+            raise SystemExit(f"LARS ResNet-50 step 1 ({dt}) card vs CPU: {g} exceeds the limits")
+    return r
+
+
+class _ThenUpdate:
+    """Adam's ``minimize``, then an averaging wrapper's ``update()`` (its
+    in-graph ops after the update's)."""
+
+    def __init__(self, pt, wrapper):
+        self.pt, self.wrapper = pt, wrapper
+
+    def minimize(self, loss):
+        out = self.pt.optimizer.Adam(1e-3).minimize(loss)
+        self.wrapper.update()
+        return out
+
+
+def _apply_vs_numpy(torch, pt, scope, wrapper):
+    """``apply()`` against numpy's arithmetic over the scope's values (bit
+    for bit: one f32 division each), then ``restore()`` back to the trained
+    values (bit for bit); the parameters' tensors stay the ones the scope
+    held (written in place)."""
+    params = wrapper._shadow if hasattr(wrapper, "_shadow") else wrapper._sums
+    held = {p: scope.find_var(p) for p in params}
+    trained = {p: t.clone() for p, t in held.items()}
+    if hasattr(wrapper, "_shadow"):
+        pw = np.float32(scope.find_var(wrapper._decay_pow_name).cpu().numpy()[0])
+        den = np.float32(1.0) - pw if pw < 1 else np.float32(1.0)
+        want = {p: scope.find_var(s).cpu().numpy() / den for p, s in params.items()}
+    else:
+        cnt = np.float32(scope.find_var(wrapper._count).cpu().numpy()[0])
+        want = {p: scope.find_var(s).cpu().numpy() / cnt for p, s in params.items()}
+    with pt.scope_guard(scope):
+        with wrapper.apply():
+            applied = all(np.array_equal(scope.find_var(p).cpu().numpy(), w)
+                          for p, w in want.items())
+            in_place = all(scope.find_var(p) is t for p, t in held.items())
+    restored = all(torch.equal(scope.find_var(p), t) for p, t in trained.items())
+    return dict(apply_equals_numpy=applied, written_in_place=in_place,
+                restore_bit_equal=restored)
+
+
+def _mnist_optimizers(torch, pt):
+    """Path D: the MNIST MLP (``build_mnist``, B 256) under each class of
+    ``MNIST_OPTIMIZERS`` and, over ``Adam(1e-3)``, each wrapper: graph
+    against eager over MNIST_OPT_STEPS steps from one state (losses and
+    every state tensor bit for bit), the loss finite and falling,
+    ``multi_tensor_update`` once a step where the class has a kind; the
+    wrappers' ``apply()`` / ``restore()`` against numpy over the scope on
+    both paths, then one more step on each, still bit for bit."""
+    from paddle_tpu_torch.core import cuda_build
+    from paddle_tpu_torch.ops import multi_tensor
+    from paddle_tpu_torch.tools.train_profile import build_mnist, mnist_feed
+    feed = {k: torch.from_numpy(v).cuda() for k, v in mnist_feed(np.random.RandomState(SEED)).items()}
+    results = []
+    cases = [(n, make, None) for n, make in MNIST_OPTIMIZERS] + [(w, None, w) for w in MNIST_WRAPPERS]
+    for name, make, wrap in cases:
+        holder = {}
+
+        def optimizer(pt_, make=make, wrap=wrap):
+            if make is not None:
+                return make(pt_)
+            if wrap == "LookaheadOptimizer":
+                return pt_.optimizer.LookaheadOptimizer(pt_.optimizer.Adam(1e-3), alpha=0.5, k=3)
+            holder["w"] = (pt_.optimizer.ExponentialMovingAverage(0.9) if wrap.startswith("Exp")
+                           else pt_.optimizer.ModelAverage())
+            return _ThenUpdate(pt_, holder["w"])
+
+        main, startup, loss, _, _ = build_mnist(optimizer=optimizer)
+        kind = next((op.type for op in main.global_block().ops
+                     if op.type in multi_tensor.GROUPED), None)
+        init = _startup_state(pt, main, startup)
+        runs, launches = {}, {}
+        for path in ("eager", "graph"):
+            exe = pt.Executor()
+            exe._use_graphs = path == "graph"
+            for fn in cuda_build.COUNTED:
+                fn.launches = 0
+            outs, state, scope = _steps(pt, exe, main, feed, [loss], init, MNIST_OPT_STEPS)
+            torch.cuda.synchronize()
+            launches[path] = multi_tensor.multi_tensor_update.launches
+            extra = {}
+            if "w" in holder:
+                extra = _apply_vs_numpy(torch, pt, scope, holder["w"])
+                with pt.scope_guard(scope):
+                    outs.append(exe.run(main, feed=feed, fetch_list=[loss], return_numpy=False))
+            runs[path] = ([o[0].clone() for o in outs],
+                          {n: scope.find_var(n).clone() for n in init}, extra)
+            exe.close()
+            del exe, scope
+        (e_l, e_s, e_x), (g_l, g_s, g_x) = runs["eager"], runs["graph"]
+        losses = [float(x.reshape(-1)[0]) for x in g_l]
+        want = MNIST_OPT_STEPS if kind is not None else 0
+        r = dict(optimizer=name, kind=kind, losses=losses,
+                 loss_bit_equal=all(torch.equal(a, b) for a, b in zip(g_l, e_l)),
+                 state_differs=len(_state_equal(torch, g_s, e_s)),
+                 multi_tensor_update_launches=launches, expected_launches=want,
+                 apply_restore={"eager": e_x, "graph": g_x} if e_x else None)
+        emit("optimizer_mnist", **r)
+        if not (r["loss_bit_equal"] and r["state_differs"] == 0):
+            raise SystemExit(f"MNIST MLP under {name}: graph parts from eager: {r}")
+        if not (np.isfinite(losses).all() and losses[MNIST_OPT_STEPS - 1] < losses[0]):
+            raise SystemExit(f"MNIST MLP under {name}: losses {losses} not finite and falling")
+        if any(v != want for v in launches.values()):
+            raise SystemExit(f"MNIST MLP under {name}: multi_tensor_update {launches}, "
+                             f"expected {want}")
+        if e_x and not all(all(x.values()) for x in (e_x, g_x)):
+            raise SystemExit(f"MNIST MLP under {name}: apply()/restore() {e_x} / {g_x}")
+        results.append(r)
+        del main, startup, init, runs
+    return results
+
+
+def phase_optimizers(torch, constant_bert=None, constant_resnet=None):
+    """Phase 18: paths A, B, C and D, each full-width path beside its
+    constant-LR Adam / Momentum step of this call (``constant_*``: the timed
+    paths of phase 11; timed here when not given, for a run of this phase
+    alone)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.tools.train_profile import (BATCH, LR, MASKS_PER_SEQ, SEQ,
+                                                      build_pretrain, build_resnet50,
+                                                      pretrain_feed)
+    cfg = bert.BertConfig(dtype="bfloat16", dropout=ATTN_DROPOUT)
+    feed = pretrain_feed(np.random.RandomState(SEED), cfg, BATCH, SEQ, MASKS_PER_SEQ)
+    feed = {k: torch.from_numpy(v).cuda() for k, v in feed.items()}
+    if constant_bert is None:
+        constant_bert = _constant_paths(torch, pt, lambda: build_pretrain(
+            cfg, BATCH, SEQ, MASKS_PER_SEQ, LR, SEED)[:3] + (feed,))
+    a, a_final, init = _lamb_bert(torch, pt, cfg, feed, constant_bert, False, None)
+    b, b_final, _ = _lamb_bert(torch, pt, cfg, feed, constant_bert, True, init)
+    bit_equal = all(torch.equal(a_final[n], b_final[n]) for n in a_final)
+    la, lb = a["losses"]["eager"], b["losses"]["eager"]
+    pool_a, pool_b = max(a["graph_pool_gb"]), max(b["graph_pool_gb"])
+    vs = dict(losses_a=la, losses_b=lb, state_bit_equal=bit_equal,
+              loss_rel_gap=max(abs(x - y) / abs(y) for x, y in zip(lb, la)),
+              update_rel_l1_gap=_update_gap(init, b_final, a_final),
+              loss_rel_limit=RECOMPUTE_LOSS_REL, update_rel_l1_limit=RECOMPUTE_UPDATE_REL,
+              graph_pool_gb={"A": pool_a, "B": pool_b},
+              eager_peak_gb={"A": a["eager_peak_gb"], "B": b["eager_peak_gb"]},
+              step_ms={"A": a["step_ms"], "B": b["step_ms"]})
+    emit("recompute_vs_plain", **vs)
+    del a_final, b_final, init, feed
+    torch.cuda.empty_cache()
+    if not (vs["loss_rel_gap"] <= RECOMPUTE_LOSS_REL
+            and vs["update_rel_l1_gap"] <= RECOMPUTE_UPDATE_REL):
+        raise SystemExit(f"recompute (B) parts from LAMB (A) beyond the limits: {vs}")
+    if not pool_b < pool_a:
+        raise SystemExit(f"recompute did not cut the graph pool: B {pool_b} GB, A {pool_a} GB")
+    if constant_resnet is None:
+        def build():
+            main, startup, loss, _, _ = build_resnet50()
+            return main, startup, loss, _resnet_feed(torch, np.random.RandomState(SEED),
+                                                     RESNET_BATCH, "cuda")
+        constant_resnet = _constant_paths(torch, pt, build)
+    c = _lars_resnet(torch, pt, constant_resnet)
+    d = _mnist_optimizers(torch, pt)
+    return a, b, vs, c, d
+
+
 def phase_main_path(torch, workdir):
     """The serving path (phase 4)."""
     from paddle_tpu_torch.inference import Predictor
@@ -3485,8 +4054,8 @@ def main() -> int:
     from paddle_tpu_torch.models.bert import BertConfig
     from paddle_tpu_torch.tools.train_profile import (LR, MASKS_PER_SEQ, NMT_SEQ, SEQ,
                                                       build_deepfm, build_mnist, build_pretrain,
-                                                      build_resnet50, build_transformer,
-                                                      transformer_config)
+                                                      build_resnet50, build_transformer, lamb,
+                                                      lars, transformer_config)
 
     t_start = time.perf_counter()
     smi = phase_device(torch)
@@ -3517,8 +4086,14 @@ def main() -> int:
                                       ("mnist mlp", build_mnist(batch=2)[0], "sgd"),
                                       ("transformer-base",
                                        build_transformer(transformer_config(), 2, NMT_SEQ)[0],
-                                       "adam")] + book_update_lists(chapters))
-    mres, book_mres = mres[:5], mres[5:]
+                                       "adam"),
+                                      ("bert-base lamb", build_pretrain(
+                                          BertConfig(dtype="bfloat16", dropout=ATTN_DROPOUT), 2,
+                                          SEQ, MASKS_PER_SEQ, LR, SEED, optimizer=lamb)[0],
+                                       "lamb"),
+                                      ("resnet50 lars", build_resnet50(optimizer=lars)[0],
+                                       "lars_momentum")] + book_update_lists(chapters))
+    mres, normed_mres, book_mres = mres[:5], mres[5:7], mres[7:]
     del bert_prog
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
     try:
@@ -3554,6 +4129,13 @@ def main() -> int:
                                                               nmt_train["paths"])
     sched_l = {"scheduled_bert_training": sched_bert["launches"]["graph"],
                "scheduled_transformer_training": sched_nmt["launches"]["graph"]}
+    torch.cuda.empty_cache()
+    opt_a, opt_b, recompute_vs, opt_c, opt_d = phase_optimizers(torch, cap_bert["paths"],
+                                                                cap_resnet["paths"])
+    opt_l = {"lamb_bert_training": opt_a["launches"]["graph"],
+             "recompute_lamb_bert_training": opt_b["launches"]["graph"],
+             "lars_resnet50_training": opt_c["launches"]["graph"]}
+    mnist_opt_launches = sum(r["multi_tensor_update_launches"]["graph"] for r in opt_d)
     book_launches = {c["chapter"]: c["train_launches"] for c in book_chapters}
     e2e_launches = e2e["epochs"]["prefetch"]["multi_tensor_update_launches"]
     ctr_launches = ctr["launches"]["graph"]["multi_tensor_update"]
@@ -3577,7 +4159,38 @@ def main() -> int:
                      "transformer_training": nmt_launches["dropout_fwd"],
                      "image_classification_training":
                          book_launches["image_classification"]["dropout_fwd"],
-                     **{k: v["dropout_fwd"] for k, v in sched_l.items()}}
+                     **{k: v["dropout_fwd"] for k, v in sched_l.items()},
+                     **{k: opt_l[k]["dropout_fwd"] for k in ("lamb_bert_training",
+                                                             "recompute_lamb_bert_training")}}
+    # multi_tensor_update's calls by path, each path's kind, and each kind's launches
+    mt_calls = {"training": ("adam", train_launches["multi_tensor_update"]),
+                "resnet50_training": ("momentum", resnet_launches["multi_tensor_update"]),
+                "transformer_training": ("adam", nmt_launches["multi_tensor_update"]),
+                "deepfm_training": ("adam", ctr_launches), "mnist_training": ("sgd", mnist_launches),
+                "deepfm_from_files": ("adam", e2e_launches),
+                **{f"book_{ch.name}": (_update_kind(ch.main),
+                                       book_launches[ch.name]["multi_tensor_update"])
+                   for ch, *_ in chapters},
+                **{k: ("adam", v["multi_tensor_update"]) for k, v in sched_l.items()},
+                "lamb_bert_training": ("lamb", opt_l["lamb_bert_training"]["multi_tensor_update"]),
+                "recompute_lamb_bert_training":
+                    ("lamb", opt_l["recompute_lamb_bert_training"]["multi_tensor_update"]),
+                "lars_resnet50_training":
+                    ("lars_momentum", opt_l["lars_resnet50_training"]["multi_tensor_update"]),
+                **{f"mnist_{r['optimizer']}": (r["kind"], r["multi_tensor_update_launches"]["graph"])
+                   for r in opt_d if r["kind"] is not None}}
+    kind_rows = {"adam": mt_bert, "momentum": mt_res, "sgd": mt_mnist,
+                 "lamb": normed_mres[0], "lars_momentum": normed_mres[1]}
+    # each kind's launches: its calls on the paths times the launches of a call
+    # that phase 9 counted in its trace
+    kinds = {k: {"launches": sum(n * row["launches_per_call"] for kk, n in mt_calls.values()
+                                 if kk == k),
+                 "calls": sum(n for kk, n in mt_calls.values() if kk == k),
+                 "launches_per_call": row["launches_per_call"],
+                 "max_abs_err": row["max_abs_err"], **{x: row[x] for x in keys},
+                 "library": row["library"], "yardstick_ms": row.get("yardstick_ms"),
+                 "shape": f"{row['model']}: {row['tensors']} parameters, {row['elements']} elements"}
+             for k, row in kind_rows.items()}
     no_library = ("no single PyTorch call computes this function; matmul_ms is a bf16 "
                   "torch.matmul of the same shape, for context")
     print(smi.splitlines()[0] if smi else "nvidia-smi printed nothing", flush=True)
@@ -3587,12 +4200,17 @@ def main() -> int:
          "replaces": "paddle_tpu/ops/pallas_attention.py:227",
          "launches": (serve_launches["flash_attn_fwd"] + int8_launches["flash_attn_fwd"]
                       + train_launches["flash_attn_fwd"]
-                      + sched_l["scheduled_bert_training"]["flash_attn_fwd"]),
+                      + sched_l["scheduled_bert_training"]["flash_attn_fwd"]
+                      + opt_l["lamb_bert_training"]["flash_attn_fwd"]
+                      + opt_l["recompute_lamb_bert_training"]["flash_attn_fwd"]),
          "launches_by_path": {"serving": serve_launches["flash_attn_fwd"],
                               "int8_serving": int8_launches["flash_attn_fwd"],
                               "training": train_launches["flash_attn_fwd"],
                               "scheduled_bert_training":
-                                  sched_l["scheduled_bert_training"]["flash_attn_fwd"]},
+                                  sched_l["scheduled_bert_training"]["flash_attn_fwd"],
+                              "lamb_bert_training": opt_l["lamb_bert_training"]["flash_attn_fwd"],
+                              "recompute_lamb_bert_training":
+                                  opt_l["recompute_lamb_bert_training"]["flash_attn_fwd"]},
          "max_abs_err": fwd_err, **{k: train_fwd[k] for k in keys},
          "shape": "B128 H12 S128 D64 bf16, bias, dropout 0.1, LSE (the training path)",
          "serving": {**{k: serve_case[k] for k in keys},
@@ -3601,18 +4219,26 @@ def main() -> int:
          "source": "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
          "replaces": "paddle_tpu/ops/pallas_attention.py:260",
          "launches": (train_launches["flash_attn_bwd"]
-                      + sched_l["scheduled_bert_training"]["flash_attn_bwd"]),
+                      + sched_l["scheduled_bert_training"]["flash_attn_bwd"]
+                      + opt_l["lamb_bert_training"]["flash_attn_bwd"]
+                      + opt_l["recompute_lamb_bert_training"]["flash_attn_bwd"]),
          "launches_by_path": {"training": train_launches["flash_attn_bwd"],
                               "scheduled_bert_training":
-                                  sched_l["scheduled_bert_training"]["flash_attn_bwd"]},
+                                  sched_l["scheduled_bert_training"]["flash_attn_bwd"],
+                              "lamb_bert_training": opt_l["lamb_bert_training"]["flash_attn_bwd"],
+                              "recompute_lamb_bert_training":
+                                  opt_l["recompute_lamb_bert_training"]["flash_attn_bwd"]},
          "max_abs_err": bwd_err,
          **{k: train_bwd[k] for k in keys},
          "shape": "B128 H12 S128 D64 bf16, bias, dropout 0.1 (the training path)"},
         {"name": "fused_conv1x1_bn_fwd", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/conv1x1_bn.cu",
          "replaces": "paddle_tpu/ops/pallas_conv_bn.py:124",
-         "launches": resnet_launches["fused_conv1x1_bn_fwd"],
-         "launches_by_path": {"resnet50_training": resnet_launches["fused_conv1x1_bn_fwd"]},
+         "launches": (resnet_launches["fused_conv1x1_bn_fwd"]
+                      + opt_l["lars_resnet50_training"]["fused_conv1x1_bn_fwd"]),
+         "launches_by_path": {"resnet50_training": resnet_launches["fused_conv1x1_bn_fwd"],
+                              "lars_resnet50_training":
+                                  opt_l["lars_resnet50_training"]["fused_conv1x1_bn_fwd"]},
          "max_abs_err": max(r["max_abs_err"] for r in cres if r["dtype"] == "bfloat16"),
          **{k: conv_case[k] for k in keys}, "matmul_ms": conv_case["matmul_ms"],
          "library_note": no_library,
@@ -3651,22 +4277,13 @@ def main() -> int:
          "replaces": "paddle_tpu/compiler.py:94",
          "replaces_note": ("no Pallas kernel: fuse_all_optimizer_ops, under which XLA "
                            "updates every parameter inside the one compiled step"),
-         "launches": (train_launches["multi_tensor_update"]
-                      + resnet_launches["multi_tensor_update"]
-                      + nmt_launches["multi_tensor_update"] + ctr_launches + mnist_launches
-                      + e2e_launches
-                      + sum(v["multi_tensor_update"] for v in book_launches.values())
-                      + sum(v["multi_tensor_update"] for v in sched_l.values())),
-         "launches_by_path": {"training": train_launches["multi_tensor_update"],
-                              "resnet50_training": resnet_launches["multi_tensor_update"],
-                              "transformer_training": nmt_launches["multi_tensor_update"],
-                              "deepfm_training": ctr_launches,
-                              "mnist_training": mnist_launches,
-                              "deepfm_from_files": e2e_launches,
-                              **{f"book_{k}": v["multi_tensor_update"]
-                                 for k, v in book_launches.items()},
-                              **{k: v["multi_tensor_update"] for k, v in sched_l.items()}},
-         "max_abs_err": max(r["max_abs_err"] for r in mres + book_mres),
+         "launches": sum(n for _, n in mt_calls.values()),
+         "launches_by_path": {k: n for k, (_, n) in mt_calls.items()},
+         "launches_note": ("calls of the wrapper, one a step on each path; kinds gives each "
+                           "kind's kernel launches a call, counted in phase 9's trace, and "
+                           "its kernel launches on the paths"),
+         "kinds": kinds,
+         "max_abs_err": max(r["max_abs_err"] for r in mres + normed_mres + book_mres),
          **{k: mt_bert[k] for k in keys}, "library": mt_bert["library"],
          "shape": (f"BERT-base's {mt_bert['tensors']} Adam parameters, "
                    f"{mt_bert['elements']} elements, bf16 and f32, f32 moments"),
@@ -3696,6 +4313,17 @@ def main() -> int:
             name: {"scheduled": r["step_ms"], "constant_lr": r["constant_lr_step_ms"],
                    "lr": r["lr"]["graph"], "counters": r["counters"]["graph"]}
             for name, r in (("bert_base", sched_bert), ("transformer_base", sched_nmt))},
+        "optimizer_step_ms": {
+            name: {"graph": r["step_ms"]["graph"], "eager": r["step_ms"]["eager"],
+                   "constant_lr_graph": r["constant_lr_step_ms"]["graph"],
+                   "device_busy_ms": r["device_busy_ms"]["graph"],
+                   "graph_pool_gb": max(r["graph_pool_gb"]),
+                   "work_tables_built": r["work_tables_built"]}
+            for name, r in (("A_bert_base_lamb", opt_a), ("B_bert_base_recompute_lamb", opt_b),
+                            ("C_resnet50_lars", opt_c))},
+        "recompute_vs_lamb": {k: recompute_vs[k] for k in ("loss_rel_gap", "update_rel_l1_gap",
+                                                           "state_bit_equal", "graph_pool_gb")},
+        "mnist_optimizers": {r["optimizer"]: r["losses"][-1] for r in opt_d},
         "op_cases_on_card": {k: op_card[k] for k in ("cases", "op_types", "grads",
                                                      "forward_max_abs_err", "grad_max_abs_err")},
         "deepfm_serving_ms": {str(q["batch"]): q["ms"] for q in ctr["serving"]["requests"]},

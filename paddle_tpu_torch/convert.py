@@ -43,7 +43,16 @@ under a learning-rate schedule also holds the step counter
 the JAX package (x64 off) and int64 in the port: it carries by name, and
 the port's ``increment`` and ``cast`` run on either width
 (``io.load_persistables`` widens a saved int32 counter to the program's
-int64).
+int64). The other optimizers' state carries the same way, named by
+``unique_name`` as in the JAX package: ``{param}_moment_0`` (Adagrad,
+DecayedAdagrad, Adamax), ``_inf_norm_0`` (Adamax, whose
+``_beta1_pow_acc_0`` a ``scale`` advances), ``_avg_squared_grad_0`` /
+``_avg_squared_update_0`` (Adadelta), ``_mean_square_0``, ``_momentum_0``
+and ``_mean_grad_0`` (RMSProp), ``_squared_0`` / ``_linear_0`` (Ftrl),
+``_velocity_0`` (LarsMomentum), Adam's four (AdamW, Lamb), and the
+wrappers' ``ema_decay_pow_N`` with ``{param}_ema_N``, ``ma_count_N`` with
+``{param}_ma_sum_N``, and ``la_step_N`` with ``{param}_slow_N`` /
+``{param}_slow_init_N``.
 """
 from __future__ import annotations
 

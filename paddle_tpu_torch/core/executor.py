@@ -8,9 +8,10 @@ the counterparts of what XLA does to that step:
 - a forward op whose generic grad op is in the same block runs once, under
   autograd, and its grad op differentiates the kept graph (XLA's CSE of the
   grad op's ``jax.vjp`` recompute; ``registry.lower_keeping_graph``);
-- each run of consecutive ``adam`` (or ``momentum``) ops with equal attrs is
-  one multi-tensor update, in place (``fuse_all_optimizer_ops`` and the
-  donated state; ``ops/multi_tensor.py``);
+- each run of consecutive ``adam`` (or ``momentum``, ``sgd``, ``lamb``,
+  ``lars_momentum``) ops with equal attrs is one multi-tensor update, in
+  place (``fuse_all_optimizer_ops`` and the donated state;
+  ``ops/multi_tensor.py``);
 - each variable is dropped after its last reader (XLA's buffer liveness),
   except the fetches, the feeds and the persistable state.
 
@@ -40,7 +41,8 @@ copy. Before each replay an identity guard copies in any state tensor the
 scope rebinds, the feeds are copied into the graph's buffers and the run
 counter is written into the graph's counter on the card, from which the
 dropout kernels derive their seeds. A program that holds a ``host_rng`` op
-(``gaussian_random``, ``uniform_random``: startup programs) is not captured;
+(``gaussian_random``, ``uniform_random``: startup programs; ``dpsgd``'s
+noise) is not captured;
 it runs eagerly on the card, and its first run warns why
 (``capture_refusal``). A failed capture or replay raises.
 ``run_fused`` runs K steps as K replays. ``close()`` drops the graphs.
@@ -321,7 +323,8 @@ def trace_block(block: Block, env: Dict[str, Any], device, seed: int = 0,
                 end = multi_tensor.run_end(ops, i)
                 ins_list = [_op_inputs(o, env) for o in ops[i:end]]
                 try:
-                    outs = multi_tensor.update(op.type, op.attrs, ins_list)
+                    outs = multi_tensor.update(op.type, [o.attrs for o in ops[i:end]],
+                                               ins_list)
                 except NotImplementedError:
                     raise
                 except Exception as e:

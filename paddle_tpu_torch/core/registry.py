@@ -162,7 +162,7 @@ class OpDef:
     def __init__(self, type: str, lower: Callable, infer_shape: Optional[Callable] = None,
                  grad: Any = "auto", nondiff_inputs: Sequence[str] = (),
                  nondiff_outputs: Sequence[str] = (), state_inputs: Sequence[str] = (),
-                 host_rng: bool = False):
+                 host_rng: bool = False, remat: bool = False):
         self.type = type
         self.lower = lower
         self.custom_infer_shape = infer_shape
@@ -176,13 +176,16 @@ class OpDef:
         # draws from a host-seeded torch.Generator (the run counter baked in
         # at launch): a program holding such an op is not captured as a graph
         self.host_rng = host_rng
+        # never keeps its forward graph (``forwards_with_grads``): its generic
+        # grad op recomputes it under autograd (``remat_segment``)
+        self.remat = remat
 
 
 _REGISTRY: Dict[str, OpDef] = {}
 
 
 def register(type: str, *, grad="auto", nondiff_inputs=(), nondiff_outputs=(),
-             infer_shape=None, state_inputs=(), host_rng=False):
+             infer_shape=None, state_inputs=(), host_rng=False, remat=False):
     """Decorator: register ``fn(ctx, ins) -> outs`` as the lowering for ``type``
     (``infer_shape(op, block)`` replaces the meta-tensor inference)."""
 
@@ -190,7 +193,7 @@ def register(type: str, *, grad="auto", nondiff_inputs=(), nondiff_outputs=(),
         if type in _REGISTRY:
             raise ValueError(f"op type {type!r} already registered")
         _REGISTRY[type] = OpDef(type, fn, infer_shape, grad, nondiff_inputs,
-                                nondiff_outputs, state_inputs, host_rng)
+                                nondiff_outputs, state_inputs, host_rng, remat)
         return fn
 
     return deco
@@ -265,9 +268,11 @@ def first_output(op: Operator) -> str:
 
 def forwards_with_grads(ops: Sequence[Operator]) -> frozenset:
     """(forward type, first output) of each forward op whose generic grad op
-    is among ``ops``: the ops whose graphs a run keeps."""
+    is among ``ops``: the ops whose graphs a run keeps. A ``remat`` op's is
+    never kept: its grad op recomputes it."""
     return frozenset((f, op.attr("__fwd_out0__")) for op in ops
-                     if (f := generic_grad_forward(op.type)) is not None)
+                     if (f := generic_grad_forward(op.type)) is not None
+                     and not _REGISTRY[f].remat)
 
 
 def _differentiable(fwd: OpDef, ins, slots):

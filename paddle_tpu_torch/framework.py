@@ -20,8 +20,9 @@ Sub-blocks (``Program._create_block`` / ``_rollback``) hold the bodies of
 control-flow ops (``layers.Scan``); the executor runs them through
 ``LowerCtx.block_runner``.
 
-``Block.insert_op`` is the JAX package's (``quantize_weights`` inserts its
-``dequantize_weight`` ops with it).
+``Block.insert_op``, ``prepend_op`` and ``remove_op`` are the JAX package's
+(``quantize_weights`` inserts its ``dequantize_weight`` ops with
+``insert_op``).
 """
 from __future__ import annotations
 
@@ -370,12 +371,21 @@ class Block:
             registry.infer_shape(op, self)
         return op
 
+    def prepend_op(self, type: str, inputs=None, outputs=None, attrs=None,
+                   infer_shape: bool = True) -> Operator:
+        """Append the op (shape inference included), then move it first."""
+        return self.insert_op(0, type, inputs, outputs, attrs, infer_shape=infer_shape)
+
     def insert_op(self, index: int, type: str, inputs=None, outputs=None, attrs=None,
                   infer_shape: bool = True) -> Operator:
         """Append the op (shape inference included), then move it to ``index``."""
         op = self.append_op(type, inputs, outputs, attrs, infer_shape=infer_shape)
         self.ops.insert(index, self.ops.pop())
         return op
+
+    def remove_op(self, index: int):
+        del self.ops[index]
+        self.program._bump()
 
     def to_dict(self) -> dict:
         return {

@@ -1,4 +1,4 @@
-"""Control-flow ops (the port's copy of ``scan`` from
+"""Control-flow ops (the port's copy of ``scan`` and ``remat_segment`` from
 ``paddle_tpu/ops/control_flow.py``).
 
 A body is a sub-block of the program, run through ``ctx.block_runner``
@@ -9,6 +9,16 @@ one after another (the JAX package's ``lax.scan`` compiles the body once
 and loops on the device). Its gradient is the registry's generic grad:
 autograd through the loop, as ``grad="auto"`` is ``jax.vjp`` through
 ``lax.scan`` in the JAX package.
+
+``remat_segment`` is the ``RecomputeOptimizer``'s unit: a forward segment
+moved into a sub-block. It is registered ``remat``, so the executor never
+keeps its forward graph: its forward runs without autograd and frees the
+segment's intermediates after their last reader, and its generic grad op
+runs the sub-block again under autograd (the JAX package's
+``jax.checkpoint``). Each op of the sub-block draws its random numbers
+with the salt of its own first output, in the forward and in the
+recompute alike (``trace_block``), so a ``dropout`` or the attention
+kernel's dropout draws the same mask twice.
 """
 from __future__ import annotations
 
@@ -53,3 +63,21 @@ def scan_op(ctx, ins):
             stacked[n].append(env[n])
     return {"Out": [torch.stack(stacked[n], dim=t_axis) for n in out_names],
             "FinalCarry": [carry[n] for n in carry_names]}
+
+
+def _remat_infer(op, block):
+    """The segment's outputs are the variables its ops made when they were
+    built (``_rewrite_recompute``): nothing to infer."""
+
+
+@register("remat_segment", remat=True, infer_shape=_remat_infer)
+def remat_segment(ctx, ins):
+    """attrs: sub_block, in_names (X's order), out_names (Out's order)."""
+    if ctx.block_runner is None:
+        raise RuntimeError("remat_segment: no block runner to run its sub-block with; run "
+                           "the program through Executor.run")
+    in_names = list(ctx.attr("in_names", []))
+    out_names = list(ctx.attr("out_names", []))
+    env = ctx.block_runner(ctx.attr("sub_block"), dict(zip(in_names, ins["X"])),
+                           keep=frozenset(out_names))
+    return {"Out": [env[n] for n in out_names]}

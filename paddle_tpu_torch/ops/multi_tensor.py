@@ -1,6 +1,6 @@
 """Multi-tensor optimizer updates: one hand-written CUDA kernel
-(``csrc/multi_tensor_update.cu``) for a run of ``adam``, ``momentum`` or
-``sgd`` ops, and its plain PyTorch version.
+(``csrc/multi_tensor_update.cu``) for a run of ``adam``, ``momentum``,
+``sgd``, ``lamb`` or ``lars_momentum`` ops, and its plain PyTorch version.
 
 The port's counterpart of the JAX package's ``fuse_all_optimizer_ops``
 (``paddle_tpu/compiler.py``), which updates every parameter inside the one
@@ -13,7 +13,17 @@ they are.
 The plain version is a loop over the per-op lowerings of
 ``ops/optimizer_ops.py``, whose results are copied into the inputs. The
 kernel computes the same f32 arithmetic in the same order, every step
-exactly rounded, so it matches them bit for bit. The update is in place:
+exactly rounded, so it matches them bit for bit. ``lamb`` and
+``lars_momentum`` read per-tensor norms (the trust ratio, the local
+learning rate): the kernel's first pass writes each chunk's partial sums
+of squares to a scratch buffer the wrapper allocates (from the graph's
+pool under a capture), its second sums them per tensor in chunk order
+(the same norm in every block, the same in every run) and writes the
+update. Their moments are bit for bit to the lowerings; the norms differ
+from ``torch.sum``'s in rounding only (within 1e-6 relative), and so p'
+by an ulp or two. ``lamb``'s weight decay is the tensor's own (in its
+descriptor), so a run spans parameters that
+``exclude_from_weight_decay_fn`` excludes. The update is in place:
 ParamOut, Moment1Out, Moment2Out, VelocityOut and Beta{1,2}PowOut are the
 input tensors themselves (the programs name one variable for both), the
 counterpart of the JAX step's donated state. A caller that holds a
@@ -48,10 +58,18 @@ from ..core.registry import LowerCtx
 from . import optimizer_ops
 
 #: the update op types a run is made of, and the attrs (with the per-op
-#: lowering's defaults) that must be equal along a run
+#: lowering's defaults) that must be equal along a run (``lamb``'s
+#: ``weight_decay`` is per tensor, not per run)
 GROUPED = {"adam": (("beta1", 0.9), ("beta2", 0.999), ("epsilon", 1e-8)),
            "momentum": (("mu", 0.9), ("use_nesterov", False)),
-           "sgd": ()}
+           "sgd": (),
+           "lamb": (("beta1", 0.9), ("beta2", 0.999), ("epsilon", 1e-6)),
+           "lars_momentum": (("mu", 0.9), ("lars_coeff", 0.001),
+                             ("lars_weight_decay", 0.0005))}
+#: the kinds that read per-tensor norms: two passes over a scratch buffer
+NORMED = ("lamb", "lars_momentum")
+#: the kernel launches each kind makes a call
+LAUNCHES_PER_CALL = {"adam": 2, "momentum": 1, "sgd": 1, "lamb": 3, "lars_momentum": 2}
 
 #: the kernel's work item: a chunk of CHUNK elements of one tensor
 CHUNK = 65536
@@ -64,14 +82,18 @@ BLOCKS_PER_SM = 16
 #: one descriptor per tensor: 16 int64 slots (see the .cu source)
 DESC_SLOTS = 16
 _P_BF16, _G_BF16, _VECTOR = 1, 2, 4
-_KIND = {"adam": 0, "momentum": 1, "sgd": 2}
+_KIND = {"adam": 0, "momentum": 1, "sgd": 2, "lamb": 3, "lars_momentum": 4}
 #: each kind's f32 accumulators (the tensors of Param's size it updates
 #: besides Param), its one-element f32 inputs, and its output slots
-_ACCUMULATORS = {"adam": ("Moment1", "Moment2"), "momentum": ("Velocity",), "sgd": ()}
+_ACCUMULATORS = {"adam": ("Moment1", "Moment2"), "momentum": ("Velocity",), "sgd": (),
+                 "lamb": ("Moment1", "Moment2"), "lars_momentum": ("Velocity",)}
 _SCALARS = {"adam": ("LearningRate", "Beta1Pow", "Beta2Pow"), "momentum": ("LearningRate",),
-            "sgd": ("LearningRate",)}
+            "sgd": ("LearningRate",), "lamb": ("LearningRate", "Beta1Pow", "Beta2Pow"),
+            "lars_momentum": ("LearningRate",)}
 _OUT_SLOTS = {"adam": ("ParamOut", "Moment1Out", "Moment2Out", "Beta1PowOut", "Beta2PowOut"),
-              "momentum": ("ParamOut", "VelocityOut"), "sgd": ("ParamOut",)}
+              "momentum": ("ParamOut", "VelocityOut"), "sgd": ("ParamOut",),
+              "lamb": ("ParamOut", "Moment1Out", "Moment2Out", "Beta1PowOut", "Beta2PowOut"),
+              "lars_momentum": ("ParamOut", "VelocityOut")}
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -94,13 +116,15 @@ def run_end(ops: Sequence, i: int) -> int:
     return j
 
 
-def update(kind: str, attrs: dict, ins_list: List[Dict[str, list]]) -> List[Dict[str, list]]:
-    """One run of ``kind`` update ops: each entry of ``ins_list`` is one op's
-    inputs (slot -> tensors), and the result is each op's outputs, as its
-    own lowering would return them."""
+def update(kind: str, op_attrs: Sequence[dict],
+           ins_list: List[Dict[str, list]]) -> List[Dict[str, list]]:
+    """One run of ``kind`` update ops: each entry of ``op_attrs`` is one op's
+    attrs (equal in what ``GROUPED`` names; ``lamb``'s ``weight_decay`` may
+    differ) and of ``ins_list`` its inputs (slot -> tensors), and the result
+    is each op's outputs, as its own lowering would return them."""
     if ins_list[0]["Param"][0].device.type == "cpu":
-        return update_plain(kind, attrs, ins_list)
-    return multi_tensor_update(kind, attrs, ins_list)
+        return update_plain(kind, op_attrs, ins_list)
+    return multi_tensor_update(kind, op_attrs, ins_list)
 
 
 #: each op's output slot -> the input slot it overwrites
@@ -108,14 +132,15 @@ IN_PLACE = {"ParamOut": "Param", "Moment1Out": "Moment1", "Moment2Out": "Moment2
             "VelocityOut": "Velocity", "Beta1PowOut": "Beta1Pow", "Beta2PowOut": "Beta2Pow"}
 
 
-def update_plain(kind, attrs, ins_list):
-    """The per-op lowerings, one op after the other, each op's results
-    copied into its inputs. Returns each op's outputs: its input tensors."""
+def update_plain(kind, op_attrs, ins_list):
+    """The per-op lowerings, one op after the other (op k with
+    ``op_attrs[k]``), each op's results copied into its inputs. Returns each
+    op's outputs: its input tensors."""
     lower = getattr(optimizer_ops, kind)
     device = ins_list[0]["Param"][0].device
     outs = []
-    for ins in ins_list:
-        out = lower(LowerCtx(attrs, device), ins)
+    for k, ins in enumerate(ins_list):
+        out = lower(LowerCtx(op_attrs[k], device), ins)
         for slot, vals in out.items():
             ins[IN_PLACE[slot]][0].copy_(vals[0])
         outs.append({slot: [ins[IN_PLACE[slot]][0]] for slot in out})
@@ -168,17 +193,21 @@ def kernel_refusal(kind, ins_list) -> Optional[str]:
 ROLES = ("p", "g", "m", "v", "lr", "b1p", "b2p")
 _WIDE_ROLES = (0, 1, 2, 3)
 _N_SLOT, _FLAGS_SLOT = len(ROLES), len(ROLES) + 1
+#: lamb's weight decay (f32 bits in the slot's low half), then the index of
+#: the tensor's first item and its number of items (its chunks)
+_WD_SLOT, _FIRST_CHUNK_SLOT, _N_CHUNKS_SLOT = len(ROLES) + 2, len(ROLES) + 3, len(ROLES) + 4
 
 
-def work_table(rows: Sequence[Sequence[Optional[torch.Tensor]]]) -> np.ndarray:
-    """The kernel's table, int64: one descriptor of DESC_SLOTS slots per
-    tensor -- the data pointers of its ROLES (0 where the kind has none),
-    its element count, its flags (p bf16, g bf16, all wide roles 16-byte
-    aligned) -- then ``chunk_table``'s items, one (tensor, chunk) int32 pair
-    in each int64."""
+def work_table(rows: Sequence[tuple]) -> np.ndarray:
+    """The kernel's table for ``kernel_rows``' rows, int64: one descriptor
+    of DESC_SLOTS slots per tensor -- the data pointers of its ROLES (0
+    where the kind has none), its element count, its flags (p bf16, g bf16,
+    all wide roles 16-byte aligned), its weight decay, the index of its
+    first item and its item count -- then ``chunk_table``'s items, one
+    (tensor, chunk) int32 pair in each int64."""
     T = len(rows)
-    ptrs = np.array([[t.data_ptr() if t is not None else 0 for t in r] for r in rows],
-                    dtype=np.int64).reshape(T, len(ROLES))
+    ptrs = np.array([[t.data_ptr() if t is not None else 0 for t in r[:len(ROLES)]]
+                     for r in rows], dtype=np.int64).reshape(T, len(ROLES))
     numels = [r[0].numel() for r in rows]
     flags = np.array([(_P_BF16 if r[0].dtype == torch.bfloat16 else 0)
                       | (_G_BF16 if r[1].dtype == torch.bfloat16 else 0) for r in rows],
@@ -191,27 +220,35 @@ def work_table(rows: Sequence[Sequence[Optional[torch.Tensor]]]) -> np.ndarray:
     desc[:, :len(ROLES)] = ptrs
     desc[:, _N_SLOT] = numels
     desc[:, _FLAGS_SLOT] = flags
+    wds = np.array([r[len(ROLES)] for r in rows], np.float32)
+    desc[:, _WD_SLOT] = wds.view(np.uint32).astype(np.int64)
+    counts = np.bincount(chunks[:, 0], minlength=T)
+    desc[:, _FIRST_CHUNK_SLOT] = np.cumsum(counts) - counts
+    desc[:, _N_CHUNKS_SLOT] = counts
     table[T * DESC_SLOTS:] = chunks.view(np.int64).reshape(-1)
     return table
 
 
-def kernel_rows(kind: str, ins_list) -> List[tuple]:
+def kernel_rows(kind: str, ins_list, op_attrs: Sequence[dict]) -> List[tuple]:
     """Each op's tensors in ``ROLES`` order, None where ``kind`` has no such
-    tensor (``sgd``: no accumulators and no beta powers). A Grad that is not
-    contiguous is replaced by a contiguous copy, which the rows hold until
-    the launch is queued."""
+    tensor (``sgd``: no accumulators and no beta powers), then its weight
+    decay (``lamb``: the op's ``weight_decay``, the lowering's default 0.01;
+    0 for the other kinds). A Grad that is not contiguous is replaced by a
+    contiguous copy, which the rows hold until the launch is queued."""
     acc, pows = _ACCUMULATORS[kind], _SCALARS[kind][1:]
     return [(ins["Param"][0], ins["Grad"][0].contiguous(),
              *(ins[s][0] for s in acc), *(None,) * (2 - len(acc)),
-             ins["LearningRate"][0], *(ins[s][0] for s in pows), *(None,) * (2 - len(pows)))
-            for ins in ins_list]
+             ins["LearningRate"][0], *(ins[s][0] for s in pows), *(None,) * (2 - len(pows)),
+             float(a.get("weight_decay", 0.01)) if kind == "lamb" else 0.0)
+            for ins, a in zip(ins_list, op_attrs)]
 
 
 def layout(rows) -> tuple:
-    """What a run's table depends on: each tensor's data pointers, its size
-    and its Param and Grad dtypes."""
+    """What a run's table depends on: each tensor's data pointers, its size,
+    its Param and Grad dtypes and its weight decay."""
     return tuple(x for r in rows for x in (
-        *(t.data_ptr() if t is not None else 0 for t in r), r[0].numel(), r[0].dtype, r[1].dtype))
+        *(t.data_ptr() if t is not None else 0 for t in r[:len(ROLES)]), r[0].numel(),
+        r[0].dtype, r[1].dtype, r[len(ROLES)]))
 
 
 #: tables kept, by layout (the most recently used last)
@@ -244,9 +281,10 @@ def _write_table(dev: torch.Tensor, words: np.ndarray):
 
 
 def table_for(rows, device) -> torch.Tensor:
-    """The device buffer holding ``work_table(rows)``: the kept one for this
-    layout, else a new one. Under a CUDA graph capture always a new one, the
-    graph's (``graphs.hold``), written by captured launches and not kept."""
+    """The device buffer holding ``work_table(rows)``: the kept
+    one for this layout, else a new one. Under a CUDA graph capture always a
+    new one, the graph's (``graphs.hold``), written by captured launches and
+    not kept."""
     global tables_built
     capturing = _capturing(device)
     key = (str(device),) + layout(rows)
@@ -277,39 +315,61 @@ _P, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _fn():
     fn = cuda_build.load("multi_tensor_update").multi_tensor_update
     if fn.argtypes is None:
-        # table, n_tensors, n_chunks, chunk, kind, b1 1-b1 b2 1-b2 eps mu, nesterov, grid, stream
-        fn.argtypes = [_P, _I32, _I32, _I32, _I32] + [_F32] * 6 + [_I32, _I32, _P]
+        # table, n_tensors, n_chunks, chunk, kind, b1 1-b1 b2 1-b2 eps mu coeff decay,
+        # nesterov, grid, scratch, norms, stream
+        fn.argtypes = [_P, _I32, _I32, _I32, _I32] + [_F32] * 8 + [_I32, _I32, _P, _P, _P]
         fn.restype = ctypes.c_int
     return fn
 
 
 @cuda_build.counted
-def multi_tensor_update(kind: str, attrs: dict, ins_list):
-    """Launch the multi-tensor kernel once for a run of ``kind`` ops on CUDA
+def multi_tensor_update(kind: str, op_attrs: Sequence[dict], ins_list,
+                        norms: Optional[torch.Tensor] = None):
+    """Launch the multi-tensor kernel for a run of ``kind`` ops on CUDA
     tensors, in place; returns each op's outputs (its input tensors). Param
     and Grad may be f32 or bf16 (each op its own), the accumulators, the
     learning rate and the beta powers are f32 (``sgd`` has no accumulators).
-    Raises ValueError for a run the kernel does not take (see
-    ``kernel_refusal``) and RuntimeError if the launch fails. Each launch
-    adds one to ``multi_tensor_update.launches``."""
+    ``op_attrs``: each op's attrs (the grouped ones are read from the
+    first; ``lamb`` reads each one's ``weight_decay``). ``norms``: for
+    ``lamb`` / ``lars_momentum``, an optional f32 CUDA tensor of 2 T
+    elements into which the kernel writes each tensor's two norms (|p|, and
+    |r| or |g|). Raises ValueError for a run the kernel does not take (see
+    ``kernel_refusal``) and RuntimeError if a launch fails. Each call adds
+    one to ``multi_tensor_update.launches``; it launches
+    ``LAUNCHES_PER_CALL[kind]`` kernels."""
     why = kernel_refusal(kind, ins_list)
     if why is not None:
         raise ValueError(f"multi_tensor_update: {why}")
     dev = ins_list[0]["Param"][0].device
     T = len(ins_list)
-    rows = kernel_rows(kind, ins_list)
+    rows = kernel_rows(kind, ins_list, op_attrs)
     table = table_for(rows, dev)
     n_chunks = table.numel() - T * DESC_SLOTS
+    scratch = None
+    if kind in NORMED:
+        # each chunk's two partial sums; freed after the launches are queued (the
+        # allocator reuses it in stream order; under a capture it is the graph's)
+        scratch = torch.empty((2 * n_chunks,), dtype=torch.float32, device=dev)
+        if norms is not None and (norms.device != dev or norms.dtype != torch.float32
+                                  or norms.numel() != 2 * T or not norms.is_contiguous()):
+            raise ValueError(f"multi_tensor_update: norms must be a contiguous float32 "
+                             f"tensor of {2 * T} elements on {dev}")
 
+    attrs = op_attrs[0]
     b1, b2 = attrs.get("beta1", 0.9), attrs.get("beta2", 0.999)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # 1 - b1 and 1 - b2 in double, then rounded to float (ctypes), as PyTorch
     # rounds the Python scalar (1 - b1) that the per-op lowering multiplies by
-    scalars = (b1, 1 - b1, b2, 1 - b2, attrs.get("epsilon", 1e-8), attrs.get("mu", 0.9))
+    eps = attrs.get("epsilon", dict(GROUPED[kind]).get("epsilon", 1e-8))
+    scalars = (b1, 1 - b1, b2, 1 - b2, eps, attrs.get("mu", 0.9),
+               attrs.get("lars_coeff", 0.001), attrs.get("lars_weight_decay", 0.0005))
     with torch.cuda.device(dev):
         rc = _fn()(table.data_ptr(), T, n_chunks, CHUNK, _KIND[kind], *scalars,
                    int(bool(attrs.get("use_nesterov", False))),
-                   min(n_chunks, sms * BLOCKS_PER_SM), torch.cuda.current_stream().cuda_stream)
+                   min(n_chunks, sms * BLOCKS_PER_SM),
+                   scratch.data_ptr() if scratch is not None else None,
+                   norms.data_ptr() if norms is not None and scratch is not None else None,
+                   torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"multi_tensor_update: kernel launch failed with CUDA error {rc}")
     multi_tensor_update.launches += 1

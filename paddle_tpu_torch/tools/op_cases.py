@@ -1,7 +1,10 @@
-"""The case table of the dense op families: numpy inputs, attrs, the dtype
-of the float inputs and the tolerance of each case, for the 99 op types of
-the activation, elementwise, reduction, basic, tensor and math families
-that the learning-rate schedules and the dense layers lower to.
+"""The case table of the dense op families and the optimizer update ops:
+numpy inputs, attrs, the dtype of the float inputs and the tolerance of
+each case, for the 99 op types of the activation, elementwise, reduction,
+basic, tensor and math families that the learning-rate schedules and the
+dense layers lower to, and the 13 update ops of ``ops/optimizer_ops.py``
+that draw nothing (``UPDATE_OPS``; ``dpsgd``, which draws noise, is
+``NOISE_CASES``).
 
     from paddle_tpu_torch.tools import op_cases
     outs = op_cases.forward("hard_swish-bounds", "cpu")
@@ -24,7 +27,10 @@ gradient at a tie), tied values where an index or a maximum is chosen,
 negative operands of ``mod`` and ``floordiv``, and repeated indices where
 a gradient or an update adds rows. ``RANDOM_CASES`` holds the two random
 ops, which each package draws with its own generator: they are held by
-their statistics (``random_stats``).
+their statistics (``random_stats``), as is ``dpsgd``'s noise
+(``noise_stats``). An update case names the slots it feeds in bf16
+(``Case.slot_dtypes``: a bf16 parameter and gradient beside f32 state, as
+the models hold them) and runs at two or three shapes, one ragged.
 
 Tolerances: float32 ``atol 1e-5, rtol 1e-5`` (the two sides round
 transcendental functions and sums in other orders, a few ulps);
@@ -53,17 +59,24 @@ class Case(NamedTuple):
     grad: Tuple[str, ...]  # output slots that get a cotangent; () = no gradient
     scatters: bool        # the gradient (or the op) adds rows by index
     grad_tol: dict        # the gradient's tolerance (``tol`` unless the case says)
+    slot_dtypes: dict = {}  # slot -> the dtype of its float inputs, over ``dtype``
 
 
 CASES: Dict[str, Case] = {}
 
 
 def case(name, op, ins, attrs=None, dtype="float32", tol=None, grad=("Out",),
-         scatters=False, grad_tol=None):
+         scatters=False, grad_tol=None, slot_dtypes=None):
     assert name not in CASES, name
-    tol = tol or (BF16_TOL if dtype == "bfloat16" else F32_TOL)
+    low = dtype == "bfloat16" or "bfloat16" in (slot_dtypes or {}).values()
+    tol = tol or (BF16_TOL if low else F32_TOL)
     CASES[name] = Case(op, ins, dict(attrs or {}), dtype, tol, tuple(grad), scatters,
-                       grad_tol or tol)
+                       grad_tol or tol, dict(slot_dtypes or {}))
+
+
+def slot_dtype(c: Case, slot: str) -> str:
+    """The dtype of a case's float inputs in ``slot``."""
+    return c.slot_dtypes.get(slot, c.dtype)
 
 
 def r(*shape, scale=1.0, seed=None, lo=None, hi=None):
@@ -342,6 +355,98 @@ case("p_norm", "p_norm", {"X": [r(3, 4)]}, {"porder": 2.0, "axis": -1})
 case("p_norm-3-keepdim-zero", "p_norm", {"X": [f32(0.0, -1.0, 2.0, 0.5, 0.0, -3.0).reshape(2, 3)]},
      {"porder": 3.0, "axis": 1, "keepdim": True})
 
+# --------------------------------------------------------------------------------------
+# the optimizer update ops: f32 at a small and a ragged shape, and a bf16 parameter
+# and gradient beside f32 state
+# --------------------------------------------------------------------------------------
+
+#: the update ops with cases here (``dpsgd`` draws noise: ``NOISE_CASES``)
+UPDATE_OPS = ("sgd", "momentum", "lars_momentum", "adam", "adamw", "adagrad", "adamax",
+              "adadelta", "rmsprop", "ftrl", "lamb", "proximal_gd", "decayed_adagrad")
+_UPDATE_SHAPES = {"f32": (4, 6), "ragged": (3, 5, 7), "bf16": (70,)}
+_BF16_PG = {"Param": "bfloat16", "Grad": "bfloat16"}
+
+
+def _update_ins(op, shape, seed):
+    """Seeded inputs of one update op: positive accumulators where the op
+    takes a square root or a power of them, beta powers after 3 steps."""
+    pos = lambda k: r(*shape, seed=seed + k, lo=0.05, hi=1.0)
+    ins = {"Param": [r(*shape, seed=seed)], "Grad": [r(*shape, seed=seed + 1, scale=0.5)],
+           "LearningRate": [f32(0.01)]}
+    if op in ("adam", "adamw", "lamb"):
+        ins.update(Moment1=[r(*shape, seed=seed + 2, scale=0.1)], Moment2=[pos(3) * 0.01],
+                   Beta1Pow=[f32(0.9 ** 3)], Beta2Pow=[f32(0.999 ** 3)])
+    elif op in ("momentum", "lars_momentum"):
+        ins["Velocity"] = [r(*shape, seed=seed + 2, scale=0.1)]
+    elif op in ("adagrad", "decayed_adagrad"):
+        ins["Moment"] = [pos(2)]
+    elif op == "adamax":
+        ins.update(Moment=[r(*shape, seed=seed + 2, scale=0.1)], InfNorm=[pos(3)],
+                   Beta1Pow=[f32(0.9 ** 3)])
+    elif op == "adadelta":
+        del ins["LearningRate"]
+        ins.update(AvgSquaredGrad=[pos(2)], AvgSquaredUpdate=[pos(3) * 0.1])
+    elif op == "rmsprop":
+        ins.update(MeanSquare=[1.0 + pos(2)], Moment=[r(*shape, seed=seed + 3, scale=0.1)],
+                   MeanGrad=[r(*shape, seed=seed + 4, scale=0.1)])
+    elif op == "ftrl":
+        ins.update(SquaredAccumulator=[pos(2)],
+                   LinearAccumulator=[r(*shape, seed=seed + 3, scale=0.1)])
+    return ins
+
+
+_UPDATE_ATTRS = {
+    "momentum": [{"mu": 0.9}, {"mu": 0.9, "use_nesterov": True}],
+    "lars_momentum": [{"mu": 0.9, "lars_coeff": 0.001, "lars_weight_decay": 0.0005}],
+    "adam": [{"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}],
+    "adamw": [{"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8, "coeff": 0.01}],
+    "adagrad": [{"epsilon": 1e-6}],
+    "adamax": [{"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}],
+    "adadelta": [{"rho": 0.95, "epsilon": 1e-6}],
+    "rmsprop": [{"decay": 0.9, "epsilon": 1e-6, "momentum": 0.5},
+                {"decay": 0.9, "epsilon": 1e-6, "momentum": 0.5, "centered": True}],
+    "ftrl": [{"l1": 0.1, "l2": 0.01, "lr_power": -0.5}],
+    "lamb": [{"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-6, "weight_decay": 0.01},
+             {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-6, "weight_decay": 0.0}],
+    "proximal_gd": [{"l1": 0.05, "l2": 0.1}],
+    "decayed_adagrad": [{"decay": 0.95, "epsilon": 1e-6}],
+    "sgd": [{}],
+}
+
+for _op in UPDATE_OPS:
+    for _k, _attrs in enumerate(_UPDATE_ATTRS[_op]):
+        for _label, _shape in _UPDATE_SHAPES.items():
+            _ins = _update_ins(_op, _shape, seed=10 * _k + len(_shape))
+            if _op == "rmsprop" and not _attrs.get("centered"):
+                del _ins["MeanGrad"]
+            case(f"{_op}-{_k}-{_label}", _op, _ins, _attrs, grad=(),
+                 slot_dtypes=_BF16_PG if _label == "bf16" else None)
+
+#: dpsgd (``noise_stats``): its inputs and attrs; 100,000 elements, a gradient
+#: of norm ~100 clipped to 10
+NOISE_CASES = {
+    "dpsgd": ({"Param": [r(100_000, seed=21)], "Grad": [r(100_000, seed=22, scale=0.3)],
+               "LearningRate": [f32(0.01)]}, {"clip": 10.0, "sigma": 0.5, "batch_size": 16.0}),
+}
+
+
+def noise_stats(op: str, out: np.ndarray) -> Optional[str]:
+    """Why ``dpsgd``'s ParamOut does not hold its noise's distribution, or
+    None: (p - lr g_clipped - p') / (lr sigma clip), with g_clipped = g
+    min(1, clip / |g|), is N(0, 1) draws; over 100,000 the sample mean lies
+    within ~0.003 and the variance within ~0.5% of 0 and 1 (checked at 0.02
+    and 3%)."""
+    ins, attrs = NOISE_CASES[op]
+    p, g = ins["Param"][0].astype(np.float64), ins["Grad"][0].astype(np.float64)
+    lr = float(ins["LearningRate"][0][0])
+    clip, sigma = attrs["clip"], attrs["sigma"]
+    gc = g * min(1.0, clip / (np.sqrt(np.sum(g * g)) + 1e-12))
+    z = (p - lr * gc - out.astype(np.float64)) / (lr * sigma * clip)
+    if abs(z.mean()) > 0.02 or abs(z.var() - 1) > 0.03:
+        return f"standardised noise mean {z.mean()}, variance {z.var()} (expected 0, 1)"
+    return None
+
+
 #: the random ops: (attrs, the dtype of Out); held by ``random_stats``
 RANDOM_CASES = {
     "randint": ({"shape": [200, 500], "low": -3, "high": 9, "dtype": "int64", "seed": 0},
@@ -392,7 +497,7 @@ def to_tensor(a: np.ndarray, dtype: str, device) -> torch.Tensor:
 def forward(name: str, device) -> Dict[str, list]:
     """The port's lowering of case ``name`` on ``device``."""
     c = CASES[name]
-    ins = {s: [to_tensor(a, c.dtype, device) for a in v] for s, v in c.ins.items()}
+    ins = {s: [to_tensor(a, slot_dtype(c, s), device) for a in v] for s, v in c.ins.items()}
     return registry.get(c.op).lower(registry.LowerCtx(dict(c.attrs), device), ins)
 
 
@@ -436,7 +541,7 @@ def grad(name: str, device, outs: Dict[str, list]) -> Dict[str, list]:
     c = CASES[name]
     gins, gattrs = grad_inputs(name, numpy_outs(outs))
     fwd_slots = set(c.ins)
-    tins = {s: [None if a is None else to_tensor(a, c.dtype if s in fwd_slots else "float32",
-                                                  device) for a in v]
+    tins = {s: [None if a is None else to_tensor(a, slot_dtype(c, s) if s in fwd_slots
+                                                  else "float32", device) for a in v]
             for s, v in gins.items()}
     return registry.get(c.op + "_grad").lower(registry.LowerCtx(gattrs, device), tins)

@@ -44,7 +44,13 @@ with ``SGD(0.01)``, random images and labels from seed 0.
 ``build_pretrain`` and ``build_transformer`` take a ``schedule``: BERT's
 warmup and linear decay (``bert_schedule``) and the Transformer's noam
 decay (``noam_schedule``), each with its float64 closed form
-(``bert_schedule_lr``, ``noam_schedule_lr``).
+(``bert_schedule_lr``, ``noam_schedule_lr``). ``build_pretrain`` and
+``build_resnet50`` take an ``optimizer`` (``lamb``: LAMB at its class
+defaults, LayerNorm scales and biases excluded from weight decay;
+``lars``: ``LarsMomentum(0.1, 0.9)`` at its defaults), and
+``build_pretrain`` takes ``checkpoints=True``: ``RecomputeOptimizer`` over
+it, with a checkpoint at each encoder layer's output
+(``encoder_checkpoints``).
 
 ``build_pretrain``, ``pretrain_feed``, ``build_resnet50``, ``resnet_feed``,
 ``transformer_config``, ``build_transformer``, ``nmt_feed``,
@@ -113,10 +119,36 @@ def noam_schedule_lr(counter: int) -> float:
     return NOAM_D_MODEL ** -0.5 * min(step ** -0.5, step * NOAM_WARMUP ** -1.5)
 
 
-def build_pretrain(cfg, batch, seq, n_masks, lr=LR, seed=SEED, schedule=None):
+def lamb(pt, rate):
+    """LAMB at its class defaults (weight decay 0.01, beta1 0.9, beta2 0.999,
+    epsilon 1e-6: You et al. 2019, arXiv:1904.00962), with the LayerNorm
+    scales and biases (``layer_norm_N.w_0`` / ``.b_0``) excluded from weight
+    decay."""
+    return pt.optimizer.Lamb(rate, exclude_from_weight_decay_fn=lambda p: p.name.startswith(
+        "layer_norm"))
+
+
+def lars(pt, rate=0.1):
+    """``LarsMomentum(rate, 0.9)`` at its defaults (lars_coeff 0.001,
+    lars_weight_decay 0.0005, Paddle's own)."""
+    return pt.optimizer.LarsMomentum(rate, 0.9)
+
+
+def encoder_checkpoints(program, n_layers):
+    """The output of each encoder layer of a BERT program: the second
+    ``layer_norm`` of each layer (``models/bert.py::encoder_layer``), after
+    the embeddings' one."""
+    norms = [op for op in program.global_block().ops if op.type == "layer_norm"]
+    return [norms[2 * (i + 1)].output("Y")[0] for i in range(n_layers)]
+
+
+def build_pretrain(cfg, batch, seq, n_masks, lr=LR, seed=SEED, schedule=None, optimizer=None,
+                   checkpoints=False):
     """The pretraining Program at static shapes (batch x seq tokens, n_masks
     masked positions per sequence) with ``Adam(lr)``, or with ``Adam`` at
     the learning rate that ``schedule(layers)`` builds (``bert_schedule``).
+    ``optimizer(pt, rate)`` replaces ``Adam`` (``lamb``); ``checkpoints``
+    wraps it in ``RecomputeOptimizer`` with ``encoder_checkpoints``.
     Returns (main, startup, total_loss, params_grads)."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.models import bert
@@ -130,7 +162,11 @@ def build_pretrain(cfg, batch, seq, n_masks, lr=LR, seed=SEED, schedule=None):
                for n, dt, kind in FEEDS]
         total, _, _ = bert.pretrain(*ins, cfg)
         rate = schedule(pt.layers) if schedule is not None else lr
-        _, params_grads = pt.optimizer.Adam(rate).minimize(total)
+        opt = optimizer(pt, rate) if optimizer is not None else pt.optimizer.Adam(rate)
+        if checkpoints:
+            opt = pt.optimizer.RecomputeOptimizer(opt)._set_checkpoints(
+                encoder_checkpoints(main, cfg.n_layers))
+        _, params_grads = opt.minimize(total)
     return main, startup, total, params_grads
 
 
@@ -147,12 +183,13 @@ def pretrain_feed(rng, cfg, batch, seq, n_masks):
             "nsp_label": rng.randint(0, 2, (batch, 1)).astype("int64")}
 
 
-def build_resnet50(dtype="bfloat16", fuse=True):
+def build_resnet50(dtype="bfloat16", fuse=True, optimizer=None):
     """ResNet-50 training at bench.py's configuration (NHWC, space-to-depth
     stem, 224 x 224, 1000 classes, ``Momentum(0.1, 0.9)``, seed 0, dynamic
     batch) in ``dtype``; ``fuse`` marks every batch norm ``fuse_stats`` and
-    runs the fuse pass before ``minimize``. Returns (main, startup, loss,
-    params_grads, chains fused)."""
+    runs the fuse pass before ``minimize``; ``optimizer(pt)`` replaces
+    ``Momentum`` (``lars``). Returns (main, startup, loss, params_grads,
+    chains fused)."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.contrib import fuse_conv_bn_stats
     from paddle_tpu_torch.models import resnet
@@ -170,7 +207,8 @@ def build_resnet50(dtype="bfloat16", fuse=True):
                 if op.type == "batch_norm":
                     op.attrs["fuse_stats"] = True
             fused = fuse_conv_bn_stats(main)
-        _, params_grads = pt.optimizer.Momentum(0.1, 0.9).minimize(loss)
+        opt = optimizer(pt) if optimizer is not None else pt.optimizer.Momentum(0.1, 0.9)
+        _, params_grads = opt.minimize(loss)
     return main, startup, loss, params_grads, fused
 
 
@@ -294,11 +332,13 @@ def deepfm_feed(rng, batch=CTR_BATCH, fields=CTR_FIELDS, vocab=CTR_VOCAB):
 MNIST_BATCH, MNIST_LR, MNIST_PIXELS, MNIST_CLASSES = 256, 0.01, 784, 10
 
 
-def build_mnist(batch=MNIST_BATCH, lr=MNIST_LR, seed=SEED, clip_norm=None, l2=None):
+def build_mnist(batch=MNIST_BATCH, lr=MNIST_LR, seed=SEED, clip_norm=None, l2=None,
+                optimizer=None):
     """The MNIST MLP training Program at a static batch with ``SGD(lr)``;
     ``clip_norm`` sets ``GradientClipByGlobalNorm(clip_norm)`` on every
-    parameter and ``l2`` the optimizer's ``L2Decay(l2)``. Returns (main,
-    startup, loss, acc, params_grads)."""
+    parameter and ``l2`` the optimizer's ``L2Decay(l2)``; ``optimizer(pt)``
+    replaces ``SGD`` (anything with a ``minimize(loss)`` that returns
+    (ops, params_grads)). Returns (main, startup, loss, acc, params_grads)."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.models import mnist
     main, startup = pt.Program(), pt.Program()
@@ -311,7 +351,9 @@ def build_mnist(batch=MNIST_BATCH, lr=MNIST_LR, seed=SEED, clip_norm=None, l2=No
         if clip_norm is not None:
             pt.clip.set_gradient_clip(pt.clip.GradientClipByGlobalNorm(clip_norm))
         reg = pt.regularizer.L2Decay(l2) if l2 is not None else None
-        _, params_grads = pt.optimizer.SGD(lr, regularization=reg).minimize(loss)
+        opt = optimizer(pt) if optimizer is not None else pt.optimizer.SGD(
+            lr, regularization=reg)
+        _, params_grads = opt.minimize(loss)
     return main, startup, loss, acc, params_grads
 
 
@@ -352,14 +394,16 @@ def traced(activities, margin=TRACE_MARGIN_S, schedule=None):
         time.sleep(margin)
 
 
-def profile_steps(torch, exe, main, feed, total, n_steps):
-    """Trace ``n_steps`` runs of ``main`` fetching ``total`` (a variable or a
-    list of them, as the runs before fetched, so that the executor's cached
-    graph is the one replayed), after one more run that the profiler traces
-    and drops; device time by activity name, and the window's count of
-    device records by name (``device_records``)."""
+#: traces of a window before ``profile_steps`` gives up: a whole window can
+#: come back with no device record at all (ROADMAP fault 3.2), and the steps
+#: it traces are traced again
+PROFILE_TRIES = 3
+
+
+def _trace_window(exe, main, feed, fetch, n_steps):
+    """One profiler window over ``n_steps`` runs: (wall seconds a step, the
+    device records as (us a step, count a step, name))."""
     from torch.profiler import ProfilerActivity, schedule
-    fetch = list(total) if isinstance(total, (list, tuple)) else [total]
     # one step traced and dropped first (the profiler's warm-up): late in a long
     # process a trace loses its first 15-20 device records (ROADMAP fault 3.2)
     with traced([ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -382,9 +426,27 @@ def profile_steps(torch, exe, main, feed, total, n_steps):
         # adds ("ProfilerStep*") span the steps on the device's clock, no work
         if us > 0 and e.cpu_time_total == 0 and not e.key.startswith("ProfilerStep"):
             device.append((us / n_steps, e.count / n_steps, e.key))
-    if not device:
-        raise SystemExit("torch.profiler recorded no device activity: device busy "
-                         "time not measured")
+    return wall, device
+
+
+def profile_steps(torch, exe, main, feed, total, n_steps):
+    """Trace ``n_steps`` runs of ``main`` fetching ``total`` (a variable or a
+    list of them, as the runs before fetched, so that the executor's cached
+    graph is the one replayed), after one more run that the profiler traces
+    and drops; device time by activity name, and the window's count of
+    device records by name (``device_records``). A window with no device
+    record is traced again, up to PROFILE_TRIES windows in all
+    (``empty_windows`` counts the ones dropped); then it raises."""
+    fetch = list(total) if isinstance(total, (list, tuple)) else [total]
+    empty = 0
+    for _ in range(PROFILE_TRIES):
+        wall, device = _trace_window(exe, main, feed, fetch, n_steps)
+        if device:
+            break
+        empty += 1
+    else:
+        raise SystemExit(f"torch.profiler recorded no device activity in {PROFILE_TRIES} "
+                         f"windows: device busy time not measured")
     device.sort(reverse=True)
     busy_ms = sum(us for us, _, _ in device) / 1e3
     by_kind = {}
@@ -394,7 +456,7 @@ def profile_steps(torch, exe, main, feed, total, n_steps):
     records = {}
     for _, c, k in device:
         records[k[:120]] = records.get(k[:120], 0) + round(c * n_steps)
-    return {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms, "empty_windows": empty,
             "device_idle_share": max(0.0, 1 - busy_ms / (wall * 1e3)),
             "device_activities_per_step": sum(c for _, c, _ in device),
             "device_records": records,

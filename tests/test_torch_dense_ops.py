@@ -43,7 +43,10 @@ NEW_OPS = {
                  "p_norm", "smooth_l1_loss"],
 }
 TENSOR_OPS = set(NEW_OPS["tensor_ops"])
-DENSE = sorted(k for k, c in CASES.items() if c.op not in TENSOR_OPS)
+# the update ops' cases run in tests/test_torch_optimizers.py (a bf16 parameter
+# beside f32 state: ``Case.slot_dtypes``)
+DENSE = sorted(k for k, c in CASES.items()
+               if c.op not in TENSOR_OPS and c.op not in op_cases.UPDATE_OPS)
 
 
 def _to_jax(a, dtype):

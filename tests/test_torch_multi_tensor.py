@@ -39,11 +39,11 @@ def _run_inputs(kind, dtypes, seed=0):
         shape = SHAPES[i % len(SHAPES)]
         f = lambda scale=1.0: torch.from_numpy((rng.randn(*shape) * scale).astype("float32"))
         ins = {"Param": [f().to(dt)], "Grad": [f().to(dt)], "LearningRate": [lrs[i % 2]]}
-        if kind == "adam":
+        if kind in ("adam", "lamb"):
             ins.update({"Moment1": [f(0.1)], "Moment2": [f(0.01).abs()],
                         "Beta1Pow": [torch.tensor([0.9 ** (i + 1)])],
                         "Beta2Pow": [torch.tensor([0.999 ** (i + 1)])]})
-        elif kind == "momentum":
+        elif kind in ("momentum", "lars_momentum"):
             ins["Velocity"] = [f(0.1)]
         ins_list.append(ins)
     return ins_list
@@ -61,7 +61,7 @@ def test_a_run_equals_the_per_op_lowerings_bit_for_bit(kind, attrs):
     dtypes = [torch.float32, torch.bfloat16, torch.bfloat16, torch.float32, torch.bfloat16]
     ins_list = _run_inputs(kind, dtypes)
     before = [{s: [t.clone() for t in v] for s, v in ins.items()} for ins in ins_list]
-    outs = mt.update(kind, attrs, ins_list)             # one call for the run
+    outs = mt.update(kind, [attrs] * len(ins_list), ins_list)     # one call for the run
     lower = getattr(optimizer_ops, kind)
     assert len(outs) == len(ins_list)
     for ins, ins0, out in zip(ins_list, before, outs):
@@ -95,14 +95,14 @@ def _update_program(specs):
             if s == "Moment2":
                 feed[n] = np.abs(feed[n])
         grad = reads or names["Grad"]
-        if kind == "adam":
+        if kind in ("adam", "lamb"):
             ins = {"Param": [names["Param"]], "Grad": [grad], "LearningRate": [f"lr{i % 2}"],
                    "Moment1": [names["Moment1"]], "Moment2": [names["Moment2"]],
                    "Beta1Pow": [names["Beta1Pow"]], "Beta2Pow": [names["Beta2Pow"]]}
             outs = {"ParamOut": [names["Param"]], "Moment1Out": [names["Moment1"]],
                     "Moment2Out": [names["Moment2"]], "Beta1PowOut": [names["Beta1Pow"]],
                     "Beta2PowOut": [names["Beta2Pow"]]}
-        elif kind == "momentum":
+        elif kind in ("momentum", "lars_momentum"):
             ins = {"Param": [names["Param"]], "Grad": [grad], "Velocity": [names["Velocity"]],
                    "LearningRate": [f"lr{i % 2}"]}
             outs = {"ParamOut": [names["Param"]], "VelocityOut": [names["Velocity"]]}
@@ -139,8 +139,8 @@ def test_runs_split_where_attrs_change(specs, runs, monkeypatch):
     assert got == runs
     calls = []
     update = mt.update
-    monkeypatch.setattr(mt, "update", lambda kind, attrs, ins_list: calls.append(
-        (kind, len(ins_list))) or update(kind, attrs, ins_list))
+    monkeypatch.setattr(mt, "update", lambda kind, op_attrs, ins_list: calls.append(
+        (kind, len(ins_list))) or update(kind, op_attrs, ins_list))
     env = {k: torch.from_numpy(v).clone() for k, v in feed.items()}
     ref = {k: torch.from_numpy(v).clone() for k, v in feed.items()}
     with torch.no_grad():
@@ -176,9 +176,11 @@ def test_the_mirror_reads_the_kernels_constants():
     assert sorted(cuda_build.SOURCES) == sorted(p.stem for p in Path(cuda_build.CSRC).glob("*.cu"))
     # the kinds the kernel dispatches on are the wrapper's
     src = (Path(cuda_build.CSRC) / "multi_tensor_update.cu").read_text()
-    kinds = re.search(r"constexpr int (kAdam = \d+, kMomentum = \d+, kSgd = \d+);", src).group(1)
-    assert {k[1:].lower(): int(v) for k, v in re.findall(r"(k\w+) = (\d+)", kinds)} == mt._KIND
-    assert set(mt._KIND) == set(mt.GROUPED) == set(mt._ACCUMULATORS) == set(mt._OUT_SLOTS)
+    kinds = re.search(r"constexpr int (kAdam = \d+, [^;]*);", src).group(1)
+    snake = lambda k: re.sub(r"(?<!^)(?=[A-Z])", "_", k[1:]).lower()
+    assert {snake(k): int(v) for k, v in re.findall(r"(k\w+) = (\d+)", kinds)} == mt._KIND
+    assert set(mt._KIND) == set(mt.GROUPED) == set(mt._ACCUMULATORS) == set(mt._OUT_SLOTS) \
+        == set(mt.LAUNCHES_PER_CALL)
 
 
 def kernel_walk(table, n_tensors, grid, vector):
@@ -230,11 +232,11 @@ def test_the_work_table_covers_every_element_once(vector, grid):
         g = torch.zeros(n, dtype=torch.bfloat16)
         m, v = (torch.zeros(n) for _ in range(2))
         lr, b1p, b2p = (torch.zeros(1) for _ in range(3))
-        rows.append((p, g, m, v, lr, b1p, b2p))
+        rows.append((p, g, m, v, lr, b1p, b2p, 0.0))
     table = mt.work_table(rows)
     desc = table[:len(rows) * mt.DESC_SLOTS].reshape(len(rows), mt.DESC_SLOTS)
     for r, d in zip(rows, desc):
-        assert list(d[:len(mt.ROLES)]) == [t.data_ptr() for t in r]
+        assert list(d[:len(mt.ROLES)]) == [t.data_ptr() for t in r[:len(mt.ROLES)]]
         assert d[mt._N_SLOT] == r[0].numel()
         assert d[mt._FLAGS_SLOT] & (mt._P_BF16 | mt._G_BF16) == mt._P_BF16 | mt._G_BF16
         assert bool(d[mt._FLAGS_SLOT] & mt._VECTOR) == vector
@@ -254,12 +256,12 @@ def test_the_wrapper_refuses_cpu_tensors():
     CPU tensors to the plain version."""
     ins_list = _run_inputs("adam", [torch.float32])
     with pytest.raises(ValueError, match="must lie on"):
-        mt.multi_tensor_update("adam", KINDS[0][1], ins_list)
+        mt.multi_tensor_update("adam", [KINDS[0][1]] * len(ins_list), ins_list)
     assert mt.multi_tensor_update.launches == 0
 
 
 def _rows(tensors):
-    return [(t, t, t, t, t[:1], t[:1], t[:1]) for t in tensors]
+    return [(t, t, t, t, t[:1], t[:1], t[:1], 0.0) for t in tensors]
 
 
 def test_the_table_is_built_once_per_layout(monkeypatch):
@@ -323,14 +325,14 @@ def test_each_kinds_rows_name_its_tensors(kind, attrs):
     read and write, 0 where the kind has none (``sgd``: neither accumulators
     nor beta powers); the wrapper refuses CPU tensors of every kind."""
     ins_list = _run_inputs(kind, [torch.float32, torch.bfloat16])
-    rows = mt.kernel_rows(kind, ins_list)
+    rows = mt.kernel_rows(kind, ins_list, [attrs] * len(ins_list))
     slots = {"adam": ("Moment1", "Moment2", "LearningRate", "Beta1Pow", "Beta2Pow"),
              "momentum": ("Velocity", None, "LearningRate", None, None),
              "sgd": (None, None, "LearningRate", None, None)}[kind]
     for row, ins in zip(rows, ins_list):
-        assert len(row) == len(mt.ROLES)
+        assert len(row) == len(mt.ROLES) + 1 and row[len(mt.ROLES)] == 0.0
         assert row[0] is ins["Param"][0] and torch.equal(row[1], ins["Grad"][0])
-        for t, slot in zip(row[2:], slots):
+        for t, slot in zip(row[2:len(mt.ROLES)], slots):
             assert (t is None) if slot is None else (t is ins[slot][0]), slot
     table = mt.work_table(rows)
     desc = table[:len(rows) * mt.DESC_SLOTS].reshape(len(rows), mt.DESC_SLOTS)
@@ -338,4 +340,153 @@ def test_each_kinds_rows_name_its_tensors(kind, attrs):
         [[s is None for s in slots]] * len(rows)
     assert "must lie on" in mt.kernel_refusal(kind, ins_list)
     with pytest.raises(ValueError, match="must lie on"):
-        mt.multi_tensor_update(kind, attrs, ins_list)
+        mt.multi_tensor_update(kind, [attrs] * len(ins_list), ins_list)
+
+
+# ------------------------------------------------- lamb and lars_momentum: two passes
+
+NORMED = [("lamb", {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-6}),
+          ("lars_momentum", {"mu": 0.9, "lars_coeff": 0.001, "lars_weight_decay": 0.0005})]
+
+
+def _op_attrs(kind, attrs, n):
+    """Per-op attrs: lamb's weight decay alternates 0.01 / 0.0 (an excluded
+    parameter every other op)."""
+    if kind != "lamb":
+        return [dict(attrs)] * n
+    return [dict(attrs, weight_decay=0.01 if i % 2 == 0 else 0.0) for i in range(n)]
+
+
+@pytest.mark.parametrize("kind,attrs", NORMED)
+def test_a_normed_run_equals_the_per_op_lowerings_bit_for_bit(kind, attrs):
+    """The plain version of a lamb / lars_momentum run, each op with its own
+    attrs, writes what each op's lowering returns."""
+    dtypes = [torch.float32, torch.bfloat16, torch.float32, torch.bfloat16, torch.float32]
+    ins_list = _run_inputs(kind, dtypes, seed=3)
+    op_attrs = _op_attrs(kind, attrs, len(ins_list))
+    ref = [getattr(optimizer_ops, kind)(LowerCtx(a, "cpu"),
+                                        {s: [t.clone() for t in v] for s, v in ins.items()})
+           for a, ins in zip(op_attrs, ins_list)]
+    outs = mt.update(kind, op_attrs, ins_list)
+    for out, want, ins in zip(outs, ref, ins_list):
+        assert sorted(out) == sorted(want) == sorted(mt._OUT_SLOTS[kind])
+        for slot in want:
+            assert out[slot][0] is ins[mt.IN_PLACE[slot]][0]
+            assert torch.equal(out[slot][0], want[slot][0]), slot
+
+
+def test_a_lamb_run_spans_excluded_parameters():
+    """``weight_decay`` is not a run attr: lamb ops whose decays alternate
+    stay one run, one ``update`` call, bit for bit to one op at a time."""
+    blk, feed = _update_program([("lamb", a, None) for a in _op_attrs(*NORMED[0], 5)])
+    assert [op.attr("weight_decay") for op in blk.ops] == [0.01, 0.0, 0.01, 0.0, 0.01]
+    assert mt.run_end(blk.ops, 0) == 5
+    env = {k: torch.from_numpy(v).clone() for k, v in feed.items()}
+    ref = {k: torch.from_numpy(v).clone() for k, v in feed.items()}
+    with torch.no_grad():
+        trace_block(blk, env, "cpu")
+        trace_block(blk, ref, "cpu", group_updates=False)
+    for k in feed:
+        assert torch.equal(env[k], ref[k]), k
+
+
+def norm_passes(table, n_tensors, grid, partials_of):
+    """Mirror of norm_pass_kernel and apply_pass_kernel's indices and sums:
+    pass 1's block b takes items b, b + grid, ... and writes item c's two
+    partial sums (``partials_of(t, chunk)``, float64, rounded to f32) to
+    slots 2c and 2c + 1; pass 2 sums a tensor's slots over its descriptor's
+    chunk range, in chunk order, in float64, rounds to f32 and takes the
+    square root. Returns (writes per slot, per-tensor norms [T, 2] f32,
+    the items each tensor's range names)."""
+    desc = table[:n_tensors * mt.DESC_SLOTS].reshape(n_tensors, mt.DESC_SLOTS)
+    items = table[n_tensors * mt.DESC_SLOTS:].view(np.int32).reshape(-1, 2)
+    slots = np.zeros(2 * len(items), np.float32)
+    writes = np.zeros(2 * len(items), np.int64)
+    for b in range(min(grid, len(items))):
+        for c in range(b, len(items), grid):
+            t, chunk = items[c]
+            slots[2 * c:2 * c + 2] = np.asarray(partials_of(int(t), int(chunk)), np.float32)
+            writes[2 * c:2 * c + 2] += 1
+    norms = np.zeros((n_tensors, 2), np.float32)
+    ranges = []
+    for t in range(n_tensors):
+        first, count = int(desc[t, mt._FIRST_CHUNK_SLOT]), int(desc[t, mt._N_CHUNKS_SLOT])
+        ranges.append(items[first:first + count].tolist())
+        pair = slots[2 * first:2 * (first + count)].reshape(-1, 2).astype(np.float64).sum(0)
+        norms[t] = np.sqrt(pair.astype(np.float32))
+    return writes, norms, ranges
+
+
+@pytest.mark.parametrize("kind,attrs", NORMED)
+def test_the_normed_passes_scratch_layout_and_norms(kind, attrs):
+    """The table of a lamb / lars_momentum run: each tensor's weight decay
+    (lamb: its op's, as f32 bits in the slot's low half; 0 otherwise) and its
+    chunk range; pass 1 writes every scratch slot once, pass 2's range of a
+    tensor is exactly its chunks in order, and the norms it sums from the
+    partials lie within 1e-6 relative of ``torch.sum``'s (the tolerance the
+    card holds the kernel's norms to)."""
+    numels = [5, mt.CHUNK + 3, 2 * mt.CHUNK, 17]
+    gen = torch.Generator().manual_seed(5)
+    ins_list = []
+    for n in numels:
+        ins = {"Param": [torch.randn(n, generator=gen)], "Grad": [torch.randn(n, generator=gen)],
+               "LearningRate": [torch.tensor([0.01])]}
+        if kind == "lamb":
+            ins.update(Moment1=[torch.randn(n, generator=gen) * 0.1],
+                       Moment2=[torch.rand(n, generator=gen) * 0.01],
+                       Beta1Pow=[torch.tensor([0.9 ** 2])], Beta2Pow=[torch.tensor([0.999 ** 2])])
+        else:
+            ins["Velocity"] = [torch.randn(n, generator=gen) * 0.1]
+        ins_list.append(ins)
+    op_attrs = _op_attrs(kind, attrs, len(numels))
+    rows = mt.kernel_rows(kind, ins_list, op_attrs)
+    table = mt.work_table(rows)
+    T = len(numels)
+    desc = table[:T * mt.DESC_SLOTS].reshape(T, mt.DESC_SLOTS)
+    want_wd = np.asarray([a["weight_decay"] if kind == "lamb" else 0.0 for a in op_attrs],
+                         np.float32)
+    assert (desc[:, mt._WD_SLOT].astype(np.uint32).view(np.float32) == want_wd).all()
+    assert mt._N_CHUNKS_SLOT < mt.DESC_SLOTS
+
+    def second(t):
+        """What the second norm is taken of: lamb's r, lars_momentum's g."""
+        ins = ins_list[t]
+        if kind == "lars_momentum":
+            return ins["Grad"][0]
+        a = op_attrs[t]
+        g = ins["Grad"][0]
+        m = a["beta1"] * ins["Moment1"][0] + (1 - a["beta1"]) * g
+        v = a["beta2"] * ins["Moment2"][0] + (1 - a["beta2"]) * g * g
+        return (m / (1 - ins["Beta1Pow"][0])) / (torch.sqrt(v / (1 - ins["Beta2Pow"][0]))
+                                                + a["epsilon"]) + a["weight_decay"] * ins["Param"][0]
+
+    xs = [(ins_list[t]["Param"][0].numpy(), second(t).numpy()) for t in range(T)]
+
+    def partials_of(t, chunk):
+        sl = slice(chunk * mt.CHUNK, (chunk + 1) * mt.CHUNK)
+        return [float(np.sum(np.square(x[sl]).astype(np.float64))) for x in xs[t]]
+
+    for grid in (1, 3, 132 * mt.BLOCKS_PER_SM):
+        writes, norms, ranges = norm_passes(table, T, grid, partials_of)
+        assert (writes == 1).all()
+        for t, n in enumerate(numels):
+            assert ranges[t] == [[t, c] for c in range(max(1, -(-n // mt.CHUNK)))]
+        want = np.array([[torch.sqrt(torch.sum(torch.from_numpy(x) ** 2)).item() for x in pair]
+                         for pair in xs], np.float32)
+        np.testing.assert_allclose(norms, want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("kind,attrs", NORMED)
+def test_the_normed_kinds_rows_and_refusal(kind, attrs):
+    """lamb names adam's tensors, lars_momentum momentum's; the wrapper
+    refuses CPU tensors (the plain version takes them through ``update``)."""
+    ins_list = _run_inputs(kind, [torch.float32, torch.bfloat16])
+    rows = mt.kernel_rows(kind, ins_list, _op_attrs(kind, attrs, len(ins_list)))
+    like = {"lamb": "adam", "lars_momentum": "momentum"}[kind]
+    assert mt._ACCUMULATORS[kind] == mt._ACCUMULATORS[like]
+    assert mt._SCALARS[kind] == mt._SCALARS[like]
+    for row, ins in zip(rows, ins_list):
+        assert row[0] is ins["Param"][0]
+        assert (row[3] is None) == (kind == "lars_momentum")
+    with pytest.raises(ValueError, match="must lie on"):
+        mt.multi_tensor_update(kind, [attrs] * len(ins_list), ins_list)

@@ -6,9 +6,10 @@ train the MNIST MLP, train the book chapters (``examples/``) and serve
 VGG-16, train BERT-base and transformer-base under their published
 learning-rate schedules and run every dense op case, train BERT-base
 under LAMB (with and without recompute), ResNet-50 under LARS and the MNIST
-MLP under every update class and averaging wrapper through the
-PyTorch/CUDA port on one NVIDIA GPU, and hold its CUDA kernels against
-their plain PyTorch versions.
+MLP under every update class and averaging wrapper, train BERT-base
+accumulated over microbatches, transformer-base under mixed precision and
+VGG-16 under a gradient penalty through the PyTorch/CUDA port on one NVIDIA
+GPU, and hold its CUDA kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -255,6 +256,37 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    the per-op lowerings, each tensor's norms within 1e-6 relative of
    ``torch.sum``'s, ParamOut within 2 f32 ulps (1 bf16 ulp) and bit for bit
    to the same arithmetic fed the kernel's norms, two runs bit for bit;
+19. (run after phase 18) the rest of the training surface. A: BERT-base
+   at phase 11's configuration under ``PipelineOptimizer(Adam,
+   num_microbatches=4, schedule="scan")``: the global batch of 128 as 4 x
+   32 in one ``scan`` whose body holds the forward and backward ops, the
+   masked positions rebased to each microbatch
+   (``train_profile.pretrain_feed(..., microbatches=4)``); as phase 17 runs
+   its models, without ``run_fused`` (eager and graph from one state bit for
+   bit, K1-fwd and K1-bwd 48 a step, each forward once a microbatch,
+   ``dropout`` 100, ``multi_tensor_update`` 1), step ms, busy ms, activities, graph
+   pool and eager peak beside phase 11's plain B128 step, and K1's time a
+   launch inside the scan from the trace; A0: at dropout 0 against the
+   plain B128 step at dropout 0 on the same tokens, 4 steps from one
+   state, held to phase 5's limits. B: transformer-base at phase 13's
+   configuration under ``contrib.mixed_precision.decorate(Adam)`` at its
+   defaults (bf16 products, no loss scaling), as A, beside phase 13's f32
+   step, with the casts inserted, the products' dtypes and device ms, and
+   step 1's loss against the f32 program's (limit below). B2: the MNIST
+   MLP under fp16 dynamic loss scaling for 6 steps with an inf in step 3's
+   batch: the scale sequence equal to its closed form on the eager, graph
+   and CPU paths, the parameters unchanged by the overflowed step, graph
+   against eager bit for bit. C: the image chapter (VGG-16-BN, B 128, 3 x
+   32 x 32, dropout 0.5) under the input-gradient penalty
+   (``book.build_image_penalty``: second order through cuDNN's conv2d,
+   batch norm, pooling and the ``dropout`` kernel's Function) as A,
+   fetching the penalty, which must fall, beside the plain chapter's step.
+   D: the 12 second-order op cases of ``tools/double_grad.py`` on the card
+   against the CPU port, the second-order refusals of K1's and K2's
+   Functions on the card, the composed attention's second order, and the
+   WGAN-GP objective over 200 steps (5 against the CPU port). Alone:
+   ``python3 -c "import torch, chip_smoke as cs; cs.phase_build();
+   cs.phase_training_surface(torch)"``, which times its yardsticks itself;
 12. the kernels line (``multi_tensor_update`` with its five kinds, each
    with its launches), then the result line.
 
@@ -534,10 +566,11 @@ def phase_train_kernels(torch):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 2)
     p = ATTN_DROPOUT
-    # (B, H, S, D, dtype, bias, causal, dropout); the first is the training path's. The
-    # bf16 backward runs its fused variant at S <= 128 and its split one beyond (S 256,
-    # 512 and the ragged 200)
+    # (B, H, S, D, dtype, bias, causal, dropout); the first is the training path's, the
+    # second a microbatch of phase 19's pipeline. The bf16 backward runs its fused
+    # variant at S <= 128 and its split one beyond (S 256, 512 and the ragged 200)
     cases = [(128, 12, 128, 64, "bfloat16", True, False, p),
+             (PIPE_BATCH // PIPE_MICROBATCHES, 12, 128, 64, "bfloat16", True, False, p),
              (16, 12, 256, 64, "bfloat16", True, False, p),
              (8, 12, 512, 64, "bfloat16", True, False, p),
              (8, 12, 128, 64, "float32", True, False, p),
@@ -1737,6 +1770,10 @@ NMT_PROBS_DROPOUT_SHAPE = (64, 8, 64, 64)
 VGG_DROPOUT_SHAPE, VGG_DROPOUT_P = (128, 4096), 0.5
 CAPTURED_STEPS = 5           # steps held graph against eager
 TIMED_STEPS = 6              # steps timed on each path (after the held ones)
+# an eager path, host-bound and the slower one, is timed over fewer steps (its
+# median over the last 3) and traced over 2 (after the profiler's warm-up step),
+# to keep the whole script near half its time limit on a slow host
+EAGER_TIMED_STEPS, EAGER_PROFILED_STEPS = 4, 2
 FUSED_K = 4
 
 
@@ -1920,9 +1957,11 @@ def _graph_pools(exe):
 
 
 def _timed_path(torch, pt, main, feed, loss, init, graphs_on, free_dead):
-    """Step ms of each of TIMED_STEPS steps (fetching the loss as numpy), the
-    peak of allocated memory over them and the graph pools, then 3 steps
-    under the profiler. The executor is closed at the end."""
+    """Step ms of each of TIMED_STEPS steps (EAGER_TIMED_STEPS eager; fetching
+    the loss as numpy), the peak of allocated memory over them and the graph
+    pools, then 3 steps (EAGER_PROFILED_STEPS eager) under the profiler, with
+    the window's device records by name: their count and ms over its steps.
+    The executor is closed at the end."""
     from paddle_tpu_torch.tools.train_profile import profile_steps
     exe = pt.Executor()
     exe._use_graphs, exe._free_dead = graphs_on, free_dead
@@ -1936,13 +1975,14 @@ def _timed_path(torch, pt, main, feed, loss, init, graphs_on, free_dead):
     torch.cuda.reset_peak_memory_stats()
     times = []
     with pt.scope_guard(scope):
-        for _ in range(TIMED_STEPS):
+        for _ in range(TIMED_STEPS if graphs_on else EAGER_TIMED_STEPS):
             t0 = time.perf_counter()
             exe.run(main, feed=feed, fetch_list=[loss])
             times.append((time.perf_counter() - t0) * 1e3)
         peak = torch.cuda.max_memory_allocated() / 1e9
         pools = _graph_pools(exe)
-        prof = profile_steps(torch, exe, main, feed, loss, 3)
+        prof = profile_steps(torch, exe, main, feed, loss,
+                             3 if graphs_on else EAGER_PROFILED_STEPS)
     exe.close()
     del scope, exe
     warm = times[2:] if graphs_on else times[1:]     # after the warm-up (and the capture)
@@ -1953,7 +1993,8 @@ def _timed_path(torch, pt, main, feed, loss, init, graphs_on, free_dead):
                 idle_share_unprofiled=max(0.0, 1 - prof["device_busy_ms"] / ms),
                 profiled_wall_ms=prof["wall_ms"],
                 device_activities_per_step=prof["device_activities_per_step"],
-                by_kind=prof["by_kind"])
+                by_kind=prof["by_kind"], device_records=prof["device_records"],
+                device_ms_by_record=prof["device_ms_by_record"])
 
 
 def _memory_before_after(torch, pt, main, feed, loss, init):
@@ -3375,9 +3416,9 @@ def _lr_var(main):
 
 def _scheduled_model(torch, pt, label, main, startup, feed, loss, expected, counter0,
                      per_run, closed_form, constant, init=None, final=None,
-                     event="scheduled_training"):
+                     event="scheduled_training", fused=True):
     """One model under a schedule: SCHED_STEPS steps on the eager executor,
-    on the graph executor (warm-up, capture, replays) and in one
+    on the graph executor (warm-up, capture, replays) and (``fused``) in one
     ``run_fused`` call, each from the startup state (or ``init``) with the
     counter at ``counter0``: the learning rate, the counter and the loss of
     every step and every state tensor, bit for bit across the three; the
@@ -3397,7 +3438,7 @@ def _scheduled_model(torch, pt, label, main, startup, feed, loss, expected, coun
         init[LR_COUNTER] = torch.full((1,), counter0, dtype=torch.int64, device="cuda")
         fetch.append(LR_COUNTER)
     runs, launches, tables = {}, {}, {}
-    for path in ("eager", "graph", "fused"):
+    for path in ("eager", "graph") + (("fused",) if fused else ()):
         exe = pt.Executor()
         exe._use_graphs = path != "eager"
         for fn in cuda_build.COUNTED:
@@ -3438,7 +3479,7 @@ def _scheduled_model(torch, pt, label, main, startup, feed, loss, expected, coun
                       loss_bit_equal=all(torch.equal(a[0], b[0])
                                          for a, b in zip(runs[p][0], e_outs)),
                       state_differs=len(_state_equal(torch, runs[p][1], e_state)))
-              for p in ("graph", "fused")}
+              for p in runs if p != "eager"}
     del runs, e_outs, e_state
     paths = {("graph" if g else "eager"): _timed_path(torch, pt, main, feed, loss, init, g, True)
              for g in (True, False)}
@@ -3959,6 +4000,436 @@ def phase_optimizers(torch, constant_bert=None, constant_resnet=None):
     return a, b, vs, c, d
 
 
+# -- phase 19: the rest of the training surface -----------------------------------------
+
+#: A: bench.py's BERT-base batch, accumulated over 4 equal microbatches
+PIPE_BATCH, PIPE_MICROBATCHES = 128, 4
+#: A0: steps from one state, pipeline (dropout 0) against the plain B128 step
+#: (dropout 0), held to phase 5's limits for two bf16 paths (TRAIN_LOSS_REL,
+#: TRAIN_UPDATE_REL): the mean of 4 equal-count microbatch means is the batch
+#: mean, so the two differ by the order of their sums and the bf16 roundings
+#: of the gradients (each microbatch's gradient is rounded to the parameter's
+#: dtype before it is summed)
+PIPE_STEPS = SCHED_STEPS
+#: A0: step 1's accumulated gradients (the ``@mb_mean`` variables Adam reads)
+#: against the plain step's, relative L1 over every parameter. Adam's update
+#: hides a gradient's scale, so this is the card's check of the accumulation:
+#: a lost or doubled 1/M parts the two by 3 or 1, a microbatch left out of the
+#: sum by 0.25 or more; the two bf16 paths' roundings by far less (1.8e-3 on
+#: the CPU port at H128 L2 B16 S32, M 4); 0.05 keeps room for both sides.
+PIPE_GRAD_REL = 0.05
+# B: transformer-base's step-1 loss under decorate(Adam) (bf16 products) against
+# the f32 program's from the same weights and dropout masks. Each product's
+# inputs are rounded to bf16 (2^-9 relative each) and its sum kept in f32: about
+# one bf16 ulp of noise per element of each layer's output, with random signs,
+# which moves each token's cross-entropy (about 10.4 at initialisation) by a few
+# 1e-3 and their mean over 4096 tokens far less; 1e-2 bounds it with room.
+AMP_LOSS_REL = 1e-2
+# B: the parameter update after SCHED_STEPS steps of decorate(Adam) against the
+# f32 program's from the same weights and masks: the check of AMP's backward
+# (the casts' gradients, the bf16 products' gradients) and its update. Two
+# paths that part by bf16 roundings, held to phase 5's limit for two bf16 paths
+# (TRAIN_UPDATE_REL); the CPU port reads 0.0076 at H128 L2 B8 S32.
+AMP_UPDATE_REL = TRAIN_UPDATE_REL
+# B2: the MNIST MLP under fp16 dynamic loss scaling: SGD(0.01), init scale 1024,
+# grow by 2 after 2 finite steps, halve on an overflow; step 3's batch holds an
+# inf. The scale after each step, in closed form: 1024 (1 good step), 2048 (2:
+# grow), 1024 (overflow: halve), 1024, 2048, 2048.
+AMP_INIT_SCALE, AMP_INCR_EVERY, AMP_STEPS, AMP_OVERFLOW_STEP = 1024.0, 2, 6, 3
+AMP_SCALES = [1024.0, 2048.0, 1024.0, 1024.0, 2048.0, 2048.0]
+#: C: the image chapter under the input-gradient penalty, random CIFAR-shaped images
+PENALTY_BATCH = 128
+#: D: the WGAN-GP objective at tests/test_double_grad.py's size: 200 Adam steps
+#: (its bar: the penalty below half its first value), the first 5 against the
+#: CPU port from the same weights. f32 on both, the card's sums in other orders
+#: through two backward passes of a 2-layer MLP: 1e-4 relative.
+WGAN_STEPS, WGAN_CPU_STEPS, WGAN_REL = 200, 5, 1e-4
+#: D: the second order through dropout against its closed form over the
+#: forward's Mask (2 y Mask / (1 - p), 2 Mask^2 / (1 - p)^2 v): f32, one
+#: product and a division by 0.5 on each side: 1e-6 relative
+DROPOUT_2ND_REL = 1e-6
+
+
+def _pipeline_bert(torch, pt, constant):
+    """Path A: BERT-base pretraining under ``PipelineOptimizer(Adam,
+    num_microbatches=4, schedule="scan")`` at phase 11's configuration,
+    through ``_scheduled_model`` (constant LR) beside phase 11's plain B128
+    step; then A0: at dropout 0 against the plain B128 step at dropout 0,
+    PIPE_STEPS steps from one state on the graph executor."""
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.tools.train_profile import (BATCH, LR, MASKS_PER_SEQ, SEQ,
+                                                      build_pretrain, global_mask_pos,
+                                                      pipeline, pretrain_feed)
+    assert BATCH == PIPE_BATCH
+    M = PIPE_MICROBATCHES
+    cfg = bert.BertConfig(dtype="bfloat16", dropout=ATTN_DROPOUT)
+    raw = pretrain_feed(np.random.RandomState(SEED), cfg, BATCH, SEQ, MASKS_PER_SEQ, M)
+    feed = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    main, startup, total, pg = build_pretrain(cfg, BATCH, SEQ, MASKS_PER_SEQ, LR, SEED,
+                                              optimizer=pipeline(M))
+    ops = [op.type for op in main.global_block().ops]
+    glob, body = _segment_dropouts(main)
+    body_attn = sum(op.type == "fused_attention" for op in main.blocks[1].ops)
+    if ops.count("scan") != 1 or ops.count("adam") != len(pg) or body_attn != cfg.n_layers \
+            or glob != 0:
+        raise SystemExit(f"pipeline BERT program: {ops.count('scan')} scans, "
+                         f"{ops.count('adam')} adam ops for {len(pg)} parameters, "
+                         f"{body_attn} attentions and {body} dropouts in the body, {glob} out")
+    expected = {"flash_attn_fwd": cfg.n_layers * M, "flash_attn_bwd": cfg.n_layers * M,
+                "dropout_fwd": body * M, "multi_tensor_update": 1}
+    label = (f"bert-base pretrain bf16 B{BATCH} as {M} x {BATCH // M} S{SEQ} dropout "
+             f"{cfg.dropout} PipelineOptimizer(Adam({LR}), num_microbatches={M}, "
+             f"schedule='scan')")
+    r = _scheduled_model(torch, pt, label, main, startup, feed, total, expected, None, None,
+                         None, constant, event="pipeline_training", fused=False)
+    # the attention kernels' device time a launch inside the scan's body, from
+    # the trace of 3 captured steps
+    graph = r["paths"]["graph"]
+    recs, rec_ms = graph.pop("device_records"), graph.pop("device_ms_by_record")
+    in_scan = {}
+    for kernel, pats in (("flash_attn_fwd", ("flash_fwd",)),
+                         ("flash_attn_bwd", ("bwd_dkdv", "bwd_dq", "flash_bwd"))):
+        names = [k for k in recs if any(p_ in k for p_ in pats)]
+        n = sum(recs[k] for k in names) / 3
+        in_scan[kernel] = dict(records=names, launches_per_step=n,
+                               ms_per_launch=(sum(rec_ms[k] for k in names) / n) if n else None)
+    emit("pipeline_kernels_in_scan", **in_scan)
+    r.update(path="A", microbatches=M, microbatch_batch=BATCH // M, body_dropouts=body,
+             kernel_in_scan=in_scan)
+    del main, startup, feed
+    torch.cuda.empty_cache()
+
+    # A0: dropout 0, the pipeline against the plain step on the same tokens
+    cfg0 = bert.BertConfig(dtype="bfloat16", dropout=0.0)
+    pipe, pstart, ptotal, pipe_pg = build_pretrain(cfg0, BATCH, SEQ, MASKS_PER_SEQ, LR, SEED,
+                                                   optimizer=pipeline(M))
+    plain, _, ltotal, plain_pg = build_pretrain(cfg0, BATCH, SEQ, MASKS_PER_SEQ, LR, SEED)
+    init = _startup_state(pt, pipe, pstart)
+    if set(_startup_state(pt, plain, pstart)) != set(init):
+        raise SystemExit("the pipeline program names its state otherwise than the plain one")
+    feed_host = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    plain_feed = dict(feed_host, mask_pos=torch.from_numpy(
+        global_mask_pos(raw["mask_pos"], M, BATCH, SEQ)).cuda())
+    # each parameter's gradient as Adam reads it: the pipeline's accumulated
+    # mean, the plain step's own
+    grads = {"pipeline": [g.name + "@mb_mean" for _, g in pipe_pg if g is not None],
+             "plain": [g.name for _, g in plain_pg if g is not None]}
+    runs = {}
+    for name, prog, loss, fd in (("pipeline", pipe, ptotal, feed_host),
+                                 ("plain", plain, ltotal, plain_feed)):
+        exe = pt.Executor()
+        outs, state, _ = _steps(pt, exe, prog, fd, [loss] + grads[name], init, PIPE_STEPS)
+        runs[name] = ([float(o[0].float().reshape(-1)[0]) for o in outs],
+                      {n: t.clone() for n, t in state.items()}, outs[0][1:])
+        exe.close()
+        del exe, outs, state
+    (lp, sp, gp), (ll, sl, gl) = runs["pipeline"], runs["plain"]
+    grad_gap = (sum(float((a.float() - b.float()).abs().sum()) for a, b in zip(gp, gl))
+                / sum(float(b.float().abs().sum()) for b in gl))
+    a0 = dict(losses_pipeline=lp, losses_plain=ll,
+              loss_rel_gap=max(abs(a - b) / abs(b) for a, b in zip(lp, ll)),
+              update_rel_l1_gap=_update_gap(init, sp, sl), steps=PIPE_STEPS,
+              step1_grad_rel_l1_gap=grad_gap, grads=len(gl),
+              loss_rel_limit=TRAIN_LOSS_REL, update_rel_l1_limit=TRAIN_UPDATE_REL,
+              grad_rel_l1_limit=PIPE_GRAD_REL)
+    emit("pipeline_vs_plain", **a0)
+    r["A0"] = a0
+    del runs, sp, sl, gp, gl, init, pipe, plain, feed_host, plain_feed
+    torch.cuda.empty_cache()
+    if not (a0["loss_rel_gap"] <= TRAIN_LOSS_REL and a0["update_rel_l1_gap"] <= TRAIN_UPDATE_REL
+            and grad_gap <= PIPE_GRAD_REL):
+        raise SystemExit(f"A0: the pipeline parts from the plain step beyond the limits: {a0}")
+    return r
+
+
+def _product_dtypes(program):
+    """The white-list products (``mul``, ``matmul``, ...) of ``program`` by
+    the dtype of their first input."""
+    from paddle_tpu_torch.contrib.mixed_precision import AutoMixedPrecisionLists
+    white = AutoMixedPrecisionLists().white_list
+    out = {}
+    for op in program.global_block().ops:
+        if op.type in white:
+            dt = program.global_block().var(op.input(next(iter(op.inputs)))[0]).dtype
+            out[dt] = out.get(dt, 0) + 1
+    return out
+
+
+def _amp_transformer(torch, pt, constant):
+    """Path B: transformer-base under ``mixed_precision.decorate(Adam)`` at
+    its defaults (bf16, no scaling) through ``_scheduled_model`` beside phase
+    13's f32 step; step 1's loss, and the update after SCHED_STEPS steps,
+    against the f32 program's from the same weights."""
+    from paddle_tpu_torch.tools.train_profile import (NMT_LR, amp_adam, build_transformer,
+                                                      nmt_feed, transformer_config)
+    cfg = transformer_config()
+    main, startup, loss, pg = build_transformer(cfg, optimizer=amp_adam)
+    f32, _, f32_loss, _ = build_transformer(cfg)
+    casts = (sum(op.type == "cast" for op in main.global_block().ops)
+             - sum(op.type == "cast" for op in f32.global_block().ops))
+    products = {"amp": _product_dtypes(main), "f32": _product_dtypes(f32)}
+    feed = {k: torch.from_numpy(v).cuda()
+            for k, v in nmt_feed(np.random.RandomState(SEED), cfg).items()}
+    init = _startup_state(pt, main, startup)
+    step1, final = {}, {}
+    for name, prog, l in (("amp", main, loss), ("f32", f32, f32_loss)):
+        exe = pt.Executor()
+        outs, state, _ = _steps(pt, exe, prog, feed, [l], init, SCHED_STEPS)
+        step1[name] = float(outs[0][0].reshape(-1)[0])
+        final[name] = {n: t.clone() for n, t in state.items()}
+        exe.close()
+        del exe, outs, state
+    step1_rel = abs(step1["amp"] - step1["f32"]) / abs(step1["f32"])
+    update_rel = _update_gap(init, final["amp"], final["f32"])
+    del final
+    drops = sum(op.type == "dropout" and not op.attr("is_test", False)
+                for op in main.global_block().ops)
+    r = _scheduled_model(
+        torch, pt, f"transformer-base f32 program under mixed_precision.decorate(Adam({NMT_LR})) "
+        f"(bf16 products, no loss scaling) B64 S64+64 dropout {cfg.dropout}", main, startup,
+        feed, loss, {"dropout_fwd": drops, "multi_tensor_update": 1}, None, None, None,
+        constant, init=init, event="amp_training", fused=False)
+    r.update(path="B", casts_inserted=casts, products_by_dtype=products,
+             step1_loss=step1, step1_loss_rel_gap=step1_rel, step1_loss_rel_limit=AMP_LOSS_REL,
+             update_steps=SCHED_STEPS, update_rel_l1_gap=update_rel,
+             update_rel_l1_limit=AMP_UPDATE_REL,
+             product_device_ms={
+                 "amp (bf16 products)": r["paths"]["graph"]["by_kind"].get("matmul", {}).get("ms"),
+                 "f32": constant["graph"]["by_kind"].get("matmul", {}).get("ms")})
+    emit("amp_step1", **{k: r[k] for k in ("casts_inserted", "products_by_dtype", "step1_loss",
+                                          "step1_loss_rel_gap", "update_rel_l1_gap",
+                                          "product_device_ms")})
+    del main, startup, f32, feed, init
+    torch.cuda.empty_cache()
+    if set(products["amp"]) != {"bfloat16"} or set(products["f32"]) != {"float32"}:
+        raise SystemExit(f"AMP transformer: products by dtype {products}")
+    if not step1_rel <= AMP_LOSS_REL:
+        raise SystemExit(f"AMP transformer: step-1 loss {step1} parts by {step1_rel} relative "
+                         f"(limit {AMP_LOSS_REL})")
+    if not update_rel <= AMP_UPDATE_REL:
+        raise SystemExit(f"AMP transformer: the update after {SCHED_STEPS} steps parts from the "
+                         f"f32 program's by {update_rel} relative L1 (limit {AMP_UPDATE_REL})")
+    return r
+
+
+def _bits(torch, t):
+    """A float tensor's bits, so that NaNs compare equal to themselves."""
+    return t.contiguous().view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _amp_scaling_mnist(torch, pt):
+    """Path B2: the MNIST MLP under fp16 dynamic loss scaling for AMP_STEPS
+    steps, step AMP_OVERFLOW_STEP fed a batch holding an inf, on the eager
+    executor, the graph executor and the CPU port from one state: the scale
+    after each step equal to its closed form on all three, the parameters
+    unchanged by the overflowed step, graph against eager bit for bit."""
+    from paddle_tpu_torch.ops import multi_tensor
+    from paddle_tpu_torch.tools.train_profile import build_mnist, mnist_feed
+    holder = {}
+
+    def optimizer(p):
+        holder["o"] = p.contrib.mixed_precision.decorate(
+            p.optimizer.SGD(0.01), dest_dtype="float16", use_dynamic_loss_scaling=True,
+            init_loss_scaling=AMP_INIT_SCALE, incr_every_n_steps=AMP_INCR_EVERY)
+        return holder["o"]
+
+    main, startup, loss, _, pg = build_mnist(optimizer=optimizer)
+    scale = holder["o"].get_loss_scaling()
+    params = [p.name for p, _ in pg]
+    feeds = [mnist_feed(np.random.RandomState(SEED + i)) for i in range(AMP_STEPS)]
+    feeds[AMP_OVERFLOW_STEP - 1]["img"][0, 0] = np.inf
+    init = _startup_state(pt, main, startup)
+    runs = {}
+    for path in ("eager", "graph", "cpu"):
+        dev = "cpu" if path == "cpu" else "cuda"
+        exe = pt.Executor(pt.CPUPlace() if path == "cpu" else None)
+        exe._use_graphs = path == "graph"
+        multi_tensor.multi_tensor_update.launches = 0
+        scope = pt.Scope()
+        for n, t in init.items():
+            scope.set_var(n, t.to(dev, copy=True))
+        main._rng_run_counter = 0
+        outs, states = [], []
+        with pt.scope_guard(scope):
+            for f in feeds:
+                o = exe.run(main, feed={k: torch.from_numpy(v).to(dev) for k, v in f.items()},
+                            fetch_list=[loss, scale], return_numpy=False)
+                outs.append([x.clone() for x in o])
+                states.append({n: scope.find_var(n).clone() for n in params})
+        runs[path] = (outs, states, multi_tensor.multi_tensor_update.launches)
+        exe.close()
+        del exe, scope
+    scales = {p: [float(o[1].reshape(-1)[0]) for o in runs[p][0]] for p in runs}
+    losses = {p: [float(o[0].float().reshape(-1)[0]) for o in runs[p][0]] for p in runs}
+    (g_outs, g_states, g_launch), (e_outs, e_states, e_launch) = runs["graph"], runs["eager"]
+    bit_equal = all(torch.equal(_bits(torch, a), _bits(torch, b))
+                    for x, y in zip(g_outs, e_outs) for a, b in zip(x, y)) and \
+        all(torch.equal(x[n], y[n]) for x, y in zip(g_states, e_states) for n in params)
+    k = AMP_OVERFLOW_STEP - 1
+    unchanged = {p: all(torch.equal(runs[p][1][k - 1][n], runs[p][1][k][n]) for n in params)
+                 for p in runs}
+    moved_after = all(not torch.equal(g_states[k][n], g_states[k + 1][n]) for n in params)
+    r = dict(path="B2", model=f"mnist mlp B256 fp16 dynamic loss scaling (init {AMP_INIT_SCALE}, "
+             f"incr every {AMP_INCR_EVERY}) SGD(0.01), step {AMP_OVERFLOW_STEP} fed an inf",
+             scales=scales, closed_form=AMP_SCALES, losses=losses, graph_bit_equal=bit_equal,
+             params_unchanged_on_overflow=unchanged, params_move_after=moved_after,
+             multi_tensor_update_launches={"graph": g_launch, "eager": e_launch})
+    emit("amp_loss_scaling", **r)
+    if any(s != AMP_SCALES for s in scales.values()):
+        raise SystemExit(f"AMP loss scaling: scales {scales}, closed form {AMP_SCALES}")
+    if not (bit_equal and all(unchanged.values()) and moved_after):
+        raise SystemExit(f"AMP loss scaling: graph/eager or the overflow step: {r}")
+    if not (np.isnan(losses["graph"][k]) and np.isfinite(losses["graph"][k + 1:]).all()):
+        raise SystemExit(f"AMP loss scaling: losses {losses['graph']}")
+    return r
+
+
+def _penalty_vgg(torch, pt):
+    """Path C: the image chapter (VGG-16 with batch norm, B 128, 3 x 32 x 32,
+    dropout 0.5, Adam 1e-3) under the input-gradient penalty
+    (``book.build_image_penalty``) through ``_scheduled_model``, fetching
+    the penalty, beside the plain chapter's step timed in this call."""
+    from paddle_tpu_torch.models import vgg
+    from paddle_tpu_torch.tools import book
+    ch, penalty = book.build_image_penalty(pt, vgg)
+    plain = book.build_image_classification(pt, vgg)
+    rng = np.random.RandomState(SEED)
+    feed = {"img": torch.from_numpy(rng.randn(PENALTY_BATCH, 3, 32, 32).astype("float32")).cuda(),
+            "label": torch.from_numpy(rng.randint(0, 10, (PENALTY_BATCH, 1)).astype("int64")
+                                      ).cuda()}
+    ops = [op.type for op in ch.main.global_block().ops]
+    # a dropout runs its kernel in the forward and again where its first-pass
+    # grad op, differentiated again, recomputes it with the graph kept
+    drops = ops.count("dropout") + ops.count("dropout_grad_grad")
+    constant = _constant_paths(torch, pt, lambda: (plain.main, plain.startup, plain.loss, feed))
+    r = _scheduled_model(
+        torch, pt, f"image chapter VGG-16-BN B{PENALTY_BATCH} 3x32x32 dropout 0.5 Adam(1e-3) "
+        f"+ {book.IMG_PENALTY} * mean(sum((d loss / d img)^2)) (fetched: the penalty)",
+        ch.main, ch.startup, feed, penalty, {"dropout_fwd": drops, "multi_tensor_update": 1},
+        None, None, None, constant, event="second_order_training", fused=False)
+    r.update(path="C", grad_grad_ops=sum(t.endswith("_grad_grad") for t in ops),
+             ops=len(ops))
+    del ch, plain, feed, constant
+    torch.cuda.empty_cache()
+    pen = r["losses"]["eager"]
+    if not pen[-1] < pen[0]:
+        raise SystemExit(f"the input-gradient penalty did not fall: {pen}")
+    return r
+
+
+def _double_grad_on_card(torch, pt):
+    """D: the 12 second-order op cases of ``tools/double_grad.py`` on the
+    card against the CPU port; the second-order refusals of the kernels'
+    Functions on the card; the WGAN-GP objective over WGAN_STEPS steps."""
+    from paddle_tpu_torch.tools import double_grad as dg
+    cases = []
+    for name, c in dg.CASES.items():
+        card, cpu = dg.run(name, "cuda"), dg.run(name, "cpu")
+        err = max(float(np.abs(a - b).max()) for a, b in zip(card, cpu))
+        ok = all(np.allclose(a, b, atol=c.tol, rtol=c.tol) for a, b in zip(card, cpu))
+        cases.append(dict(case=name, max_abs_err=err, tol=c.tol, ok=ok))
+    refusals = {}
+    attn, conv = dg.attention_case("auto"), dg.conv_bn_case()
+    # a second order through a kernel's Function raises a NotImplementedError
+    # naming what is missing, on the card (``refused``: its message holds ``want``)
+    for label, case, want in (("fused_attention", attn, "double-backward kernel"),
+                              ("conv2d_bn_fused", conv, "conv2d_bn_fused")):
+        main, feed, fetch = dg.build(pt, case)
+        try:
+            with pt.scope_guard(pt.Scope()):
+                pt.Executor().run(main, feed=feed, fetch_list=fetch)
+            refusals[label] = dict(refused=False, message=None)
+        except NotImplementedError as e:
+            refusals[label] = dict(refused=want in str(e), message=str(e))
+    # the plain attention (impl "composed") is differentiable twice on the card
+    main, feed, fetch = dg.build(pt, attn._replace(attrs=dict(attn.attrs, impl="composed")))
+    with pt.scope_guard(pt.Scope()):
+        composed = pt.Executor().run(main, feed=feed, fetch_list=fetch)
+    with pt.scope_guard(pt.Scope()):
+        composed_cpu = pt.Executor(pt.CPUPlace()).run(main, feed=feed, fetch_list=fetch)
+    composed_err = max(float(np.abs(a - b).max()) for a, b in zip(composed, composed_cpu))
+    composed_ok = all(np.allclose(a, b, atol=dg.SUMS, rtol=dg.SUMS)
+                      for a, b in zip(composed, composed_cpu))
+
+    # second order through the dropout kernel's Function: its closed form over
+    # the forward's own Mask (the grad op recomputed with the forward's salt)
+    main, fetch = dg.build_dropout(pt)
+    feed = dg.dropout_feed()
+    with pt.scope_guard(pt.Scope()):
+        y, g, h, mask = pt.Executor().run(main, feed=feed, fetch_list=fetch)
+    dropout_gaps = dg.dropout_gaps(y, g, h, mask, feed["v"])
+
+    main, startup, total, penalty = dg.build_penalty(pt)
+    init = _startup_state(pt, main, startup)
+    feed = {k: torch.from_numpy(v).cuda() for k, v in dg.penalty_feed().items()}
+    exe = pt.Executor()
+    outs, _, _ = _steps(pt, exe, main, feed, [penalty], init, WGAN_STEPS)
+    card = [float(o[0].reshape(-1)[0]) for o in outs]
+    exe.close()
+    scope = pt.Scope()
+    for n, t in init.items():
+        scope.set_var(n, t.cpu().clone())
+    main._rng_run_counter = 0
+    with pt.scope_guard(scope):
+        cexe = pt.Executor(pt.CPUPlace())
+        cpu = [float(cexe.run(main, feed=dg.penalty_feed(), fetch_list=[penalty])[0][0])
+               for _ in range(WGAN_CPU_STEPS)]
+    wgan_rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    r = dict(cases=cases, refusals_on_card=refusals,
+             dropout_second_order_rel_gaps=dict(first=dropout_gaps[0], second=dropout_gaps[1],
+                                                limit=DROPOUT_2ND_REL),
+             attention_composed_card_vs_cpu=dict(max_abs_err=composed_err, ok=composed_ok),
+             wgan_gp=dict(steps=WGAN_STEPS, penalty_first=card[0], penalty_last=card[-1],
+                          card_vs_cpu_rel_gap=wgan_rel, rel_limit=WGAN_REL,
+                          cpu_steps=WGAN_CPU_STEPS))
+    emit("double_grad_on_card", **r)
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise SystemExit(f"second-order op cases on the card part from the CPU port: {bad}")
+    if not all(x["refused"] for x in refusals.values()):
+        raise SystemExit(f"second order through a kernel's Function: {refusals}")
+    if not composed_ok:
+        raise SystemExit(f"composed attention's second order: card vs CPU {composed_err}")
+    if max(dropout_gaps) > DROPOUT_2ND_REL:
+        raise SystemExit(f"second order through dropout: gaps {dropout_gaps} from the "
+                         f"closed form over the forward's mask")
+    if not (wgan_rel <= WGAN_REL and card[-1] < 0.5 * card[0]):
+        raise SystemExit(f"WGAN-GP on the card: {r['wgan_gp']}")
+    return r
+
+
+def phase_training_surface(torch, constant_bert=None, constant_nmt=None):
+    """Phase 19: A (and A0), B, B2, C and D, each full-width path beside its
+    yardstick of this call (``constant_*``: phase 11's plain BERT-base step
+    and phase 13's f32 transformer-base step; timed here when not given,
+    for a run of this phase alone)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.tools.train_profile import (BATCH, LR, MASKS_PER_SEQ, SEQ,
+                                                      build_pretrain, build_transformer,
+                                                      nmt_feed, pretrain_feed,
+                                                      transformer_config)
+    t0 = time.perf_counter()
+    if constant_bert is None:
+        cfg = bert.BertConfig(dtype="bfloat16", dropout=ATTN_DROPOUT)
+        feed = {k: torch.from_numpy(v).cuda() for k, v in pretrain_feed(
+            np.random.RandomState(SEED), cfg, BATCH, SEQ, MASKS_PER_SEQ).items()}
+        constant_bert = _constant_paths(torch, pt, lambda: build_pretrain(
+            cfg, BATCH, SEQ, MASKS_PER_SEQ, LR, SEED)[:3] + (feed,))
+    if constant_nmt is None:
+        cfg = transformer_config()
+        feed = {k: torch.from_numpy(v).cuda()
+                for k, v in nmt_feed(np.random.RandomState(SEED), cfg).items()}
+        constant_nmt = _constant_paths(torch, pt, lambda: build_transformer(cfg)[:3] + (feed,))
+    a = _pipeline_bert(torch, pt, constant_bert)
+    b = _amp_transformer(torch, pt, constant_nmt)
+    b2 = _amp_scaling_mnist(torch, pt)
+    c = _penalty_vgg(torch, pt)
+    d = _double_grad_on_card(torch, pt)
+    emit("training_surface", seconds=time.perf_counter() - t0)
+    return a, b, b2, c, d
+
+
 def phase_main_path(torch, workdir):
     """The serving path (phase 4)."""
     from paddle_tpu_torch.inference import Predictor
@@ -4136,6 +4607,12 @@ def main() -> int:
              "recompute_lamb_bert_training": opt_b["launches"]["graph"],
              "lars_resnet50_training": opt_c["launches"]["graph"]}
     mnist_opt_launches = sum(r["multi_tensor_update_launches"]["graph"] for r in opt_d)
+    torch.cuda.empty_cache()
+    surf_a, surf_b, surf_b2, surf_c, surf_d = phase_training_surface(torch, cap_bert["paths"],
+                                                                     nmt_train["paths"])
+    surf_l = {"pipeline_bert_training": surf_a["launches"]["graph"],
+              "amp_transformer_training": surf_b["launches"]["graph"],
+              "penalty_vgg16_training": surf_c["launches"]["graph"]}
     book_launches = {c["chapter"]: c["train_launches"] for c in book_chapters}
     e2e_launches = e2e["epochs"]["prefetch"]["multi_tensor_update_launches"]
     ctr_launches = ctr["launches"]["graph"]["multi_tensor_update"]
@@ -4144,6 +4621,7 @@ def main() -> int:
     serve_case = next(r for r in kres if r["dtype"] == "bfloat16" and r["shape"][2] == 512
                       and r["bias"] and not r["causal"])
     train_fwd, train_bwd = tres[0]             # B128 H12 S128 D64 bf16, bias, dropout 0.1
+    mb_fwd, mb_bwd = tres[1]                   # B32: a microbatch of phase 19's pipeline
     fwd_err = max([r["max_abs_err"] for r in kres if r["dtype"] == "bfloat16"]
                   + [f["max_abs_err"] for f, _ in tres if f["dtype"] == "bfloat16"])
     bwd_err = max(b["max_abs_err"] for _, b in tres if b["dtype"] == "bfloat16")
@@ -4161,7 +4639,8 @@ def main() -> int:
                          book_launches["image_classification"]["dropout_fwd"],
                      **{k: v["dropout_fwd"] for k, v in sched_l.items()},
                      **{k: opt_l[k]["dropout_fwd"] for k in ("lamb_bert_training",
-                                                             "recompute_lamb_bert_training")}}
+                                                             "recompute_lamb_bert_training")},
+                     **{k: v["dropout_fwd"] for k, v in surf_l.items()}}
     # multi_tensor_update's calls by path, each path's kind, and each kind's launches
     mt_calls = {"training": ("adam", train_launches["multi_tensor_update"]),
                 "resnet50_training": ("momentum", resnet_launches["multi_tensor_update"]),
@@ -4178,7 +4657,9 @@ def main() -> int:
                 "lars_resnet50_training":
                     ("lars_momentum", opt_l["lars_resnet50_training"]["multi_tensor_update"]),
                 **{f"mnist_{r['optimizer']}": (r["kind"], r["multi_tensor_update_launches"]["graph"])
-                   for r in opt_d if r["kind"] is not None}}
+                   for r in opt_d if r["kind"] is not None},
+                **{k: ("adam", v["multi_tensor_update"]) for k, v in surf_l.items()},
+                "amp_loss_scaling_mnist": ("sgd", surf_b2["multi_tensor_update_launches"]["graph"])}
     kind_rows = {"adam": mt_bert, "momentum": mt_res, "sgd": mt_mnist,
                  "lamb": normed_mres[0], "lars_momentum": normed_mres[1]}
     # each kind's launches: its calls on the paths times the launches of a call
@@ -4202,7 +4683,8 @@ def main() -> int:
                       + train_launches["flash_attn_fwd"]
                       + sched_l["scheduled_bert_training"]["flash_attn_fwd"]
                       + opt_l["lamb_bert_training"]["flash_attn_fwd"]
-                      + opt_l["recompute_lamb_bert_training"]["flash_attn_fwd"]),
+                      + opt_l["recompute_lamb_bert_training"]["flash_attn_fwd"]
+                      + surf_l["pipeline_bert_training"]["flash_attn_fwd"]),
          "launches_by_path": {"serving": serve_launches["flash_attn_fwd"],
                               "int8_serving": int8_launches["flash_attn_fwd"],
                               "training": train_launches["flash_attn_fwd"],
@@ -4210,9 +4692,16 @@ def main() -> int:
                                   sched_l["scheduled_bert_training"]["flash_attn_fwd"],
                               "lamb_bert_training": opt_l["lamb_bert_training"]["flash_attn_fwd"],
                               "recompute_lamb_bert_training":
-                                  opt_l["recompute_lamb_bert_training"]["flash_attn_fwd"]},
+                                  opt_l["recompute_lamb_bert_training"]["flash_attn_fwd"],
+                              "pipeline_bert_training":
+                                  surf_l["pipeline_bert_training"]["flash_attn_fwd"]},
          "max_abs_err": fwd_err, **{k: train_fwd[k] for k in keys},
          "shape": "B128 H12 S128 D64 bf16, bias, dropout 0.1, LSE (the training path)",
+         "pipeline_microbatch": {**{k: mb_fwd[k] for k in keys},
+                                 "ms_per_launch_in_scan":
+                                     surf_a["kernel_in_scan"]["flash_attn_fwd"]["ms_per_launch"],
+                                 "shape": "B32 H12 S128 D64 bf16, bias, dropout 0.1, LSE "
+                                          "(a microbatch of phase 19's pipeline)"},
          "serving": {**{k: serve_case[k] for k in keys},
                      "shape": "B8 H12 S512 D64 bf16 with bias, no dropout, no LSE"}},
         {"name": "flash_attn_bwd", "route": "cuda",
@@ -4221,16 +4710,24 @@ def main() -> int:
          "launches": (train_launches["flash_attn_bwd"]
                       + sched_l["scheduled_bert_training"]["flash_attn_bwd"]
                       + opt_l["lamb_bert_training"]["flash_attn_bwd"]
-                      + opt_l["recompute_lamb_bert_training"]["flash_attn_bwd"]),
+                      + opt_l["recompute_lamb_bert_training"]["flash_attn_bwd"]
+                      + surf_l["pipeline_bert_training"]["flash_attn_bwd"]),
          "launches_by_path": {"training": train_launches["flash_attn_bwd"],
                               "scheduled_bert_training":
                                   sched_l["scheduled_bert_training"]["flash_attn_bwd"],
                               "lamb_bert_training": opt_l["lamb_bert_training"]["flash_attn_bwd"],
                               "recompute_lamb_bert_training":
-                                  opt_l["recompute_lamb_bert_training"]["flash_attn_bwd"]},
+                                  opt_l["recompute_lamb_bert_training"]["flash_attn_bwd"],
+                              "pipeline_bert_training":
+                                  surf_l["pipeline_bert_training"]["flash_attn_bwd"]},
          "max_abs_err": bwd_err,
          **{k: train_bwd[k] for k in keys},
-         "shape": "B128 H12 S128 D64 bf16, bias, dropout 0.1 (the training path)"},
+         "shape": "B128 H12 S128 D64 bf16, bias, dropout 0.1 (the training path)",
+         "pipeline_microbatch": {**{k: mb_bwd[k] for k in keys},
+                                 "ms_per_launch_in_scan":
+                                     surf_a["kernel_in_scan"]["flash_attn_bwd"]["ms_per_launch"],
+                                 "shape": "B32 H12 S128 D64 bf16, bias, dropout 0.1 "
+                                          "(a microbatch of phase 19's pipeline)"}},
         {"name": "fused_conv1x1_bn_fwd", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/conv1x1_bn.cu",
          "replaces": "paddle_tpu/ops/pallas_conv_bn.py:124",
@@ -4324,6 +4821,23 @@ def main() -> int:
         "recompute_vs_lamb": {k: recompute_vs[k] for k in ("loss_rel_gap", "update_rel_l1_gap",
                                                            "state_bit_equal", "graph_pool_gb")},
         "mnist_optimizers": {r["optimizer"]: r["losses"][-1] for r in opt_d},
+        "pipeline_step_ms": {"graph": surf_a["step_ms"]["graph"], "eager": surf_a["step_ms"]["eager"],
+                             "plain_b128_graph": surf_a["constant_lr_step_ms"]["graph"],
+                             "graph_pool_gb": max(surf_a["graph_pool_gb"]),
+                             "eager_peak_gb": surf_a["eager_peak_gb"],
+                             "A0_loss_rel_gap": surf_a["A0"]["loss_rel_gap"],
+                             "A0_update_rel_l1_gap": surf_a["A0"]["update_rel_l1_gap"]},
+        "amp_step_ms": {"graph": surf_b["step_ms"]["graph"], "eager": surf_b["step_ms"]["eager"],
+                        "f32_graph": surf_b["constant_lr_step_ms"]["graph"],
+                        "casts_inserted": surf_b["casts_inserted"],
+                        "step1_loss_rel_gap": surf_b["step1_loss_rel_gap"],
+                        "loss_scales": surf_b2["scales"]["graph"]},
+        "second_order_step_ms": {"graph": surf_c["step_ms"]["graph"],
+                                 "eager": surf_c["step_ms"]["eager"],
+                                 "plain_chapter_graph": surf_c["constant_lr_step_ms"]["graph"],
+                                 "penalty": surf_c["losses"]["graph"],
+                                 "graph_pool_gb": max(surf_c["graph_pool_gb"])},
+        "double_grad_cases_on_card": {c["case"]: c["max_abs_err"] for c in surf_d["cases"]},
         "op_cases_on_card": {k: op_card[k] for k in ("cases", "op_types", "grads",
                                                      "forward_max_abs_err", "grad_max_abs_err")},
         "deepfm_serving_ms": {str(q["batch"]): q["ms"] for q in ctr["serving"]["requests"]},

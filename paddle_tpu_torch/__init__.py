@@ -26,7 +26,7 @@ from . import convert  # noqa: F401
 from . import optimizer  # noqa: F401
 from . import regularizer  # noqa: F401
 from . import clip  # noqa: F401
-from .core.backward import append_backward, gradients  # noqa: F401
+from .core.backward import append_backward, calc_gradient, gradients  # noqa: F401
 from . import models  # noqa: F401
 from . import contrib  # noqa: F401  (registers quantized_mul, dequantize_weight)
 from .dataset_factory import DatasetFactory, InMemoryDataset, QueueDataset  # noqa: F401

@@ -222,9 +222,11 @@ def gradients(targets, inputs, target_gradients=None,
     for iv in inputs:
         g = state.settle(iv.name)
         if g:
-            # returned grads are functions of the program inputs, as in the
-            # JAX package (the port does not differentiate them again yet)
+            # returned grads are differentiable functions of the program
+            # inputs: double-grad / gradient-penalty losses build on them
             block.vars[g].stop_gradient = False
         out.append(block.vars[g] if g else None)
     return out
 
+
+calc_gradient = gradients

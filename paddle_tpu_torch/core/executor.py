@@ -372,27 +372,37 @@ class SubBlockRunner:
     sub-env on top, on the run's device with its seed, counter and
     ``counter_t``. An op's draws are keyed by its salt, so a body draws the
     same numbers in every iteration (the JAX body's one key: ``lax.scan``
-    traces it once). A body runs with no kept graphs and no grouped updates:
-    it holds no grad or update ops (the control-flow op's own grad
-    differentiates through the whole loop); ``keep`` names what the caller
-    reads from the env it returns, and every other variable is dropped
-    after its last reader. The outer env is not written. (An object, not a
-    closure that passes itself on: such a closure is a reference cycle,
-    which would keep the run's env alive until the garbage collector runs.)"""
-    __slots__ = ("program", "env", "device", "seed", "counter", "counter_t")
+    traces it once; a microbatch scan's dropout masks are the same in every
+    microbatch, as there). A body runs with no grouped updates (the update
+    ops of a microbatch pipeline sit outside its scan). A body that holds
+    generic grad ops (a ``PipelineOptimizer``'s microbatch scan) keeps its
+    forward graphs within each run of the body, as ``trace_block`` keeps
+    the outer block's (``reuse_forward``, the executor's flag): each
+    forward runs once a microbatch. A body without grad ops (an RNN's cell:
+    the control-flow op's own grad differentiates through the whole loop)
+    keeps none. ``keep`` names what the caller reads from the env it
+    returns, and every other variable is dropped after its last reader, so
+    only the carries outlive an iteration. The outer env is not written.
+    (An object, not a closure that passes itself on: such a closure is a
+    reference cycle, which would keep the run's env alive until the
+    garbage collector runs.)"""
+    __slots__ = ("program", "env", "device", "seed", "counter", "counter_t", "reuse_forward")
 
     def __init__(self, program: Program, env: Dict[str, Any], device, seed: int = 0,
-                 counter: int = 0, counter_t: Optional[torch.Tensor] = None):
+                 counter: int = 0, counter_t: Optional[torch.Tensor] = None,
+                 reuse_forward: bool = True):
         self.program, self.env, self.device = program, env, device
         self.seed, self.counter, self.counter_t = seed, counter, counter_t
+        self.reuse_forward = reuse_forward
 
     def __call__(self, idx: int, sub_env: Dict[str, Any],
                  keep: Optional[FrozenSet[str]] = None):
         merged = dict(self.env)
         merged.update(sub_env)
         return trace_block(self.program.blocks[idx], merged, self.device, self.seed,
-                           self.counter, reuse_forward=False, group_updates=False,
-                           counter_t=self.counter_t, keep=keep, block_runner=self)
+                           self.counter, reuse_forward=self.reuse_forward,
+                           group_updates=False, counter_t=self.counter_t, keep=keep,
+                           block_runner=self)
 
 
 def capture_refusal(program: Program) -> Optional[str]:
@@ -470,6 +480,20 @@ class Executor:
                 if n in persistable and n not in written:
                     written.append(n)
                 produced.add(n)
+        # sub-blocks (scan bodies) read outer persistables too; one written
+        # only inside a sub-block would be lost, as in the JAX executor
+        top_writes = set(written)
+        for sub in program.blocks[1:]:
+            for op in sub.ops:
+                for n in op.input_arg_names():
+                    if n in persistable and n not in produced and n not in read:
+                        read.append(n)
+                for n in op.output_arg_names():
+                    if n in persistable and n not in top_writes:
+                        raise RuntimeError(
+                            f"persistable var {n!r} is written inside sub-block {sub.idx} "
+                            f"but the enclosing control-flow op does not output it; add "
+                            f"it to the op's out_names/Out so the write persists")
         for n in fetch_names:
             if n in persistable and n not in produced and n not in read:
                 read.append(n)
@@ -837,7 +861,8 @@ class Executor:
         seed = program.random_seed if program.random_seed is not None else 0
         keep = frozenset(env) | frozenset(fetch_names) | frozenset(state_out) \
             | frozenset(state_in)
-        runner = SubBlockRunner(program, env, self.device, seed, counter, counter_t)
+        runner = SubBlockRunner(program, env, self.device, seed, counter, counter_t,
+                                self._reuse_forward)
         with torch.no_grad():
             trace_block(program.global_block(), env, self.device, seed, counter,
                         reuse_forward=self._reuse_forward, group_updates=self._group_updates,

@@ -24,8 +24,17 @@ state such as a batch norm's Mean, what the forward wrote back to it), and
 otherwise reruns T's lowering on ``detach().requires_grad_()`` copies of its float
 inputs, as the reference's semantics say. An op declares itself
 non-differentiable with ``grad=None``; ``nondiff_inputs`` /
-``nondiff_outputs`` name the slots that carry no gradient. Second-order
-grads (a ``T_grad_grad``) are not ported.
+``nondiff_outputs`` name the slots that carry no gradient.
+
+Second order, as in the JAX package: a grad op is differentiable through
+the same machinery, so ``T_grad_grad`` is the generic grad of ``T_grad``
+(double-gradient checks, gradient penalties). A grad op whose outputs feed
+a later grad op runs under autograd with its inputs' graph kept
+(``lower_keeping_graph``): it recomputes T from those inputs and calls
+``torch.autograd.grad`` with ``create_graph=True``, and only then, so a
+first-order step keeps its memory and time. Third order is the JAX
+package's ceiling too: a ``T_grad_grad`` names slots on both sides, and
+its grad maker refuses it.
 """
 from __future__ import annotations
 
@@ -222,8 +231,10 @@ def get(type: str) -> OpDef:
     d = _REGISTRY.get(type)
     if d is not None:
         return d
-    if type.endswith("_grad") and type[:-5] in _REGISTRY:
-        return _grad_opdef(type[:-5])
+    if type.endswith("_grad"):
+        base = type[:-5]
+        if base in _REGISTRY or base.endswith("_grad"):
+            return _grad_opdef(base)
     raise KeyError(
         f"op type {type!r} is not registered in paddle_tpu_torch "
         f"({len(_REGISTRY)} ops registered); the port does not have it yet")
@@ -235,15 +246,21 @@ def get(type: str) -> OpDef:
 
 @functools.lru_cache(maxsize=None)
 def _grad_opdef(fwd_type: str) -> OpDef:
-    fwd = _REGISTRY[fwd_type]
+    fwd = _REGISTRY.get(fwd_type)
+    if fwd is None:
+        if fwd_type.endswith("_grad"):   # higher order: tanh_grad_grad etc.
+            fwd = _grad_opdef(fwd_type[:-5])
+        else:
+            raise KeyError(f"op type {fwd_type!r} is not registered")
     if fwd.grad is None:
         raise KeyError(f"op {fwd_type!r} is non-differentiable; no {fwd_type}_grad")
 
     def lower(ctx, ins):
         return _generic_grad_lower(fwd, ctx, ins)
 
-    # grad="auto" so that a gradient asked of a grad op reaches
-    # make_grad_op_descs, which refuses second order by name
+    # a grad op is differentiable through the same machinery (second order);
+    # a *_grad_grad op names slots on both sides, which make_grad_op_descs
+    # refuses (third order), as the JAX package does
     return OpDef(fwd_type + "_grad", lower, infer_shape=_grad_infer_shape)
 
 
@@ -253,11 +270,15 @@ def _is_float(x) -> bool:
 
 def generic_grad_forward(type: str) -> Optional[str]:
     """The forward op type whose generic grad op ``type`` is, or None (not a
-    grad op, or a grad op type registered with its own lowering)."""
+    grad op, or a grad op type registered with its own lowering). The
+    forward of a ``T_grad_grad`` is ``T_grad``."""
     if type in _REGISTRY or not type.endswith("_grad"):
         return None
-    fwd = _REGISTRY.get(type[:-5])
-    return fwd.type if fwd is not None and fwd.grad == "auto" else None
+    base = type[:-5]
+    fwd = _REGISTRY.get(base)
+    if fwd is None:
+        return base if generic_grad_forward(base) is not None else None
+    return base if fwd.grad == "auto" else None
 
 
 def first_output(op: Operator) -> str:
@@ -269,17 +290,25 @@ def first_output(op: Operator) -> str:
 def forwards_with_grads(ops: Sequence[Operator]) -> frozenset:
     """(forward type, first output) of each forward op whose generic grad op
     is among ``ops``: the ops whose graphs a run keeps. A ``remat`` op's is
-    never kept: its grad op recomputes it."""
-    return frozenset((f, op.attr("__fwd_out0__")) for op in ops
-                     if (f := generic_grad_forward(op.type)) is not None
-                     and not _REGISTRY[f].remat)
+    never kept: its grad op recomputes it. A grad op that is itself the
+    forward of a grad op among ``ops`` (second order) is kept, and it reads
+    no kept graph of its own forward (it recomputes it with the graph to its
+    inputs, ``_generic_grad_lower``): that forward's graph is kept only for
+    a grad op that is not differentiated again."""
+    grads = [(f, op) for op in ops if (f := generic_grad_forward(op.type)) is not None]
+    differentiated = {(f, op.attr("__fwd_out0__")) for f, op in grads}
+    return frozenset((f, op.attr("__fwd_out0__")) for f, op in grads
+                     if (op.type, first_output(op)) not in differentiated
+                     and not get(f).remat)
 
 
-def _differentiable(fwd: OpDef, ins, slots):
+def _differentiable(fwd: OpDef, ins, slots, keep_graph: bool = False):
     """``ins`` with each float input of a differentiable slot replaced by a
     ``detach().requires_grad_()`` view (same storage and strides, so a
-    kernel wrapper can hand its ``data_ptr()`` to CUDA). Returns (inputs,
-    [(slot, index)], views)."""
+    kernel wrapper can hand its ``data_ptr()`` to CUDA); with
+    ``keep_graph`` an input that already requires grad stays itself, so
+    the graph runs on through it. Returns (inputs, [(slot, index)],
+    views)."""
     full = {s: list(ins[s]) for s in slots}
     diff_keys, primals = [], []
     for s in slots:
@@ -287,7 +316,7 @@ def _differentiable(fwd: OpDef, ins, slots):
             continue
         for i, v in enumerate(ins[s]):
             if _is_float(v):
-                p = v.detach().requires_grad_()
+                p = v if keep_graph and v.requires_grad else v.detach().requires_grad_()
                 full[s][i] = p
                 diff_keys.append((s, i))
                 primals.append(p)
@@ -348,6 +377,12 @@ def _generic_grad_lower(fwd: OpDef, ctx, ins):
     entry is taken either way, so a second grad op of the same forward
     recomputes. Otherwise the forward lowering reruns here, with the
     forward's salt, so it draws the forward's random masks.
+
+    Under autograd with inputs that carry a graph (this grad op is the
+    forward of a second-order grad op) the grads must be differentiable
+    too: the forward reruns on those very inputs, not on detached copies
+    and not from the table (whose graph starts at other copies of them),
+    and ``torch.autograd.grad`` runs with ``create_graph=True``.
     """
     fwd_out_slots = set(ctx.attr("__fwd_out_slots__", []))
 
@@ -360,13 +395,19 @@ def _generic_grad_lower(fwd: OpDef, ctx, ins):
     fwd_attrs = ctx.attr("__fwd_attrs__", None)
     if fwd_attrs is None:
         fwd_attrs = {k: v for k, v in ctx.attrs.items() if not k.startswith("__fwd_")}
+    create_graph = torch.is_grad_enabled() and any(
+        _is_float(v) and v.requires_grad for vs in ins.values() for v in vs)
     kept = (ctx.graphs.pop(ctx.attr("__fwd_out0__"), None)
-            if ctx.graphs is not None else None)
+            if ctx.graphs is not None and not create_graph else None)
     if kept is not None and kept.serves(fwd, fwd_attrs, ins, fwd_in_slots):
         diff_keys, primals, outs = kept.diff_keys, kept.primals, kept.outs
     else:
-        full, diff_keys, primals = _differentiable(fwd, ins, fwd_in_slots)
-        fwd_ctx = LowerCtx(fwd_attrs, ctx.device, ctx.seed, ctx.counter, ctx._salt,
+        full, diff_keys, primals = _differentiable(fwd, ins, fwd_in_slots, create_graph)
+        # a grad op recomputed here draws with its own forward's salt (the
+        # one the executor gave it), as the forward itself did
+        inner = fwd_attrs.get("__fwd_out0__")
+        salt = stable_salt(inner) if inner else ctx._salt
+        fwd_ctx = LowerCtx(fwd_attrs, ctx.device, ctx.seed, ctx.counter, salt,
                            ctx.abstract, counter_t=ctx.counter_t,
                            block_runner=ctx.block_runner)
         with torch.enable_grad():
@@ -385,7 +426,8 @@ def _generic_grad_lower(fwd: OpDef, ctx, ins):
             cots.append(g.to(o.dtype))
     grads = [None] * len(primals)
     if ys and primals:
-        grads = torch.autograd.grad(ys, primals, cots, allow_unused=True)
+        grads = torch.autograd.grad(ys, primals, cots, allow_unused=True,
+                                    create_graph=create_graph)
 
     result: Dict[str, List] = {}
     for s in fwd_in_slots:
@@ -414,9 +456,14 @@ def make_grad_op_descs(op: Operator, grad_out_map: Dict[str, str]) -> List[dict]
         return []
     if callable(fwd.grad):
         return fwd.grad(op, grad_out_map)
-    if op.type.endswith("_grad"):
+    clash = set(op.inputs) & set(op.outputs)
+    if clash:
+        # a *_grad_grad op names slots on both sides: its grad op's slots
+        # would clobber the primal inputs. Second order is the ceiling, as
+        # in the JAX package
         raise NotImplementedError(
-            f"gradients of {op.type!r}: second-order gradients are not ported")
+            f"gradients of {op.type!r}: third-order gradients are not "
+            f"supported (input/output slot collision on {sorted(clash)})")
 
     inputs: Dict[str, List[str]] = {s: list(n) for s, n in op.inputs.items()}
     for s, names in op.outputs.items():
@@ -430,6 +477,8 @@ def make_grad_op_descs(op: Operator, grad_out_map: Dict[str, str]) -> List[dict]
             continue
         outputs[s + "@GRAD"] = [grad_var_name(n) for n in names]
     attrs = dict(op.attrs)
+    # the op's own attrs, before this level's bookkeeping overwrites the flat
+    # __fwd_* keys: a grad op differentiated again needs its own back
     attrs["__fwd_attrs__"] = dict(op.attrs)
     attrs["__fwd_out_slots__"] = sorted(op.outputs)
     attrs["__fwd_out0__"] = first_output(op)

@@ -7,7 +7,8 @@ Operator / Block / Program classes and the same JSON form (``to_dict`` /
 What differs from the JAX package:
   * ``Block.append_op`` runs the port's own shape inference
     (``core/registry.py``: the lowering on ``torch.device("meta")`` tensors).
-  * No ``device_guard``: the port runs no pipeline stages yet.
+  * No ``device_guard``: the port runs no pipeline stages yet, so
+    ``PipelineOptimizer``'s ``"auto"`` schedule is its microbatch scan.
 
 Variables carry the JAX package's arithmetic sugar (``layers/math_sugar.py``):
 ``+ - * / **``, unary ``-``, the comparisons and ``[]`` build ops in the

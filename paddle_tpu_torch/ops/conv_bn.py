@@ -200,7 +200,12 @@ def conv1x1_bn_bwd_plain(x2, w, mu, var, gamma, beta, y, dy, ds, dss, eps, relu_
 class FusedConv1x1BN(torch.autograd.Function):
     """``fused_conv1x1_bn_fwd`` with a gradient: the forward launches the
     kernel (or, on the CPU, its plain version) and saves its inputs and y;
-    the backward is ``conv1x1_bn_bwd_plain``."""
+    the backward is ``conv1x1_bn_bwd_plain``.
+
+    A second-order gradient (``create_graph``) raises, on both devices: the
+    saved y has no graph to x and w, so the backward's own gradient would
+    miss every path through y. The JAX package raises there too (its
+    custom vjp differentiates the Pallas forward, which has no rule)."""
 
     @staticmethod
     def forward(ctx, x2, w, mu, var, gamma, beta, eps, relu_in, apply_in_bn):
@@ -212,6 +217,12 @@ class FusedConv1x1BN(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, ds, dss):
+        if torch.is_grad_enabled():
+            raise NotImplementedError(
+                "a second-order gradient through conv2d_bn_fused needs the fused "
+                "conv + batch-norm statistics to be differentiable twice, which they "
+                "are not (as in the JAX package); run the unfused conv2d and "
+                "batch_norm for a gradient of a gradient")
         x2, w, mu, var, gamma, beta, y = ctx.saved_tensors
         grads = conv1x1_bn_bwd_plain(x2, w, mu, var, gamma, beta, y, dy, ds, dss,
                                      *ctx.args)

@@ -130,7 +130,10 @@ def dropout_fwd(x, p: float, upscale: bool, seed):
 class Dropout(torch.autograd.Function):
     """Dropout on the kernel with a gradient: the forward launches the kernel
     and saves Mask; the backward is dOut * Mask (/ (1 - p) when
-    upscaling), in f32, rounded to X's dtype."""
+    upscaling), in f32, rounded to X's dtype. That backward is plain
+    PyTorch and linear in dOut, so under ``create_graph`` it is
+    differentiable again: a second-order gradient through dropout is the
+    same product with the same mask, as the JAX lowering's."""
 
     @staticmethod
     def forward(ctx, x, p, upscale, seed):

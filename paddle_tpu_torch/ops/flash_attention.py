@@ -371,7 +371,13 @@ class FlashAttention(torch.autograd.Function):
     the forward kernel (with the LSE) and saves (q, k, v, bias, O, LSE,
     seed); the backward launches the backward kernel. dq comes back in q's
     dtype, dk and dv (accumulated in f32) in k's and v's; the bias gets
-    none."""
+    none.
+
+    The backward kernel has no gradient of its own: a second-order gradient
+    through it (``create_graph``) raises instead of returning tensors with
+    no graph, which would count as zeros. The JAX package's Pallas kernel
+    has none either (its ``pallas_call`` has no reverse-mode rule);
+    ``impl="composed"`` is the plain attention, differentiable twice."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale, causal, dropout, seed):
@@ -383,6 +389,11 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        if torch.is_grad_enabled():
+            raise NotImplementedError(
+                "a second-order gradient through fused_attention on the card needs a "
+                "double-backward kernel of flash_attn_bwd, which is not written (ROADMAP "
+                "queue 2a); use impl='composed' for a gradient of a gradient")
         q, k, v, bias, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attn_bwd(q, k, v, bias, o, lse, do.contiguous(), *ctx.args)
         return dq, dk, dv, None, None, None, None, None

@@ -2,8 +2,9 @@
 thirteen update classes (``SGD``, ``Momentum``, ``LarsMomentum``, ``Adam``,
 ``AdamW``, ``Adagrad``, ``Adamax``, ``Adadelta``, ``RMSProp``, ``Ftrl``,
 ``Lamb``, ``DecayedAdagrad``, ``Dpsgd``) with their ``*Optimizer`` names,
-the wrappers ``RecomputeOptimizer``, ``ExponentialMovingAverage``,
-``ModelAverage`` and ``LookaheadOptimizer``, and ``DGCMomentumOptimizer``,
+the wrappers ``RecomputeOptimizer``, ``PipelineOptimizer`` (its
+microbatch scan), ``ExponentialMovingAverage``, ``ModelAverage`` and
+``LookaheadOptimizer``, and ``DGCMomentumOptimizer``,
 which raises on construction as the JAX package's does.
 
 ``Optimizer.minimize(loss)`` = append_backward + clipping (``clip.py``) +
@@ -452,6 +453,197 @@ def _rewrite_recompute(program: Program, checkpoint_names):
     new_ops.extend(ops[cursor:])
     block.ops = new_ops
     program._bump()
+
+
+class PipelineOptimizer:
+    """Microbatch accumulation on one card: the JAX package's
+    ``PipelineOptimizer`` with its ``"scan"`` schedule (reference
+    optimizer.py:2985 PipelineOptimizer).
+
+    ``minimize`` appends the wrapped optimizer's backward pass, then
+    rewrites the program into a microbatch scan
+    (``_rewrite_microbatch_scan``): the feed batch splits into
+    ``num_microbatches`` slices, one ``scan`` runs forward and backward per
+    slice and sums the gradients in its carries, and the wrapped optimizer
+    applies their mean once. For a mean loss over equal slices that is the
+    full batch's gradient, at a slice's activation memory. The loss variable
+    becomes the mean of the microbatches' losses. Feed batch sizes must be
+    divisible by ``num_microbatches``.
+
+    ``schedule``: ``"scan"``, and ``"auto"``, which is the scan here: the
+    JAX package's ``"auto"`` lowers ``device_guard("stage:i")`` stacks to
+    its temporal GPipe schedule, and the port has no ``device_guard`` yet, so
+    no stage annotation can exist. ``"temporal"`` raises. The cut, place,
+    concurrency and queue arguments are the reference's thread-section
+    knobs, accepted and not read, as in the JAX package."""
+
+    def __init__(self, optimizer, num_microbatches=1, cut_list=None,
+                 place_list=None, concurrency_list=None, queue_size=None,
+                 sync_steps=None, start_cpu_core_id=0, schedule="auto",
+                 pipeline_axis="pp"):
+        self._optimizer = optimizer
+        self._m = int(num_microbatches)
+        if schedule not in ("auto", "scan", "temporal"):
+            raise ValueError(f"schedule must be auto|scan|temporal, got {schedule!r}")
+        self._schedule = schedule
+        self._axis = pipeline_axis
+
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, callbacks=None):
+        return self._optimizer.backward(loss, startup_program, parameter_list,
+                                        no_grad_set, callbacks)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        if self._schedule == "temporal":
+            raise NotImplementedError(
+                "PipelineOptimizer(schedule='temporal'): the temporal GPipe schedule over "
+                "device_guard stages is not ported yet (ROADMAP queue 1, item 13, with "
+                "the pipeline stages); schedule='scan' accumulates microbatches on one card")
+        program = loss.block.program
+        with program_guard(program, startup_program or default_startup_program()):
+            params_grads = self._optimizer.backward(
+                loss, startup_program, parameter_list, no_grad_set)
+            if self._m <= 1:
+                ops = self._optimizer.apply_gradients(params_grads)
+                return ops, params_grads
+            mean_grads = _rewrite_microbatch_scan(program, loss, params_grads, self._m)
+            pg = [(p, mean_grads[p.name]) for p, g in params_grads if g is not None]
+            ops = self._optimizer.apply_gradients(pg)
+        return ops, params_grads
+
+    @staticmethod
+    def pp_param_rules(axis="pp"):
+        """DistributedStrategy param_rules sharding the stage-stacked
+        parameters (and their stage-stacked optimizer accumulators) over the
+        pipeline axis, as the JAX package's (data: the port has no stage
+        stacks and no strategy yet). Scalar accumulators derived from
+        stacked params (Adam's beta-pow) stay replicated -- first match
+        wins."""
+        return [(r"@pp_stacked.*_pow_acc", ()),
+                (r"@pp_stacked", (axis,))]
+
+
+def _rewrite_microbatch_scan(program: Program, loss, params_grads, M):
+    """Move all ops built so far (forward + backward) into a sub-block
+    scanned over M microbatch slices; return {param_name: mean-grad
+    Variable}. The port's copy of the JAX package's rewrite: the same ops,
+    variables and names."""
+    block = program.global_block()
+    fwd_bwd_ops = list(block.ops)
+    block.ops = []
+
+    # data vars the step consumes (is_data) become scanned sequences. Only
+    # top-level op inputs can be sliced: a sub-block resolves outer names
+    # through the enclosing env, so a feed read inside a sub-block without
+    # being lifted into the enclosing op's inputs would see the full batch
+    # every microbatch -- refuse instead of corrupting gradients.
+    data_names = []
+    for op in fwd_bwd_ops:
+        for n in op.input_arg_names():
+            v = block.find_var_recursive(n)
+            if v is not None and v.is_data and n not in data_names:
+                data_names.append(n)
+
+    def check_nested(ops, seen_blocks):
+        for op in ops:
+            for a in ("sub_block", "else_block"):
+                si = op.attr(a, -1)
+                if not (isinstance(si, int) and 0 <= si < len(program.blocks)
+                        and si not in seen_blocks):
+                    continue
+                seen_blocks.add(si)
+                sub_ops = program.blocks[si].ops
+                local = set(program.blocks[si].vars)
+                for sop in sub_ops:
+                    for n in sop.input_arg_names():
+                        v = block.find_var_recursive(n)
+                        if (v is not None and v.is_data and n not in local
+                                and n not in data_names):
+                            raise ValueError(
+                                f"PipelineOptimizer: feed var {n!r} is read inside "
+                                f"sub-block {si} but is not an input of the enclosing "
+                                f"control-flow op, so the microbatch slice cannot reach "
+                                f"it; declare it in the op's inputs (the While/Scan DSL "
+                                f"does this automatically)")
+                check_nested(sub_ops, seen_blocks)
+
+    check_nested(fwd_bwd_ops, set())
+
+    sub = program._create_block(parent_idx=0)
+    sub.ops = fwd_bwd_ops
+    program._rollback()
+
+    carry_names, init_names, final_names = [], [], []
+
+    def add_carry(inner_name, shape, dtype, add_name, zero_like=None):
+        """Accumulator carried across microbatches: inner += add_name."""
+        sub.create_var(inner_name, tuple(shape), dtype).stop_gradient = True
+        sub.append_op("sum", inputs={"X": [inner_name, add_name]},
+                      outputs={"Out": [inner_name]}, infer_shape=False)
+        zname = inner_name + "@zero"
+        zv = block.create_var(zname, tuple(shape), dtype)
+        zv.stop_gradient = True
+        if zero_like is not None:
+            block.append_op("fill_zeros_like", inputs={"X": [zero_like]},
+                            outputs={"Out": [zname]}, infer_shape=False)
+        else:
+            block.append_op("fill_constant", outputs={"Out": [zname]},
+                            attrs={"shape": [int(s) for s in shape],
+                                   "value": 0.0, "dtype": dtype},
+                            infer_shape=False)
+        fname = inner_name + "@final"
+        block.create_var(fname, tuple(shape), dtype).stop_gradient = True
+        carry_names.append(inner_name)
+        init_names.append(zname)
+        final_names.append(fname)
+        return fname
+
+    grad_finals = {}
+    for p, g in params_grads:
+        if g is None:
+            continue
+        gd = getattr(g, "dtype", "float32")
+        grad_finals[p.name] = add_carry(g.name + "@mb_acc", p.shape, gd,
+                                        g.name, zero_like=p.name)
+    loss_final = add_carry(loss.name + "@mb_acc", (1,), "float32", loss.name)
+
+    mb_names = []
+    for dn in data_names:
+        v = block.var(dn)
+        tail = [int(s) for s in v.shape[1:]]
+        out = block.create_var(dn + "@mb", tuple([M, -1] + tail), v.dtype)
+        out.stop_gradient = True
+        block.append_op("reshape", inputs={"X": [dn]},
+                        outputs={"Out": [out.name]},
+                        attrs={"shape": [M, -1] + tail}, infer_shape=False)
+        mb_names.append(out.name)
+
+    block.append_op("scan",
+                    inputs={"Init": init_names, "X": mb_names},
+                    outputs={"Out": [], "FinalCarry": final_names},
+                    attrs={"sub_block": sub.idx, "carry_names": carry_names,
+                           "x_names": data_names, "out_names": [],
+                           "time_major": True},
+                    infer_shape=False)
+
+    mean_grads = {}
+    for p, g in params_grads:
+        if g is None:
+            continue
+        mname = g.name + "@mb_mean"
+        mv = block.create_var(mname, tuple(p.shape),
+                              getattr(g, "dtype", "float32"))
+        mv.stop_gradient = True
+        block.append_op("scale", inputs={"X": [grad_finals[p.name]]},
+                        outputs={"Out": [mname]},
+                        attrs={"scale": 1.0 / M}, infer_shape=False)
+        mean_grads[p.name] = block.var(mname)
+    # the user-facing loss var becomes the microbatch-mean loss
+    block.append_op("scale", inputs={"X": [loss_final]},
+                    outputs={"Out": [loss.name]},
+                    attrs={"scale": 1.0 / M}, infer_shape=False)
+    return mean_grads
 
 
 def _scope_tensor(scope, name):

@@ -420,6 +420,31 @@ def build_image_classification(pkg, vgg, lr=IMG_LR, dropout=0.5, hw=32):
     return Chapter("image_classification", main, startup, loss, acc)
 
 
+#: the input-gradient penalty's weight (double backpropagation, Drucker & LeCun 1992)
+IMG_PENALTY = 0.1
+
+
+def build_image_penalty(pkg, vgg, weight=IMG_PENALTY, lr=IMG_LR, dropout=0.5, hw=32):
+    """The image chapter under an input-gradient penalty (double
+    backpropagation, Drucker & LeCun 1992): total = loss + weight *
+    mean over the batch of sum((d loss / d img)^2), the input gradient
+    built by ``pkg.gradients``, so ``minimize`` differentiates through the
+    first backward pass. Returns (the chapter, its ``loss`` the total, and
+    the penalty variable)."""
+    main, startup = _programs(pkg)
+    layers = pkg.layers
+    with pkg.unique_name.guard(), pkg.program_guard(main, startup):
+        img = pkg.data("img", [3, hw, hw], "float32")
+        img.stop_gradient = False
+        label = pkg.data("label", [1], "int64")
+        loss, acc, _ = vgg.vgg16(img, label, num_classes=10, use_bn=True, dropout=dropout)
+        gimg, = pkg.gradients([loss], [img])
+        penalty = layers.mean(layers.reduce_sum(layers.square(gimg), dim=[1, 2, 3]))
+        total = layers.elementwise_add(loss, layers.scale(penalty, scale=weight))
+        pkg.optimizer.Adam(lr).minimize(total)
+    return Chapter("image_classification_penalty", main, startup, total, acc), penalty
+
+
 def image_classification_feeds(ds=None, batch=IMG_BATCH, steps=IMG_STEPS, seed=0):
     """The example's first ``steps`` batches of shuffled ``cifar.train10()``
     (epochs repeat until there are enough)."""

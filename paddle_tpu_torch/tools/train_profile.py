@@ -5,6 +5,7 @@
     python3 -m paddle_tpu_torch.tools.train_profile transformer  # Transformer NMT
     python3 -m paddle_tpu_torch.tools.train_profile deepfm       # DeepFM CTR
     python3 -m paddle_tpu_torch.tools.train_profile mnist        # MNIST MLP
+    python3 -m paddle_tpu_torch.tools.train_profile pipeline     # BERT-base, 4 microbatches
 
 BERT-base: builds the pretraining program (L12 H768 A12, FFN 3072, vocab
 30522, bf16, dropout 0.1, tied MLM decode) at the configuration of
@@ -40,6 +41,11 @@ accumulation kinds).
 
 MNIST MLP: ``models/mnist.py::mlp`` (784 -> 128 -> 64 -> 10) at batch 256
 with ``SGD(0.01)``, random images and labels from seed 0.
+
+pipeline: BERT-base as above, plain and under ``PipelineOptimizer(Adam,
+num_microbatches=4)``: each captured step's device breakdown, and one
+eager step of each under ``cProfile`` (its wall ms and the functions that
+take its host time).
 
 ``build_pretrain`` and ``build_transformer`` take a ``schedule``: BERT's
 warmup and linear decay (``bert_schedule``) and the Transformer's noam
@@ -142,16 +148,38 @@ def encoder_checkpoints(program, n_layers):
     return [norms[2 * (i + 1)].output("Y")[0] for i in range(n_layers)]
 
 
+def pipeline(microbatches):
+    """``optimizer(pt, rate)`` for the builders: ``PipelineOptimizer(Adam(rate),
+    num_microbatches=microbatches, schedule="scan")``, gradient accumulation
+    over equal slices of the batch on one card."""
+    def make(pt, rate):
+        return pt.optimizer.PipelineOptimizer(pt.optimizer.Adam(rate),
+                                              num_microbatches=microbatches, schedule="scan")
+    return make
+
+
+def amp_adam(pt, rate):
+    """``optimizer(pt, rate)`` for the builders: ``Adam(rate)`` under
+    ``contrib.mixed_precision.decorate`` at its defaults (bf16, no loss
+    scaling)."""
+    return pt.contrib.mixed_precision.decorate(pt.optimizer.Adam(rate))
+
+
 def build_pretrain(cfg, batch, seq, n_masks, lr=LR, seed=SEED, schedule=None, optimizer=None,
-                   checkpoints=False):
+                   checkpoints=False, pkg=None, model=None):
     """The pretraining Program at static shapes (batch x seq tokens, n_masks
     masked positions per sequence) with ``Adam(lr)``, or with ``Adam`` at
     the learning rate that ``schedule(layers)`` builds (``bert_schedule``).
-    ``optimizer(pt, rate)`` replaces ``Adam`` (``lamb``); ``checkpoints``
-    wraps it in ``RecomputeOptimizer`` with ``encoder_checkpoints``.
-    Returns (main, startup, total_loss, params_grads)."""
-    import paddle_tpu_torch as pt
-    from paddle_tpu_torch.models import bert
+    ``optimizer(pt, rate)`` replaces ``Adam`` (``lamb``, ``pipeline(M)``);
+    ``checkpoints`` wraps it in ``RecomputeOptimizer`` with
+    ``encoder_checkpoints``. ``pkg`` and ``model`` are the DSL's package
+    and its ``models.bert`` module, given together (the port's when None;
+    the tests pass the JAX package's, with its own ``cfg``). Returns
+    (main, startup, total_loss, params_grads)."""
+    if pkg is None:
+        import paddle_tpu_torch as pkg
+        from paddle_tpu_torch.models import bert as model
+    pt, bert = pkg, model
     M = batch * n_masks
     shapes = {"seq": [batch, seq], "masks": [M, 1], "batch": [batch, 1]}
     main, startup = pt.Program(), pt.Program()
@@ -170,17 +198,38 @@ def build_pretrain(cfg, batch, seq, n_masks, lr=LR, seed=SEED, schedule=None, op
     return main, startup, total, params_grads
 
 
-def pretrain_feed(rng, cfg, batch, seq, n_masks):
+def pretrain_feed(rng, cfg, batch, seq, n_masks, microbatches=1):
     """One batch, drawn as bench.py draws it: random ids, positions, random
-    segments, a full mask, random masked positions and labels."""
+    segments, a full mask, random masked positions and labels.
+
+    ``mask_pos`` holds flat indices into the batch's [batch * seq] tokens.
+    Under ``microbatches`` = k > 1 (a ``PipelineOptimizer`` feed) the rewrite
+    slices every feed into k equal parts, and each microbatch gathers from
+    its own [batch / k * seq] tokens: so the positions are drawn in
+    microbatch order, n_masks * batch / k for each, each relative to its own
+    microbatch (as Paddle's multi-device BERT reader writes each device's
+    batch). ``global_mask_pos`` turns them back into indices into the whole
+    batch, for the same step without microbatches."""
     M = batch * n_masks
+    if batch % microbatches:
+        raise ValueError(f"batch {batch} does not split into {microbatches} microbatches")
     return {"src_ids": rng.randint(0, cfg.vocab_size, (batch, seq)).astype("int64"),
             "pos_ids": np.tile(np.arange(seq, dtype="int64"), (batch, 1)),
             "sent_ids": rng.randint(0, 2, (batch, seq)).astype("int64"),
             "input_mask": np.ones((batch, seq), "float32"),
-            "mask_pos": rng.randint(0, batch * seq, (M, 1)).astype("int64"),
+            "mask_pos": rng.randint(0, batch // microbatches * seq, (M, 1)).astype("int64"),
             "mask_label": rng.randint(0, cfg.vocab_size, (M, 1)).astype("int64"),
             "nsp_label": rng.randint(0, 2, (batch, 1)).astype("int64")}
+
+
+def global_mask_pos(mask_pos, microbatches, batch, seq):
+    """Microbatch-relative masked positions (``pretrain_feed(...,
+    microbatches)``) as indices into the whole batch's tokens: the m-th
+    equal block of rows offset by m * batch / microbatches * seq."""
+    rows = mask_pos.shape[0] // microbatches
+    offset = np.repeat(np.arange(microbatches, dtype=mask_pos.dtype) * (batch // microbatches
+                                                                        * seq), rows)
+    return mask_pos + offset.reshape((-1,) + (1,) * (mask_pos.ndim - 1))
 
 
 def build_resnet50(dtype="bfloat16", fuse=True, optimizer=None):
@@ -235,13 +284,18 @@ def transformer_config(dropout=0.1):
                                          dropout=dropout)
 
 
-def build_transformer(cfg, batch=NMT_BATCH, seq=NMT_SEQ, lr=NMT_LR, seed=SEED, schedule=None):
+def build_transformer(cfg, batch=NMT_BATCH, seq=NMT_SEQ, lr=NMT_LR, seed=SEED, schedule=None,
+                      optimizer=None, pkg=None, model=None):
     """The training Program at static shapes (batch x seq source and target
     tokens), label smoothing 0.1, ``Adam(lr)`` or ``Adam`` at the learning
-    rate ``schedule(layers)`` builds (``noam_schedule``). Returns (main,
-    startup, loss, params_grads)."""
-    import paddle_tpu_torch as pt
-    from paddle_tpu_torch.models import transformer
+    rate ``schedule(layers)`` builds (``noam_schedule``); ``optimizer(pt,
+    rate)`` replaces ``Adam`` (``amp_adam``). ``pkg`` and ``model`` (its
+    ``models.transformer``) as ``build_pretrain``'s. Returns (main, startup,
+    loss, params_grads)."""
+    if pkg is None:
+        import paddle_tpu_torch as pkg
+        from paddle_tpu_torch.models import transformer as model
+    pt, transformer = pkg, model
     main, startup = pt.Program(), pt.Program()
     main.random_seed = seed
     startup.random_seed = seed
@@ -249,7 +303,8 @@ def build_transformer(cfg, batch=NMT_BATCH, seq=NMT_SEQ, lr=NMT_LR, seed=SEED, s
         ins = [pt.data(n, [batch, seq], dt, append_batch_size=False) for n, dt in NMT_FEEDS]
         loss, _ = transformer.transformer(*ins, cfg, label_smooth_eps=NMT_LABEL_SMOOTH)
         rate = schedule(pt.layers) if schedule is not None else lr
-        _, params_grads = pt.optimizer.Adam(rate).minimize(loss)
+        opt = optimizer(pt, rate) if optimizer is not None else pt.optimizer.Adam(rate)
+        _, params_grads = opt.minimize(loss)
     return main, startup, loss, params_grads
 
 
@@ -333,14 +388,17 @@ MNIST_BATCH, MNIST_LR, MNIST_PIXELS, MNIST_CLASSES = 256, 0.01, 784, 10
 
 
 def build_mnist(batch=MNIST_BATCH, lr=MNIST_LR, seed=SEED, clip_norm=None, l2=None,
-                optimizer=None):
+                optimizer=None, pkg=None, model=None):
     """The MNIST MLP training Program at a static batch with ``SGD(lr)``;
     ``clip_norm`` sets ``GradientClipByGlobalNorm(clip_norm)`` on every
     parameter and ``l2`` the optimizer's ``L2Decay(l2)``; ``optimizer(pt)``
     replaces ``SGD`` (anything with a ``minimize(loss)`` that returns
-    (ops, params_grads)). Returns (main, startup, loss, acc, params_grads)."""
-    import paddle_tpu_torch as pt
-    from paddle_tpu_torch.models import mnist
+    (ops, params_grads)). ``pkg`` and ``model`` (its ``models.mnist``) as
+    ``build_pretrain``'s. Returns (main, startup, loss, acc, params_grads)."""
+    if pkg is None:
+        import paddle_tpu_torch as pkg
+        from paddle_tpu_torch.models import mnist as model
+    pt, mnist = pkg, model
     main, startup = pt.Program(), pt.Program()
     main.random_seed = seed
     startup.random_seed = seed
@@ -434,7 +492,8 @@ def profile_steps(torch, exe, main, feed, total, n_steps):
     list of them, as the runs before fetched, so that the executor's cached
     graph is the one replayed), after one more run that the profiler traces
     and drops; device time by activity name, and the window's count of
-    device records by name (``device_records``). A window with no device
+    device records by name (``device_records``) and their device ms a step
+    (``device_ms_by_record``). A window with no device
     record is traced again, up to PROFILE_TRIES windows in all
     (``empty_windows`` counts the ones dropped); then it raises."""
     fetch = list(total) if isinstance(total, (list, tuple)) else [total]
@@ -453,13 +512,14 @@ def profile_steps(torch, exe, main, feed, total, n_steps):
     for us, c, k in device:
         ms, n = by_kind.get(_kind(k), (0.0, 0.0))
         by_kind[_kind(k)] = (ms + us / 1e3, n + c)
-    records = {}
-    for _, c, k in device:
+    records, record_ms = {}, {}
+    for us, c, k in device:
         records[k[:120]] = records.get(k[:120], 0) + round(c * n_steps)
+        record_ms[k[:120]] = record_ms.get(k[:120], 0.0) + us / 1e3
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms, "empty_windows": empty,
             "device_idle_share": max(0.0, 1 - busy_ms / (wall * 1e3)),
             "device_activities_per_step": sum(c for _, c, _ in device),
-            "device_records": records,
+            "device_records": records, "device_ms_by_record": record_ms,
             "by_kind": {k: {"ms": ms, "per_step": n} for k, (ms, n) in by_kind.items()},
             "top": [{"name": k[:90], "ms": us / 1e3, "per_step": c}
                     for us, c, k in device[:15]]}
@@ -532,11 +592,67 @@ def main_mnist(torch):
                       "gpu": torch.cuda.get_device_name(0), **r}), flush=True)
 
 
+def eager_host_profile(torch, exe, main_prog, feed, total, top=20):
+    """One eager step of ``main_prog`` under ``cProfile``: its wall ms and
+    the ``top`` functions by cumulative host time (ms, calls)."""
+    import cProfile
+    import pstats
+    exe._use_graphs = False
+    exe.run(main_prog, feed=feed, fetch_list=[total])
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    exe.run(main_prog, feed=feed, fetch_list=[total])
+    torch.cuda.synchronize()
+    prof.disable()
+    wall = (time.perf_counter() - t0) * 1e3
+    stats = pstats.Stats(prof).stats
+    rows = sorted(((ct, nc, f"{fn[0].rsplit('/', 1)[-1]}:{fn[1]}({fn[2]})")
+                   for fn, (cc, nc, tt, ct, callers) in stats.items()), reverse=True)
+    return {"eager_wall_ms": wall,
+            "top_cumulative": [{"fn": f, "ms": ct * 1e3, "calls": nc} for ct, nc, f in rows[:top]]}
+
+
+def main_pipeline(torch):
+    """BERT-base pretraining at bench.py's configuration under
+    ``PipelineOptimizer(Adam, num_microbatches=4)`` (``pipeline``): the
+    captured step's device breakdown, and one eager step's host time by
+    function beside the plain step's."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import bert
+    cfg = bert.BertConfig(dtype="bfloat16")
+    out = {}
+    for label, microbatches in (("plain", 1), ("pipeline", 4)):
+        main_prog, startup, total, _ = build_pretrain(
+            cfg, BATCH, SEQ, MASKS_PER_SEQ,
+            optimizer=pipeline(microbatches) if microbatches > 1 else None)
+        feed = {k: torch.from_numpy(v).cuda() for k, v in pretrain_feed(
+            np.random.RandomState(SEED), cfg, BATCH, SEQ, MASKS_PER_SEQ, microbatches).items()}
+        exe = pt.Executor()
+        with pt.scope_guard(pt.Scope()):
+            exe.run(startup)
+            for _ in range(2):
+                exe.run(main_prog, feed=feed, fetch_list=[total])
+            torch.cuda.synchronize()
+            r = profile_steps(torch, exe, main_prog, feed, total, 3)
+            r.pop("device_records")
+            r.pop("device_ms_by_record")
+            r.update(eager_host_profile(torch, exe, main_prog, feed, total))
+        exe.close()
+        out[label] = r
+    print(json.dumps({"profile": f"bert-base pretrain L{cfg.n_layers} bf16 B{BATCH} S{SEQ}, "
+                                 f"plain and PipelineOptimizer(Adam, 4 microbatches)",
+                      "gpu": torch.cuda.get_device_name(0), **out}), flush=True)
+
+
 def main():
     import sys
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("train_profile: no CUDA device")
+    if sys.argv[1:] == ["pipeline"]:
+        return main_pipeline(torch)
     if sys.argv[1:] == ["resnet50"]:
         return main_resnet50(torch)
     if sys.argv[1:] == ["transformer"]:

@@ -16,6 +16,7 @@ import torch
 import paddle_tpu  # noqa: F401  (registers the JAX op library)
 from paddle_tpu.core import registry as jreg
 import paddle_tpu_torch as pt
+from paddle_tpu_torch import convert
 from paddle_tpu_torch.core import registry as treg
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -210,10 +211,36 @@ def test_grad_shapes_copy_the_forward_inputs():
 
 
 def test_second_order_is_refused():
-    main, _, loss = _tiny_program()
-    with pt.program_guard(main):
-        pgs = pt.append_backward(loss)
-        g = pgs[0][1]
-        g.stop_gradient = False
-        with pytest.raises(NotImplementedError, match="second-order"):
-            pt.gradients([g], [main.global_block().var("x")])
+    """The refusal sits at third order now, the JAX package's ceiling: the
+    gradient of a parameter's gradient with respect to the input is built
+    and equals the JAX package's from the same weights; a gradient of that
+    raises in both, naming the slot collision of a ``*_grad_grad`` op."""
+    built = {}
+    for pkg in (paddle_tpu, pt):
+        main, startup = pkg.Program(), pkg.Program()
+        main.random_seed = startup.random_seed = 5
+        with pkg.unique_name.guard(), pkg.program_guard(main, startup):
+            x = pkg.data("x", [8], "float32")
+            h = pkg.layers.fc(x, 6, act="tanh")
+            loss = pkg.layers.mean(pkg.layers.fc(h, 3))
+            g = pkg.append_backward(loss)[0][1]
+            g.stop_gradient = False
+            gx, = pkg.gradients([g], [x])
+            with pytest.raises(NotImplementedError, match="third-order"):
+                pkg.gradients([pkg.layers.mean(gx)], [x])
+        built[pkg] = (main, startup, gx)
+    feed = {"x": np.random.RandomState(0).randn(4, 8).astype("float32")}
+    main, startup, gx = built[paddle_tpu]
+    scope = paddle_tpu.Scope()
+    with paddle_tpu.scope_guard(scope):
+        exe = paddle_tpu.Executor()
+        exe.run(startup)
+        want = exe.run(main, feed=feed, fetch_list=[gx])[0]
+        init = {n: np.asarray(scope.find_var(n)) for n, v in main.global_block().vars.items()
+                if v.persistable}
+    main, _, gx = built[pt]
+    tscope = pt.Scope()
+    convert.load_state(tscope, convert.state_from_numpy(init, device="cpu"))
+    with pt.scope_guard(tscope):
+        got = pt.Executor(pt.CPUPlace()).run(main, feed=feed, fetch_list=[gx])[0]
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-5)

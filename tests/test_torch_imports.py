@@ -43,6 +43,23 @@ def test_port_module_imports_no_jax(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_port_imports_no_module_by_computed_name():
+    """The scan above sees only names written out: a module named at run
+    time (``importlib.import_module(f"{pkg.__name__}...")``) could reach the
+    JAX package unseen, so the port names every module it imports."""
+    bad = []
+    for path in _port_files():
+        with open(os.path.join(ROOT, path)) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Call) and (
+                    getattr(node.func, "id", None) == "__import__"
+                    or getattr(node.func, "attr", None) == "import_module") and not (
+                    node.args and isinstance(node.args[0], ast.Constant)):
+                bad.append(f"{path}:{node.lineno}")
+    assert not bad, bad
+
+
 def test_port_import_leaves_jax_unloaded():
     mods = sorted(p[:-3].replace(os.sep, ".") for p in _port_files()
                   if p.startswith("paddle_tpu_torch"))

@@ -8,8 +8,10 @@ learning-rate schedules and run every dense op case, train BERT-base
 under LAMB (with and without recompute), ResNet-50 under LARS and the MNIST
 MLP under every update class and averaging wrapper, train BERT-base
 accumulated over microbatches, transformer-base under mixed precision and
-VGG-16 under a gradient penalty through the PyTorch/CUDA port on one NVIDIA
-GPU, and hold its CUDA kernels against their plain PyTorch versions.
+VGG-16 under a gradient penalty, train DeepFM from a stream under the step
+guardian (preempted and resumed exactly) and ``examples/ctr_deepfm.py``'s
+host-table model through the PyTorch/CUDA port on one NVIDIA GPU, and hold
+its CUDA kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -95,7 +97,8 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
 9. multi_tensor_update over BERT-base's 158 Adam parameters,
    ResNet-50's 161 Momentum parameters, BERT-base's 158 LAMB parameters and
    ResNet-50's 161 LARS parameters (phase 18's kinds), DeepFM's 10 Adam parameters (17.5 M
-   elements, the 1,000,000 x 16 table among them), the MNIST MLP's 6 SGD
+   elements, the 1,000,000 x 16 table among them), ``examples/ctr_deepfm.py``'s
+   dense Adam parameters (phase 20 B; its table is on the host), the MNIST MLP's 6 SGD
    parameters, transformer-base's 258 Adam parameters and each book
    chapter's list of phase 16 (their shapes and dtypes read from the
    programs), in place, against the per-op lowerings on the card, bit
@@ -287,6 +290,32 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    WGAN-GP objective over 200 steps (5 against the CPU port). Alone:
    ``python3 -c "import torch, chip_smoke as cs; cs.phase_build();
    cs.phase_training_surface(torch)"``, which times its yardsticks itself;
+20. (run after phase 19) streaming, checkpoints, the step guardian and the
+   host table. A: DeepFM at phase 14's configuration from phase 15's 8 part
+   files, one ``FileTailSource`` each, merged in a fixed rotation
+   (``StreamingDataset(ordered=True)``), under ``StepGuardian`` with an
+   async ``Checkpointer`` every 8 steps, captured: 40 steps with a
+   transient ``exc`` at dispatch (retried) and a ``corrupt`` record at
+   parse (quarantined); a restore of the last periodic checkpoint into the
+   live, captured scope, rerun to step 40 (bit for bit, no recapture); the
+   same faults with a ``preempt`` at step 20, then a fresh executor and
+   dataset that ``restore()``, ``seek`` the watermark and run to step 40:
+   every state tensor (parameters, Adam moments, ``auc``'s histograms) and
+   the run counter bit for bit to the uninterrupted run; step 1 against
+   the CPU port; the guarded step ms beside phase 14's, the stream's
+   records/s, the resumed run's idle share, the checkpoint's blocked and
+   write seconds, the restore's. B: ``examples/ctr_deepfm.py``'s program
+   (``host_embedding`` with Adagrad, 256-128, Adam) at the example's
+   constants (vocabulary 20,000, B 512, 200 steps: the loss falls) and at
+   A's scale (vocabulary 1,000,000, B 4096, 20 steps: a 64 MB table and its
+   64 MB accumulator), eager and captured from one state: losses, dense
+   state, table and accumulator bit for bit, ``push_count``, ``run_fused``
+   refused with the JAX reason, ``save_all`` / ``load_all`` round-tripped,
+   step 1 (the dense update and the table's) against the CPU port, the
+   host ms of the gather and the push a step, busy ms and idle share.
+   Alone: ``python3 -c "import torch, chip_smoke as cs; cs.phase_build();
+   cs.phase_stream_and_host_table(torch, 'build')"`` after ``mkdir -p
+   build``;
 12. the kernels line (``multi_tensor_update`` with its five kinds, each
    with its launches), then the result line.
 
@@ -4430,6 +4459,445 @@ def phase_training_surface(torch, constant_bert=None, constant_nmt=None):
     return a, b, b2, c, d
 
 
+# -- phase 20: streaming, checkpoints, the step guardian, host tables --------------------
+# A: DeepFM (phase 14's configuration) from one FileTailSource per part file of
+# phase 15 (200,000 rows in 8 parts), merged in a fixed rotation (``ordered``),
+# under StepGuardian and an async Checkpointer every 8 steps, captured; faults:
+# a transient exc at dispatch (retried) and a corrupt record at parse
+# (quarantined), then a preempt at step 20; the resume runs to step 40.
+STREAM_STEPS, STREAM_PREEMPT, STREAM_SAVE_EVERY = 40, 20, 8
+STREAM_FAULTS = "exc@dispatch:step=5;corrupt@parse:step=1000"
+# B: examples/ctr_deepfm.py's program (host_embedding + Adagrad, 256-128, Adam)
+# at the example's constants and at A's scale
+CTR_EXAMPLE = dict(vocab=20_000, batch=512, steps=200)
+CTR_AT_SCALE = dict(vocab=1_000_000, batch=4096, steps=20)
+HOST_FIELDS, HOST_DIM, HOST_DENSE = 26, 16, 13
+HOST_PROFILED_STEPS = 5
+
+
+def _hist_totals(name):
+    """(count, sum) of each mode of a histogram in the metrics registry."""
+    from paddle_tpu_torch.observability.metrics import REGISTRY
+    fam = REGISTRY.get(name)
+    return {dict(k).get("mode", ""): (c.count, c.sum) for k, c in fam.items()} if fam else {}
+
+
+def _hist_delta(before, after):
+    out = {}
+    for mode, (n, s) in after.items():
+        n0, s0 = before.get(mode, (0, 0.0))
+        if n > n0:
+            out[mode] = dict(saves=n - n0, seconds_mean=(s - s0) / (n - n0))
+    return out
+
+
+def _zero_launches():
+    from paddle_tpu_torch.core import cuda_build
+    for f in cuda_build.COUNTED:
+        f.launches = 0
+
+
+def _stream_resume(torch, pt, workdir, deepfm_step_ms=None):
+    """Path A of phase 20."""
+    from paddle_tpu_torch.data import FileTailSource, StreamingDataset
+    from paddle_tpu_torch.ops import multi_tensor
+    from paddle_tpu_torch.resilience import faults, recovery
+    from paddle_tpu_torch.tools.train_profile import CTR_BATCH, CTR_FIELDS, CTR_VOCAB, \
+        build_deepfm, traced
+    from paddle_tpu_torch.utils.checkpointer import Checkpointer
+    from torch.profiler import ProfilerActivity
+    steps, preempt, save_every, spec = (STREAM_STEPS, STREAM_PREEMPT, STREAM_SAVE_EVERY,
+                                        STREAM_FAULTS)
+    t0 = time.perf_counter()
+    paths = _write_ctr_parts(workdir, CTR_FIELDS, CTR_VOCAB)
+    write_s = time.perf_counter() - t0
+    main, startup, loss, auc, _, pg = build_deepfm()
+    use_vars = [main.global_block().var(n) for n in ("ids", "dense", "label")]
+    init = _startup_state(pt, main, startup)
+    names = sorted(init)
+
+    def make_ds(bound):
+        ds = StreamingDataset(ordered=True)
+        for p in paths:
+            ds.add_source(FileTailSource(p, name=os.path.basename(p)))
+        ds.set_use_var(use_vars)
+        ds.set_batch_size(CTR_BATCH)
+        ds.set_bad_sample_policy("quarantine",
+                                 dead_letter_path=os.path.join(workdir, "dead_letters.jsonl"))
+        ds.set_epoch_bound(steps=bound)
+        return ds
+
+    def guarded(ck_dir, fault_spec, n_steps, scope, exe, ds=None, start=0, ck=None):
+        """Steps under the guardian until ``n_steps`` batches or a
+        preemption: (step times, Preempted or None, the checkpointer, the
+        dataset, the guardian)."""
+        ck = ck or Checkpointer(exe, main, ck_dir, save_interval_steps=save_every,
+                                async_save=True)
+        g = recovery.StepGuardian(exe, main, checkpointer=ck, start_step=start)
+        ds = ds or make_ds(n_steps)
+        times, pre = [time.perf_counter()], None
+        if fault_spec:
+            faults.install(fault_spec)
+        try:
+            with pt.scope_guard(scope):
+                g.train_from_dataset(dataset=ds, fetch_list=[loss, auc],
+                                     step_cb=lambda n, last: times.append(time.perf_counter()))
+        except recovery.Preempted as e:
+            pre = e
+        finally:
+            faults.clear()
+        return times, pre, ck, ds, g
+
+    def fresh():
+        scope = pt.Scope()
+        for n, t in init.items():
+            scope.set_var(n, t.clone())
+        main._rng_run_counter = 0
+        return scope, pt.Executor()
+
+    recovery.clear_preemption()
+    # the uninterrupted run (the same faults, no preemption)
+    scope_u, exe_u = fresh()
+    _zero_launches()
+    before_hist = {h: _hist_totals(h) for h in ("checkpoint_blocked_seconds",
+                                                 "checkpoint_write_seconds")}
+    times, pre, ck_u, ds_u, g_u = guarded(os.path.join(workdir, "ck_uninterrupted"), spec,
+                                          steps, scope_u, exe_u)
+    ck_u.wait()
+    torch.cuda.synchronize()
+    wall_u = times[-1] - times[0]
+    launches_u = multi_tensor.multi_tensor_update.launches
+    records = ds_u.stream_state()["records"]
+    dead = ds_u.stream_state()["dead_letters"]
+    step_ms = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
+    hist = {h: _hist_delta(before_hist[h], _hist_totals(h)) for h in before_hist}
+    final_u = {n: scope_u.find_var(n).clone() for n in names}
+    counter_u = main._rng_run_counter
+    if pre is not None:
+        raise SystemExit(f"stream A: the uninterrupted run was preempted: {pre}")
+
+    # a restore into the live, captured scope: in place, no recapture
+    graphs_before = {k: id(s.graph) for k, s in exe_u._cache.items()}
+    latest = ck_u.latest_step()
+    t0 = time.perf_counter()
+    with pt.scope_guard(scope_u):
+        restored_live = ck_u.restore()
+    live_restore_s = time.perf_counter() - t0
+    ds_live = make_ds(steps - restored_live - 1)
+    ds_live.seek(ck_u.train_state["stream"])
+    with pt.scope_guard(scope_u):
+        for feed in ds_live._iter_batches():
+            exe_u.run(main, feed=feed, fetch_list=[loss, auc])
+    live_again = len(_state_equal(torch, {n: scope_u.find_var(n) for n in names}, final_u))
+    graphs_after = {k: id(s.graph) for k, s in exe_u._cache.items()}
+    g_u.close()
+    del scope_u, exe_u
+
+    # the preempted run, then a fresh executor and dataset that restore and seek
+    _zero_launches()
+    scope_p, exe_p = fresh()
+    _, pre, ck_p, _, _ = guarded(os.path.join(workdir, "ck_preempted"),
+                                 spec + f";preempt:step={preempt}", steps, scope_p, exe_p)
+    launches_p = multi_tensor.multi_tensor_update.launches
+    if pre is None:
+        raise SystemExit("stream A: the preempt fault did not preempt the run")
+    del scope_p, exe_p
+    recovery.clear_preemption()
+    scope_r, exe_r = fresh()
+    ck_r = Checkpointer(exe_r, main, os.path.join(workdir, "ck_preempted"),
+                        save_interval_steps=save_every, async_save=True)
+    t0 = time.perf_counter()
+    with pt.scope_guard(scope_r):
+        restored = ck_r.restore()
+    restore_s = time.perf_counter() - t0
+    ds_r = make_ds(steps - restored - 1)
+    ds_r.seek(ck_r.train_state["stream"])
+    _zero_launches()
+    with traced([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        times_r, pre_r, _, _, g_r = guarded(None, None, steps, scope_r, exe_r, ds=ds_r,
+                                            start=restored + 1, ck=ck_r)
+        ck_r.wait()
+        torch.cuda.synchronize()
+        wall_r = time.perf_counter() - t0
+    launches_r = multi_tensor.multi_tensor_update.launches
+    busy_ms = _device_busy_ms(prof)
+    del prof
+    g_r.close()
+    final_r = {n: scope_r.find_var(n) for n in names}
+    differs = _state_equal(torch, final_r, final_u)
+    resume_equal = not differs and main._rng_run_counter == counter_u
+    hist_names = [n for n in names if n.startswith("auc")]
+
+    # step 1 against the CPU port, on the stream's first batch
+    first = next(iter(make_ds(1)._iter_batches()))
+    gaps = _step1_vs_cpu(torch, pt, main, loss, pg, init, first)
+    median = statistics.median(step_ms)
+    r = dict(model=f"deepfm B{CTR_BATCH} from {len(paths)} FileTailSources (ordered)",
+             files=len(paths), write_s=write_s, steps=steps, preempt_at=preempt,
+             faults=spec, save_interval_steps=save_every,
+             uninterrupted=dict(seconds=wall_u, records=records, dead_letters=dead,
+                                records_per_s=records / wall_u, step_ms_median=median,
+                                step_ms_max=max(step_ms), multi_tensor_update_launches=launches_u,
+                                counter=counter_u),
+             deepfm_from_feeds_graph_step_ms=deepfm_step_ms,
+             checkpoint=dict(hist, latest_step=latest),
+             live_restore=dict(step=restored_live, seconds=live_restore_s,
+                               state_differs_after_rerun=live_again,
+                               graphs_unchanged=graphs_before == graphs_after,
+                               graphs=len(graphs_after)),
+             preempted=dict(saved_step=pre.saved_step, step=pre.step,
+                            multi_tensor_update_launches=launches_p),
+             resumed=dict(restored_step=restored, restore_s=restore_s, seconds=wall_r,
+                          steps=len(times_r) - 1, multi_tensor_update_launches=launches_r,
+                          device_busy_ms=busy_ms,
+                          idle_share_profiled=max(0.0, 1 - busy_ms / (wall_r * 1e3))),
+             resume_bit_equal=resume_equal, state_differs=len(differs),
+             histograms_equal=all(torch.equal(final_r[n], final_u[n]) for n in hist_names),
+             step1_card_vs_cpu=gaps)
+    emit("stream_resume", **r)
+    if pre_r is not None:
+        raise SystemExit(f"stream A: the resumed run was preempted: {pre_r}")
+    if not resume_equal:
+        raise SystemExit(f"stream A: the resumed state parts from the uninterrupted run's "
+                         f"in {differs[:8]} (counter {main._rng_run_counter} vs {counter_u})")
+    if dead != 1:
+        raise SystemExit(f"stream A: {dead} records quarantined, expected the 1 corrupt one")
+    if launches_u != steps or launches_p + launches_r != steps:
+        raise SystemExit(f"stream A: multi_tensor_update launched {launches_u} and "
+                         f"{launches_p} + {launches_r} times, expected {steps} a run")
+    if live_again or graphs_before != graphs_after:
+        raise SystemExit(f"stream A: the in-place restore into the captured scope: "
+                         f"{r['live_restore']}")
+    if not (gaps["loss_rel_gap"] <= CTR_LOSS_REL and gaps["update_rel_l1_gap"] <= CTR_UPDATE_REL):
+        raise SystemExit(f"stream A step 1: card vs CPU {gaps} exceeds the limits")
+    return r
+
+
+def build_ctr_host(pt, vocab, fields=HOST_FIELDS, dim=HOST_DIM, name="ctr_table"):
+    """``examples/ctr_deepfm.py``'s program at static shapes: (main, startup,
+    loss, params_grads). The host table ``name`` is made anew."""
+    from paddle_tpu_torch.ops import host_table
+    host_table.drop_table(name)
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        ids = pt.data("ids", [fields], "int64")
+        dense = pt.data("dense", [HOST_DENSE], "float32")
+        label = pt.data("label", [1], "float32")
+        emb = pt.layers.host_embedding(ids, (vocab, dim), name=name, optimizer="adagrad",
+                                       learning_rate=0.05, seed=SEED)
+        deep = pt.layers.concat([pt.layers.reshape(emb, [-1, fields * dim]), dense], axis=1)
+        for width in (256, 128):
+            deep = pt.layers.fc(deep, width, act="relu")
+        logit = pt.layers.fc(deep, 1)
+        loss = pt.layers.mean(pt.layers.sigmoid_cross_entropy_with_logits(logit, label))
+        _, pg = pt.optimizer.Adam(1e-3).minimize(loss)
+    return main, startup, loss, pg
+
+
+def ctr_host_feeds(vocab, batch, steps, fields=HOST_FIELDS, seed=SEED):
+    """The example's batches: labels drawn from a logistic model of the ids."""
+    rng = np.random.RandomState(seed)
+    w_true = rng.randn(vocab).astype("float32") * 0.1
+    out = []
+    for _ in range(steps):
+        ids = rng.randint(0, vocab, (batch, fields)).astype("int64")
+        dense = rng.rand(batch, HOST_DENSE).astype("float32")
+        p = 1 / (1 + np.exp(-w_true[ids].sum(1)))
+        out.append({"ids": ids, "dense": dense,
+                    "label": (rng.rand(batch) < p).astype("float32")[:, None]})
+    return out
+
+
+def _push_parts_ms(table, ids, runs=3):
+    """Host ms of a push's three parts (``HostTable._apply``'s arithmetic)
+    on one step's ids and a gradient of their shape, on copies of the table
+    and its accumulator: ``np.unique``, ``np.add.at`` over the ids, the
+    Adagrad update of the unique rows (medians of ``runs``)."""
+    flat = ids.reshape(-1).astype(np.int64)
+    g = np.random.RandomState(SEED).randn(flat.size, table.dim).astype(np.float32)
+    tab, acc_sq = table.table.copy(), table._accum.copy()
+    parts = {"unique": [], "add_at": [], "update": []}
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        uniq, inv = np.unique(flat, return_inverse=True)
+        t1 = time.perf_counter()
+        acc = np.zeros((len(uniq), table.dim), np.float32)
+        np.add.at(acc, inv, g)
+        t2 = time.perf_counter()
+        acc_sq[uniq] += acc * acc
+        tab[uniq] -= table.lr * acc / np.sqrt(acc_sq[uniq] + 1e-10)
+        t3 = time.perf_counter()
+        for k, a, b in (("unique", t0, t1), ("add_at", t1, t2), ("update", t2, t3)):
+            parts[k].append((b - a) * 1e3)
+    return dict({k: statistics.median(v) for k, v in parts.items()}, ids=int(flat.size),
+                unique_ids=int(len(uniq)))
+
+
+def _ctr_host(torch, pt, workdir, vocab, batch, steps, profile=False):
+    """Path B of phase 20 at one size; ``profile``: trace a few captured
+    steps for the device's busy time."""
+    from paddle_tpu_torch.ops import host_table, multi_tensor
+    from paddle_tpu_torch.tools.train_profile import traced
+    from torch.profiler import ProfilerActivity
+    name = f"ctr_table_{vocab}"
+    main, startup, loss, pg = build_ctr_host(pt, vocab, name=name)
+    table = host_table.get_table(name)
+    feeds = ctr_host_feeds(vocab, batch, steps)
+    scope0 = pt.Scope()
+    with pt.scope_guard(scope0):
+        pt.Executor().run(startup)
+    init = {n: scope0.find_var(n).clone() for n, v in main.global_block().vars.items()
+            if v.persistable and scope0.find_var(n) is not None}
+    names = sorted(init)
+    t0_dir = os.path.join(workdir, f"table0_{vocab}")
+    t0 = time.perf_counter()
+    host_table.save_all(t0_dir)
+    save_s = time.perf_counter() - t0
+    pulls_ms, pushes_ms = [], []
+    real_pulls, real_pushes = host_table.run_pulls, host_table.run_pushes
+
+    def timed(fn, acc):
+        def wrapped(*a):
+            t = time.perf_counter()
+            out = fn(*a)
+            acc.append((time.perf_counter() - t) * 1e3)
+            return out
+        return wrapped
+
+    runs = {}
+    for path in ("eager", "graph"):
+        host_table.load_all(t0_dir)
+        scope = pt.Scope()
+        for n, t in init.items():
+            scope.set_var(n, t.clone())
+        main._rng_run_counter = 0
+        exe = pt.Executor()
+        exe._use_graphs = path == "graph"
+        _zero_launches()
+        losses, times = [], []
+        if path == "graph":
+            host_table.run_pulls = timed(real_pulls, pulls_ms)
+            host_table.run_pushes = timed(real_pushes, pushes_ms)
+        try:
+            with pt.scope_guard(scope):
+                t_start = time.perf_counter()
+                for f in feeds:
+                    losses.append(exe.run(main, feed=f, fetch_list=[loss])[0])
+                    times.append(time.perf_counter())
+        finally:
+            host_table.run_pulls, host_table.run_pushes = real_pulls, real_pushes
+        step_ms = [(b - a) * 1e3 for a, b in zip([t_start] + times, times)]
+        runs[path] = dict(losses=losses, state={n: scope.find_var(n).clone() for n in names},
+                          table=table.table.copy(), accum=table._accum.copy(),
+                          push_count=table.push_count, step_ms=step_ms,
+                          launches=multi_tensor.multi_tensor_update.launches)
+        if path == "graph":
+            refused = None
+            try:
+                exe.run_fused(main, feeds=feeds[:2], fetch_list=[loss])
+            except ValueError as e:
+                refused = str(e)
+            busy = wall = None
+            if profile:
+                with pt.scope_guard(scope), traced([ProfilerActivity.CPU,
+                                                    ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    for f in feeds[:HOST_PROFILED_STEPS]:
+                        exe.run(main, feed=f, fetch_list=[loss])
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                busy = _device_busy_ms(prof) / HOST_PROFILED_STEPS
+                del prof
+            captures = sum(s.graph is not None for s in exe._cache.values())
+        exe.close()
+    g, e = runs["graph"], runs["eager"]
+    bit_equal = (all(np.array_equal(a, b) for a, b in zip(g["losses"], e["losses"]))
+                 and not _state_equal(torch, g["state"], e["state"])
+                 and np.array_equal(g["table"], e["table"])
+                 and np.array_equal(g["accum"], e["accum"]))
+
+    # save_all / load_all round trip
+    host_table.load_all(t0_dir)
+    table.table[:], table._accum[:], table.push_count = g["table"], g["accum"], g["push_count"]
+    rt_dir = os.path.join(workdir, f"table1_{vocab}")
+    host_table.save_all(rt_dir)
+    table.table[:] = 0
+    table._accum[:] = 0
+    t0 = time.perf_counter()
+    host_table.load_all(rt_dir)
+    load_s = time.perf_counter() - t0
+    round_trip = (np.array_equal(table.table, g["table"]) and np.array_equal(table._accum, g["accum"])
+                  and table.push_count == g["push_count"])
+
+    # step 1 against the CPU port: the dense update and the table's update
+    ups = {}
+    for dev in ("cuda", "cpu"):
+        host_table.load_all(t0_dir)
+        before = table.table.copy()
+        feed = feeds[0] if dev == "cpu" else {k: torch.from_numpy(v).cuda()
+                                              for k, v in feeds[0].items()}
+        ups[dev] = _step_once(torch, pt, main, loss, [p.name for p, _ in pg], init, feed, dev)
+        ups[dev][1]["@table"] = torch.from_numpy(table.table - before)
+    gaps = dict(_gaps(ups["cuda"], ups["cpu"]), loss_rel_limit=CTR_LOSS_REL,
+                update_rel_l1_limit=CTR_UPDATE_REL)
+    push_parts = _push_parts_ms(table, feeds[0]["ids"]) if profile else None
+    losses = [float(np.asarray(x).reshape(-1)[0]) for x in g["losses"]]
+    k = max(1, len(losses) // 8)
+    r = dict(model=f"ctr_deepfm host_embedding({vocab} x {HOST_DIM}, adagrad 0.05) "
+                   f"256-128 Adam(1e-3) B{batch} fields {HOST_FIELDS}",
+             steps=steps, table_mb=table.table.nbytes / 1e6, accum_mb=table._accum.nbytes / 1e6,
+             loss_first=float(np.mean(losses[:k])), loss_last=float(np.mean(losses[-k:])),
+             graph_eager_bit_equal=bit_equal, push_count=g["push_count"],
+             step_ms={p: statistics.median(runs[p]["step_ms"][1:]) for p in runs},
+             gather_ms_median=statistics.median(pulls_ms),
+             push_ms_median=statistics.median(pushes_ms), push_parts_ms=push_parts,
+             device_busy_ms_per_step=busy,
+             idle_share_profiled=(max(0.0, 1 - busy * HOST_PROFILED_STEPS / (wall * 1e3))
+                                  if busy is not None else None),
+             run_fused_refused=refused, graphs_captured=captures,
+             multi_tensor_update_launches={p: runs[p]["launches"] for p in runs},
+             save_all_s=save_s, load_all_s=load_s, save_load_round_trip=round_trip,
+             step1_card_vs_cpu=gaps)
+    host_table.drop_table(name)
+    if not bit_equal:
+        raise SystemExit(f"ctr host table B{batch}: graph and eager parted")
+    if not (g["push_count"] == e["push_count"] == steps):
+        raise SystemExit(f"ctr host table: push_count {g['push_count']}, {e['push_count']}")
+    if refused is None or "host-table pulls/pushes (PS schedule)" not in refused:
+        raise SystemExit(f"ctr host table: run_fused was not refused for the JAX reason: "
+                         f"{refused}")
+    if not round_trip:
+        raise SystemExit("ctr host table: save_all / load_all did not round-trip")
+    if not all(runs[p]["launches"] == steps for p in runs):
+        raise SystemExit(f"ctr host table: multi_tensor_update launches "
+                         f"{r['multi_tensor_update_launches']}, expected {steps} a path")
+    if not all(np.isfinite(losses)):
+        raise SystemExit("ctr host table: a loss is not finite")
+    if not (gaps["loss_rel_gap"] <= CTR_LOSS_REL and gaps["update_rel_l1_gap"] <= CTR_UPDATE_REL):
+        raise SystemExit(f"ctr host table step 1: card vs CPU {gaps} exceeds the limits")
+    return r
+
+
+def phase_stream_and_host_table(torch, workdir, deepfm_step_ms=None):
+    """Phase 20: A (DeepFM from a stream, preempted and resumed) and B
+    (``examples/ctr_deepfm.py``'s program at its constants and at A's
+    scale)."""
+    import paddle_tpu_torch as pt
+    t0 = time.perf_counter()
+    a = _stream_resume(torch, pt, workdir, deepfm_step_ms)
+    torch.cuda.empty_cache()
+    b1 = _ctr_host(torch, pt, workdir, **CTR_EXAMPLE)
+    b2 = _ctr_host(torch, pt, workdir, **CTR_AT_SCALE, profile=True)
+    emit("ctr_host_table", example=b1, at_scale=b2)
+    if not b1["loss_last"] < b1["loss_first"]:
+        raise SystemExit(f"ctr host table at the example's constants: the loss does not "
+                         f"fall: {b1['loss_first']} -> {b1['loss_last']}")
+    emit("stream_and_host_table", seconds=time.perf_counter() - t0)
+    return a, b1, b2
+
+
 def phase_main_path(torch, workdir):
     """The serving path (phase 4)."""
     from paddle_tpu_torch.inference import Predictor
@@ -4523,6 +4991,7 @@ def main() -> int:
 
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.models.bert import BertConfig
+    from paddle_tpu_torch.ops import host_table
     from paddle_tpu_torch.tools.train_profile import (LR, MASKS_PER_SEQ, NMT_SEQ, SEQ,
                                                       build_deepfm, build_mnist, build_pretrain,
                                                       build_resnet50, build_transformer, lamb,
@@ -4563,8 +5032,13 @@ def main() -> int:
                                           SEQ, MASKS_PER_SEQ, LR, SEED, optimizer=lamb)[0],
                                        "lamb"),
                                       ("resnet50 lars", build_resnet50(optimizer=lars)[0],
-                                       "lars_momentum")] + book_update_lists(chapters))
-    mres, normed_mres, book_mres = mres[:5], mres[5:7], mres[7:]
+                                       "lars_momentum"),
+                                      ("ctr_deepfm host table",
+                                       build_ctr_host(pt, CTR_EXAMPLE["vocab"],
+                                                      name="ctr_table_phase9")[0], "adam")]
+                                     + book_update_lists(chapters))
+    host_table.drop_table("ctr_table_phase9")
+    mres, normed_mres, mt_host, book_mres = mres[:5], mres[5:7], mres[7], mres[8:]
     del bert_prog
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
     try:
@@ -4613,6 +5087,13 @@ def main() -> int:
     surf_l = {"pipeline_bert_training": surf_a["launches"]["graph"],
               "amp_transformer_training": surf_b["launches"]["graph"],
               "penalty_vgg16_training": surf_c["launches"]["graph"]}
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
+    try:
+        stream_a, host_b1, host_b2 = phase_stream_and_host_table(
+            torch, workdir, ctr["summary"]["graph_step_ms"])
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     book_launches = {c["chapter"]: c["train_launches"] for c in book_chapters}
     e2e_launches = e2e["epochs"]["prefetch"]["multi_tensor_update_launches"]
     ctr_launches = ctr["launches"]["graph"]["multi_tensor_update"]
@@ -4659,7 +5140,15 @@ def main() -> int:
                 **{f"mnist_{r['optimizer']}": (r["kind"], r["multi_tensor_update_launches"]["graph"])
                    for r in opt_d if r["kind"] is not None},
                 **{k: ("adam", v["multi_tensor_update"]) for k, v in surf_l.items()},
-                "amp_loss_scaling_mnist": ("sgd", surf_b2["multi_tensor_update_launches"]["graph"])}
+                "amp_loss_scaling_mnist": ("sgd", surf_b2["multi_tensor_update_launches"]["graph"]),
+                "stream_deepfm_uninterrupted":
+                    ("adam", stream_a["uninterrupted"]["multi_tensor_update_launches"]),
+                "stream_deepfm_preempted_and_resumed":
+                    ("adam", stream_a["preempted"]["multi_tensor_update_launches"]
+                     + stream_a["resumed"]["multi_tensor_update_launches"]),
+                **{f"host_table_ctr_{label}_{p}": ("adam", r["multi_tensor_update_launches"][p])
+                   for label, r in (("example", host_b1), ("at_scale", host_b2))
+                   for p in ("graph", "eager")}}
     kind_rows = {"adam": mt_bert, "momentum": mt_res, "sgd": mt_mnist,
                  "lamb": normed_mres[0], "lars_momentum": normed_mres[1]}
     # each kind's launches: its calls on the paths times the launches of a call
@@ -4780,7 +5269,7 @@ def main() -> int:
                            "kind's kernel launches a call, counted in phase 9's trace, and "
                            "its kernel launches on the paths"),
          "kinds": kinds,
-         "max_abs_err": max(r["max_abs_err"] for r in mres + normed_mres + book_mres),
+         "max_abs_err": max(r["max_abs_err"] for r in mres + normed_mres + [mt_host] + book_mres),
          **{k: mt_bert[k] for k in keys}, "library": mt_bert["library"],
          "shape": (f"BERT-base's {mt_bert['tensors']} Adam parameters, "
                    f"{mt_bert['elements']} elements, bf16 and f32, f32 moments"),
@@ -4790,6 +5279,10 @@ def main() -> int:
          "deepfm": {**{k: mt_ctr[k] for k in keys}, "library": mt_ctr["library"],
                     "shape": (f"DeepFM's {mt_ctr['tensors']} Adam parameters, "
                               f"{mt_ctr['elements']} elements, f32")},
+         "ctr_host_table": {**{k: mt_host[k] for k in keys}, "library": mt_host["library"],
+                            "shape": (f"ctr_deepfm's {mt_host['tensors']} dense Adam "
+                                      f"parameters (the table is on the host), "
+                                      f"{mt_host['elements']} elements, f32")},
          "mnist": {**{k: mt_mnist[k] for k in keys}, "library": mt_mnist["library"],
                    "shape": (f"the MNIST MLP's {mt_mnist['tensors']} SGD parameters, "
                              f"{mt_mnist['elements']} elements, f32")},
@@ -4838,6 +5331,18 @@ def main() -> int:
                                  "penalty": surf_c["losses"]["graph"],
                                  "graph_pool_gb": max(surf_c["graph_pool_gb"])},
         "double_grad_cases_on_card": {c["case"]: c["max_abs_err"] for c in surf_d["cases"]},
+        "stream_step_ms": {"guarded_captured_median": stream_a["uninterrupted"]["step_ms_median"],
+                           "deepfm_from_feeds_graph": stream_a["deepfm_from_feeds_graph_step_ms"],
+                           "records_per_s": stream_a["uninterrupted"]["records_per_s"],
+                           "idle_share_resumed": stream_a["resumed"]["idle_share_profiled"],
+                           "restore_s": stream_a["resumed"]["restore_s"]},
+        "resume_bit_equal": stream_a["resume_bit_equal"],
+        "host_table_push_ms": {"at_scale": host_b2["push_ms_median"],
+                               "at_scale_parts": host_b2["push_parts_ms"],
+                               "at_scale_gather": host_b2["gather_ms_median"],
+                               "example": host_b1["push_ms_median"],
+                               "at_scale_step_ms": host_b2["step_ms"],
+                               "at_scale_idle_share": host_b2["idle_share_profiled"]},
         "op_cases_on_card": {k: op_card[k] for k in ("cases", "op_types", "grads",
                                                      "forward_max_abs_err", "grad_max_abs_err")},
         "deepfm_serving_ms": {str(q["batch"]): q["ms"] for q in ctr["serving"]["requests"]},

@@ -34,5 +34,7 @@ from . import reader  # noqa: F401
 from .reader import DataFeeder, DataLoader, PyReader  # noqa: F401
 from . import incubate  # noqa: F401
 from . import dataset  # noqa: F401
+from . import resilience  # noqa: F401  (fault injection + step recovery)
+from . import utils  # noqa: F401  (clock, fs, checkpointer)
 
 __version__ = "0.1.0"

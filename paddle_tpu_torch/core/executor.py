@@ -47,6 +47,20 @@ it runs eagerly on the card, and its first run warns why
 (``capture_refusal``). A failed capture or replay raises.
 ``run_fused`` runs K steps as K replays. ``close()`` drops the graphs.
 
+A program with host-table lookups (``ops/host_table.py``) runs the
+parameter-server schedule around its step, as the JAX executor's hoisting
+does (``_hoisted``): the pulls are host gathers whose rows enter the step as
+feeds, the row gradients are extra fetches pushed to the tables on the host
+after it. Such a program runs unfused (``_fuse_ineligible``). An eval run
+with ``use_prune=True`` pulls only what the pruned program reads and pushes
+nothing.
+
+Fault sites (``resilience/faults.py``): ``dispatch`` before a step,
+``fetch`` after it, ``compile`` before a graph's capture; disarmed, each
+costs one attribute read. The tensor-health watchdog
+(``observability/health.py``) checks a step's fetches when
+``PADDLE_TPU_OBS_HEALTH`` is on.
+
 The device is explicit: ``Executor()`` runs on ``cuda`` and raises when there
 is no card. Pass ``CPUPlace()`` (or ``"cpu"``) to run on the CPU, where there
 are no graphs. On the card, float32 matmuls and convolutions run in full
@@ -67,7 +81,9 @@ import numpy as np
 import torch
 
 from ..framework import Block, Program, Variable, default_main_program
-from ..ops import multi_tensor
+from ..observability import health as _health
+from ..ops import host_table, multi_tensor
+from ..resilience import faults as _faults
 from . import graphs as cuda_graphs
 from . import registry
 from .registry import EMPTY_VAR, LowerCtx, stable_salt
@@ -187,6 +203,29 @@ def tensor_from_numpy(a, dtype_tag=None) -> torch.Tensor:
             raise TypeError(f"bfloat16 data must be 2 bytes per element, got {a.dtype}")
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(a)
+
+
+def assign_state(scope: Scope, name: str, value, copy: bool = True) -> None:
+    """Put ``value`` (tensor or numpy) under ``name``: into the tensor the
+    scope already holds, in place, when shape and dtype match -- a captured
+    CUDA graph reads that tensor at its address, so nothing is rebound and
+    nothing recaptured -- else bind it (a copy of it with ``copy``, so that
+    a later in-place update does not write the caller's value)."""
+    src = value if isinstance(value, torch.Tensor) else tensor_from_numpy(value)
+    cur = scope.find_var(name)
+    if isinstance(cur, torch.Tensor) and cur.shape == src.shape and cur.dtype == src.dtype:
+        with torch.no_grad():
+            cur.copy_(src)
+        return
+    scope.set_var(name, src.clone() if copy else src)
+
+
+def host_copy(value) -> torch.Tensor:
+    """A CPU tensor holding ``value`` (tensor or numpy), dtype kept, sharing
+    no memory with it: taken after the work queued on its device."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().to("cpu", copy=True)
+    return tensor_from_numpy(np.array(value, copy=True))
 
 
 def as_tensor(value, device: torch.device) -> torch.Tensor:
@@ -408,11 +447,16 @@ class SubBlockRunner:
 def capture_refusal(program: Program) -> Optional[str]:
     """Why ``program`` is not captured as a CUDA graph (None: it is),
     decided by op type before it runs: an op that draws from a host-seeded
-    generator would replay the captured run's numbers."""
+    generator would replay the captured run's numbers, and one that reads
+    or writes host memory (a host table's in-step pull or push) would not
+    run on a replay at all."""
     for blk in program.blocks:
         for op in blk.ops:
-            if registry.get(op.type).host_rng:
+            d = registry.get(op.type)
+            if d.host_rng:
                 return f"op {op.type!r} draws from a host-seeded generator"
+            if d.host_io:
+                return f"op {op.type!r} reads or writes host memory"
     return None
 
 
@@ -461,6 +505,8 @@ class Executor:
         self._cache: "collections.OrderedDict[tuple, _Step]" = collections.OrderedDict()
         # (program id, _version, fetches) -> (program, its pruned copy)
         self._prune_cache: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
+        # (program id, _version) -> (program, hoisted copy, pulls, pushes)
+        self._hoist_cache: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
         # the run counter on the card for eager runs (graphs have their own)
         self._counter = (torch.zeros((1,), dtype=torch.int64, device=self.device)
                          if self.device.type == "cuda" else None)
@@ -538,14 +584,81 @@ class Executor:
         program = program or default_main_program()
         fetch_names = self._fetch_names(fetch_list)
         scope = scope or global_scope()
+        label = f"{id(program)}:v{program._version}"
+        feed = dict(feed or {})
+        # the run counter stays the caller's program's across the hoisted
+        # copy (a restore or a retry sets that one); a pruned copy keeps its own
+        counted = program
+        _, hoisted, pulls, pushes = self._hoisted(program)
+        if pulls:
+            program = hoisted
         if use_prune and fetch_names:
-            program = self._pruned(program, list(feed or {}), fetch_names)
-        feeds = {k: as_tensor(v, self.device) for k, v in (feed or {}).items()}
-        counter = self._advance(program, 1)
+            program = counted = self._pruned(program, list(feed), fetch_names)
+        host_pushes = []
+        if pulls:
+            # only the pulls the (possibly pruned) program reads: an eval of
+            # an unrelated branch neither needs the ids nor pays the gather
+            consumed = set(fetch_names)
+            for op in program.global_block().ops:
+                consumed.update(op.input_arg_names())
+            feed = host_table.run_pulls([p for p in pulls if p[2] in consumed], feed)
+            # pushes train the tables: never on a pruned (eval) run
+            host_pushes = [] if use_prune else pushes
+        n_user = len(fetch_names)
+        if host_pushes:
+            fetch_names = fetch_names + [g for _, _, g, _ in host_pushes
+                                         if g not in fetch_names]
+        feeds = {k: as_tensor(v, self.device) for k, v in feed.items()}
+        counter = self._advance(counted, 1)
+        if _faults._active:
+            # before the launch: nothing ran, a retry is clean
+            _faults.fire("dispatch", counter, program=label)
         fetches, replayed = self._run_step(program, feeds, fetch_names, scope, counter)
+        if _faults._active:
+            _faults.fire("fetch", counter, program=label)
+            written = self._state_names(program, feeds, fetch_names)[1]
+            fetches = _faults.corrupt_step(counter, fetch_names, fetches,
+                                           {n: scope.find_var(n) for n in written},
+                                           program=label)
+        hmode = _health.mode()
+        if hmode != "off":
+            named = list(zip(fetch_names, fetches))[:n_user]
+            if _health.include_state():
+                written = self._state_names(program, feeds, fetch_names)[1]
+                named += [(n, scope.find_var(n)) for n in written]
+            _health.check(named, label, where="executor", health_mode=hmode)
+        if host_pushes:
+            fetched = dict(feed)
+            fetched.update(zip(fetch_names, fetches))
+            host_table.run_pushes(host_pushes, fetched)
+            fetches = fetches[:n_user]
         if return_numpy:
             return [to_numpy(f) for f in fetches]
         return [f.clone() for f in fetches] if replayed else fetches
+
+    def _hoisted(self, program: Program):
+        """``(program, hoisted copy, pulls, pushes)`` of ``hoist_host_pulls``,
+        cached by (id, version): the step path, ``_fuse_ineligible`` and the
+        graph cache (keyed by the hoisted copy) share one hoist a version."""
+        key = (id(program), program._version)
+        entry = self._hoist_cache.get(key)
+        if entry is None or entry[0] is not program:
+            entry = (program,) + host_table.hoist_host_pulls(program)
+            self._hoist_cache[key] = entry
+            while len(self._hoist_cache) > self._CACHE_CAP:
+                self._hoist_cache.popitem(last=False)
+        else:
+            self._hoist_cache.move_to_end(key)
+        return entry
+
+    def _fuse_ineligible(self, program: Program) -> Optional[str]:
+        """Why ``program`` cannot run fused (None: it can): a host-table
+        program keeps its pull, step, push schedule a step (the JAX reason),
+        and a program that is not captured has no graph to replay."""
+        _, _, pulls, pushes = self._hoisted(program)
+        if pulls or pushes:
+            return "host-table pulls/pushes (PS schedule)"
+        return capture_refusal(program)
 
     def _pruned(self, program: Program, feed_names, fetch_names) -> Program:
         """``program`` pruned to ``fetch_names``, cached by (id, version,
@@ -575,17 +688,17 @@ class Executor:
         warm-up and capture, as ``run``), with step i's feed copied in and
         counter0 + i written first; on the CPU the steps run eagerly.
 
-        Raises ValueError for a program that cannot be captured (why, as the
-        JAX ``_fuse_ineligible``), TypeError for anything but a ``Program``
-        (``CompiledProgram`` is not ported)."""
+        Raises ValueError for a program that cannot run fused (why:
+        ``_fuse_ineligible``, the JAX reasons), TypeError for anything but a
+        ``Program`` (``CompiledProgram`` is not ported)."""
         program = program or default_main_program()
         if not isinstance(program, Program):
             raise TypeError(f"run_fused takes a Program, got {type(program).__name__} "
                             f"(CompiledProgram is not ported)")
-        reason = capture_refusal(program)
+        reason = self._fuse_ineligible(program)
         if reason is not None:
             raise ValueError(f"run_fused: program cannot run fused ({reason}); run it "
-                             f"unfused (Executor.run)")
+                             f"unfused (fuse_steps=1 / Executor.run)")
         fetch_names = self._fetch_names(fetch_list)
         scope = scope or global_scope()
         if stacked_feed is not None:
@@ -603,6 +716,9 @@ class Executor:
                             return_numpy=return_numpy)
             return [v[None] for v in vals]
         counter0 = self._advance(program, k)
+        label = f"{id(program)}:v{program._version}"
+        if _faults._active:
+            _faults.fire("dispatch", counter0, program=label)
         stacked: List[torch.Tensor] = []
         for i, step in enumerate(steps):
             feeds_t = {n: as_tensor(v, self.device) for n, v in step.items()}
@@ -611,6 +727,12 @@ class Executor:
                 stacked = [f.new_empty((k,) + tuple(f.shape)) for f in fetches]
             for out, f in zip(stacked, fetches):
                 out[i].copy_(f)
+        if _faults._active:
+            _faults.fire("fetch", counter0, program=label)
+        hmode = _health.mode()
+        if hmode != "off":
+            _health.check(list(zip(fetch_names, stacked)), label, where="executor",
+                          health_mode=hmode)
         if return_numpy:
             return [to_numpy(t) for t in stacked]
         return stacked
@@ -718,9 +840,9 @@ class Executor:
 
         ``fuse_steps=K`` > 1 runs each K batches as one ``run_fused`` call
         (stacked in the worker); the trailing partial group runs unfused. A
-        program that cannot be captured (``capture_refusal``) warns and runs
-        unfused. ``fuse_steps=0`` (the JAX package's autotuner) is not
-        ported. Fetches stay on the device: they are read to the host only
+        program that cannot run fused (``_fuse_ineligible``: not captured, or
+        host-table pulls and pushes) warns and runs unfused. ``fuse_steps=0``
+        (the JAX package's autotuner) is not ported. Fetches stay on the device: they are read to the host only
         at the ``debug`` print boundaries (every ``print_period`` batches,
         one read per chunk that crosses one) and at the return. Returns the
         last step's fetches (numpy, or tensors with ``return_numpy=False``),
@@ -742,7 +864,7 @@ class Executor:
                 "not ported yet (ROADMAP queue 1, item 5); pass fuse_steps=K")
         prog = program or default_main_program()
         if k > 1:
-            reason = capture_refusal(prog)
+            reason = self._fuse_ineligible(prog)
             if reason is not None:
                 warnings.warn(f"train_from_dataset(fuse_steps={k}): program cannot run "
                               f"fused ({reason}); running unfused", stacklevel=2)
@@ -837,6 +959,9 @@ class Executor:
             return cuda_graphs.warm_up(self.device, lambda: self._eager(
                 program, feeds, fetch_names, scope, counter, self._counter)), False
         if step.graph is None:
+            if _faults._active:
+                # before the capture: nothing is cached yet, a retry recaptures
+                _faults.fire("compile", counter, program=f"{id(program)}:v{program._version}")
             self._capture(step, program, feeds, fetch_names, scope)
         elif not self._guard(step, scope):
             # the scope's state changed shape or dtype: a new executable

@@ -171,7 +171,7 @@ class OpDef:
     def __init__(self, type: str, lower: Callable, infer_shape: Optional[Callable] = None,
                  grad: Any = "auto", nondiff_inputs: Sequence[str] = (),
                  nondiff_outputs: Sequence[str] = (), state_inputs: Sequence[str] = (),
-                 host_rng: bool = False, remat: bool = False):
+                 host_rng: bool = False, remat: bool = False, host_io: bool = False):
         self.type = type
         self.lower = lower
         self.custom_infer_shape = infer_shape
@@ -188,13 +188,18 @@ class OpDef:
         # never keeps its forward graph (``forwards_with_grads``): its generic
         # grad op recomputes it under autograd (``remat_segment``)
         self.remat = remat
+        # reads or writes host memory through its inputs' values (a host
+        # table's pull or push): a copy to the host inside the step, so a
+        # program holding such an op is not captured as a graph
+        self.host_io = host_io
 
 
 _REGISTRY: Dict[str, OpDef] = {}
 
 
 def register(type: str, *, grad="auto", nondiff_inputs=(), nondiff_outputs=(),
-             infer_shape=None, state_inputs=(), host_rng=False, remat=False):
+             infer_shape=None, state_inputs=(), host_rng=False, remat=False,
+             host_io=False):
     """Decorator: register ``fn(ctx, ins) -> outs`` as the lowering for ``type``
     (``infer_shape(op, block)`` replaces the meta-tensor inference)."""
 
@@ -202,7 +207,7 @@ def register(type: str, *, grad="auto", nondiff_inputs=(), nondiff_outputs=(),
         if type in _REGISTRY:
             raise ValueError(f"op type {type!r} already registered")
         _REGISTRY[type] = OpDef(type, fn, infer_shape, grad, nondiff_inputs,
-                                nondiff_outputs, state_inputs, host_rng, remat)
+                                nondiff_outputs, state_inputs, host_rng, remat, host_io)
         return fn
 
     return deco

@@ -1,5 +1,6 @@
 """Datasets over MultiSlot text files: ``InMemoryDataset``, ``QueueDataset``
-and ``DatasetFactory`` (the port's copy of ``paddle_tpu/dataset_factory.py``).
+and ``DatasetFactory`` (the port's copy of ``paddle_tpu/dataset_factory.py``;
+``create_dataset("StreamingDataset")`` returns ``data/streaming.py``'s).
 
 One sample per line, slots separated by ``;``, values by spaces, in the
 order of ``set_use_var`` (``incubate/data_generator.py`` writes this
@@ -504,7 +505,7 @@ class DatasetFactory:
         if datafeed_class == "QueueDataset":
             return QueueDataset()
         if datafeed_class == "StreamingDataset":
-            raise NotImplementedError(
-                "StreamingDataset (paddle_tpu/data/streaming.py) is not ported yet: "
-                "ROADMAP queue 1, item 4, with resilience/")
+            # imported here: a run that never streams loads no reader machinery
+            from .data import StreamingDataset
+            return StreamingDataset()
         raise ValueError(f"unknown dataset class {datafeed_class!r}")

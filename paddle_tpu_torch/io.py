@@ -18,8 +18,18 @@ package loads in the other:
 optimizer moments and counters, metric state); ``filename`` names the
 manifest. The port reads and writes bf16 by reinterpreting bits in torch (no
 numpy bfloat16). It writes single-process saves, one chunk per variable;
-sharded (multi-chunk) variables and multi-process saves raise when loaded,
-and ``Checkpointer`` is not ported yet.
+sharded (multi-chunk) variables and multi-process saves raise when loaded.
+
+A load writes into the tensor the scope already holds under a name, in place,
+when its shape and dtype match (the executor's captured CUDA graphs read the
+scope's tensors at fixed addresses, so a restore costs no recapture); any
+other value is bound as a CPU tensor that the executor moves to its device
+at the next run.
+
+``snapshot_persistables`` and ``write_snapshot`` split a save in two for
+``utils/checkpointer.py``'s async saves: the copy to the host in the
+caller's thread, the writing on another. ``verify_checkpoint`` checks a
+directory's chunks against the manifest's sizes and crc32s.
 """
 from __future__ import annotations
 
@@ -32,8 +42,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from .core.executor import global_scope, tensor_from_numpy
+from .core.executor import assign_state, global_scope, tensor_from_numpy
 from .framework import Parameter, Program, Variable, default_main_program
+from .utils import fs as _fsio
 
 FORMAT_VERSION = 2
 MANIFEST = "__manifest__.json"
@@ -41,30 +52,58 @@ MODEL = "__model__.json"
 
 
 class CheckpointCorruption(RuntimeError):
-    """A chunk file failed its recorded size/crc32 check."""
+    """A chunk file failed its recorded size/crc32 check; ``kind`` is
+    ``size`` or ``crc``."""
+
+    def __init__(self, msg: str, kind: str = "crc", path: str = ""):
+        super().__init__(msg)
+        self.kind = kind
+        self.path = path
 
 
-def _storage_view(t: torch.Tensor):
-    """tensor -> (numpy array to store, dtype tag); bf16 goes as uint16 bits."""
-    t = t.detach().cpu()
+def _storage_view(t: torch.Tensor, copy: bool = False):
+    """tensor -> (numpy array to store, dtype tag); bf16 goes as uint16 bits.
+    ``copy``: the array never shares memory with ``t`` (a CPU tensor that a
+    later step updates in place)."""
+    t = t.detach()
+    t = t.clone() if copy and t.device.type == "cpu" else t.cpu()
     if t.dtype == torch.bfloat16:
         return t.contiguous().view(torch.int16).numpy().view(np.uint16), "bfloat16"
     a = t.numpy()
     return a, str(a.dtype)
 
 
-def _save_var(dirname, name, value):
+def _snapshot_var(name, value, copy: bool = True):
+    """Phase 1 of a save: the host copy of one variable, as a manifest entry
+    whose one chunk carries its array (``data``). ``copy=False`` lets the
+    array share a CPU tensor's memory (a save that writes it at once)."""
     arr, dtype = _storage_view(value if isinstance(value, torch.Tensor)
-                               else tensor_from_numpy(value))
-    fname = name.replace("/", "__") + ".npy"
-    buf = _pyio.BytesIO()
-    np.save(buf, np.ascontiguousarray(arr), allow_pickle=False)
-    data = buf.getvalue()
-    with open(os.path.join(dirname, fname), "wb") as f:
-        f.write(data)
+                               else tensor_from_numpy(value), copy=copy)
     return {"name": name, "dtype": dtype, "shape": list(arr.shape),
-            "chunks": [{"file": fname, "index": [[0, s] for s in arr.shape],
-                        "bytes": len(data), "crc32": zlib.crc32(data)}]}
+            "chunks": [{"file": name.replace("/", "__") + ".npy", "data": arr,
+                        "index": [[0, s] for s in arr.shape]}]}
+
+
+def _write_snap(dirname, snap):
+    """Phase 2 of a save: write a snapshot entry's chunk, recording the byte
+    size and crc32 of the serialized ``.npy``. Returns (manifest entry,
+    bytes written)."""
+    chunks, nbytes = [], 0
+    for ch in snap["chunks"]:
+        buf = _pyio.BytesIO()
+        np.save(buf, np.ascontiguousarray(ch["data"]), allow_pickle=False)
+        data = buf.getvalue()
+        _fsio.write_bytes(_fsio.join(dirname, ch["file"]), data)
+        chunks.append({"file": ch["file"], "index": ch["index"],
+                       "bytes": len(data), "crc32": zlib.crc32(data)})
+        nbytes += len(data)
+    entry = {k: v for k, v in snap.items() if k != "chunks"}
+    entry["chunks"] = chunks
+    return entry, nbytes
+
+
+def _save_var(dirname, name, value):
+    return _write_snap(dirname, _snapshot_var(name, value, copy=False))[0]
 
 
 def _load_var(dirname, meta) -> torch.Tensor:
@@ -79,11 +118,21 @@ def _load_var(dirname, meta) -> torch.Tensor:
     with open(path, "rb") as f:
         data = f.read()
     want, crc = ch.get("bytes"), ch.get("crc32")
+    kind = None
     if want is not None and len(data) != want:
-        raise CheckpointCorruption(f"chunk {path} is {len(data)} bytes, manifest says {want}")
-    if crc is not None and zlib.crc32(data) != crc:
-        raise CheckpointCorruption(f"chunk {path} has crc32 {zlib.crc32(data)}, "
-                                   f"manifest says {crc}")
+        kind, detail = "size", f"{len(data)} bytes, manifest says {want}"
+    elif crc is not None and zlib.crc32(data) != crc:
+        kind, detail = "crc", f"crc32 {zlib.crc32(data)}, manifest says {crc}"
+    if kind is not None:
+        from .observability import journal
+        from .observability.metrics import REGISTRY
+        REGISTRY.counter("checkpoint_corruption_total",
+                         "corrupt checkpoint chunks detected, by kind", kind=kind).inc()
+        journal.emit({"event": "ckpt_corrupt", "kind": kind, "file": str(path),
+                      "var": meta["name"], "detail": detail})
+        raise CheckpointCorruption(f"checkpoint chunk {path} for var {meta['name']!r} is "
+                                   f"corrupt ({detail}); refusing to restore it",
+                                   kind=kind, path=str(path))
     arr = np.load(_pyio.BytesIO(data), allow_pickle=False)
     if list(arr.shape) != shape:
         raise CheckpointCorruption(f"chunk {path} holds shape {list(arr.shape)}, "
@@ -143,11 +192,138 @@ def save_persistables(executor, dirname, main_program=None, filename=None) -> in
                      filename=filename)
 
 
+def snapshot_persistables(main_program=None, scope=None) -> dict:
+    """Phase 1 of an async checkpoint save: host copies of every persistable
+    variable of ``main_program`` in ``scope`` (default the global one),
+    taken in the calling thread (a tensor on the card is copied after the
+    work queued before it). The copies share no memory with the scope, so
+    the next step's in-place update does not reach them. Returns an opaque
+    snapshot for :func:`write_snapshot`."""
+    main_program = main_program or default_main_program()
+    scope = scope or global_scope()
+    entries = []
+    for v in main_program.list_vars():
+        if not _is_persistable(v):
+            continue
+        value = scope.find_var(v.name)
+        if value is None:
+            raise RuntimeError(f"variable {v.name!r} has no value in scope; "
+                               f"run the startup program before saving")
+        entries.append(_snapshot_var(v.name, value))
+    return {"rank": 0, "nranks": 1, "entries": entries}
+
+
+def write_snapshot(snapshot, dirname, filename=None) -> int:
+    """Phase 2 of an async checkpoint save: write a
+    :func:`snapshot_persistables` snapshot's chunks and manifest into
+    ``dirname`` (host work only: no tensor is touched). Returns the chunk
+    bytes written."""
+    _fsio.makedirs(dirname, exist_ok=True)
+    manifest, nbytes = [], 0
+    for snap in snapshot["entries"]:
+        entry, n = _write_snap(dirname, snap)
+        manifest.append(entry)
+        nbytes += n
+    with _fsio.open_file(_fsio.join(dirname, filename or MANIFEST), "w") as f:
+        json.dump({"vars": manifest, "nranks": snapshot["nranks"],
+                   "format_version": FORMAT_VERSION}, f)
+    return nbytes
+
+
+def _read_manifest_docs(dirname, filename):
+    """All rank manifests of one checkpoint: (head, [(rank, doc), ...])."""
+    base = _fsio.join(dirname, filename or MANIFEST)
+    if not _fsio.exists(base):
+        raise FileNotFoundError(f"no checkpoint manifest at {base}")
+    with _fsio.open_file(base) as f:
+        head = json.load(f)
+    docs = []
+    for r in range(head.get("nranks", 1)):
+        p = base if r == 0 else f"{base}.rank{r}"
+        if not _fsio.exists(p):
+            raise FileNotFoundError(
+                f"checkpoint at {dirname} was saved by {head.get('nranks')} processes "
+                f"but rank {r}'s manifest {p} is missing")
+        with _fsio.open_file(p) as f:
+            docs.append((r, head if r == 0 else json.load(f)))
+    return head, docs
+
+
+def verify_checkpoint(dirname, filename=None, level: str = "crc") -> dict:
+    """Integrity report for one checkpoint directory, saved by either
+    package. ``level="size"`` checks that every chunk the manifests list
+    exists at its recorded byte size; ``level="crc"`` reads each and checks
+    its crc32 too. Never raises: a manifest that does not parse becomes a
+    ``manifest`` entry. Per-chunk ``status``: ``ok``, ``missing``,
+    ``size_mismatch``, ``crc_mismatch`` or ``unverified`` (a pre-v2
+    manifest without sizes, counted as passing). ``ok`` is the verdict
+    ``Checkpointer`` trusts."""
+    if level not in ("size", "crc"):
+        raise ValueError(f"level must be 'size' or 'crc', got {level!r}")
+    report = {"dir": str(dirname), "level": level, "ok": True,
+              "format_version": None, "nranks": None, "chunks": []}
+
+    def bad(status, **kw):
+        report["ok"] = False
+        report["chunks"].append(dict(status=status, **kw))
+
+    try:
+        head, docs = _read_manifest_docs(dirname, filename)
+    except (OSError, ValueError, KeyError, TypeError) as e:
+        bad("manifest", rank=None, var=None, file=None, detail=f"{type(e).__name__}: {e}")
+        return report
+    report["format_version"] = head.get("format_version", 1)
+    report["nranks"] = head.get("nranks", 1)
+    for rank, doc in docs:
+        try:
+            recs = [({"rank": rank, "var": m.get("name"), "file": ch["file"]}, ch)
+                    for m in doc["vars"] for ch in (m.get("chunks") or [])]
+        except (KeyError, TypeError, AttributeError) as e:
+            bad("manifest", rank=rank, var=None, file=None,
+                detail=f"{type(e).__name__}: {e}")
+            continue
+        for rec, ch in recs:
+            path = _fsio.join(dirname, ch["file"])
+            try:
+                if not _fsio.exists(path):
+                    bad("missing", detail="chunk file missing", **rec)
+                    continue
+                want = ch.get("bytes")
+                if want is None:
+                    report["chunks"].append(dict(
+                        status="unverified", detail="pre-v2 manifest: no recorded "
+                                                    "size/crc", **rec))
+                    continue
+                if level == "size":
+                    got = _fsio.file_size(path)
+                    if got is not None and got != want:
+                        bad("size_mismatch", detail=f"{got} bytes, manifest says {want}",
+                            **rec)
+                        continue
+                else:
+                    data = _fsio.read_bytes(path)
+                    if len(data) != want:
+                        bad("size_mismatch",
+                            detail=f"{len(data)} bytes, manifest says {want}", **rec)
+                        continue
+                    crc = ch.get("crc32")
+                    if crc is not None and zlib.crc32(data) != crc:
+                        bad("crc_mismatch",
+                            detail=f"crc32 {zlib.crc32(data)}, manifest says {crc}", **rec)
+                        continue
+            except (OSError, TypeError, ValueError) as e:
+                bad("missing", detail=f"{type(e).__name__}: {e}", **rec)
+                continue
+            report["chunks"].append(dict(status="ok", **rec))
+    return report
+
+
 def load_vars(executor, dirname, main_program=None, vars=None, predicate=None,
               filename=None):
     """Load ``vars`` (or the variables of ``main_program`` that satisfy
-    ``predicate``) from ``dirname`` into the global scope, as CPU tensors
-    (the executor moves them to its device at the next run). A variable the
+    ``predicate``) from ``dirname`` into the global scope: in place into
+    the tensor it holds when shape and dtype match, else as a CPU tensor
+    (the executor moves it to its device at the next run). A variable the
     save lacks, or one whose shape differs from the program's, raises. An
     int32 variable that the program declares int64 is widened to it: the
     JAX package runs with x64 off and saves its int64 state (the schedules'
@@ -176,7 +352,7 @@ def load_vars(executor, dirname, main_program=None, vars=None, predicate=None,
                                    f"{tuple(value.shape)} vs program {declared}")
         if var is not None and var.dtype == "int64" and value.dtype == torch.int32:
             value = value.long()
-        scope.set_var(name, value)
+        assign_state(scope, name, value)
 
 
 def load_params(executor, dirname, main_program=None, filename=None):

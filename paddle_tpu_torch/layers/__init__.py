@@ -33,7 +33,8 @@ from .control_flow import (Scan, equal, greater_equal, greater_than,  # noqa: F4
                            increment, less_equal, less_than, not_equal)
 from .rnn import gru_unit, lstm_unit, simple_gru, simple_lstm  # noqa: F401
 from .extras import (autoincreased_step_counter, crf_decoding,  # noqa: F401
-                     dynamic_gru, dynamic_lstm, expand_as, linear_chain_crf,
+                     dynamic_gru, dynamic_lstm, expand_as, host_embedding,
+                     linear_chain_crf,
                      logical_and, logical_not, logical_or, logical_xor, mse_loss, rank,
                      scatter_nd, scatter_nd_add, shard_index, strided_slice, sum)
 from .sequence import (sequence_conv, sequence_first_step,  # noqa: F401

@@ -2,7 +2,8 @@
 ``_seq_reverse``, ``_mask_padded``, ``linear_chain_crf``, ``crf_decoding``,
 ``sum``, the logical layers, ``shard_index``, ``mse_loss``, ``rank``,
 ``autoincreased_step_counter``, ``strided_slice``, ``scatter_nd_add``,
-``scatter_nd`` and ``expand_as`` from ``paddle_tpu/layers/extras.py``;
+``scatter_nd``, ``expand_as`` and ``host_embedding`` from
+``paddle_tpu/layers/extras.py``;
 reference: python/paddle/fluid/layers/nn.py linear_chain_crf:1589,
 crf_decoding:1650, dynamic_lstm:466, dynamic_gru:868).
 
@@ -212,4 +213,42 @@ def expand_as(x, target_tensor, name=None):
     helper.append_op("expand_as",
                      inputs={"X": [x], "target_tensor": [target_tensor]},
                      outputs={"Out": [out]})
+    return _var(helper, out)
+
+
+def host_embedding(input, size, name, optimizer="adagrad", learning_rate=0.05,
+                   dtype="float32", initializer=None, mmap_dir=None,
+                   async_updates=False, seed=0, row_shard_axis=None):
+    """Embedding lookup against a host-RAM (or memmapped) table, the path
+    for tables that outgrow the card (reference: the distributed lookup
+    table, transpiler/distribute_transpiler.py:1594).
+
+    The table is not a Program parameter: it lives on the host
+    (``ops/host_table.py``) and is updated there on each gradient push with
+    its own ``optimizer`` ('sgd' | 'adagrad') at ``learning_rate``. The
+    Program carries a [1]-float anchor parameter that hangs the push op in
+    the backward pass. ``name`` is required and process-global: it keys the
+    table for ``host_table.save_all`` and re-use across programs.
+    ``row_shard_axis`` (a table partitioned across processes) raises: it
+    comes with the distributed stack (ROADMAP item 13).
+    """
+    from ..initializer import Constant
+    from ..layer_helper import ParamAttr
+    from ..ops import host_table as ht
+
+    if row_shard_axis is not None:
+        raise NotImplementedError(
+            "host_embedding(row_shard_axis=...) partitions the table across processes, "
+            "which comes with the distributed stack (ROADMAP item 13)")
+    ht.create_table(name, size[0], size[1], optimizer=optimizer, lr=learning_rate,
+                    initializer=initializer, mmap_dir=mmap_dir,
+                    async_updates=async_updates, seed=seed)
+    helper = LayerHelper("host_embedding", name=name + ".anchor")
+    anchor = helper.create_parameter(
+        ParamAttr(name=name + ".anchor", initializer=Constant(0.0)), [1], "float32")
+    out = _out(helper, dtype)
+    helper.append_op("host_lookup_table",
+                     inputs={"Ids": [input], "Anchor": [anchor]},
+                     outputs={"Out": [out]},
+                     attrs={"table_name": name, "dtype": dtype, "shard_axis": None})
     return _var(helper, out)

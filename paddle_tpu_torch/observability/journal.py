@@ -26,6 +26,8 @@ _RING_MIN, _RING_MAX = 16, 1_048_576
 
 #: the spellings that turn a PADDLE_TPU_OBS* toggle on
 TRUTHY = ("1", "true", "yes", "on")
+#: the matching falsy spellings (unset or empty included)
+FALSY = ("0", "false", "no", "")
 
 
 def ring_capacity() -> int:
@@ -56,6 +58,25 @@ _rank_cache = None   # None: not computed; False: single process; int: this rank
 
 def env_truthy(name: str) -> bool:
     return os.environ.get(name, "").strip().lower() in TRUTHY
+
+
+def mode_env(name: str, modes=("off", "warn", "raise"), default="off",
+             truthy="warn") -> str:
+    """A mode environment variable with the shared toggle spellings (TRUTHY
+    -> ``truthy``, FALSY -> "off", unset -> ``default``); an unknown value
+    raises instead of silently weakening what the user asked for."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return default if default in modes else "off"
+    m = raw.strip().lower()
+    if m in TRUTHY:
+        m = truthy
+    elif m in FALSY:
+        m = "off"
+    if m not in modes:
+        raise ValueError(f"{name}={raw!r} invalid; use one of {modes} "
+                         f"(or a 0/1 toggle: 1 means {truthy})")
+    return m
 
 
 def enabled() -> bool:

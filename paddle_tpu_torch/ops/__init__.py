@@ -19,3 +19,4 @@ from . import beam_ops         # noqa: F401
 from . import control_flow     # noqa: F401
 from . import sequence_ops     # noqa: F401
 from . import ctc_crf_ops      # noqa: F401
+from . import host_table       # noqa: F401

@@ -304,15 +304,22 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    the run counter bit for bit to the uninterrupted run; step 1 against
    the CPU port; the guarded step ms beside phase 14's, the stream's
    records/s, the resumed run's idle share, the checkpoint's blocked and
-   write seconds, the restore's. B: ``examples/ctr_deepfm.py``'s program
+   write seconds, the restore's. Then the default merge (arrival order, the
+   JAX package's) preempted at step 6 and resumed to step 12: the batches
+   trained hold each record of a prefix of each file exactly once.
+   B: ``examples/ctr_deepfm.py``'s program
    (``host_embedding`` with Adagrad, 256-128, Adam) at the example's
    constants (vocabulary 20,000, B 512, 200 steps: the loss falls) and at
    A's scale (vocabulary 1,000,000, B 4096, 20 steps: a 64 MB table and its
    64 MB accumulator), eager and captured from one state: losses, dense
-   state, table and accumulator bit for bit, ``push_count``, ``run_fused``
-   refused with the JAX reason, ``save_all`` / ``load_all`` round-tripped,
+   state, table and accumulator bit for bit, ``push_count``, a third,
+   captured run under ``StepGuardian`` with a transient ``exc`` at
+   ``fetch`` (after the step: undone, then retried) bit for bit to the
+   clean one, ``run_fused`` refused with the JAX reason, ``save_all`` / ``load_all`` round-tripped,
    step 1 (the dense update and the table's) against the CPU port, the
-   host ms of the gather and the push a step, busy ms and idle share.
+   host ms of the gather and the push a step (the push's parts from
+   ``HostTable._apply``'s own spans, ``host_table_push_seconds``), busy ms
+   and idle share.
    Alone: ``python3 -c "import torch, chip_smoke as cs; cs.phase_build();
    cs.phase_stream_and_host_table(torch, 'build')"`` after ``mkdir -p
    build``;
@@ -4467,19 +4474,28 @@ def phase_training_surface(torch, constant_bert=None, constant_nmt=None):
 # (quarantined), then a preempt at step 20; the resume runs to step 40.
 STREAM_STEPS, STREAM_PREEMPT, STREAM_SAVE_EVERY = 40, 20, 8
 STREAM_FAULTS = "exc@dispatch:step=5;corrupt@parse:step=1000"
+# A's check of the default (arrival-order) merge: preempted, then resumed
+ARRIVAL_STEPS, ARRIVAL_PREEMPT = 12, 6
 # B: examples/ctr_deepfm.py's program (host_embedding + Adagrad, 256-128, Adam)
 # at the example's constants and at A's scale
 CTR_EXAMPLE = dict(vocab=20_000, batch=512, steps=200)
 CTR_AT_SCALE = dict(vocab=1_000_000, batch=4096, steps=20)
 HOST_FIELDS, HOST_DIM, HOST_DENSE = 26, 16, 13
 HOST_PROFILED_STEPS = 5
+HOST_FETCH_FAULT = "exc@fetch:step=3"
 
 
-def _hist_totals(name):
-    """(count, sum) of each mode of a histogram in the metrics registry."""
+def _hist_totals(name, key="mode", **match):
+    """(count, sum) of a histogram in the metrics registry by its ``key``
+    label, over the children whose labels include ``match``."""
     from paddle_tpu_torch.observability.metrics import REGISTRY
     fam = REGISTRY.get(name)
-    return {dict(k).get("mode", ""): (c.count, c.sum) for k, c in fam.items()} if fam else {}
+    out = {}
+    for k, c in (fam.items() if fam else ()):
+        labels = dict(k)
+        if all(labels.get(a) == b for a, b in match.items()):
+            out[labels.get(key, "")] = (c.count, c.sum)
+    return out
 
 
 def _hist_delta(before, after):
@@ -4495,6 +4511,84 @@ def _zero_launches():
     from paddle_tpu_torch.core import cuda_build
     for f in cuda_build.COUNTED:
         f.launches = 0
+
+
+def _arrival_resume(paths, use_vars, guarded, fresh, main, workdir):
+    """Path A's check of the default merge (arrival order, the JAX
+    package's): preempted at ``ARRIVAL_PREEMPT`` and resumed to
+    ``ARRIVAL_STEPS`` under the guardian, the batches the two runs trained
+    must hold each record of a prefix of each file exactly once. Its
+    batches differ from run to run (ROADMAP fault 3.15), so no state is
+    compared."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.data import FileTailSource, StreamingDataset
+    from paddle_tpu_torch.ops import multi_tensor
+    from paddle_tpu_torch.resilience import recovery
+    from paddle_tpu_torch.tools.train_profile import CTR_BATCH
+    from paddle_tpu_torch.utils.checkpointer import Checkpointer
+    steps, preempt = ARRIVAL_STEPS, ARRIVAL_PREEMPT
+
+    class Recorded(StreamingDataset):
+        def _iter_batches(self):
+            for feed in super()._iter_batches():
+                self.yielded.append(np.array(feed["ids"]))
+                yield feed
+
+    def make_ds(bound):
+        ds = Recorded()
+        ds.yielded = []
+        for p in paths:
+            ds.add_source(FileTailSource(p, name=os.path.basename(p)))
+        ds.set_use_var(use_vars)
+        ds.set_batch_size(CTR_BATCH)
+        ds.set_epoch_bound(steps=bound)
+        return ds
+    ck_dir = os.path.join(workdir, "ck_arrival")
+    _zero_launches()
+    scope_p, exe_p = fresh()
+    _, pre, _, ds_p, _ = guarded(ck_dir, f"preempt:step={preempt}", steps, scope_p, exe_p,
+                                 ds=make_ds(steps))
+    launches_p = multi_tensor.multi_tensor_update.launches
+    if pre is None:
+        raise SystemExit("stream A, arrival merge: the preempt fault did not preempt the run")
+    del scope_p, exe_p
+    recovery.clear_preemption()
+    scope_r, exe_r = fresh()
+    ck_r = Checkpointer(exe_r, main, ck_dir, save_interval_steps=STREAM_SAVE_EVERY,
+                        async_save=True)
+    with pt.scope_guard(scope_r):
+        restored = ck_r.restore()
+    ds_r = make_ds(steps - restored - 1)
+    ds_r.seek(ck_r.train_state["stream"])
+    _zero_launches()
+    _, pre_r, _, _, g_r = guarded(None, None, steps, scope_r, exe_r, ds=ds_r,
+                                  start=restored + 1, ck=ck_r)
+    ck_r.wait()
+    launches_r = multi_tensor.multi_tensor_update.launches
+    g_r.close()
+    # where each record lies: (file, line), keyed by its ids
+    where = {}
+    for k, p in enumerate(paths):
+        with open(p) as f:
+            vals = np.fromstring(f.read().replace(";", " "), sep=" ")
+        ids = vals.reshape(-1, 40)[:, :26].astype(np.int64)
+        where.update((row.tobytes(), (k, i)) for i, row in enumerate(ids))
+    trained = ds_p.yielded[:restored + 1] + ds_r.yielded
+    rows = [where.get(r.tobytes()) for b in trained for r in b]
+    per_file = [sorted(i for kk, i in rows if kk == k) for k in range(len(paths))]
+    r = dict(steps=steps, preempt_at=preempt, restored_step=restored,
+             records=len(rows), unknown=sum(x is None for x in rows),
+             distinct=len(set(rows)), per_file=[len(x) for x in per_file],
+             prefixes=all(x == list(range(len(x))) for x in per_file),
+             multi_tensor_update_launches=launches_p + launches_r)
+    r["exactly_once"] = (pre_r is None and r["unknown"] == 0 and r["prefixes"]
+                         and r["records"] == r["distinct"] == steps * CTR_BATCH)
+    if not r["exactly_once"]:
+        raise SystemExit(f"stream A, arrival merge: the resume dropped or replayed records: {r}")
+    if r["multi_tensor_update_launches"] != steps:
+        raise SystemExit(f"stream A, arrival merge: multi_tensor_update launched "
+                         f"{launches_p} + {launches_r} times, expected {steps}")
+    return r
 
 
 def _stream_resume(torch, pt, workdir, deepfm_step_ms=None):
@@ -4628,6 +4722,7 @@ def _stream_resume(torch, pt, workdir, deepfm_step_ms=None):
     differs = _state_equal(torch, final_r, final_u)
     resume_equal = not differs and main._rng_run_counter == counter_u
     hist_names = [n for n in names if n.startswith("auc")]
+    arrival = _arrival_resume(paths, use_vars, guarded, fresh, main, workdir)
 
     # step 1 against the CPU port, on the stream's first batch
     first = next(iter(make_ds(1)._iter_batches()))
@@ -4654,6 +4749,7 @@ def _stream_resume(torch, pt, workdir, deepfm_step_ms=None):
                           idle_share_profiled=max(0.0, 1 - busy_ms / (wall_r * 1e3))),
              resume_bit_equal=resume_equal, state_differs=len(differs),
              histograms_equal=all(torch.equal(final_r[n], final_u[n]) for n in hist_names),
+             arrival_merge=arrival,
              step1_card_vs_cpu=gaps)
     emit("stream_resume", **r)
     if pre_r is not None:
@@ -4710,35 +4806,11 @@ def ctr_host_feeds(vocab, batch, steps, fields=HOST_FIELDS, seed=SEED):
     return out
 
 
-def _push_parts_ms(table, ids, runs=3):
-    """Host ms of a push's three parts (``HostTable._apply``'s arithmetic)
-    on one step's ids and a gradient of their shape, on copies of the table
-    and its accumulator: ``np.unique``, ``np.add.at`` over the ids, the
-    Adagrad update of the unique rows (medians of ``runs``)."""
-    flat = ids.reshape(-1).astype(np.int64)
-    g = np.random.RandomState(SEED).randn(flat.size, table.dim).astype(np.float32)
-    tab, acc_sq = table.table.copy(), table._accum.copy()
-    parts = {"unique": [], "add_at": [], "update": []}
-    for _ in range(runs):
-        t0 = time.perf_counter()
-        uniq, inv = np.unique(flat, return_inverse=True)
-        t1 = time.perf_counter()
-        acc = np.zeros((len(uniq), table.dim), np.float32)
-        np.add.at(acc, inv, g)
-        t2 = time.perf_counter()
-        acc_sq[uniq] += acc * acc
-        tab[uniq] -= table.lr * acc / np.sqrt(acc_sq[uniq] + 1e-10)
-        t3 = time.perf_counter()
-        for k, a, b in (("unique", t0, t1), ("add_at", t1, t2), ("update", t2, t3)):
-            parts[k].append((b - a) * 1e3)
-    return dict({k: statistics.median(v) for k, v in parts.items()}, ids=int(flat.size),
-                unique_ids=int(len(uniq)))
-
-
 def _ctr_host(torch, pt, workdir, vocab, batch, steps, profile=False):
     """Path B of phase 20 at one size; ``profile``: trace a few captured
     steps for the device's busy time."""
     from paddle_tpu_torch.ops import host_table, multi_tensor
+    from paddle_tpu_torch.resilience import faults, recovery
     from paddle_tpu_torch.tools.train_profile import traced
     from torch.profiler import ProfilerActivity
     name = f"ctr_table_{vocab}"
@@ -4767,31 +4839,44 @@ def _ctr_host(torch, pt, workdir, vocab, batch, steps, profile=False):
         return wrapped
 
     runs = {}
-    for path in ("eager", "graph"):
+    for path in ("eager", "graph", "graph_fetch_fault"):
         host_table.load_all(t0_dir)
         scope = pt.Scope()
         for n, t in init.items():
             scope.set_var(n, t.clone())
         main._rng_run_counter = 0
         exe = pt.Executor()
-        exe._use_graphs = path == "graph"
+        exe._use_graphs = path != "eager"
+        step = exe.run
+        if path == "graph_fetch_fault":
+            # a transient fault after a captured step: the executor undoes
+            # the step's update before it raises, the guardian retries it
+            faults.install(HOST_FETCH_FAULT)
+            step = recovery.StepGuardian(exe, main, retry_backoff=0.001).run
         _zero_launches()
         losses, times = [], []
         if path == "graph":
             host_table.run_pulls = timed(real_pulls, pulls_ms)
             host_table.run_pushes = timed(real_pushes, pushes_ms)
+            parts0 = _hist_totals(host_table.PUSH_SECONDS, key="part", table=name)
         try:
             with pt.scope_guard(scope):
                 t_start = time.perf_counter()
                 for f in feeds:
-                    losses.append(exe.run(main, feed=f, fetch_list=[loss])[0])
+                    losses.append(step(main, feed=f, fetch_list=[loss])[0])
                     times.append(time.perf_counter())
         finally:
             host_table.run_pulls, host_table.run_pushes = real_pulls, real_pushes
+            fired = [f.fired for f in faults.active()]
+            faults.clear()
+        if path == "graph":
+            # HostTable._apply's own spans: the mean ms a push of each part
+            push_parts = {part: d["seconds_mean"] * 1e3 for part, d in _hist_delta(
+                parts0, _hist_totals(host_table.PUSH_SECONDS, key="part", table=name)).items()}
         step_ms = [(b - a) * 1e3 for a, b in zip([t_start] + times, times)]
         runs[path] = dict(losses=losses, state={n: scope.find_var(n).clone() for n in names},
                           table=table.table.copy(), accum=table._accum.copy(),
-                          push_count=table.push_count, step_ms=step_ms,
+                          push_count=table.push_count, step_ms=step_ms, fired=fired,
                           launches=multi_tensor.multi_tensor_update.launches)
         if path == "graph":
             refused = None
@@ -4812,11 +4897,15 @@ def _ctr_host(torch, pt, workdir, vocab, batch, steps, profile=False):
                 del prof
             captures = sum(s.graph is not None for s in exe._cache.values())
         exe.close()
-    g, e = runs["graph"], runs["eager"]
-    bit_equal = (all(np.array_equal(a, b) for a, b in zip(g["losses"], e["losses"]))
-                 and not _state_equal(torch, g["state"], e["state"])
-                 and np.array_equal(g["table"], e["table"])
-                 and np.array_equal(g["accum"], e["accum"]))
+    g, e, ff = runs["graph"], runs["eager"], runs["graph_fetch_fault"]
+
+    def same(a, b):
+        return (all(np.array_equal(x, y) for x, y in zip(a["losses"], b["losses"]))
+                and not _state_equal(torch, a["state"], b["state"])
+                and np.array_equal(a["table"], b["table"])
+                and np.array_equal(a["accum"], b["accum"]) and a["push_count"] == b["push_count"])
+    bit_equal = same(g, e)
+    retry_equal = same(ff, g) and ff["fired"] == [1]
 
     # save_all / load_all round trip
     host_table.load_all(t0_dir)
@@ -4842,7 +4931,6 @@ def _ctr_host(torch, pt, workdir, vocab, batch, steps, profile=False):
         ups[dev][1]["@table"] = torch.from_numpy(table.table - before)
     gaps = dict(_gaps(ups["cuda"], ups["cpu"]), loss_rel_limit=CTR_LOSS_REL,
                 update_rel_l1_limit=CTR_UPDATE_REL)
-    push_parts = _push_parts_ms(table, feeds[0]["ids"]) if profile else None
     losses = [float(np.asarray(x).reshape(-1)[0]) for x in g["losses"]]
     k = max(1, len(losses) // 8)
     r = dict(model=f"ctr_deepfm host_embedding({vocab} x {HOST_DIM}, adagrad 0.05) "
@@ -4850,6 +4938,7 @@ def _ctr_host(torch, pt, workdir, vocab, batch, steps, profile=False):
              steps=steps, table_mb=table.table.nbytes / 1e6, accum_mb=table._accum.nbytes / 1e6,
              loss_first=float(np.mean(losses[:k])), loss_last=float(np.mean(losses[-k:])),
              graph_eager_bit_equal=bit_equal, push_count=g["push_count"],
+             fetch_fault=HOST_FETCH_FAULT, fetch_fault_retry_bit_equal=retry_equal,
              step_ms={p: statistics.median(runs[p]["step_ms"][1:]) for p in runs},
              gather_ms_median=statistics.median(pulls_ms),
              push_ms_median=statistics.median(pushes_ms), push_parts_ms=push_parts,
@@ -4863,6 +4952,9 @@ def _ctr_host(torch, pt, workdir, vocab, batch, steps, profile=False):
     host_table.drop_table(name)
     if not bit_equal:
         raise SystemExit(f"ctr host table B{batch}: graph and eager parted")
+    if not retry_equal:
+        raise SystemExit(f"ctr host table B{batch}: the run with {HOST_FETCH_FAULT} retried "
+                         f"(fired {ff['fired']}) parted from the clean graph run")
     if not (g["push_count"] == e["push_count"] == steps):
         raise SystemExit(f"ctr host table: push_count {g['push_count']}, {e['push_count']}")
     if refused is None or "host-table pulls/pushes (PS schedule)" not in refused:
@@ -4870,9 +4962,11 @@ def _ctr_host(torch, pt, workdir, vocab, batch, steps, profile=False):
                          f"{refused}")
     if not round_trip:
         raise SystemExit("ctr host table: save_all / load_all did not round-trip")
-    if not all(runs[p]["launches"] == steps for p in runs):
+    # the faulted step launches twice: its undone attempt and its retry
+    if not (e["launches"] == g["launches"] == steps and ff["launches"] == steps + 1):
         raise SystemExit(f"ctr host table: multi_tensor_update launches "
-                         f"{r['multi_tensor_update_launches']}, expected {steps} a path")
+                         f"{r['multi_tensor_update_launches']}, expected {steps} a path "
+                         f"({steps + 1} with the fetch fault)")
     if not all(np.isfinite(losses)):
         raise SystemExit("ctr host table: a loss is not finite")
     if not (gaps["loss_rel_gap"] <= CTR_LOSS_REL and gaps["update_rel_l1_gap"] <= CTR_UPDATE_REL):
@@ -5146,9 +5240,11 @@ def main() -> int:
                 "stream_deepfm_preempted_and_resumed":
                     ("adam", stream_a["preempted"]["multi_tensor_update_launches"]
                      + stream_a["resumed"]["multi_tensor_update_launches"]),
+                "stream_deepfm_arrival_merge":
+                    ("adam", stream_a["arrival_merge"]["multi_tensor_update_launches"]),
                 **{f"host_table_ctr_{label}_{p}": ("adam", r["multi_tensor_update_launches"][p])
                    for label, r in (("example", host_b1), ("at_scale", host_b2))
-                   for p in ("graph", "eager")}}
+                   for p in ("graph", "eager", "graph_fetch_fault")}}
     kind_rows = {"adam": mt_bert, "momentum": mt_res, "sgd": mt_mnist,
                  "lamb": normed_mres[0], "lars_momentum": normed_mres[1]}
     # each kind's launches: its calls on the paths times the launches of a call
@@ -5337,6 +5433,9 @@ def main() -> int:
                            "idle_share_resumed": stream_a["resumed"]["idle_share_profiled"],
                            "restore_s": stream_a["resumed"]["restore_s"]},
         "resume_bit_equal": stream_a["resume_bit_equal"],
+        "resume_arrival_merge_exactly_once": stream_a["arrival_merge"]["exactly_once"],
+        "fetch_fault_retry_bit_equal": {"example": host_b1["fetch_fault_retry_bit_equal"],
+                                        "at_scale": host_b2["fetch_fault_retry_bit_equal"]},
         "host_table_push_ms": {"at_scale": host_b2["push_ms_median"],
                                "at_scale_parts": host_b2["push_parts_ms"],
                                "at_scale_gather": host_b2["gather_ms_median"],

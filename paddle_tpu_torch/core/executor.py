@@ -566,6 +566,34 @@ class Executor:
         program._rng_run_counter = counter + k
         return counter
 
+    def _undo_point(self, program, feed, fetch_names, scope, steps) -> Optional[dict]:
+        """Copies of the state the step writes, taken only while an ``exc``
+        fault may fire at ``fetch`` for one of ``steps`` (else None). The
+        step updates the scope in place, so a fault raised after it puts
+        this state back (``_fire_fetch``): the guardian's retry then starts
+        from the state before the step and applies its update once."""
+        if not any(_faults.may_raise("fetch", s) for s in steps):
+            return None
+        written = self._state_names(program, feed, fetch_names)[1]
+        return {n: (v.clone() if isinstance(v, torch.Tensor) else v)
+                for n in written for v in [scope.find_var(n)]}
+
+    @staticmethod
+    def _fire_fetch(steps, label, undo, scope) -> None:
+        """The ``fetch`` fault site of each of ``steps``; a fault it raises
+        first restores ``undo`` into the scope's tensors (in place: a
+        captured graph keeps reading them)."""
+        try:
+            for s in steps:
+                _faults.fire("fetch", s, program=label)
+        except BaseException:
+            for n, v in (undo or {}).items():
+                if v is None:
+                    scope.erase(n)
+                else:
+                    assign_state(scope, n, v, copy=False)
+            raise
+
     @staticmethod
     def _fetch_names(fetch_list) -> List[str]:
         return [v.name if isinstance(v, Variable) else str(v) for v in (fetch_list or [])]
@@ -610,12 +638,14 @@ class Executor:
                                          if g not in fetch_names]
         feeds = {k: as_tensor(v, self.device) for k, v in feed.items()}
         counter = self._advance(counted, 1)
+        undo = None
         if _faults._active:
             # before the launch: nothing ran, a retry is clean
             _faults.fire("dispatch", counter, program=label)
+            undo = self._undo_point(program, feeds, fetch_names, scope, [counter])
         fetches, replayed = self._run_step(program, feeds, fetch_names, scope, counter)
         if _faults._active:
-            _faults.fire("fetch", counter, program=label)
+            self._fire_fetch([counter], label, undo, scope)
             written = self._state_names(program, feeds, fetch_names)[1]
             fetches = _faults.corrupt_step(counter, fetch_names, fetches,
                                            {n: scope.find_var(n) for n in written},
@@ -717,8 +747,11 @@ class Executor:
             return [v[None] for v in vals]
         counter0 = self._advance(program, k)
         label = f"{id(program)}:v{program._version}"
+        substeps = [counter0 + i for i in range(k)]
+        undo = None
         if _faults._active:
             _faults.fire("dispatch", counter0, program=label)
+            undo = self._undo_point(program, steps[0], fetch_names, scope, substeps)
         stacked: List[torch.Tensor] = []
         for i, step in enumerate(steps):
             feeds_t = {n: as_tensor(v, self.device) for n, v in step.items()}
@@ -728,7 +761,18 @@ class Executor:
             for out, f in zip(stacked, fetches):
                 out[i].copy_(f)
         if _faults._active:
-            _faults.fire("fetch", counter0, program=label)
+            # as the JAX run_fused: each substep's fetch site, then its
+            # corruption, on its own row of the stacked fetches
+            self._fire_fetch(substeps, label, undo, scope)
+            written = self._state_names(program, steps[0], fetch_names)[1]
+            state = {n: scope.find_var(n) for n in written}
+            for i, c in enumerate(substeps):
+                rows = [t[i] for t in stacked]
+                for t, old, new in zip(stacked, rows,
+                                       _faults.corrupt_step(c, fetch_names, rows, state,
+                                                            program=label)):
+                    if new is not old:
+                        t[i].copy_(new)
         hmode = _health.mode()
         if hmode != "off":
             _health.check(list(zip(fetch_names, stacked)), label, where="executor",

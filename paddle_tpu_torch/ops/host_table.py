@@ -35,6 +35,7 @@ from __future__ import annotations
 import os
 import queue
 import threading
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -42,6 +43,11 @@ import torch
 
 from ..core.registry import register, torch_dtype
 from ..framework import grad_var_name
+from ..observability.metrics import REGISTRY as _OBS
+
+#: histogram of a push's parts (``np.unique``, ``np.add.at``, the update)
+#: in seconds, labelled ``table`` and ``part``
+PUSH_SECONDS = "host_table_push_seconds"
 
 _ONLINE = ("online publishing (export_delta, dirty-row tracking) calls online/, "
            "which is not ported; it moves behind the serving pool (ROADMAP item 10)")
@@ -165,12 +171,11 @@ class HostTable:
         """Wait for the queue to drain, polling worker liveness so a worker
         that dies mid-wait cannot hang the caller (queue.join() would block
         forever on the never-consumed remainder)."""
-        import time as _time
         while self._queue.unfinished_tasks:
             if self._worker_error is not None or self._worker is None \
                     or not self._worker.is_alive():
                 break
-            _time.sleep(0.001)
+            time.sleep(0.001)
 
     def flush(self):
         """Barrier: wait until all queued async pushes are applied."""
@@ -198,9 +203,12 @@ class HostTable:
         # Duplicate ids in one minibatch sum their contributions first (the
         # SelectedRows merge-add semantic) so the update matches the dense
         # scatter-add a device-side table would apply.
+        t0 = time.perf_counter()
         uniq, inv = np.unique(ids, return_inverse=True)
+        t1 = time.perf_counter()
         acc = np.zeros((len(uniq), self.dim), np.float32)
         np.add.at(acc, inv, g)
+        t2 = time.perf_counter()
         with self._lock:
             if self.optimizer == "adagrad":
                 self._accum[uniq] += acc * acc
@@ -209,6 +217,10 @@ class HostTable:
             else:
                 self.table[uniq] -= self.lr * acc
             self.push_count += 1
+        t3 = time.perf_counter()
+        for part, a, b in (("unique", t0, t1), ("add_at", t1, t2), ("update", t2, t3)):
+            _OBS.histogram(PUSH_SECONDS, "host-table push time by part", table=self.name,
+                           part=part).observe(b - a)
 
     # ---- online publishing ------------------------------------------------
     @property

@@ -234,6 +234,14 @@ def active() -> List[Fault]:
     return list(_active)
 
 
+def may_raise(site: str, step: Optional[int]) -> bool:
+    """Whether an armed ``exc`` fault could fire at ``site`` for ``step``.
+    Takes no draw from a ``prob`` fault's stream (one that may fire
+    counts), so asking leaves the faults that do fire unchanged."""
+    return any(f.kind == "exc" and f.site == site and not f.spent()
+               and (f.step is None or f.step == step) for f in _active)
+
+
 def install(spec: Union[str, Fault, Sequence[Fault]]) -> List[Fault]:
     """Arm faults from a spec string, a Fault, or a list of Faults
     (appends to whatever is already armed; ``clear()`` resets)."""

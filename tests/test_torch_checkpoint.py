@@ -264,6 +264,67 @@ def test_a_retried_dropout_step_draws_the_same_masks():
     assert cc == fc == 4 and (cr, fr) == (0, 1)
 
 
+@pytest.mark.parametrize("path", ["eager", "graph", "fused"])
+def test_a_fault_after_the_step_is_retried_on_the_state_before_it(path, request):
+    """``exc@fetch`` fires after the step has updated the scope in place:
+    the executor puts the state the step wrote back before it raises, so
+    the guardian's retry equals the clean run bit for bit (losses, state,
+    counter), with dropout 0.5, eagerly, on the CPU stand-in graph and
+    under ``run_fused`` (whose substeps each have their fetch site)."""
+    if path == "graph":
+        request.getfixturevalue("stand_in")
+    main, startup, loss = _mlp(pt, dropout=0.5)
+    init = _port_init(main, startup)
+    feeds = _feeds(4)
+    out = {}
+    for spec in (None, "exc@fetch:step=3"):
+        scope = _scope(init)
+        main._rng_run_counter = 0
+        if spec:
+            faults.install(spec)
+        r0 = REGISTRY.counter("step_retries_total", site="fetch").value
+        with pt.scope_guard(scope):
+            g = StepGuardian(pt.Executor(pt.CPUPlace()), main, retry_backoff=0.001)
+            if path == "fused":
+                losses = [g.run_fused(feeds=feeds[i:i + 2], fetch_list=[loss])[0]
+                          for i in (0, 2)]
+            else:
+                losses = [g.run(feed=f, fetch_list=[loss])[0] for f in feeds]
+        out[spec] = (losses, _state(scope, init), main._rng_run_counter,
+                     REGISTRY.counter("step_retries_total", site="fetch").value - r0)
+        faults.clear()
+    (cl, cs, cc, cr), (fl, fs, fc, fr) = out[None], out["exc@fetch:step=3"]
+    assert all(np.array_equal(a, b) for a, b in zip(cl, fl)) and not _equal(cs, fs)
+    assert cc == fc == 4 and (cr, fr) == (0, 1)
+
+
+def test_a_fetch_fault_retry_equals_the_jax_clean_run():
+    """The port's ``exc@fetch`` retry against the JAX package's run without
+    the fault, from the same state: losses ``rtol 1e-5``, state ``atol
+    5e-5``. (The JAX package's own retry of that fault raises: its step
+    donated the state buffers it did not commit, ROADMAP fault 3.17.)"""
+    jm, js, jl = _mlp(fluid)
+    tm, _, tl = _mlp(pt)
+    names = _names(tm)
+    feeds = _feeds(4)
+    jscope, jexe = fluid.Scope(), fluid.Executor()
+    with fluid.scope_guard(jscope):
+        jexe.run(js)
+        init = {n: np.asarray(jscope.find_var(n)) for n in names}
+        jl_ = [jexe.run(jm, feed=f, fetch_list=[jl])[0] for f in feeds]
+    scope = pt.Scope()
+    convert.load_state(scope, convert.state_from_numpy(init, device="cpu"))
+    with pt.scope_guard(scope):
+        faults.install("exc@fetch:step=2")
+        g = StepGuardian(pt.Executor(pt.CPUPlace()), tm, retry_backoff=0.001)
+        tl_ = [g.run(feed=f, fetch_list=[tl])[0] for f in feeds]
+    assert [f.fired for f in faults.active()] == [1] and tm._rng_run_counter == 4
+    np.testing.assert_allclose(tl_, jl_, rtol=1e-5)
+    for n in names:
+        np.testing.assert_allclose(scope.find_var(n).numpy(), np.asarray(jscope.find_var(n)),
+                                   atol=5e-5, err_msg=n)
+
+
 def test_the_skip_policy_drops_exactly_the_bad_update():
     main, startup, loss = _mlp(pt)
     init = _port_init(main, startup)
@@ -561,3 +622,61 @@ def test_preempt_restore_seek_resumes_a_tiny_deepfm_exactly(tmp_path, sources):
         for n in names:
             np.testing.assert_allclose(final_u[n].numpy(), np.asarray(jscope.find_var(n)),
                                        atol=5e-5, err_msg=n)
+
+
+class _Recorded(StreamingDataset):
+    """A ``StreamingDataset`` that keeps the ids of each batch it yields."""
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.yielded = []
+
+    def _iter_batches(self):
+        for feed in super()._iter_batches():
+            self.yielded.append(np.array(feed["ids"]))
+            yield feed
+
+
+def test_the_arrival_merge_resumes_without_dropping_or_replaying_a_record(tmp_path):
+    """The default merge (arrival order, as the JAX package's) of three
+    sources under the guardian: preempted at step 6, restored and sought,
+    run to step 12. The batches the two runs trained (the first 7 of the
+    preempted run, every one of the resumed run) hold each record of a
+    prefix of each file exactly once: a resume drops and replays
+    nothing."""
+    tm, ts, tl, ta, tvars = _deepfm(pt, tdeepfm)
+    paths = _write_parts(tmp_path, 3, 40)
+    where = {}
+    for k, p in enumerate(paths):
+        for i, line in enumerate(open(p)):
+            where[np.array(line.split(";")[0].split(), np.int64).tobytes()] = (k, i)
+    assert len(where) == 120
+    made = []
+
+    def make_ds(bound):
+        ds = _Recorded()
+        for p in paths:
+            ds.add_source(FileTailSource(p, name=os.path.basename(p)))
+        ds.set_use_var(tvars)
+        ds.set_batch_size(8)
+        ds.set_epoch_bound(steps=bound)
+        made.append(ds)
+        return ds
+    init = _port_init(tm, ts)
+    mods = (Checkpointer, StepGuardian, faults, pt.scope_guard)
+    tm._rng_run_counter = 0
+    _, pre = _guarded_run(pt, mods, tm, tl, ta, _scope(init), pt.Executor(pt.CPUPlace()),
+                          make_ds, str(tmp_path / "p"), "preempt:step=6", 12)
+    assert pre is not None and pre.saved_step == 6
+    recovery.clear_preemption()
+    tm._rng_run_counter = 0
+    restored, pre = _guarded_run(pt, mods, tm, tl, ta, _scope(init),
+                                 pt.Executor(pt.CPUPlace()), make_ds, str(tmp_path / "p"),
+                                 None, 12, restore=True)
+    assert restored == 6 and pre is None and tm._rng_run_counter == 12
+    trained = made[0].yielded[:restored + 1] + made[1].yielded
+    rows = [where[r.tobytes()] for b in trained for r in b]
+    assert len(rows) == 12 * 8 == len(set(rows))
+    for k in range(3):
+        lines = sorted(i for s, i in rows if s == k)
+        assert lines == list(range(len(lines)))

@@ -352,6 +352,51 @@ def test_pulls_and_pushes_around_a_replay(stand_in):
     assert key[0] == id(hoisted) and rows in step.feeds and grad in key[3]
 
 
+@pytest.mark.parametrize("graphs", [False, True])
+def test_a_fetch_fault_is_retried_with_one_update_and_one_push(graphs, request):
+    """``exc@fetch`` on a host-table program under the guardian, eagerly
+    and on the CPU stand-in graph: the executor undoes the step's dense
+    update before it raises and pushes nothing, so the retry leaves the
+    losses, the dense state, the table and ``push_count`` as the clean run
+    does, bit for bit."""
+    from paddle_tpu_torch.resilience import StepGuardian, faults
+    if graphs:
+        request.getfixturevalue("stand_in")
+    tm, ts, tl, _ = _ctr(pt)
+    feeds = _feeds(3, shared=True)
+    init_scope = pt.Scope()
+    with pt.scope_guard(init_scope):
+        pt.Executor(pt.CPUPlace()).run(ts)
+    init = {n: init_scope.find_var(n).clone() for n in _persistables(tm)}
+    table0 = tht.get_table(TABLE).table.copy()
+    out = {}
+    try:
+        for spec in (None, "exc@fetch:step=1"):
+            t = tht.get_table(TABLE)
+            t.table[:], t._accum[:], t.push_count = table0, 0, 0
+            scope = pt.Scope()
+            for n, v in init.items():
+                scope.set_var(n, v.clone())
+            tm._rng_run_counter = 0
+            if spec:
+                faults.install(spec)
+            exe = pt.Executor(pt.CPUPlace())
+            exe._use_graphs = graphs
+            with pt.scope_guard(scope):
+                g = StepGuardian(exe, tm, retry_backoff=0.001)
+                losses = [g.run(feed=f, fetch_list=[tl])[0] for f in feeds]
+            out[spec] = (losses, {n: scope.find_var(n) for n in init}, t.table.copy(),
+                         t._accum.copy(), t.push_count, [f.fired for f in faults.active()])
+            faults.clear()
+    finally:
+        faults.clear()
+    (cl, cs, ct, ca, cp, _), (fl, fs, ft, fa, fp, fired) = out[None], out["exc@fetch:step=1"]
+    assert all(np.array_equal(a, b) for a, b in zip(cl, fl))
+    assert all(torch.equal(cs[n], fs[n]) for n in cs)
+    assert np.array_equal(ct, ft) and np.array_equal(ca, fa)
+    assert cp == fp == 3 and fired == [1]
+
+
 def test_run_fused_is_refused_and_the_dataset_loop_runs_unfused(tmp_path):
     """The JAX reason, from ``run_fused`` and ``train_from_dataset(fuse_steps=2)``
     (a warning, then the unfused loop)."""

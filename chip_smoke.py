@@ -10,8 +10,10 @@ MLP under every update class and averaging wrapper, train BERT-base
 accumulated over microbatches, transformer-base under mixed precision and
 VGG-16 under a gradient penalty, train DeepFM from a stream under the step
 guardian (preempted and resumed exactly) and ``examples/ctr_deepfm.py``'s
-host-table model through the PyTorch/CUDA port on one NVIDIA GPU, and hold
-its CUDA kernels against their plain PyTorch versions.
+host-table model, autotune BERT-base's and ResNet-50's routes and serve
+BERT-base to concurrent clients through ``PredictorPool`` through the
+PyTorch/CUDA port on one NVIDIA GPU, and hold its CUDA kernels against
+their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -323,8 +325,31 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    Alone: ``python3 -c "import torch, chip_smoke as cs; cs.phase_build();
    cs.phase_stream_and_host_table(torch, 'build')"`` after ``mkdir -p
    build``;
+21. (run after phase 20) the tuner and the serving tier, with the
+   autotune cache pinned to a fresh file under ``build/`` for the whole
+   run (so phases 1-20 run the defaults). K1-fwd's 64- and 128-row tiles
+   against ``attention_plain`` and each other (bit for bit) at B8 S512 and
+   B128 S128 beside the bound; A: ``tune_program`` in search over
+   BERT-base's serving program (S 128 and 512, row buckets 1-8) and
+   ResNet-50's training program, every decision with each candidate's
+   CUDA-event time (on the card the backend choices' one candidate is the
+   kernel: no plain chain is a route there); B: ``train_from_dataset(fuse_steps=0)`` under search on
+   phase 15's DeepFM files, then ``fuse_steps=K`` at its K, bit for bit;
+   C: BERT-base behind ``PredictorPool(size=2, max_batch=8,
+   max_wait_ms=2.0)``: a cold S 512 signature captured beside live
+   replays, 96 ragged requests from 8 threads and 3 tenants against solo
+   runs (byte-equal count, at most 1 bf16 ULP), 12 K1-fwd launches a
+   replay, no capture in traffic, p50 / p99 ms, requests/s and idle share;
+   a hot swap under load (no capture, each output one model's); a
+   ``serve_dispatch`` fault on one tenant (typed errors, its breaker
+   open, the rest served); ``dtype="auto"`` under search; the drain. Then
+   3.19's ``top_k`` rows on the card and an out-of-range gather in a
+   child process. Alone: ``python3 -c "import torch, chip_smoke as cs;
+   cs.phase_build(); cs.phase_serving_tier(torch, 'build')"`` after
+   ``mkdir -p build``;
 12. the kernels line (``multi_tensor_update`` with its five kinds, each
-   with its launches), then the result line.
+   with its launches; K1-fwd's 64-row tile as ``flash_attn_fwd_q64``),
+   then the result line.
 
 Exits non-zero, with no result line, when there is no CUDA card, when the
 port's sources are not beside this script, or when any phase fails.
@@ -5068,6 +5093,486 @@ def phase_main_path(torch, workdir):
     return launches, modes
 
 
+# ---------------------------------------------------------------------------------------
+# phase 21: the serving tier and the tuner
+# ---------------------------------------------------------------------------------------
+
+# K1-fwd's two query tiles, at serving's configuration (bias, no dropout, no LSE)
+K1_TILE_SHAPES = ((8, 12, 512, 64), (128, 12, 128, 64))
+
+
+def _k1_tiles(torch):
+    """K1-fwd at both query tiles (``block_q`` 128 and 64) against
+    ``attention_plain`` on the same inputs, with CUDA-event times beside the
+    bound; the two tiles run the same arithmetic per row, so their outputs
+    are compared bit for bit too."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    rows = []
+    for B, H, S, D in K1_TILE_SHAPES + ((2, 4, 200, 32),):
+        q, k, v, bias = _attn_inputs(torch, B, H, S, D, torch.bfloat16, True, gen)
+        scale = 1.0 / D ** 0.5
+        ref = fa.attention_plain(q, k, v, bias, scale, False)
+        outs = {}
+        for bq in fa.FWD_BLOCK_Q:
+            outs[bq] = fa.flash_attn_fwd(q, k, v, bias, scale, False, block_q=bq)
+            err = (outs[bq].float() - ref.float()).abs().max().item()
+            ms = _device_ms(torch, lambda bq=bq: fa.flash_attn_fwd(q, k, v, bias, scale, False,
+                                                                    block_q=bq))
+            bound_ms, bound_by = _bound(B, H, S, D, "bfloat16", True, False, 2)
+            r = dict(shape=[B, H, S, D], block_q=bq, max_abs_err=err, atol=ATOL["bfloat16"],
+                     finite=bool(torch.isfinite(outs[bq]).all()), ms=ms, bound_ms=bound_ms,
+                     bound_by=bound_by)
+            rows.append(r)
+        same = torch.equal(outs[64], outs[128])
+        plain_ms = _device_ms(torch, lambda: fa.attention_plain(q, k, v, bias, scale, False))
+        library_ms = _device_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=bias, scale=scale))
+        for r in rows[-2:]:
+            r.update(plain_ms=plain_ms, library_ms=library_ms, tiles_bit_equal=same)
+            emit("serving_tier_k1_tile", **r)
+    bad = [r for r in rows if not (r["finite"] and r["max_abs_err"] <= r["atol"]
+                                   and r["tiles_bit_equal"])]
+    if bad:
+        raise SystemExit(f"flash_attn_fwd's tiles disagree with attention_plain or with "
+                         f"each other: {bad}")
+    return rows
+
+
+# phase 21's pool (C): PredictorPool(size=2, max_batch=8, max_wait_ms=2.0) over
+# BERT-base (phase 4's model); 8 client threads, tenants t0/t1/t2 at weights 1/1/2
+POOL_SIZE, POOL_MAX_BATCH, POOL_MAX_WAIT_MS = 2, 8, 2.0
+POOL_CLIENTS, POOL_REQUESTS, POOL_LONG_REQUESTS = 8, 10, 2
+POOL_WEIGHTS = {"t0": 1.0, "t1": 1.0, "t2": 2.0}
+# a batched row against the solo run of its request: at most 1 bf16 ULP at the
+# scale of its token's hidden vector (serving/__main__.ulps_apart): cuBLAS may
+# sum a product in another order at another M, one rounding apart
+POOL_SOLO_ULPS = 1.0
+# 3.19 on the card: (row, k) -> jax.lax.top_k's indices (tests/test_torch_ops.py
+# holds the same rows against jax.lax.top_k on the CPU)
+TOPK_ROWS = ((((-0.0, 0.0),), 1, [[1]]),
+             (((1.0, -0.0, 0.0, -1.0),), 2, [[0, 2]]),
+             (((1.0, -float("nan"), -1.0, 0.0),), 2, [[0, 3]]))
+# 3.11 on the card: an out-of-range gather, in a child process (a device-side
+# assert ends the CUDA context of the process that raised it)
+GATHER_PROBE = (
+    "import torch, paddle_tpu_torch\n"
+    "from paddle_tpu_torch.core import registry\n"
+    "x = torch.arange(12., device='cuda').reshape(4, 3)\n"
+    "idx = torch.tensor([[1], [7]], device='cuda')\n"
+    "out = registry.get('gather').lower(registry.LowerCtx({'axis': 0}),"
+    " {'X': [x], 'Index': [idx]})['Out'][0]\n"
+    "print('returned', out.cpu().tolist(), flush=True)\n")
+
+
+def _bert_program(pt, cfg, S):
+    """BERT-base's serving program at S tokens (the encoder as
+    ``serving_profile.save_bert_encoder`` builds it, with ``is_test`` set as
+    ``save_inference_model`` sets it), for ``tune_program``."""
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.tools.serving_profile import FEEDS
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        feeds = [pt.data(n, [S], dt) for n, dt in FEEDS]
+        bert.encoder(*feeds, cfg)
+    return main.clone(for_test=True)
+
+
+def _decisions(label, entries):
+    rows = [dict(choice=e["choice"], key=e["key"], winner=e["winner"], source=e["source"],
+                 timings={c: t.get("run_ms", t) for c, t in (e.get("timings") or {}).items()})
+            for e in entries]
+    for r in rows:
+        emit("serving_tier_decision", program=label, **r)
+    return rows
+
+
+def _tuner(torch, pt):
+    """A: ``tune_program`` in search over BERT-base's serving program (bf16, S
+    128 and 512, the pool's row buckets) and ResNet-50's training program."""
+    from paddle_tpu_torch import tuning
+    from paddle_tpu_torch.models.bert import BertConfig
+    from paddle_tpu_torch.tools.train_profile import build_resnet50
+    t0 = time.perf_counter()
+    out = {}
+    for S in (128, 512):
+        prog = _bert_program(pt, BertConfig(dtype="bfloat16", max_seq_len=S), S)
+        entries = []
+        for rows in (1, 2, 4, POOL_MAX_BATCH):
+            entries += tuning.tune_program(prog, batch=rows, mode="search")
+        out[f"bert_base_s{S}"] = _decisions(f"bert_base_s{S}", entries)
+    resnet = build_resnet50()[0]
+    out["resnet50"] = _decisions("resnet50", tuning.tune_program(resnet, batch=RESNET_BATCH,
+                                                                 mode="search"))
+    kinds = {}
+    for label, rows in out.items():
+        for r in rows:
+            kinds.setdefault(f"{label}:{r['choice']}", []).append(r["winner"])
+    emit("serving_tier_tuner", seconds=time.perf_counter() - t0,
+         decisions={k: {w: v.count(w) for w in sorted(set(v))} for k, v in kinds.items()},
+         measured=sum(1 for rows in out.values() for r in rows if r["source"] == "search"))
+    bad = [r for rows in out.values() for r in rows if r["source"] not in ("search", "cached")]
+    if bad:
+        raise SystemExit(f"tune_program did not measure every choice point: {bad[:3]}")
+    return out
+
+
+def _fuse_search(torch, pt, workdir):
+    """B: ``train_from_dataset(fuse_steps=0)`` under search on phase 15's
+    DeepFM part files, then ``fuse_steps=K`` at the K it picked, from the same
+    state: the parameters bit for bit."""
+    from paddle_tpu_torch.tools.train_profile import CTR_BATCH, CTR_FIELDS, CTR_VOCAB, build_deepfm
+    from paddle_tpu_torch.tuning import cache as tcache
+    paths = _write_ctr_parts(workdir, CTR_FIELDS, CTR_VOCAB)
+    main, startup, loss, auc, prob, _ = build_deepfm()
+    use_vars = [main.global_block().var(n) for n in ("ids", "dense", "label")]
+    init = _startup_state(pt, main, startup)
+
+    def epoch(fuse_steps):
+        ds = pt.DatasetFactory().create_dataset("QueueDataset")
+        ds.set_batch_size(CTR_BATCH)
+        ds.set_thread(E2E_THREADS)
+        ds.set_use_var(use_vars)
+        ds.set_filelist(paths)
+        ds.drop_last = True
+        scope = pt.Scope()
+        for n, t in init.items():
+            scope.set_var(n, t.clone())
+        main._rng_run_counter = 0
+        exe = pt.Executor()
+        t0 = time.perf_counter()
+        with pt.scope_guard(scope):
+            exe.train_from_dataset(main, ds, fetch_list=[loss, auc], fuse_steps=fuse_steps)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        state = {n: scope.find_var(n).clone() for n in init}
+        exe.close()
+        return state, seconds, main._rng_run_counter
+
+    old = os.environ.get("PADDLE_TPU_TUNE")
+    os.environ["PADDLE_TPU_TUNE"] = "search"
+    try:
+        searched, search_s, steps = epoch(0)
+    finally:
+        if old is None:
+            os.environ.pop("PADDLE_TPU_TUNE")
+        else:
+            os.environ["PADDLE_TPU_TUNE"] = old
+    recs = [r for r in tcache.CACHE.items().values() if r.get("choice") == "fuse_steps.k"]
+    if len(recs) != 1 or not recs[0]["measured"]:
+        raise SystemExit(f"fuse_steps=0 did not persist one measured decision: {recs}")
+    k = int(recs[0]["winner"])
+    fixed, fixed_s, fixed_steps = epoch(k)
+    equal = not _state_equal(torch, searched, fixed)
+    r = dict(k=k, timings_ms_per_step={c: t.get("run_ms") for c, t in recs[0]["timings"].items()},
+             search_seconds=recs[0]["search_seconds"], steps=steps, search_epoch_s=search_s,
+             fixed_k_epoch_s=fixed_s, state_bit_equal=equal)
+    emit("serving_tier_fuse_steps", **r)
+    if not equal or steps != fixed_steps:
+        raise SystemExit(f"fuse_steps=0 parted from fuse_steps={k}: {r}")
+    return r
+
+
+def _k1_launches():
+    from paddle_tpu_torch.ops import flash_attention as fa
+    return fa.flash_attn_fwd.launches + fa.flash_attn_fwd_q64.launches
+
+
+def _pool_traffic(torch, pool, feeds, label):
+    """Every client thread submits its feeds in turn (``tenant``, feed) and
+    waits for each answer; returns (outputs, latencies s, wall s)."""
+    import threading
+    outs, lat = {}, {}
+    errors = []
+
+    def client(c):
+        try:
+            for i, (tenant, feed) in enumerate(feeds[c]):
+                t0 = time.perf_counter()
+                outs[(c, i)] = pool.run(feed, tenant=tenant, timeout=120)[0]
+                lat[(c, i)] = time.perf_counter() - t0
+        except BaseException as e:  # noqa: BLE001 -- raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(len(feeds))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise SystemExit(f"{label}: a client failed: {errors[:2]}")
+    return outs, lat, wall
+
+
+def _against_solo(solo, feeds, outs, hidden):
+    """Each output against the solo run of its feed: byte-equal count and the
+    farthest distance in bf16 ULPs at each token's scale."""
+    from paddle_tpu_torch.serving.__main__ import ulps_apart
+    equal, worst = 0, 0.0
+    for (c, i), out in outs.items():
+        ref = solo[(c, i)]
+        equal += out.tobytes() == ref.tobytes()
+        worst = max(worst, ulps_apart(out.reshape(-1, hidden), ref.reshape(-1, hidden),
+                                      "bfloat16"))
+    return equal, worst
+
+
+def _serving_pool(torch, pt, workdir):
+    """C: BERT-base behind ``PredictorPool``: warmup, traffic against solo
+    runs, launches and captures, hot swap under load, a faulted tenant,
+    ``dtype='auto'`` under search, and the drain."""
+    import threading
+    from torch.profiler import ProfilerActivity
+    from paddle_tpu_torch.inference import Predictor
+    from paddle_tpu_torch.models.bert import BertConfig
+    from paddle_tpu_torch.observability import journal
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.serving import BreakerOpen, PredictorPool, ServingError
+    from paddle_tpu_torch.tools.serving_profile import bert_feed, save_bert_encoder
+    from paddle_tpu_torch.tools.train_profile import traced
+    cfg = BertConfig(dtype="bfloat16")
+    model_a, model_b = os.path.join(workdir, "bert_a"), os.path.join(workdir, "bert_b")
+    save_bert_encoder(model_a, cfg, SEED)
+    save_bert_encoder(model_b, cfg, SEED + 1)
+    rng = np.random.RandomState(SEED + 21)
+    tenants = sorted(POOL_WEIGHTS)
+    feeds = []
+    for c in range(POOL_CLIENTS):
+        mine = [(tenants[(c + i) % 3], bert_feed(rng, int(rng.randint(1, POOL_MAX_BATCH + 1)),
+                                                 128, cfg.vocab_size))
+                for i in range(POOL_REQUESTS)]
+        mine += [(tenants[c % 3], bert_feed(rng, int(rng.randint(1, 3)), 512, cfg.vocab_size))
+                 for _ in range(POOL_LONG_REQUESTS)]
+        feeds.append(mine)
+    solo_pred = Predictor(model_a)
+    solo = {(c, i): solo_pred.run(f)[0] for c, mine in enumerate(feeds)
+            for i, (_, f) in enumerate(mine)}
+
+    pool = PredictorPool(model_a, size=POOL_SIZE, max_batch=POOL_MAX_BATCH,
+                         max_wait_ms=POOL_MAX_WAIT_MS, weights=POOL_WEIGHTS)
+    try:
+        t0 = time.perf_counter()
+        warmed = pool.warmup(feeds[0][0][1])           # S 128's buckets only
+        warmup_s = time.perf_counter() - t0
+        # a cold signature captured beside live replays: three clients replay S 128
+        # while a fourth sends S 512 requests, which a worker captures (thread_local)
+        misses = [p._cache_counts["miss"] for p in pool._predictors]
+        cold_idx = [[(c, i) for i in range(4)] for c in range(3)] \
+            + [[(3, POOL_REQUESTS + j) for j in range(POOL_LONG_REQUESTS)]]
+        cold_feeds = [[feeds[c][i] for c, i in idx] for idx in cold_idx]
+        cold_outs, _, _ = _pool_traffic(torch, pool, cold_feeds, "cold-signature traffic")
+        cold_equal, cold_worst = _against_solo(
+            {(k, j): solo[cold_idx[k][j]] for k in range(4) for j in range(len(cold_idx[k]))},
+            cold_feeds, cold_outs, cfg.hidden)
+        cold = dict(requests=len(cold_outs), byte_equal_to_solo=cold_equal,
+                    max_ulps_to_solo=cold_worst,
+                    graphs_captured=[p._cache_counts["miss"] - m
+                                     for p, m in zip(pool._predictors, misses)])
+        emit("serving_tier_cold_signature", **cold)
+        if cold_worst > POOL_SOLO_ULPS or not sum(cold["graphs_captured"]):
+            raise SystemExit(f"a signature captured beside live replays broke: {cold}")
+        t0 = time.perf_counter()
+        warmed += pool.warmup(feeds[0][-1][1])         # the rest of S 512's buckets
+        warmup_s += time.perf_counter() - t0
+        graphs = [len(p._compiled) for p in pool._predictors]
+        misses = [p._cache_counts["miss"] for p in pool._predictors]
+        per_replay = {k.__name__: v for p in pool._predictors for exe in p._compiled.values()
+                      for k, v in exe.launches.items()}
+        k1_per_replay = sorted({sum(n for f, n in exe.launches.items()
+                                    if f.__name__.startswith("flash_attn_fwd"))
+                                for p in pool._predictors for exe in p._compiled.values()})
+        torch.cuda.synchronize()
+        from paddle_tpu_torch.core import cuda_build
+        for f in cuda_build.COUNTED:
+            f.launches = 0
+        with traced([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            outs, lat, wall = _pool_traffic(torch, pool, feeds, "pool traffic")
+            torch.cuda.synchronize()
+        launches = {f.__name__: f.launches for f in cuda_build.COUNTED if f.launches}
+        busy_ms = _device_busy_ms(prof)
+        new_graphs = [p._cache_counts["miss"] - m for p, m in zip(pool._predictors, misses)]
+        equal, worst = _against_solo(solo, feeds, outs, cfg.hidden)
+        ms = sorted(v * 1e3 for v in lat.values())
+        traffic = dict(requests=len(outs), rows=int(sum(o.shape[0] for o in outs.values())),
+                       byte_equal_to_solo=equal, max_ulps_to_solo=worst,
+                       p50_ms=ms[len(ms) // 2], p99_ms=ms[min(len(ms) - 1,
+                                                              int(0.99 * len(ms)))],
+                       requests_per_s=len(outs) / wall, wall_s=wall, device_busy_ms=busy_ms,
+                       idle_share=max(0.0, 1.0 - busy_ms / (wall * 1e3)),
+                       launches=launches, k1_fwd_launches_per_replay=k1_per_replay,
+                       graphs_per_worker=graphs, graphs_captured_in_traffic=new_graphs,
+                       warmup_s=warmup_s, warmed=warmed, launches_per_replay_kinds=per_replay)
+        emit("serving_tier_pool", **traffic)
+        if worst > POOL_SOLO_ULPS or new_graphs != [0] * POOL_SIZE \
+                or k1_per_replay != [cfg.n_layers] or graphs != [8] * POOL_SIZE:
+            raise SystemExit(f"the pool's traffic broke a check: {traffic}")
+
+        # hot swap under load: model B copied into the pinned tensors while 4
+        # clients keep sending S 128 requests; each output equals (within
+        # POOL_SOLO_ULPS) one model's solo output, and every request sent after
+        # swap() returned gets model B's
+        from paddle_tpu_torch.serving.__main__ import ulps_apart
+        misses = [p._cache_counts["miss"] for p in pool._predictors]
+        swap_feeds = [[f for _, f in mine[:POOL_REQUESTS]] for mine in feeds[:4]]
+        stop = threading.Event()
+        served_log = []
+
+        def swap_client(c):
+            i = 0
+            while not stop.is_set():
+                f = swap_feeds[c][i % len(swap_feeds[c])]
+                t_sub = time.perf_counter()
+                served_log.append((c, i % len(swap_feeds[c]), t_sub,
+                                   pool.run(f, tenant="t0", timeout=120)[0]))
+                i += 1
+
+        clients = [threading.Thread(target=swap_client, args=(c,)) for c in range(4)]
+        for t in clients:
+            t.start()
+        time.sleep(0.2)
+        t0 = time.perf_counter()
+        version = pool.swap(model_b, timeout=120)
+        t_swapped = time.perf_counter()
+        time.sleep(0.2)
+        stop.set()
+        for t in clients:
+            t.join(timeout=120)
+        solo_a = {(c, i): solo[(c, i)] for c in range(4) for i in range(POOL_REQUESTS)}
+        solo_pred.swap_state({n: t.clone() for n, t in pool._predictors[0]._state.items()})
+        solo_b = {(c, i): solo_pred.run(swap_feeds[c][i])[0] for c in range(4)
+                  for i in range(POOL_REQUESTS)}
+        served = {"old": 0, "new": 0, "after_swap_old": 0}
+        for c, i, t_sub, out in served_log:
+            for name, ref in (("new", solo_b[(c, i)]), ("old", solo_a[(c, i)])):
+                if ulps_apart(out.reshape(-1, cfg.hidden), ref.reshape(-1, cfg.hidden),
+                              "bfloat16") <= POOL_SOLO_ULPS:
+                    served[name] += 1
+                    served["after_swap_old"] += name == "old" and t_sub > t_swapped
+                    break
+            else:
+                raise SystemExit("a swap-time output equals neither model's solo output")
+        swap = dict(model_version=version, swap_s=t_swapped - t0, served=served,
+                    graphs_captured=[p._cache_counts["miss"] - m
+                                     for p, m in zip(pool._predictors, misses)])
+        emit("serving_tier_swap", **swap)
+        if swap["graphs_captured"] != [0] * POOL_SIZE or version != 2 \
+                or not served["old"] or not served["new"] or served["after_swap_old"]:
+            raise SystemExit(f"the hot swap captured a graph, tore or did not finish: {swap}")
+
+        # chaos: exc@serve_dispatch on tenant evil; its breaker opens, the rest is served
+        faults.clear()
+        journal.clear()
+        faults.install("exc@serve_dispatch:var=evil:times=0")
+        evil = {"typed": 0, "breaker_open": 0}
+        try:
+            for _ in range(pool._breaker.threshold + 3):
+                try:
+                    pool.run(feeds[0][0][1], tenant="evil", timeout=120)
+                except BreakerOpen:
+                    evil["breaker_open"] += 1
+                except ServingError:
+                    evil["typed"] += 1
+            good, _, _ = _pool_traffic(torch, pool, [mine[:3] for mine in feeds[:4]],
+                                       "chaos traffic")
+        finally:
+            faults.clear()
+        opened = [e["tenant"] for e in journal.recent(event="serve_breaker")
+                  if e["to"] == "open"]
+        chaos = dict(evil=evil, breaker_opened_for=opened, good_served=len(good),
+                     good_requests=sum(len(m[:3]) for m in feeds[:4]))
+        emit("serving_tier_chaos", **chaos)
+        if evil["typed"] != pool._breaker.threshold or evil["breaker_open"] != 3 \
+                or opened != ["evil"] or chaos["good_served"] != chaos["good_requests"]:
+            raise SystemExit(f"the faulted tenant's errors were not contained: {chaos}")
+        t0 = time.perf_counter()
+        pool.close(drain_timeout=30.0)
+        close_s = time.perf_counter() - t0
+    finally:
+        pool.close(drain_timeout=30.0)
+        faults.clear()
+
+    # dtype="auto" under search: each row bucket's serving.dtype decision
+    old = os.environ.get("PADDLE_TPU_TUNE")
+    os.environ["PADDLE_TPU_TUNE"] = "search"
+    auto = PredictorPool(model_a, size=1, max_batch=POOL_MAX_BATCH,
+                         max_wait_ms=POOL_MAX_WAIT_MS, dtype="auto")
+    try:
+        auto.warmup(feeds[0][0][1])
+    finally:
+        auto.close(drain_timeout=30.0)
+        if old is None:
+            os.environ.pop("PADDLE_TPU_TUNE")
+        else:
+            os.environ["PADDLE_TPU_TUNE"] = old
+    from paddle_tpu_torch.tuning import cache as tcache
+    dtype_dec = {json.loads(k.split("|")[1])["rows"]: dict(
+        winner=r["winner"], ms={c: t.get("run_ms", t) for c, t in r["timings"].items()})
+        for k, r in tcache.CACHE.items().items() if r.get("choice") == "serving.dtype"}
+    emit("serving_tier_dtype", decisions=dtype_dec, close_s=close_s)
+    if sorted(dtype_dec) != [1, 2, 4, 8] or any(
+            isinstance(t, dict) for d in dtype_dec.values() for t in d["ms"].values()):
+        raise SystemExit(f"serving.dtype did not measure every candidate of every bucket: "
+                         f"{dtype_dec}")
+    return dict(traffic=traffic, cold=cold, swap=swap, chaos=chaos, dtype=dtype_dec,
+                close_s=close_s)
+
+
+def _port_faults_on_card(torch):
+    """3.19's rows through ``top_k`` on the card, and 3.11: an out-of-range
+    gather on the card, in a child process."""
+    from paddle_tpu_torch.core import registry
+    topk = []
+    for row, k, want in TOPK_ROWS:
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.tensor(row, dtype=torch.float32, device="cuda")
+            if dt == torch.bfloat16:       # the top half of the bits: exact, NaN's sign kept
+                x = (x.view(torch.int32) >> 16).to(torch.int16).view(torch.bfloat16)
+            got = registry.get("top_k").lower(registry.LowerCtx({"k": k}), {"X": [x]})
+            topk.append(dict(row=[str(v) for v in row[0]], dtype=str(dt), k=k,
+                             indices=got["Indices"][0].tolist(), want=want))
+    r = subprocess.run([sys.executable, "-c", GATHER_PROBE], cwd=REPO, capture_output=True,
+                       text=True, timeout=120)
+    tail = [ln.strip() for ln in (r.stdout + r.stderr).splitlines()
+            if "Assertion" in ln or "Error" in ln or ln.startswith("returned")][-3:]
+    gather = dict(returncode=r.returncode, tail=tail,
+                  device_assert="device-side assert" in r.stderr)
+    emit("serving_tier_port_faults", top_k=topk, out_of_range_gather=gather)
+    bad = [t for t in topk if t["indices"] != t["want"]]
+    if bad:
+        raise SystemExit(f"top_k parted from jax.lax.top_k on the card: {bad}")
+    return dict(top_k=topk, gather=gather)
+
+
+def phase_serving_tier(torch, workdir):
+    """Phase 21: the tuner (A), fuse_steps=0 (B), the serving pool (C), the
+    port's fault probes on the card."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import cuda_build
+    t0 = time.perf_counter()
+    tiles = _k1_tiles(torch)
+    for f in cuda_build.COUNTED:
+        f.launches = 0
+    tuner = _tuner(torch, pt)
+    tuner_launches = {f.__name__: f.launches for f in cuda_build.COUNTED if f.launches}
+    emit("serving_tier_tuner_launches", launches=tuner_launches)
+    missing = [n for n in ("flash_attn_fwd", "flash_attn_fwd_q64", "fused_conv1x1_bn_fwd")
+               if not tuner_launches.get(n)]
+    if missing:
+        raise SystemExit(f"the tuner's search launched no {missing}")
+    torch.cuda.empty_cache()
+    fuse = _fuse_search(torch, pt, workdir)
+    torch.cuda.empty_cache()
+    served = _serving_pool(torch, pt, workdir)
+    probes = _port_faults_on_card(torch)
+    torch.cuda.empty_cache()
+    emit("serving_tier", seconds=time.perf_counter() - t0)
+    return dict(tiles=tiles, tuner=tuner, tuner_launches=tuner_launches, fuse=fuse,
+                pool=served, probes=probes)
+
+
 def main() -> int:
     if not os.path.isfile(os.path.join(REPO, "paddle_tpu_torch", "csrc",
                                        "flash_attn_fwd.cu")):
@@ -5082,6 +5587,13 @@ def main() -> int:
     sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 comparisons in full f32
     torch.backends.cudnn.allow_tf32 = False
+    # a fresh autotune cache for the whole run: a decision persisted on this host by
+    # an earlier run must not change the routes of phases 1-20 (default mode: cached)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tune_cache = os.path.join(REPO, "build", f"autotune_{os.getpid()}.json")
+    if os.path.exists(tune_cache):
+        os.remove(tune_cache)
+    os.environ["PADDLE_TPU_TUNE_CACHE"] = tune_cache
 
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.models.bert import BertConfig
@@ -5188,6 +5700,21 @@ def main() -> int:
             torch, workdir, ctr["summary"]["graph_step_ms"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
+    try:
+        tier = phase_serving_tier(torch, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    os.remove(tune_cache)
+    tier_l = {"tuner_search": tier["tuner_launches"],
+              "serving_pool": tier["pool"]["traffic"]["launches"]}
+    q64_serve = next(r for r in tier["tiles"] if r["shape"] == [8, 12, 512, 64]
+                     and r["block_q"] == 64)
+    q64_case = next(r for r in tier["tiles"] if r["shape"] == [128, 12, 128, 64]
+                    and r["block_q"] == 64)
+    q128_tiles = {f"B{r['shape'][0]} S{r['shape'][2]}": r["ms"] for r in tier["tiles"]
+                  if r["block_q"] == 128 and r["shape"][1] == 12}
     book_launches = {c["chapter"]: c["train_launches"] for c in book_chapters}
     e2e_launches = e2e["epochs"]["prefetch"]["multi_tensor_update_launches"]
     ctr_launches = ctr["launches"]["graph"]["multi_tensor_update"]
@@ -5269,7 +5796,8 @@ def main() -> int:
                       + sched_l["scheduled_bert_training"]["flash_attn_fwd"]
                       + opt_l["lamb_bert_training"]["flash_attn_fwd"]
                       + opt_l["recompute_lamb_bert_training"]["flash_attn_fwd"]
-                      + surf_l["pipeline_bert_training"]["flash_attn_fwd"]),
+                      + surf_l["pipeline_bert_training"]["flash_attn_fwd"]
+                      + sum(v.get("flash_attn_fwd", 0) for v in tier_l.values())),
          "launches_by_path": {"serving": serve_launches["flash_attn_fwd"],
                               "int8_serving": int8_launches["flash_attn_fwd"],
                               "training": train_launches["flash_attn_fwd"],
@@ -5279,8 +5807,10 @@ def main() -> int:
                               "recompute_lamb_bert_training":
                                   opt_l["recompute_lamb_bert_training"]["flash_attn_fwd"],
                               "pipeline_bert_training":
-                                  surf_l["pipeline_bert_training"]["flash_attn_fwd"]},
+                                  surf_l["pipeline_bert_training"]["flash_attn_fwd"],
+                              **{k: v.get("flash_attn_fwd", 0) for k, v in tier_l.items()}},
          "max_abs_err": fwd_err, **{k: train_fwd[k] for k in keys},
+         "serving_tile_128_ms": q128_tiles,
          "shape": "B128 H12 S128 D64 bf16, bias, dropout 0.1, LSE (the training path)",
          "pipeline_microbatch": {**{k: mb_fwd[k] for k in keys},
                                  "ms_per_launch_in_scan":
@@ -5288,6 +5818,18 @@ def main() -> int:
                                  "shape": "B32 H12 S128 D64 bf16, bias, dropout 0.1, LSE "
                                           "(a microbatch of phase 19's pipeline)"},
          "serving": {**{k: serve_case[k] for k in keys},
+                     "shape": "B8 H12 S512 D64 bf16 with bias, no dropout, no LSE"}},
+        {"name": "flash_attn_fwd_q64", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
+         "replaces": "paddle_tpu/ops/pallas_attention.py:227",
+         "replaces_note": "the bf16 forward at 64 query rows a block (kMT 1), a tile "
+                          "fused_attention.block_sizes picks between",
+         "launches": sum(v.get("flash_attn_fwd_q64", 0) for v in tier_l.values()),
+         "launches_by_path": {k: v.get("flash_attn_fwd_q64", 0) for k, v in tier_l.items()},
+         "max_abs_err": max(r["max_abs_err"] for r in tier["tiles"] if r["block_q"] == 64),
+         **{k: q64_case[k] for k in keys},
+         "shape": "B128 H12 S128 D64 bf16 with bias, no dropout, no LSE",
+         "serving": {**{k: q64_serve[k] for k in keys},
                      "shape": "B8 H12 S512 D64 bf16 with bias, no dropout, no LSE"}},
         {"name": "flash_attn_bwd", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
@@ -5456,6 +5998,12 @@ def main() -> int:
         "reference_path_step_ms": {
             "training": train_paths["reference"]["step_ms_median_warm"],
             "resnet50_training": resnet_paths["reference"]["step_ms_median_warm"]},
+        "serving_pool": {k: tier["pool"]["traffic"][k] for k in (
+            "requests", "byte_equal_to_solo", "max_ulps_to_solo", "p50_ms", "p99_ms",
+            "requests_per_s", "idle_share", "k1_fwd_launches_per_replay")},
+        "fuse_steps_search": {k: tier["fuse"][k] for k in ("k", "timings_ms_per_step",
+                                                           "state_bit_equal")},
+        "out_of_range_gather_on_card": tier["probes"]["gather"],
         "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

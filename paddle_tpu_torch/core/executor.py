@@ -31,9 +31,14 @@ step's CUDA graph.
 
 On the card, ``Executor.run`` keeps a cache of compiled steps as the JAX
 ``Executor.run`` does, keyed by (program id, ``_version``, feed signature,
-fetch names, seed, scope), each one CUDA graph (``core/graphs.py``): the
+fetch names, seed, scope, the autotuner's ``state_token``), each one CUDA
+graph (``core/graphs.py``): the
 first run of a key runs eagerly on a side stream (the warm-up), the second
-captures the step and replays it, later runs replay it. The graph's state
+captures the step and replays it, later runs replay it. The lowerings'
+autotuner decisions (``tuning/``) are made in the warm-up, so a search
+never runs inside a capture; an entry whose warm-up made one moves to the
+new token, and a decision that changes later gives a new key, so the step
+is captured again rather than replayed on a stale route. The graph's state
 tensors are the scope's: the update writes them in place, a state whose
 output is a new tensor (a batch norm's MeanOut) is copied back at the end of
 the captured step, and a persistable that is only written comes back as a
@@ -84,6 +89,7 @@ from ..framework import Block, Program, Variable, default_main_program
 from ..observability import health as _health
 from ..ops import host_table, multi_tensor
 from ..resilience import faults as _faults
+from .. import tuning as _tuning
 from . import graphs as cuda_graphs
 from . import registry
 from .registry import EMPTY_VAR, LowerCtx, stable_salt
@@ -886,7 +892,12 @@ class Executor:
         (stacked in the worker); the trailing partial group runs unfused. A
         program that cannot run fused (``_fuse_ineligible``: not captured, or
         host-table pulls and pushes) warns and runs unfused. ``fuse_steps=0``
-        (the JAX package's autotuner) is not ported. Fetches stay on the device: they are read to the host only
+        consults the autotuner's ``fuse_steps.k`` choice, keyed by the first
+        batch's feed signature and the fetch count (``_resolve_fuse_steps``):
+        under ``PADDLE_TPU_TUNE=search`` with no decision yet, the epoch
+        measures the candidate K on its own batches and persists the winner
+        (``_fused_search_epoch``; every step of the search is a real training
+        step, so the result is the fixed-K run's). Fetches stay on the device: they are read to the host only
         at the ``debug`` print boundaries (every ``print_period`` batches,
         one read per chunk that crosses one) and at the return. Returns the
         last step's fetches (numpy, or tensors with ``return_numpy=False``),
@@ -902,50 +913,161 @@ class Executor:
         k = int(fuse_steps)
         if k < 0:
             raise ValueError("fuse_steps must be >= 0 (0 = autotune)")
-        if k == 0:
-            raise NotImplementedError(
-                "fuse_steps=0 consults the JAX package's autotuner (tuning/), which is "
-                "not ported yet (ROADMAP queue 1, item 5); pass fuse_steps=K")
         prog = program or default_main_program()
-        if k > 1:
+        if k != 1:
             reason = self._fuse_ineligible(prog)
             if reason is not None:
-                warnings.warn(f"train_from_dataset(fuse_steps={k}): program cannot run "
-                              f"fused ({reason}); running unfused", stacklevel=2)
+                warnings.warn(f"train_from_dataset(fuse_steps={fuse_steps}): program "
+                              f"cannot run fused ({reason}); running unfused", stacklevel=2)
                 k = 1
         depth = self._prefetch_depth(thread, dataset)
         batches = dataset._iter_batches()
         abort_cb = getattr(batches, "abort", None)   # before islice hides it
         if skip_batches:
             batches = itertools.islice(batches, int(skip_batches), None)
+        search_params = None
+        if k == 0:
+            k, batches, search_params = self._resolve_fuse_steps(batches, fetch_list)
         period = max(print_period, 1)
-        last, last_fused, i = None, False, 0
-        loop = self._prefetch_batches(batches, depth, fuse=k, abort=abort_cb)
-        with contextlib.closing(loop):     # a step that raises ends the worker now
-            for item in loop:
-                kind, feed = (item[0], item[1]) if k > 1 else ("one", item)
-                if kind == "mega":
-                    vals = self.run_fused(prog, stacked_feed=feed, fetch_list=fetch_list,
-                                          scope=scope)
-                    kk = item[2]
-                else:
-                    vals = self.run(prog, feed=feed, fetch_list=fetch_list, scope=scope,
-                                    return_numpy=False)
-                    kk = 1
-                hits = [j for j in range(i, i + kk) if j % period == 0] \
-                    if debug and fetch_list else []
-                if hits:     # one read to the host per chunk that crosses a boundary
-                    vals_np = materialize_fetches(vals)
-                    for j in hits:
-                        _debug_line("train_from_dataset", j, fetch_info,
-                                    [v[j - i] for v in vals_np] if kind == "mega"
-                                    else vals_np)
-                last, last_fused, i = vals, kind == "mega", i + kk
+        state = {"last": None, "fused": False, "i": 0}
+
+        def step_cb(vals, kk, fused):
+            i = state["i"]
+            hits = [j for j in range(i, i + kk) if j % period == 0] \
+                if debug and fetch_list else []
+            if hits:     # one read to the host per chunk that crosses a boundary
+                vals_np = materialize_fetches(vals)
+                for j in hits:
+                    _debug_line("train_from_dataset", j, fetch_info,
+                                [v[j - i] for v in vals_np] if fused else vals_np)
+            state["last"], state["fused"], state["i"] = vals, fused, i + kk
+
+        if search_params is not None:
+            self._fused_search_epoch(prog, batches, depth, fetch_list, scope, search_params,
+                                     step_cb, abort=abort_cb)
+        else:
+            loop = self._prefetch_batches(batches, depth, fuse=k, abort=abort_cb)
+            with contextlib.closing(loop):     # a step that raises ends the worker now
+                for item in loop:
+                    kind, feed = (item[0], item[1]) if k > 1 else ("one", item)
+                    if kind == "mega":
+                        vals = self.run_fused(prog, stacked_feed=feed, fetch_list=fetch_list,
+                                              scope=scope)
+                        step_cb(vals, item[2], True)
+                    else:
+                        vals = self.run(prog, feed=feed, fetch_list=fetch_list, scope=scope,
+                                        return_numpy=False)
+                        step_cb(vals, 1, False)
+        last = state["last"]
         if last is None:
             return None
-        if last_fused:
+        if state["fused"]:
             last = [v[-1] for v in last]      # the last step's fetches
         return materialize_fetches(last) if return_numpy else list(last)
+
+    #: timed ``run_fused`` calls a candidate K gets in the search, after one untimed
+    _FUSE_SEARCH_PROBES = 2
+
+    def _fuse_params(self, feed, fetch_names) -> dict:
+        """The ``fuse_steps.k`` params of a workload: the per-step feed
+        signature and the fetch count, as the JAX executor's ``_fuse_params``
+        (numpy dtype names, so the keys match across the packages)."""
+        return {"feed": sorted((n, [int(d) for d in np.shape(v)], str(np.asarray(v).dtype))
+                               for n, v in feed.items()),
+                "fetches": len(fetch_names)}
+
+    def _resolve_fuse_steps(self, batches, fetch_list):
+        """``fuse_steps=0``: the ``fuse_steps.k`` decision for this workload.
+        Peeks at the first batch (its shapes key the decision) and returns
+        ``(k, the batches with the peek put back, params or None)``; params
+        (``PADDLE_TPU_TUNE=search`` with no decision yet) means the caller
+        runs the search in the loop."""
+        from ..tuning import cache as _tcache
+        it = iter(batches)
+        try:
+            first = next(it)
+        except StopIteration:
+            return 1, iter(()), None
+        chained = itertools.chain([first], it)
+        tmode = _tcache.mode()
+        if tmode == "off":
+            return 1, chained, None
+        params = self._fuse_params(first, self._fetch_names(fetch_list))
+        cached = _tcache.CACHE.get(_tuning.get_choice("fuse_steps.k").key(params))
+        k = int(_tuning.decide("fuse_steps.k", params, allow_search=False))
+        if cached is not None or tmode != "search":
+            return k, chained, None
+        return 1, chained, params
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _fused_search_epoch(self, program, batches, depth, fetch_list, scope, params,
+                            step_cb, abort=None):
+        """The ``fuse_steps.k`` search on the live workload: two single
+        steps first (on the card, the step's warm-up and its capture), then
+        each candidate K, in ascending order, takes one untimed
+        ``run_fused`` call of K batches and ``_FUSE_SEARCH_PROBES`` timed
+        ones (host clock, closed by a device sync), every call a real
+        training step; the fastest per step wins and is persisted
+        (``tuning.record_decision``), and the rest of the epoch runs at it.
+        An epoch that runs out of batches first persists what it measured."""
+        import time as _time
+        cands = sorted(int(c) for c in _tuning.get_choice("fuse_steps.k").candidates(params))
+        loop = self._prefetch_batches(batches, depth, abort=abort)
+        timings: Dict[str, dict] = {}
+        t_search = _time.perf_counter()
+
+        def run_chunk(feeds):
+            if len(feeds) == 1:
+                vals = self.run(program, feed=feeds[0], fetch_list=fetch_list, scope=scope,
+                                return_numpy=False)
+                step_cb(vals, 1, False)
+            else:
+                vals = self.run_fused(program, feeds=feeds, fetch_list=fetch_list,
+                                      scope=scope)
+                step_cb(vals, len(feeds), True)
+
+        with contextlib.closing(loop):
+            for feed in itertools.islice(loop, 2):    # the warm-up and the capture
+                run_chunk([feed])
+            exhausted = False
+            for cand in cands:
+                for probe in range(self._FUSE_SEARCH_PROBES + 1):   # +1: untimed
+                    feeds = list(itertools.islice(loop, cand))
+                    if len(feeds) < cand:
+                        exhausted = True
+                        for f in feeds:       # the leftover batches still train
+                            run_chunk([f])
+                        break
+                    self._sync()
+                    t0 = _time.perf_counter()
+                    run_chunk(feeds)
+                    self._sync()
+                    if probe > 0:
+                        rec = timings.setdefault(str(cand), {"runs_ms": []})
+                        rec["runs_ms"].append((_time.perf_counter() - t0) / cand * 1e3)
+                if str(cand) in timings:
+                    runs = sorted(timings[str(cand)]["runs_ms"])
+                    timings[str(cand)]["run_ms"] = runs[len(runs) // 2]
+                if exhausted:
+                    break
+            measured = {c: t["run_ms"] for c, t in timings.items() if "run_ms" in t}
+            winner = int(min(measured, key=measured.get)) if measured else 1
+            _tuning.record_decision("fuse_steps.k", params, winner, timings=timings,
+                                    search_seconds=_time.perf_counter() - t_search,
+                                    measured=bool(measured))
+            if exhausted:
+                return
+            feeds = []
+            for feed in loop:      # the rest of the epoch at the winner
+                feeds.append(feed)
+                if len(feeds) == winner:
+                    run_chunk(feeds)
+                    feeds = []
+            for f in feeds:
+                run_chunk([f])
 
     def infer_from_dataset(self, program=None, dataset=None, scope=None, thread=0,
                            debug=False, fetch_list=None, fetch_info=None, print_period=100,
@@ -983,9 +1105,10 @@ class Executor:
         if not self._captures():
             return self._eager(program, feeds, fetch_names, scope, counter, self._counter), False
         seed = program.random_seed if program.random_seed is not None else 0
+        _tuning.prefetch()     # before the key: the lowerings' consults are lookups
         key = (id(program), program._version,
                tuple(sorted((k, tuple(t.shape), str(t.dtype)) for k, t in feeds.items())),
-               tuple(fetch_names), seed, id(scope))
+               tuple(fetch_names), seed, id(scope), _tuning.state_token())
         step = self._cache.get(key)
         if step is None:
             step = self._cache[key] = _Step(capture_refusal(program))
@@ -1000,8 +1123,10 @@ class Executor:
             return self._eager(program, feeds, fetch_names, scope, counter, self._counter), False
         if not step.warmed:
             step.warmed = True
-            return cuda_graphs.warm_up(self.device, lambda: self._eager(
-                program, feeds, fetch_names, scope, counter, self._counter)), False
+            out = cuda_graphs.warm_up(self.device, lambda: self._eager(
+                program, feeds, fetch_names, scope, counter, self._counter))
+            self._rehome_tuning_token(key)
+            return out, False
         if step.graph is None:
             if _faults._active:
                 # before the capture: nothing is cached yet, a retry recaptures
@@ -1019,6 +1144,14 @@ class Executor:
         for n, t in written.items():
             scope.set_var(n, t.clone())
         return fetches, True
+
+    def _rehome_tuning_token(self, key) -> None:
+        """Move a just-warmed entry under the current decision-state token.
+        A search in the warm-up bumps the token after the key was made;
+        without the move the next run would miss and warm up again."""
+        new = _tuning.state_token()
+        if new != key[-1] and key in self._cache:
+            self._cache[key[:-1] + (new,)] = self._cache.pop(key)
 
     def _captures(self) -> bool:
         """Whether runs go through the cache of CUDA graphs: on the card,

@@ -14,7 +14,9 @@
 //
 // Design (bf16 path). The [S, S] scores never reach device memory. A block of 4 warps owns
 // 128 query rows of one (batch, head), 32 per warp, so each K/V element is read from device
-// memory once per 128 query rows. K/V tiles of 64 keys stream through a two-stage ring of
+// memory once per 128 query rows (a second instantiation, kMT 1, owns 64 rows, 16 a warp:
+// twice the blocks, each K/V element read once per 64 rows; the autotuner's
+// fused_attention.block_sizes picks between them). K/V tiles of 64 keys stream through a two-stage ring of
 // cp.async copies in shared memory: the next tile is in flight while the current one is
 // multiplied. Scores and P V run on the tensor cores (mma.sync m16n8k16, f32 accumulation);
 // every operand is loaded by ldmatrix (Q, K) or ldmatrix.trans (V) from rows padded against
@@ -85,23 +87,24 @@ struct Params {
 // bf16: tensor-core path
 // ---------------------------------------------------------------------------------------
 
-constexpr int kMT = 2;                    // m16 row tiles per warp: 32 query rows
+// kMT (a template parameter): m16 row tiles per warp, 16 * kMT query rows a warp. The
+// query tile of a block is kWarps * 16 * kMT rows: 128 at kMT 2 (the default), 64 at 1.
 constexpr int kWarps = 4;
-constexpr int kBM = kWarps * 16 * kMT;    // query rows per block
 constexpr int kBN = 64;                   // keys per staged K/V tile
 constexpr int kStages = 2;
 constexpr int kBf16Threads = kWarps * 32;
 
-template <int D>
+template <int D, int kMT>
 constexpr int fwd_smem_bytes() {
-  return (kBM + 2 * kStages * kBN) * (D + 8) * 2 + kStages * kBN * 4;
+  return (kWarps * 16 * kMT + 2 * kStages * kBN) * (D + 8) * 2 + kStages * kBN * 4;
 }
 
 // kDrop: p.dropout > 0 (a separate instantiation, so that serving's kernel issues no
 // dropout instructions)
-template <int D, bool kDrop>
+template <int D, bool kDrop, int kMT>
 __global__ void __launch_bounds__(kBf16Threads, 3) flash_fwd_bf16_kernel(const Params p) {
   static_assert(D % 16 == 0, "head width must be a multiple of 16");
+  constexpr int kBM = kWarps * 16 * kMT;  // query rows per block
   constexpr int kStride = D + 8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);      // [kBM][kStride]; later the output rows
@@ -431,26 +434,34 @@ __global__ void __launch_bounds__(kF32Rows) flash_fwd_f32_kernel(const Params p)
   }
 }
 
+template <int D, int kMT>
+cudaError_t launch_bf16(const Params& p, int bh, cudaStream_t stream) {
+  constexpr int kSmem = fwd_smem_bytes<D, kMT>();
+  constexpr int kBM = kWarps * 16 * kMT;
+  static const cudaError_t attr0 = cudaFuncSetAttribute(
+      flash_fwd_bf16_kernel<D, false, kMT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  static const cudaError_t attr1 = cudaFuncSetAttribute(
+      flash_fwd_bf16_kernel<D, true, kMT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr0 != cudaSuccess) return attr0;
+  if (attr1 != cudaSuccess) return attr1;
+  dim3 grid((p.S + kBM - 1) / kBM, bh);
+  if (p.dropout > 0.f)
+    flash_fwd_bf16_kernel<D, true, kMT><<<grid, kBf16Threads, kSmem, stream>>>(p);
+  else
+    flash_fwd_bf16_kernel<D, false, kMT><<<grid, kBf16Threads, kSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <int D>
-cudaError_t launch(const Params& p, int B, int dtype, cudaStream_t stream) {
+cudaError_t launch(const Params& p, int B, int dtype, int block_q, cudaStream_t stream) {
   const int bh = B * p.H;
   if (dtype == 1) {
-    constexpr int kSmem = fwd_smem_bytes<D>();
-    static const cudaError_t attr0 = cudaFuncSetAttribute(
-        flash_fwd_bf16_kernel<D, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    static const cudaError_t attr1 = cudaFuncSetAttribute(
-        flash_fwd_bf16_kernel<D, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (attr0 != cudaSuccess) return attr0;
-    if (attr1 != cudaSuccess) return attr1;
-    dim3 grid((p.S + kBM - 1) / kBM, bh);
-    if (p.dropout > 0.f)
-      flash_fwd_bf16_kernel<D, true><<<grid, kBf16Threads, kSmem, stream>>>(p);
-    else
-      flash_fwd_bf16_kernel<D, false><<<grid, kBf16Threads, kSmem, stream>>>(p);
-  } else {
-    dim3 grid((p.S + kF32Rows - 1) / kF32Rows, bh);
-    flash_fwd_f32_kernel<D><<<grid, kF32Rows, 0, stream>>>(p);
+    if (block_q == 64) return launch_bf16<D, 1>(p, bh, stream);
+    if (block_q == 128) return launch_bf16<D, 2>(p, bh, stream);
+    return cudaErrorInvalidValue;
   }
+  dim3 grid((p.S + kF32Rows - 1) / kF32Rows, bh);
+  flash_fwd_f32_kernel<D><<<grid, kF32Rows, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -458,7 +469,8 @@ cudaError_t launch(const Params& p, int B, int dtype, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16. lse may be null (not written). dropout in [0, 1);
 // threshold = uint32(dropout * 2^32). The dropout seed is `seed` when counter is null, else
-// seed_of(program_seed, *counter, salt) (philox.cuh). Returns a cudaError_t (0 = launched).
+// seed_of(program_seed, *counter, salt) (philox.cuh). block_q: the bf16 path's query rows
+// a block, 64 or 128 (the f32 path ignores it). Returns a cudaError_t (0 = launched).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const void* bias,
                               void* o, void* lse, long long q_sb, long long q_sh,
                               long long q_ss, long long k_sb, long long k_sh, long long k_ss,
@@ -467,7 +479,7 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const
                               float dropout, unsigned int threshold,
                               unsigned long long seed, const void* counter,
                               unsigned long long program_seed, unsigned long long salt,
-                              void* stream) {
+                              int block_q, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0 || B * H > 65535 || (dtype != 0 && dtype != 1) ||
       !(dropout >= 0.f && dropout < 1.f))
     return cudaErrorInvalidValue;
@@ -482,8 +494,8 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const
   p.H = H, p.S = S, p.scale = scale, p.causal = causal;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch<32>(p, B, dtype, st);
-    case 64: return launch<64>(p, B, dtype, st);
+    case 32: return launch<32>(p, B, dtype, block_q, st);
+    case 64: return launch<64>(p, B, dtype, block_q, st);
     default: return cudaErrorInvalidValue;
   }
 }

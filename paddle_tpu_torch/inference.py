@@ -11,19 +11,35 @@ a side stream (loading the kernels, setting up cuBLAS and cuDNN), and
 captures them into a CUDA graph with its own memory pool; a hit copies the
 feeds in, replays the graph and copies the fetches out, under the
 signature's lock. A capture that fails raises: nothing serves eagerly
-instead. On the CPU the cached executable is the eager op-by-op run. The
-device is explicit: ``device=None`` is the card, and with no card that
-raises.
+instead. On the CPU the cached executable is the eager op-by-op run, also
+under the signature's lock. The device is explicit: ``device=None`` is the
+card, and with no card that raises.
 
-Not ported yet: the JAX Predictor's warm store, IR attribution, journal,
-health checks and timeline spans, ``swap_state`` and sparse tables.
+Around each request ``run`` does what the JAX ``Predictor.run`` does: the
+timeline spans ``feed_prep``, ``dispatch`` and ``fetch_sync``
+(``observability/timeline.py``), the tensor-health check of the fetches
+when ``PADDLE_TPU_OBS_HEALTH`` is on, the histogram
+``predictor_request_seconds{cold}`` (cold: this request built its
+signature's executable), the counter
+``predictor_executable_cache_total{outcome}`` and, with ``PADDLE_TPU_OBS``
+on, a ``predict`` journal event.
+
+``swap_state`` replaces the weights for the serving pool's hot swap. A
+captured graph holds the pointers of the pinned parameter tensors, so the
+new values are copied INTO those tensors (and into each serving dtype's
+cast copy), with every signature's lock held: no replay reads half-old
+weights, and no graph is captured again.
+
+Not ported yet: the JAX Predictor's warm store and IR attribution (ROADMAP
+items 10 and 12), and its sparse tables (ROADMAP item 10's online part).
 """
 from __future__ import annotations
 
-import contextlib
 import threading
+import time
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from .core import graphs
@@ -31,6 +47,13 @@ from .core.executor import (Scope, as_tensor, resolve_device, scope_guard, to_nu
                             trace_block)
 from .core.registry import torch_dtype
 from .framework import Program
+from .observability import health as _health
+from .observability import journal as _journal
+from .observability import timeline as _timeline
+from .observability.metrics import REGISTRY as _OBS
+
+#: the key prefix of a sparse-table delta in a ``swap_state`` dict
+SPARSE_PREFIX = "sparse:"
 
 #: serving dtypes Predictor can cast to; None means "native" (serve in the
 #: saved model's own dtypes)
@@ -72,12 +95,11 @@ class AnalysisConfig:
 
 class _EagerRun:
     """The executable of a signature on the CPU: the ops run eagerly, one
-    lowering at a time. Concurrent calls share nothing."""
+    lowering at a time, under the signature's ``lock`` (which ``swap_state``
+    holds while it copies)."""
 
-    lock = contextlib.nullcontext()
-
-    def __init__(self, pred: "Predictor", state):
-        self._pred, self._state = pred, state
+    def __init__(self, pred: "Predictor", state, lock):
+        self._pred, self._state, self.lock = pred, state, lock
 
     def __call__(self, feeds: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
         return self._pred._trace(self._state, feeds)
@@ -139,6 +161,9 @@ class Predictor:
         self._cache_counts = {"hit": 0, "miss": 0}
         # per-dtype pinned state: a serving-dtype override keeps its own cast copy
         self._states: Dict[Optional[str], Dict[str, torch.Tensor]] = {None: self._state}
+        #: weight generation served by this session (``swap_state`` moves it;
+        #: the serving pool tags its journal events and /metrics with it)
+        self.model_version: int = 1
 
     # False selects the eager reference path (no executable cache, no graph)
     # that tests and chip_smoke.py compare with
@@ -164,7 +189,8 @@ class Predictor:
         feed_names. Returns numpy outputs ordered as fetch_names. numpy has
         no bfloat16, so a bf16 output comes back widened to float32: the
         values are exact, only the dtype differs. ``dtype`` overrides the
-        session's serving dtype for this call."""
+        session's serving dtype for this call (the serving pool's
+        ``serving.dtype`` decision lands here)."""
         if not isinstance(inputs, dict):
             inputs = list(inputs)
             if len(inputs) != len(self.feed_names):
@@ -179,18 +205,51 @@ class Predictor:
         if unexpected:
             raise ValueError(f"Predictor.run got unexpected inputs {unexpected}; "
                              f"the model feeds are {self.feed_names}")
+        t0 = time.perf_counter()
         dt_serve = _norm_dtype(dtype) if dtype is not None else self._dtype
+        with _timeline.phase("feed_prep", cat="predictor"):
+            feeds = self._feed_tensors(inputs, dt_serve)
+        if not self._use_graphs:
+            with _timeline.phase("dispatch", cat="predictor"):
+                outs = self._trace(self._state_for(dt_serve), feeds)
+            with _timeline.phase("fetch_sync", cat="predictor"):
+                outs = [to_numpy(t) for t in outs]
+            cold = False
+        else:
+            exe, cold = self._executable(feeds, dt_serve)
+            with exe.lock:
+                with _timeline.phase("dispatch", cat="predictor"):
+                    outs = exe(feeds)
+                with _timeline.phase("fetch_sync", cat="predictor"):
+                    outs = [to_numpy(t) for t in outs]   # the device work is done
+        hmode = _health.mode()
+        if hmode != "off":
+            # after fetch_sync: host numpy, so the scan is host work only
+            _health.check(list(zip(self.fetch_names, outs)), f"predictor:{id(self.program)}",
+                          where="predictor", health_mode=hmode)
+        dt = time.perf_counter() - t0
+        # cold and warm are separate series: a request that captured its
+        # signature's graph would otherwise poison the warm p99
+        _OBS.histogram("predictor_request_seconds", "Predictor.run end-to-end request latency",
+                       cold="true" if cold else "false").observe(dt)
+        if _journal.enabled():
+            _journal.emit({"event": "predict", "cold": cold, "run_ms": round(dt * 1e3, 3),
+                           "feed": {k: [list(np.shape(inputs[k])),
+                                        str(np.asarray(inputs[k]).dtype)]
+                                    for k in self.feed_names},
+                           "fetch": list(self.fetch_names)})
+        return outs
+
+    def _feed_tensors(self, inputs, dtype: Optional[str]) -> Dict[str, torch.Tensor]:
+        """The feeds as tensors on the device, float feeds cast to the
+        serving ``dtype`` (None: as given)."""
         feeds = {}
         for k in self.feed_names:
             t = as_tensor(inputs[k], self.device)
-            if dt_serve is not None and t.is_floating_point():
-                t = t.to(torch_dtype(dt_serve))
+            if dtype is not None and t.is_floating_point():
+                t = t.to(torch_dtype(dtype))
             feeds[k] = t
-        if not self._use_graphs:
-            return [to_numpy(t) for t in self._trace(self._state_for(dt_serve), feeds)]
-        exe = self._executable(feeds, dt_serve)
-        with exe.lock:
-            return [to_numpy(t) for t in exe(feeds)]
+        return feeds
 
     def _signature(self, feeds: Dict[str, torch.Tensor], dtype: Optional[str]) -> tuple:
         """The executable cache's key, the JAX Predictor's: the serving dtype,
@@ -201,30 +260,90 @@ class Predictor:
     def _count(self, outcome: str):
         with self._lock:
             self._cache_counts[outcome] += 1
+        _OBS.counter("predictor_executable_cache_total",
+                     "Predictor executable cache lookups by outcome", outcome=outcome).inc()
 
     def _executable(self, feeds: Dict[str, torch.Tensor], dtype: Optional[str]):
-        """The executable of this feed signature, built on a miss. Exactly one
-        thread builds a new signature; the rest wait on its lock and hit."""
+        """(executable, cold) of this feed signature, built on a miss. Exactly
+        one thread builds a new signature and is the only one labelled cold;
+        the rest wait on its lock and hit."""
         sig = self._signature(feeds, dtype)
         exe = self._compiled.get(sig)
         if exe is not None:
             self._count("hit")
-            return exe
+            return exe, False
         with self._lock:
             lk = self._sig_locks.setdefault(sig, threading.Lock())
         with lk:
             exe = self._compiled.get(sig)
             if exe is not None:
                 self._count("hit")
-                return exe
+                return exe, False
             self._count("miss")
             state = self._state_for(dtype)
             if self.device.type == "cuda":
                 exe = _GraphRun(self, state, feeds, lk)
             else:
-                exe = _EagerRun(self, state)
+                exe = _EagerRun(self, state, lk)
             self._compiled[sig] = exe
-        return exe
+        return exe, True
+
+    # -- hot swap ---------------------------------------------------------------------
+    def swap_state(self, new_state: Dict[str, object], validate_only: bool = False,
+                   model_version: Optional[int] = None) -> None:
+        """Replace the pinned parameters by ``new_state`` (name -> array or
+        tensor), keeping every executable: each new value is copied into the
+        pinned tensor a captured graph reads, and into each serving dtype's
+        cast copy, with every signature's lock held, so a run sees all old or
+        all new weights. A missing parameter, or a shape or dtype other than
+        the pinned one, is rejected before anything is touched
+        (ValueError). ``validate_only=True`` checks without copying. A
+        ``"sparse:<table>"`` key (the JAX package's online delta push)
+        raises NotImplementedError: sparse tables are ROADMAP item 10's
+        online part."""
+        sparse = sorted(k for k in new_state if str(k).startswith(SPARSE_PREFIX))
+        if sparse:
+            raise NotImplementedError(
+                f"swap_state got sparse-table deltas {sparse}: the Predictor's sparse "
+                f"tables and the online delta push are not ported (ROADMAP item 10, its "
+                f"online part)")
+        missing = [n for n in self._state if n not in new_state]
+        if missing:
+            raise ValueError(f"swap_state missing {len(missing)} parameter(s): "
+                             f"{sorted(missing)[:5]}")
+        staged = {}
+        for n, cur in self._state.items():
+            v = new_state[n]
+            new = v if isinstance(v, torch.Tensor) else as_tensor(v, torch.device("cpu"))
+            if tuple(new.shape) != tuple(cur.shape) or new.dtype != cur.dtype:
+                raise ValueError(
+                    f"swap_state parameter {n!r} is {tuple(new.shape)}/{new.dtype}, current "
+                    f"is {tuple(cur.shape)}/{cur.dtype}; hot swap needs identical shapes "
+                    f"and dtypes")
+            staged[n] = new
+        if validate_only:
+            return
+        with self._lock:
+            locks = [self._sig_locks[s] for s in sorted(self._sig_locks, key=repr)]
+        for lk in locks:
+            lk.acquire()
+        try:
+            with torch.no_grad():
+                for n, new in staged.items():
+                    self._state[n].copy_(new)
+                for dt, state in self._states.items():
+                    if dt is not None:
+                        for n, t in state.items():
+                            if t is not self._state[n]:
+                                t.copy_(self._state[n])
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            with self._lock:
+                self.model_version = (int(model_version) if model_version is not None
+                                      else self.model_version + 1)
+        finally:
+            for lk in reversed(locks):
+                lk.release()
 
     def _trace(self, state, feeds) -> List[torch.Tensor]:
         """The pruned program's ops over the pinned state and the feeds, each

@@ -241,11 +241,51 @@ def _full(x, value):
     return torch.full((), value, dtype=x.dtype, device=x.device)
 
 
+def _balanced_eq(a, z, b, dtype):
+    """The share of a max's or a min's gradient that operand ``a`` takes, as
+    JAX's ``_balanced_eq``: 1 where ``a`` is the result and ``b`` is not,
+    1/2 where both are, 0 where ``a`` is not (so 0 to both at a NaN)."""
+    one, half, zero = (torch.full((), v, dtype=dtype, device=a.device)
+                       for v in (1.0, 0.5, 0.0))
+    return torch.where(a == z, torch.where(b == z, half, one), zero)
+
+
+class _MinMax(torch.autograd.Function):
+    """``torch.maximum`` / ``torch.minimum`` with JAX's gradient: each operand
+    takes ``_balanced_eq``'s share, multiplied in (``torch.maximum`` passes
+    the whole cotangent to both at a NaN, and masks where JAX multiplies, so
+    an infinite cotangent times a 0 share is NaN in JAX and 0 in PyTorch).
+    The backward is PyTorch ops, so it is differentiable again."""
+
+    @staticmethod
+    def forward(ctx, x, y, take_max):
+        z = torch.maximum(x, y) if take_max else torch.minimum(x, y)
+        ctx.save_for_backward(x, y, z)
+        return z
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, z = ctx.saved_tensors
+        gx = (g * _balanced_eq(x, z, y, g.dtype)).sum_to_size(x.shape)
+        gy = (g * _balanced_eq(y, z, x, g.dtype)).sum_to_size(y.shape)
+        return gx, gy, None
+
+
+def jax_maximum(x, y):
+    """``jnp.maximum``: ``torch.maximum``'s value, JAX's gradient (``_MinMax``)."""
+    return _MinMax.apply(x, y, True)
+
+
+def jax_minimum(x, y):
+    """``jnp.minimum``: ``torch.minimum``'s value, JAX's gradient (``_MinMax``)."""
+    return _MinMax.apply(x, y, False)
+
+
 def jnp_clip(x, lo, hi):
     """min(max(x, lo), hi), as ``jnp.clip`` computes it: at a bound the
     gradient is split as ``jnp.maximum`` / ``jnp.minimum`` split it
-    (``torch.clamp`` passes all of it)."""
-    return torch.minimum(torch.maximum(x, _full(x, lo)), _full(x, hi))
+    (``torch.clamp`` passes all of it), and a NaN input takes none."""
+    return jax_minimum(jax_maximum(x, _full(x, lo)), _full(x, hi))
 
 
 @simple_op("clip")

@@ -15,7 +15,10 @@ statistics flow back into y.
 Routing is by the device of the tensors: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel, or raises where the kernel
 refuses the call. Nothing falls back. No shape gate is copied from the TPU
-kernel: on the card every ``conv2d_bn_fused`` in train mode launches it.
+kernel: on the card every ``conv2d_bn_fused`` in train mode launches it. On
+the CPU the autotuner's ``conv2d_bn_fused.backend`` picks between the
+kernel's plain version and the unfused chain (``unfused_conv1x1_stats``);
+on the card that choice has the kernel as its one candidate.
 """
 from __future__ import annotations
 
@@ -54,6 +57,17 @@ def conv1x1_bn_plain(x2, w, mu, var, gamma, beta, eps=1e-5, relu_in=True,
     z, _ = _prologue(x2, mu, var, gamma, beta, eps, relu_in, apply_in_bn)
     zb = z.to(x2.dtype)
     y = torch.matmul(zb.float(), w.float()).to(x2.dtype)
+    yf = y.float()
+    return y, yf.sum(dim=0), (yf * yf).sum(dim=0)
+
+
+def unfused_conv1x1_stats(x2, w):
+    """The unfused route of the train-mode op on the CPU
+    (``conv2d_bn_fused.backend`` = ``unfused``; never a route on the card):
+    y = x2 @ w by ``torch.matmul`` in x2's dtype, then the
+    column sum and sum of squares of y in f32 by PyTorch reductions.
+    Returns (y, sum, sum of squares) as the kernel does, differentiable."""
+    y = torch.matmul(x2, w)
     yf = y.float()
     return y, yf.sum(dim=0), (yf * yf).sum(dim=0)
 
@@ -253,8 +267,12 @@ def conv2d_bn_fused(ctx, ins):
     fused kernel without its prologue, whose epilogue gives the batch
     statistics (mean = s / M, var = ss / M - mean^2 clamped at 0), then
     normalises, moves the running statistics by ``momentum`` and applies
-    the activation. Test mode (``is_test`` or ``use_global_stats``) is the
-    plain product normalised with the running statistics."""
+    the activation. On the CPU the autotuner's ``conv2d_bn_fused.backend``
+    may pick the unfused route instead (``unfused_conv1x1_stats``); its
+    default is the kernel's plain version, and on the card the kernel is its
+    one candidate, so the op is not asked there. Test
+    mode (``is_test`` or ``use_global_stats``) is the plain product
+    normalised with the running statistics."""
     x, w = ins["Input"][0], ins["Filter"][0]
     scale, bias = ins["Scale"][0], ins["Bias"][0]
     mean_in, var_in = ins["Mean"][0], ins["Variance"][0]
@@ -277,7 +295,15 @@ def conv2d_bn_fused(ctx, ins):
         zeros = torch.zeros((C,), dtype=torch.float32, device=x.device)
         ones = torch.ones((C,), dtype=torch.float32, device=x.device)
         args = (x2, w2, zeros, ones, zeros, zeros, float(eps), False, False)
-        if torch.is_grad_enabled() and (x2.requires_grad or w2.requires_grad):
+        backend = "kernel"
+        if x2.device.type == "cpu":
+            from ..tuning import choices as _choices
+            backend = _choices.decide("conv2d_bn_fused.backend",
+                                      {"m": M, "k": C, "n": O,
+                                       "dtype": _choices.dtype_name(x)})
+        if backend == "unfused":
+            y2, s, ss = unfused_conv1x1_stats(x2, w2)
+        elif torch.is_grad_enabled() and (x2.requires_grad or w2.requires_grad):
             # kept for conv2d_bn_fused_grad (or its recompute)
             y2, s, ss = FusedConv1x1BN.apply(*args)
         else:

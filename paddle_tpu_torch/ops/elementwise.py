@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..core.registry import register
+from .basic import jax_maximum, jax_minimum
 
 
 def _broadcast_y(x, y, axis):
@@ -42,10 +43,39 @@ elementwise_sub = _binary("elementwise_sub", lambda x, y: x - y)
 elementwise_mul = _binary("elementwise_mul", lambda x, y: x * y)
 # true division for integer operands too, as jnp's ``/``
 elementwise_div = _binary("elementwise_div", lambda x, y: x / y)
-elementwise_max = _binary("elementwise_max", torch.maximum)
-# at a tie both take half the gradient, as jnp.minimum / jnp.maximum
-elementwise_min = _binary("elementwise_min", torch.minimum)
-elementwise_pow = _binary("elementwise_pow", torch.pow)
+# at a tie both take half the gradient and at a NaN neither takes any, as
+# jnp.minimum / jnp.maximum (basic._MinMax)
+elementwise_max = _binary("elementwise_max", jax_maximum)
+elementwise_min = _binary("elementwise_min", jax_minimum)
+
+
+class _Pow(torch.autograd.Function):
+    """``torch.pow`` with JAX's gradient for a floating exponent: dX = g * y *
+    x^(y - 1) unmasked (NaN at x = 0, y = 0, where ``torch.pow`` gives 0),
+    dY = g * log(x, with 0 read as 1) * x^y. Differentiable again."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        z = torch.pow(x, y)
+        ctx.save_for_backward(x, y, z)
+        return z
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, z = ctx.saved_tensors
+        gx = (g * (y * torch.pow(x, y - 1))).sum_to_size(x.shape)
+        safe = torch.where(x == 0, torch.ones_like(x), x)
+        gy = (g * (torch.log(safe) * z)).sum_to_size(y.shape)
+        return gx, gy
+
+
+def _pow(x, y):
+    if x.is_floating_point() and y.is_floating_point():
+        return _Pow.apply(x, y)
+    return torch.pow(x, y)
+
+
+elementwise_pow = _binary("elementwise_pow", _pow)
 # ``jnp.mod`` takes the divisor's sign: ``torch.remainder``, not ``fmod``
 elementwise_mod = _binary("elementwise_mod", torch.remainder)
 

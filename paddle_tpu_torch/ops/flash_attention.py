@@ -21,7 +21,11 @@ held against the JAX package by its statistics.)
 Routing is by the device of the tensors: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernels, or raises where a kernel's gate
 refuses the call. Nothing falls back. ``impl='composed'`` asks for the plain
-version explicitly; ``'auto'`` and ``'pallas'`` both mean the kernels.
+version explicitly; ``'pallas'`` means the kernels, and ``'auto'`` the
+kernels at the autotuner's ``fused_attention.block_sizes`` query tile
+(``tuning/choices.py``), 128 rows by default. The autotuner's
+``fused_attention.backend`` has the kernels as its one candidate on the
+card, so the op does not ask it.
 """
 from __future__ import annotations
 
@@ -36,6 +40,10 @@ from ..core.registry import DeviceSeed, register
 
 #: head widths the kernels are compiled for (``launch<D>`` in csrc/flash_attn_*.cu)
 HEAD_DIMS = (32, 64)
+#: the bf16 forward's query rows a block, the default first: 128 (``kMT`` 2 in
+#: csrc/flash_attn_fwd.cu) and 64 (``kMT`` 1); ``fused_attention.block_sizes``
+#: picks between them. The f32 forward has one tile.
+FWD_BLOCK_Q = (128, 64)
 #: the longest S the fused bf16 backward takes: one block holds all keys
 #: (``kKeys`` in csrc/flash_attn_bwd.cu)
 BWD_FUSED_MAX_S = 128
@@ -253,9 +261,10 @@ _P, _I64, _I32, _U64 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.
 # the dropout seed: by value, then (counter pointer, program seed, salt)
 _SEED = [_U64, _P, _U64, _U64]
 _SIGNATURES = {
-    # pointers, 9 strides, B H S D, scale, causal has_bias dtype, dropout, threshold, seed, stream
+    # pointers, 9 strides, B H S D, scale, causal has_bias dtype, dropout, threshold, seed,
+    # block_q, stream
     "flash_attn_fwd": [_P] * 6 + [_I64] * 9 + [_I32] * 4 + [ctypes.c_float] + [_I32] * 3
-    + [ctypes.c_float, ctypes.c_uint] + _SEED + [_P],
+    + [ctypes.c_float, ctypes.c_uint] + _SEED + [_I32, _P],
     "flash_attn_bwd": [_P] * 11 + [_I64] * 9 + [_I32] * 4 + [ctypes.c_float] + [_I32] * 3
     + [ctypes.c_float, ctypes.c_uint] + _SEED + [_I32, _P],  # ..., variant, stream
 }
@@ -294,22 +303,14 @@ def _launch(name, pointers, q, k, v, bias, scale, causal, dropout, seed, *extra)
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
 
 
-@cuda_build.counted
-def flash_attn_fwd(q, k, v, bias=None, scale=None, causal=False, dropout=0.0, seed=0,
-                   return_lse=False):
-    """Launch the CUDA flash-attention forward kernel; returns O [B,H,S,D]
-    (contiguous, in q's dtype), and with ``return_lse`` also the row LSE
-    [B,H,S] f32 that the backward needs. ``dropout`` > 0 drops attention
-    probabilities with the Philox mask of ``seed`` (an int, or a
-    ``DeviceSeed`` that the kernel reads from the run counter on the card).
-    Raises ValueError for
-    tensors the kernel does not take (see ``kernel_refusal``) and
-    RuntimeError if the launch fails. Each launch adds one to
-    ``flash_attn_fwd.launches``."""
+def _fwd(q, k, v, bias, scale, causal, dropout, seed, return_lse, block_q):
     why = kernel_refusal(q, k, v, bias)
     if why is not None:
         raise ValueError(f"flash_attn_fwd: {why}")
     _check_dropout(dropout)
+    if block_q not in FWD_BLOCK_Q or (block_q != FWD_BLOCK_Q[0] and q.dtype != torch.bfloat16):
+        raise ValueError(f"flash_attn_fwd: block_q={block_q} is not a tile of the "
+                         f"{q.dtype} kernel (bf16: {FWD_BLOCK_Q}, f32: {FWD_BLOCK_Q[0]})")
     B, H, S, D = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(D)
@@ -319,9 +320,39 @@ def flash_attn_fwd(q, k, v, bias=None, scale=None, causal=False, dropout=0.0, se
             (q.data_ptr(), k.data_ptr(), v.data_ptr(),
              bias.data_ptr() if bias is not None else None, o.data_ptr(),
              lse.data_ptr() if lse is not None else None),
-            q, k, v, bias, scale, causal, dropout, seed)
-    flash_attn_fwd.launches += 1
+            q, k, v, bias, scale, causal, dropout, seed, int(block_q))
     return (o, lse) if return_lse else o
+
+
+@cuda_build.counted
+def flash_attn_fwd(q, k, v, bias=None, scale=None, causal=False, dropout=0.0, seed=0,
+                   return_lse=False, block_q=FWD_BLOCK_Q[0]):
+    """Launch the CUDA flash-attention forward kernel; returns O [B,H,S,D]
+    (contiguous, in q's dtype), and with ``return_lse`` also the row LSE
+    [B,H,S] f32 that the backward needs. ``dropout`` > 0 drops attention
+    probabilities with the Philox mask of ``seed`` (an int, or a
+    ``DeviceSeed`` that the kernel reads from the run counter on the card).
+    ``block_q`` is the bf16 kernel's query rows a block (``FWD_BLOCK_Q``);
+    64 goes through ``flash_attn_fwd_q64``, which counts its own launches.
+    Raises ValueError for tensors the kernel does not take (see
+    ``kernel_refusal``) and RuntimeError if the launch fails. Each launch of
+    the 128-row tile (and of the f32 kernel) adds one to
+    ``flash_attn_fwd.launches``."""
+    if block_q == 64:
+        return flash_attn_fwd_q64(q, k, v, bias, scale, causal, dropout, seed, return_lse)
+    out = _fwd(q, k, v, bias, scale, causal, dropout, seed, return_lse, block_q)
+    flash_attn_fwd.launches += 1
+    return out
+
+
+@cuda_build.counted
+def flash_attn_fwd_q64(q, k, v, bias=None, scale=None, causal=False, dropout=0.0, seed=0,
+                       return_lse=False):
+    """``flash_attn_fwd`` at the bf16 kernel's 64-row query tile (``kMT`` 1);
+    each launch adds one to ``flash_attn_fwd_q64.launches``."""
+    out = _fwd(q, k, v, bias, scale, causal, dropout, seed, return_lse, 64)
+    flash_attn_fwd_q64.launches += 1
+    return out
 
 
 def bwd_variant(S: int, dtype: torch.dtype) -> str:
@@ -380,9 +411,9 @@ class FlashAttention(torch.autograd.Function):
     ``impl="composed"`` is the plain attention, differentiable twice."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, scale, causal, dropout, seed):
+    def forward(ctx, q, k, v, bias, scale, causal, dropout, seed, block_q=FWD_BLOCK_Q[0]):
         o, lse = flash_attn_fwd(q, k, v, bias, scale, causal, dropout, seed,
-                                return_lse=True)
+                                return_lse=True, block_q=block_q)
         ctx.save_for_backward(q, k, v, bias, o, lse)
         ctx.args = (scale, causal, dropout, seed)
         return o
@@ -396,7 +427,7 @@ class FlashAttention(torch.autograd.Function):
                 "queue 2a); use impl='composed' for a gradient of a gradient")
         q, k, v, bias, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attn_bwd(q, k, v, bias, o, lse, do.contiguous(), *ctx.args)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 @register("fused_attention", nondiff_inputs=("Bias",))
@@ -404,7 +435,10 @@ def fused_attention(ctx, ins):
     """dropout(softmax(Q K^T * scale + Bias)) V over Q/K/V [B, heads, S, D]
     and an optional [B, 1, 1, S] additive Bias (no gradient). Attrs: scale
     (0 = 1/sqrt(D)), dropout_prob, causal, is_test, impl ('auto' | 'pallas'
-    | 'composed'; 'ring' and 'ulysses' are not ported). The dropout seed is
+    | 'composed'; 'ring' and 'ulysses' are not ported). On the card, 'auto'
+    runs the kernels at the autotuner's ``fused_attention.block_sizes``
+    query tile (128 rows by default) where they take the call; where they
+    do not, the kernel raises as 'pallas' does. The dropout seed is
     the op's ``seed_int()``, which its grad op shares, so the backward
     regenerates the forward's mask; on the card, inside an executor, the
     kernels derive that seed from the run counter (``kernel_seed``)."""
@@ -423,13 +457,28 @@ def fused_attention(ctx, ins):
     if impl not in ("auto", "pallas", "composed"):
         raise ValueError(f"fused_attention: unknown impl {impl!r}")
     seed = ctx.kernel_seed() if dropout else 0    # an int off the card
+    if bias is not None and bias.dtype != q.dtype \
+            and torch.promote_types(bias.dtype, q.dtype) == q.dtype:
+        # a narrower bias (a bf16 model's mask served in f32, Predictor.run(dtype=...)):
+        # widened exactly, as the plain version's promotion does
+        bias = bias.to(q.dtype)
+    block_q = FWD_BLOCK_Q[0]
+    if impl == "auto" and q.device.type == "cuda" and kernel_refusal(q, k, v, bias) is None:
+        from ..tuning import choices as _choices
+        B, H, S, D = q.shape
+        params = {"b": B, "h": H, "s": S, "d": D, "dtype": _choices.dtype_name(q),
+                  "has_bias": bias is not None, "dropout": float(dropout),
+                  "causal": causal, "scale": float(scale)}
+        block_q = _choices.decide("fused_attention.block_sizes", params)[0]
     if q.device.type == "cpu" or impl == "composed":
         return {"Out": [attention_plain(q, k, v, bias, float(scale), causal, float(dropout),
                                         seed)]}
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         # kept for fused_attention_grad (or its recompute): the kernels'
         # autograd pair, whose forward launch also writes the LSE
-        out = FlashAttention.apply(q, k, v, bias, float(scale), causal, float(dropout), seed)
+        out = FlashAttention.apply(q, k, v, bias, float(scale), causal, float(dropout), seed,
+                                   block_q)
     else:
-        out = flash_attn_fwd(q, k, v, bias, float(scale), causal, float(dropout), seed)
+        out = flash_attn_fwd(q, k, v, bias, float(scale), causal, float(dropout), seed,
+                             block_q=block_q)
     return {"Out": [out]}

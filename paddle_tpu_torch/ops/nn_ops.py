@@ -6,8 +6,9 @@ Convolution and pooling are PyTorch's (``F.conv2d``, ``F.max_pool2d``,
 ``F.avg_pool2d``), as the JAX package leaves them to XLA. Activations keep
 their declared layout: an NHWC tensor is handed over as its NCHW-shaped
 permuted view (channels-last strides, no copy) and the result is permuted
-back. The filter is OIHW in both layouts. No layout is tuned: the JAX
-package's ``tuning.decide`` default is the declared format.
+back. The filter is OIHW in both layouts. The layout cuDNN computes in is
+the autotuner's ``conv2d.layout`` choice (``conv_in_layout``); its default
+is the declared format.
 """
 from __future__ import annotations
 
@@ -32,22 +33,48 @@ def _from_nchw(y, fmt):
     return y.permute(0, 2, 3, 1) if fmt == "NHWC" else y
 
 
-@register("conv2d")
-def conv2d(ctx, ins):
-    """2-D convolution, ``paddings`` [ph, pw] (symmetric) or [top, bottom,
-    left, right]; ``F.conv2d`` pads symmetrically only, so a 4-element
-    padding is applied with ``F.pad`` first."""
-    x, w = ins["Input"][0], ins["Filter"][0]
-    fmt = ctx.attr("data_format", "NCHW") or "NCHW"
-    pads = [int(p) for p in (ctx.attr("paddings", [0, 0]) or [0, 0])]
+def conv_in_layout(x, w, strides, pads, dils, groups, fmt, layout):
+    """A 2-D convolution of ``x`` (declared layout ``fmt``) computed by cuDNN
+    in ``layout``, returned in ``fmt``: with ``layout`` the declared one the
+    activations go over as they are (an NHWC tensor as its channels-last
+    NCHW view); otherwise the activations and the filter are copied into
+    ``layout``'s memory format (``torch.channels_last`` for NHWC, contiguous
+    for NCHW) and the output is copied back into ``fmt``'s. ``pads`` is
+    [ph, pw] (symmetric) or [top, bottom, left, right]; ``F.conv2d`` pads
+    symmetrically only, so a 4-element padding is applied with ``F.pad``."""
+    pads = [int(p) for p in pads]
     xc = _to_nchw(x, fmt)
+    if layout != fmt:
+        mf = torch.channels_last if layout == "NHWC" else torch.contiguous_format
+        xc, w = xc.contiguous(memory_format=mf), w.contiguous(memory_format=mf)
     if len(pads) == 4:
         xc = F.pad(xc, (pads[2], pads[3], pads[0], pads[1]))
         pads = [0, 0]
-    y = F.conv2d(xc, w, stride=_pair(ctx.attr("strides", [1, 1])),
-                 padding=tuple(pads), dilation=_pair(ctx.attr("dilations", [1, 1])),
-                 groups=ctx.attr("groups", 1) or 1)
-    return {"Output": [_from_nchw(y, fmt)]}
+    y = F.conv2d(xc, w, stride=tuple(strides), padding=tuple(pads), dilation=tuple(dils),
+                 groups=groups)
+    out = _from_nchw(y, fmt)
+    return out.contiguous() if layout != fmt else out
+
+
+@register("conv2d")
+def conv2d(ctx, ins):
+    """2-D convolution (``conv_in_layout``) in the layout the autotuner's
+    ``conv2d.layout`` picks, the declared ``data_format`` by default."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    fmt = ctx.attr("data_format", "NCHW") or "NCHW"
+    pads = [int(p) for p in (ctx.attr("paddings", [0, 0]) or [0, 0])]
+    strides = _pair(ctx.attr("strides", [1, 1]))
+    dils = _pair(ctx.attr("dilations", [1, 1]))
+    groups = ctx.attr("groups", 1) or 1
+    layout = fmt
+    if not ctx.abstract and x.ndim == 4:
+        from ..tuning import choices as _choices
+        layout = _choices.decide("conv2d.layout", {
+            "x_shape": tuple(x.shape), "w_shape": tuple(w.shape),
+            "strides": tuple(strides), "pads": list(_pair(pads)),
+            "dils": tuple(dils), "groups": groups, "fmt": fmt,
+            "dtype": _choices.dtype_name(x)})
+    return {"Output": [conv_in_layout(x, w, strides, pads, dils, groups, fmt, layout)]}
 
 
 @register("pool2d")

@@ -388,14 +388,35 @@ def pad2d(ctx, ins):
     return {"Out": [x]}
 
 
+_TOTAL_ORDER_INTS = {torch.float64: (torch.int64, 0x7FFFFFFFFFFFFFFF),
+                     torch.float32: (torch.int32, 0x7FFFFFFF),
+                     torch.bfloat16: (torch.int16, 0x7FFF),
+                     torch.float16: (torch.int16, 0x7FFF)}
+
+
+def total_order_key(x):
+    """Signed integers that order ``x``'s floats as IEEE total order, the
+    order ``jax.lax.top_k`` ranks by: -NaN < -inf < ... < -0.0 < +0.0 < ...
+    < +inf < +NaN. The bits as a signed integer, with the magnitude bits of
+    the negatives flipped (a negative's larger magnitude is the smaller
+    value). Integer tensors are their own key."""
+    if not x.is_floating_point():
+        return x
+    itype, mag = _TOTAL_ORDER_INTS[x.dtype]
+    bits = x.contiguous().view(itype)
+    return torch.where(bits < 0, bits ^ mag, bits)
+
+
 def top_k_lower_first(x, k):
     """(values, indices) of the ``k`` largest entries of each row of ``x``,
-    the lower index first among equal values, as ``jax.lax.top_k``
-    (``torch.topk`` promises no order among ties): the first ``k`` of a
-    stable descending sort. Its gradient lands on the entries the indices
-    name."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+    as ``jax.lax.top_k``: ranked by IEEE total order (``total_order_key``:
+    +NaN first, -NaN last, +0.0 above -0.0), the lower index first among
+    equal keys (a stable descending sort of the keys; ``torch.topk``
+    promises no order among ties and ``torch.sort`` ranks every NaN first).
+    Its gradient lands on the entries the indices name."""
+    _, idx = torch.sort(total_order_key(x), dim=-1, descending=True, stable=True)
+    idx = idx[..., :k]
+    return torch.gather(x, -1, idx), idx
 
 
 @register("top_k", nondiff_outputs=("Indices",))

@@ -33,11 +33,13 @@ sites, a source name at the stream sites), ``times`` (total fires, default
 1; 0 = unlimited), ``seconds``, ``prob`` + ``seed`` (a seeded Bernoulli
 draw per match), ``value``.
 
-The serving-tier sites and hooks (``serve_*``, :func:`corrupt_serving`),
-the warm store's (:func:`mutate_warmstore`) and the online publisher's
-(``online_export``, :func:`corrupt_delta`) parse as in the JAX package,
-but their hooks raise: the modules that fire them are not ported (ROADMAP
-items 10 and 12, and ``online/`` behind item 10).
+The serving tier's sites (``serve_dispatch``, ``serve_fetch``,
+``serve_hang``, fired by ``serving/pool.py``) and its data hook
+(:func:`corrupt_serving`) work as in the JAX package. The warm store's
+(:func:`mutate_warmstore`) and the online publisher's (``online_export``,
+:func:`corrupt_delta`) parse as in the JAX package, but their hooks raise:
+the modules that fire them are not ported (ROADMAP item 12, and
+``online/`` behind item 10).
 
 Every fire increments ``fault_injected_total{kind,site}`` and journals a
 ``fault`` event. With nothing armed a hook costs one module-attribute
@@ -367,9 +369,38 @@ def _not_ported(hook: str, what: str):
 
 def corrupt_serving(outputs, step: Optional[int] = None,
                     tags: Optional[Sequence[str]] = None) -> list:
-    """The serving tier's ``nan@serve_fetch`` hook: raises (the
-    ``PredictorPool`` is ROADMAP item 10)."""
-    _not_ported("corrupt_serving", "the serving tier (serving/pool.py, ROADMAP item 10)")
+    """Hook point: apply armed ``nan@serve_fetch`` faults to a serving
+    batch's outputs (called by the ``PredictorPool`` worker between the
+    predictor's run and the de-slice, only when faults are armed). ``var``
+    narrows the fault to batches carrying that tenant (via ``tags``); each
+    float output is replaced by one full of the fault's value, so a
+    health-checking pool fails the batch typed and the breaker sees the
+    poison."""
+    if not _active:
+        return list(outputs)
+    import numpy as np
+    outs = list(outputs)
+    for f in _active:
+        if f.kind != "nan" or f.site != "serve_fetch" \
+                or not f.matches("serve_fetch", step, tags):
+            continue
+        hit = False
+        for i, o in enumerate(outs):
+            arr = np.asarray(o)
+            if np.issubdtype(arr.dtype, np.floating):
+                outs[i] = np.full(arr.shape, f.value, dtype=arr.dtype)
+                hit = True
+        if hit:
+            _record(f, "serve_fetch", step, var=f.var)
+        else:
+            f.missed += 1
+            if f.missed == 1:
+                _journal.emit({
+                    "event": "fault_miss", "kind": f.kind, "step": step,
+                    "var": f.var,
+                    "detail": "no float serving output to corrupt; "
+                              "fault not consumed"})
+    return outs
 
 
 def corrupt_record(text: str, site: str = "read",

@@ -436,8 +436,10 @@ class StepGuardian:
         -- documented skip/rollback granularity becomes K steps. A program
         that cannot run fused (a host-table program, one that is not
         captured) warns and runs unfused, as the executor's loop does.
-        ``fuse_steps=0`` (the JAX package's autotuner) is not ported and
-        raises.  ``step_cb(batches_consumed, fetches)`` is
+        ``fuse_steps=0`` reads the autotuner's cached ``fuse_steps.k``
+        decision (1 without one; the guardian never searches: measurement
+        belongs to the unguarded loop).  ``step_cb(batches_consumed,
+        fetches)`` is
         invoked after every guarded chunk (per-step loss collection
         without materializing more than the caller asks for).
 
@@ -474,9 +476,9 @@ class StepGuardian:
             import itertools
             batches = itertools.islice(batches, skip_batches, None)
         if k == 0:
-            raise NotImplementedError(
-                "fuse_steps=0 consults the JAX package's autotuner (tuning/), "
-                "which is not ported yet (ROADMAP item 5); pass fuse_steps=K")
+            # the cached fuse_steps.k decision (or 1): the guardian never
+            # searches, measurement belongs to the unguarded loop
+            k, batches, _ = self.exe._resolve_fuse_steps(batches, fetch_list or [])
         consumed = int(skip_batches)
         mark = getattr(self.checkpointer, "update_train_state", None)
         wm = getattr(dataset, "watermark", None)

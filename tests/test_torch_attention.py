@@ -292,7 +292,7 @@ def test_kernel_path_asks_for_the_lse_only_under_autograd(monkeypatch):
     calls = []
 
     def fake_fwd(q, k, v, bias=None, scale=None, causal=False, dropout=0.0, seed=0,
-                 return_lse=False):
+                 return_lse=False, block_q=128):
         calls.append((dropout, seed, return_lse))
         o = torch.zeros(q.shape, dtype=q.dtype, device=q.device)
         return (o, torch.zeros(q.shape[:3], device=q.device)) if return_lse else o
@@ -306,3 +306,28 @@ def test_kernel_path_asks_for_the_lse_only_under_autograd(monkeypatch):
     ctx = LowerCtx({"dropout_prob": 0.1, "is_test": False}, seed=2, counter=3, salt=5)
     run(ctx, {"Q": [qg], "K": [qg], "V": [qg]})
     assert calls[1] == (0.1, ctx.seed_int(), True) and calls[1][1] != 0
+
+
+def test_a_narrower_bias_is_widened_before_the_kernel(monkeypatch):
+    """A bf16 model served in f32 (``Predictor.run(dtype="float32")``) feeds
+    the kernel f32 q/k/v and the program's bf16 mask bias: the op widens
+    the bias exactly, as the plain version's promotion does, and the kernel
+    takes the call."""
+    seen = []
+
+    def fake_fwd(q, k, v, bias=None, scale=None, causal=False, dropout=0.0, seed=0,
+                 return_lse=False, block_q=128):
+        seen.append(bias.dtype)
+        return torch.zeros(q.shape, dtype=q.dtype, device=q.device)
+
+    monkeypatch.setattr(fa, "flash_attn_fwd", fake_fwd)
+    q = _meta(2, 2, 128, 64, dtype=torch.float32)
+    bias = _meta(2, 1, 1, 128)
+    get("fused_attention").lower(LowerCtx({"is_test": True}), {"Q": [q], "K": [q], "V": [q],
+                                                               "Bias": [bias]})
+    assert seen == [torch.float32]
+    x = torch.randn(1, 2, 8, 8)
+    b = torch.tensor([0.0] * 5 + [-1e4] * 3, dtype=torch.bfloat16).reshape(1, 1, 1, 8)
+    out = get("fused_attention").lower(LowerCtx({"is_test": True}),
+                                       {"Q": [x], "K": [x], "V": [x], "Bias": [b]})["Out"][0]
+    assert torch.equal(out, fa.attention_plain(x, x, x, b.float(), 8 ** -0.5, False))

@@ -502,11 +502,22 @@ def test_a_program_that_cannot_be_captured_runs_unfused(tiny, parts, monkeypatch
     _assert_bit_equal(_state(scope, names), _state(ref_scope, names))
 
 
-def test_fuse_steps_zero_is_not_ported(tiny, parts):
+def test_fuse_steps_zero_is_not_ported(tiny, parts, monkeypatch):
+    """``fuse_steps=0`` consults the autotuner (tests/test_torch_tuning.py
+    holds its search); with tuning off it is the unfused epoch, bit for bit
+    to the run loop."""
     _, (tm, tuv, tl, _, _), init = tiny
-    with pt.scope_guard(_scope(init)), pytest.raises(NotImplementedError, match="tuning/"):
+    names = _persistables(tm)
+    _, ref_scope = _run_loop(tm, init, list(
+        _dataset(pt, "QueueDataset", tuv, parts)._iter_batches()), [tl])
+    monkeypatch.setenv("PADDLE_TPU_TUNE", "off")
+    scope = _scope(init)
+    tm._rng_run_counter = 0
+    with pt.scope_guard(scope):
         pt.Executor(pt.CPUPlace()).train_from_dataset(
             tm, _dataset(pt, "QueueDataset", tuv, parts), fetch_list=[tl], fuse_steps=0)
+    assert tm._rng_run_counter == 4
+    _assert_bit_equal(_state(scope, names), _state(ref_scope, names))
     with pytest.raises(ValueError, match="needs a dataset"):
         pt.Executor(pt.CPUPlace()).train_from_dataset(tm)
 

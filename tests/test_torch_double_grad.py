@@ -167,7 +167,7 @@ def test_flash_attention_function_refuses_second_order(monkeypatch):
     a gradient with ``create_graph`` raises, naming the missing
     double-backward kernel, instead of giving tensors with no graph (a
     silent zero second order)."""
-    def fwd(q, k, v, bias, scale, causal, dropout, seed, return_lse=False):
+    def fwd(q, k, v, bias, scale, causal, dropout, seed, return_lse=False, block_q=128):
         o = fa.attention_plain(q, k, v, bias, scale, causal)
         return (o, torch.zeros(q.shape[:3])) if return_lse else o
 

@@ -60,6 +60,28 @@ CASES = {
                    ("Out",), TOL),
     "top_k-ties-64x50": ("top_k", {"X": [_ids((64, 50), 3, seed=7).astype("float32")]},
                          {"k": 5}, ("Out",), TOL),
+    # non-finite points and 0^0 (ROADMAP 3.20): at a NaN input the clips and
+    # min / max pass no gradient; hard_swish at +-inf and pow's dX at 0^0 are NaN
+    "relu6-nan": ("relu6", {"X": [np.array([np.nan, -1, 3, 6, 7, 0], "float32")]},
+                  {"threshold": 6.0}, ("Out",), TOL),
+    "brelu-nan": ("brelu", {"X": [np.array([np.nan, -1, 3, 24, 30, 0], "float32")]},
+                  {"t_min": 0.0, "t_max": 24.0}, ("Out",), TOL),
+    "hard_sigmoid-nan": ("hard_sigmoid", {"X": [np.array([np.nan, -3, 0, 2.5, 5], "float32")]},
+                         {"slope": 0.2, "offset": 0.5}, ("Out",), TOL),
+    "hard_swish-inf": ("hard_swish", {"X": [np.array([np.inf, -np.inf, 1, -3, 3], "float32")]},
+                       {"scale": 6.0, "offset": 0.5, "threshold": 6.0}, ("Out",), TOL),
+    "elementwise_min-nan": ("elementwise_min",
+                            {"X": [np.array([np.nan, 1, 2, 3], "float32")],
+                             "Y": [np.array([1, np.nan, 2, 1], "float32")]},
+                            {"axis": -1}, ("Out",), TOL),
+    "elementwise_max-nan": ("elementwise_max",
+                            {"X": [np.array([np.nan, 1, 2, 3], "float32")],
+                             "Y": [np.array([1, np.nan, 2, 1], "float32")]},
+                            {"axis": -1}, ("Out",), TOL),
+    "elementwise_pow-zero": ("elementwise_pow",
+                             {"X": [np.array([0.0, -0.0, 0.0, -0.0, 2.0], "float32")],
+                              "Y": [np.array([0.0, 0.0, -0.0, -0.0, 3.0], "float32")]},
+                             {"axis": -1}, ("Out",), TOL),
     "assign": ("assign", {"X": [_r(3, 4)]}, {}, ("Out",), TOL),
     "sum": ("sum", {"X": [_r(3, 4), _r(3, 4, seed=9), _r(3, 4, seed=10)]}, {}, ("Out",), TOL),
     "tanh": ("tanh", {"X": [_r(4, 6, scale=2.0)]}, {}, ("Out",), TOL),

@@ -10,6 +10,7 @@ model, three bf16 ulps at |x| in [2, 4)). Against that op-by-op evaluation
 the port is held to ``atol 1e-2, rtol 1e-2`` (one ulp).
 """
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -294,3 +295,113 @@ def test_the_card_picks_deterministic_convolutions(monkeypatch):
     assert torch.backends.cudnn.deterministic is False
     assert resolve_device(None) == torch.device("cuda", 0)
     assert torch.backends.cudnn.deterministic is True
+
+
+# ------------------------------------------------- the hooks around a request
+
+
+def test_a_request_records_the_jax_predictors_spans_metrics_and_event(jax_saved,
+                                                                      monkeypatch):
+    """``Predictor.run`` records the timeline spans ``feed_prep``,
+    ``dispatch`` and ``fetch_sync`` (category ``predictor``), the
+    ``predictor_request_seconds{cold}`` histogram (cold only for the request
+    that built its signature), ``predictor_executable_cache_total{outcome}``
+    and, with ``PADDLE_TPU_OBS`` on, a ``predict`` journal event shaped as
+    the JAX Predictor's."""
+    from paddle_tpu.observability import journal as jjournal
+    from paddle_tpu_torch.observability import journal, timeline
+    from paddle_tpu_torch.observability.metrics import REGISTRY
+
+    def count(name, **labels):
+        fam = REGISTRY.get(name)
+        if fam is None:
+            return 0
+        for key, child in fam.items():
+            if dict(key) == labels:
+                return child.snapshot()[0] if fam.kind == "histogram" else child.value
+        return 0
+
+    monkeypatch.setenv("PADDLE_TPU_OBS", "1")
+    monkeypatch.setenv("PADDLE_TPU_OBS_JOURNAL", os.devnull)
+    pred = Predictor(jax_saved["dir"], device="cpu")
+    timeline.clear()
+    journal.clear()
+    jjournal.clear()
+    before = (count("predictor_request_seconds", cold="true"),
+              count("predictor_request_seconds", cold="false"),
+              count("predictor_executable_cache_total", outcome="miss"),
+              count("predictor_executable_cache_total", outcome="hit"))
+    req = _requests()[0]
+    pred.run(req)
+    pred.run(req)
+    after = (count("predictor_request_seconds", cold="true"),
+             count("predictor_request_seconds", cold="false"),
+             count("predictor_executable_cache_total", outcome="miss"),
+             count("predictor_executable_cache_total", outcome="hit"))
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1]
+    names = [s[0] for s in timeline.spans() if s[1] == "predictor"]
+    assert names == ["feed_prep", "dispatch", "fetch_sync"] * 2
+    events = journal.recent(event="predict")
+    assert [e["cold"] for e in events] == [True, False]
+    JaxPredictor(jax_saved["dir"]).run(req)
+    jev = jjournal.recent(event="predict")[-1]
+    assert sorted(events[0]) == sorted(jev)
+    assert events[0]["feed"] == jev["feed"] and events[0]["fetch"] == jev["fetch"]
+
+
+def test_the_health_check_runs_after_the_fetch(jax_saved, monkeypatch):
+    """``PADDLE_TPU_OBS_HEALTH=raise`` turns a NaN output into
+    FloatingPointError naming the fetch, as in the JAX Predictor."""
+    pred = Predictor(jax_saved["dir"], device="cpu")
+    name = next(n for n, v in pred._state.items() if v.is_floating_point() and v.ndim == 1
+                and "layer_norm" in n and n.endswith(".b_0"))
+    pred._state[name].fill_(float("nan"))
+    monkeypatch.setenv("PADDLE_TPU_OBS_HEALTH", "raise")
+    with pytest.raises(FloatingPointError, match=pred.fetch_names[0]):
+        pred.run(_requests()[0])
+    monkeypatch.setenv("PADDLE_TPU_OBS_HEALTH", "off")
+    assert np.isnan(pred.run(_requests()[0])[0]).any()
+
+
+def test_swap_state_copies_into_the_pinned_tensors(jax_saved):
+    """``swap_state``: the same tensors (the ones a captured graph reads)
+    hold the new values, each serving dtype's cast copy too; the cached
+    executables are kept and answer with the new weights; ``model_version``
+    moves."""
+    pred = Predictor(jax_saved["dir"], device="cpu")
+    other = "bfloat16" if jax_saved["dtype"] == "float32" else "float32"
+    req = _requests()[0]
+    pred.run(req)
+    pred.run(req, dtype=other)
+    pinned = {n: t for n, t in pred._state.items()}
+    cast = dict(pred._states[other])
+    new = {n: (t * 0.5 if t.is_floating_point() else t).clone() for n, t in pinned.items()}
+    pred.swap_state(new)
+    assert all(pred._state[n] is pinned[n] and torch.equal(pinned[n], new[n]) for n in new)
+    assert all(pred._states[other][n] is cast[n] for n in cast)
+    assert pred.model_version == 2 and len(pred._compiled) == 2
+    fresh = Predictor(jax_saved["dir"], device="cpu")
+    fresh.swap_state(new, model_version=7)
+    assert fresh.model_version == 7
+    for dt in (None, other):
+        np.testing.assert_array_equal(pred.run(req, dtype=dt)[0], fresh.run(req, dtype=dt)[0])
+    assert pred._cache_counts["miss"] == 2
+
+
+def test_swap_state_rejects_before_touching_anything(jax_saved):
+    pred = Predictor(jax_saved["dir"], device="cpu")
+    state = {n: t.clone() for n, t in pred._state.items()}
+    name = sorted(state)[0]
+    with pytest.raises(ValueError, match="missing 1 parameter"):
+        pred.swap_state({n: t for n, t in state.items() if n != name})
+    bad = dict(state, **{name: torch.zeros((3, 3), dtype=state[name].dtype)})
+    with pytest.raises(ValueError, match="identical shapes and dtypes"):
+        pred.swap_state(bad)
+    wrong = dict(state, **{name: state[name].to(torch.float64)})
+    with pytest.raises(ValueError, match="identical shapes and dtypes"):
+        pred.swap_state(wrong)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+        pred.swap_state(dict(state, **{"sparse:emb": {}}))
+    pred.swap_state(state, validate_only=True)
+    assert pred.model_version == 1
+    assert all(torch.equal(pred._state[n], state[n]) for n in state)

@@ -132,6 +132,13 @@ CASES = {
                    "float32", None),
     "top_k-ties-64x50": ("top_k", {"X": [_ids((64, 50), 3, seed=7).astype("float32")]},
                          {"k": 5}, "float32", None),
+    # IEEE total order (ROADMAP 3.19): +0.0 above -0.0, a negative NaN below -inf
+    "top_k-signed-zeros": ("top_k", {"X": [np.array([[-0.0, 0.0]], "float32")]}, {"k": 1},
+                           "float32", None),
+    "top_k-signed-zeros-4": ("top_k", {"X": [np.array([[1, -0.0, 0.0, -1]], "float32")]},
+                             {"k": 2}, "float32", None),
+    "top_k-negative-nan": ("top_k", {"X": [np.array([[1, -np.nan, -1, 0]], "float32")]},
+                           {"k": 2}, "float32", None),
     "accuracy": ("accuracy", {"Indices": [_ids((8, 2), 3, seed=4)],
                               "Label": [_ids((8, 1), 3, seed=6)]}, {}, "float32", None),
     "assign": ("assign", {"X": [_r(3, 4)]}, {}, "float32", None),

@@ -11,9 +11,10 @@ accumulated over microbatches, transformer-base under mixed precision and
 VGG-16 under a gradient penalty, train DeepFM from a stream under the step
 guardian (preempted and resumed exactly) and ``examples/ctr_deepfm.py``'s
 host-table model, autotune BERT-base's and ResNet-50's routes and serve
-BERT-base to concurrent clients through ``PredictorPool`` through the
-PyTorch/CUDA port on one NVIDIA GPU, and hold its CUDA kernels against
-their plain PyTorch versions.
+BERT-base to concurrent clients through ``PredictorPool``, train and serve
+YOLOv3 at 608 x 608 and the three other detectors through the PyTorch/CUDA
+port on one NVIDIA GPU, and hold its CUDA kernels against their plain
+PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -347,6 +348,31 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    child process. Alone: ``python3 -c "import torch, chip_smoke as cs;
    cs.phase_build(); cs.phase_serving_tier(torch, 'build')"`` after
    ``mkdir -p build``;
+22. (run after phase 21, before its autotune cache is removed) object
+   detection, f32 with TF32 off. A: YOLOv3 (DarkNet-53 at the JAX model's
+   defaults, 80 classes) at PaddleDetection's ``yolov3_darknet.yml`` COCO
+   sizes, 608 x 608, batch 8, 50 gt rows an image (seeded images and boxes,
+   some rows padded, pairs of gts sharing a cell), 5 Adam steps through the
+   captured step against the same 5 run eagerly, losses and every state
+   tensor bit for bit, the losses finite and falling; step ms, busy ms,
+   idle share, launches a step, the graph pool, beside the f32 bound of
+   3 x 141 GFLOP an image. B: ``yolov3_infer`` with the trained weights
+   through ``save_inference_model`` to the port's ``Predictor`` at batch 1
+   and 8 (``conf_thresh`` 0.01, K 400, ``keep_top_k`` 100): no capture in
+   warm traffic, p50 ms, busy ms, the ``multiclass_nms`` sweep alone as a
+   graph of its own (its device ms and launches) and the network's ms
+   apart; batch 1 against the CPU Predictor by the gap rule
+   (``_dets_agree``). C: Faster R-CNN, RetinaNet and Mask R-CNN at their
+   JAX tests' sizes, 3 captured Adam steps each against the CPU port's and
+   one served batch against the CPU Predictor. D: every case of
+   ``tools/detection_cases.py`` on the card against the CPU port, each
+   card call also captured as a CUDA graph (a host sync would raise) with
+   its launches counted, and the gradients of ``roi_align``,
+   ``yolov3_loss`` and the bilinear resize. Every detection op type must
+   have run on the card (a table of calls and launches a call by path).
+   Alone: ``python3 -c "import tempfile, torch, chip_smoke as cs;
+   cs.phase_build(); cs.phase_detection(torch, tempfile.mkdtemp(dir='build'))"``
+   after ``mkdir -p build``;
 12. the kernels line (``multi_tensor_update`` with its five kinds, each
    with its launches; K1-fwd's 64-row tile as ``flash_attn_fwd_q64``),
    then the result line.
@@ -741,11 +767,10 @@ def _launch_times(torch, fn, calls):
     return launches
 
 
-def _graph_launches(torch, fn, names):
-    """The kernel launches of one call of ``fn`` by each of ``names``: the
-    kernel nodes of a CUDA graph that captures the call, read from its DOT
-    dump (``CUDAGraph.debug_dump``; a capture records and runs nothing).
-    Exact, where a profiler trace may lose its first records (ROADMAP 3.2)."""
+def _graph_dot_nodes(torch, fn):
+    """The node definitions of a CUDA graph that captures one call of
+    ``fn``, read from its DOT dump (``CUDAGraph.debug_dump``; a capture
+    records and runs nothing, and a host sync inside ``fn`` makes it raise)."""
     import re
     graph = torch.cuda.CUDAGraph(keep_graph=True)     # keeps the cudaGraph_t to dump
     graph.enable_debug_mode()
@@ -766,6 +791,14 @@ def _graph_launches(torch, fn, names):
     nodes = re.split(r'^\s*"?[^"\s\[]*node[^"\s\[]*"?\s*\[', text, flags=re.M)[1:]
     if not nodes:
         raise SystemExit(f"a captured graph's DOT dump names no node: {text[:400]!r}")
+    return nodes
+
+
+def _graph_launches(torch, fn, names):
+    """The kernel launches of one call of ``fn`` by each of ``names``: the
+    kernel nodes of a CUDA graph that captures the call (``_graph_dot_nodes``).
+    Exact, where a profiler trace may lose its first records (ROADMAP 3.2)."""
+    nodes = _graph_dot_nodes(torch, fn)
     return {n: sum(n in node for node in nodes) for n in names}
 
 
@@ -5573,6 +5606,539 @@ def phase_serving_tier(torch, workdir):
                 pool=served, probes=probes)
 
 
+# ---------------------------------------------------------------------------------------
+# Phase 22: object detection
+# ---------------------------------------------------------------------------------------
+
+# YOLOv3 at PaddleDetection's yolov3_darknet.yml COCO sizes: DarkNet-53 (the JAX
+# model's defaults: scale 1.0, stage blocks 1-2-8-8-4), 80 classes, 608 x 608,
+# batch 8, up to 50 gt boxes an image; Adam through the captured step
+YOLO_SIZE, YOLO_BATCH, YOLO_GT, YOLO_CLASSES, YOLO_LR = 608, 8, 50, 80, 1e-3
+YOLO_STEPS = 5
+# ~141 GFLOP a forward image at 608 (the YOLOv3 paper's 140.69 Bn); a training
+# step is about three forwards: 3 * 8 * 141e9 = 3.4 TFLOP, in f32 (TF32 off)
+YOLO_FWD_FLOP = 141e9
+YOLO_SERVE_WARM = {1: 10, 8: 4}       # warm requests timed at each batch
+# the card against the CPU port, the same weights and inputs. Detections:
+# rows are compared where their score stands apart from both neighbours by
+# more than DET_SCORE_GAP in the CPU run (an order that rounding cannot swap):
+# the label equal, the score within DET_SCORE_GAP and the box within
+# DET_BOX_TOL. The heads differ by f32 sums in another order (cuDNN against
+# the CPU's convolutions, through 75 of them at 608) and the decode's exp and
+# sigmoid by an ulp: ~1e-5 of a score of ~0.2-0.5 and ~1e-4 of a box side.
+DET_SCORE_GAP = 1e-4
+DET_BOX_TOL = dict(rtol=1e-3, atol=0.1)
+# the three smaller detectors, card against the CPU port from one state: step
+# 1 within 1e-4 (cuDNN's and the CPU's f32 sums; their batch norms' E[x^2] -
+# E[x]^2 cancel), steps 2-3 within 2e-3 (the tests' port-against-JAX limit:
+# Adam's first steps turn gradient rounding into update differences)
+DET_STEP1_RTOL, DET_LATER_RTOL = 1e-4, 2e-3
+# the per-op cases on the card against the CPU port (detection_cases.py's
+# tolerance tags): exact stays exact; BOX 1e-5 (the card's expf / logf /
+# sigmoid round within 2 ulps where the CPU's are correctly rounded, and a
+# box corner subtracts); SUM 1e-4 (cuDNN's and cuBLAS's sum orders); FOCAL 1e-5
+DET_CARD_TOL = {"exact": dict(rtol=0, atol=0), "box": dict(rtol=1e-5, atol=1e-5),
+                "sum": dict(rtol=1e-4, atol=1e-4), "focal": dict(rtol=1e-5, atol=1e-5)}
+
+
+def _graph_nodes(torch, fn):
+    """(nodes, kernel nodes) of a CUDA graph that captures one call of
+    ``fn`` with autograd off."""
+    with torch.no_grad():
+        nodes = _graph_dot_nodes(torch, fn)
+    return len(nodes), sum("KERNEL" in node for node in nodes)
+
+
+class _OpSpy:
+    """Counts the calls of the detection and vision lowerings on the card
+    (shape inference's meta calls aside) by path, and, while ``count_launches``
+    is on, captures one more call of each (op type, path) into a CUDA graph
+    of its own to count its launches at that path's shapes."""
+
+    def __init__(self, torch):
+        from paddle_tpu_torch.core import registry as treg
+        from paddle_tpu_torch.tools.detection_cases import DETECTION_TYPES, NN_TYPES
+        self.torch, self.treg = torch, treg
+        self.path, self.count_launches = None, False
+        self.calls, self.launches = {}, {}
+        self._saved = {}
+        self.types = sorted(DETECTION_TYPES | NN_TYPES)
+        for t in self.types:
+            d = treg.get(t)
+            self._saved[t] = d.lower
+            d.lower = self._wrap(t, d.lower)
+
+    def _wrap(self, t, lower):
+        def spy(ctx, ins):
+            out = lower(ctx, ins)
+            if ctx.device.type == "cuda" and self.path is not None:
+                key = (t, self.path)
+                self.calls[key] = self.calls.get(key, 0) + 1
+                if self.count_launches and key not in self.launches \
+                        and not self.torch.cuda.is_current_stream_capturing():
+                    self.launches[key] = _graph_nodes(self.torch, lambda: lower(ctx, ins))
+            return out
+        return spy
+
+    def close(self):
+        for t, lower in self._saved.items():
+            self.treg.get(t).lower = lower
+
+    def table(self):
+        by_type = {}
+        for (t, path), n in sorted(self.calls.items()):
+            row = by_type.setdefault(t, {"calls": 0, "paths": {}})
+            row["calls"] += n
+            nodes = self.launches.get((t, path))
+            row["paths"][path] = {"calls": n, "graph_nodes_a_call": nodes and nodes[0],
+                                  "kernel_launches_a_call": nodes and nodes[1]}
+        return by_type
+
+
+def yolo_feed(rng, batch, size=YOLO_SIZE, n_gt=YOLO_GT, classes=YOLO_CLASSES):
+    """Seeded images in [0, 1) and gt boxes (cx, cy, w, h, normalized).
+    Image i has n_gt - 4i real rows, the rest padded (w * h = 0); real rows
+    come in pairs that share a box centre (so a cell and an anchor slot at
+    every head) with sides 2% apart, each pair in a stride-32 cell of its
+    own (no three gts ever share a cell)."""
+    img = rng.uniform(0, 1, (batch, 3, size, size)).astype(np.float32)
+    grid = size // 32
+    gt = np.zeros((batch, n_gt, 4), np.float32)
+    for i in range(batch):
+        n_real = max(2, n_gt - 4 * i)
+        cells = rng.choice(grid * grid, size=(n_real + 1) // 2, replace=False)
+        for k in range(n_real):
+            c = cells[k // 2]
+            if k % 2 == 0:
+                cx = (c % grid + rng.uniform(0.2, 0.8)) / grid
+                cy = (c // grid + rng.uniform(0.2, 0.8)) / grid
+                w, h = rng.uniform(0.02, 0.5, 2)
+                gt[i, k] = [cx, cy, w, h]
+            else:
+                gt[i, k] = gt[i, k - 1] * np.array([1, 1, 1.02, 1.02], np.float32)
+    labels = rng.randint(0, classes, (batch, n_gt)).astype(np.int32)
+    return {"img": img, "gt_box": gt, "gt_label": labels}
+
+
+def _yolo_programs(pt, size=YOLO_SIZE):
+    from paddle_tpu_torch.models import yolov3
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        img = pt.data("img", [3, size, size], "float32")
+        gt_box = pt.data("gt_box", [YOLO_GT, 4], "float32")
+        gt_label = pt.data("gt_label", [YOLO_GT], "int32")
+        loss = yolov3.yolov3(img, gt_box, gt_label, num_classes=YOLO_CLASSES)
+        pt.optimizer.Adam(YOLO_LR).minimize(loss)
+    infer, infer_start = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(infer, infer_start):
+        img = pt.data("img", [3, size, size], "float32")
+        img_size = pt.data("img_size", [2], "int32")
+        dets, nums = yolov3.yolov3_infer(img, img_size, num_classes=YOLO_CLASSES)
+    return main, startup, loss, infer, dets, nums
+
+
+def _last_nms(program):
+    return [op for op in program.global_block().ops if op.type == "multiclass_nms"][-1]
+
+
+def _dets_agree(card, cpu, nums_card, nums_cpu):
+    """The gap rule (DET_SCORE_GAP, DET_BOX_TOL) over every image's rows:
+    (rows held, rows, the first disagreement or None)."""
+    held, first = 0, None
+    for n in range(cpu.shape[0]):
+        if int(nums_card[n]) != int(nums_cpu[n]) and first is None:
+            first = dict(image=n, nums=[int(nums_card[n]), int(nums_cpu[n])])
+        k = int(nums_cpu[n])
+        s = cpu[n, :k, 1]
+        gap = np.minimum(np.abs(np.diff(s, prepend=np.inf)), np.abs(np.diff(s, append=-np.inf)))
+        for r in np.flatnonzero(gap > DET_SCORE_GAP):
+            held += 1
+            a, b = card[n, r], cpu[n, r]
+            ok = (a[0] == b[0] and abs(a[1] - b[1]) <= DET_SCORE_GAP
+                  and np.allclose(a[2:], b[2:], **DET_BOX_TOL))
+            if not ok and first is None:
+                first = dict(image=n, row=int(r), card=a.tolist(), cpu=b.tolist())
+    return held, int(sum(int(x) for x in nums_cpu)), first
+
+
+def _nms_alone(torch, op, boxes, scores, runs=10):
+    """The serving program's multiclass_nms lowering alone on its own inputs:
+    the device ms of one replay of its CUDA graph (CUDA events, median of
+    ``runs``), the graph's nodes and kernel launches, and its outputs."""
+    from paddle_tpu_torch.core import registry as treg
+    ctx = treg.LowerCtx(dict(op.attrs), device=boxes.device)
+    fn = lambda: treg.get("multiclass_nms").lower(ctx, {"BBoxes": [boxes], "Scores": [scores]})
+    eager = fn()
+    nodes, kernels = _graph_nodes(torch, fn)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = fn()
+    times = []
+    for _ in range(runs):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
+        t0.record()
+        graph.replay()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+    same = all(torch.equal(outs[k][0], eager[k][0]) for k in ("Out", "NmsRoisNum"))
+    del graph
+    return dict(ms=statistics.median(times), graph_nodes=nodes, kernel_launches=kernels,
+                replay_equals_eager=same, K=min(int(op.attrs["nms_top_k"]), scores.shape[2]),
+                classes=int(scores.shape[1]))
+
+
+def _yolo_train(torch, pt, spy):
+    """A: YOLOv3 at 608 x 608, batch 8, Adam through the captured step against
+    the same steps run eagerly, bit for bit; step ms, busy ms, idle share,
+    launches a step, the graph's pool and the per-op launches."""
+    from paddle_tpu_torch.core import cuda_build
+    from paddle_tpu_torch.core.executor import capture_refusal
+    main, startup, loss, infer, dets, nums = _yolo_programs(pt)
+    raw = yolo_feed(np.random.RandomState(SEED), YOLO_BATCH)
+    feed = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    init = _startup_state(pt, main, startup)
+    refusal = capture_refusal(main)
+    if refusal is not None:
+        raise SystemExit(f"detection A: the YOLOv3 step is not captured: {refusal}")
+    runs, launches = {}, {}
+    for path in ("graph", "eager"):
+        exe = pt.Executor()
+        exe._use_graphs = path == "graph"
+        spy.path, spy.count_launches = f"yolov3_training_{path}", path == "eager"
+        for fn in cuda_build.COUNTED:
+            fn.launches = 0
+        outs, state, scope = _steps(pt, exe, main, feed, [loss], init, YOLO_STEPS)
+        torch.cuda.synchronize()
+        launches[path] = {fn.__name__: fn.launches for fn in cuda_build.COUNTED if fn.launches}
+        if path == "graph":
+            captured = [s for s in exe._cache.values() if s.graph is not None]
+            if not captured or any(s.refusal is not None for s in exe._cache.values()):
+                raise SystemExit("detection A: no CUDA graph was captured for the YOLOv3 step")
+        runs[path] = ([o[0].clone() for o in outs], {n: t.clone() for n, t in state.items()})
+        exe.close()
+        del exe, outs, state, scope
+        torch.cuda.empty_cache()
+    spy.path, spy.count_launches = None, False
+    losses = [float(t.reshape(-1)[0]) for t in runs["graph"][0]]
+    loss_equal = [torch.equal(a, b) for a, b in zip(runs["graph"][0], runs["eager"][0])]
+    differs = _state_equal(torch, runs["graph"][1], runs["eager"][1])
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit(f"detection A: YOLOv3 losses not finite and falling: {losses}")
+    if not all(loss_equal) or differs:
+        raise SystemExit(f"detection A: the captured YOLOv3 steps part from the eager ones: "
+                         f"losses {loss_equal}, state {differs[:8]}")
+    timed = _timed_path(torch, pt, main, feed, loss, init, graphs_on=True, free_dead=True)
+    bound_ms = 3 * YOLO_BATCH * YOLO_FWD_FLOP / PEAK_FLOPS["float32"] * 1e3
+    r = dict(model="yolov3 darknet53", size=YOLO_SIZE, batch=YOLO_BATCH, gt_rows=YOLO_GT,
+             classes=YOLO_CLASSES, steps=YOLO_STEPS, losses=losses,
+             losses_eager=[float(t.reshape(-1)[0]) for t in runs["eager"][0]],
+             graph_bit_equal_to_eager=True, state_tensors=len(init),
+             multi_tensor_update_launches=launches,
+             step_ms=timed["step_ms_median_warm"], step_ms_all=timed["step_ms"],
+             device_busy_ms=timed["device_busy_ms"],
+             idle_share=timed["idle_share_unprofiled"],
+             idle_share_profiled=timed["idle_share_profiled"],
+             launches_per_step=timed["device_activities_per_step"],
+             by_kind=timed["by_kind"], graph_pool_gb=timed["graph_pool_gb"],
+             peak_gb=timed["peak_gb"], f32_bound_ms=bound_ms,
+             step_flop=3 * YOLO_BATCH * YOLO_FWD_FLOP)
+    emit("detection_yolov3_training", **r)
+    return r, runs["graph"][1], (infer, dets, nums)
+
+
+def _yolo_serve(torch, pt, workdir, state, infer, dets, nums):
+    """B: ``yolov3_infer`` with the trained weights, saved and served by the
+    port's Predictor at batch 1 and 8 (graph replays, no capture in traffic),
+    the NMS sweep's device ms apart, and batch 1 against the CPU Predictor."""
+    from paddle_tpu_torch.inference import Predictor
+    from paddle_tpu_torch.tools.train_profile import traced
+    from torch.profiler import ProfilerActivity
+    model_dir = os.path.join(workdir, "yolov3")
+    scope = pt.Scope()
+    for n, t in state.items():
+        scope.set_var(n, t)
+    with pt.scope_guard(scope):
+        pt.io.save_inference_model(model_dir, ["img", "img_size"], [dets, nums], pt.Executor(),
+                                   main_program=infer)
+    rng = np.random.RandomState(SEED + 22)
+    pred = Predictor(model_dir)
+    rows = []
+    for batch, warm in YOLO_SERVE_WARM.items():
+        req = {"img": rng.uniform(0, 1, (batch, 3, YOLO_SIZE, YOLO_SIZE)).astype(np.float32),
+               "img_size": np.full((batch, 2), YOLO_SIZE, np.int32)}
+        t0 = time.perf_counter()
+        cold = pred.run(req)
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        misses = pred._cache_counts["miss"]
+        lat = []
+        for _ in range(warm):
+            t0 = time.perf_counter()
+            out = pred.run(req)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        if pred._cache_counts["miss"] != misses:
+            raise SystemExit("detection B: a warm request captured a graph")
+        if not all(np.array_equal(a, b) for a, b in zip(out, cold)):
+            raise SystemExit("detection B: a replay parts from the first request's outputs")
+        torch.cuda.synchronize()
+        with traced([ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                pred.run(req)
+            torch.cuda.synchronize()
+        busy = _device_busy_ms(prof) / 3
+        # the NMS inputs of this request, from the eager program on the card
+        op = _last_nms(infer)
+        exe = pt.Executor()
+        exe._use_graphs = False
+        with pt.scope_guard(scope):
+            b, s = exe.run(infer, feed=req, fetch_list=[op.inputs["BBoxes"][0],
+                                                        op.inputs["Scores"][0]],
+                           return_numpy=False)
+        nms = _nms_alone(torch, op, b, s)
+        if not nms["replay_equals_eager"]:
+            raise SystemExit("detection B: the NMS graph's replay parts from its eager run")
+        dets_, nums_ = out
+        if not (np.isfinite(dets_).all() and dets_.shape == (batch, 100, 6)):
+            raise SystemExit(f"detection B: served detections {dets_.shape} not finite")
+        row = dict(batch=batch, cold_ms=cold_ms, p50_ms=statistics.median(lat), ms=lat,
+                   device_busy_ms=busy, nms_device_ms=nms["ms"],
+                   network_device_ms=busy - nms["ms"], nms=nms,
+                   kept=[int(x) for x in nums_], graphs=len(pred._compiled))
+        if batch == 1:
+            cpu_out = Predictor(model_dir, device="cpu").run(req)
+            held, total, first = _dets_agree(dets_, cpu_out[0], nums_, cpu_out[1])
+            row["against_cpu"] = dict(rows_held=held, rows=total, first_disagreement=first)
+            if first is not None or held == 0:
+                raise SystemExit(f"detection B: batch 1 parts from the CPU port: {first}")
+        rows.append(row)
+        emit("detection_yolov3_serving", **row)
+        del b, s
+    shutil.rmtree(model_dir, ignore_errors=True)
+    return rows
+
+
+def _small_detectors(pt):
+    """(name, train build, infer build, feed): each detector at its JAX
+    test's TINY size (tests/test_faster_rcnn.py:11, test_retinanet.py:56,
+    test_mask_rcnn.py:89)."""
+    from paddle_tpu_torch.models import faster_rcnn, mask_rcnn, retinanet
+    A = dict(append_batch_size=False)
+    frcnn = dict(scale=0.125, stage_blocks=(1, 1, 1), num_classes=5,
+                 anchor_sizes=(32, 64), aspect_ratios=(1.0,), post_nms_top_n=16)
+    retina = dict(scale=0.1, levels=2, num_classes=5, n_convs=1)
+    mrcnn = dict(scale=0.1, levels=2, num_classes=4, post_nms_top_n=12,
+                 roi_resolution=4, mask_resolution=4)
+    rng = np.random.RandomState(SEED)
+    boxes = np.zeros((2, 3, 4), np.float32)
+    boxes[:, 0] = [8, 8, 28, 28]
+    boxes[:, 1] = [36, 30, 60, 50]
+    frcnn_feed = {"img": rng.uniform(0, 1, (2, 3, 64, 64)).astype(np.float32),
+                  "gt_box": boxes, "gt_label": rng.randint(1, 5, (2, 3)).astype(np.int32),
+                  "im_info": np.tile(np.array([[64, 64, 1.0]], np.float32), (2, 1))}
+    one = {"img": rng.uniform(0, 1, (1, 3, 64, 64)).astype(np.float32),
+           "gt_box": np.array([[[8, 8, 40, 40], [30, 20, 62, 60]]], np.float32),
+           "gt_label": np.array([[1, 3]], np.int32),
+           "im_info": np.array([[64, 64, 1.0]], np.float32)}
+    masks = np.zeros((1, 2, 32, 32), np.float32)
+    masks[0, 0, 2:14, 2:14] = 1
+    masks[0, 1, 18:28, 16:30] = 1
+    mfeed = dict(one, gt_box=np.array([[[4, 4, 28, 28], [32, 36, 60, 58]]], np.float32),
+                 gt_masks=masks)
+
+    def data(n, g, with_masks=False):
+        d = [pt.data("img", [n, 3, 64, 64], "float32", **A),
+             pt.data("gt_box", [n, g, 4], "float32", **A),
+             pt.data("gt_label", [n, g], "int32", **A)]
+        if with_masks:
+            d.append(pt.data("gt_masks", [n, g, 32, 32], "float32", **A))
+        return d + [pt.data("im_info", [n, 3], "float32", **A)]
+
+    def infer_data(n):
+        return (pt.data("img", [n, 3, 64, 64], "float32", **A),
+                pt.data("im_info", [n, 3], "float32", **A))
+
+    return [
+        ("faster_rcnn", lambda: faster_rcnn.faster_rcnn(*data(2, 3), batch_size=2, **frcnn)[0],
+         lambda: list(faster_rcnn.faster_rcnn_infer(*infer_data(2), batch_size=2,
+                                                    keep_top_k=20, **frcnn)),
+         frcnn_feed),
+        ("retinanet", lambda: retinanet.retinanet(*data(1, 2), batch_size=1, **retina)[0],
+         lambda: [retinanet.retinanet_infer(*infer_data(1), batch_size=1, keep_top_k=20,
+                                            **retina)],
+         one),
+        ("mask_rcnn", lambda: mask_rcnn.mask_rcnn(*data(1, 2, True), batch_size=1, **mrcnn)[0],
+         lambda: list(mask_rcnn.mask_rcnn_infer(*infer_data(1), batch_size=1, keep_top_k=10,
+                                                **mrcnn)),
+         mfeed)]
+
+
+def _small_detector(torch, pt, workdir, spy, name, train_build, infer_build, raw):
+    """C: 3 captured Adam steps on the card against the CPU port's 3 from the
+    same state, then one served batch against the CPU Predictor."""
+    from paddle_tpu_torch.core.executor import capture_refusal
+    from paddle_tpu_torch.inference import Predictor
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        loss = train_build()
+        pt.optimizer.Adam(1e-3).minimize(loss)
+    infer, infer_start = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(infer, infer_start):
+        fetch = infer_build()
+    init = _startup_state(pt, main, startup)
+    if capture_refusal(main) is not None:
+        raise SystemExit(f"detection C: {name}'s step is not captured: {capture_refusal(main)}")
+    feed = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    spy.path, spy.count_launches = f"{name}_training_eager", True
+    exe = pt.Executor()
+    exe._use_graphs = False
+    _steps(pt, exe, main, feed, [loss], init, 1)
+    spy.path, spy.count_launches = f"{name}_training", False
+    from paddle_tpu_torch.core import cuda_build
+    for fn in cuda_build.COUNTED:
+        fn.launches = 0
+    exe = pt.Executor()
+    outs, _, _ = _steps(pt, exe, main, feed, [loss], init, 3)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in cuda_build.COUNTED if fn.launches}
+    captured = sum(s.graph is not None for s in exe._cache.values())
+    if not captured:
+        raise SystemExit(f"detection C: no CUDA graph was captured for {name}'s step")
+    exe.close()
+    card = [float(o[0].reshape(-1)[0]) for o in outs]
+    cpu_scope = pt.Scope()
+    for n, t in init.items():
+        cpu_scope.set_var(n, t.cpu().clone())
+    with pt.scope_guard(cpu_scope):
+        cexe = pt.Executor(pt.CPUPlace())
+        cpu = [float(np.asarray(cexe.run(main, feed=raw, fetch_list=[loss])[0]).reshape(()))
+               for _ in range(3)]
+    rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+    if not (np.isfinite(card).all() and rel[0] <= DET_STEP1_RTOL
+            and max(rel[1:]) <= DET_LATER_RTOL):
+        raise SystemExit(f"detection C: {name}'s card losses {card} part from the CPU "
+                         f"port's {cpu}")
+    # one served batch from the startup state, card and CPU Predictors
+    model_dir = os.path.join(workdir, name)
+    scope = pt.Scope()
+    for n, t in init.items():
+        scope.set_var(n, t)
+    with pt.scope_guard(scope):
+        pt.io.save_inference_model(model_dir, ["img", "im_info"], fetch, pt.Executor(),
+                                   main_program=infer)
+    req = {"img": raw["img"], "im_info": raw["im_info"]}
+    spy.path = f"{name}_serving"
+    pred = Predictor(model_dir)
+    got = pred.run(req)
+    again = pred.run(req)
+    spy.path = None
+    want = Predictor(model_dir, device="cpu").run(req)
+    if not all(np.array_equal(a, b) for a, b in zip(got, again)):
+        raise SystemExit(f"detection C: {name}'s replay parts from its first request")
+    nums_card = got[1] if len(got) > 1 else (got[0][..., 0] >= 0).sum(-1)
+    nums_cpu = want[1] if len(want) > 1 else (want[0][..., 0] >= 0).sum(-1)
+    held, total, first = _dets_agree(got[0], want[0], nums_card, nums_cpu)
+    if first is not None:
+        raise SystemExit(f"detection C: {name}'s served detections part from the CPU "
+                         f"port's: {first}")
+    r = dict(model=name, losses=card, losses_cpu=cpu, loss_rel_gaps=rel, graphs=captured,
+             multi_tensor_update_launches=launches,
+             served_rows_held=held, served_rows=total,
+             mask_max_abs_gap=(float(np.abs(got[2] - want[2]).max()) if name == "mask_rcnn"
+                               else None))
+    if name == "mask_rcnn" and r["mask_max_abs_gap"] > 1e-3:
+        raise SystemExit(f"detection C: mask_rcnn's masks part from the CPU port's by "
+                         f"{r['mask_max_abs_gap']}")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    emit("detection_small", **r)
+    return r
+
+
+def _detection_cases_on_card(torch):
+    """D: every case of tools/detection_cases.py on the card against the CPU
+    port (DET_CARD_TOL by the case's tag), each card call also captured as a
+    CUDA graph (no host sync) with its launches counted; then roi_align's
+    and yolov3_loss's gradients on the card against the CPU."""
+    from paddle_tpu_torch.core import registry as treg
+    from paddle_tpu_torch.tools import detection_cases as dc
+    tags = {id(dc.EXACT): "exact", id(dc.BOX): "box", id(dc.SUM): "sum", id(dc.FOCAL): "focal"}
+    rows = []
+    for case, (op_type, ins, attrs, tol) in sorted(dc.CASES.items()):
+        tol = DET_CARD_TOL[tags[id(tol)]]
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            ctx = treg.LowerCtx(dict(attrs), device=dev)
+            tins = {s: [torch.from_numpy(np.array(a)).to(dev) for a in v] for s, v in ins.items()}
+            outs[dev] = treg.get(op_type).lower(ctx, tins)
+        nodes = _graph_nodes(torch, lambda: treg.get(op_type).lower(ctx, tins))
+        err = 0.0
+        for slot, vals in outs["cpu"].items():
+            for a, b in zip(vals, outs["cuda"][slot]):
+                a, b = a.detach().numpy(), b.detach().cpu().numpy()
+                if a.dtype.kind in "iub" or tol["atol"] == 0:
+                    ok = np.array_equal(a, b)
+                else:
+                    ok = np.allclose(b, a, **tol)
+                    err = max(err, float(np.abs(a.astype(np.float64) - b).max()) if a.size else 0)
+                if not ok:
+                    raise SystemExit(f"detection D: {case} {slot} parts from the CPU port")
+        rows.append(dict(case=case, op=op_type, tol=tags[id(dc.CASES[case][3])],
+                         max_abs_err=err, graph_nodes=nodes[0], kernel_launches=nodes[1]))
+    grads = []
+    for case in ("roi_align", "roi_align-ratio3", "yolov3_loss", "interpolate-bilinear-1-3x"):
+        op_type, ins, attrs, _ = dc.CASES[case]
+        slot = "Loss" if op_type == "yolov3_loss" else "Out"
+        g = {}
+        for dev in ("cpu", "cuda"):
+            x = torch.from_numpy(np.array(ins["X"][0])).to(dev).requires_grad_()
+            tins = {s: [x] if s == "X" else [torch.from_numpy(np.array(a)).to(dev) for a in v]
+                    for s, v in ins.items()}
+            out = treg.get(op_type).lower(treg.LowerCtx(dict(attrs), device=dev), tins)[slot][0]
+            cot = torch.from_numpy(np.random.RandomState(7).randn(*out.shape)
+                                   .astype(np.float32)).to(dev)
+            g[dev] = torch.autograd.grad(out, x, cot)[0].cpu().numpy()
+        err = float(np.abs(g["cpu"] - g["cuda"]).max())
+        if not np.allclose(g["cuda"], g["cpu"], **DET_CARD_TOL["sum"]):
+            raise SystemExit(f"detection D: {case}'s gradient parts from the CPU port's by {err}")
+        grads.append(dict(case=case, max_abs_err=err))
+    emit("detection_cases_on_card", cases=len(rows), op_types=sorted({r["op"] for r in rows}),
+         rows=rows, grads=grads)
+    return rows, grads
+
+
+def phase_detection(torch, workdir):
+    """Phase 22: YOLOv3 trained (A) and served (B) at 608 x 608, the other
+    three detectors trained and served (C), the per-op cases on the card (D),
+    every detection op type launched at least once."""
+    import paddle_tpu_torch as pt
+    t0 = time.perf_counter()
+    spy = _OpSpy(torch)
+    try:
+        train, state, (infer, dets, nums) = _yolo_train(torch, pt, spy)
+        torch.cuda.empty_cache()
+        spy.path = "yolov3_serving"
+        serving = _yolo_serve(torch, pt, workdir, state, infer, dets, nums)
+        del state
+        torch.cuda.empty_cache()
+        small = [_small_detector(torch, pt, workdir, spy, *d) for d in _small_detectors(pt)]
+        spy.path = "cases"
+        cases, grads = _detection_cases_on_card(torch)
+        spy.path = None
+    finally:
+        spy.close()
+    table = spy.table()
+    missing = [t for t in spy.types if t not in table]
+    emit("detection_op_types", ran=table, missing=missing)
+    if missing:
+        raise SystemExit(f"detection: op types never launched on the card: {missing}")
+    torch.cuda.empty_cache()
+    emit("detection", seconds=time.perf_counter() - t0)
+    return dict(train=train, serving=serving, small=small, cases=cases, grads=grads,
+                op_types=table, seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     if not os.path.isfile(os.path.join(REPO, "paddle_tpu_torch", "csrc",
                                        "flash_attn_fwd.cu")):
@@ -5706,6 +6272,12 @@ def main() -> int:
         tier = phase_serving_tier(torch, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
+    try:
+        det = phase_detection(torch, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     os.remove(tune_cache)
     tier_l = {"tuner_search": tier["tuner_launches"],
               "serving_pool": tier["pool"]["traffic"]["launches"]}
@@ -5771,7 +6343,13 @@ def main() -> int:
                     ("adam", stream_a["arrival_merge"]["multi_tensor_update_launches"]),
                 **{f"host_table_ctr_{label}_{p}": ("adam", r["multi_tensor_update_launches"][p])
                    for label, r in (("example", host_b1), ("at_scale", host_b2))
-                   for p in ("graph", "eager", "graph_fetch_fault")}}
+                   for p in ("graph", "eager", "graph_fetch_fault")},
+                **{f"detection_yolov3_training_{p}":
+                   ("adam", det["train"]["multi_tensor_update_launches"][p]
+                    .get("multi_tensor_update", 0)) for p in ("graph", "eager")},
+                **{f"detection_{r['model']}_training":
+                   ("adam", r["multi_tensor_update_launches"].get("multi_tensor_update", 0))
+                   for r in det["small"]}}
     kind_rows = {"adam": mt_bert, "momentum": mt_res, "sgd": mt_mnist,
                  "lamb": normed_mres[0], "lars_momentum": normed_mres[1]}
     # each kind's launches: its calls on the paths times the launches of a call
@@ -6004,6 +6582,18 @@ def main() -> int:
         "fuse_steps_search": {k: tier["fuse"][k] for k in ("k", "timings_ms_per_step",
                                                            "state_bit_equal")},
         "out_of_range_gather_on_card": tier["probes"]["gather"],
+        "detection": {
+            "yolov3_step_ms": det["train"]["step_ms"],
+            "yolov3_f32_bound_ms": det["train"]["f32_bound_ms"],
+            "yolov3_losses": det["train"]["losses"],
+            "yolov3_idle_share": det["train"]["idle_share"],
+            "yolov3_serving_p50_ms": {str(r["batch"]): r["p50_ms"] for r in det["serving"]},
+            "nms_device_ms": {str(r["batch"]): r["nms_device_ms"] for r in det["serving"]},
+            "nms_kernel_launches": {str(r["batch"]): r["nms"]["kernel_launches"]
+                                    for r in det["serving"]},
+            "small_detectors_losses": {r["model"]: r["losses"] for r in det["small"]},
+            "op_types_on_card": len(det["op_types"]), "cases_on_card": len(det["cases"]),
+            "seconds": det["seconds"]},
         "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

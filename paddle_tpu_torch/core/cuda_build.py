@@ -10,6 +10,7 @@ source, all started together.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -17,7 +18,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, Iterator, List, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -37,11 +38,50 @@ build_logs: Dict[str, str] = {}
 
 
 def counted(fn: Callable) -> Callable:
-    """Register kernel wrapper ``fn``: it adds one to ``fn.launches`` (from 0)
-    where it launches its kernel, and nowhere else."""
+    """Register kernel wrapper ``fn``: it calls ``launched(fn)`` (``fn.launches``
+    from 0) where it launches its kernel, and nowhere else."""
     fn.launches = 0
     COUNTED.append(fn)
     return fn
+
+
+_count_lock = threading.Lock()
+#: capture stream (its ``cuda_stream`` handle) -> the launches made on it
+_tallies: Dict[int, Dict[Callable, int]] = {}
+
+
+def launched(fn: Callable) -> None:
+    """Count one launch of wrapper ``fn``'s kernel. A launch on a stream that
+    ``stream_launches`` watches is also tallied for that stream."""
+    with _count_lock:
+        fn.launches += 1
+        if _tallies:
+            import torch
+            tally = _tallies.get(torch.cuda.current_stream().cuda_stream)
+            if tally is not None:
+                tally[fn] = tally.get(fn, 0) + 1
+
+
+def add_launches(counts: Dict[Callable, int], sign: int = 1) -> None:
+    """Add ``sign`` times each count of ``counts`` to its wrapper's ``launches``."""
+    with _count_lock:
+        for fn, n in counts.items():
+            fn.launches += sign * n
+
+
+@contextlib.contextmanager
+def stream_launches(stream) -> Iterator[Dict[Callable, int]]:
+    """Yield a dict that gathers, per wrapper, the launches made on ``stream``
+    inside the block, from any thread (autograd's device thread launches a
+    backward on its forward's stream); launches on other streams are not in it."""
+    key = stream.cuda_stream
+    with _count_lock:
+        _tallies[key] = tally = {}
+    try:
+        yield tally
+    finally:
+        with _count_lock:
+            del _tallies[key]
 
 
 def _nvcc() -> str:

@@ -12,7 +12,10 @@ own meanwhile does not break it. ``Graph.replay()`` launches the graph.
 
 The kernel wrappers' ``launches`` are host counters that a replay does not
 move, so the capture's launches are taken back off them and added again on
-every replay: they count what ran.
+every replay: they count what ran. A capture counts only the launches on
+its capture stream (``cuda_build.stream_launches``), from its own thread and
+from autograd's device thread: another thread running eagerly meanwhile
+neither adds its launches to the graph nor loses them.
 
 A kernel wrapper that makes a buffer the graph must keep (the multi-tensor
 update's work table) passes it to ``hold`` from the capturing thread: it
@@ -62,29 +65,26 @@ class Graph:
     def __init__(self, device: torch.device, fn: Callable[[], object]):
         torch.cuda.synchronize(device)
         torch.cuda.empty_cache()     # as the capture does first: what it adds is its pool
-        before = {f: f.launches for f in cuda_build.COUNTED}
         reserved = torch.cuda.memory_reserved(device)
         self.graph = torch.cuda.CUDAGraph()
         held = _tls.held = []
-        try:
-            # thread_local: another thread serving its own signature meanwhile does
-            # not break this capture (the capturing thread's own syncs still do)
-            with torch.cuda.graph(self.graph, pool=torch.cuda.graph_pool_handle(),
-                                  capture_error_mode="thread_local"):
-                self.outputs = fn()
-        finally:
-            _tls.held = None
-            #: each wrapper's launches in one replay
-            self.launches: Dict[Callable, int] = {}
-            for f, n in before.items():
-                if f.launches != n:
-                    self.launches[f] = f.launches - n
-                    f.launches = n
+        # thread_local: another thread serving its own signature meanwhile does
+        # not break this capture (the capturing thread's own syncs still do)
+        capture = torch.cuda.graph(self.graph, pool=torch.cuda.graph_pool_handle(),
+                                   capture_error_mode="thread_local")
+        with cuda_build.stream_launches(capture.capture_stream) as mine:
+            try:
+                with capture:
+                    self.outputs = fn()
+            finally:
+                _tls.held = None
+                #: each wrapper's launches in one replay
+                self.launches: Dict[Callable, int] = dict(mine)
+                cuda_build.add_launches(mine, -1)
         #: device memory the capture reserved for this graph's pool (bytes)
         self.memory_bytes = torch.cuda.memory_reserved(device) - reserved
         self._held: List[torch.Tensor] = held
 
     def replay(self) -> None:
         self.graph.replay()
-        for f, n in self.launches.items():
-            f.launches += n
+        cuda_build.add_launches(self.launches)

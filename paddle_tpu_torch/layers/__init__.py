@@ -3,16 +3,17 @@ from .io import (create_py_reader_by_data, data, double_buffer, load,  # noqa: F
                  py_reader, read_file)
 from .nn import (abs, accuracy, acos, asin, atan, auc, batch_norm,  # noqa: F401
                  beam_append, beam_search, beam_search_decode, brelu, cast, ceil, clip,
-                 clip_by_norm, conv2d, cos, cos_sim, cosh, cross_entropy, cross_entropy2,
+                 clip_by_norm, conv2d, conv2d_transpose, cos, cos_sim, cosh, cross_entropy, cross_entropy2,
                  dropout, elementwise_add, elementwise_div, elementwise_floordiv,
                  elementwise_max, elementwise_min, elementwise_mod, elementwise_mul,
                  elementwise_pow, elementwise_sub, elu, embedding, erf, exp, expand, fc,
                  flatten, floor, fused_attention, gather, gather_nd, gaussian_random, gelu,
-                 hard_shrink, hard_sigmoid, hard_swish, huber_loss, l2_normalize,
+                 hard_shrink, hard_sigmoid, hard_swish, huber_loss, image_resize, l2_normalize,
                  label_smooth, layer_norm, leaky_relu, log, log_loss, log_softmax,
                  logsigmoid, matmul, mean, mish, mul, one_hot, pad, pad2d, pool2d, pow,
                  reciprocal, reduce_all, reduce_any, reduce_max, reduce_mean, reduce_min,
-                 reduce_prod, reduce_sum, relu, relu6, reshape, round, rsqrt, scale, scatter,
+                 reduce_prod, reduce_sum, relu, relu6, reshape, resize_bilinear, resize_nearest,
+                 round, rsqrt, scale, scatter,
                  shape, sigmoid, sigmoid_cross_entropy_with_logits, sign, sin, sinh, slice,
                  smooth_l1, soft_relu, softmax, softmax_with_cross_entropy, softplus,
                  softshrink, softsign, split, sqrt, square, square_error_cost, squeeze, stack,
@@ -40,3 +41,4 @@ from .extras import (autoincreased_step_counter, crf_decoding,  # noqa: F401
 from .sequence import (sequence_conv, sequence_first_step,  # noqa: F401
                        sequence_last_step, sequence_pool, sequence_reverse,
                        sequence_unpad)
+from .detection import *  # noqa: F401,F403  (its __all__: the 28 detection layers)

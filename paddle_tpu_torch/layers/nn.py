@@ -1,7 +1,6 @@
 """Core NN layers DSL (the port's copy of ``paddle_tpu/layers/nn.py``: every
-function but the vision layers ``adaptive_pool2d``, ``conv2d_transpose``,
-``deformable_conv``, ``group_norm``, ``image_resize``, ``instance_norm``,
-``prelu``, ``resize_bilinear``, ``resize_nearest`` and ``chunk_eval``,
+function but the vision layers ``adaptive_pool2d``, ``deformable_conv``,
+``group_norm``, ``instance_norm``, ``prelu`` and ``chunk_eval``,
 ``sequence_mask``, ``similarity_focus``, which are not ported yet).
 
 Each function builds ops into the default main program and parameters into
@@ -83,6 +82,39 @@ def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
         helper.append_op("elementwise_add", inputs={"X": [pre_act], "Y": [b]},
                          outputs={"Out": [out2]},
                          attrs={"axis": 1 if data_format == "NCHW" else -1})
+        pre_act = _var(helper, out2)
+    return helper.append_activation(pre_act)
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=1, param_attr=None,
+                     bias_attr=None, use_cudnn=True, act=None, name=None):
+    helper = LayerHelper("conv2d_transpose", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    c_in = input.shape[1]
+    fh, fw = (filter_size if isinstance(filter_size, (list, tuple))
+              else (filter_size, filter_size))
+    w = helper.create_parameter(param_attr,
+                                [c_in, num_filters // (groups or 1), fh, fw],
+                                input.dtype)
+    out = _out(helper, input.dtype)
+    helper.append_op(
+        "conv2d_transpose", inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [out]},
+        attrs={"strides": [stride, stride] if isinstance(stride, int)
+               else list(stride),
+               "paddings": [padding, padding] if isinstance(padding, int)
+               else list(padding),
+               "dilations": [dilation, dilation] if isinstance(dilation, int)
+               else list(dilation),
+               "groups": groups or 1})
+    pre_act = _var(helper, out)
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [num_filters], input.dtype,
+                                    is_bias=True)
+        out2 = _out(helper, input.dtype)
+        helper.append_op("elementwise_add", inputs={"X": [pre_act], "Y": [b]},
+                         outputs={"Out": [out2]}, attrs={"axis": 1})
         pre_act = _var(helper, out2)
     return helper.append_activation(pre_act)
 
@@ -798,3 +830,29 @@ def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32"):
                             "dtype": convert_dtype(dtype), "mean": mean,
                             "std": std, "seed": seed})
     return _var(helper, out)
+
+
+def image_resize(input, out_shape=None, scale=None, name=None,
+                 resample="BILINEAR", actual_shape=None, align_corners=True,
+                 align_mode=1):
+    """An ``interpolate`` op to ``out_shape`` (h, w) or ``scale`` x the input.
+    ``align_corners`` and ``align_mode`` are accepted and not read: the
+    resize uses half-pixel centres, as the JAX package's does (ROADMAP
+    3.22)."""
+    helper = LayerHelper("interpolate", name=name)
+    out = _out(helper, input.dtype)
+    method = {"BILINEAR": "bilinear", "NEAREST": "nearest"}[resample]
+    attrs = {"interp_method": method, "scale": float(scale or 0.0)}
+    if out_shape is not None:
+        attrs["out_h"], attrs["out_w"] = int(out_shape[0]), int(out_shape[1])
+    helper.append_op("interpolate", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs=attrs)
+    return _var(helper, out)
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None, **kw):
+    return image_resize(input, out_shape, scale, name, "BILINEAR")
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None, **kw):
+    return image_resize(input, out_shape, scale, name, "NEAREST")

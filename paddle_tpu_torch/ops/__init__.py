@@ -20,3 +20,4 @@ from . import control_flow     # noqa: F401
 from . import sequence_ops     # noqa: F401
 from . import ctc_crf_ops      # noqa: F401
 from . import host_table       # noqa: F401
+from . import detection_ops    # noqa: F401

@@ -167,6 +167,37 @@ def shape_op(ctx, ins):
     return {"Out": [t]}
 
 
+#: (key, device) -> tensor: other lowerings' constants built on the host
+#: (``device_constant``), made outside any CUDA-graph capture as the above are
+_KEYED: "collections.OrderedDict[tuple, torch.Tensor]" = collections.OrderedDict()
+
+
+def device_constant(key, device, build):
+    """``build()`` (a CPU tensor) on ``device``, cached under ``key`` per
+    device: on the card uploaded once, outside any CUDA-graph capture (the
+    step's eager run makes it), and reused. On the meta device, an empty
+    tensor of its shape and dtype."""
+    device = torch.device(device)
+    if device.type == "meta":
+        t = build()
+        return torch.empty(t.shape, dtype=t.dtype, device=device)
+    k = (key, str(device))
+    with _CONSTANTS_LOCK:
+        t = _KEYED.get(k)
+        if t is not None:
+            _KEYED.move_to_end(k)
+            return t
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"constant {key!r} was not made before the CUDA graph capture "
+                           f"(the step's eager run makes it)")
+    t = build().to(device)
+    with _CONSTANTS_LOCK:
+        _KEYED[k] = t
+        while len(_KEYED) > 2 * _CONSTANTS_CAP:
+            _KEYED.popitem(last=False)
+    return t
+
+
 def _static_bounds(ctx, ins, op, slots):
     """The values of ``slots``' one-element inputs, read on the host: as in
     the JAX lowering, tensor bounds cannot set a shape where the values are

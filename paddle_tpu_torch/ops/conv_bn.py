@@ -180,7 +180,7 @@ def _on_card(x2, w, mu, var, gamma, beta, eps, relu_in, apply_in_bn):
                   s.data_ptr(), ss.data_ptr()),
             M, K, N, _DTYPE_CODES[x2.dtype], int(bool(apply_in_bn)), int(bool(relu_in)),
             int(aligned), rows)
-    fused_conv1x1_bn_fwd.launches += 1
+    cuda_build.launched(fused_conv1x1_bn_fwd)
     return y, s, ss
 
 

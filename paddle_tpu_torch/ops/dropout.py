@@ -123,7 +123,7 @@ def dropout_fwd(x, p: float, upscale: bool, seed):
                    *seed_args(seed, x.device), grid, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dropout_fwd: kernel launch failed with CUDA error {rc}")
-    dropout_fwd.launches += 1
+    cuda_build.launched(dropout_fwd)
     return out, mask
 
 

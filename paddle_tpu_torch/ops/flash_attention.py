@@ -341,7 +341,7 @@ def flash_attn_fwd(q, k, v, bias=None, scale=None, causal=False, dropout=0.0, se
     if block_q == 64:
         return flash_attn_fwd_q64(q, k, v, bias, scale, causal, dropout, seed, return_lse)
     out = _fwd(q, k, v, bias, scale, causal, dropout, seed, return_lse, block_q)
-    flash_attn_fwd.launches += 1
+    cuda_build.launched(flash_attn_fwd)
     return out
 
 
@@ -351,7 +351,7 @@ def flash_attn_fwd_q64(q, k, v, bias=None, scale=None, causal=False, dropout=0.0
     """``flash_attn_fwd`` at the bf16 kernel's 64-row query tile (``kMT`` 1);
     each launch adds one to ``flash_attn_fwd_q64.launches``."""
     out = _fwd(q, k, v, bias, scale, causal, dropout, seed, return_lse, 64)
-    flash_attn_fwd_q64.launches += 1
+    cuda_build.launched(flash_attn_fwd_q64)
     return out
 
 
@@ -393,7 +393,7 @@ def flash_attn_bwd(q, k, v, bias, o, lse, do, scale=None, causal=False, dropout=
              lse.data_ptr(), delta.data_ptr() if delta is not None else None,
              dq.data_ptr(), dk.data_ptr(), dv.data_ptr()),
             q, k, v, bias, scale, causal, dropout, seed, BWD_VARIANTS[variant])
-    flash_attn_bwd.launches += 1
+    cuda_build.launched(flash_attn_bwd)
     return dq, dk, dv
 
 

@@ -372,5 +372,5 @@ def multi_tensor_update(kind: str, op_attrs: Sequence[dict], ins_list,
                    torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"multi_tensor_update: kernel launch failed with CUDA error {rc}")
-    multi_tensor_update.launches += 1
+    cuda_build.launched(multi_tensor_update)
     return [{slot: [ins[IN_PLACE[slot]][0]] for slot in _OUT_SLOTS[kind]} for ins in ins_list]

@@ -1,5 +1,7 @@
-"""Convolution, pooling, normalization and dropout ops (the port's copy of
-``conv2d``, ``pool2d``, ``batch_norm``, ``layer_norm`` and ``dropout`` from
+"""Convolution, pooling, normalization, dropout and resize ops (the port's
+copy of ``conv2d``, ``conv2d_transpose``, ``pool2d``, ``batch_norm``,
+``layer_norm``, ``dropout`` and the resize family ``interpolate``,
+``nearest_interp``, ``bilinear_interp``, ``trilinear_interp`` from
 ``paddle_tpu/ops/nn_ops.py``).
 
 Convolution and pooling are PyTorch's (``F.conv2d``, ``F.max_pool2d``,
@@ -9,14 +11,28 @@ permuted view (channels-last strides, no copy) and the result is permuted
 back. The filter is OIHW in both layouts. The layout cuDNN computes in is
 the autotuner's ``conv2d.layout`` choice (``conv_in_layout``); its default
 is the declared format.
+
+The resize family is ``jax.image.resize``'s method, ported as it computes,
+not ``F.interpolate`` (whose ``nearest`` takes another source index, whose
+``bicubic`` has another kernel, and which does not antialias a downsample
+by default). Each resized axis is a contraction with a weight matrix built
+as ``jax.image.scale_and_translate`` builds it (half-pixel centres; the
+triangle or the Keys cubic kernel with a = -0.5, widened by the scale on a
+downsample), cached per shape and device; ``nearest`` gathers
+``floor((i + 0.5) * in / out)``, and its gradient sums each source's run of
+outputs in a fixed order (``_NearestSelect``), so a step on the card is the
+same run to run. ``align_corners`` and ``align_mode`` are not read: the JAX
+package ignores them too (ROADMAP 3.22).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..core.registry import register
 from . import dropout as dropout_op
+from .basic import device_constant
 
 
 def _pair(v):
@@ -75,6 +91,19 @@ def conv2d(ctx, ins):
             "dils": tuple(dils), "groups": groups, "fmt": fmt,
             "dtype": _choices.dtype_name(x)})
     return {"Output": [conv_in_layout(x, w, strides, pads, dils, groups, fmt, layout)]}
+
+
+@register("conv2d_transpose")
+def conv2d_transpose(ctx, ins):
+    """2-D transposed convolution (cuDNN's ``conv_transpose2d``): filter
+    [in_c, out_c / groups, kh, kw], ``paddings`` cropping the output, any
+    kernel size, dilation and groups (the JAX package's padding and layout
+    rules, ``paddle_tpu/ops/nn_ops.py:116-125``)."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    return {"Output": [F.conv_transpose2d(
+        x, w, stride=_pair(ctx.attr("strides", [1, 1])),
+        padding=_pair(ctx.attr("paddings", [0, 0])),
+        dilation=_pair(ctx.attr("dilations", [1, 1])), groups=ctx.attr("groups", 1) or 1)]}
 
 
 @register("pool2d")
@@ -189,3 +218,129 @@ def dropout(ctx, ins):
         return {"Out": [torch.empty_like(x)], "Mask": [torch.empty_like(x)]}
     out, mask = dropout_op.dropout(x, p, upscale, ctx.kernel_seed(ctx.attr("seed", 0) or 0))
     return {"Out": [out], "Mask": [mask]}
+
+
+# ---------------------------------------------------------------------------------------
+# the resize family (jax.image.resize's method)
+# ---------------------------------------------------------------------------------------
+
+def _triangle(x):
+    return torch.clamp_min(1 - torch.abs(x), 0)
+
+
+def _keys_cubic(x):
+    """The Keys cubic kernel, a = -0.5 (``jax.image``'s ``cubic``)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.
+    out = torch.where(x >= 1., ((-0.5 * x + 2.5) * x - 4.) * x + 2., out)
+    return torch.where(x >= 2., 0., out)
+
+
+_KERNELS = {"linear": _triangle, "cubic": _keys_cubic}
+
+
+def _weight_mat(m, n, method, antialias=True):
+    """``jax.image.compute_weight_mat(m, n, n / m, 0.0, kernel, antialias)``
+    in f32, op for op: [m, n], column j the weights of output j."""
+    f32 = torch.float32
+    inv_scale = 1. / (n / m)
+    kernel_scale = float(np.float32(max(inv_scale, 1.))) if antialias else 1.
+    sample_f = (torch.arange(n, dtype=f32) + 0.5) * inv_scale - 0.0 * inv_scale - 0.5
+    x = torch.abs(sample_f[None, :] - torch.arange(m, dtype=f32)[:, None]) / kernel_scale
+    weights = _KERNELS[method](x)
+    total = torch.sum(weights, 0, keepdim=True)
+    weights = torch.where(torch.abs(total) > 1000. * float(torch.finfo(f32).eps),
+                          weights / torch.where(total != 0, total, 1), 0)
+    inside = (sample_f >= -0.5) & (sample_f <= m - 0.5)
+    return torch.where(inside[None, :], weights, 0)
+
+
+def _nearest_index(m, n):
+    """The source row of each output row, ``floor((i + 0.5) * m / n)`` in
+    f32 as ``jax.image`` computes it (torch's ``nearest-exact``)."""
+    return torch.floor((torch.arange(n, dtype=torch.float32) + 0.5) * m / n).to(torch.int64)
+
+
+def _nearest_runs(m, n):
+    """[m, R] output rows that read each source row, padded with n (a zero
+    row appended to the gradient): R is the longest run."""
+    idx = _nearest_index(m, n).numpy()
+    width = max(1, int(np.bincount(idx, minlength=m).max()))
+    runs = np.full((m, width), n, dtype=np.int64)
+    for i in range(m):
+        js = np.flatnonzero(idx == i)
+        runs[i, :len(js)] = js
+    return torch.from_numpy(runs)
+
+
+class _NearestSelect(torch.autograd.Function):
+    """``x.index_select(dim, index)`` whose gradient sums each source row's
+    outputs in a fixed order (``runs``), not with atomics."""
+
+    @staticmethod
+    def forward(ctx, x, dim, index, runs):
+        ctx.dim, ctx.runs = dim, runs
+        return x.index_select(dim, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, runs = ctx.dim, ctx.runs
+        pad = [0, 0] * (g.ndim - 1 - dim) + [0, 1]
+        gp = F.pad(g, pad)
+        m, width = runs.shape
+        taken = gp.index_select(dim, runs.reshape(-1))
+        shape = list(g.shape)
+        shape[dim:dim + 1] = [m, width]
+        return taken.reshape(shape).sum(dim + 1), None, None, None
+
+
+def _resize(x, out_shape, method, device):
+    """``jax.image.resize(x, out_shape, method)`` (antialias on): every axis
+    whose size changes, in order."""
+    for d, (m, n) in enumerate(zip(x.shape, out_shape)):
+        if m == n:
+            continue
+        if method == "nearest":
+            index = device_constant(("nearest_index", m, n), device, lambda: _nearest_index(m, n))
+            runs = device_constant(("nearest_runs", m, n), device, lambda: _nearest_runs(m, n))
+            x = _NearestSelect.apply(x, d, index, runs)
+            continue
+        w = device_constant(("resize_weights", m, n, method), device,
+                    lambda: _weight_mat(m, n, method)).to(x.dtype)
+        x = torch.movedim(torch.tensordot(x, w, dims=([d], [0])), -1, d)
+    return x
+
+
+@register("interpolate")
+def interpolate(ctx, ins):
+    """``interp_method`` nearest / bilinear / bicubic to ``out_h`` x
+    ``out_w`` (or ``scale`` x the input), NCHW, through ``_resize``."""
+    x = ins["X"][0]
+    method = ctx.attr("interp_method", "nearest")
+    out_h, out_w = ctx.attr("out_h", 0), ctx.attr("out_w", 0)
+    scale = ctx.attr("scale", 0.0)
+    n, c, h, w = x.shape
+    if scale and scale > 0:
+        out_h, out_w = int(h * scale), int(w * scale)
+    jmethod = {"nearest": "nearest", "bilinear": "linear", "bicubic": "cubic"}[method]
+    return {"Out": [_resize(x, (n, c, out_h, out_w), jmethod, ctx.device).to(x.dtype)]}
+
+
+def _interp_as(method):
+    def lower(ctx, ins):
+        ctx.attrs = dict(ctx.attrs, interp_method=method)
+        return interpolate(ctx, ins)
+    return lower
+
+
+register("nearest_interp")(_interp_as("nearest"))
+register("bilinear_interp")(_interp_as("bilinear"))
+
+
+@register("trilinear_interp")
+def trilinear_interp(ctx, ins):
+    """[B, C, D, H, W] to ``out_d`` x ``out_h`` x ``out_w``, linear on each
+    axis (``jax.image``'s ``trilinear``)."""
+    x = ins["X"][0]
+    shape = tuple(x.shape[:2]) + (int(ctx.attr("out_d")), int(ctx.attr("out_h")),
+                                  int(ctx.attr("out_w")))
+    return {"Out": [_resize(x, shape, "linear", ctx.device).to(x.dtype)]}

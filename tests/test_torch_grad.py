@@ -116,6 +116,40 @@ CASES = {
                                 "V": [_r(1, 2, 16, 8, seed=6)]},
                                {"scale": 0.3, "is_test": True, "causal": True,
                                 "impl": "composed"}, ("Out",), SUM_TOL),
+    # the detection and vision ops (ops/detection_ops.py, ops/nn_ops.py)
+    "yolov3_loss": ("yolov3_loss",
+                    {"X": [_r(1, 21, 4, 4, scale=1.5)],
+                     "GTBox": [np.array([[[0.3, 0.6, 0.47, 0.47], [0.32, 0.62, 0.47, 0.48],
+                                          [0, 0, 0, 0]]], "float32")],
+                     "GTLabel": [np.array([[1, 0, 0]], "int32")]},
+                    {"anchors": [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                                 156, 198, 373, 326], "anchor_mask": [3, 4, 5], "class_num": 2,
+                     "ignore_thresh": 0.5, "downsample_ratio": 32, "use_label_smooth": False},
+                    ("Loss",), TOL),
+    "roi_align": ("roi_align", {"X": [_r(1, 2, 6, 6)],
+                                "ROIs": [np.array([[0.5, 1.0, 4.5, 5.0], [2.0, 0.0, 5.5, 3.5]],
+                                                  "float32")]},
+                  {"pooled_height": 2, "pooled_width": 2, "spatial_scale": 1.0,
+                   "sampling_ratio": 2}, ("Out",), TOL),
+    "roi_pool": ("roi_pool", {"X": [_r(1, 2, 6, 6, seed=3)],
+                              "ROIs": [np.array([[0.0, 1.0, 4.0, 5.0], [2.0, 0.0, 5.0, 3.0]],
+                                                "float32")]},
+                 {"pooled_height": 2, "pooled_width": 2, "spatial_scale": 1.0}, ("Out",), TOL),
+    "sigmoid_focal_loss": ("sigmoid_focal_loss",
+                           {"X": [_r(4, 3, scale=2.0)],
+                            "Label": [np.array([[0], [1], [3], [2]], "int32")],
+                            "FgNum": [np.array([3], "int32")]},
+                           {"gamma": 2.0, "alpha": 0.25}, ("Out",), TOL),
+    "interpolate-bilinear": ("interpolate", {"X": [_r(1, 2, 4, 5)]},
+                             {"interp_method": "bilinear", "out_h": 6, "out_w": 3, "scale": 0.0},
+                             ("Out",), TOL),
+    "interpolate-nearest": ("interpolate", {"X": [_r(1, 2, 3, 4)]},
+                            {"interp_method": "nearest", "out_h": 5, "out_w": 7, "scale": 0.0},
+                            ("Out",), TOL),
+    "conv2d_transpose": ("conv2d_transpose", {"Input": [_r(1, 4, 3, 3)],
+                                              "Filter": [_r(4, 2, 4, 4, scale=0.5)]},
+                         {"strides": [2, 2], "paddings": [1, 1], "dilations": [1, 1],
+                          "groups": 2}, ("Output",), SUM_TOL),
 }
 
 

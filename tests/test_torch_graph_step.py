@@ -389,3 +389,82 @@ def test_freeing_leaves_the_results_bit_equal(bert):
     for a, b in zip(out[True][0], out[False][0]):
         assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert _same_state(out[True][1], out[False][1], init) == []
+
+
+def test_a_capture_counts_only_the_launches_on_its_stream(monkeypatch):
+    """``graphs.Graph`` with the card's calls stood in: while one thread
+    captures, 6 launches of a counted wrapper come from the capturing thread
+    and 6 from another thread on the capture stream (as autograd's device
+    thread launches a backward), and a third thread runs the wrapper eagerly
+    on its own stream (12 launches). The graph keeps its 12 as one replay's;
+    the eager thread's stay counted, and each replay adds 12 again."""
+    import threading
+    from paddle_tpu_torch.core import cuda_build, graphs
+
+    class _Stream:
+        def __init__(self, handle):
+            self.cuda_stream = handle
+
+    tls, eager_stream = threading.local(), _Stream(1)
+
+    class _Capture:
+        capture_stream = _Stream(2)
+
+        def __init__(self, *a, **k):
+            pass
+
+        def __enter__(self):
+            tls.stream = self.capture_stream
+
+        def __exit__(self, *exc):
+            tls.stream = None
+
+    class _CUDAGraph:
+        def replay(self):
+            pass
+
+    for name, value in [("synchronize", lambda *a: None), ("empty_cache", lambda: None),
+                        ("memory_reserved", lambda *a: 0), ("CUDAGraph", _CUDAGraph),
+                        ("graph_pool_handle", lambda: None), ("graph", _Capture),
+                        ("current_stream",
+                         lambda *a: getattr(tls, "stream", None) or eager_stream)]:
+        monkeypatch.setattr(torch.cuda, name, value)
+
+    def wrapper():
+        cuda_build.launched(wrapper)
+
+    wrapper.launches = 0                      # counted, but not registered in COUNTED
+    captured, eager_done = threading.Barrier(2), threading.Event()
+
+    def eager():
+        captured.wait()
+        for _ in range(12):
+            wrapper()
+        eager_done.set()
+
+    def backward_thread():
+        tls.stream = _Capture.capture_stream
+        for _ in range(6):
+            wrapper()
+
+    def capture_fn():
+        for _ in range(3):
+            wrapper()
+        captured.wait()                       # the eager thread launches meanwhile
+        assert eager_done.wait(10)
+        side = threading.Thread(target=backward_thread)
+        side.start()
+        side.join()
+        for _ in range(3):
+            wrapper()
+
+    other = threading.Thread(target=eager)
+    other.start()
+    g = graphs.Graph(torch.device("cpu"), capture_fn)
+    other.join()
+    assert g.launches == {wrapper: 12}
+    assert wrapper.launches == 12             # the eager thread's, none of the capture's
+    g.replay()
+    g.replay()
+    assert wrapper.launches == 36
+    assert not cuda_build._tallies

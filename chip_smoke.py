@@ -373,6 +373,28 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    Alone: ``python3 -c "import tempfile, torch, chip_smoke as cs;
    cs.phase_build(); cs.phase_detection(torch, tempfile.mkdtemp(dir='build'))"``
    after ``mkdir -p build``;
+11b. phase 23, the rest of vision and control flow. A: the While of
+   ``tests/test_control_flow_dsl.py``'s MT-book test (an fc in the body) at
+   width 512, batch 128, ``max_iters`` 32 (24 live runs), 5 Adam steps
+   through the captured step, bit for bit to eager, step 1 against the CPU
+   port at batch 2; a While without ``max_iters`` refused capture (the
+   reason printed, naming ``while``), run eagerly, equal to the CPU port,
+   its device activities a run; an IfElse over rows (half true) and a
+   Switch on a fed value, a different case each step, captured, bit for
+   bit to eager; an LSTM written with DynamicRNN over the sentiment
+   chapter's first feed at ``examples/understand_sentiment.py``'s widths,
+   5 captured steps. B: ResNet-50 at phase 8's configuration with 50% of
+   its conv weights pruned by magnitude (``contrib.slim``), 5 captured
+   steps, every pruned entry exactly 0 after each, K2's launches a step
+   equal to the fuse pass's 33 chains, the step ms beside phase 8's; then
+   ``examples/prune_finetune.py``'s convnet to its bar. C: every case of
+   ``tools/vision_cases.py`` at its models' shapes against the CPU port,
+   forward and gradient, each captured with its launches counted; step 1
+   of the NCHW space-to-depth ResNet-50 at batch 2 against the CPU port.
+   Alone: ``mkdir -p build; python3 -c "import tempfile, torch, chip_smoke
+   as cs, paddle_tpu_torch as pt; cs.phase_build();
+   cs.phase_slim_and_control_flow(torch, cs.book_setup(pt,
+   tempfile.mkdtemp(dir='build')))"``;
 12. the kernels line (``multi_tensor_update`` with its five kinds, each
    with its launches; K1-fwd's 64-row tile as ``flash_attn_fwd_q64``),
    then the result line.
@@ -385,6 +407,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -6139,6 +6162,500 @@ def phase_detection(torch, workdir):
                 op_types=table, seconds=time.perf_counter() - t0)
 
 
+# ------------------------------------------------------------------------ phase 23
+
+#: the MT-book While of tests/test_control_flow_dsl.py::test_while_trains_params_in_body
+#: at width 512, batch 128, max_iters 32; the condition turns false after CF_LIMIT
+#: runs, so the last 8 runs of the masked loop are inactive
+CF_WIDTH, CF_BATCH, CF_MAX_ITERS, CF_LIMIT, CF_STEPS = 512, 128, 32, 24, 5
+#: the test's Adam 0.05 is for its width 8; at width 512 it diverges (measured on
+#: one H100: the loss rose 0.473 to 0.836 in 5 steps)
+CF_LR = 1e-3
+#: step 1 of the While program on the card against the CPU port at batch 2, and
+#: the unbounded While's outputs: tests/test_torch_control_flow.py's tolerance
+#: (f32 sums and tanh in other orders, a few ulps through 24 runs of the body)
+CF_RTOL, CF_ATOL = 1e-5, 1e-6
+#: a vision op on the card against the CPU port at the models' shapes, forward and
+#: gradient: |card - cpu| <= VISION_CARD_REL * max|cpu|. cuDNN and the CPU sum a
+#: convolution's up to 1,728 f32 products (and a norm's reductions of up to
+#: 100,352 values) in other orders, and cuDNN may take a Winograd or FFT route for
+#: a 3-D kernel: about 1e-5 of the largest output; 1e-4 bounds it.
+VISION_CARD_REL = 1e-4
+SLIM_RATIO, SLIM_STEPS = 0.5, 5
+#: examples/prune_finetune.py's constants: 512 synthetic CIFAR-shaped images,
+#: batch 64, 4 epochs, prune half, 4 finetune epochs
+PRUNE_EXAMPLE_N, PRUNE_EXAMPLE_BS, PRUNE_EXAMPLE_EPOCHS = 512, 64, 4
+
+
+def _while_program(pt, width, max_iters, train=True):
+    """The MT-book shape: an fc with a tanh in a While body, trained with Adam
+    (``train``); else the body is tanh(acc / 2 + x) and nothing trains."""
+    L = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 9
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        x = pt.data("x", [width], "float32")
+        target = pt.data("target", [width], "float32")
+        h = L.fill_constant_batch_size_like(x, [-1, width], "float32", 0.0)
+        i = L.fill_constant([1], "float32", 0)
+        limit = L.fill_constant([1], "float32", CF_LIMIT)
+        cond = L.less_than(i, limit)
+        w = L.While(cond, max_iters=max_iters)
+        with w.block():
+            if train:
+                step = L.fc(L.elementwise_add(h, x), width, act="tanh",
+                            param_attr=pt.ParamAttr(name="loop_w"))
+            else:
+                step = L.tanh(L.elementwise_add(L.scale(h, 0.5), x))
+            L.assign(step, h)
+            L.increment(i, in_place=True)
+            L.less_than(i, limit, cond=cond)
+        loss = L.reduce_mean(L.square(L.elementwise_sub(h, target)))
+        if train:
+            pt.optimizer.Adam(CF_LR).minimize(loss)
+    return main, startup, loss, h, i
+
+
+def _cf_feed(torch, batch, width, device, seed=1):
+    rng = np.random.RandomState(seed)
+    return {"x": torch.from_numpy(rng.randn(batch, width).astype(np.float32)).to(device),
+            "target": torch.from_numpy((rng.randn(batch, width) * 0.1).astype(np.float32))
+            .to(device)}
+
+
+def _graph_vs_eager(torch, pt, main, feeds, fetch, init):
+    """The graph executor against the eager one over ``feeds`` (a step each)
+    from ``init``: (graph fetches, eager fetches, state names that differ,
+    graph step ms after the capture, whether a graph was captured)."""
+    runs = {}
+    for graphs_on in (True, False):
+        exe = pt.Executor()
+        exe._use_graphs = graphs_on
+        scope = pt.Scope()
+        for n, t in init.items():
+            scope.set_var(n, t.clone())
+        main._rng_run_counter = 0
+        outs, times = [], []
+        with pt.scope_guard(scope):
+            for feed in feeds:
+                t0 = time.perf_counter()
+                outs.append([o.clone() for o in exe.run(main, feed=feed, fetch_list=fetch,
+                                                        return_numpy=False)])
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        captured = any(s.graph is not None for s in exe._cache.values())
+        runs[graphs_on] = (outs, {n: scope.find_var(n).clone() for n in init}, times, captured)
+        exe.close()
+    (g, gs, gt, cap), (e, es, et, _) = runs[True], runs[False]
+    return g, e, _state_equal(torch, gs, es), dict(graph=gt, eager=et), cap
+
+
+def _cf_while_training(torch, pt):
+    """A: the bounded While trained through the captured step, graph against
+    eager bit for bit; step 1 against the CPU port at batch 2."""
+    from paddle_tpu_torch.core.executor import capture_refusal
+    main, startup, loss, _, _ = _while_program(pt, CF_WIDTH, CF_MAX_ITERS)
+    if capture_refusal(main) is not None:
+        raise SystemExit(f"control flow A: the bounded While is refused: {capture_refusal(main)}")
+    init = _startup_state(pt, main, startup)
+    feed = _cf_feed(torch, CF_BATCH, CF_WIDTH, "cuda")
+    g, e, differs, ms, captured = _graph_vs_eager(torch, pt, main, [feed] * CF_STEPS,
+                                                  [loss], init)
+    losses = [float(o[0].reshape(())) for o in g]
+    bit_equal = all(torch.equal(a[0], b[0]) for a, b in zip(g, e)) and not differs
+    feed2 = _cf_feed(torch, 2, CF_WIDTH, "cpu")
+    step1 = {}
+    for dev in ("cpu", "cuda"):
+        scope = pt.Scope()
+        for n, t in init.items():
+            scope.set_var(n, t.to(dev, copy=True))
+        with pt.scope_guard(scope):
+            step1[dev] = float(pt.Executor(pt.CPUPlace() if dev == "cpu" else None).run(
+                main, feed={k: v.to(dev) for k, v in feed2.items()}, fetch_list=[loss])[0])
+    r = dict(model=f"While(max_iters={CF_MAX_ITERS}) over fc({CF_WIDTH}, tanh), {CF_LIMIT} live "
+                   f"runs, B{CF_BATCH}, Adam {CF_LR}", captured=captured, losses=losses,
+             graph_eager_bit_equal=bit_equal, state_differs=differs[:8],
+             step_ms_graph=statistics.median(ms["graph"][2:]),
+             step_ms_eager=statistics.median(ms["eager"][1:]),
+             step1_batch2={"card": step1["cuda"], "cpu_port": step1["cpu"],
+                           "rel_gap": abs(step1["cuda"] - step1["cpu"]) / abs(step1["cpu"])})
+    emit("control_flow_while_training", **r)
+    if not (captured and bit_equal):
+        raise SystemExit(f"control flow A: the captured While step parts from the eager one: {r}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise SystemExit(f"control flow A: the While program's loss does not fall: {losses}")
+    if not np.isclose(step1["cuda"], step1["cpu"], rtol=CF_RTOL, atol=CF_ATOL):
+        raise SystemExit(f"control flow A: step 1 parts from the CPU port: {r['step1_batch2']}")
+    return r
+
+
+def _cf_unbounded_while(torch, pt):
+    """A: a While without max_iters: refused capture (the reason names
+    ``while``), run eagerly, equal to the CPU port; its launches a run."""
+    import warnings
+    from paddle_tpu_torch.core.executor import capture_refusal
+    from paddle_tpu_torch.tools.train_profile import profile_steps
+    main, _, loss, h, i = _while_program(pt, CF_WIDTH, None, train=False)
+    why = capture_refusal(main)
+    print(f"control flow A: capture refused: {why}", flush=True)
+    if why is None or "'while'" not in why:
+        raise SystemExit(f"control flow A: the unbounded While's refusal does not name it: {why}")
+    feed = _cf_feed(torch, CF_BATCH, CF_WIDTH, "cuda", seed=2)
+    outs = {}
+    exe = pt.Executor()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with pt.scope_guard(pt.Scope()):
+            times = []
+            for _ in range(4):
+                t0 = time.perf_counter()
+                outs["cuda"] = exe.run(main, feed=feed, fetch_list=[h, i, loss])
+                times.append((time.perf_counter() - t0) * 1e3)
+            prof = profile_steps(torch, exe, main, feed, [h, i, loss], 2)
+    warned = any("'while' has no max_iters" in str(w.message) for w in caught)
+    captured = any(s.graph is not None for s in exe._cache.values())
+    exe.close()
+    with pt.scope_guard(pt.Scope()):
+        outs["cpu"] = pt.Executor(pt.CPUPlace()).run(
+            main, feed={k: v.cpu() for k, v in feed.items()}, fetch_list=[h, i, loss])
+    err = float(np.abs(outs["cuda"][0] - outs["cpu"][0]).max())
+    r = dict(refusal=why, warned=warned, captured=captured, iterations=float(outs["cuda"][1][0]),
+             run_ms=statistics.median(times[1:]),
+             device_activities_per_run=prof["device_activities_per_step"],
+             device_busy_ms=prof["device_busy_ms"], idle_share=prof["device_idle_share"],
+             max_abs_err_vs_cpu_port=err)
+    emit("control_flow_unbounded_while", **r)
+    if captured or not warned or outs["cuda"][1][0] != CF_LIMIT:
+        raise SystemExit(f"control flow A: the unbounded While did not run eagerly: {r}")
+    if not np.allclose(outs["cuda"][0], outs["cpu"][0], rtol=CF_RTOL, atol=CF_ATOL):
+        raise SystemExit(f"control flow A: the unbounded While parts from the CPU port by {err}")
+    return r
+
+
+def _cf_ifelse_switch(torch, pt):
+    """A: IfElse over rows (true in half, false in the other half) and a
+    Switch on a fed value, each step a different case, trained captured,
+    graph against eager bit for bit."""
+    from paddle_tpu_torch.core.executor import capture_refusal
+    L = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 3
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        x = pt.data("x", [CF_WIDTH], "float32")
+        m = pt.data("m", [1], "float32")
+        s = pt.data("s", [1], "float32")
+        ie = L.IfElse(L.cast(m, "bool"))
+        with ie.true_block():
+            ie.output(L.fc(ie.input(x), CF_WIDTH, act="relu", param_attr=pt.ParamAttr(name="t_w")))
+        with ie.false_block():
+            ie.output(L.fc(ie.input(x), CF_WIDTH, act="tanh", param_attr=pt.ParamAttr(name="f_w")))
+        out, = ie()
+        sv = L.reshape(L.reduce_mean(s), [1])
+        scale = L.fill_constant([1], "float32", 1.0)
+        c1 = L.less_than(sv, L.fill_constant([1], "float32", 5.0))
+        c2 = L.less_than(sv, L.fill_constant([1], "float32", 8.0))
+        with L.Switch() as switch:
+            for c, v in ((c1, 0.1), (c2, 0.2), (None, 0.3)):
+                with (switch.case(c) if c is not None else switch.default()):
+                    L.assign(L.fill_constant([1], "float32", v), scale)
+        loss = L.elementwise_mul(L.reduce_mean(L.square(out)), scale)
+        pt.optimizer.Adam(1e-3).minimize(loss)
+    if capture_refusal(main) is not None:
+        raise SystemExit(f"control flow A: IfElse / Switch refused: {capture_refusal(main)}")
+    init = _startup_state(pt, main, startup)
+    rng = np.random.RandomState(4)
+    xv = torch.from_numpy(rng.randn(CF_BATCH, CF_WIDTH).astype(np.float32)).cuda()
+    mv = torch.from_numpy((np.arange(CF_BATCH) % 2).astype(np.float32)[:, None]).cuda()
+    feeds = [{"x": xv, "m": mv, "s": torch.full((1, 1), v).cuda()}
+             for v in (3.0, 6.0, 9.0, 3.0, 9.0)]
+    g, e, differs, ms, captured = _graph_vs_eager(torch, pt, main, feeds, [loss, scale, out],
+                                                  init)
+    scales = [float(o[1].reshape(-1)[0]) for o in g]
+    bit_equal = all(torch.equal(a, b) for x, y in zip(g, e) for a, b in zip(x, y)) and not differs
+    rows_true = int(mv.sum())
+    r = dict(captured=captured, scales=scales, graph_eager_bit_equal=bit_equal,
+             rows_true=rows_true, rows_false=CF_BATCH - rows_true,
+             step_ms_graph=statistics.median(ms["graph"][2:]),
+             losses=[float(o[0].reshape(())) for o in g])
+    emit("control_flow_ifelse_switch", **r)
+    if not (captured and bit_equal and np.allclose(scales, [0.1, 0.2, 0.3, 0.1, 0.3])):
+        raise SystemExit(f"control flow A: IfElse / Switch through the graph: {r}")
+    return r
+
+
+def _cf_dynamic_rnn_lstm(torch, pt, chapters):
+    """A: an LSTM written with DynamicRNN over the sentiment chapter's first
+    feed at examples/understand_sentiment.py's widths, 5 captured steps."""
+    from paddle_tpu_torch.tools import book
+    L = pt.layers
+    ch, feeds = next((c, f) for c, f, *_ in chapters if c.name == "understand_sentiment")
+    emb_op = next(op for op in ch.main.global_block().ops if op.type.startswith("lookup_table"))
+    vocab = ch.main.global_block().var(emb_op.inputs["W"][0]).shape[0]
+    hid, max_len = book.SENT_HID, book.SENT_MAX_LEN
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 0
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        A = dict(append_batch_size=False)
+        words = pt.data("words", [-1, max_len], "int64", **A)
+        length = pt.data("length", [-1], "int64", **A)
+        label = pt.data("label", [-1, 1], "int64", **A)
+        e = L.embedding(words, [vocab, book.SENT_EMB])
+        drnn = L.DynamicRNN()
+        with drnn.block():
+            x_t = drnn.step_input(e, lengths=length)
+            h_prev = drnn.memory(shape=[hid], value=0.0)
+            c_prev = drnn.memory(shape=[hid], value=0.0)
+            gates = L.fc(L.concat([x_t, h_prev], axis=1), 4 * hid)
+            gi, gf, go, gg = L.split(gates, 4, dim=1)
+            c = L.elementwise_add(L.elementwise_mul(L.sigmoid(gf), c_prev),
+                                  L.elementwise_mul(L.sigmoid(gi), L.tanh(gg)))
+            hh = L.elementwise_mul(L.sigmoid(go), L.tanh(c))
+            drnn.update_memory(h_prev, hh)
+            drnn.update_memory(c_prev, c)
+            drnn.output(hh)
+        pooled = L.reduce_max(drnn(), dim=1)
+        logits = L.fc(pooled, 2)
+        loss = L.mean(L.softmax_with_cross_entropy(logits, label))
+        pt.optimizer.Adam(book.SENT_LR).minimize(loss)
+    init = _startup_state(pt, main, startup)
+    feed = {k: torch.from_numpy(v).cuda() for k, v in feeds[0].items()}
+    exe = pt.Executor()
+    scope = pt.Scope()
+    for n, t in init.items():
+        scope.set_var(n, t.clone())
+    times, losses = [], []
+    with pt.scope_guard(scope):
+        for _ in range(CF_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(exe.run(main, feed=feed, fetch_list=[loss])[0]))
+            times.append((time.perf_counter() - t0) * 1e3)
+    captured = any(s.graph is not None for s in exe._cache.values())
+    exe.close()
+    r = dict(model=f"DynamicRNN LSTM EMB {book.SENT_EMB} HID {hid} T {max_len} "
+                   f"B {feed['words'].shape[0]}, vocab {vocab}",
+             captured=captured, losses=losses, step_ms_graph=statistics.median(times[2:]))
+    emit("control_flow_dynamic_rnn_lstm", **r)
+    if not (captured and np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise SystemExit(f"control flow A: the DynamicRNN LSTM: {r}")
+    return r
+
+
+def _slim_resnet50(torch, pt, unpruned_step_ms):
+    """B: ResNet-50 at phase 8's configuration, 50% of its conv weights pruned
+    by magnitude, 5 captured steps; the pruned entries exactly 0 after each,
+    K2's launches a step against the fuse pass's chains."""
+    from paddle_tpu_torch.contrib import slim
+    from paddle_tpu_torch.ops import conv_bn
+    from paddle_tpu_torch.tools.train_profile import build_resnet50
+    main, startup, loss, _, fused = build_resnet50()
+    scope = pt.Scope()
+    with pt.scope_guard(scope):
+        pt.Executor().run(startup)
+    convs = [n for n, v in main.global_block().vars.items()
+             if getattr(v, "trainable", False) and len(v.shape) == 4]
+    t0 = time.perf_counter()
+    masks = slim.compute_magnitude_masks(scope, main, SLIM_RATIO,
+                                         params=[f"^{re.escape(n)}$" for n in convs])
+    slim.apply_pruning_masks(main, scope, masks)
+    prune_s = time.perf_counter() - t0
+    pruned = {n: torch.from_numpy(m == 0).cuda() for n, m in masks.items()}
+    feed = _resnet_feed(torch, np.random.RandomState(SEED), RESNET_BATCH, "cuda")
+    exe = pt.Executor()
+    conv_bn.fused_conv1x1_bn_fwd.launches = 0
+    times, losses, nonzero = [], [], []
+    with pt.scope_guard(scope):
+        for _ in range(SLIM_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(exe.run(main, feed=feed, fetch_list=[loss])[0]))
+            times.append((time.perf_counter() - t0) * 1e3)
+            nonzero.append(sum(int((scope.find_var(n)[p] != 0).sum()) for n, p in pruned.items()))
+        dtypes = sorted({str(scope.find_var(n).dtype) for n in masks})
+        sparsity = slim.sparsity(scope, masks)
+    torch.cuda.synchronize()
+    k2 = conv_bn.fused_conv1x1_bn_fwd.launches
+    captured = any(s.graph is not None for s in exe._cache.values())
+    exe.close()
+    del scope, exe
+    torch.cuda.empty_cache()
+    r = dict(model=f"resnet50 NHWC space-to-depth stem bf16 B{RESNET_BATCH} 224x224, "
+                   f"{len(masks)} conv filters pruned {SLIM_RATIO:.0%} by magnitude",
+             pruned_weights=int(sum(int(p.sum()) for p in pruned.values())),
+             prune_s=prune_s, sparsity=sparsity, param_dtypes=dtypes, captured=captured,
+             losses=losses, nonzero_pruned_after_each_step=nonzero,
+             k2_launches_per_step=k2 / SLIM_STEPS, chains_fused=fused,
+             step_ms=times, step_ms_median_warm=statistics.median(times[2:]),
+             unpruned_step_ms_phase8=unpruned_step_ms)
+    emit("slim_resnet50", **r)
+    if any(nonzero) or dtypes != ["torch.bfloat16"] or not captured:
+        raise SystemExit(f"slim B: pruned entries regrew or the step was not captured: {r}")
+    if k2 != fused * SLIM_STEPS:
+        raise SystemExit(f"slim B: K2 launched {k2} times in {SLIM_STEPS} steps, the fuse pass "
+                         f"fused {fused} chains")
+    if not np.isfinite(losses).all():
+        raise SystemExit(f"slim B: the pruned ResNet-50's loss is not finite: {losses}")
+    return r
+
+
+def _prune_finetune_example(torch, pt):
+    """B: examples/prune_finetune.py's program on the card, to its bar: the
+    eval loss rises after the prune, the finetune recovers it (the JAX
+    suite's test_slim bar: under 0.7 of the pruned loss or 1.1 of the
+    unpruned one) and the accuracy does not end below the pruned one's, and
+    the pruned weights stay exactly 0. Whether the accuracy fell at the
+    prune is printed."""
+    from paddle_tpu_torch.contrib import slim
+    L = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 0
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        img = pt.data("img", [3, 32, 32], "float32")
+        label = pt.data("label", [1], "int64")
+        h = L.pool2d(L.conv2d(img, 32, 3, padding=1, act="relu"), 2, "max", 2)
+        h = L.pool2d(L.conv2d(h, 64, 3, padding=1, act="relu"), 2, "max", 2)
+        logits = L.fc(h, 10)
+        loss = L.mean(L.softmax_with_cross_entropy(logits, label))
+        acc = L.accuracy(logits, label)
+        pt.optimizer.Momentum(0.02, 0.9).minimize(loss)
+    rng = np.random.RandomState(0)
+    imgs = rng.rand(PRUNE_EXAMPLE_N, 3, 32, 32).astype(np.float32)
+    labels = (imgs.mean(axis=(1, 2, 3)) * 10).astype(np.int64).clip(0, 9)[:, None]
+    bs = PRUNE_EXAMPLE_BS
+    batches = [{"img": torch.from_numpy(imgs[i:i + bs]).cuda(),
+                "label": torch.from_numpy(labels[i:i + bs]).cuda()}
+               for i in range(0, PRUNE_EXAMPLE_N - bs + 1, bs)]
+    exe, scope = pt.Executor(), pt.Scope()
+
+    def epoch(train):
+        out = [exe.run(main, feed=b, fetch_list=[loss, acc], use_prune=not train)
+               for b in batches]
+        return (float(np.mean([o[0] for o in out])),
+                float(np.mean([np.asarray(o[1]).reshape(-1)[0] for o in out])))
+
+    t0 = time.perf_counter()
+    with pt.scope_guard(scope):
+        exe.run(startup)
+        train = [epoch(True) for _ in range(PRUNE_EXAMPLE_EPOCHS)]
+        before = epoch(False)
+        masks = slim.compute_magnitude_masks(scope, main, ratio=0.5)
+        slim.apply_pruning_masks(main, scope, masks)
+        after = epoch(False)
+        fine = [epoch(True) for _ in range(PRUNE_EXAMPLE_EPOCHS)]
+        final = epoch(False)
+        regrew = sum(int((scope.find_var(n)[torch.from_numpy(m == 0).cuda()] != 0).sum())
+                     for n, m in masks.items())
+        sparsity = slim.sparsity(scope, masks)
+    exe.close()
+    r = dict(train=train, before_prune=before, after_prune=after, finetune=fine, final=final,
+             accuracy_fell_at_the_prune=after[1] < before[1], sparsity=sparsity, regrew=regrew,
+             seconds=time.perf_counter() - t0)
+    emit("prune_finetune_example", **r)
+    bar = (after[0] > before[0] and final[1] >= after[1]
+           and (final[0] < after[0] * 0.7 or final[0] < before[0] * 1.1))
+    if regrew or abs(sparsity - 0.5) > 0.02 or not bar:
+        raise SystemExit(f"slim B: examples/prune_finetune.py's bar is not met: {r}")
+    return r
+
+
+def _vision_cases_on_card(torch):
+    """C: every case of tools/vision_cases.py at the models' shapes on the card
+    against the CPU port, forward and generic grad (VISION_CARD_REL), each
+    forward and gradient call captured in a CUDA graph with its launches
+    counted."""
+    from paddle_tpu_torch.core import registry as treg
+    from paddle_tpu_torch.tools import vision_cases as vc
+
+    def held(card, cpu, what):
+        worst = 0.0
+        for slot, vals in cpu.items():
+            for a, b in zip(vals, card[slot]):
+                if a is None:
+                    continue
+                a, b = a.detach().float().numpy(), b.detach().float().cpu().numpy()
+                err = float(np.abs(a - b).max()) if a.size else 0.0
+                if a.shape != b.shape or err > VISION_CARD_REL * max(float(np.abs(a).max()),
+                                                                      1e-30):
+                    raise SystemExit(f"vision C: {what} {slot} parts from the CPU port by {err}")
+                worst = max(worst, err / max(float(np.abs(a).max()), 1e-30))
+        return worst
+
+    rows = []
+    for name, c in sorted(vc.card_cases().items()):
+        cpu = vc.forward(c, "cpu")
+        tins = vc._tensors(c.ins, "cuda")
+        ctx = treg.LowerCtx(dict(c.attrs), "cuda")
+        card = treg.get(c.op).lower(ctx, tins)
+        fwd = held(card, cpu, name)
+        nodes = _graph_nodes(torch, lambda: treg.get(c.op).lower(ctx, tins))
+        gins, gattrs = vc.grad_inputs(c, cpu)
+        g_cpu = treg.get(c.op + "_grad").lower(treg.LowerCtx(gattrs, "cpu"), vc._tensors(gins, "cpu"))
+        gtins = vc._tensors(gins, "cuda")
+        gctx = treg.LowerCtx(gattrs, "cuda")
+        g_card = treg.get(c.op + "_grad").lower(gctx, gtins)
+        grd = held(g_card, g_cpu, name + " grad")
+        gnodes = _graph_nodes(torch, lambda: treg.get(c.op + "_grad").lower(gctx, gtins))
+        rows.append(dict(case=name, op=c.op, shape=list(np.shape(next(iter(c.ins.values()))[0])),
+                         forward_rel_err=fwd, grad_rel_err=grd,
+                         forward_kernel_launches=nodes[1], grad_kernel_launches=gnodes[1]))
+        del cpu, tins, card, g_cpu, gtins, g_card
+        torch.cuda.empty_cache()
+    emit("vision_cases_on_card", cases=len(rows), rows=rows, rel_limit=VISION_CARD_REL)
+    missing = vc.VISION_TYPES - {r["op"] for r in rows}
+    if missing:
+        raise SystemExit(f"vision C: op types without a case on the card: {sorted(missing)}")
+    return rows
+
+
+def _nchw_s2d_step1(torch, pt):
+    """C: step 1 of the NCHW space-to-depth ResNet-50 (f32, Momentum) at batch
+    2 on the card against the CPU port, from the card's startup state."""
+    from paddle_tpu_torch.models import resnet
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        img = pt.data("img", [3, 224, 224], "float32")
+        label = pt.data("label", [1], "int64")
+        loss, _, _ = resnet.resnet50(img, label, num_classes=1000, data_format="NCHW",
+                                     conv1_space_to_depth=True)
+        pt.optimizer.Momentum(0.1, 0.9).minimize(loss)
+    init = _startup_state(pt, main, startup)
+    rng = np.random.RandomState(SEED + 2)
+    feed = {"img": torch.from_numpy(rng.randn(2, 3, 224, 224).astype(np.float32)),
+            "label": torch.from_numpy(rng.randint(0, 1000, (2, 1)).astype(np.int64))}
+    t0 = time.perf_counter()
+    cpu = _resnet_step1(torch, pt, main, loss, {n: t.cpu() for n, t in init.items()}, feed, "cpu")
+    cpu_s = time.perf_counter() - t0
+    card = _resnet_step1(torch, pt, main, loss, init, {k: v.cuda() for k, v in feed.items()},
+                         "cuda")
+    g = dict(_resnet_gaps(card, cpu), cpu_seconds=cpu_s,
+             space_to_depth_ops=[op.type for op in main.global_block().ops].count("space_to_depth"))
+    emit("nchw_space_to_depth_resnet50_step1", **g, loss_rel_limit=RESNET_LOSS_REL,
+         update_rel_l1_limit=RESNET_UPDATE_REL)
+    if not (g["loss_rel_gap"] <= RESNET_LOSS_REL and g["update_rel_l1_gap"] <= RESNET_UPDATE_REL):
+        raise SystemExit(f"vision C: the NCHW space-to-depth ResNet-50's step 1 parts from the "
+                         f"CPU port: {g}")
+    return g
+
+
+def phase_slim_and_control_flow(torch, chapters, unpruned_step_ms=None):
+    """Phase 23: control flow on the card (A), slim's pruned ResNet-50 through
+    K2 and the prune-finetune example (B), the vision op cases and the NCHW
+    space-to-depth ResNet-50 against the CPU port (C)."""
+    import paddle_tpu_torch as pt
+    t0 = time.perf_counter()
+    a = dict(while_training=_cf_while_training(torch, pt),
+             unbounded_while=_cf_unbounded_while(torch, pt),
+             ifelse_switch=_cf_ifelse_switch(torch, pt),
+             dynamic_rnn_lstm=_cf_dynamic_rnn_lstm(torch, pt, chapters))
+    torch.cuda.empty_cache()
+    b = dict(resnet50=_slim_resnet50(torch, pt, unpruned_step_ms),
+             example=_prune_finetune_example(torch, pt))
+    torch.cuda.empty_cache()
+    c = dict(cases=_vision_cases_on_card(torch), nchw_s2d_step1=_nchw_s2d_step1(torch, pt))
+    torch.cuda.empty_cache()
+    emit("slim_and_control_flow", seconds=time.perf_counter() - t0)
+    return dict(a=a, b=b, c=c, seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     if not os.path.isfile(os.path.join(REPO, "paddle_tpu_torch", "csrc",
                                        "flash_attn_fwd.cu")):
@@ -6278,6 +6795,10 @@ def main() -> int:
         det = phase_detection(torch, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    slim_cf = phase_slim_and_control_flow(
+        torch, chapters, cap_resnet["paths"]["graph"]["step_ms_median_warm"])
+    pruned_k2 = round(slim_cf["b"]["resnet50"]["k2_launches_per_step"] * SLIM_STEPS)
     os.remove(tune_cache)
     tier_l = {"tuner_search": tier["tuner_launches"],
               "serving_pool": tier["pool"]["traffic"]["launches"]}
@@ -6437,10 +6958,11 @@ def main() -> int:
          "source": "paddle_tpu_torch/csrc/conv1x1_bn.cu",
          "replaces": "paddle_tpu/ops/pallas_conv_bn.py:124",
          "launches": (resnet_launches["fused_conv1x1_bn_fwd"]
-                      + opt_l["lars_resnet50_training"]["fused_conv1x1_bn_fwd"]),
+                      + opt_l["lars_resnet50_training"]["fused_conv1x1_bn_fwd"] + pruned_k2),
          "launches_by_path": {"resnet50_training": resnet_launches["fused_conv1x1_bn_fwd"],
                               "lars_resnet50_training":
-                                  opt_l["lars_resnet50_training"]["fused_conv1x1_bn_fwd"]},
+                                  opt_l["lars_resnet50_training"]["fused_conv1x1_bn_fwd"],
+                              "pruned_resnet50_training": pruned_k2},
          "max_abs_err": max(r["max_abs_err"] for r in cres if r["dtype"] == "bfloat16"),
          **{k: conv_case[k] for k in keys}, "matmul_ms": conv_case["matmul_ms"],
          "library_note": no_library,
@@ -6594,6 +7116,24 @@ def main() -> int:
             "small_detectors_losses": {r["model"]: r["losses"] for r in det["small"]},
             "op_types_on_card": len(det["op_types"]), "cases_on_card": len(det["cases"]),
             "seconds": det["seconds"]},
+        "slim_and_control_flow": {
+            "while_step_ms": {k: slim_cf["a"]["while_training"][f"step_ms_{k}"]
+                              for k in ("graph", "eager")},
+            "while_step1_rel_gap": slim_cf["a"]["while_training"]["step1_batch2"]["rel_gap"],
+            "unbounded_while": {k: slim_cf["a"]["unbounded_while"][k] for k in (
+                "refusal", "run_ms", "device_activities_per_run", "idle_share")},
+            "ifelse_switch_step_ms": slim_cf["a"]["ifelse_switch"]["step_ms_graph"],
+            "dynamic_rnn_lstm_step_ms": slim_cf["a"]["dynamic_rnn_lstm"]["step_ms_graph"],
+            "dynamic_rnn_lstm_losses": slim_cf["a"]["dynamic_rnn_lstm"]["losses"],
+            "pruned_resnet50_step_ms": slim_cf["b"]["resnet50"]["step_ms_median_warm"],
+            "unpruned_resnet50_step_ms": slim_cf["b"]["resnet50"]["unpruned_step_ms_phase8"],
+            "pruned_k2_launches_per_step": slim_cf["b"]["resnet50"]["k2_launches_per_step"],
+            "prune_example_final": slim_cf["b"]["example"]["final"],
+            "vision_cases_on_card": len(slim_cf["c"]["cases"]),
+            "vision_worst_rel_err": max(max(r["forward_rel_err"], r["grad_rel_err"])
+                                        for r in slim_cf["c"]["cases"]),
+            "nchw_s2d_step1_loss_rel_gap": slim_cf["c"]["nchw_s2d_step1"]["loss_rel_gap"],
+            "seconds": slim_cf["seconds"]},
         "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

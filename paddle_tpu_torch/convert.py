@@ -52,7 +52,13 @@ and ``_mean_grad_0`` (RMSProp), ``_squared_0`` / ``_linear_0`` (Ftrl),
 ``_velocity_0`` (LarsMomentum), Adam's four (AdamW, Lamb), and the
 wrappers' ``ema_decay_pow_N`` with ``{param}_ema_N``, ``ma_count_N`` with
 ``{param}_ma_sum_N``, and ``la_step_N`` with ``{param}_slow_N`` /
-``{param}_slow_init_N``.
+``{param}_slow_init_N``. The vision layers' parameters carry by their
+``unique_name`` names too: ``group_norm_N.w_0`` / ``.b_0`` and
+``instance_norm_N.w_0`` / ``.b_0`` (scale, shift), ``prelu_N.w_0`` (the
+alphas: [1], [C] or [C H W] by mode); so do a pruned program's masks,
+``{param}@prune_mask`` (float32, persistable and not trainable, in both
+packages; ``contrib/slim.py``), and a ``While`` body's parameters (global
+parameters that the ``while`` op reads as inputs).
 """
 from __future__ import annotations
 

@@ -452,10 +452,13 @@ class SubBlockRunner:
 
 def capture_refusal(program: Program) -> Optional[str]:
     """Why ``program`` is not captured as a CUDA graph (None: it is),
-    decided by op type before it runs: an op that draws from a host-seeded
-    generator would replay the captured run's numbers, and one that reads
-    or writes host memory (a host table's in-step pull or push) would not
-    run on a replay at all."""
+    decided from its ops and their attrs before it runs: an op that draws
+    from a host-seeded generator would replay the captured run's numbers,
+    one that reads or writes host memory (a host table's in-step pull or
+    push) would not run on a replay at all, and an op's own
+    ``capture_refusal`` names what it does on the host at each run (a
+    ``while`` without ``max_iters`` reads its condition there every
+    iteration; a ``print`` prints there), in any block."""
     for blk in program.blocks:
         for op in blk.ops:
             d = registry.get(op.type)
@@ -463,6 +466,9 @@ def capture_refusal(program: Program) -> Optional[str]:
                 return f"op {op.type!r} draws from a host-seeded generator"
             if d.host_io:
                 return f"op {op.type!r} reads or writes host memory"
+            why = d.capture_refusal(op) if d.capture_refusal is not None else None
+            if why is not None:
+                return why
     return None
 
 

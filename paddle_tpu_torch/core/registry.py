@@ -171,7 +171,8 @@ class OpDef:
     def __init__(self, type: str, lower: Callable, infer_shape: Optional[Callable] = None,
                  grad: Any = "auto", nondiff_inputs: Sequence[str] = (),
                  nondiff_outputs: Sequence[str] = (), state_inputs: Sequence[str] = (),
-                 host_rng: bool = False, remat: bool = False, host_io: bool = False):
+                 host_rng: bool = False, remat: bool = False, host_io: bool = False,
+                 capture_refusal: Optional[Callable[[Operator], Optional[str]]] = None):
         self.type = type
         self.lower = lower
         self.custom_infer_shape = infer_shape
@@ -192,6 +193,10 @@ class OpDef:
         # table's pull or push): a copy to the host inside the step, so a
         # program holding such an op is not captured as a graph
         self.host_io = host_io
+        # ``capture_refusal(op)``: why a program holding this op, as its
+        # attrs configure it, is not captured (None: it may be), for an op
+        # that reads a value on the host or acts on the host at each run
+        self.capture_refusal = capture_refusal
 
 
 _REGISTRY: Dict[str, OpDef] = {}
@@ -199,7 +204,7 @@ _REGISTRY: Dict[str, OpDef] = {}
 
 def register(type: str, *, grad="auto", nondiff_inputs=(), nondiff_outputs=(),
              infer_shape=None, state_inputs=(), host_rng=False, remat=False,
-             host_io=False):
+             host_io=False, capture_refusal=None):
     """Decorator: register ``fn(ctx, ins) -> outs`` as the lowering for ``type``
     (``infer_shape(op, block)`` replaces the meta-tensor inference)."""
 
@@ -207,7 +212,8 @@ def register(type: str, *, grad="auto", nondiff_inputs=(), nondiff_outputs=(),
         if type in _REGISTRY:
             raise ValueError(f"op type {type!r} already registered")
         _REGISTRY[type] = OpDef(type, fn, infer_shape, grad, nondiff_inputs,
-                                nondiff_outputs, state_inputs, host_rng, remat, host_io)
+                                nondiff_outputs, state_inputs, host_rng, remat, host_io,
+                                capture_refusal)
         return fn
 
     return deco

@@ -2,8 +2,8 @@
 ``_seq_reverse``, ``_mask_padded``, ``linear_chain_crf``, ``crf_decoding``,
 ``sum``, the logical layers, ``shard_index``, ``mse_loss``, ``rank``,
 ``autoincreased_step_counter``, ``strided_slice``, ``scatter_nd_add``,
-``scatter_nd``, ``expand_as`` and ``host_embedding`` from
-``paddle_tpu/layers/extras.py``;
+``scatter_nd``, ``expand_as``, ``host_embedding``, ``space_to_depth`` and
+``fsp_matrix`` from ``paddle_tpu/layers/extras.py``;
 reference: python/paddle/fluid/layers/nn.py linear_chain_crf:1589,
 crf_decoding:1650, dynamic_lstm:466, dynamic_gru:868).
 
@@ -251,4 +251,21 @@ def host_embedding(input, size, name, optimizer="adagrad", learning_rate=0.05,
                      inputs={"Ids": [input], "Anchor": [anchor]},
                      outputs={"Out": [out]},
                      attrs={"table_name": name, "dtype": dtype, "shard_axis": None})
+    return _var(helper, out)
+
+
+def space_to_depth(x, blocksize, name=None):
+    """NCHW [B, C, H, W] -> [B, C blocksize^2, H / blocksize, W / blocksize]."""
+    helper = LayerHelper("space_to_depth", name=name)
+    out = _out(helper, x.dtype)
+    helper.append_op("space_to_depth", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"blocksize": blocksize})
+    return _var(helper, out)
+
+
+def fsp_matrix(x, y):
+    """The [B, C1, C2] flow-of-solution-procedure matrix of two NCHW maps."""
+    helper = LayerHelper("fsp")
+    out = _out(helper, x.dtype)
+    helper.append_op("fsp", inputs={"X": [x], "Y": [y]}, outputs={"Out": [out]})
     return _var(helper, out)

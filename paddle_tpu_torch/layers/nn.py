@@ -1,7 +1,6 @@
 """Core NN layers DSL (the port's copy of ``paddle_tpu/layers/nn.py``: every
-function but the vision layers ``adaptive_pool2d``, ``deformable_conv``,
-``group_norm``, ``instance_norm``, ``prelu`` and ``chunk_eval``,
-``sequence_mask``, ``similarity_focus``, which are not ported yet).
+function but ``deformable_conv``, ``chunk_eval``, ``sequence_mask`` and
+``similarity_focus``, which are not ported yet).
 
 Each function builds ops into the default main program and parameters into
 the default startup program, with the same op types, slots, attrs and names
@@ -133,6 +132,12 @@ def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1, pool_padding=0,
     return _var(helper, out)
 
 
+def adaptive_pool2d(input, pool_size, pool_type="max", name=None):
+    """``pool2d`` into ``pool_size`` equal bins (the input's H and W must
+    divide)."""
+    return pool2d(input, pool_size=pool_size, pool_type=pool_type, adaptive=True, name=name)
+
+
 def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
                param_attr=None, bias_attr=None, data_layout="NCHW",
                in_place=False, name=None, moving_mean_name=None,
@@ -188,6 +193,63 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1, epsilon=1e-5,
                      outputs={"Y": [y], "Mean": [mean], "Variance": [var]},
                      attrs={"epsilon": epsilon, "begin_norm_axis": begin_norm_axis})
     return helper.append_activation(_var(helper, y))
+
+
+def _norm_params(helper, input, param_attr, bias_attr):
+    """The X input and, unless its attr is False, a per-channel scale (1) and
+    bias (0) in the input's dtype."""
+    from ..initializer import Constant
+    c = input.shape[1]
+    inputs = {"X": [input]}
+    if param_attr is not False:
+        inputs["Scale"] = [helper.create_parameter(param_attr, [c], input.dtype,
+                                                   default_initializer=Constant(1.0))]
+    if bias_attr is not False:
+        inputs["Bias"] = [helper.create_parameter(bias_attr, [c], input.dtype, is_bias=True)]
+    return inputs
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, data_layout="NCHW", name=None):
+    helper = LayerHelper("group_norm", act=act, name=name)
+    inputs = _norm_params(helper, input, param_attr, bias_attr)
+    y = _out(helper, input.dtype)
+    mean = _out(helper, "float32", stop_gradient=True)
+    var = _out(helper, "float32", stop_gradient=True)
+    helper.append_op("group_norm", inputs=inputs,
+                     outputs={"Y": [y], "Mean": [mean], "Variance": [var]},
+                     attrs={"groups": groups, "epsilon": epsilon})
+    return helper.append_activation(_var(helper, y))
+
+
+def instance_norm(input, epsilon=1e-5, param_attr=None, bias_attr=None, name=None):
+    helper = LayerHelper("instance_norm", name=name)
+    inputs = _norm_params(helper, input, param_attr, bias_attr)
+    y = _out(helper, input.dtype)
+    sm = _out(helper, "float32", stop_gradient=True)
+    sv = _out(helper, "float32", stop_gradient=True)
+    helper.append_op("instance_norm", inputs=inputs,
+                     outputs={"Y": [y], "SavedMean": [sm], "SavedVariance": [sv]},
+                     attrs={"epsilon": epsilon})
+    return _var(helper, y)
+
+
+def prelu(x, mode, param_attr=None, name=None):
+    """alpha: one (``all``), one a channel (``channel``) or one an element of
+    a sample (``element``), initialised to 0.25."""
+    from ..initializer import Constant
+    helper = LayerHelper("prelu", name=name)
+    alpha_shape = [1]
+    if mode == "channel":
+        alpha_shape = [x.shape[1]]
+    elif mode == "element":
+        alpha_shape = [int(np.prod(x.shape[1:]))]
+    alpha = helper.create_parameter(param_attr, alpha_shape, x.dtype,
+                                    default_initializer=Constant(0.25))
+    out = _out(helper, x.dtype)
+    helper.append_op("prelu", inputs={"X": [x], "Alpha": [alpha]},
+                     outputs={"Out": [out]}, attrs={"mode": mode})
+    return _var(helper, out)
 
 
 def dropout(x, dropout_prob, is_test=False, seed=None, name=None,

@@ -1,5 +1,4 @@
-"""Tensor layers (the port's copy of ``paddle_tpu/layers/tensor.py``: every
-function but ``tensor_array_to_tensor``, which waits for the array ops).
+"""Tensor layers (the port's copy of ``paddle_tpu/layers/tensor.py``).
 
 ``range`` and ``linspace`` pass their bounds as tensors, as the JAX
 package's do, so shape inference refuses them there as in the JAX package:
@@ -244,3 +243,19 @@ def has_inf(x):
     inf = fill_constant([1], x.dtype, float("inf"))
     eq = _nn.cast(equal(_nn.abs(x), inf), "float32")
     return _nn.cast(_nn.reshape(_nn.reduce_sum(eq), [1]), "bool")
+
+
+def tensor_array_to_tensor(input, axis=1, name=None):
+    """A TensorArray (a fixed-capacity stacked buffer) concatenated along
+    ``axis``: every slot read and concatenated. Returns (out, the [capacity]
+    int32 size of each slot along ``axis``), as the reference's (Out,
+    OutIndex)."""
+    import builtins
+    from .control_flow import array_read
+    cap = int(input.shape[0])
+    reads = [array_read(input, fill_constant([1], "int32", t))
+             for t in builtins.range(cap)]   # this module's range() shadows the builtin
+    out = concat(reads, axis=axis)
+    sizes = fill_constant([cap], "int32",
+                          float(reads[0].shape[axis] if reads[0].shape[axis] != -1 else 1))
+    return out, sizes

@@ -55,12 +55,10 @@ _DEPTHS = {50: [3, 4, 6, 3], 101: [3, 4, 23, 3], 152: [3, 8, 36, 3]}
 
 
 def _space_to_depth2(img, data_format):
-    """2x2 space-to-depth, channels-last: a reshape/transpose/reshape. (The
-    NCHW form is the ``space_to_depth`` op, which the port does not have.)"""
+    """2x2 space-to-depth: NCHW is the ``space_to_depth`` op; NHWC the same
+    permutation channels-last, a reshape/transpose/reshape."""
     if data_format == "NCHW":
-        raise NotImplementedError(
-            "conv1_space_to_depth with data_format='NCHW' needs the space_to_depth "
-            "op, which is not ported yet; use data_format='NHWC'")
+        return layers.space_to_depth(img, 2)
     n, h, w, c = img.shape
     x = layers.reshape(img, [-1, h // 2, 2, w // 2, 2, c])
     x = layers.transpose(x, [0, 1, 3, 2, 4, 5])

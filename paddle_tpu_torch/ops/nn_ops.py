@@ -1,11 +1,19 @@
 """Convolution, pooling, normalization, dropout and resize ops (the port's
-copy of ``conv2d``, ``conv2d_transpose``, ``pool2d``, ``batch_norm``,
-``layer_norm``, ``dropout`` and the resize family ``interpolate``,
-``nearest_interp``, ``bilinear_interp``, ``trilinear_interp`` from
-``paddle_tpu/ops/nn_ops.py``).
+copy of ``paddle_tpu/ops/nn_ops.py``: ``conv2d``, ``depthwise_conv2d``,
+``conv2d_transpose``, ``conv3d``, ``conv3d_transpose``, ``pool2d``,
+``pool3d``, ``batch_norm`` and its alias ``sync_batch_norm``
+(``paddle_tpu/ops/tail_ops.py``), ``layer_norm``, ``group_norm``,
+``instance_norm``, ``prelu``, ``dropout``, the resize family
+``interpolate``, ``nearest_interp``, ``bilinear_interp``,
+``trilinear_interp``, and ``space_to_depth`` and ``fsp`` from
+``paddle_tpu/ops/extra_ops.py``).
 
-Convolution and pooling are PyTorch's (``F.conv2d``, ``F.max_pool2d``,
-``F.avg_pool2d``), as the JAX package leaves them to XLA. Activations keep
+Convolution and pooling are PyTorch's (``F.conv2d``, ``F.conv3d``, their
+transposes, ``F.max_pool2d`` / ``3d``, ``F.avg_pool2d`` / ``3d``), as the
+JAX package leaves them to XLA. A ``depthwise_conv2d`` is ``conv2d`` with
+one group a channel. ``sync_batch_norm`` is ``batch_norm``: on one card
+the batch statistics are the global ones (the JAX package's alias: under
+its whole-program jit the reductions are global). Activations keep
 their declared layout: an NHWC tensor is handed over as its NCHW-shaped
 permuted view (channels-last strides, no copy) and the result is permuted
 back. The filter is OIHW in both layouts. The layout cuDNN computes in is
@@ -72,16 +80,18 @@ def conv_in_layout(x, w, strides, pads, dils, groups, fmt, layout):
     return out.contiguous() if layout != fmt else out
 
 
-@register("conv2d")
-def conv2d(ctx, ins):
+def _conv(ctx, ins, depthwise=False):
     """2-D convolution (``conv_in_layout``) in the layout the autotuner's
-    ``conv2d.layout`` picks, the declared ``data_format`` by default."""
+    ``conv2d.layout`` picks, the declared ``data_format`` by default;
+    ``depthwise``: one group a channel, whatever ``groups`` says."""
     x, w = ins["Input"][0], ins["Filter"][0]
     fmt = ctx.attr("data_format", "NCHW") or "NCHW"
     pads = [int(p) for p in (ctx.attr("paddings", [0, 0]) or [0, 0])]
     strides = _pair(ctx.attr("strides", [1, 1]))
     dils = _pair(ctx.attr("dilations", [1, 1]))
     groups = ctx.attr("groups", 1) or 1
+    if depthwise:
+        groups = x.shape[1] if fmt == "NCHW" else x.shape[-1]
     layout = fmt
     if not ctx.abstract and x.ndim == 4:
         from ..tuning import choices as _choices
@@ -91,6 +101,37 @@ def conv2d(ctx, ins):
             "dils": tuple(dils), "groups": groups, "fmt": fmt,
             "dtype": _choices.dtype_name(x)})
     return {"Output": [conv_in_layout(x, w, strides, pads, dils, groups, fmt, layout)]}
+
+
+register("conv2d")(lambda ctx, ins: _conv(ctx, ins))
+register("depthwise_conv2d")(lambda ctx, ins: _conv(ctx, ins, depthwise=True))
+
+
+def _triple(v):
+    if isinstance(v, (list, tuple)):
+        return tuple(int(x) for x in v)
+    return (int(v),) * 3
+
+
+@register("conv3d")
+def conv3d(ctx, ins):
+    """3-D convolution, NCDHW, filter OIDHW, symmetric ``paddings``."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    return {"Output": [F.conv3d(x, w, stride=_triple(ctx.attr("strides", [1, 1, 1])),
+                                padding=_triple(ctx.attr("paddings", [0, 0, 0])),
+                                dilation=_triple(ctx.attr("dilations", [1, 1, 1])),
+                                groups=ctx.attr("groups", 1) or 1)]}
+
+
+@register("conv3d_transpose")
+def conv3d_transpose(ctx, ins):
+    """3-D transposed convolution: filter [in_c, out_c / groups, kd, kh,
+    kw], ``paddings`` cropping the output (``conv2d_transpose``'s rules)."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    return {"Output": [F.conv_transpose3d(
+        x, w, stride=_triple(ctx.attr("strides", [1, 1, 1])),
+        padding=_triple(ctx.attr("paddings", [0, 0, 0])),
+        dilation=_triple(ctx.attr("dilations", [1, 1, 1])), groups=ctx.attr("groups", 1) or 1)]}
 
 
 @register("conv2d_transpose")
@@ -140,6 +181,29 @@ def pool2d(ctx, ins):
     return {"Out": [_from_nchw(y, fmt)]}
 
 
+@register("pool3d")
+def pool3d(ctx, ins):
+    """``pool2d``'s knobs over D, H and W of an NCDHW tensor."""
+    x = ins["X"][0]
+    ptype = ctx.attr("pooling_type", "max")
+    k = _triple(ctx.attr("ksize", [2, 2, 2]))
+    s = _triple(ctx.attr("strides", [2, 2, 2]))
+    p = _triple(ctx.attr("paddings", [0, 0, 0]))
+    if ctx.attr("global_pooling", False):
+        axes = (2, 3, 4)
+        return {"Out": [x.amax(dim=axes, keepdim=True) if ptype == "max"
+                        else x.mean(dim=axes, keepdim=True)]}
+    if ctx.attr("adaptive", False):
+        n, c, d, h, w = x.shape
+        xb = x.reshape(n, c, k[0], d // k[0], k[1], h // k[1], k[2], w // k[2])
+        axes = (3, 5, 7)
+        return {"Out": [xb.amax(dim=axes) if ptype == "max" else xb.mean(dim=axes)]}
+    if ptype == "max":
+        return {"Out": [F.max_pool3d(x, k, s, p)]}
+    return {"Out": [F.avg_pool3d(x, k, s, p,
+                                 count_include_pad=not ctx.attr("exclusive", True))]}
+
+
 @register("batch_norm", nondiff_inputs=("Mean", "Variance"),
           nondiff_outputs=("MeanOut", "VarianceOut", "SavedMean", "SavedVariance"),
           state_inputs=("Mean", "Variance"))
@@ -176,6 +240,11 @@ def batch_norm(ctx, ins):
             "SavedMean": [saved_mean.detach()], "SavedVariance": [inv.detach()]}
 
 
+register("sync_batch_norm", nondiff_inputs=("Mean", "Variance"),
+         nondiff_outputs=("MeanOut", "VarianceOut", "SavedMean", "SavedVariance"),
+         state_inputs=("Mean", "Variance"))(batch_norm)
+
+
 @register("layer_norm", nondiff_outputs=("Mean", "Variance"))
 def layer_norm(ctx, ins):
     """Normalize over dims >= begin_norm_axis, computed in f32 and cast back."""
@@ -197,6 +266,83 @@ def layer_norm(ctx, ins):
     lead = tuple(x.shape[:bna])
     return {"Y": [y.to(x.dtype)], "Mean": [mean.reshape(lead)],
             "Variance": [var.reshape(lead)]}
+
+
+def _affine(y, ins, c, ndim):
+    """y * Scale + Bias over the channel axis 1, each where the op has it."""
+    bshape = (1, c) + (1,) * (ndim - 2)
+    scale = ins.get("Scale", [None])[0]
+    if scale is not None:
+        y = y * scale.reshape(bshape)
+    bias = ins.get("Bias", [None])[0]
+    if bias is not None:
+        y = y + bias.reshape(bshape)
+    return y
+
+
+@register("group_norm", nondiff_outputs=("Mean", "Variance"))
+def group_norm(ctx, ins):
+    """Normalize each of ``groups`` channel groups over its channels and
+    spatial axes, in f32; ``Mean`` / ``Variance`` are [N, groups]."""
+    x = ins["X"][0]
+    g = ctx.attr("groups", 1)
+    eps = ctx.attr("epsilon", 1e-5)
+    n, c = x.shape[0], x.shape[1]
+    xg = x.reshape((n, g, c // g) + tuple(x.shape[2:])).float()
+    axes = tuple(range(2, xg.ndim))
+    mean = xg.mean(dim=axes, keepdim=True)
+    var = (xg - mean).square().mean(dim=axes, keepdim=True)
+    y = _affine(((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape), ins, c, x.ndim)
+    return {"Y": [y.to(x.dtype)], "Mean": [mean.reshape(n, g).detach()],
+            "Variance": [var.reshape(n, g).detach()]}
+
+
+@register("instance_norm", nondiff_outputs=("SavedMean", "SavedVariance"))
+def instance_norm(ctx, ins):
+    """Normalize each (sample, channel) over its spatial axes, in f32;
+    ``SavedMean`` / ``SavedVariance`` squeezed as the JAX package's."""
+    x = ins["X"][0]
+    eps = ctx.attr("epsilon", 1e-5)
+    axes = tuple(range(2, x.ndim))
+    xf = x.float()
+    mean = xf.mean(dim=axes, keepdim=True)
+    var = (xf - mean).square().mean(dim=axes, keepdim=True)
+    y = _affine((xf - mean) * torch.rsqrt(var + eps), ins, x.shape[1], x.ndim)
+    return {"Y": [y.to(x.dtype)], "SavedMean": [mean.squeeze().detach()],
+            "SavedVariance": [var.squeeze().detach()]}
+
+
+@register("prelu")
+def prelu(ctx, ins):
+    """x where x > 0, else alpha * x; ``mode`` all (one alpha), channel (one
+    a channel, axis 1) or element (one an element of a sample)."""
+    x, alpha = ins["X"][0], ins["Alpha"][0]
+    mode = ctx.attr("mode", "all")
+    if mode == "channel":
+        alpha = alpha.reshape((1, -1) + (1,) * (x.ndim - 2))
+    elif mode == "element":
+        alpha = alpha.reshape((1,) + tuple(x.shape[1:]))
+    return {"Out": [torch.where(x > 0, x, alpha * x)]}
+
+
+@register("space_to_depth")
+def space_to_depth(ctx, ins):
+    """NCHW [B, C, H, W] -> [B, C s^2, H / s, W / s], channel index
+    (dh s + dw) C + c, as the JAX package orders it."""
+    x = ins["X"][0]
+    s = int(ctx.attr("blocksize"))
+    b, c, h, w = x.shape
+    out = x.reshape(b, c, h // s, s, w // s, s).permute(0, 3, 5, 1, 2, 4)
+    return {"Out": [out.reshape(b, c * s * s, h // s, w // s)]}
+
+
+@register("fsp")
+def fsp(ctx, ins):
+    """The flow-of-solution-procedure matrix of two NCHW feature maps:
+    [B, C1, HW] @ [B, HW, C2] / HW."""
+    x, y = ins["X"][0], ins["Y"][0]
+    h, w = x.shape[2], x.shape[3]
+    return {"Out": [torch.einsum("bchw,bdhw->bcd", x, y) / (h * w)]}
 
 
 @register("dropout", nondiff_outputs=("Mask",))

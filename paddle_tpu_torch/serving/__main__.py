@@ -117,12 +117,13 @@ def _build_mlp(d: str, seed: int = 11, device="cpu") -> None:
 
 
 #: how far (``ulps_apart``) a batched row may lie from the solo run of the
-#: same request on the CPU. A 1-row request runs its fc layers as a
-#: matrix-vector product (MKL's gemv), a batch as a matrix product (gemm),
-#: which sum each 8- or 16-term dot product in other orders: on the tiny
-#: MLP a 1-row request moves by up to 3 ULPs at its row's scale in the port
-#: and 2.5 in the JAX package (XLA CPU) on the same feeds. Requests of 2 or
-#: more rows come back byte-equal on both.
+#: same request on the CPU. A pooled request runs in a row bucket of another
+#: size than alone, and the CPU's matrix product picks its kernel by the row
+#: count: a 1-row request runs as a matrix-vector product, and on an AVX-512
+#: host torch 2.13 sums the same row of a 2- and a 4-row product in other
+#: orders too. On the tiny MLP a request moves by up to 3 ULPs at its row's
+#: scale in the port and 2.5 in the JAX package (XLA CPU) on the same feeds.
+#: On the card a pooled row is byte-equal to its solo run (phase 21).
 CPU_SOLO_ULPS = 4
 
 

@@ -48,7 +48,9 @@ from paddle_tpu_torch.models import yolov3 as t_yolo
 
 STEP1_RTOL, LATER_RTOL, LATE_RTOL = 1e-5, 2e-3, 1e-2
 HEAD_TOL = dict(rtol=1e-4, atol=1e-4)
-BOX_TOL = dict(rtol=1e-6, atol=1e-6)
+#: ulps of a float32 ``exp`` and ``sigmoid`` (1 / (1 + exp(-x)): exp's ulps and
+#: two roundings) from the exact value in either library's vector math
+EXP_ULPS, SIGMOID_ULPS = 2, 4
 A = dict(append_batch_size=False)
 YOLO_TINY = dict(scale=0.25, stage_blocks=(1, 1, 1, 1, 1), num_classes=4)
 
@@ -131,6 +133,78 @@ def _port_nms_on(op, boxes, scores):
     return outs["Out"][0].numpy(), outs["NmsRoisNum"][0].numpy()
 
 
+def _yolo_box_f64(ctx, ins):
+    """``yolo_box`` evaluated in float64, with each output's bound on an f32
+    evaluation of the same formula: (Boxes, Scores, their bounds).
+
+    A corner is ``(gx -+ bw / 2) * img`` with ``gx = (i + sigmoid(tx)) / w``
+    and ``bw = exp(tw) * anchor / (w * downsample)``. ``sigmoid`` is within
+    ``SIGMOID_ULPS`` ulps and ``gx`` takes two roundings more; ``exp`` is
+    within ``EXP_ULPS`` ulps and ``bw`` takes two roundings more, so one ulp
+    of ``exp`` moves the corner by ``eps * bw / 2 * img``: the anchor's
+    scale in pixels. The sum and the product by ``img`` round once each. A
+    score is ``sigmoid(c) * sigmoid(conf)``: ``2 SIGMOID_ULPS + 1`` roundings
+    of it. Masked rows are exact zeros on every side."""
+    x = ins["X"][0].numpy()
+    imgsize = ins["ImgSize"][0].numpy().astype(np.float64)
+    anchors = ctx.attr("anchors")
+    cls = ctx.attr("class_num")
+    n, _, h, w = x.shape
+    na = len(anchors) // 2
+    x = x.reshape(n, na, 5 + cls, h, w)
+    sig = lambda v: 1.0 / (1.0 + np.exp(-v))
+    sx, sy = sig(x[:, :, 0]), sig(x[:, :, 1])
+    gx = (np.arange(w)[None, None, None, :] + sx) / w
+    gy = (np.arange(h)[None, None, :, None] + sy) / h
+    down = ctx.attr("downsample_ratio")
+    bw = np.exp(x[:, :, 2]) * np.asarray(anchors[0::2], np.float64).reshape(1, na, 1, 1) / (w * down)
+    bh = np.exp(x[:, :, 3]) * np.asarray(anchors[1::2], np.float64).reshape(1, na, 1, 1) / (h * down)
+    conf = sig(x[:, :, 4])
+    probs = sig(x[:, :, 5:]) * conf[:, :, None]
+    mask = (conf > ctx.attr("conf_thresh", 0.01)).astype(np.float64)
+    img_h = imgsize[:, 0].reshape(n, 1, 1, 1)
+    img_w = imgsize[:, 1].reshape(n, 1, 1, 1)
+    eps = float(np.finfo(np.float32).eps)
+    boxes, bounds = [], []
+    for g, b, s, img, side in ((gx, bw, sx, img_w, -1), (gy, bh, sy, img_h, -1),
+                               (gx, bw, sx, img_w, 1), (gy, bh, sy, img_h, 1)):
+        corner = (g + side * b / 2) * img
+        boxes.append(corner)
+        bounds.append(eps * img * (SIGMOID_ULPS * s / w + 3 * g + (EXP_ULPS + 3) * b / 2)
+                      + eps * np.abs(corner))
+    boxes = (np.stack(boxes, -1) * mask[..., None]).reshape(n, -1, 4)
+    box_bound = (np.stack(bounds, -1) * mask[..., None]).reshape(n, -1, 4)
+    scores = (probs * mask[:, :, None]).transpose(0, 1, 3, 4, 2).reshape(n, -1, cls)
+    score_bound = (2 * SIGMOID_ULPS + 1) * eps * scores
+    return [torch.from_numpy(a) for a in (boxes, scores, box_bound, score_bound)]
+
+
+def _run_decode(ops, env, f64=False):
+    """The decode's ops over ``env`` with the port's lowerings; with ``f64``,
+    ``yolo_box`` is ``_yolo_box_f64`` and each variable's bound rides beside
+    it as ``<name>@bound`` through the same transposes and concats."""
+    for o in ops:
+        ctx = treg.LowerCtx(dict(o.attrs))
+        ins = {sl: [env[n] for n in ns] for sl, ns in o.inputs.items()}
+        if f64 and o.type == "yolo_box":
+            boxes, scores, bb, sb = _yolo_box_f64(ctx, ins)
+            outs = {"Boxes": [boxes], "Scores": [scores]}
+            env[o.outputs["Boxes"][0] + "@bound"] = bb
+            env[o.outputs["Scores"][0] + "@bound"] = sb
+        else:
+            outs = treg.get(o.type).lower(ctx, ins)
+            if f64:
+                bins = {sl: [env[n + "@bound"] if n + "@bound" in env else env[n] for n in ns]
+                        for sl, ns in o.inputs.items()}
+                bouts = treg.get(o.type).lower(ctx, bins)
+                for sl, ns in o.outputs.items():
+                    if ns and bouts[sl][0] is not None and bouts[sl][0].dtype == torch.float64:
+                        env.update((n + "@bound", v) for n, v in zip(ns, bouts[sl]))
+        for sl, ns in o.outputs.items():
+            env.update(zip(ns, outs[sl]))
+    return env
+
+
 def _assert_served(jv, tv, op):
     for a, b in zip(jv[:2], tv[:2]):
         np.testing.assert_allclose(b, a, **HEAD_TOL)
@@ -192,9 +266,10 @@ def test_yolov3_trains_as_jax(yolo):
 
 
 def test_yolov3_served_as_jax(yolo):
-    """The heads at HEAD_TOL; the port's ``yolo_box`` decode of the JAX heads
-    at BOX_TOL of the JAX decode (``exp`` and ``sigmoid`` round an ulp apart);
-    the port's ``multiclass_nms`` on the JAX decode exactly."""
+    """The heads at HEAD_TOL; the ``yolo_box`` decode of the JAX heads, the
+    port's and the JAX package's, each within ``_yolo_box_f64``'s bound of
+    the float64 decode (the two f32 decodes round ``exp`` and ``sigmoid``
+    ulps apart); the port's ``multiclass_nms`` on the JAX decode exactly."""
     feed, _, _, final = yolo
     sfeed = {"img": feed["img"][:2], "img_size": np.full((2, 2), 64, np.int32)}
     jheads, theads = [], []
@@ -209,16 +284,21 @@ def test_yolov3_served_as_jax(yolo):
     (tv,), _ = _port_run(tmain, sfeed, names, 1, state)
     for a, b in zip(jv[:3], tv[:3]):
         np.testing.assert_allclose(b, a, **HEAD_TOL)
-    env = {h: torch.from_numpy(a) for h, a in zip(jheads, jv[:3])}
-    env["img_size"] = torch.from_numpy(sfeed["img_size"])
     ops = tmain.global_block().ops
-    for o in ops[[x.type for x in ops].index("yolo_box"):-1]:      # the decode, up to NMS
-        outs = treg.get(o.type).lower(treg.LowerCtx(dict(o.attrs)),
-                                      {sl: [env[n] for n in ns] for sl, ns in o.inputs.items()})
-        for sl, ns in o.outputs.items():
-            env.update(zip(ns, outs[sl]))
+    decode = ops[[x.type for x in ops].index("yolo_box"):-1]      # the decode, up to NMS
+    img_size = torch.from_numpy(sfeed["img_size"])
+    env = _run_decode(decode, {"img_size": img_size, **{
+        h: torch.from_numpy(a) for h, a in zip(jheads, jv[:3])}})
+    exact = _run_decode(decode, {"img_size": img_size, **{
+        h: torch.from_numpy(a.astype(np.float64)) for h, a in zip(jheads, jv[:3])}},
+        f64=True)
     for n, a in zip(nms_in, jv[3:5]):
-        np.testing.assert_allclose(env[n].numpy(), a, **BOX_TOL)
+        value, bound = exact[n].numpy(), exact[n + "@bound"].numpy()
+        for label, out in (("port", env[n].numpy()), ("jax", a)):
+            err = np.abs(out.astype(np.float64) - value)
+            share = np.max(err / np.maximum(bound, 1e-300))
+            print(f"{n} {label}: {share:.3g} of the float64 bound")
+            assert share <= 1.0, f"{n} {label}: {share:.3g} of the bound"
     dets, nums = _port_nms_on(op, jv[3], jv[4])
     np.testing.assert_array_equal(dets, jv[5])
     np.testing.assert_array_equal(nums, jv[6].astype(np.int64))

@@ -8,11 +8,13 @@ padding, the shed reasons, the reaped deadlines and the breaker's state
 transitions must be identical. A ``PredictorPool`` on the CPU then serves
 a tiny MLP saved by the JAX package: each batched output within
 ``CPU_SOLO_ULPS`` (4) ULPs at its row's scale of the port's solo
-``Predictor.run`` (``serving/__main__.ulps_apart``; a 1-row request runs
-as MKL's gemv, a batch as gemm: 3 ULPs in the port and 2.5 in the JAX
-package on these feeds, and every request of 2 or more rows byte-equal;
-the byte-equal ones are counted) and within f32 ``atol 1e-6`` of the JAX
-``Predictor`` (the frameworks sum the fc products in other orders). Pools in these tests hold an 8-wide MLP, every wait has a
+``Predictor.run`` (``serving/__main__.ulps_apart``; the byte-equal ones
+are counted) and within f32 ``atol 1e-6`` of the JAX ``Predictor`` (the
+frameworks sum the fc products in other orders). Byte-equality to the solo
+run is the card's guarantee (``chip_smoke.py`` phase 21), not the CPU's:
+the CPU's matrix product picks its kernel by the row count (on an AVX-512
+host torch 2.13 sums the same row of a 2- and a 4-row product in other
+orders), and a pooled request runs in a bucket of other rows than alone. Pools in these tests hold an 8-wide MLP, every wait has a
 timeout and every pool is closed in a ``finally``.
 """
 import os
@@ -201,8 +203,6 @@ def test_a_pool_serves_as_solo_and_matches_jax(models):
     for f, got, ref, jref in zip(feeds, results, refs, jrefs):
         assert got is not None and got.shape == ref.shape
         assert ulps_apart(got, ref) <= CPU_SOLO_ULPS
-        if len(f) > 1:
-            assert got.tobytes() == ref.tobytes()
         equal += got.tobytes() == ref.tobytes()
         np.testing.assert_allclose(got, jref, atol=1e-6, rtol=0)
     print(f"{equal} of {len(feeds)} pool outputs byte-equal to solo")
@@ -233,9 +233,11 @@ def test_deadlines_resolve_typed_on_a_fake_clock(models):
 
 def test_a_swap_copies_into_the_executables_without_building_any(models):
     """swap() under load: no new executable and no cache miss; every output
-    equals one of the two models' solo outputs; after the swap, the new
-    model's. (2-row requests: a 1-row one runs as gemv alone and may part
-    from its batched rows by a few ULPs, see the test above.)"""
+    is one of the two models' solo outputs, within ``CPU_SOLO_ULPS`` (a
+    2-row request batched with another runs as a 4-row product, which the
+    CPU sums in another order, see the module's docstring); after the swap,
+    the new model's. The two models' outputs lie far more than that apart,
+    so each output names its model."""
     da, db = models
     feed = {"x": _feeds((2,))[0]}
     ref_a = Predictor(da, device="cpu").run(feed)[0]
@@ -251,8 +253,11 @@ def test_a_swap_copies_into_the_executables_without_building_any(models):
         outs = [f.result(timeout=JOIN_S)[0] for f in futures]
     finally:
         pool.close(drain_timeout=JOIN_S)
-    assert all(o.tobytes() in (ref_a.tobytes(), ref_b.tobytes()) for o in outs)
-    assert all(o.tobytes() == ref_b.tobytes() for o in outs[20:])
+    assert ulps_apart(ref_a, ref_b) > 1000 * CPU_SOLO_ULPS
+    assert all(min(ulps_apart(o, ref_a), ulps_apart(o, ref_b)) <= CPU_SOLO_ULPS for o in outs)
+    assert all(ulps_apart(o, ref_b) <= CPU_SOLO_ULPS for o in outs[20:])
+    print(f"swap: farthest {max(min(ulps_apart(o, ref_a), ulps_apart(o, ref_b)) for o in outs)}"
+          f" ULPs from a solo output")
     after = [(len(p._compiled), dict(p._cache_counts)["miss"]) for p in pool._predictors]
     assert after == before and pool.model_version == 2
     assert all(p.model_version == 2 for p in pool._predictors)

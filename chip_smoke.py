@@ -395,6 +395,29 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    as cs, paddle_tpu_torch as pt; cs.phase_build();
    cs.phase_slim_and_control_flow(torch, cs.book_setup(pt,
    tempfile.mkdtemp(dir='build')))"``;
+11c. phase 24, CRNN-CTC text recognition and the op types of ROADMAP item
+   8. A: ``tools/ocr.py``'s CRNN-CTC at crnn_ctc_model.py's width ([1, 48,
+   512] images, T 64, 96 classes, hidden 200), batch 32, Momentum: 5
+   captured steps bit for bit to the same 5 eager, step ms on both paths,
+   busy ms, idle share, launches a step, the graph's pool,
+   ``multi_tensor_update`` the same calls each step; step 1 at batch 2 against the CPU
+   port. B: the decode program (``ctc_greedy_decoder``) on a seeded state at
+   a trained net's scales through ``save_inference_model`` to the
+   ``Predictor`` at batch 1 and 32 (p50 ms, device activities a request):
+   every row decodes tokens, and the logits, ids and lengths equal the
+   executor's bit for bit; the on-card ``edit_distance`` equal to a numpy
+   Levenshtein, normalized and not. C: every case of
+   ``tools/extra_op_cases.py`` on the card against the CPU port, forward and
+   gradient, each captured with its launches counted (an empty graph only
+   for the views and constants of ``OCR_EMPTY_CAPTURES``; ``py_func``
+   refused capture, its reason printed), each
+   ``scatters`` case twice, bit for bit; ``data_norm``, ``center_loss``,
+   ``spectral_norm`` and a batch-like draw in a captured SGD step, bit for
+   bit to eager, the draw new at each replay. D: ``warpctc`` forward + backward
+   beside ``F.ctc_loss`` at [32, 64, 96], L 24, losses and gradients held
+   to it. Alone: ``mkdir -p build;
+   python3 -c "import tempfile, torch, chip_smoke as cs; cs.phase_build();
+   cs.phase_ocr(torch, tempfile.mkdtemp(dir='build'))"``;
 12. the kernels line (``multi_tensor_update`` with its five kinds, each
    with its launches; K1-fwd's 64-row tile as ``flash_attn_fwd_q64``),
    then the result line.
@@ -6223,12 +6246,18 @@ def _cf_feed(torch, batch, width, device, seed=1):
             .to(device)}
 
 
-def _graph_vs_eager(torch, pt, main, feeds, fetch, init):
+def _graph_vs_eager(torch, pt, main, feeds, fetch, init, launches=None):
     """The graph executor against the eager one over ``feeds`` (a step each)
     from ``init``: (graph fetches, eager fetches, state names that differ,
-    graph step ms after the capture, whether a graph was captured)."""
+    graph step ms after the capture, whether a graph was captured). Given a
+    dict, ``launches`` gets each path's counts of the hand-written kernels
+    (``cuda_build.COUNTED``, set to 0 before the path) under "graph" and
+    "eager"."""
+    from paddle_tpu_torch.core import cuda_build
     runs = {}
     for graphs_on in (True, False):
+        for fn in cuda_build.COUNTED:
+            fn.launches = 0
         exe = pt.Executor()
         exe._use_graphs = graphs_on
         scope = pt.Scope()
@@ -6245,6 +6274,9 @@ def _graph_vs_eager(torch, pt, main, feeds, fetch, init):
                 times.append((time.perf_counter() - t0) * 1e3)
         captured = any(s.graph is not None for s in exe._cache.values())
         runs[graphs_on] = (outs, {n: scope.find_var(n).clone() for n in init}, times, captured)
+        if launches is not None:
+            launches["graph" if graphs_on else "eager"] = {
+                fn.__name__: fn.launches for fn in cuda_build.COUNTED if fn.launches}
         exe.close()
     (g, gs, gt, cap), (e, es, et, _) = runs[True], runs[False]
     return g, e, _state_equal(torch, gs, es), dict(graph=gt, eager=et), cap
@@ -6656,6 +6688,416 @@ def phase_slim_and_control_flow(torch, chapters, unpruned_step_ms=None):
     return dict(a=a, b=b, c=c, seconds=time.perf_counter() - t0)
 
 
+# ------------------------------------------------------------------------ phase 24
+
+#: crnn_ctc_model.py's training batch and the steps of A
+OCR_BATCH, OCR_STEPS = 32, 5
+#: serving batches and their warm requests
+OCR_SERVE_WARM = {1: 20, 32: 10}
+#: step 1 at batch 2 against the CPU port: the summed CTC loss within 1e-4
+#: (cuDNN's and the CPU's convolution sums, 64 GRU steps each way, the 64-step
+#: recursion) and the step's update (Momentum's first velocity is the
+#: gradient) within 1e-3 in relative L1
+OCR_LOSS_REL, OCR_UPDATE_REL = 1e-4, 1e-3
+#: D: warpctc against F.ctc_loss on the same log-probs, feasible rows: the
+#: losses within a relative 1e-4, the gradients' largest gap within 1e-3 of
+#: their largest magnitude (1.1e-4 measured on an H100; a gradient that lost
+#: a term or a path parts by 1e-1 and more)
+OCR_CTC_RTOL, OCR_CTC_GRAD_REL = 1e-4, 1e-3
+#: C: the cases whose captured call launches no kernel, (case, gradient):
+#: views (``crop``, ``crop_tensor``, ``cvm`` with use_cvm off,
+#: ``sequence_reshape``) and ``fill``'s constant, cached on the card
+OCR_EMPTY_CAPTURES = {("crop", False), ("crop-like", False), ("crop_tensor", False),
+                      ("crop_tensor-clamped", False), ("cvm-drop", False), ("fill", False),
+                      ("fill-int", False), ("sequence_reshape", False),
+                      ("sequence_reshape", True)}
+
+
+def _ocr_feed(torch, cfg, batch, seed, device):
+    from paddle_tpu_torch.tools import ocr
+    return {k: torch.from_numpy(v).to(device) for k, v in ocr.crnn_feed(cfg, batch, seed).items()}
+
+
+def _ocr_train(torch, pt):
+    """A: CRNN-CTC at [1, 48, 512], batch 32, T 64, Momentum: 5 captured steps
+    against the same 5 eager, bit for bit; step ms on both paths, device busy
+    ms, idle share, launches a step, the graph's pool, multi_tensor_update's
+    calls a step; step 1 at batch 2 against the CPU port. Returns the record
+    and the startup state."""
+    from paddle_tpu_torch.core.executor import capture_refusal
+    from paddle_tpu_torch.tools import ocr
+    cfg = ocr.CRNN
+    t = ocr.build_crnn_ctc(pt, cfg, seed=SEED)
+    why = capture_refusal(t.main)
+    if why is not None:
+        raise SystemExit(f"ocr A: the CRNN-CTC step is not captured: {why}")
+    init = _startup_state(pt, t.main, t.startup)
+    feeds = [_ocr_feed(torch, cfg, OCR_BATCH, SEED + 24 + k, "cuda") for k in range(OCR_STEPS)]
+    launches = {}
+    g, e, differs, ms, captured = _graph_vs_eager(torch, pt, t.main, feeds, [t.loss], init,
+                                                  launches=launches)
+    torch.cuda.empty_cache()
+    if not captured:
+        raise SystemExit("ocr A: no CUDA graph was captured for the CRNN-CTC step")
+    losses = [float(o[0].reshape(())) for o in g]
+    bit_equal = all(torch.equal(a[0], b[0]) for a, b in zip(g, e))
+    if not (bit_equal and not differs):
+        raise SystemExit(f"ocr A: the captured CRNN-CTC steps part from the eager ones: "
+                         f"losses equal {bit_equal}, state {differs[:8]}")
+    if not np.isfinite(losses).all():
+        raise SystemExit(f"ocr A: CRNN-CTC losses not finite: {losses}")
+    # the update ops group into one call a run of equal attrs: the biases'
+    # learning rate 2.0 and the regularisers' ops between them make several
+    mt = launches["graph"].get("multi_tensor_update", 0)
+    if not mt or mt % OCR_STEPS or launches["eager"].get("multi_tensor_update", 0) != mt:
+        raise SystemExit(f"ocr A: multi_tensor_update ran {launches} times, not the same "
+                         f"number each step on both paths")
+    timed = _timed_path(torch, pt, t.main, feeds[0], t.loss, init, graphs_on=True,
+                        free_dead=True)
+    # step 1 at batch 2, card against the CPU port, from the card's startup state
+    step1 = {}
+    for dev in ("cpu", "cuda"):
+        scope = pt.Scope()
+        for n, v in init.items():
+            scope.set_var(n, v.to(dev, copy=True))
+        with pt.scope_guard(scope):
+            value = pt.Executor(pt.CPUPlace() if dev == "cpu" else None).run(
+                t.main, feed=_ocr_feed(torch, cfg, 2, SEED + 2, dev), fetch_list=[t.loss])[0]
+        # Momentum's first velocity is the gradient (with the L2 term)
+        step1[dev] = (float(np.asarray(value).reshape(-1)[0]),
+                      {n: scope.find_var(n).float().cpu() for n in init
+                       if n.endswith("_velocity_0")})
+    gaps = _resnet_gaps(step1["cuda"], step1["cpu"])
+    flop = 3 * _crnn_forward_flop(cfg, OCR_BATCH)
+    r = dict(model="CRNN-CTC (crnn_ctc_model.py)", image=list(cfg.image), batch=OCR_BATCH,
+             steps_T=cfg.steps, classes=cfg.num_classes + 1, hidden=cfg.hidden,
+             max_label=cfg.max_label, losses=losses, graph_bit_equal_to_eager=True,
+             step_ms_graph=timed["step_ms_median_warm"],
+             step_ms_graph_all=timed["step_ms"],
+             step_ms_eager=statistics.median(ms["eager"][1:]), step_ms_eager_all=ms["eager"],
+             device_busy_ms=timed["device_busy_ms"], idle_share=timed["idle_share_unprofiled"],
+             idle_share_profiled=timed["idle_share_profiled"],
+             launches_per_step=timed["device_activities_per_step"], by_kind=timed["by_kind"],
+             graph_pool_gb=timed["graph_pool_gb"], peak_gb=timed["peak_gb"],
+             multi_tensor_update_launches=launches,
+             multi_tensor_update_calls_per_step=mt // OCR_STEPS, step_flop=flop,
+             f32_bound_ms=flop / PEAK_FLOPS["float32"] * 1e3,
+             step1_batch2=dict(gaps, loss_rel_limit=OCR_LOSS_REL,
+                               update_rel_l1_limit=OCR_UPDATE_REL))
+    emit("ocr_crnn_training", **r)
+    if not (gaps["loss_rel_gap"] <= OCR_LOSS_REL and gaps["update_rel_l1_gap"] <= OCR_UPDATE_REL):
+        raise SystemExit(f"ocr A: CRNN-CTC step 1 parts from the CPU port: {gaps}")
+    return r, init
+
+
+def _crnn_forward_flop(cfg, batch):
+    """Multiply-adds x 2 of the CRNN forward: the convolutions, the two
+    input fcs, the GRU cells' fcs over T steps each way, the output fc."""
+    c_in, h, w = cfg.image
+    flop = 0
+    for g, chans in enumerate(cfg.groups):
+        for ch in chans:
+            flop += 2 * batch * h * w * ch * c_in * 9
+            c_in = ch
+        if g < len(cfg.groups) - 1:
+            h, w = h // 2, w // 2
+    feat, H, T = c_in * h, cfg.hidden, w
+    flop += 2 * 2 * batch * T * feat * 3 * H                     # fc_1, fc_2
+    flop += 2 * 2 * batch * T * ((3 * H + H) * 2 * H + (3 * H + H) * H)   # GRU cells
+    flop += 2 * batch * T * 2 * H * (cfg.num_classes + 1)       # the output fc
+    return flop
+
+
+def _ocr_serve(torch, pt, workdir, init):
+    """B: the decode program on a seeded state at a trained net's scales
+    (``ocr.random_state`` over ``init``'s names; 5 steps of A leave every row
+    decoding to blanks, which would make the comparison empty), saved and
+    served by the port's Predictor at batch 1 and 32 (replays): every row
+    decodes at least one token, and the served logits, ids and lengths equal
+    the executor's on the card bit for bit; the on-card edit_distance of the
+    batch-32 decode and of random rows equals a numpy Levenshtein exactly,
+    normalized and not."""
+    from paddle_tpu_torch.core import registry as treg
+    from paddle_tpu_torch.inference import Predictor
+    from paddle_tpu_torch.tools import ocr
+    from paddle_tpu_torch.tools.train_profile import traced
+    from torch.profiler import ProfilerActivity
+    cfg = ocr.CRNN
+    dec = ocr.build_crnn_ctc(pt, cfg, train=False, seed=SEED)
+    names = dec.main.global_block().vars
+    served = ocr.random_state({n: v.cpu().numpy() for n, v in init.items() if n in names},
+                              seed=SEED + 5)
+    scope = pt.Scope()
+    for n, v in served.items():
+        scope.set_var(n, torch.from_numpy(v).cuda())
+    model_dir = os.path.join(workdir, "crnn")
+    fetch = [dec.decoded, dec.decoded_length, dec.logits]
+    with pt.scope_guard(scope):
+        pt.io.save_inference_model(model_dir, ["pixel", "logits_length"], fetch, pt.Executor(),
+                                   main_program=dec.main)
+    pred = Predictor(model_dir)
+    rows = []
+    for batch, warm in OCR_SERVE_WARM.items():
+        raw = ocr.crnn_feed(cfg, batch, SEED + 40 + batch)
+        req = {"pixel": raw["pixel"], "logits_length": raw["logits_length"]}
+        t0 = time.perf_counter()
+        cold = pred.run(req)
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        misses = pred._cache_counts["miss"]
+        lat = []
+        for _ in range(warm):
+            t0 = time.perf_counter()
+            out = pred.run(req)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        if pred._cache_counts["miss"] != misses:
+            raise SystemExit("ocr B: a warm request captured a graph")
+        torch.cuda.synchronize()
+        with traced([ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                pred.run(req)
+            torch.cuda.synchronize()
+        acts = sum(e.count for e in prof.key_averages()
+                   if getattr(e, "self_device_time_total", 0) > 0 and e.cpu_time_total == 0)
+        busy = _device_busy_ms(prof) / 3
+        exe = pt.Executor()
+        exe._use_graphs = False
+        with pt.scope_guard(scope):
+            ids, lens, logits, dist = exe.run(dec.main, feed=raw,
+                                              fetch_list=fetch + [dec.distance])
+        same = all(np.array_equal(a, b) for a, b in zip(out, (ids, lens, logits))) and all(
+            np.array_equal(a, b) for a, b in zip(out, cold))
+        row = dict(batch=batch, cold_ms=cold_ms, p50_ms=statistics.median(lat), ms=lat,
+                   device_busy_ms=busy, device_activities_per_request=acts / 3,
+                   predictor_equals_executor=same,
+                   logits_max_abs_gap=float(np.abs(out[2] - logits).max()),
+                   decoded_lengths=[int(x) for x in lens],
+                   mean_normalized_edit_distance=float(np.mean(dist)))
+        emit("ocr_crnn_serving", **row)
+        rows.append(row)
+        if not lens.min() > 0:
+            raise SystemExit(f"ocr B: rows decode to blanks only at batch {batch}, so the "
+                             f"Predictor's decode is held to nothing: {row['decoded_lengths']}")
+        if not same:
+            raise SystemExit(f"ocr B: the Predictor's logits or decode part from the "
+                             f"executor's at batch {batch}")
+    # the evaluator on the card: the batch-32 decode and random rows at the
+    # path's shapes
+    nb = len(lens)
+    rng = np.random.RandomState(SEED + 42)
+    hyp_r = rng.randint(0, cfg.num_classes, (nb, cfg.steps))
+    len_r = rng.randint(0, cfg.steps + 1, nb)
+    checks = {}
+    for which, hyp, hl in (("decode", ids, lens), ("random", hyp_r, len_r)):
+        for normalized in (True, False):
+            out = treg.get("edit_distance").lower(
+                treg.LowerCtx({"normalized": normalized}, "cuda"),
+                {"Hyps": [torch.from_numpy(np.asarray(hyp, np.int64)).cuda()],
+                 "Refs": [torch.from_numpy(raw["label"]).cuda()],
+                 "HypsLength": [torch.from_numpy(np.asarray(hl, np.int64)).cuda()],
+                 "RefsLength": [torch.from_numpy(raw["label_length"]).cuda()]})["Out"][0]
+            got = out.cpu().numpy()[:, 0]
+            want = []
+            for b in range(nb):
+                ref = raw["label"][b, :raw["label_length"][b]]
+                d = ocr.levenshtein(np.asarray(hyp)[b, :hl[b]], ref)
+                want.append(np.float32(d / max(len(ref), 1)) if normalized else np.float32(d))
+            checks[f"{which}_{'normalized' if normalized else 'raw'}"] = bool(
+                np.array_equal(got, np.asarray(want, np.float32)))
+    edit = dict(decoded_lengths=[int(x) for x in lens], exact=checks)
+    emit("ocr_edit_distance_on_card", **edit)
+    if not all(checks.values()):
+        raise SystemExit(f"ocr B: edit_distance on the card parts from numpy: {checks}")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    return rows, edit
+
+
+def _extra_cases_on_card(torch, pt):
+    """C: every case of tools/extra_op_cases.py on the card against the CPU
+    port, forward and generic grad, at the case's tolerance; each forward
+    and grad call captured in a CUDA graph with its launches counted; each
+    ``scatters`` case run twice, bit for bit. ``py_func`` runs eagerly, and a
+    program holding it is refused capture."""
+    from paddle_tpu_torch.core import registry as treg
+    from paddle_tpu_torch.core.executor import capture_refusal
+    from paddle_tpu_torch.layers import extras as tx
+    from paddle_tpu_torch.tools import extra_op_cases as xc
+    from paddle_tpu_torch.tools.op_cases import numpy_outs
+
+    def held(card, cpu, tol, what):
+        worst = 0.0
+        for slot, vals in cpu.items():
+            for a, b in zip(numpy_outs({"x": vals})["x"], numpy_outs({"x": card[slot]})["x"]):
+                if a is None:
+                    continue
+                if a.shape != b.shape or not np.allclose(b, a, equal_nan=True, **tol):
+                    raise SystemExit(f"extra C: {what} {slot} parts from the CPU port "
+                                     f"(max gap {np.abs(a.astype(np.float64) - b).max()})")
+                if a.size:
+                    worst = max(worst, float(np.abs(a.astype(np.float64) - b).max()))
+        return worst
+
+    def same_bits(a, b):
+        return all(torch.equal(x, y) for s in a for x, y in zip(a[s], b[s]) if x is not None)
+
+    def kernels(fn, case, grad=False):
+        """Kernel launches of one call, captured; 0 for a case of
+        OCR_EMPTY_CAPTURES, whose graph is empty (any other empty graph
+        fails the phase)."""
+        try:
+            return _graph_nodes(torch, fn)[1]
+        except SystemExit as e:
+            if "names no node" not in str(e) or (case, grad) not in OCR_EMPTY_CAPTURES:
+                raise
+            return 0
+
+    rows = []
+    cases = dict(xc.CASES)
+    cases["py_func"] = xc.py_func_case(tx._PYFUNC_TABLE)
+    for name, c in sorted(cases.items()):
+        cpu = xc.forward(c, "cpu")
+        tins = xc._tensors(c.ins, "cuda")
+        ctx = treg.LowerCtx(dict(c.attrs), "cuda")
+        lower = treg.get(c.op).lower
+        card = lower(ctx, tins)
+        row = dict(case=name, op=c.op, forward_max_abs_err=held(card, cpu, c.tol, name))
+        if c.op == "py_func":
+            row["capture"] = "refused"
+        else:
+            row["forward_kernel_launches"] = kernels(lambda: lower(ctx, tins), name)
+        if c.scatters:
+            row["forward_bit_equal_twice"] = same_bits(card, lower(ctx, tins))
+        if c.grad:
+            gins, gattrs = xc.grad_inputs(c, cpu)
+            glower = treg.get(c.op + "_grad").lower
+            g_cpu = glower(treg.LowerCtx(gattrs, "cpu"), xc._tensors(gins, "cpu"))
+            gtins = xc._tensors(gins, "cuda")
+            gctx = treg.LowerCtx(gattrs, "cuda")
+            g_card = glower(gctx, gtins)
+            row["grad_max_abs_err"] = held(g_card, g_cpu, c.grad_tol, name + " grad")
+            row["grad_kernel_launches"] = kernels(lambda: glower(gctx, gtins), name, grad=True)
+            if c.scatters:
+                row["grad_bit_equal_twice"] = same_bits(g_card, glower(gctx, gtins))
+        rows.append(row)
+        if c.scatters and not (row["forward_bit_equal_twice"]
+                               and row.get("grad_bit_equal_twice", True)):
+            raise SystemExit(f"extra C: {name} does not reproduce bit for bit on the card: {row}")
+    # py_func in a program: refused capture, with its reason
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        x = pt.data("x", [4], "float32")
+        out = main.current_block().create_var("pyout", (-1, 4), "float32")
+        pt.layers.py_func(lambda a: a * 2.0, x, out)
+    why = capture_refusal(main)
+    print(f"extra C: capture refused: {why}", flush=True)
+    if why is None or "py_func" not in why:
+        raise SystemExit(f"extra C: a py_func program was not refused capture: {why}")
+    missing = xc.EXTRA_TYPES - {r["op"] for r in rows}
+    emit("extra_op_cases_on_card", cases=len(rows), op_types=len({r["op"] for r in rows}),
+         rows=rows, py_func_refusal=why)
+    if missing:
+        raise SystemExit(f"extra C: op types without a case on the card: {sorted(missing)}")
+    return dict(rows=rows, py_func_refusal=why)
+
+
+def _state_ops_captured(torch, pt):
+    """C: data_norm, center_loss and spectral_norm writing their state back,
+    and uniform_random_batch_size_like drawing, inside a captured SGD step
+    (``extra_op_cases.build_state_program``, fc 512, 100 classes, batch
+    256): 5 captured steps against 5 eager, bit for bit (fetches and state),
+    the noise new at each replay, every state tensor moved."""
+    from paddle_tpu_torch.core.executor import capture_refusal
+    from paddle_tpu_torch.tools import extra_op_cases as xc
+    main, startup, loss, noise = xc.build_state_program(pt, width=512, classes=100)
+    if capture_refusal(main) is not None:
+        raise SystemExit(f"extra C: the state program is refused: {capture_refusal(main)}")
+    init = _startup_state(pt, main, startup)
+    feed = {k: torch.from_numpy(v).cuda() for k, v in xc.state_feed(256, 100, SEED).items()}
+    g, e, differs, ms, captured = _graph_vs_eager(torch, pt, main, [feed] * 5, [loss, noise],
+                                                  init)
+    bit_equal = all(torch.equal(a, b) for x, y in zip(g, e) for a, b in zip(x, y))
+    redraws = all(not torch.equal(g[i][1], g[i + 1][1]) for i in range(4))
+    r = dict(captured=captured, graph_eager_bit_equal=bit_equal and not differs,
+             noise_new_each_replay=redraws, losses=[float(o[0].reshape(())) for o in g],
+             step_ms_graph=statistics.median(ms["graph"][2:]))
+    emit("extra_state_ops_captured", **r)
+    if not (captured and bit_equal and not differs and redraws):
+        raise SystemExit(f"extra C: the captured state program parts from eager: {r}, "
+                         f"state {differs[:8]}")
+    return r
+
+
+def _ctc_yardstick(torch):
+    """D: warpctc's forward + backward at the path's shape (B 32, T 64, 96
+    classes, labels padded to 24, lengths 4-20) against F.ctc_loss
+    (reduction='none') on the same log-probs: losses and gradients on the
+    feasible rows within OCR_CTC_RTOL and OCR_CTC_GRAD_REL, and both times
+    (CUDA events)."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.core import registry as treg
+    from paddle_tpu_torch.tools import ocr
+    cfg = ocr.CRNN
+    B, T, C = OCR_BATCH, cfg.steps, cfg.num_classes + 1
+    raw = ocr.crnn_feed(cfg, B, SEED + 43)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 43)
+    logp = torch.log_softmax(torch.randn(B, T, C, generator=gen, device="cuda"), -1)
+    label = torch.from_numpy(raw["label"]).cuda()
+    ylen = torch.from_numpy(raw["label_length"]).cuda()
+    xlen = torch.full((B,), T, dtype=torch.int64, device="cuda")
+    lower = treg.get("warpctc").lower
+    ctx = treg.LowerCtx({"blank": cfg.blank}, "cuda")
+
+    def port():
+        x = logp.detach().requires_grad_()
+        loss = lower(ctx, {"Logits": [x], "Label": [label], "LogitsLength": [xlen],
+                           "LabelLength": [ylen]})["Loss"][0]
+        loss.sum().backward()
+        return loss, x.grad
+
+    def library():
+        x = logp.detach().requires_grad_()
+        loss = F.ctc_loss(x.transpose(0, 1), label, xlen, ylen, blank=cfg.blank,
+                          reduction="none", zero_infinity=False)
+        loss.sum().backward()
+        return loss, x.grad
+
+    (a, ga), (b, gb) = port(), library()
+    feasible = torch.isfinite(b)
+    gap = float(((a[:, 0] - b).abs() / b.abs())[feasible].max().detach())
+    grad_gap = float((ga - gb)[feasible].abs().max())
+    grad_max = float(gb[feasible].abs().max())
+    ms, lib_ms = _device_ms(torch, port, runs=10), _device_ms(torch, library, runs=10)
+    r = dict(shape=[B, T, C], max_label=cfg.max_label, feasible_rows=int(feasible.sum()),
+             loss_rel_gap=gap, rtol=OCR_CTC_RTOL, grad_max_abs_gap=grad_gap,
+             grad_max_abs=grad_max, grad_rel_limit=OCR_CTC_GRAD_REL,
+             warpctc_fwd_bwd_ms=ms, ctc_loss_fwd_bwd_ms=lib_ms)
+    emit("ocr_ctc_yardstick", **r)
+    if not (int(feasible.sum()) and gap <= OCR_CTC_RTOL
+            and grad_gap <= OCR_CTC_GRAD_REL * grad_max):
+        raise SystemExit(f"ocr D: warpctc parts from F.ctc_loss: {r}")
+    return r
+
+
+def phase_ocr(torch, workdir):
+    """Phase 24: CRNN-CTC trained (A) and served (B) on the card, the cases of
+    every op type of ROADMAP item 8 on the card (C), warpctc beside
+    F.ctc_loss (D)."""
+    import paddle_tpu_torch as pt
+    t0 = time.perf_counter()
+    train, init = _ocr_train(torch, pt)
+    torch.cuda.empty_cache()
+    serving, edit = _ocr_serve(torch, pt, workdir, init)
+    del init
+    torch.cuda.empty_cache()
+    cases = _extra_cases_on_card(torch, pt)
+    cases["state_ops_captured"] = _state_ops_captured(torch, pt)
+    torch.cuda.empty_cache()
+    yard = _ctc_yardstick(torch)
+    emit("ocr", seconds=time.perf_counter() - t0)
+    return dict(train=train, serving=serving, edit=edit, cases=cases, yardstick=yard,
+                seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     if not os.path.isfile(os.path.join(REPO, "paddle_tpu_torch", "csrc",
                                        "flash_attn_fwd.cu")):
@@ -6799,6 +7241,12 @@ def main() -> int:
     slim_cf = phase_slim_and_control_flow(
         torch, chapters, cap_resnet["paths"]["graph"]["step_ms_median_warm"])
     pruned_k2 = round(slim_cf["b"]["resnet50"]["k2_launches_per_step"] * SLIM_STEPS)
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
+    try:
+        ocr_res = phase_ocr(torch, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     os.remove(tune_cache)
     tier_l = {"tuner_search": tier["tuner_launches"],
               "serving_pool": tier["pool"]["traffic"]["launches"]}
@@ -6870,7 +7318,10 @@ def main() -> int:
                     .get("multi_tensor_update", 0)) for p in ("graph", "eager")},
                 **{f"detection_{r['model']}_training":
                    ("adam", r["multi_tensor_update_launches"].get("multi_tensor_update", 0))
-                   for r in det["small"]}}
+                   for r in det["small"]},
+                **{f"ocr_crnn_training_{p}":
+                   ("momentum", ocr_res["train"]["multi_tensor_update_launches"][p]
+                    .get("multi_tensor_update", 0)) for p in ("graph", "eager")}}
     kind_rows = {"adam": mt_bert, "momentum": mt_res, "sgd": mt_mnist,
                  "lamb": normed_mres[0], "lars_momentum": normed_mres[1]}
     # each kind's launches: its calls on the paths times the launches of a call
@@ -7134,6 +7585,17 @@ def main() -> int:
                                         for r in slim_cf["c"]["cases"]),
             "nchw_s2d_step1_loss_rel_gap": slim_cf["c"]["nchw_s2d_step1"]["loss_rel_gap"],
             "seconds": slim_cf["seconds"]},
+        "ocr": {
+            "crnn_step_ms": {p: ocr_res["train"][f"step_ms_{p}"] for p in ("graph", "eager")},
+            "crnn_losses": ocr_res["train"]["losses"],
+            "crnn_launches_per_step": ocr_res["train"]["launches_per_step"],
+            "crnn_idle_share": ocr_res["train"]["idle_share"],
+            "crnn_step1_loss_rel_gap": ocr_res["train"]["step1_batch2"]["loss_rel_gap"],
+            "crnn_serving_p50_ms": {str(r["batch"]): r["p50_ms"] for r in ocr_res["serving"]},
+            "extra_cases_on_card": len(ocr_res["cases"]["rows"]),
+            "warpctc_vs_ctc_loss_ms": [ocr_res["yardstick"]["warpctc_fwd_bwd_ms"],
+                                       ocr_res["yardstick"]["ctc_loss_fwd_bwd_ms"]],
+            "seconds": ocr_res["seconds"]},
         "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -74,7 +74,16 @@ def state_from_numpy(arrays: Dict[str, np.ndarray], device=None,
                      dtype_tags: Dict[str, str] = None) -> Dict[str, torch.Tensor]:
     """name -> numpy array  =>  name -> tensor on ``device`` (None: the card).
     ``dtype_tags`` names the uint16 arrays that hold bfloat16 bits. Integer
-    widths are kept: int32 stays int32, int64 stays int64."""
+    widths are kept: int32 stays int32, int64 stays int64.
+
+    Both packages build a model under ``unique_name.guard()`` with the same
+    names, so a JAX startup state (and its optimizer state) carries across
+    by name. For CRNN-CTC (``tools/ocr.py``): ``conv2d_<i>.w_0`` / ``.b_0``,
+    ``batch_norm_<i>.w_0`` / ``.b_0`` with the moving statistics
+    ``batch_norm_<i>.global_0`` / ``.global_1``, the encoder's and the
+    GRU cells' ``fc_<i>.w_0`` / ``.b_0`` (the output layer over both GRUs
+    has ``.w_0`` and ``.w_1``), Momentum's ``<param>_velocity_0`` and
+    ``learning_rate_<i>``."""
     dev = resolve_device(device)
     tags = dtype_tags or {}
     return {n: tensor_from_numpy(a, tags.get(n)).to(dev) for n, a in arrays.items()}

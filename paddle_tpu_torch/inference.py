@@ -43,8 +43,8 @@ import numpy as np
 import torch
 
 from .core import graphs
-from .core.executor import (Scope, as_tensor, resolve_device, scope_guard, to_numpy,
-                            trace_block)
+from .core.executor import (Scope, SubBlockRunner, as_tensor, resolve_device, scope_guard,
+                            to_numpy, trace_block)
 from .core.registry import torch_dtype
 from .framework import Program
 from .observability import health as _health
@@ -347,12 +347,15 @@ class Predictor:
 
     def _trace(self, state, feeds) -> List[torch.Tensor]:
         """The pruned program's ops over the pinned state and the feeds, each
-        intermediate dropped after its last reader."""
+        intermediate dropped after its last reader; a control-flow op (an
+        RNN's ``scan``) runs its sub-block through a ``SubBlockRunner``."""
         env = dict(state)
         env.update(feeds)
         keep = frozenset(env) | frozenset(self.fetch_names)
+        runner = SubBlockRunner(self.program, env, self.device, reuse_forward=False)
         with torch.inference_mode():
-            trace_block(self.program.global_block(), env, self.device, keep=keep)
+            trace_block(self.program.global_block(), env, self.device, keep=keep,
+                        block_runner=runner)
         return [env[n] for n in self.fetch_names]
 
     predict = run

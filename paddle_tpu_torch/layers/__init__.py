@@ -38,13 +38,31 @@ from .control_flow import (DynamicRNN, IfElse, Print, Scan, StaticRNN,  # noqa: 
                            is_empty, less_equal, less_than, not_equal,
                            reorder_lod_tensor_by_rank)
 from .rnn import gru_unit, lstm_unit, simple_gru, simple_lstm  # noqa: F401
+from .nn import (LayerHelper, Variable, chunk_eval, convert_dtype,  # noqa: F401
+                 default_main_program, deformable_conv, sequence_mask, similarity_focus)
 from .extras import (autoincreased_step_counter, crf_decoding,  # noqa: F401
                      dynamic_gru, dynamic_lstm, expand_as, host_embedding,
                      linear_chain_crf,
                      logical_and, logical_not, logical_or, logical_xor, mse_loss, rank,
                      scatter_nd, scatter_nd_add, shard_index, space_to_depth,
-                     fsp_matrix, strided_slice, sum)
+                     fsp_matrix, strided_slice, sum,
+                     maxout, lrn, pixel_shuffle, shuffle_channel, temporal_shift, unfold,
+                     affine_channel, bilinear_tensor_product, add_position_encoding,
+                     multiplex, crop, crop_tensor, pad_constant_like, row_conv, tree_conv,
+                     uniform_random_batch_size_like, gaussian_random_batch_size_like,
+                     selu, mean_iou, rank_loss, margin_rank_loss, bpr_loss, kldiv_loss,
+                     dice_loss, npair_loss, sampled_softmax_with_cross_entropy, nce,
+                     hsigmoid, warpctc, ctc_greedy_decoder, edit_distance, sampling_id,
+                     gather_tree, size, dynamic_lstmp, lstm, im2sequence, hash, lod_reset,
+                     lod_append, get_tensor_from_selected_rows, merge_selected_rows,
+                     continuous_value_model, py_func, conv3d, conv3d_transpose, pool3d,
+                     adaptive_pool3d, resize_trilinear, image_resize_short, spectral_norm,
+                     data_norm, center_loss, affine_grid, grid_sampler, random_crop,
+                     unique, unique_with_counts, teacher_student_sigmoid_loss)
 from .sequence import (sequence_conv, sequence_first_step,  # noqa: F401
                        sequence_last_step, sequence_pool, sequence_reverse,
-                       sequence_unpad)
+                       sequence_unpad, sequence_softmax, sequence_concat, sequence_expand,
+                       sequence_expand_as, sequence_pad, sequence_slice, sequence_enumerate,
+                       sequence_erase, sequence_reshape, sequence_scatter)
+from . import distributions  # noqa: F401
 from .detection import *  # noqa: F401,F403  (its __all__: the 28 detection layers)

@@ -1,6 +1,4 @@
-"""Core NN layers DSL (the port's copy of ``paddle_tpu/layers/nn.py``: every
-function but ``deformable_conv``, ``chunk_eval``, ``sequence_mask`` and
-``similarity_focus``, which are not ported yet).
+"""Core NN layers DSL (the port's copy of ``paddle_tpu/layers/nn.py``).
 
 Each function builds ops into the default main program and parameters into
 the default startup program, with the same op types, slots, attrs and names
@@ -10,7 +8,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..framework import convert_dtype
+from ..framework import convert_dtype, default_main_program  # noqa: F401  (re-exported)
+# Variable is re-exported, as the JAX namespace does (fluid.layers.Variable)
+from ..framework import Variable  # noqa: F401
 from ..layer_helper import LayerHelper
 
 
@@ -24,20 +24,31 @@ def _var(helper, v):
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
        act=None, name=None):
-    """y = act(x @ W + b), x flattened to 2D at ``num_flatten_dims``."""
+    """y = act(sum_i(x_i @ W_i) + b), each x flattened to 2D at
+    ``num_flatten_dims``; ``input`` one Variable or a list, a weight each
+    (reference nn.py:233)."""
     helper = LayerHelper("fc", param_attr=param_attr, bias_attr=bias_attr, act=act,
                          name=name)
-    tail = tuple(input.shape[num_flatten_dims:])
-    if any(d < 0 for d in tail):
-        raise ValueError(
-            f"fc: input {input.name} has a dynamic dim in the flattened tail "
-            f"{tail} (num_flatten_dims={num_flatten_dims}); only dims before "
-            f"num_flatten_dims may be -1")
-    w = helper.create_parameter(param_attr, [int(np.prod(tail)), size], input.dtype)
-    out = _out(helper, input.dtype)
-    helper.append_op("mul", inputs={"X": [input], "Y": [w]}, outputs={"Out": [out]},
-                     attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1})
-    pre_act = helper.append_bias_op(_var(helper, out), dim_start=num_flatten_dims)
+    inputs = input if isinstance(input, (list, tuple)) else [input]
+    mul_results = []
+    for x in inputs:
+        tail = tuple(x.shape[num_flatten_dims:])
+        if any(d < 0 for d in tail):
+            raise ValueError(
+                f"fc: input {x.name} has a dynamic dim in the flattened tail "
+                f"{tail} (num_flatten_dims={num_flatten_dims}); only dims before "
+                f"num_flatten_dims may be -1")
+        w = helper.create_parameter(param_attr, [int(np.prod(tail)), size], x.dtype)
+        out = _out(helper, x.dtype)
+        helper.append_op("mul", inputs={"X": [x], "Y": [w]}, outputs={"Out": [out]},
+                         attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1})
+        mul_results.append(out)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = _out(helper, inputs[0].dtype)
+        helper.append_op("sum", inputs={"X": mul_results}, outputs={"Out": [pre_bias]})
+    pre_act = helper.append_bias_op(_var(helper, pre_bias), dim_start=num_flatten_dims)
     return helper.append_activation(pre_act)
 
 
@@ -918,3 +929,85 @@ def resize_bilinear(input, out_shape=None, scale=None, name=None, **kw):
 
 def resize_nearest(input, out_shape=None, scale=None, name=None, **kw):
     return image_resize(input, out_shape, scale, name, "NEAREST")
+
+
+def deformable_conv(input, offset, mask, num_filters, filter_size, stride=1, padding=0,
+                    dilation=1, groups=None, deformable_groups=None, im2col_step=None,
+                    param_attr=None, bias_attr=None, modulated=True, name=None):
+    """Reference nn.py:16751: deformable convolution, v2 (``modulated``, with
+    a mask) or v1. ``im2col_step`` is accepted and ignored: the lowering
+    takes the whole batch at once."""
+    helper = LayerHelper("deformable_conv", param_attr=param_attr, bias_attr=bias_attr,
+                         name=name)
+    groups = groups or 1
+    deformable_groups = deformable_groups or 1
+    fh, fw = (filter_size if isinstance(filter_size, (list, tuple))
+              else (filter_size, filter_size))
+    w = helper.create_parameter(param_attr, [num_filters, input.shape[1] // groups, fh, fw],
+                                input.dtype)
+    out = _out(helper, input.dtype)
+    inputs = {"Input": [input], "Offset": [offset], "Filter": [w]}
+    op_type = "deformable_conv" if modulated else "deformable_conv_v1"
+    if modulated:
+        if mask is None:
+            raise ValueError("deformable_conv(modulated=True) needs a mask (pass "
+                             "modulated=False for the v1 form)")
+        inputs["Mask"] = [mask]
+    elif mask is not None:
+        raise ValueError("deformable_conv(modulated=False) is the v1 form and takes no mask "
+                         "(the reference asserts the same); pass mask=None")
+
+    def pair(v):
+        return [v, v] if isinstance(v, int) else list(v)
+
+    helper.append_op(op_type, inputs=inputs, outputs={"Output": [out]},
+                     attrs={"strides": pair(stride), "paddings": pair(padding),
+                            "dilations": pair(dilation), "groups": groups,
+                            "deformable_groups": deformable_groups})
+    pre_act = _var(helper, out)
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [num_filters], input.dtype, is_bias=True)
+        out2 = _out(helper, input.dtype)
+        helper.append_op("elementwise_add", inputs={"X": [pre_act], "Y": [b]},
+                         outputs={"Out": [out2]}, attrs={"axis": 1})
+        pre_act = _var(helper, out2)
+    return pre_act
+
+
+def similarity_focus(input, axis, indexes, name=None):
+    """Reference nn.py:9217: the similarity-focus mask."""
+    helper = LayerHelper("similarity_focus", name=name)
+    out = _out(helper, input.dtype, stop_gradient=True)
+    helper.append_op("similarity_focus", inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs={"axis": axis, "indexes": list(indexes)})
+    return _var(helper, out)
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types, excluded_chunk_types=None,
+               seq_length=None):
+    """Reference nn.py:2051: chunk-level (precision, recall, f1, num_infer,
+    num_label, num_correct) of padded [B, T] tag ids, the true lengths in
+    ``seq_length`` [B]."""
+    helper = LayerHelper("chunk_eval")
+    outs = {n: _out(helper, dt, stop_gradient=True)
+            for n, dt in (("Precision", "float32"), ("Recall", "float32"),
+                          ("F1-Score", "float32"), ("NumInferChunks", "int32"),
+                          ("NumLabelChunks", "int32"), ("NumCorrectChunks", "int32"))}
+    inputs = {"Inference": [input], "Label": [label]}
+    if seq_length is not None:
+        inputs["SeqLength"] = [seq_length]
+    helper.append_op("chunk_eval", inputs=inputs, outputs={k: [v] for k, v in outs.items()},
+                     attrs={"chunk_scheme": chunk_scheme, "num_chunk_types": num_chunk_types,
+                            "excluded_chunk_types": list(excluded_chunk_types or [])})
+    return tuple(_var(helper, outs[k]) for k in ("Precision", "Recall", "F1-Score",
+                                                 "NumInferChunks", "NumLabelChunks",
+                                                 "NumCorrectChunks"))
+
+
+def sequence_mask(x, maxlen=None, dtype="int64", name=None):
+    helper = LayerHelper("sequence_mask", name=name)
+    out = _out(helper, dtype, stop_gradient=True)
+    helper.append_op("sequence_mask", inputs={"X": [x]}, outputs={"Y": [out]},
+                     attrs={"maxlen": maxlen if maxlen is not None else -1,
+                            "out_dtype": convert_dtype(dtype)})
+    return _var(helper, out)

@@ -21,3 +21,6 @@ from . import sequence_ops     # noqa: F401
 from . import ctc_crf_ops      # noqa: F401
 from . import host_table       # noqa: F401
 from . import detection_ops    # noqa: F401
+from . import extra_ops        # noqa: F401
+from . import tail_ops         # noqa: F401
+from . import sampled_ops      # noqa: F401

@@ -210,9 +210,9 @@ def test_scan_forward_and_gradient_match_jax(time_major):
 
 
 def test_scan_needs_the_executors_block_runner():
-    """``trace_block`` given no block runner (as the Predictor calls it, and
-    as the JAX Predictor calls its own) refuses a scan: decode runs through
-    ``Executor.run``."""
+    """``trace_block`` given no block runner (as the JAX Predictor calls its
+    own) refuses a scan: the executor and the port's Predictor pass a
+    ``SubBlockRunner``."""
     main, _, loss, *_ = _scan_program(pt)
     env = {"x": torch.zeros(2, 4, 3)}
     env.update({n: torch.zeros(v.shape) for n, v in main.global_block().vars.items()

@@ -12,7 +12,10 @@ VGG-16 under a gradient penalty, train DeepFM from a stream under the step
 guardian (preempted and resumed exactly) and ``examples/ctr_deepfm.py``'s
 host-table model, autotune BERT-base's and ResNet-50's routes and serve
 BERT-base to concurrent clients through ``PredictorPool``, train and serve
-YOLOv3 at 608 x 608 and the three other detectors through the PyTorch/CUDA
+YOLOv3 at 608 x 608 and the three other detectors, train and serve
+CRNN-CTC, and measure BERT-base's training and serving with the port's
+measurement stack (goodput, MFU, memory, the anomaly detector, per-op
+attribution, SLO alerts, ``fluid.profiler``) through the PyTorch/CUDA
 port on one NVIDIA GPU, and hold its CUDA kernels against their plain
 PyTorch versions.
 
@@ -83,7 +86,8 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    launches (``int8_matmul`` 48 per request, ``flash_attn_fwd`` 12), the
    outputs bit-equal to the eager run, and the first request against the
    same model with the plain int8 matmul on the card (bit for bit), the
-   CPU Predictor and the unquantized bf16 model (the int8 accuracy cost);
+   CPU Predictor (on its first 2 sequences) and the unquantized bf16 model
+   (the int8 accuracy cost);
    graph and eager timed and profiled as in phase 4;
 8. ResNet-50 training at bench.py's configuration (batch 128, 224 x 224,
    bf16, NHWC, space-to-depth stem, 1000 classes, Momentum(0.1, 0.9), seed
@@ -297,12 +301,12 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    host table. A: DeepFM at phase 14's configuration from phase 15's 8 part
    files, one ``FileTailSource`` each, merged in a fixed rotation
    (``StreamingDataset(ordered=True)``), under ``StepGuardian`` with an
-   async ``Checkpointer`` every 8 steps, captured: 40 steps with a
+   async ``Checkpointer`` every 8 steps, captured: 24 steps with a
    transient ``exc`` at dispatch (retried) and a ``corrupt`` record at
    parse (quarantined); a restore of the last periodic checkpoint into the
-   live, captured scope, rerun to step 40 (bit for bit, no recapture); the
-   same faults with a ``preempt`` at step 20, then a fresh executor and
-   dataset that ``restore()``, ``seek`` the watermark and run to step 40:
+   live, captured scope, rerun to step 24 (bit for bit, no recapture); the
+   same faults with a ``preempt`` at step 12, then a fresh executor and
+   dataset that ``restore()``, ``seek`` the watermark and run to step 24:
    every state tensor (parameters, Adam moments, ``auc``'s histograms) and
    the run counter bit for bit to the uninterrupted run; step 1 against
    the CPU port; the guarded step ms beside phase 14's, the stream's
@@ -418,6 +422,28 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    to it. Alone: ``mkdir -p build;
    python3 -c "import tempfile, torch, chip_smoke as cs; cs.phase_build();
    cs.phase_ocr(torch, tempfile.mkdtemp(dir='build'))"``;
+11d. phase 25, the measurement stack on BERT-base, under ``PADDLE_TPU_OBS=1``.
+   A: phase 11's captured B128 S128 bf16 Adam step, 20 warm steps after the
+   warm-up and the capture, one async checkpoint save and one injected
+   ``hang@dispatch`` (about 5 warm steps long): the goodput ledger's causes
+   against its wall (within 1%), ``program_flops`` against a hand count of
+   BERT's matmul FLOPs (within 1%), ``program_mfu`` in (0, 1) against the
+   named peak, the memory gauges, the detector's flagged steps (the hang's
+   only), K1-fwd and K1-bwd 12 launches a warm step. B: the attribution of
+   A's capture miss (its profiled eager warm-up): the top 10 IR ops by
+   device time and the attributed fraction; K1's kernels under
+   ``fused_attention`` ops and their grads only. C: BERT-base behind
+   ``PredictorPool(size=2, max_batch=8)`` with ``PADDLE_TPU_OBS_SLO`` rules (a
+   p99 latency rule on ``serving_request_seconds{tenant}``, no nonfinite
+   tensors): a ``serve_hang`` fires the p99 page and it resolves after;
+   ``/alerts`` and ``/goodput`` answer 200 and equal ``slo.alerts_doc()`` and
+   the ledger; every output byte-equal to its solo run; the pool's warm-up
+   captures in the ledger's compile. D: ``fluid.profiler`` around 3
+   captured steps of A: the exported Chrome trace holds K1's kernels inside
+   the executor's spans (one clock), and a warm-up inside the session skips
+   its attribution. Alone: ``mkdir -p build; python3 -c "import tempfile,
+   torch, chip_smoke as cs; cs.phase_build();
+   cs.phase_measurement_stack(torch, tempfile.mkdtemp(dir='build'))"``;
 12. the kernels line (``multi_tensor_update`` with its five kinds, each
    with its launches; K1-fwd's 64-row tile as ``flash_attn_fwd_q64``),
    then the result line.
@@ -515,6 +541,9 @@ CONV_STATS_OWN_REL, CONV_STATS_PLAIN_REL = 1e-4, 2 ** -7
 # by about one quantization noise (measured, PR 3's first run: max 0.14, mean 0.021,
 # relative L2 2.6%, against 2.8% for int8 vs bf16).
 INT8_REL_L2 = 0.1
+# the CPU Predictor's reference runs on this many sequences of the first request
+# (8 took 17 s of the CPU's integer matmuls; the rows are independent)
+INT8_CPU_ROWS = 2
 # ResNet-50 training, step 1 from the same weights and batch. The loss gap is
 # relative to the loss (~7 at initialisation): bf16 rounds at other places in the
 # kernel and cuDNN (one ulp, 2^-8, of scattered elements); 1e-2 as PR 2. The update
@@ -537,6 +566,17 @@ _T0 = time.perf_counter()
 def emit(phase: str, **kw):
     """One JSON line; ``t_s`` is the seconds since the script started."""
     print(json.dumps({"phase": phase, **kw, "t_s": time.perf_counter() - _T0}), flush=True)
+
+
+def timed_phase(name: str, fn, *args, **kw):
+    """Run one phase of ``main`` and print its wall seconds on a line of its
+    own (``{"phase_seconds": name, ...}``)."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kw)
+    finally:
+        print(json.dumps({"phase_seconds": name, "s": round(time.perf_counter() - t0, 3),
+                          "t_s": round(time.perf_counter() - _T0, 3)}), flush=True)
 
 
 def _run(cmd) -> str:
@@ -973,7 +1013,7 @@ def _train_both_paths(torch, pt, main, feed, loss, init, steps, counters):
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
             states[path, steps] = {n: scope.find_var(n).clone() for n in init}
             prof = None if path == "reference_again" else \
-                profile_steps(torch, exe, main, feed, loss, 3)
+                profile_steps(torch, exe, main, feed, loss, PROFILED_STEPS)
         del scope, exe
         warm = sorted(step_s[1:])
         out[path] = dict(losses=losses, step_ms=[t * 1e3 for t in step_s],
@@ -1403,12 +1443,15 @@ def phase_int8_path(torch, workdir):
         plain_out = Predictor(int8_dir).run(requests[0])[0]
     finally:
         quantize.int8_matmul = kernel
+    # the CPU's integer matmuls take seconds a sequence: its first INT8_CPU_ROWS
+    # sequences (each row's codes and scales are its own)
     t0 = time.perf_counter()
-    cpu_out = Predictor(int8_dir, device="cpu").run(requests[0])[0]
+    cpu_out = Predictor(int8_dir, device="cpu").run(
+        {k: v[:INT8_CPU_ROWS] for k, v in requests[0].items()})[0]
     cpu_s = time.perf_counter() - t0
     gaps = {}
     for name, a, b in (("kernel_vs_card_plain", outs[0], plain_out),
-                       ("card_vs_cpu_plain", outs[0], cpu_out),
+                       ("card_vs_cpu_plain", outs[0][:INT8_CPU_ROWS], cpu_out),
                        ("int8_vs_bf16", outs[0], bf16_outs[0])):
         d = np.abs(a - b)
         gaps[name] = dict(max_abs=float(d.max()), mean_abs=float(d.mean()),
@@ -1797,7 +1840,7 @@ def phase_multi_tensor(torch, programs):
         # device times from the profiler: the host work of a call (the work table
         # for ~200 tensors, ~2,000 launches for the per-op path) outlasts any
         # queue of sleep a CUDA-event window could put before it
-        launches = _launch_times(torch, call, 5)
+        launches = _launch_times(torch, call, 3)
         # the kernel launches of one call, counted in the graph that captures it
         # and held to what the wrapper states (LAUNCHES_PER_CALL); the kernels
         # line multiplies this count by each path's calls
@@ -1814,7 +1857,7 @@ def phase_multi_tensor(torch, programs):
         ms_complete = all(traced_[n] for n in KERNEL_NAMES if counted[n])
         table_copy_ms = sum(x["ms_per_launch"] * x["launches_per_call"] for x in launches
                             if "Memcpy" in x["kernel"])
-        plain = _breakdown("update_plain", None, _launch_times(torch, plain_call, 3))
+        plain = _breakdown("update_plain", None, _launch_times(torch, plain_call, 1))
         plain_ms, plain_launches = plain["device_ms_per_call"], plain["launches_per_call"]
         wall_ms = _wall_ms(torch, call)
         host_ms = _host_ms(torch, call)
@@ -1863,7 +1906,7 @@ def phase_multi_tensor(torch, programs):
                 fn = lambda: torch._fused_sgd_(ps, gs, [], weight_decay=0.0, momentum=0.0,
                                                lr=0.01, dampening=0.0, nesterov=False,
                                                maximize=False, is_first_step=False)
-            library_ms = _breakdown(library, None, _launch_times(torch, fn, 5))[
+            library_ms = _breakdown(library, None, _launch_times(torch, fn, 3))[
                 "device_ms_per_call"]
         except (RuntimeError, TypeError) as e:      # a yardstick only: record why
             library_error = f"{type(e).__name__}: {e}"[:200]
@@ -1909,11 +1952,11 @@ NMT_PROBS_DROPOUT_SHAPE = (64, 8, 64, 64)
 # layers.dropout's default downgrade_in_infer (no upscale)
 VGG_DROPOUT_SHAPE, VGG_DROPOUT_P = (128, 4096), 0.5
 CAPTURED_STEPS = 5           # steps held graph against eager
-TIMED_STEPS = 6              # steps timed on each path (after the held ones)
-# an eager path, host-bound and the slower one, is timed over fewer steps (its
-# median over the last 3) and traced over 2 (after the profiler's warm-up step),
-# to keep the whole script near half its time limit on a slow host
-EAGER_TIMED_STEPS, EAGER_PROFILED_STEPS = 4, 2
+TIMED_STEPS = 5              # steps timed on each path (after the held ones)
+# an eager path, host-bound and the slower one, is timed over fewer steps (the
+# one after its first); each path is traced over one step (after the
+# profiler's warm-up step), to keep the whole script near half its time limit
+EAGER_TIMED_STEPS, PROFILED_STEPS = 2, 1
 FUSED_K = 4
 
 
@@ -2099,7 +2142,7 @@ def _graph_pools(exe):
 def _timed_path(torch, pt, main, feed, loss, init, graphs_on, free_dead):
     """Step ms of each of TIMED_STEPS steps (EAGER_TIMED_STEPS eager; fetching
     the loss as numpy), the peak of allocated memory over them and the graph
-    pools, then 3 steps (EAGER_PROFILED_STEPS eager) under the profiler, with
+    pools, then PROFILED_STEPS steps under the profiler, with
     the window's device records by name: their count and ms over its steps.
     The executor is closed at the end."""
     from paddle_tpu_torch.tools.train_profile import profile_steps
@@ -2121,8 +2164,7 @@ def _timed_path(torch, pt, main, feed, loss, init, graphs_on, free_dead):
             times.append((time.perf_counter() - t0) * 1e3)
         peak = torch.cuda.max_memory_allocated() / 1e9
         pools = _graph_pools(exe)
-        prof = profile_steps(torch, exe, main, feed, loss,
-                             3 if graphs_on else EAGER_PROFILED_STEPS)
+        prof = profile_steps(torch, exe, main, feed, loss, PROFILED_STEPS)
     exe.close()
     del scope, exe
     warm = times[2:] if graphs_on else times[1:]     # after the warm-up (and the capture)
@@ -2137,34 +2179,33 @@ def _timed_path(torch, pt, main, feed, loss, init, graphs_on, free_dead):
                 device_ms_by_record=prof["device_ms_by_record"])
 
 
-def _memory_before_after(torch, pt, main, feed, loss, init):
+def _memory_before_after(torch, pt, main, feed, loss, init, freed):
     """Part 6: the eager step's peak and the graph's pool with every
-    intermediate kept to the step's end, and with each freed after its
-    last reader."""
-    out = {}
-    for free in (False, True):
-        row = {}
-        for graphs_on in (False, True):
-            exe = pt.Executor()
-            exe._use_graphs, exe._free_dead = graphs_on, free
-            scope = pt.Scope()
-            for n, t in init.items():
-                scope.set_var(n, t.clone())
-            gc.collect()                    # what an earlier executor left in cycles
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            with pt.scope_guard(scope):
-                for _ in range(2):          # graphs: the warm-up, then the capture
-                    exe.run(main, feed=feed, fetch_list=[loss])
-            if graphs_on:
-                row["graph_pool_gb"] = _graph_pools(exe)[0]
-            else:
-                row["eager_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-            exe.close()
-            del scope, exe
-        out["freed_after_last_reader" if free else "kept_to_step_end"] = row
-    return out
+    intermediate kept to the step's end, measured here, beside ``freed``:
+    the same two with each freed after its last reader (the executor's
+    default), as the held graph path and the timed eager path measured
+    them."""
+    row = {}
+    for graphs_on in (False, True):
+        exe = pt.Executor()
+        exe._use_graphs, exe._free_dead = graphs_on, False
+        scope = pt.Scope()
+        for n, t in init.items():
+            scope.set_var(n, t.clone())
+        gc.collect()                    # what an earlier executor left in cycles
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with pt.scope_guard(scope):
+            for _ in range(2):          # graphs: the warm-up, then the capture
+                exe.run(main, feed=feed, fetch_list=[loss])
+        if graphs_on:
+            row["graph_pool_gb"] = _graph_pools(exe)[0]
+        else:
+            row["eager_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        exe.close()
+        del scope, exe
+    return {"kept_to_step_end": row, "freed_after_last_reader": freed}
 
 
 def _state_equal(torch, a, b):
@@ -2278,7 +2319,9 @@ def _captured_model(torch, pt, label, main, startup, feed, loss, expected, extra
     r["paths"] = {("graph" if g else "eager"): _timed_path(torch, pt, main, feed, loss, init, g,
                                                            True)
                   for g in (True, False)}
-    r["memory_before_after_freeing"] = _memory_before_after(torch, pt, main, feed, loss, init)
+    r["memory_before_after_freeing"] = _memory_before_after(
+        torch, pt, main, feed, loss, init,
+        {"eager_peak_gb": r["paths"]["eager"]["peak_gb"], "graph_pool_gb": pools[0]})
     r["graph_speedup"] = (r["paths"]["eager"]["step_ms_median_warm"]
                           / r["paths"]["graph"]["step_ms_median_warm"])
     emit("captured_training", **r)
@@ -2364,7 +2407,7 @@ def phase_captured_training(torch):
 NMT_LOSS_REL, NMT_UPDATE_REL = 1e-4, 1e-2
 NMT_CPU_BATCH = 2
 # decode: beam 4, max_len 16 (beam_decode's default), 8 sentences of length 64
-DECODE_BATCH, DECODE_BEAM, DECODE_MAX_LEN, DECODE_RUNS = 8, 4, 16, 6
+DECODE_BATCH, DECODE_BEAM, DECODE_MAX_LEN, DECODE_RUNS = 8, 4, 16, 4
 # decode, card against the CPU port at batch 2. A score is a sum of up to 16
 # log-probs of about -10, each from a 32000-wide log-softmax of logits that the
 # two devices round apart by about 1e-5 (f32 sums in other orders through 6
@@ -2449,7 +2492,7 @@ def _nmt_train(torch, pt):
 def _decode_runs(torch, pt, main, weights, feed, fetch, graphs, runs):
     """``runs`` decodes of one batch on a fresh executor (graphs or eager):
     (the last run's fetches as numpy, each run's wall ms, the executor's
-    graph pools, the profile of 3 more)."""
+    graph pools, the profile of PROFILED_STEPS more)."""
     from paddle_tpu_torch.tools.train_profile import profile_steps
     exe = pt.Executor()
     exe._use_graphs = graphs
@@ -2463,7 +2506,7 @@ def _decode_runs(torch, pt, main, weights, feed, fetch, graphs, runs):
             outs = exe.run(main, feed=feed, fetch_list=fetch)
             times.append((time.perf_counter() - t0) * 1e3)
         pools = _graph_pools(exe)
-        prof = profile_steps(torch, exe, main, feed, fetch, 3)
+        prof = profile_steps(torch, exe, main, feed, fetch, PROFILED_STEPS)
     exe.close()
     return outs, times, pools, prof
 
@@ -4223,14 +4266,14 @@ def _pipeline_bert(torch, pt, constant):
     r = _scheduled_model(torch, pt, label, main, startup, feed, total, expected, None, None,
                          None, constant, event="pipeline_training", fused=False)
     # the attention kernels' device time a launch inside the scan's body, from
-    # the trace of 3 captured steps
+    # the trace of the graph path's PROFILED_STEPS captured steps
     graph = r["paths"]["graph"]
     recs, rec_ms = graph.pop("device_records"), graph.pop("device_ms_by_record")
     in_scan = {}
     for kernel, pats in (("flash_attn_fwd", ("flash_fwd",)),
                          ("flash_attn_bwd", ("bwd_dkdv", "bwd_dq", "flash_bwd"))):
         names = [k for k in recs if any(p_ in k for p_ in pats)]
-        n = sum(recs[k] for k in names) / 3
+        n = sum(recs[k] for k in names) / PROFILED_STEPS
         in_scan[kernel] = dict(records=names, launches_per_step=n,
                                ms_per_launch=(sum(rec_ms[k] for k in names) / n) if n else None)
     emit("pipeline_kernels_in_scan", **in_scan)
@@ -4575,8 +4618,8 @@ def phase_training_surface(torch, constant_bert=None, constant_nmt=None):
 # phase 15 (200,000 rows in 8 parts), merged in a fixed rotation (``ordered``),
 # under StepGuardian and an async Checkpointer every 8 steps, captured; faults:
 # a transient exc at dispatch (retried) and a corrupt record at parse
-# (quarantined), then a preempt at step 20; the resume runs to step 40.
-STREAM_STEPS, STREAM_PREEMPT, STREAM_SAVE_EVERY = 40, 20, 8
+# (quarantined), then a preempt at step 12; the resume runs to step 24.
+STREAM_STEPS, STREAM_PREEMPT, STREAM_SAVE_EVERY = 24, 12, 8
 STREAM_FAULTS = "exc@dispatch:step=5;corrupt@parse:step=1000"
 # A's check of the default (arrival-order) merge: preempted, then resumed
 ARRIVAL_STEPS, ARRIVAL_PREEMPT = 12, 6
@@ -6343,7 +6386,7 @@ def _cf_unbounded_while(torch, pt):
                 t0 = time.perf_counter()
                 outs["cuda"] = exe.run(main, feed=feed, fetch_list=[h, i, loss])
                 times.append((time.perf_counter() - t0) * 1e3)
-            prof = profile_steps(torch, exe, main, feed, [h, i, loss], 2)
+            prof = profile_steps(torch, exe, main, feed, [h, i, loss], PROFILED_STEPS)
     warned = any("'while' has no max_iters" in str(w.message) for w in caught)
     captured = any(s.graph is not None for s in exe._cache.values())
     exe.close()
@@ -7098,6 +7141,385 @@ def phase_ocr(torch, workdir):
                 seconds=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------------------
+# Phase 25: the measurement stack
+# ---------------------------------------------------------------------------------------
+
+# A: phase 11's BERT-base step under PADDLE_TPU_OBS=1: MEAS_STEPS warm steps after the
+# warm-up and the capture, one async checkpoint save after warm step MEAS_SAVE_AFTER,
+# and one hang at the dispatch site at run counter MEAS_HANG_STEP, about 5 warm steps
+# long (the detector gives verdicts from its 8th warm sample on)
+MEAS_STEPS, MEAS_SAVE_AFTER, MEAS_HANG_STEP, MEAS_HANG_S = 20, 2, 15, 0.45
+# the goodput causes against the wall, and program_flops against the hand count
+MEAS_SUM_REL, MEAS_FLOPS_REL = 0.01, 0.01
+# C: one client, single-row S 128 requests on a tenant of its own (earlier phases'
+# tenants keep their own histograms, and their own alerts); MEAS_CLEAN before the
+# hang, then requests under it until MEAS_SLOW of them waited out a hung worker
+# tick (each sleeps MEAS_SLOW_S; the other worker may serve a request at once):
+# the slow ones are over 1% of the tenant's histogram, so the p99 is theirs; then
+# 100 requests for each slow one and MEAS_CLEAN more, under 1%, so it is the
+# fast requests' again
+MEAS_TENANT, MEAS_CLEAN, MEAS_SLOW, MEAS_SLOW_S = "measurement", 100, 3, 0.3
+MEAS_P99_S = 0.05                      # the rule: p99 <= 50 ms
+MEAS_PROFILED_STEPS = 3                # D
+
+
+def _bert_hand_flops(cfg, B, S, M) -> int:
+    """BERT pretraining's matmul FLOPs a step, counted by hand: each encoder
+    layer's QKV, output and two FFN products over B*S tokens and its two
+    attention products; the MLM head's transform and tied decoder over M
+    masked tokens, the pooler and the NSP classifier over B rows; backward
+    twice the forward."""
+    T, H, F, V = B * S, cfg.hidden, cfg.ffn_hidden, cfg.vocab_size
+    layer = 2 * T * H * 3 * H + 2 * T * H * H + 2 * 2 * T * H * F + 2 * 2 * B * S * S * H
+    head = 2 * M * H * H + 2 * M * H * V + 2 * B * H * H + 2 * B * H * 2
+    return 3 * (cfg.n_layers * layer + head)
+
+
+def _meas_training(torch, pt, workdir):
+    """A and B: the goodput ledger, cost, memory and the detector over BERT-base
+    training, and the attribution of its capture miss."""
+    from paddle_tpu_torch.core import cuda_build
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.observability import REGISTRY, attribution, goodput, journal
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.tools.train_profile import (BATCH, LR, MASKS_PER_SEQ, SEQ,
+                                                      build_pretrain, pretrain_feed)
+    from paddle_tpu_torch.utils.checkpointer import Checkpointer
+    from paddle_tpu_torch.utils.flops import program_flops
+    cfg = bert.BertConfig(dtype="bfloat16", dropout=ATTN_DROPOUT)
+    main, startup, total, _ = build_pretrain(cfg, BATCH, SEQ, MASKS_PER_SEQ, LR, SEED)
+    feed = pretrain_feed(np.random.RandomState(SEED), cfg, BATCH, SEQ, MASKS_PER_SEQ)
+    feed = {k: torch.from_numpy(v).cuda() for k, v in feed.items()}
+    label = f"{id(main)}:v{main._version}"
+    exe = pt.Executor()
+    scope = pt.Scope()
+    with pt.scope_guard(scope):
+        exe.run(startup)
+        main._rng_run_counter = 0
+        ck = Checkpointer(exe, main, os.path.join(workdir, "ckpt"), async_save=True)
+        faults.install(f"hang@dispatch:step={MEAS_HANG_STEP}:seconds={MEAS_HANG_S}")
+        try:
+            with goodput.run_ledger() as led:
+                for i in range(2 + MEAS_STEPS):
+                    if i == 2:          # after the warm-up and the capture: the warm steps
+                        torch.cuda.synchronize()
+                        for f in cuda_build.COUNTED:
+                            f.launches = 0
+                    exe.run(main, feed=feed, fetch_list=[total], return_numpy=False)
+                    if i == 2 + MEAS_SAVE_AFTER:
+                        ck.save(main._rng_run_counter - 1)
+                torch.cuda.synchronize()
+                launches = {f.__name__: f.launches for f in cuda_build.COUNTED if f.launches}
+                ck.wait()
+        finally:
+            faults.clear()
+            ck.close()
+    report = led.report().to_dict()
+    causes_sum = sum(report["breakdown_seconds"].values())
+    # the detector's verdicts: each anomaly event precedes its step's run event
+    events = journal.recent()
+    runs = [e for e in events if e.get("event") == "run" and e.get("program") == id(main)]
+    flagged = []
+    for j, e in enumerate(events):
+        if e.get("event") == "step_time_anomaly" and e.get("program") == label:
+            nxt = next(x for x in events[j + 1:] if x.get("event") == "run"
+                       and x.get("program") == id(main))
+            flagged.append(runs.index(nxt))
+    g = lambda name: REGISTRY.gauge(name, program=label).value  # noqa: E731
+    step = next(s for k, s in exe._cache.items() if k[0] == id(main))
+    flops = program_flops(main, BATCH)
+    hand = _bert_hand_flops(cfg, BATCH, SEQ, BATCH * MASKS_PER_SEQ)
+    warm_ms = [e["run_ms"] for e in runs if e["cache"] == "hit"]
+    a = dict(model=f"bert-base pretrain bf16 B{BATCH} S{SEQ} dropout {cfg.dropout} "
+                   f"Adam({LR}), captured, PADDLE_TPU_OBS=1",
+             warm_steps=MEAS_STEPS,
+             goodput=dict(fraction=report["goodput_fraction"],
+                          causes_s=report["breakdown_seconds"], wall_s=report["wall_seconds"],
+                          causes_sum_s=causes_sum,
+                          overaccounted_s=report["overaccounted_seconds"],
+                          median_step_ms=report["median_step_ms"],
+                          sources=report["sources"]),
+             program_flops=flops, hand_count_flops=hand,
+             program_flops_rel_gap=abs(flops["total"] - hand) / hand,
+             program_mfu=g("program_mfu"), peak_flops=step.cost.peak, product_dtype=step.cost.dtype,
+             program_flops_per_sec=g("program_flops_per_sec"),
+             memory=dict(program_peak_bytes=g("program_peak_bytes"),
+                         program_argument_bytes=g("program_argument_bytes"),
+                         program_output_bytes=g("program_output_bytes"),
+                         device_memory_bytes_in_use=REGISTRY.gauge(
+                             "device_memory_bytes_in_use", device="cuda:0").value,
+                         device_memory_peak_bytes=REGISTRY.gauge(
+                             "device_memory_peak_bytes", device="cuda:0").value),
+             warm_step_ms=warm_ms, hang_step=MEAS_HANG_STEP, flagged_steps=flagged,
+             launches_per_warm_step={k: v / MEAS_STEPS for k, v in launches.items()},
+             launches=launches,
+             ckpt_blocked_ms=[e["blocked_ms"] for e in events if e.get("event") == "ckpt_save"])
+    emit("measurement_training", **a)
+
+    # B: the attribution of A's capture miss (its eager warm-up, profiled)
+    attrib = attribution.lookup_program(main)
+    if attrib is None:
+        raise SystemExit("phase 25 B: A's capture miss was not attributed")
+    k1 = {"fwd": "flash_fwd_bf16_kernel", "bwd": ("bwd_dkdv_bf16_kernel", "bwd_dq_bf16_kernel")}
+    placed = {"fwd": {}, "bwd": {}}
+    for ir, row in attrib.per_ir.items():
+        for name, secs in row["names"].items():
+            for which, frag in k1.items():
+                if any(f in name for f in ((frag,) if isinstance(frag, str) else frag)):
+                    op = ir.split("#")[0]
+                    placed[which][op] = placed[which].get(op, 0.0) + secs
+    b = dict(program=label, device_seconds=attrib.total_device_seconds,
+             attributed_device_fraction=attrib.coverage,
+             per_category_ms={c: v["device_seconds"] * 1e3
+                              for c, v in attrib.per_category.items()},
+             top10=[{"op": ir, "device_ms": v["device_seconds"] * 1e3,
+                     "categories": sorted(v["categories"]), "kernels": v["kernels"],
+                     "tensor_bytes": v["tensor_bytes"]} for ir, v in attrib.top_ops(10)],
+             attention_ops_ranked=[
+                 {"rank": i + 1, "op": ir, "device_ms": v["device_seconds"] * 1e3}
+                 for i, (ir, v) in enumerate(attrib.top_ops(len(attrib.per_ir)))
+                 if ir.split("#")[0] in ("fused_attention", "fused_attention_grad")][:4],
+             k1_fwd_ms_by_op_type={k: v * 1e3 for k, v in placed["fwd"].items()},
+             k1_bwd_ms_by_op_type={k: v * 1e3 for k, v in placed["bwd"].items()},
+             fused_attention_ops=sum(1 for ir in attrib.per_ir
+                                     if ir.startswith("fused_attention#")),
+             fused_attention_grad_ops=sum(1 for ir in attrib.per_ir
+                                          if ir.startswith("fused_attention_grad#")))
+    emit("measurement_attribution", **b)
+
+    # checks
+    if abs(causes_sum - report["wall_seconds"]) > MEAS_SUM_REL * report["wall_seconds"]:
+        raise SystemExit(f"phase 25 A: the goodput causes sum to {causes_sum} s, the wall "
+                         f"is {report['wall_seconds']} s")
+    if a["program_flops_rel_gap"] > MEAS_FLOPS_REL:
+        raise SystemExit(f"phase 25 A: program_flops {flops} against the hand count {hand}")
+    if not 0 < a["program_mfu"] < 1:
+        raise SystemExit(f"phase 25 A: program_mfu {a['program_mfu']} outside (0, 1)")
+    if flagged != [MEAS_HANG_STEP]:
+        raise SystemExit(f"phase 25 A: the detector flagged steps {flagged}, expected only "
+                         f"the hang's {MEAS_HANG_STEP}")
+    per_step = a["launches_per_warm_step"]
+    if per_step.get("flash_attn_fwd") != cfg.n_layers or \
+            per_step.get("flash_attn_bwd") != cfg.n_layers:
+        raise SystemExit(f"phase 25 A: K1 launches a warm step {per_step}")
+    if not all(a["memory"][k] > 0 for k in ("program_peak_bytes", "program_argument_bytes",
+                                            "program_output_bytes")):
+        raise SystemExit(f"phase 25 A: a memory gauge is unset: {a['memory']}")
+    if set(placed["fwd"]) != {"fused_attention"} or \
+            set(placed["bwd"]) != {"fused_attention_grad"}:
+        raise SystemExit(f"phase 25 B: K1's kernels are attributed to {placed}")
+    if (b["fused_attention_ops"], b["fused_attention_grad_ops"]) != (cfg.n_layers,
+                                                                     cfg.n_layers):
+        raise SystemExit(f"phase 25 B: attention ops attributed {b}")
+    return a, b, (exe, scope, main, feed, total)
+
+
+def _meas_serving(torch, pt, workdir):
+    """C: BERT-base behind PredictorPool with SLO rules; a serve_hang fires the
+    p99 rule, and it resolves once the hang is gone; /alerts and /goodput."""
+    import urllib.request
+    from paddle_tpu_torch.inference import Predictor
+    from paddle_tpu_torch.models.bert import BertConfig
+    from paddle_tpu_torch.observability import goodput, journal, server, slo, timeline
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.serving import PredictorPool
+    from paddle_tpu_torch.serving.__main__ import ulps_apart
+    from paddle_tpu_torch.tools.serving_profile import bert_feed, save_bert_encoder
+    cfg = BertConfig(dtype="bfloat16")
+    model_dir = os.path.join(workdir, "bert_slo")
+    save_bert_encoder(model_dir, cfg, SEED)
+    rng = np.random.RandomState(SEED + 25)
+    feeds = [bert_feed(rng, 1, 128, cfg.vocab_size) for _ in range(8)]
+    solo_pred = Predictor(model_dir)
+    solo = [solo_pred.run(f)[0] for f in feeds]
+    del solo_pred
+    rules = os.path.join(workdir, "slo_rules.json")
+    with open(rules, "w") as f:
+        json.dump({"format": "paddle_tpu_slo_rules_v1", "rules": [
+            {"id": "serve-p99", "metric": "serving_request_seconds{tenant}",
+             "objective": f"p99 <= {MEAS_P99_S * 1e3:g}ms", "severity": "page"},
+            {"id": "no-nonfinite", "metric": "tensor_nonfinite_total",
+             "objective": "== 0", "severity": "page"}]}, f)
+    os.environ.update(PADDLE_TPU_OBS_SLO=rules, PADDLE_TPU_OBS_SLO_INTERVAL="3600",
+                      PADDLE_TPU_OBS_PORT="0")
+    compile_before = sum(s[3] for s in timeline.spans("compile"))
+    pool = PredictorPool(model_dir, size=POOL_SIZE, max_batch=POOL_MAX_BATCH,
+                         max_wait_ms=POOL_MAX_WAIT_MS)
+    transitions, served, worst, equal, latency = [], 0, 0.0, 0, []
+    try:
+        engine = slo.ENGINE
+        if engine is None or server.current() is None:
+            raise SystemExit("phase 25 C: the pool armed no SLO engine or endpoint")
+        warmed = pool.warmup(feeds[0])
+        warm_compile_s = sum(s[3] for s in timeline.spans("compile")) - compile_before
+
+        def traffic(n, part):
+            nonlocal served, worst, equal
+            for _ in range(n):
+                i = served % len(feeds)
+                t_req = time.perf_counter()
+                out = pool.run(feeds[i], tenant=MEAS_TENANT, timeout=120)[0]
+                latency.append((part, time.perf_counter() - t_req))
+                equal += out.tobytes() == solo[i].tobytes()
+                worst = max(worst, ulps_apart(out.reshape(-1, cfg.hidden),
+                                              solo[i].reshape(-1, cfg.hidden), "bfloat16"))
+                served += 1
+
+        def evaluate(t, phase):
+            active = engine.evaluate(now=float(t))
+            transitions.append({"t": t, "phase": phase,
+                                "active": [(a.rule, a.severity, a.labels, round(a.observed, 4))
+                                           for a in active]})
+            # this phase's tenant only: the others' histograms are earlier phases'
+            return {a.rule for a in active if a.labels.get("tenant") == MEAS_TENANT}
+
+        traffic(MEAS_CLEAN, "clean")
+        before = evaluate(0, "clean")
+        faults.install(f"hang@serve_hang:seconds={MEAS_SLOW_S}:times=0")
+        try:
+            while sum(p == "hang" and s > MEAS_SLOW_S / 2 for p, s in latency) < MEAS_SLOW:
+                if sum(p == "hang" for p, _ in latency) >= 20 * MEAS_SLOW:
+                    raise SystemExit("phase 25 C: serve_hang slowed no request")
+                traffic(1, "hang")
+        finally:
+            faults.clear()
+        time.sleep(2 * MEAS_SLOW_S)     # the workers' last hung ticks end
+        during = evaluate(1, "serve_hang")
+        traffic(100 * MEAS_SLOW + MEAS_CLEAN, "after")
+        after = evaluate(2, "after")
+        resolved = [a.to_dict() for a in engine.alerts.history()
+                    if a.labels.get("tenant") == MEAS_TENANT]
+        fired = [e for e in journal.recent(event="alert")
+                 if e["labels"].get("tenant") == MEAS_TENANT]
+        url = server.current().url
+        with urllib.request.urlopen(url + "/alerts", timeout=30) as r:
+            alerts_code, alerts_body = r.status, json.loads(r.read())
+        with urllib.request.urlopen(url + "/goodput", timeout=30) as r:
+            goodput_code, goodput_body = r.status, json.loads(r.read())
+        alerts_doc = json.loads(json.dumps(slo.alerts_doc(), sort_keys=True, default=str))
+        ledger = goodput.compute_live().to_dict()
+    finally:
+        pool.close(drain_timeout=30.0)
+        slo.disarm()
+        server.stop()
+        for k in ("PADDLE_TPU_OBS_SLO", "PADDLE_TPU_OBS_SLO_INTERVAL", "PADDLE_TPU_OBS_PORT"):
+            os.environ.pop(k, None)
+    ms = sorted(t * 1e3 for p, t in latency if p != "hang")
+    c = dict(requests=served, byte_equal_to_solo=equal, max_ulps_to_solo=worst,
+             tenant=MEAS_TENANT, clean_p50_ms=ms[len(ms) // 2],
+             clean_p99_ms=ms[int(0.99 * (len(ms) - 1))],
+             hung_ms=[t * 1e3 for p, t in latency if p == "hang"],
+             warmed=warmed, warmup_compile_s=warm_compile_s,
+             ledger_compile_s=ledger["breakdown_seconds"]["compile"],
+             transitions=transitions,
+             alert_events=[{k: e[k] for k in ("state", "rule", "severity", "observed")}
+                           for e in fired],
+             resolved=[{k: a[k] for k in ("rule", "severity", "observed")} for a in resolved],
+             alerts_status=alerts_code, goodput_status=goodput_code,
+             alerts_equal_doc=alerts_body == alerts_doc, goodput_equal_ledger=goodput_body == ledger,
+             goodput_fraction=ledger["goodput_fraction"])
+    emit("measurement_serving", **c)
+    if before or during != {"serve-p99"} or after:
+        raise SystemExit(f"phase 25 C: the p99 rule did not fire under the hang and resolve "
+                         f"after it: {transitions}")
+    if not any(e["state"] == "firing" and e["severity"] == "page" for e in c["alert_events"]) \
+            or not any(a["rule"] == "serve-p99" for a in c["resolved"]):
+        raise SystemExit(f"phase 25 C: no page fired and resolved: {c['alert_events']}")
+    if (alerts_code, goodput_code) != (200, 200) or not (c["alerts_equal_doc"]
+                                                         and c["goodput_equal_ledger"]):
+        raise SystemExit(f"phase 25 C: /alerts or /goodput: {alerts_code} {goodput_code}, "
+                         f"equal {c['alerts_equal_doc']} {c['goodput_equal_ledger']}")
+    if equal != served:
+        raise SystemExit(f"phase 25 C: {served - equal} of {served} pooled outputs differ from "
+                         f"their solo runs (farthest {worst} ULPs)")
+    if not warm_compile_s > 0 or c["ledger_compile_s"] < warm_compile_s:
+        raise SystemExit(f"phase 25 C: the pool's warm-up captures are not the ledger's "
+                         f"compile: {warm_compile_s} s captured, {c['ledger_compile_s']} s")
+    return c
+
+
+def _meas_profiler(torch, pt, workdir, trained):
+    """D: fluid.profiler around MEAS_PROFILED_STEPS captured steps of A; the
+    exported trace holds K1's kernels and the executor's spans on one clock. A
+    new signature's warm-up inside the window is not attributed (one session)."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.observability import journal, timeline
+    exe, scope, main, feed, total = trained
+    tdir = os.path.join(workdir, "profile")
+    out = os.path.join(workdir, "timeline.json")
+    flags.set_flag("profile_executor", True)
+    t_start = time.perf_counter()
+    try:
+        with pt.scope_guard(scope):
+            with pt.profiler.profiler("All", "total", os.path.join(workdir, "summary.txt"),
+                                      trace_dir=tdir):
+                for _ in range(MEAS_PROFILED_STEPS):
+                    exe.run(main, feed=feed, fetch_list=[total])
+                # a new signature (another fetch list): its warm-up finds the session
+                exe.run(main, feed=feed, fetch_list=[total, main.global_block().ops[0]
+                                                     .output_arg_names()[0]])
+    finally:
+        flags.set_flag("profile_executor", False)
+        exe.close()
+    pt.profiler.export_chrome_tracing(tdir, out)
+    events = timeline.validate_trace(out)
+    mine = [e for e in events if e.get("pid") == timeline.PID_PHASES and e.get("ph") == "X"
+            and e.get("name") in ("dispatch", "fetch_sync")
+            and (e.get("args") or {}).get("program") == f"{id(main)}:v{main._version}"]
+    mine = mine[-2 * (MEAS_PROFILED_STEPS + 1):]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kernels if "flash_fwd_bf16_kernel" in e["name"]
+          or "bwd_dkdv_bf16_kernel" in e["name"] or "bwd_dq_bf16_kernel" in e["name"]]
+    lo = min(e["ts"] for e in mine)
+    hi = max(e["ts"] + e["dur"] for e in mine)
+    inside = sum(1 for e in k1 if lo <= e["ts"] and e["ts"] + e["dur"] <= hi)
+    # where a kernel outside lies: ms before the window (< 0) or after it
+    outside_ms = [round(min(e["ts"] - lo, 0.0) / 1e3 or (e["ts"] + e["dur"] - hi) / 1e3, 3)
+                  for e in k1 if not (lo <= e["ts"] and e["ts"] + e["dur"] <= hi)]
+    skipped = journal.recent(event="attribution_skipped")
+    with open(os.path.join(workdir, "summary.txt")) as f:
+        summary = f.read()
+    d = dict(steps=MEAS_PROFILED_STEPS, trace_events=len(events), kernels=len(kernels),
+             k1_kernels=len(k1), k1_inside_executor_spans=inside, k1_outside_ms=outside_ms,
+             executor_spans=len(mine), span_window_ms=(hi - lo) / 1e3,
+             attribution_skipped=[e["reason"] for e in skipped][-1:],
+             summary=summary.splitlines()[:4], seconds=time.perf_counter() - t_start)
+    emit("measurement_profiler", **d)
+    if not k1 or inside != len(k1) or len(mine) < 2 * MEAS_PROFILED_STEPS:
+        raise SystemExit(f"phase 25 D: K1's kernels and the executor's spans are not on one "
+                         f"clock: {d}")
+    if not skipped:
+        raise SystemExit("phase 25 D: a warm-up inside the profiler's session was not "
+                         "skipped by the attribution")
+    return d
+
+
+def phase_measurement_stack(torch, workdir):
+    """Phase 25: the measurement stack on BERT-base: goodput, cost and MFU,
+    memory, the detector (A); the attribution of A's capture miss (B); SLOs and
+    alerts behind the serving pool (C); fluid.profiler's trace (D)."""
+    import paddle_tpu_torch as pt
+    t0 = time.perf_counter()
+    os.environ.update(PADDLE_TPU_OBS="1",
+                      PADDLE_TPU_OBS_JOURNAL=os.path.join(workdir, "journal.jsonl"))
+    try:
+        a, b, trained = _meas_training(torch, pt, workdir)
+        d = _meas_profiler(torch, pt, workdir, trained)
+    finally:
+        for k in ("PADDLE_TPU_OBS", "PADDLE_TPU_OBS_JOURNAL"):
+            os.environ.pop(k, None)
+    del trained
+    torch.cuda.empty_cache()
+    # C needs no journal file and no synchronous timing: the engine reads the
+    # registry, the ledger the in-memory ring and spans
+    c = _meas_serving(torch, pt, workdir)
+    torch.cuda.empty_cache()
+    r = dict(a=a, b=b, c=c, d=d, seconds=time.perf_counter() - t0)
+    emit("measurement_stack", seconds=r["seconds"])
+    return r
+
+
 def main() -> int:
     if not os.path.isfile(os.path.join(REPO, "paddle_tpu_torch", "csrc",
                                        "flash_attn_fwd.cu")):
@@ -7129,18 +7551,19 @@ def main() -> int:
                                                       lars, transformer_config)
 
     t_start = time.perf_counter()
-    smi = phase_device(torch)
-    phase_build()
-    kres = phase_kernels(torch)
-    tres = phase_train_kernels(torch)
-    phase_seed_counter(torch)
-    dres = phase_dropout_kernel(torch)
-    phase_row_grads(torch)
-    phase_launch_breakdown(torch)
+    smi = timed_phase("device", phase_device, torch)
+    timed_phase("build", phase_build)
+    kres = timed_phase("kernels", phase_kernels, torch)
+    tres = timed_phase("train_kernels", phase_train_kernels, torch)
+    timed_phase("seed_counter", phase_seed_counter, torch)
+    dres = timed_phase("dropout_kernel", phase_dropout_kernel, torch)
+    timed_phase("row_grads", phase_row_grads, torch)
+    timed_phase("launch_breakdown", phase_launch_breakdown, torch)
     resnet = build_resnet50()                  # (main, startup, loss, params_grads, fused)
-    cres = phase_conv_bn_kernels(torch, resnet_fused_shapes(resnet[0], RESNET_BATCH))
-    ires = phase_int8_kernels(torch)
-    phase_gemm_launch_breakdown(torch)
+    cres = timed_phase("conv_bn_kernels", phase_conv_bn_kernels, torch,
+                       resnet_fused_shapes(resnet[0], RESNET_BATCH))
+    ires = timed_phase("int8_kernels", phase_int8_kernels, torch)
+    timed_phase("gemm_launch_breakdown", phase_gemm_launch_breakdown, torch)
     bert_prog = build_pretrain(BertConfig(dtype="bfloat16", dropout=ATTN_DROPOUT), 2, SEQ,
                                MASKS_PER_SEQ, LR, SEED)[0]
     scratch = os.path.join(REPO, "build")      # git-ignored
@@ -7151,103 +7574,111 @@ def main() -> int:
         chapters = book_setup(pt, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    mres = phase_multi_tensor(torch, [("bert-base", bert_prog, "adam"),
-                                      ("resnet50", resnet[0], "momentum"),
-                                      ("deepfm", build_deepfm(batch=2)[0], "adam"),
-                                      ("mnist mlp", build_mnist(batch=2)[0], "sgd"),
-                                      ("transformer-base",
-                                       build_transformer(transformer_config(), 2, NMT_SEQ)[0],
-                                       "adam"),
-                                      ("bert-base lamb", build_pretrain(
-                                          BertConfig(dtype="bfloat16", dropout=ATTN_DROPOUT), 2,
-                                          SEQ, MASKS_PER_SEQ, LR, SEED, optimizer=lamb)[0],
-                                       "lamb"),
-                                      ("resnet50 lars", build_resnet50(optimizer=lars)[0],
-                                       "lars_momentum"),
-                                      ("ctr_deepfm host table",
-                                       build_ctr_host(pt, CTR_EXAMPLE["vocab"],
-                                                      name="ctr_table_phase9")[0], "adam")]
-                                     + book_update_lists(chapters))
+    programs = [("bert-base", bert_prog, "adam"),
+                ("resnet50", resnet[0], "momentum"),
+                ("deepfm", build_deepfm(batch=2)[0], "adam"),
+                ("mnist mlp", build_mnist(batch=2)[0], "sgd"),
+                ("transformer-base", build_transformer(transformer_config(), 2, NMT_SEQ)[0],
+                 "adam"),
+                ("bert-base lamb", build_pretrain(
+                    BertConfig(dtype="bfloat16", dropout=ATTN_DROPOUT), 2,
+                    SEQ, MASKS_PER_SEQ, LR, SEED, optimizer=lamb)[0], "lamb"),
+                ("resnet50 lars", build_resnet50(optimizer=lars)[0], "lars_momentum"),
+                ("ctr_deepfm host table",
+                 build_ctr_host(pt, CTR_EXAMPLE["vocab"], name="ctr_table_phase9")[0], "adam")]
+    mres = timed_phase("multi_tensor", phase_multi_tensor, torch,
+                       programs + book_update_lists(chapters))
+    del programs
     host_table.drop_table("ctr_table_phase9")
     mres, normed_mres, mt_host, book_mres = mres[:5], mres[5:7], mres[7], mres[8:]
     del bert_prog
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
     try:
-        serve_launches, _ = phase_main_path(torch, workdir)
-        int8_launches, _ = phase_int8_path(torch, workdir)
+        serve_launches, _ = timed_phase("main_path", phase_main_path, torch, workdir)
+        int8_launches, _ = timed_phase("int8_path", phase_int8_path, torch, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
-    train_launches, step_ms, train_paths = phase_train_path(torch)
+    train_launches, step_ms, train_paths = timed_phase("train_path", phase_train_path, torch)
     torch.cuda.empty_cache()
-    resnet_launches, resnet_step_ms, resnet_paths = phase_resnet_train(torch, *resnet)
+    resnet_launches, resnet_step_ms, resnet_paths = timed_phase("resnet_train", phase_resnet_train, torch, *resnet)
     del resnet
     torch.cuda.empty_cache()
-    cap_bert, cap_resnet = phase_captured_training(torch)
-    nmt_train, nmt_decode, nmt_launches = phase_transformer(torch)
+    cap_bert, cap_resnet = timed_phase("captured_training", phase_captured_training, torch)
+    nmt_train, nmt_decode, nmt_launches = timed_phase("transformer", phase_transformer, torch)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
     try:
-        ctr, mnist = phase_ctr_mnist(torch, workdir)
+        ctr, mnist = timed_phase("ctr_mnist", phase_ctr_mnist, torch, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
     try:
-        e2e = phase_deepfm_files(torch, workdir)
+        e2e = timed_phase("deepfm_files", phase_deepfm_files, torch, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
     try:
-        book_chapters, vgg_serving = phase_book(torch, chapters, workdir)
+        book_chapters, vgg_serving = timed_phase("book", phase_book, torch, chapters, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
-    sched_bert, sched_nmt, op_card = phase_scheduled_training(torch, cap_bert["paths"],
-                                                              nmt_train["paths"])
+    sched_bert, sched_nmt, op_card = timed_phase(
+        "scheduled_training", phase_scheduled_training, torch, cap_bert["paths"],
+        nmt_train["paths"])
     sched_l = {"scheduled_bert_training": sched_bert["launches"]["graph"],
                "scheduled_transformer_training": sched_nmt["launches"]["graph"]}
     torch.cuda.empty_cache()
-    opt_a, opt_b, recompute_vs, opt_c, opt_d = phase_optimizers(torch, cap_bert["paths"],
-                                                                cap_resnet["paths"])
+    opt_a, opt_b, recompute_vs, opt_c, opt_d = timed_phase(
+        "optimizers", phase_optimizers, torch, cap_bert["paths"], cap_resnet["paths"])
     opt_l = {"lamb_bert_training": opt_a["launches"]["graph"],
              "recompute_lamb_bert_training": opt_b["launches"]["graph"],
              "lars_resnet50_training": opt_c["launches"]["graph"]}
     mnist_opt_launches = sum(r["multi_tensor_update_launches"]["graph"] for r in opt_d)
     torch.cuda.empty_cache()
-    surf_a, surf_b, surf_b2, surf_c, surf_d = phase_training_surface(torch, cap_bert["paths"],
-                                                                     nmt_train["paths"])
+    surf_a, surf_b, surf_b2, surf_c, surf_d = timed_phase(
+        "training_surface", phase_training_surface, torch, cap_bert["paths"],
+        nmt_train["paths"])
     surf_l = {"pipeline_bert_training": surf_a["launches"]["graph"],
               "amp_transformer_training": surf_b["launches"]["graph"],
               "penalty_vgg16_training": surf_c["launches"]["graph"]}
     torch.cuda.empty_cache()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
     try:
-        stream_a, host_b1, host_b2 = phase_stream_and_host_table(
-            torch, workdir, ctr["summary"]["graph_step_ms"])
+        stream_a, host_b1, host_b2 = timed_phase(
+            "stream_and_host_table", phase_stream_and_host_table, torch, workdir,
+            ctr["summary"]["graph_step_ms"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
     try:
-        tier = phase_serving_tier(torch, workdir)
+        tier = timed_phase("serving_tier", phase_serving_tier, torch, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
     try:
-        det = phase_detection(torch, workdir)
+        det = timed_phase("detection", phase_detection, torch, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
-    slim_cf = phase_slim_and_control_flow(
-        torch, chapters, cap_resnet["paths"]["graph"]["step_ms_median_warm"])
+    slim_cf = timed_phase("slim_and_control_flow", phase_slim_and_control_flow, torch,
+                          chapters, cap_resnet["paths"]["graph"]["step_ms_median_warm"])
     pruned_k2 = round(slim_cf["b"]["resnet50"]["k2_launches_per_step"] * SLIM_STEPS)
     torch.cuda.empty_cache()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
     try:
-        ocr_res = phase_ocr(torch, workdir)
+        ocr_res = timed_phase("ocr", phase_ocr, torch, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
+    try:
+        meas = timed_phase("measurement_stack", phase_measurement_stack, torch, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     os.remove(tune_cache)
+    meas_l = meas["a"]["launches"]
     tier_l = {"tuner_search": tier["tuner_launches"],
               "serving_pool": tier["pool"]["traffic"]["launches"]}
     q64_serve = next(r for r in tier["tiles"] if r["shape"] == [8, 12, 512, 64]
@@ -7283,7 +7714,8 @@ def main() -> int:
                      **{k: v["dropout_fwd"] for k, v in sched_l.items()},
                      **{k: opt_l[k]["dropout_fwd"] for k in ("lamb_bert_training",
                                                              "recompute_lamb_bert_training")},
-                     **{k: v["dropout_fwd"] for k, v in surf_l.items()}}
+                     **{k: v["dropout_fwd"] for k, v in surf_l.items()},
+                     "measurement_stack_training": meas_l.get("dropout_fwd", 0)}
     # multi_tensor_update's calls by path, each path's kind, and each kind's launches
     mt_calls = {"training": ("adam", train_launches["multi_tensor_update"]),
                 "resnet50_training": ("momentum", resnet_launches["multi_tensor_update"]),
@@ -7319,6 +7751,8 @@ def main() -> int:
                 **{f"detection_{r['model']}_training":
                    ("adam", r["multi_tensor_update_launches"].get("multi_tensor_update", 0))
                    for r in det["small"]},
+                "measurement_stack_training":
+                    ("adam", meas["a"]["launches"].get("multi_tensor_update", 0)),
                 **{f"ocr_crnn_training_{p}":
                    ("momentum", ocr_res["train"]["multi_tensor_update_launches"][p]
                     .get("multi_tensor_update", 0)) for p in ("graph", "eager")}}
@@ -7347,7 +7781,8 @@ def main() -> int:
                       + opt_l["lamb_bert_training"]["flash_attn_fwd"]
                       + opt_l["recompute_lamb_bert_training"]["flash_attn_fwd"]
                       + surf_l["pipeline_bert_training"]["flash_attn_fwd"]
-                      + sum(v.get("flash_attn_fwd", 0) for v in tier_l.values())),
+                      + sum(v.get("flash_attn_fwd", 0) for v in tier_l.values())
+                      + meas_l["flash_attn_fwd"]),
          "launches_by_path": {"serving": serve_launches["flash_attn_fwd"],
                               "int8_serving": int8_launches["flash_attn_fwd"],
                               "training": train_launches["flash_attn_fwd"],
@@ -7358,7 +7793,8 @@ def main() -> int:
                                   opt_l["recompute_lamb_bert_training"]["flash_attn_fwd"],
                               "pipeline_bert_training":
                                   surf_l["pipeline_bert_training"]["flash_attn_fwd"],
-                              **{k: v.get("flash_attn_fwd", 0) for k, v in tier_l.items()}},
+                              **{k: v.get("flash_attn_fwd", 0) for k, v in tier_l.items()},
+                              "measurement_stack_training": meas_l["flash_attn_fwd"]},
          "max_abs_err": fwd_err, **{k: train_fwd[k] for k in keys},
          "serving_tile_128_ms": q128_tiles,
          "shape": "B128 H12 S128 D64 bf16, bias, dropout 0.1, LSE (the training path)",
@@ -7388,7 +7824,8 @@ def main() -> int:
                       + sched_l["scheduled_bert_training"]["flash_attn_bwd"]
                       + opt_l["lamb_bert_training"]["flash_attn_bwd"]
                       + opt_l["recompute_lamb_bert_training"]["flash_attn_bwd"]
-                      + surf_l["pipeline_bert_training"]["flash_attn_bwd"]),
+                      + surf_l["pipeline_bert_training"]["flash_attn_bwd"]
+                      + meas_l["flash_attn_bwd"]),
          "launches_by_path": {"training": train_launches["flash_attn_bwd"],
                               "scheduled_bert_training":
                                   sched_l["scheduled_bert_training"]["flash_attn_bwd"],
@@ -7396,7 +7833,8 @@ def main() -> int:
                               "recompute_lamb_bert_training":
                                   opt_l["recompute_lamb_bert_training"]["flash_attn_bwd"],
                               "pipeline_bert_training":
-                                  surf_l["pipeline_bert_training"]["flash_attn_bwd"]},
+                                  surf_l["pipeline_bert_training"]["flash_attn_bwd"],
+                              "measurement_stack_training": meas_l["flash_attn_bwd"]},
          "max_abs_err": bwd_err,
          **{k: train_bwd[k] for k in keys},
          "shape": "B128 H12 S128 D64 bf16, bias, dropout 0.1 (the training path)",
@@ -7596,6 +8034,16 @@ def main() -> int:
             "warpctc_vs_ctc_loss_ms": [ocr_res["yardstick"]["warpctc_fwd_bwd_ms"],
                                        ocr_res["yardstick"]["ctc_loss_fwd_bwd_ms"]],
             "seconds": ocr_res["seconds"]},
+        "measurement_stack": {
+            "goodput": {k: meas["a"]["goodput"][k] for k in ("fraction", "wall_s",
+                                                              "causes_sum_s")},
+            "program_flops": meas["a"]["program_flops"]["total"],
+            "hand_count_flops": meas["a"]["hand_count_flops"],
+            "program_mfu": meas["a"]["program_mfu"], "peak_flops": meas["a"]["peak_flops"],
+            "flagged_steps": meas["a"]["flagged_steps"],
+            "attributed_device_fraction": meas["b"]["attributed_device_fraction"],
+            "slo_transitions": [t["active"] for t in meas["c"]["transitions"]],
+            "profiler_k1_kernels": meas["d"]["k1_kernels"], "seconds": meas["seconds"]},
         "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

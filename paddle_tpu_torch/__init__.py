@@ -35,6 +35,10 @@ from .reader import DataFeeder, DataLoader, PyReader  # noqa: F401
 from . import incubate  # noqa: F401
 from . import dataset  # noqa: F401
 from . import resilience  # noqa: F401  (fault injection + step recovery)
-from . import utils  # noqa: F401  (clock, fs, checkpointer)
+from . import utils  # noqa: F401  (clock, fs, checkpointer, flops, benchtime)
+from . import flags  # noqa: F401
+from .flags import get_flag, set_flags  # noqa: F401
+from . import observability  # noqa: F401
+from . import profiler  # noqa: F401
 
 __version__ = "0.1.0"

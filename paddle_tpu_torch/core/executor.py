@@ -66,6 +66,22 @@ costs one attribute read. The tensor-health watchdog
 (``observability/health.py``) checks a step's fetches when
 ``PADDLE_TPU_OBS_HEALTH`` is on.
 
+Telemetry, as the JAX ``Executor.run`` records it: the flight-recorder
+spans ``feed_prep``, ``dispatch``, ``fetch_sync`` and ``journal`` (and
+``megastep`` around ``run_fused``), and ``compile`` for the time of a
+CUDA-graph capture, the port's compile miss; ``executor_run_seconds`` and
+``executor_runs_total``. At a step's first run (its warm-up on the card),
+``program_flops`` and the step's argument and output bytes; at its capture,
+its graph pool's bytes; the first run is attributed op by op when
+attribution is armed (``observability/attribution.py``). Under
+``PADDLE_TPU_OBS`` or the ``benchmark`` flag (``flags.py``) a step is timed
+synchronously (the ``fetch_sync`` span waits for the card), warm steps feed
+the step-time anomaly detector (one window per cache entry, retired with
+it) and set the MFU gauges; under ``PADDLE_TPU_OBS`` a ``run`` (or
+``megastep``) journal event follows each call and memory is sampled every
+``PADDLE_TPU_OBS_MEM_INTERVAL`` steps. With nothing armed a step pays no
+synchronisation and no file I/O.
+
 The device is explicit: ``Executor()`` runs on ``cuda`` and raises when there
 is no card. Pass ``CPUPlace()`` (or ``"cpu"``) to run on the CPU, where there
 are no graphs. On the card, float32 matmuls and convolutions run in full
@@ -78,6 +94,7 @@ import contextlib
 import itertools
 import queue
 import threading
+import time
 import warnings
 import weakref
 from typing import Any, Dict, FrozenSet, List, Optional, Sequence, Tuple
@@ -85,8 +102,16 @@ from typing import Any, Dict, FrozenSet, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import flags as _flags
 from ..framework import Block, Program, Variable, default_main_program
+from ..observability import anomaly as _anomaly
+from ..observability import attribution as _attrib
+from ..observability import cost as _cost
 from ..observability import health as _health
+from ..observability import journal as _journal
+from ..observability import memory as _memory
+from ..observability import timeline as _timeline
+from ..observability.metrics import REGISTRY as _OBS
 from ..ops import host_table, multi_tensor
 from ..resilience import faults as _faults
 from .. import tuning as _tuning
@@ -360,47 +385,29 @@ def trace_block(block: Block, env: Dict[str, Any], device, seed: int = 0,
     kept = registry.forwards_with_grads(ops) if reuse_forward else frozenset()
     dead = dead_after(block, keep) if keep is not None else None
     graphs: Dict[str, Any] = {}
+    # under attribution (observability/attribution.py) each op runs in a
+    # profiler range of its IR key, and its tensor bytes are counted
+    op_bytes = _attrib.annotation()
+    check_dtype = _flags.get_flag("check_dtype")
     try:
         i = 0
         while i < len(ops):
             op = ops[i]
-            if group_updates and op.type in multi_tensor.GROUPED:
-                end = multi_tensor.run_end(ops, i)
-                ins_list = [_op_inputs(o, env) for o in ops[i:end]]
-                try:
-                    outs = multi_tensor.update(op.type, [o.attrs for o in ops[i:end]],
-                                               ins_list)
-                except NotImplementedError:
-                    raise
-                except Exception as e:
-                    raise _lowering_failed(op, e) from e
-                for o, out in zip(ops[i:end], outs):
-                    _store(o, out, env)
+            if op_bytes is None:
+                end = _run_ops(block, ops, i, env, device, seed, counter, kept, graphs,
+                               group_updates, counter_t, block_runner)
             else:
-                end = i + 1
-                d = registry.get(op.type)
-                ins = _op_inputs(op, env)
-                # a grad op takes its forward op's salt, so the forward's recompute
-                # inside it draws the forward's dropout masks
-                out0 = registry.first_output(op)
-                salt_name = op.attr("__fwd_out0__") or next(
-                    (ns[0] for ns in op.outputs.values() if ns and ns[0] != EMPTY_VAR),
-                    op.type)
-                ctx = LowerCtx(op.attrs, device, seed, counter, stable_salt(salt_name),
-                               graphs=graphs, counter_t=counter_t,
-                               block_runner=block_runner)
-                try:
-                    if (op.type, out0) in kept:
-                        outs = registry.lower_keeping_graph(d, ctx, ins, out0)
-                    else:
-                        outs = d.lower(ctx, ins)
-                except NotImplementedError:
-                    raise
-                except Exception as e:
-                    raise _lowering_failed(op, e) from e
-                del ins
-                _store(op, outs, env)
-                del outs
+                ir = _attrib.ir_key(op.type, block.idx, i)
+                with torch.profiler.record_function(ir):
+                    end = _run_ops(block, ops, i, env, device, seed, counter, kept, graphs,
+                                   group_updates, counter_t, block_runner)
+                names = {n for o in ops[i:end]
+                         for n in o.input_arg_names() + o.output_arg_names()}
+                op_bytes[ir] = op_bytes.get(ir, 0) + _memory.tensor_bytes(
+                    env.get(n) for n in names)
+            if check_dtype:
+                for o in ops[i:end]:
+                    _check_dtypes(block, o, env)
             if dead is not None:
                 for j in range(i, end):
                     for n in dead[j]:
@@ -409,6 +416,60 @@ def trace_block(block: Block, env: Dict[str, Any], device, seed: int = 0,
     finally:
         graphs.clear()
     return env
+
+
+def _check_dtypes(block: Block, op, env) -> None:
+    """``FLAGS_check_dtype``: each output of ``op`` in its declared dtype."""
+    for n in op.output_arg_names():
+        v, t = block.find_var_recursive(n), env.get(n)
+        if v is None or not isinstance(t, torch.Tensor) or n == EMPTY_VAR:
+            continue
+        if t.dtype != registry.torch_dtype(v.dtype):
+            raise TypeError(f"op {op.type!r} wrote {n!r} as {t.dtype} but the program "
+                            f"declares {v.dtype} (FLAGS_check_dtype)")
+
+
+def _run_ops(block, ops, i, env, device, seed, counter, kept, graphs, group_updates,
+             counter_t, block_runner) -> int:
+    """Run op ``i`` of ``ops`` (with the run of update ops it starts, when
+    they are grouped) over ``env``; returns the index after them."""
+    op = ops[i]
+    if group_updates and op.type in multi_tensor.GROUPED:
+        end = multi_tensor.run_end(ops, i)
+        ins_list = [_op_inputs(o, env) for o in ops[i:end]]
+        try:
+            outs = multi_tensor.update(op.type, [o.attrs for o in ops[i:end]],
+                                       ins_list)
+        except NotImplementedError:
+            raise
+        except Exception as e:
+            raise _lowering_failed(op, e) from e
+        for o, out in zip(ops[i:end], outs):
+            _store(o, out, env)
+    else:
+        end = i + 1
+        d = registry.get(op.type)
+        ins = _op_inputs(op, env)
+        # a grad op takes its forward op's salt, so the forward's recompute
+        # inside it draws the forward's dropout masks
+        out0 = registry.first_output(op)
+        salt_name = op.attr("__fwd_out0__") or next(
+            (ns[0] for ns in op.outputs.values() if ns and ns[0] != EMPTY_VAR),
+            op.type)
+        ctx = LowerCtx(op.attrs, device, seed, counter, stable_salt(salt_name),
+                       graphs=graphs, counter_t=counter_t,
+                       block_runner=block_runner)
+        try:
+            if (op.type, out0) in kept:
+                outs = registry.lower_keeping_graph(d, ctx, ins, out0)
+            else:
+                outs = d.lower(ctx, ins)
+        except NotImplementedError:
+            raise
+        except Exception as e:
+            raise _lowering_failed(op, e) from e
+        _store(op, outs, env)
+    return end
 
 
 class SubBlockRunner:
@@ -478,12 +539,14 @@ def _debug_line(loop: str, batch: int, names, values) -> None:
 
 
 class _Step:
-    """An entry of the executor's cache: one (program, signature) on the
-    card. ``refusal`` says why it is not captured (None: it is); ``graph``
-    is its CUDA graph once captured, over ``state`` (the scope's tensors it
-    reads and updates), ``feeds`` (static buffers) and ``counter`` (the run
-    counter on the card); its outputs are the fetches and the persistables
-    it only writes."""
+    """An entry of the executor's cache: one (program, signature). On the
+    CPU, and on the card for a program that is not captured, it only marks
+    the signature as seen (its first run is the miss); ``refusal`` says why
+    it is not captured (None: it is). ``graph`` is its CUDA graph once
+    captured, over ``state`` (the scope's tensors it reads and updates),
+    ``feeds`` (static buffers) and ``counter`` (the run counter on the
+    card); its outputs are the fetches and the persistables it only writes.
+    ``cost`` is its FLOPs, counted at the first run."""
 
     def __init__(self, refusal: Optional[str]):
         self.refusal = refusal
@@ -492,6 +555,53 @@ class _Step:
         self.state: Dict[str, torch.Tensor] = {}
         self.feeds: Dict[str, torch.Tensor] = {}
         self.counter: Optional[torch.Tensor] = None
+        self.cost: Optional[_cost.StepCost] = None
+        #: the anomaly detector's windows of this entry (retired with it)
+        self.windows: set = set()
+
+
+class _StepRun(collections.namedtuple("_StepRun", "fetches replayed key miss capture end")):
+    """What ``_run_step`` did: the fetches, whether they are a graph's
+    outputs (which the next replay overwrites), the cache key, whether the
+    run was a miss (the signature's first run, or its capture), the
+    capture's (start, seconds) when it captured (else None), and, at a
+    first run, when the step's own work ended (its telemetry follows: the
+    cost count, an attribution's processing)."""
+
+    @property
+    def dispatch_start(self) -> Optional[float]:
+        """Where the step's own dispatch began: after its capture, if any."""
+        return None if self.capture is None else sum(self.capture)
+
+
+#: per-program gauges, retired with the last cache entry of their label
+_PROGRAM_GAUGES = ("program_flops", "program_flops_per_sec", "program_mfu",
+                   "program_peak_bytes", "program_argument_bytes", "program_output_bytes")
+
+
+def _retire_program_gauges_if_dead(prog_id, version) -> None:
+    """Retire a program label's gauges unless a live executor still caches a
+    step of it: the gauges are process-wide, and a reused CPython id must
+    not inherit a dead program's numbers."""
+    for exe in list(Executor._instances):
+        if any(k[0] == prog_id and k[1] == version
+               for k in exe._cache):
+            return
+    label = f"{prog_id}:v{version}"
+    for g in _PROGRAM_GAUGES:
+        _OBS.remove_labeled(g, program=label)
+    _attrib.retire_program(label)
+
+
+def _feed_batch(program: Program, feeds: Dict[str, torch.Tensor]) -> int:
+    """The batch a run's -1 dims stand for: dim 0 of the first feed whose
+    variable declares it -1 (1 when none does)."""
+    block = program.global_block()
+    for n, t in feeds.items():
+        v = block.find_var_recursive(n)
+        if v is not None and v.shape and v.shape[0] == -1 and t.dim() > 0:
+            return int(t.shape[0])
+    return 1
 
 
 class Executor:
@@ -511,9 +621,22 @@ class Executor:
     #: LRU bound on the cached steps (the JAX Executor's _CACHE_CAP)
     _CACHE_CAP = 64
 
+    #: the live executors (the black box's ``executors`` section, and whether
+    #: a program label's gauges still have an owner)
+    _instances: "weakref.WeakSet[Executor]" = weakref.WeakSet()
+
     def __init__(self, place=None):
         self.place = place
         self.device = resolve_device(place)
+        from ..observability import slo as _slo
+        _slo.maybe_arm()    # one env read when PADDLE_TPU_OBS_SLO is unset
+        Executor._instances.add(self)
+        self._obs_steps = 0
+        # what the last miss saw, for the black box
+        self._last_miss: Optional[dict] = None
+        # the steps by (program, signature); one run without CUDA graphs (the
+        # CPU, or _use_graphs off) is an entry too, refused, so that its
+        # first run is the miss
         self._cache: "collections.OrderedDict[tuple, _Step]" = collections.OrderedDict()
         # (program id, _version, fetches) -> (program, its pruned copy)
         self._prune_cache: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
@@ -621,6 +744,7 @@ class Executor:
         ``return_numpy=False``, as tensors on the device. ``use_prune`` runs
         only the ops the fetches need (``Program._prune``; an eval-style
         fetch runs no update op), from a cache of pruned copies."""
+        t_feed = time.perf_counter()
         program = program or default_main_program()
         fetch_names = self._fetch_names(fetch_list)
         scope = scope or global_scope()
@@ -650,12 +774,33 @@ class Executor:
                                          if g not in fetch_names]
         feeds = {k: as_tensor(v, self.device) for k, v in feed.items()}
         counter = self._advance(counted, 1)
+        _timeline.record_span("feed_prep", t_feed, time.perf_counter() - t_feed,
+                              step=counter, program=label)
+        timed = _journal.enabled() or _flags.get_flag("benchmark")
+        # a stall at the dispatch fault site is part of the step's time (the
+        # anomaly detector's), though not of its dispatch span
+        t_run = time.perf_counter()
         undo = None
         if _faults._active:
             # before the launch: nothing ran, a retry is clean
             _faults.fire("dispatch", counter, program=label)
             undo = self._undo_point(program, feeds, fetch_names, scope, [counter])
-        fetches, replayed = self._run_step(program, feeds, fetch_names, scope, counter)
+        t_launch = time.perf_counter()
+        with self._run_event(program):
+            r = self._run_step(program, feeds, fetch_names, scope, counter)
+            t_disp = r.dispatch_start or t_launch
+            t_end = r.end or time.perf_counter()
+            _timeline.record_span("dispatch", t_disp, t_end - t_disp, step=counter,
+                                  program=label)
+            if timed:
+                # journaled and benchmarked timings are step wall time, not
+                # the time to enqueue it
+                with _timeline.phase("fetch_sync", step=counter, program=label):
+                    self._sync()
+        run_s = (t_end if r.end else time.perf_counter()) - (r.dispatch_start or t_run)
+        fetches, replayed = r.fetches, r.replayed
+        self._step_telemetry(program, label, r, run_s, timed, counter, 1, feeds,
+                             fetch_names[:n_user], scope)
         if _faults._active:
             self._fire_fetch([counter], label, undo, scope)
             written = self._state_names(program, feeds, fetch_names)[1]
@@ -669,6 +814,8 @@ class Executor:
                 written = self._state_names(program, feeds, fetch_names)[1]
                 named += [(n, scope.find_var(n)) for n in written]
             _health.check(named, label, where="executor", health_mode=hmode)
+        if _flags.get_flag("check_nan_inf"):
+            self._check_nan_inf(program, feeds, fetch_names, scope)
         if host_pushes:
             fetched = dict(feed)
             fetched.update(zip(fetch_names, fetches))
@@ -760,18 +907,38 @@ class Executor:
         counter0 = self._advance(program, k)
         label = f"{id(program)}:v{program._version}"
         substeps = [counter0 + i for i in range(k)]
+        t_run = time.perf_counter()
         undo = None
         if _faults._active:
             _faults.fire("dispatch", counter0, program=label)
             undo = self._undo_point(program, steps[0], fetch_names, scope, substeps)
         stacked: List[torch.Tensor] = []
-        for i, step in enumerate(steps):
-            feeds_t = {n: as_tensor(v, self.device) for n, v in step.items()}
-            fetches, _ = self._run_step(program, feeds_t, fetch_names, scope, counter0 + i)
-            if i == 0:
-                stacked = [f.new_empty((k,) + tuple(f.shape)) for f in fetches]
-            for out, f in zip(stacked, fetches):
-                out[i].copy_(f)
+        timed = _journal.enabled() or _flags.get_flag("benchmark")
+        t_launch = time.perf_counter()
+        miss, capture, feeds0 = False, None, None
+        with self._run_event(program):
+            for i, step in enumerate(steps):
+                feeds_t = {n: as_tensor(v, self.device) for n, v in step.items()}
+                r = self._run_step(program, feeds_t, fetch_names, scope, counter0 + i)
+                miss, capture = miss or r.miss, r.capture or capture
+                if i == 0:
+                    stacked = [f.new_empty((k,) + tuple(f.shape)) for f in r.fetches]
+                    feeds0 = feeds_t
+                for out, f in zip(stacked, r.fetches):
+                    out[i].copy_(f)
+            # a capture in the first call is the compile span's, not the dispatch's
+            t_disp = t_launch if capture is None else sum(capture)
+            _timeline.record_span("dispatch", t_disp, time.perf_counter() - t_disp,
+                                  step=counter0, program=label, k=k)
+            if timed:
+                with _timeline.phase("fetch_sync", step=counter0, program=label):
+                    self._sync()
+        # the container of the call's dispatch and wait (never summed by the ledger)
+        _timeline.record_span("megastep", t_disp, time.perf_counter() - t_disp,
+                              step=counter0, program=label, k=k)
+        run_s = time.perf_counter() - (t_run if capture is None else t_disp)
+        self._step_telemetry(program, label, _StepRun(None, True, r.key, miss, capture, None),
+                             run_s, timed, counter0, k, feeds0, fetch_names, scope)
         if _faults._active:
             # as the JAX run_fused: each substep's fetch site, then its
             # corruption, on its own row of the stacked fetches
@@ -789,14 +956,85 @@ class Executor:
         if hmode != "off":
             _health.check(list(zip(fetch_names, stacked)), label, where="executor",
                           health_mode=hmode)
+        if _flags.get_flag("check_nan_inf"):
+            self._check_nan_inf(program, steps[0], fetch_names, scope)
         if return_numpy:
             return [to_numpy(t) for t in stacked]
         return stacked
 
+    def _run_event(self, program):
+        """``FLAGS_profile_executor``: a ``fluid.profiler`` event around a run."""
+        if not _flags.get_flag("profile_executor"):
+            return contextlib.nullcontext()
+        from .. import profiler as _profiler
+        return _profiler.record_event(f"executor_run_v{program._version}")
+
+    def _step_telemetry(self, program, label, r: _StepRun, run_s, timed, step0, k, feeds,
+                        fetch_names, scope) -> None:
+        """After a call of ``k`` steps that took ``run_s`` from its dispatch:
+        the run histogram and counter; when ``timed``, the anomaly detector
+        (warm calls only) and the cost gauges; under ``PADDLE_TPU_OBS`` the
+        interval memory sample and the ``run`` / ``megastep`` event."""
+        _OBS.histogram("executor_run_seconds",
+                       "Executor.run step wall time from its dispatch").observe(run_s)
+        _OBS.counter("executor_runs_total", "Executor.run calls").inc(k)
+        per_step = run_s / k
+        step = self._cache.get(r.key) if timed else None
+        if step is not None:
+            if not r.miss:
+                # a K-step call's amortized time has a window of its own
+                window = r.key if k == 1 else r.key + (("fused", k),)
+                step.windows.add(window)
+                _anomaly.DETECTOR.observe(label, per_step, key=window)
+            if step.cost is not None:
+                _cost.update_cost_gauges(step.cost, per_step, label)
+        if not _journal.enabled():
+            return
+        self._obs_steps += 1
+        if self._obs_steps % _memory.sample_interval() == 0:
+            _memory.sample_device_memory("interval", self.device, scope)
+        with _timeline.phase("journal", step=step0, program=label):
+            ev = {"event": "run" if k == 1 else "megastep", "program": id(program),
+                  "version": program._version, "cache": "miss" if r.miss else "hit",
+                  "compile_ms": (round(r.capture[1] * 1e3, 3) if r.capture is not None
+                                 else None),
+                  "run_ms": round(run_s * 1e3, 3),
+                  "feed": {n: [list(t.shape), str(t.dtype)[len("torch."):]]
+                           for n, t in (feeds or {}).items()},
+                  "fetch": list(fetch_names)}
+            if k > 1:
+                ev.update(k=k, step0=step0, amortized_ms=round(per_step * 1e3, 3))
+            _journal.emit(ev)
+
+    def _check_nan_inf(self, program, feed, fetch_names, scope) -> None:
+        """``FLAGS_check_nan_inf``: raise if the run left a NaN or Inf in a
+        floating state tensor it wrote."""
+        written = self._state_names(program, feed, fetch_names)[1]
+        vals = {n: scope.find_var(n) for n in written}
+        bad = [n for n, v in vals.items() if isinstance(v, torch.Tensor)
+               and v.is_floating_point() and not bool(torch.isfinite(v).all())]
+        if bad:
+            raise FloatingPointError(f"NaN/Inf detected in state vars {bad[:5]} after run "
+                                     f"(FLAGS_check_nan_inf)")
+
+    def debug_snapshot(self) -> dict:
+        """The black box's view: the cached steps' keys, and what the last
+        miss saw (feeds, fetches, the capture's time and pool)."""
+        steps = list(self._cache.items())
+        info = {"place": self.device.type if self.place is None else str(self.place),
+                "cached_steps": len(steps),
+                "programs": [{"program": f"{k[0]}:v{k[1]}", "key": repr(k)[:400],
+                              "captured": st.graph is not None} for k, st in steps]}
+        if self._last_miss is not None:
+            info["last_miss"] = dict(self._last_miss)
+        return info
+
     def close(self):
         """Drop the cached steps: their CUDA graphs and the memory pools they
-        hold. The scope keeps its state."""
-        self._cache.clear()
+        hold, their anomaly windows and, when no live executor still caches
+        their program, their gauges. The scope keeps its state."""
+        for key in list(self._cache):
+            self._drop(key)
         self._prune_cache.clear()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
@@ -1105,42 +1343,79 @@ class Executor:
 
     # ---------------------------------------------------------------- one step
 
-    def _run_step(self, program, feeds, fetch_names, scope, counter):
-        """One step: (fetches, whether they are a graph's outputs, which the
-        next replay overwrites)."""
-        if not self._captures():
-            return self._eager(program, feeds, fetch_names, scope, counter, self._counter), False
+    def _run_step(self, program, feeds, fetch_names, scope, counter) -> _StepRun:
+        """One step, through the cache of steps (``_StepRun``)."""
         seed = program.random_seed if program.random_seed is not None else 0
-        _tuning.prefetch()     # before the key: the lowerings' consults are lookups
-        key = (id(program), program._version,
-               tuple(sorted((k, tuple(t.shape), str(t.dtype)) for k, t in feeds.items())),
-               tuple(fetch_names), seed, id(scope), _tuning.state_token())
+        sig = tuple(sorted((k, tuple(t.shape), str(t.dtype)) for k, t in feeds.items()))
+        captures = self._captures()
+        if captures:
+            _tuning.prefetch()     # before the key: the lowerings' consults are lookups
+            key = (id(program), program._version, sig, tuple(fetch_names), seed, id(scope),
+                   _tuning.state_token())
+        else:
+            key = (id(program), program._version, sig, tuple(fetch_names), seed, id(scope))
         step = self._cache.get(key)
         if step is None:
-            step = self._cache[key] = _Step(capture_refusal(program))
-            if step.refusal is not None:
+            step = self._cache[key] = _Step(capture_refusal(program) if captures
+                                            else "CUDA graphs are off (the CPU, or "
+                                                 "_use_graphs False)")
+            if captures and step.refusal is not None:
                 warnings.warn(f"Executor.run: the program is not captured as a CUDA graph "
                               f"({step.refusal}); its runs are eager", stacklevel=3)
             while len(self._cache) > self._CACHE_CAP:
-                self._cache.popitem(last=False)
+                self._drop(next(iter(self._cache)))
         else:
             self._cache.move_to_end(key)
-        if step.refusal is not None:
-            return self._eager(program, feeds, fetch_names, scope, counter, self._counter), False
+        label = f"{id(program)}:v{program._version}"
         if not step.warmed:
+            # the signature's first run: eager (on the card on a side stream,
+            # setting up what a capture needs), its cost counted and, when
+            # armed, attributed op by op
             step.warmed = True
-            out = cuda_graphs.warm_up(self.device, lambda: self._eager(
-                program, feeds, fetch_names, scope, counter, self._counter))
-            self._rehome_tuning_token(key)
-            return out, False
+            if step.refusal is None:
+                run = lambda: cuda_graphs.warm_up(self.device, lambda: self._eager(  # noqa: E731
+                    program, feeds, fetch_names, scope, counter, self._counter))
+            else:
+                run = lambda: self._eager(  # noqa: E731
+                    program, feeds, fetch_names, scope, counter, self._counter)
+            with _attrib.profiled(program, label, self.device):
+                out = run()
+                work_end = time.perf_counter()
+            step.cost = _cost.step_cost(program, _feed_batch(program, feeds), self.device)
+            _cost.update_cost_gauges(step.cost, None, label)
+            _memory.update_program_memory_gauges(
+                label, _memory.tensor_bytes(itertools.chain(
+                    feeds.values(), (scope.find_var(n) for n in
+                                     self._state_names(program, feeds, fetch_names)[0]))),
+                _memory.tensor_bytes(out))
+            _memory.sample_device_memory("compile", self.device, scope)
+            self._last_miss = {"program": label, "feeds": {k: list(t.shape) for k, t in
+                                                           feeds.items()},
+                               "fetches": list(fetch_names), "captured": False}
+            if captures:
+                key = self._rehome_tuning_token(key)
+            return _StepRun(out, False, key, True, None, work_end)
+        if step.refusal is not None:
+            return _StepRun(self._eager(program, feeds, fetch_names, scope, counter,
+                                        self._counter), False, key, False, None, None)
+        capture = None
         if step.graph is None:
             if _faults._active:
                 # before the capture: nothing is cached yet, a retry recaptures
-                _faults.fire("compile", counter, program=f"{id(program)}:v{program._version}")
+                _faults.fire("compile", counter, program=label)
+            t0 = time.perf_counter()
             self._capture(step, program, feeds, fetch_names, scope)
+            capture = (t0, time.perf_counter() - t0)
+            _OBS.histogram("executor_compile_seconds",
+                           "CUDA-graph capture wall time per cache miss").observe(capture[1])
+            _timeline.record_span("compile", t0, capture[1], step=counter, program=label)
+            _memory.sample_device_memory("compile", self.device)
+            self._last_miss = dict(self._last_miss or {}, program=label, captured=True,
+                                   capture_ms=round(capture[1] * 1e3, 3),
+                                   graph_pool_bytes=step.graph.memory_bytes)
         elif not self._guard(step, scope):
             # the scope's state changed shape or dtype: a new executable
-            del self._cache[key]
+            self._drop(key)
             return self._run_step(program, feeds, fetch_names, scope, counter)
         for k, t in feeds.items():
             step.feeds[k].copy_(t)
@@ -1149,15 +1424,31 @@ class Executor:
         fetches, written = step.graph.outputs
         for n, t in written.items():
             scope.set_var(n, t.clone())
-        return fetches, True
+        if capture is not None:
+            _memory.update_program_memory_gauges(
+                label, _memory.tensor_bytes(itertools.chain(step.state.values(),
+                                                            step.feeds.values())),
+                _memory.tensor_bytes(fetches), step.graph.memory_bytes)
+        return _StepRun(fetches, True, key, capture is not None, capture, None)
 
-    def _rehome_tuning_token(self, key) -> None:
-        """Move a just-warmed entry under the current decision-state token.
-        A search in the warm-up bumps the token after the key was made;
-        without the move the next run would miss and warm up again."""
+    def _drop(self, key) -> None:
+        """Evict a cache entry with its anomaly windows and, when no live
+        executor still caches its program, its gauges."""
+        step = self._cache.pop(key)
+        for w in step.windows:
+            _anomaly.DETECTOR.retire(w)
+        _retire_program_gauges_if_dead(key[0], key[1])
+
+    def _rehome_tuning_token(self, key):
+        """Move a just-warmed entry under the current decision-state token
+        and return its key. A search in the warm-up bumps the token after
+        the key was made; without the move the next run would miss and warm
+        up again."""
         new = _tuning.state_token()
         if new != key[-1] and key in self._cache:
             self._cache[key[:-1] + (new,)] = self._cache.pop(key)
+            return key[:-1] + (new,)
+        return key
 
     def _captures(self) -> bool:
         """Whether runs go through the cache of CUDA graphs: on the card,

@@ -30,8 +30,13 @@ new values are copied INTO those tensors (and into each serving dtype's
 cast copy), with every signature's lock held: no replay reads half-old
 weights, and no graph is captured again.
 
-Not ported yet: the JAX Predictor's warm store and IR attribution (ROADMAP
-items 10 and 12), and its sparse tables (ROADMAP item 10's online part).
+On the card each capture records a ``compile`` span (the goodput ledger's
+compile cause), and its warm-up is attributed op by op when attribution is
+armed (``observability/attribution.py``; label ``predict:<signature
+digest>``), as the JAX Predictor attributes each compiled signature.
+
+Not ported yet: the JAX Predictor's warm store (ROADMAP items 10 and 12)
+and its sparse tables (ROADMAP item 10's online part).
 """
 from __future__ import annotations
 
@@ -47,6 +52,7 @@ from .core.executor import (Scope, SubBlockRunner, as_tensor, resolve_device, sc
                             to_numpy, trace_block)
 from .core.registry import torch_dtype
 from .framework import Program
+from .observability import attribution as _attrib
 from .observability import health as _health
 from .observability import journal as _journal
 from .observability import timeline as _timeline
@@ -111,12 +117,18 @@ class _GraphRun:
     (``core/graphs.py``), after a warm-up run on a side stream. Call it under
     ``lock``: the feed and fetch buffers are shared."""
 
-    def __init__(self, pred: "Predictor", state, feeds: Dict[str, torch.Tensor], lock):
+    def __init__(self, pred: "Predictor", state, feeds: Dict[str, torch.Tensor], lock,
+                 label: str):
         self.lock = lock
         dev = pred.device
         self._feeds = {k: t.clone() for k, t in feeds.items()}
-        graphs.warm_up(dev, lambda: pred._trace(state, self._feeds))
+        with _attrib.profiled(pred.program, label, dev):   # when attribution is armed
+            graphs.warm_up(dev, lambda: pred._trace(state, self._feeds))
+        t0 = time.perf_counter()
         self._graph = graphs.Graph(dev, lambda: pred._trace(state, self._feeds))
+        # the capture is the port's compile: the goodput ledger's compile
+        # cause, wherever it happens (a serving pool's warm-up included)
+        _timeline.record_span("compile", t0, time.perf_counter() - t0, program=label)
         #: device memory the capture reserved for this signature's pool (bytes)
         self.memory_bytes = self._graph.memory_bytes
         #: each kernel wrapper's launches in one replay
@@ -282,7 +294,8 @@ class Predictor:
             self._count("miss")
             state = self._state_for(dtype)
             if self.device.type == "cuda":
-                exe = _GraphRun(self, state, feeds, lk)
+                exe = _GraphRun(self, state, feeds, lk,
+                                f"predict:{_attrib.signature_digest(sig)}")
             else:
                 exe = _EagerRun(self, state, lk)
             self._compiled[sig] = exe

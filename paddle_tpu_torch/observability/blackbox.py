@@ -4,11 +4,18 @@ port's copy of ``maybe_write`` and ``write_bundle`` of
 
 When a guarded run dies (out of retries, a ``StepTimeout``, a nonfinite
 step under ``policy=raise``, a preemption's emergency save) the terminal
-path calls :func:`maybe_write`, which writes what the port's observability
-holds into ``<dir>/postmortem-<ts>-p<pid>/bundle.json``: the journal ring
-and a dump of the metrics registry. The JAX bundle's timeline, alerts,
-executor compile keys and HLO attribution have no counterpart in the port
-yet, and their keys are absent.
+path calls :func:`maybe_write`, which writes what the observability stack
+holds into ``<dir>/postmortem-<ts>-p<pid>/bundle.json``, under the JAX
+bundle's keys:
+
+- ``journal``: the journal ring (every typed event up to the failure);
+- ``timeline``: the flight recorder's span tail and counter tracks;
+- ``metrics``: a dump of the registry (the device-memory gauges among it);
+- ``alerts``: the SLO engine's active and recently resolved alerts;
+- ``executors``: each live executor's cached steps (their cache keys) and
+  the feeds, fetches and capture time of its last miss;
+- ``attribution``: each recorded per-op attribution, when attribution is
+  armed.
 
 Arming: ``PADDLE_TPU_OBS_BLACKBOX=<dir>`` (a truthy ``1`` spells
 ``./postmortems``). Disarmed, every hook is one ``os.environ`` read. The
@@ -25,11 +32,14 @@ import warnings
 from typing import Optional
 
 from . import journal as _journal
+from . import timeline as _timeline
 from .metrics import REGISTRY
 
 BLACKBOX_ENV = "PADDLE_TPU_OBS_BLACKBOX"
 DEFAULT_DIR = "postmortems"
 FORMAT = "paddle_tpu_postmortem_v1"
+#: timeline spans kept in a bundle (newest-last)
+SPAN_TAIL = 2048
 #: bundles one process may write
 MAX_BUNDLES = 8
 
@@ -51,6 +61,38 @@ def armed_dir() -> Optional[str]:
     return raw
 
 
+def _timeline_doc() -> dict:
+    return {"spans": [{"name": n, "cat": c, "t0": t0, "dur": dur, "args": args, "tid": tid}
+                      for (n, c, t0, dur, args, tid) in _timeline.spans()[-SPAN_TAIL:]],
+            "counters": _timeline.counters()}
+
+
+def _alerts_doc() -> dict:
+    from . import slo as _slo
+    return _slo.alerts_doc()
+
+
+def _executor_snapshots() -> list:
+    from ..core.executor import Executor
+    return [e.debug_snapshot() for e in list(Executor._instances)]
+
+
+def _attribution_snapshots() -> list:
+    from . import attribution as _attrib
+    if not _attrib.attribution_enabled():
+        return []
+    out = []
+    for _ref, attrib in list(_attrib._IR_STORE.values()):
+        out.append({"program": attrib.label, "device": attrib.device,
+                    "attributed_device_fraction": attrib.coverage,
+                    "device_seconds": attrib.total_device_seconds,
+                    "per_category": {k: dict(v) for k, v in attrib.per_category.items()},
+                    "top_ops": [{"ir": ir, "device_seconds": v["device_seconds"],
+                                 "tensor_bytes": v["tensor_bytes"]}
+                                for ir, v in attrib.top_ops(10)]})
+    return out
+
+
 def snapshot(reason: str, error: Optional[BaseException] = None,
              extra: Optional[dict] = None) -> dict:
     """The bundle document (in memory). A section that fails to build
@@ -62,7 +104,12 @@ def snapshot(reason: str, error: Optional[BaseException] = None,
         doc["rank"] = r
     if error is not None:
         doc["error"] = {"type": type(error).__name__, "message": str(error)[:2000]}
-    for section, build in (("journal", _journal.recent), ("metrics", REGISTRY.to_dict)):
+    for section, build in (("journal", _journal.recent),
+                           ("timeline", _timeline_doc),
+                           ("metrics", REGISTRY.to_dict),
+                           ("alerts", _alerts_doc),
+                           ("executors", _executor_snapshots),
+                           ("attribution", _attribution_snapshots)):
         try:
             doc[section] = build()
         except Exception as e:  # noqa: BLE001 -- a section degrades, the bundle stays

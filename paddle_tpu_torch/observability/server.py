@@ -11,16 +11,19 @@ rank``; ``PADDLE_TPU_OBS_HOST`` picks the bind address (default
 Routes:
 
 - ``/metrics``  -- Prometheus text exposition of the process registry
-  (round-trippable through ``export.parse_prometheus``), after the
-  registered refreshers have updated their on-demand gauges (the serving
-  pool's model staleness).
+  (round-trippable through ``export.parse_prometheus``), after the goodput
+  gauges and counters and the registered refreshers' on-demand gauges (the
+  serving pool's model staleness) are refreshed. The goodput wall window
+  comes from the recorded span range, not "now", so a quiescent process
+  scrapes byte-stably.
 - ``/healthz``  -- watchdog state as JSON: 200 while no tensor has gone
   NaN/Inf, 503 (with the last offender) after one has.
+- ``/goodput``  -- the :mod:`goodput` ledger as JSON.
 - ``/journal``  -- bounded JSONL tail of the in-process journal ring
   (``?n=``, default 100, capped at 1000).
-
-The JAX package's ``/goodput`` and ``/alerts`` read its goodput ledger and
-SLO engine, which are not ported (ROADMAP item 12): they answer 501.
+- ``/alerts``   -- the SLO engine's view as JSON (:func:`slo.alerts_doc`):
+  parsed rules, latest per-rule evaluations, active and recently-resolved
+  alerts; a disarmed engine serves a stub with ``"armed": false``.
 
 Failure policy: telemetry must degrade, never abort serving. A port
 already in use (or any bind error) warns ONCE per port and returns None;
@@ -115,8 +118,9 @@ def unregister_refresher(fn) -> None:
 
 
 def run_refreshers() -> None:
-    """Per-scrape refresh of the on-demand gauges. Degrades: a refresher's
-    error warns once and the scrape still serves the raw registry."""
+    """Refresh the on-demand gauges (before each ``/metrics`` scrape and
+    each SLO evaluation). Degrades: a refresher's error warns once and the
+    scrape still serves the raw registry."""
     with _lock:
         fns = list(_refreshers)
     for fn in fns:
@@ -124,6 +128,17 @@ def run_refreshers() -> None:
             fn()
         except Exception as e:  # telemetry must not 500 the whole scrape
             _warn_once("refresh", f"metrics refresh failed: {e}")
+
+
+def _refresh() -> None:
+    """Per-scrape refresh of the derived metrics: the goodput gauges and
+    counters, then the refreshers. Degrades like ``run_refreshers``."""
+    try:
+        from . import goodput as _goodput
+        _goodput.export()
+    except Exception as e:  # telemetry must not 500 the whole scrape
+        _warn_once("goodput", f"goodput refresh failed: {e}")
+    run_refreshers()
 
 
 def _health_doc() -> dict:
@@ -175,7 +190,7 @@ def _make_handler():
             try:
                 if parsed.path == "/metrics":
                     from . import export as _export
-                    run_refreshers()
+                    _refresh()
                     self._send(
                         200, _export.to_prometheus().encode(),
                         "text/plain; version=0.0.4; charset=utf-8")
@@ -185,9 +200,15 @@ def _make_handler():
                                json.dumps(doc, sort_keys=True,
                                           default=str).encode(),
                                "application/json")
-                elif parsed.path in ("/goodput", "/alerts"):
-                    self._send(501, b"not ported: the goodput ledger and the SLO "
-                                    b"engine are ROADMAP item 12\n", "text/plain")
+                elif parsed.path == "/goodput":
+                    from . import goodput as _goodput
+                    rep = _goodput.export()
+                    self._send(200, json.dumps(rep.to_dict(), sort_keys=True).encode(),
+                               "application/json")
+                elif parsed.path == "/alerts":
+                    from . import slo as _slo
+                    self._send(200, json.dumps(_slo.alerts_doc(), sort_keys=True,
+                                               default=str).encode(), "application/json")
                 elif parsed.path == "/journal":
                     from . import journal as _journal
                     q = urllib.parse.parse_qs(parsed.query)
@@ -201,8 +222,8 @@ def _make_handler():
                     self._send(200, ("\n".join(lines) + "\n").encode(),
                                "application/jsonl")
                 else:
-                    self._send(404, b"not found: use /metrics, /healthz or "
-                                    b"/journal\n", "text/plain")
+                    self._send(404, b"not found: use /metrics, /healthz, "
+                                    b"/goodput, /journal or /alerts\n", "text/plain")
             except BrokenPipeError:
                 pass
             except Exception as e:

@@ -10,16 +10,17 @@ like the journal ring. Nothing is written to disk until
 The exporter writes the ring's phase spans and counter samples as one
 trace-event-format file (clocked by ``time.perf_counter``, so the spans of
 concurrent threads interleave correctly on their own tracks); load it in
-chrome://tracing or https://ui.perfetto.dev. The JAX package also splices
-in its profiler's XLA device trace; the port's device traces come from
-``torch.profiler`` (``tools/serving_profile.py``, ``tools/train_profile.py``)
-and are not merged here.
+chrome://tracing or https://ui.perfetto.dev. Given the ``trace_dir`` of a
+finished ``fluid.profiler`` session (``profiler.py``), it splices them into
+that session's ``torch.profiler`` trace instead, re-clocked onto it, so the
+card's kernels and the executor's spans share one timeline.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import json
+import os
 import threading
 import time
 from typing import Dict, List, Optional
@@ -154,13 +155,103 @@ def _trace_events(host_pid: int = PID_PHASES) -> List[dict]:
     return events
 
 
-def export_chrome_trace(output_path: str = "timeline.json") -> str:
+def _shift_onto_trace(perf_events: List[dict], trace: dict,
+                      trace_dir: Optional[str] = None) -> List[dict]:
+    """Re-clock perf_counter-domain events onto a ``torch.profiler`` trace.
+
+    The anchor, in order of precision:
+    - a ``fluid.profiler`` record event (``profiler._agg.spans``: its
+      perf_counter start) and its ``record_function`` range in the trace,
+      opened microseconds apart: the last event of the first name they
+      share, paired with that name's last range (a late session drops its
+      first records, ROADMAP fault 3.2, so the first range of a repeated
+      name may be a later event's);
+    - ``profiler._agg.trace_anchor``, (trace_dir, perf_counter, wall clock)
+      at the start of the session of that ``trace_dir``: the trace's
+      timestamps are wall-clock microseconds less its
+      ``baseTimeNanoseconds``;
+    - else the earliest events of the two are aligned.
+    Events before the capture clamp to ts 0."""
+    from .. import profiler as _profiler
+    events = trace.get("traceEvents", [])
+    delta = None
+    ranges: Dict[str, float] = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e.get("ph") == "X":
+            ranges[e.get("name")] = max(float(e["ts"]), ranges.get(e.get("name"), -1.0))
+    starts: Dict[str, float] = {}
+    for name, t0, _dt in sorted(_profiler._agg.spans, key=lambda s: s[1]):
+        starts[name] = t0
+    for name, t0 in starts.items():       # the first name's last start
+        if name in ranges:
+            delta = ranges[name] - t0 * 1e6
+            break
+    anchor = getattr(_profiler._agg, "trace_anchor", None)
+    base_ns = trace.get("baseTimeNanoseconds")
+    if (delta is None and anchor is not None and trace_dir is not None
+            and base_ns is not None
+            and os.path.abspath(anchor[0]) == os.path.abspath(trace_dir)):
+        # perf_counter t -> wall (t - perf0 + wall0) -> trace (wall - base)
+        delta = (anchor[2] - anchor[1]) * 1e6 - float(base_ns) / 1e3
+    if delta is None:
+        base = min((float(e["ts"]) for e in events
+                    if e.get("ph") not in ("M", None) and "ts" in e), default=None)
+        t0 = min((float(e.get("ts", 0.0)) for e in perf_events if e.get("ph") != "M"),
+                 default=None)
+        if base is None or t0 is None:
+            return perf_events
+        delta = base - t0
+    out = []
+    for e in perf_events:
+        if e.get("ph") != "M":
+            e = dict(e)
+            e["ts"] = max(float(e.get("ts", 0.0)) + delta, 0.0)
+        out.append(e)
+    return out
+
+
+def _sorted_events(events: List[dict]) -> List[dict]:
+    return sorted(events, key=lambda e: (e.get("ph") != "M", float(e.get("ts", 0.0))))
+
+
+def export_chrome_trace(output_path: str = "timeline.json",
+                        trace_dir: Optional[str] = None,
+                        include_profiler: bool = True) -> str:
     """Write the flight-recorder phase spans and counter tracks as one
-    Chrome-trace/Perfetto JSON timeline. Returns ``output_path``."""
+    Chrome-trace/Perfetto JSON timeline, with the ``fluid.profiler`` record
+    events (same perf_counter clock) unless ``include_profiler`` is off;
+    with the ``trace_dir`` of a finished ``fluid.profiler`` session, spliced
+    into its trace instead. Returns ``output_path``."""
+    from .. import profiler as _profiler
     events = _trace_events()
-    trace = {"traceEvents": events, "displayTimeUnit": "ms"}
-    trace["traceEvents"].sort(key=lambda e: (e.get("ph") != "M",
-                                             e.get("ts", 0.0)))
+    if trace_dir is not None:
+        src = _profiler._find_chrome_trace(trace_dir)
+        if src is None:
+            raise FileNotFoundError(
+                f"no profiler trace (*.pt.trace.json) under {trace_dir!r}; pass the "
+                f"directory given to profiler(trace_dir=...) after the session stopped, "
+                f"or trace_dir=None for a host-only timeline")
+        return splice_into_trace(src, events, trace_dir, output_path)
+    if include_profiler:
+        host = _profiler._host_span_events()
+        if len(host) > 1:     # the metadata record alone: nothing behind it
+            events.extend(host)
+    trace = {"traceEvents": _sorted_events(events), "displayTimeUnit": "ms"}
+    with open(output_path, "w") as f:
+        json.dump(trace, f)
+    return output_path
+
+
+def splice_into_trace(src: str, perf_events: List[dict], trace_dir: Optional[str],
+                      output_path: str) -> str:
+    """Merge perf_counter-domain events into the ``torch.profiler`` Chrome
+    trace at ``src``: re-clock them onto it, keep the trace's own top-level
+    keys, sort, write."""
+    with open(src) as f:
+        trace = json.load(f)
+    trace.setdefault("traceEvents", [])
+    trace["traceEvents"] = _sorted_events(
+        trace["traceEvents"] + _shift_onto_trace(perf_events, trace, trace_dir))
     with open(output_path, "w") as f:
         json.dump(trace, f)
     return output_path

@@ -36,10 +36,13 @@ the pinned tensors the graphs read: no capture), and a wedge-proof
 ``close(drain_timeout=...)`` -- all chaos-provable through the
 ``serve_dispatch``/``serve_fetch``/``serve_hang`` fault sites.
 
+``PADDLE_TPU_OBS_SLO=rules.json`` arms the SLO engine
+(``observability/slo.py``) at construction, as the JAX pool does: its
+rules read the serving histograms and counters below.
+
 Not ported (each raises when asked for, naming its ROADMAP item): the
-warm store (``PADDLE_TPU_WARMSTORE``), the SLO engine
-(``PADDLE_TPU_OBS_SLO``), sparse tables and ``apply_delta`` (the online
-path).
+warm store (``PADDLE_TPU_WARMSTORE``), sparse tables and ``apply_delta``
+(the online path).
 
 Observability (on the ``/metrics`` endpoint of ``observability/server.py``,
 armed by ``PADDLE_TPU_OBS_PORT``): ``serving_queue_depth`` / ``serving_in_flight``
@@ -414,10 +417,10 @@ class PredictorPool:
             raise NotImplementedError(
                 "PredictorPool(sparse_tables=...): sparse tables and the online delta "
                 "push are not ported (ROADMAP item 10, its online part)")
-        if os.environ.get("PADDLE_TPU_OBS_SLO"):
-            raise NotImplementedError(
-                "PADDLE_TPU_OBS_SLO is set, but the SLO engine "
-                "(observability/slo.py) is not ported (ROADMAP item 12)")
+        # one env read when PADDLE_TPU_OBS_SLO is unset; a bad rules file
+        # raises SLOConfigError here, before any worker starts
+        from ..observability import slo as _slo
+        _slo.maybe_arm()
         if predictors is None:
             if model_dir is None:
                 raise ValueError("PredictorPool needs model_dir or "

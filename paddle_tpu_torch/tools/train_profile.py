@@ -463,8 +463,11 @@ def _trace_window(exe, main, feed, fetch, n_steps):
     device records as (us a step, count a step, name))."""
     from torch.profiler import ProfilerActivity, schedule
     # one step traced and dropped first (the profiler's warm-up): late in a long
-    # process a trace loses its first 15-20 device records (ROADMAP fault 3.2)
-    with traced([ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    # process a trace loses its first 15-20 device records (ROADMAP fault 3.2).
+    # The device's activities only: the host's ops (tens of thousands a step on
+    # an eager path) are never read here, and aggregating them took most of a
+    # window's time
+    with traced([ProfilerActivity.CUDA],
                 schedule=schedule(wait=0, warmup=1, active=n_steps, repeat=1)) as prof:
         exe.run(main, feed=feed, fetch_list=fetch)
         prof.step()

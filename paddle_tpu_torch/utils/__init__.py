@@ -1,4 +1,6 @@
-"""Helpers the training loop's fault tolerance stands on (the port's copy of
-the part of ``paddle_tpu/utils/`` it needs): ``clock`` (the time seam),
-``fs`` (local and scheme'd paths) and ``checkpointer`` (``Checkpointer``)."""
-from . import checkpointer, clock, fs  # noqa: F401
+"""Helpers (the port's copy of the part of ``paddle_tpu/utils/`` it needs):
+``clock`` (the time seam), ``fs`` (local and scheme'd paths),
+``checkpointer`` (``Checkpointer``), ``flops`` (``program_flops`` and the
+card's peak table) and ``benchtime`` (per-call time from chained
+segments)."""
+from . import benchtime, checkpointer, clock, flops, fs  # noqa: F401

@@ -439,7 +439,8 @@ def test_a_hung_step_times_out_and_a_terminal_error_writes_a_bundle(tmp_path, mo
     # terminal one, as in the JAX package
     assert [d["reason"] for d in docs] == ["step_timeout", "terminal_error",
                                            "retries_exhausted"]
-    assert {"journal", "metrics"} <= set(docs[1]) and "attribution" not in docs[1]
+    assert {"journal", "metrics", "timeline", "alerts", "executors",
+            "attribution"} <= set(docs[1])
     assert "step_retries_total" in docs[1]["metrics"]
 
 

@@ -33,6 +33,7 @@ from paddle_tpu.serving import pool as jpool
 from paddle_tpu.serving.__main__ import _build_mlp as jax_build_mlp
 from paddle_tpu_torch.inference import Predictor
 from paddle_tpu_torch.observability import journal
+from paddle_tpu_torch.observability.slo import SLOConfigError
 from paddle_tpu_torch.resilience import faults
 from paddle_tpu_torch.serving import batcher as tbatcher
 from paddle_tpu_torch.serving import breaker as tbreaker
@@ -322,8 +323,10 @@ def test_unported_hooks_raise_naming_their_items(models, monkeypatch):
     da, _ = models
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
         PredictorPool(da, size=1, sparse_tables={"t": object()}, device="cpu")
-    monkeypatch.setenv("PADDLE_TPU_OBS_SLO", "rules.json")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+    # the SLO engine is ported: a rules file that cannot be read raises
+    # before any worker starts
+    monkeypatch.setenv("PADDLE_TPU_OBS_SLO", "no_such_rules.json")
+    with pytest.raises(SLOConfigError, match="no_such_rules.json"):
         PredictorPool(da, size=1, device="cpu")
     monkeypatch.delenv("PADDLE_TPU_OBS_SLO")
     pool = PredictorPool(da, size=1, device="cpu")

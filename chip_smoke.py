@@ -444,6 +444,24 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    its attribution. Alone: ``mkdir -p build; python3 -c "import tempfile,
    torch, chip_smoke as cs; cs.phase_build();
    cs.phase_measurement_stack(torch, tempfile.mkdtemp(dir='build'))"``;
+11e. phase 26, the static verifier (``paddle_tpu_torch/analysis/``). A: the
+   full-width programs of phases 5, 8, 13, 14, 22 and 24 (BERT-base
+   pretraining, ResNet-50, transformer-base, DeepFM, YOLOv3 at 608 x 608,
+   CRNN-CTC) verified with their fetches: zero error findings, each
+   program's op count, findings by code and ``verify`` seconds. B: phase
+   11's BERT-base step under ``PADDLE_TPU_VALIDATE=raise`` and
+   ``PADDLE_TPU_MEM_BUDGET=40G``, one miss and 5 replays: one ``verify``
+   journal event and span (none in the replays), the goodput ledger's
+   ``verify`` cause equal to that span, K1-fwd and K1-bwd 12 launches a
+   replay, ``program_static_peak_bytes`` equal to ``estimate_program_memory``
+   to the byte, ``program_static_peak_ratio`` printed. C: a fresh copy of the
+   program under an 8G budget raises ``VerificationError`` with PT051 before
+   its warm-up: no kernel launched, no graph captured, the scope's state
+   bit for bit unchanged. D: ``layout_churn`` (PT060) over phase 25 B's
+   attribution of the BERT warm-up (no second profiler session): each
+   finding names an op the attribution holds. Alone (D needs phase 25's
+   program, and is skipped): ``mkdir -p build; python3 -c "import torch,
+   chip_smoke as cs; cs.phase_build(); cs.phase_analysis(torch, None)"``;
 12. the kernels line (``multi_tensor_update`` with its five kinds, each
    with its launches; K1-fwd's 64-row tile as ``flash_attn_fwd_q64``),
    then the result line.
@@ -453,6 +471,7 @@ port's sources are not beside this script, or when any phase fails.
 """
 from __future__ import annotations
 
+import atexit
 import gc
 import json
 import os
@@ -2912,12 +2931,26 @@ def phase_ctr_mnist(torch, workdir):
 E2E_ROWS, E2E_PARTS, E2E_THREADS, E2E_FUSE = 200_000, 8, 4, 4
 
 
-def _write_ctr_parts(d, fields, vocab, n_rows=E2E_ROWS, n_parts=E2E_PARTS):
+#: (fields, vocab, rows, parts) -> the part files, written once a run: phases
+#: 15, 20 and 21 read the same 200,000 rows (writing them takes ~8 s)
+_CTR_PARTS: dict = {}
+
+
+def _write_ctr_parts(fields, vocab, n_rows=E2E_ROWS, n_parts=E2E_PARTS):
     """The part files as ``bench_workloads.py::_deepfm_e2e_body`` writes them,
     from ``RandomState(SEED)``: 26 ids < 2^24, 13 dense features and a label
-    a line, slots ``;``-separated."""
+    a line, slots ``;``-separated. The first call of a run writes them into a
+    directory of their own under ``build/`` (removed when the process
+    exits); later calls with the same arguments get the same files, which
+    their readers only read."""
+    key = (fields, vocab, n_rows, n_parts)
+    if key in _CTR_PARTS:
+        return _CTR_PARTS[key]
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    d = tempfile.mkdtemp(prefix="ctr_parts_", dir=os.path.join(REPO, "build"))
+    atexit.register(shutil.rmtree, d, True)
     rng = np.random.RandomState(SEED)
-    paths = []
+    paths = _CTR_PARTS[key] = []
     for p in range(n_parts):
         path = os.path.join(d, f"part-{p}.txt")
         paths.append(path)
@@ -2959,7 +2992,7 @@ def phase_deepfm_files(torch, workdir):
     if not native.available():
         raise SystemExit(f"the native slot parser did not build or load: {native.build_error}")
     t0 = time.perf_counter()
-    paths = _write_ctr_parts(workdir, CTR_FIELDS, CTR_VOCAB)
+    paths = _write_ctr_parts(CTR_FIELDS, CTR_VOCAB)
     write_s = time.perf_counter() - t0
     text_mb = sum(os.path.getsize(p) for p in paths) / 1e6
     main, startup, loss, auc, prob, _ = build_deepfm()
@@ -4750,7 +4783,7 @@ def _stream_resume(torch, pt, workdir, deepfm_step_ms=None):
     steps, preempt, save_every, spec = (STREAM_STEPS, STREAM_PREEMPT, STREAM_SAVE_EVERY,
                                         STREAM_FAULTS)
     t0 = time.perf_counter()
-    paths = _write_ctr_parts(workdir, CTR_FIELDS, CTR_VOCAB)
+    paths = _write_ctr_parts(CTR_FIELDS, CTR_VOCAB)
     write_s = time.perf_counter() - t0
     main, startup, loss, auc, _, pg = build_deepfm()
     use_vars = [main.global_block().var(n) for n in ("ids", "dense", "label")]
@@ -5346,7 +5379,7 @@ def _fuse_search(torch, pt, workdir):
     state: the parameters bit for bit."""
     from paddle_tpu_torch.tools.train_profile import CTR_BATCH, CTR_FIELDS, CTR_VOCAB, build_deepfm
     from paddle_tpu_torch.tuning import cache as tcache
-    paths = _write_ctr_parts(workdir, CTR_FIELDS, CTR_VOCAB)
+    paths = _write_ctr_parts(CTR_FIELDS, CTR_VOCAB)
     main, startup, loss, auc, prob, _ = build_deepfm()
     use_vars = [main.global_block().var(n) for n in ("ids", "dense", "label")]
     init = _startup_state(pt, main, startup)
@@ -7509,14 +7542,232 @@ def phase_measurement_stack(torch, workdir):
     finally:
         for k in ("PADDLE_TPU_OBS", "PADDLE_TPU_OBS_JOURNAL"):
             os.environ.pop(k, None)
+    program = trained[2]   # phase 26 D reads its attribution
     del trained
     torch.cuda.empty_cache()
     # C needs no journal file and no synchronous timing: the engine reads the
     # registry, the ledger the in-memory ring and spans
     c = _meas_serving(torch, pt, workdir)
     torch.cuda.empty_cache()
-    r = dict(a=a, b=b, c=c, d=d, seconds=time.perf_counter() - t0)
+    r = dict(a=a, b=b, c=c, d=d, program=program, seconds=time.perf_counter() - t0)
     emit("measurement_stack", seconds=r["seconds"])
+    return r
+
+
+ANALYSIS_BUDGET, ANALYSIS_TIGHT_BUDGET = "40G", "8G"   # B fits, C cannot
+ANALYSIS_REPLAYS = 5
+#: the band the JAX package's tests hold its planner to against XLA
+#: (tests/test_analysis_distributed.py:639-669); a ratio outside it is a
+#: finding to record, not a failure
+ANALYSIS_RATIO_BAND = (0.5, 2.0)
+
+
+def _analysis_programs(pt):
+    """A's programs, each as its phase builds it: (name, program, fetch names)."""
+    from paddle_tpu_torch.models.bert import BertConfig
+    from paddle_tpu_torch.tools import ocr
+    from paddle_tpu_torch.tools.train_profile import (BATCH, LR, MASKS_PER_SEQ, NMT_BATCH,
+                                                      NMT_LR, NMT_SEQ, SEQ, build_deepfm,
+                                                      build_pretrain, build_resnet50,
+                                                      build_transformer, transformer_config)
+    bert = build_pretrain(BertConfig(dtype="bfloat16", dropout=ATTN_DROPOUT), BATCH, SEQ,
+                          MASKS_PER_SEQ, LR, SEED)
+    resnet = build_resnet50()
+    nmt = build_transformer(transformer_config(), NMT_BATCH, NMT_SEQ, NMT_LR, SEED)
+    deepfm = build_deepfm()
+    yolo = _yolo_programs(pt)
+    crnn = ocr.build_crnn_ctc(pt, ocr.CRNN, seed=SEED)
+    return bert, [("bert-base pretrain B128 S128", bert[0], [bert[2].name]),
+                  ("resnet50 B dynamic 224", resnet[0], [resnet[2].name]),
+                  ("transformer-base B64 S64", nmt[0], [nmt[2].name]),
+                  ("deepfm B4096 1M rows", deepfm[0], [deepfm[2].name, deepfm[3].name]),
+                  ("yolov3 608 80 classes", yolo[0], [yolo[2].name]),
+                  ("crnn-ctc 48x512", crnn.main, [crnn.loss.name])]
+
+
+def _analysis_verify_zoo(pt, programs):
+    """A: each program verified with its fetches; zero errors."""
+    from collections import Counter
+    from paddle_tpu_torch import analysis
+    rows = []
+    for name, prog, fetch in programs:
+        t0 = time.perf_counter()
+        diags = analysis.verify(prog, fetch_names=fetch)
+        secs = time.perf_counter() - t0
+        rows.append(dict(program=name, ops=len(prog.global_block().ops),
+                         findings=dict(sorted(Counter(d.code for d in diags).items())),
+                         errors=[d.format() for d in diags if d.severity == "error"][:5],
+                         verify_s=secs))
+    emit("analysis_programs", rows=rows)
+    bad = [r for r in rows if r["errors"]]
+    if bad:
+        raise SystemExit(f"phase 26 A: error findings in {bad}")
+    return rows
+
+
+def _analysis_gate(torch, pt, bert):
+    """B and C: BERT-base under the gate with a budget it fits, then a fresh
+    copy of the program under one it cannot."""
+    from paddle_tpu_torch import analysis
+    from paddle_tpu_torch.core import cuda_build
+    from paddle_tpu_torch.models.bert import BertConfig
+    from paddle_tpu_torch.observability import REGISTRY, goodput, journal, timeline
+    from paddle_tpu_torch.tools.train_profile import BATCH, MASKS_PER_SEQ, SEQ, pretrain_feed
+    main, startup, total, _ = bert
+    cfg = BertConfig(dtype="bfloat16", dropout=ATTN_DROPOUT)
+    feed = pretrain_feed(np.random.RandomState(SEED), cfg, BATCH, SEQ, MASKS_PER_SEQ)
+    feed = {k: torch.from_numpy(v).cuda() for k, v in feed.items()}
+    label = f"{id(main)}:v{main._version}"
+    mine = lambda evs, p: [e for e in evs if e.get("program") == id(p)]  # noqa: E731
+    exe, scope = pt.Executor(), pt.Scope()
+    try:
+        with pt.scope_guard(scope):
+            exe.run(startup)
+            main._rng_run_counter = 0
+            os.environ.update(PADDLE_TPU_VALIDATE="raise", PADDLE_TPU_MEM_BUDGET=ANALYSIS_BUDGET)
+            with goodput.run_ledger() as led:
+                exe.run(main, feed=feed, fetch_list=[total], return_numpy=False)   # the miss
+                torch.cuda.synchronize()
+                events1 = len(mine(journal.recent(event="verify"), main))
+                spans1 = [s for s in timeline.spans("verify") if s[4]["program"] == id(main)]
+                for f in cuda_build.COUNTED:
+                    f.launches = 0
+                for _ in range(ANALYSIS_REPLAYS):   # the first captures, then each replays
+                    loss, = exe.run(main, feed=feed, fetch_list=[total])
+                torch.cuda.synchronize()
+                launches = {f.__name__: f.launches for f in cuda_build.COUNTED if f.launches}
+            events = mine(journal.recent(event="verify"), main)
+            spans = [s for s in timeline.spans("verify") if s[4]["program"] == id(main)]
+            captured = sum(1 for k, st in exe._cache.items()
+                           if k[0] == id(main) and st.graph is not None)
+            g = lambda n: REGISTRY.gauge(n, program=label).value  # noqa: E731
+            est = analysis.estimate_program_memory(main, feed_names=list(feed),
+                                                   fetch_names=[total.name])
+            report = led.report().to_dict()
+            b = dict(model=f"bert-base pretrain bf16 B{BATCH} S{SEQ} dropout {ATTN_DROPOUT} "
+                           f"Adam, captured, PADDLE_TPU_VALIDATE=raise "
+                           f"PADDLE_TPU_MEM_BUDGET={ANALYSIS_BUDGET}",
+                     replays=ANALYSIS_REPLAYS, loss=float(loss[0]),
+                     verify_events=len(events), verify_spans=len(spans),
+                     verify_events_after_miss=len(events) - events1,
+                     verify_spans_after_miss=len(spans) - len(spans1),
+                     verify_findings={k: events[0][k] for k in ("error", "warn", "info")}
+                     if events else None,
+                     verify_span_s=spans[0][3] if spans else None,
+                     ledger_verify_s=report["breakdown_seconds"]["verify"],
+                     launches=launches,
+                     launches_per_replay={k: v / ANALYSIS_REPLAYS for k, v in launches.items()},
+                     graphs_captured=captured,
+                     static_peak_bytes=g("program_static_peak_bytes"),
+                     estimate_bytes=est.peak_bytes, estimate=est.summary(3),
+                     argument_bytes=g("program_argument_bytes"),
+                     pool_bytes=g("program_peak_bytes"),
+                     static_peak_ratio=g("program_static_peak_ratio"),
+                     ratio_band=list(ANALYSIS_RATIO_BAND))
+            b["ratio_in_band"] = ANALYSIS_RATIO_BAND[0] <= b["static_peak_ratio"] \
+                <= ANALYSIS_RATIO_BAND[1]
+            emit("analysis_gate", **b)
+
+            # C: a fresh program (a copy of B's) under a budget the step cannot meet
+            fresh = main.clone()
+            before = {n: v.clone() for n, v in scope._vars.items()
+                      if isinstance(v, torch.Tensor)}
+            os.environ["PADDLE_TPU_MEM_BUDGET"] = ANALYSIS_TIGHT_BUDGET
+            for f in cuda_build.COUNTED:
+                f.launches = 0
+            raised = None
+            try:
+                exe.run(fresh, feed=feed, fetch_list=[total])
+            except analysis.VerificationError as e:
+                raised = e
+            torch.cuda.synchronize()
+            c_launches = {f.__name__: f.launches for f in cuda_build.COUNTED if f.launches}
+            after = {n: v for n, v in scope._vars.items() if isinstance(v, torch.Tensor)}
+            changed = sorted(n for n in set(before) | set(after)
+                             if n not in before or n not in after
+                             or not torch.equal(before[n], after[n]))
+            c = dict(budget=ANALYSIS_TIGHT_BUDGET,
+                     raised=type(raised).__name__ if raised is not None else None,
+                     codes=sorted({d.code for d in raised.diagnostics}) if raised else None,
+                     pt051=[d.message for d in raised.diagnostics
+                            if d.code == "PT051"][:1] if raised else None,
+                     launches=c_launches,
+                     cache_entries=sum(1 for k in exe._cache if k[0] == id(fresh)),
+                     state_tensors=len(before), state_changed=changed[:5])
+            emit("analysis_budget", **c)
+            del before, after
+    finally:
+        for k in ("PADDLE_TPU_VALIDATE", "PADDLE_TPU_MEM_BUDGET"):
+            os.environ.pop(k, None)
+        exe.close()
+    n_layers = cfg.n_layers
+    if (b["verify_events"], b["verify_spans"]) != (1, 1) or b["verify_events_after_miss"] \
+            or b["verify_spans_after_miss"]:
+        raise SystemExit(f"phase 26 B: verify events / spans {b}")
+    if not 0 < b["ledger_verify_s"] or abs(b["ledger_verify_s"] - b["verify_span_s"]) > 2e-6:
+        raise SystemExit(f"phase 26 B: the ledger's verify cause {b['ledger_verify_s']} s "
+                         f"against the span's {b['verify_span_s']} s")
+    per = b["launches_per_replay"]
+    if per.get("flash_attn_fwd") != n_layers or per.get("flash_attn_bwd") != n_layers \
+            or b["graphs_captured"] != 1:
+        raise SystemExit(f"phase 26 B: K1 launches a replay {per}, graphs {b['graphs_captured']}")
+    if b["static_peak_bytes"] != b["estimate_bytes"]:
+        raise SystemExit(f"phase 26 B: program_static_peak_bytes {b['static_peak_bytes']} "
+                         f"against the estimate {b['estimate_bytes']}")
+    if not (np.isfinite(b["static_peak_ratio"]) and b["static_peak_ratio"] > 0
+            and np.isfinite(b["loss"])):
+        raise SystemExit(f"phase 26 B: ratio {b['static_peak_ratio']}, loss {b['loss']}")
+    if c["raised"] != "VerificationError" or "PT051" not in c["codes"] or c["launches"] \
+            or c["cache_entries"] or c["state_changed"]:
+        raise SystemExit(f"phase 26 C: {c}")
+    return b, c
+
+
+def _analysis_layout_churn(program):
+    """D: PT060 over phase 25 B's attribution of the BERT warm-up."""
+    from paddle_tpu_torch import analysis
+    from paddle_tpu_torch.analysis import layout_churn
+    from paddle_tpu_torch.observability import attribution
+    attrib = attribution.lookup_program(program)
+    if attrib is None:
+        raise SystemExit("phase 26 D: phase 25 B's attribution is gone")
+    t0 = time.perf_counter()
+    diags = analysis.verify(program, passes=["layout_churn"])
+    secs = time.perf_counter() - t0
+    copy = sorted(((row["categories"].get("copy", 0.0), ir)
+                   for ir, row in attrib.per_ir.items()), reverse=True)
+    d = dict(attributed_device_ms=attrib.attributed_device_seconds * 1e3,
+             copy_ms=attrib.per_category.get("copy", {}).get("device_seconds", 0.0) * 1e3,
+             floor_ms=max(layout_churn.MIN_OP_SECONDS, layout_churn.MIN_OP_FRACTION
+                          * attrib.attributed_device_seconds) * 1e3,
+             top_copy_ops=[{"op": ir, "copy_ms": secs_ * 1e3} for secs_, ir in copy[:5]],
+             pt060=[{"op": attribution.ir_key(x.op_type, x.block_idx, x.op_idx),
+                     "message": x.message} for x in diags],
+             verify_s=secs)
+    emit("analysis_layout_churn", **d)
+    for x in diags:
+        ir = attribution.ir_key(x.op_type, x.block_idx, x.op_idx)
+        if x.code != "PT060" or ir not in attrib.per_ir or \
+                program.blocks[x.block_idx].ops[x.op_idx].type != x.op_type:
+            raise SystemExit(f"phase 26 D: {x.format()} names no attributed op")
+    return d
+
+
+def phase_analysis(torch, bert_program):
+    """Phase 26: the static verifier on the full-width programs (A), BERT-base
+    under the gate (B), a budget it cannot meet (C), and PT060 over phase 25
+    B's attribution of ``bert_program`` (D; skipped when None)."""
+    import paddle_tpu_torch as pt
+    t0 = time.perf_counter()
+    bert, programs = _analysis_programs(pt)
+    a = _analysis_verify_zoo(pt, programs)
+    del programs
+    b, c = _analysis_gate(torch, pt, bert)
+    del bert
+    torch.cuda.empty_cache()
+    d = _analysis_layout_churn(bert_program) if bert_program is not None else None
+    r = dict(a=a, b=b, c=c, d=d, seconds=time.perf_counter() - t0)
+    emit("analysis", seconds=r["seconds"])
     return r
 
 
@@ -7677,8 +7928,11 @@ def main() -> int:
         meas = timed_phase("measurement_stack", phase_measurement_stack, torch, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    an = timed_phase("analysis", phase_analysis, torch, meas.pop("program"))
     os.remove(tune_cache)
     meas_l = meas["a"]["launches"]
+    an_l = an["b"]["launches"]
     tier_l = {"tuner_search": tier["tuner_launches"],
               "serving_pool": tier["pool"]["traffic"]["launches"]}
     q64_serve = next(r for r in tier["tiles"] if r["shape"] == [8, 12, 512, 64]
@@ -7715,7 +7969,8 @@ def main() -> int:
                      **{k: opt_l[k]["dropout_fwd"] for k in ("lamb_bert_training",
                                                              "recompute_lamb_bert_training")},
                      **{k: v["dropout_fwd"] for k, v in surf_l.items()},
-                     "measurement_stack_training": meas_l.get("dropout_fwd", 0)}
+                     "measurement_stack_training": meas_l.get("dropout_fwd", 0),
+                     "analysis_gate_training": an_l.get("dropout_fwd", 0)}
     # multi_tensor_update's calls by path, each path's kind, and each kind's launches
     mt_calls = {"training": ("adam", train_launches["multi_tensor_update"]),
                 "resnet50_training": ("momentum", resnet_launches["multi_tensor_update"]),
@@ -7753,6 +8008,7 @@ def main() -> int:
                    for r in det["small"]},
                 "measurement_stack_training":
                     ("adam", meas["a"]["launches"].get("multi_tensor_update", 0)),
+                "analysis_gate_training": ("adam", an_l.get("multi_tensor_update", 0)),
                 **{f"ocr_crnn_training_{p}":
                    ("momentum", ocr_res["train"]["multi_tensor_update_launches"][p]
                     .get("multi_tensor_update", 0)) for p in ("graph", "eager")}}
@@ -7782,7 +8038,7 @@ def main() -> int:
                       + opt_l["recompute_lamb_bert_training"]["flash_attn_fwd"]
                       + surf_l["pipeline_bert_training"]["flash_attn_fwd"]
                       + sum(v.get("flash_attn_fwd", 0) for v in tier_l.values())
-                      + meas_l["flash_attn_fwd"]),
+                      + meas_l["flash_attn_fwd"] + an_l["flash_attn_fwd"]),
          "launches_by_path": {"serving": serve_launches["flash_attn_fwd"],
                               "int8_serving": int8_launches["flash_attn_fwd"],
                               "training": train_launches["flash_attn_fwd"],
@@ -7794,7 +8050,8 @@ def main() -> int:
                               "pipeline_bert_training":
                                   surf_l["pipeline_bert_training"]["flash_attn_fwd"],
                               **{k: v.get("flash_attn_fwd", 0) for k, v in tier_l.items()},
-                              "measurement_stack_training": meas_l["flash_attn_fwd"]},
+                              "measurement_stack_training": meas_l["flash_attn_fwd"],
+                              "analysis_gate_training": an_l["flash_attn_fwd"]},
          "max_abs_err": fwd_err, **{k: train_fwd[k] for k in keys},
          "serving_tile_128_ms": q128_tiles,
          "shape": "B128 H12 S128 D64 bf16, bias, dropout 0.1, LSE (the training path)",
@@ -7825,7 +8082,7 @@ def main() -> int:
                       + opt_l["lamb_bert_training"]["flash_attn_bwd"]
                       + opt_l["recompute_lamb_bert_training"]["flash_attn_bwd"]
                       + surf_l["pipeline_bert_training"]["flash_attn_bwd"]
-                      + meas_l["flash_attn_bwd"]),
+                      + meas_l["flash_attn_bwd"] + an_l["flash_attn_bwd"]),
          "launches_by_path": {"training": train_launches["flash_attn_bwd"],
                               "scheduled_bert_training":
                                   sched_l["scheduled_bert_training"]["flash_attn_bwd"],
@@ -7834,7 +8091,8 @@ def main() -> int:
                                   opt_l["recompute_lamb_bert_training"]["flash_attn_bwd"],
                               "pipeline_bert_training":
                                   surf_l["pipeline_bert_training"]["flash_attn_bwd"],
-                              "measurement_stack_training": meas_l["flash_attn_bwd"]},
+                              "measurement_stack_training": meas_l["flash_attn_bwd"],
+                              "analysis_gate_training": an_l["flash_attn_bwd"]},
          "max_abs_err": bwd_err,
          **{k: train_bwd[k] for k in keys},
          "shape": "B128 H12 S128 D64 bf16, bias, dropout 0.1 (the training path)",
@@ -8044,6 +8302,15 @@ def main() -> int:
             "attributed_device_fraction": meas["b"]["attributed_device_fraction"],
             "slo_transitions": [t["active"] for t in meas["c"]["transitions"]],
             "profiler_k1_kernels": meas["d"]["k1_kernels"], "seconds": meas["seconds"]},
+        "analysis": {
+            "programs": {r["program"]: {"ops": r["ops"], "findings": r["findings"],
+                                        "verify_s": r["verify_s"]} for r in an["a"]},
+            "gate_verify_span_s": an["b"]["verify_span_s"],
+            "static_peak_bytes": an["b"]["static_peak_bytes"],
+            "argument_bytes": an["b"]["argument_bytes"], "pool_bytes": an["b"]["pool_bytes"],
+            "static_peak_ratio": an["b"]["static_peak_ratio"],
+            "budget_refusal": an["c"]["codes"],
+            "pt060": [x["op"] for x in an["d"]["pt060"]], "seconds": an["seconds"]},
         "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

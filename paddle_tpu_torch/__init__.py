@@ -40,5 +40,6 @@ from . import flags  # noqa: F401
 from .flags import get_flag, set_flags  # noqa: F401
 from . import observability  # noqa: F401
 from . import profiler  # noqa: F401
+from . import analysis  # noqa: F401  (static verifier: analysis.verify, the CLI)
 
 __version__ = "0.1.0"

@@ -576,7 +576,8 @@ class _StepRun(collections.namedtuple("_StepRun", "fetches replayed key miss cap
 
 #: per-program gauges, retired with the last cache entry of their label
 _PROGRAM_GAUGES = ("program_flops", "program_flops_per_sec", "program_mfu",
-                   "program_peak_bytes", "program_argument_bytes", "program_output_bytes")
+                   "program_peak_bytes", "program_argument_bytes", "program_output_bytes",
+                   "program_static_peak_bytes", "program_static_peak_ratio")
 
 
 def _retire_program_gauges_if_dead(prog_id, version) -> None:
@@ -591,6 +592,18 @@ def _retire_program_gauges_if_dead(prog_id, version) -> None:
     for g in _PROGRAM_GAUGES:
         _OBS.remove_labeled(g, program=label)
     _attrib.retire_program(label)
+
+
+def refuse_warmstore(where: str) -> None:
+    """``PADDLE_TPU_WARMSTORE`` names the JAX package's warm store of
+    compiled executables, which the port does not have: when it is set,
+    ``where`` (the executor's or the Predictor's signature miss) raises
+    rather than silently ignoring it."""
+    import os
+    if os.environ.get("PADDLE_TPU_WARMSTORE"):
+        raise NotImplementedError(
+            f"{where}: PADDLE_TPU_WARMSTORE is set, but the warm store (warmstore/) "
+            f"is not ported (ROADMAP item 12 (b))")
 
 
 def _feed_batch(program: Program, feeds: Dict[str, torch.Tensor]) -> int:
@@ -645,6 +658,78 @@ class Executor:
         # the run counter on the card for eager runs (graphs have their own)
         self._counter = (torch.zeros((1,), dtype=torch.int64, device=self.device)
                          if self.device.type == "cuda" else None)
+        # (program id, version, run intent) -> (program, findings) of the gate
+        self._verified: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
+
+    def _maybe_verify(self, program: Program, feed_names, fetch_names, feed_shapes=None,
+                      fuse_k=None) -> None:
+        """The ``PADDLE_TPU_VALIDATE=off|warn|raise`` gate, called only at a
+        signature's miss, before its warm-up and its capture (default off:
+        unset costs one environment read a miss, nothing a replay).
+        Findings go to the journal and the metrics either way; ``warn``
+        warns of them, ``raise`` raises on errors before any kernel is
+        launched. ``PADDLE_TPU_MEM_BUDGET`` (bytes, K/M/G/T suffixes) adds
+        the static peak-memory planner (PT05x) with the batch read off the
+        feed shapes; a budget alone arms the gate in warn mode, and a typo
+        in either variable raises. A program is verified once per version
+        and intent; a retry of a failing program (which never reaches the
+        cache of steps) re-raises from the memo."""
+        import os
+        mode = _journal.mode_env("PADDLE_TPU_VALIDATE")
+        budget_raw = os.environ.get("PADDLE_TPU_MEM_BUDGET")
+        if mode == "off" and not budget_raw:
+            return
+        from .. import analysis
+        mem_budget = None
+        if budget_raw:
+            try:
+                mem_budget = analysis.parse_bytes(budget_raw)
+            except ValueError:
+                raise ValueError(
+                    f"PADDLE_TPU_MEM_BUDGET={budget_raw!r} is not a byte count (use an "
+                    f"int or a K/M/G/T suffix)") from None
+        if mode == "off":
+            # an exported budget must never be silently inert
+            mode = "warn"
+        # the batch matters only to the memory planner: without a budget a
+        # new feed shape must not re-verify
+        batch = (analysis.infer_batch(program, feed_shapes)
+                 if feed_shapes and mem_budget is not None else None)
+        vkey = (id(program), program._version, tuple(sorted(feed_names)),
+                tuple(fetch_names), mem_budget, batch, fuse_k)
+        prev = self._verified.get(vkey)
+        if prev is not None and prev[0] is program:
+            diags = prev[1]
+            counts = analysis.count_by_severity(diags)
+        else:
+            t0 = time.perf_counter()
+            diags = analysis.verify(program, feed_names=feed_names, fetch_names=fetch_names,
+                                    mem_budget=mem_budget, batch=batch, fuse_k=fuse_k)
+            # a miss-path span (never per step): the goodput ledger's verify cause
+            _timeline.record_span("verify", t0, time.perf_counter() - t0,
+                                  program=id(program))
+            self._verified[vkey] = (program, diags)
+            while len(self._verified) > self._CACHE_CAP:
+                self._verified.popitem(last=False)
+            counts = analysis.count_by_severity(diags)
+            for sev, n in counts.items():
+                if n:
+                    _OBS.counter("verifier_findings_total",
+                                 "static-analysis findings by severity", severity=sev).inc(n)
+            _journal.emit({"event": "verify", "program": id(program),
+                           "version": program._version, "mode": mode, **counts,
+                           "findings": [d.to_dict() for d in diags[:50]]})
+        errors = [d for d in diags if d.severity == analysis.Severity.ERROR]
+        if mode == "raise" and errors:
+            raise analysis.VerificationError(
+                "program verification failed (PADDLE_TPU_VALIDATE=raise):\n"
+                + analysis.format_diagnostics(errors, with_stack=True), diags)
+        if counts["error"] or counts["warn"]:   # info stays in the journal
+            warnings.warn(f"paddle_tpu_torch verifier: {counts['error']} error(s), "
+                          f"{counts['warn']} warning(s) in program "
+                          f"{id(program)}:v{program._version}:\n"
+                          + analysis.format_diagnostics(diags, with_stack=False),
+                          stacklevel=4)
 
     @staticmethod
     def _state_names(program: Program, feed: dict, fetch_names=()):
@@ -919,7 +1004,7 @@ class Executor:
         with self._run_event(program):
             for i, step in enumerate(steps):
                 feeds_t = {n: as_tensor(v, self.device) for n, v in step.items()}
-                r = self._run_step(program, feeds_t, fetch_names, scope, counter0 + i)
+                r = self._run_step(program, feeds_t, fetch_names, scope, counter0 + i, k)
                 miss, capture = miss or r.miss, r.capture or capture
                 if i == 0:
                     stacked = [f.new_empty((k,) + tuple(f.shape)) for f in r.fetches]
@@ -1343,8 +1428,9 @@ class Executor:
 
     # ---------------------------------------------------------------- one step
 
-    def _run_step(self, program, feeds, fetch_names, scope, counter) -> _StepRun:
-        """One step, through the cache of steps (``_StepRun``)."""
+    def _run_step(self, program, feeds, fetch_names, scope, counter, fuse_k=None) -> _StepRun:
+        """One step, through the cache of steps (``_StepRun``). A miss is
+        verified first (``_maybe_verify``; ``fuse_k`` is ``run_fused``'s K)."""
         seed = program.random_seed if program.random_seed is not None else 0
         sig = tuple(sorted((k, tuple(t.shape), str(t.dtype)) for k, t in feeds.items()))
         captures = self._captures()
@@ -1356,6 +1442,11 @@ class Executor:
             key = (id(program), program._version, sig, tuple(fetch_names), seed, id(scope))
         step = self._cache.get(key)
         if step is None:
+            refuse_warmstore("Executor.run")
+            # before the step enters the cache: a program that fails the gate
+            # is a miss again on its retry, and raises again
+            self._maybe_verify(program, list(feeds), fetch_names,
+                               {k: tuple(t.shape) for k, t in feeds.items()}, fuse_k)
             step = self._cache[key] = _Step(capture_refusal(program) if captures
                                             else "CUDA graphs are off (the CPU, or "
                                                  "_use_graphs False)")
@@ -1388,6 +1479,9 @@ class Executor:
                     feeds.values(), (scope.find_var(n) for n in
                                      self._state_names(program, feeds, fetch_names)[0]))),
                 _memory.tensor_bytes(out))
+            if step.refusal is not None:
+                # not captured: the static estimate's one time for this signature
+                self._static_memory(program, feeds, fetch_names, label)
             _memory.sample_device_memory("compile", self.device, scope)
             self._last_miss = {"program": label, "feeds": {k: list(t.shape) for k, t in
                                                            feeds.items()},
@@ -1425,11 +1519,20 @@ class Executor:
         for n, t in written.items():
             scope.set_var(n, t.clone())
         if capture is not None:
-            _memory.update_program_memory_gauges(
+            parts = _memory.update_program_memory_gauges(
                 label, _memory.tensor_bytes(itertools.chain(step.state.values(),
                                                             step.feeds.values())),
                 _memory.tensor_bytes(fetches), step.graph.memory_bytes)
+            self._static_memory(program, feeds, fetch_names, label, parts)
         return _StepRun(fetches, True, key, capture is not None, capture, None)
+
+    @staticmethod
+    def _static_memory(program, feeds, fetch_names, label, parts=None) -> None:
+        """``program_static_peak_bytes`` (and, beside a capture's ``parts``,
+        its ratio), once a signature."""
+        _memory.update_static_memory_gauges(
+            program, {k: tuple(t.shape) for k, t in feeds.items()}, list(feeds),
+            fetch_names, label, parts)
 
     def _drop(self, key) -> None:
         """Evict a cache entry with its anomaly windows and, when no live

@@ -8,7 +8,11 @@ captures ``fn`` into one CUDA graph with a memory pool of its own: the
 device is synchronised and the allocator's cache emptied first, so that
 what the capture reserves is its pool (``memory_bytes``), and the capture
 runs in ``thread_local`` mode, so that another thread launching work of its
-own meanwhile does not break it. ``Graph.replay()`` launches the graph.
+own meanwhile does not break it. The cyclic garbage collector is off
+during a capture: a collection there may free an older graph that an
+executor left in a reference cycle, and destroying a CUDA graph while a
+stream captures invalidates the capture. ``Graph.replay()`` launches the
+graph.
 
 The kernel wrappers' ``launches`` are host counters that a replay does not
 move, so the capture's launches are taken back off them and added again on
@@ -26,6 +30,8 @@ raises: nothing runs eagerly instead.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import threading
 from typing import Callable, Dict, List
 
@@ -34,6 +40,27 @@ import torch
 from . import cuda_build
 
 _tls = threading.local()
+_gc_lock = threading.Lock()
+_gc_state = {"captures": 0, "was_enabled": False}
+
+
+@contextlib.contextmanager
+def no_collection():
+    """The cyclic garbage collector off while any thread is inside (the
+    captures of several threads overlap): it is enabled again, if it was
+    on, when the last one leaves."""
+    with _gc_lock:
+        if _gc_state["captures"] == 0:
+            _gc_state["was_enabled"] = gc.isenabled()
+            gc.disable()
+        _gc_state["captures"] += 1
+    try:
+        yield
+    finally:
+        with _gc_lock:
+            _gc_state["captures"] -= 1
+            if _gc_state["captures"] == 0 and _gc_state["was_enabled"]:
+                gc.enable()
 
 
 def hold(t: torch.Tensor) -> None:
@@ -72,7 +99,7 @@ class Graph:
         # not break this capture (the capturing thread's own syncs still do)
         capture = torch.cuda.graph(self.graph, pool=torch.cuda.graph_pool_handle(),
                                    capture_error_mode="thread_local")
-        with cuda_build.stream_launches(capture.capture_stream) as mine:
+        with no_collection(), cuda_build.stream_launches(capture.capture_stream) as mine:
             try:
                 with capture:
                     self.outputs = fn()

@@ -251,6 +251,15 @@ def get(type: str) -> OpDef:
         f"({len(_REGISTRY)} ops registered); the port does not have it yet")
 
 
+def is_registered(type: str) -> bool:
+    """Whether ``get(type)`` finds a lowering (a generic grad op included)."""
+    try:
+        get(type)
+        return True
+    except KeyError:
+        return False
+
+
 # --------------------------------------------------------------------------------------
 # Generic autograd-based grad op
 # --------------------------------------------------------------------------------------

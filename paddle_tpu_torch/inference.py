@@ -48,8 +48,8 @@ import numpy as np
 import torch
 
 from .core import graphs
-from .core.executor import (Scope, SubBlockRunner, as_tensor, resolve_device, scope_guard,
-                            to_numpy, trace_block)
+from .core.executor import (Scope, SubBlockRunner, as_tensor, refuse_warmstore,
+                            resolve_device, scope_guard, to_numpy, trace_block)
 from .core.registry import torch_dtype
 from .framework import Program
 from .observability import attribution as _attrib
@@ -291,6 +291,7 @@ class Predictor:
             if exe is not None:
                 self._count("hit")
                 return exe, False
+            refuse_warmstore("Predictor.run")
             self._count("miss")
             state = self._state_for(dtype)
             if self.device.type == "cuda":

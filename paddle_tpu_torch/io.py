@@ -106,6 +106,15 @@ def _save_var(dirname, name, value):
     return _write_snap(dirname, _snapshot_var(name, value, copy=False))[0]
 
 
+def _verify_on_load() -> bool:
+    """Check each chunk's size and crc32 against the manifest on load? On by
+    default; ``PADDLE_TPU_CKPT_VERIFY=0`` turns it off, as in the JAX
+    package. A value other than a 0/1 toggle raises."""
+    from .observability.journal import mode_env
+    return mode_env("PADDLE_TPU_CKPT_VERIFY", modes=("off", "on"),
+                    default="on", truthy="on") == "on"
+
+
 def _load_var(dirname, meta) -> torch.Tensor:
     chunks = meta["chunks"]
     shape = [int(s) for s in meta["shape"]]
@@ -118,6 +127,8 @@ def _load_var(dirname, meta) -> torch.Tensor:
     with open(path, "rb") as f:
         data = f.read()
     want, crc = ch.get("bytes"), ch.get("crc32")
+    if not _verify_on_load():
+        want = crc = None
     kind = None
     if want is not None and len(data) != want:
         kind, detail = "size", f"{len(data)} bytes, manifest says {want}"

@@ -13,6 +13,9 @@ port's copy of ``paddle_tpu/observability/memory.py``).
   its outputs), ``program_argument_bytes`` (the state and the feeds it
   reads) and ``program_output_bytes`` (its fetches), per program label. On
   the CPU there is no pool, and only the argument and output bytes are set.
+- The static estimate beside it (``update_static_memory_gauges``):
+  ``program_static_peak_bytes`` and, at a capture,
+  ``program_static_peak_ratio``.
 
 The executor samples at a step's first run and then every K steps
 (``PADDLE_TPU_OBS_MEM_INTERVAL``, default 10) while ``PADDLE_TPU_OBS`` is
@@ -113,11 +116,36 @@ def update_program_memory_gauges(program: str, argument_bytes: float,
 
 
 def update_static_memory_gauges(program_ir, feed_shapes, feed_names, fetch_names,
-                                strategy, program: str,
+                                program: str,
                                 parts: Optional[Dict[str, float]] = None,
                                 registry: Optional[MetricsRegistry] = None):
-    """The JAX package's static peak-memory estimate needs its liveness
-    planner, ``analysis/memplan.py``, which is not ported (``analysis/`` is
-    the rest of ROADMAP item 12). Returns None, as the JAX function does
-    when its planner fails, and sets no gauge."""
-    return None
+    """Set the *static* peak-memory estimate gauge,
+    ``program_static_peak_bytes`` (``analysis/memplan.py``: liveness over the
+    IR, in-place state counted once), and, when ``parts`` holds a captured
+    step's ``argument_bytes`` and graph pool ``peak_bytes``,
+    ``program_static_peak_ratio``: the estimate over their sum (the pool
+    holds the step's intermediates and outputs, the arguments lie outside
+    it), so the planner's accuracy is itself observable. The executor calls
+    it once a signature: at its capture, or at its first run when it is not
+    captured. Returns the MemEstimate, or None when the estimate fails
+    (never raises into the step)."""
+    registry = registry or REGISTRY
+    try:
+        from ..analysis import memplan
+        batch = (memplan.infer_batch(program_ir, feed_shapes)
+                 if feed_shapes else None)
+        est = memplan.estimate_program_memory(
+            program_ir, feed_names=feed_names, fetch_names=fetch_names, batch=batch)
+    except Exception:
+        return None
+    registry.gauge("program_static_peak_bytes",
+                   "static liveness-based peak-memory estimate of the step "
+                   "(analysis/memplan.py)", program=program).set(float(est.peak_bytes))
+    if parts and parts.get("peak_bytes"):
+        footprint = parts.get("argument_bytes", 0.0) + parts["peak_bytes"]
+        registry.gauge("program_static_peak_ratio",
+                       "static estimate / (program_argument_bytes + "
+                       "program_peak_bytes): the captured step's arguments "
+                       "plus its CUDA graph pool (1.0 = planner exact)",
+                       program=program).set(float(est.peak_bytes) / footprint)
+    return est

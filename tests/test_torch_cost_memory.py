@@ -105,7 +105,7 @@ def test_memory_helpers():
     parts = memory.update_program_memory_gauges("p:v0", 8, 4, pool_bytes=None)
     assert parts == {"argument_bytes": 8.0, "output_bytes": 4.0}
     assert memory.update_program_memory_gauges("p:v0", 8, 4, 100)["peak_bytes"] == 100.0
-    assert memory.update_static_memory_gauges(None, None, [], [], None, "p:v0") is None
+    assert memory.update_static_memory_gauges(None, None, [], [], "p:v0") is None
 
 
 def test_flags_equal_jax_for_the_shared_flags(monkeypatch):

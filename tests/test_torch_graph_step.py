@@ -468,3 +468,58 @@ def test_a_capture_counts_only_the_launches_on_its_stream(monkeypatch):
     g.replay()
     assert wrapper.launches == 36
     assert not cuda_build._tallies
+
+
+def test_the_collector_is_off_during_a_capture(monkeypatch):
+    """A cyclic collection inside a capture can destroy an older CUDA graph
+    that an executor left in a reference cycle, which invalidates the
+    capture: ``graphs.Graph`` keeps the collector off while it captures
+    (with the card's calls stood in), overlapping captures of two threads
+    included, and turns it back on after the last, only if it was on."""
+    import gc
+    import threading
+    from paddle_tpu_torch.core import graphs
+
+    class _Capture:
+        capture_stream = type("S", (), {"cuda_stream": 2})()
+
+        def __init__(self, *a, **k):
+            pass
+
+        def __enter__(self):
+            pass
+
+        def __exit__(self, *exc):
+            pass
+
+    for name, value in [("synchronize", lambda *a: None), ("empty_cache", lambda: None),
+                        ("memory_reserved", lambda *a: 0), ("CUDAGraph", object),
+                        ("graph_pool_handle", lambda: None), ("graph", _Capture)]:
+        monkeypatch.setattr(torch.cuda, name, value)
+    seen, inside, release = [], threading.Barrier(2), threading.Event()
+
+    def other():
+        with graphs.no_collection():
+            inside.wait()
+            assert release.wait(10)
+            seen.append(gc.isenabled())
+
+    def capture_fn():
+        inside.wait()                          # the other thread's capture overlaps this one
+        seen.append(gc.isenabled())
+        return []
+
+    assert gc.isenabled()
+    t = threading.Thread(target=other)
+    t.start()
+    graphs.Graph(torch.device("cpu"), capture_fn)
+    seen.append(gc.isenabled())                # this capture ended, the other has not
+    release.set()
+    t.join()
+    assert seen == [False, False, False] and gc.isenabled()
+    gc.disable()
+    try:
+        graphs.Graph(torch.device("cpu"), lambda: [])
+        assert not gc.isenabled()
+    finally:
+        gc.enable()

@@ -15,9 +15,10 @@ BERT-base to concurrent clients through ``PredictorPool``, train and serve
 YOLOv3 at 608 x 608 and the three other detectors, train and serve
 CRNN-CTC, and measure BERT-base's training and serving with the port's
 measurement stack (goodput, MFU, memory, the anomaly detector, per-op
-attribution, SLO alerts, ``fluid.profiler``) through the PyTorch/CUDA
-port on one NVIDIA GPU, and hold its CUDA kernels against their plain
-PyTorch versions.
+attribution, SLO alerts, ``fluid.profiler``), and restart a BERT-base
+serving replica cold and warm through the warm store, through the
+PyTorch/CUDA port on one NVIDIA GPU, and hold its CUDA kernels against
+their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -462,6 +463,35 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    finding names an op the attribution holds. Alone (D needs phase 25's
    program, and is skipped): ``mkdir -p build; python3 -c "import torch,
    chip_smoke as cs; cs.phase_build(); cs.phase_analysis(torch, None)"``;
+11f. phase 27, the warm store (``paddle_tpu_torch/warmstore/``) and the
+   fluid helpers. A: phase 4's BERT-base (bf16) served by a
+   ``PredictorPool`` (max_batch 8) in a child process started from a fresh
+   copy of the checkout (no ``csrc/build``) with ``PADDLE_TPU_WARMSTORE`` at
+   a new root: cold (an empty store), then warm (the store the cold child
+   wrote), each timed by part (import, model load, ``nvcc``, each bucket's
+   eager first run and capture, the first answer). Held: the warm child
+   runs no ``nvcc`` and restores each kernel from tier A under a passing
+   probe verdict; both capture every bucket, K1-fwd 12 launches a replay;
+   each bucket's output byte-equal between the children and this process's
+   ``Predictor``; ``warmstore verify`` rc 0. Then, in a copy of that store,
+   the library is corrupted by ``faults.mutate_warmstore``: a third child
+   quarantines it, builds the kernel with ``nvcc`` from the sources and
+   answers byte-equal.
+   B: ``install_check.run_check()`` on the card (``multi_tensor_update``'s
+   ``sgd`` kind) and ``nets.scaled_dot_product_attention`` at B 8, S 512,
+   768 wide, 12 heads, f32, against the program's plain route (the composed
+   attention), K1-fwd launched once. The cold child starts right after
+   phase 4 saves its model and runs beside phases 7 on (its ``nvcc`` is
+   host work); after phase 11 its store is copied, the copy's library
+   corrupted, and the third child starts beside phases 13 on; phase 27
+   runs the warm child alone on the card, then the reference outputs and
+   B. The children run with the tuner off (``PADDLE_TPU_TUNE=off``), so
+   they key the same steps whatever phases 7-26 decided. Alone (after
+   phase 4's model is saved): ``python3 -c "import torch, chip_smoke as cs;
+   cs.phase_warm_start(torch, cs.start_fault_child(cs.start_cold_child(
+   MODEL_DIR)))"``;
+   a child:
+   ``python3 chip_smoke.py --warm-start-child MODEL_DIR OUT_DIR``;
 12. the kernels line (``multi_tensor_update`` with its five kinds, each
    with its launches; K1-fwd's 64-row tile as ``flash_attn_fwd_q64``),
    then the result line.
@@ -7770,6 +7800,315 @@ def phase_analysis(torch, bert_program):
     emit("analysis", seconds=r["seconds"])
     return r
 
+# ---------------------------------------------------------------------------------------
+# phase 27: the warm store (a BERT-base replica restarted cold and warm) and the helpers
+# ---------------------------------------------------------------------------------------
+
+#: the pool's pow2 buckets (max_batch 8) and phase 4's first request's sequence length
+WARM_BUCKETS = (1, 2, 4, 8)
+WARM_SEQ = BERT_REQUESTS[0][1]
+#: nets.scaled_dot_product_attention at BERT-base's width, f32 (K1-fwd's f32 kernel
+#: against the program's plain route, the composed attention: ATOL["float32"])
+NETS_ATTN = dict(batch=8, seq=512, width=768, heads=12)
+
+
+def _checkout_copy(dest):
+    """The package and this script, copied without any build (``csrc/build``,
+    ``native/build``): what a fresh checkout holds."""
+    ignore = shutil.ignore_patterns("build", "__pycache__", "*.pyc")
+    shutil.copytree(os.path.join(REPO, "paddle_tpu_torch"),
+                    os.path.join(dest, "paddle_tpu_torch"), ignore=ignore)
+    shutil.copy2(os.path.join(REPO, "chip_smoke.py"), dest)
+    return dest
+
+
+def warm_start_child(model_dir, out_dir) -> int:
+    """One serving replica's start, timed by part (run as ``chip_smoke.py
+    --warm-start-child MODEL_DIR OUT_DIR`` from a fresh copy, with
+    ``PADDLE_TPU_WARMSTORE`` set): import, a ``PredictorPool`` over
+    phase 4's model (the model load), ``warmup`` over the buckets (the
+    store's scan, each bucket's eager first run and capture, the kernels'
+    builds or restores), the first answer; then each bucket's output to
+    ``OUT_DIR``, and a JSON line."""
+    t0 = time.perf_counter()
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import cuda_build
+    from paddle_tpu_torch.observability.metrics import REGISTRY
+    from paddle_tpu_torch.ops import flash_attention
+    from paddle_tpu_torch.serving import PredictorPool
+    from paddle_tpu_torch.tools.serving_profile import bert_feed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.init()
+    import_s = time.perf_counter() - t0
+    t = time.perf_counter()
+    pool = PredictorPool(model_dir, size=1, max_batch=max(WARM_BUCKETS), max_wait_ms=2.0)
+    load_s = time.perf_counter() - t
+    pred = pool._predictors[0]
+    feed = bert_feed(np.random.RandomState(SEED + 27), 1, WARM_SEQ,
+                     pt.models.bert.BertConfig().vocab_size)
+    t = time.perf_counter()
+    warmed = pool.warmup(feed)
+    warmup_s = time.perf_counter() - t
+    t = time.perf_counter()
+    first = pool.run(feed)[0]
+    first_s = time.perf_counter() - t
+    ttfa_s = time.perf_counter() - t0
+    buckets = []
+    k1 = (flash_attention.flash_attn_fwd, flash_attention.flash_attn_fwd_q64)
+    for sig, exe in pred._compiled.items():
+        b = int(sig[1][1][0])
+        f = {k: np.repeat(v[:1], b, axis=0) for k, v in feed.items()}
+        out = pred.run(f, dtype=sig[0])[0]
+        np.save(os.path.join(out_dir, f"b{b}.npy"), out)
+        if b == 1:
+            np.save(os.path.join(out_dir, "first.npy"), first)
+        buckets.append(dict(batch=b, warm_up_s=exe.warm_up_s, capture_s=exe.capture_s,
+                            k1_launches_per_replay=sum(exe.launches.get(w, 0) for w in k1),
+                            graph_pool_bytes=exe.memory_bytes))
+    pool.close(drain_timeout=10.0)
+    from paddle_tpu_torch import warmstore
+    from paddle_tpu_torch.warmstore import probe
+    t = time.perf_counter()
+    flushed = warmstore.flush(300.0)
+    flush_s = time.perf_counter() - t
+    store = warmstore.active_store()
+    v = probe.verdict(cache_dir=store.probe_dir)
+
+    def counter(name):
+        fam = REGISTRY.get(name)
+        return {} if fam is None else {",".join(f"{k}={x}" for k, x in lbl) or "all": c.value
+                                       for lbl, c in fam.items()}
+    print(json.dumps({"warm_start_child": dict(
+        total_s=time.perf_counter() - t0, import_s=import_s, model_load_s=load_s, warmup_s=warmup_s, first_answer_s=first_s,
+        time_to_first_answer_s=ttfa_s, flush_s=flush_s, flushed=flushed, warmed=warmed,
+        nvcc=cuda_build.stats["nvcc"], nvcc_s=cuda_build.stats["nvcc_s"],
+        restored=cuda_build.stats["restored"], restore_s=cuda_build.stats["restore_s"],
+        buckets=sorted(buckets, key=lambda r: r["batch"]),
+        captures=sum(1 for e in pred._compiled.values() if hasattr(e, "capture_s")),
+        verdict=dict(tier_a=v.tier_a, source=v.source, reason=v.reason),
+        hits=counter("warmstore_hits_total"), misses=counter("warmstore_misses_total"),
+        quarantined=counter("warmstore_quarantined_total"), kernels=sorted(cuda_build._loaded),
+        probes_spawned=probe.SPAWNS)}), flush=True)
+    return 0
+
+
+class WarmChild:
+    """A serving replica started in a child process from a fresh copy of the
+    checkout with the store at ``store`` armed (``warm_start_child``);
+    ``result()`` waits for it and returns (its report, outputs, wall
+    seconds). Its failure fails the phase; a child still running when this
+    script exits is killed."""
+
+    def __init__(self, label, model_dir, store, workdir):
+        self.label = label
+        copy = _checkout_copy(os.path.join(workdir, f"checkout_{label}"))
+        self.out_dir = os.path.join(workdir, f"out_{label}")
+        os.makedirs(self.out_dir)
+        # the tuner off: the children key the same steps whatever the phases
+        # between them decided
+        env = dict(os.environ, PADDLE_TPU_WARMSTORE=store, PADDLE_TPU_TUNE="off")
+        env.pop("PADDLE_TPU_WARMSTORE_PROBE", None)
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.join(copy, "chip_smoke.py"), "--warm-start-child",
+             model_dir, self.out_dir], cwd=copy, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        atexit.register(self._kill)
+
+    def _kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def result(self):
+        stdout, stderr = self.proc.communicate(timeout=600)
+        if self.proc.returncode != 0:
+            raise SystemExit(f"warm-start child {self.label} exited {self.proc.returncode}:\n"
+                             f"{stdout[-4000:]}\n{stderr[-4000:]}")
+        report = next(json.loads(ln)["warm_start_child"] for ln in stdout.splitlines()
+                      if ln.startswith('{"warm_start_child"'))
+        outs = {b: np.load(os.path.join(self.out_dir, f"b{b}.npy")) for b in WARM_BUCKETS}
+        outs["first"] = np.load(os.path.join(self.out_dir, "first.npy"))
+        emit("warm_start_child", child=self.label, **report)
+        return report, outs
+
+
+def start_cold_child(model_dir):
+    """Phase 27's cold start, begun right after phase 4 saves its model: an
+    empty store under ``build/``, the child run beside phases 7 on (its
+    ``nvcc`` is host work; its captures share the card with them)."""
+    workdir = tempfile.mkdtemp(prefix="warm_start_", dir=os.path.join(REPO, "build"))
+    atexit.register(shutil.rmtree, workdir, ignore_errors=True)
+    store = os.path.join(workdir, "store")
+    return dict(workdir=workdir, store=store, model_dir=model_dir,
+                child=WarmChild("cold", model_dir, store, workdir))
+
+
+def start_fault_child(run):
+    """After phase 11: the cold child's result and its store's ``verify``;
+    then a copy of that store with each stored library corrupted by
+    ``faults.mutate_warmstore``, and the third child started on the copy,
+    beside phases 13 on (its ``nvcc`` is host work). Phase 27's warm child
+    reads the intact store."""
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.warmstore.store import WarmStore
+    run["cold"] = run.pop("child").result()
+    run["verify_cold"] = _store_verify(run["store"])
+    bad = os.path.join(run["workdir"], "store_corrupted_library")
+    shutil.copytree(run["store"], bad)
+    run["libs"] = [r for r in WarmStore(bad).ls() if r["kind"] == "library"]
+    faults.install("corrupt@warmstore_write")
+    run["mutated"] = [a for r in run["libs"] for a in faults.mutate_warmstore(
+        os.path.join(bad, "entries", r["digest"]))]
+    faults.clear()
+    run["store_fault"] = bad
+    run["fault_child"] = WarmChild("corrupted_library", run["model_dir"], bad, run["workdir"])
+    return run
+
+
+def _store_verify(store):
+    """``python -m paddle_tpu_torch.warmstore --root STORE verify``, in this
+    process: (exit code, printed lines)."""
+    import contextlib
+    import io
+    from paddle_tpu_torch.warmstore.__main__ import main as ws_cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = ws_cli(["--root", store, "verify"])
+    return rc, buf.getvalue().strip().splitlines()
+
+
+def _warm_restart(torch, pt, run, helpers):
+    """A: the cold child (``start_cold_child``), the warm child alone on the
+    card over the store the cold one wrote, and the third child over a copy
+    with its library corrupted (``start_fault_child``), collected while this
+    process computes its reference and runs ``helpers`` (B); every bucket's
+    output byte-equal across the children and this process's Predictor."""
+    from paddle_tpu_torch.inference import Predictor
+    from paddle_tpu_torch.tools.serving_profile import bert_feed
+    from paddle_tpu_torch.warmstore.store import WarmStore
+    store, model_dir = run["store"], run["model_dir"]
+    cold, cold_out = run["cold"]
+    rc_cold, verify_cold = run["verify_cold"]
+    warm, warm_out = WarmChild("warm", model_dir, store, run["workdir"]).result()
+    rc_warm, verify_warm = _store_verify(store)
+    # this process's Predictor on the same feeds, its tuner off as the children's
+    feed = bert_feed(np.random.RandomState(SEED + 27), 1, WARM_SEQ,
+                     pt.models.bert.BertConfig().vocab_size)
+    tune = os.environ.get("PADDLE_TPU_TUNE")
+    os.environ["PADDLE_TPU_TUNE"] = "off"
+    try:
+        pred = Predictor(model_dir)
+        ref = {b: pred.run({k: np.repeat(v[:1], b, axis=0) for k, v in feed.items()})[0]
+               for b in WARM_BUCKETS}
+    finally:
+        if tune is None:
+            os.environ.pop("PADDLE_TPU_TUNE")
+        else:
+            os.environ["PADDLE_TPU_TUNE"] = tune
+    del pred
+    torch.cuda.empty_cache()
+    b_result = helpers()
+    fault, fault_out = run["fault_child"].result()
+    rc_fault, verify_fault = _store_verify(run["store_fault"])
+    children = (("cold", cold_out), ("warm", warm_out), ("corrupted_library", fault_out))
+    byte_equal = {label: {str(b): bool(np.array_equal(outs[b], ref[b])) for b in WARM_BUCKETS}
+                  for label, outs in children}
+    first_equal = {label: bool(np.array_equal(outs["first"], ref[1])) for label, outs in children}
+    n_kernels = len(cold["kernels"])
+    checks = {
+        "cold_built_its_kernels_with_nvcc": cold["nvcc"] == n_kernels >= 1,
+        "cold_store_verifies": rc_cold == 0,
+        "warm_ran_no_nvcc": warm["nvcc"] == 0,
+        "warm_tier_a_hit_per_kernel": warm["restored"] == n_kernels
+        and warm["hits"].get("tier=a", 0) == n_kernels,
+        "warm_tier_b_hit_per_bucket": warm["hits"].get("tier=b", 0) == len(WARM_BUCKETS)
+        and not warm["misses"],
+        "warm_verdict_passes": warm["verdict"]["tier_a"],
+        "warm_store_verifies": rc_warm == 0,
+        "every_bucket_captured": cold["captures"] == warm["captures"] == fault["captures"]
+        == len(WARM_BUCKETS),
+        "k1_fwd_12_a_replay": all(r["k1_launches_per_replay"] == 12
+                                  for c in (cold, warm, fault) for r in c["buckets"]),
+        "outputs_byte_equal": all(all(v.values()) for v in byte_equal.values())
+        and all(first_equal.values()),
+        "library_corrupted": len(run["mutated"]) == len(run["libs"]) == n_kernels,
+        "corrupted_library_quarantined": fault["quarantined"].get("all", 0) >= 1
+        and any(ln.endswith("quarantined") for ln in verify_fault),
+        "corrupted_library_rebuilt_by_nvcc": fault["nvcc"] == n_kernels
+        and fault["restored"] == 0,
+    }
+    r = dict(cold=cold, warm=warm, corrupted_library=fault, byte_equal=byte_equal,
+             first_answer_equal=first_equal, mutated=run["mutated"],
+             verify=dict(cold=[rc_cold, verify_cold[-1:]], warm=[rc_warm, verify_warm[-1:]],
+                         corrupted_library=[rc_fault, verify_fault]),
+             store=WarmStore(store).ls(), checks=checks)
+    emit("warm_restart", **{k: v for k, v in r.items() if k not in ("cold", "warm",
+                                                                   "corrupted_library")})
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise SystemExit(f"phase 27 A failed {bad}")
+    return r, b_result
+
+
+def _helpers_on_card(torch, pt):
+    """B: ``install_check.run_check()`` on the card (the ``sgd`` kind of
+    ``multi_tensor_update``), and ``nets.scaled_dot_product_attention`` at
+    BERT-base's width against its plain route on the card, K1-fwd counted."""
+    from paddle_tpu_torch.ops import flash_attention, multi_tensor
+    mt0 = multi_tensor.multi_tensor_update.launches
+    pt.install_check.run_check()
+    install_launches = multi_tensor.multi_tensor_update.launches - mt0
+    c = NETS_ATTN
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        x = pt.data("x", [c["seq"], c["width"]], "float32")
+        out = pt.nets.scaled_dot_product_attention(x, x, x, num_heads=c["heads"])
+    feed = {"x": np.random.RandomState(SEED + 28).randn(
+        c["batch"], c["seq"], c["width"]).astype("float32")}
+    scope = pt.Scope()
+    with pt.scope_guard(scope):
+        pt.Executor().run(startup)
+        k1 = (flash_attention.flash_attn_fwd, flash_attention.flash_attn_fwd_q64)
+        before = [w.launches for w in k1]
+        got, = pt.Executor().run(main, feed=feed, fetch_list=[out])
+        k1_launches = sum(w.launches - n for w, n in zip(k1, before))
+        for op in main.global_block().ops:
+            if op.type == "fused_attention":
+                op.attrs["impl"] = "composed"
+        plain, = pt.Executor().run(main, feed=feed, fetch_list=[out])
+    err = float(np.abs(got - plain).max())
+    r = dict(install_check_multi_tensor_update_launches=install_launches,
+             attention=dict(**c, dtype="float32", k1_fwd_launches=k1_launches,
+                            max_abs_err=err, atol=ATOL["float32"],
+                            finite=bool(np.isfinite(got).all()), shape=list(got.shape)))
+    emit("helpers_on_card", **r)
+    if install_launches < 1:
+        raise SystemExit("install_check.run_check() launched no multi_tensor_update")
+    if not (k1_launches == 1 and err <= ATOL["float32"] and r["attention"]["finite"]
+            and list(got.shape) == [c["batch"], c["seq"], c["width"]]):
+        raise SystemExit(f"nets.scaled_dot_product_attention on the card: {r['attention']}")
+    return r
+
+
+def phase_warm_start(torch, run):
+    """Phase 27: phase 4's BERT-base restarted cold and warm through the warm
+    store, and from a store with a corrupted library (A; ``run`` from
+    ``start_cold_child`` and ``start_fault_child``), and the fluid helpers
+    on the card (B)."""
+    import paddle_tpu_torch as pt
+    t0 = time.perf_counter()
+    try:
+        a, b = _warm_restart(torch, pt, run, lambda: _helpers_on_card(torch, pt))
+    finally:
+        shutil.rmtree(run["workdir"], ignore_errors=True)
+    r = dict(a=a, b=b, seconds=time.perf_counter() - t0)
+    emit("warm_start", seconds=r["seconds"])
+    return r
+
 
 def main() -> int:
     if not os.path.isfile(os.path.join(REPO, "paddle_tpu_torch", "csrc",
@@ -7783,6 +8122,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    if sys.argv[1:2] == ["--warm-start-child"]:
+        return warm_start_child(*sys.argv[2:4])
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 comparisons in full f32
     torch.backends.cudnn.allow_tf32 = False
     # a fresh autotune cache for the whole run: a decision persisted on this host by
@@ -7843,12 +8184,12 @@ def main() -> int:
     host_table.drop_table("ctr_table_phase9")
     mres, normed_mres, mt_host, book_mres = mres[:5], mres[5:7], mres[7], mres[8:]
     del bert_prog
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
-    try:
-        serve_launches, _ = timed_phase("main_path", phase_main_path, torch, workdir)
-        int8_launches, _ = timed_phase("int8_path", phase_int8_path, torch, workdir)
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
+    # phase 4's model directory stays until phase 27 restarts a replica from it
+    serving_dir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
+    atexit.register(shutil.rmtree, serving_dir, ignore_errors=True)
+    serve_launches, _ = timed_phase("main_path", phase_main_path, torch, serving_dir)
+    warm_run = start_cold_child(os.path.join(serving_dir, "bert_base"))   # phase 27's
+    int8_launches, _ = timed_phase("int8_path", phase_int8_path, torch, serving_dir)
     torch.cuda.empty_cache()
     train_launches, step_ms, train_paths = timed_phase("train_path", phase_train_path, torch)
     torch.cuda.empty_cache()
@@ -7856,6 +8197,7 @@ def main() -> int:
     del resnet
     torch.cuda.empty_cache()
     cap_bert, cap_resnet = timed_phase("captured_training", phase_captured_training, torch)
+    warm_run = start_fault_child(warm_run)                               # phase 27's
     nmt_train, nmt_decode, nmt_launches = timed_phase("transformer", phase_transformer, torch)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
     try:
@@ -7930,9 +8272,13 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
     an = timed_phase("analysis", phase_analysis, torch, meas.pop("program"))
+    torch.cuda.empty_cache()
+    warm = timed_phase("warm_start", phase_warm_start, torch, warm_run)
+    shutil.rmtree(serving_dir, ignore_errors=True)
     os.remove(tune_cache)
     meas_l = meas["a"]["launches"]
     an_l = an["b"]["launches"]
+    warm_k1 = warm["b"]["attention"]["k1_fwd_launches"]
     tier_l = {"tuner_search": tier["tuner_launches"],
               "serving_pool": tier["pool"]["traffic"]["launches"]}
     q64_serve = next(r for r in tier["tiles"] if r["shape"] == [8, 12, 512, 64]
@@ -8009,6 +8355,7 @@ def main() -> int:
                 "measurement_stack_training":
                     ("adam", meas["a"]["launches"].get("multi_tensor_update", 0)),
                 "analysis_gate_training": ("adam", an_l.get("multi_tensor_update", 0)),
+                "install_check": ("sgd", warm["b"]["install_check_multi_tensor_update_launches"]),
                 **{f"ocr_crnn_training_{p}":
                    ("momentum", ocr_res["train"]["multi_tensor_update_launches"][p]
                     .get("multi_tensor_update", 0)) for p in ("graph", "eager")}}
@@ -8038,7 +8385,7 @@ def main() -> int:
                       + opt_l["recompute_lamb_bert_training"]["flash_attn_fwd"]
                       + surf_l["pipeline_bert_training"]["flash_attn_fwd"]
                       + sum(v.get("flash_attn_fwd", 0) for v in tier_l.values())
-                      + meas_l["flash_attn_fwd"] + an_l["flash_attn_fwd"]),
+                      + meas_l["flash_attn_fwd"] + an_l["flash_attn_fwd"] + warm_k1),
          "launches_by_path": {"serving": serve_launches["flash_attn_fwd"],
                               "int8_serving": int8_launches["flash_attn_fwd"],
                               "training": train_launches["flash_attn_fwd"],
@@ -8051,7 +8398,8 @@ def main() -> int:
                                   surf_l["pipeline_bert_training"]["flash_attn_fwd"],
                               **{k: v.get("flash_attn_fwd", 0) for k, v in tier_l.items()},
                               "measurement_stack_training": meas_l["flash_attn_fwd"],
-                              "analysis_gate_training": an_l["flash_attn_fwd"]},
+                              "analysis_gate_training": an_l["flash_attn_fwd"],
+                              "nets_attention": warm_k1},
          "max_abs_err": fwd_err, **{k: train_fwd[k] for k in keys},
          "serving_tile_128_ms": q128_tiles,
          "shape": "B128 H12 S128 D64 bf16, bias, dropout 0.1, LSE (the training path)",
@@ -8311,6 +8659,16 @@ def main() -> int:
             "static_peak_ratio": an["b"]["static_peak_ratio"],
             "budget_refusal": an["c"]["codes"],
             "pt060": [x["op"] for x in an["d"]["pt060"]], "seconds": an["seconds"]},
+        "warm_start": {
+            label: {k: warm["a"][label][k] for k in (
+                "total_s", "import_s", "model_load_s", "nvcc", "nvcc_s", "restored",
+                "restore_s", "warmup_s", "time_to_first_answer_s", "flush_s", "captures")}
+            | {"buckets": {str(r["batch"]): [r["warm_up_s"], r["capture_s"]]
+                           for r in warm["a"][label]["buckets"]}}
+            for label in ("cold", "warm", "corrupted_library")}
+        | {"checks": warm["a"]["checks"],
+           "nets_attention_max_abs_err": warm["b"]["attention"]["max_abs_err"],
+           "seconds": warm["seconds"]},
         "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,9 @@
 
 The same Fluid-style surface as ``paddle_tpu`` -- a Program IR built by a
 layers DSL, an Executor (``train_from_dataset`` over MultiSlot files), the reader
-pipeline, save/load of variables and inference models and a Predictor --
+pipeline, save/load of variables and inference models and a Predictor, the fluid
+helpers (``nets``, ``metrics``, ``average``, ``debugger``, ``net_drawer``,
+``install_check``, ``transpiler``) --
 running eagerly on PyTorch tensors, with the TPU's Pallas kernels replaced by
 CUDA kernels written for Hopper (``csrc/``). The device is explicit: the card
 (``cuda``) unless the caller asks for the CPU.
@@ -41,5 +43,14 @@ from .flags import get_flag, set_flags  # noqa: F401
 from . import observability  # noqa: F401
 from . import profiler  # noqa: F401
 from . import analysis  # noqa: F401  (static verifier: analysis.verify, the CLI)
+from . import nets  # noqa: F401
+from . import transpiler  # noqa: F401
+from .transpiler import DistributeTranspiler, DistributeTranspilerConfig  # noqa: F401
+from .transpiler import memory_optimize, release_memory  # noqa: F401
+from . import debugger  # noqa: F401
+from . import average  # noqa: F401
+from . import install_check  # noqa: F401
+from . import net_drawer  # noqa: F401
+from . import metrics  # noqa: F401
 
 __version__ = "0.1.0"

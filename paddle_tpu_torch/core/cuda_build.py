@@ -7,6 +7,13 @@ the sources share. The library's file name carries a hash of the source and
 the headers, so an edited kernel is rebuilt and a built one is reused. Nothing is built at import: the first CUDA call of a wrapper
 builds its kernel, and ``build()`` builds several at once, one ``nvcc`` per
 source, all started together.
+
+When the warm store is armed (``PADDLE_TPU_WARMSTORE``, ``warmstore/``),
+``build`` first asks it for each missing library (tier A: restored after
+its checksum, under a passing probe verdict) and offers each fresh
+``nvcc`` build to it. A stored library that fails its checksum, the probe
+or its ``dlopen`` is quarantined and the kernel is compiled by ``nvcc`` from
+the checkout's sources, as if the store were empty: never the plain version.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Callable, Dict, Iterator, List, Sequence
 
@@ -35,6 +43,15 @@ _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 #: nvcc's output (ptxas register/spill report) of the builds this process ran
 build_logs: Dict[str, str] = {}
+#: this process's library builds: ``nvcc`` runs and their wall seconds (all
+#: of one ``build`` call run together), libraries restored from the warm store
+stats = {"nvcc": 0, "nvcc_s": 0.0, "restored": 0, "restore_s": 0.0}
+#: name -> the calls of ``load`` (each wrapper loads its library at every
+#: launch): the warm store records the kernels a step's warm-up and capture
+#: loaded by the counts that moved
+load_counts: Dict[str, int] = {}
+#: library paths this process restored from the warm store
+_restored: set = set()
 
 
 def counted(fn: Callable) -> Callable:
@@ -106,16 +123,34 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
-def build(names: Sequence[str]) -> Dict[str, Path]:
+def _store():
+    """The armed warm store, or None (the variable is read before the import)."""
+    if not os.environ.get("PADDLE_TPU_WARMSTORE"):
+        return None
+    from .. import warmstore
+    return warmstore.active_store()
+
+
+def build(names: Sequence[str], use_store: bool = True) -> Dict[str, Path]:
     """Compile every named kernel whose library is missing, one ``nvcc`` per
-    source in parallel. Returns name -> library path; raises with nvcc's
-    output if any build fails."""
+    source in parallel (each restored from the armed warm store instead, when
+    it holds it). Returns name -> library path; raises with nvcc's output if
+    any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: library_path(n) for n in names}
+    store = _store() if use_store else None
     procs = {}
+    t0 = time.perf_counter()
     for n, out in paths.items():
         if out.exists():
             continue
+        if store is not None:
+            t = time.perf_counter()
+            if store.restore_library(out.name, out):
+                _restored.add(out)
+                stats["restored"] += 1
+                stats["restore_s"] += time.perf_counter() - t
+                continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                "-Xptxas", "-v", "-o", str(tmp), str(CSRC / f"{n}.cu")]
@@ -129,19 +164,40 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
             failed.append(f"{n}: nvcc exited {proc.returncode}\n{log}")
             continue
         os.replace(tmp, out)  # atomic: a concurrent process sees all or nothing
+        _restored.discard(out)
+        if store is not None:
+            store.offer_library(out.name, out)
+    if procs:
+        stats["nvcc"] += len(procs)
+        stats["nvcc_s"] += time.perf_counter() - t0
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return paths
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of kernel ``name``, built first if needed. A library
+    restored from the warm store that ``dlopen`` refuses is quarantined there
+    and compiled from the sources."""
+    load_counts[name] = load_counts.get(name, 0) + 1
     lib = _loaded.get(name)
     if lib is not None:
         return lib
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build([name])[name]))
+            path = build([name])[name]
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as e:
+                if path not in _restored:
+                    raise
+                _restored.discard(path)
+                from ..observability import journal
+                journal.emit({"event": "warmstore_restore_error", "library": path.name,
+                              "stage": "dlopen", "error": str(e)})
+                _store().quarantine_library(path.name, f"dlopen: {e}")
+                path.unlink()
+                lib = ctypes.CDLL(str(build([name], use_store=False)[name]))
             _loaded[name] = lib
     return lib

@@ -92,6 +92,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import itertools
+import os
 import queue
 import threading
 import time
@@ -558,6 +559,8 @@ class _Step:
         self.cost: Optional[_cost.StepCost] = None
         #: the anomaly detector's windows of this entry (retired with it)
         self.windows: set = set()
+        #: the warm store's handle until the step's record is offered
+        self.ws = None
 
 
 class _StepRun(collections.namedtuple("_StepRun", "fetches replayed key miss capture end")):
@@ -594,16 +597,14 @@ def _retire_program_gauges_if_dead(prog_id, version) -> None:
     _attrib.retire_program(label)
 
 
-def refuse_warmstore(where: str) -> None:
-    """``PADDLE_TPU_WARMSTORE`` names the JAX package's warm store of
-    compiled executables, which the port does not have: when it is set,
-    ``where`` (the executor's or the Predictor's signature miss) raises
-    rather than silently ignoring it."""
-    import os
-    if os.environ.get("PADDLE_TPU_WARMSTORE"):
-        raise NotImplementedError(
-            f"{where}: PADDLE_TPU_WARMSTORE is set, but the warm store (warmstore/) "
-            f"is not ported (ROADMAP item 12 (b))")
+#: whether this process made the warm store's one startup scan
+_WS_PREFETCHED = False
+
+
+def _warmstore_armed() -> bool:
+    """``PADDLE_TPU_WARMSTORE`` set: read before any import of ``warmstore``,
+    so a disarmed process never loads the package."""
+    return bool(os.environ.get("PADDLE_TPU_WARMSTORE"))
 
 
 def _feed_batch(program: Program, feeds: Dict[str, torch.Tensor]) -> int:
@@ -1442,14 +1443,17 @@ class Executor:
             key = (id(program), program._version, sig, tuple(fetch_names), seed, id(scope))
         step = self._cache.get(key)
         if step is None:
-            refuse_warmstore("Executor.run")
             # before the step enters the cache: a program that fails the gate
             # is a miss again on its retry, and raises again
             self._maybe_verify(program, list(feeds), fetch_names,
                                {k: tuple(t.shape) for k, t in feeds.items()}, fuse_k)
+            ws = (self._warmstore_consult("fused_step" if fuse_k else "train_step", program,
+                                          sig, fetch_names, seed, captures)
+                  if _warmstore_armed() else None)
             step = self._cache[key] = _Step(capture_refusal(program) if captures
                                             else "CUDA graphs are off (the CPU, or "
                                                  "_use_graphs False)")
+            step.ws = ws
             if captures and step.refusal is not None:
                 warnings.warn(f"Executor.run: the program is not captured as a CUDA graph "
                               f"({step.refusal}); its runs are eager", stacklevel=3)
@@ -1482,6 +1486,8 @@ class Executor:
             if step.refusal is not None:
                 # not captured: the static estimate's one time for this signature
                 self._static_memory(program, feeds, fetch_names, label)
+                if step.ws is not None:
+                    self._warmstore_offer(step, None)
             _memory.sample_device_memory("compile", self.device, scope)
             self._last_miss = {"program": label, "feeds": {k: list(t.shape) for k, t in
                                                            feeds.items()},
@@ -1524,7 +1530,49 @@ class Executor:
                                                             step.feeds.values())),
                 _memory.tensor_bytes(fetches), step.graph.memory_bytes)
             self._static_memory(program, feeds, fetch_names, label, parts)
+            if step.ws is not None:
+                self._warmstore_offer(step, {"graph_pool_bytes": step.graph.memory_bytes,
+                                             "argument_bytes": parts["argument_bytes"]})
         return _StepRun(fetches, True, key, capture is not None, capture, None)
+
+    # -- the warm store (``warmstore/``), armed by PADDLE_TPU_WARMSTORE ----------
+
+    def _startup_prefetch(self) -> None:
+        """The warm store's one startup scan a process, at its first armed
+        miss: the stored steps' kernels made ready together."""
+        global _WS_PREFETCHED
+        if _WS_PREFETCHED:
+            return
+        _WS_PREFETCHED = True
+        from .. import warmstore as _ws
+        _ws.prefetch()
+
+    def _warmstore_key(self, kind, program, sig, fetch_names, seed, captures) -> dict:
+        """The cache key in the store's cross-process form: the program's
+        content digest for its id, the decision records' fingerprint for the
+        in-process token; no scope (a restart has another)."""
+        from .. import warmstore as _ws
+        return _ws.build_key(kind, program, feed_sig=sig, fetch_names=fetch_names, seed=seed,
+                             flags=(self._reuse_forward, self._group_updates,
+                                    self._free_dead, captures),
+                             strategy=(), world_dependent=False, device=self.device)
+
+    def _warmstore_consult(self, kind, program, sig, fetch_names, seed, captures):
+        """At a signature's miss, after the verifier gate: a hit has the
+        step's kernels ready before its warm-up. The warm-up and the capture
+        run as on any miss."""
+        self._startup_prefetch()
+        from .. import warmstore as _ws
+        return _ws.consult_step(self._warmstore_key(kind, program, sig, fetch_names, seed,
+                                                    captures))
+
+    @staticmethod
+    def _warmstore_offer(step: _Step, parts) -> None:
+        """After the capture (the first run when there is none): the step's
+        record goes to the store's writer thread."""
+        from .. import warmstore as _ws
+        handle, step.ws = step.ws, None
+        _ws.offer_step(handle, parts)
 
     @staticmethod
     def _static_memory(program, feeds, fetch_names, label, parts=None) -> None:

@@ -35,11 +35,18 @@ compile cause), and its warm-up is attributed op by op when attribution is
 armed (``observability/attribution.py``; label ``predict:<signature
 digest>``), as the JAX Predictor attributes each compiled signature.
 
-Not ported yet: the JAX Predictor's warm store (ROADMAP items 10 and 12)
-and its sparse tables (ROADMAP item 10's online part).
+With the warm store armed (``PADDLE_TPU_WARMSTORE``, ``warmstore/``), a
+signature's miss consults it first (kind ``predict``): a hit has the step's
+kernels ready before the warm-up, restored or all compiled at once; the
+warm-up and the capture run as on any miss, and the step's record is
+offered after the capture.
+
+Not ported yet: the JAX Predictor's sparse tables (ROADMAP item 10's online
+part).
 """
 from __future__ import annotations
 
+import os
 import threading
 import time
 from typing import Dict, List, Optional
@@ -48,8 +55,8 @@ import numpy as np
 import torch
 
 from .core import graphs
-from .core.executor import (Scope, SubBlockRunner, as_tensor, refuse_warmstore,
-                            resolve_device, scope_guard, to_numpy, trace_block)
+from .core.executor import (Scope, SubBlockRunner, as_tensor, resolve_device, scope_guard,
+                            to_numpy, trace_block)
 from .core.registry import torch_dtype
 from .framework import Program
 from .observability import attribution as _attrib
@@ -122,15 +129,22 @@ class _GraphRun:
         self.lock = lock
         dev = pred.device
         self._feeds = {k: t.clone() for k, t in feeds.items()}
+        t0 = time.perf_counter()
         with _attrib.profiled(pred.program, label, dev):   # when attribution is armed
             graphs.warm_up(dev, lambda: pred._trace(state, self._feeds))
-        t0 = time.perf_counter()
+        t1 = time.perf_counter()
         self._graph = graphs.Graph(dev, lambda: pred._trace(state, self._feeds))
+        t2 = time.perf_counter()
+        #: the seconds of the eager warm-up and of the capture
+        self.warm_up_s, self.capture_s = t1 - t0, t2 - t1
         # the capture is the port's compile: the goodput ledger's compile
         # cause, wherever it happens (a serving pool's warm-up included)
-        _timeline.record_span("compile", t0, time.perf_counter() - t0, program=label)
+        _timeline.record_span("compile", t1, t2 - t1, program=label)
         #: device memory the capture reserved for this signature's pool (bytes)
         self.memory_bytes = self._graph.memory_bytes
+        #: bytes of the pinned state and the feed buffers the graph reads
+        self.argument_bytes = sum(t.numel() * t.element_size() for t in
+                                  list(state.values()) + list(self._feeds.values()))
         #: each kernel wrapper's launches in one replay
         self.launches = self._graph.launches
 
@@ -291,14 +305,24 @@ class Predictor:
             if exe is not None:
                 self._count("hit")
                 return exe, False
-            refuse_warmstore("Predictor.run")
             self._count("miss")
             state = self._state_for(dtype)
+            ws = None
+            if os.environ.get("PADDLE_TPU_WARMSTORE"):   # read before the import
+                from . import warmstore as _ws
+                ws = _ws.consult_step(_ws.build_key(
+                    "predict", self.program, feed_sig=sig, fetch_names=self.fetch_names,
+                    seed=0, flags=None, strategy=(), world_dependent=False,
+                    device=self.device))
             if self.device.type == "cuda":
                 exe = _GraphRun(self, state, feeds, lk,
                                 f"predict:{_attrib.signature_digest(sig)}")
             else:
                 exe = _EagerRun(self, state, lk)
+            if ws is not None:
+                _ws.offer_step(ws, {"graph_pool_bytes": exe.memory_bytes,
+                                    "argument_bytes": exe.argument_bytes}
+                               if self.device.type == "cuda" else None)
             self._compiled[sig] = exe
         return exe, True
 

@@ -35,11 +35,11 @@ draw per match), ``value``.
 
 The serving tier's sites (``serve_dispatch``, ``serve_fetch``,
 ``serve_hang``, fired by ``serving/pool.py``) and its data hook
-(:func:`corrupt_serving`) work as in the JAX package. The warm store's
-(:func:`mutate_warmstore`) and the online publisher's (``online_export``,
-:func:`corrupt_delta`) parse as in the JAX package, but their hooks raise:
-the modules that fire them are not ported (ROADMAP item 12, and
-``online/`` behind item 10).
+(:func:`corrupt_serving`) work as in the JAX package, and so does the warm
+store's (``warmstore_write``, :func:`mutate_warmstore`, fired by
+``warmstore/store.py`` after each commit). The online publisher's
+(``online_export``, :func:`corrupt_delta`) parses as in the JAX package, but
+its hook raises: ``online/`` is not ported (ROADMAP item 10 (c)).
 
 Every fire increments ``fault_injected_total{kind,site}`` and journals a
 ``fault`` event. With nothing armed a hook costs one module-attribute
@@ -495,9 +495,47 @@ def mutate_checkpoint(dirname, step: Optional[int] = None) -> List[dict]:
 
 
 def mutate_warmstore(entry_dir) -> List[dict]:
-    """The warm store's ``corrupt``/``truncate`` hook: raises (``warmstore/``
-    is ROADMAP item 12)."""
-    _not_ported("mutate_warmstore", "the warm store (warmstore/, ROADMAP item 12)")
+    """Hook point: apply armed ``corrupt``/``truncate`` faults to a
+    warm-store entry the writer thread just committed under ``entry_dir``
+    (a step's record or a kernel library): the read side must catch the
+    damage by crc32 and size, quarantine the entry ``.corrupt`` and run the
+    step fresh (a library then built by ``nvcc``). Same damage grammar as
+    ``mutate_checkpoint``: one seeded bit flip or a cut to half the bytes.
+    meta.json is never the victim: the payloads are what the checks guard."""
+    if not _active:
+        return []
+    from ..utils import fs as _fsio
+    applied = []
+    for f in _active:
+        if f.kind not in ("corrupt", "truncate") or not f.matches("warmstore_write", None):
+            continue
+        try:
+            names = sorted(n for n in _fsio.listdir(entry_dir) if n.startswith("tier_"))
+        except OSError:
+            names = []
+        if not names:
+            f.missed += 1
+            if f.missed == 1:
+                _journal.emit({"event": "fault_miss", "kind": f.kind, "var": f.var,
+                               "detail": f"no payload to {f.kind} in {entry_dir}"})
+            continue
+        victim = _fsio.join(entry_dir, names[f._rng.randrange(len(names))])
+        data = _fsio.read_bytes(victim)
+        if not data:
+            continue
+        if f.kind == "corrupt":
+            pos = f._rng.randrange(len(data))
+            mutated = data[:pos] + bytes([data[pos] ^ 0x01]) + data[pos + 1:]
+            detail = f"bit-flip at byte {pos}"
+        else:
+            mutated = data[:max(1, len(data) // 2)]
+            detail = f"truncated {len(data)} -> {len(mutated)} bytes"
+        _fsio.write_bytes(victim, mutated)
+        _record(f, "warmstore_write", None, var=f.var)
+        applied.append({"kind": f.kind, "file": str(victim), "detail": detail})
+        _journal.emit({"event": "warmstore_fault", "kind": f.kind, "file": str(victim),
+                       "detail": detail})
+    return applied
 
 
 def describe() -> List[dict]:

@@ -40,9 +40,11 @@ the pinned tensors the graphs read: no capture), and a wedge-proof
 (``observability/slo.py``) at construction, as the JAX pool does: its
 rules read the serving histograms and counters below.
 
-Not ported (each raises when asked for, naming its ROADMAP item): the
-warm store (``PADDLE_TPU_WARMSTORE``), sparse tables and ``apply_delta``
-(the online path).
+With ``PADDLE_TPU_WARMSTORE`` set, ``warmup`` makes the warm store's one
+startup scan before it warms the buckets (``warmstore/``).
+
+Not ported (each raises when asked for, naming its ROADMAP item): sparse
+tables and ``apply_delta`` (the online path).
 
 Observability (on the ``/metrics`` endpoint of ``observability/server.py``,
 armed by ``PADDLE_TPU_OBS_PORT``): ``serving_queue_depth`` / ``serving_in_flight``
@@ -852,11 +854,13 @@ class PredictorPool:
         ``max_batch``, or ``buckets``) on every predictor, in the dtype the
         pool would serve that bucket in -- on the card, the capture of each
         bucket's CUDA graph -- so no served request captures one. Returns
-        the number of (predictor, bucket) pairs warmed."""
-        if os.environ.get("PADDLE_TPU_WARMSTORE"):
-            raise NotImplementedError(
-                "PADDLE_TPU_WARMSTORE is set, but the warm store (warmstore/) is not "
-                "ported (ROADMAP item 12)")
+        the number of (predictor, bucket) pairs warmed. With the warm store
+        armed, its one startup scan comes first: the stored steps' kernels
+        are made ready together, then each bucket's miss consults the store
+        (the warm-up and the capture run either way)."""
+        if os.environ.get("PADDLE_TPU_WARMSTORE"):   # read before the import
+            from .. import warmstore as _ws
+            _ws.prefetch()
         probe = Request(feed)
         if buckets is None:
             cap = _choices.pow2_bucket(self._batcher.max_batch)

@@ -530,7 +530,11 @@ def test_jax_program_json_read_by_the_port(build):
     findings, and so does the port's own round trip. One difference stays
     (ROADMAP 3.33): the JAX package runs with 64-bit integers off, so its
     DSL declares int32 where the port's (and the reference's) op gives int64
-    (mnist's ``top_k`` Indices); on such a var the port reports PT020."""
+    (mnist's ``top_k`` Indices); on such a var the port reports PT020.
+    Decided as a reference-side record: the JAX-built program runs through
+    the port's executor with every fetch equal to the JAX run's, those
+    indices included (``tests/test_torch_reference_programs.py``), so the
+    declaration is the JAX package's and PT020 is a true finding about it."""
     jprog, kw = build(fluid)
     tprog, _ = build(pt)
     truncated = {n for n, v in jprog.global_block().vars.items()

@@ -8,8 +8,9 @@
 package's on the same programs; ``program_static_peak_bytes`` once a
 signature; the ``verify`` span, counter and journal event; and the two
 environment gates of ROADMAP fault 3.32 that are not the verifier's:
-``PADDLE_TPU_WARMSTORE`` raises, ``PADDLE_TPU_CKPT_VERIFY=0`` skips the
-size and crc32 check on load.
+``PADDLE_TPU_WARMSTORE`` arms the warm store (``warmstore/``), consulted
+after the gate at a signature's miss, ``PADDLE_TPU_CKPT_VERIFY=0`` skips
+the size and crc32 check on load.
 """
 import json
 import os
@@ -345,18 +346,31 @@ def test_static_gauge_with_a_pool_sets_the_ratio():
 # ----------------------------------------------- fault 3.32's other gates --
 
 def test_warmstore_env_raises_in_executor_and_predictor(monkeypatch, tmp_path):
+    """Since the warm store is ported (ROADMAP item 12 (b)), the variable no
+    longer raises: it arms the store, which the executor and the Predictor
+    consult at a signature's miss after the gate, so a program the gate
+    refuses never reaches the store. A miss offers the step's record."""
     main, startup, loss = _gate_program()
     with pt.scope_guard(pt.Scope()):
         exe = pt.Executor(pt.CPUPlace())
         exe.run(startup)
         pt.io.save_inference_model(str(tmp_path / "m"), ["x"], [loss], exe, main)
         monkeypatch.setenv("PADDLE_TPU_WARMSTORE", str(tmp_path / "ws"))
-        with pytest.raises(NotImplementedError, match=r"warm store.*item 12 \(b\)"):
-            exe.run(main, feed=X2, fetch_list=[loss])
+        out, = exe.run(main, feed=X2, fetch_list=[loss])
+        assert np.isfinite(out).all()
+    from paddle_tpu_torch import warmstore
     from paddle_tpu_torch.inference import Predictor
     pred = Predictor(str(tmp_path / "m"), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"warm store.*item 12 \(b\)"):
-        pred.run({"x": np.ones((2, 4), "float32")})
+    assert np.isfinite(pred.run({"x": np.ones((2, 4), "float32")})[0]).all()
+    assert warmstore.flush(30.0)
+    assert sorted(r["kind"] for r in warmstore.active_store().ls()) == ["predict", "train_step"]
+    # the gate comes first: a program it refuses is never consulted nor offered
+    monkeypatch.setenv("PADDLE_TPU_VALIDATE", "raise")
+    bad = _ghost_program()
+    with pytest.raises(VerificationError):
+        pt.Executor(pt.CPUPlace()).run(bad, feed=X2, fetch_list=[])
+    assert warmstore.flush(30.0) and len(warmstore.active_store().ls()) == 2
+    warmstore.reset_for_tests()
 
 
 def test_ckpt_verify_off_skips_the_crc_check(monkeypatch, tmp_path):

@@ -319,7 +319,7 @@ def test_nan_at_serve_fetch_fails_the_batch_typed(models):
         faults.clear()
 
 
-def test_unported_hooks_raise_naming_their_items(models, monkeypatch):
+def test_unported_hooks_raise_naming_their_items(models, monkeypatch, tmp_path):
     da, _ = models
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
         PredictorPool(da, size=1, sparse_tables={"t": object()}, device="cpu")
@@ -333,11 +333,14 @@ def test_unported_hooks_raise_naming_their_items(models, monkeypatch):
     try:
         with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
             pool.apply_delta({"table": "t"})
-        monkeypatch.setenv("PADDLE_TPU_WARMSTORE", "1")
-        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-            pool.warmup({"x": _feeds((1,))[0]})
+        # the warm store is ported (item 12 (b)): armed, warmup makes its one
+        # startup scan and warms every bucket
+        monkeypatch.setenv("PADDLE_TPU_WARMSTORE", str(tmp_path / "ws"))
+        assert pool.warmup({"x": _feeds((1,))[0]}) == 6     # buckets 1-32, one predictor
     finally:
         pool.close(drain_timeout=5.0)
+        from paddle_tpu_torch import warmstore
+        warmstore.reset_for_tests()
 
 
 def test_serving_dtype_bucket_equals_jax_and_benches_the_predictors_executable(models):

@@ -15,10 +15,11 @@ BERT-base to concurrent clients through ``PredictorPool``, train and serve
 YOLOv3 at 608 x 608 and the three other detectors, train and serve
 CRNN-CTC, and measure BERT-base's training and serving with the port's
 measurement stack (goodput, MFU, memory, the anomaly detector, per-op
-attribution, SLO alerts, ``fluid.profiler``), and restart a BERT-base
-serving replica cold and warm through the warm store, through the
-PyTorch/CUDA port on one NVIDIA GPU, and hold its CUDA kernels against
-their plain PyTorch versions.
+attribution, SLO alerts, ``fluid.profiler``), restart a BERT-base
+serving replica cold and warm through the warm store, and serve ResNet-50
+through the C serving ABI beside the chaos CLI and the operator tools,
+through the PyTorch/CUDA port on one NVIDIA GPU, and hold its CUDA kernels
+against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -27,7 +28,8 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
 
 1. device: the card, its power limit, the toolchain;
 2. build: compile every kernel of ``paddle_tpu_torch/csrc`` (one ``nvcc``
-   per source, in parallel);
+   per source, in parallel; the native parser and the C serving ABI with
+   ``g++`` beside them);
 3. kernel vs plain: each kernel on the card at the main paths' shapes,
    against its plain version on the same inputs and against a second
    launch of itself (bit for bit), with times (CUDA events, median of 25
@@ -302,22 +304,22 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    host table. A: DeepFM at phase 14's configuration from phase 15's 8 part
    files, one ``FileTailSource`` each, merged in a fixed rotation
    (``StreamingDataset(ordered=True)``), under ``StepGuardian`` with an
-   async ``Checkpointer`` every 8 steps, captured: 24 steps with a
+   async ``Checkpointer`` every 4 steps, captured: 16 steps with a
    transient ``exc`` at dispatch (retried) and a ``corrupt`` record at
    parse (quarantined); a restore of the last periodic checkpoint into the
-   live, captured scope, rerun to step 24 (bit for bit, no recapture); the
-   same faults with a ``preempt`` at step 12, then a fresh executor and
-   dataset that ``restore()``, ``seek`` the watermark and run to step 24:
+   live, captured scope, rerun to step 16 (bit for bit, no recapture); the
+   same faults with a ``preempt`` at step 8, then a fresh executor and
+   dataset that ``restore()``, ``seek`` the watermark and run to step 16:
    every state tensor (parameters, Adam moments, ``auc``'s histograms) and
    the run counter bit for bit to the uninterrupted run; step 1 against
    the CPU port; the guarded step ms beside phase 14's, the stream's
    records/s, the resumed run's idle share, the checkpoint's blocked and
    write seconds, the restore's. Then the default merge (arrival order, the
-   JAX package's) preempted at step 6 and resumed to step 12: the batches
+   JAX package's) preempted at step 4 and resumed to step 8: the batches
    trained hold each record of a prefix of each file exactly once.
    B: ``examples/ctr_deepfm.py``'s program
    (``host_embedding`` with Adagrad, 256-128, Adam) at the example's
-   constants (vocabulary 20,000, B 512, 200 steps: the loss falls) and at
+   constants (vocabulary 20,000, B 512, 100 steps: the loss falls) and at
    A's scale (vocabulary 1,000,000, B 4096, 20 steps: a 64 MB table and its
    64 MB accumulator), eager and captured from one state: losses, dense
    state, table and accumulator bit for bit, ``push_count``, a third,
@@ -492,6 +494,29 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    MODEL_DIR)))"``;
    a child:
    ``python3 chip_smoke.py --warm-start-child MODEL_DIR OUT_DIR``;
+11g. phase 28, the C serving ABI (``native/serving_capi.cpp``) and the
+   operator CLIs. A: ResNet-50 (``is_test``, 1000 classes, 3 x 224 x 224)
+   saved in f32 and in bf16 (a cast of the f32 image, the weights the f32
+   draw rounded), served through ``pd_predictor_create`` on the card (ctypes)
+   and through the Python ``Predictor`` on the same host images at mb 1 and
+   128: the median of 20 calls after the first, the graphs each captured,
+   ``utils/flops.py``'s FLOPs and their share of the card's peak, the ABI's
+   output byte-equal to the Predictor's; a short buffer gives -2, a bad
+   model directory NULL and a message, 4 threads calling together get their
+   solo bytes; then 2 calls per dtype and batch with the journal armed under
+   ``fluid.profiler``. B (two processes started before phase 26, beside
+   phases 26 and 27): ``python -m paddle_tpu_torch.resilience --format
+   json`` with the docstring's fault spec, ``--ckpt`` and the black box
+   armed, and again with ``--stream``: both exit 0, every fault recovered,
+   the preemption resumed, every step completed. C, each CLI's ``main`` in
+   this process: ``obs_report`` over A's journal, metrics dump and trace
+   (its predictor requests = A's observed ABI calls), ``postmortem`` over
+   B's preemption bundle (the injected faults first), ``ckpt_doctor
+   verify`` over both runs' trees and ``fuzz`` over a copy of the stream
+   run's (4 cases detected), ``timeline`` over A's trace directory, all
+   rc 0. Alone (B beside A): ``mkdir -p build; python3 -c "import tempfile,
+   torch, chip_smoke as cs; cs.phase_build(); cs.phase_serving_capi(torch,
+   tempfile.mkdtemp(dir='build'))"``;
 12. the kernels line (``multi_tensor_update`` with its five kinds, each
    with its launches; K1-fwd's 64-row tile as ``flash_attn_fwd_q64``),
    then the result line.
@@ -502,7 +527,9 @@ port's sources are not beside this script, or when any phase fails.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import gc
+import io
 import json
 import os
 import re
@@ -654,24 +681,28 @@ def phase_device(torch):
 
 
 def phase_build():
-    """Every kernel (one ``nvcc`` each) and the native slot parser (``g++``),
-    all started together."""
+    """Every kernel (one ``nvcc`` each), the native slot parser and the C
+    serving ABI (``g++`` each), all started together."""
     import threading
     from paddle_tpu_torch import native
     from paddle_tpu_torch.core import cuda_build
+    from paddle_tpu_torch.native import capi
     names = list(cuda_build.SOURCES)
     t0 = time.perf_counter()
-    parser = threading.Thread(target=native.available)
-    parser.start()
+    hosts = [threading.Thread(target=native.available), threading.Thread(target=capi.build)]
+    for t in hosts:
+        t.start()
     paths = cuda_build.build(names)
-    parser.join()
+    for t in hosts:
+        t.join()
     seconds = time.perf_counter() - t0
     ptxas = {n: [ln.strip() for ln in cuda_build.build_logs.get(n, "").splitlines()
                  if "registers" in ln or "spill" in ln] for n in names}
     emit("build", kernels=names, seconds=seconds,
          libraries=[os.path.relpath(p, REPO) for p in paths.values()], ptxas=ptxas,
          native_parser=os.path.relpath(native.library_path(), REPO),
-         native_parser_error=native.build_error)
+         native_parser_error=native.build_error,
+         serving_capi=os.path.relpath(capi.library_path(), REPO))
     return names
 
 
@@ -4681,14 +4712,16 @@ def phase_training_surface(torch, constant_bert=None, constant_nmt=None):
 # phase 15 (200,000 rows in 8 parts), merged in a fixed rotation (``ordered``),
 # under StepGuardian and an async Checkpointer every 8 steps, captured; faults:
 # a transient exc at dispatch (retried) and a corrupt record at parse
-# (quarantined), then a preempt at step 12; the resume runs to step 24.
-STREAM_STEPS, STREAM_PREEMPT, STREAM_SAVE_EVERY = 24, 12, 8
+# (quarantined), then a preempt at step 8; the resume runs to step 16 (24, 12
+# and 8 until the C ABI's phase 28 was added; cut for the script's time).
+STREAM_STEPS, STREAM_PREEMPT, STREAM_SAVE_EVERY = 16, 8, 4
 STREAM_FAULTS = "exc@dispatch:step=5;corrupt@parse:step=1000"
-# A's check of the default (arrival-order) merge: preempted, then resumed
-ARRIVAL_STEPS, ARRIVAL_PREEMPT = 12, 6
+# A's check of the default (arrival-order) merge: preempted, then resumed (12
+# and 6 until phase 28)
+ARRIVAL_STEPS, ARRIVAL_PREEMPT = 8, 4
 # B: examples/ctr_deepfm.py's program (host_embedding + Adagrad, 256-128, Adam)
-# at the example's constants and at A's scale
-CTR_EXAMPLE = dict(vocab=20_000, batch=512, steps=200)
+# at the example's constants (100 steps; 200 until phase 28) and at A's scale
+CTR_EXAMPLE = dict(vocab=20_000, batch=512, steps=100)
 CTR_AT_SCALE = dict(vocab=1_000_000, batch=4096, steps=20)
 HOST_FIELDS, HOST_DIM, HOST_DENSE = 26, 16, 13
 HOST_PROFILED_STEPS = 5
@@ -8110,6 +8143,392 @@ def phase_warm_start(torch, run):
     return r
 
 
+CAPI_HW, CAPI_BATCHES, CAPI_RUNS = 224, (1, 128), 20
+CAPI_DTYPES = ("float32", "bfloat16")
+CAPI_THREADS, CAPI_THREAD_CALLS = 4, 3
+#: ABI calls per dtype and batch in A's observed window (journal and profiler armed)
+CAPI_OBS_CALLS = 2
+#: B's spec: the chaos CLI docstring's
+CHAOS_SPEC = "nan:step=3:var=LOSS;exc@dispatch:step=5;preempt:step=7"
+
+
+def _capi_models(torch, pt, workdir):
+    """ResNet-50 (``is_test``, 1000 classes) at 3 x CAPI_HW x CAPI_HW, saved
+    twice from one set of weights (the f32 startup's draw rounded to bf16, as
+    phase 16's VGG-16): in f32, and in bf16 behind a cast of the f32 image, so
+    that both take the float32 tensors of the C ABI's contract. The bf16 copy
+    stands for the reference's fp16 row. dtype -> model dir."""
+    from paddle_tpu_torch.models import resnet
+    progs = {}
+    for dtype in CAPI_DTYPES:
+        main, startup = pt.Program(), pt.Program()
+        main.random_seed = startup.random_seed = SEED
+        with pt.unique_name.guard(), pt.program_guard(main, startup):
+            img = pt.data("img", [3, CAPI_HW, CAPI_HW], "float32")
+            x = img if dtype == "float32" else pt.layers.cast(img, dtype)
+            progs[dtype] = (main, startup, resnet.resnet50(x, None, is_test=True))
+    shared = {n: t.to(torch.bfloat16)
+              for n, t in _startup_state(pt, *progs["float32"][:2]).items()}
+    dirs = {}
+    for dtype, (main, startup, logits) in progs.items():
+        exe, scope = pt.Executor(), pt.Scope()
+        with pt.scope_guard(scope):
+            exe.run(startup)
+            names = {n for n, v in main.global_block().vars.items() if v.persistable}
+            if names != set(shared):
+                raise SystemExit(f"resnet50 {dtype}: parameters {sorted(names ^ set(shared))} "
+                                 f"are not in both builds")
+            for n, t in shared.items():
+                scope.set_var(n, t.to(scope.find_var(n).dtype))
+            dirs[dtype] = os.path.join(workdir, f"resnet50_{dtype}")
+            pt.io.save_inference_model(dirs[dtype], ["img"], [logits], exe, main_program=main)
+        exe.close()
+    return dirs
+
+
+def _median_call_ms(fn, runs=CAPI_RUNS):
+    """The first call (a new signature's capture), then the median ms of
+    ``runs`` calls, and the last output. Both paths return host arrays, so
+    each call's time ends after its device work."""
+    out = fn()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def _predictor_misses() -> float:
+    """``predictor_executable_cache_total{outcome=miss}``: on the card, the
+    graphs every Predictor of this process captured."""
+    from paddle_tpu_torch.observability.metrics import REGISTRY
+    fam = REGISTRY.get("predictor_executable_cache_total")
+    c = fam.children.get((("outcome", "miss"),)) if fam is not None else None
+    return c.value if c is not None else 0.0
+
+
+def _capi_threads(lib, handle, singles, dtype):
+    """CAPI_THREADS threads call ``pd_predictor_run`` together, each on its own
+    mb-1 image CAPI_THREAD_CALLS times; each must get its solo run's bytes."""
+    import threading
+
+    from paddle_tpu_torch.native import capi
+
+    def call(x):
+        out = np.empty(1000, np.float32)
+        rc, _ = capi.run(lib, handle, {"img": x}, out)
+        return rc, out.tobytes()
+
+    solo = [call(x) for x in singles]
+    got = [None] * len(singles)
+    go = threading.Barrier(len(singles))
+
+    def client(i):
+        go.wait()
+        got[i] = [call(singles[i]) for _ in range(CAPI_THREAD_CALLS)]
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(singles))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return dict(dtype=dtype, threads=len(singles), calls_each=CAPI_THREAD_CALLS,
+                solo_rc=[rc for rc, _ in solo],
+                bytes_equal_to_solo=all(g == [solo[i]] * CAPI_THREAD_CALLS
+                                        for i, g in enumerate(got)))
+
+
+def _capi_observed(pt, lib, handles, images, workdir):
+    """A's observed window: CAPI_OBS_CALLS ABI calls per dtype and batch (all
+    captured already) with the journal armed, inside a ``fluid.profiler``
+    session; then the metrics dump and the session's trace with the
+    Predictor's spans. Paths, and the ABI calls made."""
+    from paddle_tpu_torch.native import capi
+    from paddle_tpu_torch.observability import export
+    obs = dict(journal=os.path.join(workdir, "journal.jsonl"),
+               metrics=os.path.join(workdir, "metrics.json"),
+               trace_dir=os.path.join(workdir, "profile"),
+               trace=os.path.join(workdir, "timeline.json"), abi_calls=0)
+    os.environ.update(PADDLE_TPU_OBS="1", PADDLE_TPU_OBS_JOURNAL=obs["journal"])
+    try:
+        with pt.profiler.profiler("All", "total", os.path.join(workdir, "summary.txt"),
+                                  trace_dir=obs["trace_dir"]):
+            for dtype, h in handles.items():
+                for batch in CAPI_BATCHES:
+                    out = np.empty(batch * 1000, np.float32)
+                    for _ in range(CAPI_OBS_CALLS):
+                        rc, _ = capi.run(lib, h, {"img": images[batch]}, out)
+                        if rc != 0:
+                            raise SystemExit(f"phase 28 A: observed {dtype} mb{batch}: rc {rc}: "
+                                             f"{lib.pd_last_error()!r}")
+                        obs["abi_calls"] += 1
+    finally:
+        for k in ("PADDLE_TPU_OBS", "PADDLE_TPU_OBS_JOURNAL"):
+            os.environ.pop(k, None)
+    export.dump_json(obs["metrics"])
+    pt.profiler.export_chrome_tracing(obs["trace_dir"], obs["trace"])
+    return obs
+
+
+def _capi_serve(torch, pt, workdir):
+    """A: ResNet-50 in f32 and bf16 served through ``pd_predictor_create`` on
+    the card (ctypes) and through the Python ``Predictor`` on the same host
+    images, at each batch of CAPI_BATCHES: the median latency of CAPI_RUNS calls
+    after the first, the graphs each captured, the program's FLOPs
+    (``utils/flops.py``) and their share of the card's peak, the ABI's output
+    byte-equal to the Predictor's; a short buffer (-2), CAPI_THREADS threads
+    against their solo runs, a bad model directory (NULL and a message); then
+    the observed window for C."""
+    from paddle_tpu_torch.inference import Predictor
+    from paddle_tpu_torch.native import capi
+    from paddle_tpu_torch.utils import flops
+    t0 = time.perf_counter()
+    lib = capi.load()
+    build_s = time.perf_counter() - t0
+    dirs = _capi_models(torch, pt, workdir)
+    rng = np.random.RandomState(SEED + 28)
+    images = {b: rng.rand(b, 3, CAPI_HW, CAPI_HW).astype("float32") for b in CAPI_BATCHES}
+    singles = [rng.rand(1, 3, CAPI_HW, CAPI_HW).astype("float32")
+               for _ in range(CAPI_THREADS)]
+    kind = torch.cuda.get_device_name(0)
+    repo = REPO.encode()
+    bad = lib.pd_predictor_create(os.path.join(workdir, "no_model").encode(), repo)
+    refusal = dict(handle_null=not bad, message=lib.pd_last_error().decode(errors="replace")[:300])
+    rows, threads, handles = [], [], {}
+    for dtype, model_dir in dirs.items():
+        h = lib.pd_predictor_create(model_dir.encode(), repo)
+        if not h:
+            raise SystemExit(f"phase 28 A: pd_predictor_create({dtype}) returned NULL: "
+                             f"{lib.pd_last_error()!r}")
+        handles[dtype] = h
+        pred = Predictor(model_dir)
+        for batch in CAPI_BATCHES:
+            out = np.empty(batch * 1000, np.float32)
+
+            def abi(b=batch, o=out):
+                rc, shape = capi.run(lib, h, {"img": images[b]}, o)
+                if rc != 0 or shape != (b, 1000):
+                    raise SystemExit(f"phase 28 A: pd_predictor_run {dtype} mb{b}: rc {rc}, "
+                                     f"shape {shape}: {lib.pd_last_error()!r}")
+                return o.reshape(shape).copy()
+
+            m0 = _predictor_misses()
+            abi_ms, abi_out = _median_call_ms(abi)
+            abi_graphs = _predictor_misses() - m0
+            n0 = len(pred._compiled)
+            py_ms, py_out = _median_call_ms(lambda b=batch: pred.run({"img": images[b]})[0])
+            # where the time goes: the same requests from a tensor already on
+            # the card (the same signature, so the same graph), and the copy
+            # of the host images to the card alone
+            card = torch.from_numpy(images[batch]).to("cuda")
+            card_ms, card_out = _median_call_ms(lambda c=card: pred.run({"img": c})[0])
+            h2d_ms, _ = _median_call_ms(
+                lambda b=batch: (torch.from_numpy(images[b]).to("cuda"), torch.cuda.synchronize()))
+            del card
+            short_rc, _ = capi.run(lib, h, {"img": images[batch]},
+                                   np.empty(batch * 1000 - 1, np.float32))
+            f = flops.program_flops(pred.program, batch)["total"]
+            pdt = flops.product_dtype(pred.program, batch)
+            peak = flops.device_peak_flops(kind, pdt)
+            row = dict(dtype=dtype, batch=batch,
+                       ms={"abi": abi_ms, "python": py_ms, "python_card_feed": card_ms},
+                       h2d_ms=h2d_ms,
+                       images_per_s={"abi": batch / abi_ms * 1e3,
+                                     "python": batch / py_ms * 1e3},
+                       graphs_captured={"abi": int(abi_graphs),
+                                        "python": len(pred._compiled) - n0},
+                       flops=f, product_dtype=pdt, peak_flops=peak,
+                       flops_share={"abi": f / (abi_ms / 1e3) / peak if peak else None,
+                                    "python": f / (py_ms / 1e3) / peak if peak else None},
+                       byte_equal_to_python=abi_out.tobytes() == np.ascontiguousarray(
+                           py_out, np.float32).tobytes(),
+                       card_feed_byte_equal=bool(np.array_equal(card_out, py_out)),
+                       finite=bool(np.isfinite(abi_out).all()), shape=list(abi_out.shape),
+                       max_abs_logit=float(np.abs(abi_out).max()), short_buffer_rc=short_rc,
+                       num_outputs=lib.pd_predictor_num_outputs(h))
+            emit("capi_serving", **row)
+            rows.append(row)
+        threads.append(_capi_threads(lib, h, singles, dtype))
+        emit("capi_threads", **threads[-1])
+        del pred
+        gc.collect()
+        torch.cuda.empty_cache()
+    observed = _capi_observed(pt, lib, handles, images, workdir)
+    for h in handles.values():
+        lib.pd_predictor_destroy(h)
+    gc.collect()
+    torch.cuda.empty_cache()
+    a = dict(rows=rows, threads=threads, refusal=refusal, build_s=build_s,
+             observed=observed, seconds=time.perf_counter() - t0)
+    emit("capi_refusal", **refusal, build_s=build_s, observed_abi_calls=observed["abi_calls"])
+    for row in rows:
+        if not (row["byte_equal_to_python"] and row["card_feed_byte_equal"] and row["finite"]
+                and row["shape"] == [row["batch"], 1000] and row["short_buffer_rc"] == -2
+                and row["num_outputs"] == 1
+                and row["graphs_captured"] == {"abi": 1, "python": 1}):
+            raise SystemExit(f"phase 28 A: {row}")
+    for t in threads:
+        if not (t["bytes_equal_to_solo"] and t["solo_rc"] == [0] * CAPI_THREADS):
+            raise SystemExit(f"phase 28 A: threads {t}")
+    if not (refusal["handle_null"] and "Predictor(model_dir)" in refusal["message"]):
+        raise SystemExit(f"phase 28 A: a bad model_dir: {refusal}")
+    return a
+
+
+def _kill_child(proc):
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def start_chaos(workdir):
+    """B: ``python -m paddle_tpu_torch.resilience --format json`` on the card
+    with CHAOS_SPEC and ``--ckpt``, and again with ``--stream``, each with
+    the black box armed, as two processes (``main`` starts them before
+    phase 26, so that they run beside phases 26 and 27). mode -> (process,
+    dir)."""
+    procs = {}
+    for mode, extra in (("steps", ["--faults", CHAOS_SPEC]), ("stream", ["--stream"])):
+        d = os.path.join(workdir, f"chaos_{mode}")
+        os.makedirs(d)
+        env = dict(os.environ, PADDLE_TPU_OBS_BLACKBOX=os.path.join(d, "postmortems"))
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.resilience", "--format", "json",
+             "--ckpt", os.path.join(d, "ck"), *extra],
+            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        atexit.register(_kill_child, proc)
+        procs[mode] = (proc, d)
+    return procs
+
+
+def _chaos_results(procs):
+    """B's summaries: each run exits 0, each injected fault recovered, the
+    preemption resumed, every step completed (the stream run byte-identical
+    to its clean reference)."""
+    out = {}
+    for mode, (proc, d) in procs.items():
+        stdout, stderr = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise SystemExit(f"phase 28 B: the chaos CLI ({mode}) exited {proc.returncode}:\n"
+                             f"{stdout[-3000:]}\n{stderr[-3000:]}")
+        s = json.loads(stdout)
+        out[mode] = dict(summary=s, dir=d)
+    s, t = out["steps"]["summary"], out["stream"]["summary"]
+    steps = dict(steps=s["steps"], steps_completed=s["steps_completed"], events=s["events"],
+                 preempted=s["preempted"], resumed=s["resumed"],
+                 resume_start_step=s.get("resume_start_step"), final_loss=s["final_loss"])
+    stream = {k: t.get(k) for k in ("steps", "steps_completed", "preempted", "resumed",
+                                    "resume_start_step", "byte_identical", "poison_lines",
+                                    "dead_letters_attributed", "metrics_live", "events", "ok")}
+    emit("chaos_cli", steps=steps, stream=stream)
+    ev = s["events"]
+    if not (s["steps_completed"] == s["steps"] and ev["fault"] >= 3 and ev["retry"] >= 1
+            and ev["skip"] == 1 and ev["preempt"] == 1 and s["resumed"]
+            and (s["preempted"] or {}).get("saved_step") is not None
+            and s["final_loss"] is not None and np.isfinite(s["final_loss"])):
+        raise SystemExit(f"phase 28 B: the chaos run did not recover: {steps}")
+    if not (t["ok"] and t["byte_identical"] and t["preempted"] and t["resumed"]
+            and t["steps_completed"] == t["steps"]):
+        raise SystemExit(f"phase 28 B: the stream chaos run did not recover: {stream}")
+    return dict(steps=steps, stream=stream, dirs={m: r["dir"] for m, r in out.items()})
+
+
+def _tool(main, argv):
+    """One operator CLI's ``main(argv)`` in this process, as
+    ``python -m <module> argv`` runs it: (exit code, stdout, stderr)."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            rc = main(argv)
+        except SystemExit as e:
+            rc = e.code if isinstance(e.code, int) else 1
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _operator_tools(observed, chaos, workdir):
+    """C: the operator CLIs over A's and B's artifacts, each through its
+    ``main`` in this process: ``obs_report`` over A's journal, metrics dump
+    and trace (its predictor request count equal to the ABI calls of A's
+    observed window); ``postmortem`` over the bundle of B's preemption (the
+    injected faults ranked first); ``ckpt_doctor verify`` over both runs'
+    checkpoint trees, and ``fuzz`` over a copy of the stream run's (every
+    case run and detected); ``timeline`` over A's trace directory (a valid
+    trace)."""
+    from paddle_tpu_torch.observability import timeline
+    from paddle_tpu_torch.tools import ckpt_doctor, obs_report, postmortem
+    from paddle_tpu_torch.tools import timeline as timeline_cli
+    steps_dir, stream_dir = chaos["dirs"]["steps"], chaos["dirs"]["stream"]
+    pm_dir = os.path.join(steps_dir, "postmortems")
+    bundles = sorted(os.listdir(pm_dir)) if os.path.isdir(pm_dir) else []
+    if not bundles:
+        raise SystemExit("phase 28 C: B's chaos run wrote no post-mortem bundle")
+    stream_tree = os.path.join(stream_dir, "ck", "ck")     # --stream's --ckpt is its work dir
+    fuzzed = os.path.join(workdir, "fuzzed_tree")
+    shutil.copytree(stream_tree, fuzzed)
+    tl_out = os.path.join(workdir, "timeline_cli.json")
+    t0 = time.perf_counter()
+    res = {
+        "obs_report": _tool(obs_report.main, [
+            "--journal", observed["journal"], "--metrics", observed["metrics"],
+            "--trace", observed["trace"], "--goodput"]),
+        "postmortem": _tool(postmortem.main, [os.path.join(pm_dir, bundles[0]),
+                                              "--format", "json"]),
+        "verify_steps": _tool(ckpt_doctor.main, ["verify", os.path.join(steps_dir, "ck"),
+                                                 "--format", "json"]),
+        "verify_stream": _tool(ckpt_doctor.main, ["verify", stream_tree, "--format", "json"]),
+        "fuzz": _tool(ckpt_doctor.main, ["fuzz", fuzzed, "--format", "json"]),
+        "timeline": _tool(timeline_cli.main, ["--trace_dir", observed["trace_dir"],
+                                              "--timeline_path", tl_out])}
+    seconds = time.perf_counter() - t0
+    rc = {k: r[0] for k, r in res.items()}
+    report = res["obs_report"][1]
+    m = re.search(r"(\d+) predictor requests", report)
+    requests = int(m.group(1)) if m else None
+    pm = json.loads(res["postmortem"][1]) if rc["postmortem"] == 0 else {}
+    causes = [c["cause"] for c in pm.get("probable_causes", [])]
+    fuzz = json.loads(res["fuzz"][1]) if res["fuzz"][1].strip() else {}
+    verify = {k: json.loads(res[k][1]) for k in ("verify_steps", "verify_stream")
+              if res[k][1].strip()}
+    trace_events = len(timeline.validate_trace(tl_out)) if rc["timeline"] == 0 else 0
+    c = dict(rc=rc, predictor_requests=requests, abi_calls=observed["abi_calls"],
+             report_sections=re.findall(r"^== (.+) ==$", report, flags=re.M),
+             postmortem_reason=pm.get("reason"), postmortem_causes=causes[:3],
+             verify_latest_step={k: v.get("latest_complete_step") for k, v in verify.items()},
+             fuzz_cases={x["case"]: (x.get("ok"), bool(x.get("skipped")))
+                         for x in fuzz.get("cases", [])},
+             timeline_trace_events=trace_events, seconds=seconds)
+    emit("operator_tools", **c)
+    if any(rc.values()):
+        bad = {k: (r[0], r[2][-1500:]) for k, r in res.items() if r[0]}
+        raise SystemExit(f"phase 28 C: a tool failed: {bad}")
+    if requests != observed["abi_calls"] or "Timeline" not in c["report_sections"]:
+        raise SystemExit(f"phase 28 C: obs_report counts {requests} predictor requests, A made "
+                         f"{observed['abi_calls']} ABI calls: {c}")
+    if not (causes and causes[0].startswith("injected fault(s)") and "exc@dispatch" in causes[0]
+            and "nan@fetch" in causes[0]):
+        raise SystemExit(f"phase 28 C: postmortem does not name the injected cause: {c}")
+    if not (fuzz.get("ok") and len(c["fuzz_cases"]) == 4
+            and all(ok and not skipped for ok, skipped in c["fuzz_cases"].values())):
+        raise SystemExit(f"phase 28 C: ckpt_doctor fuzz: {c}")
+    return c
+
+
+def phase_serving_capi(torch, workdir, chaos=None):
+    """Phase 28: ResNet-50 served through the C ABI (A), the chaos CLI on the
+    card (B: ``chaos`` from ``start_chaos``, else started here, beside A) and
+    the operator tools over A's and B's artifacts (C)."""
+    import paddle_tpu_torch as pt
+    t0 = time.perf_counter()
+    chaos = chaos or start_chaos(workdir)
+    a = _capi_serve(torch, pt, workdir)
+    b = _chaos_results(chaos)
+    c = _operator_tools(a["observed"], b, workdir)
+    r = dict(a=a, b=b, c=c, seconds=time.perf_counter() - t0)
+    emit("serving_capi", seconds=r["seconds"])
+    return r
+
+
 def main() -> int:
     if not os.path.isfile(os.path.join(REPO, "paddle_tpu_torch", "csrc",
                                        "flash_attn_fwd.cu")):
@@ -8271,10 +8690,18 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
+    capi_dir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
+    atexit.register(shutil.rmtree, capi_dir, ignore_errors=True)
+    chaos = start_chaos(capi_dir)                                        # phase 28's B
     an = timed_phase("analysis", phase_analysis, torch, meas.pop("program"))
     torch.cuda.empty_cache()
     warm = timed_phase("warm_start", phase_warm_start, torch, warm_run)
     shutil.rmtree(serving_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    try:
+        capi_res = timed_phase("serving_capi", phase_serving_capi, torch, capi_dir, chaos)
+    finally:
+        shutil.rmtree(capi_dir, ignore_errors=True)
     os.remove(tune_cache)
     meas_l = meas["a"]["launches"]
     an_l = an["b"]["launches"]
@@ -8669,6 +9096,16 @@ def main() -> int:
         | {"checks": warm["a"]["checks"],
            "nets_attention_max_abs_err": warm["b"]["attention"]["max_abs_err"],
            "seconds": warm["seconds"]},
+        "serving_capi": {
+            "ms": {f"{r['dtype']} mb{r['batch']}": r["ms"] for r in capi_res["a"]["rows"]},
+            "flops_share": {f"{r['dtype']} mb{r['batch']}": r["flops_share"]
+                            for r in capi_res["a"]["rows"]},
+            "byte_equal_to_python": all(r["byte_equal_to_python"] for r in capi_res["a"]["rows"]),
+            "threads_equal_to_solo": all(t["bytes_equal_to_solo"]
+                                         for t in capi_res["a"]["threads"]),
+            "chaos_events": capi_res["b"]["steps"]["events"],
+            "stream_chaos_ok": capi_res["b"]["stream"]["ok"],
+            "tools_rc": capi_res["c"]["rc"], "seconds": capi_res["seconds"]},
         "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -134,6 +134,23 @@ def recent(n: Optional[int] = None, event: Optional[str] = None) -> List[dict]:
     return evs[-n:] if n else evs
 
 
+def read_journal(path: Optional[str] = None) -> List[dict]:
+    """Parse a JSONL journal file (``journal_path()`` by default), skipping
+    blank lines and a torn last line of a killed process."""
+    path = path or journal_path()
+    out = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                out.append(json.loads(line))
+            except ValueError:
+                continue
+    return out
+
+
 def clear():
     global _rank_cache, _ring
     cap = ring_capacity()

@@ -155,17 +155,34 @@ def _trace_events(host_pid: int = PID_PHASES) -> List[dict]:
     return events
 
 
+def _anchor_delta(records: List[tuple], ranges: List[float]) -> float:
+    """The trace-minus-perf_counter offset (us) from one name's record
+    events and that name's ranges, paired from the last (a late session
+    drops its first records, ROADMAP fault 3.2). Each pair bounds the
+    offset: the range's stamp lies between the readings before and after
+    the entry. The middle of the bounds all pairs share; when they share
+    none (a pairing that is off), the middle of the last pair's."""
+    pairs = list(zip(reversed(records), reversed(ranges)))
+    lo = max(r - t_in * 1e6 for (_t0, t_in), r in pairs)
+    hi = min(r - t0 * 1e6 for (t0, _t_in), r in pairs)
+    if lo <= hi:
+        return (lo + hi) / 2
+    (t0, t_in), r = pairs[0]
+    return r - (t0 + t_in) / 2 * 1e6
+
+
 def _shift_onto_trace(perf_events: List[dict], trace: dict,
                       trace_dir: Optional[str] = None) -> List[dict]:
     """Re-clock perf_counter-domain events onto a ``torch.profiler`` trace.
 
     The anchor, in order of precision:
-    - a ``fluid.profiler`` record event (``profiler._agg.spans``: its
-      perf_counter start) and its ``record_function`` range in the trace,
-      opened microseconds apart: the last event of the first name they
-      share, paired with that name's last range (a late session drops its
-      first records, ROADMAP fault 3.2, so the first range of a repeated
-      name may be a later event's);
+    - the ``fluid.profiler`` record events (``profiler._agg.spans``) of
+      the first name the trace also holds as ``record_function`` ranges:
+      each event's perf_counter readings before and after the range's
+      entry bound the offset, and the middle of the bounds that every pair
+      shares is taken (``_anchor_delta``; the entry alone can take tens of
+      microseconds, so one reading on one side of it skews every span by
+      that much, ROADMAP fault 3.36);
     - ``profiler._agg.trace_anchor``, (trace_dir, perf_counter, wall clock)
       at the start of the session of that ``trace_dir``: the trace's
       timestamps are wall-clock microseconds less its
@@ -175,16 +192,18 @@ def _shift_onto_trace(perf_events: List[dict], trace: dict,
     from .. import profiler as _profiler
     events = trace.get("traceEvents", [])
     delta = None
-    ranges: Dict[str, float] = {}
+    ranges: Dict[str, List[float]] = {}
     for e in events:
         if e.get("cat") == "user_annotation" and e.get("ph") == "X":
-            ranges[e.get("name")] = max(float(e["ts"]), ranges.get(e.get("name"), -1.0))
-    starts: Dict[str, float] = {}
-    for name, t0, _dt in sorted(_profiler._agg.spans, key=lambda s: s[1]):
-        starts[name] = t0
-    for name, t0 in starts.items():       # the first name's last start
+            ranges.setdefault(e.get("name"), []).append(float(e["ts"]))
+    records: Dict[str, List[tuple]] = {}
+    for s in sorted(_profiler._agg.spans, key=lambda s: s[1]):
+        # (perf_counter before, after record_function's entry): the range's
+        # stamp lies between them
+        records.setdefault(s[0], []).append((s[1], s[3] if len(s) > 3 else s[1]))
+    for name, recs in records.items():    # the first name both hold
         if name in ranges:
-            delta = ranges[name] - t0 * 1e6
+            delta = _anchor_delta(recs, sorted(ranges[name]))
             break
     anchor = getattr(_profiler._agg, "trace_anchor", None)
     base_ns = trace.get("baseTimeNanoseconds")

@@ -39,7 +39,7 @@ class _Agg(threading.local):
         # plain dict, NOT defaultdict: a read (summary on a name that never
         # fired) must not materialize an empty row as a side effect
         self.times: Dict[str, list] = {}
-        self.spans: list = []   # (name, start_s, dur_s) for timeline export
+        self.spans: list = []   # (name, start_s, dur_s, entered_s) for timeline export
         self.enabled = False
         self.session = None     # the active torch.profiler.profile, if any
         self.trace_dir: Optional[str] = None
@@ -50,15 +50,21 @@ _agg = _Agg()
 
 @contextlib.contextmanager
 def record_event(name: str):
-    """RAII host annotation (reference RecordEvent, profiler.h:81)."""
+    """RAII host annotation (reference RecordEvent, profiler.h:81). The
+    span kept for the timeline is (name, start, seconds, entered): the
+    perf_counter readings before and after ``record_function``'s entry
+    bracket the instant its range is stamped in a trace (the entry alone
+    takes tens of microseconds under a session), and that bracket is what
+    puts the flight recorder's spans on the trace's clock."""
     import torch
     t0 = time.perf_counter()
     with torch.profiler.record_function(name):
+        t_in = time.perf_counter()
         yield
     if _agg.enabled:
         dt = time.perf_counter() - t0
         _agg.times.setdefault(name, []).append(dt)
-        _agg.spans.append((name, t0, dt))
+        _agg.spans.append((name, t0, dt, t_in))
         # one histogram per event label, fed from this same site, so the
         # aggregate table and the registry cannot disagree
         from .observability.metrics import REGISTRY
@@ -190,7 +196,7 @@ def _host_span_events(pid: int = 90000):
     events = [{"ph": "M", "pid": pid, "name": "process_name",
                "args": {"name": "paddle_tpu_torch host (RecordEvent)"}}]
     # spans append at scope EXIT (inner before outer): sort by start
-    for name, t0, dt in sorted(_agg.spans, key=lambda s: s[1]):
+    for name, t0, dt, *_ in sorted(_agg.spans, key=lambda s: s[1]):
         events.append({"ph": "X", "pid": pid, "tid": 0, "name": name,
                        "ts": max(t0, 0.0) * 1e6, "dur": max(dt, 0.0) * 1e6,
                        "cat": "host"})
@@ -226,6 +232,13 @@ def export_chrome_tracing(trace_dir: Optional[str] = None,
                                              include_profiler=True)
 
 
+def _int_pid(pid) -> Optional[int]:
+    try:
+        return int(pid)
+    except (TypeError, ValueError):
+        return None
+
+
 def merge_chrome_traces(paths, output_path: str = "timeline.json") -> str:
     """Merge per-process Chrome traces into one timeline with disjoint pids
     (the reference tools/timeline.py multi-process merge: each input's pids
@@ -251,12 +264,15 @@ def merge_chrome_traces(paths, output_path: str = "timeline.json") -> str:
                     f"merge_chrome_traces: input {i} ({p!r}) is not valid trace JSON "
                     f"(empty or truncated capture?): {e}") from e
         events = t.get("traceEvents", [])
-        pids = [int(e["pid"]) for e in events if "pid" in e]
+        pids = [n for n in (_int_pid(e["pid"]) for e in events if "pid" in e) if n is not None]
         base = offset - min(pids) if pids else offset
         for e in events:
             e = dict(e)
             if "pid" in e:
-                e["pid"] = base + int(e["pid"])
+                n = _int_pid(e["pid"])
+                # a named pid (torch.profiler's "Spans") stays a name, tagged
+                # with its input
+                e["pid"] = base + n if n is not None else f"proc{i}: {e['pid']}"
             if e.get("ph") == "M" and e.get("name") == "process_name":
                 e.setdefault("args", {})
                 e["args"]["name"] = f"proc{i}: {e['args'].get('name', '')}"

@@ -2,6 +2,7 @@
 and it never falls back to the CPU on its own."""
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -78,6 +79,53 @@ def test_port_import_leaves_jax_unloaded():
                        env=dict(os.environ, PYTHONPATH=ROOT),
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+def _c_sources():
+    out = []
+    for sub in ("native", "csrc"):
+        d = os.path.join(PORT, sub)
+        out += [os.path.relpath(os.path.join(d, f), ROOT) for f in sorted(os.listdir(d))
+                if f.endswith((".cpp", ".cc", ".cu", ".cuh", ".h"))]
+    return out
+
+
+def _without_comments(text):
+    """C/C++ source with its // and /* */ comments blanked (string literals
+    kept: an import from C names its module in one)."""
+    return re.sub(r'"(?:\\.|[^"\\])*"|//[^\n]*|/\*.*?\*/',
+                  lambda m: m.group(0) if m.group(0).startswith('"') else " ",
+                  text, flags=re.S)
+
+
+@pytest.mark.parametrize("path", _c_sources())
+def test_port_c_source_embeds_no_jax_import(path):
+    """The C serving ABI imports Python modules by name from C: no C or C++
+    source of the port may name JAX or a module of the JAX package in code
+    (comments may cite the reference)."""
+    with open(os.path.join(ROOT, path)) as f:
+        code = _without_comments(f.read())
+    bad = re.findall(r"\b(?:jax|jaxlib|ml_dtypes)\b|\bpaddle_tpu\b(?!_torch)", code)
+    assert not bad, f"{path} names {sorted(set(bad))}"
+
+
+def test_the_c_scan_sees_an_embedded_import():
+    src = '// paddle_tpu.inference in a comment\nPyImport_ImportModule("paddle_tpu.inference");'
+    code = _without_comments(src)
+    assert "comment" not in code and '"paddle_tpu.inference"' in code
+    assert re.findall(r"\bpaddle_tpu\b(?!_torch)", code)
+    assert "native/serving_capi.cpp" in " ".join(_c_sources())
+
+
+def test_the_operator_clis_default_to_the_card(tmp_path, capsys):
+    from paddle_tpu_torch.resilience import __main__ as chaos
+    from paddle_tpu_torch.tools import ckpt_doctor
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card: the default device exists")
+    assert chaos.main(["--steps", "1", "--format", "json"]) == 1
+    assert "CUDA" in capsys.readouterr().err
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ckpt_doctor.selftest()
 
 
 def test_importing_the_port_builds_nothing():

@@ -114,8 +114,16 @@ def test_three_momentum_steps_match_jax(jax_runs):
 
 def test_decode_and_edit_distance_match_jax(jax_runs):
     """The port's decode program on the JAX-trained weights: logits within
-    rtol 1e-5, then ids, lengths and (normalised) edit distances exactly; and
-    the port's ``ctc_align`` on the JAX logits equals the JAX decode."""
+    rtol 1e-5 and an absolute 1e-5 of the largest logit, then ids, lengths
+    and (normalised) edit distances exactly; and the port's ``ctc_align`` on
+    the JAX logits equals the JAX decode.
+
+    The logits' tolerance scales with their magnitude: they are f32 sums
+    taken in two orders (the port's and XLA's), and the two part by a few
+    f32 ulps of the largest logit (~1e-6 at logits of ~3). Both lie within
+    16 such ulps of the port's float64 run of the same program on the same
+    state, which the test checks first: the gap is rounding, not a wrong
+    result."""
     _, _, _, state, feed, (jlogits, jdec, jlen, jdist), _ = jax_runs
     assert jlen.max() > 1 and len(set(jlen.tolist())) > 1, (jlen, jdec)
     dec = ocr.build_crnn_ctc(pt, CFG, train=False)
@@ -123,7 +131,20 @@ def test_decode_and_edit_distance_match_jax(jax_runs):
         logits, decoded, length, dist = pt.Executor(CPU).run(
             dec.main, feed=feed, fetch_list=[dec.logits, dec.decoded, dec.decoded_length,
                                              dec.distance])
-    np.testing.assert_allclose(logits, jlogits, rtol=1e-5, atol=1e-6)
+
+    def f64(arrays):
+        return {k: v.astype(np.float64) if v.dtype == np.float32 else v
+                for k, v in arrays.items()}
+
+    with pt.scope_guard(_port_scope(f64(state))):
+        exact, = pt.Executor(CPU).run(dec.main, feed=f64(feed), fetch_list=[dec.logits])
+    exact = np.asarray(exact)
+    assert exact.dtype == np.float64
+    scale = float(np.abs(jlogits).max())
+    for got in (logits, jlogits):
+        assert np.abs(np.asarray(got, np.float64) - exact).max() <= 16 * np.spacing(
+            np.float32(scale))
+    np.testing.assert_allclose(logits, jlogits, rtol=1e-5, atol=1e-5 * scale)
     align = treg.get("ctc_align").lower(
         treg.LowerCtx({"blank": CFG.blank, "padding_value": 0}, "cpu"),
         {"Input": [torch.from_numpy(jlogits)],

@@ -16,8 +16,9 @@ YOLOv3 at 608 x 608 and the three other detectors, train and serve
 CRNN-CTC, and measure BERT-base's training and serving with the port's
 measurement stack (goodput, MFU, memory, the anomaly detector, per-op
 attribution, SLO alerts, ``fluid.profiler``), restart a BERT-base
-serving replica cold and warm through the warm store, and serve ResNet-50
-through the C serving ABI beside the chaos CLI and the operator tools,
+serving replica cold and warm through the warm store, serve ResNet-50
+through the C serving ABI beside the chaos CLI and the operator tools, and
+train BERT-base eagerly through the dygraph tape, trace it and serve it,
 through the PyTorch/CUDA port on one NVIDIA GPU, and hold its CUDA kernels
 against their plain PyTorch versions.
 
@@ -517,6 +518,32 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    rc 0. Alone (B beside A): ``mkdir -p build; python3 -c "import tempfile,
    torch, chip_smoke as cs; cs.phase_build(); cs.phase_serving_capi(torch,
    tempfile.mkdtemp(dir='build'))"``;
+11h. phase 29, dygraph (``paddle_tpu_torch/dygraph/``), under
+   ``dygraph.guard()`` on the card. A: one bf16 ``fused_attention`` through
+   the tape (``trace_op``) at B128 H12 S128 D64, dropout 0.1, then
+   ``reduce_sum`` and ``backward()``: one K1-fwd and one K1-bwd launch, O
+   and dQ/dK/dV against ``attention_plain`` / ``attention_bwd_plain`` under
+   the op's own seed (its tape salt) at phase 3's bf16 tolerances, and
+   dV against the plain backward under the next salt parting by more (a
+   wrong salt would fail). B: BERT-base's encoder composed from dygraph
+   layers (``tools/dygraph_bert.py``: vocabulary 30522, hidden 768, 12
+   layers, 12 heads, FFN 3072), f32, B32 S128, loaded with the startup
+   weights of the static ``models.bert.encoder`` program by name: 3
+   ``AdamOptimizer`` steps of mean(square(out)) at dropout 0 against the
+   same 3 steps of the static program (captured), losses within 1e-4
+   relative; then 5 steps at dropout 0.1 (finite losses; K1-fwd 12, K1-bwd
+   12 and 25 dropout launches a step; step ms by CUDA events, the median
+   of the last four, split into forward, backward and update) and a sixth
+   under the profiler (device busy ms, idle share). C: the trained encoder
+   in ``eval()`` traced by ``TracedLayer.trace`` at B8, run on the port's
+   ``Executor`` (captured) at B8 and B1 three times each, exported by
+   ``save_inference_model`` and served by the ``Predictor`` (8 requests,
+   12 K1-fwd launches a request after the first), each against the eager
+   output within 1e-5. D: ``save_dygraph`` / ``load_dygraph`` of its 149
+   arrays byte for byte, and back into the model bit for bit. Alone: ``mkdir
+   -p build; python3 -c "import tempfile, torch, chip_smoke as cs;
+   cs.phase_build(); cs.phase_dygraph(torch, tempfile.mkdtemp(dir='build'))"``
+   (about 30 s after the build);
 12. the kernels line (``multi_tensor_update`` with its five kinds, each
    with its launches; K1-fwd's 64-row tile as ``flash_attn_fwd_q64``),
    then the result line.
@@ -8529,6 +8556,277 @@ def phase_serving_capi(torch, workdir, chaos=None):
     return r
 
 
+# -- phase 29: dygraph --------------------------------------------------------------------
+
+# BERT-base trained eagerly through the dygraph tape (B): batch x seq tokens in f32,
+# Adam at this rate; three steps at dropout 0 against the static program, then five
+# with dropout 0.1
+DY_BATCH, DY_SEQ, DY_LR = 32, 128, 1e-4
+DY_STATIC_STEPS, DY_DROPOUT_STEPS = 3, 5
+# the eager losses against the static program's from the same weights: both run the
+# same kernels and cuBLAS products in f32 (TF32 off), the tape's generic grad ops
+# differentiate kept graphs as the executor's do, and the updates are the adam
+# lowering against multi_tensor_update's (bit for bit in phase 9); what differs is the
+# order of a few f32 sums (the grad accumulation of a var read twice), 1e-4 relative
+DY_LOSS_RTOL = 1e-4
+# traced (C): the traced program at the serving batch and at 1 row, and 8 Predictor
+# requests, against the eager output in f32: the same lowerings and kernels, launched
+# from the executor's graph instead of the tape (layer-norm outputs of unit scale)
+DY_SERVE_BATCH, DY_REQUESTS = 8, 8
+DY_TRACED_RTOL = DY_TRACED_ATOL = 1e-5
+
+
+def _dy_attention(torch, dg, fa):
+    """A: one bf16 ``fused_attention`` through the tape at B128 H12 S128 D64,
+    dropout 0.1, then ``reduce_sum`` and ``backward()``: O, dQ, dK, dV held
+    against the plain versions under the op's own seed (the tape's salt,
+    replayed into its grad op)."""
+    from paddle_tpu_torch.core.registry import seed_int
+    from paddle_tpu_torch.dygraph import base
+    B, H, S, D, p = 128, 12, 128, 64, ATTN_DROPOUT
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 29)
+    q, k, v, bias = _attn_inputs(torch, B, H, S, D, torch.bfloat16, True, gen)
+    Q, K, V = (dg.to_variable(t) for t in (q, k, v))
+    bv = dg.to_variable(bias)
+    bv.stop_gradient = True
+    scale = 1.0 / D ** 0.5
+    _zero_launches()
+    o = dg.trace_op("fused_attention", {"Q": [Q], "K": [K], "V": [V], "Bias": [bv]},
+                    {"scale": scale, "dropout_prob": p}, ["Out"])["Out"][0]
+    salt = base._state.tape[-1]["salt"]
+    total = dg.trace_op("reduce_sum", {"X": [o]}, {"reduce_all": True}, ["Out"])["Out"][0]
+    total.backward()
+    torch.cuda.synchronize()
+    launches = {"k1_fwd": _k1_launches(), "k1_bwd": fa.flash_attn_bwd.launches}
+    seed = seed_int(0, 0, salt)
+    err = lambda a, r: (a.float() - r.float()).abs().max().item()
+    ref_o = fa.attention_plain(q, k, v, bias, scale, False, p, seed)
+    fwd_tol = max(ATOL["bfloat16"], FWD_REL_BF16 * ref_o.float().abs().max().item())
+    fwd_err = err(o.value, ref_o)
+    ref_g = fa.attention_bwd_plain(q, k, v, bias, o.value, torch.ones_like(o.value), scale,
+                                   False, p, seed)
+    grads = {n: dict(max_abs_err=err(t.grad, r), max_abs_ref=r.float().abs().max().item())
+             for n, t, r in zip(("dq", "dk", "dv"), (Q, K, V), ref_g)}
+    # the mask the backward regenerated is the forward's: a wrong salt draws another
+    # mask, which moves every gradient by O(1) of its scale
+    other = fa.attention_bwd_plain(q, k, v, bias, o.value, torch.ones_like(o.value), scale,
+                                   False, p, seed_int(0, 0, salt + 1))
+    wrong_salt_err = err(V.grad, other[2])
+    ok = (fwd_err <= fwd_tol and launches == {"k1_fwd": 1, "k1_bwd": 1}
+          and all(g["max_abs_err"] <= BWD_REL["bfloat16"] * g["max_abs_ref"]
+                  for g in grads.values())
+          and wrong_salt_err > BWD_REL["bfloat16"] * grads["dv"]["max_abs_ref"])
+    r = dict(shape=[B, H, S, D], dtype="bfloat16", dropout=p, salt=salt, seed=seed,
+             max_abs_err=fwd_err, atol=fwd_tol, grads=grads, rel_tol=BWD_REL["bfloat16"],
+             dv_err_under_another_salt=wrong_salt_err, launches=launches, ok=ok)
+    emit("dygraph_attention", **r)
+    if not ok:
+        raise SystemExit(f"dygraph fused_attention through the tape failed: {r}")
+    return r
+
+
+def _dy_counts(dropout_mod, fa):
+    return {"flash_attn_fwd": fa.flash_attn_fwd.launches,
+            "flash_attn_fwd_q64": fa.flash_attn_fwd_q64.launches,
+            "flash_attn_bwd": fa.flash_attn_bwd.launches,
+            "dropout_fwd": dropout_mod.dropout_fwd.launches}
+
+
+def _dy_static(torch, pt, bert, db, cfg, feed):
+    """The static ``models.bert.encoder`` program: its startup weights (on
+    the card) and its losses over DY_STATIC_STEPS, captured after the first."""
+    main, startup, _, total = db.static_encoder(pt, bert, cfg, DY_BATCH, DY_SEQ, DY_LR)
+    exe, scope = pt.Executor(), pt.Scope()
+    with pt.scope_guard(scope):
+        exe.run(startup)
+        init = {p.name: scope.find_var(p.name).clone() for p in main.all_parameters()}
+        losses = [float(exe.run(main, feed=feed, fetch_list=[total])[0].reshape(-1)[0])
+                  for _ in range(DY_STATIC_STEPS)]
+    exe.close()
+    return init, losses
+
+
+def _dy_train(torch, pt, dg, bert, db, fa, dropout_mod):
+    """B: BERT-base from dygraph layers, in f32 at dropout 0 against the
+    static program from the same weights (3 Adam steps), then 5 steps with
+    dropout 0.1: losses, step ms and launches a step."""
+    cfg = bert.BertConfig(dropout=0.0)
+    feed = db.feed(np.random.RandomState(SEED), cfg, DY_BATCH, DY_SEQ)
+    init, static_losses = _dy_static(torch, pt, bert, db, cfg, feed)
+    ins = [dg.to_variable(feed[n]) for n, _ in db.FEEDS]
+
+    def model_and_opt(c):
+        with pt.unique_name.guard():
+            m = db.build_encoder(c)
+        db.load_static_state(m, init)
+        return m, dg.AdamOptimizer(DY_LR)
+
+    model, opt = model_and_opt(cfg)
+    losses = []
+    _zero_launches()
+    for _ in range(DY_STATIC_STEPS):
+        total = db.loss(dg, model(*ins))
+        opt.minimize(total, parameter_list=model.parameters())
+        losses.append(float(total.numpy().reshape(-1)[0]))
+    f32_launches = _dy_counts(dropout_mod, fa)
+    del model, opt
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, static_losses)]
+
+    model, opt = model_and_opt(bert.BertConfig(dropout=ATTN_DROPOUT))
+    marks, dropped = [], []
+    torch.cuda.synchronize()
+    _zero_launches()
+    # DY_DROPOUT_STEPS timed steps, then one more under the profiler: CUDA events
+    # after the forward, the tape's backward and the Adam updates
+    for i in range(DY_DROPOUT_STEPS + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        prof = (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                   torch.profiler.ProfilerActivity.CUDA])
+                if i == DY_DROPOUT_STEPS else contextlib.nullcontext())
+        with prof:
+            ev[0].record()
+            total = db.loss(dg, model(*ins))
+            ev[1].record()
+            total.backward()
+            ev[2].record()
+            opt.minimize(total, parameter_list=model.parameters())
+            ev[3].record()
+            torch.cuda.synchronize()
+        marks.append(ev)
+        dropped.append(total)
+    counts = _dy_counts(dropout_mod, fa)
+    busy_ms = _device_busy_ms(prof)
+    drop_losses = [float(t.numpy().reshape(-1)[0]) for t in dropped]
+    parts = [[ev[j].elapsed_time(ev[j + 1]) for j in range(3)] for ev in marks]
+    step_ms = [sum(p) for p in parts[:DY_DROPOUT_STEPS]]
+    median_ms = statistics.median(step_ms[1:])
+    per_step = {k: v / (DY_DROPOUT_STEPS + 1) for k, v in counts.items()}
+    ok = (max(gaps) <= DY_LOSS_RTOL and all(np.isfinite(drop_losses))
+          and all(np.isfinite(losses)) and per_step["flash_attn_bwd"] == cfg.n_layers
+          and per_step["flash_attn_fwd"] + per_step["flash_attn_fwd_q64"] == cfg.n_layers
+          and per_step["dropout_fwd"] == 2 * cfg.n_layers + 1)
+    r = dict(batch=DY_BATCH, seq=DY_SEQ, lr=DY_LR, layers=cfg.n_layers,
+             static_losses=static_losses,
+             eager_losses=losses, loss_rel_gaps=gaps, rtol=DY_LOSS_RTOL,
+             f32_dropout0_launches=f32_launches, dropout_losses=drop_losses,
+             step_ms=step_ms, step_ms_median_last4=median_ms,
+             forward_backward_update_ms=[statistics.median(p[j] for p in parts[1:-1])
+                                         for j in range(3)],
+             profiled_step_ms=sum(parts[-1]), device_busy_ms=busy_ms,
+             idle_share=max(0.0, 1 - busy_ms / median_ms),
+             launches=counts, launches_per_step=per_step, ok=ok)
+    emit("dygraph_training", **r)
+    if not ok:
+        raise SystemExit(f"dygraph BERT-base training failed: {r}")
+    return r, model, cfg, feed
+
+
+def _dy_serve(torch, pt, dg, db, fa, dropout_mod, model, cfg, feed, workdir):
+    """C: the trained encoder in eval mode traced at DY_SERVE_BATCH, run on
+    the executor (captured) at that batch and at 1 row, exported and served
+    by the Predictor: each against the eager output."""
+    model.eval()
+    names = [n for n, _ in db.FEEDS]
+    batch = {n: feed[n][:DY_SERVE_BATCH] for n in names}
+    one = {n: feed[n][:1] for n in names}
+    out, traced = dg.TracedLayer.trace(model, [dg.to_variable(batch[n]) for n in names])
+    with dg.no_grad():
+        eager1 = model(*[dg.to_variable(one[n]) for n in names]).value
+    eager = out.value
+    err = lambda a, b: float((torch.as_tensor(a, device="cuda") - b).abs().max())
+    close = lambda a, b: bool(torch.allclose(torch.as_tensor(a, device="cuda"), b,
+                                             rtol=DY_TRACED_RTOL, atol=DY_TRACED_ATOL))
+    _zero_launches()
+    runs = [traced([batch[n] for n in names])[0] for _ in range(3)]
+    runs1 = [traced([one[n] for n in names])[0] for _ in range(3)]
+    torch.cuda.synchronize()
+    traced_launches = _dy_counts(dropout_mod, fa)
+    d = os.path.join(workdir, "dygraph_bert")
+    traced.save_inference_model(d)
+    pred = pt.inference.Predictor(d)
+    rng = np.random.RandomState(SEED + 1)
+    reqs = [db.feed(rng, cfg, DY_SERVE_BATCH, DY_SEQ) for _ in range(DY_REQUESTS)]
+    with dg.no_grad():
+        want = [model(*[dg.to_variable(f[n]) for n in names]).value for f in reqs]
+    torch.cuda.synchronize()
+    _zero_launches()
+    # the first request runs its signature eagerly and then captures and replays it:
+    # the rest replay the graph
+    served = [pred.run([f[n] for n in names])[0] for f in reqs[:1]]
+    first_k1 = _k1_launches()
+    served += [pred.run([f[n] for n in names])[0] for f in reqs[1:]]
+    torch.cuda.synchronize()
+    serve_launches = _dy_counts(dropout_mod, fa)
+    k1_per_request = (_k1_launches() - first_k1) / (DY_REQUESTS - 1)
+    n_layers = cfg.n_layers
+    ok = (all(close(x, eager) for x in runs) and all(close(x, eager1) for x in runs1)
+          and all(close(s, w) for s, w in zip(served, want))
+          and all(np.isfinite(s).all() for s in served) and k1_per_request == n_layers
+          and traced_launches["flash_attn_bwd"] == 0 and traced_launches["dropout_fwd"] == 0
+          and (traced_launches["flash_attn_fwd"] + traced_launches["flash_attn_fwd_q64"])
+          == 6 * n_layers)
+    r = dict(batch=DY_SERVE_BATCH, ops=len(traced.program.global_block().ops),
+             traced_max_abs_err=max(err(x, eager) for x in runs),
+             traced_b1_max_abs_err=max(err(x, eager1) for x in runs1),
+             predictor_max_abs_err=max(err(s, w) for s, w in zip(served, want)),
+             rtol=DY_TRACED_RTOL, atol=DY_TRACED_ATOL,
+             traced_launches=traced_launches, serve_launches=serve_launches,
+             k1_fwd_first_request=first_k1, k1_fwd_per_request=k1_per_request, ok=ok)
+    emit("dygraph_traced_serving", **r)
+    if not ok:
+        raise SystemExit(f"the traced dygraph encoder disagrees with the eager one: {r}")
+    traced._executor().close()
+    return r
+
+
+def _dy_checkpoint(dg, model, workdir):
+    """D: save_dygraph then load_dygraph of the trained encoder: every array
+    byte for byte, and back into the model's tensors bit for bit."""
+    import torch
+    sd = model.state_dict()
+    path = os.path.join(workdir, "dygraph_ckpt", "encoder")
+    t0 = time.perf_counter()
+    dg.save_dygraph(sd, path)
+    loaded, _ = dg.load_dygraph(path)
+    seconds = time.perf_counter() - t0
+    before = {n: p.value.clone() for n, p in model.named_parameters()}
+    model.set_dict(loaded)
+    ok = (sorted(loaded) == sorted(sd)
+          and all(loaded[n].dtype == sd[n].dtype and loaded[n].tobytes() == sd[n].tobytes()
+                  for n in sd)
+          and all(torch.equal(p.value, before[n]) for n, p in model.named_parameters()))
+    r = dict(arrays=len(sd), bytes=int(sum(a.nbytes for a in sd.values())),
+             seconds=seconds, ok=ok)
+    emit("dygraph_checkpoint", **r)
+    if not ok:
+        raise SystemExit(f"the dygraph checkpoint does not round-trip: {r}")
+    return r
+
+
+def phase_dygraph(torch, workdir):
+    """Phase 29: dygraph on the card. A: K1-fwd and K1-bwd launched from the
+    tape against their plain versions under the tape's seed; B: BERT-base
+    trained eagerly (f32 against the static program, then with dropout);
+    C: traced, run captured and served; D: its checkpoint round-tripped."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import dygraph as dg
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops import dropout as dropout_mod
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.tools import dygraph_bert as db
+    t0 = time.perf_counter()
+    with dg.guard():
+        a = _dy_attention(torch, dg, fa)
+        torch.cuda.empty_cache()
+        b, model, cfg, feed = _dy_train(torch, pt, dg, bert, db, fa, dropout_mod)
+        c = _dy_serve(torch, pt, dg, db, fa, dropout_mod, model, cfg, feed, workdir)
+        d = _dy_checkpoint(dg, model, workdir)
+    r = dict(a=a, b=b, c=c, d=d, seconds=time.perf_counter() - t0)
+    emit("dygraph", seconds=r["seconds"])
+    return r
+
+
 def main() -> int:
     if not os.path.isfile(os.path.join(REPO, "paddle_tpu_torch", "csrc",
                                        "flash_attn_fwd.cu")):
@@ -8702,6 +9000,12 @@ def main() -> int:
         capi_res = timed_phase("serving_capi", phase_serving_capi, torch, capi_dir, chaos)
     finally:
         shutil.rmtree(capi_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
+    try:
+        dyg = timed_phase("dygraph", phase_dygraph, torch, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     os.remove(tune_cache)
     meas_l = meas["a"]["launches"]
     an_l = an["b"]["launches"]
@@ -8714,6 +9018,14 @@ def main() -> int:
                     and r["block_q"] == 64)
     q128_tiles = {f"B{r['shape'][0]} S{r['shape'][2]}": r["ms"] for r in tier["tiles"]
                   if r["block_q"] == 128 and r["shape"][1] == 12}
+    # phase 29's paths: the eager BERT-base steps (B), the traced program and its
+    # Predictor (C)
+    dy_l = {"dygraph_bert_training": {k: dyg["b"]["f32_dropout0_launches"][k]
+                                      + dyg["b"]["launches"][k]
+                                      for k in dyg["b"]["launches"]},
+            "dygraph_traced_serving": {k: dyg["c"]["traced_launches"][k]
+                                       + dyg["c"]["serve_launches"][k]
+                                       for k in dyg["c"]["serve_launches"]}}
     book_launches = {c["chapter"]: c["train_launches"] for c in book_chapters}
     e2e_launches = e2e["epochs"]["prefetch"]["multi_tensor_update_launches"]
     ctr_launches = ctr["launches"]["graph"]["multi_tensor_update"]
@@ -8743,7 +9055,8 @@ def main() -> int:
                                                              "recompute_lamb_bert_training")},
                      **{k: v["dropout_fwd"] for k, v in surf_l.items()},
                      "measurement_stack_training": meas_l.get("dropout_fwd", 0),
-                     "analysis_gate_training": an_l.get("dropout_fwd", 0)}
+                     "analysis_gate_training": an_l.get("dropout_fwd", 0),
+                     **{k: v["dropout_fwd"] for k, v in dy_l.items()}}
     # multi_tensor_update's calls by path, each path's kind, and each kind's launches
     mt_calls = {"training": ("adam", train_launches["multi_tensor_update"]),
                 "resnet50_training": ("momentum", resnet_launches["multi_tensor_update"]),
@@ -8812,7 +9125,8 @@ def main() -> int:
                       + opt_l["recompute_lamb_bert_training"]["flash_attn_fwd"]
                       + surf_l["pipeline_bert_training"]["flash_attn_fwd"]
                       + sum(v.get("flash_attn_fwd", 0) for v in tier_l.values())
-                      + meas_l["flash_attn_fwd"] + an_l["flash_attn_fwd"] + warm_k1),
+                      + meas_l["flash_attn_fwd"] + an_l["flash_attn_fwd"] + warm_k1
+                      + sum(v["flash_attn_fwd"] for v in dy_l.values())),
          "launches_by_path": {"serving": serve_launches["flash_attn_fwd"],
                               "int8_serving": int8_launches["flash_attn_fwd"],
                               "training": train_launches["flash_attn_fwd"],
@@ -8826,7 +9140,8 @@ def main() -> int:
                               **{k: v.get("flash_attn_fwd", 0) for k, v in tier_l.items()},
                               "measurement_stack_training": meas_l["flash_attn_fwd"],
                               "analysis_gate_training": an_l["flash_attn_fwd"],
-                              "nets_attention": warm_k1},
+                              "nets_attention": warm_k1,
+                              **{k: v["flash_attn_fwd"] for k, v in dy_l.items()}},
          "max_abs_err": fwd_err, **{k: train_fwd[k] for k in keys},
          "serving_tile_128_ms": q128_tiles,
          "shape": "B128 H12 S128 D64 bf16, bias, dropout 0.1, LSE (the training path)",
@@ -8857,7 +9172,8 @@ def main() -> int:
                       + opt_l["lamb_bert_training"]["flash_attn_bwd"]
                       + opt_l["recompute_lamb_bert_training"]["flash_attn_bwd"]
                       + surf_l["pipeline_bert_training"]["flash_attn_bwd"]
-                      + meas_l["flash_attn_bwd"] + an_l["flash_attn_bwd"]),
+                      + meas_l["flash_attn_bwd"] + an_l["flash_attn_bwd"]
+                      + sum(v["flash_attn_bwd"] for v in dy_l.values())),
          "launches_by_path": {"training": train_launches["flash_attn_bwd"],
                               "scheduled_bert_training":
                                   sched_l["scheduled_bert_training"]["flash_attn_bwd"],
@@ -8867,7 +9183,8 @@ def main() -> int:
                               "pipeline_bert_training":
                                   surf_l["pipeline_bert_training"]["flash_attn_bwd"],
                               "measurement_stack_training": meas_l["flash_attn_bwd"],
-                              "analysis_gate_training": an_l["flash_attn_bwd"]},
+                              "analysis_gate_training": an_l["flash_attn_bwd"],
+                              **{k: v["flash_attn_bwd"] for k, v in dy_l.items()}},
          "max_abs_err": bwd_err,
          **{k: train_bwd[k] for k in keys},
          "shape": "B128 H12 S128 D64 bf16, bias, dropout 0.1 (the training path)",
@@ -9106,6 +9423,23 @@ def main() -> int:
             "chaos_events": capi_res["b"]["steps"]["events"],
             "stream_chaos_ok": capi_res["b"]["stream"]["ok"],
             "tools_rc": capi_res["c"]["rc"], "seconds": capi_res["seconds"]},
+        "dygraph": {
+            "tape_attention": {"max_abs_err": dyg["a"]["max_abs_err"],
+                               "grads_max_abs_err": {n: g["max_abs_err"]
+                                                     for n, g in dyg["a"]["grads"].items()},
+                               "launches": dyg["a"]["launches"]},
+            "static_losses": dyg["b"]["static_losses"], "eager_losses": dyg["b"]["eager_losses"],
+            "loss_rel_gaps": dyg["b"]["loss_rel_gaps"],
+            "dropout_losses": dyg["b"]["dropout_losses"],
+            "eager_step_ms_median_last4": dyg["b"]["step_ms_median_last4"],
+            "forward_backward_update_ms": dyg["b"]["forward_backward_update_ms"],
+            "device_busy_ms": dyg["b"]["device_busy_ms"], "idle_share": dyg["b"]["idle_share"],
+            "launches_per_step": dyg["b"]["launches_per_step"],
+            "traced_max_abs_err": [dyg["c"]["traced_max_abs_err"],
+                                   dyg["c"]["traced_b1_max_abs_err"]],
+            "predictor_max_abs_err": dyg["c"]["predictor_max_abs_err"],
+            "k1_fwd_per_request": dyg["c"]["k1_fwd_per_request"],
+            "checkpoint_round_trip": dyg["d"]["ok"], "seconds": dyg["seconds"]},
         "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ The same Fluid-style surface as ``paddle_tpu`` -- a Program IR built by a
 layers DSL, an Executor (``train_from_dataset`` over MultiSlot files), the reader
 pipeline, save/load of variables and inference models and a Predictor, the fluid
 helpers (``nets``, ``metrics``, ``average``, ``debugger``, ``net_drawer``,
-``install_check``, ``transpiler``) --
+``install_check``, ``transpiler``), imperative mode (``dygraph``: eager
+layers on a tape, traced into a Program) --
 running eagerly on PyTorch tensors, with the TPU's Pallas kernels replaced by
 CUDA kernels written for Hopper (``csrc/``). The device is explicit: the card
 (``cuda``) unless the caller asks for the CPU.
@@ -52,5 +53,6 @@ from . import average  # noqa: F401
 from . import install_check  # noqa: F401
 from . import net_drawer  # noqa: F401
 from . import metrics  # noqa: F401
+from . import dygraph  # noqa: F401
 
 __version__ = "0.1.0"

@@ -59,6 +59,22 @@ alphas: [1], [C] or [C H W] by mode); so do a pruned program's masks,
 ``{param}@prune_mask`` (float32, persistable and not trainable, in both
 packages; ``contrib/slim.py``), and a ``While`` body's parameters (global
 parameters that the ``while`` op reads as inputs).
+
+A dygraph model (``dygraph.Layer``) carries through its ``state_dict()``:
+the JAX layer's numpy arrays go into the port's layer with ``set_dict``,
+which copies each onto its parameter's device in its dtype. The keys are the
+structured parameter names (``<sublayer attribute>.`` prefixes over the
+``unique_name``-generated ``<layer>_<i>.w_0`` / ``.b_0``), so both models
+are built under ``unique_name.guard()`` from the same class structure; a
+dygraph ``.npz`` checkpoint (``save_dygraph``) carries the same keys.
+``chip_smoke.py``'s phase 29 loads the static ``models.bert.encoder``
+program's startup weights into the dygraph encoder of
+``tools/dygraph_bert.py`` by ``dygraph_bert.static_names``: ``word_emb``,
+``pos_emb``, ``sent_emb``; the embedding's layer norm
+``layer_norm_0.w_0`` / ``.b_0``; in layer ``i`` ``layer{i}_attn_qkv_w`` /
+``_b``, ``layer{i}_attn_out_w`` / ``_b``, ``layer_norm_{2i+1}``,
+``layer{i}_ffn1_w`` / ``_b``, ``layer{i}_ffn2_w`` / ``_b`` and
+``layer_norm_{2i+2}``, each onto the dygraph parameter that plays its part.
 """
 from __future__ import annotations
 

@@ -131,6 +131,10 @@ class Variable:
     def ndim(self) -> int:
         return len(self.shape)
 
+    def astype_shape(self, batch: int) -> tuple:
+        """``shape`` with each -1 dim set to ``batch``."""
+        return tuple(batch if d == -1 else d for d in self.shape)
+
     def to_dict(self) -> dict:
         d = {
             "name": self.name, "shape": list(self.shape), "dtype": self.dtype,
@@ -449,6 +453,9 @@ class Program:
 
     def global_block(self) -> Block:
         return self.blocks[0]
+
+    def block(self, idx) -> Block:
+        return self.blocks[idx]
 
     def current_block(self) -> Block:
         return self.blocks[self._current_block_idx]

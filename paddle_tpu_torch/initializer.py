@@ -12,7 +12,7 @@ import contextlib
 
 import numpy as np
 
-from .framework import default_startup_program
+from .framework import Variable, default_startup_program  # noqa: F401  (fluid.initializer.Variable)
 
 
 class Initializer:

@@ -43,6 +43,9 @@ import numpy as np
 import torch
 
 from .core.executor import assign_state, global_scope, tensor_from_numpy
+# Executor / Scope are re-exported: fluid code reaches them as fluid.io.Executor
+# and fluid.io.Scope, as in the JAX package
+from .core.executor import Executor, Scope  # noqa: F401
 from .framework import Parameter, Program, Variable, default_main_program
 from .utils import fs as _fsio
 

@@ -45,7 +45,7 @@ from . import blackbox  # noqa: F401
 from .metrics import (REGISTRY, MetricsRegistry, Counter, Gauge,  # noqa: F401
                       Histogram)
 from .export import to_json, to_prometheus, parse_prometheus  # noqa: F401
-from .journal import enabled, emit, recent, current_rank  # noqa: F401
+from .journal import enabled, emit, recent, read_journal, current_rank  # noqa: F401
 from .timeline import phase, export_chrome_trace, validate_trace  # noqa: F401
 from .goodput import (GoodputReport,  # noqa: F401
                       compute as compute_goodput,

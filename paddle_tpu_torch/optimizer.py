@@ -94,6 +94,11 @@ class Optimizer:
         return [self._append_optimize_op(block, (p, g))
                 for p, g in params_grads if g is not None]
 
+    def apply_optimize(self, loss, startup_program, params_grads):
+        """The update ops for ``params_grads`` (clip and regularization
+        first), as ``apply_gradients``."""
+        return self.apply_gradients(params_grads)
+
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None, grad_clip=None
                  ) -> Tuple[List, List[Tuple[Parameter, Variable]]]:

@@ -320,8 +320,8 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    trained hold each record of a prefix of each file exactly once.
    B: ``examples/ctr_deepfm.py``'s program
    (``host_embedding`` with Adagrad, 256-128, Adam) at the example's
-   constants (vocabulary 20,000, B 512, 100 steps: the loss falls) and at
-   A's scale (vocabulary 1,000,000, B 4096, 20 steps: a 64 MB table and its
+   constants (vocabulary 20,000, B 512, 50 steps: the loss falls) and at
+   A's scale (vocabulary 1,000,000, B 4096, 12 steps: a 64 MB table and its
    64 MB accumulator), eager and captured from one state: losses, dense
    state, table and accumulator bit for bit, ``push_count``, a third,
    captured run under ``StepGuardian`` with a transient ``exc`` at
@@ -544,6 +544,24 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    -p build; python3 -c "import tempfile, torch, chip_smoke as cs;
    cs.phase_build(); cs.phase_dygraph(torch, tempfile.mkdtemp(dir='build'))"``
    (about 30 s after the build);
+   phase 30, data parallel over ``torch.distributed``: A, BERT-base bf16
+   B128 at dropout 0.1 on one NCCL rank in this process, through
+   ``CompiledProgram.with_data_parallel``, captured, its three losses bit
+   for bit to the plain executor's, its 158 gradient all-reduces called
+   inside the capture, 12 K1-fwd and 12 K1-bwd a step; B, two ranks started
+   by the port's launcher sharing the card over gloo (CUDA tensors), 64 rows
+   each of a global 128: f32 at dropout 0 against one process's B128 steps
+   (``DP_LOSS_RTOL``), then bf16 at dropout 0.1 (the ranks' masks differ,
+   their parameters are byte-equal after every step, K1-fwd / K1-bwd /
+   dropout 12 / 12 / 25 a step a rank); C, each collective op type on CUDA
+   tensors at world 2 against numpy (an op that gloo refuses, by
+   ``torch.distributed``'s own refusal, is listed and raises; any other
+   error of an op fails the phase); D, ``ReduceStrategy.Reduce`` (each rank half of Adam's
+   moments) against B and a ``Checkpointer`` round trip at world 2. Alone:
+   ``mkdir -p build; python3 -c "import tempfile, torch, chip_smoke as cs;
+   cs.phase_build(); cs.phase_data_parallel(torch,
+   tempfile.mkdtemp(dir='build'))"`` (``nccl_probe=True`` adds E: NCCL asked
+   for two ranks on one card, its refusal recorded);
 12. the kernels line (``multi_tensor_update`` with its five kinds, each
    with its launches; K1-fwd's 64-row tile as ``flash_attn_fwd_q64``),
    then the result line.
@@ -2058,8 +2076,10 @@ NMT_PROBS_DROPOUT_SHAPE = (64, 8, 64, 64)
 # VGG-16's two fc dropouts in the image chapter: [B, 4096] at B128, f32, p 0.5,
 # layers.dropout's default downgrade_in_infer (no upscale)
 VGG_DROPOUT_SHAPE, VGG_DROPOUT_P = (128, 4096), 0.5
-CAPTURED_STEPS = 5           # steps held graph against eager
-TIMED_STEPS = 5              # steps timed on each path (after the held ones)
+# steps held graph against eager, and steps timed on each path after them
+# (5 and 5 until phase 30 was added; cut for the script's time)
+CAPTURED_STEPS = 3
+TIMED_STEPS = 3
 # an eager path, host-bound and the slower one, is timed over fewer steps (the
 # one after its first); each path is traced over one step (after the
 # profiler's warm-up step), to keep the whole script near half its time limit
@@ -4314,7 +4334,8 @@ PIPE_BATCH, PIPE_MICROBATCHES = 128, 4
 #: mean, so the two differ by the order of their sums and the bf16 roundings
 #: of the gradients (each microbatch's gradient is rounded to the parameter's
 #: dtype before it is summed)
-PIPE_STEPS = SCHED_STEPS
+#: (SCHED_STEPS, 4, until phase 30 was added; cut for the script's time)
+PIPE_STEPS = 3
 #: A0: step 1's accumulated gradients (the ``@mb_mean`` variables Adam reads)
 #: against the plain step's, relative L1 over every parameter. Adam's update
 #: hides a gradient's scale, so this is the card's check of the accumulation:
@@ -4747,9 +4768,10 @@ STREAM_FAULTS = "exc@dispatch:step=5;corrupt@parse:step=1000"
 # and 6 until phase 28)
 ARRIVAL_STEPS, ARRIVAL_PREEMPT = 8, 4
 # B: examples/ctr_deepfm.py's program (host_embedding + Adagrad, 256-128, Adam)
-# at the example's constants (100 steps; 200 until phase 28) and at A's scale
-CTR_EXAMPLE = dict(vocab=20_000, batch=512, steps=100)
-CTR_AT_SCALE = dict(vocab=1_000_000, batch=4096, steps=20)
+# at the example's constants (50 steps; 200 until phase 28, 100 until phase 30)
+# and at A's scale (12 steps; 20 until phase 30)
+CTR_EXAMPLE = dict(vocab=20_000, batch=512, steps=50)
+CTR_AT_SCALE = dict(vocab=1_000_000, batch=4096, steps=12)
 HOST_FIELDS, HOST_DIM, HOST_DENSE = 26, 16, 13
 HOST_PROFILED_STEPS = 5
 HOST_FETCH_FAULT = "exc@fetch:step=3"
@@ -8827,6 +8849,457 @@ def phase_dygraph(torch, workdir):
     return r
 
 
+# -- phase 30: data parallel over torch.distributed --------------------------------------
+# BERT-base at bench.py's configuration (L12 H768 A12, B128 S128, Adam(1e-4)).
+# A: one rank on NCCL, the plain executor's steps against CompiledProgram's
+# from one startup state, bf16 dropout 0.1, bit for bit. B, C, D: two ranks
+# sharing the card over gloo (CUDA tensors), each fed its 64 rows of the
+# global batch of 128 (mask positions drawn a rank, as a multi-device BERT
+# reader writes them: ``pretrain_feed(..., microbatches=2)``). B's f32 losses
+# at dropout 0 against one process's B128 step: the two ranks' per-row losses
+# are the one process's rows, their mean the same mean; what parts them is
+# the order of the sums (each rank's gradient summed over 64 rows, the two
+# averaged, against one sum over 128 in cuBLAS's blocking), about 1e-7
+# relative a step, carried through Adam's three updates.
+DP_STEPS = 3
+DP_LOCAL = 64                  # rows a rank of B's global batch of 128
+DP_LOSS_RTOL = 1e-5
+DP_TIMEOUT = 300               # the process group's timeout and the launch's limit, s
+DP_NCCL_PROBE_TIMEOUT = 60
+#: torch.distributed's own refusal of a collective on a device or op gloo
+#: lacks; C counts any other error of an op as a failure
+GLOO_REFUSAL = re.compile(r"unsupported device|does not support|not supported"
+                          r"|No backend type associated with device type")
+# C: each collective op type at world 2 on CUDA tensors (the rank's input a
+# seed of its own), against numpy; a sum of two f32 values is exact
+DP_OP_CASES = (("c_allreduce_sum", {}, (4, 6)), ("c_allreduce_avg", {}, (4, 6)),
+               ("c_allreduce_max", {}, (4, 6)), ("c_allreduce_min", {}, (4, 6)),
+               ("c_allreduce_prod", {}, (4, 6)), ("c_allgather", {}, (2, 3)),
+               ("c_reducescatter", {}, (4, 3)), ("c_broadcast", {"root": 1}, (3, 5)),
+               ("alltoall", {"split_axis": 1, "concat_axis": 0}, (2, 4)),
+               ("collective_permute", {"offset": 1}, (3, 4)),
+               ("reshard", {"src_dim": -1, "dst_dim": 0}, (4, 3)),
+               ("c_sync_calc_stream", {}, (2, 2)), ("c_sync_comm_stream", {}, (2, 2)))
+
+
+def _dp_op_input(i, rank, shape):
+    return np.random.RandomState(100 * i + rank).uniform(0.5, 1.5, shape).astype("float32")
+
+
+def _dp_op_expected(t, attrs, xs, r):
+    """numpy: rank r's output of op ``t`` over the two ranks' inputs."""
+    if t == "c_allreduce_sum":
+        return xs[0] + xs[1]
+    if t == "c_allreduce_avg":
+        return (xs[0] + xs[1]) / 2
+    if t in ("c_allreduce_max", "c_allreduce_min", "c_allreduce_prod"):
+        return {"c_allreduce_max": np.maximum, "c_allreduce_min": np.minimum,
+                "c_allreduce_prod": np.multiply}[t](xs[0], xs[1])
+    if t == "c_allgather":
+        return np.concatenate(xs, 0)
+    if t == "c_reducescatter":
+        return np.split(xs[0] + xs[1], 2, axis=0)[r]
+    if t == "c_broadcast":
+        return xs[attrs["root"]]
+    if t == "alltoall":
+        return np.concatenate([np.split(xs[j], 2, axis=1)[r] for j in range(2)], 0)
+    if t == "collective_permute":
+        return xs[1 - r]
+    if t == "reshard":
+        return np.split(xs[r], 2, axis=0)[r]
+    return xs[r]
+
+
+def _dp_ops(torch, rank):
+    """C: each op's lowering on this rank's CUDA tensor over the bound gloo
+    group: its output, or the error that refused it."""
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.ops import collective as coll
+    out = {}
+    with coll.bind({"dp": coll.world_group("dp")}):
+        for i, (t, attrs, shape) in enumerate(DP_OP_CASES):
+            x = torch.from_numpy(_dp_op_input(i, rank, shape)).cuda()
+            ctx = registry.LowerCtx(dict(attrs, axis_name="dp"), x.device)
+            try:
+                y = registry.get(t).lower(ctx, {"X": [x]})["Out"][0]
+                torch.cuda.synchronize()
+                out[t] = {"device": str(y.device), "value": y.cpu().numpy().tolist()}
+            except Exception as e:   # recorded and held against the other rank's
+                out[t] = {"error": f"{type(e).__name__}: {str(e)[:300]}"}
+    return out
+
+
+def _dp_digest(torch, scope, names) -> str:
+    """A fingerprint of the named state tensors' bytes, in order, made on
+    the card: each tensor's bytes as int16 words, their sum and their sum
+    weighted by position (mod 65521), in int64; sha1 of those sums. Two
+    tensors whose bytes differ give other sums unless two differences
+    cancel in both sums at once; no host copy of the state."""
+    import hashlib
+    sums = []
+    for n in names:
+        t = scope.find_var(n).detach().contiguous().reshape(-1)
+        w = t.view(torch.uint8)
+        w = (w if w.numel() % 2 else w.view(torch.int16)).to(torch.int64)
+        pos = torch.arange(w.numel(), device=w.device, dtype=torch.int64) % 65521 + 1
+        sums.append(torch.stack([w.sum(), (w * pos).sum()]))
+    return hashlib.sha1(torch.cat(sums).cpu().numpy().tobytes()).hexdigest()
+
+
+def _dp_feeds(cfg, rank=None):
+    """DP_STEPS global batches of 128 drawn a rank's 64 rows at a time, as
+    this rank's slices (``rank``) or as the whole batch with the masked
+    positions made global (``rank`` None)."""
+    from paddle_tpu_torch.parallel import env
+    from paddle_tpu_torch.tools.train_profile import (MASKS_PER_SEQ, SEQ, global_mask_pos,
+                                                      pretrain_feed)
+    out = []
+    for i in range(DP_STEPS):
+        f = pretrain_feed(np.random.RandomState(SEED + i), cfg, 2 * DP_LOCAL, SEQ,
+                          MASKS_PER_SEQ, microbatches=2)
+        if rank is None:
+            f["mask_pos"] = global_mask_pos(f["mask_pos"], 2, 2 * DP_LOCAL, SEQ)
+        else:
+            f = {k: env.shard_batch(v, rank, 2) for k, v in f.items()}
+        out.append(f)
+    return out
+
+
+def _dp_counts():
+    from paddle_tpu_torch.ops import dropout as dropout_mod
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import multi_tensor
+    return {"flash_attn_fwd": fa.flash_attn_fwd.launches,
+            "flash_attn_fwd_q64": fa.flash_attn_fwd_q64.launches,
+            "flash_attn_bwd": fa.flash_attn_bwd.launches,
+            "dropout_fwd": dropout_mod.dropout_fwd.launches,
+            "multi_tensor_update": multi_tensor.multi_tensor_update.launches}
+
+
+def _dp_bert_rank(torch, pt, rank, dtype, dropout, reduce=False, ckpt_dir=None):
+    """B / D on one rank: DP_STEPS steps of BERT-base at 64 rows through
+    ``CompiledProgram.with_data_parallel`` from the startup state: losses,
+    each step's parameter digest, launches, step ms, peak memory; D's
+    moment bytes held and its Checkpointer round trip."""
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.tools.train_profile import LR, MASKS_PER_SEQ, SEQ, build_pretrain
+    cfg = bert.BertConfig(dtype=dtype, dropout=dropout)
+    main, startup, total, _ = build_pretrain(cfg, DP_LOCAL, SEQ, MASKS_PER_SEQ, LR, SEED)
+    bs = pt.BuildStrategy()
+    if reduce:
+        bs.reduce_strategy = pt.BuildStrategy.ReduceStrategy.Reduce
+    cp = pt.CompiledProgram(main, bs).with_data_parallel(loss_name=total.name)
+    drops = [op for op in main.global_block().ops
+             if op.type == "dropout" and not op.attr("is_test", False)]
+    fetch = [total] + ([drops[0].output("Mask")[0]] if dropout else [])
+    params = sorted(p.name for p in main.all_parameters())
+    exe, scope = pt.Executor(), pt.Scope()
+    feeds = [{k: torch.from_numpy(v).cuda() for k, v in f.items()}
+             for f in _dp_feeds(cfg, rank)]
+    torch.cuda.reset_peak_memory_stats()
+    losses, digests, ms, mixed = [], [], [], []
+    with pt.scope_guard(scope):
+        exe.run(startup)
+        torch.cuda.synchronize()
+        _zero_launches()
+        for f in feeds:
+            t0 = time.perf_counter()
+            outs = exe.run(cp, feed=f, fetch_list=fetch, return_numpy=False)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(outs[0].float().reshape(-1)[0]))
+            digests.append(_dp_digest(torch, scope, params))
+            if dropout:
+                # the fetched mask is the ranks' average: a value between 0 and
+                # the kept scale marks an element that one rank dropped and the
+                # other kept
+                m = outs[1].float()
+                mixed.append(float(((m > 0) & (m < m.max())).float().mean()))
+        counts = _dp_counts()
+        moments = [n for n in scope.var_names() if "moment" in n]
+        r = dict(rank=rank, dtype=dtype, dropout=dropout, reduce=reduce, losses=losses,
+                 param_digests=digests, step_ms=ms, launches=counts,
+                 launches_per_step={k: v / DP_STEPS for k, v in counts.items()},
+                 mask_mixed_share=mixed,
+                 moment_bytes=sum(scope.find_var(n).numel() * scope.find_var(n).element_size()
+                                  for n in moments),
+                 moment_bytes_declared=sum(
+                     int(np.prod(main.global_block().vars[n].shape)) * 4 for n in moments),
+                 peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 captured=any(s.graph is not None for s in exe._cache.values()),
+                 refusals=sorted({s.refusal for s in exe._cache.values() if s.refusal}))
+        if ckpt_dir is not None:
+            from paddle_tpu_torch.utils.checkpointer import Checkpointer
+            state = sorted(n for n, v in main.global_block().vars.items()
+                           if v.persistable and scope.find_var(n) is not None
+                           and not n.endswith("@comm_residual"))
+            ck = Checkpointer(exe, cp, ckpt_dir, max_to_keep=2)
+            t0 = time.perf_counter()
+            ck.save(DP_STEPS)
+            saved = _dp_digest(torch, scope, state)
+            exe.run(cp, feed=feeds[0], fetch_list=[total])        # the state moves on
+            moved = _dp_digest(torch, scope, state)
+            step = ck.restore()
+            r["checkpoint"] = dict(step=step, saved=saved, moved=moved,
+                                   restored=_dp_digest(torch, scope, state),
+                                   seconds=time.perf_counter() - t0)
+    exe.close()
+    del exe, scope
+    torch.cuda.empty_cache()
+    return r
+
+
+def dp_child(out_dir, what) -> int:
+    """A rank of phase 30 (``chip_smoke.py --dp-child OUT_DIR WHAT``, started
+    by the port's launcher): ``gloo`` runs B, D and C over two ranks sharing
+    the card; ``nccl_shared`` asks NCCL for two ranks on one card and
+    records its refusal."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.parallel import env
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = env.get_rank()
+    path = os.path.join(out_dir, f"{what}_rank{rank}.json")
+    if what == "nccl_shared":
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"tcp://{os.environ['COORDINATOR_ADDRESS']}",
+                                world_size=env.get_world_size(), rank=rank,
+                                timeout=datetime.timedelta(seconds=DP_NCCL_PROBE_TIMEOUT))
+        try:
+            dist.all_reduce(torch.ones((1,), device="cuda"))
+            torch.cuda.synchronize()
+            msg = None
+        except Exception as e:   # the refusal is what this child reports
+            msg = f"{type(e).__name__}: {e}"
+        with open(path, "w") as f:
+            json.dump({"rank": rank, "error": msg}, f)
+        try:
+            dist.destroy_process_group()
+        except Exception:
+            pass
+        return 0
+    env.init_parallel_env(timeout_seconds=DP_TIMEOUT, backend="gloo")
+    res = {"rank": rank, "backend": env.backend(), "device": str(env.device())}
+
+    def write():
+        with open(path, "w") as f:
+            json.dump(res, f)
+
+    res["b_f32"] = _dp_bert_rank(torch, pt, rank, "float32", 0.0)
+    write()
+    res["b_bf16"] = _dp_bert_rank(torch, pt, rank, "bfloat16", ATTN_DROPOUT)
+    write()
+    res["d"] = _dp_bert_rank(torch, pt, rank, "float32", 0.0, reduce=True,
+                             ckpt_dir=os.path.join(out_dir, "ckpt"))
+    write()
+    res["c"] = _dp_ops(torch, rank)
+    write()
+    env.barrier("results written")
+    # leave without the process group's C++ teardown, which has aborted a
+    # gloo rank on a loaded host after every rank had written its results
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def _dp_world1(torch, pt):
+    """A: BERT-base bf16 B128, dropout 0.1, on one NCCL rank: DP_STEPS plain
+    ``Executor.run`` steps, then DP_STEPS through ``with_data_parallel`` from
+    the same startup state, each warmed up, captured and replayed; the
+    losses bit for bit, the gradient all-reduces called inside the capture
+    (one a gradient; over one rank the fetched loss counts as a batch of one
+    and is gathered, the identity), K1 launches a step."""
+    from paddle_tpu_torch import comm
+    from paddle_tpu_torch.ops import collective as coll
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.parallel import env
+    from paddle_tpu_torch.tools.train_profile import (BATCH, LR, MASKS_PER_SEQ, SEQ,
+                                                      build_pretrain, pretrain_feed)
+    env.init_parallel_env(timeout_seconds=DP_TIMEOUT, backend="nccl")
+    cfg = bert.BertConfig(dtype="bfloat16", dropout=ATTN_DROPOUT)
+    feed = pretrain_feed(np.random.RandomState(SEED), cfg, BATCH, SEQ, MASKS_PER_SEQ)
+    feed = {k: torch.from_numpy(v).cuda() for k, v in feed.items()}
+    main, startup, total, params_grads = build_pretrain(cfg, BATCH, SEQ, MASKS_PER_SEQ, LR,
+                                                        SEED)
+    init = _startup_state(pt, main, startup)
+    exe = pt.Executor()
+    plain, _, _ = _steps(pt, exe, main, feed, [total], init, DP_STEPS)
+    exe.close()
+    cp = pt.CompiledProgram(main).with_data_parallel(loss_name=total.name)
+    exe = pt.Executor()
+    scope = pt.Scope()
+    for n, t in init.items():
+        scope.set_var(n, t.clone())
+    main._rng_run_counter = 0
+    orig_ar, in_capture = coll.all_reduce_sum, []
+
+    def counting(x, g):                   # an all-reduce called inside the capture
+        if torch.cuda.is_current_stream_capturing():
+            in_capture.append(x.numel())
+        return orig_ar(x, g)
+
+    _zero_launches()
+    dp = []
+    with pt.scope_guard(scope):
+        for i in range(DP_STEPS):
+            if i == 1:
+                coll.all_reduce_sum = counting
+            try:
+                dp.append(exe.run(cp, feed=feed, fetch_list=[total], return_numpy=False)[0]
+                          .clone())
+            finally:
+                coll.all_reduce_sum = orig_ar
+    counts = _dp_counts()
+    syncs = sum(1 for op in main.global_block().ops if op.attr(comm.rewrite.SYNC_ATTR))
+    steps = [s for s in exe._cache.values()]
+    exe.close()
+    del exe, scope
+    env.destroy_parallel_env()
+    losses = [float(t.float().reshape(-1)[0]) for t in dp]
+    r = dict(batch=BATCH, dtype="bfloat16", dropout=ATTN_DROPOUT,
+             plain_losses=[float(o[0].float().reshape(-1)[0]) for o in plain],
+             dp_losses=losses,
+             bit_equal=all(torch.equal(a[0], b) for a, b in zip(plain, dp)),
+             gradient_syncs=syncs, params=len(params_grads),
+             all_reduces_in_capture=len(in_capture),
+             all_reduced_elements=sum(in_capture),
+             captured=any(s.graph is not None for s in steps),
+             launches=counts, launches_per_step={k: v / DP_STEPS for k, v in counts.items()})
+    emit("data_parallel_world1", **r)
+    ok = (r["bit_equal"] and r["captured"] and syncs == len(params_grads)
+          and len(in_capture) == syncs
+          and counts["flash_attn_fwd"] + counts["flash_attn_fwd_q64"] == cfg.n_layers * DP_STEPS
+          and counts["flash_attn_bwd"] == cfg.n_layers * DP_STEPS)
+    if not ok:
+        raise SystemExit(f"data parallel at world 1 on NCCL failed: {r}")
+    return r
+
+
+def _dp_one_process(torch, pt):
+    """B's reference: one process, BERT-base f32 B128 at dropout 0, DP_STEPS
+    steps of the plain executor on the global batches."""
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.tools.train_profile import LR, MASKS_PER_SEQ, SEQ, build_pretrain
+    cfg = bert.BertConfig(dtype="float32", dropout=0.0)
+    main, startup, total, _ = build_pretrain(cfg, 2 * DP_LOCAL, SEQ, MASKS_PER_SEQ, LR, SEED)
+    exe, scope = pt.Executor(), pt.Scope()
+    torch.cuda.reset_peak_memory_stats()
+    with pt.scope_guard(scope):
+        exe.run(startup)
+        losses = [float(exe.run(main, feed={k: torch.from_numpy(v).cuda()
+                                            for k, v in f.items()},
+                                fetch_list=[total])[0].reshape(-1)[0])
+                  for f in _dp_feeds(cfg)]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    exe.close()
+    del exe, scope
+    torch.cuda.empty_cache()
+    return dict(losses=losses, peak_gb=peak)
+
+
+def phase_data_parallel(torch, workdir, nccl_probe=False):
+    """Phase 30: data parallel over torch.distributed. A: BERT-base on one
+    NCCL rank through ``CompiledProgram``, captured, bit for bit to the plain
+    executor; B: two ranks sharing the card over gloo, f32 at dropout 0
+    against one process's B128 steps, then bf16 at dropout 0.1 (the ranks'
+    masks differ, their parameters do not); C: each collective op type on
+    CUDA tensors at world 2 against numpy (an op gloo refuses raises, and is
+    listed; any other error fails the phase); D: ``ReduceStrategy.Reduce`` (each rank half of Adam's moments)
+    and a Checkpointer round trip at world 2. E (``nccl_probe``, not in the
+    whole script's run): NCCL asked for two ranks on one card, its refusal
+    recorded."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.parallel import launch
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    a = _dp_world1(torch, pt)
+    torch.cuda.empty_cache()
+    one = _dp_one_process(torch, pt)
+    emit("data_parallel_one_process", **one)
+    env = {"PYTHONPATH": REPO}
+    codes = launch.launch(2, [os.path.join(REPO, "chip_smoke.py"), "--dp-child", workdir,
+                              "gloo"], log_dir=os.path.join(workdir, "logs"),
+                          timeout=DP_TIMEOUT, env=env)
+    ranks = []
+    for r in range(2):
+        p = os.path.join(workdir, f"gloo_rank{r}.json")
+        ranks.append(json.load(open(p)) if os.path.exists(p) else {})
+    if codes != [0, 0] or any("c" not in x for x in ranks):
+        tails = "".join(open(os.path.join(workdir, "logs", f"rank{r}.log")).read()[-3000:]
+                        for r in range(2))
+        raise SystemExit(f"data parallel ranks failed: {codes}\n{tails}")
+    b32 = [x["b_f32"] for x in ranks]
+    b16 = [x["b_bf16"] for x in ranks]
+    d = [x["d"] for x in ranks]
+    gaps = [abs(x - y) / abs(y) for x, y in zip(b32[0]["losses"], one["losses"])]
+    d_gaps = [abs(x - y) / abs(y) for x, y in zip(d[0]["losses"], b32[0]["losses"])]
+    c_rows, refused, c_failed = {}, {}, {}
+    for i, (t, attrs, shape) in enumerate(DP_OP_CASES):
+        xs = [_dp_op_input(i, r, shape) for r in range(2)]
+        got = [x["c"][t] for x in ranks]
+        if any("error" in g for g in got):
+            err = got[0].get("error") or got[1].get("error")
+            (refused if GLOO_REFUSAL.search(err) else c_failed)[t] = err
+            continue
+        c_rows[t] = max(float(np.abs(np.asarray(g["value"], np.float32)
+                                     - _dp_op_expected(t, attrs, xs, r)).max())
+                        for r, g in enumerate(got))
+    emit("data_parallel_ranks",
+         b=dict(f32_losses=[x["losses"] for x in b32], one_process_losses=one["losses"],
+                loss_rel_gaps=gaps, rtol=DP_LOSS_RTOL,
+                bf16_losses=[x["losses"] for x in b16],
+                bf16_launches_per_step=[x["launches_per_step"] for x in b16],
+                mask_mixed_share=[x["mask_mixed_share"] for x in b16],
+                step_ms={"f32": [x["step_ms"] for x in b32], "bf16": [x["step_ms"] for x in b16]},
+                peak_gb={"f32": [x["peak_gb"] for x in b32], "bf16": [x["peak_gb"] for x in b16]},
+                refusals=b32[0]["refusals"]),
+         c=dict(max_abs_err=c_rows, refused_over_gloo=refused, failed=c_failed),
+         d=dict(losses=[x["losses"] for x in d], loss_rel_gaps_to_b=d_gaps,
+                moment_bytes=[x["moment_bytes"] for x in d],
+                moment_bytes_declared=d[0]["moment_bytes_declared"],
+                checkpoint=[x["checkpoint"] for x in d], peak_gb=[x["peak_gb"] for x in d]))
+    e = None
+    if nccl_probe:
+        codes_e = launch.launch(2, [os.path.join(REPO, "chip_smoke.py"), "--dp-child",
+                                    workdir, "nccl_shared"],
+                                log_dir=os.path.join(workdir, "logs_e"),
+                                timeout=DP_NCCL_PROBE_TIMEOUT + 60, env=env)
+        e = []
+        for r in range(2):
+            p = os.path.join(workdir, f"nccl_shared_rank{r}.json")
+            e.append(json.load(open(p))["error"] if os.path.exists(p) else None)
+        emit("data_parallel_nccl_shared_card", codes=codes_e, errors=e)
+    per = [x["launches_per_step"] for x in b16]
+    ok = (max(gaps) <= DP_LOSS_RTOL
+          and all(x["param_digests"] == b32[0]["param_digests"] for x in b32)
+          and all(x["param_digests"] == b16[0]["param_digests"] for x in b16)
+          and all(x["param_digests"] == d[0]["param_digests"] for x in d)
+          and b32[0]["losses"] == b32[1]["losses"] and b16[0]["losses"] == b16[1]["losses"]
+          and all(np.isfinite(x["losses"]).all() for x in b16)
+          and all(s > 0 for x in b16 for s in x["mask_mixed_share"])
+          and all(p["flash_attn_fwd"] + p["flash_attn_fwd_q64"] == 12
+                  and p["flash_attn_bwd"] == 12 and p["dropout_fwd"] == 25
+                  and p["multi_tensor_update"] == 1 for p in per)
+          and not b32[0]["captured"]
+          and max(d_gaps) <= DP_LOSS_RTOL
+          and all(2 * x["moment_bytes"] == x["moment_bytes_declared"] for x in d)
+          and all(x["checkpoint"]["saved"] == x["checkpoint"]["restored"]
+                  != x["checkpoint"]["moved"] and x["checkpoint"]["step"] == DP_STEPS
+                  for x in d)
+          and all(v == 0.0 for v in c_rows.values()) and not c_failed
+          and len(c_rows) + len(refused) == len(DP_OP_CASES)
+          and "c_allreduce_avg" in c_rows and "c_allgather" in c_rows)
+    r = dict(a=a, one=one, b32=b32, b16=b16, d=d, c_rows=c_rows, refused=refused, e=e,
+             seconds=time.perf_counter() - t0)
+    emit("data_parallel", seconds=r["seconds"], ok=ok)
+    if not ok:
+        raise SystemExit("data parallel phase failed (see the data_parallel_* lines)")
+    return r
+
+
 def main() -> int:
     if not os.path.isfile(os.path.join(REPO, "paddle_tpu_torch", "csrc",
                                        "flash_attn_fwd.cu")):
@@ -8841,6 +9314,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     if sys.argv[1:2] == ["--warm-start-child"]:
         return warm_start_child(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--dp-child"]:
+        return dp_child(*sys.argv[2:4])
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 comparisons in full f32
     torch.backends.cudnn.allow_tf32 = False
     # a fresh autotune cache for the whole run: a decision persisted on this host by
@@ -9006,6 +9481,12 @@ def main() -> int:
         dyg = timed_phase("dygraph", phase_dygraph, torch, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
+    try:
+        dpr = timed_phase("data_parallel", phase_data_parallel, torch, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     os.remove(tune_cache)
     meas_l = meas["a"]["launches"]
     an_l = an["b"]["launches"]
@@ -9026,6 +9507,10 @@ def main() -> int:
             "dygraph_traced_serving": {k: dyg["c"]["traced_launches"][k]
                                        + dyg["c"]["serve_launches"][k]
                                        for k in dyg["c"]["serve_launches"]}}
+    # phase 30's path: BERT-base data parallel (A on one NCCL rank; B and D on
+    # each of the two gloo ranks)
+    dp_runs = [dpr["a"]] + dpr["b32"] + dpr["b16"] + dpr["d"]
+    dp_l = {k: sum(x["launches"][k] for x in dp_runs) for k in dpr["a"]["launches"]}
     book_launches = {c["chapter"]: c["train_launches"] for c in book_chapters}
     e2e_launches = e2e["epochs"]["prefetch"]["multi_tensor_update_launches"]
     ctr_launches = ctr["launches"]["graph"]["multi_tensor_update"]
@@ -9056,7 +9541,8 @@ def main() -> int:
                      **{k: v["dropout_fwd"] for k, v in surf_l.items()},
                      "measurement_stack_training": meas_l.get("dropout_fwd", 0),
                      "analysis_gate_training": an_l.get("dropout_fwd", 0),
-                     **{k: v["dropout_fwd"] for k, v in dy_l.items()}}
+                     **{k: v["dropout_fwd"] for k, v in dy_l.items()},
+                     "bert_data_parallel": dp_l["dropout_fwd"]}
     # multi_tensor_update's calls by path, each path's kind, and each kind's launches
     mt_calls = {"training": ("adam", train_launches["multi_tensor_update"]),
                 "resnet50_training": ("momentum", resnet_launches["multi_tensor_update"]),
@@ -9098,7 +9584,8 @@ def main() -> int:
                 "install_check": ("sgd", warm["b"]["install_check_multi_tensor_update_launches"]),
                 **{f"ocr_crnn_training_{p}":
                    ("momentum", ocr_res["train"]["multi_tensor_update_launches"][p]
-                    .get("multi_tensor_update", 0)) for p in ("graph", "eager")}}
+                    .get("multi_tensor_update", 0)) for p in ("graph", "eager")},
+                "bert_data_parallel": ("adam", dp_l["multi_tensor_update"])}
     kind_rows = {"adam": mt_bert, "momentum": mt_res, "sgd": mt_mnist,
                  "lamb": normed_mres[0], "lars_momentum": normed_mres[1]}
     # each kind's launches: its calls on the paths times the launches of a call
@@ -9126,7 +9613,8 @@ def main() -> int:
                       + surf_l["pipeline_bert_training"]["flash_attn_fwd"]
                       + sum(v.get("flash_attn_fwd", 0) for v in tier_l.values())
                       + meas_l["flash_attn_fwd"] + an_l["flash_attn_fwd"] + warm_k1
-                      + sum(v["flash_attn_fwd"] for v in dy_l.values())),
+                      + sum(v["flash_attn_fwd"] for v in dy_l.values())
+                      + dp_l["flash_attn_fwd"]),
          "launches_by_path": {"serving": serve_launches["flash_attn_fwd"],
                               "int8_serving": int8_launches["flash_attn_fwd"],
                               "training": train_launches["flash_attn_fwd"],
@@ -9141,7 +9629,8 @@ def main() -> int:
                               "measurement_stack_training": meas_l["flash_attn_fwd"],
                               "analysis_gate_training": an_l["flash_attn_fwd"],
                               "nets_attention": warm_k1,
-                              **{k: v["flash_attn_fwd"] for k, v in dy_l.items()}},
+                              **{k: v["flash_attn_fwd"] for k, v in dy_l.items()},
+                              "bert_data_parallel": dp_l["flash_attn_fwd"]},
          "max_abs_err": fwd_err, **{k: train_fwd[k] for k in keys},
          "serving_tile_128_ms": q128_tiles,
          "shape": "B128 H12 S128 D64 bf16, bias, dropout 0.1, LSE (the training path)",
@@ -9157,8 +9646,10 @@ def main() -> int:
          "replaces": "paddle_tpu/ops/pallas_attention.py:227",
          "replaces_note": "the bf16 forward at 64 query rows a block (kMT 1), a tile "
                           "fused_attention.block_sizes picks between",
-         "launches": sum(v.get("flash_attn_fwd_q64", 0) for v in tier_l.values()),
-         "launches_by_path": {k: v.get("flash_attn_fwd_q64", 0) for k, v in tier_l.items()},
+         "launches": (sum(v.get("flash_attn_fwd_q64", 0) for v in tier_l.values())
+                      + dp_l["flash_attn_fwd_q64"]),
+         "launches_by_path": {**{k: v.get("flash_attn_fwd_q64", 0) for k, v in tier_l.items()},
+                              "bert_data_parallel": dp_l["flash_attn_fwd_q64"]},
          "max_abs_err": max(r["max_abs_err"] for r in tier["tiles"] if r["block_q"] == 64),
          **{k: q64_case[k] for k in keys},
          "shape": "B128 H12 S128 D64 bf16 with bias, no dropout, no LSE",
@@ -9173,7 +9664,8 @@ def main() -> int:
                       + opt_l["recompute_lamb_bert_training"]["flash_attn_bwd"]
                       + surf_l["pipeline_bert_training"]["flash_attn_bwd"]
                       + meas_l["flash_attn_bwd"] + an_l["flash_attn_bwd"]
-                      + sum(v["flash_attn_bwd"] for v in dy_l.values())),
+                      + sum(v["flash_attn_bwd"] for v in dy_l.values())
+                      + dp_l["flash_attn_bwd"]),
          "launches_by_path": {"training": train_launches["flash_attn_bwd"],
                               "scheduled_bert_training":
                                   sched_l["scheduled_bert_training"]["flash_attn_bwd"],
@@ -9184,7 +9676,8 @@ def main() -> int:
                                   surf_l["pipeline_bert_training"]["flash_attn_bwd"],
                               "measurement_stack_training": meas_l["flash_attn_bwd"],
                               "analysis_gate_training": an_l["flash_attn_bwd"],
-                              **{k: v["flash_attn_bwd"] for k, v in dy_l.items()}},
+                              **{k: v["flash_attn_bwd"] for k, v in dy_l.items()},
+                              "bert_data_parallel": dp_l["flash_attn_bwd"]},
          "max_abs_err": bwd_err,
          **{k: train_bwd[k] for k in keys},
          "shape": "B128 H12 S128 D64 bf16, bias, dropout 0.1 (the training path)",
@@ -9440,6 +9933,18 @@ def main() -> int:
             "predictor_max_abs_err": dyg["c"]["predictor_max_abs_err"],
             "k1_fwd_per_request": dyg["c"]["k1_fwd_per_request"],
             "checkpoint_round_trip": dyg["d"]["ok"], "seconds": dyg["seconds"]},
+        "data_parallel": {
+            "world1_nccl_bit_equal": dpr["a"]["bit_equal"],
+            "world1_gradient_syncs": dpr["a"]["gradient_syncs"],
+            "gloo_f32_losses": dpr["b32"][0]["losses"],
+            "one_process_losses": dpr["one"]["losses"],
+            "gloo_bf16_losses": dpr["b16"][0]["losses"],
+            "gloo_step_ms": {"f32": dpr["b32"][0]["step_ms"], "bf16": dpr["b16"][0]["step_ms"],
+                             "reduce": dpr["d"][0]["step_ms"]},
+            "peak_gb": {p: [x["peak_gb"] for x in dpr[p]] for p in ("b32", "b16", "d")},
+            "reduce_moment_bytes": [x["moment_bytes"] for x in dpr["d"]],
+            "ops_refused_over_gloo_on_cuda": sorted(dpr["refused"]),
+            "seconds": dpr["seconds"]},
         "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

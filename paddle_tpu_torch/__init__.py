@@ -5,7 +5,8 @@ layers DSL, an Executor (``train_from_dataset`` over MultiSlot files), the reade
 pipeline, save/load of variables and inference models and a Predictor, the fluid
 helpers (``nets``, ``metrics``, ``average``, ``debugger``, ``net_drawer``,
 ``install_check``, ``transpiler``), imperative mode (``dygraph``: eager
-layers on a tape, traced into a Program) --
+layers on a tape, traced into a Program), data parallel over
+``torch.distributed`` (``CompiledProgram``, ``fleet``, ``parallel``, ``comm``) --
 running eagerly on PyTorch tensors, with the TPU's Pallas kernels replaced by
 CUDA kernels written for Hopper (``csrc/``). The device is explicit: the card
 (``cuda``) unless the caller asks for the CPU.
@@ -54,5 +55,10 @@ from . import install_check  # noqa: F401
 from . import net_drawer  # noqa: F401
 from . import metrics  # noqa: F401
 from . import dygraph  # noqa: F401
+from .compiler import (BuildStrategy, CompiledProgram, DistributedStrategy,  # noqa: F401
+                       ExecutionStrategy)
+from . import comm  # noqa: F401  (quantized collectives + reshard planner)
+from . import parallel  # noqa: F401  (init_parallel_env, the launcher)
+from . import fleet  # noqa: F401
 
 __version__ = "0.1.0"

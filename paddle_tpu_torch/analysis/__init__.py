@@ -32,8 +32,8 @@ declarations), ``recompile`` (capture-cache churn risks), the opt-in
 ``layout_churn`` (PT060 over the port's per-op attribution).
 
 Not ported: the JAX package's ``distributed`` (PT04x) and ``shardplan``
-(PT07x) passes, which need a DistributedStrategy and ``comm/`` (ROADMAP
-item 13). A ``strategy``, ``auto_shard=True``, or importing either name
+(PT07x) passes over a DistributedStrategy (ROADMAP item 13 (c); the port's
+strategy runs data parallel since item 13 (a)). A ``strategy``, ``auto_shard=True``, or importing either name
 from this package raises, naming the item.
 """
 from __future__ import annotations
@@ -57,7 +57,7 @@ from .pass_base import (ITEM_13, AnalysisPass, PassContext,  # noqa: F401
                         default_passes, get_pass, register_pass,
                         registered_passes, run_passes, split_strategy)
 
-#: the JAX package's names that belong to ROADMAP item 13
+#: the JAX package's names that belong to ROADMAP item 13 (c)
 _ITEM_13_NAMES = ("distributed", "shardplan", "strategy_from_dict",
                   "search_plans", "SearchResult", "ShardPlan")
 
@@ -102,7 +102,7 @@ def verify(program: Program,
     PT03x recompile lint then flags the churn fusion adds (PT034).
 
     ``strategy`` and ``auto_shard=True`` raise NotImplementedError: the
-    PT04x distributed checks and the PT07x planner are ROADMAP item 13's.
+    PT04x distributed checks and the PT07x planner are ROADMAP item 13 (c)'s.
     """
     if strategy is not None or auto_shard:
         what = "auto_shard=True" if auto_shard else \

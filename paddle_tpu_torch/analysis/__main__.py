@@ -10,7 +10,7 @@ package); the port's copy of ``python -m paddle_tpu.analysis``.
     python -m paddle_tpu_torch.analysis --selftest   # pinned by the tests
 
 The flags are the JAX CLI's. ``--strategy`` and ``--auto-shard`` exit 2
-naming ROADMAP item 13 (the distributed checks and the auto-sharding
+naming ROADMAP item 13 (c) (the distributed checks and the auto-sharding
 planner are not ported). Exit status: 0 clean (below the --fail-on bar), 1
 findings at/above the bar, 2 usage/load errors.
 """
@@ -56,7 +56,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                          f"(default: all of {registered_passes()})")
     ap.add_argument("--strategy", default=None, metavar="FILE",
                     help="DistributedStrategy JSON: the PT04x distributed "
-                         "checks are ROADMAP item 13's and not ported "
+                         "checks are ROADMAP item 13 (c)'s and not ported "
                          "(exits 2)")
     ap.add_argument("--mem-budget", default=None, type=parse_bytes,
                     metavar="BYTES",
@@ -68,7 +68,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                          "memory planner and divisibility checks")
     ap.add_argument("--auto-shard", action="store_true",
                     help="the static auto-sharding planner (PT07x) is "
-                         "ROADMAP item 13's and not ported (exits 2)")
+                         "ROADMAP item 13 (c)'s and not ported (exits 2)")
     ap.add_argument("--top-k", default=None, type=int, metavar="K",
                     help="ranked plans the auto-shard search keeps "
                          "(with --auto-shard only)")

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Set
 
+from ..ops.collective import COLLECTIVE_OPS as _COLLECTIVE_META
 from .diagnostics import Diagnostic
 from .pass_base import (AnalysisPass, PassContext, op_input_names,
                         op_output_names, register_pass, sub_block_indices)
@@ -28,17 +29,12 @@ SIDE_EFFECT_OPS = frozenset({
     "print", "assert", "host_table_push", "host_table_init",
 })
 
-#: the op types the JAX package's ``ops.collective.is_collective`` names (the
-#: keys of its COLLECTIVE_OPS; their port is ROADMAP item 13's). They are
-#: side-effecting too -- every rank of the axis must execute the same
-#: collective sequence, so a psum whose output feeds only a stage boundary
-#: is NOT dead: pruning it on one rank desynchronizes the others.
-COLLECTIVE_OPS = frozenset({
-    "c_allreduce_sum", "c_allreduce_max", "c_allreduce_min",
-    "c_allreduce_prod", "c_allreduce_avg", "c_allgather", "c_reducescatter",
-    "c_broadcast", "alltoall", "collective_permute", "temporal_pipeline",
-    "reshard",
-})
+#: the collective op types (the keys of ``ops/collective.py``'s
+#: COLLECTIVE_OPS, the JAX package's set). They are side-effecting too --
+#: every rank of the axis must execute the same collective sequence, so a
+#: psum whose output feeds only a stage boundary is NOT dead: pruning it on
+#: one rank desynchronizes the others.
+COLLECTIVE_OPS = frozenset(_COLLECTIVE_META)
 
 
 def _is_side_effecting(op_type: str) -> bool:

@@ -13,7 +13,7 @@ prose. Severity semantics:
 - ``info``: observations worth surfacing in a report, never gating.
 
 The table keeps every code of the JAX package, the distributed PT04x and
-the auto-sharding PT07x rows too (their passes are ROADMAP item 13's and
+the auto-sharding PT07x rows too (their passes are ROADMAP item 13 (c)'s and
 not in the port), so a baseline file written by either package reads in
 both. A code's text names XLA where the JAX package's does; in the port a
 "compile" is a CUDA-graph capture, one per program, version and feed

@@ -32,7 +32,7 @@ PT052 (warn) marks estimates that had to assume a batch size for dynamic
 dims. Registered opt-in (``default=False``): it reports rather than
 checks, so it runs when asked -- a budget is set, or the pass is named
 explicitly. A ``strategy`` (sharding divisors, ``comm_compression``'s
-residuals) raises, naming ROADMAP item 13.
+residuals) raises, naming ROADMAP item 13 (c).
 """
 from __future__ import annotations
 
@@ -128,7 +128,7 @@ def estimate_program_memory(program, feed_names: Optional[Sequence[str]] = None,
     """Liveness-based peak-memory estimate of one executor step of
     ``program`` (global block; sub-block reads pin outer vars live, their
     per-iteration locals are scan-internal and not counted). A ``strategy``
-    raises NotImplementedError (ROADMAP item 13)."""
+    raises NotImplementedError (ROADMAP item 13 (c))."""
     split_strategy(strategy)
     gb = program.global_block()
     persistable = {n for n, v in gb.vars.items() if v.persistable}

@@ -10,7 +10,7 @@ The analog of the reference's ``ir::Pass`` registry (pass.h / PassRegistry):
 passes register by name, ``default_passes()`` is the verifier pipeline, and
 callers can run a subset (``analysis.verify(p, passes=["wellformed"])``).
 
-Distributed intent is ROADMAP item 13's, as are the passes that read it
+Distributed intent is ROADMAP item 13 (c)'s, as are the passes that read it
 (``distributed``, ``shardplan``): a ``strategy`` raises here, naming the
 item (``split_strategy``), as ``verify(auto_shard=True)`` does.
 """
@@ -50,8 +50,8 @@ def sub_block_indices(op: Operator, program: Program) -> List[int]:
 
 
 #: why a strategy, the distributed checks or the auto-sharding planner raise
-ITEM_13 = ("ROADMAP item 13 (distributed): the port has no DistributedStrategy, "
-           "so the PT04x collective and sharding checks (analysis/distributed.py), "
+ITEM_13 = ("ROADMAP item 13 (c) (distributed analysis): the port's DistributedStrategy "
+           "runs data parallel (compiler.py), but the PT04x collective and sharding checks (analysis/distributed.py), "
            "the auto-sharding planner PT07x (analysis/shardplan.py) and the "
            "memory planner's sharding divisors and comm_compression residuals are "
            "not ported")
@@ -60,7 +60,7 @@ ITEM_13 = ("ROADMAP item 13 (distributed): the port has no DistributedStrategy, 
 def split_strategy(strategy):
     """verify()'s ``strategy`` argument as (DistributedStrategy,
     BuildStrategy): (None, None) for None. Anything else raises
-    NotImplementedError naming ROADMAP item 13."""
+    NotImplementedError naming ROADMAP item 13 (c)."""
     if strategy is None:
         return None, None
     raise NotImplementedError(f"strategy={type(strategy).__name__}: {ITEM_13}")
@@ -81,7 +81,7 @@ class PassContext:
         # every consumer below branches on None, not truthiness
         self.feed_names = list(feed_names) if feed_names else None
         self.fetch_names = list(fetch_names) if fetch_names else None
-        split_strategy(strategy)   # distributed intent raises (ROADMAP item 13)
+        split_strategy(strategy)   # distributed intent raises (ROADMAP item 13 (c))
         self.mem_budget = mem_budget
         self.batch = batch
         # fused intent: the executor's run_fused gate passes its K so the

@@ -610,6 +610,48 @@ def _retire_program_gauges_if_dead(prog_id, version) -> None:
 #: whether this process made the warm store's one startup scan
 _WS_PREFETCHED = False
 
+#: the salt a rank's index is mixed into the program seed with (``_seed``)
+_RANK_SALT = 0x5EED
+
+
+def _is_compiled(program) -> bool:
+    """A ``CompiledProgram`` (duck-typed: the executor does not import
+    ``compiler``)."""
+    return program is not None and hasattr(program, "dist_strategy") \
+        and hasattr(program, "build_strategy")
+
+
+class _DataParallel:
+    """The data-parallel run in progress: the bound group of the data axis
+    (None at a world of 1 without a process group) and its size."""
+    __slots__ = ("group", "size", "rank", "key")
+
+    def __init__(self, group, size: int):
+        self.group, self.size = group, int(size)
+        self.rank = group.rank if group is not None else 0
+        self.key = (self.size, self.rank, group.backend if group is not None else None)
+
+    def reduce_fetch(self, name, t, block):
+        """A fetch as the JAX explicit path returns it: a batch-carrying one
+        (declared dim 0 -1, or the local rows 1/size of the declared ones)
+        all-gathered along dim 0, any other float averaged over the ranks
+        (a fetched loss is the global-batch mean on every rank), the rest
+        and the persistable state as they are."""
+        if self.group is None or not isinstance(t, torch.Tensor):
+            return t
+        from ..ops import collective as _coll
+        v = block.find_var_recursive(name)
+        if v is not None and v.persistable:
+            return t
+        d0 = v.shape[0] if v is not None and len(v.shape) else None
+        local0 = t.shape[0] if t.dim() else None
+        if local0 is not None and (d0 == -1 or (isinstance(d0, int) and d0 > 0
+                                                and local0 * self.size == d0)):
+            return _coll.all_gather(t, self.group, 0)
+        if t.is_floating_point():
+            return _coll.all_reduce_sum(t, self.group) / self.size
+        return t
+
 
 def _warmstore_armed() -> bool:
     """``PADDLE_TPU_WARMSTORE`` set: read before any import of ``warmstore``,
@@ -671,6 +713,10 @@ class Executor:
                          if self.device.type == "cuda" else None)
         # (program id, version, run intent) -> (program, findings) of the gate
         self._verified: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
+        # the data-parallel run in progress (``_run_compiled``), else None
+        self._dp: Optional[_DataParallel] = None
+        # the process groups whose first collective this executor made
+        self._dp_warm: set = set()
 
     def _maybe_verify(self, program: Program, feed_names, fetch_names, feed_shapes=None,
                       fuse_k=None) -> None:
@@ -840,6 +886,10 @@ class Executor:
         ``return_numpy=False``, as tensors on the device. ``use_prune`` runs
         only the ops the fetches need (``Program._prune``; an eval-style
         fetch runs no update op), from a cache of pruned copies."""
+        if _is_compiled(program):
+            return self._run_compiled(
+                program, [feed or {}], scope,
+                lambda p: self.run(p, feed, fetch_list, scope, return_numpy, use_prune))
         t_feed = time.perf_counter()
         program = program or default_main_program()
         fetch_names = self._fetch_names(fetch_list)
@@ -972,15 +1022,25 @@ class Executor:
         default, numpy with ``return_numpy``. K = 1 delegates to ``run``.
         On the card step i is a replay of the signature's graph (after its
         warm-up and capture, as ``run``), with step i's feed copied in and
-        counter0 + i written first; on the CPU the steps run eagerly.
+        counter0 + i written first; on the CPU the steps run eagerly. A
+        ``CompiledProgram`` runs its data-parallel step K times (each rank
+        feeding its rows of each step).
 
         Raises ValueError for a program that cannot run fused (why:
-        ``_fuse_ineligible``, the JAX reasons), TypeError for anything but a
-        ``Program`` (``CompiledProgram`` is not ported)."""
+        ``_fuse_ineligible``, the JAX reasons; a collective over gloo is
+        not captured), TypeError for anything but a ``Program`` or a
+        ``CompiledProgram``."""
+        if _is_compiled(program):
+            first = (list(feeds or [])[:1] if stacked_feed is None else
+                     [{n: v[0] for n, v in stacked_feed.items()}])
+            return self._run_compiled(
+                program, first, scope,
+                lambda p: self.run_fused(p, feeds, fetch_list, scope, return_numpy,
+                                         stacked_feed))
         program = program or default_main_program()
         if not isinstance(program, Program):
-            raise TypeError(f"run_fused takes a Program, got {type(program).__name__} "
-                            f"(CompiledProgram is not ported)")
+            raise TypeError(f"run_fused takes a Program or a CompiledProgram, got "
+                            f"{type(program).__name__}")
         reason = self._fuse_ineligible(program)
         if reason is not None:
             raise ValueError(f"run_fused: program cannot run fused ({reason}); run it "
@@ -1058,6 +1118,132 @@ class Executor:
         if return_numpy:
             return [to_numpy(t) for t in stacked]
         return stacked
+
+    def _run_compiled(self, cp, feeds: List[dict], scope, call):
+        """Run a ``CompiledProgram``: ``call(program)`` on the program to run
+        (the ``run`` or ``run_fused`` of the caller) under the strategy.
+
+        Without a strategy it is the wrapped program's run. With one, as the
+        JAX explicit data-parallel path: the strategy checked
+        (``check_supported``), the gradient sync inserted
+        (``comm.sync_program(..., explicit=True)``), under
+        ``ReduceStrategy.Reduce`` the ZeRO copy (``compiler.zero_program``)
+        and the state split into this rank's blocks, the residuals zeroed,
+        the feeds checked at a new signature (each rank feeds its rows of
+        dim 0, the same count on every rank), the data axis bound to the
+        world group, the seed folded with the rank and the fetches reduced
+        (``_DataParallel``). Under NCCL the step is captured with its
+        collectives, after one warm-up collective makes the communicator;
+        over gloo ``capture_refusal`` keeps it eager."""
+        from .. import comm as _comm
+        from .. import compiler as _compiler
+        from ..ops import collective as _coll
+        from ..parallel import env as _penv
+        ds = cp.dist_strategy
+        program = cp.program
+        if ds is None:
+            return call(program)
+        ds.check_supported()
+        size = int(cp.mesh.get(ds.data_axis, 1))
+        group = None
+        import torch.distributed as dist
+        if dist.is_available() and dist.is_initialized():
+            group = _coll.world_group(ds.data_axis)
+            if group.backend == "nccl" and self.device != _penv.device():
+                raise RuntimeError(
+                    f"data parallel over NCCL: this rank's device is {_penv.device()}, "
+                    f"the executor's {self.device}")
+            if group.backend == "nccl" and id(dist.group.WORLD) not in self._dp_warm:
+                # the communicator exists before a step is captured
+                dist.all_reduce(torch.zeros((1,), device=self.device))
+                torch.cuda.synchronize(self.device)
+                self._dp_warm.add(id(dist.group.WORLD))
+        _comm.sync_program(program, cp, explicit=True)
+        run_prog = _compiler.zero_program(cp, program) if cp.zero_mode() else program
+        scope = scope or global_scope()
+        dp = _DataParallel(group, size)
+        self._shard_state(cp, run_prog, scope, dp)
+        self._check_dp_feeds(cp, run_prog, feeds, dp)
+        prev = self._dp
+        self._dp = dp
+        try:
+            with _coll.bind({ds.data_axis: group} if group is not None else {},
+                            data_axis=ds.data_axis):
+                if run_prog is program:
+                    return call(run_prog)
+                run_prog._rng_run_counter = getattr(program, "_rng_run_counter", 0)
+                try:
+                    return call(run_prog)
+                finally:
+                    program._rng_run_counter = run_prog._rng_run_counter
+        finally:
+            self._dp = prev
+
+    def _shard_state(self, cp, program, scope, dp: _DataParallel) -> None:
+        """This rank's blocks of the state ``cp.state_sharding`` splits: a
+        ZeRO-sharded variable the scope holds whole (from the startup program
+        or a single-process load) is replaced by block ``rank`` of its shard
+        dim; an error-feedback residual the scope lacks, or holds at another
+        shape, becomes zeros of (1, *grad shape)."""
+        from ..comm.compress import is_residual
+        gb = program.global_block()
+        key = (id(program), program._version, cp.strategy_signature(), dp.size)
+        if cp._split is None or cp._split[0] != key:
+            cp._split = (key, [(n, sh) for n, v in gb.vars.items() if v.persistable
+                               for sh in [cp.state_sharding(n)] if sh])
+        for n, (dim, ndp) in cp._split[1]:
+            v = gb.vars[n]
+            cur = scope.find_var(n)
+            if is_residual(n):
+                want = (1,) + tuple(v.shape[1:])
+                if cur is None or tuple(cur.shape) != want:
+                    scope.set_var(n, torch.zeros(want, dtype=registry.torch_dtype(v.dtype),
+                                                 device=self.device))
+                continue
+            if cur is None or ndp <= 1 or tuple(cur.shape) != tuple(v.shape):
+                continue
+            t = owned_tensor(cur, self.device)
+            per = t.shape[dim] // ndp
+            scope.set_var(n, t.narrow(dim, dp.rank * per, per).clone())
+
+    def _check_dp_feeds(self, cp, program, feeds: List[dict], dp: _DataParallel) -> None:
+        """The feed check of the JAX ``Executor.run``: a feed whose spec
+        splits dim 0 over the data axis has one on every rank, and (at a
+        signature not seen before, one small all-gather) the same rows on
+        every rank: each rank feeds its slice, global / size rows."""
+        if not feeds or not feeds[0]:
+            return
+        ds = cp.dist_strategy
+        gb = program.global_block()
+        rows = []
+        for k, v in sorted(feeds[0].items()):
+            var = gb.find_var_recursive(k)
+            ndim = len(np.shape(v))
+            spec = ds.data_spec(k, len(var.shape) if var is not None else ndim)
+            if not spec or spec[0] != ds.data_axis:
+                continue
+            if ndim == 0:
+                raise ValueError(f"feed {k!r} is a scalar but its spec splits dim 0 over "
+                                 f"{ds.data_axis!r}")
+            rows.append(int(np.shape(v)[0]))
+        if dp.group is None or dp.size <= 1 or not rows:
+            return
+        sig = (id(cp), tuple(rows))
+        seen = getattr(self, "_dp_feed_sigs", None)
+        if seen is None:
+            seen = self._dp_feed_sigs = set()
+        if sig in seen:
+            return
+        from ..ops import collective as _coll
+        dev = self.device if dp.group.backend == "nccl" else torch.device("cpu")
+        mine = torch.tensor(rows, dtype=torch.int64, device=dev)
+        allr = _coll.stack_gather(mine, dp.group).cpu()
+        if not bool((allr == allr[0]).all()):
+            raise ValueError(
+                f"data parallel: the ranks feed different row counts "
+                f"{allr[:, 0].tolist()} -- each rank feeds its slice of the global batch "
+                f"(global / {dp.size} rows of a dp-split dim 0)")
+        seen.add(sig)
 
     def _run_event(self, program):
         """``FLAGS_profile_executor``: a ``fluid.profiler`` event around a run."""
@@ -1443,15 +1629,17 @@ class Executor:
     def _run_step(self, program, feeds, fetch_names, scope, counter, fuse_k=None) -> _StepRun:
         """One step, through the cache of steps (``_StepRun``). A miss is
         verified first (``_maybe_verify``; ``fuse_k`` is ``run_fused``'s K)."""
-        seed = program.random_seed if program.random_seed is not None else 0
+        seed = self._seed(program)
         sig = tuple(sorted((k, tuple(t.shape), str(t.dtype)) for k, t in feeds.items()))
         captures = self._captures()
+        dp = self._dp.key if self._dp is not None else ()
         if captures:
             _tuning.prefetch()     # before the key: the lowerings' consults are lookups
             key = (id(program), program._version, sig, tuple(fetch_names), seed, id(scope),
-                   _tuning.state_token())
+                   dp, _tuning.state_token())
         else:
-            key = (id(program), program._version, sig, tuple(fetch_names), seed, id(scope))
+            key = (id(program), program._version, sig, tuple(fetch_names), seed, id(scope),
+                   dp)
         step = self._cache.get(key)
         if step is None:
             # before the step enters the cache: a program that fails the gate
@@ -1617,9 +1805,20 @@ class Executor:
         unless ``_use_graphs`` is off."""
         return self._use_graphs and self.device.type == "cuda"
 
-    def _trace(self, program, env, fetch_names, state_in, state_out, counter, counter_t):
-        """The program's ops over ``env``, freeing what no later op reads."""
+    def _seed(self, program) -> int:
+        """The program's seed; on a data-parallel run of more than one rank
+        this rank folded in, so the ranks draw different dropout masks (the
+        JAX explicit path folds the shard index into the step key)."""
         seed = program.random_seed if program.random_seed is not None else 0
+        if self._dp is not None and self._dp.size > 1:
+            seed = registry.seed_int(seed, self._dp.rank, _RANK_SALT)
+        return seed
+
+    def _trace(self, program, env, fetch_names, state_in, state_out, counter, counter_t):
+        """The program's ops over ``env``, freeing what no later op reads; on
+        a data-parallel run the fetches reduced over the ranks
+        (``_DataParallel.reduce_fetch``)."""
+        seed = self._seed(program)
         keep = frozenset(env) | frozenset(fetch_names) | frozenset(state_out) \
             | frozenset(state_in)
         runner = SubBlockRunner(program, env, self.device, seed, counter, counter_t,
@@ -1633,6 +1832,11 @@ class Executor:
         if missing:
             raise KeyError(f"fetch variable {missing[0]!r} was not produced by the "
                            f"program and is not in the feed/scope")
+        if self._dp is not None:
+            block = program.global_block()
+            with torch.no_grad():
+                for n in fetch_names:
+                    env[n] = self._dp.reduce_fetch(n, env[n], block)
 
     def _eager(self, program, feeds, fetch_names, scope, counter, counter_t):
         """The step run op by op; the state it writes goes to ``scope``."""

@@ -17,8 +17,19 @@ package loads in the other:
 ``save_persistables`` writes what resuming a training needs (parameters,
 optimizer moments and counters, metric state); ``filename`` names the
 manifest. The port reads and writes bf16 by reinterpreting bits in torch (no
-numpy bfloat16). It writes single-process saves, one chunk per variable;
-sharded (multi-chunk) variables and multi-process saves raise when loaded.
+numpy bfloat16). One process writes one chunk per variable.
+
+Under a process group of several ranks (data parallel, ``compiler.py``) a
+save is the JAX package's multi-process layout: rank 0 writes the
+replicated variables and ``__manifest__.json`` with ``nranks``, and every
+rank writes its own blocks of the ZeRO-sharded state (a scope value whose
+shape is its declared one split over the ranks on one dim), each a chunk
+with its region of the global shape, listed in rank ``r``'s
+``__manifest__.json.rank<r>``; the ranks then meet at a barrier. A load at
+the same world size reads the replicated variables and this rank's blocks;
+a single-process save loads whole on every rank (the executor splits the
+ZeRO state at its next run). Loading a multi-process save at another world
+size (resharding) is ROADMAP item 13 (c) and raises.
 
 A load writes into the tensor the scope already holds under a name, in place,
 when its shape and dtype match (the executor's captured CUDA graphs read the
@@ -119,13 +130,15 @@ def _verify_on_load() -> bool:
 
 
 def _load_var(dirname, meta) -> torch.Tensor:
+    """One variable's chunk: the whole variable, or (a multi-process save)
+    this rank's block of it."""
     chunks = meta["chunks"]
-    shape = [int(s) for s in meta["shape"]]
-    if len(chunks) != 1 or chunks[0]["index"] != [[0, s] for s in shape]:
+    if len(chunks) != 1:
         raise NotImplementedError(
-            f"variable {meta['name']!r} is stored in {len(chunks)} shard chunks; "
-            f"the port reads single-chunk variables only")
+            f"variable {meta['name']!r} is stored in {len(chunks)} shard chunks in one "
+            f"manifest; the port reads one chunk a variable a rank")
     ch = chunks[0]
+    shape = [int(b) - int(a) for a, b in ch["index"]]
     path = os.path.join(dirname, ch["file"])
     with open(path, "rb") as f:
         data = f.read()
@@ -161,26 +174,75 @@ def _names_of(main_program, vars, predicate):
              v.name if isinstance(v, Variable) else str(v)) for v in vars]
 
 
+def _world():
+    """(world size, rank) of the default process group, (1, 0) without one."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
+def _program_of(p):
+    """The Program of ``p`` (a ``CompiledProgram`` passes its own)."""
+    return getattr(p, "program", p) if not isinstance(p, Program) else p
+
+
+def _block_region(var, value, world: int, rank: int):
+    """This rank's region of ``var``'s global shape when ``value`` is its
+    block (one dim split over the ranks), else None (the whole variable)."""
+    if var is None or world <= 1 or not var.shape:
+        return None
+    shape, got = tuple(var.shape), tuple(value.shape)
+    if got == shape or len(got) != len(shape):
+        return None
+    diff = [d for d, (a, b) in enumerate(zip(shape, got)) if a != b]
+    if len(diff) != 1 or got[diff[0]] * world != shape[diff[0]]:
+        raise RuntimeError(f"variable {var.name!r} holds shape {got}, neither its "
+                           f"declared {shape} nor a block of it over {world} ranks")
+    d, per = diff[0], got[diff[0]]
+    return [[rank * per, (rank + 1) * per] if i == d else [0, s]
+            for i, s in enumerate(shape)]
+
+
+def _rank_manifest(base: str, rank: int) -> str:
+    return base if rank == 0 else f"{base}.rank{rank}"
+
+
 def save_vars(executor, dirname, main_program=None, vars: Optional[List] = None,
               predicate=None, filename=None) -> int:
     """Save ``vars`` (or the variables of ``main_program`` that satisfy
     ``predicate``) from the global scope into ``dirname``: one ``.npy`` per
-    variable and the manifest (``filename``, default ``__manifest__.json``).
-    Returns the bytes of the chunks written."""
-    main_program = main_program or default_main_program()
+    variable and the manifest (``filename``, default ``__manifest__.json``);
+    under several ranks the multi-process layout (module docstring). Returns
+    the bytes of the chunks this process wrote."""
+    main_program = _program_of(main_program or default_main_program())
     scope = global_scope()
+    world, rank = _world()
     os.makedirs(dirname, exist_ok=True)
     entries, nbytes = [], 0
-    for _, name in _names_of(main_program, vars, predicate):
+    for var, name in _names_of(main_program, vars, predicate):
         value = scope.find_var(name)
         if value is None:
             raise RuntimeError(f"variable {name!r} has no value in scope; "
                                f"run the startup program before saving")
-        entry = _save_var(dirname, name, value)
+        region = _block_region(var or main_program.global_block().find_var_recursive(name),
+                               value, world, rank)
+        if region is None and rank != 0:
+            continue   # replicated: rank 0 writes it
+        snap = _snapshot_var(name, value, copy=False)
+        if region is not None:
+            snap["shape"] = list((var or main_program.global_block()
+                                  .find_var_recursive(name)).shape)
+            snap["chunks"][0]["file"] = f"{name.replace('/', '__')}.rank{rank}.npy"
+            snap["chunks"][0]["index"] = region
+        entry, n = _write_snap(dirname, snap)
         entries.append(entry)
-        nbytes += entry["chunks"][0]["bytes"]
-    with open(os.path.join(dirname, filename or MANIFEST), "w") as f:
-        json.dump({"vars": entries, "nranks": 1, "format_version": FORMAT_VERSION}, f)
+        nbytes += n
+    with open(_rank_manifest(os.path.join(dirname, filename or MANIFEST), rank), "w") as f:
+        json.dump({"vars": entries, "nranks": world, "format_version": FORMAT_VERSION}, f)
+    if world > 1:
+        from .parallel import env as _penv
+        _penv.barrier("save_vars")
     return nbytes
 
 
@@ -342,23 +404,32 @@ def load_vars(executor, dirname, main_program=None, vars=None, predicate=None,
     int32 variable that the program declares int64 is widened to it: the
     JAX package runs with x64 off and saves its int64 state (the schedules'
     ``@LR_DECAY_COUNTER@``) as int32."""
-    main_program = main_program or default_main_program()
+    main_program = _program_of(main_program or default_main_program())
     path = os.path.join(dirname, filename or MANIFEST)
     if not os.path.exists(path):
         raise FileNotFoundError(f"no checkpoint manifest at {path}")
     with open(path) as f:
         head = json.load(f)
-    if head.get("nranks", 1) != 1:
-        raise NotImplementedError(
-            f"{dirname} was saved by {head['nranks']} processes; the port reads "
-            f"single-process saves only")
     metas = {m["name"]: m for m in head["vars"]}
+    saved = head.get("nranks", 1)
+    if saved != 1:
+        world, rank = _world()
+        if saved != world:
+            raise NotImplementedError(
+                f"{dirname} was saved by {saved} processes and this job has {world}: "
+                f"resharding a checkpoint to another world size is ROADMAP item 13 (c)")
+        if rank != 0:
+            with open(_rank_manifest(path, rank)) as f:
+                metas.update({m["name"]: m for m in json.load(f)["vars"]})
     scope = global_scope()
     for var, name in _names_of(main_program, vars, predicate):
         if name not in metas:
             raise RuntimeError(f"checkpoint at {dirname} has no variable {name!r}")
         value = _load_var(dirname, metas[name])
-        if var is not None and var.shape:
+        # a block of a sharded variable has the block's shape, not the declared one
+        block = [list(map(int, r)) for r in metas[name]["chunks"][0]["index"]] \
+            != [[0, int(s)] for s in metas[name]["shape"]]
+        if not block and var is not None and var.shape:
             declared = tuple(var.shape)
             if len(value.shape) != len(declared) or any(
                     d != -1 and d != s for d, s in zip(declared, value.shape)):

@@ -66,3 +66,4 @@ from .sequence import (sequence_conv, sequence_first_step,  # noqa: F401
                        sequence_erase, sequence_reshape, sequence_scatter)
 from . import distributions  # noqa: F401
 from .detection import *  # noqa: F401,F403  (its __all__: the 28 detection layers)
+from . import collective  # noqa: F401  (the c_* collective wrappers)

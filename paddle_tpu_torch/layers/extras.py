@@ -243,7 +243,7 @@ def host_embedding(input, size, name, optimizer="adagrad", learning_rate=0.05,
     the backward pass. ``name`` is required and process-global: it keys the
     table for ``host_table.save_all`` and re-use across programs.
     ``row_shard_axis`` (a table partitioned across processes) raises: it
-    comes with the distributed stack (ROADMAP item 13).
+    is ROADMAP item 13 (d).
     """
     from ..initializer import Constant
     from ..layer_helper import ParamAttr
@@ -252,7 +252,7 @@ def host_embedding(input, size, name, optimizer="adagrad", learning_rate=0.05,
     if row_shard_axis is not None:
         raise NotImplementedError(
             "host_embedding(row_shard_axis=...) partitions the table across processes, "
-            "which comes with the distributed stack (ROADMAP item 13)")
+            "which is ROADMAP item 13 (d)")
     ht.create_table(name, size[0], size[1], optimizer=optimizer, lr=learning_rate,
                     initializer=initializer, mmap_dir=mmap_dir,
                     async_updates=async_updates, seed=seed)

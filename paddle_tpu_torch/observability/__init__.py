@@ -25,8 +25,7 @@
 - ``blackbox`` -- post-mortem bundles on terminal failure paths
   (``PADDLE_TPU_OBS_BLACKBOX=<dir>``).
 
-``fleet`` (cross-rank aggregation) comes with the distributed stack
-(ROADMAP item 13).
+``fleet`` (cross-rank aggregation) is ROADMAP item 13 (c).
 """
 from . import metrics  # noqa: F401
 from . import export  # noqa: F401

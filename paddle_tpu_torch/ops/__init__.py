@@ -24,3 +24,4 @@ from . import detection_ops    # noqa: F401
 from . import extra_ops        # noqa: F401
 from . import tail_ops         # noqa: F401
 from . import sampled_ops      # noqa: F401
+from . import collective     # noqa: F401

@@ -29,6 +29,7 @@ import torch
 
 from ..core import cuda_build
 from ..core.registry import register
+from . import collective as _coll
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ROW_TILES = 65535  # grid.y of the f32 kernel's 64-row tiles
@@ -259,7 +260,7 @@ def _infer_shape(op, block):
 
 
 @register("conv2d_bn_fused", nondiff_inputs=("Mean", "Variance"), infer_shape=_infer_shape,
-          state_inputs=("Mean", "Variance"),
+          state_inputs=("Mean", "Variance"), capture_refusal=_coll.stats_capture_refusal,
           nondiff_outputs=("MeanOut", "VarianceOut", "SavedMean", "SavedVariance"))
 def conv2d_bn_fused(ctx, ins):
     """1x1/s1 NHWC conv + batch_norm (+ relu when ``act="relu"``) in one op,
@@ -267,7 +268,8 @@ def conv2d_bn_fused(ctx, ins):
     fused kernel without its prologue, whose epilogue gives the batch
     statistics (mean = s / M, var = ss / M - mean^2 clamped at 0), then
     normalises, moves the running statistics by ``momentum`` and applies
-    the activation. On the CPU the autotuner's ``conv2d_bn_fused.backend``
+    the activation. On a data-parallel run of more than one rank the sums
+    are all-reduced over ``dp`` first (the global batch's statistics). On the CPU the autotuner's ``conv2d_bn_fused.backend``
     may pick the unfused route instead (``unfused_conv1x1_stats``); its
     default is the kernel's plain version, and on the card the kernel is its
     one candidate, so the op is not asked there. Test
@@ -308,6 +310,12 @@ def conv2d_bn_fused(ctx, ins):
             y2, s, ss = FusedConv1x1BN.apply(*args)
         else:
             y2, s, ss = fused_conv1x1_bn_fwd(*args)
+        g = _coll.batch_stats_group(ctx)
+        if g is not None:
+            # data parallel: K2's column sums summed over the ranks, the
+            # global batch's statistics
+            s, ss = _coll.sum_stats(g, s, ss)
+            M = M * g.size
         mean = s / M
         var = torch.maximum(ss / M - mean * mean, _zero(ss))
         inv = torch.rsqrt(var + eps)

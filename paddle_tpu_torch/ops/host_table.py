@@ -27,8 +27,8 @@ Every table gets a [1]-float anchor parameter so that the backward pass has
 a differentiable input to hang ``host_push_grad`` on; its gradient is zero.
 
 Not ported: ``row_shard`` / ``shard_axis`` (tables partitioned across
-processes: ROADMAP item 13), ``arm_publisher`` / ``export_delta`` (online
-publishing: ``online/``, behind item 10); each raises.
+processes: ROADMAP item 13 (d)), ``arm_publisher`` / ``export_delta`` (online
+publishing: ``online/``, item 13 (d) with item 10's online part); each raises.
 """
 from __future__ import annotations
 
@@ -50,9 +50,9 @@ from ..observability.metrics import REGISTRY as _OBS
 PUSH_SECONDS = "host_table_push_seconds"
 
 _ONLINE = ("online publishing (export_delta, dirty-row tracking) calls online/, "
-           "which is not ported; it moves behind the serving pool (ROADMAP item 10)")
+           "which is not ported (ROADMAP item 13 (d), with item 10's online part)")
 _SHARDED = ("host_lookup_table with shard_axis (a table partitioned across processes) "
-            "comes with the distributed stack (ROADMAP item 13)")
+            "is ROADMAP item 13 (d)")
 
 
 class HostTable:
@@ -74,7 +74,7 @@ class HostTable:
         if row_shard:
             raise NotImplementedError(
                 f"host table {name!r}: row_shard partitions the table across "
-                f"processes, which comes with the distributed stack (ROADMAP item 13)")
+                f"processes, which is ROADMAP item 13 (d)")
         self.name = name
         self.vocab_size = int(vocab_size)
         self.dim = int(dim)
@@ -231,15 +231,14 @@ class HostTable:
 
     def arm_publisher(self, bound: int = 1_000_000):
         """Dirty-row tracking for online publishing: raises (``online/`` is
-        not ported; it moves behind ROADMAP item 10's ``PredictorPool``)."""
+        not ported: ROADMAP item 13 (d))."""
         raise NotImplementedError(_ONLINE)
 
     def export_delta(self, since_version: int = 0, *, encoding: str = "off",
                      watermark=None, chunk_rows: int = 65536) -> dict:
         """A ``host_table_delta_v1`` doc of the rows changed since a
         version: raises (the JAX method calls ``online.delta``, which is not
-        ported; ``online/`` moves behind ROADMAP item 10's
-        ``PredictorPool``)."""
+        ported: ROADMAP item 13 (d))."""
         raise NotImplementedError(_ONLINE)
 
     # ---- persistence -----------------------------------------------------

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.registry import register
+from . import collective as _coll
 from . import dropout as dropout_op
 from .basic import device_constant
 
@@ -206,11 +207,14 @@ def pool3d(ctx, ins):
 
 @register("batch_norm", nondiff_inputs=("Mean", "Variance"),
           nondiff_outputs=("MeanOut", "VarianceOut", "SavedMean", "SavedVariance"),
-          state_inputs=("Mean", "Variance"))
+          state_inputs=("Mean", "Variance"), capture_refusal=_coll.stats_capture_refusal)
 def batch_norm(ctx, ins):
     """Train mode: batch statistics over every axis but the channel's, in
     f32, with the JAX package's E[x^2] - E[x]^2 variance; gradients flow
-    through them; the running statistics move by ``momentum``. Test mode
+    through them; the running statistics move by ``momentum``. On a
+    data-parallel run of more than one rank the statistics are the global
+    batch's: the per-channel sums are all-reduced over the bound data axis
+    (``ops/collective.py::batch_stats_group``), never local. Test mode
     (``is_test`` or ``use_global_stats``): the running statistics.
     ``SavedVariance`` is rsqrt(var + eps)."""
     x = ins["X"][0]
@@ -227,8 +231,16 @@ def batch_norm(ctx, ins):
         saved_mean, mean_out, var_out = mean_in, mean_in, var_in
     else:
         xf = x.float()
-        mean = xf.mean(dim=red_axes)
-        var = xf.square().mean(dim=red_axes) - mean.square()
+        g = _coll.batch_stats_group(ctx)
+        if g is None:
+            mean = xf.mean(dim=red_axes)
+            var = xf.square().mean(dim=red_axes) - mean.square()
+        else:
+            # data parallel: the global batch's statistics, summed over the ranks
+            s, ss = _coll.sum_stats(g, xf.sum(dim=red_axes), xf.square().sum(dim=red_axes))
+            count = (x.numel() // x.shape[c_axis]) * g.size
+            mean = s / count
+            var = ss / count - mean.square()
         saved_mean = mean
         mean_out = mean_in * momentum + mean * (1 - momentum)
         var_out = var_in * momentum + var * (1 - momentum)
@@ -242,7 +254,8 @@ def batch_norm(ctx, ins):
 
 register("sync_batch_norm", nondiff_inputs=("Mean", "Variance"),
          nondiff_outputs=("MeanOut", "VarianceOut", "SavedMean", "SavedVariance"),
-         state_inputs=("Mean", "Variance"))(batch_norm)
+         state_inputs=("Mean", "Variance"),
+         capture_refusal=_coll.stats_capture_refusal)(batch_norm)
 
 
 @register("layer_norm", nondiff_outputs=("Mean", "Variance"))

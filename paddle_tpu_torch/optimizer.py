@@ -503,7 +503,7 @@ class PipelineOptimizer:
         if self._schedule == "temporal":
             raise NotImplementedError(
                 "PipelineOptimizer(schedule='temporal'): the temporal GPipe schedule over "
-                "device_guard stages is not ported yet (ROADMAP queue 1, item 13, with "
+                "device_guard stages is not ported yet (ROADMAP item 13 (b), with "
                 "the pipeline stages); schedule='scan' accumulates microbatches on one card")
         program = loss.block.program
         with program_guard(program, startup_program or default_startup_program()):

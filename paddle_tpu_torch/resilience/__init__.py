@@ -1,6 +1,6 @@
 """paddle_tpu_torch.resilience: fault injection and step-level recovery (the
 port's copy of ``paddle_tpu/resilience/``, without ``elastic``: world-size
-changes come with the distributed stack, ROADMAP item 13).
+changes are ROADMAP item 13 (c)).
 
 - :mod:`faults` -- deterministic, seedable fault injection
   (``PADDLE_TPU_FAULTS`` / :func:`install`): NaN/Inf into a named tensor at

@@ -40,7 +40,7 @@ import time
 from typing import Optional
 
 #: why --ranks exits 2
-ITEM_13 = ("ROADMAP item 13 (distributed): the elastic launcher, the reshard "
+ITEM_13 = ("ROADMAP item 13 (c) (elastic): the elastic launcher, the reshard "
            "planner and the kill-K-of-N chaos (--ranks) are not ported")
 
 
@@ -500,7 +500,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="the device: the card by default, or 'cpu'")
     ap.add_argument("--ranks", type=int, default=0,
-                    help="multi-rank elastic mode: not ported (ROADMAP item 13), "
+                    help="multi-rank elastic mode: not ported (ROADMAP item 13 (c)), "
                          "exits 2")
     ap.add_argument("--stream", action="store_true",
                     help="streaming data-plane chaos: flaky source + poison burst + "

@@ -11,9 +11,9 @@ walks the modules of the JAX package's list under ``paddle_tpu_torch``
 (``tools.ckpt_doctor`` is ``paddle_tpu_torch.tools.ckpt_doctor``).
 ``--as-reference`` prints each path under the JAX package's name
 (``paddle_tpu.<...>``, ``tools.ckpt_doctor``), so the output diffs line by
-line against ``tests/api_spec.txt``. The modules ``comm`` and ``online``
-belong to ROADMAP item 13 and are not in the port yet (``NOT_PORTED``):
-they are skipped with a line on stderr.
+line against ``tests/api_spec.txt``. The module ``online`` belongs to
+ROADMAP item 13 (d) and is not in the port yet (``NOT_PORTED``): it is
+skipped with a line on stderr.
 """
 import argparse
 import inspect
@@ -72,6 +72,7 @@ def _imported() -> dict:
     import paddle_tpu_torch.resilience  # noqa: F401
     import paddle_tpu_torch.serving  # noqa: F401
     import paddle_tpu_torch.tools.ckpt_doctor  # noqa: F401
+    import paddle_tpu_torch.comm  # noqa: F401
     import paddle_tpu_torch.tuning  # noqa: F401
     import paddle_tpu_torch.utils.checkpointer  # noqa: F401
     import paddle_tpu_torch.warmstore  # noqa: F401
@@ -80,8 +81,7 @@ def _imported() -> dict:
 
 #: modules of the list the port does not have yet, with the reason
 NOT_PORTED = {
-    "paddle_tpu_torch.comm": "ROADMAP item 13 (quantized collectives, the reshard planner)",
-    "paddle_tpu_torch.online": "ROADMAP item 13 (online table publishing)",
+    "paddle_tpu_torch.online": "ROADMAP item 13 (d) (online table publishing)",
 }
 
 

@@ -5,8 +5,9 @@ The reference's transpilers rewrite programs for multi-process training
 (DistributeTranspiler: pserver/NCCL graph split) and memory reuse
 (memory_optimize). Neither rewrite exists in the port:
 
-* collective training is a distribution strategy over ``torch.distributed``,
-  which the port does not have yet (ROADMAP item 13);
+* collective training is a distribution strategy over ``torch.distributed``:
+  ``CompiledProgram`` / ``fleet`` insert the gradient all-reduces (ROADMAP
+  item 13 (a), ``comm/rewrite.py``), with no transpiler;
 * pserver mode is scoped out (SCOPE.md parameter-server row);
 * buffer reuse is the executor's: each intermediate is dropped after its last
   reader, and PyTorch's caching allocator reuses it.
@@ -22,9 +23,9 @@ __all__ = ["DistributeTranspiler", "DistributeTranspilerConfig",
            "memory_optimize", "release_memory", "HashName", "RoundRobin"]
 
 _NOT_PORTED = ("DistributeTranspiler's pserver/NCCL program rewrite is not part of the "
-               "port: collective training (a distribution strategy over "
-               "torch.distributed, with fleet and the collective ops) is ROADMAP item 13, "
-               "not ported yet, and parameter-server mode is scoped out (SCOPE.md)")
+               "port: collective training runs through CompiledProgram.with_data_parallel "
+               "or fleet over torch.distributed (ROADMAP item 13 (a)), and "
+               "parameter-server mode is scoped out (SCOPE.md)")
 
 
 class DistributeTranspilerConfig:
@@ -40,7 +41,7 @@ class DistributeTranspilerConfig:
 
 class DistributeTranspiler:
     """Reference distribute_transpiler.py:230. Every rewrite raises
-    NotImplementedError naming ROADMAP item 13."""
+    NotImplementedError naming the port's collective path (ROADMAP item 13 (a))."""
 
     def __init__(self, config=None):
         self.config = config or DistributeTranspilerConfig()

@@ -47,8 +47,10 @@ is never a candidate there, so no decision can route an op on CUDA tensors
 away from its kernel. The backend choices thus have one candidate on the
 card, the kernel; the tile and layout choices keep theirs.
 
-The JAX package's ``comm.compress`` and ``shardplan.plan`` choices belong to
-the distributed stack, which the port does not have yet (ROADMAP item 13).
+``comm.compress`` is the per-tensor on/off of the compressed data-parallel
+gradient all-reduce (``comm/rewrite.py``). The JAX package's
+``shardplan.plan`` choice belongs to the auto-sharding planner, which the port
+does not have yet (ROADMAP item 13 (c)).
 """
 from __future__ import annotations
 
@@ -466,3 +468,40 @@ register_choice(FlashBackend())
 register_choice(FlashBlockSizes())
 register_choice(ConvLayout())
 register_choice(FuseSteps())
+
+
+# --------------------------------------------------------------------------------------
+# per-tensor gradient-allreduce compression (comm layer)
+# --------------------------------------------------------------------------------------
+
+
+class CommCompress(TunableChoice):
+    id = "comm.compress"
+    doc = ("per-tensor on/off for the compressed dp gradient allreduce "
+           "(DistributedStrategy.comm_compression): 'on' quantizes this "
+           "tensor (bf16/int8 + error feedback), 'off' keeps it full width. "
+           "Tensors under the min_bytes floor have no 'on' candidate. The "
+           "payoff is measured on the live step, never in isolation: "
+           "external measurements persist via tuning.record_decision().")
+
+    def bucket(self, params):
+        return {"nbytes": pow2_bucket(int(params["nbytes"])),
+                "world": int(params["world"]),
+                "mode": str(params["mode"])}
+
+    def candidates(self, params):
+        floor = int(params.get("min_bytes", 0))
+        if int(params["nbytes"]) < floor or int(params["world"]) <= 1:
+            return ["off"]
+        return ["off", "on"]
+
+    def default(self, params):
+        # the knob was set deliberately and the floor already excludes the
+        # small tensors: compress everything the hard gates allow
+        return "on" if "on" in self.candidates(params) else "off"
+
+    def bench(self, params, candidate):
+        return None   # measured on the live workload, never isolated
+
+
+register_choice(CommCompress())

@@ -29,10 +29,12 @@ chunk files are all present at their recorded sizes.
   ``checkpoint_corruption_total{kind}``; ``ckpt_save`` / ``ckpt_corrupt`` /
   ``ckpt_quarantine`` journal events.
 
-Single process only: the JAX package's multi-host choreography (rank 0
-writes, barriers, broadcast verdicts, reshard on a changed world) comes
-with the distributed stack, ROADMAP item 13. Under a multi-process
-environment (``parallel/env.py``) the constructor raises. Host-resident
+Under a process group of several ranks (data parallel) a save is
+synchronous: every rank writes its part (``io.save_vars``: rank 0 the
+replicated state, each rank its ZeRO blocks, then a barrier), rank 0 writes
+the train state and publishes ``LATEST``, and the ranks meet again; a
+restore at the same world size reads each rank's part. Restoring at
+another world size (the reshard) is ROADMAP item 13 (c). Host-resident
 embedding tables (``ops/host_table.py``) are not part of a checkpoint, as
 in the JAX package (ROADMAP fault 3.14): save them with
 ``host_table.save_all`` / ``load_all`` at the same boundary.
@@ -50,6 +52,11 @@ from ..observability.metrics import REGISTRY as _OBS
 from ..parallel import env as _penv
 
 TRAINSTATE_FILE = "trainstate.json"
+
+
+def _program(p):
+    """The Program a ``CompiledProgram`` wraps (a Program is its own)."""
+    return getattr(p, "program", p) if hasattr(p, "dist_strategy") else p
 
 
 class Checkpointer:
@@ -72,10 +79,6 @@ class Checkpointer:
         self.dirname = dirname
         self.save_interval_steps = save_interval_steps
         self.save_interval_secs = save_interval_secs
-        if _penv.get_world_size() > 1:
-            raise NotImplementedError(
-                f"Checkpointer under {_penv.get_world_size()} processes: multi-process "
-                f"saves and restores come with the distributed stack (ROADMAP item 13)")
         self.max_to_keep = max_to_keep
         self.async_save = bool(async_save)
         self.train_state: Optional[dict] = None   # set by restore()
@@ -110,6 +113,8 @@ class Checkpointer:
         from .. import io
         from ..resilience import faults as _rfaults
         async_ = self.async_save if async_ is None else bool(async_)
+        if _penv.dist_world_size() > 1:
+            async_ = False   # the ranks write their parts and meet at barriers
         self.wait()   # backpressure + surface the previous writer's error
         if train_state:
             self._train_state.update(train_state)
@@ -178,10 +183,12 @@ class Checkpointer:
         """Post-chunk-write tail of a sync save: trainstate, fault hook,
         LATEST, rotation."""
         from ..resilience import faults as _rfaults
-        self._write_trainstate(d, ts_doc)
-        if _rfaults._active:
-            _rfaults.mutate_checkpoint(d, step)
-        self._publish_and_rotate(step)
+        if _penv.get_rank() == 0:
+            self._write_trainstate(d, ts_doc)
+            if _rfaults._active:
+                _rfaults.mutate_checkpoint(d, step)
+            self._publish_and_rotate(step)
+        _penv.barrier("checkpoint_publish")
         self._last_save_t = time.time()
         self._last_save_step = step
 
@@ -209,12 +216,13 @@ class Checkpointer:
     def _trainstate_doc(self, step) -> dict:
         counter = 0
         if self.program is not None:
-            counter = int(getattr(self.program, "_rng_run_counter", 0))
+            counter = int(getattr(_program(self.program), "_rng_run_counter", 0))
+        world = _penv.dist_world_size()
         doc = {"format_version": 1, "step": int(step),
                "rng_counter": counter,
                # the world this state was saved under (the JAX package's
                # elastic resume reads it)
-               "world": {"nranks": 1, "ndev": 1}}
+               "world": {"nranks": world, "ndev": world}}
         doc.update(self._train_state)
         return doc
 
@@ -411,4 +419,4 @@ class Checkpointer:
             return
         self.train_state = doc
         if counter is not None and program is not None:
-            program._rng_run_counter = int(counter)
+            _program(program)._rng_run_counter = int(counter)

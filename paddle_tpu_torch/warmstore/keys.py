@@ -10,9 +10,9 @@ world-dependent program only, the process and device topology. The key is
 a flat JSON-able dict; the sha256 of its canonical JSON is the entry's
 directory name, the digest the JAX package computes for the same dict.
 
-The port runs no SPMD program yet (ROADMAP item 13), so its executor and
-Predictor always key ``{"scope": "local"}``: a single-device step is the
-same step on a fleet of any size. ``topology(True)`` is kept for the day a
+The port's data parallel (ROADMAP item 13 (a)) runs one process a rank, each
+step a rank's own program, so its executor and Predictor always key
+``{"scope": "local"}``: the step is the same at any world size. ``topology(True)`` is kept for the day a
 strategy bakes the world into a step.
 """
 from __future__ import annotations

@@ -363,16 +363,16 @@ def test_pins_equal_jax(build, check):
 
 def test_collective_is_never_dead_and_unregistered():
     """A collective feeding no fetch is a synchronization point, not dead
-    code (no PT010), as in the JAX package. The port has no collective op
-    (ROADMAP item 13), so it adds one finding the JAX package has not: PT004
-    on that op, which the port could not run."""
+    code (no PT010), as in the JAX package. The port registers the
+    collective ops since ROADMAP item 13 (a), so it gives the JAX package's
+    findings, finding for finding (no PT004 for an unregistered op)."""
     jprog, kw = _collective(fluid)
     want = [key(d) for d in janalysis.verify(jprog, **kw)]
     tprog, _ = _collective(pt)
     got = [key(d) for d in analysis.verify(tprog, **kw)]
-    extra = ("PT004", "error", 0, 0, "c_allreduce_sum", None)
-    assert got == [extra] + want
+    assert got == want
     assert "PT010" not in {k[0] for k in got}
+    assert "PT004" not in {k[0] for k in got}
 
 
 # -------------------------------------------------------------- the zoo ----

@@ -30,7 +30,6 @@ SPEC = os.path.join(ROOT, "tests", "api_spec.txt")
 _ITEM_13 = "ROADMAP item 13 (distributed), not ported yet"
 #: spec names (globs) the port does not have, with the reason
 NOT_IN_PORT = {
-    "paddle_tpu.comm.*": _ITEM_13 + ": quantized collectives and the reshard planner",
     "paddle_tpu.online.*": _ITEM_13 + ": online table publishing",
     "paddle_tpu.resilience.Elastic*": _ITEM_13 + ": the elastic controller",
     "paddle_tpu.resilience.ReshardPlan*": _ITEM_13 + ": checkpoint resharding",
@@ -158,12 +157,14 @@ def _printable(path, kind):
 
 def test_print_signatures_prints_the_ports_surface(capsys):
     """The printer lists every spec name the port has, under the JAX
-    package's names, and skips the modules of ROADMAP item 13."""
+    package's names (``comm`` among them since it is ported), and skips the
+    module of ROADMAP item 13 (d), ``online``."""
     assert ps.main(["--as-reference"]) == 0
     names = {ln.split(" ", 1)[0] for ln in capsys.readouterr().out.splitlines()}
     want = {p for p, k, _ in SPEC_LINES if _excepted(p) is None and _printable(p, k)}
     assert not want - names, sorted(want - names)
-    assert not any(n.startswith(("paddle_tpu.comm.", "paddle_tpu.online.")) for n in names)
+    assert any(n.startswith("paddle_tpu.comm.") for n in names)
+    assert not any(n.startswith("paddle_tpu.online.") for n in names)
 
 
 # -- the surface repairs, against the JAX package ----------------------------------------

@@ -784,11 +784,26 @@ def test_data_parallel_one_rank_equals_plain_model():
 
 
 def test_data_parallel_over_ranks_raises_naming_item_13():
+    """Two ranks without a process group of two raise, naming the
+    data-parallel path (item 13 (a)) and the call that makes the group; the
+    ranks themselves are held in tests/test_torch_launch_fleet.py."""
     with dg.guard(CPU):
         s = dg.ParallelStrategy()
         s.nranks = 2
-        with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+        with pytest.raises(RuntimeError, match="ROADMAP item 13 \\(a\\).*init_parallel_env"):
             dg.DataParallel(dg.Linear(2, 2), s)
+
+
+def test_data_parallel_refuses_ranks_named_without_a_group(monkeypatch):
+    """The launcher's environment names two processes but no process group
+    exists: the strategy and the wrapper raise (the executor's rule,
+    parallel.env.dist_world_size), never training each rank alone."""
+    monkeypatch.setenv("NUM_PROCESSES", "2")
+    with dg.guard(CPU):
+        with pytest.raises(RuntimeError, match="names 2 processes but no process group"):
+            dg.prepare_context()
+        with pytest.raises(RuntimeError, match="names 2 processes but no process group"):
+            dg.DataParallel(dg.Linear(2, 2))
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without a card")

@@ -44,6 +44,17 @@ def test_port_module_imports_no_jax(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_the_scan_covers_the_data_parallel_modules():
+    """The distributed slice's modules are among the scanned files (the
+    walk takes every module of the package; this pins that it sees them)."""
+    files = set(_port_files())
+    for rel in ("compiler.py", "fleet.py", "parallel/env.py", "parallel/launch.py",
+                "ops/collective.py", "layers/collective.py", "comm/__init__.py",
+                "comm/__main__.py", "comm/compress.py", "comm/cost.py",
+                "comm/reshard.py", "comm/rewrite.py", "dygraph/parallel.py"):
+        assert os.path.join("paddle_tpu_torch", rel) in files, rel
+
+
 def test_port_imports_no_module_by_computed_name():
     """The scan above sees only names written out: a module named at run
     time (``importlib.import_module(f"{pkg.__name__}...")``) could reach the

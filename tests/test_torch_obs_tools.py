@@ -134,7 +134,19 @@ def test_the_ports_own_journal_renders_every_section_it_feeds(tmp_path, monkeypa
     assert "-> goodput" in rep and "predictor_request_seconds" in rep
 
 
-def test_both_triages_of_a_port_bundle_are_the_same(tmp_path, monkeypatch):
+@pytest.fixture
+def fresh_observability():
+    """An empty black-box journal ring and metrics registry: the bundle
+    snapshots both, and they are process-wide, so fault events of test
+    files that ran earlier in the same process (a warm-store file's
+    ``warmstore_write`` faults) would join this bundle's causes."""
+    journal.clear()
+    REGISTRY.reset()
+    yield
+
+
+def test_both_triages_of_a_port_bundle_are_the_same(tmp_path, monkeypatch,
+                                                     fresh_observability):
     monkeypatch.setenv("PADDLE_TPU_OBS_BLACKBOX", str(tmp_path / "pm"))
     # a transient fault at every dispatch from step 1 exhausts the retries
     with pytest.raises(tres.TransientFault, match="injected"):

@@ -115,7 +115,15 @@ def test_candidates_are_the_ports_routes_and_defaults_its_old_ones():
     assert g("fuse_steps.k").candidates(FUSE) == jtuning.get_choice("fuse_steps.k").candidates(FUSE)
     assert g("fuse_steps.k").default(FUSE) == 1
     assert set(PARAMS) <= set(tuning.list_choices())
-    assert not {"comm.compress", "shardplan.plan"} & set(tuning.list_choices())
+    # comm.compress is the data-parallel slice's (ROADMAP item 13 (a)), as the
+    # JAX one; the auto-sharding planner's shardplan.plan is item 13 (c)'s
+    comm = {"nbytes": 1 << 20, "dtype": "float32", "world": 2, "mode": "int8",
+            "min_bytes": 65536}
+    for p in (comm, dict(comm, nbytes=1024), dict(comm, world=1)):
+        assert g("comm.compress").candidates(p) == \
+            jtuning.get_choice("comm.compress").candidates(p)
+        assert g("comm.compress").default(p) == jtuning.get_choice("comm.compress").default(p)
+    assert "shardplan.plan" not in set(tuning.list_choices())
 
 
 def test_on_the_card_only_hand_written_routes_are_candidates(caches, monkeypatch):

@@ -17,8 +17,10 @@ CRNN-CTC, and measure BERT-base's training and serving with the port's
 measurement stack (goodput, MFU, memory, the anomaly detector, per-op
 attribution, SLO alerts, ``fluid.profiler``), restart a BERT-base
 serving replica cold and warm through the warm store, serve ResNet-50
-through the C serving ABI beside the chaos CLI and the operator tools, and
+through the C serving ABI beside the chaos CLI and the operator tools,
 train BERT-base eagerly through the dygraph tape, trace it and serve it,
+train BERT-base data parallel over two ranks, over a two-stage pipeline and
+its encoder at S 2048 over ring and Ulysses sequence parallelism,
 through the PyTorch/CUDA port on one NVIDIA GPU, and hold its CUDA kernels
 against their plain PyTorch versions.
 
@@ -271,14 +273,15 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    ``torch.sum``'s, ParamOut within 2 f32 ulps (1 bf16 ulp) and bit for bit
    to the same arithmetic fed the kernel's norms, two runs bit for bit;
 19. (run after phase 18) the rest of the training surface. A: BERT-base
-   at phase 11's configuration under ``PipelineOptimizer(Adam,
+   at phase 11's configuration but 6 of its 12 layers (``PIPE_LAYERS``)
+   under ``PipelineOptimizer(Adam,
    num_microbatches=4, schedule="scan")``: the global batch of 128 as 4 x
    32 in one ``scan`` whose body holds the forward and backward ops, the
    masked positions rebased to each microbatch
    (``train_profile.pretrain_feed(..., microbatches=4)``); as phase 17 runs
    its models, without ``run_fused`` (eager and graph from one state bit for
-   bit, K1-fwd and K1-bwd 48 a step, each forward once a microbatch,
-   ``dropout`` 100, ``multi_tensor_update`` 1), step ms, busy ms, activities, graph
+   bit, K1-fwd and K1-bwd 24 a step, each forward once a microbatch,
+   ``dropout`` 52, ``multi_tensor_update`` 1), step ms, busy ms, activities, graph
    pool and eager peak beside phase 11's plain B128 step, and K1's time a
    launch inside the scan from the trace; A0: at dropout 0 against the
    plain B128 step at dropout 0 on the same tokens, 4 steps from one
@@ -562,6 +565,25 @@ PyTorch built for CUDA. Phases, each printing JSON lines:
    cs.phase_build(); cs.phase_data_parallel(torch,
    tempfile.mkdtemp(dir='build'))"`` (``nccl_probe=True`` adds E: NCCL asked
    for two ranks on one card, its refusal recorded);
+   phase 31, pipeline and sequence parallelism: two ranks started by the
+   port's launcher sharing the card over gloo (``chip_smoke.py --ppsp-child
+   DIR``), the one-process references in this process. A, BERT-base
+   pretraining at full width (L12 H768 A12, S 128, f32, dropout 0), B 32 as
+   4 microbatches, ``pp_stages`` 2 under ``PipelineOptimizer(Adam, 4,
+   schedule="temporal")`` over a pp 2 mesh (the GPipe schedule: 5 ticks, 24
+   K1-fwd and 24 K1-bwd a step a rank, each rank holding half of every
+   stacked parameter), 3 steps against the same program in one process (the
+   serial schedule) and against ``schedule="scan"``; B, BERT-base's encoder
+   (width 768, 12 heads, 2 layers) at B 2 x S 2048 over an sp 2 mesh, each
+   rank its 1024 positions, through the ring (2 K1-fwd and 2 K1-bwd a layer
+   a rank) and through Ulysses (1 and 1), 3 Adam steps each against one
+   process on the whole sequence; C, the ring and Ulysses on one layer's q,
+   k, v [2, 12, 1024, 64] a rank (K1 on [2, 12, 1024, 64] blocks and on
+   [2, 6, 2048, 64] with the LSE), causal and not, against
+   ``attention_plain`` and its backward on the gathered S 2048. Alone: ``mkdir -p build; python3 -c
+   "import tempfile, torch, chip_smoke as cs; cs.phase_build();
+   cs.phase_pipeline_and_sequence_parallel(torch,
+   tempfile.mkdtemp(dir='build'))"`` (about 50 s after the build);
 12. the kernels line (``multi_tensor_update`` with its five kinds, each
    with its launches; K1-fwd's 64-row tile as ``flash_attn_fwd_q64``),
    then the result line.
@@ -4328,6 +4350,11 @@ def phase_optimizers(torch, constant_bert=None, constant_resnet=None):
 
 #: A: bench.py's BERT-base batch, accumulated over 4 equal microbatches
 PIPE_BATCH, PIPE_MICROBATCHES = 128, 4
+#: A and A0's depth: BERT-base's width at 6 of its 12 layers (12 until phase 31
+#: was added; cut for the script's time: phase 31 runs the 12 layers under the
+#: temporal schedule and beside the microbatch scan). Phase 11's L12 step is
+#: still A's timing yardstick, at twice the depth
+PIPE_LAYERS = 6
 #: A0: steps from one state, pipeline (dropout 0) against the plain B128 step
 #: (dropout 0), held to phase 5's limits for two bf16 paths (TRAIN_LOSS_REL,
 #: TRAIN_UPDATE_REL): the mean of 4 equal-count microbatch means is the batch
@@ -4376,8 +4403,9 @@ DROPOUT_2ND_REL = 1e-6
 
 
 def _pipeline_bert(torch, pt, constant):
-    """Path A: BERT-base pretraining under ``PipelineOptimizer(Adam,
-    num_microbatches=4, schedule="scan")`` at phase 11's configuration,
+    """Path A: BERT-base pretraining (PIPE_LAYERS of its layers) under
+    ``PipelineOptimizer(Adam, num_microbatches=4, schedule="scan")`` at
+    phase 11's configuration otherwise,
     through ``_scheduled_model`` (constant LR) beside phase 11's plain B128
     step; then A0: at dropout 0 against the plain B128 step at dropout 0,
     PIPE_STEPS steps from one state on the graph executor."""
@@ -4387,7 +4415,7 @@ def _pipeline_bert(torch, pt, constant):
                                                       pipeline, pretrain_feed)
     assert BATCH == PIPE_BATCH
     M = PIPE_MICROBATCHES
-    cfg = bert.BertConfig(dtype="bfloat16", dropout=ATTN_DROPOUT)
+    cfg = bert.BertConfig(dtype="bfloat16", dropout=ATTN_DROPOUT, n_layers=PIPE_LAYERS)
     raw = pretrain_feed(np.random.RandomState(SEED), cfg, BATCH, SEQ, MASKS_PER_SEQ, M)
     feed = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
     main, startup, total, pg = build_pretrain(cfg, BATCH, SEQ, MASKS_PER_SEQ, LR, SEED,
@@ -4402,8 +4430,8 @@ def _pipeline_bert(torch, pt, constant):
                          f"{body_attn} attentions and {body} dropouts in the body, {glob} out")
     expected = {"flash_attn_fwd": cfg.n_layers * M, "flash_attn_bwd": cfg.n_layers * M,
                 "dropout_fwd": body * M, "multi_tensor_update": 1}
-    label = (f"bert-base pretrain bf16 B{BATCH} as {M} x {BATCH // M} S{SEQ} dropout "
-             f"{cfg.dropout} PipelineOptimizer(Adam({LR}), num_microbatches={M}, "
+    label = (f"bert-base L{cfg.n_layers} pretrain bf16 B{BATCH} as {M} x {BATCH // M} "
+             f"S{SEQ} dropout {cfg.dropout} PipelineOptimizer(Adam({LR}), num_microbatches={M}, "
              f"schedule='scan')")
     r = _scheduled_model(torch, pt, label, main, startup, feed, total, expected, None, None,
                          None, constant, event="pipeline_training", fused=False)
@@ -4425,7 +4453,7 @@ def _pipeline_bert(torch, pt, constant):
     torch.cuda.empty_cache()
 
     # A0: dropout 0, the pipeline against the plain step on the same tokens
-    cfg0 = bert.BertConfig(dtype="bfloat16", dropout=0.0)
+    cfg0 = bert.BertConfig(dtype="bfloat16", dropout=0.0, n_layers=PIPE_LAYERS)
     pipe, pstart, ptotal, pipe_pg = build_pretrain(cfg0, BATCH, SEQ, MASKS_PER_SEQ, LR, SEED,
                                                    optimizer=pipeline(M))
     plain, _, ltotal, plain_pg = build_pretrain(cfg0, BATCH, SEQ, MASKS_PER_SEQ, LR, SEED)
@@ -9300,6 +9328,368 @@ def phase_data_parallel(torch, workdir, nccl_probe=False):
     return r
 
 
+
+# Phase 31: pipeline and sequence parallelism, two gloo ranks sharing the card
+# (NCCL refuses two ranks on one card: phase 30's E). A: BERT-base pretraining
+# at full width (L12 H768 A12, S 128, f32, dropout 0), B 32 as 4 microbatches
+# of 8, with ``pp_stages`` 2 under ``PipelineOptimizer(Adam, 4, "temporal")``
+# over a pp 2 mesh: each rank holds 6 layers' stacked parameters and runs them
+# on each microbatch, so 6 x 4 = 24 K1-fwd and 24 K1-bwd a step a rank. Held
+# against the same rewritten program in one process (the serial schedule: the
+# same sums in the same order a stage, so the gap is only gloo's and the
+# replicate's none: PP_LOSS_RTOL) and against ``schedule="scan"`` (the
+# microbatch scan: the gradient summed in another order, SCAN_LOSS_RTOL). B:
+# BERT-base's encoder at width 768, 12 heads x 64, ffn 3072, 2 layers (the
+# depth cut to fit the time), B 2 x S 2048 f32 at dropout 0, a loss taken
+# position by position (the mean of an fc over the sequence output), Adam,
+# over an sp 2 mesh: each rank feeds its 1024 positions (the global ones in
+# ``pos_ids``); the ring (2 K1-fwd and 2 K1-bwd a layer a rank: the two
+# blocks of the ring) and Ulysses (1 and 1: the local 6 heads over the whole
+# sequence), each against one process on the whole sequence (SP_LOSS_RTOL:
+# the online-softmax merge of two blocks against one softmax, in f32). C: one
+# layer's q, k, v [2, 12, 1024, 64] on each rank through the ring (K1 on
+# [2, 12, 1024, 64] blocks) and through Ulysses (K1 on [2, 6, 2048, 64] with
+# the LSE), causal and not, against ``attention_plain`` and its backward on
+# the gathered S 2048.
+PP_BATCH, PP_MICROBATCHES, PP_STEPS = 32, 4, 3
+PP_LOSS_RTOL = 1e-5
+SCAN_LOSS_RTOL = 1e-4
+SP_SEQ, SP_BATCH, SP_LAYERS, SP_STEPS = 2048, 2, 2, 3
+SP_LOSS_RTOL = 1e-4
+# Step 1's gradients after their sync, relative L1 against one process's: A's
+# stacked block (this rank's stage), an embedding (before the pipeline: its
+# cotangent summed over pp) and the NSP weight (after it: the replicated
+# output's cotangent) hold the serial schedule's sums (PP_GRAD_REL); B's
+# through the ring or Ulysses against one softmax in f32 (SP_GRAD_REL)
+PP_GRADS = ("layer0_attn_qkv_w@pp_stacked@GRAD", "pos_emb@GRAD", "nsp_w@GRAD")
+SP_GRADS = ("layer0_attn_qkv_w@GRAD", "layer1_ffn2_w@GRAD", "pos_emb@GRAD")
+PP_GRAD_REL, SP_GRAD_REL = 1e-5, 1e-4
+RING_TOL = 2e-4                # C: the ring's and Ulysses's largest gap to the plain version
+PPSP_TIMEOUT = 300             # the process group's timeout and the launch's limit, s
+
+
+def _pp_feeds(cfg):
+    """PP_STEPS batches of PP_BATCH, their masked positions drawn a
+    microbatch (the scan's feed) and made global (the temporal one's)."""
+    from paddle_tpu_torch.tools.train_profile import (MASKS_PER_SEQ, SEQ, global_mask_pos,
+                                                      pretrain_feed)
+    out = []
+    for i in range(PP_STEPS):
+        f = pretrain_feed(np.random.RandomState(SEED + i), cfg, PP_BATCH, SEQ, MASKS_PER_SEQ,
+                          PP_MICROBATCHES)
+        out.append((f, dict(f, mask_pos=global_mask_pos(f["mask_pos"], PP_MICROBATCHES,
+                                                        PP_BATCH, SEQ))))
+    return out
+
+
+def _pp_program(pt, schedule):
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.tools.train_profile import LR, MASKS_PER_SEQ, SEQ, build_pretrain
+    temporal = schedule == "temporal"
+    cfg = bert.BertConfig(dtype="float32", dropout=0.0, pp_stages=2 if temporal else None)
+    opt = (lambda p, rate: p.optimizer.PipelineOptimizer(p.optimizer.Adam(rate),
+                                                         PP_MICROBATCHES, schedule=schedule))
+    return cfg, build_pretrain(cfg, PP_BATCH, SEQ, MASKS_PER_SEQ, LR, SEED, optimizer=opt)
+
+
+def _sp_program(pt, impl):
+    """B's program: BERT-base's encoder (SP_LAYERS layers, max_seq_len
+    SP_SEQ) and the mean of an fc over its output, under Adam."""
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.tools.train_profile import LR
+    cfg = bert.BertConfig(dtype="float32", dropout=0.0, n_layers=SP_LAYERS,
+                          max_seq_len=SP_SEQ, attn_impl=impl)
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        ids = [pt.data(n, [-1], "int64") for n in ("src_ids", "pos_ids", "sent_ids")]
+        mask = pt.data("input_mask", [-1], "float32")
+        out = bert.encoder(*ids, mask, cfg)
+        loss = pt.layers.mean(pt.layers.fc(out, 1, num_flatten_dims=2))
+        pt.optimizer.Adam(LR).minimize(loss)
+    return cfg, main, startup, loss
+
+
+def _sp_feeds(cfg, rank=None, n=2):
+    """SP_STEPS batches of SP_BATCH x SP_SEQ tokens (a full mask, the global
+    positions); with ``rank`` that rank's block of the positions."""
+    out = []
+    for i in range(SP_STEPS):
+        rs = np.random.RandomState(SEED + 100 + i)
+        f = {"src_ids": rs.randint(0, cfg.vocab_size, (SP_BATCH, SP_SEQ)).astype("int64"),
+             "pos_ids": np.tile(np.arange(SP_SEQ, dtype="int64"), (SP_BATCH, 1)),
+             "sent_ids": rs.randint(0, 2, (SP_BATCH, SP_SEQ)).astype("int64"),
+             "input_mask": np.ones((SP_BATCH, SP_SEQ), "float32")}
+        if rank is not None:
+            blk = SP_SEQ // n
+            f = {k: np.ascontiguousarray(v[:, rank * blk:(rank + 1) * blk])
+                 for k, v in f.items()}
+        out.append(f)
+    return out
+
+
+def _train_steps(torch, pt, program, startup, loss, feeds, grads=(), grad_file=None,
+                 block=None):
+    """Steps of ``program`` (a Program or a CompiledProgram) from its
+    startup on the card: losses, step ms, K1 launches, the state's bytes
+    and the capture refusals. ``grads``: gradients fetched at step 1 (after
+    their sync); with ``block`` None they are saved to ``grad_file`` (the
+    one-process reference), else held against it: each one's relative L1
+    gap, ``block`` (this rank's index) taking a ``@pp_stacked`` one's row
+    of the reference."""
+    exe, scope = pt.Executor(), pt.Scope()
+    losses, ms, got = [], [], {}
+    with pt.scope_guard(scope):
+        exe.run(startup)
+        torch.cuda.synchronize()
+        _zero_launches()
+        for i, f in enumerate(feeds):
+            fd = {k: torch.from_numpy(v).cuda() for k, v in f.items()}
+            fetch = [loss] + (list(grads) if i == 0 else [])
+            t0 = time.perf_counter()
+            outs = exe.run(program, feed=fd, fetch_list=fetch, return_numpy=False)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(outs[0].float().reshape(-1)[0]))
+            if i == 0:
+                got = {n: t.detach().float().cpu() for n, t in zip(grads, outs[1:])}
+            del outs
+        counts = _dp_counts()
+        prog = getattr(program, "program", program)
+        params = {p.name for p in prog.all_parameters()}
+        held = [scope.find_var(n) for n in params if scope.find_var(n) is not None]
+        stacked = [scope.find_var(n) for n in params if n.endswith("@pp_stacked")
+                   and scope.find_var(n) is not None]
+        r = dict(losses=losses, step_ms=ms, launches=counts,
+                 param_bytes=int(sum(t.numel() * t.element_size() for t in held)),
+                 stacked_bytes=int(sum(t.numel() * t.element_size() for t in stacked)),
+                 refusals=sorted({s.refusal for s in exe._cache.values() if s.refusal}),
+                 captured=any(s.graph is not None for s in exe._cache.values()))
+    exe.close()
+    del exe, scope
+    torch.cuda.empty_cache()
+    if grads and block is None:
+        torch.save(got, grad_file)
+    elif grads:
+        ref = torch.load(grad_file)
+        gaps = {}
+        for n, t in got.items():
+            want = ref[n]
+            if "@pp_stacked" in n and t.shape[0] * 2 == want.shape[0]:
+                want = want[block * t.shape[0]:(block + 1) * t.shape[0]]
+            gaps[n] = float((t - want).abs().sum() / want.abs().sum())
+        r["step1_grad_rel_l1_gap"] = gaps
+    return r
+
+
+def _sp_attention_vs_plain(torch, rank, group):
+    """C on this rank: the ring's and Ulysses's output and gradients on its
+    block of one layer's q, k, v (seeded, the same global tensors on both
+    ranks) against ``attention_plain`` and its backward on the gathered S,
+    causal and not. The ring launches K1 on [B, H, S/n, D] blocks, Ulysses
+    on [B, H/n, S, D] with the LSE, forward and backward."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.parallel import ring_attention, ulysses
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    B, H, S, D = 2, 12, SP_SEQ, 64
+    q, k, v, do = (torch.randn((B, H, S, D), generator=g, device="cuda") for _ in range(4))
+    bias = torch.zeros((B, 1, 1, S), device="cuda")
+    bias[1, :, :, S - 100:] = -1e4                  # the second row's last keys padded
+    blk = S // group.size
+    sl = slice(rank * blk, (rank + 1) * blk)
+    out = {"ring": dict(shape=[B, H, blk, D], gathered_s=S),
+           "ulysses": dict(shape=[B, H // group.size, S, D], gathered_s=S)}
+    for causal in (False, True):
+        ref = fa.attention_plain(q, k, v, bias, None, causal)
+        dq, dk, dv = fa.attention_bwd_plain(q, k, v, bias, ref, do, None, causal)
+        for kind, fn in (("ring", ring_attention.ring_attention),
+                         ("ulysses", ulysses.ulysses_attention)):
+            ts = [t[:, :, sl].contiguous().requires_grad_() for t in (q, k, v)]
+            b = bias[..., sl].contiguous()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o = fn(*ts, b, None, 0.0, causal, 0, group)
+            o.backward(do[:, :, sl].contiguous())
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            gaps = {"out": float((o.detach() - ref[:, :, sl]).abs().max())}
+            for n, t, want in zip("qkv", ts, (dq, dk, dv)):
+                gaps[f"d{n}"] = float((t.grad - want[:, :, sl]).abs().max())
+            out[kind]["causal" if causal else "full"] = dict(max_abs_err=gaps, fwd_bwd_ms=ms)
+            del ts, o
+        del ref, dq, dk, dv
+    torch.cuda.empty_cache()
+    return out
+
+
+def ppsp_child(out_dir) -> int:
+    """A rank of phase 31 (``chip_smoke.py --ppsp-child OUT_DIR``, started by
+    the port's launcher): A, B (ring and Ulysses) and C over the two ranks
+    sharing the card over gloo."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.observability.metrics import REGISTRY
+    from paddle_tpu_torch.parallel import env, ring_attention, ulysses
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    env.init_parallel_env(timeout_seconds=PPSP_TIMEOUT, backend="gloo")
+    rank = env.get_rank()
+    res = {"rank": rank, "backend": env.backend(), "device": str(env.device())}
+    path = os.path.join(out_dir, f"rank{rank}.json")
+
+    def write():
+        with open(path, "w") as f:
+            json.dump(res, f)
+
+    # A: the pipeline
+    cfg, (main, startup, total, _) = _pp_program(pt, "temporal")
+    cp = pt.CompiledProgram(main).with_strategy(pt.DistributedStrategy(
+        mesh_shape={"pp": 2}, param_rules=pt.optimizer.PipelineOptimizer.pp_param_rules()))
+    a = _train_steps(torch, pt, cp, startup, total, [g for _, g in _pp_feeds(cfg)],
+                     PP_GRADS, os.path.join(out_dir, "grads_pp.pt"), rank)
+    a.update(ticks=REGISTRY.gauge("pipeline_schedule_ticks", axis="pp").value,
+             bubble=REGISTRY.gauge("pipeline_bubble_fraction", axis="pp").value,
+             stage_spans=REGISTRY.counter("pipeline_stage_spans_total", axis="pp").value,
+             per_step={k: v / PP_STEPS for k, v in a["launches"].items()})
+    res["a"] = a
+    write()
+    del main, startup, cp
+    # B: sequence parallel, the ring then Ulysses
+    for impl, mod in (("auto", ring_attention), ("ulysses", ulysses)):
+        cfg, main, startup, loss = _sp_program(pt, impl)
+        cp = pt.CompiledProgram(main).with_strategy(pt.DistributedStrategy(
+            mesh_shape={"sp": 2},
+            data_rules=[(n, ("dp", "sp")) for n in ("src_ids", "pos_ids", "sent_ids",
+                                                    "input_mask")]))
+        before = mod.TRACE_COUNT
+        b = _train_steps(torch, pt, cp, startup, loss, _sp_feeds(cfg, rank), SP_GRADS,
+                         os.path.join(out_dir, "grads_sp.pt"), rank)
+        b.update(calls=mod.TRACE_COUNT - before,
+                 per_layer={k: v / (SP_STEPS * SP_LAYERS) for k, v in b["launches"].items()})
+        res[f"b_{impl}"] = b
+        write()
+        del main, startup, cp
+    # C: the ring and Ulysses against the plain version
+    from paddle_tpu_torch.ops import collective as coll
+    res["c"] = _sp_attention_vs_plain(torch, rank, coll.world_group("sp"))
+    write()
+    env.barrier("results written")
+    # leave without the process group's C++ teardown (phase 30's reason)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def phase_pipeline_and_sequence_parallel(torch, workdir):
+    """Phase 31: pipeline and sequence parallelism (the constants' comment
+    above): the one-process references here, A, B and C in two gloo ranks
+    sharing the card (``chip_smoke.py --ppsp-child DIR``, their logs under
+    ``DIR/logs``)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.parallel import launch
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    refs = {}
+    for schedule in ("temporal", "scan"):
+        cfg, (main, startup, total, _) = _pp_program(pt, schedule)
+        feeds = [g if schedule == "temporal" else f for f, g in _pp_feeds(cfg)]
+        refs[schedule] = _train_steps(
+            torch, pt, main, startup, total, feeds,
+            PP_GRADS if schedule == "temporal" else (), os.path.join(workdir, "grads_pp.pt"))
+        del main, startup
+    cfg, main, startup, loss = _sp_program(pt, "auto")
+    refs["sp"] = _train_steps(torch, pt, main, startup, loss, _sp_feeds(cfg), SP_GRADS,
+                              os.path.join(workdir, "grads_sp.pt"))
+    del main, startup
+    emit("pp_sp_one_process",
+         **{k: {x: v[x] for x in ("losses", "step_ms", "launches", "captured")}
+            for k, v in refs.items()})
+    codes = launch.launch(2, [os.path.join(REPO, "chip_smoke.py"), "--ppsp-child", workdir],
+                          log_dir=os.path.join(workdir, "logs"), timeout=PPSP_TIMEOUT,
+                          env={"PYTHONPATH": REPO})
+    ranks = []
+    for r in range(2):
+        p = os.path.join(workdir, f"rank{r}.json")
+        ranks.append(json.load(open(p)) if os.path.exists(p) else {})
+    if codes != [0, 0] or any("c" not in x for x in ranks):
+        tails = "".join(open(os.path.join(workdir, "logs", f"rank{r}.log")).read()[-3000:]
+                        for r in range(2))
+        raise SystemExit(f"pipeline / sequence-parallel ranks failed: {codes}\n{tails}")
+
+    def rel(xs, ys):
+        return max(abs(x - y) / abs(y) for x, y in zip(xs, ys))
+
+    a = [x["a"] for x in ranks]
+    a_row = dict(losses=[x["losses"] for x in a],
+                 one_process_serial_losses=refs["temporal"]["losses"],
+                 scan_losses=refs["scan"]["losses"],
+                 rel_gap_to_serial=max(rel(x["losses"], refs["temporal"]["losses"]) for x in a),
+                 rel_gap_to_scan=max(rel(x["losses"], refs["scan"]["losses"]) for x in a),
+                 rtol_serial=PP_LOSS_RTOL, rtol_scan=SCAN_LOSS_RTOL,
+                 param_bytes=[x["param_bytes"] for x in a],
+                 one_process_param_bytes=refs["temporal"]["param_bytes"],
+                 one_process_stacked_bytes=refs["temporal"]["stacked_bytes"],
+                 k1_per_step=[{k: x["per_step"][k] for k in ("flash_attn_fwd", "flash_attn_bwd")}
+                              for x in a],
+                 k1_expected_per_step=6 * PP_MICROBATCHES,
+                 step_ms=[x["step_ms"] for x in a],
+                 one_process_step_ms={"serial": refs["temporal"]["step_ms"],
+                                      "scan": refs["scan"]["step_ms"]},
+                 step1_grad_rel_l1_gap=[x["step1_grad_rel_l1_gap"] for x in a],
+                 grad_rel_limit=PP_GRAD_REL,
+                 ticks=[x["ticks"] for x in a], bubble=[x["bubble"] for x in a],
+                 refusals=a[0]["refusals"], captured=[x["captured"] for x in a])
+    emit("pipeline_parallel_bert", **a_row)
+    b_rows = {}
+    for impl, want in (("auto", 2), ("ulysses", 1)):
+        b = [x[f"b_{impl}"] for x in ranks]
+        b_rows[impl] = dict(losses=[x["losses"] for x in b],
+                            one_process_losses=refs["sp"]["losses"],
+                            rel_gap=max(rel(x["losses"], refs["sp"]["losses"]) for x in b),
+                            rtol=SP_LOSS_RTOL, step_ms=[x["step_ms"] for x in b],
+                            one_process_step_ms=refs["sp"]["step_ms"],
+                            k1_per_layer=[{k: x["per_layer"][k]
+                                           for k in ("flash_attn_fwd", "flash_attn_bwd")}
+                                          for x in b],
+                            k1_expected_per_layer=want, calls=[x["calls"] for x in b],
+                            step1_grad_rel_l1_gap=[x["step1_grad_rel_l1_gap"] for x in b],
+                            grad_rel_limit=SP_GRAD_REL,
+                            refusals=b[0]["refusals"])
+        emit("sequence_parallel_" + ("ring" if impl == "auto" else "ulysses"), **b_rows[impl])
+    c = [x["c"] for x in ranks]
+    c_err = {kind: max(v for x in c for m in ("full", "causal")
+                       for v in x[kind][m]["max_abs_err"].values())
+             for kind in ("ring", "ulysses")}
+    for kind in ("ring", "ulysses"):
+        emit(f"{kind}_vs_plain", ranks=[x[kind] for x in c], max_abs_err=c_err[kind],
+             tol=RING_TOL)
+    ok = (a_row["rel_gap_to_serial"] <= PP_LOSS_RTOL
+          and a_row["rel_gap_to_scan"] <= SCAN_LOSS_RTOL
+          and all(x["losses"] == a[0]["losses"] for x in a)
+          and all(p[k] == 6 * PP_MICROBATCHES for p in a_row["k1_per_step"] for k in p)
+          and all(t == PP_MICROBATCHES + 1 for t in a_row["ticks"])
+          and all(abs(bb - 1 / (PP_MICROBATCHES + 1)) < 1e-9 for bb in a_row["bubble"])
+          # each rank holds half of every stack and all the rest
+          and all(x == a_row["one_process_param_bytes"] - a_row["one_process_stacked_bytes"] // 2
+                  for x in a_row["param_bytes"])
+          and all(np.isfinite(x["losses"]).all() for x in a)
+          and all(r["rel_gap"] <= SP_LOSS_RTOL for r in b_rows.values())
+          and all(len(g) == len(PP_GRADS) and max(g.values()) <= PP_GRAD_REL
+                  for g in a_row["step1_grad_rel_l1_gap"])
+          and all(len(g) == len(SP_GRADS) and max(g.values()) <= SP_GRAD_REL
+                  for r in b_rows.values() for g in r["step1_grad_rel_l1_gap"])
+          and all(p[k] == want for impl, want in (("auto", 2), ("ulysses", 1))
+                  for p in b_rows[impl]["k1_per_layer"] for k in p)
+          and all(n > 0 for r in b_rows.values() for n in r["calls"])
+          and all(e <= RING_TOL for e in c_err.values()))
+    r = dict(a=a, b={k: [x[f"b_{k}"] for x in ranks] for k in ("auto", "ulysses")}, c=c,
+             refs=refs, seconds=time.perf_counter() - t0)
+    emit("pipeline_and_sequence_parallel", seconds=r["seconds"], ok=ok)
+    if not ok:
+        raise SystemExit("pipeline / sequence-parallel phase failed (see the lines above)")
+    return r
+
+
 def main() -> int:
     if not os.path.isfile(os.path.join(REPO, "paddle_tpu_torch", "csrc",
                                        "flash_attn_fwd.cu")):
@@ -9316,6 +9706,8 @@ def main() -> int:
         return warm_start_child(*sys.argv[2:4])
     if sys.argv[1:2] == ["--dp-child"]:
         return dp_child(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--ppsp-child"]:
+        return ppsp_child(sys.argv[2])
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 comparisons in full f32
     torch.backends.cudnn.allow_tf32 = False
     # a fresh autotune cache for the whole run: a decision persisted on this host by
@@ -9487,6 +9879,13 @@ def main() -> int:
         dpr = timed_phase("data_parallel", phase_data_parallel, torch, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
+    try:
+        ppsp = timed_phase("pipeline_and_sequence_parallel",
+                           phase_pipeline_and_sequence_parallel, torch, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     os.remove(tune_cache)
     meas_l = meas["a"]["launches"]
     an_l = an["b"]["launches"]
@@ -9511,6 +9910,13 @@ def main() -> int:
     # each of the two gloo ranks)
     dp_runs = [dpr["a"]] + dpr["b32"] + dpr["b16"] + dpr["d"]
     dp_l = {k: sum(x["launches"][k] for x in dp_runs) for k in dpr["a"]["launches"]}
+    # phase 31's paths, each summed over its two ranks: BERT-base under the pp 2
+    # pipeline (A), the encoder at S 2048 through the ring and through Ulysses (B)
+    ppsp_l = {"pipeline_parallel_bert": ppsp["a"],
+              "ring_attention_bert": ppsp["b"]["auto"],
+              "ulysses_bert": ppsp["b"]["ulysses"]}
+    ppsp_l = {k: {n: sum(x["launches"][n] for x in runs) for n in runs[0]["launches"]}
+              for k, runs in ppsp_l.items()}
     book_launches = {c["chapter"]: c["train_launches"] for c in book_chapters}
     e2e_launches = e2e["epochs"]["prefetch"]["multi_tensor_update_launches"]
     ctr_launches = ctr["launches"]["graph"]["multi_tensor_update"]
@@ -9585,7 +9991,8 @@ def main() -> int:
                 **{f"ocr_crnn_training_{p}":
                    ("momentum", ocr_res["train"]["multi_tensor_update_launches"][p]
                     .get("multi_tensor_update", 0)) for p in ("graph", "eager")},
-                "bert_data_parallel": ("adam", dp_l["multi_tensor_update"])}
+                "bert_data_parallel": ("adam", dp_l["multi_tensor_update"]),
+                **{k: ("adam", v["multi_tensor_update"]) for k, v in ppsp_l.items()}}
     kind_rows = {"adam": mt_bert, "momentum": mt_res, "sgd": mt_mnist,
                  "lamb": normed_mres[0], "lars_momentum": normed_mres[1]}
     # each kind's launches: its calls on the paths times the launches of a call
@@ -9614,7 +10021,8 @@ def main() -> int:
                       + sum(v.get("flash_attn_fwd", 0) for v in tier_l.values())
                       + meas_l["flash_attn_fwd"] + an_l["flash_attn_fwd"] + warm_k1
                       + sum(v["flash_attn_fwd"] for v in dy_l.values())
-                      + dp_l["flash_attn_fwd"]),
+                      + dp_l["flash_attn_fwd"]
+                      + sum(v["flash_attn_fwd"] for v in ppsp_l.values())),
          "launches_by_path": {"serving": serve_launches["flash_attn_fwd"],
                               "int8_serving": int8_launches["flash_attn_fwd"],
                               "training": train_launches["flash_attn_fwd"],
@@ -9630,7 +10038,8 @@ def main() -> int:
                               "analysis_gate_training": an_l["flash_attn_fwd"],
                               "nets_attention": warm_k1,
                               **{k: v["flash_attn_fwd"] for k, v in dy_l.items()},
-                              "bert_data_parallel": dp_l["flash_attn_fwd"]},
+                              "bert_data_parallel": dp_l["flash_attn_fwd"],
+                              **{k: v["flash_attn_fwd"] for k, v in ppsp_l.items()}},
          "max_abs_err": fwd_err, **{k: train_fwd[k] for k in keys},
          "serving_tile_128_ms": q128_tiles,
          "shape": "B128 H12 S128 D64 bf16, bias, dropout 0.1, LSE (the training path)",
@@ -9665,7 +10074,8 @@ def main() -> int:
                       + surf_l["pipeline_bert_training"]["flash_attn_bwd"]
                       + meas_l["flash_attn_bwd"] + an_l["flash_attn_bwd"]
                       + sum(v["flash_attn_bwd"] for v in dy_l.values())
-                      + dp_l["flash_attn_bwd"]),
+                      + dp_l["flash_attn_bwd"]
+                      + sum(v["flash_attn_bwd"] for v in ppsp_l.values())),
          "launches_by_path": {"training": train_launches["flash_attn_bwd"],
                               "scheduled_bert_training":
                                   sched_l["scheduled_bert_training"]["flash_attn_bwd"],
@@ -9677,7 +10087,8 @@ def main() -> int:
                               "measurement_stack_training": meas_l["flash_attn_bwd"],
                               "analysis_gate_training": an_l["flash_attn_bwd"],
                               **{k: v["flash_attn_bwd"] for k, v in dy_l.items()},
-                              "bert_data_parallel": dp_l["flash_attn_bwd"]},
+                              "bert_data_parallel": dp_l["flash_attn_bwd"],
+                              **{k: v["flash_attn_bwd"] for k, v in ppsp_l.items()}},
          "max_abs_err": bwd_err,
          **{k: train_bwd[k] for k in keys},
          "shape": "B128 H12 S128 D64 bf16, bias, dropout 0.1 (the training path)",

@@ -15,7 +15,7 @@ CUDA kernels written for Hopper (``csrc/``). The device is explicit: the card
 from . import unique_name  # noqa: F401
 from .framework import (Program, Block, Variable, Parameter, Operator,  # noqa: F401
                         program_guard, default_main_program, default_startup_program,
-                        switch_main_program, convert_dtype)
+                        switch_main_program, convert_dtype, device_guard)
 from . import ops  # noqa: F401  (registers the op library)
 from .core.executor import (CPUPlace, CUDAPlace, Executor, Scope,  # noqa: F401
                             global_scope, scope_guard)

@@ -12,7 +12,10 @@ The port has no GSPMD, so its data parallel *is* the explicit path: the
 executor calls ``sync_program(program, wrapper, explicit=True)`` for every
 run of a data-parallel ``CompiledProgram``, and compression ``off`` (or a
 world of 1, or ``ReduceStrategy.Reduce``, or a tensor under the floor) is a
-plain ``c_allreduce_avg``. Called as the JAX function is (``explicit``
+plain ``c_allreduce_avg``. Over a mesh with a ``pp`` or ``sp`` axis the
+explicit sync averages over the ranks that hold the same stage (dp and sp
+together, ``DistributedStrategy.sync_axis``), uncompressed. Called as the
+JAX function is (``explicit``
 False), it keeps the JAX contract: ``off``, world 1, a multi-axis mesh,
 ``ReduceStrategy.Reduce``, no optimizer gradients or an orphan gradient
 strip any earlier rewrite and return None.
@@ -149,6 +152,7 @@ def sync_program(program, wrapper, explicit: bool = False) -> Optional[dict]:
     ds, mode, min_bytes, dp_axis, ndp, multi_axis = _strategy_fields(wrapper)
     from .. import tuning as _tuning
     token = (mode, min_bytes, dp_axis, ndp, multi_axis,
+             tuple(sorted((ds.mesh_shape or {}).items())),
              wrapper.build_strategy.reduce_strategy, bool(explicit),
              _tuning.state_token())
     cached = getattr(program, "_comm_sync_token", None)
@@ -163,9 +167,14 @@ def sync_program(program, wrapper, explicit: bool = False) -> Optional[dict]:
     zero = (wrapper.build_strategy.reduce_strategy == BuildStrategy.ReduceStrategy.Reduce)
     if explicit:
         if multi_axis:
-            raise NotImplementedError(
-                "the port runs data parallel only: a mesh with an mp/pp/sp/ep axis "
-                "larger than 1 is ROADMAP item 13 (b)")
+            # over a pp or sp mesh the gradients are averaged over the ranks
+            # that hold the same stage, dp and sp together, never over pp
+            dp_axis, ndp = ds.sync_axis(), ds.sync_size()
+            if mode != "off":
+                _warn_once("fallback:multi_axis", f"comm_compression={mode!r} ignored: "
+                           "the mesh has a pp or sp axis; its gradients sync "
+                           "uncompressed")
+                mode = "off"
         if zero and mode != "off" and ndp > 1:
             _warn_once("fallback:zero", f"comm_compression={mode!r} ignored: "
                        "ReduceStrategy.Reduce shards the update over dp; its "
@@ -271,6 +280,9 @@ def _sync_ops(program, plan: Dict[str, str], dp_axis: str,
             changed = True
         elif op.attr("comm_compress") != tensor_mode:
             op.attrs["comm_compress"] = tensor_mode
+            changed = True
+        if op.attr("axis_name") != dp_axis:
+            op.attrs["axis_name"] = dp_axis
             changed = True
         want_residual = tensor_mode != "off"
         has_residual = "ResidualIn" in op.inputs

@@ -5,18 +5,42 @@ details/build_strategy.h:38).
 The JAX package compiles a program under a ``DistributedStrategy`` onto a
 ``jax.sharding.Mesh`` and lets GSPMD insert the collectives. The port maps
 the mesh onto processes, one rank a process over ``torch.distributed``
-(``parallel/env.py``), and runs data parallel explicitly: each rank runs the
-step on its rows of the global batch, the program's gradients pass through
-``c_allreduce_avg`` ops before the update (``comm/rewrite.py``;
-``GradientScaleStrategy.CoeffNumDevice``), and the state stays replicated.
-``ReduceStrategy.Reduce`` shards the optimizer accumulators over dp (ZeRO):
-each rank keeps and updates its block of them, and the parameters are
-gathered after the update (``zero_program``); with ``reduce_params`` the
-parameters themselves are held as blocks and gathered where they are read.
+(``parallel/env.py``), the axes in ``mesh_shape`` order with the last
+fastest, as the JAX mesh lays its devices out, and one process group for
+each slice of each axis larger than 1. The executor binds this rank's
+groups for the run (``ops/collective.py::bind``) and runs each axis
+explicitly:
 
-Supported: a ``mesh_shape`` whose only axis larger than 1 is the data axis.
-Parameter rules (tensor, expert, sequence or pipeline sharding) are ROADMAP
-item 13 (b), ``auto_shard`` other than ``off`` is item 13 (c): each raises.
+- ``dp`` (the data axis): each rank runs the step on its rows of the global
+  batch, the program's gradients pass through ``c_allreduce_avg`` ops
+  before the update (``comm/rewrite.py``;
+  ``GradientScaleStrategy.CoeffNumDevice``), and the state stays
+  replicated. ``ReduceStrategy.Reduce`` shards the optimizer accumulators
+  over dp (ZeRO): each rank keeps and updates its block of them, and the
+  parameters are gathered after the update (``zero_program``); with
+  ``reduce_params`` the parameters themselves are held as blocks and
+  gathered where they are read.
+- ``pp``: the ``temporal_pipeline`` op runs the GPipe schedule, one stage a
+  rank (``parallel/pipeline.py``); ``PipelineOptimizer.pp_param_rules()``
+  holds each ``@pp_stacked`` parameter and its optimizer state as this
+  rank's stage's block.
+- ``sp``: each rank feeds its block of the positions (a data rule such as
+  ``("x", ("dp", "sp"))``) and ``fused_attention`` runs ring or Ulysses
+  attention over the group (``parallel/ring_attention.py``,
+  ``parallel/ulysses.py``). So sp runs position-local programs whose only
+  op across positions is ``fused_attention``: it raises for what neither
+  path takes (``impl`` 'composed' or 'pallas', a bias other than
+  [B,1,1,S]), but nothing refuses another op that mixes positions (MLM's
+  flat ``mask_pos`` gather, the pooler's position 0), which would compute
+  on this rank's block alone.
+
+The gradients and a fetched loss are averaged over the ranks that hold the
+same stage (``sync_axis``: dp and sp together), never over pp.
+
+Not run yet: the ``mp`` and ``ep`` axes and their parameter rules (tensor
+and expert sharding, ROADMAP item 13 (b)'s second part), ``auto_shard``
+other than ``off`` (item 13 (c)), and ZeRO together with pp or sp: each
+raises.
 """
 from __future__ import annotations
 
@@ -28,7 +52,10 @@ from .framework import Program
 
 _warned_knobs = set()
 
-ITEM_13B = "ROADMAP item 13 (b): tensor, expert, sequence and pipeline sharding"
+ITEM_13B = ("ROADMAP item 13 (b), second part: tensor and expert sharding (the mp and "
+            "ep axes and their param_rules)")
+#: the mesh axes the port runs besides the data axis
+RUN_AXES = ("pp", "sp")
 ITEM_13C = "ROADMAP item 13 (c): the auto-sharding planner"
 
 #: update ops that are elementwise in every state slot: their update of a
@@ -119,12 +146,17 @@ class DistributedStrategy:
     """The mesh and sharding configuration (the port of the JAX package's
     ``DistributedStrategy``; reference incubate/fleet/collective:94).
 
-    mesh_shape: ordered {axis_name: size}, mapped onto the ranks in order
-      (``build_mesh``); the port runs the data axis only.
-    param_rules: [(regex, spec)] matched against parameter names: ROADMAP
-      item 13 (b) in the port, raises at the run.
+    mesh_shape: ordered {axis_name: size}, mapped onto the ranks in order,
+      the last axis fastest (``build_mesh``); the port runs the data axis,
+      ``pp`` and ``sp`` (``mp`` and ``ep`` are ROADMAP item 13 (b)'s second
+      part and raise at the run).
+    param_rules: [(regex, spec)] matched against parameter names; the port
+      runs rules whose axes are ``pp`` on dim 0
+      (``PipelineOptimizer.pp_param_rules()``): each pp rank holds its
+      block. Rules naming other axes raise at the run.
     data_rules: [(regex, spec)] for feeds; by default dim 0 is split over
-      the data axis (each rank feeds its rows).
+      the data axis (each rank feeds its rows); ``(data_axis, "sp")`` also
+      splits dim 1, the positions, over sp (each rank feeds its block).
     comm_compression: 'off'|'bf16'|'int8': the dp gradient all-reduce
       quantized, with a per-tensor error-feedback residual (``comm/``).
     auto_shard: 'off' only in the port ('static' / 'measure' are item 13 (c)).
@@ -216,24 +248,49 @@ class DistributedStrategy:
 
     def check_supported(self) -> None:
         """Raise for what the port does not run yet: an axis other than the
-        data axis larger than 1, parameter rules, ``auto_shard``, a data
-        rule that splits a dim other than 0."""
+        data axis, ``pp`` and ``sp`` larger than 1, a parameter rule that
+        names another axis than ``pp`` or splits another dim than 0,
+        ``auto_shard``, a data rule that splits a dim other than 0 over the
+        data axis and 1 over sp."""
         other = {a: s for a, s in self.mesh_shape.items()
-                 if a != self.data_axis and int(s) > 1}
+                 if a != self.data_axis and a not in RUN_AXES and int(s) > 1}
         if other:
             raise NotImplementedError(f"mesh axes {other}: {ITEM_13B}")
-        if self.param_rules:
-            raise NotImplementedError(
-                f"param_rules {self.param_rules[:2]}: {ITEM_13B} (ZeRO over dp is "
-                f"BuildStrategy.ReduceStrategy.Reduce)")
+        for pat, spec in self.param_rules:
+            entries = tuple(spec)
+            axes = [a for e in entries for a in (e if isinstance(e, (tuple, list)) else (e,))
+                    if a is not None]
+            if any(a != "pp" for a in axes) or any(e is not None for e in entries[1:]):
+                raise NotImplementedError(
+                    f"param_rules ({pat!r}, {spec}): {ITEM_13B}; the port runs rules that "
+                    f"split dim 0 over 'pp' (PipelineOptimizer.pp_param_rules(); ZeRO over "
+                    f"dp is BuildStrategy.ReduceStrategy.Reduce)")
         if self.auto_shard != "off":
             raise NotImplementedError(f"auto_shard={self.auto_shard!r}: {ITEM_13C}")
         for pat, spec in self.data_rules:
-            if any(e is not None for e in tuple(spec)[1:]) or \
-                    (spec and spec[0] not in (None, self.data_axis)):
+            spec = tuple(spec)
+            if any(e is not None for e in spec[2:]) or \
+                    (spec and spec[0] not in (None, self.data_axis)) or \
+                    (len(spec) > 1 and spec[1] not in (None, "sp")):
                 raise NotImplementedError(
                     f"data rule {pat!r} -> {spec}: the port splits a feed's dim 0 over "
-                    f"{self.data_axis!r} or replicates it; {ITEM_13B}")
+                    f"{self.data_axis!r} and its dim 1 over 'sp', or replicates them; "
+                    f"{ITEM_13B}")
+
+    def sync_axis(self) -> str:
+        """The name the gradient sync and the fetch reduction bind: the
+        ranks that hold the same stage, the data axis and ``sp`` together
+        (``"dp+sp"`` when both are larger than 1, else the one that is, else
+        the data axis)."""
+        axes = [a for a in (self.data_axis, "sp") if int(self.mesh_shape.get(a, 1)) > 1]
+        return "+".join(axes) if axes else self.data_axis
+
+    def sync_size(self) -> int:
+        """The ranks the gradients are averaged over: dp x sp."""
+        n = 1
+        for a in {self.data_axis, "sp"}:
+            n *= int(self.mesh_shape.get(a, 1))
+        return n
 
     # -- sharding specs ----------------------------------------------------------------
     def param_spec(self, name: str) -> tuple:
@@ -324,19 +381,28 @@ class CompiledProgram:
     def state_sharding(self, name: str):
         """How persistable ``name`` is held, one source of truth for the
         executor and the checkpoints: None without a strategy, ``()`` when
-        replicated, else ``(dim, ndp)``: each rank holds block ``rank`` of
-        ``dim``. An error-feedback residual is ``(0, ndp)`` (each rank its
-        own row). Under ``ReduceStrategy.Reduce`` an optimizer accumulator
-        of an elementwise update (``ZERO_UPDATE_OPS``) is split on its first
-        dim that ndp divides, and with ``reduce_params`` its parameter too;
-        one with no such dim stays replicated (warned once)."""
+        replicated, else ``(dim, n, axis)``: each rank holds block (its
+        index on ``axis``) of ``dim``, one of ``n``. An error-feedback
+        residual is ``(0, ndp, data axis)`` (each rank its own row). A
+        parameter rule over ``pp`` (``PipelineOptimizer.pp_param_rules()``)
+        splits dim 0 over the pp ranks. Under ``ReduceStrategy.Reduce`` an
+        optimizer accumulator of an elementwise update
+        (``ZERO_UPDATE_OPS``) is split on its first dim that ndp divides, and
+        with ``reduce_params`` its parameter too; one with no such dim stays
+        replicated (warned once)."""
         ds = self.dist_strategy
         if ds is None:
             return None
-        ndp = int((self.mesh or {}).get(ds.data_axis, 1))
+        mesh = self.mesh or {}
+        ndp = int(mesh.get(ds.data_axis, 1))
         from .comm.compress import is_residual
         if is_residual(name):
-            return (0, ndp)
+            return (0, ndp, ds.data_axis)
+        npp = int(mesh.get("pp", 1))
+        if npp > 1:
+            spec = ds.param_spec(name)
+            if spec and spec[0] == "pp":
+                return (0, npp, "pp")
         if not self.zero_mode():
             return ()
         key = (id(self.program), self.program._version)
@@ -356,7 +422,7 @@ class CompiledProgram:
                     f"no dim of shape {tuple(v.shape)} divides dp={ndp} (other state "
                     f"still shards)")
             return ()
-        return (dim, ndp)
+        return (dim, ndp, ds.data_axis)
 
 
 def zero_shard_dim(shape, ndp: int) -> Optional[int]:

@@ -512,6 +512,14 @@ class SubBlockRunner:
         self.seed, self.counter, self.counter_t = seed, counter, counter_t
         self.reuse_forward = reuse_forward
 
+    def folded(self, value: int, salt: int) -> "SubBlockRunner":
+        """This runner with ``value`` folded into its program seed (a
+        pipeline stage's own stream): its ops' host seeds and the kernels'
+        ``DeviceSeed``s both derive from the folded seed."""
+        return SubBlockRunner(self.program, self.env, self.device,
+                              registry.seed_int(self.seed, value, salt), self.counter,
+                              self.counter_t, self.reuse_forward)
+
     def __call__(self, idx: int, sub_env: Dict[str, Any],
                  keep: Optional[FrozenSet[str]] = None):
         merged = dict(self.env)
@@ -622,22 +630,30 @@ def _is_compiled(program) -> bool:
 
 
 class _DataParallel:
-    """The data-parallel run in progress: the bound group of the data axis
-    (None at a world of 1 without a process group) and its size."""
-    __slots__ = ("group", "size", "rank", "key")
+    """The distributed run in progress: the bound group of the data axis
+    (None at a world of 1 without a process group, or a data axis of 1
+    under another axis) and its size, the group the gradients and a
+    fetched loss are averaged over (``sync``: dp and sp together; the data
+    group under pure dp) and every bound group by name (``groups``)."""
+    __slots__ = ("group", "size", "rank", "key", "sync", "groups")
 
-    def __init__(self, group, size: int):
+    def __init__(self, group, size: int, sync=None, groups=None):
         self.group, self.size = group, int(size)
         self.rank = group.rank if group is not None else 0
-        self.key = (self.size, self.rank, group.backend if group is not None else None)
+        self.sync = sync if sync is not None else group
+        self.groups = dict(groups or {})
+        self.key = (self.size, self.rank, group.backend if group is not None else None) \
+            + tuple((a, g.size, g.rank) for a, g in sorted(self.groups.items())
+                    if g is not group)
 
     def reduce_fetch(self, name, t, block):
         """A fetch as the JAX explicit path returns it: a batch-carrying one
         (declared dim 0 -1, or the local rows 1/size of the declared ones)
-        all-gathered along dim 0, any other float averaged over the ranks
-        (a fetched loss is the global-batch mean on every rank), the rest
-        and the persistable state as they are."""
-        if self.group is None or not isinstance(t, torch.Tensor):
+        all-gathered along dim 0 over the data axis, any other float
+        averaged over the sync group (a fetched loss is the global batch's
+        mean on every rank), the rest and the persistable state as they
+        are."""
+        if (self.group is None and self.sync is None) or not isinstance(t, torch.Tensor):
             return t
         from ..ops import collective as _coll
         v = block.find_var_recursive(name)
@@ -645,11 +661,11 @@ class _DataParallel:
             return t
         d0 = v.shape[0] if v is not None and len(v.shape) else None
         local0 = t.shape[0] if t.dim() else None
-        if local0 is not None and (d0 == -1 or (isinstance(d0, int) and d0 > 0
-                                                and local0 * self.size == d0)):
+        if self.group is not None and local0 is not None and (
+                d0 == -1 or (isinstance(d0, int) and d0 > 0 and local0 * self.size == d0)):
             return _coll.all_gather(t, self.group, 0)
-        if t.is_floating_point():
-            return _coll.all_reduce_sum(t, self.group) / self.size
+        if t.is_floating_point() and self.sync is not None and self.sync.size > 1:
+            return _coll.all_reduce_sum(t, self.sync) / self.sync.size
         return t
 
 
@@ -1072,6 +1088,12 @@ class Executor:
         stacked: List[torch.Tensor] = []
         timed = _journal.enabled() or _flags.get_flag("benchmark")
         miss, capture, feeds0 = False, None, None
+        hmode = _health.mode()
+        # the health flags: one row a substep, built on the device after it
+        # (before the next substep updates the state in place), read once
+        flag_rows, health_names = [], []
+        watched_state = (self._state_names(program, steps[0], fetch_names)[1]
+                         if hmode != "off" and _health.include_state() else [])
         with self._run_event(program):
             t_launch = time.perf_counter()
             for i, step in enumerate(steps):
@@ -1083,6 +1105,12 @@ class Executor:
                     feeds0 = feeds_t
                 for out, f in zip(stacked, r.fetches):
                     out[i].copy_(f)
+                if hmode != "off":
+                    named = list(zip(fetch_names, r.fetches))
+                    named += [(n, scope.find_var(n)) for n in watched_state]
+                    health_names, row = _health.nonfinite_flags(named)
+                    if row is not None:
+                        flag_rows.append(row)
             # a capture in the first call is the compile span's, not the dispatch's
             t_disp = t_launch if capture is None else sum(capture)
             _timeline.record_span("dispatch", t_disp, time.perf_counter() - t_disp,
@@ -1096,9 +1124,11 @@ class Executor:
         run_s = time.perf_counter() - (t_run if capture is None else t_disp)
         self._step_telemetry(program, label, _StepRun(None, True, r.key, miss, capture, None),
                              run_s, timed, counter0, k, feeds0, fetch_names, scope)
+        faults_fired = False
         if _faults._active:
             # as the JAX run_fused: each substep's fetch site, then its
             # corruption, on its own row of the stacked fetches
+            fired0 = sum(f.fired for f in _faults._active)
             self._fire_fetch(substeps, label, undo, scope)
             written = self._state_names(program, steps[0], fetch_names)[1]
             state = {n: scope.find_var(n) for n in written}
@@ -1109,10 +1139,18 @@ class Executor:
                                                             program=label)):
                     if new is not old:
                         t[i].copy_(new)
-        hmode = _health.mode()
+            faults_fired = sum(f.fired for f in _faults._active) != fired0
         if hmode != "off":
-            _health.check(list(zip(fetch_names, stacked)), label, where="executor",
-                          health_mode=hmode)
+            if faults_fired:
+                # a corruption came after the flags were built: the JAX
+                # package's whole scan of the (K, ...) fetches and the state
+                named = list(zip(fetch_names, stacked))
+                named += [(n, scope.find_var(n)) for n in watched_state]
+                _health.check(named, label, where="executor", health_mode=hmode)
+            elif flag_rows:
+                _health.check_flag_matrix(_health.read_flags(torch.stack(flag_rows)),
+                                          health_names, label, where="executor",
+                                          health_mode=hmode, step0=counter0)
         if _flags.get_flag("check_nan_inf"):
             self._check_nan_inf(program, steps[0], fetch_names, scope)
         if return_numpy:
@@ -1128,13 +1166,18 @@ class Executor:
         (``check_supported``), the gradient sync inserted
         (``comm.sync_program(..., explicit=True)``), under
         ``ReduceStrategy.Reduce`` the ZeRO copy (``compiler.zero_program``)
-        and the state split into this rank's blocks, the residuals zeroed,
-        the feeds checked at a new signature (each rank feeds its rows of
-        dim 0, the same count on every rank), the data axis bound to the
-        world group, the seed folded with the rank and the fetches reduced
-        (``_DataParallel``). Under NCCL the step is captured with its
-        collectives, after one warm-up collective makes the communicator;
-        over gloo ``capture_refusal`` keeps it eager."""
+        and the state split into this rank's blocks (ZeRO's, and the
+        ``@pp_stacked`` state over pp), the residuals zeroed, the feeds
+        checked at a new signature (each rank feeds its rows of dim 0, the
+        same count on every rank), the groups bound: each axis larger than
+        1 to this rank's group of it (``parallel.env.mesh_groups``; the
+        data axis to the world group under pure dp, at a world of 1 too)
+        and the dp x sp ranks under ``DistributedStrategy.sync_axis``; the
+        seed folded with the dp x sp index and the fetches reduced
+        (``_DataParallel``). Under
+        NCCL the step is captured with its collectives, after one warm-up
+        collective a group makes its communicator; over gloo
+        ``capture_refusal`` keeps it eager."""
         from .. import comm as _comm
         from .. import compiler as _compiler
         from ..ops import collective as _coll
@@ -1144,31 +1187,47 @@ class Executor:
         if ds is None:
             return call(program)
         ds.check_supported()
-        size = int(cp.mesh.get(ds.data_axis, 1))
-        group = None
+        mesh = cp.mesh
+        size = int(mesh.get(ds.data_axis, 1))
+        multi = any(int(n) > 1 for a, n in mesh.items() if a != ds.data_axis)
+        if multi and cp.zero_mode():
+            raise NotImplementedError(
+                "BuildStrategy.ReduceStrategy.Reduce (ZeRO over dp) together with a pp or "
+                "sp axis is not run by the port: shard the optimizer state over dp on a "
+                "pure-dp mesh")
+        group, sync, groups = None, None, {}
         import torch.distributed as dist
         if dist.is_available() and dist.is_initialized():
-            group = _coll.world_group(ds.data_axis)
-            if group.backend == "nccl" and self.device != _penv.device():
-                raise RuntimeError(
-                    f"data parallel over NCCL: this rank's device is {_penv.device()}, "
-                    f"the executor's {self.device}")
-            if group.backend == "nccl" and id(dist.group.WORLD) not in self._dp_warm:
-                # the communicator exists before a step is captured
-                dist.all_reduce(torch.zeros((1,), device=self.device))
-                torch.cuda.synchronize(self.device)
-                self._dp_warm.add(id(dist.group.WORLD))
+            groups = dict(_penv.mesh_groups(mesh, combined=[(ds.data_axis, "sp")]))
+            if size == dist.get_world_size():
+                # pure dp: the data axis is the world, a world of 1 included
+                groups.setdefault(ds.data_axis, _coll.world_group(ds.data_axis))
+            group = groups.get(ds.data_axis)
+            sync = groups.get(ds.sync_axis())
+            for g in groups.values():
+                if g.backend == "nccl" and self.device != _penv.device():
+                    raise RuntimeError(
+                        f"a CompiledProgram over NCCL: this rank's device is "
+                        f"{_penv.device()}, the executor's {self.device}")
+                handle = g.group if g.group is not None else dist.group.WORLD
+                if g.backend == "nccl" and id(handle) not in self._dp_warm:
+                    # the communicator exists before a step is captured
+                    dist.all_reduce(torch.zeros((1,), device=self.device), group=g.group)
+                    torch.cuda.synchronize(self.device)
+                    self._dp_warm.add(id(handle))
         _comm.sync_program(program, cp, explicit=True)
         run_prog = _compiler.zero_program(cp, program) if cp.zero_mode() else program
         scope = scope or global_scope()
-        dp = _DataParallel(group, size)
+        dp = _DataParallel(group, size, sync, groups)
         self._shard_state(cp, run_prog, scope, dp)
         self._check_dp_feeds(cp, run_prog, feeds, dp)
         prev = self._dp
         self._dp = dp
+        bound = dict(groups)
+        if sync is not None:
+            bound[ds.sync_axis()] = sync
         try:
-            with _coll.bind({ds.data_axis: group} if group is not None else {},
-                            data_axis=ds.data_axis):
+            with _coll.bind(bound, data_axis=ds.data_axis):
                 if run_prog is program:
                     return call(run_prog)
                 run_prog._rng_run_counter = getattr(program, "_rng_run_counter", 0)
@@ -1181,9 +1240,9 @@ class Executor:
 
     def _shard_state(self, cp, program, scope, dp: _DataParallel) -> None:
         """This rank's blocks of the state ``cp.state_sharding`` splits: a
-        ZeRO-sharded variable the scope holds whole (from the startup program
-        or a single-process load) is replaced by block ``rank`` of its shard
-        dim; an error-feedback residual the scope lacks, or holds at another
+        ZeRO- or pp-sharded variable the scope holds whole (from the startup
+        program or a single-process load) is replaced by the block of this
+        rank's index on its axis; an error-feedback residual the scope lacks, or holds at another
         shape, becomes zeros of (1, *grad shape)."""
         from ..comm.compress import is_residual
         gb = program.global_block()
@@ -1191,7 +1250,7 @@ class Executor:
         if cp._split is None or cp._split[0] != key:
             cp._split = (key, [(n, sh) for n, v in gb.vars.items() if v.persistable
                                for sh in [cp.state_sharding(n)] if sh])
-        for n, (dim, ndp) in cp._split[1]:
+        for n, (dim, ndp, axis) in cp._split[1]:
             v = gb.vars[n]
             cur = scope.find_var(n)
             if is_residual(n):
@@ -1202,9 +1261,11 @@ class Executor:
                 continue
             if cur is None or ndp <= 1 or tuple(cur.shape) != tuple(v.shape):
                 continue
+            g = dp.groups.get(axis)
+            rank = g.rank if g is not None else dp.rank
             t = owned_tensor(cur, self.device)
             per = t.shape[dim] // ndp
-            scope.set_var(n, t.narrow(dim, dp.rank * per, per).clone())
+            scope.set_var(n, t.narrow(dim, rank * per, per).clone())
 
     def _check_dp_feeds(self, cp, program, feeds: List[dict], dp: _DataParallel) -> None:
         """The feed check of the JAX ``Executor.run``: a feed whose spec
@@ -1806,12 +1867,16 @@ class Executor:
         return self._use_graphs and self.device.type == "cuda"
 
     def _seed(self, program) -> int:
-        """The program's seed; on a data-parallel run of more than one rank
-        this rank folded in, so the ranks draw different dropout masks (the
-        JAX explicit path folds the shard index into the step key)."""
+        """The program's seed; on a distributed run this rank's index among
+        the dp x sp ranks folded in, so the ranks draw different dropout
+        masks (the JAX explicit path folds the shard index into the step
+        key), and the pp ranks of one pipeline draw alike."""
         seed = program.random_seed if program.random_seed is not None else 0
-        if self._dp is not None and self._dp.size > 1:
-            seed = registry.seed_int(seed, self._dp.rank, _RANK_SALT)
+        sync = self._dp.sync if self._dp is not None else None
+        if sync is not None and sync.size > 1:
+            # the index among the ranks of one stage: the pp ranks of a
+            # pipeline draw alike (its replicated ops must agree)
+            seed = registry.seed_int(seed, sync.rank, _RANK_SALT)
         return seed
 
     def _trace(self, program, env, fetch_names, state_in, state_out, counter, counter_t):

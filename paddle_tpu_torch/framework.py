@@ -7,8 +7,12 @@ Operator / Block / Program classes and the same JSON form (``to_dict`` /
 What differs from the JAX package:
   * ``Block.append_op`` runs the port's own shape inference
     (``core/registry.py``: the lowering on ``torch.device("meta")`` tensors).
-  * No ``device_guard``: the port runs no pipeline stages yet, so
-    ``PipelineOptimizer``'s ``"auto"`` schedule is its microbatch scan.
+  * ``device_guard("stage:i")`` tags the ops built inside with an
+    ``op_device`` attr, as the JAX package's does; the tags are pipeline
+    stages, which ``PipelineOptimizer``'s ``"auto"`` and ``"temporal"``
+    schedules lower to one ``temporal_pipeline`` op (``ops/pipeline_op.py``).
+    A device string (``"gpu:0"``, ``"cpu"``) is kept as a tag and places
+    nothing: the executor runs a program on one device.
 
 Variables carry the JAX package's arithmetic sugar (``layers/math_sugar.py``):
 ``+ - * / **``, unary ``-``, the comparisons and ``[]`` build ops in the
@@ -369,6 +373,9 @@ class Block:
     def append_op(self, type: str, inputs=None, outputs=None, attrs=None,
                   infer_shape: bool = True) -> Operator:
         op = Operator(self, type, _normalize_io(inputs), _normalize_io(outputs), attrs)
+        dev = _tls.op_device
+        if dev is not None and "op_device" not in op.attrs:
+            op.attrs["op_device"] = dev
         self.ops.append(op)
         self.program._bump()
         if infer_shape:
@@ -585,9 +592,35 @@ class _TLS(threading.local):
         self.main_program = Program()
         self.startup_program = Program()
         self.startup_program._is_startup = True
+        self.op_device = None
 
 
 _tls = _TLS()
+
+
+class device_guard:
+    """``with device_guard("stage:1"):`` tags the ops built inside with an
+    ``op_device`` attr (reference framework.py device_guard; the JAX
+    package's). ``"stage:N"`` is a pipeline stage for
+    ``PipelineOptimizer``; the reference's ``"cpu"`` / ``"gpu:N"`` strings
+    are kept as tags."""
+
+    def __init__(self, device=None):
+        self.device = device
+
+    def __enter__(self):
+        self.old = _tls.op_device
+        _tls.op_device = self.device
+        return self
+
+    def __exit__(self, *exc):
+        _tls.op_device = self.old
+        return False
+
+
+def current_op_device():
+    """The tag ``device_guard`` puts on the ops built now (None outside one)."""
+    return _tls.op_device
 
 
 def default_main_program() -> Program:

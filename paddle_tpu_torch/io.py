@@ -28,8 +28,12 @@ with its region of the global shape, listed in rank ``r``'s
 ``__manifest__.json.rank<r>``; the ranks then meet at a barrier. A load at
 the same world size reads the replicated variables and this rank's blocks;
 a single-process save loads whole on every rank (the executor splits the
-ZeRO state at its next run). Loading a multi-process save at another world
-size (resharding) is ROADMAP item 13 (c) and raises.
+ZeRO state at its next run). Under a pp axis each ``@pp_stacked`` variable
+is gathered from the pp ranks' blocks and written whole by rank 0, so a
+save that holds no ZeRO block loads at any world size, one process
+included (the executor splits the stacks again at its next pp run).
+Loading a multi-process save with blocks at another world size
+(resharding) is ROADMAP item 13 (c) and raises.
 
 A load writes into the tensor the scope already holds under a name, in place,
 when its shape and dtype match (the executor's captured CUDA graphs read the
@@ -208,13 +212,37 @@ def _rank_manifest(base: str, rank: int) -> str:
     return base if rank == 0 else f"{base}.rank{rank}"
 
 
+def _pp_gather(wrapper, name, value):
+    """``value`` whole when ``wrapper`` (a ``CompiledProgram``) holds
+    ``name`` as this rank's pp block: gathered over the pp group (a
+    collective every rank of the group joins, in the same variable order).
+    Anything else comes back as it is."""
+    if wrapper is None or getattr(wrapper, "dist_strategy", None) is None:
+        return value
+    sh = wrapper.state_sharding(name)
+    if not sh or sh[2] != "pp" or not isinstance(value, torch.Tensor):
+        return value
+    dim, n, _ = sh
+    v = wrapper.program.global_block().find_var_recursive(name)
+    if v is None or value.shape[dim] * n != v.shape[dim]:
+        return value
+    from .ops import collective as _coll
+    from .parallel import env as _penv
+    ds = wrapper.dist_strategy
+    g = _penv.mesh_groups(wrapper.mesh, combined=[(ds.data_axis, "sp")]).get("pp")
+    return _coll.all_gather(value.detach(), g, dim) if g is not None else value
+
+
 def save_vars(executor, dirname, main_program=None, vars: Optional[List] = None,
               predicate=None, filename=None) -> int:
     """Save ``vars`` (or the variables of ``main_program`` that satisfy
     ``predicate``) from the global scope into ``dirname``: one ``.npy`` per
     variable and the manifest (``filename``, default ``__manifest__.json``);
-    under several ranks the multi-process layout (module docstring). Returns
-    the bytes of the chunks this process wrote."""
+    under several ranks the multi-process layout (module docstring). A
+    ``CompiledProgram`` over a pp axis saves each ``@pp_stacked`` variable
+    whole, [S, ...], gathered from the pp ranks' blocks. Returns the bytes
+    of the chunks this process wrote."""
+    wrapper = main_program if hasattr(main_program, "dist_strategy") else None
     main_program = _program_of(main_program or default_main_program())
     scope = global_scope()
     world, rank = _world()
@@ -225,6 +253,7 @@ def save_vars(executor, dirname, main_program=None, vars: Optional[List] = None,
         if value is None:
             raise RuntimeError(f"variable {name!r} has no value in scope; "
                                f"run the startup program before saving")
+        value = _pp_gather(wrapper, name, value)
         region = _block_region(var or main_program.global_block().find_var_recursive(name),
                                value, world, rank)
         if region is None and rank != 0:
@@ -414,13 +443,24 @@ def load_vars(executor, dirname, main_program=None, vars=None, predicate=None,
     saved = head.get("nranks", 1)
     if saved != 1:
         world, rank = _world()
-        if saved != world:
+        blocks = {}
+        for r in range(1, saved):
+            rp = _rank_manifest(path, r)
+            if os.path.exists(rp):
+                with open(rp) as f:
+                    blocks[r] = json.load(f)["vars"]
+        # a save whose every variable rank 0 wrote whole (no ZeRO block: a
+        # pipeline's stacks are gathered) loads at any world size
+        whole = len(blocks) == saved - 1 and not any(blocks.values())
+        if saved != world and not whole:
             raise NotImplementedError(
                 f"{dirname} was saved by {saved} processes and this job has {world}: "
                 f"resharding a checkpoint to another world size is ROADMAP item 13 (c)")
-        if rank != 0:
-            with open(_rank_manifest(path, rank)) as f:
-                metas.update({m["name"]: m for m in json.load(f)["vars"]})
+        if saved == world and rank != 0:
+            if rank not in blocks:
+                raise FileNotFoundError(f"no rank {rank} manifest "
+                                        f"{_rank_manifest(path, rank)} in {dirname}")
+            metas.update({m["name"]: m for m in blocks[rank]})
     scope = global_scope()
     for var, name in _names_of(main_program, vars, predicate):
         if name not in metas:

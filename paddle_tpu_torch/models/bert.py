@@ -6,7 +6,9 @@ The same layers, op types, parameter names and attrs as the JAX package's
 ``unique_name.guard()``, its optimizer state) carry across either way.
 Attention is one ``fused_attention`` op (the CUDA flash-attention kernels on
 the card, forward and backward), or with ``attn_impl="composed"`` the plain
-matmul/softmax/dropout graph. Pipeline stages are not ported.
+matmul/softmax/dropout graph. ``pp_stages`` wraps each group of
+``n_layers / pp_stages`` layers in ``device_guard("stage:i")``, which
+``PipelineOptimizer`` lowers to the ``temporal_pipeline`` op.
 """
 from __future__ import annotations
 
@@ -112,8 +114,6 @@ def encoder(src_ids, pos_ids, sent_ids, input_mask, cfg: BertConfig):
     Embedding tables are always float32 (the master-weight convention);
     activations are cast to ``cfg.dtype`` right after the embedding sum.
     layer_norm and softmax compute in f32 inside their ops regardless."""
-    if cfg.pp_stages:
-        raise NotImplementedError("pipeline stages (pp_stages) are not ported yet")
     emb = layers.embedding(src_ids, [cfg.vocab_size, cfg.hidden],
                            dtype="float32",
                            param_attr=ParamAttr(name="word_emb",
@@ -138,8 +138,15 @@ def encoder(src_ids, pos_ids, sent_ids, input_mask, cfg: BertConfig):
     bias = layers.unsqueeze(layers.unsqueeze(bias, [1]), [1])  # [B,1,1,S]
     if cfg.dtype == "bfloat16":
         bias = layers.cast(bias, "bfloat16")
-    for i in range(cfg.n_layers):
-        x = encoder_layer(x, cfg, bias, f"layer{i}")
+    if cfg.pp_stages:
+        from ..framework import device_guard
+        per_stage = cfg.n_layers // cfg.pp_stages
+        for i in range(cfg.n_layers):
+            with device_guard(f"stage:{i // per_stage}"):
+                x = encoder_layer(x, cfg, bias, f"layer{i}")
+    else:
+        for i in range(cfg.n_layers):
+            x = encoder_layer(x, cfg, bias, f"layer{i}")
     return x
 
 

@@ -25,3 +25,4 @@ from . import extra_ops        # noqa: F401
 from . import tail_ops         # noqa: F401
 from . import sampled_ops      # noqa: F401
 from . import collective     # noqa: F401
+from . import pipeline_op    # noqa: F401

@@ -5,10 +5,11 @@ c_broadcast, c_allgather, c_reducescatter).
 
 The JAX package lowers these to ``jax.lax`` collectives over a named mesh
 axis bound by ``shard_map``. The port binds an axis name to a process group
-instead (``bind``): the executor's data-parallel path binds the strategy's
-data axis (``dp`` unless it names another) to the world group for the run
-of a ``CompiledProgram`` (``core/executor.py``), and
-a caller may bind any axis it builds a group for. With no group bound for
+instead (``bind``): the executor binds each axis of a ``CompiledProgram``'s
+mesh larger than 1 (``dp`` or the strategy's data axis, ``pp``, ``sp``) to
+this rank's group of it, and the ranks of one stage together under
+``dp+sp`` (``core/executor.py::_run_compiled``, ``parallel/env.py::mesh_groups``),
+and a caller may bind any axis it builds a group for. With no group bound for
 the op's ``axis_name`` an op is the identity, as the JAX op is outside a
 mesh, so the same program runs on one process.
 
@@ -40,9 +41,8 @@ from ..core.registry import register
 #: (``analysis/dataflow.py``): the attr naming the mesh axis the op
 #: communicates over, its default, and the kind. Every rank of the axis runs
 #: the same sequence of these ops: they are synchronisation points, never
-#: dead code. ``temporal_pipeline`` is listed as in the JAX package (its
-#: lowering is a pipeline over ``axis``), though its port is ROADMAP item
-#: 13 (b)'s.
+#: dead code. ``temporal_pipeline`` is listed as in the JAX package: its
+#: lowering is the GPipe schedule over ``axis`` (``ops/pipeline_op.py``).
 COLLECTIVE_OPS: Dict[str, dict] = {
     "c_allreduce_sum": {"comm": "allreduce", "axis_attr": "axis_name",
                         "default_axis": "dp"},
@@ -139,6 +139,11 @@ def axis_size(name: str) -> int:
     return g.size if g is not None else 1
 
 
+def bound_groups() -> Dict[str, AxisGroup]:
+    """The axes bound now, by name (a copy)."""
+    return dict(_BOUND)
+
+
 def world_group(name: str = "dp") -> AxisGroup:
     """The default ``torch.distributed`` group as axis ``name`` (needs an
     initialised process group)."""
@@ -203,6 +208,11 @@ def _record(kind: str, x: torch.Tensor, g: AxisGroup, mode: str = "off") -> None
         _compress.record_collective(kind, dtype, raw_wire, wire)
     except Exception:
         pass   # telemetry must never fail a run
+
+
+#: the wire-byte accounting of a collective made outside an op's lowering
+#: (the pipeline's permutes, the ring's rotations)
+record_collective = _record
 
 
 def _dtype_name(dt: torch.dtype) -> str:
@@ -311,7 +321,8 @@ def permute(x: torch.Tensor, g: AxisGroup, pairs) -> torch.Tensor:
     dst = {s: d for s, d in pairs}
     src = {d: s for s, d in pairs}
     numel = x.numel()
-    xf = x.contiguous().reshape(-1)
+    # a rank that sends nothing hands the all-to-all an empty input
+    xf = x.contiguous().reshape(-1) if me in dst else x.new_empty((0,))
     in_splits = [numel if dst.get(me) == j else 0 for j in range(n)]
     out_splits = [numel if src.get(me) == j else 0 for j in range(n)]
     out = xf.new_empty((sum(out_splits),))
@@ -319,6 +330,24 @@ def permute(x: torch.Tensor, g: AxisGroup, pairs) -> torch.Tensor:
     if me not in src:
         return torch.zeros_like(x)
     return out.reshape(x.shape)
+
+
+def permute_packed(tensors, g: AxisGroup, pairs) -> list:
+    """``tensors`` moved along ``pairs`` (``permute``) in one call a dtype,
+    packed flat, their wire bytes recorded; None entries stay None. The
+    pipeline's and the ring's hand-offs, outside any op's lowering."""
+    out = [None] * len(tensors)
+    by_dtype: Dict[torch.dtype, list] = {}
+    for i, t in enumerate(tensors):
+        if t is not None:
+            by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        _record("permute", flat, g)
+        moved = permute(flat, g, pairs)
+        for i, part in zip(idx, moved.split([tensors[i].numel() for i in idx])):
+            out[i] = part.view(tensors[i].shape)
+    return out
 
 
 def batch_stats_group(ctx) -> Optional[AxisGroup]:

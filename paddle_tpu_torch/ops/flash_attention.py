@@ -20,7 +20,12 @@ held against the JAX package by its statistics.)
 
 Routing is by the device of the tensors: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernels, or raises where a kernel's gate
-refuses the call. Nothing falls back. ``impl='composed'`` asks for the plain
+refuses the call. Nothing falls back. Under a bound ``sp`` group larger than
+1 (a ``CompiledProgram`` whose mesh has the axis), as in the JAX package's
+op, ``'auto'`` and ``'ring'`` run ring attention over the sequence blocks
+(``parallel/ring_attention.py``) and ``'ulysses'`` the head-scatter
+all-to-all (``parallel/ulysses.py``), each on these kernels; ``'ring'`` or
+``'ulysses'`` without such a group raises, naming the impl. ``impl='composed'`` asks for the plain
 version explicitly; ``'pallas'`` means the kernels, and ``'auto'`` the
 kernels at the autotuner's ``fused_attention.block_sizes`` query tile
 (``tuning/choices.py``), 128 rows by default. The autotuner's
@@ -144,9 +149,9 @@ def philox_keep_mask(seed, B: int, H: int, S: int, p: float, device=None) -> tor
     return bits >= dropout_threshold(p)
 
 
-def _scores(q, k, bias, scale, causal):
-    """Softmax probabilities (f32) of the scores, as ``composed_attention``
-    computes them."""
+def _logits(q, k, bias, scale, causal):
+    """The f32 scores, as ``composed_attention`` computes them: bias
+    widened to f32, causal mask -1e30."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:
         s = s + bias.float()
@@ -154,7 +159,7 @@ def _scores(q, k, bias, scale, causal):
         S_q, S_k = s.shape[-2], s.shape[-1]
         keep = torch.ones((S_q, S_k), dtype=torch.bool, device=s.device).tril()
         s = s.masked_fill(~keep, -1e30)
-    return torch.softmax(s, dim=-1)
+    return s
 
 
 def _keep(q, dropout, seed):
@@ -162,34 +167,43 @@ def _keep(q, dropout, seed):
     return philox_keep_mask(seed, B, H, S, dropout, q.device)
 
 
-def attention_plain(q, k, v, bias=None, scale=None, causal=False, dropout=0.0, seed=0):
+def attention_plain(q, k, v, bias=None, scale=None, causal=False, dropout=0.0, seed=0,
+                    return_lse=False):
     """dropout(softmax(Q K^T * scale + bias [, causal])) V, written out.
 
     A transcription of ``composed_attention``: scores in f32, bias widened
     to f32, causal mask -1e30, softmax in f32, P rounded to V's dtype before
     P V (accumulated in f32), output in Q's dtype. ``dropout`` > 0 drops with
-    the kernels' Philox mask for ``seed``.
+    the kernels' Philox mask for ``seed``. With ``return_lse`` it returns
+    (O, LSE) as the forward kernel does: the row log-sum-exp [B, H, S] f32
+    of the pre-dropout scores (a ring block's, merged by the online-softmax
+    rule).
     """
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    p = _scores(q, k, bias, scale, causal)
+    s = _logits(q, k, bias, scale, causal)
+    p = torch.softmax(s, dim=-1)
     if dropout:
         p = torch.where(_keep(q, dropout, seed), p / (1.0 - dropout),
                         torch.zeros((), device=p.device))
-    return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+    o = torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+    return (o, torch.logsumexp(s, dim=-1)) if return_lse else o
 
 
 def attention_bwd_plain(q, k, v, bias, o, do, scale=None, causal=False, dropout=0.0,
-                        seed=0):
+                        seed=0, lse=None):
     """dQ, dK, dV of ``attention_plain``, written out for whole rows as
     ``_bwd_kernel`` computes them, in f32 on unrounded P: dV = Pd^T dO,
     dP = (dO V^T) * M, dS = P * (dP - D), dQ = dS K * scale, dK = dS^T Q *
     scale. D is rowsum(dO * O), as the kernel takes it (equal to the TPU
-    kernel's rowsum(dP * P) up to the rounding of O). Returns them in q's,
+    kernel's rowsum(dP * P) up to the rounding of O). Given the row ``lse``
+    (f32 [B, H, S]), P is exp(S - LSE), as the kernel takes it: a ring
+    block's backward from the whole row's O and LSE. Returns them in q's,
     k's and v's dtypes; the bias gets no gradient."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    p = _scores(q, k, bias, scale, causal)
+    s = _logits(q, k, bias, scale, causal)
+    p = torch.softmax(s, dim=-1) if lse is None else torch.exp(s - lse.unsqueeze(-1))
     dof = do.float()
     dp = torch.matmul(dof, v.float().transpose(-1, -2))
     pd = p
@@ -430,12 +444,59 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None, None
 
 
-@register("fused_attention", nondiff_inputs=("Bias",))
+def _sp_over_gloo(op):
+    """Attention under a bound sp group over gloo is not captured: the
+    ring's and Ulysses's calls are on the host."""
+    from . import collective as _coll
+    g = _coll.bound("sp")
+    if g is not None and g.size > 1 and g.backend == "gloo":
+        return "op 'fused_attention' rotates its blocks over gloo, whose calls are on the host"
+    return None
+
+
+def _sequence_parallel(ctx, q, k, v, bias, scale, dropout, causal, impl):
+    """The op under a bound ``sp`` group larger than 1 (the JAX package's
+    routing): ``'auto'`` / ``'ring'`` the ring, ``'ulysses'`` Ulysses. None
+    when no such group is bound and the impl does not ask for one. Under
+    the group each rank holds only its block of the positions, so every
+    other case raises (``'pallas'``, ``'composed'``, a bias that is not
+    [B,1,1,S]): attention within the block would be another function."""
+    from . import collective as _coll
+    g = _coll.bound("sp")
+    sp_n = g.size if g is not None else 1
+    if sp_n == 1:
+        if impl in ("ring", "ulysses"):
+            raise ValueError(
+                f"fused_attention impl={impl!r} needs a bound sp group larger than 1 (a "
+                f"CompiledProgram whose mesh has an sp axis); got sp={sp_n}")
+        return None
+    B, H, S, _ = q.shape
+    if impl not in ("auto", "ring", "ulysses") \
+            or (bias is not None and tuple(bias.shape) != (B, 1, 1, S)):
+        raise ValueError(
+            f"fused_attention under sp={sp_n} holds this rank's block of {S} positions and "
+            f"attends over the whole sequence only through the ring (impl 'auto' or 'ring') "
+            f"or Ulysses ('ulysses') with a [B,1,1,S] bias or none; got impl={impl!r}, "
+            f"bias={None if bias is None else tuple(bias.shape)}")
+    seed = ctx.kernel_seed() if dropout else 0
+    if impl == "ulysses":
+        from ..parallel import ulysses as _uly
+        return _uly.ulysses_attention(q, k, v, bias, float(scale), float(dropout), causal,
+                                      seed, g)
+    from ..parallel import ring_attention as _ring
+    return _ring.ring_attention(q, k, v, bias, float(scale), float(dropout), causal, seed, g)
+
+
+@register("fused_attention", nondiff_inputs=("Bias",), capture_refusal=_sp_over_gloo)
 def fused_attention(ctx, ins):
     """dropout(softmax(Q K^T * scale + Bias)) V over Q/K/V [B, heads, S, D]
     and an optional [B, 1, 1, S] additive Bias (no gradient). Attrs: scale
     (0 = 1/sqrt(D)), dropout_prob, causal, is_test, impl ('auto' | 'pallas'
-    | 'composed'; 'ring' and 'ulysses' are not ported). On the card, 'auto'
+    | 'ring' | 'ulysses' | 'composed'). Under a bound ``sp`` group larger
+    than 1, 'auto' and 'ring' run ring attention and 'ulysses' Ulysses over
+    this rank's sequence block (``_sequence_parallel``), and 'pallas',
+    'composed' or another bias shape raise; 'ring' or 'ulysses' without
+    one raises. Otherwise, on the card, 'auto'
     runs the kernels at the autotuner's ``fused_attention.block_sizes``
     query tile (128 rows by default) where they take the call; where they
     do not, the kernel raises as 'pallas' does. The dropout seed is
@@ -451,17 +512,17 @@ def fused_attention(ctx, ins):
     if ctx.abstract:
         # shape inference on meta tensors: every impl has the plain version's shape
         return {"Out": [attention_plain(q, k, v, bias, float(scale), causal)]}
-    if impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"fused_attention impl={impl!r} (sequence parallelism) is not ported yet")
-    if impl not in ("auto", "pallas", "composed"):
+    if impl not in ("auto", "pallas", "ring", "ulysses", "composed"):
         raise ValueError(f"fused_attention: unknown impl {impl!r}")
-    seed = ctx.kernel_seed() if dropout else 0    # an int off the card
     if bias is not None and bias.dtype != q.dtype \
             and torch.promote_types(bias.dtype, q.dtype) == q.dtype:
         # a narrower bias (a bf16 model's mask served in f32, Predictor.run(dtype=...)):
         # widened exactly, as the plain version's promotion does
         bias = bias.to(q.dtype)
+    out = _sequence_parallel(ctx, q, k, v, bias, scale, dropout, causal, impl)
+    if out is not None:
+        return {"Out": [out]}
+    seed = ctx.kernel_seed() if dropout else 0    # an int off the card
     block_q = FWD_BLOCK_Q[0]
     if impl == "auto" and q.device.type == "cuda" and kernel_refusal(q, k, v, bias) is None:
         from ..tuning import choices as _choices

@@ -461,26 +461,32 @@ def _rewrite_recompute(program: Program, checkpoint_names):
 
 
 class PipelineOptimizer:
-    """Microbatch accumulation on one card: the JAX package's
-    ``PipelineOptimizer`` with its ``"scan"`` schedule (reference
-    optimizer.py:2985 PipelineOptimizer).
+    """GPipe-style pipeline training (reference optimizer.py:2985
+    PipelineOptimizer, framework/trainer.h:115 PipelineTrainer,
+    section_worker.cc:85 SectionWorker), with the JAX package's three
+    schedules.
 
-    ``minimize`` appends the wrapped optimizer's backward pass, then
-    rewrites the program into a microbatch scan
+    ``"scan"``: ``minimize`` appends the wrapped optimizer's backward pass,
+    then rewrites the program into a microbatch scan
     (``_rewrite_microbatch_scan``): the feed batch splits into
     ``num_microbatches`` slices, one ``scan`` runs forward and backward per
     slice and sums the gradients in its carries, and the wrapped optimizer
     applies their mean once. For a mean loss over equal slices that is the
     full batch's gradient, at a slice's activation memory. The loss variable
-    becomes the mean of the microbatches' losses. Feed batch sizes must be
-    divisible by ``num_microbatches``.
+    becomes the mean of the microbatches' losses.
 
-    ``schedule``: ``"scan"``, and ``"auto"``, which is the scan here: the
-    JAX package's ``"auto"`` lowers ``device_guard("stage:i")`` stacks to
-    its temporal GPipe schedule, and the port has no ``device_guard`` yet, so
-    no stage annotation can exist. ``"temporal"`` raises. The cut, place,
-    concurrency and queue arguments are the reference's thread-section
-    knobs, accepted and not read, as in the JAX package."""
+    ``"temporal"``: the ``device_guard("stage:i")`` stages of a homogeneous
+    stack (BERT's ``pp_stages``) become one ``temporal_pipeline`` op over
+    ``<param>@pp_stacked`` parameters (``_rewrite_temporal_pipeline``). Over
+    a bound ``pipeline_axis`` group of ``num_stages`` ranks it runs the
+    GPipe schedule, one stage a rank (``parallel/pipeline.py``); otherwise
+    the serial schedule, each microbatch through the stages in order. It
+    raises, with the JAX package's messages, where the stages cannot lower.
+    ``"auto"`` lowers annotated stacks and scans everything else.
+
+    Feed batch sizes must be divisible by ``num_microbatches``. The cut,
+    place, concurrency and queue arguments are the reference's
+    thread-section knobs, accepted and not read, as in the JAX package."""
 
     def __init__(self, optimizer, num_microbatches=1, cut_list=None,
                  place_list=None, concurrency_list=None, queue_size=None,
@@ -500,13 +506,20 @@ class PipelineOptimizer:
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
-        if self._schedule == "temporal":
-            raise NotImplementedError(
-                "PipelineOptimizer(schedule='temporal'): the temporal GPipe schedule over "
-                "device_guard stages is not ported yet (ROADMAP item 13 (b), with "
-                "the pipeline stages); schedule='scan' accumulates microbatches on one card")
         program = loss.block.program
-        with program_guard(program, startup_program or default_startup_program()):
+        startup = startup_program or default_startup_program()
+        if self._schedule in ("auto", "temporal"):
+            rewrote = _rewrite_temporal_pipeline(
+                program, startup, self._m, self._axis,
+                required=self._schedule == "temporal")
+            if rewrote:
+                with program_guard(program, startup):
+                    params_grads = self._optimizer.backward(
+                        loss, startup_program, parameter_list, no_grad_set)
+                    pg = [(p, g) for p, g in params_grads if g is not None]
+                    ops = self._optimizer.apply_gradients(pg)
+                return ops, params_grads
+        with program_guard(program, startup):
             params_grads = self._optimizer.backward(
                 loss, startup_program, parameter_list, no_grad_set)
             if self._m <= 1:
@@ -521,12 +534,245 @@ class PipelineOptimizer:
     def pp_param_rules(axis="pp"):
         """DistributedStrategy param_rules sharding the stage-stacked
         parameters (and their stage-stacked optimizer accumulators) over the
-        pipeline axis, as the JAX package's (data: the port has no stage
-        stacks and no strategy yet). Scalar accumulators derived from
-        stacked params (Adam's beta-pow) stay replicated -- first match
-        wins."""
+        pipeline axis, as the JAX package's: each pp rank holds its stage's
+        block. Scalar accumulators derived from stacked params (Adam's
+        beta-pow) stay replicated -- first match wins."""
         return [(r"@pp_stacked.*_pow_acc", ()),
                 (r"@pp_stacked", (axis,))]
+
+
+def _rewrite_temporal_pipeline(program: Program, startup, M, axis="pp",
+                               required=False):
+    """Lower device_guard("stage:i")-annotated ops into one temporal_pipeline
+    op (the GPipe schedule, ``ops/pipeline_op.py``; reference
+    PipelineTrainer/SectionWorker, trainer.h:115, section_worker.cc:85). The
+    port's copy of the JAX package's rewrite: the same checks, messages,
+    ops, variables and names.
+
+    Requirements (the homogeneous-stage contract of parallel/pipeline.py):
+      - annotated ops are contiguous and stage ids increase monotonically;
+      - every stage has the same op-type/attr sequence with positionally
+        matching parameter shapes (a transformer layer stack);
+      - consecutive stages are linked by exactly one activation (cut) var of
+        a shape shared by all cuts; other stage inputs must come from the
+        prologue (stage-invariant consts, e.g. the attention mask bias).
+
+    On success: per-stage parameters are replaced by [S, ...] stacks (named
+    <stage0 param>@pp_stacked, initialized in the startup program by stacking
+    the per-stage inits), the stage ops move into a template sub-block, and
+    the main block gets one temporal_pipeline op. Returns True. On any
+    violated requirement: returns False (schedule="auto") or raises
+    (schedule="temporal").
+    """
+    from .framework import Parameter
+
+    block = program.global_block()
+    ops = list(block.ops)
+
+    def stage_of(op):
+        d = op.attr("op_device", None)
+        if isinstance(d, str) and d.startswith("stage:"):
+            return int(d.split(":", 1)[1])
+        return None
+
+    tagged = [i for i, o in enumerate(ops) if stage_of(o) is not None]
+
+    def bail(msg):
+        if required:
+            raise ValueError(f"PipelineOptimizer(schedule='temporal'): {msg}")
+        return False
+
+    if not tagged:
+        return bail("no device_guard('stage:i') annotations found")
+    first, last = tagged[0], tagged[-1]
+    prologue, staged, epilogue = ops[:first], ops[first:last + 1], ops[last + 1:]
+
+    stages, cur = [], None
+    for o in staged:
+        s = stage_of(o)
+        if s is None:
+            return bail(f"un-annotated op {o.type!r} inside the stage region")
+        if s != cur:
+            if cur is not None and s != cur + 1:
+                return bail(f"stage ids must increase by 1 (saw {cur} -> {s})")
+            if cur is None and s != 0:
+                return bail(f"stages must start at 0 (saw stage:{s} first)")
+            stages.append([])
+            cur = s
+        stages[-1].append(o)
+    S = len(stages)
+    if S < 2:
+        return bail("need at least 2 stages")
+
+    # homogeneity: identical op type + attr sequences (modulo the stage tag)
+    def sig(sops):
+        out = []
+        for o in sops:
+            attrs = {k: v for k, v in o.attrs.items() if k != "op_device"}
+            out.append((o.type, tuple(sorted(
+                (k, repr(v)) for k, v in attrs.items()))))
+        return out
+    template_sig = sig(stages[0])
+    for i, sops in enumerate(stages[1:], 1):
+        if sig(sops) != template_sig:
+            return bail(f"stage {i} op sequence differs from stage 0 "
+                        f"(homogeneous stacks only; use schedule='scan' for "
+                        f"heterogeneous sections)")
+
+    produced = [set(n for o in sops for ns in o.outputs.values() for n in ns)
+                for sops in stages]
+    consumed = [set(n for o in sops for ns in o.inputs.values() for n in ns)
+                for sops in stages]
+    epi_consumed = set(n for o in epilogue for ns in o.inputs.values()
+                       for n in ns)
+
+    def params_of(sops):
+        seen, out = set(), []
+        for o in sops:
+            for slot in sorted(o.inputs):
+                for n in o.inputs[slot]:
+                    v = block.find_var_recursive(n)
+                    if isinstance(v, Parameter) and n not in seen:
+                        seen.add(n)
+                        out.append(n)
+        return out
+
+    stage_params = [params_of(sops) for sops in stages]
+    K = len(stage_params[0])
+    for i, ps in enumerate(stage_params[1:], 1):
+        if len(ps) != K:
+            return bail(f"stage {i} has {len(ps)} params, stage 0 has {K}")
+        for a, b in zip(stage_params[0], ps):
+            va, vb = block.var(a), block.var(b)
+            if tuple(va.shape) != tuple(vb.shape) or va.dtype != vb.dtype:
+                return bail(f"param {b!r} ({vb.shape}) does not match stage-0 "
+                            f"{a!r} ({va.shape})")
+
+    # cut vars: single activation handed stage i -> i+1 (and last -> epilogue)
+    cuts = []
+    for i in range(1, S):
+        link = consumed[i] & produced[i - 1]
+        if len(link) != 1:
+            return bail(f"stages {i-1}->{i} must be linked by exactly one "
+                        f"activation var (found {sorted(link)})")
+        cuts.append(next(iter(link)))
+    out_link = epi_consumed & produced[S - 1]
+    if len(out_link) != 1:
+        return bail(f"last stage must hand exactly one var to the epilogue "
+                    f"(found {sorted(out_link)})")
+    out_var = next(iter(out_link))
+    # no skip connections across stages: stage i's outputs may only be read
+    # by stage i+1 (the cut) -- or the epilogue for the last stage
+    for i in range(S - 1):
+        later = set().union(*consumed[i + 2:]) if i + 2 < S else set()
+        later |= epi_consumed
+        leak = produced[i] & later
+        if leak:
+            return bail(f"stage {i} outputs {sorted(leak)} consumed beyond "
+                        f"stage {i+1} (single-cut chains only)")
+
+    # stage inputs that are neither params nor the cut: stage-invariant consts
+    pro_avail = set(n for o in prologue for ns in o.outputs.values()
+                    for n in ns)
+    pro_avail |= {n for n, v in block.vars.items() if v.is_data}
+    for i in range(S):
+        cut_in = cuts[i - 1] if i > 0 else None
+        for n in sorted(consumed[i]):
+            if n in stage_params[i] or n == cut_in or n in produced[i]:
+                continue
+            if n not in pro_avail:
+                return bail(f"stage {i} reads {n!r} which is neither a "
+                            f"param, the cut activation, nor a prologue "
+                            f"output")
+    # classify stage-0 non-param inputs: consts are read by stage >= 1 too
+    later_consumed = set().union(*consumed[1:]) if S > 1 else set()
+    cand = [n for n in sorted(consumed[0])
+            if n not in stage_params[0] and n not in produced[0]]
+    const_vars = [n for n in cand if n in later_consumed]
+    ins0 = [n for n in cand if n not in later_consumed]
+    if len(ins0) != 1:
+        return bail(f"stage 0 must consume exactly one activation from the "
+                    f"prologue (found {ins0}); stage-invariant inputs must "
+                    f"also be read by later stages to classify as consts")
+    in_var = ins0[0]
+
+    # cut shapes must all match (homogeneous activation)
+    shapes = {tuple(block.var(n).shape) for n in cuts + [in_var, out_var]}
+    if len(shapes) != 1:
+        return bail(f"cut activations must share one shape, found {shapes}")
+
+    # classify consts statically: per-example (batch-riding, microbatched by
+    # the op) vs stage-invariant (replicated). Recording this as an op attr
+    # here -- where declared shapes are known -- avoids the runtime
+    # shape-coincidence trap (a stage-invariant const whose dim 0 happens to
+    # equal the batch). Three-way result:
+    #   batch:  leading dim is the dynamic batch mark (-1) like the
+    #           activation's, or concretely equals the activation's concrete
+    #           batch dim;
+    #   static: concrete leading dim that differs from the batch dim;
+    #   defer:  declared shapes can't decide (one side -1, the other
+    #           concrete) -- the op falls back to its runtime heuristic for
+    #           just that var.
+    act_lead = tuple(block.var(in_var).shape)[0] if block.var(in_var).shape \
+        else None
+
+    def _classify(n):
+        shp = tuple(block.var(n).shape)
+        if not shp:
+            return "static"
+        if shp[0] == -1:
+            return "batch" if act_lead == -1 else "defer"
+        if act_lead == -1:
+            return "defer"
+        return "batch" if shp[0] == act_lead else "static"
+
+    batch_const_vars = [n for n in const_vars if _classify(n) == "batch"]
+    defer_const_vars = [n for n in const_vars if _classify(n) == "defer"]
+
+    # ---- build: template sub-block + stacked params + the pipeline op ------
+    sub = program._create_block(parent_idx=0)
+    program._rollback()
+    sub.ops = stages[0]
+
+    stacked_names = []
+    sblock = startup.global_block()
+    for k in range(K):
+        base = stage_params[0][k]
+        v0 = block.var(base)
+        sname = f"{base}@pp_stacked"
+        block.create_parameter(sname, (S,) + tuple(v0.shape), v0.dtype)
+        stacked_names.append(sname)
+        per_stage = [stage_params[i][k] for i in range(S)]
+        sv = sblock.create_var(sname, (S,) + tuple(v0.shape), v0.dtype)
+        sv.persistable = True
+        sblock.append_op("stack", inputs={"X": per_stage},
+                         outputs={"Y": [sname]}, attrs={"axis": 0},
+                         infer_shape=False)
+        # the per-stage params become startup-internal temporaries: only the
+        # stack persists (keeps checkpoints and executor state stack-only)
+        for i in range(S):
+            block.var(per_stage[i]).persistable = False
+            block.var(per_stage[i]).trainable = False
+            su = sblock.find_var_recursive(per_stage[i])
+            if su is not None:
+                su.persistable = False
+
+    block.ops = list(prologue)
+    block.append_op(
+        "temporal_pipeline",
+        inputs={"X": [in_var], "Params": stacked_names,
+                "Consts": const_vars},
+        outputs={"Out": [out_var]},
+        attrs={"sub_block": sub.idx, "num_stages": S,
+               "num_microbatches": max(M, 1), "axis": axis,
+               "in_var": in_var, "template_out": cuts[0],
+               "param_vars": list(stage_params[0]),
+               "const_vars": const_vars,
+               "batch_const_vars": batch_const_vars,
+               "defer_const_vars": defer_const_vars},
+        infer_shape=False)
+    block.ops.extend(epilogue)
+    return True
 
 
 def _rewrite_microbatch_scan(program: Program, loss, params_grads, M):

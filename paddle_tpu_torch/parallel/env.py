@@ -34,7 +34,9 @@ from typing import Dict, Optional
 
 import torch
 
-_state = {"initialized": False, "backend": None, "device": None}
+_state = {"initialized": False, "backend": None, "device": None, "timeout": 300.0}
+#: the process groups of each mesh, made once (``mesh_groups``)
+_GROUPS: Dict[tuple, dict] = {}
 
 
 def _env_int(*names, default=0) -> int:
@@ -217,7 +219,7 @@ def init_parallel_env(coordinator_address: Optional[str] = None,
             f"init_parallel_env: rank {rank}/{n} failed to join the job at {addr} "
             f"within {timeout_seconds}s over {be} -- a rank is down or the address "
             f"is wrong ({e})") from e
-    _state.update(initialized=True, backend=be, device=dev)
+    _state.update(initialized=True, backend=be, device=dev, timeout=float(timeout_seconds))
     return ParallelEnv()
 
 
@@ -229,6 +231,7 @@ def destroy_parallel_env() -> None:
     if dist.is_available() and dist.is_initialized():
         barrier("destroy_parallel_env")
         dist.destroy_process_group()
+    _GROUPS.clear()
     _state.update(initialized=False, backend=None, device=None)
 
 
@@ -314,3 +317,60 @@ def shard_batch(array, rank: Optional[int] = None, world_size: Optional[int] = N
         raise ValueError(f"global batch {b} not divisible by {w} hosts")
     per = b // w
     return array[r * per:(r + 1) * per]
+
+
+def mesh_coords(mesh_shape: Dict[str, int], rank: int) -> Dict[str, int]:
+    """Rank ``rank``'s index on each axis of ``mesh_shape``: the axes in
+    order, the last fastest (the JAX mesh's ``devices.reshape(sizes)``)."""
+    coords = {}
+    for a in reversed(list(mesh_shape)):
+        n = int(mesh_shape[a])
+        coords[a] = rank % n
+        rank //= n
+    return {a: coords[a] for a in mesh_shape}
+
+
+def mesh_groups(mesh_shape: Dict[str, int], combined=()) -> dict:
+    """This rank's ``AxisGroup`` of each axis of ``mesh_shape`` larger than
+    1, and of each tuple of axes in ``combined`` of which more than one is
+    larger than 1 (named ``"a+b"``): the ranks that
+    differ from this one on those axes only. An axis that spans the world is
+    the default group; every other slice is a ``torch.distributed.new_group``
+    under the timeout ``init_parallel_env`` set. Every rank makes every
+    group, in one order, its own or not (a group is a collective call), so
+    the first call on a mesh must come on every rank; the groups are kept
+    for later calls."""
+    import torch.distributed as dist
+    from ..ops import collective as _coll
+    key = (tuple((a, int(n)) for a, n in mesh_shape.items()), tuple(map(tuple, combined)))
+    got = _GROUPS.get(key)
+    if got is not None:
+        return got
+    world, rank = dist.get_world_size(), dist.get_rank()
+    axes = list(mesh_shape)
+    be = str(dist.get_backend())
+    timeout = datetime.timedelta(seconds=_state["timeout"])
+    specs = [(a,) for a in axes if int(mesh_shape[a]) > 1]
+    for c in combined:
+        live = tuple(a for a in c if int(mesh_shape.get(a, 1)) > 1)
+        if len(live) > 1 and live not in specs:
+            specs.append(live)
+    coords = [mesh_coords(mesh_shape, r) for r in range(world)]
+    out: Dict[str, object] = {}
+    for spec in specs:
+        slices: Dict[tuple, list] = {}
+        for r in range(world):
+            slices.setdefault(tuple(coords[r][a] for a in axes if a not in spec), []).append(r)
+        name = "+".join(spec)
+        members = next(m for m in slices.values() if rank in m)
+        if len(members) == world:
+            out[name] = _coll.AxisGroup(name, None, world, rank, be)
+            continue
+        mine = None
+        for k in sorted(slices):
+            g = dist.new_group(slices[k], timeout=timeout)
+            if rank in slices[k]:
+                mine = g
+        out[name] = _coll.AxisGroup(name, mine, len(members), members.index(rank), be)
+    _GROUPS[key] = out
+    return out

@@ -247,3 +247,19 @@ def test_observability_read_journal_matches_jax(tmp_path):
     assert got == fluid.observability.read_journal(str(path)) == events
     from paddle_tpu_torch.observability import journal
     assert pt.observability.read_journal is journal.read_journal
+
+
+def test_every_jax_op_type_is_registered_in_the_port():
+    """The port registers all of the JAX package's op types (325, the last
+    being ``temporal_pipeline``), each with the JAX registry's gradient
+    flags."""
+    from paddle_tpu.core import registry as jreg
+    from paddle_tpu_torch.core import registry as treg
+    jtypes = set(jreg._REGISTRY)
+    assert len(jtypes) == 325
+    assert sorted(jtypes - set(treg._REGISTRY)) == []
+    for t in ("temporal_pipeline", "fused_attention", "collective_permute"):
+        a, b = treg.get(t), jreg.get(t)
+        assert (a.grad, a.nondiff_inputs) == (b.grad, b.nondiff_inputs), t
+    assert pt.device_guard is pt.framework.device_guard
+    assert pt.framework.current_op_device() is None

@@ -125,8 +125,10 @@ def test_off_cpu_routing_never_falls_back():
 
 @pytest.mark.parametrize("impl", ["ring", "ulysses"])
 def test_sequence_parallel_impls_are_not_ported(impl):
+    """Ring and Ulysses run over a bound sp group (tests/test_torch_sequence_parallel.py);
+    without one the op raises, naming the impl, as the JAX op does off an sp mesh."""
     q = torch.zeros(1, 2, 128, 32)
-    with pytest.raises(NotImplementedError, match=impl):
+    with pytest.raises(ValueError, match=f"impl='{impl}' needs a bound sp group"):
         get("fused_attention").lower(LowerCtx({"impl": impl, "is_test": True}),
                                      {"Q": [q], "K": [q], "V": [q]})
 

@@ -155,7 +155,7 @@ def test_registry_holds_the_collectives_and_the_jax_metadata():
     from paddle_tpu_torch.core import registry as treg
     from paddle_tpu_torch.ops import collective as tcoll
     missing = sorted(set(jreg._REGISTRY) - set(treg._REGISTRY))
-    assert missing == ["temporal_pipeline"], missing
+    assert missing == [], missing
     assert tcoll.COLLECTIVE_OPS == jcoll.COLLECTIVE_OPS
     for t in TYPES:
         a, b = treg.get(t), jreg.get(t)

@@ -13,7 +13,14 @@ step on the batch's positions made global (``atol 1e-5`` on the state:
 the same sums in another order), each microbatch drawing the same dropout
 masks at dropout 0.1 in both packages, the body's forwards kept once a
 microbatch, bit for bit to the recompute path, the ``check_nested``
-refusal and ``"temporal"``.
+refusal.
+
+The temporal schedule on one process (its serial form), against the JAX
+package: ``device_guard``'s tags, the rewrite of BERT's ``pp_stages`` (op
+for op, the ``@pp_stacked`` names), the staged MLP and tiny BERT trained
+under it, the refusal of heterogeneous stages with the JAX message, and
+the stages' decorrelated dropout streams. The schedule over pp ranks is
+``tests/test_torch_pipeline_spmd.py``'s.
 """
 import numpy as np
 import pytest
@@ -133,9 +140,9 @@ def test_the_rewritten_program_is_the_jax_packages():
         fluid.optimizer.PipelineOptimizer.pp_param_rules()
 
 
-def _bert(pkg, module, optimizer, dropout=0.0, batch=B):
+def _bert(pkg, module, optimizer, dropout=0.0, batch=B, pp_stages=None):
     cfg = module.BertConfig(vocab_size=VOCAB, hidden=64, n_layers=2, n_heads=2,
-                            max_seq_len=S, dropout=dropout)
+                            max_seq_len=S, dropout=dropout, pp_stages=pp_stages)
     return tp.build_pretrain(cfg, batch, S, MASKS, lr=0.01, seed=1, optimizer=optimizer,
                              pkg=pkg, model=module)
 
@@ -284,16 +291,159 @@ def test_a_feed_read_inside_a_sub_block_is_refused():
     assert msgs[0] == msgs[1]
 
 
+def _staged(pkg, schedule="temporal", stages=4, micro=2):
+    from tests import torch_dist_runner as runner
+    return runner.build_staged_mlp(pkg, stages, schedule=schedule, micro=micro)
+
+
 def test_the_temporal_schedule_raises():
-    """The temporal GPipe schedule needs ``device_guard`` stages, which the
-    port does not have yet: it raises, naming ROADMAP's item 13. ``"auto"``
-    is the scan; a schedule by another name is refused as in JAX."""
-    main, startup, loss = _mlp(pt, lambda pkg: pkg.optimizer.SGD(0.1), 7)
-    opt = pt.optimizer.PipelineOptimizer(pt.optimizer.SGD(0.1), 2, schedule="temporal")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        opt.minimize(loss)
+    """The temporal schedule runs since the port has ``device_guard``: the
+    staged MLP of tests/test_pipeline.py (4 tanh stages) under
+    ``PipelineOptimizer(SGD, 2, schedule="temporal")`` trains as the JAX
+    package's serial schedule does (6 steps from its startup: losses
+    ``rtol 1e-5``, every state tensor ``atol 1e-6``). What still raises:
+    a schedule by another name, refused as in JAX; ``"auto"`` on a program
+    without stages is the scan."""
+    feeds = _mlp_feeds(bs=8)
+    jm, js, jl = _staged(fluid)
+    jouts, init, jfinal = _jax_steps(jm, js, [jl], feeds)
+    tm, _, tl = _staged(pt)
+    assert [op.type for op in tm.global_block().ops].count("temporal_pipeline") == 1
+    touts, tfinal = _port_steps(tm, [tl], feeds, init)
+    np.testing.assert_allclose([float(o[0].reshape(())) for o in touts],
+                               [float(np.asarray(o[0]).reshape(())) for o in jouts], rtol=1e-5)
+    for n in init:
+        np.testing.assert_allclose(tfinal[n], jfinal[n], atol=1e-6, err_msg=n)
     with pytest.raises(ValueError, match="auto|scan|temporal"):
         pt.optimizer.PipelineOptimizer(pt.optimizer.SGD(0.1), 2, schedule="gpipe")
     auto = lambda pkg: pkg.optimizer.PipelineOptimizer(pkg.optimizer.SGD(0.1), 2)
     tm, _, _ = _mlp(pt, auto, 7)
     assert [op.type for op in tm.global_block().ops].count("scan") == 1
+
+
+def test_device_guard_tags_ops():
+    """``device_guard`` tags the ops built inside with ``op_device``, in
+    both packages alike; an op built outside has none."""
+    devs = {}
+    for pkg in (fluid, pt):
+        main = pkg.Program()
+        with pkg.program_guard(main, pkg.Program()):
+            x = pkg.data("x", [4], "float32")
+            with pkg.device_guard("stage:0"):
+                assert pkg.framework.current_op_device() == "stage:0"
+                h = pkg.layers.fc(x, 8)
+            with pkg.device_guard("stage:1"):
+                y = pkg.layers.fc(h, 2)
+            pkg.layers.mean(y)
+        devs[pkg.__name__] = [op.attr("op_device") for op in main.global_block().ops]
+    assert devs["paddle_tpu"] == devs["paddle_tpu_torch"]
+    assert "stage:0" in devs["paddle_tpu"] and devs["paddle_tpu"][-1] is None
+
+
+def test_the_temporal_rewrite_is_the_jax_packages():
+    """BERT's ``pp_stages`` 2 under ``PipelineOptimizer(Adam, 2,
+    "temporal")``: the same ops, variables and attrs in every block of the
+    main and startup programs, the ``@pp_stacked`` parameters made by
+    ``stack`` in the startup, the per-stage parameters not persistable."""
+    progs = {}
+    for pkg, module in ((fluid, jbert), (pt, tbert)):
+        progs[pkg.__name__] = _bert(pkg, module, _temporal(2), pp_stages=2)
+    (jm, js, _, _), (tm, ts, _, _) = progs["paddle_tpu"], progs["paddle_tpu_torch"]
+    for a, b in ((tm, jm), (ts, js)):
+        assert len(a.blocks) == len(b.blocks)
+        for tb, jb in zip(a.blocks, b.blocks):
+            assert [op.type for op in tb.ops] == [op.type for op in jb.ops]
+            assert sorted(tb.vars) == sorted(jb.vars)
+            for x, y in zip(tb.ops, jb.ops):
+                assert x.inputs == y.inputs and x.outputs == y.outputs, x.type
+            assert {n: v.persistable for n, v in tb.vars.items()} == \
+                {n: v.persistable for n, v in jb.vars.items()}
+    op = next(o for o in tm.global_block().ops if o.type == "temporal_pipeline")
+    jop = next(o for o in jm.global_block().ops if o.type == "temporal_pipeline")
+    assert op.attrs == jop.attrs and op.attr("num_stages") == 2
+    stacked = sorted(n for n in tm.global_block().vars if n.endswith("@pp_stacked"))
+    assert "layer0_attn_qkv_w@pp_stacked" in stacked   # stage 0's names
+    assert [o.type for o in ts.global_block().ops].count("stack") == len(stacked)
+    assert not tm.global_block().vars["layer1_ffn1_w"].persistable
+
+
+def _temporal(m):
+    return lambda pkg, rate: pkg.optimizer.PipelineOptimizer(pkg.optimizer.Adam(rate), m,
+                                                             schedule="temporal")
+
+
+def test_tiny_bert_pp_stages_serial_matches_jax():
+    """Tiny BERT with ``pp_stages`` 2 under the temporal schedule, run
+    serially on one process: 3 Adam steps against the JAX package's (losses
+    ``rtol 1e-5``, every state tensor ``atol 5e-5``)."""
+    feed = _bert_feed(microbatches=1)
+    jm, js, jt, _ = _bert(fluid, jbert, _temporal(2), pp_stages=2)
+    jouts, init, jfinal = _jax_steps(jm, js, [jt], [feed] * 3)
+    tm, _, tt, _ = _bert(pt, tbert, _temporal(2), pp_stages=2)
+    touts, tfinal = _port_steps(tm, [tt], [feed] * 3, init)
+    losses = [float(o[0].reshape(-1)[0]) for o in touts]
+    np.testing.assert_allclose(losses, [float(np.asarray(o[0]).reshape(-1)[0]) for o in jouts],
+                               rtol=1e-5)
+    assert losses[2] < losses[0]
+    for n in init:
+        np.testing.assert_allclose(tfinal[n], np.asarray(jfinal[n], np.float32), atol=5e-5,
+                                   err_msg=n)
+
+
+def test_heterogeneous_stages_are_refused_with_the_jax_message():
+    """``"temporal"`` refuses stages of different widths with the JAX
+    package's message; ``"auto"`` falls back to the microbatch scan."""
+
+    def build(pkg, schedule):
+        main, startup = pkg.Program(), pkg.Program()
+        with pkg.unique_name.guard(), pkg.program_guard(main, startup):
+            x = pkg.data("x", [16], "float32")
+            label = pkg.data("label", [1], "int64")
+            with pkg.device_guard("stage:0"):
+                h = pkg.layers.fc(x, 32, act="relu")
+            with pkg.device_guard("stage:1"):
+                h = pkg.layers.fc(h, 16, act="tanh")
+            loss = pkg.layers.mean(pkg.layers.softmax_with_cross_entropy(
+                pkg.layers.fc(h, 4), label))
+            pkg.optimizer.PipelineOptimizer(pkg.optimizer.SGD(0.1), num_microbatches=2,
+                                            schedule=schedule).minimize(loss)
+        return main
+
+    msgs = []
+    for pkg in (fluid, pt):
+        with pytest.raises(ValueError, match="temporal") as e:
+            build(pkg, "temporal")
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
+    assert [op.type for op in build(pt, "auto").global_block().ops].count("scan") == 1
+
+
+def test_stage_dropout_streams_are_decorrelated():
+    """Two 0.5-dropout stages keep about a quarter of the elements (a shared
+    stream would keep half): each stage draws with its index folded into
+    the seed, in the port as in the JAX package."""
+    fracs = []
+    for pkg in (fluid, pt):
+        main, startup = pkg.Program(), pkg.Program()
+        main.random_seed = startup.random_seed = 3
+        with pkg.unique_name.guard(), pkg.program_guard(main, startup):
+            x = pkg.data("x", [4096], "float32")
+            h = pkg.layers.scale(x, scale=1.0)
+            for s in range(2):
+                with pkg.device_guard(f"stage:{s}"):
+                    h = pkg.layers.dropout(h, 0.5, dropout_implementation="upscale_in_train")
+            out = pkg.layers.scale(h, scale=1.0)
+            opt = pkg.optimizer.PipelineOptimizer(pkg.optimizer.SGD(0.1), num_microbatches=2,
+                                                  schedule="temporal")
+            try:
+                opt.minimize(pkg.layers.mean(out))
+            except Exception:
+                pass   # no trainable parameter; the rewrite has happened
+        assert any(op.type == "temporal_pipeline" for op in main.global_block().ops)
+        exe = fluid.Executor() if pkg is fluid else pt.Executor(pt.CPUPlace())
+        with pkg.scope_guard(pkg.Scope()):
+            exe.run(startup)
+            ov, = exe.run(main, feed={"x": np.ones((4, 4096), "float32")}, fetch_list=[out])
+        fracs.append(float((np.asarray(ov) != 0).mean()))
+    for f in fracs:
+        assert 0.17 < f < 0.33, fracs

@@ -1,5 +1,6 @@
 """Rank script of the port's multi-process tests (``test_torch_collective.py``,
-``test_torch_data_parallel.py``, ``test_torch_launch_fleet.py``), launched by
+``test_torch_data_parallel.py``, ``test_torch_launch_fleet.py``,
+``test_torch_pipeline_spmd.py``, ``test_torch_sequence_parallel.py``), launched by
 ``paddle_tpu_torch.parallel.launch``: ``python tests/torch_dist_runner.py
 OUT_DIR CASE[,CASE...]``. Each rank joins the gloo group on the CPU, reads
 the parent's inputs from ``OUT_DIR/inputs.npz`` (the JAX startup state under
@@ -407,11 +408,312 @@ def case_single(pt, rank, world, data, res):
         res["single/w"] = scope.find_var("fc_0.w_0").numpy()
 
 
+# ------------------------------------------------- pipeline parallelism --
+
+PIPE_M, PIPE_MB, PIPE_D = 6, 2, 8
+
+
+def pipe_inputs(S):
+    """The GPipe case at S stages (``tests/test_multihost.py``'s shapes):
+    stacked weights and biases, [M, mb, D] microbatches and a target."""
+    rng = np.random.RandomState(S)
+    return ((rng.randn(S, PIPE_D, PIPE_D) * 0.3).astype("float32"),
+            (rng.randn(S, PIPE_D) * 0.1).astype("float32"),
+            rng.randn(PIPE_M, PIPE_MB, PIPE_D).astype("float32"),
+            rng.randn(PIPE_M, PIPE_MB, PIPE_D).astype("float32"))
+
+
+def build_staged_mlp(pkg, stages, seed=3, schedule="temporal", micro=2):
+    """``tests/test_pipeline.py``'s staged MLP: ``stages`` tanh layers, each
+    in ``device_guard("stage:i")``, under ``PipelineOptimizer(SGD, 2)``."""
+    main, startup = pkg.Program(), pkg.Program()
+    main.random_seed = startup.random_seed = seed
+    with pkg.unique_name.guard(), pkg.program_guard(main, startup):
+        x = pkg.data("x", [16], "float32")
+        label = pkg.data("label", [1], "int64")
+        h = pkg.layers.fc(x, 16, act="relu")
+        for s in range(stages):
+            with pkg.device_guard(f"stage:{s}"):
+                h = pkg.layers.fc(h, 16, act="tanh")
+        logits = pkg.layers.fc(h, 4)
+        loss = pkg.layers.mean(pkg.layers.softmax_with_cross_entropy(logits, label))
+        pkg.optimizer.PipelineOptimizer(pkg.optimizer.SGD(0.1), num_microbatches=micro,
+                                        schedule=schedule).minimize(loss)
+    return main, startup, loss
+
+
+def staged_feeds(steps=4, batch=8, seed=1):
+    rng = np.random.RandomState(seed)
+    return [{"x": rng.randn(batch, 16).astype("float32"),
+             "label": rng.randint(0, 4, (batch, 1)).astype("int64")} for _ in range(steps)]
+
+
+def bert_pp(pkg, model, stages=2):
+    """Tiny BERT (L2, H64, A2, S16, B4) with ``pp_stages`` under
+    ``PipelineOptimizer(Adam, 2, schedule="temporal")``, dropout 0."""
+    from paddle_tpu_torch.tools import train_profile as tp
+    cfg = model.BertConfig(vocab_size=128, hidden=64, n_layers=2, n_heads=2, max_seq_len=16,
+                           dropout=0.0, pp_stages=stages)
+    opt = (lambda p, rate: p.optimizer.PipelineOptimizer(p.optimizer.Adam(rate), 2,
+                                                         schedule="temporal"))
+    return tp.build_pretrain(cfg, 4, 16, 2, lr=0.01, seed=1, optimizer=opt, pkg=pkg,
+                             model=model)
+
+
+def bert_feed(seed=0):
+    from paddle_tpu_torch.models import bert as tbert
+    from paddle_tpu_torch.tools import train_profile as tp
+    return tp.pretrain_feed(np.random.RandomState(seed), tbert.BertConfig(vocab_size=128),
+                            4, 16, 2)
+
+
+def _gauge(name, axis):
+    from paddle_tpu_torch.observability.metrics import REGISTRY
+    return REGISTRY.gauge(name, axis=axis).value
+
+
+def case_pipe(pt, rank, world, data, res):
+    """``pipeline_spmd`` over the world as the pp group (S = world): the
+    outputs, the gradients of the stacked parameters (this rank's block)
+    and of the input, and the schedule's telemetry."""
+    import torch
+    from paddle_tpu_torch.ops import collective as coll
+    from paddle_tpu_torch.parallel import env, pipeline
+    Ws, bs, x, tgt = pipe_inputs(world)
+    W, b = torch.from_numpy(Ws).requires_grad_(), torch.from_numpy(bs).requires_grad_()
+    xt = torch.from_numpy(x).requires_grad_()
+    before = pipeline.TRACE_COUNT
+    with coll.bind(env.mesh_groups({"pp": world})):
+        out = pipeline.pipeline_spmd(lambda p, h: torch.tanh(h @ p[0] + p[1]), (W, b), xt)
+        loss = ((out - torch.from_numpy(tgt)) ** 2).mean()
+        loss.backward()
+    res["pipe/out"] = out.detach().numpy()
+    res["pipe/loss"] = loss.detach().numpy()
+    res["pipe/gW"] = W.grad[rank].numpy()
+    res["pipe/gb"] = b.grad[rank].numpy()
+    res["pipe/gx"] = xt.grad.numpy()
+    res["pipe/traces"] = np.array(pipeline.TRACE_COUNT - before)
+    res["pipe/ticks"] = np.array(_gauge("pipeline_schedule_ticks", "pp"))
+    res["pipe/bubble"] = np.array(_gauge("pipeline_bubble_fraction", "pp"))
+    try:
+        with coll.bind({}):
+            pipeline.pipeline_spmd(lambda p, h: h, (W, b), xt)
+        res["pipe/no_axis"] = np.array("")
+    except ValueError as e:
+        res["pipe/no_axis"] = np.array(str(e))
+
+
+def _staged_run(pt, mesh, stages, data, res, key, rank, world):
+    from paddle_tpu_torch.parallel import env
+    main, _, loss = build_staged_mlp(pt, stages)
+    ds = pt.DistributedStrategy(mesh_shape=mesh,
+                                param_rules=pt.optimizer.PipelineOptimizer.pp_param_rules())
+    cp = pt.CompiledProgram(main).with_strategy(ds)
+    exe = pt.Executor(pt.CPUPlace())
+    scope = _init_scope(pt, data, f"staged{stages}/")
+    ndp = mesh.get("dp", 1)
+    dp_rank = env.mesh_coords(mesh, rank)["dp"] if "dp" in mesh else 0
+    losses = []
+    with pt.scope_guard(scope):
+        for f in staged_feeds():
+            lv, = exe.run(cp, feed=_slice(f, dp_rank, ndp), fetch_list=[loss])
+            losses.append(float(np.asarray(lv).reshape(())))
+    res[f"{key}/loss"] = np.asarray(losses, np.float32)
+    for n in persistables(main):
+        res[f"{key}/state/{n}"] = scope.find_var(n).numpy()
+    return main, cp, exe, scope
+
+
+def case_pp_train(pt, rank, world, data, res, out_dir):
+    """The staged MLP trained under pp = world (one stage a rank), and at
+    world 4 under dp 2 x pp 2; at world 2 tiny BERT under pp 2 and a
+    Checkpointer save of the pp run."""
+    from paddle_tpu_torch.parallel import pipeline
+    before = pipeline.TRACE_COUNT
+    meshes = [({"pp": world}, world, "pp")]
+    if world == 4:
+        meshes.append(({"dp": 2, "pp": 2}, 2, "dppp"))
+    for mesh, stages, key in meshes:
+        main, cp, exe, scope = _staged_run(pt, mesh, stages, data, res, key, rank, world)
+    res["pp/traces"] = np.array(pipeline.TRACE_COUNT - before)
+    if world != 2:
+        return
+    from paddle_tpu_torch.core.executor import capture_refusal
+    from paddle_tpu_torch.models import bert as tbert
+    from paddle_tpu_torch.ops import collective as coll
+    from paddle_tpu_torch.utils.checkpointer import Checkpointer
+    with coll.bind({"pp": coll.world_group("pp")}):
+        res["pp/refusal"] = np.array(capture_refusal(main) or "")
+    with pt.scope_guard(scope):
+        ck = Checkpointer(exe, cp, os.path.join(out_dir, "pp_ckpt"))
+        ck.save(3)
+        ck.close()
+    main, _, total, _ = bert_pp(pt, tbert)
+    cp = pt.CompiledProgram(main).with_strategy(pt.DistributedStrategy(
+        mesh_shape={"pp": 2}, param_rules=pt.optimizer.PipelineOptimizer.pp_param_rules()))
+    exe = pt.Executor(pt.CPUPlace())
+    scope = _init_scope(pt, data, "bert/")
+    with pt.scope_guard(scope):
+        res["bert/loss"] = np.asarray(
+            [np.asarray(exe.run(cp, feed=bert_feed(), fetch_list=[total])[0]).reshape(-1)[0]
+             for _ in range(3)], np.float32)
+    for n in persistables(main):
+        res[f"bert/state/{n}"] = scope.find_var(n).numpy()
+
+
+# ------------------------------------------------- sequence parallelism --
+
+def ring_inputs(world, H=4):
+    """q, k, v [2, H, 8 * world, 8], a bias [2, 1, 1, S] and an output
+    cotangent, each rank's block its slice of S."""
+    rng = np.random.RandomState(10 + world)
+    S = 8 * world
+    q, k, v, co = (rng.randn(2, H, S, 8).astype("float32") for _ in range(4))
+    bias = (rng.randn(2, 1, 1, S) * 0.5).astype("float32")
+    return q, k, v, bias, co
+
+
+def case_ring(pt, rank, world, data, res):
+    """Ring and Ulysses attention on this rank's block, causal and not:
+    the output block and the gradients of q, k, v against the cotangent."""
+    import torch
+    from paddle_tpu_torch.parallel import env, ring_attention, ulysses
+    q, k, v, bias, co = ring_inputs(world)
+    blk = q.shape[2] // world
+    sl = slice(rank * blk, (rank + 1) * blk)
+    groups = env.mesh_groups({"sp": world})
+    for name, fn in (("ring", ring_attention.ring_attention),
+                     ("ulysses", ulysses.ulysses_attention)):
+        for causal in (False, True):
+            ts = [torch.from_numpy(np.ascontiguousarray(a[:, :, sl])).requires_grad_()
+                  for a in (q, k, v)]
+            b = torch.from_numpy(np.ascontiguousarray(bias[..., sl]))
+            out = fn(*ts, b, 1.0 / np.sqrt(8), 0.0, causal, 0, groups["sp"])
+            (out * torch.from_numpy(np.ascontiguousarray(co[:, :, sl]))).sum().backward()
+            key = f"{name}/{'causal' if causal else 'full'}"
+            res[f"{key}/out"] = out.detach().numpy()
+            for n, t in zip("qkv", ts):
+                res[f"{key}/d{n}"] = t.grad.numpy()
+    # Ulysses refuses heads that do not divide the group
+    try:
+        t = torch.zeros(2, 3, 8, 8)
+        ulysses.ulysses_attention(t, t, t, None, 1.0, 0.0, False, 0, groups["sp"])
+        res["ulysses/heads_error"] = np.array("")
+    except ValueError as e:
+        res["ulysses/heads_error"] = np.array(str(e))
+    _attention_refusals(pt, rank, world, groups["sp"], res)
+
+
+def _attention_refusals(pt, rank, world, group, res):
+    """fused_attention where this rank holds only its block of the
+    positions, for what neither the ring nor Ulysses takes: the model of
+    ``build_attn`` under impl "composed" over an sp mesh, and an op under
+    the bound group with impl "pallas" or a [B, 1, S, S] bias. Each error's
+    text, or "" when the step ran."""
+    from paddle_tpu_torch.ops import collective as coll
+    from paddle_tpu_torch.parallel import env
+
+    def attempt(key, fn):
+        try:
+            fn()
+            res[key] = np.array("")
+        except Exception as e:  # noqa: BLE001 - the message is the result
+            res[key] = np.array(str(e))
+
+    main, startup, loss = build_attn(pt, 22, "composed")
+    cp = pt.CompiledProgram(main).with_strategy(pt.DistributedStrategy(
+        mesh_shape={"sp": world}, data_rules=[("x", ("dp", "sp")), ("mask", ("dp", "sp"))]))
+    c = env.mesh_coords({"sp": world}, rank)
+    blk = 32 // world
+    feed = {k: np.ascontiguousarray(v[:, c["sp"] * blk:(c["sp"] + 1) * blk])
+            for k, v in attn_feeds(1)[0].items()}
+    with pt.scope_guard(pt.Scope()):
+        exe = pt.Executor(pt.CPUPlace())
+        exe.run(startup)
+        attempt("refuse/composed", lambda: exe.run(cp, feed=feed, fetch_list=[loss]))
+    rng = np.random.RandomState(3)
+    for key, impl, square in (("refuse/pallas", "pallas", False),
+                              ("refuse/square_bias", "auto", True)):
+        main, startup = pt.Program(), pt.Program()
+        with pt.unique_name.guard(), pt.program_guard(main, startup):
+            q = pt.data("q", [4, 8, 8], "float32")
+            b = pt.data("b", [1, 8 if square else 1, 8], "float32")
+            out = pt.layers.fused_attention(q, q, q, bias=b, impl=impl)
+        feed = {"q": rng.randn(2, 4, 8, 8).astype("float32"),
+                "b": np.zeros((2, 1, 8 if square else 1, 8), "float32")}
+        with pt.scope_guard(pt.Scope()), coll.bind({"sp": group}):
+            exe = pt.Executor(pt.CPUPlace())
+            attempt(key, lambda: exe.run(main, feed=feed, fetch_list=[out]))
+
+
+def build_attn(pkg, seed, impl="auto", heads=2):
+    """``tests/test_ring_attention.py``'s model around one fused_attention
+    (x [B, 32, 16], a mask, Adam)."""
+    main, startup = pkg.Program(), pkg.Program()
+    main.random_seed = startup.random_seed = seed
+    hidden, d = 16, 16 // heads
+    with pkg.unique_name.guard(), pkg.program_guard(main, startup):
+        x = pkg.data("x", [32, hidden], "float32")
+        mask = pkg.data("mask", [32], "float32")
+        qkv = pkg.layers.fc(x, 3 * hidden, num_flatten_dims=2,
+                            param_attr=pkg.ParamAttr(name="qkv_w"))
+        q, k, v = pkg.layers.split(qkv, 3, dim=2)
+
+        def heads_of(t):
+            t = pkg.layers.reshape(t, [0, -1, heads, d])
+            return pkg.layers.transpose(t, [0, 2, 1, 3])
+
+        bias = pkg.layers.scale(mask, scale=1e4, bias=-1e4)
+        bias = pkg.layers.unsqueeze(pkg.layers.unsqueeze(bias, [1]), [1])
+        ctx = pkg.layers.fused_attention(heads_of(q), heads_of(k), heads_of(v), bias=bias,
+                                         scale=1.0 / np.sqrt(d), impl=impl)
+        ctx = pkg.layers.transpose(ctx, [0, 2, 1, 3])
+        ctx = pkg.layers.reshape(ctx, [0, -1, hidden])
+        out = pkg.layers.fc(ctx, 4, num_flatten_dims=2)
+        loss = pkg.layers.mean(out)
+        pkg.optimizer.Adam(0.01).minimize(loss)
+    return main, startup, loss
+
+
+def attn_feeds(steps=4):
+    rng = np.random.RandomState(7)
+    return [{"x": rng.randn(4, 32, 16).astype("float32"),
+             "mask": np.ones((4, 32), "float32")} for _ in range(steps)]
+
+
+def case_sp_train(pt, rank, world, data, res):
+    """The attention model trained under dp 2 x sp 2 (world 4), once through
+    the ring (impl "auto") and once through Ulysses: each rank feeds its
+    rows and its block of the 32 positions."""
+    from paddle_tpu_torch.parallel import env, ring_attention, ulysses
+    mesh = {"dp": 2, "sp": 2}
+    c = env.mesh_coords(mesh, rank)
+    for impl, heads, mod in (("auto", 2, ring_attention), ("ulysses", 2, ulysses)):
+        main, _, loss = build_attn(pt, 21, impl, heads)
+        ds = pt.DistributedStrategy(mesh_shape=mesh,
+                                    data_rules=[("x", ("dp", "sp")), ("mask", ("dp", "sp"))])
+        cp = pt.CompiledProgram(main).with_strategy(ds)
+        exe = pt.Executor(pt.CPUPlace())
+        before = mod.TRACE_COUNT
+        losses = []
+        with pt.scope_guard(_init_scope(pt, data, "attn/")):
+            for f in attn_feeds():
+                blk = {k: env.shard_batch(v, c["dp"], 2) for k, v in f.items()}
+                blk = {k: np.ascontiguousarray(v[:, c["sp"] * 16:(c["sp"] + 1) * 16])
+                       for k, v in blk.items()}
+                lv, = exe.run(cp, feed=blk, fetch_list=[loss])
+                losses.append(float(np.asarray(lv).reshape(())))
+            res[f"sp/{impl}/w"] = pt.global_scope().find_var("qkv_w").numpy()
+        res[f"sp/{impl}/loss"] = np.asarray(losses, np.float32)
+        res[f"sp/{impl}/traces"] = np.array(mod.TRACE_COUNT - before)
+
+
 CASES = {"ops": case_ops, "single": case_single, "mlp": case_mlp, "fetch": case_fetch, "dropout": case_dropout,
          "capture": case_capture, "feedcheck": case_feedcheck, "bn": case_bn,
          "dygraph": case_dygraph, "ckpt": case_ckpt, "fleet": case_fleet,
-         "compress": case_compress}
-NEEDS_DIR = ("ckpt", "fleet")
+         "compress": case_compress, "pipe": case_pipe, "pp_train": case_pp_train,
+         "ring": case_ring, "sp_train": case_sp_train}
+NEEDS_DIR = ("ckpt", "fleet", "pp_train")
 
 
 def main():
